@@ -1,0 +1,468 @@
+// Ragged paged attention for Hopper (sm_90a): one-token decode and
+// multi-token chunked prefill over the paged KV pools of
+// paddle_tpu_torch/inference/kv_cache.py.
+//
+// Replaces the TPU kernels of paddle_tpu/ops/pallas/paged_attention.py:
+//   paged_decode_kernel  <- _decode_kernel (fp pools), launched through
+//                           _paged_attention_pallas
+//   paged_chunk_kernel   <- _chunk_kernel (fp branch), launched through
+//                           _paged_attention_chunk_pallas
+// The plain PyTorch versions (paged_attention_ref /
+// paged_attention_chunk_ref in ops/kernels/paged_attention.py) define the
+// contract; these kernels follow their arithmetic: fp32 scores, fp32
+// online softmax (m, l, acc), fp32 P.V, output cast to q's dtype, and an
+// empty row (no visible key) writes zeros, not NaN.
+//
+// Layouts (one layer):
+//   q        decode [b, nh, d]        chunk [b, c, nh, d]
+//   pools    [kvh, num_pages, ps, d]  (fp32 or bf16; page 0 is trash)
+//   tables   [b, pp] int32            (the caller's rows, one per query row)
+//   lens     decode seq_lens [b]      chunk start [b]   (int32)
+//   out      same shape and dtype as q
+// Head h reads KV head h / (nh / kvh) (GQA). Decode is the chunk case
+// with c = 1 and start = seq_len - 1: row i of slot b sits at absolute
+// position start[b] + i and sees keys at positions <= that.
+//
+// Design: one block of 128 threads per (slot, kv head, tile of up to 32
+// query rows; row r = g * c + i, as the TPU kernel orders its q block).
+// The block walks the slot's keys in order, 64 at a time: it looks up
+// each key's page in the slot's table, stages the 64 K and V rows in
+// shared memory as fp32 (16-byte loads where the row allows), scores its
+// rows against them, folds them into a per-row online softmax (one warp
+// per row, shuffle reductions), and accumulates P.V in shared memory.
+// A block with more than 8 rows (chunk prefill) gives each thread a 4 x 4
+// register tile in the scores and in P.V (4 rows by 4 keys, 4 rows by 4
+// head dims), so a shared-memory read feeds four FMAs; a block with up to
+// 8 (decode: nh / kvh rows) gives each thread whole dot products instead,
+// which keeps its threads busy. Keys past the last one any row of the
+// tile can see are never read.
+//
+// What bounds it on the H100: bytes. A slot's visible K/V rows are read
+// once per row tile (one tile whenever (nh / kvh) * c <= 32, as at
+// decode), 2 * kvh * keys * d * itemsize bytes against 3.35 TB/s; the
+// arithmetic, 4 * rows * keys * d flops per head, stays far below the
+// card's rate even at chunk prefill.
+// What this simple design leaves on the table: one block per (slot, head)
+// walks a long context alone (no split-K over the keys, the
+// flash-decoding fix for long contexts at small batch, so at decode only
+// b * kvh blocks run); loads are plain loads with no cp.async/TMA double
+// buffering, so a tile's loads and math do not overlap; the math runs on
+// CUDA cores in fp32 rather than wgmma; K/V sit in shared memory as fp32,
+// twice the bytes of bf16, which caps blocks per SM.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 128;
+constexpr int kRowTile = 32;   // rows per block: 8 row lanes x 4
+constexpr int kKeyTile = 64;   // keys per step: 16 key lanes x 4
+constexpr int kMaxHeadDim = 256;
+constexpr size_t kMaxSmemBytes = 232448;   // 227 KB opt-in per block
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T> __device__ __forceinline__ T from_f(float x);
+template <> __device__ __forceinline__ float from_f<float>(float x) {
+  return x;
+}
+template <> __device__ __forceinline__ __nv_bfloat16
+from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+// 16 bytes of T -> floats
+__device__ __forceinline__ void unpack16(uint4 u, const float*, float* o) {
+  o[0] = __uint_as_float(u.x);
+  o[1] = __uint_as_float(u.y);
+  o[2] = __uint_as_float(u.z);
+  o[3] = __uint_as_float(u.w);
+}
+__device__ __forceinline__ void unpack16(uint4 u, const __nv_bfloat16*,
+                                         float* o) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    o[2 * i] = __uint_as_float(w[i] << 16);
+    o[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+// Shared memory (floats): q [32][d+1], K [64][d+1], V [64][d], scores
+// [32][65], acc [32][d], m/l/corr [32]. The +1 strides keep column reads
+// free of bank conflicts.
+size_t smem_bytes(int d) {
+  const size_t dp = d + 1;
+  const size_t floats = kRowTile * dp + kKeyTile * dp + kKeyTile * d +
+                        kRowTile * (kKeyTile + 1) + kRowTile * d +
+                        3 * kRowTile;
+  return floats * sizeof(float);
+}
+
+// Stage keys [k0, k0 + 64) of the slot's table into K/V (fp32); keys at
+// or past n_keys are zeros, so masked scores never multiply stale data.
+// `vec`: the pools are 16-byte aligned and a row is whole 16-byte words.
+template <typename TKV>
+__device__ __forceinline__ void stage_keys(
+    const TKV* __restrict__ k_pages, const TKV* __restrict__ v_pages,
+    const int* __restrict__ pt_row, int h, int num_pages, int ps, int d,
+    bool vec, int k0, int n_keys, float* k_s, float* v_s) {
+  constexpr int kVec = 16 / sizeof(TKV);
+  const int dp = d + 1;
+  const size_t head = (size_t)h * num_pages;
+  if (vec) {
+    const int vecs = d / kVec;
+    for (int idx = threadIdx.x; idx < kKeyTile * vecs; idx += kThreads) {
+      const int j = idx / vecs, cv = idx - j * vecs;
+      const int pos = k0 + j;
+      float kf[kVec], vf[kVec];
+      if (pos < n_keys) {
+        const size_t row =
+            ((head + pt_row[pos / ps]) * ps + pos % ps) * d + cv * kVec;
+        unpack16(*reinterpret_cast<const uint4*>(k_pages + row), k_pages,
+                 kf);
+        unpack16(*reinterpret_cast<const uint4*>(v_pages + row), v_pages,
+                 vf);
+      } else {
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) kf[e] = vf[e] = 0.f;
+      }
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) {
+        k_s[j * dp + cv * kVec + e] = kf[e];
+        v_s[j * d + cv * kVec + e] = vf[e];
+      }
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < kKeyTile * d; idx += kThreads) {
+      const int j = idx / d, dd = idx - j * d;
+      const int pos = k0 + j;
+      float kf = 0.f, vf = 0.f;
+      if (pos < n_keys) {
+        const size_t row = ((head + pt_row[pos / ps]) * ps + pos % ps) * d;
+        kf = to_f(k_pages[row + dd]);
+        vf = to_f(v_pages[row + dd]);
+      }
+      k_s[j * dp + dd] = kf;
+      v_s[j * d + dd] = vf;
+    }
+  }
+}
+
+// The shared body of both kernels: one (slot, kv head, row tile).
+template <typename TQ, typename TKV>
+__device__ __forceinline__ void attend_pages(
+    const TQ* __restrict__ q, const TKV* __restrict__ k_pages,
+    const TKV* __restrict__ v_pages, TQ* __restrict__ out,
+    const int* __restrict__ pt_row, int st, int c, int nh, int kvh, int d,
+    int num_pages, int ps, int pp, bool vec, float scale) {
+  const int b = blockIdx.x;
+  const int h = blockIdx.y;
+  const int grp = nh / kvh;
+  const int r0 = blockIdx.z * kRowTile;
+  const int R = min(kRowTile, grp * c - r0);
+  const int dp = d + 1;
+  const int sp = kKeyTile + 1;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int xl = tid & 15;   // key lane (scores) / head-dim lane (P.V)
+  const int yl = tid >> 4;   // row lane: rows yl, yl + 8, yl + 16, yl + 24
+
+  extern __shared__ float smem[];
+  float* q_s = smem;
+  float* k_s = q_s + kRowTile * dp;
+  float* v_s = k_s + kKeyTile * dp;
+  float* s_s = v_s + kKeyTile * d;
+  float* acc = s_s + kRowTile * sp;
+  float* m_s = acc + kRowTile * d;
+  float* l_s = m_s + kRowTile;
+  float* c_s = l_s + kRowTile;
+
+  // q row r of the tile: head group g, chunk index i; rows past R are
+  // zeros (their lanes compute and never store)
+  for (int idx = tid; idx < kRowTile * d; idx += kThreads) {
+    const int r = idx / d, dd = idx - r * d;
+    float x = 0.f;
+    if (r < R) {
+      const int row = r0 + r;
+      const int g = row / c, i = row - g * c;
+      x = to_f(q[(((size_t)b * c + i) * nh + h * grp + g) * d + dd]);
+    }
+    q_s[r * dp + dd] = x;
+    acc[idx] = 0.f;
+  }
+  if (tid < kRowTile) {
+    m_s[tid] = -INFINITY;
+    l_s[tid] = 0.f;
+  }
+  // the largest chunk index in the tile sees the most keys
+  const int i_max = (r0 / c != (r0 + R - 1) / c) ? c - 1 : (r0 + R - 1) % c;
+  const int n_keys = max(0, min(pp * ps, st + i_max + 1));
+  // key pos is visible to row r at or below the row's own position
+  auto visible = [&](int r, int pos) {
+    return pos <= st + (r0 + r) % c && pos < n_keys;
+  };
+  // register tiles pay off from 9 rows up; decode has nh / kvh rows
+  const bool wide = R > 8;
+  __syncthreads();
+
+  for (int k0 = 0; k0 < n_keys; k0 += kKeyTile) {
+    stage_keys<TKV>(k_pages, v_pages, pt_row, h, num_pages, ps, d, vec,
+                    k0, n_keys, k_s, v_s);
+    __syncthreads();
+
+    // scores s[r][j] = q_r . k_j * scale, masked to -inf
+    if (wide) {
+      // a 4 x 4 register tile a thread: rows yl + 8a by keys xl + 16b
+      float s[4][4] = {};
+      for (int dd = 0; dd < d; ++dd) {
+        float qv[4], kv[4];
+#pragma unroll
+        for (int a = 0; a < 4; ++a) qv[a] = q_s[(yl + 8 * a) * dp + dd];
+#pragma unroll
+        for (int bb = 0; bb < 4; ++bb) kv[bb] = k_s[(xl + 16 * bb) * dp + dd];
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+#pragma unroll
+          for (int bb = 0; bb < 4; ++bb)
+            s[a][bb] = fmaf(qv[a], kv[bb], s[a][bb]);
+      }
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        const int r = yl + 8 * a;
+        if (r >= R) continue;
+#pragma unroll
+        for (int bb = 0; bb < 4; ++bb) {
+          const int j = xl + 16 * bb;
+          s_s[r * sp + j] = visible(r, k0 + j) ? s[a][bb] * scale : -INFINITY;
+        }
+      }
+    } else {
+      // few rows (decode): one (row, key) dot a thread
+      for (int idx = tid; idx < R * kKeyTile; idx += kThreads) {
+        const int r = idx / kKeyTile, j = idx - r * kKeyTile;
+        const float* qr = q_s + r * dp;
+        const float* kr = k_s + j * dp;
+        float dot = 0.f;
+#pragma unroll 8
+        for (int dd = 0; dd < d; ++dd) dot = fmaf(qr[dd], kr[dd], dot);
+        s_s[r * sp + j] = visible(r, k0 + j) ? dot * scale : -INFINITY;
+      }
+    }
+    __syncthreads();
+
+    // online softmax: one warp per row, two keys per lane
+    for (int r = warp; r < R; r += kThreads / 32) {
+      float* sr = s_s + r * sp;
+      const float x0 = sr[lane], x1 = sr[lane + 32];
+      float mx = fmaxf(x0, x1);
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      const float m_prev = m_s[r];
+      const float m_new = fmaxf(m_prev, mx);
+      float e0 = 0.f, e1 = 0.f, corr = 1.f;
+      // nothing visible yet keeps the empty state (no NaN from inf - inf)
+      if (m_new != -INFINITY) {
+        e0 = expf(x0 - m_new);
+        e1 = expf(x1 - m_new);
+        corr = expf(m_prev - m_new);
+      }
+      sr[lane] = e0;
+      sr[lane + 32] = e1;
+      float sum = e0 + e1;
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, o);
+      __syncwarp();
+      if (lane == 0) {
+        l_s[r] = corr * l_s[r] + sum;
+        m_s[r] = m_new;
+        c_s[r] = corr;
+      }
+    }
+    __syncthreads();
+
+    // acc = acc * corr + P.V
+    if (wide) {
+      // a 4 x 4 register tile a thread: rows yl + 8a by head dims
+      // db + xl + 16e
+      for (int db = 0; db < d; db += 64) {
+        float o[4][4] = {};
+        for (int j = 0; j < kKeyTile; ++j) {
+          float pv[4], vv[4];
+#pragma unroll
+          for (int a = 0; a < 4; ++a) pv[a] = s_s[(yl + 8 * a) * sp + j];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int dd = db + xl + 16 * e;
+            vv[e] = dd < d ? v_s[j * d + dd] : 0.f;
+          }
+#pragma unroll
+          for (int a = 0; a < 4; ++a)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) o[a][e] = fmaf(pv[a], vv[e], o[a][e]);
+        }
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+          const int r = yl + 8 * a;
+          if (r >= R) continue;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int dd = db + xl + 16 * e;
+            if (dd < d) acc[r * d + dd] = acc[r * d + dd] * c_s[r] + o[a][e];
+          }
+        }
+      }
+    } else {
+      // few rows: one (row, head dim) output a thread
+      for (int idx = tid; idx < R * d; idx += kThreads) {
+        const int r = idx / d, dd = idx - r * d;
+        const float* pr = s_s + r * sp;
+        float o = 0.f;
+#pragma unroll 8
+        for (int j = 0; j < kKeyTile; ++j) o = fmaf(pr[j], v_s[j * d + dd], o);
+        acc[idx] = acc[idx] * c_s[r] + o;
+      }
+    }
+    __syncthreads();
+  }
+
+  for (int idx = tid; idx < R * d; idx += kThreads) {
+    const int r = idx / d, dd = idx - r * d;
+    const int row = r0 + r;
+    const int g = row / c, i = row - g * c;
+    const float l = l_s[r];
+    out[(((size_t)b * c + i) * nh + h * grp + g) * d + dd] =
+        from_f<TQ>(acc[idx] / (l == 0.f ? 1.f : l));
+  }
+}
+
+template <typename TQ, typename TKV>
+__global__ void __launch_bounds__(kThreads) paged_decode_kernel(
+    const TQ* __restrict__ q, const TKV* __restrict__ k_pages,
+    const TKV* __restrict__ v_pages, TQ* __restrict__ out,
+    const int* __restrict__ page_tables, const int* __restrict__ seq_lens,
+    int nh, int kvh, int d, int num_pages, int ps, int pp, int vec,
+    float scale) {
+  const int b = blockIdx.x;
+  attend_pages<TQ, TKV>(q, k_pages, v_pages, out, page_tables + (size_t)b * pp,
+                        seq_lens[b] - 1, 1, nh, kvh, d, num_pages, ps, pp,
+                        vec, scale);
+}
+
+template <typename TQ, typename TKV>
+__global__ void __launch_bounds__(kThreads) paged_chunk_kernel(
+    const TQ* __restrict__ q, const TKV* __restrict__ k_pages,
+    const TKV* __restrict__ v_pages, TQ* __restrict__ out,
+    const int* __restrict__ page_tables, const int* __restrict__ start,
+    int c, int nh, int kvh, int d, int num_pages, int ps, int pp, int vec,
+    float scale) {
+  const int b = blockIdx.x;
+  attend_pages<TQ, TKV>(q, k_pages, v_pages, out, page_tables + (size_t)b * pp,
+                        start[b], c, nh, kvh, d, num_pages, ps, pp, vec,
+                        scale);
+}
+
+bool geometry_ok(int b, int c, int nh, int kvh, int d, int num_pages, int ps,
+                 int pp) {
+  return b > 0 && c > 0 && kvh > 0 && kvh <= 65535 &&
+         nh > 0 && nh % kvh == 0 && d > 0 && d <= kMaxHeadDim && ps > 0 &&
+         pp > 0 && num_pages > 0 &&
+         (long long)(nh / kvh) * c <= 65535LL * kRowTile;
+}
+
+template <typename Kernel>
+cudaError_t prepare(Kernel kernel, size_t smem) {
+  if (smem > kMaxSmemBytes) return cudaErrorInvalidValue;
+  if (smem > 48 * 1024)
+    return cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  return cudaSuccess;
+}
+
+template <typename TQ, typename TKV>
+cudaError_t launch(const void* q, const void* k, const void* v, void* out,
+                   const int* pt, const int* lens, bool chunk, int b, int c,
+                   int nh, int kvh, int d, int num_pages, int ps, int pp,
+                   float scale, cudaStream_t stream) {
+  const int rows = nh / kvh * c;
+  const size_t smem = smem_bytes(d);
+  const int vec = d % (16 / (int)sizeof(TKV)) == 0 &&
+                  ((uintptr_t)k | (uintptr_t)v) % 16 == 0;
+  const dim3 grid(b, kvh, (rows + kRowTile - 1) / kRowTile);
+  cudaError_t err;
+  if (chunk) {
+    err = prepare(paged_chunk_kernel<TQ, TKV>, smem);
+    if (err != cudaSuccess) return err;
+    paged_chunk_kernel<TQ, TKV><<<grid, kThreads, smem, stream>>>(
+        (const TQ*)q, (const TKV*)k, (const TKV*)v, (TQ*)out, pt, lens, c, nh,
+        kvh, d, num_pages, ps, pp, vec, scale);
+  } else {
+    err = prepare(paged_decode_kernel<TQ, TKV>, smem);
+    if (err != cudaSuccess) return err;
+    paged_decode_kernel<TQ, TKV><<<grid, kThreads, smem, stream>>>(
+        (const TQ*)q, (const TKV*)k, (const TKV*)v, (TQ*)out, pt, lens, nh,
+        kvh, d, num_pages, ps, pp, vec, scale);
+  }
+  return cudaGetLastError();
+}
+
+cudaError_t dispatch(const void* q, const void* k, const void* v, void* out,
+                     const void* pt, const void* lens, bool chunk, int b,
+                     int c, int nh, int kvh, int d, int num_pages, int ps,
+                     int pp, float scale, int q_bf16, int kv_bf16,
+                     void* stream) {
+  if (!geometry_ok(b, c, nh, kvh, d, num_pages, ps, pp))
+    return cudaErrorInvalidValue;
+  const int* pti = (const int*)pt;
+  const int* li = (const int*)lens;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (q_bf16 && kv_bf16)
+    return launch<__nv_bfloat16, __nv_bfloat16>(q, k, v, out, pti, li, chunk,
+                                                b, c, nh, kvh, d, num_pages,
+                                                ps, pp, scale, s);
+  if (q_bf16)
+    return launch<__nv_bfloat16, float>(q, k, v, out, pti, li, chunk, b, c,
+                                        nh, kvh, d, num_pages, ps, pp, scale,
+                                        s);
+  if (kv_bf16)
+    return launch<float, __nv_bfloat16>(q, k, v, out, pti, li, chunk, b, c,
+                                        nh, kvh, d, num_pages, ps, pp, scale,
+                                        s);
+  return launch<float, float>(q, k, v, out, pti, li, chunk, b, c, nh, kvh, d,
+                              num_pages, ps, pp, scale, s);
+}
+
+}  // namespace
+
+// Plain C interface for ctypes. Each returns the cudaError_t of its
+// launch (cudaErrorInvalidValue for a geometry the kernels do not take);
+// nothing is allocated and nothing synchronises.
+extern "C" int paged_decode(const void* q, const void* k_pages,
+                            const void* v_pages, void* out,
+                            const void* page_tables, const void* seq_lens,
+                            int b, int nh, int kvh, int d, int num_pages,
+                            int ps, int pp, float scale, int q_bf16,
+                            int kv_bf16, void* stream) {
+  return (int)dispatch(q, k_pages, v_pages, out, page_tables, seq_lens, false,
+                       b, 1, nh, kvh, d, num_pages, ps, pp, scale, q_bf16,
+                       kv_bf16, stream);
+}
+
+extern "C" int paged_chunk(const void* q, const void* k_pages,
+                           const void* v_pages, void* out,
+                           const void* page_tables, const void* start, int b,
+                           int c, int nh, int kvh, int d, int num_pages,
+                           int ps, int pp, float scale, int q_bf16,
+                           int kv_bf16, void* stream) {
+  return (int)dispatch(q, k_pages, v_pages, out, page_tables, start, true, b,
+                       c, nh, kvh, d, num_pages, ps, pp, scale, q_bf16,
+                       kv_bf16, stream);
+}

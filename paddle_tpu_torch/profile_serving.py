@@ -1,0 +1,116 @@
+"""Where the serving path's time goes on the card.
+
+    python -m paddle_tpu_torch.profile_serving [--timed N]
+
+Serves the workload of ``chip_smoke.py`` phase 5 (GPT-3 1.3B width,
+bf16 weights and pools, 8 slots, 16 greedy requests with prompts of
+64-768 tokens and 32-128 new tokens, all from seed 0) once to warm up,
+then again under ``torch.profiler``, and prints one JSON line: the wall
+time, the device time summed over every kernel (one stream, so kernels
+never overlap), the device's idle share of the wall time, the device
+time of the two paged-attention kernels, of the matrix products and of
+everything else, and the top kernels by device time. ``--timed N``
+instead serves the workload N more times without the profiler and
+prints one JSON line per run (wall, output tok/s, TTFT and inter-token
+latency percentiles). Needs a CUDA card.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+import numpy as np
+import torch
+
+from .models import GPTForCausalLM, gpt_config
+from .serving import ServingEngine, ServingMetrics
+
+_ATTENTION = ("paged_decode_kernel", "paged_chunk_kernel")
+_GEMM = ("gemm", "cutlass", "cublas", "sm90_xmma", "nvjet")
+
+
+def _requests(vocab, seed=0):
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(64, 769, 16)
+    budgets = rng.integers(32, 129, 16)
+    return [(rng.integers(0, vocab, (int(n),)).astype(np.int32), int(m))
+            for n, m in zip(lens, budgets)]
+
+
+def _serve(engine, requests):
+    """Serve ``requests`` on fresh metrics; (handles, snapshot, wall)."""
+    engine.metrics = ServingMetrics(clock=engine.clock)
+    engine.scheduler.metrics = engine.metrics
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    handles = [engine.submit(p, n) for p, n in requests]
+    snap = engine.run()
+    torch.cuda.synchronize()
+    return handles, snap, time.perf_counter() - t0
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--timed", type=int, default=0, metavar="N",
+                    help="N timed runs without the profiler instead")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_serving needs a CUDA card")
+    cfg = gpt_config("gpt3-1.3b")
+    model = GPTForCausalLM(cfg, dtype=torch.bfloat16, seed=0)
+    engine = ServingEngine(model, max_slots=8, max_len=1024, page_size=16,
+                           chunk_size=64, prefill_batch=4,
+                           cache_dtype=torch.bfloat16)
+    requests = _requests(cfg.vocab_size)
+    _serve(engine, requests)                       # warm-up
+    if args.timed:
+        for run in range(args.timed):
+            handles, snap, wall = _serve(engine, requests)
+            print(json.dumps({
+                "run": run, "wall_s": wall,
+                "generated_tokens": snap["generated_tokens"],
+                "output_tok_s": snap["generated_tokens"] / wall,
+                **{k: snap[k] for k in ("ttft_p50_s", "ttft_p99_s",
+                                        "itl_p50_s", "itl_p99_s")}}),
+                flush=True)
+        return
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        handles, _, wall = _serve(engine, requests)
+    kernels = {}
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0))
+        if dev_us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
+            kernels[ev.key] = (kernels.get(ev.key, (0.0, 0))[0] + dev_us,
+                               kernels.get(ev.key, (0.0, 0))[1] + ev.count)
+    busy = sum(us for us, _ in kernels.values()) / 1e6
+
+    def share(names):
+        return sum(us for k, (us, _) in kernels.items()
+                   if any(n in k.lower() for n in names)) / 1e6
+
+    attention = {n: share((n.lower(),)) for n in _ATTENTION}
+    gemm = share(_GEMM)
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:15]
+    out = {
+        "device": torch.cuda.get_device_name(0),
+        "requests": len(handles),
+        "generated_tokens": sum(len(h.output_tokens) for h in handles),
+        "wall_s": wall,
+        "device_busy_s": busy,
+        "device_idle_share": 1.0 - busy / wall,
+        "attention_s": attention,
+        "gemm_s": gemm,
+        "other_s": busy - gemm - sum(attention.values()),
+        "kernel_launches": sum(n for _, n in kernels.values()),
+        "top_kernels": [{"name": k[:90], "s": us / 1e6, "count": n}
+                        for k, (us, n) in top],
+    }
+    print(json.dumps(out))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,354 @@
+"""ServingEngine: the continuous-batching loop over the serving steps.
+
+One engine owns one (model, PagedKVCache) pair and two steps: a
+`ServeDecodeStep` over the full slot batch and a `ChunkPrefillStep`
+whose chunk is padded to one of a few power-of-two buckets. Every
+`step()`:
+
+1. **admit**: the scheduler moves queue-head requests into free slots
+   (capacity probed via `can_allocate` before commit);
+2. **chunk-prefill**: at most `prefill_chunks_per_step` calls, each
+   advancing the next chunk of up to `prefill_batch` resident prompts,
+   so TTFT for new arrivals stays bounded while resident sequences keep
+   streaming;
+3. **decode**: `decode_burst` tokens for every decode-active slot
+   (per-slot RNG streams keyed on (request seed, context length): a
+   request's tokens never depend on its batch neighbours);
+4. **stream/retire**: tokens push to handles (callback, poll or the
+   `stream()` iterator); EOS or token-budget retirement frees pages
+   immediately.
+
+Counterpart of paddle_tpu/serving/engine.py. Not here yet, and refused
+at construction: quantized KV pools, speculative decoding, the online
+tuner, the fleet roles (prefill-only replicas, host KV ring), the debug
+server, SLOs and step-failure retries. ``trace`` is accepted and records
+no spans: request tracing comes with the observability slice.
+"""
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from ..framework.device import resolve_device
+from ..inference.kv_cache import PagedKVCache
+from ..jit.decode_step import ChunkPrefillStep, ServeDecodeStep
+from .metrics import ServingMetrics
+from .request import FinishReason, Request, RequestHandle, RequestState
+from .scheduler import RequestScheduler
+
+__all__ = ["ServingEngine"]
+
+# constructor options of the reference that the port does not have yet,
+# and the slice that brings each; off is None or a falsy value (for
+# debug_port, where 0 means "any port", only None)
+_NOT_PORTED = {
+    "kv_quant": "the quantized-KV slice",
+    "draft_model": "the speculative-decoding slice",
+    "tuner": "the online-tuner slice",
+    "host_kv_ring": "the fleet slice",
+    "prefill_only": "the fleet slice",
+    "debug_port": "the observability slice",
+    "slos": "the observability slice",
+    "recover_retries": "the fleet slice",
+}
+
+
+class ServingEngine:
+    def __init__(self, model, max_slots=8, max_len=256, page_size=16,
+                 num_pages=None, chunk_size=64,
+                 prefill_chunks_per_step=1, prefill_batch=4,
+                 decode_burst=1, do_sample=False, top_k=0, top_p=1.0,
+                 temperature=1.0, cache_dtype=None, admit_watermark="auto",
+                 clock=time.perf_counter, trace=True, device=None,
+                 **later):
+        for name, value in later.items():
+            if name not in _NOT_PORTED:
+                raise TypeError(f"unexpected argument {name!r}")
+            if value is not None and (name == "debug_port" or value):
+                raise NotImplementedError(
+                    f"ServingEngine({name}=...) is not ported yet: it "
+                    f"comes with {_NOT_PORTED[name]}")
+        self.device = resolve_device(device)
+        param = next(model.parameters())
+        if param.device != self.device:
+            raise ValueError(f"the model lives on {param.device}, the "
+                             f"engine on {self.device}")
+        cfg = model.config
+        if max_len > cfg.max_position_embeddings:
+            raise ValueError(
+                f"max_len={max_len} exceeds max_position_embeddings="
+                f"{cfg.max_position_embeddings}")
+        self.model = model
+        self.max_slots = int(max_slots)
+        self.max_len = int(max_len)
+        self.page_size = int(page_size)
+        self.chunk_size = int(chunk_size)
+        self.prefill_chunks_per_step = int(prefill_chunks_per_step)
+        # one chunk-prefill call advances up to this many prompts (fixed
+        # batch dim, padding rows routed to the trash page)
+        self.prefill_batch = max(1, min(int(prefill_batch),
+                                        self.max_slots))
+        # decode_burst > 1 runs that many decode steps per call: one
+        # host sync per k tokens. Tokens a request samples past its
+        # EOS/budget inside a burst are discarded.
+        self.decode_burst = max(1, int(decode_burst))
+        self.do_sample = bool(do_sample)
+        self.top_k = int(top_k)
+        self.top_p = float(top_p)
+        self.temperature = float(temperature)
+        self.clock = clock
+        del trace   # accepted; request tracing comes with a later slice
+        self._cache_dtype = cache_dtype or torch.float32
+        self.pages_per_seq = -(-self.max_len // self.page_size)
+        # full provisioning by default; pass a smaller pool to
+        # oversubscribe (preemption reclaims pages under pressure)
+        self.num_pages = int(num_pages or
+                             1 + self.max_slots * self.pages_per_seq)
+        self.cache = self._make_cache()
+        self.metrics = ServingMetrics(clock=clock)
+        self.scheduler = RequestScheduler(
+            self.cache, self.metrics, admit_watermark=admit_watermark)
+        self.scheduler.token_lookahead = self.decode_burst
+        self.prefill_step = ChunkPrefillStep(self)
+        self.decode_step = ServeDecodeStep(self)
+        bkts, b = [], 8
+        while b < self.chunk_size:
+            bkts.append(b)
+            b *= 2
+        self.chunk_buckets = tuple(bkts) + (self.chunk_size,)
+        self._buffers = self._split_buffers()
+        # per-slot host mirrors refreshed every step
+        self._tokens = np.zeros((self.max_slots,), np.int32)
+        self._seeds = np.zeros((self.max_slots,), np.uint32)
+        self._rid = 0
+
+    def _make_cache(self):
+        cfg = self.model.config
+        nh = cfg.num_attention_heads
+        return PagedKVCache(
+            cfg.num_layers, nh, cfg.hidden_size // nh,
+            num_pages=self.num_pages, page_size=self.page_size,
+            max_slots=self.max_slots, pages_per_seq=self.pages_per_seq,
+            dtype=self._cache_dtype, device=self.device)
+
+    def _split_buffers(self):
+        state = self.cache.state()
+        return {k: state[k] for k in ("k_layers", "v_layers")}
+
+    # -- client surface ---------------------------------------------------
+    def submit(self, prompt, max_new_tokens, priority=0,
+               eos_token_id=None, seed=None, on_token=None) -> RequestHandle:
+        """Queue a request; returns a streaming handle immediately.
+        Tokens arrive as the engine steps (`step()`/`run()`/`stream()`).
+        ``seed`` (default: the request id) keys its sampling stream."""
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        if prompt.size == 0:
+            raise ValueError("empty prompt")
+        if max_new_tokens < 1:
+            raise ValueError("max_new_tokens must be >= 1")
+        total = int(prompt.size) + int(max_new_tokens)
+        if total > self.max_len:
+            raise ValueError(
+                f"prompt {prompt.size} + {max_new_tokens} new tokens "
+                f"exceeds the engine max_len {self.max_len}")
+        if self.cache.pages_needed(total) > self.num_pages - 1:
+            raise ValueError(
+                f"request needs {self.cache.pages_needed(total)} pages "
+                f"but the pool only has {self.num_pages - 1}")
+        rid = self._rid
+        self._rid += 1
+        req = Request(rid, prompt, int(max_new_tokens),
+                      priority=int(priority), eos_token_id=eos_token_id,
+                      seed=int(seed) if seed is not None else rid)
+        handle = RequestHandle(req, on_token=on_token)
+        handle.arrival_seq = rid
+        handle.submit_time = self.clock()
+        self.scheduler.enqueue(handle)
+        self.metrics.on_submit()
+        return handle
+
+    def step(self) -> bool:
+        """One scheduler iteration: admit, <=N prefill chunks, one
+        decode call for all running sequences. Returns False when
+        idle. A failing step requeues every resident request on a fresh
+        cache before the error propagates."""
+        sched = self.scheduler
+        worked = False
+        try:
+            for h in sched.admit():
+                # full-width uint32: distinct seeds stay distinct streams
+                self._seeds[h.slot] = np.uint32(
+                    h.request.seed & 0xFFFFFFFF)
+            for _ in range(self.prefill_chunks_per_step):
+                heads = sched.prefill_heads(self.prefill_batch)
+                if not heads:
+                    break
+                self._run_prefill_chunk(heads)
+                worked = True
+            if sched.decode_slots():
+                worked |= self._run_decode()
+        except BaseException:
+            self._recover()
+            raise
+        self.metrics.observe(len(sched.waiting), len(sched.running))
+        return worked
+
+    def run(self, max_steps=1_000_000):
+        """Drive the loop until every submitted request finished."""
+        steps = 0
+        while self.scheduler.has_work():
+            self.step()
+            steps += 1
+            if steps >= max_steps:
+                raise RuntimeError(
+                    f"serving loop did not drain in {max_steps} steps")
+        return self.metrics.snapshot()
+
+    def stream(self, handle: RequestHandle):
+        """Generator yielding `handle`'s tokens as they are produced,
+        stepping the engine (and every other resident request) along."""
+        while True:
+            yield from handle.new_tokens()
+            if handle.done:
+                return
+            if not self.scheduler.has_work():
+                raise RuntimeError("request is not resident and the "
+                                   "engine is idle")
+            self.step()
+
+    def metrics_snapshot(self) -> dict:
+        return self.metrics.snapshot()
+
+    # -- step mechanics ---------------------------------------------------
+    def _meta(self):
+        c = self.cache
+        return {"page_tables": c.page_tables, "seq_lens": c.seq_lens,
+                "active": c.active}
+
+    def _commit(self, buffers, meta):
+        self._buffers = buffers
+        self.cache.load_state({**buffers, **meta})
+
+    def _chunk_bucket(self, n):
+        for b in self.chunk_buckets:
+            if b >= n:
+                return b
+        return self.chunk_buckets[-1]
+
+    def _run_prefill_chunk(self, heads: list):
+        """One call advances the next chunk of up to `prefill_batch`
+        prompts. Rows beyond `len(heads)` are padding: their slot id is
+        max_slots (out of range: the seq_lens scatter drops it, the
+        page-table gather clamps it) and their zero-length chunk routes
+        every write to the trash page."""
+        B = self.prefill_batch
+        heads = heads[:B]
+        chunks = [h.pending[h.prefill_pos:h.prefill_pos + self.chunk_size]
+                  for h in heads]
+        bucket = self._chunk_bucket(max(len(c) for c in chunks))
+        ids = np.zeros((B, bucket), np.int32)
+        slot_ids = np.full((B,), self.max_slots, np.int32)
+        start = np.zeros((B,), np.int32)
+        lens_new = np.zeros((B,), np.int32)
+        seeds = np.zeros((B,), np.uint32)
+        for j, (h, chunk) in enumerate(zip(heads, chunks)):
+            ids[j, :len(chunk)] = chunk
+            slot_ids[j] = h.slot
+            start[j] = h.prefill_pos
+            lens_new[j] = h.prefill_pos + len(chunk)
+            seeds[j] = self._seeds[h.slot]
+        ids_next, _logits, buffers, meta = self.prefill_step(
+            self._buffers, self._meta(), ids, slot_ids, start, lens_new,
+            seeds)
+        self._commit(buffers, meta)
+        tok = None
+        for j, (h, chunk) in enumerate(zip(heads, chunks)):
+            self.metrics.prefill_chunks += 1
+            h.prefill_pos += len(chunk)
+            if h.prefill_pos < len(h.pending):
+                continue
+            # prompt fully cached: the sampled token is the request's
+            # next real token (its first on a fresh admission -> TTFT)
+            if tok is None:
+                tok = ids_next.cpu().numpy()
+            self.cache.set_active(h.slot, True)
+            h.state = RequestState.RUNNING
+            token = int(tok[j])
+            self._tokens[h.slot] = token
+            self._emit(h, token)
+
+    def _run_decode(self) -> bool:
+        sched = self.scheduler
+        # highest priority first so page pressure lands on the lowest
+        order = sorted(sched.decode_slots(),
+                       key=lambda s: sched._key(sched.running[s]))
+        # the burst length is uniform, but the page lookahead is capped
+        # per slot by the request's remaining budget (and the window):
+        # tokens sampled past the budget are discarded and their writes
+        # land on the trash page, so no real pages are reserved for them
+        k = self.decode_burst
+        live = []
+        for slot in order:
+            h = sched.running.get(slot)
+            if h is None or h.state is not RequestState.RUNNING:
+                continue   # preempted as a victim earlier in this loop
+            remaining = h.request.max_new_tokens - len(h.output_tokens)
+            ahead = max(1, min(k, remaining,
+                               self.max_len - sched._context_len(h)))
+            if sched.ensure_token_capacity(slot, lookahead=ahead):
+                live.append(slot)
+        # a slot approved early can still be sacrificed to a later
+        # slot's reservation: keep only the survivors
+        live = [s for s in live
+                if sched.running.get(s) is not None
+                and sched.running[s].state is RequestState.RUNNING]
+        if not live:
+            return False
+        out, _logits, buffers, meta = self.decode_step(
+            self._buffers, self._meta(), self._tokens, self._seeds)
+        self._commit(buffers, meta)
+        # one host sync per burst: [k, b] sampled ids
+        step_tokens = out.cpu().numpy()
+        self.metrics.decode_steps += k
+        for tok in step_tokens:
+            for slot in live:
+                handle = sched.running.get(slot)
+                if handle is None or handle.state is not RequestState.RUNNING:
+                    continue   # retired earlier in this burst
+                token = int(tok[slot])
+                self._tokens[slot] = token
+                self._emit(handle, token)
+        return True
+
+    def _emit(self, handle: RequestHandle, token: int):
+        now = self.clock()
+        handle._push_token(token, now)
+        self.metrics.on_token()
+        req = handle.request
+        if req.eos_token_id is not None and token == req.eos_token_id:
+            self.scheduler.retire(handle.slot, FinishReason.EOS, now)
+        elif len(handle.output_tokens) >= req.max_new_tokens:
+            self.scheduler.retire(handle.slot, FinishReason.LENGTH, now)
+
+    def _recover(self):
+        """A failed step may leave the pools half-written: requeue every
+        resident request for resume and start from a fresh cache."""
+        self.scheduler.abort_all()
+        self.cache = self._make_cache()
+        self.scheduler.cache = self.cache
+        self._buffers = self._split_buffers()
+
+    # -- introspection ----------------------------------------------------
+    def leak_check(self) -> dict:
+        """Post-drain invariant surface: every page and slot is back in
+        the pool once no request is resident."""
+        c = self.cache
+        return {
+            "free_pages": c.free_page_count,
+            "total_pages": self.num_pages - 1,   # page 0 is trash
+            "free_slots": c.free_slot_count,
+            "total_slots": self.max_slots,
+            "resident_slot_pages": len(c._slot_pages),
+        }

@@ -1,0 +1,125 @@
+"""Paged attention of the PyTorch port against the JAX reference.
+
+The port's plain versions (`paged_attention_ref`,
+`paged_attention_chunk_ref`) must agree with the reference's Pallas
+kernels run in interpret mode and with its XLA gather paths, on the
+same numpy inputs, within 1e-5 (fp32; only the summation order
+differs). The wrappers route CPU tensors to the plain versions; the
+CUDA kernels themselves are checked against them on the card by
+tests/test_torch_kernels_gpu.py.
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from paddle_tpu.ops.pallas import paged_attention as jpa
+from paddle_tpu_torch.ops.kernels import paged_attention as tpa
+
+ATOL = 1e-5
+
+
+def _inputs(b=3, nh=4, kvh=2, d=32, ps=16, npages=16, pp=4, c=None,
+            seed=0):
+    rng = np.random.default_rng(seed)
+    qshape = (b, nh, d) if c is None else (b, c, nh, d)
+    q = rng.standard_normal(qshape).astype(np.float32)
+    k = rng.standard_normal((kvh, npages, ps, d)).astype(np.float32)
+    v = rng.standard_normal((kvh, npages, ps, d)).astype(np.float32)
+    pt = rng.choice(np.arange(1, npages), (b, pp),
+                    replace=False).astype(np.int32)
+    return q, k, v, pt
+
+
+def _t(*arrays):
+    return [torch.from_numpy(np.array(a)) for a in arrays]
+
+
+@pytest.mark.parametrize("lens", [(37, 1, 64), (0, 5, 64), (16, 17, 33)])
+@pytest.mark.parametrize("kvh", [2, 4])
+def test_decode_ref_matches_jax(lens, kvh):
+    q, k, v, pt = _inputs(kvh=kvh)
+    sl = np.asarray(lens, np.int32)
+    jargs = [jnp.asarray(a) for a in (q, k, v, pt, sl)]
+    want_kernel = np.asarray(jpa.paged_attention(
+        *jargs, interpret=True, use_kernel=True))
+    want_xla = np.asarray(jpa.paged_attention_xla(*jargs))
+    got = tpa.paged_attention(*_t(q, k, v, pt, sl)).numpy()
+    np.testing.assert_allclose(got, want_kernel, rtol=0, atol=ATOL)
+    np.testing.assert_allclose(got, want_xla, rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("start", [(0, 7, 40), (3, 0, 48)])
+@pytest.mark.parametrize("c", [1, 8])
+def test_chunk_ref_matches_jax(start, c):
+    q, k, v, pt = _inputs(kvh=2, c=c)
+    st = np.asarray(start, np.int32)
+    jargs = [jnp.asarray(a) for a in (q, k, v, pt, st)]
+    want_kernel = np.asarray(jpa.paged_attention_chunk(
+        *jargs, interpret=True, use_kernel=True))
+    want_xla = np.asarray(jpa.paged_attention_chunk_xla(*jargs))
+    got = tpa.paged_attention_chunk(*_t(q, k, v, pt, st)).numpy()
+    # rows past the slot's context are masked only causally, as in the
+    # reference: every row is defined and compared
+    np.testing.assert_allclose(got, want_kernel, rtol=0, atol=ATOL)
+    np.testing.assert_allclose(got, want_xla, rtol=0, atol=ATOL)
+
+
+def test_empty_slot_gives_exact_zeros():
+    q, k, v, pt = _inputs()
+    sl = np.asarray([0, 5, 0], np.int32)
+    got = tpa.paged_attention(*_t(q, k, v, pt, sl))
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+    assert torch.equal(got[2], torch.zeros_like(got[2]))
+    assert torch.isfinite(got).all()
+
+
+def test_scale_argument_matches_jax():
+    q, k, v, pt = _inputs()
+    sl = np.asarray([9, 30, 64], np.int32)
+    want = np.asarray(jpa.paged_attention_xla(
+        *[jnp.asarray(a) for a in (q, k, v, pt, sl)], scale=0.3))
+    got = tpa.paged_attention(*_t(q, k, v, pt, sl), scale=0.3).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("fn,lens", [
+    (tpa.paged_attention, "seq_lens"),
+    (tpa.paged_attention_chunk, "start"),
+])
+def test_quantized_pools_not_ported(fn, lens):
+    q, k, v, pt = _inputs(c=None if lens == "seq_lens" else 2)
+    args = _t(q, k, v, pt, np.zeros(3, np.int32))
+    scales = torch.ones(k.shape[:3])
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        fn(*args, k_scales=scales, v_scales=scales)
+
+
+def test_wrapper_validates_inputs():
+    q, k, v, pt = _inputs()
+    sl = np.asarray([1, 2, 3], np.int32)
+    tq, tk, tv, tpt, tsl = _t(q, k, v, pt, sl)
+    with pytest.raises(TypeError, match="int32"):
+        tpa.paged_attention(tq, tk, tv, tpt.long(), tsl)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        tpa.paged_attention(tq.double(), tk, tv, tpt, tsl)
+    with pytest.raises(ValueError, match="contiguous"):
+        tpa.paged_attention(tq.transpose(0, 1).contiguous()
+                            .transpose(0, 1), tk, tv, tpt, tsl)
+    with pytest.raises(ValueError, match="shape"):
+        tpa.paged_attention(tq, tk, tv, tpt, tsl[:2])
+    with pytest.raises(ValueError, match="multiple"):
+        tpa.paged_attention(tq[:, :3].contiguous(), tk, tv, tpt, tsl)
+
+
+def test_cpu_tensors_take_the_plain_version_without_counting():
+    q, k, v, pt = _inputs(c=4)
+    st = np.asarray([0, 3, 9], np.int32)
+    before = (tpa.paged_attention.launches,
+              tpa.paged_attention_chunk.launches)
+    got = tpa.paged_attention_chunk(*_t(q, k, v, pt, st))
+    want = tpa.paged_attention_chunk_ref(*_t(q, k, v, pt, st))
+    assert torch.equal(got, want)
+    assert (tpa.paged_attention.launches,
+            tpa.paged_attention_chunk.launches) == before
