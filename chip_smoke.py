@@ -6,19 +6,30 @@
 Phases, one line each (any failure exits non-zero, nothing is caught):
 
 1. the card: name, device count, ``nvidia-smi`` name and power limit;
-2. build every kernel from ``paddle_tpu_torch/csrc`` with ``nvcc``;
-3. each kernel against its plain PyTorch version on the card, at the
-   shapes the serving path gives it, in fp32 (max abs err <= 1e-4) and
-   bf16 (<= 2e-2 against the plain version on the same bf16 inputs),
-   then timed with CUDA events (L2 flushed between launches) beside the
-   plain version and one PyTorch library call on the same inputs;
-4. end-to-end parity: a tiny fp32 GPT served on the card (kernels) and
-   on the CPU (plain versions) gives identical greedy tokens;
+2. build every kernel from ``paddle_tpu_torch/csrc`` with ``nvcc``, one
+   compiler per source, all started together;
+3. each kernel against its plain PyTorch version on the card, in fp32
+   and bf16 (tolerances at `check_kernels` and
+   `check_training_kernels`), at the shapes the serving and training
+   paths give it, then timed with CUDA events (L2 flushed between
+   launches) beside the plain version and one PyTorch library call on
+   the same inputs;
+4. serving parity: a tiny fp32 GPT served on the card (kernels) and on
+   the CPU (plain versions) gives identical greedy tokens;
 5. the serving path at GPT-3 1.3B width: 16 greedy requests through
-   ``ServingEngine`` with bf16 weights and pools; the kernels' launch
-   counters are zeroed just before and read just after, and must both
-   be > 0;
-6. one JSON line ``{"kernels": [...]}`` with each kernel's error, times,
+   ``ServingEngine`` with bf16 weights and pools; the paged kernels'
+   launch counters are zeroed just before and read just after, and must
+   both be > 0;
+6. training parity: a tiny fp32 GPT with packed-sequence segment ids
+   takes three ``TrainStep``s (AdamW, global-norm clip) on the card and
+   on the CPU; losses and parameters must agree, and each of the four
+   training kernels must have run;
+7. the training path at GPT-3 1.3B width: ``TrainStep`` + AdamW (bf16
+   weights, fp32 masters, bf16 moments, clip 1.0) over 8 x 1024 random
+   tokens with recompute, 2 warm-up and 5 timed steps; the training
+   kernels' counters are zeroed just before the timed steps and read
+   just after, and must all be > 0, and every loss finite;
+8. one JSON line ``{"kernels": [...]}`` with each kernel's error, times,
    bound and launches.
 
 It then prints the ``nvidia-smi`` line again and, last, ``{"ok": true,
@@ -27,6 +38,7 @@ It then prints the ``nvidia-smi`` line again and, last, ``{"ok": true,
 from __future__ import annotations
 
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -37,6 +49,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
 BF16_FLOP_PER_S = 989e12        # dense bf16 tensor-core peak
 FP32_FLOP_PER_S = 67e12         # fp32 outside the tensor cores
+PHASES = 8
 
 
 def nvidia_smi() -> str:
@@ -155,7 +168,7 @@ def check_kernels(dev, flush):
             "shape": list(q.shape),
         }
         r = results[name]
-        print(f"[3/6] {name}: q {r['shape']} max abs err fp32 "
+        print(f"[3/{PHASES}] {name}: q {r['shape']} max abs err fp32 "
               f"{errs[torch.float32]:.3g} bf16 {errs[torch.bfloat16]:.3g}; "
               f"bf16 kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
               f"sdpa {r['library_ms']:.4f} ms, bound {b_ms:.4f} ms "
@@ -202,7 +215,7 @@ def parity(dev):
         raise AssertionError(f"card/CPU greedy tokens differ:\n"
                              f"{tokens['card']}\n{tokens['cpu']}")
     n = sum(len(t) for t in tokens["card"])
-    print(f"[4/6] parity: tiny fp32 GPT, {len(prompts)} greedy requests, "
+    print(f"[4/{PHASES}] parity: tiny fp32 GPT, {len(prompts)} greedy requests, "
           f"{n} tokens identical on card and CPU; no leaks", flush=True)
 
 
@@ -284,10 +297,366 @@ def serve_full_width(dev):
         "launches_per_call": {k: launches[k] / max(calls[k], 1)
                               for k in launches},
     }
-    print(f"[5/6] serve gpt3-1.3b: {json.dumps(stats)}", flush=True)
+    print(f"[5/{PHASES}] serve gpt3-1.3b: {json.dumps(stats)}", flush=True)
     if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel never ran on the path: {launches}")
     return launches
+
+# ---------------------------------------------------------------------------
+# phase 3, training kernels: splash attention and the fused cross entropy
+# ---------------------------------------------------------------------------
+
+# Tolerances. Forward: fp32 max abs 1e-4 (fp32 sums in another order than
+# the plain version's matmuls), bf16 2e-2 (one bf16 rounding of outputs of
+# order 1: P before P.V, the output itself). Backward: the error over the
+# largest magnitude of the plain gradient, fp32 1e-4 and bf16 2e-2 (dS and
+# d are rounded to bf16 before their products in both versions, but from
+# fp32 values that differ in their last bits).
+TOL_FWD = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+TOL_BWD = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+SPLASH_SOURCE = "paddle_tpu_torch/csrc/splash_attention.cu"
+CE_SOURCE = "paddle_tpu_torch/csrc/fused_cross_entropy.cu"
+
+
+def _max_err(got, want):
+    return float((got.float() - want.float()).abs().max())
+
+
+def _rel_err(got, want):
+    return _max_err(got, want) / max(float(want.float().abs().max()), 1e-30)
+
+
+def _check(name, dtype, fwd_err, bwd_rel, finite):
+    if not finite:
+        raise AssertionError(f"{name} {dtype}: non-finite output")
+    if not fwd_err <= TOL_FWD[dtype]:
+        raise AssertionError(f"{name} {dtype}: forward max abs err "
+                             f"{fwd_err} > {TOL_FWD[dtype]}")
+    if not bwd_rel <= TOL_BWD[dtype]:
+        raise AssertionError(f"{name} {dtype}: backward rel err "
+                             f"{bwd_rel} > {TOL_BWD[dtype]}")
+
+
+def _segments(b, s, docs, rng):
+    """[b, s] int32 ids: ``docs`` documents a row, the last row one."""
+    rows = []
+    for i in range(b):
+        n = 1 if i == b - 1 else docs
+        cuts = np.sort(rng.choice(np.arange(1, s), n - 1, replace=False))
+        rows.append(np.searchsorted(cuts, np.arange(s), side="right"))
+    return np.stack(rows).astype(np.int32)
+
+
+def _splash_case(dev, b, s, h, kvh, d, causal, docs, dtype, seed=0):
+    """One splash case in ``dtype``, q/k/v as strided views of one packed
+    tensor (as the model passes them): errors of the forward (out, lse)
+    and the backward against the plain versions, and the inputs."""
+    from paddle_tpu_torch.ops.kernels import splash_attention as sa
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    qkv = torch.randn(b, s, h + 2 * kvh, d, device=dev, generator=gen) \
+        .to(dtype)
+    q, k, v = qkv.split([h, kvh, kvh], dim=2)
+    seg = None
+    if docs:
+        seg = torch.from_numpy(_segments(
+            b, s, docs, np.random.default_rng(seed))).to(dev)
+    out, lse = sa.splash_attention_fwd(q, k, v, causal, seg)
+    dout = torch.randn(out.shape, device=dev, generator=gen).to(dtype)
+    grads = sa.splash_attention_bwd(q, k, v, out, lse, dout, causal, seg)
+    torch.cuda.synchronize()
+    want, want_lse = sa.splash_attention_ref(q, k, v, causal, seg,
+                                             return_lse=True)
+    ref = sa.splash_attention_bwd_ref(q, k, v, out, lse, dout, causal, seg)
+    fin = torch.isfinite(want_lse)
+    finite = bool(torch.isfinite(out).all()) and all(
+        bool(torch.isfinite(g).all()) for g in grads) and \
+        torch.equal(fin, torch.isfinite(lse))
+    fwd_err = max(_max_err(out, want), _max_err(lse[fin], want_lse[fin]))
+    bwd_abs = max(_max_err(g, r) for g, r in zip(grads, ref))
+    bwd_rel = max(_rel_err(g, r) for g, r in zip(grads, ref))
+    return fwd_err, bwd_abs, bwd_rel, finite, (q, k, v, out, lse, dout)
+
+
+def _ce_case(dev, n, vocab, hidden, dtype, seed=0):
+    """One fused-CE case in ``dtype``, 5% of labels at ignore_index:
+    errors of the forward (losses, lse) and the backward (dh, dW)."""
+    from paddle_tpu_torch.ops.kernels import fused_cross_entropy as fce
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    h = torch.randn(n, hidden, device=dev, generator=gen).to(dtype)
+    w = (torch.randn(vocab, hidden, device=dev, generator=gen) * 0.02) \
+        .to(dtype)
+    labels = torch.randint(0, vocab, (n,), device=dev, generator=gen)
+    labels[torch.rand(n, device=dev, generator=gen) < 0.05] = -100
+    loss, lse = fce.fused_ce_fwd(h, w, labels)
+    g = torch.where(labels != -100, torch.full_like(loss, 1.0 / n), 0.0)
+    dh, dw = fce.fused_ce_bwd(h, w, labels, lse, g)
+    torch.cuda.synchronize()
+    want, want_lse = fce.fused_ce_fwd_ref(h, w, labels)
+    rdh, rdw = fce.fused_ce_bwd_ref(h, w, labels, lse, g)
+    finite = all(bool(torch.isfinite(t).all()) for t in (loss, lse, dh, dw))
+    fwd_err = max(_max_err(loss, want), _max_err(lse, want_lse))
+    bwd_abs = max(_max_err(dh, rdh), _max_err(dw, rdw))
+    bwd_rel = max(_rel_err(dh, rdh), _rel_err(dw, rdw))
+    return fwd_err, bwd_abs, bwd_rel, finite, (h, w, labels, lse, g)
+
+
+def check_training_kernels(dev, flush):
+    """Splash at the training shape ([8, 1024, 32, 64] causal) and at a
+    GQA + segments case; the fused CE at the training shape (8192 tokens,
+    hidden 2048, vocab 50304) and at a ragged one (300 x 1000): fp32 and
+    bf16 against the plain versions; then bf16 times at the training
+    shapes."""
+    from paddle_tpu_torch.ops.kernels import fused_cross_entropy as fce
+    from paddle_tpu_torch.ops.kernels import splash_attention as sa
+    F = torch.nn.functional
+
+    b, s, nh, d = 8, 1024, 32, 64
+    n, vocab, hidden = 8192, 50304, 2048
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for case, args in {
+                "splash [8,1024,32,64] causal": (b, s, nh, nh, d, True,
+                                                 None),
+                "splash gqa h8 kvh2 s256 segments": (4, 256, 8, 2, 64, True,
+                                                     3)}.items():
+            fe, ba, br, fin, _ = _splash_case(dev, *args, dtype)
+            _check(case, dtype, fe, br, fin)
+            errs[(case, dtype)] = (fe, ba, br)
+        for case, args in {"fused_ce [8192,2048]x[50304,2048]":
+                           (n, vocab, hidden),
+                           "fused_ce ragged [300,256]x[1000,256]":
+                           (300, 1000, 256)}.items():
+            fe, ba, br, fin, _ = _ce_case(dev, *args, dtype)
+            _check(case, dtype, fe, br, fin)
+            errs[(case, dtype)] = (fe, ba, br)
+        torch.cuda.empty_cache()
+    for (case, dtype), (fe, ba, br) in errs.items():
+        print(f"[3/{PHASES}] {case} {str(dtype)[6:]}: forward max abs err "
+              f"{fe:.3g}; backward max abs err {ba:.3g}, relative "
+              f"{br:.3g}", flush=True)
+
+    # times at the training path's dtype (bf16)
+    bf = torch.bfloat16
+    results = {}
+    _, _, _, _, (q, k, v, out, lse, dout) = _splash_case(
+        dev, b, s, nh, nh, d, True, None, bf)
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    dot = dout.transpose(1, 2).contiguous()
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, is_causal=True)
+    sdpa_fb = lambda: torch.autograd.grad(  # noqa: E731
+        sdpa(), (qt, kt, vt), dot)
+    pairs = s * (s + 1) / 2                          # causal (row, key)
+    prod = 2.0 * b * nh * pairs * d                  # one product
+    tok = b * s * nh * d * 2                         # one [b,s,h,d] tensor
+    lse_b = b * nh * s * 4
+    lib_f = time_ms(sdpa, flush)
+    for name, kernel, plain, nbytes, flops, lib in (
+            ("splash_fwd_kernel",
+             lambda: sa.splash_attention_fwd(q, k, v, True),
+             lambda: sa.splash_attention_ref(q, k, v, True,
+                                             return_lse=True),
+             4 * tok + lse_b, 2 * prod, lambda: lib_f),
+            ("splash_bwd_kernels",
+             lambda: sa.splash_attention_bwd(q, k, v, out, lse, dout, True),
+             lambda: sa.splash_attention_bwd_ref(q, k, v, out, lse, dout,
+                                                 True),
+             8 * tok + lse_b, 5 * prod,
+             lambda: time_ms(sdpa_fb, flush) - lib_f)):
+        b_ms, b_by = bound_ms(nbytes, flops, 2)
+        results[name] = {"ms": time_ms(kernel, flush),
+                         "plain_ms": time_ms(plain, flush, iters=5),
+                         "library_ms": lib(), "bound_ms": b_ms,
+                         "bound_by": b_by, "shape": [b, s, nh, d]}
+    del q, k, v, out, lse, dout, qt, kt, vt, dot
+    torch.cuda.empty_cache()
+
+    _, _, _, _, (h, w, labels, lse, g) = _ce_case(dev, n, vocab, hidden, bf)
+    hl, wl = h.clone().requires_grad_(), w.clone().requires_grad_()
+    lib = lambda: F.cross_entropy(  # noqa: E731
+        F.linear(hl, wl).float(), labels, ignore_index=-100,
+        reduction="none")
+    lib_fb = lambda: torch.autograd.grad(lib(), (hl, wl), g)  # noqa: E731
+    nvh = 2.0 * n * vocab * hidden
+    hw = (n + vocab) * hidden * 2
+    lib_f = time_ms(lib, flush, iters=10)
+    for name, kernel, plain, nbytes, flops, lib_ms in (
+            ("fused_ce_fwd_kernel",
+             lambda: fce.fused_ce_fwd(h, w, labels),
+             lambda: fce.fused_ce_fwd_ref(h, w, labels),
+             hw + n * 4 + 2 * n * 4, nvh, lambda: lib_f),
+            ("fused_ce_bwd_kernels",
+             lambda: fce.fused_ce_bwd(h, w, labels, lse, g),
+             lambda: fce.fused_ce_bwd_ref(h, w, labels, lse, g),
+             2 * hw + 3 * n * 4, 3 * nvh,
+             lambda: time_ms(lib_fb, flush, iters=10) - lib_f)):
+        b_ms, b_by = bound_ms(nbytes, flops, 2)
+        results[name] = {"ms": time_ms(kernel, flush, iters=10),
+                         "plain_ms": time_ms(plain, flush, iters=3,
+                                             warmup=1),
+                         "library_ms": lib_ms(), "bound_ms": b_ms,
+                         "bound_by": b_by, "shape": [n, hidden, vocab]}
+    del h, w, hl, wl, labels, lse, g
+    torch.cuda.empty_cache()
+
+    case_of = {"splash_fwd_kernel": ("splash [8,1024,32,64] causal", 0),
+               "splash_bwd_kernels": ("splash [8,1024,32,64] causal", 1),
+               "fused_ce_fwd_kernel": ("fused_ce [8192,2048]x[50304,2048]",
+                                       0),
+               "fused_ce_bwd_kernels": ("fused_ce [8192,2048]x[50304,2048]",
+                                        1)}
+    for name, r in results.items():
+        case, which = case_of[name]
+        r["max_abs_err"] = errs[(case, torch.bfloat16)][which]
+        r["max_abs_err_fp32"] = errs[(case, torch.float32)][which]
+        if which:
+            r["max_rel_err"] = errs[(case, torch.bfloat16)][2]
+            r["max_rel_err_fp32"] = errs[(case, torch.float32)][2]
+        print(f"[3/{PHASES}] {name}: bf16 kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
+    return results
+
+
+TRAIN_COUNTERS = {
+    "splash_fwd_kernel": ("splash_attention", "splash_attention_fwd"),
+    "splash_bwd_kernels": ("splash_attention", "splash_attention_bwd"),
+    "fused_ce_fwd_kernel": ("fused_cross_entropy", "fused_ce_fwd"),
+    "fused_ce_bwd_kernels": ("fused_cross_entropy", "fused_ce_bwd"),
+}
+
+
+def _train_counters():
+    import importlib
+
+    return {name: getattr(importlib.import_module(
+                f"paddle_tpu_torch.ops.kernels.{mod}"), fn)
+            for name, (mod, fn) in TRAIN_COUNTERS.items()}
+
+
+# ---------------------------------------------------------------------------
+# phase 6: tiny model training, card vs CPU
+# ---------------------------------------------------------------------------
+
+def train_parity(dev):
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = GPTConfig(vocab_size=128, hidden_size=64, num_layers=2,
+                    num_attention_heads=4, max_position_embeddings=128)
+    rng = np.random.default_rng(0)
+    cpu = GPTForCausalLM(cfg, device="cpu")
+    sd = {name: torch.from_numpy(
+              (rng.standard_normal(tuple(t.shape)) * 0.3).astype(np.float32))
+          for name, t in cpu.state_dict().items()}
+    ids = rng.integers(0, 128, (2, 128))
+    labels = rng.integers(0, 128, (2, 128))
+    seg = _segments(2, 128, 3, rng)
+    counters = _train_counters()
+    for c in counters.values():
+        c.launches = 0
+    losses, params = {}, {}
+    for where in ("card", "cpu"):
+        d = dev if where == "card" else torch.device("cpu")
+        model = GPTForCausalLM(cfg, device=d)
+        model.load_state_dict(sd)
+        opt = AdamW(learning_rate=1e-3, parameters=model.parameters(),
+                    grad_clip=ClipGradByGlobalNorm(1.0))
+        step = TrainStep(model, lambda m, x, y, s: m.loss(
+            x, y, segment_ids=s), opt)
+        batch = [torch.from_numpy(a).to(d) for a in (ids, labels, seg)]
+        losses[where] = [float(step(*batch)) for _ in range(3)]
+        params[where] = {k: t.detach().cpu() for k, t in
+                         model.state_dict().items()}
+    launches = {k: c.launches for k, c in counters.items()}
+    loss_err = max(abs(a - b) for a, b in zip(losses["card"],
+                                              losses["cpu"]))
+    param_rel = max(_rel_err(params["card"][k], params["cpu"][k])
+                    for k in params["cpu"])
+    print(f"[6/{PHASES}] train parity: tiny fp32 GPT with segments, 3 "
+          f"TrainSteps; losses card {losses['card']} cpu {losses['cpu']} "
+          f"(max |diff| {loss_err:.3g}); params max rel diff "
+          f"{param_rel:.3g}; kernel launches {launches}", flush=True)
+    if not loss_err <= 1e-4:
+        raise AssertionError(f"card/CPU losses differ by {loss_err}")
+    if not param_rel <= 1e-3:
+        raise AssertionError(f"card/CPU params differ by {param_rel} rel")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a training kernel never ran: {launches}")
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the training path at GPT-3 1.3B width
+# ---------------------------------------------------------------------------
+
+def train_full_width(dev, warmup=2, timed=5, batch=8):
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import GPTForCausalLM, gpt_config
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = gpt_config("gpt3-1.3b", use_recompute=True)
+    seq = cfg.max_position_embeddings
+    t0 = time.perf_counter()
+    model = GPTForCausalLM(cfg, device=dev, dtype=torch.bfloat16, seed=0)
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                multi_precision=True, moment_dtype="bfloat16",
+                grad_clip=ClipGradByGlobalNorm(1.0))
+    step = TrainStep(model, lambda m, x, y: m.loss(x, y), opt)
+    rng = np.random.default_rng(0)
+    ids = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                        (batch, seq))).to(dev)
+    labels = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                           (batch, seq))).to(dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    losses = [float(step(ids, labels)) for _ in range(warmup)]
+
+    counters = _train_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.launches = 0
+    times = []
+    for _ in range(timed):
+        t0 = time.perf_counter()
+        loss = step(ids, labels)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    launches = {k: c.launches for k, c in counters.items()}
+
+    params = sum(p.numel() for p in model.parameters())
+    tokens = batch * seq
+    pairs = seq * (seq + 1) / 2
+    # forward + backward attention products (2 + 4), causal pairs only
+    attn = 6 * 2.0 * batch * pairs * cfg.hidden_size * cfg.num_layers
+    step_s = statistics.median(times)
+    stats = {
+        "model": "gpt3-1.3b", "layers": cfg.num_layers,
+        "hidden": cfg.hidden_size, "heads": cfg.num_attention_heads,
+        "vocab": cfg.vocab_size, "seq": seq, "batch": batch,
+        "params": params, "dtype": "bfloat16 (fp32 masters, bf16 moments)",
+        "recompute": True, "setup_s": round(setup_s, 3),
+        "losses": losses, "step_ms": [t * 1e3 for t in times],
+        "step_ms_median": step_s * 1e3,
+        "tokens_per_s": tokens / step_s,
+        "mfu": (6.0 * params * tokens + attn) / step_s / BF16_FLOP_PER_S,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "launches": launches,
+        "launches_per_step": {k: v / timed for k, v in launches.items()},
+    }
+    print(f"[7/{PHASES}] train gpt3-1.3b: {json.dumps(stats)}", flush=True)
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite loss: {losses}")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a training kernel never ran: {launches}")
+    return launches, timed
 
 
 def main() -> int:
@@ -302,34 +671,52 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
     smi = nvidia_smi()
-    print(f"[1/6] device: {kind}, count {count}; nvidia-smi: {smi}",
+    print(f"[1/{PHASES}] device: {kind}, count {count}; nvidia-smi: {smi}",
           flush=True)
 
     t0 = time.perf_counter()
     built = _build.build()
     regs = [line.strip() for info in built.values()
             for line in info["log"].splitlines() if "registers" in line]
-    print(f"[2/6] build: {sorted(built) or 'up to date'} in "
+    print(f"[2/{PHASES}] build: {sorted(built) or 'up to date'} in "
           f"{time.perf_counter() - t0:.1f} s; ptxas: {regs}", flush=True)
 
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     kernels = check_kernels(dev, flush)
+    kernels.update(check_training_kernels(dev, flush))
     del flush
+    torch.cuda.empty_cache()
     parity(dev)
     launches = serve_full_width(dev)
+    train_parity(dev)
+    train_launches, steps = train_full_width(dev)
+    launches.update(train_launches)
 
-    source = "paddle_tpu_torch/csrc/paged_attention.cu"
-    replaces = {
-        "paged_decode_kernel": "paddle_tpu/ops/pallas/paged_attention.py:163",
-        "paged_chunk_kernel": "paddle_tpu/ops/pallas/paged_attention.py:400",
+    paged = "paddle_tpu_torch/csrc/paged_attention.cu"
+    where = {
+        "paged_decode_kernel": (
+            paged, "paddle_tpu/ops/pallas/paged_attention.py:163"),
+        "paged_chunk_kernel": (
+            paged, "paddle_tpu/ops/pallas/paged_attention.py:400"),
+        "splash_fwd_kernel": (
+            SPLASH_SOURCE, "paddle_tpu/ops/pallas/splash_attention.py:139"),
+        "splash_bwd_kernels": (
+            SPLASH_SOURCE, "paddle_tpu/ops/pallas/splash_attention.py:255"),
+        "fused_ce_fwd_kernel": (
+            CE_SOURCE, "paddle_tpu/ops/pallas/fused_cross_entropy.py:92"),
+        "fused_ce_bwd_kernels": (
+            CE_SOURCE, "paddle_tpu/ops/pallas/fused_cross_entropy.py:161"),
     }
-    line = [{"name": name, "route": "cuda", "source": source,
-             "replaces": replaces[name], "launches": launches[name],
-             **{k: r[k] for k in ("max_abs_err", "max_abs_err_fp32", "ms",
-                                  "plain_ms", "bound_ms", "bound_by",
-                                  "library_ms", "shape")}}
+    keys = ("max_abs_err", "max_abs_err_fp32", "max_rel_err",
+            "max_rel_err_fp32", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "shape")
+    line = [{"name": name, "route": "cuda", "source": where[name][0],
+             "replaces": where[name][1], "launches": launches[name],
+             **({"launches_per_step": launches[name] / steps}
+                if name in TRAIN_COUNTERS else {}),
+             **{k: r[k] for k in keys if k in r}}
             for name, r in kernels.items()]
-    print("[6/6] kernels:", flush=True)
+    print(f"[8/{PHASES}] kernels:", flush=True)
     print(json.dumps({"kernels": line}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

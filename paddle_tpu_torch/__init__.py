@@ -5,11 +5,15 @@ The module layout mirrors ``paddle_tpu/``: the counterpart of
 package imports ``torch`` and numpy only, never ``jax`` and never
 ``paddle_tpu``.
 
-Ported so far: the serving path. ``serving.ServingEngine`` drives
-``jit.decode_step`` (chunked prefill and the decode burst) over
-``models.gpt`` and the paged KV cache of ``inference.kv_cache``. The two
-paged-attention kernels it runs are hand-written CUDA in
-``csrc/paged_attention.cu``, bound in ``ops.kernels.paged_attention``.
+Ported so far: the serving path and single-card pretraining.
+``serving.ServingEngine`` drives ``jit.decode_step`` (chunked prefill
+and the decode burst) over ``models.gpt`` and the paged KV cache of
+``inference.kv_cache``; its two paged-attention kernels are hand-written
+CUDA in ``csrc/paged_attention.cu``. ``jit.TrainStep`` drives
+``models.gpt``'s ``loss`` (splash attention and the vocab-tiled fused
+cross entropy, forward and backward, in ``csrc/splash_attention.cu``
+and ``csrc/fused_cross_entropy.cu``), ``nn.ClipGradByGlobalNorm`` and
+``optimizer.AdamW``. ``ops.kernels`` binds every kernel.
 
 Entry points take ``device=``: the default is the CUDA card, and a
 machine without one raises. ``device="cpu"`` runs the kernels' plain

@@ -4,9 +4,9 @@ The reference's parameters come across as numpy arrays keyed by its
 ``named_parameters()`` names, which the port's modules keep. One layout
 differs: a Paddle ``Linear.weight`` is ``[in, out]``, a
 ``torch.nn.Linear.weight`` is ``[out, in]``, so every Linear weight
-(``qkv``, ``out_proj``, ``fc1``, ``fc2``) is transposed on the way in
-and back on the way out. Embedding and LayerNorm weights cross as they
-are. The round trip is bit-exact.
+(``qkv``, ``out_proj``, ``fc1``, ``fc2`` and the untied ``lm_head``) is
+transposed on the way in and back on the way out. Embedding and
+LayerNorm weights cross as they are. The round trip is bit-exact.
 """
 from __future__ import annotations
 
@@ -17,7 +17,8 @@ import torch
 
 __all__ = ["state_dict_from_jax", "state_dict_to_jax"]
 
-_LINEAR_WEIGHT = re.compile(r"\.(qkv|out_proj|fc1|fc2)\.weight$")
+_LINEAR_WEIGHT = re.compile(
+    r"(\.(qkv|out_proj|fc1|fc2)|^lm_head)\.weight$")
 
 
 def _to_torch(a: np.ndarray) -> torch.Tensor:

@@ -1,0 +1,422 @@
+// Vocab-tiled fused LM-head cross entropy for Hopper (sm_90a), forward and
+// backward: the [N, V] logits and d_logits never exist in device memory.
+//
+// Replaces the TPU kernels of paddle_tpu/ops/pallas/fused_cross_entropy.py:
+//   fused_ce_fwd_kernel (+ fused_ce_combine_kernel)  <- _fwd_kernel (via
+//                                                        _fwd_pallas)
+//   fused_ce_dh_kernel, fused_ce_dw_kernel
+//     (+ fused_ce_cast_kernel)                      <- _bwd_kernel (via
+//                                                        _bwd_call)
+// The plain PyTorch versions (fused_ce_fwd_ref / fused_ce_bwd_ref in
+// ops/kernels/fused_cross_entropy.py, transcriptions of _fwd_xla/_bwd_xla)
+// define the contract and these kernels follow their arithmetic: fp32
+// logits from products with fp32 accumulation, an online logsumexp over the
+// vocab tiles, the label logit picked by an exact column match (so a column
+// past the vocab, masked to -inf, never matches), loss = lse - picked (0 at
+// ignore_index); backward d = (exp(logit - lse) - onehot) * g_eff, cast to
+// the hidden dtype before both products, fp32 sums, dh and dW cast to their
+// dtypes at the end.
+//
+// Layouts: hidden [N, H], weight [V, H] (fp32 or bf16, contiguous), labels
+// [N] int32, g_eff [N] fp32 (the loss cotangent, 0 on ignored rows); loss,
+// lse [N] fp32; dh [N, H], dW [V, H]. Scratch the wrapper allocates: the
+// forward's per-split (m, l, picked) [3, S, N] and the backward's fp32 sums
+// dh32 [S, Np, H] and dw32 [Vp, H] (Np, Vp: N and V rounded up to a tile;
+// S vocab splits).
+//
+// Design: 256 threads (8 warps) a block; the logits of a tile of 64 tokens
+// x 128 vocab rows are one product over the hidden axis, staged 128
+// columns at a time, in tile_mma.cuh (wmma on the tensor cores in bf16,
+// each warp a 32 x 32 block of fp32 accumulators; CUDA cores in fp32).
+//   forward: a block per (64 tokens, split of the vocab tiles) folds its
+//     tiles into a partial (m, l, picked); fused_ce_combine_kernel merges
+//     the S partials of a token in split order. The wrapper picks S so the
+//     grid fills the card once (two blocks an SM): one block per 64 tokens
+//     alone is 128 blocks at N = 8192, under one for each of the 132 SMs.
+//   backward, two kernels, each recomputing the logits tile from the lse:
+//     the dh kernel (a block per (64 tokens, split of the vocab tiles))
+//     adds d . W_tile into its own rows of dh32[split], and the dW kernel
+//     (a block per 128 vocab rows, walking all token tiles) adds d^T .
+//     h_tile into its own rows of dw32. Every element of dh32 and dw32 is
+//     written by one block only, in a fixed order, and the splits of dh32
+//     are summed in order by fused_ce_cast_kernel: no atomics, so dh and dW
+//     are bit-reproducible. Against the TPU design (one sweep feeding dh in
+//     scratch and dW through an aliased HBM accumulator) this recomputes
+//     the logits once more; the fp32 sums of a block do not fit on the SM
+//     ([64, H] fp32 is 512 KB at H = 2048), so they live in device memory
+//     and each gradient tile is read and written back once per step of
+//     the walk.
+//
+// What bounds it on the H100: operations. At the training shape (N 8192, H
+// 2048, V 50304, bf16) the forward's product is 2 N V H = 1.69e12 flops
+// (1.71 ms at 989 TFLOP/s) and the backward's three 5.07e12 (5.12 ms);
+// the bytes (W 206 MB, h 34 MB) are a tenth of that. What this design
+// leaves on the table: wmma from shared memory instead of wgmma, no
+// cp.async/TMA pipelining (a tile's loads and products do not overlap),
+// the logits staged through fp32 shared memory, the extra logits
+// recompute, and the backward's read-modify-write of its fp32 sums in
+// device memory (about 50 GB a kernel at the training shape).
+
+#include "tile_mma.cuh"
+
+namespace {
+
+using tile::from_f;
+
+constexpr int kNT = 256;      // threads a block
+constexpr int kRows = 64;     // tokens of a logits tile
+constexpr int kV = 128;       // vocab rows of a logits tile
+constexpr int kChunk = 128;   // hidden columns staged at a time
+
+// Shared memory of every kernel: the staged X (tokens) and Y (vocab)
+// chunks, the fp32 logits tile, d (T), and per-token lse, g, label (and
+// the forward's running m, l, picked).
+template <typename T>
+struct Smem {
+  T* x;        // [kRows][pc]   token rows
+  T* y;        // [kV][pc]      vocab rows
+  float* s;    // [kRows][ps]   logits
+  T* d;        // [kRows][pd]   (softmax - onehot) * g
+  float* tok;  // [5][kRows]    lse, g, m, l, picked
+  int* lbl;    // [kRows]
+  static constexpr int pc = tile::pitch<T>(kChunk);
+  static constexpr int ps = kV + 4;
+  static constexpr int pd = tile::pitch<T>(kV);
+
+  __host__ __device__ static size_t bytes() {
+    size_t off = 0;
+    tile::take(off, (kRows + kV) * pc * sizeof(T));
+    tile::take(off, kRows * ps * sizeof(float));
+    tile::take(off, kRows * pd * sizeof(T));
+    tile::take(off, 5 * kRows * sizeof(float));
+    tile::take(off, kRows * sizeof(int));
+    return off;
+  }
+
+  __device__ explicit Smem(unsigned char* base) {
+    size_t off = 0;
+    x = (T*)(base + tile::take(off, (kRows + kV) * pc * sizeof(T)));
+    y = x + kRows * pc;
+    s = (float*)(base + tile::take(off, kRows * ps * sizeof(float)));
+    d = (T*)(base + tile::take(off, kRows * pd * sizeof(T)));
+    tok = (float*)(base + tile::take(off, 5 * kRows * sizeof(float)));
+    lbl = (int*)(base + tile::take(off, kRows * sizeof(int)));
+  }
+};
+
+// s[64 x 128] = h[t0 : t0+64] . w[v0 : v0+128]^T over the hidden axis, in
+// fp32 (rows past n and vocab rows past `vocab` staged as zeros).
+template <typename T>
+__device__ void logits_tile(const Smem<T>& sm, const T* h, const T* w,
+                            int t0, int n, int v0, int vocab, int hidden) {
+  const int tr = min(kRows, n - t0), vr = min(kV, vocab - v0);
+  for (int c0 = 0; c0 < hidden; c0 += kChunk) {
+    const int kc = min(kChunk, hidden - c0);
+    __syncthreads();   // the last product (or the reads of s) is done
+    tile::stage<T, kNT>(sm.x, sm.pc, h + (size_t)t0 * hidden + c0, hidden,
+                        kRows, tr, kc);
+    tile::stage<T, kNT>(sm.y, sm.pc, w + (size_t)v0 * hidden + c0, hidden,
+                        kV, vr, kc);
+    __syncthreads();
+    tile::mma<T, false, true, kNT>(sm.s, sm.ps, sm.x, sm.pc, sm.y, sm.pc,
+                                   kRows, kV, kc, c0 > 0);
+  }
+  __syncthreads();
+}
+
+// The lse, g_eff and label of tokens [t0, t0 + 64) into sm.tok / sm.lbl;
+// tokens past n get g = 0, so they never contribute.
+template <typename T>
+__device__ void stage_tokens(const Smem<T>& sm, const int* labels,
+                             const float* lse, const float* g_eff, int t0,
+                             int n) {
+  if (threadIdx.x < kRows) {
+    const int t = t0 + threadIdx.x;
+    const bool in = t < n;
+    sm.tok[threadIdx.x] = in ? lse[t] : 0.f;
+    sm.tok[kRows + threadIdx.x] = in ? g_eff[t] : 0.f;
+    sm.lbl[threadIdx.x] = in ? labels[t] : -1;
+  }
+}
+
+// d = (exp(s - lse) - onehot) * g into sm.d, in T, from the logits tile.
+template <typename T>
+__device__ void d_tile(const Smem<T>& sm, int v0, int vocab) {
+  for (int idx = threadIdx.x; idx < kRows * kV; idx += kNT) {
+    const int r = idx / kV, j = idx - r * kV;
+    const int v = v0 + j;
+    float dv = 0.f;
+    if (v < vocab)
+      dv = (expf(sm.s[r * sm.ps + j] - sm.tok[r]) -
+            (sm.lbl[r] == v ? 1.f : 0.f)) * sm.tok[kRows + r];
+    sm.d[r * sm.pd + j] = from_f<T>(dv);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// forward
+// ---------------------------------------------------------------------------
+
+// A block per (64 tokens, split): (m, l, picked) over the split's vocab
+// tiles into part[0 / 1 / 2][split][token].
+template <typename T>
+__global__ void __launch_bounds__(kNT) fused_ce_fwd_kernel(
+    const T* __restrict__ h, const T* __restrict__ w,
+    const int* __restrict__ labels, float* __restrict__ part, int n,
+    int vocab, int hidden, int tiles_per_split) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const Smem<T> sm(smem);
+  const int t0 = blockIdx.x * kRows, split = blockIdx.y;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  float* m_s = sm.tok + 2 * kRows;
+  float* l_s = sm.tok + 3 * kRows;
+  float* pk_s = sm.tok + 4 * kRows;
+  if (tid < kRows) {
+    m_s[tid] = -INFINITY;
+    l_s[tid] = 0.f;
+    pk_s[tid] = 0.f;
+    sm.lbl[tid] = t0 + tid < n ? labels[t0 + tid] : -1;
+  }
+  const int v_begin = split * tiles_per_split * kV;
+  const int v_end = min(vocab, v_begin + tiles_per_split * kV);
+  for (int v0 = v_begin; v0 < v_end; v0 += kV) {
+    logits_tile(sm, h, w, t0, n, v0, vocab, hidden);
+    // online logsumexp + picked label logit: one warp per row, 4 columns
+    // a lane; every tile holds a real column, so m_new is finite
+    for (int r = warp; r < kRows; r += kNT / 32) {
+      float x[4], pick = 0.f, mx = -INFINITY;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = v0 + lane + 32 * e;
+        x[e] = col < vocab ? sm.s[r * sm.ps + lane + 32 * e] : -INFINITY;
+        if (col == sm.lbl[r]) pick = x[e];
+        mx = fmaxf(mx, x[e]);
+      }
+      const float m_prev = m_s[r];
+      const float m_new = fmaxf(m_prev, tile::warp_max(mx));
+      float sum = 0.f;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sum += expf(x[e] - m_new);
+      sum = tile::warp_sum(sum);
+      pick = tile::warp_sum(pick);
+      if (lane == 0) {
+        l_s[r] = expf(m_prev - m_new) * l_s[r] + sum;
+        m_s[r] = m_new;
+        pk_s[r] += pick;
+      }
+    }
+  }
+  __syncthreads();
+  if (tid < kRows && t0 + tid < n) {
+    const size_t plane = (size_t)gridDim.y * n;
+    const size_t at = (size_t)split * n + t0 + tid;
+    part[at] = m_s[tid];
+    part[plane + at] = l_s[tid];
+    part[2 * plane + at] = pk_s[tid];
+  }
+}
+
+// One thread per token: merge the S partials in split order.
+__global__ void fused_ce_combine_kernel(const float* __restrict__ part,
+                                        const int* __restrict__ labels,
+                                        float* __restrict__ loss,
+                                        float* __restrict__ lse, int n,
+                                        int splits, int ignore_index) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= n) return;
+  const size_t plane = (size_t)splits * n;
+  float m = -INFINITY;
+  for (int s = 0; s < splits; ++s) m = fmaxf(m, part[(size_t)s * n + t]);
+  float l = 0.f, pk = 0.f;
+  for (int s = 0; s < splits; ++s) {
+    const size_t at = (size_t)s * n + t;
+    l += expf(part[at] - m) * part[plane + at];
+    pk += part[2 * plane + at];
+  }
+  const float z = m + logf(l);
+  lse[t] = z;
+  loss[t] = labels[t] != ignore_index ? z - pk : 0.f;
+}
+
+// ---------------------------------------------------------------------------
+// backward
+// ---------------------------------------------------------------------------
+
+// A block per (64 tokens, split): dh32[split][t0 : t0+64] += d . W_tile
+// for every vocab tile of the split, in order.
+template <typename T>
+__global__ void __launch_bounds__(kNT) fused_ce_dh_kernel(
+    const T* __restrict__ h, const T* __restrict__ w,
+    const int* __restrict__ labels, const float* __restrict__ lse,
+    const float* __restrict__ g_eff, float* __restrict__ dh32, int n,
+    int n_pad, int vocab, int hidden, int tiles_per_split) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const Smem<T> sm(smem);
+  const int t0 = blockIdx.x * kRows, split = blockIdx.y;
+  float* acc = dh32 + ((size_t)split * n_pad + t0) * hidden;
+  stage_tokens(sm, labels, lse, g_eff, t0, n);
+  const int v_begin = split * tiles_per_split * kV;
+  const int v_end = min(vocab, v_begin + tiles_per_split * kV);
+  for (int v0 = v_begin; v0 < v_end; v0 += kV) {
+    logits_tile(sm, h, w, t0, n, v0, vocab, hidden);
+    d_tile(sm, v0, vocab);
+    const int vr = min(kV, vocab - v0);
+    for (int c0 = 0; c0 < hidden; c0 += kChunk) {
+      const int kc = min(kChunk, hidden - c0);
+      __syncthreads();   // d is complete; the last chunk's product is done
+      tile::stage<T, kNT>(sm.y, sm.pc, w + (size_t)v0 * hidden + c0, hidden,
+                          kV, vr, kc);
+      __syncthreads();
+      tile::mma<T, false, false, kNT>(acc + c0, hidden, sm.d, sm.pd, sm.y,
+                                      sm.pc, kRows, kc, kV, v0 > v_begin);
+    }
+  }
+}
+
+// A block per 128 vocab rows: dw32[v0 : v0+128] += d^T . h_tile for every
+// token tile, in order.
+template <typename T>
+__global__ void __launch_bounds__(kNT) fused_ce_dw_kernel(
+    const T* __restrict__ h, const T* __restrict__ w,
+    const int* __restrict__ labels, const float* __restrict__ lse,
+    const float* __restrict__ g_eff, float* __restrict__ dw32, int n,
+    int vocab, int hidden) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const Smem<T> sm(smem);
+  const int v0 = blockIdx.x * kV;
+  float* acc = dw32 + (size_t)v0 * hidden;
+  for (int t0 = 0; t0 < n; t0 += kRows) {
+    __syncthreads();   // the last tile's reads of the token stats are done
+    stage_tokens(sm, labels, lse, g_eff, t0, n);
+    logits_tile(sm, h, w, t0, n, v0, vocab, hidden);
+    d_tile(sm, v0, vocab);
+    const int tr = min(kRows, n - t0);
+    for (int c0 = 0; c0 < hidden; c0 += kChunk) {
+      const int kc = min(kChunk, hidden - c0);
+      __syncthreads();
+      tile::stage<T, kNT>(sm.x, sm.pc, h + (size_t)t0 * hidden + c0, hidden,
+                          kRows, tr, kc);
+      __syncthreads();
+      tile::mma<T, true, false, kNT>(acc + c0, hidden, sm.d, sm.pd, sm.x,
+                                     sm.pc, kV, kc, kRows, t0 > 0);
+    }
+  }
+}
+
+// out[r][c] = sum over s in order of src[s][r][c] (planes `plane` apart),
+// cast to T: the dh splits, or dw32 with one plane.
+template <typename T>
+__global__ void fused_ce_cast_kernel(const float* __restrict__ src,
+                                     T* __restrict__ out, long long count,
+                                     long long plane, int planes) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= count) return;
+  float v = src[i];
+  for (int s = 1; s < planes; ++s) v += src[s * plane + i];
+  out[i] = from_f<T>(v);
+}
+
+// Parts of `count` tiles walked `per_split` at a time.
+int splits_of(int count, int per_split) {
+  return (count + per_split - 1) / per_split;
+}
+
+// The vocab splits are the forward's and dh kernel's grid y: at most 65535.
+bool geometry_ok(int n, int vocab, int hidden, int tiles_per_split) {
+  return n > 0 && vocab > 0 && hidden > 0 && hidden % 16 == 0 &&
+         tiles_per_split > 0 &&
+         splits_of((vocab + kV - 1) / kV, tiles_per_split) <= 65535;
+}
+
+template <typename T>
+cudaError_t fwd(const void* h, const void* w, const int* labels, float* loss,
+                float* lse, float* part, int n, int vocab, int hidden,
+                int ignore_index, int tiles_per_split, cudaStream_t stream) {
+  const size_t smem = Smem<T>::bytes();
+  cudaError_t err = tile::prepare(fused_ce_fwd_kernel<T>, smem);
+  if (err != cudaSuccess) return err;
+  const int splits = splits_of((vocab + kV - 1) / kV, tiles_per_split);
+  const dim3 grid((n + kRows - 1) / kRows, splits);
+  fused_ce_fwd_kernel<T><<<grid, kNT, smem, stream>>>(
+      (const T*)h, (const T*)w, labels, part, n, vocab, hidden,
+      tiles_per_split);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  fused_ce_combine_kernel<<<(n + 255) / 256, 256, 0, stream>>>(
+      part, labels, loss, lse, n, splits, ignore_index);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t bwd(const void* h, const void* w, const int* labels,
+                const float* lse, const float* g_eff, void* dh, void* dw,
+                float* dh32, float* dw32, int n, int vocab, int hidden,
+                int tiles_per_split, cudaStream_t stream) {
+  const size_t smem = Smem<T>::bytes();
+  cudaError_t err = tile::prepare(fused_ce_dh_kernel<T>, smem);
+  if (err != cudaSuccess) return err;
+  err = tile::prepare(fused_ce_dw_kernel<T>, smem);
+  if (err != cudaSuccess) return err;
+  const int n_tiles = (n + kRows - 1) / kRows, v_tiles = (vocab + kV - 1) / kV;
+  const int n_pad = n_tiles * kRows;
+  const int splits = splits_of(v_tiles, tiles_per_split);
+  fused_ce_dh_kernel<T><<<dim3(n_tiles, splits), kNT, smem, stream>>>(
+      (const T*)h, (const T*)w, labels, lse, g_eff, dh32, n, n_pad, vocab,
+      hidden, tiles_per_split);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  fused_ce_dw_kernel<T><<<v_tiles, kNT, smem, stream>>>(
+      (const T*)h, (const T*)w, labels, lse, g_eff, dw32, n, vocab, hidden);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const long long dh_count = (long long)n * hidden;
+  const long long dw_count = (long long)vocab * hidden;
+  fused_ce_cast_kernel<T><<<(unsigned)((dh_count + 255) / 256), 256, 0,
+                            stream>>>(dh32, (T*)dh, dh_count,
+                                      (long long)n_pad * hidden, splits);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  fused_ce_cast_kernel<T><<<(unsigned)((dw_count + 255) / 256), 256, 0,
+                            stream>>>(dw32, (T*)dw, dw_count, 0, 1);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// Plain C interface for ctypes. Each returns the cudaError_t of its
+// launches (cudaErrorInvalidValue for a geometry the kernels do not take);
+// nothing is allocated and nothing synchronises. `tiles_per_split`: vocab
+// tiles of 128 a forward or dh block walks; the wrapper sizes the scratch
+// for ceil(ceil(V / 128) / tiles_per_split) splits.
+extern "C" int fused_ce_fwd(const void* h, const void* w, const void* labels,
+                            void* loss, void* lse, void* part, int n,
+                            int vocab, int hidden, int ignore_index,
+                            int tiles_per_split, int bf16, void* stream) {
+  if (!geometry_ok(n, vocab, hidden, tiles_per_split))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (bf16)
+    return (int)fwd<__nv_bfloat16>(h, w, (const int*)labels, (float*)loss,
+                                   (float*)lse, (float*)part, n, vocab,
+                                   hidden, ignore_index, tiles_per_split, s);
+  return (int)fwd<float>(h, w, (const int*)labels, (float*)loss, (float*)lse,
+                         (float*)part, n, vocab, hidden, ignore_index,
+                         tiles_per_split, s);
+}
+
+extern "C" int fused_ce_bwd(const void* h, const void* w, const void* labels,
+                            const void* lse, const void* g_eff, void* dh,
+                            void* dw, void* dh32, void* dw32, int n,
+                            int vocab, int hidden, int tiles_per_split,
+                            int bf16, void* stream) {
+  if (!geometry_ok(n, vocab, hidden, tiles_per_split))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (bf16)
+    return (int)bwd<__nv_bfloat16>(
+        h, w, (const int*)labels, (const float*)lse, (const float*)g_eff, dh,
+        dw, (float*)dh32, (float*)dw32, n, vocab, hidden, tiles_per_split, s);
+  return (int)bwd<float>(h, w, (const int*)labels, (const float*)lse,
+                         (const float*)g_eff, dh, dw, (float*)dh32,
+                         (float*)dw32, n, vocab, hidden, tiles_per_split, s);
+}

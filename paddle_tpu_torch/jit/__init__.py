@@ -1,3 +1,4 @@
 from .decode_step import ChunkPrefillStep, ServeDecodeStep
+from .train_step import TrainStep
 
-__all__ = ["ChunkPrefillStep", "ServeDecodeStep"]
+__all__ = ["ChunkPrefillStep", "ServeDecodeStep", "TrainStep"]

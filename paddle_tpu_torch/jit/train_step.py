@@ -1,0 +1,106 @@
+"""The training step: the port of paddle_tpu/jit/train_step.py's
+``TrainStep``.
+
+    step = TrainStep(model, lambda m, ids, labels: m.loss(ids, labels), opt)
+    for ids, labels in batches:
+        loss = step(ids, labels)      # a device tensor
+
+One call runs, in the reference's order (train_step.py ``step_fn``):
+
+1. the forward and the backward of ``loss * scale`` (``scale`` is the
+   bound GradScaler's loss scale, else no scaling);
+2. with ``accum_steps`` > 1, the batch's dim 0 split into that many
+   micro-batches, each loss scaled by ``1 / accum_steps`` and its
+   backward accumulated on the parameters' grads;
+3. with a guard (``scaler`` or ``guard_nonfinite``), one finiteness
+   check over the grads, then the unscale;
+4. ``optimizer.step()`` (its grad clip first), then ``clear_grad``;
+5. the gate: a step whose grads were not finite skips the optimizer, so
+   nothing of its state moves, and the guard state advances by
+   `GuardSpec.update`.
+
+The step runs eagerly: the reference's jit, buffer donation, retrace
+sentinel, compile cache and sharding are not ported. The returned loss
+stays on the device; the only host sync is the guard's read of
+``found_inf`` (see `nonfinite_guard`).
+"""
+from __future__ import annotations
+
+import torch
+
+from ..nn.clip import scale_
+from .nonfinite_guard import GuardSpec, all_finite
+
+__all__ = ["TrainStep"]
+
+
+class TrainStep:
+    def __init__(self, model, loss_fn, optimizer, accum_steps=1,
+                 scaler=None, guard_nonfinite=None):
+        self.model = model
+        self.loss_fn = loss_fn
+        self.optimizer = optimizer
+        self.accum_steps = int(accum_steps)
+        self.guard = (GuardSpec(scaler)
+                      if (scaler is not None or guard_nonfinite) else None)
+        self._guard_state = None
+
+    def _split(self, batch):
+        acc = self.accum_steps
+        sizes = {t.shape[0] for t in batch
+                 if isinstance(t, torch.Tensor) and t.dim() > 0}
+        if len(sizes) > 1:
+            raise ValueError(
+                f"accumulate_steps={acc} needs all batch tensors "
+                f"batch-major with one shared dim-0 size; got {sizes}")
+        if sizes and next(iter(sizes)) % acc:
+            raise ValueError(
+                f"batch size {next(iter(sizes))} is not divisible by "
+                f"accumulate_steps={acc}")
+        return [[t.reshape(acc, t.shape[0] // acc, *t.shape[1:])[m]
+                 if isinstance(t, torch.Tensor) and t.dim() > 0 else t
+                 for t in batch] for m in range(acc)]
+
+    def __call__(self, *batch):
+        params = [p for p in self.model.parameters() if p.requires_grad]
+        guard = self.guard
+        scale = None
+        if guard is not None:
+            if self._guard_state is None:
+                self._guard_state = guard.init_state(params[0].device)
+            if guard.scaling:
+                scale = self._guard_state["scale"]
+
+        def backward(loss):
+            (loss if scale is None else loss * scale.to(loss.dtype)) \
+                .backward()
+
+        acc = self.accum_steps
+        if acc > 1:
+            losses = []
+            for micro in self._split(batch):
+                ml = self.loss_fn(self.model, *micro) * (1.0 / acc)
+                backward(ml)
+                losses.append(ml.detach())
+            loss = torch.stack(losses).sum()
+        else:
+            loss = self.loss_fn(self.model, *batch)
+            backward(loss)
+            loss = loss.detach()
+
+        found = None
+        if guard is not None:
+            grads = [p.grad for p in params if p.grad is not None]
+            found = ~all_finite(grads)
+            if scale is not None:
+                inv = 1.0 / scale
+                for g in grads:
+                    scale_(g, inv)
+        # the gate: the one host sync of a guarded step
+        if found is None or not bool(found):
+            self.optimizer.step()
+        self.optimizer.clear_grad()
+        if guard is not None:
+            self._guard_state = guard.update(self._guard_state, found)
+            guard.writeback(self._guard_state)
+        return loss

@@ -1,4 +1,5 @@
-from .gpt import GPT_CONFIGS, GPTConfig, GPTForCausalLM, GPTModel, gpt_config
+from .gpt import (GPT_CONFIGS, GPTConfig, GPTForCausalLM, GPTModel,
+                  GPTPretrainingCriterion, fused_lm_loss, gpt_config)
 
 __all__ = ["GPTConfig", "GPT_CONFIGS", "gpt_config", "GPTForCausalLM",
-           "GPTModel"]
+           "GPTModel", "GPTPretrainingCriterion", "fused_lm_loss"]

@@ -1,21 +1,25 @@
-"""GPT for serving: the model of paddle_tpu/models/gpt.py in PyTorch.
+"""GPT: the model of paddle_tpu/models/gpt.py in PyTorch, for training
+and serving.
 
 Parameter names are those of the reference's ``named_parameters()``
 (``gpt.wte.weight``, ``gpt.blocks.0.attn.qkv.weight``, ...,
-``gpt.ln_f.bias``), so `convert.state_dict_from_jax` carries a reference
-checkpoint across by name. The Linear layers are ``torch.nn.Linear``
-(weight ``[out, in]``; the reference's is ``[in, out]``, and the
-converter transposes).
+``gpt.ln_f.bias``, ``lm_head.weight`` when the head is untied), so
+`convert.state_dict_from_jax` carries a reference checkpoint across by
+name. The Linear layers are ``torch.nn.Linear`` (weight ``[out, in]``;
+the reference's is ``[in, out]``, and the converter transposes).
 
-The serving paths run over a `PagedKVCache`: ``decode_step`` (one token
+Training: ``forward`` / ``loss`` run full-sequence causal attention
+through `nn.functional.scaled_dot_product_attention` (the splash kernel,
+with packed-sequence ``segment_ids``), ``use_recompute`` checkpoints
+each block, and ``loss`` feeds the final hiddens to the fused LM-head
+cross entropy (`fused_lm_loss`), so the ``[tokens, vocab]`` logits never
+exist. Serving runs over a `PagedKVCache`: ``decode_step`` (one token
 per slot, the paged decode kernel) and ``prefill_chunk`` (one bounded
-window per slot, the paged chunk kernel). ``forward`` is the plain
-causal forward for CPU tensors, the parity reference; on the card the
-full-sequence attention belongs to the flash/splash kernels, which are
-not ported yet, so it raises there.
+window per slot, the paged chunk kernel).
 
-Not here yet (the training slice): MoE, scan_layers, ring attention,
-recompute, draft heads, segment ids and the loss.
+Not ported yet, and refused by `GPTConfig`: scan_layers and the "dots"
+recompute policy (ROADMAP queue A7), MoE and ring attention (A9/A10),
+draft heads (A6).
 """
 from __future__ import annotations
 
@@ -25,14 +29,16 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..framework.device import resolve_device
 from ..inference.kv_cache import decode_plan, prefill_plan, write_rows
+from ..nn import functional as PF
 from ..ops.kernels.paged_attention import (paged_attention,
                                            paged_attention_chunk)
 
 __all__ = ["GPTConfig", "GPT_CONFIGS", "gpt_config", "GPTForCausalLM",
-           "GPTModel"]
+           "GPTModel", "GPTPretrainingCriterion", "fused_lm_loss"]
 
 
 @dataclass
@@ -43,12 +49,38 @@ class GPTConfig:
     num_attention_heads: int = 12
     intermediate_size: int = 0          # 0 -> 4 * hidden
     max_position_embeddings: int = 1024
+    hidden_dropout_prob: float = 0.0
+    attention_dropout_prob: float = 0.0
     layer_norm_epsilon: float = 1e-5
     initializer_range: float = 0.02
+    tie_word_embeddings: bool = True
+    use_recompute: bool = False
+    recompute_policy: str = None
+    # accepted for the reference's signature, refused until their slices
+    use_ring_attention: bool = False
+    scan_layers: bool = False
+    num_experts: int = 0
+    num_draft_heads: int = 0
 
     def __post_init__(self):
         if not self.intermediate_size:
             self.intermediate_size = 4 * self.hidden_size
+        refused = {
+            "scan_layers=True": (self.scan_layers, "A7 (scan_layers / "
+                                 "FusedScanTrainStep)"),
+            "recompute_policy='dots'": (self.recompute_policy is not None,
+                                        "A7 (selective recompute)"),
+            "num_experts>0": (self.num_experts > 0, "A9/A10 (MoE)"),
+            "use_ring_attention=True": (self.use_ring_attention,
+                                        "A9 (ring attention)"),
+            "num_draft_heads>0": (self.num_draft_heads > 0,
+                                  "A6 (speculative decoding)"),
+        }
+        for what, (on, owner) in refused.items():
+            if on:
+                raise NotImplementedError(
+                    f"GPTConfig({what}) is not ported yet: ROADMAP queue "
+                    f"{owner}")
 
 
 # sizes follow the GPT-3 paper table
@@ -68,16 +100,16 @@ def gpt_config(name: str, **overrides) -> GPTConfig:
     return GPTConfig(**kw)
 
 
-def _causal_attention(q, k, v):
-    """Plain causal softmax attention over [b, s, nh, hd] in fp32."""
-    s = q.shape[1]
-    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) \
-        / math.sqrt(q.shape[-1])
-    causal = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
-    scores = scores.masked_fill(~causal, float("-inf"))
-    out = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(scores, -1),
-                       v.float())
-    return out.to(q.dtype)
+class LayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` that, like the reference's, normalises in the
+    dtype of its weight and returns the input's dtype: after
+    ``amp.decorate(level="O2")`` the weights stay fp32 while activations
+    are bf16, a mix torch would not cast by itself."""
+
+    def forward(self, x):
+        if x.dtype == self.weight.dtype:
+            return super().forward(x)
+        return super().forward(x.to(self.weight.dtype)).to(x.dtype)
 
 
 class GPTAttention(nn.Module):
@@ -88,15 +120,18 @@ class GPTAttention(nn.Module):
         self.head_dim = h // self.num_heads
         self.qkv = nn.Linear(h, 3 * h, **factory)
         self.out_proj = nn.Linear(h, h, **factory)
+        self.dropout_p = config.attention_dropout_prob
 
-    def forward(self, x):
-        if x.device.type != "cpu":
-            raise NotImplementedError(
-                "full-sequence attention on the card needs the flash/"
-                "splash kernels, which are not ported yet")
+    def forward(self, x, segment_ids=None):
+        """Causal self-attention over [b, s, h]; ``segment_ids`` [b, s]
+        keeps packed documents apart. q/k/v go to the kernel as strided
+        views of the qkv product, without a copy."""
         b, s, h = x.shape
         qkv = self.qkv(x).reshape(b, s, 3, self.num_heads, self.head_dim)
-        out = _causal_attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2])
+        out = PF.scaled_dot_product_attention(
+            qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], is_causal=True,
+            dropout_p=self.dropout_p, training=self.training,
+            segment_ids=segment_ids)
         return self.out_proj(out.reshape(b, s, h))
 
     def forward_decode(self, x, cache, layer_idx, plan):
@@ -149,14 +184,24 @@ class GPTBlock(nn.Module):
     def __init__(self, config: GPTConfig, **factory):
         super().__init__()
         eps = config.layer_norm_epsilon
-        self.ln_1 = nn.LayerNorm(config.hidden_size, eps=eps, **factory)
+        self.ln_1 = LayerNorm(config.hidden_size, eps=eps, **factory)
         self.attn = GPTAttention(config, **factory)
-        self.ln_2 = nn.LayerNorm(config.hidden_size, eps=eps, **factory)
+        self.ln_2 = LayerNorm(config.hidden_size, eps=eps, **factory)
         self.mlp = GPTMLP(config, **factory)
+        self.dropout = nn.Dropout(config.hidden_dropout_prob)
+        self.use_recompute = config.use_recompute
 
-    def forward(self, x):
-        x = x + self.attn(self.ln_1(x))
-        return x + self.mlp(self.ln_2(x))
+    def _inner(self, x, segment_ids):
+        x = x + self.dropout(self.attn(self.ln_1(x), segment_ids))
+        return x + self.dropout(self.mlp(self.ln_2(x)))
+
+    def forward(self, x, segment_ids=None):
+        if self.use_recompute and self.training:
+            # keep only the block's input; the backward replays the
+            # forward (and its attention kernel) first
+            return checkpoint(self._inner, x, segment_ids,
+                              use_reentrant=False)
+        return self._inner(x, segment_ids)
 
     def forward_decode(self, x, cache, layer_idx, plan):
         x = x + self.attn.forward_decode(self.ln_1(x), cache, layer_idx,
@@ -177,10 +222,11 @@ class GPTModel(nn.Module):
                                 **factory)
         self.wpe = nn.Embedding(config.max_position_embeddings,
                                 config.hidden_size, **factory)
+        self.drop = nn.Dropout(config.hidden_dropout_prob)
         self.blocks = nn.ModuleList([GPTBlock(config, **factory)
                                      for _ in range(config.num_layers)])
-        self.ln_f = nn.LayerNorm(config.hidden_size,
-                                 eps=config.layer_norm_epsilon, **factory)
+        self.ln_f = LayerNorm(config.hidden_size,
+                              eps=config.layer_norm_epsilon, **factory)
 
     def _embed(self, input_ids, position_ids):
         # a padded chunk tail or a decode slot saturated at the engine
@@ -190,13 +236,17 @@ class GPTModel(nn.Module):
             0, self.config.max_position_embeddings - 1)
         return self.wte(input_ids.long()) + self.wpe(pos)
 
-    def forward(self, input_ids, position_ids=None):
+    def forward(self, input_ids, position_ids=None, segment_ids=None):
+        """Final hiddens [b, s, h]. ``segment_ids`` ([b, s] int) marks
+        packed-sequence documents: tokens attend only within their own.
+        Positions default to ``arange(s)`` whatever the segments, as in
+        the reference."""
         b, s = input_ids.shape
         if position_ids is None:
             position_ids = torch.arange(s, device=input_ids.device)[None]
-        x = self._embed(input_ids, position_ids)
+        x = self.drop(self._embed(input_ids, position_ids))
         for block in self.blocks:
-            x = block(x)
+            x = block(x, segment_ids)
         return self.ln_f(x)
 
     def decode_step(self, tokens, cache, position_ids):
@@ -228,7 +278,8 @@ class GPTModel(nn.Module):
 
 
 class GPTForCausalLM(nn.Module):
-    """GPT + tied LM head; ``forward`` returns logits.
+    """GPT + LM head (tied to ``wte`` unless ``tie_word_embeddings`` is
+    off); ``forward`` returns logits, `loss` the training loss.
 
     The weights are drawn on ``device`` from ``torch.Generator`` seeded
     with ``seed``, as the reference initialises them: normal(0,
@@ -242,6 +293,9 @@ class GPTForCausalLM(nn.Module):
         self.config = config
         dev = resolve_device(device)
         self.gpt = GPTModel(config, device=dev, dtype=dtype)
+        self.lm_head = None if config.tie_word_embeddings else nn.Linear(
+            config.hidden_size, config.vocab_size, bias=False, device=dev,
+            dtype=dtype)
         self._init_weights(torch.Generator(device=dev).manual_seed(seed))
 
     @torch.no_grad()
@@ -258,9 +312,58 @@ class GPTForCausalLM(nn.Module):
             else:
                 p.fill_(1.0)
 
-    def forward(self, input_ids, position_ids=None):
-        return self.head(self.gpt(input_ids, position_ids))
+    def forward(self, input_ids, position_ids=None, segment_ids=None):
+        return self.head(self.gpt(input_ids, position_ids,
+                                  segment_ids=segment_ids))
 
     def head(self, hidden):
-        """Tied LM head: hiddens [..., hidden] -> logits [..., vocab]."""
-        return F.linear(hidden, self.gpt.wte.weight)
+        """LM head: hiddens [..., hidden] -> logits [..., vocab]."""
+        return F.linear(hidden, self.head_weight())
+
+    def head_weight(self):
+        """The LM head's ``[vocab, hidden]`` weight: ``wte`` when tied."""
+        return self.gpt.wte.weight if self.lm_head is None \
+            else self.lm_head.weight
+
+    def loss(self, input_ids, labels, loss_mask=None, position_ids=None,
+             segment_ids=None):
+        """Training loss through the fused LM head: the final hiddens go
+        straight into the vocab-tiled cross entropy, so the [tokens,
+        vocab] logits never exist. Numerically
+        ``GPTPretrainingCriterion()(self(ids), labels, loss_mask)``."""
+        hidden = self.gpt(input_ids, position_ids, segment_ids=segment_ids)
+        # both heads are [vocab, hidden] here (the reference's untied head
+        # is an [hidden, vocab] Paddle Linear with transpose_y=False)
+        return fused_lm_loss(hidden, self.head_weight(), True, labels,
+                             loss_mask)
+
+
+def fused_lm_loss(hidden, weight, transpose_y, labels, loss_mask=None):
+    """Fused LM-head loss: fused cross entropy, then the criterion's
+    masked-mean reduction (mean over non-ignored labels without a mask;
+    ``sum(loss * mask) / max(sum(mask), 1)`` with one)."""
+    if loss_mask is None:
+        return PF.fused_linear_cross_entropy(hidden, weight, labels,
+                                             transpose_y=transpose_y)
+    losses = PF.fused_linear_cross_entropy(hidden, weight, labels,
+                                           transpose_y=transpose_y,
+                                           reduction="none")
+    m = loss_mask.to(losses.dtype)
+    return (losses * m).sum() / m.sum().clamp(min=1.0)
+
+
+class GPTPretrainingCriterion(nn.Module):
+    """Shifted-token cross entropy over materialised logits: mean over
+    non-masked positions (and, without a mask, over labels that are not
+    -100), equal to `GPTForCausalLM.loss`."""
+
+    def forward(self, logits, labels, loss_mask=None):
+        vocab = logits.shape[-1]
+        flat_labels = labels.reshape(-1)
+        loss = PF.cross_entropy(logits.reshape(-1, vocab), flat_labels,
+                                reduction="none")
+        if loss_mask is None:
+            m = (flat_labels != -100).to(loss.dtype)
+        else:
+            m = loss_mask.reshape(-1).to(loss.dtype)
+        return (loss * m).sum() / m.sum().clamp(min=1.0)

@@ -1,0 +1,3 @@
+from .clip import ClipGradByGlobalNorm
+
+__all__ = ["ClipGradByGlobalNorm"]

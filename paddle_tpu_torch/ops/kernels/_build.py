@@ -5,7 +5,8 @@ into ``paddle_tpu_torch/_build/lib<name>-<hash>.so`` (a plain C
 interface, no PyTorch headers, so a build takes seconds), and loads with
 ``ctypes``. The hash covers the source and the flags, so an edited
 source rebuilds and a stale library is never loaded. Builds run at first
-use; `build` starts one compiler per stale source, all at once.
+use; `build` starts one compiler per stale source, all at once. The
+hash also covers the shared headers (``csrc/*.cuh``).
 """
 from __future__ import annotations
 
@@ -40,7 +41,9 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the shared headers are part of every source's build
+    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 

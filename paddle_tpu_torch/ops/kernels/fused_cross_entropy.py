@@ -1,0 +1,260 @@
+"""Fused LM-head cross entropy over vocab tiles: CUDA kernels for the card,
+plain PyTorch for the CPU.
+
+Counterpart of paddle_tpu/ops/pallas/fused_cross_entropy.py: the per-token
+cross entropy of ``softmax(hidden @ weight^T)`` with the ``[N, vocab]``
+logits streamed through vocab tiles, so they never exist in device memory
+in the forward or the backward. ``hidden [N, H]``, ``weight [V, H]`` (the
+tied-embedding layout), ``labels [N]`` int; losses ``[N]`` fp32, 0 where
+``labels == ignore_index``, whose rows also get zero gradients.
+
+* `fused_cross_entropy`: the differentiable entry (a
+  ``torch.autograd.Function``, gradients in ``hidden`` and ``weight``).
+* `fused_ce_fwd`: ``(losses, lse)``; kernel #11, ``fused_ce_fwd_kernel``.
+* `fused_ce_bwd`: ``(dh, dw)`` from the lse and the effective cotangent
+  ``g_eff`` (0 on ignored rows); kernel #12, the dh and dW kernels.
+
+Routing is by the tensors' device, nothing else: CPU tensors take the
+plain versions `fused_ce_fwd_ref` / `fused_ce_bwd_ref` (transcriptions of
+``_fwd_xla`` / ``_bwd_xla``: the same 128-column vocab tiles in the same
+order, fp32 accumulation); CUDA tensors launch the kernels of
+``csrc/fused_cross_entropy.cu`` or raise. The kernels take any N and any
+vocab, and ``H`` a multiple of 16. The wrappers allocate the kernels'
+fp32 scratch: the forward's per-split row statistics, and the backward's
+fp32 sums of dh (one ``[N, H]`` plane per vocab split) and of dW. Each
+forward and backward wrapper counts its launches in
+``<wrapper>.launches``.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+
+__all__ = ["fused_cross_entropy", "fused_ce_fwd", "fused_ce_bwd",
+           "fused_ce_fwd_ref", "fused_ce_bwd_ref"]
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    # h, w, labels, loss, lse, part, n, vocab, hidden, ignore_index,
+    # tiles_per_split, bf16, stream
+    "fused_ce_fwd": (_P,) * 6 + (_I,) * 6 + (_P,),
+    # h, w, labels, lse, g_eff, dh, dw, dh32, dw32, n, vocab, hidden,
+    # tiles_per_split, bf16, stream
+    "fused_ce_bwd": (_P,) * 9 + (_I,) * 5 + (_P,),
+}
+_DTYPES = (torch.float32, torch.bfloat16)
+BLOCK_V = 128       # the plain versions' vocab tile (_fwd_xla's _LANES)
+ROWS, TILE_V = 64, 128   # the kernels' token and vocab tiles
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+def _tiles(weight, bv):
+    """Vocab tiles of ``weight`` padded with zero rows to a multiple of
+    ``bv``: ``[nv, bv, H]``."""
+    vocab, hidden = weight.shape
+    nv = -(-vocab // bv)
+    pad = nv * bv - vocab
+    if pad:
+        weight = torch.cat([weight, weight.new_zeros(pad, hidden)])
+    return weight.reshape(nv, bv, hidden), nv, pad
+
+
+def fused_ce_fwd_ref(hidden, weight, labels, ignore_index=-100,
+                     block_v=BLOCK_V):
+    """Online logsumexp over vocab tiles (_fwd_xla): ``(losses, lse)``,
+    both fp32 ``[N]``."""
+    n = hidden.shape[0]
+    vocab = weight.shape[0]
+    wt, nv, pad = _tiles(weight, block_v)
+    lbl = labels.long()[:, None]
+    h32 = hidden.float()
+    m = torch.full((n,), float("-inf"), device=hidden.device)
+    l = torch.zeros(n, device=hidden.device)
+    pk = torch.zeros(n, device=hidden.device)
+    cols = torch.arange(block_v, device=hidden.device)[None]
+    for t in range(nv):
+        logits = h32 @ wt[t].float().T                    # [n, bv] fp32
+        col = t * block_v + cols
+        if pad:
+            logits = logits.masked_fill(col >= vocab, float("-inf"))
+        m_new = torch.maximum(m, logits.max(dim=1).values)
+        corr = torch.exp(m - m_new)
+        l = corr * l + torch.exp(logits - m_new[:, None]).sum(dim=1)
+        pk = pk + torch.where(col == lbl, logits,
+                              torch.zeros((), device=hidden.device)).sum(1)
+        m = m_new
+    lse = m + torch.log(l)
+    losses = torch.where(labels != ignore_index, lse - pk,
+                         torch.zeros((), device=hidden.device))
+    return losses, lse
+
+
+def fused_ce_bwd_ref(hidden, weight, labels, lse, g_eff, block_v=BLOCK_V):
+    """The tiled backward (_bwd_xla): d = (softmax - onehot) * g_eff per
+    vocab tile, cast to hidden's dtype before both products; fp32 sums.
+    Returns ``(dh, dw)`` in hidden's and weight's dtypes."""
+    n, hsz = hidden.shape
+    vocab = weight.shape[0]
+    wt, nv, pad = _tiles(weight, block_v)
+    lbl = labels.long()[:, None]
+    h32 = hidden.float()
+    cols = torch.arange(block_v, device=hidden.device)[None]
+    dh = torch.zeros(n, hsz, device=hidden.device)
+    dws = []
+    for t in range(nv):
+        w32 = wt[t].float()
+        logits = h32 @ w32.T
+        col = t * block_v + cols
+        if pad:
+            logits = logits.masked_fill(col >= vocab, float("-inf"))
+        p = torch.exp(logits - lse[:, None])
+        d = (p - (col == lbl).float()) * g_eff[:, None]
+        dlow = d.to(hidden.dtype).float()
+        dh = dh + dlow @ w32
+        dws.append(dlow.T @ h32)                           # [bv, H] fp32
+    dw = torch.cat(dws)[:vocab]
+    return dh.to(hidden.dtype), dw.to(weight.dtype)
+
+
+# ---------------------------------------------------------------------------
+# wrappers
+# ---------------------------------------------------------------------------
+
+def _check(hidden, weight, labels):
+    if hidden.dim() != 2 or weight.dim() != 2 or labels.dim() != 1:
+        raise ValueError(f"need hidden [N, H], weight [V, H], labels [N]; "
+                         f"got {tuple(hidden.shape)}, "
+                         f"{tuple(weight.shape)}, {tuple(labels.shape)}")
+    if weight.shape[1] != hidden.shape[1] \
+            or labels.shape[0] != hidden.shape[0]:
+        raise ValueError(f"shape mismatch: hidden {tuple(hidden.shape)}, "
+                         f"weight {tuple(weight.shape)}, labels "
+                         f"{tuple(labels.shape)}")
+    devs = {t.device for t in (hidden, weight, labels)}
+    if len(devs) != 1:
+        raise ValueError(f"tensors on different devices: {devs}")
+    dev = hidden.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"fused_cross_entropy: no kernel for {dev}")
+    if dev.type == "cuda":
+        if hidden.dtype not in _DTYPES or weight.dtype != hidden.dtype:
+            raise TypeError(f"hidden/weight must share float32 or "
+                            f"bfloat16, got {hidden.dtype}/{weight.dtype}")
+        if hidden.shape[1] % 16:
+            raise ValueError(f"hidden size {hidden.shape[1]}: the kernels "
+                             f"take a multiple of 16")
+        for name, t in (("hidden", hidden), ("weight", weight)):
+            if not t.is_contiguous() or t.data_ptr() % 16:
+                raise ValueError(f"{name} must be contiguous and 16-byte "
+                                 f"aligned")
+
+
+def _run(fn, *args):
+    lib = _build.load("fused_cross_entropy", _SIGNATURES)
+    rc = getattr(lib, fn)(*args)
+    if rc:
+        raise RuntimeError(f"{fn} launch failed: CUDA error {rc}")
+
+
+def _split(n, vocab, device):
+    """``(splits, tiles_per_split)``: the forward and dh kernels walk the
+    vocab tiles in ``splits`` parts, enough for the grid to fill the card
+    once at two blocks an SM."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    tiles = -(-vocab // TILE_V)
+    want = max(1, min(tiles, 2 * sms // -(-n // ROWS)))
+    per = -(-tiles // want)
+    return -(-tiles // per), per
+
+
+def fused_ce_fwd(hidden, weight, labels, ignore_index=-100):
+    """``(losses, lse)``, fp32 ``[N]`` each; CUDA tensors launch
+    ``fused_ce_fwd_kernel``."""
+    _check(hidden, weight, labels)
+    if hidden.device.type == "cpu":
+        return fused_ce_fwd_ref(hidden, weight, labels, ignore_index)
+    n, hsz = hidden.shape
+    vocab, dev = weight.shape[0], hidden.device
+    loss = torch.empty(n, dtype=torch.float32, device=dev)
+    lse = torch.empty(n, dtype=torch.float32, device=dev)
+    if n == 0:
+        return loss, lse
+    lbl = labels.to(torch.int32).contiguous()
+    splits, per = _split(n, vocab, dev)
+    part = torch.empty(3, splits, n, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _run("fused_ce_fwd", hidden.data_ptr(), weight.data_ptr(),
+             lbl.data_ptr(), loss.data_ptr(), lse.data_ptr(),
+             part.data_ptr(), n, vocab, hsz, int(ignore_index), per,
+             int(hidden.dtype == torch.bfloat16), stream)
+    fused_ce_fwd.launches += 1
+    return loss, lse
+
+
+def fused_ce_bwd(hidden, weight, labels, lse, g_eff):
+    """``(dh, dw)`` in hidden's and weight's dtypes; ``g_eff`` is the fp32
+    loss cotangent, 0 on ignored rows. CUDA tensors launch the dh and dW
+    kernels and the cast of their fp32 sums (one count)."""
+    _check(hidden, weight, labels)
+    if hidden.device.type == "cpu":
+        return fused_ce_bwd_ref(hidden, weight, labels, lse, g_eff)
+    n, hsz = hidden.shape
+    vocab, dev = weight.shape[0], hidden.device
+    dh = torch.empty_like(hidden)
+    dw = torch.empty_like(weight)
+    if n == 0:
+        return dh, dw.zero_()
+    lbl = labels.to(torch.int32).contiguous()
+    g = g_eff.to(torch.float32).contiguous()
+    splits, per = _split(n, vocab, dev)
+    # the fp32 sums: dh per split, over whole token and vocab tiles
+    dh32 = torch.empty(splits, -(-n // ROWS) * ROWS, hsz,
+                       dtype=torch.float32, device=dev)
+    dw32 = torch.empty(-(-vocab // TILE_V) * TILE_V, hsz,
+                       dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _run("fused_ce_bwd", hidden.data_ptr(), weight.data_ptr(),
+             lbl.data_ptr(), lse.contiguous().data_ptr(), g.data_ptr(),
+             dh.data_ptr(), dw.data_ptr(), dh32.data_ptr(), dw32.data_ptr(),
+             n, vocab, hsz, per, int(hidden.dtype == torch.bfloat16),
+             stream)
+    fused_ce_bwd.launches += 1
+    return dh, dw
+
+
+class _FusedCE(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, hidden, weight, labels, ignore_index):
+        losses, lse = fused_ce_fwd(hidden, weight, labels, ignore_index)
+        ctx.save_for_backward(hidden, weight, labels, lse)
+        ctx.ignore_index = ignore_index
+        return losses
+
+    @staticmethod
+    def backward(ctx, g):
+        hidden, weight, labels, lse = ctx.saved_tensors
+        # ignored rows contribute a constant 0 loss: zero their cotangent
+        # so the recomputed (p - onehot) term cannot leak through them
+        g_eff = torch.where(labels != ctx.ignore_index, g.float(),
+                            torch.zeros((), device=g.device))
+        dh, dw = fused_ce_bwd(hidden, weight, labels, lse, g_eff)
+        return dh, dw, None, None
+
+
+def fused_cross_entropy(hidden, weight, labels, ignore_index=-100):
+    """Per-token CE of ``softmax(hidden @ weight^T)`` through vocab tiles
+    (see the module docstring); fp32 losses ``[N]``."""
+    _check(hidden, weight, labels)
+    return _FusedCE.apply(hidden, weight, labels, int(ignore_index))
+
+
+fused_ce_fwd.launches = 0
+fused_ce_bwd.launches = 0

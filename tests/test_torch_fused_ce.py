@@ -1,0 +1,202 @@
+"""Fused LM-head cross entropy of the PyTorch port against the JAX package.
+
+The port's plain versions (`fused_ce_fwd_ref` / `fused_ce_bwd_ref`, what a
+CPU tensor runs) and its autograd wrapper are held against the reference's
+`fused_cross_entropy` in interpret mode (the Pallas kernel's own CPU
+route) and through its XLA tiles, over the case grid of the reference's
+tests: a vocab that is a multiple of the tile and one that is not,
+``ignore_index`` rows. Inputs are numpy arrays from a seed, handed to
+both. Tolerance: atol 1e-5 in fp32 for losses, lse, dh and dW (the same
+tiles in the same order, fp32 sums; only the summation order inside a
+product differs).
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+import paddle_tpu as paddle
+import paddle_tpu.nn.functional as JF
+from paddle_tpu.ops.pallas import fused_cross_entropy as jfce
+from paddle_tpu_torch.nn import functional as PF
+from paddle_tpu_torch.ops.kernels import fused_cross_entropy as fce
+
+ATOL = 1e-5
+
+
+def _inputs(n, vocab, hidden=32, ii=-100, seed=0):
+    rng = np.random.default_rng(seed)
+    h = rng.standard_normal((n, hidden)).astype(np.float32)
+    w = (rng.standard_normal((vocab, hidden)) * 0.1).astype(np.float32)
+    lbl = rng.integers(0, vocab, (n,))
+    lbl[::5] = ii
+    return h, w, lbl
+
+
+# (n, vocab, ignore_index): the reference's grid (tests/test_fused_ce.py)
+# plus a vocab that is not a multiple of the 128-column tile, which the
+# reference's Pallas kernel refuses and its XLA tiles take
+GRID = [(64, 256, -100, "interpret"), (64, 256, -100, "xla"),
+        (100, 384, -1, "interpret"), (100, 384, -1, "xla"),
+        (37, 300, -100, "xla"), (45, 1000, -1, "xla")]
+
+
+def _jax_losses(h, w, lbl, ii, impl):
+    kw = {"interpret": True} if impl == "interpret" else {
+        "use_kernel": False}
+    return jfce.fused_cross_entropy(h, w, jnp.asarray(lbl, jnp.int32),
+                                    ignore_index=ii, **kw)
+
+
+@pytest.mark.parametrize("n,vocab,ii,impl", GRID)
+def test_loss_and_grads_match_jax(n, vocab, ii, impl):
+    """Losses and the gradients of sum(sin(losses)) in hidden and weight:
+    the port's autograd wrapper on CPU tensors (plain versions) against
+    the reference's custom_vjp."""
+    h, w, lbl = _inputs(n, vocab, ii=ii)
+
+    def jloss(hh, ww):
+        return jnp.sum(jnp.sin(_jax_losses(hh, ww, lbl, ii, impl)))
+
+    jl = _jax_losses(jnp.asarray(h), jnp.asarray(w), lbl, ii, impl)
+    jdh, jdw = jax.grad(jloss, (0, 1))(jnp.asarray(h), jnp.asarray(w))
+
+    th = torch.from_numpy(h).requires_grad_()
+    tw = torch.from_numpy(w).requires_grad_()
+    tl = fce.fused_cross_entropy(th, tw, torch.from_numpy(lbl),
+                                 ignore_index=ii)
+    torch.sin(tl).sum().backward()
+    assert tl.dtype == torch.float32
+    np.testing.assert_allclose(tl.detach().numpy(), np.asarray(jl),
+                               rtol=0, atol=ATOL)
+    np.testing.assert_allclose(th.grad.numpy(), np.asarray(jdh), rtol=0,
+                               atol=ATOL)
+    np.testing.assert_allclose(tw.grad.numpy(), np.asarray(jdw), rtol=0,
+                               atol=ATOL)
+    assert np.all(tl.detach().numpy()[lbl == ii] == 0.0)
+
+
+@pytest.mark.parametrize("n,vocab,ii", [(64, 256, -100), (37, 300, -1)])
+def test_plain_versions_match_xla_tiles(n, vocab, ii):
+    """`fused_ce_fwd_ref` / `fused_ce_bwd_ref` against the reference's
+    `_fwd_xla` / `_bwd_xla`, which they transcribe: (losses, lse) and
+    (dh, dW) from the same lse and cotangent."""
+    h, w, lbl = _inputs(n, vocab, ii=ii, seed=1)
+    g = np.random.default_rng(2).random(n).astype(np.float32)
+    g_eff = np.where(lbl != ii, g, 0.0).astype(np.float32)
+    jl, jlse = jfce._fwd_xla(jnp.asarray(h), jnp.asarray(w),
+                             jnp.asarray(lbl, jnp.int32), 128, ii)
+    jdh, jdw = jfce._bwd_xla(jnp.asarray(h), jnp.asarray(w),
+                             jnp.asarray(lbl, jnp.int32), jlse,
+                             jnp.asarray(g_eff), 128)
+    th, tw, tlbl = (torch.from_numpy(a) for a in (h, w, lbl))
+    tl, tlse = fce.fused_ce_fwd_ref(th, tw, tlbl, ii)
+    tdh, tdw = fce.fused_ce_bwd_ref(th, tw, tlbl, tlse,
+                                    torch.from_numpy(g_eff))
+    for got, want in ((tl, jl), (tlse, jlse), (tdh, jdh), (tdw, jdw)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                                   atol=ATOL)
+
+
+@pytest.mark.parametrize("transpose_y", [True, False])
+@pytest.mark.parametrize("reduction", ["none", "mean", "sum"])
+def test_fused_linear_cross_entropy_matches_jax(transpose_y, reduction):
+    """`F.fused_linear_cross_entropy` over [b, s, H] hiddens, with the
+    weight as [V, H] (transpose_y) or [H, V]: loss and both gradients
+    under a random cotangent."""
+    rng = np.random.default_rng(3)
+    b, s, hid, vocab, ii = 2, 9, 32, 200, -100
+    h = rng.standard_normal((b, s, hid)).astype(np.float32)
+    w_vh = (rng.standard_normal((vocab, hid)) * 0.1).astype(np.float32)
+    w = w_vh if transpose_y else np.ascontiguousarray(w_vh.T)
+    lbl = rng.integers(0, vocab, (b, s))
+    lbl[0, ::3] = ii
+    cot = rng.standard_normal((b, s) if reduction == "none" else ()) \
+        .astype(np.float32)
+
+    jh, jw = paddle.to_tensor(h), paddle.to_tensor(w)
+    jh.stop_gradient = jw.stop_gradient = False
+    jout = JF.fused_linear_cross_entropy(
+        jh, jw, paddle.to_tensor(lbl, dtype="int64"),
+        transpose_y=transpose_y, reduction=reduction)
+    (jout * paddle.to_tensor(cot)).sum().backward()
+
+    th = torch.from_numpy(h).requires_grad_()
+    tw = torch.from_numpy(w).requires_grad_()
+    tout = PF.fused_linear_cross_entropy(th, tw, torch.from_numpy(lbl),
+                                         transpose_y=transpose_y,
+                                         reduction=reduction)
+    (tout * torch.from_numpy(cot)).sum().backward()
+    assert tuple(tout.shape) == tuple(jout.shape)
+    np.testing.assert_allclose(tout.detach().numpy(), jout.numpy(), rtol=0,
+                               atol=ATOL)
+    np.testing.assert_allclose(th.grad.numpy(), jh.grad.numpy(), rtol=0,
+                               atol=ATOL)
+    np.testing.assert_allclose(tw.grad.numpy(), jw.grad.numpy(), rtol=0,
+                               atol=ATOL)
+
+
+def test_ignored_rows_get_exactly_zero_gradients():
+    """An ignored row contributes a 0 loss, an exactly zero dh row, and
+    nothing to dW: an all-ignored batch gives dW == 0 exactly."""
+    h, w, lbl = _inputs(40, 256, ii=-100, seed=4)
+    th = torch.from_numpy(h).requires_grad_()
+    tw = torch.from_numpy(w).requires_grad_()
+    fce.fused_cross_entropy(th, tw, torch.from_numpy(lbl)).sum().backward()
+    ign = lbl == -100
+    assert np.all(th.grad.numpy()[ign] == 0.0)
+    assert np.all(np.abs(th.grad.numpy()[~ign]).sum(1) > 0)
+
+    th.grad = tw.grad = None
+    none = torch.full((40,), -100, dtype=torch.long)
+    fce.fused_cross_entropy(th, tw, none).sum().backward()
+    assert torch.count_nonzero(th.grad) == 0
+    assert torch.count_nonzero(tw.grad) == 0
+
+
+def test_bf16_backward_keeps_the_weight_dtype():
+    """bf16 in, bf16 gradients out (dW cast to weight.dtype, as the
+    reference's backward does); losses against the reference's bf16
+    interpret-mode kernel within 3e-2 (its own bf16 bar)."""
+    h, w, lbl = _inputs(32, 256, hidden=16, seed=5)
+    th = torch.from_numpy(h).bfloat16().requires_grad_()
+    tw = torch.from_numpy(w).bfloat16().requires_grad_()
+    tl = fce.fused_cross_entropy(th, tw, torch.from_numpy(lbl))
+    tl.sum().backward()
+    assert th.grad.dtype == tw.grad.dtype == torch.bfloat16
+    jl = jfce.fused_cross_entropy(
+        jnp.asarray(th.detach().float().numpy(), jnp.bfloat16),
+        jnp.asarray(tw.detach().float().numpy(), jnp.bfloat16),
+        jnp.asarray(lbl, jnp.int32), interpret=True)
+    np.testing.assert_allclose(tl.detach().numpy(), np.asarray(jl),
+                               rtol=0, atol=3e-2)
+
+
+def test_cross_entropy_matches_jax():
+    """`F.cross_entropy` with hard labels and ignore_index, as the
+    pretraining criterion uses it."""
+    rng = np.random.default_rng(6)
+    x = rng.standard_normal((30, 50)).astype(np.float32)
+    lbl = rng.integers(0, 50, (30,))
+    lbl[::4] = -100
+    for reduction in ("none", "mean", "sum"):
+        want = JF.cross_entropy(paddle.to_tensor(x),
+                                paddle.to_tensor(lbl, dtype="int64"),
+                                reduction=reduction)
+        got = PF.cross_entropy(torch.from_numpy(x), torch.from_numpy(lbl),
+                               reduction=reduction)
+        np.testing.assert_allclose(got.numpy(),
+                                   np.asarray(want.numpy()).reshape(
+                                       got.shape), rtol=0, atol=ATOL)
+
+
+def test_token_chunked_route_is_not_ported():
+    h = torch.zeros(4, 16)
+    w = torch.zeros(8, 16)
+    lbl = torch.zeros(4, dtype=torch.long)
+    with pytest.raises(NotImplementedError, match="token-chunked"):
+        PF.fused_linear_cross_entropy(h, w, lbl, n_chunks=2)
+    with pytest.raises(NotImplementedError, match="token-chunked"):
+        PF.fused_linear_cross_entropy(h, w, lbl, vocab_tiled=False)

@@ -171,11 +171,12 @@ def test_init_from_seed_is_reproducible():
 
 
 def test_full_attention_refuses_the_card():
-    """Full-sequence attention on the card belongs to the flash/splash
-    kernels, not ported yet: no plain attention runs there."""
-    from paddle_tpu_torch.models.gpt import GPTAttention
+    """Full-sequence attention off the CPU goes to the splash kernel and
+    nowhere else: on ``meta`` tensors (neither CPU nor CUDA) the splash
+    wrapper's device check raises, so no plain attention runs there."""
+    from paddle_tpu_torch.nn.functional import scaled_dot_product_attention
 
-    attn = GPTAttention(GPTConfig(**CFG))
-    x = torch.zeros(1, 3, 32, device="meta")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        attn(x)
+    q = torch.zeros(1, 3, 4, 8, device="meta")
+    with pytest.raises(ValueError, match="splash_attention: no kernel for "
+                                         "meta"):
+        scaled_dot_product_attention(q, q, q, is_causal=True)

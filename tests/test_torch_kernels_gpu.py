@@ -1,4 +1,6 @@
-"""The port's CUDA paged-attention kernels against their plain versions.
+"""The port's CUDA kernels against their plain versions: paged attention
+(serving), splash attention and the fused cross entropy (training),
+forward and backward.
 
 These run only on a CUDA card (marker ``gpu``; each test skips without
 one). The file imports torch, numpy and the port only, so it runs on a
@@ -8,13 +10,18 @@ machine without JAX:
 
 Tolerances: fp32 1e-4 (fp32 accumulation in another order than the
 plain version's matmuls), bf16 2e-2 (the output's bf16 rounding, against
-the plain version on the same bf16 inputs).
+the plain version on the same bf16 inputs); gradients relative to the
+plain gradient's largest magnitude, with the same two bars. The backward
+kernels sum inside one block in a fixed order, so two runs agree bit for
+bit.
 """
 import numpy as np
 import pytest
 import torch
 
+from paddle_tpu_torch.ops.kernels import fused_cross_entropy as fce
 from paddle_tpu_torch.ops.kernels import paged_attention as pa
+from paddle_tpu_torch.ops.kernels import splash_attention as sa
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
@@ -150,3 +157,162 @@ def test_serving_on_the_card_matches_the_cpu(cuda):
         eng.run()
         out.append([h.output_tokens for h in hs])
     assert out[0] == out[1]
+
+
+# ---------------------------------------------------------------------------
+# training kernels: splash attention, fused cross entropy
+# ---------------------------------------------------------------------------
+
+def _rel(got, want):
+    scale = float(want.float().abs().max())
+    return float((got.float() - want.float()).abs().max()) / max(scale,
+                                                                 1e-30)
+
+
+def _attn_inputs(dev, b, s, h, kvh, d, dtype, docs=None, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    qkv = torch.randn(b, s, h + 2 * kvh, d, device=dev,
+                      generator=gen).to(dtype)
+    q, k, v = qkv.split([h, kvh, kvh], dim=2)
+    seg = None
+    if docs:
+        rng = np.random.default_rng(seed)
+        rows = []
+        for i in range(b):
+            n = 1 if i == b - 1 else docs      # one row is one document
+            cuts = np.sort(rng.choice(np.arange(1, s), n - 1, replace=False))
+            rows.append(np.searchsorted(cuts, np.arange(s), side="right"))
+        seg = torch.tensor(np.stack(rows), dtype=torch.int32, device=dev)
+    return q, k, v, seg
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,kvh,d,causal,docs", [
+    (2, 128, 4, 4, 64, True, None), (2, 200, 4, 2, 64, True, 3),
+    (1, 256, 8, 2, 32, False, 3), (2, 96, 2, 1, 64, False, None),
+    (1, 130, 4, 4, 16, True, None)])
+def test_splash_kernels(cuda, dtype, b, s, h, kvh, d, causal, docs):
+    """Forward (out, lse) and backward (dq, dk, dv) against the plain
+    versions; strided q/k/v views (one packed tensor) take no copy."""
+    q, k, v, seg = _attn_inputs(cuda, b, s, h, kvh, d, dtype, docs)
+    assert not q.is_contiguous()
+    n_f, n_b = sa.splash_attention_fwd.launches, \
+        sa.splash_attention_bwd.launches
+    out, lse = sa.splash_attention_fwd(q, k, v, causal, seg)
+    torch.cuda.synchronize()
+    want, want_lse = sa.splash_attention_ref(q, k, v, causal, seg,
+                                             return_lse=True)
+    tol = TOL[dtype]
+    assert out.dtype == dtype and torch.isfinite(out).all()
+    assert float((out.float() - want.float()).abs().max()) <= tol
+    fin = torch.isfinite(want_lse)
+    assert torch.equal(fin, torch.isfinite(lse))
+    assert float((lse - want_lse)[fin].abs().max()) <= 1e-4
+    dout = torch.randn(out.shape, device=cuda,
+                       generator=torch.Generator(device=cuda).manual_seed(1)
+                       ).to(dtype)
+    got = sa.splash_attention_bwd(q, k, v, out, lse, dout, causal, seg)
+    torch.cuda.synchronize()
+    ref = sa.splash_attention_bwd_ref(q, k, v, out, lse, dout, causal, seg)
+    for g, r in zip(got, ref):
+        assert g.dtype == dtype and torch.isfinite(g).all()
+        assert _rel(g, r) <= tol
+    again = sa.splash_attention_bwd(q, k, v, out, lse, dout, causal, seg)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
+    assert sa.splash_attention_fwd.launches == n_f + 1
+    assert sa.splash_attention_bwd.launches == n_b + 2
+
+
+@pytest.mark.gpu
+def test_splash_empty_rows_are_zero(cuda):
+    """Non-causal with sk < sq under segments: rows whose document has no
+    key give zero output, lse +inf and zero gradients."""
+    b, sq, sk, h, d = 1, 96, 64, 2, 32
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q = torch.randn(b, sq, h, d, device=cuda, generator=gen)
+    k = torch.randn(b, sk, h, d, device=cuda, generator=gen)
+    v = torch.randn(b, sk, h, d, device=cuda, generator=gen)
+    seg = torch.tensor([[0] * 64 + [1] * 32], dtype=torch.int32,
+                       device=cuda)
+    out, lse = sa.splash_attention_fwd(q, k, v, False, seg)
+    dq, dk, dv = sa.splash_attention_bwd(q, k, v, out, lse,
+                                         torch.ones_like(out), False, seg)
+    torch.cuda.synchronize()
+    assert torch.equal(out[:, 64:], torch.zeros_like(out[:, 64:]))
+    assert torch.isinf(lse[..., 64:]).all()
+    assert torch.equal(dq[:, 64:], torch.zeros_like(dq[:, 64:]))
+    assert torch.isfinite(dk).all() and torch.isfinite(dv).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,vocab,hidden", [
+    (300, 1000, 64), (64, 256, 128), (17, 130, 48), (256, 512, 1024)])
+def test_fused_ce_kernels(cuda, dtype, n, vocab, hidden):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    h = torch.randn(n, hidden, device=cuda, generator=gen).to(dtype)
+    w = (torch.randn(vocab, hidden, device=cuda, generator=gen) * 0.1) \
+        .to(dtype)
+    labels = torch.randint(0, vocab, (n,), device=cuda, generator=gen)
+    labels[::7] = -100
+    n_f, n_b = fce.fused_ce_fwd.launches, fce.fused_ce_bwd.launches
+    loss, lse = fce.fused_ce_fwd(h, w, labels)
+    torch.cuda.synchronize()
+    want, want_lse = fce.fused_ce_fwd_ref(h, w, labels)
+    tol = TOL[dtype]
+    assert float((loss - want).abs().max()) <= 1e-4 * max(
+        1.0, float(want.abs().max()))
+    assert float((lse - want_lse).abs().max()) <= 1e-4 * max(
+        1.0, float(want_lse.abs().max()))
+    assert torch.equal(loss[::7], torch.zeros_like(loss[::7]))
+    g = torch.rand(n, device=cuda, generator=gen)
+    g_eff = torch.where(labels != -100, g, torch.zeros_like(g))
+    dh, dw = fce.fused_ce_bwd(h, w, labels, lse, g_eff)
+    torch.cuda.synchronize()
+    rdh, rdw = fce.fused_ce_bwd_ref(h, w, labels, lse, g_eff)
+    assert dh.dtype == dtype and dw.dtype == dtype
+    assert _rel(dh, rdh) <= tol and _rel(dw, rdw) <= tol
+    assert torch.equal(dh[::7], torch.zeros_like(dh[::7]))
+    dh2, dw2 = fce.fused_ce_bwd(h, w, labels, lse, g_eff)
+    torch.cuda.synchronize()
+    assert torch.equal(dh2, dh) and torch.equal(dw2, dw)
+    assert fce.fused_ce_fwd.launches == n_f + 1
+    assert fce.fused_ce_bwd.launches == n_b + 2
+
+
+@pytest.mark.gpu
+def test_training_kernel_errors(cuda):
+    q = torch.randn(1, 64, 2, 64, device=cuda)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        sa.splash_attention_fwd(q.half(), q.half(), q.half())
+    q20 = torch.randn(1, 64, 2, 20, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        sa.splash_attention_fwd(q20, q20, q20)
+    with pytest.raises(ValueError, match="equal seq lens"):
+        sa.splash_attention_fwd(q, q[:, :32], q[:, :32], True)
+    # fp32 backward at head_dim 128 needs more shared memory than a block
+    # has: the launch is refused, and the wrapper raises
+    q128 = torch.randn(1, 64, 2, 128, device=cuda)
+    out, lse = sa.splash_attention_fwd(q128, q128, q128)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        sa.splash_attention_bwd(q128, q128, q128, out, lse, out)
+    h = torch.randn(8, 64, device=cuda)
+    lbl = torch.zeros(8, dtype=torch.long, device=cuda)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fce.fused_ce_fwd(h, h.bfloat16(), lbl)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        fce.fused_ce_fwd(h[:, :40], h[:, :40].contiguous(), lbl)
+    with pytest.raises(ValueError, match="contiguous"):
+        fce.fused_ce_fwd(h, torch.randn(64, 16, device=cuda).T, lbl)
+    # a geometry the kernel refuses (no vocab tiles a split) returns an
+    # error code before any launch, and the runner raises
+    loss, lse = torch.empty(8, device=cuda), torch.empty(8, device=cuda)
+    part = torch.empty(3, 8, device=cuda)
+    lbl32 = lbl.to(torch.int32)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fce._run("fused_ce_fwd", h.data_ptr(), h.data_ptr(),
+                 lbl32.data_ptr(), loss.data_ptr(), lse.data_ptr(),
+                 part.data_ptr(), 8, 8, 64, -100, 0, 0,
+                 torch.cuda.current_stream().cuda_stream)
