@@ -11,32 +11,41 @@ Phases, one line each (any failure exits non-zero, nothing is caught):
 3. each kernel against its plain PyTorch version on the card, in fp32
    and bf16 (tolerances at `check_kernels` and
    `check_training_kernels`), at the shapes the serving and training
-   paths give it, then timed with CUDA events (L2 flushed between
-   launches) beside the plain version and one PyTorch library call on
-   the same inputs;
+   paths give it, the paged kernels over bf16, int8 and int4 pools,
+   then timed with CUDA events (L2 flushed between launches) beside the
+   plain version and one PyTorch library call on the same inputs;
 4. serving parity: a tiny fp32 GPT served on the card (kernels) and on
-   the CPU (plain versions) gives identical greedy tokens;
+   the CPU (plain versions) over fp32, int8 and int4 pools gives
+   identical greedy tokens;
 5. the serving path at GPT-3 1.3B width: 16 greedy requests through
    ``ServingEngine`` with bf16 weights and pools; the paged kernels'
-   launch counters are zeroed just before and read just after, and must
-   both be > 0;
-6. training parity: a tiny fp32 GPT with packed-sequence segment ids
+   launch counters are zeroed just before and read just after: the fp
+   kernels must be > 0, the quantized ones 0;
+6. the same workload with ``kv_quant="int8"`` and then ``"int4"``: the
+   quantized kernels of that mode must be > 0, every other paged kernel
+   0; pool bytes and capacity against the bf16 run;
+7. ``generate()`` at the same width, 8 prompts of 128 tokens and 32 new
+   tokens over the paged cache with bf16 and with int8 pools: the
+   splash forward and the decode kernel of the pools must have run;
+8. training parity: a tiny fp32 GPT with packed-sequence segment ids
    takes three ``TrainStep``s (AdamW, global-norm clip) on the card and
    on the CPU; losses and parameters must agree, and each of the four
    training kernels must have run;
-7. the training path at GPT-3 1.3B width: ``TrainStep`` + AdamW (bf16
+9. the training path at GPT-3 1.3B width: ``TrainStep`` + AdamW (bf16
    weights, fp32 masters, bf16 moments, clip 1.0) over 8 x 1024 random
    tokens with recompute, 2 warm-up and 5 timed steps; the training
    kernels' counters are zeroed just before the timed steps and read
    just after, and must all be > 0, and every loss finite;
-8. one JSON line ``{"kernels": [...]}`` with each kernel's error, times,
-   bound and launches.
+10. one JSON line ``{"kernels": [...]}`` with each kernel's error,
+    times, bound and launches (a paged kernel's from the serving run of
+    its pools).
 
 It then prints the ``nvidia-smi`` line again and, last, ``{"ok": true,
 "device": {...}}``. Imports torch, numpy and the port only.
 """
 from __future__ import annotations
 
+import gc
 import json
 import statistics
 import subprocess
@@ -49,7 +58,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
 BF16_FLOP_PER_S = 989e12        # dense bf16 tensor-core peak
 FP32_FLOP_PER_S = 67e12         # fp32 outside the tensor cores
-PHASES = 8
+PHASES = 10
 
 
 def nvidia_smi() -> str:
@@ -89,10 +98,47 @@ def bound_ms(nbytes: float, flops: float, itemsize: int):
 
 
 # ---------------------------------------------------------------------------
-# phase 3: kernels against their plain versions
+# phase 3: paged-attention kernels against their plain versions
 # ---------------------------------------------------------------------------
 
+PAGED_SOURCE = "paddle_tpu_torch/csrc/paged_attention.cu"
+PAGED_TPU = "paddle_tpu/ops/pallas/paged_attention.py"
+# kernel -> (wrapper, its launch counter, pool quant mode, TPU kernel line)
+PAGED_KERNELS = {
+    "paged_decode_kernel": ("paged_attention", "launches", None, 163),
+    "paged_chunk_kernel": ("paged_attention_chunk", "launches", None, 400),
+    "paged_decode_q_kernel[int8]": ("paged_attention", "launches_int8",
+                                    "int8", 208),
+    "paged_decode_q_kernel[int4]": ("paged_attention", "launches_int4",
+                                    "int4", 208),
+    "paged_chunk_q_kernel[int8]": ("paged_attention_chunk", "launches_int8",
+                                   "int8", 400),
+    "paged_chunk_q_kernel[int4]": ("paged_attention_chunk", "launches_int4",
+                                   "int4", 400),
+}
+SDPA_OVER_DEQUANT = ("scaled_dot_product_attention over the bf16 K/V the "
+                     "pools dequantize to (dequant not counted)")
+
+
+def _paged_reset():
+    from paddle_tpu_torch.ops.kernels import paged_attention as pa
+
+    for wrapper, counter, _, _ in PAGED_KERNELS.values():
+        setattr(getattr(pa, wrapper), counter, 0)
+
+
+def _paged_launches():
+    from paddle_tpu_torch.ops.kernels import paged_attention as pa
+
+    return {name: getattr(getattr(pa, wrapper), counter)
+            for name, (wrapper, counter, _, _) in PAGED_KERNELS.items()}
+
+
 def check_kernels(dev, flush):
+    """The four paged kernels (fp, and int8 / int4 pools) at the serving
+    path's shapes: decode q [8, 32, 64] over pools of 513 pages of 16
+    rows, lens 0..1024; one chunk-prefill call q [4, 64, 32, 64]."""
+    from paddle_tpu_torch.inference.kv_cache import quantize_rows
     from paddle_tpu_torch.ops.kernels import paged_attention as pa
 
     b, nh, kvh, d, ps, pp = 8, 32, 32, 64, 16, 64   # decode at 1.3B width
@@ -110,32 +156,44 @@ def check_kernels(dev, flush):
     qc32 = torch.randn(cb, c, nh, d, device=dev, generator=gen)
     ptc = pt[:cb].contiguous()
     start = torch.tensor([0, 64, 300, L - c], dtype=torch.int32, device=dev)
+    quantized = {quant: (quantize_rows(k32, quant),
+                         quantize_rows(v32, quant))
+                 for quant in ("int8", "int4")}
 
     results = {}
-    cases = {
-        "paged_decode_kernel": (pa.paged_attention, pa.paged_attention_ref,
-                                q32, pt, lens),
-        "paged_chunk_kernel": (pa.paged_attention_chunk,
-                               pa.paged_attention_chunk_ref, qc32, ptc,
-                               start),
-    }
-    for name, (kernel, plain, q, table, pos) in cases.items():
+    for name, (wrapper, _, quant, _) in PAGED_KERNELS.items():
+        kernel = getattr(pa, wrapper)
+        plain = getattr(pa, wrapper + "_ref")
+        q, table, pos = ((q32, pt, lens) if wrapper == "paged_attention"
+                         else (qc32, ptc, start))
+        if quant is None:
+            def pools(dtype):
+                return k32.to(dtype), v32.to(dtype), {}
+            row_bytes = d * 2                       # bf16 pools, timed
+        else:
+            (kq, ks), (vq, vs) = quantized[quant]
+
+            def pools(dtype, kq=kq, vq=vq, ks=ks, vs=vs):
+                return kq, vq, {"k_scales": ks, "v_scales": vs}
+            row_bytes = (d if quant == "int8" else d // 2) + 4
         errs = {}
         for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
-            args = (q.to(dtype), k32.to(dtype), v32.to(dtype), table, pos)
-            got = kernel(*args)
+            kp, vp, sc = pools(dtype)
+            args = (q.to(dtype), kp, vp, table, pos)
+            got = kernel(*args, **sc)
             torch.cuda.synchronize()
-            want = plain(*args)
+            want = plain(*args, **sc)
             err = float((got.float() - want.float()).abs().max())
             if not (err <= tol and torch.isfinite(got).all()):
                 raise AssertionError(
                     f"{name} {dtype}: max abs err {err} > {tol}")
             errs[dtype] = err
-        # times at the serving path's dtype (bf16)
-        args = (q.to(torch.bfloat16), k32.to(torch.bfloat16),
-                v32.to(torch.bfloat16), table, pos)
-        kd = pa._densify(args[1], table)            # [b, kvh, L, d]
-        vd = pa._densify(args[2], table)
+        # times at the serving path's dtype (bf16 q; bf16 or quantized
+        # pools)
+        kp, vp, sc = pools(torch.bfloat16)
+        args = (q.to(torch.bfloat16), kp, vp, table, pos)
+        kd = pa._densify(kp, table, sc.get("k_scales")).to(torch.bfloat16)
+        vd = pa._densify(vp, table, sc.get("v_scales")).to(torch.bfloat16)
         if q.dim() == 3:
             qs = args[0][:, :, None]                # [b, nh, 1, d]
             mask = (torch.arange(L, device=dev)[None] < pos[:, None]) \
@@ -152,8 +210,10 @@ def check_kernels(dev, flush):
         library = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
             qs, kd, vd, attn_mask=mask)
         item = 2
-        nbytes = float(2 * qs.numel() * item                 # q in, out
-                       + (keys.sum() * kvh * d * 2 * item).item()
+        # q in and out, each visible key's K and V rows once (with their
+        # scales), the page-table entries that map them, the lengths
+        nbytes = float(2 * qs.numel() * item
+                       + (keys.sum() * kvh * 2 * row_bytes).item()
                        + ((keys / ps).ceil().sum() * 4).item()
                        + pos.numel() * 4)
         flops = float((4 * rows_keys.sum() * d).item())
@@ -161,12 +221,14 @@ def check_kernels(dev, flush):
         results[name] = {
             "max_abs_err": errs[torch.bfloat16],
             "max_abs_err_fp32": errs[torch.float32],
-            "ms": time_ms(lambda: kernel(*args), flush),
-            "plain_ms": time_ms(lambda: plain(*args), flush),
+            "ms": time_ms(lambda: kernel(*args, **sc), flush),
+            "plain_ms": time_ms(lambda: plain(*args, **sc), flush),
             "library_ms": time_ms(library, flush),
             "bound_ms": b_ms, "bound_by": b_by,
             "shape": list(q.shape),
         }
+        if quant is not None:
+            results[name]["library"] = SDPA_OVER_DEQUANT
         r = results[name]
         print(f"[3/{PHASES}] {name}: q {r['shape']} max abs err fp32 "
               f"{errs[torch.float32]:.3g} bf16 {errs[torch.bfloat16]:.3g}; "
@@ -181,6 +243,8 @@ def check_kernels(dev, flush):
 # ---------------------------------------------------------------------------
 
 def parity(dev):
+    """The same greedy requests served on the card and on the CPU, over
+    fp32 pools and over int8 and int4 pools."""
     from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
     from paddle_tpu_torch.serving import ServingEngine
 
@@ -197,43 +261,45 @@ def parity(dev):
     prompts = [rng.integers(1, 128, (n,)).astype(np.int32)
                for n in (5, 17, 33, 64, 9, 70)]
     budgets = [int(n) for n in rng.integers(8, 17, len(prompts))]
-    tokens, leaks = {}, {}
-    for where, model in (("card", card), ("cpu", cpu)):
-        eng = ServingEngine(model, max_slots=4, max_len=128, page_size=16,
-                            chunk_size=32, prefill_batch=2,
-                            device=dev if where == "card" else "cpu")
-        handles = [eng.submit(p, n) for p, n in zip(prompts, budgets)]
-        eng.run()
-        tokens[where] = [h.output_tokens for h in handles]
-        leaks[where] = eng.leak_check()
-        lk = leaks[where]
-        if not (lk["free_pages"] == lk["total_pages"]
-                and lk["free_slots"] == lk["total_slots"]
-                and lk["resident_slot_pages"] == 0):
-            raise AssertionError(f"{where} engine leaked: {lk}")
-    if tokens["card"] != tokens["cpu"]:
-        raise AssertionError(f"card/CPU greedy tokens differ:\n"
-                             f"{tokens['card']}\n{tokens['cpu']}")
-    n = sum(len(t) for t in tokens["card"])
-    print(f"[4/{PHASES}] parity: tiny fp32 GPT, {len(prompts)} greedy requests, "
-          f"{n} tokens identical on card and CPU; no leaks", flush=True)
+    for quant in (None, "int8", "int4"):
+        tokens = {}
+        for where, model in (("card", card), ("cpu", cpu)):
+            eng = ServingEngine(model, max_slots=4, max_len=128,
+                                page_size=16, chunk_size=32, prefill_batch=2,
+                                kv_quant=quant,
+                                device=dev if where == "card" else "cpu")
+            handles = [eng.submit(p, n) for p, n in zip(prompts, budgets)]
+            eng.run()
+            tokens[where] = [h.output_tokens for h in handles]
+            lk = eng.leak_check()
+            if not (lk["free_pages"] == lk["total_pages"]
+                    and lk["free_slots"] == lk["total_slots"]
+                    and lk["resident_slot_pages"] == 0):
+                raise AssertionError(f"{where} {quant} engine leaked: {lk}")
+        if tokens["card"] != tokens["cpu"]:
+            raise AssertionError(f"card/CPU greedy tokens differ ({quant} "
+                                 f"pools):\n{tokens['card']}\n"
+                                 f"{tokens['cpu']}")
+        n = sum(len(t) for t in tokens["card"])
+        print(f"[4/{PHASES}] parity: tiny fp32 GPT, {quant or 'fp32'} "
+              f"pools, {len(prompts)} greedy requests, {n} tokens identical "
+              f"on card and CPU; no leaks", flush=True)
 
 
 # ---------------------------------------------------------------------------
-# phase 5: the serving path at GPT-3 1.3B width
+# phases 5-6: the serving path at GPT-3 1.3B width, bf16 then int8 / int4
+# pools
 # ---------------------------------------------------------------------------
 
-def serve_full_width(dev):
-    from paddle_tpu_torch.models import GPTForCausalLM, gpt_config
-    from paddle_tpu_torch.ops.kernels import paged_attention as pa
+def serve_full_width(dev, model, kv_quant=None, phase=5):
     from paddle_tpu_torch.serving import ServingEngine, ServingMetrics
 
-    cfg = gpt_config("gpt3-1.3b")
+    cfg = model.config
     t0 = time.perf_counter()
-    model = GPTForCausalLM(cfg, device=dev, dtype=torch.bfloat16, seed=0)
     eng = ServingEngine(model, max_slots=8, max_len=1024, page_size=16,
                         chunk_size=64, prefill_batch=4,
-                        cache_dtype=torch.bfloat16, device=dev)
+                        cache_dtype=torch.bfloat16, kv_quant=kv_quant,
+                        device=dev)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     # warm-up (cuBLAS heuristics, allocator): one short request, then
@@ -250,17 +316,18 @@ def serve_full_width(dev):
     prompts = [rng.integers(0, cfg.vocab_size, (int(n),)).astype(np.int32)
                for n in lens]
 
+    # an earlier run's engine (a reference cycle) must not hold its pools
+    # through this run's peak
+    gc.collect()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    pa.paged_attention.launches = 0
-    pa.paged_attention_chunk.launches = 0
+    _paged_reset()
     t0 = time.perf_counter()
     handles = [eng.submit(p, int(n)) for p, n in zip(prompts, budgets)]
     snap = eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"paged_decode_kernel": pa.paged_attention.launches,
-                "paged_chunk_kernel": pa.paged_attention_chunk.launches}
+    launches = _paged_launches()
 
     for h, n in zip(handles, budgets):
         toks = np.asarray(h.output_tokens)
@@ -273,13 +340,16 @@ def serve_full_width(dev):
             leaks["free_slots"] != leaks["total_slots"]:
         raise AssertionError(f"leaked pages or slots: {leaks}")
     pool = eng.cache.pool_stats()
-    calls = {"paged_decode_kernel": eng.decode_step.calls,
-             "paged_chunk_kernel": eng.prefill_step.calls}
+    # the kernels this run must go through, and the ones it must not
+    ran = [k for k, (_, _, quant, _) in PAGED_KERNELS.items()
+           if quant == kv_quant]
+    calls = {"decode": eng.decode_step.calls,
+             "chunk": eng.prefill_step.calls}
     stats = {
         "model": "gpt3-1.3b", "layers": cfg.num_layers,
         "hidden": cfg.hidden_size, "heads": cfg.num_attention_heads,
         "vocab": cfg.vocab_size, "dtype": "bfloat16",
-        "setup_s": round(setup_s, 3),
+        "kv_quant": kv_quant, "setup_s": round(setup_s, 3),
         "requests": len(handles), "finished": snap["finished"],
         "prompt_tokens": int(lens.sum()),
         "generated_tokens": snap["generated_tokens"],
@@ -288,19 +358,75 @@ def serve_full_width(dev):
         "ttft_p50_s": snap["ttft_p50_s"], "ttft_p99_s": snap["ttft_p99_s"],
         "itl_p50_s": snap["itl_p50_s"], "itl_p99_s": snap["itl_p99_s"],
         "decode_steps": snap["decode_steps"],
-        "prefill_calls": calls["paged_chunk_kernel"],
+        "prefill_calls": calls["chunk"],
         "preemptions": snap["preemptions"],
         "pool_bytes": pool["pool_bytes"],
         "kv_bytes_per_token": pool["bytes_per_token"],
+        "effective_slots_vs_bf16": pool["effective_slots_vs_bf16"],
         "max_memory_allocated": torch.cuda.max_memory_allocated(),
         "launches": launches,
-        "launches_per_call": {k: launches[k] / max(calls[k], 1)
-                              for k in launches},
+        "launches_per_call": {
+            k: launches[k] / max(calls["decode" if "decode" in k
+                                       else "chunk"], 1) for k in ran},
     }
-    print(f"[5/{PHASES}] serve gpt3-1.3b: {json.dumps(stats)}", flush=True)
-    if min(launches.values()) <= 0:
+    print(f"[{phase}/{PHASES}] serve gpt3-1.3b {kv_quant or 'bf16'} pools: "
+          f"{json.dumps(stats)}", flush=True)
+    if min(launches[k] for k in ran) <= 0:
         raise AssertionError(f"a kernel never ran on the path: {launches}")
-    return launches
+    idle = {k: n for k, n in launches.items() if k not in ran and n}
+    if idle:
+        raise AssertionError(f"kernels of other pools ran: {idle}")
+    return {k: launches[k] for k in ran}, stats
+
+
+# ---------------------------------------------------------------------------
+# phase 7: generate() at GPT-3 1.3B width
+# ---------------------------------------------------------------------------
+
+def generate_full_width(dev, model):
+    """``generate()`` of 8 prompts of 128 tokens, 32 new tokens, over the
+    paged cache with bf16 pools and with int8 pools: one warm-up call,
+    then one call with the kernels' counters zeroed just before and read
+    just after. The splash forward (prefill) and the decode kernel of
+    the pools must have run."""
+    from paddle_tpu_torch.ops.kernels import splash_attention as sa
+
+    cfg = model.config
+    ids = np.random.default_rng(2).integers(0, cfg.vocab_size, (8, 128))
+    out = {}
+    for quant, decode in ((None, "paged_decode_kernel"),
+                          ("int8", "paged_decode_q_kernel[int8]")):
+        kw = dict(use_cache="paged", cache_dtype=torch.bfloat16,
+                  **({"kv_quant": quant} if quant else {}))
+        model.generate(ids, 32, **kw)               # engine, warm-up
+        torch.cuda.synchronize()
+        _paged_reset()
+        sa.splash_attention_fwd.launches = 0
+        t0 = time.perf_counter()
+        toks = model.generate(ids, 32, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"splash_fwd_kernel": sa.splash_attention_fwd.launches,
+                    **_paged_launches()}
+        t = toks.numpy()
+        if not (t.shape == (8, 32) and (t >= 0).all()
+                and (t < cfg.vocab_size).all()):
+            raise AssertionError(f"generate {quant}: bad tokens {t.shape}")
+        out[quant] = t
+        stats = {"kv_quant": quant, "batch": 8, "prompt": 128, "new": 32,
+                 "wall_s": round(wall, 4),
+                 "output_tok_s": round(t.size / wall, 2),
+                 "launches": {k: n for k, n in launches.items() if n}}
+        if quant is not None:
+            stats["tokens_equal_to_bf16_share"] = float(
+                (t == out[None]).mean())
+        print(f"[7/{PHASES}] generate gpt3-1.3b paged "
+              f"{quant or 'bf16'}: {json.dumps(stats)}", flush=True)
+        if launches["splash_fwd_kernel"] <= 0 or launches[decode] <= 0:
+            raise AssertionError(f"generate {quant}: a kernel never ran: "
+                                 f"{launches}")
+    model.__dict__.pop("_generation_engines", None)
+
 
 # ---------------------------------------------------------------------------
 # phase 3, training kernels: splash attention and the fused cross entropy
@@ -538,7 +664,7 @@ def _train_counters():
 
 
 # ---------------------------------------------------------------------------
-# phase 6: tiny model training, card vs CPU
+# phase 8: tiny model training, card vs CPU
 # ---------------------------------------------------------------------------
 
 def train_parity(dev):
@@ -578,7 +704,7 @@ def train_parity(dev):
                                               losses["cpu"]))
     param_rel = max(_rel_err(params["card"][k], params["cpu"][k])
                     for k in params["cpu"])
-    print(f"[6/{PHASES}] train parity: tiny fp32 GPT with segments, 3 "
+    print(f"[8/{PHASES}] train parity: tiny fp32 GPT with segments, 3 "
           f"TrainSteps; losses card {losses['card']} cpu {losses['cpu']} "
           f"(max |diff| {loss_err:.3g}); params max rel diff "
           f"{param_rel:.3g}; kernel launches {launches}", flush=True)
@@ -591,7 +717,7 @@ def train_parity(dev):
 
 
 # ---------------------------------------------------------------------------
-# phase 7: the training path at GPT-3 1.3B width
+# phase 9: the training path at GPT-3 1.3B width
 # ---------------------------------------------------------------------------
 
 def train_full_width(dev, warmup=2, timed=5, batch=8):
@@ -651,7 +777,7 @@ def train_full_width(dev, warmup=2, timed=5, batch=8):
         "launches": launches,
         "launches_per_step": {k: v / timed for k, v in launches.items()},
     }
-    print(f"[7/{PHASES}] train gpt3-1.3b: {json.dumps(stats)}", flush=True)
+    print(f"[9/{PHASES}] train gpt3-1.3b: {json.dumps(stats)}", flush=True)
     if not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite loss: {losses}")
     if min(launches.values()) <= 0:
@@ -687,17 +813,31 @@ def main() -> int:
     del flush
     torch.cuda.empty_cache()
     parity(dev)
-    launches = serve_full_width(dev)
+
+    from paddle_tpu_torch.models import GPTForCausalLM, gpt_config
+
+    model = GPTForCausalLM(gpt_config("gpt3-1.3b"), device=dev,
+                           dtype=torch.bfloat16, seed=0)
+    launches, bf16 = serve_full_width(dev, model)
+    for quant in ("int8", "int4"):
+        ran, stats = serve_full_width(dev, model, quant, phase=6)
+        launches.update(ran)
+        ratio = stats["pool_bytes"] / bf16["pool_bytes"]
+        print(f"[6/{PHASES}] {quant} pools: pool_bytes {ratio:.4f}x the "
+              f"bf16 run's, effective_slots_vs_bf16 "
+              f"{stats['effective_slots_vs_bf16']}, output tok/s "
+              f"{stats['output_tok_s']} vs {bf16['output_tok_s']}",
+              flush=True)
+    generate_full_width(dev, model)
+    del model
+    torch.cuda.empty_cache()
     train_parity(dev)
     train_launches, steps = train_full_width(dev)
     launches.update(train_launches)
 
-    paged = "paddle_tpu_torch/csrc/paged_attention.cu"
-    where = {
-        "paged_decode_kernel": (
-            paged, "paddle_tpu/ops/pallas/paged_attention.py:163"),
-        "paged_chunk_kernel": (
-            paged, "paddle_tpu/ops/pallas/paged_attention.py:400"),
+    where = {name: (PAGED_SOURCE, f"{PAGED_TPU}:{line}")
+             for name, (_, _, _, line) in PAGED_KERNELS.items()}
+    where.update({
         "splash_fwd_kernel": (
             SPLASH_SOURCE, "paddle_tpu/ops/pallas/splash_attention.py:139"),
         "splash_bwd_kernels": (
@@ -706,17 +846,17 @@ def main() -> int:
             CE_SOURCE, "paddle_tpu/ops/pallas/fused_cross_entropy.py:92"),
         "fused_ce_bwd_kernels": (
             CE_SOURCE, "paddle_tpu/ops/pallas/fused_cross_entropy.py:161"),
-    }
+    })
     keys = ("max_abs_err", "max_abs_err_fp32", "max_rel_err",
             "max_rel_err_fp32", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "shape")
+            "library_ms", "library", "shape")
     line = [{"name": name, "route": "cuda", "source": where[name][0],
              "replaces": where[name][1], "launches": launches[name],
              **({"launches_per_step": launches[name] / steps}
                 if name in TRAIN_COUNTERS else {}),
              **{k: r[k] for k in keys if k in r}}
             for name, r in kernels.items()]
-    print(f"[8/{PHASES}] kernels:", flush=True)
+    print(f"[10/{PHASES}] kernels:", flush=True)
     print(json.dumps({"kernels": line}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -5,11 +5,15 @@ The module layout mirrors ``paddle_tpu/``: the counterpart of
 package imports ``torch`` and numpy only, never ``jax`` and never
 ``paddle_tpu``.
 
-Ported so far: the serving path and single-card pretraining.
-``serving.ServingEngine`` drives ``jit.decode_step`` (chunked prefill
-and the decode burst) over ``models.gpt`` and the paged KV cache of
-``inference.kv_cache``; its two paged-attention kernels are hand-written
-CUDA in ``csrc/paged_attention.cu``. ``jit.TrainStep`` drives
+Ported so far: the serving path (fp, int8 and int4 KV pages),
+generation and single-card pretraining. ``serving.ServingEngine``
+drives ``jit.decode_step`` (chunked prefill and the decode burst) over
+``models.gpt`` and the paged KV cache of ``inference.kv_cache``; its
+paged-attention kernels (decode and chunk, over fp pools and over
+quantized pools whose dequant they fuse) are hand-written CUDA in
+``csrc/paged_attention.cu``. ``GPTForCausalLM.generate`` runs
+``jit.GenerationEngine`` over the paged or the dense cache.
+``jit.TrainStep`` drives
 ``models.gpt``'s ``loss`` (splash attention and the vocab-tiled fused
 cross entropy, forward and backward, in ``csrc/splash_attention.cu``
 and ``csrc/fused_cross_entropy.cu``), ``nn.ClipGradByGlobalNorm`` and

@@ -3,10 +3,12 @@
 // paddle_tpu_torch/inference/kv_cache.py.
 //
 // Replaces the TPU kernels of paddle_tpu/ops/pallas/paged_attention.py:
-//   paged_decode_kernel  <- _decode_kernel (fp pools), launched through
-//                           _paged_attention_pallas
-//   paged_chunk_kernel   <- _chunk_kernel (fp branch), launched through
-//                           _paged_attention_chunk_pallas
+//   paged_decode_kernel    <- _decode_kernel (fp pools), launched through
+//                             _paged_attention_pallas
+//   paged_chunk_kernel     <- _chunk_kernel (fp branch), launched through
+//                             _paged_attention_chunk_pallas
+//   paged_decode_q_kernel  <- _decode_kernel_q (int8 / int4 pools)
+//   paged_chunk_q_kernel   <- _chunk_kernel, int8 / int4 branches
 // The plain PyTorch versions (paged_attention_ref /
 // paged_attention_chunk_ref in ops/kernels/paged_attention.py) define the
 // contract; these kernels follow their arithmetic: fp32 scores, fp32
@@ -16,6 +18,10 @@
 // Layouts (one layer):
 //   q        decode [b, nh, d]        chunk [b, c, nh, d]
 //   pools    [kvh, num_pages, ps, d]  (fp32 or bf16; page 0 is trash)
+//            or int8 [kvh, num_pages, ps, d], or uint8 [kvh, num_pages,
+//            ps, d/2] packing two int4 values a byte (high nibble the
+//            even lane, offset +8), each with fp32 scales [kvh,
+//            num_pages, ps], one a cached row
 //   tables   [b, pp] int32            (the caller's rows, one per query row)
 //   lens     decode seq_lens [b]      chunk start [b]   (int32)
 //   out      same shape and dtype as q
@@ -37,11 +43,20 @@
 // which keeps its threads busy. Keys past the last one any row of the
 // tile can see are never read.
 //
+// Quantized pools dequantize as they are staged: a key's int8 row (d
+// bytes) or packed int4 row (d/2 bytes) comes in 16-byte loads, each
+// value becomes float (int4: high nibble, then low, minus 8) and is
+// multiplied by the row's fp32 scale, one 4-byte load a key for K and
+// one for V. The tile in shared memory then holds exactly the fp32
+// values the plain version's densify makes, and the rest of the body
+// runs unchanged.
+//
 // What bounds it on the H100: bytes. A slot's visible K/V rows are read
 // once per row tile (one tile whenever (nh / kvh) * c <= 32, as at
-// decode), 2 * kvh * keys * d * itemsize bytes against 3.35 TB/s; the
-// arithmetic, 4 * rows * keys * d flops per head, stays far below the
-// card's rate even at chunk prefill.
+// decode), 2 * kvh * keys * (d * itemsize + scale bytes) against 3.35
+// TB/s: a key costs 4 * d bytes a head in fp32, 2 * d in bf16, d + 4 in
+// int8 and d/2 + 4 in int4. The arithmetic, 4 * rows * keys * d flops
+// per head, stays far below the card's rate even at chunk prefill.
 // What this simple design leaves on the table: one block per (slot, head)
 // walks a long context alone (no split-K over the keys, the
 // flash-decoding fix for long contexts at small batch, so at decode only
@@ -155,11 +170,121 @@ __device__ __forceinline__ void stage_keys(
   }
 }
 
-// The shared body of both kernels: one (slot, kv head, row tile).
-template <typename TQ, typename TKV>
+// 16 packed bytes -> 16 int8 values or 32 int4 values (high nibble
+// first), each times the row's scale
+template <bool kInt4>
+__device__ __forceinline__ void dequant16(uint4 u, float s, float* o) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int by = 0; by < 4; ++by) {
+      const uint32_t x = (w[i] >> (8 * by)) & 0xffu;   // little-endian
+      if constexpr (kInt4) {
+        o[8 * i + 2 * by] = (float)((int)(x >> 4) - 8) * s;
+        o[8 * i + 2 * by + 1] = (float)((int)(x & 0xfu) - 8) * s;
+      } else {
+        o[4 * i + by] = (float)(int8_t)x * s;
+      }
+    }
+  }
+}
+
+// The pools a kernel reads, and how a 64-key tile of them is staged into
+// shared memory as fp32.
+template <typename T>
+struct FpPool {
+  static constexpr bool kQuantized = false;
+  const T* __restrict__ k;
+  const T* __restrict__ v;
+
+  __device__ __forceinline__ void stage(const int* __restrict__ pt_row,
+                                        int h, int num_pages, int ps, int d,
+                                        bool vec, int k0, int n_keys,
+                                        float* k_s, float* v_s) const {
+    stage_keys<T>(k, v, pt_row, h, num_pages, ps, d, vec, k0, n_keys, k_s,
+                  v_s);
+  }
+};
+
+// int8 rows of d bytes, or int4 rows of d/2 bytes; scales [kvh, P, ps]
+// share the pools' row index (h * num_pages + page) * ps + offset.
+// `vec`: the pools are 16-byte aligned and a row is whole 16-byte words.
+template <bool kInt4>
+struct QuantPool {
+  static constexpr bool kQuantized = true;
+  const uint8_t* __restrict__ k;
+  const uint8_t* __restrict__ v;
+  const float* __restrict__ ks;
+  const float* __restrict__ vs;
+
+  __device__ __forceinline__ void stage(const int* __restrict__ pt_row,
+                                        int h, int num_pages, int ps, int d,
+                                        bool vec, int k0, int n_keys,
+                                        float* k_s, float* v_s) const {
+    constexpr int kPerByte = kInt4 ? 2 : 1;
+    const int row_bytes = d / kPerByte;
+    const int dp = d + 1;
+    const size_t head = (size_t)h * num_pages;
+    if (vec) {
+      constexpr int kVals = 16 * kPerByte;   // values in one 16-byte load
+      const int vecs = row_bytes / 16;
+      for (int idx = threadIdx.x; idx < kKeyTile * vecs; idx += kThreads) {
+        const int j = idx / vecs, cv = idx - j * vecs;
+        const int pos = k0 + j;
+        float kf[kVals], vf[kVals];
+        if (pos < n_keys) {
+          const size_t r = (head + pt_row[pos / ps]) * ps + pos % ps;
+          const size_t at = r * row_bytes + cv * 16;
+          dequant16<kInt4>(*reinterpret_cast<const uint4*>(k + at), ks[r],
+                           kf);
+          dequant16<kInt4>(*reinterpret_cast<const uint4*>(v + at), vs[r],
+                           vf);
+        } else {
+#pragma unroll
+          for (int e = 0; e < kVals; ++e) kf[e] = vf[e] = 0.f;
+        }
+#pragma unroll
+        for (int e = 0; e < kVals; ++e) {
+          k_s[j * dp + cv * kVals + e] = kf[e];
+          v_s[j * d + cv * kVals + e] = vf[e];
+        }
+      }
+    } else {
+      for (int idx = threadIdx.x; idx < kKeyTile * row_bytes;
+           idx += kThreads) {
+        const int j = idx / row_bytes, cb = idx - j * row_bytes;
+        const int pos = k0 + j;
+        float kf[kPerByte] = {}, vf[kPerByte] = {};
+        if (pos < n_keys) {
+          const size_t r = (head + pt_row[pos / ps]) * ps + pos % ps;
+          const uint32_t kb = k[r * row_bytes + cb];
+          const uint32_t vb = v[r * row_bytes + cb];
+          const float ksc = ks[r], vsc = vs[r];
+          if constexpr (kInt4) {
+            kf[0] = (float)((int)(kb >> 4) - 8) * ksc;
+            kf[1] = (float)((int)(kb & 0xfu) - 8) * ksc;
+            vf[0] = (float)((int)(vb >> 4) - 8) * vsc;
+            vf[1] = (float)((int)(vb & 0xfu) - 8) * vsc;
+          } else {
+            kf[0] = (float)(int8_t)kb * ksc;
+            vf[0] = (float)(int8_t)vb * vsc;
+          }
+        }
+#pragma unroll
+        for (int e = 0; e < kPerByte; ++e) {
+          k_s[j * dp + cb * kPerByte + e] = kf[e];
+          v_s[j * d + cb * kPerByte + e] = vf[e];
+        }
+      }
+    }
+  }
+};
+
+// The shared body of all kernels: one (slot, kv head, row tile).
+template <typename TQ, typename Pool>
 __device__ __forceinline__ void attend_pages(
-    const TQ* __restrict__ q, const TKV* __restrict__ k_pages,
-    const TKV* __restrict__ v_pages, TQ* __restrict__ out,
+    const TQ* __restrict__ q, const Pool& pool, TQ* __restrict__ out,
     const int* __restrict__ pt_row, int st, int c, int nh, int kvh, int d,
     int num_pages, int ps, int pp, bool vec, float scale) {
   const int b = blockIdx.x;
@@ -213,8 +338,7 @@ __device__ __forceinline__ void attend_pages(
   __syncthreads();
 
   for (int k0 = 0; k0 < n_keys; k0 += kKeyTile) {
-    stage_keys<TKV>(k_pages, v_pages, pt_row, h, num_pages, ps, d, vec,
-                    k0, n_keys, k_s, v_s);
+    pool.stage(pt_row, h, num_pages, ps, d, vec, k0, n_keys, k_s, v_s);
     __syncthreads();
 
     // scores s[r][j] = q_r . k_j * scale, masked to -inf
@@ -344,31 +468,27 @@ __device__ __forceinline__ void attend_pages(
   }
 }
 
-template <typename TQ, typename TKV>
-__global__ void __launch_bounds__(kThreads) paged_decode_kernel(
-    const TQ* __restrict__ q, const TKV* __restrict__ k_pages,
-    const TKV* __restrict__ v_pages, TQ* __restrict__ out,
-    const int* __restrict__ page_tables, const int* __restrict__ seq_lens,
-    int nh, int kvh, int d, int num_pages, int ps, int pp, int vec,
-    float scale) {
-  const int b = blockIdx.x;
-  attend_pages<TQ, TKV>(q, k_pages, v_pages, out, page_tables + (size_t)b * pp,
-                        seq_lens[b] - 1, 1, nh, kvh, d, num_pages, ps, pp,
-                        vec, scale);
-}
-
-template <typename TQ, typename TKV>
-__global__ void __launch_bounds__(kThreads) paged_chunk_kernel(
-    const TQ* __restrict__ q, const TKV* __restrict__ k_pages,
-    const TKV* __restrict__ v_pages, TQ* __restrict__ out,
-    const int* __restrict__ page_tables, const int* __restrict__ start,
-    int c, int nh, int kvh, int d, int num_pages, int ps, int pp, int vec,
-    float scale) {
-  const int b = blockIdx.x;
-  attend_pages<TQ, TKV>(q, k_pages, v_pages, out, page_tables + (size_t)b * pp,
-                        start[b], c, nh, kvh, d, num_pages, ps, pp, vec,
-                        scale);
-}
+// One entry point per pool kind (fp or quantized) and per call shape, so
+// a profile tells the four apart; all run attend_pages. `lens` is
+// seq_lens (decode: c == 1, a slot's one query at seq_len - 1) or start
+// (chunk: c queries at start + i).
+#define PAGED_KERNEL(NAME, START, C)                                         \
+  template <typename TQ, typename Pool>                                      \
+  __global__ void __launch_bounds__(kThreads) NAME(                          \
+      const TQ* __restrict__ q, Pool pool, TQ* __restrict__ out,             \
+      const int* __restrict__ page_tables, const int* __restrict__ lens,     \
+      int c, int nh, int kvh, int d, int num_pages, int ps, int pp, int vec, \
+      float scale) {                                                         \
+    const int b = blockIdx.x;                                                \
+    attend_pages<TQ, Pool>(q, pool, out, page_tables + (size_t)b * pp,       \
+                           START, C, nh, kvh, d, num_pages, ps, pp, vec,     \
+                           scale);                                           \
+  }
+PAGED_KERNEL(paged_decode_kernel, lens[b] - 1, 1)
+PAGED_KERNEL(paged_decode_q_kernel, lens[b] - 1, 1)
+PAGED_KERNEL(paged_chunk_kernel, lens[b], c)
+PAGED_KERNEL(paged_chunk_q_kernel, lens[b], c)
+#undef PAGED_KERNEL
 
 bool geometry_ok(int b, int c, int nh, int kvh, int d, int num_pages, int ps,
                  int pp) {
@@ -387,31 +507,55 @@ cudaError_t prepare(Kernel kernel, size_t smem) {
   return cudaSuccess;
 }
 
-template <typename TQ, typename TKV>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out,
+// the kernel of a pool kind and call shape
+template <typename TQ, typename Pool>
+auto entry(bool chunk) {
+  if constexpr (Pool::kQuantized)
+    return chunk ? paged_chunk_q_kernel<TQ, Pool>
+                 : paged_decode_q_kernel<TQ, Pool>;
+  else
+    return chunk ? paged_chunk_kernel<TQ, Pool>
+                 : paged_decode_kernel<TQ, Pool>;
+}
+
+// `vec`: 16-byte loads of whole rows (row_bytes a multiple of 16 and
+// both pools 16-byte aligned); otherwise the scalar staging path
+template <typename TQ, typename Pool>
+cudaError_t launch(const void* q, const Pool& pool, bool vec, void* out,
                    const int* pt, const int* lens, bool chunk, int b, int c,
                    int nh, int kvh, int d, int num_pages, int ps, int pp,
                    float scale, cudaStream_t stream) {
   const int rows = nh / kvh * c;
   const size_t smem = smem_bytes(d);
-  const int vec = d % (16 / (int)sizeof(TKV)) == 0 &&
-                  ((uintptr_t)k | (uintptr_t)v) % 16 == 0;
   const dim3 grid(b, kvh, (rows + kRowTile - 1) / kRowTile);
-  cudaError_t err;
-  if (chunk) {
-    err = prepare(paged_chunk_kernel<TQ, TKV>, smem);
-    if (err != cudaSuccess) return err;
-    paged_chunk_kernel<TQ, TKV><<<grid, kThreads, smem, stream>>>(
-        (const TQ*)q, (const TKV*)k, (const TKV*)v, (TQ*)out, pt, lens, c, nh,
-        kvh, d, num_pages, ps, pp, vec, scale);
-  } else {
-    err = prepare(paged_decode_kernel<TQ, TKV>, smem);
-    if (err != cudaSuccess) return err;
-    paged_decode_kernel<TQ, TKV><<<grid, kThreads, smem, stream>>>(
-        (const TQ*)q, (const TKV*)k, (const TKV*)v, (TQ*)out, pt, lens, nh,
-        kvh, d, num_pages, ps, pp, vec, scale);
-  }
+  const auto kernel = entry<TQ, Pool>(chunk);
+  const cudaError_t err = prepare(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kThreads, smem, stream>>>((const TQ*)q, pool, (TQ*)out, pt,
+                                           lens, c, nh, kvh, d, num_pages,
+                                           ps, pp, vec, scale);
   return cudaGetLastError();
+}
+
+bool aligned16(const void* a, const void* b) {
+  return (((uintptr_t)a | (uintptr_t)b) % 16) == 0;
+}
+
+template <typename TQ>
+cudaError_t dispatch_kv(const void* q, const void* k, const void* v,
+                        void* out, const int* pt, const int* lens, bool chunk,
+                        int b, int c, int nh, int kvh, int d, int num_pages,
+                        int ps, int pp, float scale, int kv_bf16,
+                        cudaStream_t s) {
+  if (kv_bf16) {
+    const FpPool<__nv_bfloat16> pool{(const __nv_bfloat16*)k,
+                                     (const __nv_bfloat16*)v};
+    return launch<TQ>(q, pool, d % 8 == 0 && aligned16(k, v), out, pt, lens,
+                      chunk, b, c, nh, kvh, d, num_pages, ps, pp, scale, s);
+  }
+  const FpPool<float> pool{(const float*)k, (const float*)v};
+  return launch<TQ>(q, pool, d % 4 == 0 && aligned16(k, v), out, pt, lens,
+                    chunk, b, c, nh, kvh, d, num_pages, ps, pp, scale, s);
 }
 
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* out,
@@ -424,27 +568,63 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* out,
   const int* pti = (const int*)pt;
   const int* li = (const int*)lens;
   cudaStream_t s = (cudaStream_t)stream;
-  if (q_bf16 && kv_bf16)
-    return launch<__nv_bfloat16, __nv_bfloat16>(q, k, v, out, pti, li, chunk,
-                                                b, c, nh, kvh, d, num_pages,
-                                                ps, pp, scale, s);
   if (q_bf16)
-    return launch<__nv_bfloat16, float>(q, k, v, out, pti, li, chunk, b, c,
-                                        nh, kvh, d, num_pages, ps, pp, scale,
-                                        s);
-  if (kv_bf16)
-    return launch<float, __nv_bfloat16>(q, k, v, out, pti, li, chunk, b, c,
-                                        nh, kvh, d, num_pages, ps, pp, scale,
-                                        s);
-  return launch<float, float>(q, k, v, out, pti, li, chunk, b, c, nh, kvh, d,
-                              num_pages, ps, pp, scale, s);
+    return dispatch_kv<__nv_bfloat16>(q, k, v, out, pti, li, chunk, b, c, nh,
+                                      kvh, d, num_pages, ps, pp, scale,
+                                      kv_bf16, s);
+  return dispatch_kv<float>(q, k, v, out, pti, li, chunk, b, c, nh, kvh, d,
+                            num_pages, ps, pp, scale, kv_bf16, s);
+}
+
+template <typename TQ>
+cudaError_t dispatch_quant(const void* q, const void* k, const void* v,
+                           const void* ks, const void* vs, void* out,
+                           const int* pt, const int* lens, bool chunk, int b,
+                           int c, int nh, int kvh, int d, int num_pages,
+                           int ps, int pp, float scale, int int4,
+                           cudaStream_t s) {
+  const uint8_t* kb = (const uint8_t*)k;
+  const uint8_t* vb = (const uint8_t*)v;
+  const float* ksf = (const float*)ks;
+  const float* vsf = (const float*)vs;
+  if (int4) {
+    const QuantPool<true> pool{kb, vb, ksf, vsf};
+    return launch<TQ>(q, pool, (d / 2) % 16 == 0 && aligned16(k, v), out,
+                      pt, lens, chunk, b, c, nh, kvh, d, num_pages, ps, pp,
+                      scale, s);
+  }
+  const QuantPool<false> pool{kb, vb, ksf, vsf};
+  return launch<TQ>(q, pool, d % 16 == 0 && aligned16(k, v), out, pt, lens,
+                    chunk, b, c, nh, kvh, d, num_pages, ps, pp, scale, s);
+}
+
+cudaError_t dispatch_q(const void* q, const void* k, const void* v,
+                       const void* ks, const void* vs, void* out,
+                       const void* pt, const void* lens, bool chunk, int b,
+                       int c, int nh, int kvh, int d, int num_pages, int ps,
+                       int pp, float scale, int q_bf16, int int4,
+                       void* stream) {
+  if (!geometry_ok(b, c, nh, kvh, d, num_pages, ps, pp) ||
+      (int4 && d % 2))
+    return cudaErrorInvalidValue;
+  const int* pti = (const int*)pt;
+  const int* li = (const int*)lens;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (q_bf16)
+    return dispatch_quant<__nv_bfloat16>(q, k, v, ks, vs, out, pti, li,
+                                         chunk, b, c, nh, kvh, d, num_pages,
+                                         ps, pp, scale, int4, s);
+  return dispatch_quant<float>(q, k, v, ks, vs, out, pti, li, chunk, b, c,
+                               nh, kvh, d, num_pages, ps, pp, scale, int4,
+                               s);
 }
 
 }  // namespace
 
 // Plain C interface for ctypes. Each returns the cudaError_t of its
 // launch (cudaErrorInvalidValue for a geometry the kernels do not take);
-// nothing is allocated and nothing synchronises.
+// nothing is allocated and nothing synchronises. head_dim is q's (an
+// int4 pool row holds d/2 bytes).
 extern "C" int paged_decode(const void* q, const void* k_pages,
                             const void* v_pages, void* out,
                             const void* page_tables, const void* seq_lens,
@@ -465,4 +645,28 @@ extern "C" int paged_chunk(const void* q, const void* k_pages,
   return (int)dispatch(q, k_pages, v_pages, out, page_tables, start, true, b,
                        c, nh, kvh, d, num_pages, ps, pp, scale, q_bf16,
                        kv_bf16, stream);
+}
+
+extern "C" int paged_decode_q(const void* q, const void* k_pages,
+                              const void* v_pages, const void* k_scales,
+                              const void* v_scales, void* out,
+                              const void* page_tables, const void* seq_lens,
+                              int b, int nh, int kvh, int d, int num_pages,
+                              int ps, int pp, float scale, int q_bf16,
+                              int int4, void* stream) {
+  return (int)dispatch_q(q, k_pages, v_pages, k_scales, v_scales, out,
+                         page_tables, seq_lens, false, b, 1, nh, kvh, d,
+                         num_pages, ps, pp, scale, q_bf16, int4, stream);
+}
+
+extern "C" int paged_chunk_q(const void* q, const void* k_pages,
+                             const void* v_pages, const void* k_scales,
+                             const void* v_scales, void* out,
+                             const void* page_tables, const void* start,
+                             int b, int c, int nh, int kvh, int d,
+                             int num_pages, int ps, int pp, float scale,
+                             int q_bf16, int int4, void* stream) {
+  return (int)dispatch_q(q, k_pages, v_pages, k_scales, v_scales, out,
+                         page_tables, start, true, b, c, nh, kvh, d,
+                         num_pages, ps, pp, scale, q_bf16, int4, stream);
 }

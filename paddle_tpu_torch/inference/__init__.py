@@ -1,3 +1,3 @@
-from .kv_cache import PagedKVCache
+from .kv_cache import DenseKVCache, PagedKVCache
 
-__all__ = ["PagedKVCache"]
+__all__ = ["DenseKVCache", "PagedKVCache"]

@@ -1,20 +1,33 @@
-"""Paged KV cache for the serving engine (fp pools).
+"""KV caches for the decode engines: paged pools (fp, int8, int4) and the
+dense per-slot cache.
 
-Counterpart of the ``PagedKVCache`` of paddle_tpu/inference/kv_cache.py,
-in the Ragged-Paged-Attention layout: per layer K/V page pools
-``[num_kv_heads, num_pages, page_size, head_dim]`` (the
-ops/kernels/paged_attention.py contract), per-slot page tables and
-ragged ``seq_lens``. Slots allocate and free independently (continuous
-batching).
+Counterpart of paddle_tpu/inference/kv_cache.py:
 
-Page 0 of every pool is the **trash page**: writes of padding and
-inactive-slot tokens land there at ``pos % page_size``, so every scatter
-has a fixed shape and no masking branch. It is never mapped in any page
-table.
+* ``PagedKVCache``: the Ragged-Paged-Attention layout, per layer K/V
+  page pools ``[num_kv_heads, num_pages, page_size, head_dim]`` (the
+  ops/kernels/paged_attention.py contract), per-slot page tables and
+  ragged ``seq_lens``. Slots allocate and free independently
+  (continuous batching). ``quant="int8"`` stores the pools as int8 with
+  one fp32 symmetric scale per cached row (``k_scales`` / ``v_scales``,
+  ``[num_kv_heads, num_pages, page_size]``; the comm stack's
+  `quantize_symmetric_q8` format). ``quant="int4"`` packs two values a
+  byte into uint8 pools ``[..., head_dim // 2]`` (`nn.quant.pack_q4`:
+  high nibble = even lane, offset +8) with the same scale pools
+  (max|row| / 7); head_dim must be even. The kernels dequantize as they
+  stage the keys.
+* ``DenseKVCache``: per layer ``[2, batch, num_heads, max_len,
+  head_dim]`` with one shared write position, the aligned-batch cache of
+  `generate(use_cache="dense")`.
+
+Page 0 of every paged pool (scale pools too) is the **trash page**:
+writes of padding and inactive-slot tokens land there at ``pos %
+page_size``, so every scatter has a fixed shape and no masking branch.
+It is never mapped in any page table.
 
 Where the reference threads donated pool buffers through a compiled
 step, the writers here update the pools in place (``index_copy_`` on the
-``[kvh, num_pages * page_size, d]`` view).
+``[kvh, num_pages * page_size, d]`` view; the dense cache by slice
+assignment).
 
 Host metadata (page tables, seq_lens, active) lives as numpy between
 steps, as in the reference; a step hands back device tensors and
@@ -25,10 +38,26 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..distributed.collective import quantize_symmetric_q8
 from ..framework.device import resolve_device
+from ..nn.quant import pack_q4, quantize_symmetric_q4
 
-__all__ = ["PagedKVCache", "paged_write_decode", "paged_write_prefill",
-           "slot_rows", "write_rows", "decode_plan", "prefill_plan"]
+__all__ = ["PagedKVCache", "DenseKVCache", "blob_checksum",
+           "paged_write_decode",
+           "paged_write_prefill", "paged_write_decode_q8",
+           "paged_write_prefill_q8", "paged_write_decode_q4",
+           "paged_write_prefill_q4", "dense_write_prefill", "slot_rows",
+           "write_rows", "quantize_rows", "write_rows_quant", "write_layer",
+           "layer_scales",
+           "decode_plan", "prefill_plan"]
+
+_POOL_DTYPES = {"int8": torch.int8, "int4": torch.uint8}
+
+
+def blob_checksum(blob):
+    raise NotImplementedError(
+        "blob_checksum is not ported yet: ROADMAP queue A8 (fleet "
+        "hand-off)")
 
 
 # ---------------------------------------------------------------------------
@@ -114,6 +143,115 @@ def paged_write_prefill(k_pages, v_pages, page_tables, slot_ids,
     write_rows(v_pages, flat, v_new.movedim(2, 0).reshape(kvh, b * s, d))
 
 
+def quantize_rows(rows, quant):
+    """(payload, scales) of rows [..., d]: int8, or int4 packed to
+    d // 2 bytes; one fp32 scale a row."""
+    if quant == "int4":
+        q, sc = quantize_symmetric_q4(rows)
+        return pack_q4(q), sc
+    return quantize_symmetric_q8(rows)
+
+
+def _write_quantized(pool, scales, flat, q, sc):
+    kvh, num_pages, page_size, pd = pool.shape
+    pool.view(kvh, num_pages * page_size, pd).index_copy_(1, flat, q)
+    scales.view(kvh, num_pages * page_size).index_copy_(1, flat, sc)
+
+
+def write_rows_quant(pool, scales, flat, rows, quant):
+    """Quantize rows [kvh, n, d] one scale a row (int8, or int4 packed to
+    d // 2 bytes) and write payload and scale at the same flat positions
+    [n] (long) of pool [kvh, P, ps, d or d // 2] and scales [kvh, P, ps],
+    in place."""
+    _write_quantized(pool, scales, flat, *quantize_rows(rows, quant))
+
+
+def _write_decode_q(quant, k_pages, v_pages, k_scales, v_scales,
+                    page_tables, seq_lens, active, k_new, v_new):
+    flat = decode_write_index(page_tables, seq_lens, active,
+                              k_pages.shape[2])
+    write_rows_quant(k_pages, k_scales, flat, k_new.movedim(1, 0), quant)
+    write_rows_quant(v_pages, v_scales, flat, v_new.movedim(1, 0), quant)
+
+
+def _write_prefill_q(quant, k_pages, v_pages, k_scales, v_scales,
+                     page_tables, slot_ids, seq_lens_new, k_new, v_new,
+                     start=None):
+    b, s, kvh, d = k_new.shape
+    flat = prefill_write_index(slot_rows(page_tables, slot_ids), start,
+                               seq_lens_new, s, k_pages.shape[2])
+    write_rows_quant(k_pages, k_scales, flat,
+                     k_new.movedim(2, 0).reshape(kvh, b * s, d), quant)
+    write_rows_quant(v_pages, v_scales, flat,
+                     v_new.movedim(2, 0).reshape(kvh, b * s, d), quant)
+
+
+def paged_write_decode_q8(k_pages, v_pages, k_scales, v_scales,
+                          page_tables, seq_lens, active, k_new, v_new):
+    """`paged_write_decode` for int8 pools: each [d] row quantized, its
+    payload and fp32 scale written at the same index, in place."""
+    _write_decode_q("int8", k_pages, v_pages, k_scales, v_scales,
+                    page_tables, seq_lens, active, k_new, v_new)
+
+
+def paged_write_prefill_q8(k_pages, v_pages, k_scales, v_scales,
+                           page_tables, slot_ids, seq_lens_new, k_new,
+                           v_new, start=None):
+    """`paged_write_prefill` for int8 pools, in place."""
+    _write_prefill_q("int8", k_pages, v_pages, k_scales, v_scales,
+                     page_tables, slot_ids, seq_lens_new, k_new, v_new,
+                     start)
+
+
+def paged_write_decode_q4(k_pages, v_pages, k_scales, v_scales,
+                          page_tables, seq_lens, active, k_new, v_new):
+    """`paged_write_decode` for int4 pools (uint8 ``[..., d // 2]``):
+    each row quantized to [-7, 7] and nibble-packed, in place."""
+    _write_decode_q("int4", k_pages, v_pages, k_scales, v_scales,
+                    page_tables, seq_lens, active, k_new, v_new)
+
+
+def paged_write_prefill_q4(k_pages, v_pages, k_scales, v_scales,
+                           page_tables, slot_ids, seq_lens_new, k_new,
+                           v_new, start=None):
+    """`paged_write_prefill` for int4 pools, in place."""
+    _write_prefill_q("int4", k_pages, v_pages, k_scales, v_scales,
+                     page_tables, slot_ids, seq_lens_new, k_new, v_new,
+                     start)
+
+
+def dense_write_prefill(cache_l, k_new, v_new):
+    """Prompt K/V at positions [0, s) of one layer's dense cache, in
+    place. cache_l: [2, b, nh, max_len, d]; k_new/v_new: [b, s, nh, d]."""
+    s = k_new.shape[1]
+    cache_l[0, :, :, :s] = k_new.transpose(1, 2)
+    cache_l[1, :, :, :s] = v_new.transpose(1, 2)
+
+
+def write_layer(cache, layer_idx, flat, k_rows, v_rows):
+    """Write rows [kvh, n, d] of K and V into layer ``layer_idx`` of a
+    paged cache at flat positions [n]: as they are into fp pools,
+    quantized with their scales into int8/int4 pools. K and V quantize
+    in one pass (row by row, so exactly as two would): the serving loop
+    is host-bound, and this halves the quantizer's launches."""
+    kp, vp = cache.k_layers[layer_idx], cache.v_layers[layer_idx]
+    if cache.quantized:
+        q, sc = quantize_rows(torch.stack([k_rows, v_rows]), cache.quant)
+        _write_quantized(kp, cache.k_scales[layer_idx], flat, q[0], sc[0])
+        _write_quantized(vp, cache.v_scales[layer_idx], flat, q[1], sc[1])
+    else:
+        write_rows(kp, flat, k_rows)
+        write_rows(vp, flat, v_rows)
+
+
+def layer_scales(cache, layer_idx):
+    """The attention kernels' ``k_scales``/``v_scales`` of one layer:
+    its scale pools when the cache is quantized, else (None, None)."""
+    if not cache.quantized:
+        return None, None
+    return cache.k_scales[layer_idx], cache.v_scales[layer_idx]
+
+
 def decode_plan(cache):
     """What every layer of one decode step shares: each slot's flat
     write index and its attention length (``seq_lens + 1``, 0 for an
@@ -138,6 +276,37 @@ def prefill_plan(cache, slot_ids, start, seq_lens_new, c):
 # the cache: device pools + host bookkeeping
 # ---------------------------------------------------------------------------
 
+class DenseKVCache:
+    """Aligned-batch dense cache: one shared write position ``pos`` (a
+    host int: the tokens already cached), one slice write a layer a
+    step."""
+
+    kind = "dense"
+
+    def __init__(self, num_layers, batch, max_len, num_heads, head_dim,
+                 dtype=torch.float32, device=None):
+        self.device = resolve_device(device)
+        self.num_layers = num_layers
+        self.batch = batch
+        self.max_len = max_len
+        self.num_heads = num_heads
+        self.head_dim = head_dim
+        shape = (2, batch, num_heads, max_len, head_dim)
+        self.layers = [torch.zeros(shape, dtype=dtype, device=self.device)
+                       for _ in range(num_layers)]
+        self.pos = 0
+
+    def layer(self, l):
+        return self.layers[l]
+
+    def state(self):
+        return {"layers": list(self.layers), "pos": self.pos}
+
+    def load_state(self, state):
+        self.layers = list(state["layers"])
+        self.pos = state["pos"]
+
+
 class PagedKVCache:
     """Paged pools + page tables + ragged lengths + slot bookkeeping.
 
@@ -148,14 +317,19 @@ class PagedKVCache:
     page_tables and active.
     """
 
+    kind = "paged"
+
     def __init__(self, num_layers, num_kv_heads, head_dim, num_pages,
                  page_size, max_slots, pages_per_seq, dtype=torch.float32,
                  quant=None, device=None):
-        if quant is not None:
-            raise NotImplementedError(
-                f"quant={quant!r}: int8/int4 pools are not ported yet")
         if num_pages < 2:
             raise ValueError("need >= 2 pages (page 0 is the trash page)")
+        if quant not in (None, "int8", "int4"):
+            raise ValueError(f"unknown KV quant mode {quant!r}")
+        if quant == "int4" and head_dim % 2:
+            raise ValueError(
+                f"int4 KV packs two values per byte along head_dim: "
+                f"head_dim must be even, got {head_dim}")
         self.device = resolve_device(device)
         self.num_layers = num_layers
         self.num_kv_heads = num_kv_heads
@@ -164,12 +338,24 @@ class PagedKVCache:
         self.page_size = page_size
         self.max_slots = max_slots
         self.pages_per_seq = pages_per_seq
-        self.dtype = dtype
-        shape = (num_kv_heads, num_pages, page_size, head_dim)
-        self.k_layers = [torch.zeros(shape, dtype=dtype, device=self.device)
+        self.quant = quant
+        self.dtype = _POOL_DTYPES.get(quant, dtype)
+        # int4 pools hold head_dim values in head_dim // 2 bytes a row
+        self.pool_head_dim = head_dim // 2 if quant == "int4" else head_dim
+        shape = (num_kv_heads, num_pages, page_size, self.pool_head_dim)
+        self.k_layers = [torch.zeros(shape, dtype=self.dtype,
+                                     device=self.device)
                          for _ in range(num_layers)]
-        self.v_layers = [torch.zeros(shape, dtype=dtype, device=self.device)
+        self.v_layers = [torch.zeros(shape, dtype=self.dtype,
+                                     device=self.device)
                          for _ in range(num_layers)]
+        if quant is not None:
+            # one fp32 scale a cached row
+            sshape = (num_kv_heads, num_pages, page_size)
+            self.k_scales = [torch.zeros(sshape, device=self.device)
+                             for _ in range(num_layers)]
+            self.v_scales = [torch.zeros(sshape, device=self.device)
+                             for _ in range(num_layers)]
         self.page_tables = np.zeros((max_slots, pages_per_seq), np.int32)
         self.seq_lens = np.zeros((max_slots,), np.int32)
         self.active = np.zeros((max_slots,), bool)
@@ -177,6 +363,10 @@ class PagedKVCache:
         self._free_pages = list(range(num_pages - 1, 0, -1))
         self._free_slots = list(range(max_slots - 1, -1, -1))
         self._slot_pages: dict[int, list[int]] = {}
+
+    @property
+    def quantized(self):
+        return self.quant is not None
 
     # -- host bookkeeping ------------------------------------------------
     def _host(self, name):
@@ -269,12 +459,18 @@ class PagedKVCache:
             prev = p
         used = sum(len(p) for p in self._slot_pages.values())
         total = self.num_pages - 1            # page 0 is trash
+        # bytes a cached token takes over all layers, K and V, scale
+        # pools counted: int8 pays head_dim + 4, int4 head_dim // 2 + 4
         itemsize = torch.empty((), dtype=self.dtype).element_size()
-        per_tok = (self.num_layers * 2 * self.num_kv_heads * self.head_dim
-                   * itemsize)
+        per_tok = self.num_layers * 2 * self.num_kv_heads * (
+            self.pool_head_dim * itemsize + (4 if self.quantized else 0))
+        # the same geometry in bf16 pools: the capacity baseline
+        bf16_per_tok = self.num_layers * 2 * self.num_kv_heads \
+            * self.head_dim * 2
         return {
-            "kv_dtype": str(self.dtype).replace("torch.", ""),
+            "kv_dtype": self.quant or str(self.dtype).replace("torch.", ""),
             "bytes_per_token": per_tok,
+            "effective_slots_vs_bf16": round(bf16_per_tok / per_tok, 4),
             "page_bytes": per_tok * self.page_size,
             "pool_bytes": per_tok * self.page_size * self.num_pages,
             "total_pages": total,
@@ -304,12 +500,27 @@ class PagedKVCache:
         self._host("seq_lens")[slot] = 0
         self._host("active")[slot] = False
 
+    # -- slot migration: the fleet slice ---------------------------------
+    def export_slot(self, slot):
+        raise NotImplementedError(
+            "PagedKVCache.export_slot is not ported yet: ROADMAP queue A8 "
+            "(fleet hand-off)")
+
+    def import_slot(self, blob, active=False):
+        raise NotImplementedError(
+            "PagedKVCache.import_slot is not ported yet: ROADMAP queue A8 "
+            "(fleet hand-off)")
+
     # -- device state ------------------------------------------------------
     def state(self):
-        return {"k_layers": list(self.k_layers),
-                "v_layers": list(self.v_layers),
-                "page_tables": self.page_tables,
-                "seq_lens": self.seq_lens, "active": self.active}
+        out = {"k_layers": list(self.k_layers),
+               "v_layers": list(self.v_layers),
+               "page_tables": self.page_tables,
+               "seq_lens": self.seq_lens, "active": self.active}
+        if self.quantized:
+            out["k_scales"] = list(self.k_scales)
+            out["v_scales"] = list(self.v_scales)
+        return out
 
     def load_state(self, state):
         self.k_layers = list(state["k_layers"])
@@ -317,3 +528,6 @@ class PagedKVCache:
         self.page_tables = state["page_tables"]
         self.seq_lens = state["seq_lens"]
         self.active = state["active"]
+        if self.quantized:
+            self.k_scales = list(state["k_scales"])
+            self.v_scales = list(state["v_scales"])

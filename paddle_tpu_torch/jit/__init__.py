@@ -1,4 +1,6 @@
-from .decode_step import ChunkPrefillStep, ServeDecodeStep
+from .decode_step import (ChunkPrefillStep, DecodeStep, GenerationEngine,
+                          PrefillStep, ServeDecodeStep)
 from .train_step import TrainStep
 
-__all__ = ["ChunkPrefillStep", "ServeDecodeStep", "TrainStep"]
+__all__ = ["ChunkPrefillStep", "DecodeStep", "GenerationEngine",
+           "PrefillStep", "ServeDecodeStep", "TrainStep"]

@@ -1,29 +1,54 @@
-"""The serving engine's two steps: chunked prefill and the decode burst.
+"""The decode stack's steps: generation (prompt prefill, one-token
+decode) and serving (chunked prefill, the decode burst), and the
+generation engine that drives the first two.
 
-Counterparts of ``ChunkPrefillStep`` and ``ServeDecodeStep`` in
+Counterparts of ``PrefillStep``, ``DecodeStep``, ``ChunkPrefillStep``,
+``ServeDecodeStep`` and ``GenerationEngine`` in
 paddle_tpu/jit/decode_step.py, with the same argument order and return
 values, run eagerly. The reference compiles each step once and threads
 the cache state through it as pytrees with donated pool buffers; here a
 step binds the state onto the engine's cache, runs the model (which
 updates the pools in place) and hands the state back. The parameters
 live in the model, so the reference's leading ``params`` argument is
-gone.
+gone, and the generation steps take a ``torch.Generator`` (or None for
+greedy) where the reference threads a PRNG key.
 
-``meta`` is the host bookkeeping (``page_tables``, ``seq_lens``,
-``active``) as numpy arrays or the device tensors the previous step
-returned; a step copies it onto the cache's device, and returns the
-updated ``seq_lens`` as a device tensor.
+``buffers`` are the cache's pools (``layers`` of a dense cache;
+``k_layers`` / ``v_layers`` of a paged one, with ``k_scales`` /
+``v_scales`` when it is quantized). ``meta`` is the rest: a dense
+cache's ``pos`` (a host int), or the paged host bookkeeping
+(``page_tables``, ``seq_lens``, ``active``) as numpy arrays or the
+device tensors the previous step returned, which a step copies onto the
+cache's device; it returns the updated ``seq_lens`` as a device tensor.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from ..nn.functional.sampling import sample_logits_per_slot
+from ..inference.kv_cache import DenseKVCache, PagedKVCache
+from ..nn.functional.sampling import sample_logits, sample_logits_per_slot
 
-__all__ = ["ChunkPrefillStep", "ServeDecodeStep"]
+__all__ = ["GenerationEngine", "PrefillStep", "DecodeStep",
+           "ChunkPrefillStep", "ServeDecodeStep", "DEFAULT_PREFILL_BUCKETS",
+           "split_state"]
+
+DEFAULT_PREFILL_BUCKETS = (16, 32, 64, 128, 256, 512, 1024, 2048)
 
 _META_DTYPES = {"page_tables": torch.int32, "seq_lens": torch.int32,
                 "active": torch.bool}
+# per cache kind, the state keys that are pool buffers (the rest is
+# metadata); presence-filtered, so the scale pools ride with the payload
+# exactly when the cache is quantized
+_BUFFER_KEYS = {"dense": ("layers",),
+                "paged": ("k_layers", "v_layers", "k_scales", "v_scales")}
+
+
+def split_state(kind, state):
+    """(buffers, meta) of a cache ``state()``."""
+    keys = [k for k in _BUFFER_KEYS[kind] if k in state]
+    return ({k: state[k] for k in keys},
+            {k: v for k, v in state.items() if k not in keys})
 
 
 class _Step:
@@ -33,21 +58,99 @@ class _Step:
 
     def _enter(self, buffers, meta):
         cache = self.engine.cache
-        dev = cache.device
-        state = dict(buffers)
+        state = {**buffers, **meta}
         for name, dtype in _META_DTYPES.items():
-            state[name] = torch.as_tensor(meta[name], dtype=dtype,
-                                          device=dev)
+            if name in meta:
+                state[name] = torch.as_tensor(meta[name], dtype=dtype,
+                                              device=cache.device)
         cache.load_state(state)
         self.calls += 1
         return cache
 
     def _exit_state(self):
-        state = self.engine.cache.state()
-        buffers = {k: state[k] for k in ("k_layers", "v_layers")}
-        meta = {k: state[k] for k in _META_DTYPES}
-        return buffers, meta
+        cache = self.engine.cache
+        return split_state(cache.kind, cache.state())
 
+
+# ---------------------------------------------------------------------------
+# generation steps: one RNG stream for the batch
+# ---------------------------------------------------------------------------
+
+class _GenerationStep(_Step):
+    def _sample(self, logits, generator):
+        eng = self.engine
+        if not eng.do_sample:
+            generator = None
+        return sample_logits(logits, generator, temperature=eng.temperature,
+                             top_k=eng.top_k, top_p=eng.top_p)
+
+
+class PrefillStep(_GenerationStep):
+    """Bucketed prompt pass: write every layer's K/V, sample token 0.
+
+    ids: [b, bucket] prompts right-padded to the bucket; lens: [b] true
+    prompt lengths (one shared length for the dense cache); slot_ids:
+    [b] the rows' slots (paged)."""
+
+    @torch.no_grad()
+    def __call__(self, buffers, meta, ids, lens, slot_ids, generator=None):
+        eng = self.engine
+        cache = self._enter(buffers, meta)
+        dev = cache.device
+        ids = torch.as_tensor(np.asarray(ids), dtype=torch.int64, device=dev)
+        b = ids.shape[0]
+        lens_h = np.broadcast_to(np.asarray(lens, np.int32).reshape(-1), (b,))
+        ln = torch.as_tensor(lens_h.copy(), device=dev)
+        sid = torch.as_tensor(np.asarray(slot_ids, np.int32), device=dev)
+        hidden = eng.model.gpt.prefill(ids, cache, seq_lens=ln, slot_ids=sid)
+        # the last valid position of each row
+        h = hidden.shape[-1]
+        last = (ln.long() - 1).clamp(min=0)
+        last = torch.gather(hidden, 1, last[:, None, None]
+                            .expand(-1, 1, h))[:, 0]
+        logits = eng.model.head(last)
+        if cache.kind == "dense":
+            cache.pos = int(lens_h[0])
+        else:
+            sl = cache.seq_lens.clone()
+            sl[sid.long()] = ln
+            cache.seq_lens = sl
+        ids_next = self._sample(logits, generator)
+        return (ids_next, logits) + self._exit_state()
+
+
+class DecodeStep(_GenerationStep):
+    """One-token cached decode step over the whole batch: the dense
+    cache advances its shared position, the paged cache the seq_lens of
+    its active slots."""
+
+    @torch.no_grad()
+    def __call__(self, buffers, meta, tokens, generator=None):
+        eng = self.engine
+        cache = self._enter(buffers, meta)
+        dev = cache.device
+        cur = torch.as_tensor(tokens, device=dev).long()
+        b = cur.shape[0]
+        if cache.kind == "dense":
+            pos_ids = torch.full((b, 1), cache.pos, device=dev)
+        else:
+            pos_ids = cache.seq_lens[:, None]
+        hidden = eng.model.gpt.decode_step(cur.reshape(b, 1), cache, pos_ids)
+        logits = eng.model.head(hidden)[:, 0]               # [b, vocab]
+        if cache.kind == "dense":
+            cache.pos += 1
+        else:
+            sl = cache.seq_lens
+            cache.seq_lens = torch.where(cache.active, sl + 1, sl)
+        ids_next = self._sample(logits, generator)
+        return (ids_next, logits) + self._exit_state()
+
+
+# ---------------------------------------------------------------------------
+# serving steps: per-slot RNG streams
+# ---------------------------------------------------------------------------
+
+class _ServingStep(_Step):
     def _sample(self, logits, seeds, positions):
         eng = self.engine
         return sample_logits_per_slot(
@@ -55,7 +158,7 @@ class _Step:
             top_k=eng.top_k, top_p=eng.top_p, greedy=not eng.do_sample)
 
 
-class ChunkPrefillStep(_Step):
+class ChunkPrefillStep(_ServingStep):
     """One bounded chunk of up to ``prefill_batch`` prompts: write each
     chunk's K/V at positions [start, start+c) of its slot, attending
     over the context cached so far, and sample the prefill-complete
@@ -99,7 +202,7 @@ class ChunkPrefillStep(_Step):
         return (ids_next, logits) + self._exit_state()
 
 
-class ServeDecodeStep(_Step):
+class ServeDecodeStep(_ServingStep):
     """``decode_burst`` one-token decode steps over the full slot batch.
     Sampling uses per-slot RNG streams keyed on (seed, context length),
     so a request's tokens never depend on its batch neighbours. Inactive
@@ -126,3 +229,166 @@ class ServeDecodeStep(_Step):
             cur = self._sample(logits, seeds, new_sl)
             toks.append(cur)
         return (torch.stack(toks), logits) + self._exit_state()
+
+
+# ---------------------------------------------------------------------------
+# the generation engine
+# ---------------------------------------------------------------------------
+
+class GenerationEngine:
+    """Prefill + decode over one (model, cache) pair.
+
+    ``kind`` picks the cache: "dense" (aligned batch, one shared write
+    position) or "paged" (ragged prompt lengths, page pools, optionally
+    ``kv_quant="int8"|"int4"``). `generate()` runs prompt -> tokens end
+    to end. ``compiled`` and ``donate`` are accepted and ignored: the
+    steps run eagerly and update the cache in place. Speculative
+    decoding (``draft_model``) is not ported yet."""
+
+    def __init__(self, model, kind="dense", batch=1, max_len=128,
+                 do_sample=False, top_k=0, top_p=1.0, temperature=1.0,
+                 compiled=True, cache_dtype=None, page_size=16,
+                 prefill_buckets=DEFAULT_PREFILL_BUCKETS, donate=True,
+                 draft_model=None, spec_k=4, kv_quant=None):
+        del compiled, donate, spec_k
+        cfg = model.config
+        if max_len > cfg.max_position_embeddings:
+            raise ValueError(
+                f"max_len={max_len} exceeds max_position_embeddings="
+                f"{cfg.max_position_embeddings}")
+        if kind not in ("dense", "paged"):
+            raise ValueError(f"unknown cache kind {kind!r}")
+        if kv_quant is not None and kind != "paged":
+            raise ValueError(
+                "kv_quant needs the paged cache (use_cache='paged')")
+        if draft_model is not None:
+            raise NotImplementedError(
+                "GenerationEngine(draft_model=...) is not ported yet: "
+                "ROADMAP queue A6 (speculative decoding)")
+        self.model = model
+        self.device = next(model.parameters()).device
+        self.kind = kind
+        self.batch = batch
+        self.max_len = max_len
+        self.do_sample = bool(do_sample)
+        self.top_k = int(top_k)
+        self.top_p = float(top_p)
+        self.temperature = float(temperature)
+        # the buckets must cover max_len: a prompt between the largest
+        # power-of-two bucket and max_len is within capacity
+        buckets = tuple(sorted(bkt for bkt in prefill_buckets
+                               if bkt <= max_len))
+        if not buckets or buckets[-1] < max_len:
+            buckets = buckets + (max_len,)
+        self.prefill_buckets = buckets
+        self._cache_dtype = cache_dtype or torch.float32
+        self._page_size = page_size
+        self.kv_quant = kv_quant
+        self.cache = self._make_cache()
+        self.prefill_step = PrefillStep(self)
+        self.decode_step = DecodeStep(self)
+
+    def _make_cache(self):
+        """A fresh cache of this engine's geometry; also the recovery
+        path when a failed generate leaves the pools half written."""
+        cfg = self.model.config
+        nh = cfg.num_attention_heads
+        hd = cfg.hidden_size // nh
+        if self.kind == "dense":
+            return DenseKVCache(cfg.num_layers, self.batch, self.max_len,
+                                nh, hd, dtype=self._cache_dtype,
+                                device=self.device)
+        pages_per_seq = -(-self.max_len // self._page_size)
+        return PagedKVCache(
+            cfg.num_layers, nh, hd,
+            num_pages=1 + self.batch * pages_per_seq,
+            page_size=self._page_size, max_slots=self.batch,
+            pages_per_seq=pages_per_seq, dtype=self._cache_dtype,
+            quant=self.kv_quant, device=self.device)
+
+    def _bucket(self, s):
+        for bkt in self.prefill_buckets:
+            if bkt >= s:
+                return bkt
+        raise ValueError(
+            f"prompt length {s} exceeds the largest prefill bucket "
+            f"{self.prefill_buckets[-1]} (max_len {self.max_len})")
+
+    def generate(self, input_ids, max_new_tokens, seq_lens=None,
+                 eos_token_id=None, seed=None, return_logits=False):
+        """input_ids: [batch, prompt] ints (right-padded when ``seq_lens``
+        gives ragged true lengths: paged cache only). Returns an int32
+        CPU tensor [batch, max_new_tokens], and with ``return_logits``
+        also the fp32 CPU logits [batch, max_new_tokens, vocab] behind
+        each token. Sampling draws from one ``torch.Generator`` seeded
+        with ``seed`` (None: a seed from torch's global generator)."""
+        ids = np.asarray(input_ids)
+        b, s = ids.shape
+        max_new_tokens = int(max_new_tokens)
+        if b != self.batch:
+            raise ValueError(f"engine batch {self.batch}, got {b}")
+        if s + max_new_tokens > self.max_len:
+            raise ValueError(
+                f"prompt {s} + {max_new_tokens} new tokens exceeds the "
+                f"engine max_len {self.max_len}")
+        cache = self.cache
+        lens = (np.full((b,), s, np.int32) if seq_lens is None
+                else np.asarray(seq_lens, np.int32).reshape(b))
+        slots = list(range(b))
+        if self.kind == "dense":
+            if len(set(lens.tolist())) > 1:
+                raise ValueError(
+                    "the dense cache needs an aligned batch (one shared "
+                    "prompt length); use use_cache='paged' for ragged "
+                    "prompts")
+            cache.pos = 0
+        else:
+            # fresh slots for this batch, lowest first: row i is slot i
+            for slot in list(cache._slot_pages):
+                cache.free(slot)
+            slots = [cache.allocate(int(n)) for n in lens]
+        bucket = self._bucket(s)
+        if bucket > s:
+            ids = np.concatenate(
+                [ids, np.zeros((b, bucket - s), ids.dtype)], axis=1)
+        gen = None
+        if self.do_sample:
+            if seed is None:
+                seed = int(torch.randint(0, 2 ** 62, ()).item())
+            gen = torch.Generator(device=self.device).manual_seed(int(seed))
+        buffers, meta = split_state(self.kind, cache.state())
+        try:
+            tok, logits, buffers, meta = self.prefill_step(
+                buffers, meta, ids, lens, np.asarray(slots, np.int32), gen)
+            toks, logit_steps = [tok], [logits]
+            cur = lens.copy()
+            for _ in range(max_new_tokens - 1):
+                if self.kind == "paged":
+                    # grow the page tables on demand (host bookkeeping)
+                    for j, slot in enumerate(slots):
+                        cache.reserve(slot, int(cur[j]) + 1)
+                    meta["page_tables"] = cache.page_tables
+                tok, logits, buffers, meta = self.decode_step(
+                    buffers, meta, tok, gen)
+                toks.append(tok)
+                if return_logits:
+                    logit_steps.append(logits)
+                cur += 1
+            cache.load_state({**buffers, **meta})
+            out = torch.stack(toks, dim=1).cpu().numpy().astype(np.int32)
+        except BaseException:
+            # a failed step may leave the pools half written
+            self.cache = self._make_cache()
+            raise
+        if self.kind == "paged":
+            for slot in slots:
+                cache.free(slot)
+        if eos_token_id is not None:
+            done = np.zeros((b,), bool)
+            for t in range(out.shape[1]):
+                out[done, t] = eos_token_id
+                done |= out[:, t] == eos_token_id
+        out_t = torch.from_numpy(out)
+        if return_logits:
+            return out_t, torch.stack(logit_steps, dim=1).float().cpu()
+        return out_t

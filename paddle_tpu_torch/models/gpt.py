@@ -13,9 +13,13 @@ through `nn.functional.scaled_dot_product_attention` (the splash kernel,
 with packed-sequence ``segment_ids``), ``use_recompute`` checkpoints
 each block, and ``loss`` feeds the final hiddens to the fused LM-head
 cross entropy (`fused_lm_loss`), so the ``[tokens, vocab]`` logits never
-exist. Serving runs over a `PagedKVCache`: ``decode_step`` (one token
-per slot, the paged decode kernel) and ``prefill_chunk`` (one bounded
-window per slot, the paged chunk kernel).
+exist. Serving runs over a `PagedKVCache` with fp, int8 or int4 pools:
+``decode_step`` (one token per slot, the paged decode kernels) and
+``prefill_chunk`` (one bounded window per slot, the paged chunk
+kernels). Generation (``generate``, over `jit.GenerationEngine`) adds
+``prefill``, a causal pass over the whole prompt through the splash
+kernel that fills a paged or a `DenseKVCache`, whose decode runs
+`incubate.nn.functional.masked_multihead_attention`.
 
 Not ported yet, and refused by `GPTConfig`: scan_layers and the "dots"
 recompute policy (ROADMAP queue A7), MoE and ring attention (A9/A10),
@@ -26,13 +30,18 @@ from __future__ import annotations
 import math
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..framework.device import resolve_device
-from ..inference.kv_cache import decode_plan, prefill_plan, write_rows
+from ..incubate.nn import functional as IF
+from ..inference.kv_cache import (decode_plan, dense_write_prefill,
+                                  layer_scales, prefill_plan,
+                                  prefill_write_index, slot_rows,
+                                  write_layer)
 from ..nn import functional as PF
 from ..ops.kernels.paged_attention import (paged_attention,
                                            paged_attention_chunk)
@@ -134,19 +143,48 @@ class GPTAttention(nn.Module):
             segment_ids=segment_ids)
         return self.out_proj(out.reshape(b, s, h))
 
+    def forward_prefill(self, x, cache, layer_idx, plan):
+        """Prompt pass: causal self-attention over the whole (right-padded)
+        prompt, then this layer's K/V into the cache: positions [0, s) of
+        the dense cache, or the paged pools at ``plan`` (the call's flat
+        write index; padding goes to the trash page), quantized there
+        when the pools are int8/int4."""
+        b, s, h = x.shape
+        qkv = self.qkv(x).reshape(b, s, 3, self.num_heads, self.head_dim)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        out = PF.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                              training=False)
+        if cache.kind == "dense":
+            dense_write_prefill(cache.layer(layer_idx), k, v)
+        else:
+            nh, hd = self.num_heads, self.head_dim
+            write_layer(cache, layer_idx, plan,
+                        k.movedim(2, 0).reshape(nh, b * s, hd),
+                        v.movedim(2, 0).reshape(nh, b * s, hd))
+        return self.out_proj(out.reshape(b, s, h))
+
     def forward_decode(self, x, cache, layer_idx, plan):
-        """One token per slot: write it into this layer's pools (inactive
-        slots to the trash page), then ragged paged attention. ``plan``
-        is the step's `decode_plan`."""
+        """One token per slot. Dense cache: `masked_multihead_attention`
+        appends it at the shared position and attends the cache. Paged:
+        write it into this layer's pools (inactive slots to the trash
+        page; quantized with its scale in int8/int4 pools), then ragged
+        paged attention. ``plan`` is the step's `decode_plan` (None for
+        the dense cache)."""
         b, _, h = x.shape
+        if cache.kind == "dense":
+            out, _ = IF.masked_multihead_attention(
+                self.qkv(x).reshape(b, 3 * h), cache.layer(layer_idx),
+                sequence_lengths=cache.pos)
+            return self.out_proj(out.reshape(b, 1, h))
         qkv = self.qkv(x).reshape(b, 3, self.num_heads, self.head_dim)
         q, k, v = qkv[:, 0], qkv[:, 1], qkv[:, 2]          # [b, nh, hd]
         write, lens = plan
-        kp, vp = cache.k_layers[layer_idx], cache.v_layers[layer_idx]
-        write_rows(kp, write, k.movedim(1, 0))
-        write_rows(vp, write, v.movedim(1, 0))
-        out = paged_attention(q.contiguous(), kp, vp, cache.page_tables,
-                              lens)
+        write_layer(cache, layer_idx, write, k.movedim(1, 0),
+                    v.movedim(1, 0))
+        ks, vs = layer_scales(cache, layer_idx)
+        out = paged_attention(q.contiguous(), cache.k_layers[layer_idx],
+                              cache.v_layers[layer_idx], cache.page_tables,
+                              lens, k_scales=ks, v_scales=vs)
         return self.out_proj(out.reshape(b, 1, h))
 
     def forward_prefill_chunk(self, x, cache, layer_idx, start, plan):
@@ -159,10 +197,14 @@ class GPTAttention(nn.Module):
         qkv = self.qkv(x).reshape(b, c, 3, nh, hd)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
         write, rows = plan
-        kp, vp = cache.k_layers[layer_idx], cache.v_layers[layer_idx]
-        write_rows(kp, write, k.movedim(2, 0).reshape(nh, b * c, hd))
-        write_rows(vp, write, v.movedim(2, 0).reshape(nh, b * c, hd))
-        out = paged_attention_chunk(q.contiguous(), kp, vp, rows, start)
+        write_layer(cache, layer_idx, write,
+                    k.movedim(2, 0).reshape(nh, b * c, hd),
+                    v.movedim(2, 0).reshape(nh, b * c, hd))
+        ks, vs = layer_scales(cache, layer_idx)
+        out = paged_attention_chunk(
+            q.contiguous(), cache.k_layers[layer_idx],
+            cache.v_layers[layer_idx], rows, start, k_scales=ks,
+            v_scales=vs)
         return self.out_proj(out.reshape(b, c, h))
 
 
@@ -202,6 +244,11 @@ class GPTBlock(nn.Module):
             return checkpoint(self._inner, x, segment_ids,
                               use_reentrant=False)
         return self._inner(x, segment_ids)
+
+    def forward_prefill(self, x, cache, layer_idx, plan):
+        x = x + self.attn.forward_prefill(self.ln_1(x), cache, layer_idx,
+                                          plan)
+        return x + self.mlp(self.ln_2(x))
 
     def forward_decode(self, x, cache, layer_idx, plan):
         x = x + self.attn.forward_decode(self.ln_1(x), cache, layer_idx,
@@ -249,11 +296,32 @@ class GPTModel(nn.Module):
             x = block(x, segment_ids)
         return self.ln_f(x)
 
+    def prefill(self, input_ids, cache, seq_lens=None, slot_ids=None):
+        """Prompt pass writing every layer's K/V into ``cache``.
+
+        input_ids: [b, s] (right-padded to the engine's length bucket);
+        seq_lens / slot_ids: [b] int32 true prompt lengths and slots, for
+        the paged cache (the dense cache ignores both: its batch is
+        aligned). Returns the [b, s, hidden] hiddens; the caller gathers
+        the last valid position and owns the cache's lengths."""
+        b, s = input_ids.shape
+        x = self._embed(input_ids,
+                        torch.arange(s, device=input_ids.device)[None])
+        plan = None
+        if cache.kind == "paged":
+            # one flat write index for every layer; padding to trash
+            plan = prefill_write_index(
+                slot_rows(cache.page_tables, slot_ids), None, seq_lens, s,
+                cache.page_size)
+        for l, block in enumerate(self.blocks):
+            x = block.forward_prefill(x, cache, l, plan)
+        return self.ln_f(x)
+
     def decode_step(self, tokens, cache, position_ids):
         """One cached decode step: tokens [b, 1] -> hiddens [b, 1, h].
-        The caller owns advancing cache.seq_lens."""
+        The caller owns advancing cache.seq_lens (cache.pos)."""
         x = self._embed(tokens, position_ids)
-        plan = decode_plan(cache)
+        plan = decode_plan(cache) if cache.kind == "paged" else None
         for l, block in enumerate(self.blocks):
             x = block.forward_decode(x, cache, l, plan)
         return self.ln_f(x)
@@ -315,6 +383,61 @@ class GPTForCausalLM(nn.Module):
     def forward(self, input_ids, position_ids=None, segment_ids=None):
         return self.head(self.gpt(input_ids, position_ids,
                                   segment_ids=segment_ids))
+
+    @torch.no_grad()
+    def generate(self, input_ids, max_new_tokens=20, seq_lens=None,
+                 use_cache="dense", do_sample=False, top_k=0, top_p=1.0,
+                 temperature=1.0, seed=None, eos_token_id=None,
+                 compiled=True, return_logits=False, **engine_kwargs):
+        """Autoregressive generation: one causal prefill of the padded
+        prompt (the splash kernel) writes the cache, then one-token
+        decode steps.
+
+        use_cache: "dense" (aligned batch) or "paged" (ragged ``seq_lens``
+        for right-padded ``input_ids``; ``kv_quant="int8"|"int4"`` among
+        ``engine_kwargs`` quantizes its pools). do_sample draws with
+        temperature / top-k / top-p from a generator seeded with
+        ``seed``; otherwise greedy. Returns an int32 CPU tensor [batch,
+        max_new_tokens] (and the logits with ``return_logits``).
+
+        Engines are kept on the model per (cache kind, batch, capacity,
+        sampling, parameter layout, engine options) signature, the four
+        most recent, so repeated calls reuse one cache."""
+        from ..jit.decode_step import GenerationEngine
+
+        ids = (input_ids.cpu().numpy() if isinstance(input_ids, torch.Tensor)
+               else np.asarray(input_ids))
+        b, s = ids.shape
+        # capacity rounded up to a shared granularity, so nearby (prompt,
+        # max_new) shapes share one engine; capped at the position table
+        need = s + int(max_new_tokens)
+        cap = self.config.max_position_embeddings
+        if need > cap:
+            raise ValueError(
+                f"prompt {s} + {max_new_tokens} new tokens exceeds "
+                f"max_position_embeddings={cap}")
+        max_len = min(cap, -(-need // 64) * 64)
+        # the parameter layout keeps a stale engine from surviving a
+        # change of dtype, shape or device
+        struct = hash(tuple((n, str(p.dtype), tuple(p.shape), str(p.device))
+                            for n, p in self.named_parameters()))
+        key = (use_cache, b, max_len, bool(do_sample), int(top_k),
+               float(top_p), float(temperature), bool(compiled), struct,
+               tuple(sorted(engine_kwargs.items())))
+        engines = self.__dict__.setdefault("_generation_engines", {})
+        engine = engines.pop(key, None)
+        if engine is None:
+            engine = GenerationEngine(
+                self, kind=use_cache, batch=b, max_len=max_len,
+                do_sample=do_sample, top_k=top_k, top_p=top_p,
+                temperature=temperature, compiled=compiled,
+                **engine_kwargs)
+        engines[key] = engine           # most recent last
+        while len(engines) > 4:
+            engines.pop(next(iter(engines)))
+        return engine.generate(ids, max_new_tokens, seq_lens=seq_lens,
+                               eos_token_id=eos_token_id, seed=seed,
+                               return_logits=return_logits)
 
     def head(self, hidden):
         """LM head: hiddens [..., hidden] -> logits [..., vocab]."""

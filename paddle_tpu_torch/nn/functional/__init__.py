@@ -1,6 +1,6 @@
 from .flash_attention import scaled_dot_product_attention
 from .loss import cross_entropy, fused_linear_cross_entropy
-from .sampling import sample_logits_per_slot
+from .sampling import sample_logits, sample_logits_per_slot
 
-__all__ = ["cross_entropy", "fused_linear_cross_entropy",
+__all__ = ["cross_entropy", "fused_linear_cross_entropy", "sample_logits",
            "sample_logits_per_slot", "scaled_dot_product_attention"]

@@ -1,19 +1,22 @@
-"""Token sampling for the serving path.
+"""Token sampling for the serving and generation paths.
 
 Counterpart of paddle_tpu/nn/functional/sampling.py: the truncation
 (temperature, top-k, top-p) is transcribed exactly, with its threshold
 tie rules. The random draw cannot match the reference's bits (JAX's
 threefry vs a torch generator), so it keeps the reference's contract
-instead: row i draws from a ``torch.Generator`` on the logits' device
-seeded by a pure function of ``(seeds[i], positions[i])``, so a
-request's tokens never depend on which other sequences share the batch.
+instead. Serving (`sample_logits_per_slot`): row i draws from a
+``torch.Generator`` on the logits' device seeded by a pure function of
+``(seeds[i], positions[i])``, so a request's tokens never depend on
+which other sequences share the batch. Generation (`sample_logits`):
+the whole batch draws from one generator the caller seeds, so a seeded
+``generate()`` repeats itself.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-__all__ = ["sample_logits_per_slot", "slot_seed"]
+__all__ = ["sample_logits", "sample_logits_per_slot", "slot_seed"]
 
 _MASK64 = (1 << 64) - 1
 
@@ -43,6 +46,22 @@ def _truncate_logits(lf, temperature, top_k, top_p):
             dim=-1, keepdim=True)
         lf = torch.where(lf < thresh, float("-inf"), lf)
     return lf
+
+
+def sample_logits(logits, generator=None, temperature=1.0, top_k=0,
+                  top_p=1.0):
+    """One token a row of ``logits`` [..., vocab] (int32 ids of shape
+    ``logits.shape[:-1]``). ``generator=None`` or temperature <= 0 is
+    greedy argmax; otherwise a draw from the truncated distribution with
+    ``generator`` (a ``torch.Generator`` on the logits' device)."""
+    lf = logits.float()
+    if generator is None or temperature <= 0.0:
+        return torch.argmax(lf, dim=-1).to(torch.int32)
+    probs = torch.softmax(_truncate_logits(lf, temperature, top_k, top_p),
+                          dim=-1)
+    flat = probs.reshape(-1, probs.shape[-1])
+    ids = torch.multinomial(flat, 1, generator=generator)[:, 0]
+    return ids.reshape(probs.shape[:-1]).to(torch.int32)
 
 
 def slot_seed(seed: int, position: int) -> int:

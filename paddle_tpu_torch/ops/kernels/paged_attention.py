@@ -6,6 +6,12 @@ signatures and layouts (see that module's docstring):
 
 * ``k_pages`` / ``v_pages``: ``[num_kv_heads, num_pages, page_size,
   head_dim]``, fp32 or bf16; page 0 is the trash page.
+* quantized pools, selected by passing ``k_scales`` / ``v_scales``
+  (``[num_kv_heads, num_pages, page_size]`` fp32, one scale a cached
+  row): int8 pools ``[..., head_dim]`` (value ``q * scale``), or uint8
+  pools ``[..., head_dim // 2]`` packing two int4 values a byte (high
+  nibble the even lane, ``(v >> 4) - 8`` / ``(v & 0xF) - 8``, then
+  times the scale). The pool dtype names the mode.
 * ``page_tables``: ``[batch, pages_per_seq] int32``.
 * `paged_attention`: ``q [batch, num_heads, head_dim]``, one token per
   slot, ``seq_lens [batch] int32`` valid keys per slot; an empty slot
@@ -18,9 +24,12 @@ signatures and layouts (see that module's docstring):
 Routing is by the tensors' device, nothing else: CPU tensors take the
 plain versions (`paged_attention_ref`, `paged_attention_chunk_ref`,
 transcriptions of ``paged_attention_xla`` / ``paged_attention_chunk_xla``
-and their ``_densify``); CUDA tensors launch ``paged_decode_kernel`` /
-``paged_chunk_kernel`` of ``csrc/paged_attention.cu`` or raise. Each
-wrapper counts its launches in ``<wrapper>.launches``.
+and their ``_densify``, which dequantizes); CUDA tensors launch a
+kernel of ``csrc/paged_attention.cu`` or raise: ``paged_decode_kernel``
+/ ``paged_chunk_kernel`` over fp pools, ``paged_decode_q_kernel`` /
+``paged_chunk_q_kernel`` over int8 or int4 pools. Each wrapper counts
+its launches: ``<wrapper>.launches`` the fp kernel's,
+``<wrapper>.launches_int8`` / ``.launches_int4`` the quantized ones'.
 """
 from __future__ import annotations
 
@@ -28,6 +37,7 @@ import ctypes
 
 import torch
 
+from ...nn.quant import unpack_q4
 from . import _build
 
 __all__ = ["paged_attention", "paged_attention_chunk",
@@ -40,8 +50,15 @@ _SIGNATURES = {
                      _F, _I, _I, _P),
     "paged_chunk": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                     _I, _F, _I, _I, _P),
+    # q, k, v, k_scales, v_scales, out, page_tables, seq_lens | start,
+    # then the geometry (head_dim is q's), q_bf16, int4
+    "paged_decode_q": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                       _I, _I, _F, _I, _I, _P),
+    "paged_chunk_q": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                      _I, _I, _I, _F, _I, _I, _P),
 }
 _DTYPES = (torch.float32, torch.bfloat16)
+_QUANT_DTYPES = (torch.int8, torch.uint8)
 _MAX_HEAD_DIM = 256     # the kernels' shared memory holds [64, d] K/V tiles
 
 
@@ -49,24 +66,41 @@ _MAX_HEAD_DIM = 256     # the kernels' shared memory holds [64, d] K/V tiles
 # plain versions
 # ---------------------------------------------------------------------------
 
-def _densify(pages, page_tables):
-    """[b, kvh, pp*ps, d] dense view of each slot's pages."""
+def _quant_mode(pages, scales):
+    """None / "int8" / "int4", read from the pool dtype when scales are
+    given (uint8 is the packed-nibble form)."""
+    if scales is None:
+        return None
+    return "int4" if pages.dtype == torch.uint8 else "int8"
+
+
+def _densify(pages, page_tables, scales=None):
+    """[b, kvh, pp*ps, d] dense view of each slot's pages; quantized
+    pools dequantize here (int4 unpacks its nibbles first), to fp32."""
     kvh, _, page_size, d = pages.shape
     b, pp = page_tables.shape
     g = pages[:, page_tables.long()]                  # [kvh, b, pp, ps, d]
-    return g.movedim(0, 1).reshape(b, kvh, pp * page_size, d)
+    g = g.movedim(0, 1).reshape(b, kvh, pp * page_size, d)
+    if scales is not None:
+        if _quant_mode(pages, scales) == "int4":
+            g = unpack_q4(g)
+        s = scales[:, page_tables.long()]              # [kvh, b, pp, ps]
+        s = s.movedim(0, 1).reshape(b, kvh, pp * page_size)
+        g = g.float() * s[..., None]
+    return g
 
 
 def paged_attention_ref(q, k_pages, v_pages, page_tables, seq_lens,
-                        scale=None):
-    """Densify via gather, mask, one attention (paged_attention_xla)."""
+                        scale=None, k_scales=None, v_scales=None):
+    """Densify via gather (and dequant), mask, one attention
+    (paged_attention_xla)."""
     b, nh, d = q.shape
     kvh, _, page_size, _ = k_pages.shape
     grp = nh // kvh
     pp = page_tables.shape[1]
     sc = scale if scale is not None else 1.0 / (d ** 0.5)
-    k = _densify(k_pages, page_tables)
-    v = _densify(v_pages, page_tables)
+    k = _densify(k_pages, page_tables, k_scales)
+    v = _densify(v_pages, page_tables, v_scales)
     qg = q.reshape(b, kvh, grp, d)
     s = torch.einsum("bhgd,bhkd->bhgk", qg.float(), k.float()) * sc
     valid = (torch.arange(pp * page_size, device=q.device)[None, :]
@@ -81,7 +115,7 @@ def paged_attention_ref(q, k_pages, v_pages, page_tables, seq_lens,
 
 
 def paged_attention_chunk_ref(q, k_pages, v_pages, page_tables, start,
-                              scale=None):
+                              scale=None, k_scales=None, v_scales=None):
     """c queries per slot over its paged context, causal within the
     chunk (paged_attention_chunk_xla)."""
     b, c, nh, d = q.shape
@@ -89,8 +123,8 @@ def paged_attention_chunk_ref(q, k_pages, v_pages, page_tables, start,
     grp = nh // kvh
     L = page_tables.shape[1] * page_size
     sc = scale if scale is not None else 1.0 / (d ** 0.5)
-    ctx_k = _densify(k_pages, page_tables)
-    ctx_v = _densify(v_pages, page_tables)
+    ctx_k = _densify(k_pages, page_tables, k_scales)
+    ctx_v = _densify(v_pages, page_tables, v_scales)
     qg = q.movedim(1, 2).reshape(b, kvh, grp, c, d)
     s = torch.einsum("bhgcd,bhld->bhgcl", qg.float(), ctx_k.float()) * sc
     jpos = torch.arange(L, dtype=torch.int32, device=q.device)
@@ -110,16 +144,27 @@ def paged_attention_chunk_ref(q, k_pages, v_pages, page_tables, start,
 
 def _check(name, q, k_pages, v_pages, page_tables, lens, k_scales,
            v_scales):
-    if k_scales is not None or v_scales is not None:
-        raise NotImplementedError("quantized pools: not ported yet")
+    """Validate the call; returns the quant mode (None, "int8",
+    "int4")."""
     tensors = {"q": q, "k_pages": k_pages, "v_pages": v_pages,
                "page_tables": page_tables, name: lens}
+    if (k_scales is None) != (v_scales is None):
+        raise ValueError("pass both k_scales and v_scales, or neither")
+    if k_scales is not None:
+        tensors.update(k_scales=k_scales, v_scales=v_scales)
     devs = {t.device for t in tensors.values()}
     if len(devs) != 1:
         raise ValueError(f"tensors on different devices: {devs}")
-    if q.dtype not in _DTYPES or k_pages.dtype not in _DTYPES:
+    quant = _quant_mode(k_pages, k_scales)
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
+    if quant is None and k_pages.dtype not in _DTYPES:
         raise TypeError(f"q/pools must be float32 or bfloat16, got "
-                        f"{q.dtype}/{k_pages.dtype}")
+                        f"{q.dtype}/{k_pages.dtype} (int8/uint8 pools "
+                        f"need k_scales/v_scales)")
+    if quant is not None and k_pages.dtype not in _QUANT_DTYPES:
+        raise TypeError(f"quantized pools must be int8 or uint8 (int4), "
+                        f"got {k_pages.dtype}")
     if v_pages.dtype != k_pages.dtype:
         raise TypeError("k_pages and v_pages differ in dtype")
     if page_tables.dtype != torch.int32 or lens.dtype != torch.int32:
@@ -127,60 +172,95 @@ def _check(name, q, k_pages, v_pages, page_tables, lens, k_scales,
     for n, t in tensors.items():
         if not t.is_contiguous():
             raise ValueError(f"{n} must be contiguous")
-    kvh, _, page_size, d = k_pages.shape
-    b, nh = q.shape[0], q.shape[-2]
-    if (v_pages.shape != k_pages.shape or q.shape[-1] != d
+    kvh, num_pages, page_size, pd = k_pages.shape
+    b, nh, d = q.shape[0], q.shape[-2], q.shape[-1]
+    if quant == "int4" and d % 2:
+        raise ValueError(
+            f"int4 paged attention needs an even head_dim (two values "
+            f"per byte), got head_dim={d}")
+    if (v_pages.shape != k_pages.shape
+            or pd != (d // 2 if quant == "int4" else d)
             or page_tables.dim() != 2 or page_tables.shape[0] != b
             or tuple(lens.shape) != (b,)):
         raise ValueError(
             f"shape mismatch: q {tuple(q.shape)}, pools "
             f"{tuple(k_pages.shape)}/{tuple(v_pages.shape)}, page_tables "
             f"{tuple(page_tables.shape)}, {name} {tuple(lens.shape)}")
+    if quant is not None:
+        for n in ("k_scales", "v_scales"):
+            t = tensors[n]
+            if t.dtype != torch.float32:
+                raise TypeError(f"{n} must be float32, got {t.dtype}")
+            if tuple(t.shape) != (kvh, num_pages, page_size):
+                raise ValueError(
+                    f"{n} must be [kvh, num_pages, page_size] = "
+                    f"{[kvh, num_pages, page_size]}, got {list(t.shape)}")
     if nh % kvh:
         raise ValueError(f"num_heads={nh} is not a multiple of "
                          f"num_kv_heads={kvh}")
     if d > _MAX_HEAD_DIM:
         raise ValueError(f"head_dim={d} beyond the kernels' "
                          f"{_MAX_HEAD_DIM}")
+    return quant
 
 
-def _launch(fn, q, k_pages, v_pages, page_tables, lens, extra, scale):
-    kvh, num_pages, page_size, d = k_pages.shape
+def _launch(fn, q, k_pages, v_pages, page_tables, lens, extra, scale,
+            k_scales, v_scales, quant):
+    """Launch ``fn`` (fp pools) or ``fn + "_q"`` (int8/int4 pools) on
+    q's stream; returns (out, launched)."""
+    kvh, num_pages, page_size, _ = k_pages.shape
     out = torch.empty_like(q)
     if q.shape[0] == 0:
         return out, False
     lib = _build.load("paged_attention", _SIGNATURES)
+    geometry = (q.shape[-2], kvh, q.shape[-1], num_pages, page_size,
+                page_tables.shape[1], float(scale),
+                int(q.dtype == torch.bfloat16))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = getattr(lib, fn)(
-            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            out.data_ptr(), page_tables.data_ptr(), lens.data_ptr(),
-            *extra, q.shape[-2], kvh, d, num_pages, page_size,
-            page_tables.shape[1], float(scale),
-            int(q.dtype == torch.bfloat16),
-            int(k_pages.dtype == torch.bfloat16), stream)
+        if quant is None:
+            fn_name = fn
+            rc = getattr(lib, fn)(
+                q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                out.data_ptr(), page_tables.data_ptr(), lens.data_ptr(),
+                *extra, *geometry, int(k_pages.dtype == torch.bfloat16),
+                stream)
+        else:
+            fn_name = fn + "_q"
+            rc = getattr(lib, fn_name)(
+                q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                k_scales.data_ptr(), v_scales.data_ptr(), out.data_ptr(),
+                page_tables.data_ptr(), lens.data_ptr(), *extra,
+                *geometry, int(quant == "int4"), stream)
     if rc:
-        raise RuntimeError(f"{fn} launch failed: CUDA error {rc}")
+        raise RuntimeError(f"{fn_name} launch failed: CUDA error {rc}")
     return out, True
+
+
+def _count(wrapper, quant, launched):
+    attr = "launches" if quant is None else f"launches_{quant}"
+    setattr(wrapper, attr, getattr(wrapper, attr) + launched)
 
 
 def paged_attention(q, k_pages, v_pages, page_tables, seq_lens,
                     scale=None, k_scales=None, v_scales=None):
     """Ragged paged decode attention (see the module docstring)."""
-    _check("seq_lens", q, k_pages, v_pages, page_tables, seq_lens,
-           k_scales, v_scales)
+    quant = _check("seq_lens", q, k_pages, v_pages, page_tables, seq_lens,
+                   k_scales, v_scales)
     if q.dim() != 3:
         raise ValueError(f"q must be [b, nh, d], got {tuple(q.shape)}")
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)
     if q.device.type == "cpu":
         return paged_attention_ref(q, k_pages, v_pages, page_tables,
-                                   seq_lens, scale=scale)
+                                   seq_lens, scale=scale,
+                                   k_scales=k_scales, v_scales=v_scales)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention: no kernel for {q.device}")
     out, launched = _launch("paged_decode", q, k_pages, v_pages,
-                            page_tables, seq_lens, (q.shape[0],), scale)
-    paged_attention.launches += launched
+                            page_tables, seq_lens, (q.shape[0],), scale,
+                            k_scales, v_scales, quant)
+    _count(paged_attention, quant, launched)
     return out
 
 
@@ -189,22 +269,26 @@ def paged_attention_chunk(q, k_pages, v_pages, page_tables, start,
     """Multi-token chunk attention over the paged context (see the
     module docstring); ``page_tables`` holds the b slots' gathered
     rows."""
-    _check("start", q, k_pages, v_pages, page_tables, start, k_scales,
-           v_scales)
+    quant = _check("start", q, k_pages, v_pages, page_tables, start,
+                   k_scales, v_scales)
     if q.dim() != 4:
         raise ValueError(f"q must be [b, c, nh, d], got {tuple(q.shape)}")
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)
     if q.device.type == "cpu":
         return paged_attention_chunk_ref(q, k_pages, v_pages, page_tables,
-                                         start, scale=scale)
+                                         start, scale=scale,
+                                         k_scales=k_scales,
+                                         v_scales=v_scales)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention_chunk: no kernel for {q.device}")
     out, launched = _launch("paged_chunk", q, k_pages, v_pages, page_tables,
-                            start, (q.shape[0], q.shape[1]), scale)
-    paged_attention_chunk.launches += launched
+                            start, (q.shape[0], q.shape[1]), scale,
+                            k_scales, v_scales, quant)
+    _count(paged_attention_chunk, quant, launched)
     return out
 
 
-paged_attention.launches = 0
-paged_attention_chunk.launches = 0
+for _w in (paged_attention, paged_attention_chunk):
+    _w.launches = _w.launches_int8 = _w.launches_int4 = 0
+del _w

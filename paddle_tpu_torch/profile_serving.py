@@ -1,14 +1,16 @@
 """Where the serving path's time goes on the card.
 
     python -m paddle_tpu_torch.profile_serving [--timed N]
+        [--kv-quant {int8,int4}]
 
 Serves the workload of ``chip_smoke.py`` phase 5 (GPT-3 1.3B width,
-bf16 weights and pools, 8 slots, 16 greedy requests with prompts of
-64-768 tokens and 32-128 new tokens, all from seed 0) once to warm up,
+bf16 weights, bf16 pools or with ``--kv-quant`` int8 / int4 ones, 8
+slots, 16 greedy requests with prompts of 64-768 tokens and 32-128 new
+tokens, all from seed 0) once to warm up,
 then again under ``torch.profiler``, and prints one JSON line: the wall
 time, the device time summed over every kernel (one stream, so kernels
 never overlap), the device's idle share of the wall time, the device
-time of the two paged-attention kernels, of the matrix products and of
+time of the paged-attention kernels, of the matrix products and of
 everything else, and the top kernels by device time. ``--timed N``
 instead serves the workload N more times without the profiler and
 prints one JSON line per run (wall, output tok/s, TTFT and inter-token
@@ -26,7 +28,8 @@ import torch
 from .models import GPTForCausalLM, gpt_config
 from .serving import ServingEngine, ServingMetrics
 
-_ATTENTION = ("paged_decode_kernel", "paged_chunk_kernel")
+_ATTENTION = ("paged_decode_kernel", "paged_chunk_kernel",
+              "paged_decode_q_kernel", "paged_chunk_q_kernel")
 _GEMM = ("gemm", "cutlass", "cublas", "sm90_xmma", "nvjet")
 
 
@@ -54,6 +57,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--timed", type=int, default=0, metavar="N",
                     help="N timed runs without the profiler instead")
+    ap.add_argument("--kv-quant", choices=("int8", "int4"), default=None,
+                    help="store the KV pages quantized")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_serving needs a CUDA card")
@@ -61,14 +66,15 @@ def main(argv=None):
     model = GPTForCausalLM(cfg, dtype=torch.bfloat16, seed=0)
     engine = ServingEngine(model, max_slots=8, max_len=1024, page_size=16,
                            chunk_size=64, prefill_batch=4,
-                           cache_dtype=torch.bfloat16)
+                           cache_dtype=torch.bfloat16,
+                           kv_quant=args.kv_quant)
     requests = _requests(cfg.vocab_size)
     _serve(engine, requests)                       # warm-up
     if args.timed:
         for run in range(args.timed):
             handles, snap, wall = _serve(engine, requests)
             print(json.dumps({
-                "run": run, "wall_s": wall,
+                "run": run, "kv_quant": args.kv_quant, "wall_s": wall,
                 "generated_tokens": snap["generated_tokens"],
                 "output_tok_s": snap["generated_tokens"] / wall,
                 **{k: snap[k] for k in ("ttft_p50_s", "ttft_p99_s",
@@ -97,6 +103,7 @@ def main(argv=None):
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:15]
     out = {
         "device": torch.cuda.get_device_name(0),
+        "kv_quant": args.kv_quant,
         "requests": len(handles),
         "generated_tokens": sum(len(h.output_tokens) for h in handles),
         "wall_s": wall,

@@ -18,10 +18,15 @@ whose chunk is padded to one of a few power-of-two buckets. Every
    `stream()` iterator); EOS or token-budget retirement frees pages
    immediately.
 
+``kv_quant="int8"|"int4"`` stores the KV pages quantized (one fp32
+scale a row; int4 packs two values a byte): 1.88x or 3.56x the tokens
+of bf16 pools in the same memory at head_dim 64, with the dequant fused
+into the paged-attention kernels.
+
 Counterpart of paddle_tpu/serving/engine.py. Not here yet, and refused
-at construction: quantized KV pools, speculative decoding, the online
-tuner, the fleet roles (prefill-only replicas, host KV ring), the debug
-server, SLOs and step-failure retries. ``trace`` is accepted and records
+at construction: speculative decoding, the online tuner, the fleet
+roles (prefill-only replicas, host KV ring), the debug server, SLOs and
+step-failure retries. ``trace`` is accepted and records
 no spans: request tracing comes with the observability slice.
 """
 from __future__ import annotations
@@ -33,7 +38,7 @@ import torch
 
 from ..framework.device import resolve_device
 from ..inference.kv_cache import PagedKVCache
-from ..jit.decode_step import ChunkPrefillStep, ServeDecodeStep
+from ..jit.decode_step import ChunkPrefillStep, ServeDecodeStep, split_state
 from .metrics import ServingMetrics
 from .request import FinishReason, Request, RequestHandle, RequestState
 from .scheduler import RequestScheduler
@@ -44,7 +49,6 @@ __all__ = ["ServingEngine"]
 # and the slice that brings each; off is None or a falsy value (for
 # debug_port, where 0 means "any port", only None)
 _NOT_PORTED = {
-    "kv_quant": "the quantized-KV slice",
     "draft_model": "the speculative-decoding slice",
     "tuner": "the online-tuner slice",
     "host_kv_ring": "the fleet slice",
@@ -62,7 +66,7 @@ class ServingEngine:
                  decode_burst=1, do_sample=False, top_k=0, top_p=1.0,
                  temperature=1.0, cache_dtype=None, admit_watermark="auto",
                  clock=time.perf_counter, trace=True, device=None,
-                 **later):
+                 kv_quant=None, **later):
         for name, value in later.items():
             if name not in _NOT_PORTED:
                 raise TypeError(f"unexpected argument {name!r}")
@@ -80,6 +84,9 @@ class ServingEngine:
             raise ValueError(
                 f"max_len={max_len} exceeds max_position_embeddings="
                 f"{cfg.max_position_embeddings}")
+        if kv_quant not in (None, "int8", "int4"):
+            raise ValueError(f"unknown KV quant mode {kv_quant!r}")
+        self.kv_quant = kv_quant
         self.model = model
         self.max_slots = int(max_slots)
         self.max_len = int(max_len)
@@ -131,11 +138,10 @@ class ServingEngine:
             cfg.num_layers, nh, cfg.hidden_size // nh,
             num_pages=self.num_pages, page_size=self.page_size,
             max_slots=self.max_slots, pages_per_seq=self.pages_per_seq,
-            dtype=self._cache_dtype, device=self.device)
+            dtype=self._cache_dtype, quant=self.kv_quant, device=self.device)
 
     def _split_buffers(self):
-        state = self.cache.state()
-        return {k: state[k] for k in ("k_layers", "v_layers")}
+        return split_state("paged", self.cache.state())[0]
 
     # -- client surface ---------------------------------------------------
     def submit(self, prompt, max_new_tokens, priority=0,

@@ -1,6 +1,6 @@
 """The port's CUDA kernels against their plain versions: paged attention
-(serving), splash attention and the fused cross entropy (training),
-forward and backward.
+over fp, int8 and int4 pools (serving), splash attention and the fused
+cross entropy (training), forward and backward.
 
 These run only on a CUDA card (marker ``gpu``; each test skips without
 one). The file imports torch, numpy and the port only, so it runs on a
@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from paddle_tpu_torch.inference.kv_cache import quantize_rows
 from paddle_tpu_torch.ops.kernels import fused_cross_entropy as fce
 from paddle_tpu_torch.ops.kernels import paged_attention as pa
 from paddle_tpu_torch.ops.kernels import splash_attention as sa
@@ -119,6 +120,147 @@ def test_unaligned_rows_take_scalar_loads(cuda, dtype, d, offset):
     lens = torch.tensor([5, 0, 64], dtype=torch.int32, device=cuda)
     _check(pa.paged_attention, pa.paged_attention_ref,
            (q, shifted[0], shifted[1], pt, lens), dtype, dtype)
+
+
+def _check_quant(kernel, plain, q, k, v, pt, pos, quant, q_dtype):
+    kq, ks = quantize_rows(k, quant)
+    vq, vs = quantize_rows(v, quant)
+    counter = f"launches_{quant}"
+    before = (kernel.launches, getattr(kernel, counter))
+    args = (q.to(q_dtype), kq, vq, pt, pos)
+    got = kernel(*args, k_scales=ks, v_scales=vs)
+    torch.cuda.synchronize()
+    assert (kernel.launches, getattr(kernel, counter)) == \
+        (before[0], before[1] + 1)
+    assert got.dtype == q_dtype and got.shape == q.shape
+    want = plain(*args, k_scales=ks, v_scales=vs)
+    err = float((got.float() - want.float()).abs().max())
+    assert torch.isfinite(got).all() and err <= TOL[q_dtype], err
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quant", ["int8", "int4"])
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nh,kvh,d,ps", [
+    (32, 32, 64, 16), (8, 2, 64, 16), (4, 1, 128, 8), (6, 3, 16, 32),
+    (64, 2, 256, 16), (4, 2, 48, 16)])
+def test_quant_decode_kernel(cuda, quant, q_dtype, nh, kvh, d, ps):
+    """#2 against its plain version: GQA, an empty slot, and rows whose
+    packed int4 bytes (d/2 = 8, 24) are not whole 16-byte words, which
+    take the scalar staging path."""
+    b, pp = 6, 8
+    q, k, v, pt = _inputs(cuda, b, nh, kvh, d, ps, pp)
+    lens = torch.tensor([0, 1, ps, ps + 1, 3 * ps - 1, pp * ps],
+                        dtype=torch.int32, device=cuda)
+    got = _check_quant(pa.paged_attention, pa.paged_attention_ref, q, k, v,
+                       pt, lens, quant, q_dtype)
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quant", ["int8", "int4"])
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nh,kvh,c,d", [
+    (32, 32, 64, 64), (8, 2, 40, 64), (4, 1, 1, 64), (2, 2, 33, 32),
+    (16, 1, 5, 16)])
+def test_quant_chunk_kernel(cuda, quant, q_dtype, nh, kvh, c, d):
+    """#4 against its plain version at the chunk-prefill shapes."""
+    b, ps, pp = 3, 16, 8
+    q, k, v, pt = _inputs(cuda, b, nh, kvh, d, ps, pp, c=c)
+    start = torch.tensor([0, 5, pp * ps - c], dtype=torch.int32,
+                         device=cuda)
+    _check_quant(pa.paged_attention_chunk, pa.paged_attention_chunk_ref, q,
+                 k, v, pt, start, quant, q_dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quant", ["int8", "int4"])
+def test_quant_pools_off_16_bytes_take_scalar_loads(cuda, quant):
+    """Quantized pools that start off a 16-byte boundary stage element by
+    element; decode is the chunk of one."""
+    q, k, v, pt = _inputs(cuda, 3, 8, 2, 64, 16, 4)
+    lens = torch.tensor([5, 0, 64], dtype=torch.int32, device=cuda)
+    pools = []
+    for pool in (k, v):
+        payload, sc = quantize_rows(pool, quant)
+        flat = torch.zeros(payload.numel() + 3, dtype=payload.dtype,
+                           device=cuda)
+        view = flat[3:].view(payload.shape)
+        view.copy_(payload)
+        pools += [view, sc]
+    kq, ks, vq, vs = pools
+    got = pa.paged_attention(q, kq, vq, pt, lens, k_scales=ks, v_scales=vs)
+    chunk = pa.paged_attention_chunk(q[:, None].contiguous(), kq, vq, pt,
+                                     (lens - 1).clamp(min=0), k_scales=ks,
+                                     v_scales=vs)
+    torch.cuda.synchronize()
+    want = pa.paged_attention_ref(q, kq, vq, pt, lens, k_scales=ks,
+                                  v_scales=vs)
+    assert float((got - want).abs().max()) <= TOL[torch.float32]
+    assert torch.equal(got[0], chunk[0, 0]) and torch.equal(got[2],
+                                                            chunk[2, 0])
+
+
+@pytest.mark.gpu
+def test_quantized_cuda_tensors_never_take_the_plain_version(cuda,
+                                                             monkeypatch):
+    q, k, v, pt = _inputs(cuda, 2, 4, 2, 64, 16, 2)
+    lens = torch.tensor([3, 20], dtype=torch.int32, device=cuda)
+    kq, ks = quantize_rows(k, "int8")
+    vq, vs = quantize_rows(v, "int8")
+
+    def refuse(*a, **kw):
+        raise AssertionError("plain version called for CUDA tensors")
+
+    monkeypatch.setattr(pa, "paged_attention_ref", refuse)
+    monkeypatch.setattr(pa, "paged_attention_chunk_ref", refuse)
+    n = pa.paged_attention.launches_int8
+    pa.paged_attention(q, kq, vq, pt, lens, k_scales=ks, v_scales=vs)
+    torch.cuda.synchronize()
+    assert pa.paged_attention.launches_int8 == n + 1
+    with pytest.raises(TypeError, match="float32"):
+        pa.paged_attention(q, kq, vq, pt, lens, k_scales=ks.double(),
+                           v_scales=vs.double())
+    with pytest.raises(ValueError, match="even head_dim"):
+        pa.paged_attention(q[..., :63].contiguous(),
+                           kq[..., :31].contiguous().view(torch.uint8),
+                           vq[..., :31].contiguous().view(torch.uint8), pt,
+                           lens, k_scales=ks, v_scales=vs)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quant", ["int8", "int4"])
+def test_quantized_serving_and_generate_on_the_card_match_the_cpu(cuda,
+                                                                  quant):
+    """A tiny fp32 GPT served and generated over int8/int4 pools on the
+    card and on the CPU gives the same greedy tokens."""
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.serving import ServingEngine
+
+    cfg = GPTConfig(vocab_size=96, hidden_size=64, num_layers=2,
+                    num_attention_heads=2, max_position_embeddings=64)
+    cpu = GPTForCausalLM(cfg, device="cpu")
+    rng = np.random.default_rng(1)
+    sd = {n: torch.from_numpy((rng.standard_normal(tuple(t.shape)) * 0.3)
+                              .astype(np.float32))
+          for n, t in cpu.state_dict().items()}
+    cpu.load_state_dict(sd)
+    card = GPTForCausalLM(cfg, device=cuda)
+    card.load_state_dict(sd)
+    prompts = [rng.integers(1, 96, (n,)) for n in (3, 20, 9)]
+    ids = rng.integers(1, 96, (3, 12))
+    served, generated = [], []
+    for model, dev in ((cpu, "cpu"), (card, cuda)):
+        eng = ServingEngine(model, max_slots=2, max_len=64, page_size=8,
+                            chunk_size=16, device=dev, kv_quant=quant)
+        hs = [eng.submit(p, 12) for p in prompts]
+        eng.run()
+        served.append([h.output_tokens for h in hs])
+        generated.append(model.generate(ids, 10, use_cache="paged",
+                                        kv_quant=quant))
+    assert served[0] == served[1]
+    assert torch.equal(generated[0], generated[1])
 
 
 @pytest.mark.gpu

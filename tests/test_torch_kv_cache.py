@@ -108,11 +108,14 @@ class TestCapacityProbes:
         _assert_unchanged(c, snap)
 
 
-def test_bookkeeping_matches_reference():
+@pytest.mark.parametrize("quant", [None, "int8", "int4"])
+def test_bookkeeping_matches_reference(quant):
     """The same allocate/reserve/free churn leaves both caches with the
-    same slots, page tables and free lists (lowest free slot first)."""
+    same slots, page tables and free lists (lowest free slot first), and
+    the same pool statistics: bytes a token with the scale pools
+    counted, and the capacity against bf16 pools."""
     kw = dict(num_layers=1, num_kv_heads=2, head_dim=4, num_pages=20,
-              page_size=4, max_slots=4, pages_per_seq=6)
+              page_size=4, max_slots=4, pages_per_seq=6, quant=quant)
     j = jkv.PagedKVCache(**kw)
     t = PagedKVCache(**kw, device="cpu")
     for c in (j, t):
@@ -131,16 +134,87 @@ def test_bookkeeping_matches_reference():
     assert j._free_pages == t._free_pages
     assert sorted(j._free_slots) == sorted(t._free_slots)
     js, ts = j.pool_stats(), t.pool_stats()
-    for key in ("bytes_per_token", "pool_bytes", "used_pages",
-                "free_pages", "max_contiguous_free", "fragmentation",
-                "occupancy", "slot_pages"):
+    assert set(js) == set(ts)
+    for key in ("bytes_per_token", "effective_slots_vs_bf16", "page_bytes",
+                "pool_bytes", "total_pages", "used_pages", "free_pages",
+                "trash_pages", "page_size", "max_contiguous_free",
+                "fragmentation", "occupancy", "slot_pages"):
         assert js[key] == ts[key], key
+    if quant is not None:
+        assert js["kv_dtype"] == ts["kv_dtype"] == quant
+    # one layer, K and V, 2 heads: head_dim 4 values (+ a 4-byte scale)
+    want = {None: 2 * 2 * 4 * 4, "int8": 2 * 2 * (4 + 4),
+            "int4": 2 * 2 * (2 + 4)}[quant]
+    assert ts["bytes_per_token"] == want
 
 
-def test_quantized_pools_not_ported():
-    with pytest.raises(NotImplementedError):
-        PagedKVCache(1, 2, 4, num_pages=4, page_size=8, max_slots=1,
-                     pages_per_seq=2, quant="int8", device="cpu")
+@pytest.mark.parametrize("quant", ["int8", "int4"])
+def test_quantized_pools_not_ported(quant):
+    """Quantized pools allocate with their scale pools, take writes
+    through the layer writer, and round-trip `state()` / `load_state()`
+    with the scale pools riding along."""
+    c = PagedKVCache(2, 2, 8, num_pages=5, page_size=4, max_slots=2,
+                     pages_per_seq=2, quant=quant, device="cpu")
+    pd = 4 if quant == "int4" else 8
+    assert c.quantized and c.pool_head_dim == pd
+    assert c.k_layers[0].dtype == (torch.uint8 if quant == "int4"
+                                   else torch.int8)
+    assert tuple(c.k_layers[1].shape) == (2, 5, 4, pd)
+    assert tuple(c.v_scales[1].shape) == (2, 5, 4)
+    assert c.k_scales[0].dtype == torch.float32
+    slot = c.allocate(6)
+    rng = np.random.default_rng(0)
+    rows = torch.from_numpy(rng.standard_normal((2, 6, 8))
+                            .astype(np.float32))
+    flat = tkv.prefill_write_index(
+        torch.from_numpy(c.page_tables[[slot]]), None,
+        torch.tensor([6], dtype=torch.int32), 6, c.page_size)
+    tkv.write_layer(c, 1, flat, rows, -rows)
+    assert tkv.layer_scales(c, 0) == (c.k_scales[0], c.v_scales[0])
+    page = int(c.page_tables[slot, 0])
+    assert (c.k_scales[1][:, page] > 0).all()
+    assert torch.equal(c.k_scales[1], c.v_scales[1])
+    state = c.state()
+    assert {"k_scales", "v_scales"} <= set(state)
+    other = PagedKVCache(2, 2, 8, num_pages=5, page_size=4, max_slots=2,
+                         pages_per_seq=2, quant=quant, device="cpu")
+    other.load_state(state)
+    for name in ("k_layers", "v_layers", "k_scales", "v_scales"):
+        for a, b in zip(getattr(other, name), getattr(c, name)):
+            assert torch.equal(a, b)
+    fp = PagedKVCache(1, 2, 8, num_pages=4, page_size=4, max_slots=1,
+                      pages_per_seq=2, device="cpu")
+    assert not fp.quantized and "k_scales" not in fp.state()
+    assert tkv.layer_scales(fp, 0) == (None, None)
+    with pytest.raises(ValueError, match="even"):
+        PagedKVCache(1, 2, 5, num_pages=4, page_size=4, max_slots=1,
+                     pages_per_seq=2, quant="int4", device="cpu")
+    with pytest.raises(ValueError, match="quant mode"):
+        PagedKVCache(1, 2, 8, num_pages=4, page_size=4, max_slots=1,
+                     pages_per_seq=2, quant="fp8", device="cpu")
+
+
+def test_dense_cache_and_prefill_write_match_reference():
+    """`dense_write_prefill` writes positions [0, s) of the dense cache
+    bit for bit as the reference's does; the cache's state round-trips."""
+    rng = np.random.default_rng(4)
+    cache_l = rng.standard_normal((2, 3, 2, 10, 4)).astype(np.float32)
+    kn = rng.standard_normal((3, 6, 2, 4)).astype(np.float32)
+    vn = rng.standard_normal((3, 6, 2, 4)).astype(np.float32)
+    want = jkv.dense_write_prefill(*[jnp.asarray(a)
+                                     for a in (cache_l, kn, vn)])
+    got = torch.from_numpy(cache_l.copy())
+    tkv.dense_write_prefill(got, torch.from_numpy(kn), torch.from_numpy(vn))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    c = tkv.DenseKVCache(2, 3, 10, 2, 4, device="cpu")
+    j = jkv.DenseKVCache(2, 3, 10, 2, 4)
+    assert [tuple(l.shape) for l in c.layers] == \
+        [tuple(l.shape) for l in j.layers]
+    c.pos = 6
+    c.layers[1] = got
+    other = tkv.DenseKVCache(2, 3, 10, 2, 4, device="cpu")
+    other.load_state(c.state())
+    assert other.pos == 6 and other.layer(1) is got
 
 
 def test_no_device_and_no_card_raises(monkeypatch):

@@ -89,11 +89,18 @@ def test_scale_argument_matches_jax():
     (tpa.paged_attention_chunk, "start"),
 ])
 def test_quantized_pools_not_ported(fn, lens):
+    """int8 pools with unit scales attend exactly as the fp pools holding
+    the same integer values (the quantized paths themselves are held
+    against the reference in tests/test_torch_kv_quant.py)."""
     q, k, v, pt = _inputs(c=None if lens == "seq_lens" else 2)
-    args = _t(q, k, v, pt, np.zeros(3, np.int32))
+    kq = np.clip(np.round(k * 20), -127, 127).astype(np.int8)
+    vq = np.clip(np.round(v * 20), -127, 127).astype(np.int8)
+    pos = np.asarray([0, 9, 40], np.int32)
     scales = torch.ones(k.shape[:3])
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        fn(*args, k_scales=scales, v_scales=scales)
+    got = fn(*_t(q, kq, vq, pt, pos), k_scales=scales, v_scales=scales)
+    want = fn(*_t(q, kq.astype(np.float32), vq.astype(np.float32), pt, pos))
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
+                               atol=ATOL)
 
 
 def test_wrapper_validates_inputs():

@@ -113,6 +113,40 @@ def test_preemption_tokens_match_reference(models, burst):
                                            for h in th)
 
 
+@pytest.mark.parametrize("quant", ["int8", "int4"])
+@pytest.mark.parametrize("burst", [1, 3])
+def test_kv_quant_tokens_match_reference(models, quant, burst):
+    """``kv_quant`` pools: staggered admission, the last request filling
+    the window exactly; identical greedy tokens and pool statistics."""
+    prompts = _prompts(5, seed=4)
+    requests = [(p, 5 + i % 3) for i, p in enumerate(prompts)]
+    requests[-1] = (prompts[-1], 48 - len(prompts[-1]))
+    je, jh, te, th = _both(models, requests, max_slots=3, max_len=48,
+                           page_size=8, chunk_size=8, decode_burst=burst,
+                           kv_quant=quant)
+    assert te.cache.quant == quant and te.cache.quantized
+    assert [h.output_tokens for h in th] == [h.output_tokens for h in jh]
+    assert [len(h.output_tokens) for h in th] == [n for _, n in requests]
+    js, ts = je.cache.pool_stats(), te.cache.pool_stats()
+    for key in ("bytes_per_token", "effective_slots_vs_bf16", "pool_bytes"):
+        assert js[key] == ts[key], key
+    _assert_no_leaks(te)
+
+
+@pytest.mark.parametrize("quant", ["int8", "int4"])
+def test_kv_quant_preemption_tokens_match_reference(models, quant):
+    """A tight pool forces preemptions over quantized pools: the same
+    requests are preempted and re-prefilled, with the same tokens."""
+    requests = [(p, 10) for p in _prompts(4, seed=5)]
+    je, jh, te, th = _both(models, requests, stagger=False, max_slots=4,
+                           max_len=48, page_size=8, chunk_size=8,
+                           num_pages=9, decode_burst=2, kv_quant=quant)
+    assert te.metrics.preemptions >= 1
+    assert te.metrics.preemptions == je.metrics.preemptions
+    assert [h.output_tokens for h in th] == [h.output_tokens for h in jh]
+    _assert_no_leaks(te)
+
+
 def test_padding_rows_in_the_prefill_batch(models):
     """prefill_batch 4 with at most two prompts resident: the padding
     rows carry slot id max_slots, clamped on the page-table gather and
@@ -231,7 +265,7 @@ def test_model_and_engine_device_must_agree(models):
 
 
 @pytest.mark.parametrize("option,value", [
-    ("kv_quant", "int8"), ("draft_model", "self"), ("tuner", True),
+    ("draft_model", "self"), ("tuner", True),
     ("host_kv_ring", object()), ("prefill_only", True),
     ("debug_port", 0), ("slos", [("ttft", "ttft_s", 0.2)]),
     ("recover_retries", 2),
@@ -240,6 +274,12 @@ def test_options_of_later_slices_raise(models, option, value):
     _, tm = models
     with pytest.raises(NotImplementedError, match="not ported yet"):
         ServingEngine(tm, device="cpu", **{option: value})
+
+
+def test_kv_quant_mode_is_validated(models):
+    _, tm = models
+    with pytest.raises(ValueError, match="quant mode"):
+        ServingEngine(tm, device="cpu", max_len=48, kv_quant="fp8")
 
 
 def test_options_left_off_are_accepted(models):
