@@ -11,9 +11,14 @@ Phases, one line each (any failure exits non-zero, nothing is caught):
 3. each kernel against its plain PyTorch version on the card, in fp32
    and bf16 (tolerances at `check_kernels` and
    `check_training_kernels`), at the shapes the serving and training
-   paths give it, the paged kernels over bf16, int8 and int4 pools,
-   then timed with CUDA events (L2 flushed between launches) beside the
-   plain version and one PyTorch library call on the same inputs;
+   paths give it: the paged kernels over bf16, int8 and int4 pools;
+   splash and the fused CE; the flash pairs at the flash runs' shapes
+   (single-block [8, 1024, 32, 64], tiled [4, 2048, 32, 64]) with each
+   backward run twice and compared bit for bit, and a ring tick (a key
+   block's forward, and its backward from the global lse and out of two
+   key halves); then timed with CUDA events (L2 flushed between
+   launches) beside the plain version and one PyTorch library call on
+   the same inputs;
 4. serving parity: a tiny fp32 GPT served on the card (kernels) and on
    the CPU (plain versions) over fp32, int8 and int4 pools gives
    identical greedy tokens;
@@ -27,24 +32,33 @@ Phases, one line each (any failure exits non-zero, nothing is caught):
 7. ``generate()`` at the same width, 8 prompts of 128 tokens and 32 new
    tokens over the paged cache with bf16 and with int8 pools: the
    splash forward and the decode kernel of the pools must have run;
-8. training parity: a tiny fp32 GPT with packed-sequence segment ids
-   takes three ``TrainStep``s (AdamW, global-norm clip) on the card and
-   on the CPU; losses and parameters must agree, and each of the four
-   training kernels must have run;
+8. training parity: a tiny fp32 GPT takes three ``TrainStep``s (AdamW,
+   global-norm clip) on the card and on the CPU, with packed-sequence
+   segment ids through splash, then with ``FLAGS_splash_attn`` off
+   through the flash pairs at 128 and 1280 tokens; losses and
+   parameters must agree, the path's kernels must have run and no
+   other training kernel;
 9. the training path at GPT-3 1.3B width: ``TrainStep`` + AdamW (bf16
    weights, fp32 masters, bf16 moments, clip 1.0) over 8 x 1024 random
    tokens with recompute, 2 warm-up and 5 timed steps; the training
    kernels' counters are zeroed just before the timed steps and read
-   just after, and must all be > 0, and every loss finite;
-10. one JSON line ``{"kernels": [...]}`` with each kernel's error,
+   just after: splash and the CE must be > 0, the flash kernels 0, and
+   every loss finite;
+10. the same with ``FLAGS_splash_attn`` off (the reference's flash
+    routing), 2 warm-up and 3 timed steps at 8 x 1024 (the single-block
+    pair must run, and no other attention kernel) and at 4 x 2048 (the
+    tiled pair);
+11. one JSON line ``{"kernels": [...]}`` with each kernel's error,
     times, bound and launches (a paged kernel's from the serving run of
-    its pools).
+    its pools, splash's and the CE's from phase 9, a flash pair's from
+    its phase-10 run).
 
 It then prints the ``nvidia-smi`` line again and, last, ``{"ok": true,
 "device": {...}}``. Imports torch, numpy and the port only.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import statistics
@@ -58,7 +72,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
 BF16_FLOP_PER_S = 989e12        # dense bf16 tensor-core peak
 FP32_FLOP_PER_S = 67e12         # fp32 outside the tensor cores
-PHASES = 10
+PHASES = 11
 
 
 def nvidia_smi() -> str:
@@ -647,12 +661,264 @@ def check_training_kernels(dev, flush):
     return results
 
 
+# ---------------------------------------------------------------------------
+# phase 3, flash kernels: the single-block and the tiled pair
+# ---------------------------------------------------------------------------
+
+FLASH_SOURCE = "paddle_tpu_torch/csrc/flash_attention.cu"
+FLASH_TPU = "paddle_tpu/ops/pallas/flash_attention.py"
+# entry -> TPU kernel line; the path's shapes (causal): the single-block
+# pair at the 1024-token run's, the tiled pair at the 2048-token run's
+FLASH_LINES = {"flash_single_fwd_kernel": 125,
+               "flash_single_bwd_kernels": 139,
+               "flash_fwd_kernel": 201, "flash_bwd_kernels": 291}
+FLASH_SHAPES = {"single": (8, 1024, 32, 64), "tiled": (4, 2048, 32, 64)}
+# the ring's off-diagonal tick on the tiled pair: the second half of the
+# rows against the first half of the keys (a full block), from the global
+# lse and out of both halves
+RING_TICK = {"flash_fwd_kernel[ring tick]": "flash_fwd_kernel",
+             "flash_bwd_kernels[outside lse]": "flash_bwd_kernels"}
+
+
+def _qkv(dev, shape, dtype, seed=0):
+    """q, k, v as strided views of one [b, s, 3, h, d] tensor (as the
+    model passes them) and a contiguous dout."""
+    b, s, h, d = shape
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    qkv = torch.randn(b, s, 3, h, d, device=dev, generator=gen).to(dtype)
+    dout = torch.randn(b, s, h, d, device=dev, generator=gen).to(dtype)
+    return (*qkv.unbind(2), dout)
+
+
+def _flash_case(dev, path, dtype):
+    """One flash pair in ``dtype`` at its path's shape: forward errors
+    (out; lse on the tiled path), backward errors, finiteness, whether a
+    second backward is bit-identical, and the inputs."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    q, k, v, dout = _qkv(dev, FLASH_SHAPES[path], dtype)
+    if path == "single":
+        out, lse = fa.flash_attention_fwd_single(q, k, v, True), None
+        grads = fa.flash_attention_bwd_single(q, k, v, dout, True)
+        again = fa.flash_attention_bwd_single(q, k, v, dout, True)
+        torch.cuda.synchronize()
+        fwd_err = _max_err(out, fa.flash_attention_single_ref(q, k, v, True))
+        ref = fa.flash_attention_single_bwd_ref(q, k, v, dout, True)
+    else:
+        out, lse = fa.flash_attention_fwd(q, k, v, True)
+        grads = fa.flash_attention_bwd(q, k, v, out, lse, dout, True)
+        again = fa.flash_attention_bwd(q, k, v, out, lse, dout, True)
+        torch.cuda.synchronize()
+        want, want_lse = fa.flash_attention_ref(q, k, v, True,
+                                                return_lse=True)
+        fwd_err = max(_max_err(out, want), _max_err(lse, want_lse))
+        ref = fa.flash_attention_bwd_ref(q, k, v, out, lse, dout, True)
+    finite = all(bool(torch.isfinite(t).all()) for t in (out, *grads))
+    same = all(torch.equal(a, g) for a, g in zip(again, grads))
+    bwd_abs = max(_max_err(g, r) for g, r in zip(grads, ref))
+    bwd_rel = max(_rel_err(g, r) for g, r in zip(grads, ref))
+    return fwd_err, bwd_abs, bwd_rel, finite, same, (q, k, v, out, lse, dout)
+
+
+def _ring_tick_case(dev, dtype):
+    """The outside-lse contract: the last 1024 rows of the tiled shape
+    against each key half (full, then causal), merged into the global out
+    and lse, and each half's backward from them. Kernel against plain per
+    half, and the halves' sum against the plain whole."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+    q, k, v, dout = _qkv(dev, FLASH_SHAPES["tiled"], dtype, seed=1)
+    h2 = q.shape[1] // 2
+    q2, do2 = q[:, h2:], dout[:, h2:]
+    halves = ((k[:, :h2], v[:, :h2], False), (k[:, h2:], v[:, h2:], True))
+    fwd = [fa.flash_attention_fwd(q2, kk, vv, c) for kk, vv, c in halves]
+    torch.cuda.synchronize()
+    fwd_err = 0.0
+    for (o, l), (kk, vv, c) in zip(fwd, halves):
+        w, wl = fa.flash_attention_ref(q2, kk, vv, c, return_lse=True)
+        fwd_err = max(fwd_err, _max_err(o, w), _max_err(l, wl))
+    (oa, la), (ob, lb) = fwd
+    lse = torch.logaddexp(la, lb)
+    out = (oa.float() * torch.exp(la - lse).transpose(1, 2)[..., None]
+           + ob.float() * torch.exp(lb - lse).transpose(1, 2)[..., None]) \
+        .to(dtype)
+    grads = [fa.flash_attention_bwd(q2, kk, vv, out, lse, do2, c)
+             for kk, vv, c in halves]
+    torch.cuda.synchronize()
+    refs = [fa.flash_attention_bwd_ref(q2, kk, vv, out, lse, do2, c)
+            for kk, vv, c in halves]
+    bwd_abs = max(_max_err(g, r) for gs, rs in zip(grads, refs)
+                  for g, r in zip(gs, rs))
+    bwd_rel = max(_rel_err(g, r) for gs, rs in zip(grads, refs)
+                  for g, r in zip(gs, rs))
+    # the merged halves against the whole causal attention's last rows
+    wout, wlse = fa.flash_attention_ref(q, k, v, True, return_lse=True)
+    wdq = fa.flash_attention_bwd_ref(q, k, v, wout, wlse, dout, True)[0]
+    merge_err = max(_max_err(out, wout[:, h2:]),
+                    _rel_err(grads[0][0].float() + grads[1][0].float(),
+                             wdq[:, h2:]))
+    finite = all(bool(torch.isfinite(t).all())
+                 for t in (out, lse, *grads[0], *grads[1]))
+    block = (q2, *halves[0][:2], out, lse, do2)
+    return fwd_err, bwd_abs, bwd_rel, merge_err, finite, block
+
+
+def check_flash_kernels(dev, flush):
+    """#5/#6 at [8, 1024, 32, 64] and #7/#8 at [4, 2048, 32, 64], causal,
+    fp32 and bf16 against the plain versions, with a second backward
+    compared bit for bit; the ring tick from an outside lse; then bf16
+    times beside the plain versions and SDPA."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    F = torch.nn.functional
+
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for path, (fwd_name, bwd_name) in (
+                ("single", ("flash_single_fwd_kernel",
+                            "flash_single_bwd_kernels")),
+                ("tiled", ("flash_fwd_kernel", "flash_bwd_kernels"))):
+            fe, ba, br, fin, same, _ = _flash_case(dev, path, dtype)
+            _check(f"flash {path}", dtype, fe, br, fin)
+            if not same:
+                raise AssertionError(f"{bwd_name} {dtype}: two backward "
+                                     f"runs differ")
+            errs[(fwd_name, dtype)] = (fe,)
+            errs[(bwd_name, dtype)] = (ba, br)
+            print(f"[3/{PHASES}] flash {path} {list(FLASH_SHAPES[path])} "
+                  f"causal {str(dtype)[6:]}: forward max abs err {fe:.3g}; "
+                  f"backward max abs err {ba:.3g}, relative {br:.3g}, "
+                  f"bit-identical on a second run", flush=True)
+            torch.cuda.empty_cache()
+        fe, ba, br, me, fin, _ = _ring_tick_case(dev, dtype)
+        _check("flash ring tick", dtype, fe, br, fin)
+        if not me <= TOL_BWD[dtype]:
+            raise AssertionError(f"flash ring tick {dtype}: halves merged "
+                                 f"off the whole by {me}")
+        errs[("flash_fwd_kernel[ring tick]", dtype)] = (fe,)
+        errs[("flash_bwd_kernels[outside lse]", dtype)] = (ba, br)
+        print(f"[3/{PHASES}] flash ring tick (rows 1024-2047 over two key "
+              f"halves, outside lse) {str(dtype)[6:]}: forward max abs err "
+              f"{fe:.3g}; backward max abs err {ba:.3g}, relative {br:.3g}; "
+              f"merged halves vs whole {me:.3g}", flush=True)
+        torch.cuda.empty_cache()
+
+    bf = torch.bfloat16
+    results = {}
+    for path, pair in (("single", ("flash_single_fwd_kernel",
+                                   "flash_single_bwd_kernels")),
+                       ("tiled", ("flash_fwd_kernel", "flash_bwd_kernels")),
+                       ("tick", tuple(RING_TICK))):
+        if path == "tick":
+            *_, (q, k, v, out, lse, dout) = _ring_tick_case(dev, bf)
+            causal, b, s, h, d = False, *q.shape
+            pairs = float(s * s)
+        else:
+            *_, (q, k, v, out, lse, dout) = _flash_case(dev, path, bf)
+            causal, (b, s, h, d) = True, q.shape
+            pairs = s * (s + 1) / 2
+        if path == "single":
+            fwd = lambda: fa.flash_attention_fwd_single(q, k, v)  # noqa: E731
+            fwd_plain = lambda: fa.flash_attention_single_ref(  # noqa: E731
+                q, k, v)
+            bwd = lambda: fa.flash_attention_bwd_single(  # noqa: E731
+                q, k, v, dout)
+            bwd_plain = lambda: fa.flash_attention_single_bwd_ref(  # noqa: E731
+                q, k, v, dout)
+        else:
+            fwd = lambda: fa.flash_attention_fwd(q, k, v, causal)  # noqa: E731
+            fwd_plain = lambda: fa.flash_attention_ref(  # noqa: E731
+                q, k, v, causal, return_lse=True)
+            bwd = lambda: fa.flash_attention_bwd(  # noqa: E731
+                q, k, v, out, lse, dout, causal)
+            bwd_plain = lambda: fa.flash_attention_bwd_ref(  # noqa: E731
+                q, k, v, out, lse, dout, causal)
+        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                      for t in (q, k, v))
+        dot = dout.transpose(1, 2).contiguous()
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, is_causal=causal)
+        sdpa_fb = lambda: torch.autograd.grad(  # noqa: E731
+            sdpa(), (qt, kt, vt), dot)
+        prod = 2.0 * b * h * pairs * d               # one product
+        tok = b * s * h * d * 2                      # one [b,s,h,d] tensor
+        lse_b = 0 if path == "single" else b * h * s * 4
+        lib_f = time_ms(sdpa, flush)
+        # the outside-lse backward has no PyTorch call of the same function
+        lib_b = None if path == "tick" else time_ms(sdpa_fb, flush) - lib_f
+        io_b = 7 * tok if path == "single" else 8 * tok + lse_b
+        for name, kernel, plain, nbytes, flops, lib in (
+                (pair[0], fwd, fwd_plain, 4 * tok + lse_b, 2 * prod, lib_f),
+                (pair[1], bwd, bwd_plain, io_b, 5 * prod, lib_b)):
+            b_ms, b_by = bound_ms(nbytes, flops, 2)
+            results[name] = {"ms": time_ms(kernel, flush),
+                             "plain_ms": time_ms(plain, flush, iters=5),
+                             "library_ms": lib, "bound_ms": b_ms,
+                             "bound_by": b_by, "shape": [b, s, h, d],
+                             "causal": causal}
+        del q, k, v, out, lse, dout, qt, kt, vt, dot
+        torch.cuda.empty_cache()
+
+    for name, r in results.items():
+        e32, e16 = errs[(name, torch.float32)], errs[(name, bf)]
+        r["max_abs_err"], r["max_abs_err_fp32"] = e16[0], e32[0]
+        if len(e16) > 1:
+            r["max_rel_err"], r["max_rel_err_fp32"] = e16[1], e32[1]
+        lib = "null" if r["library_ms"] is None else \
+            f"{r['library_ms']:.4f} ms"
+        print(f"[3/{PHASES}] {name}: bf16 kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, library {lib}, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
+    return results
+
+
 TRAIN_COUNTERS = {
     "splash_fwd_kernel": ("splash_attention", "splash_attention_fwd"),
     "splash_bwd_kernels": ("splash_attention", "splash_attention_bwd"),
     "fused_ce_fwd_kernel": ("fused_cross_entropy", "fused_ce_fwd"),
     "fused_ce_bwd_kernels": ("fused_cross_entropy", "fused_ce_bwd"),
+    "flash_single_fwd_kernel": ("flash_attention",
+                                "flash_attention_fwd_single"),
+    "flash_single_bwd_kernels": ("flash_attention",
+                                 "flash_attention_bwd_single"),
+    "flash_fwd_kernel": ("flash_attention", "flash_attention_fwd"),
+    "flash_bwd_kernels": ("flash_attention", "flash_attention_bwd"),
 }
+CE_KERNELS = ("fused_ce_fwd_kernel", "fused_ce_bwd_kernels")
+
+
+def _path_kernels(seq, splash):
+    """The training kernels a step at ``seq`` tokens launches: splash with
+    the flag on, else the flash pair of the length's path; and the CE."""
+    if splash:
+        attn = ("splash_fwd_kernel", "splash_bwd_kernels")
+    elif seq <= 1024:
+        attn = ("flash_single_fwd_kernel", "flash_single_bwd_kernels")
+    else:
+        attn = ("flash_fwd_kernel", "flash_bwd_kernels")
+    return attn + CE_KERNELS
+
+
+def _check_launches(launches, expect, what):
+    never = [k for k in expect if launches[k] <= 0]
+    if never:
+        raise AssertionError(f"{what}: kernels of the path never ran: "
+                             f"{never} ({launches})")
+    stray = {k: n for k, n in launches.items() if k not in expect and n}
+    if stray:
+        raise AssertionError(f"{what}: kernels off the path ran: {stray}")
+
+
+@contextlib.contextmanager
+def splash_flag(on):
+    """``FLAGS_splash_attn`` set through the port's registry."""
+    from paddle_tpu_torch import get_flags, set_flags
+
+    saved = get_flags("FLAGS_splash_attn")
+    set_flags({"FLAGS_splash_attn": on})
+    try:
+        yield
+    finally:
+        set_flags(saved)
 
 
 def _train_counters():
@@ -667,22 +933,28 @@ def _train_counters():
 # phase 8: tiny model training, card vs CPU
 # ---------------------------------------------------------------------------
 
-def train_parity(dev):
+def train_parity(dev, splash=True, seq=128):
+    """Three ``TrainStep``s of a tiny fp32 GPT on the card and on the CPU
+    under the current ``FLAGS_splash_attn``: with splash, over packed
+    sequences (segment ids); with flash (no segment ids: the flag off
+    sends them to dense attention), at ``seq`` tokens, which picks the
+    single-block or the tiled pair. The kernels of the path must run,
+    no other training kernel."""
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
     from paddle_tpu_torch.nn import ClipGradByGlobalNorm
     from paddle_tpu_torch.optimizer import AdamW
 
     cfg = GPTConfig(vocab_size=128, hidden_size=64, num_layers=2,
-                    num_attention_heads=4, max_position_embeddings=128)
+                    num_attention_heads=4, max_position_embeddings=seq)
     rng = np.random.default_rng(0)
     cpu = GPTForCausalLM(cfg, device="cpu")
     sd = {name: torch.from_numpy(
               (rng.standard_normal(tuple(t.shape)) * 0.3).astype(np.float32))
           for name, t in cpu.state_dict().items()}
-    ids = rng.integers(0, 128, (2, 128))
-    labels = rng.integers(0, 128, (2, 128))
-    seg = _segments(2, 128, 3, rng)
+    ids = rng.integers(0, 128, (2, seq))
+    labels = rng.integers(0, 128, (2, seq))
+    seg = _segments(2, seq, 3, rng) if splash else None
     counters = _train_counters()
     for c in counters.values():
         c.launches = 0
@@ -695,7 +967,8 @@ def train_parity(dev):
                     grad_clip=ClipGradByGlobalNorm(1.0))
         step = TrainStep(model, lambda m, x, y, s: m.loss(
             x, y, segment_ids=s), opt)
-        batch = [torch.from_numpy(a).to(d) for a in (ids, labels, seg)]
+        batch = [torch.from_numpy(a).to(d) for a in (ids, labels)] + \
+            [None if seg is None else torch.from_numpy(seg).to(d)]
         losses[where] = [float(step(*batch)) for _ in range(3)]
         params[where] = {k: t.detach().cpu() for k, t in
                          model.state_dict().items()}
@@ -704,30 +977,37 @@ def train_parity(dev):
                                               losses["cpu"]))
     param_rel = max(_rel_err(params["card"][k], params["cpu"][k])
                     for k in params["cpu"])
-    print(f"[8/{PHASES}] train parity: tiny fp32 GPT with segments, 3 "
+    what = "splash, with segments" if splash else f"flash, seq {seq}"
+    print(f"[8/{PHASES}] train parity ({what}): tiny fp32 GPT, 3 "
           f"TrainSteps; losses card {losses['card']} cpu {losses['cpu']} "
           f"(max |diff| {loss_err:.3g}); params max rel diff "
-          f"{param_rel:.3g}; kernel launches {launches}", flush=True)
+          f"{param_rel:.3g}; kernel launches "
+          f"{ {k: n for k, n in launches.items() if n} }", flush=True)
     if not loss_err <= 1e-4:
         raise AssertionError(f"card/CPU losses differ by {loss_err}")
     if not param_rel <= 1e-3:
         raise AssertionError(f"card/CPU params differ by {param_rel} rel")
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a training kernel never ran: {launches}")
+    _check_launches(launches, _path_kernels(seq, splash), "train parity")
 
 
 # ---------------------------------------------------------------------------
-# phase 9: the training path at GPT-3 1.3B width
+# phases 9-10: the training path at GPT-3 1.3B width
 # ---------------------------------------------------------------------------
 
-def train_full_width(dev, warmup=2, timed=5, batch=8):
+def train_full_width(dev, warmup=2, timed=5, batch=8, seq=1024,
+                     splash=True, phase=9):
+    """``TrainStep`` + AdamW at GPT-3 1.3B width over ``batch`` x ``seq``
+    random tokens, under the current ``FLAGS_splash_attn`` (``splash``
+    says which it is). The training kernels' counters are zeroed just
+    before the timed steps and read just after: the path's kernels must
+    have run, no other training kernel."""
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.models import GPTForCausalLM, gpt_config
     from paddle_tpu_torch.nn import ClipGradByGlobalNorm
     from paddle_tpu_torch.optimizer import AdamW
 
-    cfg = gpt_config("gpt3-1.3b", use_recompute=True)
-    seq = cfg.max_position_embeddings
+    cfg = gpt_config("gpt3-1.3b", use_recompute=True,
+                     max_position_embeddings=seq)
     t0 = time.perf_counter()
     model = GPTForCausalLM(cfg, device=dev, dtype=torch.bfloat16, seed=0)
     opt = AdamW(learning_rate=1e-4, parameters=model.parameters(),
@@ -763,10 +1043,13 @@ def train_full_width(dev, warmup=2, timed=5, batch=8):
     # forward + backward attention products (2 + 4), causal pairs only
     attn = 6 * 2.0 * batch * pairs * cfg.hidden_size * cfg.num_layers
     step_s = statistics.median(times)
+    ran = _path_kernels(seq, splash)
     stats = {
         "model": "gpt3-1.3b", "layers": cfg.num_layers,
         "hidden": cfg.hidden_size, "heads": cfg.num_attention_heads,
         "vocab": cfg.vocab_size, "seq": seq, "batch": batch,
+        "attention": "splash" if splash else "flash",
+        "FLAGS_splash_attn": splash,
         "params": params, "dtype": "bfloat16 (fp32 masters, bf16 moments)",
         "recompute": True, "setup_s": round(setup_s, 3),
         "losses": losses, "step_ms": [t * 1e3 for t in times],
@@ -774,15 +1057,18 @@ def train_full_width(dev, warmup=2, timed=5, batch=8):
         "tokens_per_s": tokens / step_s,
         "mfu": (6.0 * params * tokens + attn) / step_s / BF16_FLOP_PER_S,
         "max_memory_allocated": torch.cuda.max_memory_allocated(),
-        "launches": launches,
-        "launches_per_step": {k: v / timed for k, v in launches.items()},
+        "launches": {k: n for k, n in launches.items() if n},
+        "launches_per_step": {k: launches[k] / timed for k in ran},
     }
-    print(f"[9/{PHASES}] train gpt3-1.3b: {json.dumps(stats)}", flush=True)
+    print(f"[{phase}/{PHASES}] train gpt3-1.3b {stats['attention']} seq "
+          f"{seq}: {json.dumps(stats)}", flush=True)
     if not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite loss: {losses}")
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a training kernel never ran: {launches}")
-    return launches, timed
+    _check_launches(launches, ran, f"train seq {seq}")
+    del model, opt, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {k: launches[k] for k in ran}, timed
 
 
 def main() -> int:
@@ -810,6 +1096,7 @@ def main() -> int:
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     kernels = check_kernels(dev, flush)
     kernels.update(check_training_kernels(dev, flush))
+    kernels.update(check_flash_kernels(dev, flush))
     del flush
     torch.cuda.empty_cache()
     parity(dev)
@@ -832,8 +1119,22 @@ def main() -> int:
     del model
     torch.cuda.empty_cache()
     train_parity(dev)
-    train_launches, steps = train_full_width(dev)
-    launches.update(train_launches)
+    with splash_flag(False):
+        train_parity(dev, splash=False, seq=128)
+        train_parity(dev, splash=False, seq=1280)
+    steps = {}
+    ran, n = train_full_width(dev)
+    launches.update(ran)
+    steps.update(dict.fromkeys(ran, n))
+    with splash_flag(False):
+        for batch, seq in ((8, 1024), (4, 2048)):
+            ran, n = train_full_width(dev, timed=3, batch=batch, seq=seq,
+                                      splash=False, phase=10)
+            launches.update({k: m for k, m in ran.items()
+                             if k not in CE_KERNELS})
+            steps.update({k: n for k in ran if k not in CE_KERNELS})
+    for name, base in RING_TICK.items():
+        launches[name], steps[name] = launches[base], steps[base]
 
     where = {name: (PAGED_SOURCE, f"{PAGED_TPU}:{line}")
              for name, (_, _, _, line) in PAGED_KERNELS.items()}
@@ -847,16 +1148,19 @@ def main() -> int:
         "fused_ce_bwd_kernels": (
             CE_SOURCE, "paddle_tpu/ops/pallas/fused_cross_entropy.py:161"),
     })
+    where.update({name: (FLASH_SOURCE, f"{FLASH_TPU}:{line}")
+                  for name, line in FLASH_LINES.items()})
+    where.update({name: where[base] for name, base in RING_TICK.items()})
     keys = ("max_abs_err", "max_abs_err_fp32", "max_rel_err",
             "max_rel_err_fp32", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "library", "shape")
+            "library_ms", "library", "shape", "causal")
     line = [{"name": name, "route": "cuda", "source": where[name][0],
              "replaces": where[name][1], "launches": launches[name],
-             **({"launches_per_step": launches[name] / steps}
-                if name in TRAIN_COUNTERS else {}),
+             **({"launches_per_step": launches[name] / steps[name]}
+                if name in steps else {}),
              **{k: r[k] for k in keys if k in r}}
             for name, r in kernels.items()]
-    print(f"[10/{PHASES}] kernels:", flush=True)
+    print(f"[11/{PHASES}] kernels:", flush=True)
     print(json.dumps({"kernels": line}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

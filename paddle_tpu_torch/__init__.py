@@ -6,7 +6,8 @@ package imports ``torch`` and numpy only, never ``jax`` and never
 ``paddle_tpu``.
 
 Ported so far: the serving path (fp, int8 and int4 KV pages),
-generation and single-card pretraining. ``serving.ServingEngine``
+generation and single-card pretraining, through splash attention or,
+with ``FLAGS_splash_attn`` off, the flash kernels. ``serving.ServingEngine``
 drives ``jit.decode_step`` (chunked prefill and the decode burst) over
 ``models.gpt`` and the paged KV cache of ``inference.kv_cache``; its
 paged-attention kernels (decode and chunk, over fp pools and over
@@ -14,12 +15,18 @@ quantized pools whose dequant they fuse) are hand-written CUDA in
 ``csrc/paged_attention.cu``. ``GPTForCausalLM.generate`` runs
 ``jit.GenerationEngine`` over the paged or the dense cache.
 ``jit.TrainStep`` drives
-``models.gpt``'s ``loss`` (splash attention and the vocab-tiled fused
-cross entropy, forward and backward, in ``csrc/splash_attention.cu``
-and ``csrc/fused_cross_entropy.cu``), ``nn.ClipGradByGlobalNorm`` and
-``optimizer.AdamW``. ``ops.kernels`` binds every kernel.
+``models.gpt``'s ``loss`` (splash or flash attention and the vocab-tiled
+fused cross entropy, forward and backward, in
+``csrc/{splash,flash}_attention.cu`` and ``csrc/fused_cross_entropy.cu``),
+``nn.ClipGradByGlobalNorm`` and ``optimizer.AdamW``. ``ops.kernels``
+binds every kernel; `get_flags` / `set_flags` (``utils.flags``) read and
+set the routing flags.
 
 Entry points take ``device=``: the default is the CUDA card, and a
 machine without one raises. ``device="cpu"`` runs the kernels' plain
 PyTorch versions, which is how the tests run.
 """
+
+from .utils.flags import get_flags, set_flags
+
+__all__ = ["get_flags", "set_flags"]

@@ -10,10 +10,11 @@ the reference's is ``[in, out]``, and the converter transposes).
 
 Training: ``forward`` / ``loss`` run full-sequence causal attention
 through `nn.functional.scaled_dot_product_attention` (the splash kernel,
-with packed-sequence ``segment_ids``), ``use_recompute`` checkpoints
-each block, and ``loss`` feeds the final hiddens to the fused LM-head
-cross entropy (`fused_lm_loss`), so the ``[tokens, vocab]`` logits never
-exist. Serving runs over a `PagedKVCache` with fp, int8 or int4 pools:
+with packed-sequence ``segment_ids``; with ``FLAGS_splash_attn`` off, the
+flash kernels), ``use_recompute`` checkpoints each block (its attention
+forward runs again in the backward), and ``loss`` feeds the final
+hiddens to the fused LM-head cross entropy (`fused_lm_loss`), so the
+``[tokens, vocab]`` logits never exist. Serving runs over a `PagedKVCache` with fp, int8 or int4 pools:
 ``decode_step`` (one token per slot, the paged decode kernels) and
 ``prefill_chunk`` (one bounded window per slot, the paged chunk
 kernels). Generation (``generate``, over `jit.GenerationEngine`) adds

@@ -1,17 +1,21 @@
 """Where the training step's time goes on the card.
 
-    python -m paddle_tpu_torch.profile_training [--steps N]
+    [FLAGS_splash_attn=0] python -m paddle_tpu_torch.profile_training \\
+        [--steps N] [--seq S] [--batch B]
 
-Builds the configuration of ``chip_smoke.py`` phase 7 (GPT-3 1.3B width,
-bf16 weights from seed 0, fp32 masters, bf16 AdamW moments, global-norm
-clip 1.0, recompute, 8 x 1024 random tokens from seed 0), takes two
-warm-up steps, then ``--steps`` steps (default 2) under
+Builds the configuration of ``chip_smoke.py`` phases 9-10 (GPT-3 1.3B
+width, bf16 weights from seed 0, fp32 masters, bf16 AdamW moments,
+global-norm clip 1.0, recompute, ``--batch`` x ``--seq`` random tokens
+from seed 0, default 8 x 1024; the position table is ``--seq`` long),
+takes two warm-up steps, then ``--steps`` steps (default 2) under
 ``torch.profiler`` and prints one JSON line: the wall time per step, the
 device time summed over every kernel (one stream, so kernels never
 overlap), the device's idle share of the wall, kernels launched per step,
-the device time of the four training kernels, of the matrix products and
-of everything else, and the top kernels by device time. Needs a CUDA
-card.
+the device time of each training kernel (splash, or with
+``FLAGS_splash_attn`` off, which the registry reads from the environment,
+the flash kernels of the length's path; and the fused cross entropy), of
+the matrix products and of everything else, and the top kernels by
+device time. Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -26,17 +30,22 @@ from .jit import TrainStep
 from .models import GPTForCausalLM, gpt_config
 from .nn import ClipGradByGlobalNorm
 from .optimizer import AdamW
+from .utils import flags
 
 _KERNELS = ("splash_fwd_kernel", "splash_delta_kernel", "splash_dkdv_kernel",
-            "splash_dq_kernel", "fused_ce_fwd_kernel",
+            "splash_dq_kernel", "flash_single_fwd_kernel",
+            "flash_single_dq_kernel", "flash_single_dkdv_kernel",
+            "flash_fwd_kernel", "flash_delta_kernel", "flash_dkdv_kernel",
+            "flash_dq_kernel", "fused_ce_fwd_kernel",
             "fused_ce_combine_kernel", "fused_ce_dh_kernel",
             "fused_ce_dw_kernel", "fused_ce_cast_kernel")
 _GEMM = ("gemm", "cutlass", "cublas", "sm90_xmma", "nvjet")
 
 
-def build(batch=8, seed=0):
-    """(step, ids, labels) of the phase-7 configuration."""
-    cfg = gpt_config("gpt3-1.3b", use_recompute=True)
+def build(batch=8, seq=1024, seed=0):
+    """(step, ids, labels) of the phase-9/10 configuration."""
+    cfg = gpt_config("gpt3-1.3b", use_recompute=True,
+                     max_position_embeddings=seq)
     model = GPTForCausalLM(cfg, dtype=torch.bfloat16, seed=seed)
     opt = AdamW(learning_rate=1e-4, parameters=model.parameters(),
                 multi_precision=True, moment_dtype="bfloat16",
@@ -54,10 +63,12 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=2,
                     help="steps under the profiler")
+    ap.add_argument("--seq", type=int, default=1024, help="tokens a row")
+    ap.add_argument("--batch", type=int, default=8, help="rows a step")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_training needs a CUDA card")
-    step, ids, labels = build()
+    step, ids, labels = build(args.batch, args.seq)
     for _ in range(2):                                 # warm-up
         float(step(ids, labels))
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -82,11 +93,14 @@ def main(argv=None):
         return sum(us for k, (us, _) in kernels.items()
                    if any(n in k.lower() for n in names)) / 1e6
 
-    ours = {n: share((n.lower(),)) / args.steps for n in _KERNELS}
+    ours = {n: t for n in _KERNELS
+            if (t := share((n.lower(),)) / args.steps) > 0}
     gemm = share(_GEMM) / args.steps
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:15]
     print(json.dumps({
         "device": torch.cuda.get_device_name(0),
+        "seq": args.seq, "batch": args.batch,
+        "FLAGS_splash_attn": flags.get_flag("FLAGS_splash_attn"),
         "steps": args.steps,
         "wall_s_per_step": wall / args.steps,
         "device_busy_s_per_step": busy / args.steps,

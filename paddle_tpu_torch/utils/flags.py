@@ -1,0 +1,83 @@
+"""Env-flag registry: the port's copy of paddle_tpu/utils/flags.py.
+
+Reference parity: paddle/common/flags.h (PHI_DEFINE_EXPORTED_*) and
+``paddle.set_flags`` / ``paddle.get_flags``. A flag is overridable by an
+environment variable of the same name, read when the flag is defined;
+`get_flags` raises on an unknown name, `set_flags` registers one (the
+reference tolerates flags that are phasing in), and a defined flag's new
+value is coerced to its default's type (bool from "1", "true", "yes",
+"on"; int; float).
+
+Only the flags that the port's routes consult are defined here, with the
+reference's names, defaults and help.
+"""
+from __future__ import annotations
+
+import os
+import threading
+
+__all__ = ["define_flag", "get_flags", "set_flags", "get_flag"]
+
+_lock = threading.Lock()
+_registry: dict[str, dict] = {}
+
+
+def _coerce(value, default):
+    if isinstance(default, bool):
+        if isinstance(value, str):
+            return value.lower() in ("1", "true", "yes", "on")
+        return bool(value)
+    if isinstance(default, int):
+        return int(value)
+    if isinstance(default, float):
+        return float(value)
+    return value
+
+
+def define_flag(name: str, default, help_str: str = ""):
+    """Register ``name``; the environment variable of the same name, when
+    set, overrides ``default``. Returns the flag's value."""
+    with _lock:
+        env = os.environ.get(name)
+        value = _coerce(env, default) if env is not None else default
+        _registry[name] = {"value": value, "default": default,
+                           "help": help_str}
+    return value
+
+
+def get_flags(flags):
+    """``{name: value}`` for a name or a list of names; raises
+    ``ValueError`` on an unknown one."""
+    names = [flags] if isinstance(flags, str) else list(flags)
+    out = {}
+    for n in names:
+        if n not in _registry:
+            raise ValueError(f"unknown flag {n!r}")
+        out[n] = _registry[n]["value"]
+    return out
+
+
+def set_flags(flags: dict):
+    """Set each flag; an unknown name is registered with its value as
+    its default."""
+    with _lock:
+        for n, v in flags.items():
+            if n not in _registry:
+                _registry[n] = {"value": v, "default": v, "help": ""}
+            else:
+                _registry[n]["value"] = _coerce(v, _registry[n]["default"])
+
+
+def get_flag(name: str):
+    """The value of ``name``, or None if it is not defined."""
+    return _registry[name]["value"] if name in _registry else None
+
+
+define_flag("FLAGS_splash_attn", True,
+            "route training attention (causal/plain, no mask, no "
+            "dropout) through the splash Pallas kernel "
+            "(ops/pallas/splash_attention.py: tiled online-softmax "
+            "fwd, stats-recompute bwd, GQA, segment IDs) on TPU when "
+            "the geometry qualifies, and packed-sequence segment "
+            "attention through it on every backend (XLA fallback off "
+            "TPU). Off restores the round-3 flash/XLA routing.")

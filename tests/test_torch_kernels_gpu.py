@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain versions: paged attention
-over fp, int8 and int4 pools (serving), splash attention and the fused
-cross entropy (training), forward and backward.
+over fp, int8 and int4 pools (serving), splash attention, flash attention
+(both paths) and the fused cross entropy (training), forward and
+backward.
 
 These run only on a CUDA card (marker ``gpu``; each test skips without
 one). The file imports torch, numpy and the port only, so it runs on a
@@ -20,6 +21,7 @@ import pytest
 import torch
 
 from paddle_tpu_torch.inference.kv_cache import quantize_rows
+from paddle_tpu_torch.ops.kernels import flash_attention as fa
 from paddle_tpu_torch.ops.kernels import fused_cross_entropy as fce
 from paddle_tpu_torch.ops.kernels import paged_attention as pa
 from paddle_tpu_torch.ops.kernels import splash_attention as sa
@@ -458,3 +460,188 @@ def test_training_kernel_errors(cuda):
                  lbl32.data_ptr(), loss.data_ptr(), lse.data_ptr(),
                  part.data_ptr(), 8, 8, 64, -100, 0, 0,
                  torch.cuda.current_stream().cuda_stream)
+
+
+# ---------------------------------------------------------------------------
+# flash attention: the single-block pair (#5/#6) and the tiled pair (#7/#8)
+# ---------------------------------------------------------------------------
+
+FLASH_CASES = [(2, 128, 4, 64, True), (1, 200, 2, 64, False),
+               (2, 96, 3, 16, True), (1, 256, 2, 128, True),
+               (1, 130, 2, 32, False)]
+
+
+def _flash_inputs(dev, b, s, h, d, dtype, seed=0, sk=None):
+    """q, k, v as strided views of one packed tensor, and dout."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    qkv = torch.randn(b, s, 3, h, d, device=dev, generator=gen).to(dtype)
+    q, k, v = qkv.unbind(2)
+    if sk is not None:
+        k, v = (torch.randn(b, sk, h, d, device=dev, generator=gen)
+                .to(dtype) for _ in range(2))
+    dout = torch.randn(b, s, h, d, device=dev, generator=gen).to(dtype)
+    return q, k, v, dout
+
+
+def _fp32_bwd_ok(dtype, d):
+    return dtype != torch.float32 or d <= 64
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,d,causal", FLASH_CASES)
+def test_flash_single_kernels(cuda, dtype, b, s, h, d, causal):
+    """#5 and #6 against their plain versions (exact softmax, P rounded
+    after the division); the backward twice, bit for bit."""
+    q, k, v, dout = _flash_inputs(cuda, b, s, h, d, dtype)
+    assert not q.is_contiguous()
+    n_f, n_b = fa.flash_attention_fwd_single.launches, \
+        fa.flash_attention_bwd_single.launches
+    out = fa.flash_attention_fwd_single(q, k, v, causal)
+    torch.cuda.synchronize()
+    want = fa.flash_attention_single_ref(q, k, v, causal)
+    assert out.dtype == dtype and torch.isfinite(out).all()
+    assert float((out.float() - want.float()).abs().max()) <= TOL[dtype]
+    assert fa.flash_attention_fwd_single.launches == n_f + 1
+    if not _fp32_bwd_ok(dtype, d):
+        return
+    got = fa.flash_attention_bwd_single(q, k, v, dout, causal)
+    again = fa.flash_attention_bwd_single(q, k, v, dout, causal)
+    torch.cuda.synchronize()
+    ref = fa.flash_attention_single_bwd_ref(q, k, v, dout, causal)
+    for g, r in zip(got, ref):
+        assert g.dtype == dtype and torch.isfinite(g).all()
+        assert _rel(g, r) <= TOL[dtype]
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
+    assert fa.flash_attention_bwd_single.launches == n_b + 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,d,causal", FLASH_CASES)
+def test_flash_tiled_kernels(cuda, dtype, b, s, h, d, causal):
+    """#7 (out, lse) and #8 from that out and lse against their plain
+    versions (P rounded per 64-key tile, unnormalised); the backward
+    twice, bit for bit."""
+    q, k, v, dout = _flash_inputs(cuda, b, s, h, d, dtype)
+    n_f, n_b = fa.flash_attention_fwd.launches, \
+        fa.flash_attention_bwd.launches
+    out, lse = fa.flash_attention_fwd(q, k, v, causal)
+    torch.cuda.synchronize()
+    want, want_lse = fa.flash_attention_ref(q, k, v, causal,
+                                            return_lse=True)
+    assert out.dtype == dtype and torch.isfinite(out).all()
+    assert float((out.float() - want.float()).abs().max()) <= TOL[dtype]
+    assert torch.isfinite(lse).all()
+    assert float((lse - want_lse).abs().max()) <= 1e-4
+    assert fa.flash_attention_fwd.launches == n_f + 1
+    if not _fp32_bwd_ok(dtype, d):
+        return
+    got = fa.flash_attention_bwd(q, k, v, out, lse, dout, causal)
+    again = fa.flash_attention_bwd(q, k, v, out, lse, dout, causal)
+    torch.cuda.synchronize()
+    ref = fa.flash_attention_bwd_ref(q, k, v, out, lse, dout, causal)
+    for g, r in zip(got, ref):
+        assert g.dtype == dtype and torch.isfinite(g).all()
+        assert _rel(g, r) <= TOL[dtype]
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
+    assert fa.flash_attention_bwd.launches == n_b + 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_outside_lse_and_unequal_lengths(cuda, dtype):
+    """The ring's contract: q rows against two key blocks of another
+    length (plain attention), merged into a global out and lse; each
+    block's backward from them matches the plain version, and the
+    blocks' dq sum to the whole attention's."""
+    q, k, v, dout = _flash_inputs(cuda, 2, 128, 2, 64, dtype, sk=320)
+    parts = [(k[:, :192], v[:, :192]), (k[:, 192:], v[:, 192:])]
+    fwd = [fa.flash_attention_fwd(q, kk, vv, False) for kk, vv in parts]
+    (oa, la), (ob, lb) = fwd
+    lse = torch.logaddexp(la, lb)
+    out = (oa.float() * torch.exp(la - lse).transpose(1, 2)[..., None]
+           + ob.float() * torch.exp(lb - lse).transpose(1, 2)[..., None]) \
+        .to(dtype)
+    grads = [fa.flash_attention_bwd(q, kk, vv, out, lse, dout, False)
+             for kk, vv in parts]
+    torch.cuda.synchronize()
+    for (kk, vv), gs in zip(parts, grads):
+        for g, r in zip(gs, fa.flash_attention_bwd_ref(q, kk, vv, out, lse,
+                                                       dout, False)):
+            assert _rel(g, r) <= TOL[dtype]
+    whole, whole_lse = fa.flash_attention_ref(q, k, v, False,
+                                              return_lse=True)
+    assert float((lse - whole_lse).abs().max()) <= 1e-4
+    assert float((out.float() - whole.float()).abs().max()) <= TOL[dtype]
+    wdq = fa.flash_attention_bwd_ref(q, k, v, whole, whole_lse, dout,
+                                     False)[0]
+    assert _rel(grads[0][0].float() + grads[1][0].float(), wdq) <= TOL[dtype]
+
+
+@pytest.mark.gpu
+def test_flash_autograd_and_sdpa_route_on_the_card(cuda):
+    """`flash_attention` and SDPA with the splash flag off launch the
+    flash kernels of the length's path, never the plain versions."""
+    import paddle_tpu_torch
+    from paddle_tpu_torch.nn import functional as PF
+
+    saved = paddle_tpu_torch.get_flags("FLAGS_splash_attn")
+    paddle_tpu_torch.set_flags({"FLAGS_splash_attn": False})
+    try:
+        for s, fwd, bwd in ((256, "flash_attention_fwd_single",
+                             "flash_attention_bwd_single"),
+                            (1280, "flash_attention_fwd",
+                             "flash_attention_bwd")):
+            q, k, v, _ = _flash_inputs(cuda, 1, s, 2, 64, torch.bfloat16)
+            q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+            n = (getattr(fa, fwd).launches, getattr(fa, bwd).launches)
+            PF.scaled_dot_product_attention(q, k, v, is_causal=True) \
+                .float().sum().backward()
+            torch.cuda.synchronize()
+            assert (getattr(fa, fwd).launches,
+                    getattr(fa, bwd).launches) == (n[0] + 1, n[1] + 1)
+            assert all(torch.isfinite(t.grad).all() for t in (q, k, v))
+    finally:
+        paddle_tpu_torch.set_flags(saved)
+
+
+@pytest.mark.gpu
+def test_flash_refusals_raise_without_a_fallback(cuda, monkeypatch):
+    def refuse(*a, **kw):
+        raise AssertionError("plain version called for CUDA tensors")
+
+    for name in ("flash_attention_single_ref",
+                 "flash_attention_single_bwd_ref", "flash_attention_ref",
+                 "flash_attention_bwd_ref"):
+        monkeypatch.setattr(fa, name, refuse)
+    q = torch.randn(1, 64, 2, 64, device=cuda)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fa.flash_attention_fwd(q.half(), q.half(), q.half())
+    q144 = torch.randn(1, 64, 2, 144, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention_fwd_single(q144, q144, q144)
+    q20 = torch.randn(1, 64, 2, 20, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention_fwd(q20, q20, q20)
+    q128 = torch.randn(1, 64, 2, 128, device=cuda)
+    out = fa.flash_attention_fwd_single(q128, q128, q128)
+    with pytest.raises(ValueError, match="float32 backward"):
+        fa.flash_attention_bwd_single(q128, q128, q128, out)
+    with pytest.raises(ValueError, match="float32 backward"):
+        fa.flash_attention(q128.requires_grad_(), q128, q128)
+    with pytest.raises(ValueError, match="equal q/k seq lens"):
+        fa.flash_attention_fwd(q, q[:, :32], q[:, :32], True)
+    with pytest.raises(ValueError, match="one head count"):
+        fa.flash_attention_fwd(q, q[:, :, :1], q[:, :, :1], False)
+    with pytest.raises(ValueError, match="unsupported seq lens"):
+        x = torch.randn(1, 1040, 2, 64, device=cuda)
+        fa.flash_attention(x, x, x)
+    out, lse = fa.flash_attention_fwd(q, q, q)
+    with pytest.raises(ValueError, match="lse"):
+        fa.flash_attention_bwd(q, q, q, out, lse[:, :1], out)
+    with pytest.raises(ValueError, match="dout"):
+        fa.flash_attention_bwd(q, q, q, out, lse, out[:, :32])
+    with pytest.raises(ValueError, match="dout"):
+        fa.flash_attention_bwd_single(q, q, q, out.cpu())
+    torch.cuda.synchronize()
