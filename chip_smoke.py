@@ -7,14 +7,21 @@ Phases, one line each (any failure exits non-zero, nothing is caught):
 
 1. the card: name, device count, ``nvidia-smi`` name and power limit;
 2. build every kernel from ``paddle_tpu_torch/csrc`` with ``nvcc``, one
-   compiler per source, all started together;
+   compiler per source, all started together; for each kernel redesigned
+   on warpgroup products (``csrc/hopper_tiles.cuh``: the bf16 fused CE
+   backward and single-block flash forward), its registers, spills and
+   shared memory from the ``-Xptxas=-v`` log and the ``HGMMA``
+   instructions in its SASS (``cuobjdump``; the run fails on none);
 3. each kernel against its plain PyTorch version on the card, in fp32
    and bf16 (tolerances at `check_kernels` and
    `check_training_kernels`), at the shapes the serving and training
    paths give it: the paged kernels over bf16, int8 and int4 pools;
-   splash and the fused CE; the flash pairs at the flash runs' shapes
-   (single-block [8, 1024, 32, 64], tiled [4, 2048, 32, 64]) with each
-   backward run twice and compared bit for bit, and a ring tick (a key
+   splash and the fused CE (a ragged case and one over four vocab
+   chunks; each backward run twice and compared bit for bit); the flash
+   pairs at the flash runs' shapes (single-block [8, 1024, 32, 64],
+   tiled [4, 2048, 32, 64]) with each backward run twice and compared
+   bit for bit, the single-block forward at ragged shapes, and a ring
+   tick (a key
    block's forward, and its backward from the global lse and out of two
    key halves); then timed with CUDA events (L2 flushed between
    launches) beside the plain version and one PyTorch library call on
@@ -61,6 +68,9 @@ from __future__ import annotations
 import contextlib
 import gc
 import json
+import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -109,6 +119,118 @@ def bound_ms(nbytes: float, flops: float, itemsize: int):
     t_ops = flops / peak
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+# ---------------------------------------------------------------------------
+# phase 2: the kernels on warpgroup products
+# ---------------------------------------------------------------------------
+
+# JSON name -> (source, its __global__ function on hopper_tiles.cuh)
+WGMMA_KERNELS = {
+    "fused_ce_bwd_kernels": ("fused_cross_entropy",
+                             "fused_ce_bwd_wgmma_kernel"),
+    "flash_single_fwd_kernel": ("flash_attention",
+                                "flash_single_fwd_wgmma_kernel"),
+}
+
+
+def _short(mangled, fn):
+    """``fn<args>`` from a mangled template name."""
+    args = re.findall(r"ILi(\d+)E", mangled)
+    return f"{fn}<{', '.join(args)}>" if args else fn
+
+
+def _ptxas_functions(log):
+    """{mangled name: registers, spill bytes, static shared memory} from
+    an ``-Xptxas=-v`` log."""
+    out, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn = m.group(1)
+            out[fn] = {}
+            continue
+        if fn is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[fn].update(spill_stores=int(m[1]), spill_loads=int(m[2]))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            sm = re.search(r"(\d+) bytes smem", line)
+            out[fn].update(registers=int(m[1]),
+                           static_smem=int(sm[1]) if sm else 0)
+    return out
+
+
+def _hgmma_counts(lib):
+    """{mangled name: HGMMA instructions} of a library's SASS, or None
+    without ``cuobjdump``."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    tool = shutil.which("cuobjdump")
+    if tool is None and CUDA_HOME:
+        tool = os.path.join(CUDA_HOME, "bin", "cuobjdump")
+    if tool is None or not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = 0
+        elif fn is not None and "HGMMA" in line:
+            counts[fn] += 1
+    return counts
+
+
+def check_wgmma_kernels(built):
+    """Registers, spills and shared memory (static from ptxas, dynamic
+    from the launcher) of each redesigned kernel, and the HGMMA
+    instructions of its SASS; fails if one has none."""
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.ops.kernels import fused_cross_entropy as fce
+
+    ce = _build.load("fused_cross_entropy", fce._SIGNATURES)
+    fl = _build.load("flash_attention", fa._SIGNATURES)
+    dynamic = {"fused_ce_bwd_wgmma_kernel": lambda args: (
+                   ce.fused_ce_bwd_bf16_smem()),
+               "flash_single_fwd_wgmma_kernel": lambda args: (
+                   fl.flash_fwd_single_bf16_smem(int(args[0])))}
+    report = {}
+    for name, (src, fn) in WGMMA_KERNELS.items():
+        saved = _build.library_path(src).with_suffix(".log")
+        log = built.get(src, {}).get("log") or (
+            saved.read_text() if saved.exists() else "")
+        props = {k: v for k, v in _ptxas_functions(log).items() if fn in k}
+        counts = _hgmma_counts(_build.library_path(src))
+        hg = None if counts is None else \
+            {k: v for k, v in counts.items() if fn in k}
+        entries = []
+        for mangled in sorted(set(props) | set(hg or {})):
+            args = re.findall(r"ILi(\d+)E", mangled)
+            p = props.get(mangled, {})
+            entries.append({
+                "kernel": _short(mangled, fn),
+                "registers": p.get("registers", "not measured"),
+                "spill_stores": p.get("spill_stores", "not measured"),
+                "spill_loads": p.get("spill_loads", "not measured"),
+                "static_smem": p.get("static_smem", "not measured"),
+                "dynamic_smem": dynamic[fn](args),
+                "hgmma": "not measured" if hg is None else hg.get(mangled,
+                                                                  0)})
+        report[name] = entries
+        print(f"[2/{PHASES}] {name} ({src}.cu): {json.dumps(entries)}",
+              flush=True)
+        if not entries:
+            raise AssertionError(f"{name}: no {fn} in the build")
+        if hg is not None and (not hg or min(hg.values()) <= 0):
+            raise AssertionError(f"{name}: a {fn} has no HGMMA: {hg}")
+    return report
 
 
 # ---------------------------------------------------------------------------
@@ -456,6 +578,10 @@ TOL_FWD = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 TOL_BWD = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 SPLASH_SOURCE = "paddle_tpu_torch/csrc/splash_attention.cu"
 CE_SOURCE = "paddle_tpu_torch/csrc/fused_cross_entropy.cu"
+# the bf16 CE backward's scratch budget for the chunked case: d chunks of
+# 768 vocab rows (four over 3000, the last 696: a last dW tile of 56 rows)
+# beside the [1000, 512] fp32 dh sums
+CE_CHUNKED_BUDGET = 1000 * 512 * 4 + 1000 * 768 * 2
 
 
 def _max_err(got, want):
@@ -518,9 +644,11 @@ def _splash_case(dev, b, s, h, kvh, d, causal, docs, dtype, seed=0):
     return fwd_err, bwd_abs, bwd_rel, finite, (q, k, v, out, lse, dout)
 
 
-def _ce_case(dev, n, vocab, hidden, dtype, seed=0):
+def _ce_case(dev, n, vocab, hidden, dtype, seed=0, budget=None):
     """One fused-CE case in ``dtype``, 5% of labels at ignore_index:
-    errors of the forward (losses, lse) and the backward (dh, dW)."""
+    errors of the forward (losses, lse) and the backward (dh, dW), and
+    whether a second backward is bit-identical. ``budget``: the bf16
+    backward's scratch budget (small: several vocab chunks)."""
     from paddle_tpu_torch.ops.kernels import fused_cross_entropy as fce
 
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -531,15 +659,22 @@ def _ce_case(dev, n, vocab, hidden, dtype, seed=0):
     labels[torch.rand(n, device=dev, generator=gen) < 0.05] = -100
     loss, lse = fce.fused_ce_fwd(h, w, labels)
     g = torch.where(labels != -100, torch.full_like(loss, 1.0 / n), 0.0)
-    dh, dw = fce.fused_ce_bwd(h, w, labels, lse, g)
-    torch.cuda.synchronize()
+    saved = fce.SCRATCH_BYTES
+    fce.SCRATCH_BYTES = budget or saved
+    try:
+        dh, dw = fce.fused_ce_bwd(h, w, labels, lse, g)
+        again = fce.fused_ce_bwd(h, w, labels, lse, g)
+        torch.cuda.synchronize()
+    finally:
+        fce.SCRATCH_BYTES = saved
     want, want_lse = fce.fused_ce_fwd_ref(h, w, labels)
     rdh, rdw = fce.fused_ce_bwd_ref(h, w, labels, lse, g)
     finite = all(bool(torch.isfinite(t).all()) for t in (loss, lse, dh, dw))
+    same = torch.equal(again[0], dh) and torch.equal(again[1], dw)
     fwd_err = max(_max_err(loss, want), _max_err(lse, want_lse))
     bwd_abs = max(_max_err(dh, rdh), _max_err(dw, rdw))
     bwd_rel = max(_rel_err(dh, rdh), _rel_err(dw, rdw))
-    return fwd_err, bwd_abs, bwd_rel, finite, (h, w, labels, lse, g)
+    return fwd_err, bwd_abs, bwd_rel, finite, same, (h, w, labels, lse, g)
 
 
 def check_training_kernels(dev, flush):
@@ -567,15 +702,22 @@ def check_training_kernels(dev, flush):
         for case, args in {"fused_ce [8192,2048]x[50304,2048]":
                            (n, vocab, hidden),
                            "fused_ce ragged [300,256]x[1000,256]":
-                           (300, 1000, 256)}.items():
-            fe, ba, br, fin, _ = _ce_case(dev, *args, dtype)
+                           (300, 1000, 256),
+                           "fused_ce [1000,512]x[3000,512] in 4 chunks":
+                           (1000, 3000, 512, 0, CE_CHUNKED_BUDGET)}.items():
+            fe, ba, br, fin, same, _ = _ce_case(dev, *args[:3], dtype,
+                                                *args[3:])
             _check(case, dtype, fe, br, fin)
+            if not same:
+                raise AssertionError(f"{case} {dtype}: two backward runs "
+                                     f"differ")
             errs[(case, dtype)] = (fe, ba, br)
         torch.cuda.empty_cache()
     for (case, dtype), (fe, ba, br) in errs.items():
         print(f"[3/{PHASES}] {case} {str(dtype)[6:]}: forward max abs err "
               f"{fe:.3g}; backward max abs err {ba:.3g}, relative "
-              f"{br:.3g}", flush=True)
+              f"{br:.3g}{'' if 'splash' in case else ', bit-identical'
+                         ' on a second run'}", flush=True)
 
     # times at the training path's dtype (bf16)
     bf = torch.bfloat16
@@ -614,7 +756,7 @@ def check_training_kernels(dev, flush):
     del q, k, v, out, lse, dout, qt, kt, vt, dot
     torch.cuda.empty_cache()
 
-    _, _, _, _, (h, w, labels, lse, g) = _ce_case(dev, n, vocab, hidden, bf)
+    *_, (h, w, labels, lse, g) = _ce_case(dev, n, vocab, hidden, bf)
     hl, wl = h.clone().requires_grad_(), w.clone().requires_grad_()
     lib = lambda: F.cross_entropy(  # noqa: E731
         F.linear(hl, wl).float(), labels, ignore_index=-100,
@@ -678,6 +820,13 @@ FLASH_SHAPES = {"single": (8, 1024, 32, 64), "tiled": (4, 2048, 32, 64)}
 # lse and out of both halves
 RING_TICK = {"flash_fwd_kernel[ring tick]": "flash_fwd_kernel",
              "flash_bwd_kernels[outside lse]": "flash_bwd_kernels"}
+
+
+# the single-block forward at ragged shapes: s not a multiple of the
+# bf16 kernel's 128-row tiles, d padded to 64 or 128, causal and not
+FLASH_SINGLE_RAGGED = [((2, 80, 4, 16), False), ((2, 80, 4, 16), True),
+                       ((2, 16, 2, 32), True), ((2, 208, 3, 80), False),
+                       ((1, 1008, 4, 128), True)]
 
 
 def _qkv(dev, shape, dtype, seed=0):
@@ -766,8 +915,8 @@ def _ring_tick_case(dev, dtype):
 def check_flash_kernels(dev, flush):
     """#5/#6 at [8, 1024, 32, 64] and #7/#8 at [4, 2048, 32, 64], causal,
     fp32 and bf16 against the plain versions, with a second backward
-    compared bit for bit; the ring tick from an outside lse; then bf16
-    times beside the plain versions and SDPA."""
+    compared bit for bit; the ring tick from an outside lse; #5 at the
+    ragged shapes; then bf16 times beside the plain versions and SDPA."""
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
     F = torch.nn.functional
 
@@ -801,6 +950,24 @@ def check_flash_kernels(dev, flush):
               f"{fe:.3g}; backward max abs err {ba:.3g}, relative {br:.3g}; "
               f"merged halves vs whole {me:.3g}", flush=True)
         torch.cuda.empty_cache()
+
+    for shape, causal in FLASH_SINGLE_RAGGED:
+        errs_r = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, _ = _qkv(dev, shape, dtype, seed=2)
+            out = fa.flash_attention_fwd_single(q, k, v, causal)
+            torch.cuda.synchronize()
+            err = _max_err(out, fa.flash_attention_single_ref(q, k, v,
+                                                              causal))
+            if not (err <= TOL_FWD[dtype] and torch.isfinite(out).all()):
+                raise AssertionError(f"flash_single_fwd_kernel {shape} "
+                                     f"causal {causal} {dtype}: max abs "
+                                     f"err {err}")
+            errs_r[dtype] = err
+        print(f"[3/{PHASES}] flash single forward {list(shape)} "
+              f"{'causal' if causal else 'full'}: max abs err fp32 "
+              f"{errs_r[torch.float32]:.3g} bf16 "
+              f"{errs_r[torch.bfloat16]:.3g}", flush=True)
 
     bf = torch.bfloat16
     results = {}
@@ -1092,6 +1259,7 @@ def main() -> int:
             for line in info["log"].splitlines() if "registers" in line]
     print(f"[2/{PHASES}] build: {sorted(built) or 'up to date'} in "
           f"{time.perf_counter() - t0:.1f} s; ptxas: {regs}", flush=True)
+    check_wgmma_kernels(built)
 
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     kernels = check_kernels(dev, flush)

@@ -3,7 +3,8 @@
 // the reference.
 //
 // Replaces the TPU kernels of paddle_tpu/ops/pallas/flash_attention.py:
-//   #5 flash_single_fwd_kernel     <- _fwd_single_kernel (seq <= 1024)
+//   #5 flash_single_fwd_wgmma_kernel (bf16),
+//      flash_single_fwd_kernel (fp32) <- _fwd_single_kernel (seq <= 1024)
 //   #6 flash_single_dq_kernel,
 //      flash_single_dkdv_kernel    <- _bwd_single_kernel
 //   #7 flash_fwd_kernel            <- _fwd_kernel (the tiled path)
@@ -29,11 +30,31 @@
 // in fp32, cast once.
 //
 // #5 keeps the single-block kernel's numerics although a 1024 x 1024 fp32
-// score row does not fit a block (227 KB): one block per (64 query rows,
-// head, batch) walks the key tiles twice, first for the row max m and sum
-// l (online, fp32), then for P = exp(s - m) / l, normalised *before* its
-// cast to the value dtype as in the TPU kernel, and O += P V. There is no
-// lse. #6 recomputes that softmax from q, k, v alone: the dQ kernel first
+// score row does not fit a block (227 KB, and a 1024-key row is 4 KB of
+// registers a row): the keys are walked twice, first for the row max m and
+// sum l (online, fp32), then for P = exp(s - m) / l, normalised *before*
+// its cast to the value dtype as in the TPU kernel, and O += P V. There is
+// no lse. Keeping the two passes keeps the TPU kernel's rounding; the
+// extra Q K^T is cheap on the tensor cores.
+//   bf16 (flash_single_fwd_wgmma_kernel, on hopper_tiles.cuh): a
+//     persistent walk, one block an SM, over work items of (128 query
+//     rows, head, batch), longest causal rows first. A block is two
+//     consumer warpgroups of 64 rows and one producer warp that keeps
+//     128-key tiles in flight in a ring (pass 1 copies K only, pass 2 K
+//     and V; TMA straight from the strided views, ragged edges
+//     zero-filled) and loads the next item's Q into a second buffer, so
+//     an item starts without the latency of a block's first copies. Q sits
+//     in shared memory for both passes. S = Q K^T is an SS wgmma into
+//     registers (K K-major); pass 1 keeps m and l online in registers, a
+//     quad of lanes per row; pass 2 forms P in registers, packs it to the
+//     bf16 A registers of an RS wgmma and adds P V (V MN-major) into O in
+//     registers, stored once at the end. Nothing of S or P touches shared
+//     memory. Key tiles past the diagonal are skipped; only the diagonal
+//     and a ragged last tile are masked. The head dim is padded to 64 or
+//     128 (the copies zero-fill the padding).
+//   fp32 (flash_single_fwd_kernel): tile_mma.cuh's CUDA-core tiles, one
+//     block per 64 rows, S and P staged through shared memory.
+// #6 recomputes that softmax from q, k, v alone: the dQ kernel first
 // walks the key tiles for m, l and delta = sum_j p_j dP_j (the TPU kernel's
 // delta, not rowsum(dO * O), which differs once P is rounded), writes them
 // to a [3, b, nh, sq] fp32 scratch, then walks them again for dQ; the dK/dV
@@ -46,13 +67,17 @@
 // moves q, k, v, out (134 MB, 0.040 ms) for two products over the causal
 // pairs (3.4e10 flops, 0.035 ms); #6 does five products (8.6e10 flops,
 // 0.087 ms); #7 at [4, 2048, 32, 64] does 6.9e10 flops (0.069 ms) and #8
-// 1.7e11 (0.174 ms). What these simple kernels leave on the table is
-// splash's list (wmma from shared memory, no cp.async/TMA pipelining, 4-warp
-// blocks) plus the single-block path's extra work: #5 computes S twice (3
-// products where the bound counts 2) and #6 computes S and dP three times
-// (9 products where the bound counts 5).
+// 1.7e11 (0.174 ms). What #5 still leaves on the table: S twice (3
+// products where the bound counts 2; the exponentials too), the diagonal
+// tile's masked half, no overlap of one warpgroup's softmax with its own
+// products (the two warpgroups interleave only by chance) and 4-byte
+// output stores. #6-#8
+// keep splash's list (wmma from shared memory, no cp.async/TMA pipelining,
+// 4-warp blocks) and #6 computes S and dP three times (9 products where
+// the bound counts 5).
 
 #include "attention_tiles.cuh"
+#include "hopper_tiles.cuh"
 
 namespace {
 
@@ -151,6 +176,223 @@ __global__ void __launch_bounds__(kThreads) flash_single_fwd_kernel(
   }
 }
 
+// The bf16 route: see the note at the top. Template D: the head dim padded
+// to 64 or 128.
+template <int D>
+struct SingleFwdSmem {
+  static constexpr int kPanels = D / 64;
+  static constexpr int kStages = D == 64 ? 3 : 2;
+  static constexpr int kRows = 128;                  // query rows, keys a tile
+  static constexpr int kPanel = kRows * hop::kRowBytes;       // 16 KB
+  static constexpr int kTile = kPanels * kPanel;     // Q, K or V tile
+  static constexpr size_t kQ = 0;                    // two Q tiles
+  static constexpr size_t kK = kQ + 2 * kTile;
+  static constexpr size_t kV = kK + (size_t)kStages * kTile;
+  static constexpr size_t kBars = kV + (size_t)kStages * kTile;
+  static constexpr size_t kBytes = kBars + (4 + 2 * kStages) * 8 + 1024;
+};
+
+// S[64 rows x 128 keys] = Q K^T of one warpgroup (both K-major), scaled
+// to log2 units (sl2 = scale * log2 e); keys past sk or the diagonal
+// -inf. Only a tile that reaches past the diagonal or the last key is
+// masked.
+template <int D>
+__device__ __forceinline__ void single_fwd_scores(
+    float (&s)[64], uint32_t q_addr, uint32_t k_addr, int k0, int rows_lo,
+    int row0, int t, float sl2, const Geometry& g) {
+  constexpr int kPanel = SingleFwdSmem<D>::kPanel;
+  hop::fence_regs(s);
+  hop::fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t off = (kk >> 2) * kPanel + (kk & 3) * 32;
+    hop::mma_ss<128, 0, 0>(s, hop::desc(q_addr + off, 16, 1024),
+                           hop::desc(k_addr + off, 16, 1024), kk > 0);
+  }
+  hop::commit();
+  hop::wait<0>();
+  hop::fence_regs(s);
+  if (k0 + 128 > g.sk || (g.causal && k0 + 127 > rows_lo)) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      const int j = k0 + hop::acc_col(t, i);
+      const int r = row0 + 8 * ((i >> 1) & 1);
+      s[i] = j < g.sk && (!g.causal || j <= r) ? s[i] * sl2 : -INFINITY;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) s[i] *= sl2;
+  }
+}
+
+// One (128 query rows, head, batch) work item of the persistent walk,
+// longest causal rows first.
+struct SingleFwdItem {
+  int q0, h, b, n_kt;
+  __device__ SingleFwdItem(int item, int batch, const Geometry& g) {
+    const int nq = (g.sq + 127) / 128, per_q = g.nh * batch;
+    const int qt = nq - 1 - item / per_q, rem = item % per_q;
+    q0 = qt * 128;
+    h = rem % g.nh;
+    b = rem / g.nh;
+    const int nk = (g.sk + 127) / 128;
+    n_kt = g.causal ? min(nk, qt + 1) : nk;
+  }
+};
+
+template <int D>
+__global__ void __launch_bounds__(hop::kThreads, 1)
+    flash_single_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                                  const __grid_constant__ CUtensorMap tk,
+                                  const __grid_constant__ CUtensorMap tv,
+                                  __nv_bfloat16* __restrict__ out,
+                                  Geometry g, int batch) {
+  using L = SingleFwdSmem<D>;
+  constexpr int kB = L::kRows;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = hop::align1024(smem_raw);
+  uint64_t* q_full = (uint64_t*)(sm + L::kBars);   // [2]
+  uint64_t* q_empty = q_full + 2;                   // [2]
+  uint64_t* full = q_empty + 2;
+  uint64_t* empty = full + L::kStages;
+  const int n_items = (g.sq + kB - 1) / kB * g.nh * batch;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int i = 0; i < 2; ++i) {
+      hop::bar_init(&q_full[i], 1);
+      hop::bar_init(&q_empty[i], hop::kConsumers);
+    }
+    for (int s = 0; s < L::kStages; ++s) {
+      hop::bar_init(&full[s], 1);
+      hop::bar_init(&empty[s], hop::kConsumers);
+    }
+    hop::bar_fence_init();
+  }
+  __syncthreads();
+
+  if (tid >= hop::kConsumers) {
+    // producer: for each item, Q into one of two buffers, then K tiles
+    // (pass 1), then K and V tiles (pass 2); it runs into the next item
+    // while the consumers finish this one
+    if (tid == hop::kConsumers) {
+      hop::Ring ring(L::kStages, 1);
+      for (int it = 0, item = blockIdx.x; item < n_items;
+           ++it, item += gridDim.x) {
+        const SingleFwdItem w(item, batch, g);
+        const int qb = it & 1;
+        hop::bar_wait(&q_empty[qb], ((it >> 1) & 1) ^ 1);
+        hop::bar_arrive_tx(&q_full[qb], L::kTile);
+        for (int p = 0; p < L::kPanels; ++p)
+          hop::load_4d(sm + L::kQ + qb * L::kTile + p * L::kPanel, &tq,
+                       &q_full[qb], 64 * p, w.h, w.q0, w.b);
+        for (int pass = 0; pass < 2; ++pass)
+          for (int kt = 0; kt < w.n_kt; ++kt, ring.advance()) {
+            hop::bar_wait(&empty[ring.stage], ring.phase);
+            uint64_t* bar = &full[ring.stage];
+            hop::bar_arrive_tx(bar, (pass + 1) * L::kTile);
+            unsigned char* ks = sm + L::kK + (size_t)ring.stage * L::kTile;
+            unsigned char* vs = sm + L::kV + (size_t)ring.stage * L::kTile;
+            for (int p = 0; p < L::kPanels; ++p) {
+              hop::load_4d(ks + p * L::kPanel, &tk, bar, 64 * p, w.h,
+                           kt * kB, w.b);
+              if (pass)
+                hop::load_4d(vs + p * L::kPanel, &tv, bar, 64 * p, w.h,
+                             kt * kB, w.b);
+            }
+          }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns query rows [q0 + 64 wg, q0 + 64 wg + 64)
+  // of each item
+  const int wg = tid >> 7, t = tid & 127;
+  const float sl2 = g.scale * 1.4426950408889634f;   // scale * log2(e)
+  const uint32_t k_addr = hop::smem_addr(sm + L::kK);
+  hop::Ring ring(L::kStages, 0);
+  for (int it = 0, item = blockIdx.x; item < n_items;
+       ++it, item += gridDim.x) {
+    const SingleFwdItem w(item, batch, g);
+    const int qb = it & 1;
+    const int rows_lo = w.q0 + 64 * wg;                // the warpgroup's rows
+    const int row0 = rows_lo + hop::acc_row(t, 0);     // and row0 + 8
+    const uint32_t q_addr = hop::smem_addr(sm + L::kQ + qb * L::kTile) +
+                            64 * wg * hop::kRowBytes;
+    float s[64];          // S of 64 rows x 128 keys
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+    hop::bar_wait(&q_full[qb], (it >> 1) & 1);
+    // pass 1: the row max m and the row sum l of exp(s - m), online in
+    // fp32 (each thread sums its own columns; the quad's are added at the
+    // end). Every row sees key 0 in the first tile, so m is finite from
+    // then on.
+    for (int kt = 0; kt < w.n_kt; ++kt, ring.advance()) {
+      hop::bar_wait(&full[ring.stage], ring.phase);
+      single_fwd_scores<D>(s, q_addr, k_addr + ring.stage * L::kTile,
+                           kt * kB, rows_lo, row0, t, sl2, g);
+      hop::bar_arrive(&empty[ring.stage]);
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int i = 0; i < 64; ++i)
+        mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float mn = fmaxf(m[r], hop::quad_max(mx[r]));
+        l[r] *= exp2f(m[r] - mn);
+        m[r] = mn;
+      }
+#pragma unroll
+      for (int i = 0; i < 64; ++i)
+        l[(i >> 1) & 1] += exp2f(s[i] - m[(i >> 1) & 1]);
+    }
+    const float inv_l[2] = {1.f / hop::quad_sum(l[0]),
+                            1.f / hop::quad_sum(l[1])};
+
+    // pass 2: P = exp(s - m) / l packed into the bf16 A registers of an RS
+    // product, O += P V (V MN-major)
+    float o[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    for (int kt = 0; kt < w.n_kt; ++kt, ring.advance()) {
+      hop::bar_wait(&full[ring.stage], ring.phase);
+      single_fwd_scores<D>(s, q_addr, k_addr + ring.stage * L::kTile,
+                           kt * kB, rows_lo, row0, t, sl2, g);
+#pragma unroll
+      for (int i = 0; i < 64; ++i) {
+        const int r = (i >> 1) & 1;
+        s[i] = exp2f(s[i] - m[r]) * inv_l[r];
+      }
+      uint32_t a[kB / 16][4];   // 16 keys a step
+#pragma unroll
+      for (int kk = 0; kk < kB / 16; ++kk) hop::pack_a(s, kk, a[kk]);
+      const uint32_t v_addr =
+          hop::smem_addr(sm + L::kV + (size_t)ring.stage * L::kTile);
+      hop::fence_regs(o);
+      hop::fence();
+#pragma unroll
+      for (int kk = 0; kk < kB / 16; ++kk)
+        hop::mma_rs<D, 1>(o, a[kk],
+                          hop::desc(v_addr + kk * 16 * hop::kRowBytes,
+                                    L::kPanel, 1024), 1);
+      hop::commit();
+      hop::wait<0>();
+      hop::fence_regs(o);
+      hop::bar_arrive(&empty[ring.stage]);
+    }
+    hop::bar_arrive(&q_empty[qb]);   // this item's Q is read
+
+    // O is normalised already: one bf16 store per pair of columns
+#pragma unroll
+    for (int i = 0; i < D / 2; i += 2) {
+      const int r = row0 + 8 * ((i >> 1) & 1), c = hop::acc_col(t, i);
+      if (r < g.sq && c < g.d)
+        *reinterpret_cast<__nv_bfloat162*>(
+            out + (((size_t)w.b * g.sq + r) * g.nh + w.h) * g.d + c) =
+            __floats2bfloat162_rn(o[i], o[i + 1]);
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
 // #6: the single-block backward (softmax recomputed from q, k, v)
 // ---------------------------------------------------------------------------
@@ -211,17 +453,60 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(
 // launch
 // ---------------------------------------------------------------------------
 
-template <typename T>
-cudaError_t fwd_single(const void* q, const void* k, const void* v,
-                       void* out, View qv, View kv, View vv, int b,
-                       const Geometry& g, cudaStream_t stream) {
-  const size_t smem = attn::fwd_smem<T>(g.d);
-  cudaError_t err = tile::prepare(flash_single_fwd_kernel<T>, smem);
+// fp32: tile_mma.cuh's kernel, one block per 64 rows.
+cudaError_t fwd_single_fp32(const void* q, const void* k, const void* v,
+                            void* out, View qv, View kv, View vv, int b,
+                            const Geometry& g, cudaStream_t stream) {
+  const size_t smem = attn::fwd_smem<float>(g.d);
+  cudaError_t err = tile::prepare(flash_single_fwd_kernel<float>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((g.sq + kB - 1) / kB, g.nh, b);
-  flash_single_fwd_kernel<T><<<grid, kThreads, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)out, qv, kv, vv, g);
+  flash_single_fwd_kernel<float><<<grid, kThreads, smem, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)out, qv, kv,
+      vv, g);
   return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_single_wgmma(const CUtensorMap (&maps)[3], void* out,
+                                int b, const Geometry& g,
+                                cudaStream_t stream) {
+  const size_t smem = SingleFwdSmem<D>::kBytes;
+  cudaError_t err = hop::prepare(flash_single_fwd_wgmma_kernel<D>, smem);
+  if (err != cudaSuccess) return err;
+  // persistent: one block an SM walks the (128 rows, head, batch) items
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)))
+    return err;
+  const long long items = (long long)((g.sq + 127) / 128) * g.nh * b;
+  if (items > 0x7fffffff) return cudaErrorInvalidValue;
+  const int grid = (int)(items < sms ? items : sms);
+  flash_single_fwd_wgmma_kernel<D><<<grid, hop::kThreads, smem, stream>>>(
+      maps[0], maps[1], maps[2], (__nv_bfloat16*)out, g, b);
+  return cudaGetLastError();
+}
+
+// bf16: the wgmma kernel, over tensor maps of the three strided views
+// (dims d, heads, rows, batch; boxes of 64 columns x 128 rows).
+cudaError_t fwd_single_bf16(const void* q, const void* k, const void* v,
+                            void* out, View qv, View kv, View vv, int b,
+                            const Geometry& g, cudaStream_t stream) {
+  CUtensorMap maps[3];
+  const void* ptrs[3] = {q, k, v};
+  const View views[3] = {qv, kv, vv};
+  const int rows[3] = {g.sq, g.sk, g.sk};
+  const int box[4] = {64, 1, 128, 1};
+  for (int i = 0; i < 3; ++i) {
+    const long long dims[4] = {g.d, g.nh, rows[i], b};
+    const long long strides[3] = {views[i].h, views[i].s, views[i].b};
+    const cudaError_t err =
+        hop::make_map(&maps[i], ptrs[i], 4, dims, strides, box);
+    if (err != cudaSuccess) return err;
+  }
+  return g.d <= 64 ? launch_single_wgmma<64>(maps, out, b, g, stream)
+                   : launch_single_wgmma<128>(maps, out, b, g, stream);
 }
 
 // dQ first (it writes the row stats), then dK/dV (which read them).
@@ -273,9 +558,15 @@ extern "C" int flash_fwd_single(const void* q, const void* k, const void* v,
   if (!attn::geometry_ok(b, g, false)) return (int)cudaErrorInvalidValue;
   const View qv{qb, qs, qh}, kv{kb, ks, kh}, vv{vb, vs, vh};
   cudaStream_t s = (cudaStream_t)stream;
-  if (bf16)
-    return (int)fwd_single<__nv_bfloat16>(q, k, v, out, qv, kv, vv, b, g, s);
-  return (int)fwd_single<float>(q, k, v, out, qv, kv, vv, b, g, s);
+  if (bf16) return (int)fwd_single_bf16(q, k, v, out, qv, kv, vv, b, g, s);
+  return (int)fwd_single_fp32(q, k, v, out, qv, kv, vv, b, g, s);
+}
+
+// The dynamic shared memory a bf16 single-block forward block launches
+// with at head dim d.
+extern "C" int flash_fwd_single_bf16_smem(int d) {
+  return (int)(d <= 64 ? SingleFwdSmem<64>::kBytes
+                       : SingleFwdSmem<128>::kBytes);
 }
 
 // stats: [3, b, nh, sq] fp32 scratch (row max, row sum, delta).

@@ -4,8 +4,9 @@
 // Replaces the TPU kernels of paddle_tpu/ops/pallas/fused_cross_entropy.py:
 //   fused_ce_fwd_kernel (+ fused_ce_combine_kernel)  <- _fwd_kernel (via
 //                                                        _fwd_pallas)
-//   fused_ce_dh_kernel, fused_ce_dw_kernel
-//     (+ fused_ce_cast_kernel)                      <- _bwd_kernel (via
+//   bf16: fused_ce_bwd_wgmma_kernel<0, 1, 2>
+//   fp32: fused_ce_dh_kernel, fused_ce_dw_kernel
+//         (+ fused_ce_cast_kernel)                  <- _bwd_kernel (via
 //                                                        _bwd_call)
 // The plain PyTorch versions (fused_ce_fwd_ref / fused_ce_bwd_ref in
 // ops/kernels/fused_cross_entropy.py, transcriptions of _fwd_xla/_bwd_xla)
@@ -20,43 +21,66 @@
 // Layouts: hidden [N, H], weight [V, H] (fp32 or bf16, contiguous), labels
 // [N] int32, g_eff [N] fp32 (the loss cotangent, 0 on ignored rows); loss,
 // lse [N] fp32; dh [N, H], dW [V, H]. Scratch the wrapper allocates: the
-// forward's per-split (m, l, picked) [3, S, N] and the backward's fp32 sums
-// dh32 [S, Np, H] and dw32 [Vp, H] (Np, Vp: N and V rounded up to a tile;
-// S vocab splits).
+// forward's per-split (m, l, picked) [3, S, N]; the bf16 backward's d chunk
+// [N, Vc] bf16 and, with more than one chunk, dh32 [N, H] fp32; the fp32
+// backward's dh32 [S, Np, H] and dw32 [Vp, H] (Np, Vp: N and V rounded up
+// to a tile; S vocab splits).
 //
-// Design: 256 threads (8 warps) a block; the logits of a tile of 64 tokens
-// x 128 vocab rows are one product over the hidden axis, staged 128
-// columns at a time, in tile_mma.cuh (wmma on the tensor cores in bf16,
-// each warp a 32 x 32 block of fp32 accumulators; CUDA cores in fp32).
+// The forward, and the fp32 backward: 256 threads (8 warps) a block; the
+// logits of a tile of 64 tokens x 128 vocab rows are one product over the
+// hidden axis, staged 128 columns at a time, in tile_mma.cuh (wmma on the
+// tensor cores in bf16, each warp a 32 x 32 block of fp32 accumulators;
+// CUDA cores in fp32).
 //   forward: a block per (64 tokens, split of the vocab tiles) folds its
 //     tiles into a partial (m, l, picked); fused_ce_combine_kernel merges
 //     the S partials of a token in split order. The wrapper picks S so the
 //     grid fills the card once (two blocks an SM): one block per 64 tokens
 //     alone is 128 blocks at N = 8192, under one for each of the 132 SMs.
-//   backward, two kernels, each recomputing the logits tile from the lse:
-//     the dh kernel (a block per (64 tokens, split of the vocab tiles))
-//     adds d . W_tile into its own rows of dh32[split], and the dW kernel
-//     (a block per 128 vocab rows, walking all token tiles) adds d^T .
-//     h_tile into its own rows of dw32. Every element of dh32 and dw32 is
-//     written by one block only, in a fixed order, and the splits of dh32
-//     are summed in order by fused_ce_cast_kernel: no atomics, so dh and dW
-//     are bit-reproducible. Against the TPU design (one sweep feeding dh in
-//     scratch and dW through an aliased HBM accumulator) this recomputes
-//     the logits once more; the fp32 sums of a block do not fit on the SM
-//     ([64, H] fp32 is 512 KB at H = 2048), so they live in device memory
-//     and each gradient tile is read and written back once per step of
-//     the walk.
+//   fp32 backward, two kernels, each recomputing the logits tile from the
+//     lse: the dh kernel (a block per (64 tokens, split of the vocab
+//     tiles)) adds d . W_tile into its own rows of dh32[split], and the dW
+//     kernel (a block per 128 vocab rows, walking all token tiles) adds
+//     d^T . h_tile into its own rows of dw32; fused_ce_cast_kernel sums the
+//     dh splits in order. The fp32 sums live in device memory and are read
+//     and written once per step of a block's walk: at N 8192, H 2048, V
+//     50304 about 50 GB for the dh kernel and 100 GB for the dW kernel.
+//
+// The bf16 backward walks the vocab in chunks of Vc rows (the wrapper picks
+// Vc, a multiple of 256, so the chunk's scratch stays within a fixed
+// budget). For each chunk in order, three launches of one warpgroup GEMM
+// (hopper_tiles.cuh: 128 x 256 output tiles, two consumer warpgroups of 64
+// rows with fp32 accumulators in registers, one producer warp keeping a
+// four-stage ring of 64-deep A and B tiles in flight by TMA) with three
+// epilogues:
+//   1. d chunk: D[N, Vc] = epilogue(h . W_c^T), both operands K-major; the
+//      epilogue applies lse, label and g per row and stores d in bf16 (0
+//      for rows past the vocab). The logits' only computation in the
+//      backward: three products, as the bound counts.
+//   2. dh: dh32 (+)= D . W_c (K = Vc; W_c is an MN-major B operand). An
+//      output tile keeps its sums in registers over the chunk's whole K,
+//      so dh32 is read and written once a chunk; the last chunk's epilogue
+//      writes bf16 dh (one chunk: no dh32 at all).
+//   3. dW: dW[chunk rows] = D^T . h (K = tokens; both operands MN-major). A
+//      vocab row's whole sum over the tokens lives in one block's
+//      registers, so bf16 dW is written once and no fp32 dW exists.
+// Every output element is summed by one block in a fixed order and the
+// chunks run in order: no atomics, so dh and dW are bit-reproducible.
+// Only one chunk of d ever exists in device memory, never the [N, V]
+// logits.
 //
 // What bounds it on the H100: operations. At the training shape (N 8192, H
 // 2048, V 50304, bf16) the forward's product is 2 N V H = 1.69e12 flops
 // (1.71 ms at 989 TFLOP/s) and the backward's three 5.07e12 (5.12 ms);
-// the bytes (W 206 MB, h 34 MB) are a tenth of that. What this design
-// leaves on the table: wmma from shared memory instead of wgmma, no
-// cp.async/TMA pipelining (a tile's loads and products do not overlap),
-// the logits staged through fp32 shared memory, the extra logits
-// recompute, and the backward's read-modify-write of its fp32 sums in
-// device memory (about 50 GB a kernel at the training shape).
+// the bytes (W 206 MB, h 34 MB; the d chunks add 2.5 GB written once and
+// read twice, 0.74 ms) are under that. What the bf16 backward still leaves
+// on the table: the d chunk's round trip through device memory, no
+// persistent walk (an output tile's epilogue does not overlap the next
+// tile's loads; the last chunk's grids fill the card unevenly), 4-byte
+// epilogue stores. The forward keeps the first design's list: wmma from
+// shared memory, no pipelining, the logits staged through fp32 shared
+// memory.
 
+#include "hopper_tiles.cuh"
 #include "tile_mma.cuh"
 
 namespace {
@@ -316,6 +340,189 @@ __global__ void fused_ce_cast_kernel(const float* __restrict__ src,
   out[i] = from_f<T>(v);
 }
 
+// ---------------------------------------------------------------------------
+// backward, bf16: one warpgroup GEMM with three epilogues, chunk by chunk
+// ---------------------------------------------------------------------------
+
+namespace bw {
+
+constexpr int kBM = 128, kBN = 256, kBK = 64, kStages = 4;
+constexpr int kABytes = kBM * kBK * 2;                  // 16 KB
+constexpr int kBBytes = kBN * kBK * 2;                  // 32 KB
+constexpr int kStageBytes = kABytes + kBBytes;
+constexpr int kMnPanel = kBK * hop::kRowBytes;          // 64 K rows, 8 KB
+constexpr size_t kSmem = (size_t)kStages * kStageBytes + 2 * kStages * 8 +
+                         1024;
+
+// One chunk's launch: the tensors, and vocab rows [v0, v0 + rows).
+struct Args {
+  const int* labels;
+  const float* lse;
+  const float* g;
+  __nv_bfloat16* dchunk;     // [n, width]
+  float* dh32;               // [n, hidden], with more than one chunk
+  __nv_bfloat16* dh;
+  __nv_bfloat16* dw;
+  int n, vocab, hidden, width;
+  int v0, rows, first, last;
+};
+
+int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+}  // namespace bw
+
+// A 128 x 256 output tile, K walked 64 at a time through the ring:
+//   kKind 0, the d chunk: D[tokens, chunk] = epilogue(h . W_c^T); A = h,
+//     B = W_c, both K-major; grid (token tiles, chunk tiles).
+//   kKind 1, dh: dh32 (+)= D . W_c; A = D (K-major), B = W_c (MN-major);
+//     grid (hidden tiles, token tiles), so the blocks that share a row
+//     panel of D run together.
+//   kKind 2, dW: dW[chunk rows] = D^T . h; A = D, B = h, both MN-major;
+//     grid (hidden tiles, chunk tiles).
+// Operand tiles past a tensor's edge arrive as zeros (TMA), so only the
+// epilogue masks.
+template <int kKind>
+__global__ void __launch_bounds__(hop::kThreads, 1) fused_ce_bwd_wgmma_kernel(
+    const __grid_constant__ CUtensorMap ta,
+    const __grid_constant__ CUtensorMap tb, bw::Args a, int k_steps) {
+  using namespace bw;
+  constexpr int kAMn = kKind == 2, kBMn = kKind != 0;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = hop::align1024(smem_raw);
+  uint64_t* full = (uint64_t*)(sm + kStages * kStageBytes);
+  uint64_t* empty = full + kStages;
+  const int m0 = (kKind == 0 ? blockIdx.x : blockIdx.y) * kBM;
+  const int n0 = (kKind == 0 ? blockIdx.y : blockIdx.x) * kBN;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      hop::bar_init(&full[s], 1);
+      hop::bar_init(&empty[s], hop::kConsumers);
+    }
+    hop::bar_fence_init();
+  }
+  __syncthreads();
+
+  if (tid >= hop::kConsumers) {
+    if (tid == hop::kConsumers) {   // producer
+      hop::Ring ring(kStages, 1);
+      for (int ks = 0; ks < k_steps; ++ks, ring.advance()) {
+        hop::bar_wait(&empty[ring.stage], ring.phase);
+        uint64_t* bar = &full[ring.stage];
+        hop::bar_arrive_tx(bar, kStageBytes);
+        unsigned char* sa = sm + ring.stage * kStageBytes;
+        unsigned char* sb = sa + kABytes;
+        const int k0 = ks * kBK;
+        if (kKind == 0) {
+          hop::load_2d(sa, &ta, bar, k0, m0);
+          hop::load_2d(sb, &tb, bar, k0, a.v0 + n0);
+        } else if (kKind == 1) {
+          hop::load_2d(sa, &ta, bar, k0, m0);
+          for (int p = 0; p < kBN / 64; ++p)
+            hop::load_2d(sb + p * kMnPanel, &tb, bar, n0 + 64 * p,
+                         a.v0 + k0);
+        } else {
+          for (int p = 0; p < kBM / 64; ++p)
+            hop::load_2d(sa + p * kMnPanel, &ta, bar, m0 + 64 * p, k0);
+          for (int p = 0; p < kBN / 64; ++p)
+            hop::load_2d(sb + p * kMnPanel, &tb, bar, n0 + 64 * p, k0);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns output rows [m0 + 64 wg, m0 + 64 wg + 64)
+  const int wg = tid >> 7, t = tid & 127;
+  float acc[kBN / 2];
+#pragma unroll
+  for (int i = 0; i < kBN / 2; ++i) acc[i] = 0.f;
+  hop::fence_regs(acc);
+  const uint32_t base = hop::smem_addr(sm);
+  hop::Ring ring(kStages, 0);
+  int held = -1;   // the stage the batch in flight reads
+  for (int ks = 0; ks < k_steps; ++ks, ring.advance()) {
+    hop::bar_wait(&full[ring.stage], ring.phase);
+    // A: rows 64 wg of a K-major tile, or panel wg of an MN-major one
+    const uint32_t sa = base + ring.stage * kStageBytes + wg * 64 * 128;
+    const uint32_t sb = base + ring.stage * kStageBytes + kABytes;
+    hop::fence();
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      const uint64_t da = kAMn ? hop::desc(sa + kk * 2048, kMnPanel, 1024)
+                               : hop::desc(sa + kk * 32, 16, 1024);
+      const uint64_t db = kBMn ? hop::desc(sb + kk * 2048, kMnPanel, 1024)
+                               : hop::desc(sb + kk * 32, 16, 1024);
+      hop::mma_ss<kBN, kAMn, kBMn>(acc, da, db, 1);
+    }
+    hop::commit();
+    hop::wait<1>();   // the previous step's batch is done: free its stage
+    hop::fence_regs(acc);
+    if (held >= 0) hop::bar_arrive(&empty[held]);
+    held = ring.stage;
+  }
+  hop::wait<0>();
+  hop::fence_regs(acc);
+
+  const int r0 = m0 + 64 * wg + hop::acc_row(t, 0);   // and r0 + 8
+  if (kKind == 0) {
+    // d = (exp(logit - lse) - onehot) * g in bf16; 0 past the vocab
+    float lse[2], g[2];
+    int lbl[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int r = r0 + 8 * e;
+      const bool in = r < a.n;
+      lse[e] = in ? a.lse[r] : 0.f;
+      g[e] = in ? a.g[r] : 0.f;
+      lbl[e] = in ? a.labels[r] : -1;
+    }
+#pragma unroll
+    for (int i = 0; i < kBN / 2; i += 2) {
+      const int e = (i >> 1) & 1, r = r0 + 8 * e;
+      const int c = n0 + hop::acc_col(t, i), v = a.v0 + c;
+      const float d0 = v < a.vocab ? (__expf(acc[i] - lse[e]) -
+                                      (lbl[e] == v ? 1.f : 0.f)) * g[e]
+                                   : 0.f;
+      const float d1 = v + 1 < a.vocab
+                           ? (__expf(acc[i + 1] - lse[e]) -
+                              (lbl[e] == v + 1 ? 1.f : 0.f)) * g[e]
+                           : 0.f;
+      if (r < a.n)
+        *reinterpret_cast<__nv_bfloat162*>(a.dchunk + (size_t)r * a.width +
+                                           c) = __floats2bfloat162_rn(d0, d1);
+    }
+  } else if (kKind == 1) {
+    // dh32 (+)= the chunk's sums; the last chunk writes bf16 dh
+#pragma unroll
+    for (int i = 0; i < kBN / 2; i += 2) {
+      const int r = r0 + 8 * ((i >> 1) & 1), c = n0 + hop::acc_col(t, i);
+      if (r >= a.n || c >= a.hidden) continue;
+      const size_t at = (size_t)r * a.hidden + c;
+      float2 v = make_float2(acc[i], acc[i + 1]);
+      if (!a.first) {
+        const float2 p = *reinterpret_cast<const float2*>(a.dh32 + at);
+        v.x = p.x + v.x;
+        v.y = p.y + v.y;
+      }
+      if (a.last)
+        *reinterpret_cast<__nv_bfloat162*>(a.dh + at) =
+            __floats2bfloat162_rn(v.x, v.y);
+      else
+        *reinterpret_cast<float2*>(a.dh32 + at) = v;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < kBN / 2; i += 2) {
+      const int r = r0 + 8 * ((i >> 1) & 1), c = n0 + hop::acc_col(t, i);
+      if (r < a.rows && c < a.hidden)
+        *reinterpret_cast<__nv_bfloat162*>(
+            a.dw + (size_t)(a.v0 + r) * a.hidden + c) =
+            __floats2bfloat162_rn(acc[i], acc[i + 1]);
+    }
+  }
+}
+
 // Parts of `count` tiles walked `per_split` at a time.
 int splits_of(int count, int per_split) {
   return (count + per_split - 1) / per_split;
@@ -381,6 +588,51 @@ cudaError_t bwd(const void* h, const void* w, const int* labels,
   return cudaGetLastError();
 }
 
+// The bf16 backward: six tensor maps (h, W and the d chunk, each with the
+// box its K-major and its MN-major use take), then three launches a chunk.
+cudaError_t bwd_bf16(const void* h, const void* w, const int* labels,
+                     const float* lse, const float* g_eff, void* dh, void* dw,
+                     void* dchunk, float* dh32, int n, int vocab, int hidden,
+                     int width, cudaStream_t stream) {
+  using namespace bw;
+  const long long h_dims[2] = {hidden, n}, w_dims[2] = {hidden, vocab};
+  const long long d_dims[2] = {width, n};
+  const long long h_stride[1] = {hidden}, d_stride[1] = {width};
+  const int box_k[2] = {64, kBM}, box_w[2] = {64, kBN}, box_mn[2] = {64, kBK};
+  CUtensorMap h_k, h_mn, w_k, w_mn, d_k, d_mn;
+  cudaError_t err;
+  if ((err = hop::make_map(&h_k, h, 2, h_dims, h_stride, box_k)) ||
+      (err = hop::make_map(&h_mn, h, 2, h_dims, h_stride, box_mn)) ||
+      (err = hop::make_map(&w_k, w, 2, w_dims, h_stride, box_w)) ||
+      (err = hop::make_map(&w_mn, w, 2, w_dims, h_stride, box_mn)) ||
+      (err = hop::make_map(&d_k, dchunk, 2, d_dims, d_stride, box_k)) ||
+      (err = hop::make_map(&d_mn, dchunk, 2, d_dims, d_stride, box_mn)) ||
+      (err = hop::prepare(fused_ce_bwd_wgmma_kernel<0>, kSmem)) ||
+      (err = hop::prepare(fused_ce_bwd_wgmma_kernel<1>, kSmem)) ||
+      (err = hop::prepare(fused_ce_bwd_wgmma_kernel<2>, kSmem)))
+    return err;
+  Args a{labels, lse, g_eff, (__nv_bfloat16*)dchunk, dh32,
+         (__nv_bfloat16*)dh, (__nv_bfloat16*)dw, n, vocab, hidden, width,
+         0, 0, 0, 0};
+  for (int v0 = 0; v0 < vocab; v0 += width) {
+    a.v0 = v0;
+    a.rows = vocab - v0 < width ? vocab - v0 : width;
+    a.first = v0 == 0;
+    a.last = v0 + width >= vocab;
+    fused_ce_bwd_wgmma_kernel<0>
+        <<<dim3(cdiv(n, kBM), cdiv(a.rows, kBN)), hop::kThreads, kSmem,
+           stream>>>(h_k, w_k, a, cdiv(hidden, kBK));
+    fused_ce_bwd_wgmma_kernel<1>
+        <<<dim3(cdiv(hidden, kBN), cdiv(n, kBM)), hop::kThreads, kSmem,
+           stream>>>(d_k, w_mn, a, cdiv(a.rows, kBK));
+    fused_ce_bwd_wgmma_kernel<2>
+        <<<dim3(cdiv(hidden, kBN), cdiv(a.rows, kBM)), hop::kThreads, kSmem,
+           stream>>>(d_mn, h_mn, a, cdiv(n, kBK));
+    if ((err = cudaGetLastError())) return err;
+  }
+  return cudaSuccess;
+}
+
 }  // namespace
 
 // Plain C interface for ctypes. Each returns the cudaError_t of its
@@ -404,19 +656,35 @@ extern "C" int fused_ce_fwd(const void* h, const void* w, const void* labels,
                          tiles_per_split, s);
 }
 
+// fp32 only (bf16 takes fused_ce_bwd_bf16).
 extern "C" int fused_ce_bwd(const void* h, const void* w, const void* labels,
                             const void* lse, const void* g_eff, void* dh,
                             void* dw, void* dh32, void* dw32, int n,
                             int vocab, int hidden, int tiles_per_split,
-                            int bf16, void* stream) {
+                            void* stream) {
   if (!geometry_ok(n, vocab, hidden, tiles_per_split))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (bf16)
-    return (int)bwd<__nv_bfloat16>(
-        h, w, (const int*)labels, (const float*)lse, (const float*)g_eff, dh,
-        dw, (float*)dh32, (float*)dw32, n, vocab, hidden, tiles_per_split, s);
   return (int)bwd<float>(h, w, (const int*)labels, (const float*)lse,
                          (const float*)g_eff, dh, dw, (float*)dh32,
-                         (float*)dw32, n, vocab, hidden, tiles_per_split, s);
+                         (float*)dw32, n, vocab, hidden, tiles_per_split,
+                         (cudaStream_t)stream);
 }
+
+// bf16: `width` is the chunk's vocab rows (a multiple of 256); dchunk the
+// [n, width] bf16 d chunk; dh32 the [n, hidden] fp32 sums of dh (unused,
+// and may be null, when one chunk covers the vocab).
+extern "C" int fused_ce_bwd_bf16(const void* h, const void* w,
+                                 const void* labels, const void* lse,
+                                 const void* g_eff, void* dh, void* dw,
+                                 void* dchunk, void* dh32, int n, int vocab,
+                                 int hidden, int width, void* stream) {
+  if (n <= 0 || vocab <= 0 || hidden <= 0 || hidden % 16 || width <= 0 ||
+      width % 256 || (dh32 == nullptr && width < vocab))
+    return (int)cudaErrorInvalidValue;
+  return (int)bwd_bf16(h, w, (const int*)labels, (const float*)lse,
+                       (const float*)g_eff, dh, dw, dchunk, (float*)dh32, n,
+                       vocab, hidden, width, (cudaStream_t)stream);
+}
+
+// The dynamic shared memory a bf16 backward block launches with.
+extern "C" int fused_ce_bwd_bf16_smem() { return (int)bw::kSmem; }

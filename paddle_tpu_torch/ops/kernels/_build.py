@@ -52,7 +52,8 @@ def build(names=None) -> dict:
     """Compile the named sources (default: every ``csrc/*.cu``) whose
     library is missing, one ``nvcc`` each, all started together.
     Returns ``{name: {"seconds", "log"}}`` for the sources it built (the
-    log holds ptxas' register and shared-memory report); raises
+    log holds ptxas' register and shared-memory report, and is kept
+    beside the library as ``lib<name>-<hash>.log``); raises
     ``RuntimeError`` with the compiler's output if any build fails."""
     if names is None:
         names = sorted(p.stem for p in CSRC.glob("*.cu"))
@@ -80,6 +81,7 @@ def build(names=None) -> dict:
             continue
         # rename into place: a concurrent loader never sees half a file
         os.replace(tmp, out)
+        out.with_suffix(".log").write_text(log)
         done[name] = {"seconds": time.perf_counter() - t0, "log": log}
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))

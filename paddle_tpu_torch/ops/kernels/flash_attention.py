@@ -8,7 +8,8 @@ the reference:
 
 * single-block (``s <= 1024``): `flash_attention_fwd_single` (kernel #5)
   is an exact softmax, ``P = exp(s - max) / sum`` rounded to the value
-  dtype before ``P V``, with no lse; `flash_attention_bwd_single` (#6)
+  dtype before ``P V``, with no lse (in bf16 on warpgroup products,
+  ``csrc/hopper_tiles.cuh``); `flash_attention_bwd_single` (#6)
   recomputes it from q, k, v alone, with ``delta = sum(p * dP)``.
 * tiled: `flash_attention_fwd` (#7) is an online softmax over key tiles
   returning ``(out, lse)``: ``P`` is rounded unnormalised, after the
@@ -69,6 +70,8 @@ _SIGNATURES = {
     "flash_fwd": (_P,) * 5 + _STRIDES + _GEOMETRY,          # q k v out lse
     # q k v out dout lse delta dq dk dv
     "flash_bwd": (_P,) * 10 + _STRIDES + _GEOMETRY,
+    # d: the bf16 single-block forward's dynamic shared memory
+    "flash_fwd_single_bf16_smem": (_I,),
 }
 _DTYPES = (torch.float32, torch.bfloat16)
 

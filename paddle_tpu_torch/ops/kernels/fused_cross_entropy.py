@@ -12,7 +12,9 @@ tied-embedding layout), ``labels [N]`` int; losses ``[N]`` fp32, 0 where
   ``torch.autograd.Function``, gradients in ``hidden`` and ``weight``).
 * `fused_ce_fwd`: ``(losses, lse)``; kernel #11, ``fused_ce_fwd_kernel``.
 * `fused_ce_bwd`: ``(dh, dw)`` from the lse and the effective cotangent
-  ``g_eff`` (0 on ignored rows); kernel #12, the dh and dW kernels.
+  ``g_eff`` (0 on ignored rows); kernel #12: in bf16 three warpgroup
+  GEMMs a vocab chunk (`plan_chunks` sizes the chunks), in fp32 the dh
+  and dW kernels.
 
 Routing is by the tensors' device, nothing else: CPU tensors take the
 plain versions `fused_ce_fwd_ref` / `fused_ce_bwd_ref` (transcriptions of
@@ -20,10 +22,11 @@ plain versions `fused_ce_fwd_ref` / `fused_ce_bwd_ref` (transcriptions of
 order, fp32 accumulation); CUDA tensors launch the kernels of
 ``csrc/fused_cross_entropy.cu`` or raise. The kernels take any N and any
 vocab, and ``H`` a multiple of 16. The wrappers allocate the kernels'
-fp32 scratch: the forward's per-split row statistics, and the backward's
-fp32 sums of dh (one ``[N, H]`` plane per vocab split) and of dW. Each
-forward and backward wrapper counts its launches in
-``<wrapper>.launches``.
+scratch: the forward's per-split row statistics; the bf16 backward's d
+chunk ``[N, width]`` bf16 and, with more than one chunk, the fp32 sums of
+dh ``[N, H]``, within `SCRATCH_BYTES`; the fp32 backward's fp32 sums of
+dh (one ``[N, H]`` plane per vocab split) and of dW. Each forward and
+backward wrapper counts its launches in ``<wrapper>.launches``.
 """
 from __future__ import annotations
 
@@ -34,20 +37,27 @@ import torch
 from . import _build
 
 __all__ = ["fused_cross_entropy", "fused_ce_fwd", "fused_ce_bwd",
-           "fused_ce_fwd_ref", "fused_ce_bwd_ref"]
+           "fused_ce_fwd_ref", "fused_ce_bwd_ref", "plan_chunks"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     # h, w, labels, loss, lse, part, n, vocab, hidden, ignore_index,
     # tiles_per_split, bf16, stream
     "fused_ce_fwd": (_P,) * 6 + (_I,) * 6 + (_P,),
-    # h, w, labels, lse, g_eff, dh, dw, dh32, dw32, n, vocab, hidden,
-    # tiles_per_split, bf16, stream
-    "fused_ce_bwd": (_P,) * 9 + (_I,) * 5 + (_P,),
+    # fp32: h, w, labels, lse, g_eff, dh, dw, dh32, dw32, n, vocab, hidden,
+    # tiles_per_split, stream
+    "fused_ce_bwd": (_P,) * 9 + (_I,) * 4 + (_P,),
+    # bf16: h, w, labels, lse, g_eff, dh, dw, dchunk, dh32, n, vocab,
+    # hidden, width, stream
+    "fused_ce_bwd_bf16": (_P,) * 9 + (_I,) * 4 + (_P,),
+    # the bf16 backward's dynamic shared memory a block
+    "fused_ce_bwd_bf16_smem": (),
 }
 _DTYPES = (torch.float32, torch.bfloat16)
 BLOCK_V = 128       # the plain versions' vocab tile (_fwd_xla's _LANES)
 ROWS, TILE_V = 64, 128   # the kernels' token and vocab tiles
+CHUNK_TILE = 256         # the bf16 backward's vocab tile: chunks are multiples
+SCRATCH_BYTES = 256 << 20   # the bf16 backward's scratch budget
 
 
 # ---------------------------------------------------------------------------
@@ -173,6 +183,28 @@ def _split(n, vocab, device):
     return -(-tiles // per), per
 
 
+def plan_chunks(n, vocab, hidden):
+    """The bf16 backward's walk over the vocab: ``(width, chunks)``, with
+    ``chunks`` the ``(v0, rows)`` of each chunk in order, covering
+    ``[0, vocab)``, every one ``width`` rows (a multiple of `CHUNK_TILE`)
+    but the last, which may be ragged. The widths are as even as the tile
+    allows, so the last chunk's grids are not a sliver. Scratch: the d
+    chunk ``[n, width]`` bf16 and, with more than one chunk, the fp32 sums
+    of dh ``[n, hidden]``; it stays within `SCRATCH_BYTES` unless one
+    tile of d beside the dh sums already exceeds it (then one tile a
+    chunk)."""
+    tiles = -(-vocab // CHUNK_TILE)
+    per_tile = n * CHUNK_TILE * 2
+    if tiles * per_tile <= SCRATCH_BYTES:
+        n_chunks = 1
+    else:
+        fit = max(1, (SCRATCH_BYTES - n * hidden * 4) // per_tile)
+        n_chunks = -(-tiles // fit)
+    width = -(-tiles // n_chunks) * CHUNK_TILE
+    return width, [(v0, min(width, vocab - v0))
+                   for v0 in range(0, vocab, width)]
+
+
 def fused_ce_fwd(hidden, weight, labels, ignore_index=-100):
     """``(losses, lse)``, fp32 ``[N]`` each; CUDA tensors launch
     ``fused_ce_fwd_kernel``."""
@@ -200,8 +232,9 @@ def fused_ce_fwd(hidden, weight, labels, ignore_index=-100):
 
 def fused_ce_bwd(hidden, weight, labels, lse, g_eff):
     """``(dh, dw)`` in hidden's and weight's dtypes; ``g_eff`` is the fp32
-    loss cotangent, 0 on ignored rows. CUDA tensors launch the dh and dW
-    kernels and the cast of their fp32 sums (one count)."""
+    loss cotangent, 0 on ignored rows. CUDA tensors launch, in bf16, the
+    three GEMMs of every vocab chunk, and in fp32 the dh and dW kernels
+    and the cast of their fp32 sums (one count either way)."""
     _check(hidden, weight, labels)
     if hidden.device.type == "cpu":
         return fused_ce_bwd_ref(hidden, weight, labels, lse, g_eff)
@@ -213,19 +246,28 @@ def fused_ce_bwd(hidden, weight, labels, lse, g_eff):
         return dh, dw.zero_()
     lbl = labels.to(torch.int32).contiguous()
     g = g_eff.to(torch.float32).contiguous()
-    splits, per = _split(n, vocab, dev)
-    # the fp32 sums: dh per split, over whole token and vocab tiles
-    dh32 = torch.empty(splits, -(-n // ROWS) * ROWS, hsz,
-                       dtype=torch.float32, device=dev)
-    dw32 = torch.empty(-(-vocab // TILE_V) * TILE_V, hsz,
-                       dtype=torch.float32, device=dev)
+    lse = lse.contiguous()
+    common = (hidden.data_ptr(), weight.data_ptr(), lbl.data_ptr(),
+              lse.data_ptr(), g.data_ptr(), dh.data_ptr(), dw.data_ptr())
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        _run("fused_ce_bwd", hidden.data_ptr(), weight.data_ptr(),
-             lbl.data_ptr(), lse.contiguous().data_ptr(), g.data_ptr(),
-             dh.data_ptr(), dw.data_ptr(), dh32.data_ptr(), dw32.data_ptr(),
-             n, vocab, hsz, per, int(hidden.dtype == torch.bfloat16),
-             stream)
+        if hidden.dtype == torch.bfloat16:
+            width, chunks = plan_chunks(n, vocab, hsz)
+            dchunk = torch.empty(n, width, dtype=torch.bfloat16, device=dev)
+            dh32 = torch.empty(n, hsz, dtype=torch.float32, device=dev) \
+                if len(chunks) > 1 else None
+            _run("fused_ce_bwd_bf16", *common, dchunk.data_ptr(),
+                 None if dh32 is None else dh32.data_ptr(), n, vocab, hsz,
+                 width, stream)
+        else:
+            splits, per = _split(n, vocab, dev)
+            # the fp32 sums: dh per split, over whole token and vocab tiles
+            dh32 = torch.empty(splits, -(-n // ROWS) * ROWS, hsz,
+                               dtype=torch.float32, device=dev)
+            dw32 = torch.empty(-(-vocab // TILE_V) * TILE_V, hsz,
+                               dtype=torch.float32, device=dev)
+            _run("fused_ce_bwd", *common, dh32.data_ptr(), dw32.data_ptr(),
+                 n, vocab, hsz, per, stream)
     fused_ce_bwd.launches += 1
     return dh, dw
 

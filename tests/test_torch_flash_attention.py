@@ -3,7 +3,8 @@
 The four plain versions (which CPU tensors take, and which the CUDA
 kernels follow) against the reference's Pallas kernels in interpret mode:
 `flash_attention_single_ref` / `_bwd_ref` against ``fa._fwd_single`` /
-``fa._bwd_single`` (s 64 and 128), `flash_attention_ref` /
+``fa._bwd_single`` (s 16, 64, 80 and 128: under, at and off the bf16
+kernel's 128-row tiles), `flash_attention_ref` /
 `flash_attention_bwd_ref` against ``fa._fwd`` / ``fa._bwd`` (s 256 with
 64-row blocks, as tests/test_pallas.py forces the tiled path), causal and
 not, fp32 and bf16; the lse against lane 0 of the reference's
@@ -84,7 +85,7 @@ def splash_off():
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("s", [64, 128])
+@pytest.mark.parametrize("s", [16, 64, 80, 128])
 def test_single_block_plain_matches_jax_kernel(s, causal, dtype):
     b, h, d = 2, 2, 32
     q, k, v, do = _rand(b, s, h, d, seed=s)

@@ -9,6 +9,11 @@ tests: a vocab that is a multiple of the tile and one that is not,
 both. Tolerance: atol 1e-5 in fp32 for losses, lse, dh and dW (the same
 tiles in the same order, fp32 sums; only the summation order inside a
 product differs).
+
+The bf16 kernel's walk over vocab chunks is planned in Python
+(`plan_chunks`): the chunks cover the vocab in order with a ragged last
+one, and the scratch stays within its budget; the walk itself, written
+out in fp32 chunk by chunk, gives the reference's gradients.
 """
 import numpy as np
 import pytest
@@ -200,3 +205,88 @@ def test_token_chunked_route_is_not_ported():
         PF.fused_linear_cross_entropy(h, w, lbl, n_chunks=2)
     with pytest.raises(NotImplementedError, match="token-chunked"):
         PF.fused_linear_cross_entropy(h, w, lbl, vocab_tiled=False)
+
+
+def _scratch(n, hidden, width, n_chunks):
+    """The bf16 backward's device scratch: the d chunk [n, width] bf16 and,
+    with more than one chunk, the dh sums [n, hidden] fp32."""
+    return n * width * 2 + (n * hidden * 4 if n_chunks > 1 else 0)
+
+
+# (n, vocab, hidden, budget): GPT-3 1.3B's training shape at the default
+# budget, and ragged shapes over several chunks
+PLANS = [(8192, 50304, 2048, None), (300, 612, 64, 300 * 64 * 4 + 300 * 512),
+         (1000, 3000, 512, 1000 * 512 * 4 + 1000 * 768 * 2),
+         (17, 130, 48, None), (40, 700, 2048, None),
+         (4096, 50304, 4096, 96 << 20)]
+
+
+@pytest.mark.parametrize("n,vocab,hidden,budget", PLANS)
+def test_plan_chunks_cover_the_vocab_within_budget(monkeypatch, n, vocab,
+                                                   hidden, budget):
+    if budget is not None:
+        monkeypatch.setattr(fce, "SCRATCH_BYTES", budget)
+    width, chunks = fce.plan_chunks(n, vocab, hidden)
+    assert width % fce.CHUNK_TILE == 0 and width > 0
+    assert chunks[0][0] == 0
+    for (v0, rows), (v1, _) in zip(chunks, chunks[1:]):
+        assert rows == width and v1 == v0 + rows
+    v_last, r_last = chunks[-1]
+    assert 0 < r_last <= width and v_last + r_last == vocab
+    assert _scratch(n, hidden, width, len(chunks)) <= fce.SCRATCH_BYTES
+    # as even as the tile allows: no chunk could be a tile narrower
+    tiles = -(-vocab // fce.CHUNK_TILE)
+    assert width // fce.CHUNK_TILE == -(-tiles // len(chunks))
+
+
+def test_plan_chunks_at_the_training_shape():
+    """GPT-3 1.3B, 8 x 1024 tokens: five chunks of 10240 rows, the last
+    9344; 160 MiB of d chunk and 64 MiB of dh sums."""
+    width, chunks = fce.plan_chunks(8192, 50304, 2048)
+    assert width == 10240 and len(chunks) == 5
+    assert chunks[-1] == (40960, 9344)
+    assert _scratch(8192, 2048, width, 5) == 224 << 20
+
+
+def test_one_chunk_needs_no_dh_sums():
+    width, chunks = fce.plan_chunks(64, 1000, 128)
+    assert chunks == [(0, 1000)] and width == 1024
+    assert _scratch(64, 128, width, 1) == 64 * 1024 * 2
+
+
+@pytest.mark.parametrize("n,vocab,budget", [(45, 1000, 45 * 32 * 4 + 45 * 512),
+                                            (64, 640, 64 * 32 * 4 + 64 * 512)])
+def test_chunked_walk_matches_jax_gradients(monkeypatch, n, vocab, budget):
+    """The bf16 kernel's algorithm written out in fp32: per chunk, d from
+    the chunk's logits (0 past the vocab), dh summed over the chunks in
+    order, dW rows of the chunk from d^T h; against the reference's
+    `_bwd_xla` on the same lse and cotangent."""
+    h, w, lbl = _inputs(n, vocab, seed=3)
+    g = np.random.default_rng(4).random(n).astype(np.float32)
+    g_eff = np.where(lbl != -100, g, 0.0).astype(np.float32)
+    _, jlse = jfce._fwd_xla(jnp.asarray(h), jnp.asarray(w),
+                            jnp.asarray(lbl, jnp.int32), 128, -100)
+    jdh, jdw = jfce._bwd_xla(jnp.asarray(h), jnp.asarray(w),
+                             jnp.asarray(lbl, jnp.int32), jlse,
+                             jnp.asarray(g_eff), 128)
+    monkeypatch.setattr(fce, "SCRATCH_BYTES", budget)
+    width, chunks = fce.plan_chunks(n, vocab, 32)
+    assert len(chunks) > 1 and chunks[-1][1] < width
+    th, tw = torch.from_numpy(h), torch.from_numpy(w)
+    lse = torch.from_numpy(np.array(jlse))
+    tl = torch.from_numpy(lbl)[:, None]
+    dh = torch.zeros(n, 32)
+    dw = torch.zeros(vocab, 32)
+    for v0, rows in chunks:
+        cols = v0 + torch.arange(width)[None]
+        wc = torch.zeros(width, 32)
+        wc[:rows] = tw[v0:v0 + rows]
+        d = (torch.exp(th @ wc.T - lse[:, None]) - (cols == tl).float()) \
+            * torch.from_numpy(g_eff)[:, None]
+        d = torch.where(cols < vocab, d, torch.zeros(()))
+        dh = dh + d @ wc
+        dw[v0:v0 + rows] = (d.T @ th)[:rows]
+    np.testing.assert_allclose(dh.numpy(), np.asarray(jdh), rtol=0,
+                               atol=ATOL)
+    np.testing.assert_allclose(dw.numpy(), np.asarray(jdw), rtol=0,
+                               atol=ATOL)

@@ -392,9 +392,20 @@ def test_splash_empty_rows_are_zero(cuda):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n,vocab,hidden", [
-    (300, 1000, 64), (64, 256, 128), (17, 130, 48), (256, 512, 1024)])
-def test_fused_ce_kernels(cuda, dtype, n, vocab, hidden):
+@pytest.mark.parametrize("n,vocab,hidden,budget", [
+    (300, 1000, 64, None), (64, 256, 128, None), (17, 130, 48, None),
+    (256, 512, 1024, None),
+    # the bf16 backward's tile and chunk edges: N off the 128-row tile;
+    # three and four vocab chunks, the last ragged with a last dW tile
+    # under 128 rows (100 and 696 = 5 x 128 + 56); H 2048 at a small N
+    (300, 612, 64, 300 * 64 * 4 + 300 * 256 * 2),
+    (1000, 3000, 512, 1000 * 512 * 4 + 1000 * 768 * 2),
+    (40, 700, 2048, None)])
+def test_fused_ce_kernels(cuda, monkeypatch, dtype, n, vocab, hidden,
+                          budget):
+    if budget is not None:
+        monkeypatch.setattr(fce, "SCRATCH_BYTES", budget)
+        assert len(fce.plan_chunks(n, vocab, hidden)[1]) > 2
     gen = torch.Generator(device=cuda).manual_seed(0)
     h = torch.randn(n, hidden, device=cuda, generator=gen).to(dtype)
     w = (torch.randn(vocab, hidden, device=cuda, generator=gen) * 0.1) \
@@ -469,6 +480,11 @@ def test_training_kernel_errors(cuda):
 FLASH_CASES = [(2, 128, 4, 64, True), (1, 200, 2, 64, False),
                (2, 96, 3, 16, True), (1, 256, 2, 128, True),
                (1, 130, 2, 32, False)]
+# the single-block pair also at lengths under, at and off the bf16
+# forward's 128-row tiles, and at every padded head dim
+FLASH_SINGLE_CASES = FLASH_CASES + [
+    (1, s, 2, d, causal) for s in (16, 80, 1008, 1024)
+    for d in (16, 32, 64, 128) for causal in (True, False)]
 
 
 def _flash_inputs(dev, b, s, h, d, dtype, seed=0, sk=None):
@@ -489,7 +505,7 @@ def _fp32_bwd_ok(dtype, d):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,s,h,d,causal", FLASH_CASES)
+@pytest.mark.parametrize("b,s,h,d,causal", FLASH_SINGLE_CASES)
 def test_flash_single_kernels(cuda, dtype, b, s, h, d, causal):
     """#5 and #6 against their plain versions (exact softmax, P rounded
     after the division); the backward twice, bit for bit."""
