@@ -9,23 +9,25 @@ Phases, one line each (any failure exits non-zero, nothing is caught):
 2. build every kernel from ``paddle_tpu_torch/csrc`` with ``nvcc``, one
    compiler per source, all started together; for each kernel redesigned
    on warpgroup products (``csrc/hopper_tiles.cuh``: the bf16 fused CE
-   backward and single-block flash forward), its registers, spills and
-   shared memory from the ``-Xptxas=-v`` log and the ``HGMMA``
+   backward, the single-block flash forward, and the tiled flash and
+   splash forwards of ``csrc/attention_wgmma.cuh``), its registers,
+   spills and shared memory from the ``-Xptxas=-v`` log and the ``HGMMA``
    instructions in its SASS (``cuobjdump``; the run fails on none);
 3. each kernel against its plain PyTorch version on the card, in fp32
    and bf16 (tolerances at `check_kernels` and
    `check_training_kernels`), at the shapes the serving and training
    paths give it: the paged kernels over bf16, int8 and int4 pools;
-   splash and the fused CE (a ragged case and one over four vocab
-   chunks; each backward run twice and compared bit for bit); the flash
-   pairs at the flash runs' shapes (single-block [8, 1024, 32, 64],
-   tiled [4, 2048, 32, 64]) with each backward run twice and compared
-   bit for bit, the single-block forward at ragged shapes, and a ring
-   tick (a key
-   block's forward, and its backward from the global lse and out of two
-   key halves); then timed with CUDA events (L2 flushed between
-   launches) beside the plain version and one PyTorch library call on
-   the same inputs;
+   splash (the path's shape and GQA with segments in both dtypes; in
+   bf16 also ragged lengths, head dims 16, 80 and 128, a key tile fully
+   masked for some rows and rows with no visible key) and the fused CE
+   (a ragged case and one over four vocab chunks), each backward run
+   twice and compared bit for bit; the flash pairs at the flash runs'
+   shapes (single-block [8, 1024, 32, 64], tiled [4, 2048, 32, 64]) with
+   each backward run twice and compared bit for bit, both forwards at
+   ragged shapes, and a ring tick (a key block's forward, and its
+   backward from the global lse and out of two key halves); then timed
+   with CUDA events (L2 flushed between launches) beside the plain
+   version and one PyTorch library call on the same inputs;
 4. serving parity: a tiny fp32 GPT served on the card (kernels) and on
    the CPU (plain versions) over fp32, int8 and int4 pools gives
    identical greedy tokens;
@@ -38,23 +40,26 @@ Phases, one line each (any failure exits non-zero, nothing is caught):
    0; pool bytes and capacity against the bf16 run;
 7. ``generate()`` at the same width, 8 prompts of 128 tokens and 32 new
    tokens over the paged cache with bf16 and with int8 pools: the
-   splash forward and the decode kernel of the pools must have run;
+   decode kernel of the pools must have run, and no splash forward (a
+   128-token prefill is under ``FLAGS_pallas_flash_min_seqlen``: the
+   dense attention, as in the reference);
 8. training parity: a tiny fp32 GPT takes three ``TrainStep``s (AdamW,
    global-norm clip) on the card and on the CPU, with packed-sequence
    segment ids through splash, then with ``FLAGS_splash_attn`` off
-   through the flash pairs at 128 and 1280 tokens; losses and
-   parameters must agree, the path's kernels must have run and no
-   other training kernel;
+   through the flash pairs at 128 (``FLAGS_pallas_flash_min_seqlen``
+   lowered to 16) and 1280 tokens; losses and parameters must agree, the
+   path's kernels must have run and no other training kernel;
 9. the training path at GPT-3 1.3B width: ``TrainStep`` + AdamW (bf16
    weights, fp32 masters, bf16 moments, clip 1.0) over 8 x 1024 random
    tokens with recompute, 2 warm-up and 5 timed steps; the training
    kernels' counters are zeroed just before the timed steps and read
-   just after: splash and the CE must be > 0, the flash kernels 0, and
-   every loss finite;
+   just after: the bf16 splash forward on warpgroup products, the
+   splash backward and the CE must be > 0, every other training kernel
+   (the fp32 splash forward among them) 0, and every loss finite;
 10. the same with ``FLAGS_splash_attn`` off (the reference's flash
     routing), 2 warm-up and 3 timed steps at 8 x 1024 (the single-block
     pair must run, and no other attention kernel) and at 4 x 2048 (the
-    tiled pair);
+    bf16 tiled forward on warpgroup products and the tiled backward);
 11. one JSON line ``{"kernels": [...]}`` with each kernel's error,
     times, bound and launches (a paged kernel's from the serving run of
     its pools, splash's and the CE's from phase 9, a flash pair's from
@@ -131,12 +136,20 @@ WGMMA_KERNELS = {
                              "fused_ce_bwd_wgmma_kernel"),
     "flash_single_fwd_kernel": ("flash_attention",
                                 "flash_single_fwd_wgmma_kernel"),
+    "flash_fwd_wgmma_kernel": ("flash_attention", "flash_fwd_wgmma_kernel"),
+    "splash_fwd_wgmma_kernel": ("splash_attention",
+                                "splash_fwd_wgmma_kernel"),
 }
+
+
+def _template_args(mangled):
+    """The int and bool template arguments of a mangled kernel name."""
+    return re.findall(r"L[ib](\d+)E", mangled)
 
 
 def _short(mangled, fn):
     """``fn<args>`` from a mangled template name."""
-    args = re.findall(r"ILi(\d+)E", mangled)
+    args = _template_args(mangled)
     return f"{fn}<{', '.join(args)}>" if args else fn
 
 
@@ -194,13 +207,19 @@ def check_wgmma_kernels(built):
     from paddle_tpu_torch.ops.kernels import _build
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
     from paddle_tpu_torch.ops.kernels import fused_cross_entropy as fce
+    from paddle_tpu_torch.ops.kernels import splash_attention as sa
 
     ce = _build.load("fused_cross_entropy", fce._SIGNATURES)
     fl = _build.load("flash_attention", fa._SIGNATURES)
+    sp = _build.load("splash_attention", sa._SIGNATURES)
     dynamic = {"fused_ce_bwd_wgmma_kernel": lambda args: (
                    ce.fused_ce_bwd_bf16_smem()),
                "flash_single_fwd_wgmma_kernel": lambda args: (
-                   fl.flash_fwd_single_bf16_smem(int(args[0])))}
+                   fl.flash_fwd_single_bf16_smem(int(args[0]))),
+               "flash_fwd_wgmma_kernel": lambda args: (
+                   fl.flash_fwd_bf16_smem(int(args[0]))),
+               "splash_fwd_wgmma_kernel": lambda args: (
+                   sp.splash_fwd_bf16_smem(int(args[0]), int(args[1])))}
     report = {}
     for name, (src, fn) in WGMMA_KERNELS.items():
         saved = _build.library_path(src).with_suffix(".log")
@@ -212,7 +231,7 @@ def check_wgmma_kernels(built):
             {k: v for k, v in counts.items() if fn in k}
         entries = []
         for mangled in sorted(set(props) | set(hg or {})):
-            args = re.findall(r"ILi(\d+)E", mangled)
+            args = _template_args(mangled)
             p = props.get(mangled, {})
             entries.append({
                 "kernel": _short(mangled, fn),
@@ -523,8 +542,10 @@ def generate_full_width(dev, model):
     """``generate()`` of 8 prompts of 128 tokens, 32 new tokens, over the
     paged cache with bf16 pools and with int8 pools: one warm-up call,
     then one call with the kernels' counters zeroed just before and read
-    just after. The splash forward (prefill) and the decode kernel of
-    the pools must have run."""
+    just after. The decode kernel of the pools must have run, and no
+    splash forward: a 128-token prefill is under
+    ``FLAGS_pallas_flash_min_seqlen``, so it takes the dense attention,
+    as in the reference."""
     from paddle_tpu_torch.ops.kernels import splash_attention as sa
 
     cfg = model.config
@@ -538,12 +559,15 @@ def generate_full_width(dev, model):
         torch.cuda.synchronize()
         _paged_reset()
         sa.splash_attention_fwd.launches = 0
+        sa.splash_attention_fwd.launches_wgmma = 0
         t0 = time.perf_counter()
         toks = model.generate(ids, 32, **kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {"splash_fwd_kernel": sa.splash_attention_fwd.launches,
-                    **_paged_launches()}
+        splash = {"splash_fwd_wgmma_kernel":
+                  sa.splash_attention_fwd.launches_wgmma,
+                  "splash_fwd_kernel": sa.splash_attention_fwd.launches}
+        launches = {**splash, **_paged_launches()}
         t = toks.numpy()
         if not (t.shape == (8, 32) and (t >= 0).all()
                 and (t < cfg.vocab_size).all()):
@@ -558,8 +582,9 @@ def generate_full_width(dev, model):
                 (t == out[None]).mean())
         print(f"[7/{PHASES}] generate gpt3-1.3b paged "
               f"{quant or 'bf16'}: {json.dumps(stats)}", flush=True)
-        if launches["splash_fwd_kernel"] <= 0 or launches[decode] <= 0:
-            raise AssertionError(f"generate {quant}: a kernel never ran: "
+        if launches[decode] <= 0 or any(splash.values()):
+            raise AssertionError(f"generate {quant}: the decode kernel "
+                                 f"never ran, or a splash forward did: "
                                  f"{launches}")
     model.__dict__.pop("_generation_engines", None)
 
@@ -576,7 +601,33 @@ def generate_full_width(dev, model):
 # fp32 values that differ in their last bits).
 TOL_FWD = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 TOL_BWD = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# lse: fp32 sums of the same products in another order; in bf16 the
+# warpgroup forwards also work in log2 units (s * scale * log2 e) and
+# convert back
+TOL_LSE = {torch.float32: 1e-4, torch.bfloat16: 1e-3}
 SPLASH_SOURCE = "paddle_tpu_torch/csrc/splash_attention.cu"
+# splash cases: (b, s, nh, kvh, d, causal, segment ids, keywords); docs an
+# int: that many documents a row at random cuts (the last row one), a
+# tuple: those document lengths in every row. In fp32 and bf16:
+SPLASH_CASES = {
+    "splash [8,1024,32,64] causal": (8, 1024, 32, 32, 64, True, None, {}),
+    "splash gqa h8 kvh2 s256 segments": (4, 256, 8, 2, 64, True, 3, {}),
+}
+# and in bf16, the edges of the warpgroup forward's 128-row items and
+# 128-key tiles: ragged lengths, head dims padded to 64 and 128, GQA, a
+# key tile fully masked for some rows (rows 300-383 see none of keys
+# 0-255), and rows with no visible key at all (non-causal, sk < sq: the
+# third document's 100 rows)
+SPLASH_RAGGED = {
+    "splash gqa h8 kvh2 s200 segments": (2, 200, 8, 2, 64, True, 3, {}),
+    "splash s130 d16 causal": (1, 130, 4, 4, 16, True, None, {}),
+    "splash s208 d80 full": (2, 208, 4, 4, 80, False, None, {}),
+    "splash gqa s384 d128 segments": (1, 384, 4, 2, 128, True, 3, {}),
+    "splash s384 masked key tiles": (1, 384, 4, 2, 64, True, (130, 170, 84),
+                                     {}),
+    "splash sq300 sk200 full, rows with no key": (
+        1, 300, 4, 2, 64, False, (120, 80, 100), {"sk": 200}),
+}
 CE_SOURCE = "paddle_tpu_torch/csrc/fused_cross_entropy.cu"
 # the bf16 CE backward's scratch budget for the chunked case: d chunks of
 # 768 vocab rows (four over 3000, the last 696: a last dW tile of 56 rows)
@@ -592,19 +643,29 @@ def _rel_err(got, want):
     return _max_err(got, want) / max(float(want.float().abs().max()), 1e-30)
 
 
-def _check(name, dtype, fwd_err, bwd_rel, finite):
+def _check(name, dtype, fwd_err, bwd_rel, finite, lse_err=0.0, same=True):
     if not finite:
-        raise AssertionError(f"{name} {dtype}: non-finite output")
+        raise AssertionError(f"{name} {dtype}: non-finite output, or lse "
+                             f"finite where the plain one is not")
     if not fwd_err <= TOL_FWD[dtype]:
         raise AssertionError(f"{name} {dtype}: forward max abs err "
                              f"{fwd_err} > {TOL_FWD[dtype]}")
+    if not lse_err <= TOL_LSE[dtype]:
+        raise AssertionError(f"{name} {dtype}: lse max abs err {lse_err} "
+                             f"> {TOL_LSE[dtype]}")
     if not bwd_rel <= TOL_BWD[dtype]:
         raise AssertionError(f"{name} {dtype}: backward rel err "
                              f"{bwd_rel} > {TOL_BWD[dtype]}")
+    if not same:
+        raise AssertionError(f"{name} {dtype}: two backward runs differ")
 
 
 def _segments(b, s, docs, rng):
-    """[b, s] int32 ids: ``docs`` documents a row, the last row one."""
+    """[b, s] int32 ids: ``docs`` documents a row, the last row one; or,
+    with ``docs`` a tuple of lengths, those documents in every row."""
+    if isinstance(docs, tuple):
+        return np.tile(np.repeat(np.arange(len(docs)), docs),
+                       (b, 1)).astype(np.int32)
     rows = []
     for i in range(b):
         n = 1 if i == b - 1 else docs
@@ -613,16 +674,21 @@ def _segments(b, s, docs, rng):
     return np.stack(rows).astype(np.int32)
 
 
-def _splash_case(dev, b, s, h, kvh, d, causal, docs, dtype, seed=0):
+def _splash_case(dev, b, s, h, kvh, d, causal, docs, dtype, seed=0,
+                 sk=None):
     """One splash case in ``dtype``, q/k/v as strided views of one packed
-    tensor (as the model passes them): errors of the forward (out, lse)
-    and the backward against the plain versions, and the inputs."""
+    tensor (as the model passes them; ``sk`` < ``s`` keeps the first
+    ``sk`` key rows): errors of out, lse and the backward (from the
+    kernel's out and lse) against the plain versions, finiteness (lse
+    +inf exactly where the plain one is), whether a second backward is
+    bit-identical, and the inputs."""
     from paddle_tpu_torch.ops.kernels import splash_attention as sa
 
     gen = torch.Generator(device=dev).manual_seed(seed)
     qkv = torch.randn(b, s, h + 2 * kvh, d, device=dev, generator=gen) \
         .to(dtype)
     q, k, v = qkv.split([h, kvh, kvh], dim=2)
+    k, v = k[:, :sk], v[:, :sk]
     seg = None
     if docs:
         seg = torch.from_numpy(_segments(
@@ -630,6 +696,7 @@ def _splash_case(dev, b, s, h, kvh, d, causal, docs, dtype, seed=0):
     out, lse = sa.splash_attention_fwd(q, k, v, causal, seg)
     dout = torch.randn(out.shape, device=dev, generator=gen).to(dtype)
     grads = sa.splash_attention_bwd(q, k, v, out, lse, dout, causal, seg)
+    again = sa.splash_attention_bwd(q, k, v, out, lse, dout, causal, seg)
     torch.cuda.synchronize()
     want, want_lse = sa.splash_attention_ref(q, k, v, causal, seg,
                                              return_lse=True)
@@ -638,10 +705,13 @@ def _splash_case(dev, b, s, h, kvh, d, causal, docs, dtype, seed=0):
     finite = bool(torch.isfinite(out).all()) and all(
         bool(torch.isfinite(g).all()) for g in grads) and \
         torch.equal(fin, torch.isfinite(lse))
-    fwd_err = max(_max_err(out, want), _max_err(lse[fin], want_lse[fin]))
-    bwd_abs = max(_max_err(g, r) for g, r in zip(grads, ref))
-    bwd_rel = max(_rel_err(g, r) for g, r in zip(grads, ref))
-    return fwd_err, bwd_abs, bwd_rel, finite, (q, k, v, out, lse, dout)
+    same = all(torch.equal(a, g) for a, g in zip(again, grads))
+    errs = {"out": _max_err(out, want),
+            "lse": _max_err(lse[fin], want_lse[fin]) if fin.any() else 0.0,
+            "bwd_abs": max(_max_err(g, r) for g, r in zip(grads, ref)),
+            "bwd_rel": max(_rel_err(g, r) for g, r in zip(grads, ref)),
+            "empty_rows": int((~fin).sum())}
+    return errs, finite, same, (q, k, v, out, lse, dout)
 
 
 def _ce_case(dev, n, vocab, hidden, dtype, seed=0, budget=None):
@@ -691,14 +761,21 @@ def check_training_kernels(dev, flush):
     n, vocab, hidden = 8192, 50304, 2048
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
-        for case, args in {
-                "splash [8,1024,32,64] causal": (b, s, nh, nh, d, True,
-                                                 None),
-                "splash gqa h8 kvh2 s256 segments": (4, 256, 8, 2, 64, True,
-                                                     3)}.items():
-            fe, ba, br, fin, _ = _splash_case(dev, *args, dtype)
-            _check(case, dtype, fe, br, fin)
-            errs[(case, dtype)] = (fe, ba, br)
+        cases = dict(SPLASH_CASES)
+        if dtype == torch.bfloat16:
+            cases.update(SPLASH_RAGGED)
+        for case, args in cases.items():
+            e, fin, same, _ = _splash_case(dev, *args[:7], dtype,
+                                           **args[7])
+            _check(case, dtype, e["out"], e["bwd_rel"], fin, e["lse"], same)
+            errs[(case, dtype)] = (max(e["out"], e["lse"]), e["bwd_abs"],
+                                   e["bwd_rel"])
+            print(f"[3/{PHASES}] {case} {str(dtype)[6:]}: out max abs err "
+                  f"{e['out']:.3g}, lse {e['lse']:.3g} ({e['empty_rows']} "
+                  f"rows with no visible key: out 0, lse +inf); backward "
+                  f"max abs err {e['bwd_abs']:.3g}, relative "
+                  f"{e['bwd_rel']:.3g}, bit-identical on a second run",
+                  flush=True)
         for case, args in {"fused_ce [8192,2048]x[50304,2048]":
                            (n, vocab, hidden),
                            "fused_ce ragged [300,256]x[1000,256]":
@@ -707,23 +784,18 @@ def check_training_kernels(dev, flush):
                            (1000, 3000, 512, 0, CE_CHUNKED_BUDGET)}.items():
             fe, ba, br, fin, same, _ = _ce_case(dev, *args[:3], dtype,
                                                 *args[3:])
-            _check(case, dtype, fe, br, fin)
-            if not same:
-                raise AssertionError(f"{case} {dtype}: two backward runs "
-                                     f"differ")
+            _check(case, dtype, fe, br, fin, same=same)
             errs[(case, dtype)] = (fe, ba, br)
+            print(f"[3/{PHASES}] {case} {str(dtype)[6:]}: forward max abs "
+                  f"err {fe:.3g}; backward max abs err {ba:.3g}, relative "
+                  f"{br:.3g}, bit-identical on a second run", flush=True)
         torch.cuda.empty_cache()
-    for (case, dtype), (fe, ba, br) in errs.items():
-        print(f"[3/{PHASES}] {case} {str(dtype)[6:]}: forward max abs err "
-              f"{fe:.3g}; backward max abs err {ba:.3g}, relative "
-              f"{br:.3g}{'' if 'splash' in case else ', bit-identical'
-                         ' on a second run'}", flush=True)
 
     # times at the training path's dtype (bf16)
     bf = torch.bfloat16
     results = {}
-    _, _, _, _, (q, k, v, out, lse, dout) = _splash_case(
-        dev, b, s, nh, nh, d, True, None, bf)
+    *_, (q, k, v, out, lse, dout) = _splash_case(dev, b, s, nh, nh, d,
+                                                 True, None, bf)
     qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
                   for t in (q, k, v))
     dot = dout.transpose(1, 2).contiguous()
@@ -737,7 +809,7 @@ def check_training_kernels(dev, flush):
     lse_b = b * nh * s * 4
     lib_f = time_ms(sdpa, flush)
     for name, kernel, plain, nbytes, flops, lib in (
-            ("splash_fwd_kernel",
+            ("splash_fwd_wgmma_kernel",
              lambda: sa.splash_attention_fwd(q, k, v, True),
              lambda: sa.splash_attention_ref(q, k, v, True,
                                              return_lse=True),
@@ -784,7 +856,8 @@ def check_training_kernels(dev, flush):
     del h, w, hl, wl, labels, lse, g
     torch.cuda.empty_cache()
 
-    case_of = {"splash_fwd_kernel": ("splash [8,1024,32,64] causal", 0),
+    case_of = {"splash_fwd_wgmma_kernel": ("splash [8,1024,32,64] causal",
+                                           0),
                "splash_bwd_kernels": ("splash [8,1024,32,64] causal", 1),
                "fused_ce_fwd_kernel": ("fused_ce [8192,2048]x[50304,2048]",
                                        0),
@@ -794,6 +867,8 @@ def check_training_kernels(dev, flush):
         case, which = case_of[name]
         r["max_abs_err"] = errs[(case, torch.bfloat16)][which]
         r["max_abs_err_fp32"] = errs[(case, torch.float32)][which]
+        if name == "splash_fwd_wgmma_kernel":
+            r["fp32_route"] = "splash_fwd_kernel"
         if which:
             r["max_rel_err"] = errs[(case, torch.bfloat16)][2]
             r["max_rel_err_fp32"] = errs[(case, torch.float32)][2]
@@ -813,12 +888,12 @@ FLASH_TPU = "paddle_tpu/ops/pallas/flash_attention.py"
 # pair at the 1024-token run's, the tiled pair at the 2048-token run's
 FLASH_LINES = {"flash_single_fwd_kernel": 125,
                "flash_single_bwd_kernels": 139,
-               "flash_fwd_kernel": 201, "flash_bwd_kernels": 291}
+               "flash_fwd_wgmma_kernel": 201, "flash_bwd_kernels": 291}
 FLASH_SHAPES = {"single": (8, 1024, 32, 64), "tiled": (4, 2048, 32, 64)}
 # the ring's off-diagonal tick on the tiled pair: the second half of the
 # rows against the first half of the keys (a full block), from the global
 # lse and out of both halves
-RING_TICK = {"flash_fwd_kernel[ring tick]": "flash_fwd_kernel",
+RING_TICK = {"flash_fwd_wgmma_kernel[ring tick]": "flash_fwd_wgmma_kernel",
              "flash_bwd_kernels[outside lse]": "flash_bwd_kernels"}
 
 
@@ -827,6 +902,11 @@ RING_TICK = {"flash_fwd_kernel[ring tick]": "flash_fwd_kernel",
 FLASH_SINGLE_RAGGED = [((2, 80, 4, 16), False), ((2, 80, 4, 16), True),
                        ((2, 16, 2, 32), True), ((2, 208, 3, 80), False),
                        ((1, 1008, 4, 128), True)]
+# the tiled pair at ragged shapes (the bf16 forward's 128-row items and
+# 128-key tiles, head dims padded to 64 and 128): forward and the backward
+# from its out and lse
+FLASH_TILED_RAGGED = [((1, 130, 2, 32), False), ((2, 208, 3, 80), True),
+                      ((1, 256, 2, 128), True)]
 
 
 def _qkv(dev, shape, dtype, seed=0):
@@ -839,34 +919,39 @@ def _qkv(dev, shape, dtype, seed=0):
     return (*qkv.unbind(2), dout)
 
 
-def _flash_case(dev, path, dtype):
-    """One flash pair in ``dtype`` at its path's shape: forward errors
-    (out; lse on the tiled path), backward errors, finiteness, whether a
-    second backward is bit-identical, and the inputs."""
+def _flash_case(dev, path, dtype, shape=None, causal=True):
+    """One flash pair in ``dtype`` at its path's shape (or ``shape``):
+    errors of the forward (out; lse on the tiled path) and the backward,
+    finiteness, whether a second backward is bit-identical, and the
+    inputs."""
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
 
-    q, k, v, dout = _qkv(dev, FLASH_SHAPES[path], dtype)
+    q, k, v, dout = _qkv(dev, shape or FLASH_SHAPES[path], dtype)
+    lse_err = 0.0
     if path == "single":
-        out, lse = fa.flash_attention_fwd_single(q, k, v, True), None
-        grads = fa.flash_attention_bwd_single(q, k, v, dout, True)
-        again = fa.flash_attention_bwd_single(q, k, v, dout, True)
+        out, lse = fa.flash_attention_fwd_single(q, k, v, causal), None
+        grads = fa.flash_attention_bwd_single(q, k, v, dout, causal)
+        again = fa.flash_attention_bwd_single(q, k, v, dout, causal)
         torch.cuda.synchronize()
-        fwd_err = _max_err(out, fa.flash_attention_single_ref(q, k, v, True))
-        ref = fa.flash_attention_single_bwd_ref(q, k, v, dout, True)
+        fwd_err = _max_err(out, fa.flash_attention_single_ref(q, k, v,
+                                                              causal))
+        ref = fa.flash_attention_single_bwd_ref(q, k, v, dout, causal)
     else:
-        out, lse = fa.flash_attention_fwd(q, k, v, True)
-        grads = fa.flash_attention_bwd(q, k, v, out, lse, dout, True)
-        again = fa.flash_attention_bwd(q, k, v, out, lse, dout, True)
+        out, lse = fa.flash_attention_fwd(q, k, v, causal)
+        grads = fa.flash_attention_bwd(q, k, v, out, lse, dout, causal)
+        again = fa.flash_attention_bwd(q, k, v, out, lse, dout, causal)
         torch.cuda.synchronize()
-        want, want_lse = fa.flash_attention_ref(q, k, v, True,
+        want, want_lse = fa.flash_attention_ref(q, k, v, causal,
                                                 return_lse=True)
-        fwd_err = max(_max_err(out, want), _max_err(lse, want_lse))
-        ref = fa.flash_attention_bwd_ref(q, k, v, out, lse, dout, True)
-    finite = all(bool(torch.isfinite(t).all()) for t in (out, *grads))
+        fwd_err, lse_err = _max_err(out, want), _max_err(lse, want_lse)
+        ref = fa.flash_attention_bwd_ref(q, k, v, out, lse, dout, causal)
+    finite = all(bool(torch.isfinite(t).all()) for t in (out, *grads)) and \
+        (lse is None or bool(torch.isfinite(lse).all()))
     same = all(torch.equal(a, g) for a, g in zip(again, grads))
-    bwd_abs = max(_max_err(g, r) for g, r in zip(grads, ref))
-    bwd_rel = max(_rel_err(g, r) for g, r in zip(grads, ref))
-    return fwd_err, bwd_abs, bwd_rel, finite, same, (q, k, v, out, lse, dout)
+    errs = {"out": fwd_err, "lse": lse_err,
+            "bwd_abs": max(_max_err(g, r) for g, r in zip(grads, ref)),
+            "bwd_rel": max(_rel_err(g, r) for g, r in zip(grads, ref))}
+    return errs, finite, same, (q, k, v, out, lse, dout)
 
 
 def _ring_tick_case(dev, dtype):
@@ -882,10 +967,11 @@ def _ring_tick_case(dev, dtype):
     halves = ((k[:, :h2], v[:, :h2], False), (k[:, h2:], v[:, h2:], True))
     fwd = [fa.flash_attention_fwd(q2, kk, vv, c) for kk, vv, c in halves]
     torch.cuda.synchronize()
-    fwd_err = 0.0
+    fwd_err = lse_err = 0.0
     for (o, l), (kk, vv, c) in zip(fwd, halves):
         w, wl = fa.flash_attention_ref(q2, kk, vv, c, return_lse=True)
-        fwd_err = max(fwd_err, _max_err(o, w), _max_err(l, wl))
+        fwd_err = max(fwd_err, _max_err(o, w))
+        lse_err = max(lse_err, _max_err(l, wl))
     (oa, la), (ob, lb) = fwd
     lse = torch.logaddexp(la, lb)
     out = (oa.float() * torch.exp(la - lse).transpose(1, 2)[..., None]
@@ -893,7 +979,11 @@ def _ring_tick_case(dev, dtype):
         .to(dtype)
     grads = [fa.flash_attention_bwd(q2, kk, vv, out, lse, do2, c)
              for kk, vv, c in halves]
+    again = [fa.flash_attention_bwd(q2, kk, vv, out, lse, do2, c)
+             for kk, vv, c in halves]
     torch.cuda.synchronize()
+    same = all(torch.equal(a, g) for gs, ags in zip(grads, again)
+               for a, g in zip(ags, gs))
     refs = [fa.flash_attention_bwd_ref(q2, kk, vv, out, lse, do2, c)
             for kk, vv, c in halves]
     bwd_abs = max(_max_err(g, r) for gs, rs in zip(grads, refs)
@@ -909,7 +999,9 @@ def _ring_tick_case(dev, dtype):
     finite = all(bool(torch.isfinite(t).all())
                  for t in (out, lse, *grads[0], *grads[1]))
     block = (q2, *halves[0][:2], out, lse, do2)
-    return fwd_err, bwd_abs, bwd_rel, merge_err, finite, block
+    errs = {"out": fwd_err, "lse": lse_err, "bwd_abs": bwd_abs,
+            "bwd_rel": bwd_rel, "merge": merge_err}
+    return errs, finite, same, block
 
 
 def check_flash_kernels(dev, flush):
@@ -925,31 +1017,46 @@ def check_flash_kernels(dev, flush):
         for path, (fwd_name, bwd_name) in (
                 ("single", ("flash_single_fwd_kernel",
                             "flash_single_bwd_kernels")),
-                ("tiled", ("flash_fwd_kernel", "flash_bwd_kernels"))):
-            fe, ba, br, fin, same, _ = _flash_case(dev, path, dtype)
-            _check(f"flash {path}", dtype, fe, br, fin)
-            if not same:
-                raise AssertionError(f"{bwd_name} {dtype}: two backward "
-                                     f"runs differ")
-            errs[(fwd_name, dtype)] = (fe,)
-            errs[(bwd_name, dtype)] = (ba, br)
+                ("tiled", ("flash_fwd_wgmma_kernel", "flash_bwd_kernels"))):
+            e, fin, same, _ = _flash_case(dev, path, dtype)
+            _check(f"flash {path}", dtype, e["out"], e["bwd_rel"], fin,
+                   e["lse"], same)
+            errs[(fwd_name, dtype)] = (max(e["out"], e["lse"]),)
+            errs[(bwd_name, dtype)] = (e["bwd_abs"], e["bwd_rel"])
             print(f"[3/{PHASES}] flash {path} {list(FLASH_SHAPES[path])} "
-                  f"causal {str(dtype)[6:]}: forward max abs err {fe:.3g}; "
-                  f"backward max abs err {ba:.3g}, relative {br:.3g}, "
+                  f"causal {str(dtype)[6:]}: out max abs err {e['out']:.3g}"
+                  f", lse {e['lse']:.3g}; backward max abs err "
+                  f"{e['bwd_abs']:.3g}, relative {e['bwd_rel']:.3g}, "
                   f"bit-identical on a second run", flush=True)
             torch.cuda.empty_cache()
-        fe, ba, br, me, fin, _ = _ring_tick_case(dev, dtype)
-        _check("flash ring tick", dtype, fe, br, fin)
-        if not me <= TOL_BWD[dtype]:
+        e, fin, same, _ = _ring_tick_case(dev, dtype)
+        _check("flash ring tick", dtype, e["out"], e["bwd_rel"], fin,
+               e["lse"], same)
+        if not e["merge"] <= TOL_BWD[dtype]:
             raise AssertionError(f"flash ring tick {dtype}: halves merged "
-                                 f"off the whole by {me}")
-        errs[("flash_fwd_kernel[ring tick]", dtype)] = (fe,)
-        errs[("flash_bwd_kernels[outside lse]", dtype)] = (ba, br)
+                                 f"off the whole by {e['merge']}")
+        errs[("flash_fwd_wgmma_kernel[ring tick]", dtype)] = (
+            max(e["out"], e["lse"]),)
+        errs[("flash_bwd_kernels[outside lse]", dtype)] = (e["bwd_abs"],
+                                                          e["bwd_rel"])
         print(f"[3/{PHASES}] flash ring tick (rows 1024-2047 over two key "
-              f"halves, outside lse) {str(dtype)[6:]}: forward max abs err "
-              f"{fe:.3g}; backward max abs err {ba:.3g}, relative {br:.3g}; "
-              f"merged halves vs whole {me:.3g}", flush=True)
+              f"halves, outside lse) {str(dtype)[6:]}: out max abs err "
+              f"{e['out']:.3g}, lse {e['lse']:.3g}; backward max abs err "
+              f"{e['bwd_abs']:.3g}, relative {e['bwd_rel']:.3g}, "
+              f"bit-identical on a second run; merged halves vs whole "
+              f"{e['merge']:.3g}", flush=True)
         torch.cuda.empty_cache()
+
+    for shape, causal in FLASH_TILED_RAGGED:
+        e, fin, same, _ = _flash_case(dev, "tiled", torch.bfloat16, shape,
+                                      causal)
+        _check(f"flash tiled {shape} causal {causal}", torch.bfloat16,
+               e["out"], e["bwd_rel"], fin, e["lse"], same)
+        print(f"[3/{PHASES}] flash tiled {list(shape)} "
+              f"{'causal' if causal else 'full'} bfloat16: out max abs err "
+              f"{e['out']:.3g}, lse {e['lse']:.3g}; backward relative "
+              f"{e['bwd_rel']:.3g}, bit-identical on a second run",
+              flush=True)
 
     for shape, causal in FLASH_SINGLE_RAGGED:
         errs_r = {}
@@ -973,7 +1080,8 @@ def check_flash_kernels(dev, flush):
     results = {}
     for path, pair in (("single", ("flash_single_fwd_kernel",
                                    "flash_single_bwd_kernels")),
-                       ("tiled", ("flash_fwd_kernel", "flash_bwd_kernels")),
+                       ("tiled", ("flash_fwd_wgmma_kernel",
+                                  "flash_bwd_kernels")),
                        ("tick", tuple(RING_TICK))):
         if path == "tick":
             *_, (q, k, v, out, lse, dout) = _ring_tick_case(dev, bf)
@@ -1028,6 +1136,8 @@ def check_flash_kernels(dev, flush):
     for name, r in results.items():
         e32, e16 = errs[(name, torch.float32)], errs[(name, bf)]
         r["max_abs_err"], r["max_abs_err_fp32"] = e16[0], e32[0]
+        if name.startswith("flash_fwd_wgmma_kernel"):
+            r["fp32_route"] = "flash_fwd_kernel"
         if len(e16) > 1:
             r["max_rel_err"], r["max_rel_err_fp32"] = e16[1], e32[1]
         lib = "null" if r["library_ms"] is None else \
@@ -1038,30 +1148,47 @@ def check_flash_kernels(dev, flush):
     return results
 
 
+# kernel -> (wrapper module, wrapper, its launch counter); the splash and
+# tiled flash forwards count their bf16 route (warpgroup products) apart
+# from their fp32 one
 TRAIN_COUNTERS = {
-    "splash_fwd_kernel": ("splash_attention", "splash_attention_fwd"),
-    "splash_bwd_kernels": ("splash_attention", "splash_attention_bwd"),
-    "fused_ce_fwd_kernel": ("fused_cross_entropy", "fused_ce_fwd"),
-    "fused_ce_bwd_kernels": ("fused_cross_entropy", "fused_ce_bwd"),
+    "splash_fwd_wgmma_kernel": ("splash_attention", "splash_attention_fwd",
+                                "launches_wgmma"),
+    "splash_fwd_kernel": ("splash_attention", "splash_attention_fwd",
+                          "launches"),
+    "splash_bwd_kernels": ("splash_attention", "splash_attention_bwd",
+                           "launches"),
+    "fused_ce_fwd_kernel": ("fused_cross_entropy", "fused_ce_fwd",
+                            "launches"),
+    "fused_ce_bwd_kernels": ("fused_cross_entropy", "fused_ce_bwd",
+                             "launches"),
     "flash_single_fwd_kernel": ("flash_attention",
-                                "flash_attention_fwd_single"),
+                                "flash_attention_fwd_single", "launches"),
     "flash_single_bwd_kernels": ("flash_attention",
-                                 "flash_attention_bwd_single"),
-    "flash_fwd_kernel": ("flash_attention", "flash_attention_fwd"),
-    "flash_bwd_kernels": ("flash_attention", "flash_attention_bwd"),
+                                 "flash_attention_bwd_single", "launches"),
+    "flash_fwd_wgmma_kernel": ("flash_attention", "flash_attention_fwd",
+                               "launches_wgmma"),
+    "flash_fwd_kernel": ("flash_attention", "flash_attention_fwd",
+                         "launches"),
+    "flash_bwd_kernels": ("flash_attention", "flash_attention_bwd",
+                          "launches"),
 }
 CE_KERNELS = ("fused_ce_fwd_kernel", "fused_ce_bwd_kernels")
 
 
-def _path_kernels(seq, splash):
+def _path_kernels(seq, splash, bf16=True):
     """The training kernels a step at ``seq`` tokens launches: splash with
-    the flag on, else the flash pair of the length's path; and the CE."""
+    the flag on, else the flash pair of the length's path (the forwards of
+    splash and the tiled pair on warpgroup products in bf16); and the
+    CE."""
     if splash:
-        attn = ("splash_fwd_kernel", "splash_bwd_kernels")
+        attn = ("splash_fwd_wgmma_kernel" if bf16 else "splash_fwd_kernel",
+                "splash_bwd_kernels")
     elif seq <= 1024:
         attn = ("flash_single_fwd_kernel", "flash_single_bwd_kernels")
     else:
-        attn = ("flash_fwd_kernel", "flash_bwd_kernels")
+        attn = ("flash_fwd_wgmma_kernel" if bf16 else "flash_fwd_kernel",
+                "flash_bwd_kernels")
     return attn + CE_KERNELS
 
 
@@ -1076,24 +1203,36 @@ def _check_launches(launches, expect, what):
 
 
 @contextlib.contextmanager
-def splash_flag(on):
-    """``FLAGS_splash_attn`` set through the port's registry."""
+def routing_flags(**values):
+    """Flags (``FLAGS_<name>``) set through the port's registry."""
     from paddle_tpu_torch import get_flags, set_flags
 
-    saved = get_flags("FLAGS_splash_attn")
-    set_flags({"FLAGS_splash_attn": on})
+    names = [f"FLAGS_{n}" for n in values]
+    saved = get_flags(names)
+    set_flags(dict(zip(names, values.values())))
     try:
         yield
     finally:
         set_flags(saved)
 
 
-def _train_counters():
-    import importlib
+class _TrainCounters:
+    """The training kernels' launch counters: ``zero()``, ``read()``."""
 
-    return {name: getattr(importlib.import_module(
-                f"paddle_tpu_torch.ops.kernels.{mod}"), fn)
-            for name, (mod, fn) in TRAIN_COUNTERS.items()}
+    def __init__(self):
+        import importlib
+
+        self.at = {name: (getattr(importlib.import_module(
+                       f"paddle_tpu_torch.ops.kernels.{mod}"), fn), attr)
+                   for name, (mod, fn, attr) in TRAIN_COUNTERS.items()}
+
+    def zero(self):
+        for fn, attr in self.at.values():
+            setattr(fn, attr, 0)
+
+    def read(self):
+        return {name: getattr(fn, attr) for name, (fn, attr)
+                in self.at.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -1122,9 +1261,8 @@ def train_parity(dev, splash=True, seq=128):
     ids = rng.integers(0, 128, (2, seq))
     labels = rng.integers(0, 128, (2, seq))
     seg = _segments(2, seq, 3, rng) if splash else None
-    counters = _train_counters()
-    for c in counters.values():
-        c.launches = 0
+    counters = _TrainCounters()
+    counters.zero()
     losses, params = {}, {}
     for where in ("card", "cpu"):
         d = dev if where == "card" else torch.device("cpu")
@@ -1139,7 +1277,7 @@ def train_parity(dev, splash=True, seq=128):
         losses[where] = [float(step(*batch)) for _ in range(3)]
         params[where] = {k: t.detach().cpu() for k, t in
                          model.state_dict().items()}
-    launches = {k: c.launches for k, c in counters.items()}
+    launches = counters.read()
     loss_err = max(abs(a - b) for a, b in zip(losses["card"],
                                               losses["cpu"]))
     param_rel = max(_rel_err(params["card"][k], params["cpu"][k])
@@ -1154,7 +1292,8 @@ def train_parity(dev, splash=True, seq=128):
         raise AssertionError(f"card/CPU losses differ by {loss_err}")
     if not param_rel <= 1e-3:
         raise AssertionError(f"card/CPU params differ by {param_rel} rel")
-    _check_launches(launches, _path_kernels(seq, splash), "train parity")
+    _check_launches(launches, _path_kernels(seq, splash, bf16=False),
+                    "train parity")
 
 
 # ---------------------------------------------------------------------------
@@ -1190,11 +1329,10 @@ def train_full_width(dev, warmup=2, timed=5, batch=8, seq=1024,
     setup_s = time.perf_counter() - t0
     losses = [float(step(ids, labels)) for _ in range(warmup)]
 
-    counters = _train_counters()
+    counters = _TrainCounters()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for c in counters.values():
-        c.launches = 0
+    counters.zero()
     times = []
     for _ in range(timed):
         t0 = time.perf_counter()
@@ -1202,7 +1340,7 @@ def train_full_width(dev, warmup=2, timed=5, batch=8, seq=1024,
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         losses.append(float(loss))
-    launches = {k: c.launches for k, c in counters.items()}
+    launches = counters.read()
 
     params = sum(p.numel() for p in model.parameters())
     tokens = batch * seq
@@ -1287,14 +1425,15 @@ def main() -> int:
     del model
     torch.cuda.empty_cache()
     train_parity(dev)
-    with splash_flag(False):
-        train_parity(dev, splash=False, seq=128)
+    with routing_flags(splash_attn=False):
+        with routing_flags(pallas_flash_min_seqlen=16):
+            train_parity(dev, splash=False, seq=128)
         train_parity(dev, splash=False, seq=1280)
     steps = {}
     ran, n = train_full_width(dev)
     launches.update(ran)
     steps.update(dict.fromkeys(ran, n))
-    with splash_flag(False):
+    with routing_flags(splash_attn=False):
         for batch, seq in ((8, 1024), (4, 2048)):
             ran, n = train_full_width(dev, timed=3, batch=batch, seq=seq,
                                       splash=False, phase=10)
@@ -1307,7 +1446,7 @@ def main() -> int:
     where = {name: (PAGED_SOURCE, f"{PAGED_TPU}:{line}")
              for name, (_, _, _, line) in PAGED_KERNELS.items()}
     where.update({
-        "splash_fwd_kernel": (
+        "splash_fwd_wgmma_kernel": (
             SPLASH_SOURCE, "paddle_tpu/ops/pallas/splash_attention.py:139"),
         "splash_bwd_kernels": (
             SPLASH_SOURCE, "paddle_tpu/ops/pallas/splash_attention.py:255"),

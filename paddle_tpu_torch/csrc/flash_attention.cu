@@ -7,7 +7,8 @@
 //      flash_single_fwd_kernel (fp32) <- _fwd_single_kernel (seq <= 1024)
 //   #6 flash_single_dq_kernel,
 //      flash_single_dkdv_kernel    <- _bwd_single_kernel
-//   #7 flash_fwd_kernel            <- _fwd_kernel (the tiled path)
+//   #7 flash_fwd_wgmma_kernel (bf16),
+//      flash_fwd_kernel (fp32)     <- _fwd_kernel (the tiled path)
 //   #8 flash_delta_kernel,
 //      flash_dkdv_kernel,
 //      flash_dq_kernel             <- _bwd_fused_kernel
@@ -23,7 +24,10 @@
 // #7 and #8 are the splash kernels' bodies (csrc/splash_attention.cu) with
 // kvh = nh and no segment ids: the tiled online softmax casts the
 // unnormalised P to the value dtype and divides O by l at the end, and
-// returns lse = m + log l; the backward takes lse and out from outside
+// returns lse = m + log l (in bf16 the warpgroup forward of
+// attention_wgmma.cuh, whose note gives its design, its bound and what it
+// leaves on the table; in fp32 attention_tiles.cuh's, one block per 64
+// rows); the backward takes lse and out from outside
 // (under ring attention they are the global ones, so p = exp(s - lse) sums
 // to less than 1 over one key block, and nothing renormalises), computes
 // delta = rowsum(dO * O) in fp32 from the given out, and sums dK, dV and dQ
@@ -71,13 +75,12 @@
 // products where the bound counts 2; the exponentials too), the diagonal
 // tile's masked half, no overlap of one warpgroup's softmax with its own
 // products (the two warpgroups interleave only by chance) and 4-byte
-// output stores. #6-#8
-// keep splash's list (wmma from shared memory, no cp.async/TMA pipelining,
-// 4-warp blocks) and #6 computes S and dP three times (9 products where
-// the bound counts 5).
+// output stores. #6, #8
+// and #7's fp32 route keep splash's list (wmma or CUDA cores from shared
+// memory, no cp.async/TMA pipelining, 4-warp blocks) and #6 computes S and
+// dP three times (9 products where the bound counts 5).
 
-#include "attention_tiles.cuh"
-#include "hopper_tiles.cuh"
+#include "attention_wgmma.cuh"
 
 namespace {
 
@@ -176,22 +179,6 @@ __global__ void __launch_bounds__(kThreads) flash_single_fwd_kernel(
   }
 }
 
-// The bf16 route: see the note at the top. Template D: the head dim padded
-// to 64 or 128.
-template <int D>
-struct SingleFwdSmem {
-  static constexpr int kPanels = D / 64;
-  static constexpr int kStages = D == 64 ? 3 : 2;
-  static constexpr int kRows = 128;                  // query rows, keys a tile
-  static constexpr int kPanel = kRows * hop::kRowBytes;       // 16 KB
-  static constexpr int kTile = kPanels * kPanel;     // Q, K or V tile
-  static constexpr size_t kQ = 0;                    // two Q tiles
-  static constexpr size_t kK = kQ + 2 * kTile;
-  static constexpr size_t kV = kK + (size_t)kStages * kTile;
-  static constexpr size_t kBars = kV + (size_t)kStages * kTile;
-  static constexpr size_t kBytes = kBars + (4 + 2 * kStages) * 8 + 1024;
-};
-
 // S[64 rows x 128 keys] = Q K^T of one warpgroup (both K-major), scaled
 // to log2 units (sl2 = scale * log2 e); keys past sk or the diagonal
 // -inf. Only a tile that reaches past the diagonal or the last key is
@@ -200,46 +187,18 @@ template <int D>
 __device__ __forceinline__ void single_fwd_scores(
     float (&s)[64], uint32_t q_addr, uint32_t k_addr, int k0, int rows_lo,
     int row0, int t, float sl2, const Geometry& g) {
-  constexpr int kPanel = SingleFwdSmem<D>::kPanel;
-  hop::fence_regs(s);
-  hop::fence();
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const uint32_t off = (kk >> 2) * kPanel + (kk & 3) * 32;
-    hop::mma_ss<128, 0, 0>(s, hop::desc(q_addr + off, 16, 1024),
-                           hop::desc(k_addr + off, 16, 1024), kk > 0);
-  }
-  hop::commit();
+  attn_wg::issue_scores<D>(s, q_addr, k_addr);
   hop::wait<0>();
   hop::fence_regs(s);
-  if (k0 + 128 > g.sk || (g.causal && k0 + 127 > rows_lo)) {
-#pragma unroll
-    for (int i = 0; i < 64; ++i) {
-      const int j = k0 + hop::acc_col(t, i);
-      const int r = row0 + 8 * ((i >> 1) & 1);
-      s[i] = j < g.sk && (!g.causal || j <= r) ? s[i] * sl2 : -INFINITY;
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < 64; ++i) s[i] *= sl2;
-  }
+  const int no_seg[2] = {0, 0};
+  attn_wg::mask_scores<false>(s, t, k0, row0, rows_lo, nullptr, no_seg, sl2,
+                              g);
 }
 
-// One (128 query rows, head, batch) work item of the persistent walk,
-// longest causal rows first.
-struct SingleFwdItem {
-  int q0, h, b, n_kt;
-  __device__ SingleFwdItem(int item, int batch, const Geometry& g) {
-    const int nq = (g.sq + 127) / 128, per_q = g.nh * batch;
-    const int qt = nq - 1 - item / per_q, rem = item % per_q;
-    q0 = qt * 128;
-    h = rem % g.nh;
-    b = rem / g.nh;
-    const int nk = (g.sk + 127) / 128;
-    n_kt = g.causal ? min(nk, qt + 1) : nk;
-  }
-};
-
+// The bf16 route: see the note at the top. Template D: the head dim padded
+// to 64 or 128. Its shared memory is the tiled forward's layout
+// (attention_wgmma.cuh) with one ring for K and V: the barrier area has
+// room for this kernel's fewer barriers.
 template <int D>
 __global__ void __launch_bounds__(hop::kThreads, 1)
     flash_single_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
@@ -247,8 +206,8 @@ __global__ void __launch_bounds__(hop::kThreads, 1)
                                   const __grid_constant__ CUtensorMap tv,
                                   __nv_bfloat16* __restrict__ out,
                                   Geometry g, int batch) {
-  using L = SingleFwdSmem<D>;
-  constexpr int kB = L::kRows;
+  using L = attn_wg::FwdSmem<D, false>;
+  constexpr int kB = attn_wg::kRows;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm = hop::align1024(smem_raw);
   uint64_t* q_full = (uint64_t*)(sm + L::kBars);   // [2]
@@ -278,7 +237,7 @@ __global__ void __launch_bounds__(hop::kThreads, 1)
       hop::Ring ring(L::kStages, 1);
       for (int it = 0, item = blockIdx.x; item < n_items;
            ++it, item += gridDim.x) {
-        const SingleFwdItem w(item, batch, g);
+        const attn_wg::FwdItem w(item, batch, g);
         const int qb = it & 1;
         hop::bar_wait(&q_empty[qb], ((it >> 1) & 1) ^ 1);
         hop::bar_arrive_tx(&q_full[qb], L::kTile);
@@ -313,7 +272,7 @@ __global__ void __launch_bounds__(hop::kThreads, 1)
   hop::Ring ring(L::kStages, 0);
   for (int it = 0, item = blockIdx.x; item < n_items;
        ++it, item += gridDim.x) {
-    const SingleFwdItem w(item, batch, g);
+    const attn_wg::FwdItem w(item, batch, g);
     const int qb = it & 1;
     const int rows_lo = w.q0 + 64 * wg;                // the warpgroup's rows
     const int row0 = rows_lo + hop::acc_row(t, 0);     // and row0 + 8
@@ -425,6 +384,19 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
   attn::fwd_body<T>(q, k, v, out, lse, seg, qv, kv, vv, g);
 }
 
+// bf16: attention_wgmma.cuh's body, kvh = nh and no segment ids (seg is
+// null). D: the head dim padded to 64 or 128.
+template <int D>
+__global__ void __launch_bounds__(attn_wg::kThreads, 1)
+    flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           __nv_bfloat16* __restrict__ out,
+                           float* __restrict__ lse, const int* seg,
+                           Geometry g, int batch) {
+  attn_wg::fwd_body<D, false>(tq, tk, tv, out, lse, nullptr, g, batch);
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads) flash_delta_kernel(
     const T* __restrict__ out, const T* __restrict__ dout,
@@ -471,40 +443,26 @@ template <int D>
 cudaError_t launch_single_wgmma(const CUtensorMap (&maps)[3], void* out,
                                 int b, const Geometry& g,
                                 cudaStream_t stream) {
-  const size_t smem = SingleFwdSmem<D>::kBytes;
+  const size_t smem = attn_wg::FwdSmem<D, false>::kBytes;
   cudaError_t err = hop::prepare(flash_single_fwd_wgmma_kernel<D>, smem);
   if (err != cudaSuccess) return err;
-  // persistent: one block an SM walks the (128 rows, head, batch) items
-  int dev = 0, sms = 0;
-  if ((err = cudaGetDevice(&dev)) ||
-      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                    dev)))
-    return err;
-  const long long items = (long long)((g.sq + 127) / 128) * g.nh * b;
-  if (items > 0x7fffffff) return cudaErrorInvalidValue;
-  const int grid = (int)(items < sms ? items : sms);
+  int grid = 0;
+  err = attn_wg::persistent_grid(
+      (long long)((g.sq + 127) / 128) * g.nh * b, &grid);
+  if (err != cudaSuccess) return err;
   flash_single_fwd_wgmma_kernel<D><<<grid, hop::kThreads, smem, stream>>>(
       maps[0], maps[1], maps[2], (__nv_bfloat16*)out, g, b);
   return cudaGetLastError();
 }
 
-// bf16: the wgmma kernel, over tensor maps of the three strided views
-// (dims d, heads, rows, batch; boxes of 64 columns x 128 rows).
+// bf16: the wgmma kernel, over tensor maps of the three strided views.
 cudaError_t fwd_single_bf16(const void* q, const void* k, const void* v,
                             void* out, View qv, View kv, View vv, int b,
                             const Geometry& g, cudaStream_t stream) {
   CUtensorMap maps[3];
-  const void* ptrs[3] = {q, k, v};
-  const View views[3] = {qv, kv, vv};
-  const int rows[3] = {g.sq, g.sk, g.sk};
-  const int box[4] = {64, 1, 128, 1};
-  for (int i = 0; i < 3; ++i) {
-    const long long dims[4] = {g.d, g.nh, rows[i], b};
-    const long long strides[3] = {views[i].h, views[i].s, views[i].b};
-    const cudaError_t err =
-        hop::make_map(&maps[i], ptrs[i], 4, dims, strides, box);
-    if (err != cudaSuccess) return err;
-  }
+  const cudaError_t err =
+      attn_wg::qkv_maps(maps, q, k, v, qv, kv, vv, b, g);
+  if (err != cudaSuccess) return err;
   return g.d <= 64 ? launch_single_wgmma<64>(maps, out, b, g, stream)
                    : launch_single_wgmma<128>(maps, out, b, g, stream);
 }
@@ -565,8 +523,8 @@ extern "C" int flash_fwd_single(const void* q, const void* k, const void* v,
 // The dynamic shared memory a bf16 single-block forward block launches
 // with at head dim d.
 extern "C" int flash_fwd_single_bf16_smem(int d) {
-  return (int)(d <= 64 ? SingleFwdSmem<64>::kBytes
-                       : SingleFwdSmem<128>::kBytes);
+  return (int)(d <= 64 ? attn_wg::FwdSmem<64, false>::kBytes
+                       : attn_wg::FwdSmem<128, false>::kBytes);
 }
 
 // stats: [3, b, nh, sq] fp32 scratch (row max, row sum, delta).
@@ -600,12 +558,23 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
   const View qv{qb, qs, qh}, kv{kb, ks, kh}, vv{vb, vs, vh};
   cudaStream_t s = (cudaStream_t)stream;
   if (bf16)
-    return (int)attn::launch_fwd<__nv_bfloat16>(
-        flash_fwd_kernel<__nv_bfloat16>, q, k, v, out, (float*)lse, nullptr,
-        qv, kv, vv, b, g, s);
+    return g.d <= 64
+               ? (int)attn_wg::launch_fwd<64, false>(
+                     flash_fwd_wgmma_kernel<64>, q, k, v, out, (float*)lse,
+                     nullptr, qv, kv, vv, b, g, s)
+               : (int)attn_wg::launch_fwd<128, false>(
+                     flash_fwd_wgmma_kernel<128>, q, k, v, out, (float*)lse,
+                     nullptr, qv, kv, vv, b, g, s);
   return (int)attn::launch_fwd<float>(flash_fwd_kernel<float>, q, k, v, out,
                                       (float*)lse, nullptr, qv, kv, vv, b, g,
                                       s);
+}
+
+// The dynamic shared memory a bf16 tiled forward block launches with at
+// head dim d.
+extern "C" int flash_fwd_bf16_smem(int d) {
+  return (int)(d <= 64 ? attn_wg::FwdSmem<64, false>::kBytes
+                       : attn_wg::FwdSmem<128, false>::kBytes);
 }
 
 // lse and out from outside (the forward's, or a ring's global ones); delta:

@@ -1,9 +1,11 @@
 // Hopper tile layer (sm_90a): warpgroup products fed by a ring of tiles
 // that the Tensor Memory Accelerator copies into shared memory. Used by the
 // bf16 routes of the fused CE backward (fused_cross_entropy.cu, TPU kernel
-// #12) and the single-block flash forward (flash_attention.cu, #5); the
-// fp32 routes stay on tile_mma.cuh (wgmma has no true-fp32 form and TF32
-// is off by the port's numerics contract).
+// #12), the single-block flash forward (flash_attention.cu, #5) and the
+// online-softmax forward of the tiled flash and splash kernels
+// (attention_wgmma.cuh, #7 and #9); the fp32 routes stay on tile_mma.cuh
+// (wgmma has no true-fp32 form and TF32 is off by the port's numerics
+// contract).
 //
 // What it offers, and each helper's contract:
 //   * Swizzled panels. Every operand tile lives in shared memory as

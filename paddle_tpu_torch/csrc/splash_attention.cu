@@ -2,7 +2,8 @@
 // attention with GQA and packed-sequence segment ids, forward and backward.
 //
 // Replaces the TPU kernels of paddle_tpu/ops/pallas/splash_attention.py:
-//   splash_fwd_kernel          <- _fwd_kernel (via _fwd, one pallas_call)
+//   splash_fwd_wgmma_kernel (bf16),
+//   splash_fwd_kernel (fp32)   <- _fwd_kernel (via _fwd, one pallas_call)
 //   splash_delta_kernel,
 //   splash_dkdv_kernel,
 //   splash_dq_kernel           <- _bwd_kernel (via _bwd_call)
@@ -13,20 +14,24 @@
 // backward recomputes p = exp(s * scale - lse) and casts dS to q's dtype
 // before its two products, with fp32 dQ/dK/dV accumulators cast at the end.
 //
-// Layouts, masking and design: attention_tiles.cuh, whose device bodies
-// these kernels wrap (flash_attention.cu wraps the same bodies, without
-// segment ids and GQA, for TPU kernels #7/#8).
+// Layouts, masking and design: the bf16 forward is attention_wgmma.cuh's
+// warpgroup body (its note gives the design and what it leaves on the
+// table); the fp32 forward and the backward are attention_tiles.cuh's
+// bodies. flash_attention.cu wraps the same bodies, without segment ids
+// and GQA, for TPU kernels #7/#8.
 //
 // What bounds it on the H100: at the training shape (b 8, s 1024, 32 heads,
 // d 64, causal) the forward moves q, k, v, o (134 MB, 0.040 ms at
 // 3.35 TB/s) for 3.4e10 flops (0.035 ms at 989 TFLOP/s), and the backward
-// does 8.6e10 flops of products (0.087 ms). What this simple design leaves
-// on the table: wmma from shared memory instead of wgmma, no cp.async/TMA
-// pipelining (a tile's loads and math do not overlap), products staged
-// through fp32 shared memory between the softmax steps, one warp per 16
-// rows for the softmax, and a second recompute of S and P in the backward.
+// does 8.6e10 flops of products (0.087 ms). The bf16 forward keeps the
+// tiles in flight by TMA and S, P and O in registers.
+// What the backward and the fp32 forward leave on the table: wmma or CUDA
+// cores from shared memory instead of wgmma, no cp.async/TMA pipelining (a
+// tile's loads and math do not overlap), products staged through fp32
+// shared memory between the softmax steps, one warp per 16 rows for the
+// softmax, and a second recompute of S and P in the backward.
 
-#include "attention_tiles.cuh"
+#include "attention_wgmma.cuh"
 
 namespace {
 
@@ -40,6 +45,20 @@ __global__ void __launch_bounds__(kThreads) splash_fwd_kernel(
     T* __restrict__ out, float* __restrict__ lse, const int* __restrict__ seg,
     View qv, View kv, View vv, Geometry g) {
   attn::fwd_body<T>(q, k, v, out, lse, seg, qv, kv, vv, g);
+}
+
+// bf16: attention_wgmma.cuh's body. D: the head dim padded to 64 or 128;
+// kSeg: segment ids given.
+template <int D, bool kSeg>
+__global__ void __launch_bounds__(attn_wg::kThreads, 1)
+    splash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                            const __grid_constant__ CUtensorMap tk,
+                            const __grid_constant__ CUtensorMap tv,
+                            __nv_bfloat16* __restrict__ out,
+                            float* __restrict__ lse,
+                            const int* __restrict__ seg, Geometry g,
+                            int batch) {
+  attn_wg::fwd_body<D, kSeg>(tq, tk, tv, out, lse, seg, g, batch);
 }
 
 template <typename T>
@@ -66,12 +85,20 @@ __global__ void __launch_bounds__(kThreads) splash_dq_kernel(
   attn::dq_body<T, false, false>(q, k, v, dout, st, seg, dq, qv, kv, vv, g);
 }
 
-template <typename T>
-cudaError_t fwd(const void* q, const void* k, const void* v, void* out,
-                float* lse, const int* seg, View qv, View kv, View vv, int b,
-                const Geometry& g, cudaStream_t stream) {
-  return attn::launch_fwd<T>(splash_fwd_kernel<T>, q, k, v, out, lse, seg,
-                             qv, kv, vv, b, g, stream);
+cudaError_t fwd_fp32(const void* q, const void* k, const void* v, void* out,
+                     float* lse, const int* seg, View qv, View kv, View vv,
+                     int b, const Geometry& g, cudaStream_t stream) {
+  return attn::launch_fwd<float>(splash_fwd_kernel<float>, q, k, v, out, lse,
+                                 seg, qv, kv, vv, b, g, stream);
+}
+
+template <int D, bool kSeg>
+cudaError_t fwd_bf16(const void* q, const void* k, const void* v, void* out,
+                     float* lse, const int* seg, View qv, View kv, View vv,
+                     int b, const Geometry& g, cudaStream_t stream) {
+  return attn_wg::launch_fwd<D, kSeg>(splash_fwd_wgmma_kernel<D, kSeg>, q, k,
+                                      v, out, lse, seg, qv, kv, vv, b, g,
+                                      stream);
 }
 
 template <typename T>
@@ -102,11 +129,29 @@ extern "C" int splash_fwd(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   const View qv{qb, qs, qh}, kv{kb, ks, kh}, vv{vb, vs, vh};
   cudaStream_t s = (cudaStream_t)stream;
-  if (bf16)
-    return (int)fwd<__nv_bfloat16>(q, k, v, out, (float*)lse,
-                                   (const int*)seg, qv, kv, vv, b, g, s);
-  return (int)fwd<float>(q, k, v, out, (float*)lse, (const int*)seg, qv, kv,
-                         vv, b, g, s);
+  const int* ids = (const int*)seg;
+  float* l = (float*)lse;
+  if (!bf16)
+    return (int)fwd_fp32(q, k, v, out, l, ids, qv, kv, vv, b, g, s);
+  if (ids)
+    return (int)(d <= 64 ? fwd_bf16<64, true>(q, k, v, out, l, ids, qv, kv,
+                                              vv, b, g, s)
+                         : fwd_bf16<128, true>(q, k, v, out, l, ids, qv, kv,
+                                               vv, b, g, s));
+  return (int)(d <= 64 ? fwd_bf16<64, false>(q, k, v, out, l, ids, qv, kv,
+                                             vv, b, g, s)
+                       : fwd_bf16<128, false>(q, k, v, out, l, ids, qv, kv,
+                                              vv, b, g, s));
+}
+
+// The dynamic shared memory a bf16 forward block launches with at head dim
+// d, with (seg != 0) or without segment ids.
+extern "C" int splash_fwd_bf16_smem(int d, int seg) {
+  if (seg)
+    return (int)(d <= 64 ? attn_wg::FwdSmem<64, true>::kBytes
+                         : attn_wg::FwdSmem<128, true>::kBytes);
+  return (int)(d <= 64 ? attn_wg::FwdSmem<64, false>::kBytes
+                       : attn_wg::FwdSmem<128, false>::kBytes);
 }
 
 extern "C" int splash_bwd(const void* q, const void* k, const void* v,

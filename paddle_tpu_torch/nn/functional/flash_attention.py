@@ -8,28 +8,29 @@ int. Segment ids are passed explicitly (the reference's
 ``attention_segments`` context is not ported: the port's model threads
 them down its forward).
 
-Routing, the reference's under ``FLAGS_splash_attn`` (`utils.flags`,
-default on; the environment variable of that name sets it at import):
+Routing, the reference's (paddle_tpu/nn/functional/flash_attention.py
+``scaled_dot_product_attention``) under ``FLAGS_splash_attn`` (default
+on) and ``FLAGS_pallas_flash_min_seqlen`` (default 1024; `utils.flags`,
+the environment variables of those names set them at import):
 
-* segment ids: the splash kernel (`ops.kernels.splash_attention`) when
-  the flag is on and no dropout is active; otherwise the reference lowers
-  them to a dense mask.
-* the flag on, no mask, no active dropout: the splash kernel, at every
-  length it takes.
-* the flag off, no mask, no active dropout, q/k/v of one shape and
-  `ops.kernels.flash_attention.supports`: the flash kernels, the
-  single-block pair (#5/#6) at up to 1024 tokens, the tiled pair (#7/#8)
-  above (the reference's "round-3 flash/XLA routing").
-* anything else (an ``attn_mask``, active attention dropout, the dense
-  segment mask, a shape flash does not take): the plain dense attention
-  `_sdpa_ref` on CPU tensors; on the card ``NotImplementedError``
-  (ROADMAP queue A10) rather than plain PyTorch attention there. In the
-  reference these never reach a Pallas kernel either: they are XLA.
+* segment ids: the splash kernel (`ops.kernels.splash_attention`) at any
+  length when the flag is on and no dropout is active; otherwise the
+  dense attention with the segment mask.
+* no segment ids: a kernel only when ``seqlen >= min_seqlen``, with no
+  mask and no active dropout: splash when the flag is on and its gate
+  (`ops.kernels.splash_attention.supports`: the reference's, lengths a
+  multiple of 128) takes the shape; else, with q/k/v of one shape, flash
+  when `ops.kernels.flash_attention.supports` takes it: the single-block
+  pair (#5/#6) at up to 1024 tokens, the tiled pair (#7/#8) above.
+* everything else: the dense attention `_sdpa_ref`, the reference's
+  XLA code (bf16 scores stored in bf16, an fp32 softmax), on the CPU and
+  on the card alike, as the reference runs it on its accelerator. On the
+  card an ``attn_mask``, active attention dropout or the dense segment
+  mask raise ``NotImplementedError`` (ROADMAP queue A10).
 
-On CPU tensors each kernel is its plain version. The reference also gates
-splash and flash on ``FLAGS_pallas_flash_min_seqlen``, a length threshold
-measured on a TPU; the port does not consult it (`utils.set_flags` still
-accepts the name, as the reference accepts any).
+On CPU tensors each kernel is its plain version. The reference's splash
+route also asks that it run on a TPU; the port's kernels run on the card,
+and CPU tensors take their plain versions, so the port drops that term.
 """
 from __future__ import annotations
 
@@ -81,6 +82,18 @@ def _sdpa_ref(q, k, v, mask, scale, causal, dropout_p, segment_ids):
     return out.to(q.dtype)
 
 
+def _dense(q, k, v, mask, scale, causal, dropout_p, segment_ids):
+    """`_sdpa_ref`; on the card only without a mask, dropout or segment
+    ids (those wait on ROADMAP queue A10)."""
+    if q.device.type != "cpu" and (mask is not None or dropout_p > 0.0
+                                   or segment_ids is not None):
+        raise NotImplementedError(
+            "attention with an attn_mask, active dropout or the dense "
+            "segment mask has no kernel on the card (ROADMAP queue A10; "
+            "the reference runs it as XLA)")
+    return _sdpa_ref(q, k, v, mask, scale, causal, dropout_p, segment_ids)
+
+
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False,
                                  training=True, segment_ids=None):
@@ -95,25 +108,25 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     drop = dropout_p if training else 0.0
     scale = 1.0 / (query.shape[-1] ** 0.5)
     splash_on = bool(flags.get_flag("FLAGS_splash_attn"))
-    kernel_free = attn_mask is None and drop == 0.0
-    if kernel_free and splash_on:
+    if segment_ids is not None:
+        if splash_on and drop == 0.0:
+            return splash_kernels.splash_attention(
+                query, key, value, causal=is_causal, segment_ids=segment_ids,
+                scale=scale)
+        return _dense(query, key, value, None, scale, is_causal, drop,
+                      segment_ids)
+    min_seq = int(flags.get_flag("FLAGS_pallas_flash_min_seqlen"))
+    kernel = query.shape[1] >= min_seq and attn_mask is None and drop == 0.0
+    if kernel and splash_on and splash_kernels.supports(
+            tuple(query.shape), key.shape[2], query.dtype):
         return splash_kernels.splash_attention(
-            query, key, value, causal=is_causal, segment_ids=segment_ids,
-            scale=scale)
-    if kernel_free and segment_ids is None and \
-            query.shape == key.shape == value.shape and \
+            query, key, value, causal=is_causal, scale=scale)
+    if kernel and query.shape == key.shape == value.shape and \
             flash_kernels.supports(tuple(query.shape), query.dtype,
                                    is_causal):
         return flash_kernels.flash_attention(query, key, value,
                                              causal=is_causal, scale=scale)
-    if query.device.type != "cpu":
-        raise NotImplementedError(
-            "attention with an attn_mask, active dropout, the dense "
-            "segment mask or a shape the flash kernels do not take has no "
-            "kernel on the card (ROADMAP queue A10; the reference runs it "
-            "as XLA)")
-    return _sdpa_ref(query, key, value, attn_mask, scale, is_causal, drop,
-                     segment_ids)
+    return _dense(query, key, value, attn_mask, scale, is_causal, drop, None)
 
 
 def flash_attention(query, key, value, dropout=0.0, causal=False,

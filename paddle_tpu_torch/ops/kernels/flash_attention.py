@@ -13,7 +13,9 @@ the reference:
   recomputes it from q, k, v alone, with ``delta = sum(p * dP)``.
 * tiled: `flash_attention_fwd` (#7) is an online softmax over key tiles
   returning ``(out, lse)``: ``P`` is rounded unnormalised, after the
-  running max is subtracted, and ``O`` divided by the sum at the end;
+  running max is subtracted, and ``O`` divided by the sum at the end (in
+  bf16 on warpgroup products, ``csrc/attention_wgmma.cuh``, shared with
+  splash's forward);
   `flash_attention_bwd` (#8) takes ``lse`` and ``out`` from outside. Under
   ring attention they are the global ones, so ``p = exp(s - lse)`` sums to
   less than 1 over one key block; nothing renormalises, and
@@ -37,7 +39,9 @@ float32 and bfloat16 (float16: ROADMAP queue B), ``d`` a multiple of 16 up
 to 128 (up to 64 for a float32 backward, by shared memory; larger ``d``:
 ROADMAP queue B), and q/k/v as strided views (unit stride along ``d``,
 16-byte aligned rows), so the qkv product's views need no copy. Each entry
-counts its launches in ``<entry>.launches``.
+counts its launches in ``<entry>.launches``, except the bf16 tiled
+forward's, which count in ``flash_attention_fwd.launches_wgmma``: the
+route depends on the dtype alone.
 """
 from __future__ import annotations
 
@@ -70,8 +74,9 @@ _SIGNATURES = {
     "flash_fwd": (_P,) * 5 + _STRIDES + _GEOMETRY,          # q k v out lse
     # q k v out dout lse delta dq dk dv
     "flash_bwd": (_P,) * 10 + _STRIDES + _GEOMETRY,
-    # d: the bf16 single-block forward's dynamic shared memory
+    # d: the bf16 single-block / tiled forward's dynamic shared memory
     "flash_fwd_single_bf16_smem": (_I,),
+    "flash_fwd_bf16_smem": (_I,),
 }
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -316,7 +321,8 @@ def flash_attention_bwd_single(q, k, v, dout, causal=True, scale=None):
 
 def flash_attention_fwd(q, k, v, causal=True, scale=None):
     """The tiled forward: ``(out [b, sq, h, d], lse [b, h, sq] fp32)``;
-    CUDA tensors launch ``flash_fwd_kernel``."""
+    CUDA tensors launch ``flash_fwd_wgmma_kernel`` (bf16) or
+    ``flash_fwd_kernel`` (fp32)."""
     _check(q, k, v, causal)
     sc = _scale(q, scale)
     if q.device.type == "cpu":
@@ -329,7 +335,10 @@ def flash_attention_fwd(q, k, v, causal=True, scale=None):
     with torch.cuda.device(q.device):
         _run("flash_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
              out.data_ptr(), lse.data_ptr(), *_args(q, k, v, causal, sc))
-    flash_attention_fwd.launches += 1
+    if q.dtype == torch.bfloat16:
+        flash_attention_fwd.launches_wgmma += 1
+    else:
+        flash_attention_fwd.launches += 1
     return out, lse
 
 
@@ -422,4 +431,5 @@ def flash_attention(q, k, v, causal=True, scale=None, block_q=None,
 flash_attention_fwd_single.launches = 0
 flash_attention_bwd_single.launches = 0
 flash_attention_fwd.launches = 0
+flash_attention_fwd.launches_wgmma = 0
 flash_attention_bwd.launches = 0

@@ -10,7 +10,9 @@ matches no visible key gets zero output and zero gradients.
 * `splash_attention`: the differentiable entry (a
   ``torch.autograd.Function``; segment ids get no gradient).
 * `splash_attention_fwd`: ``(out, lse)``, ``lse [b, nh, sq]`` fp32 with
-  ``+inf`` on empty rows; kernel #9, ``splash_fwd_kernel``.
+  ``+inf`` on empty rows; kernel #9: ``splash_fwd_wgmma_kernel`` in bf16
+  (warpgroup products, ``csrc/attention_wgmma.cuh``),
+  ``splash_fwd_kernel`` in fp32.
 * `splash_attention_bwd`: ``(dq, dk, dv)`` from the lse; kernel #10,
   the ``splash_delta`` / ``splash_dkdv`` / ``splash_dq`` kernels.
 
@@ -23,7 +25,9 @@ take q/k/v as strided views (unit stride along ``d``, 16-byte aligned
 rows), so ``qkv.reshape(b, s, 3, nh, d)[:, :, i]`` needs no copy; they
 take ``d`` a multiple of 16 up to 128 (fp32 backward: up to 64, by shared
 memory). Each forward and backward wrapper counts its launches in
-``<wrapper>.launches``.
+``<wrapper>.launches``, except the bf16 forward's, which count in
+``splash_attention_fwd.launches_wgmma``: the route depends on the dtype
+alone.
 """
 from __future__ import annotations
 
@@ -32,8 +36,9 @@ import ctypes
 import torch
 
 from . import _build
+from .flash_attention import _pick_block
 
-__all__ = ["splash_attention", "splash_attention_fwd",
+__all__ = ["supports", "splash_attention", "splash_attention_fwd",
            "splash_attention_bwd", "splash_attention_ref",
            "splash_attention_bwd_ref"]
 
@@ -47,8 +52,24 @@ _SIGNATURES = {
     "splash_fwd": (_P,) * 6 + _STRIDES + _GEOMETRY,
     # q, k, v, out, dout, lse, seg, delta, dq, dk, dv | strides | ...
     "splash_bwd": (_P,) * 11 + _STRIDES + _GEOMETRY,
+    # d, seg: the bf16 forward's dynamic shared memory
+    "splash_fwd_bf16_smem": (_I, _I),
 }
 _DTYPES = (torch.float32, torch.bfloat16)
+
+
+def supports(q_shape, num_kv_heads, dtype, sk=None) -> bool:
+    """Whether the reference's splash gate takes this problem (else
+    callers use dense attention): lengths a multiple of 128, ``d`` up to
+    256, ``nh`` a multiple of ``num_kv_heads``. The kernels refuse more on
+    the card (see the module docstring)."""
+    if dtype not in (torch.float32, torch.bfloat16, torch.float16):
+        return False
+    _, sq, h, d = q_shape
+    if d > 256 or h % num_kv_heads:
+        return False
+    return _pick_block(sq) is not None and \
+        _pick_block(sq if sk is None else sk) is not None
 
 
 # ---------------------------------------------------------------------------
@@ -204,7 +225,8 @@ def _run(fn, *args):
 def splash_attention_fwd(q, k, v, causal=True, segment_ids=None,
                          scale=None):
     """``(out [b, sq, nh, d], lse [b, nh, sq] fp32)`` (see the module
-    docstring); CUDA tensors launch ``splash_fwd_kernel``."""
+    docstring); CUDA tensors launch ``splash_fwd_wgmma_kernel`` (bf16) or
+    ``splash_fwd_kernel`` (fp32)."""
     _check(q, k, v, causal, segment_ids)
     sc = _scale(q, scale)
     if q.device.type == "cpu":
@@ -222,7 +244,10 @@ def splash_attention_fwd(q, k, v, causal=True, segment_ids=None,
              out.data_ptr(), lse.data_ptr(),
              None if seg is None else seg.data_ptr(), *_views(q, k, v),
              *_geometry(q, k, causal, sc), stream)
-    splash_attention_fwd.launches += 1
+    if q.dtype == torch.bfloat16:
+        splash_attention_fwd.launches_wgmma += 1
+    else:
+        splash_attention_fwd.launches += 1
     return out, lse
 
 
@@ -281,4 +306,5 @@ def splash_attention(q, k, v, causal=True, segment_ids=None, scale=None):
 
 
 splash_attention_fwd.launches = 0
+splash_attention_fwd.launches_wgmma = 0
 splash_attention_bwd.launches = 0

@@ -81,3 +81,13 @@ define_flag("FLAGS_splash_attn", True,
             "the geometry qualifies, and packed-sequence segment "
             "attention through it on every backend (XLA fallback off "
             "TPU). Off restores the round-3 flash/XLA routing.")
+define_flag("FLAGS_pallas_flash_min_seqlen", 1024,
+            "min seq len to route scaled_dot_product_attention to the "
+            "pallas flash kernel. Measured on v5e (h16 d64 bf16, fwd+bwd "
+            "vs bf16-score XLA attention): the round-3 kernels (fused "
+            "single-block path at <=1024; single-pass fused backward "
+            "beyond) win from seq 1024 up (1.22x at 1024, 1.64x at 2048, "
+            "1.17x at 4096, 2.5x at 8192 — PERF.md round-3 A/B), and from "
+            "16384 the O(s^2) score matrix OOMs 16G HBM while the flash "
+            "kernel trains. Below 1024 XLA's fused softmax is fine and "
+            "the kernel is not plumbed for masks/dropout.")

@@ -66,13 +66,15 @@ def test_unknown_names(scratch_flags):
 
 
 def test_the_port_defines_the_flags_its_routes_consult():
-    """``FLAGS_splash_attn``, with the reference's default and help; the
-    reference's others (a TPU length threshold among them) are not
-    defined, though set_flags would take them."""
-    name = "FLAGS_splash_attn"
-    assert tflags._registry[name]["default"] == \
-        jflags._registry[name]["default"]
-    assert tflags._registry[name]["help"] == jflags._registry[name]["help"]
-    assert tflags.get_flag("FLAGS_pallas_flash_min_seqlen") is None
+    """``FLAGS_splash_attn`` and ``FLAGS_pallas_flash_min_seqlen`` (the
+    attention routing's length gate), each with the reference's default
+    and help."""
+    for name in ("FLAGS_splash_attn", "FLAGS_pallas_flash_min_seqlen"):
+        assert tflags._registry[name]["default"] == \
+            jflags._registry[name]["default"], name
+        assert tflags._registry[name]["help"] == \
+            jflags._registry[name]["help"], name
+    assert tflags._registry["FLAGS_pallas_flash_min_seqlen"]["default"] \
+        == 1024
     assert paddle_tpu_torch.get_flags is tflags.get_flags
     assert paddle_tpu_torch.set_flags is tflags.set_flags

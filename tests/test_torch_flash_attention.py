@@ -35,6 +35,7 @@ import paddle_tpu as paddle
 import paddle_tpu.nn.functional as JF
 from paddle_tpu.distributed.fleet.meta_parallel import ring_flash_attention
 from paddle_tpu.ops.pallas import flash_attention as jfa
+from paddle_tpu.ops.pallas import splash_attention as jsa
 from paddle_tpu.utils import flags as jflags
 import paddle_tpu_torch
 from paddle_tpu_torch.nn import functional as PF
@@ -202,6 +203,7 @@ def test_path_selection_and_no_launch_on_the_cpu(monkeypatch):
     launches = [getattr(fa, f).launches for f in (
         "flash_attention_fwd_single", "flash_attention_bwd_single",
         "flash_attention_fwd", "flash_attention_bwd")]
+    wgmma = fa.flash_attention_fwd.launches_wgmma
     for s, blocks, want in ((48, None, "flash_attention_single_ref"),
                             (1024, None, "flash_attention_single_ref"),
                             (64, 64, "flash_attention_ref"),
@@ -216,6 +218,7 @@ def test_path_selection_and_no_launch_on_the_cpu(monkeypatch):
     assert launches == [getattr(fa, f).launches for f in (
         "flash_attention_fwd_single", "flash_attention_bwd_single",
         "flash_attention_fwd", "flash_attention_bwd")]
+    assert fa.flash_attention_fwd.launches_wgmma == wgmma
 
 
 def test_supports_follows_the_reference_gates():
@@ -337,40 +340,67 @@ def _route(seen, s=64, h=2, kvh=2, d=16, **kw):
     return seen[0]
 
 
-def test_sdpa_routes_by_the_flag(monkeypatch):
+@pytest.fixture
+def routing_flags():
+    """Restores the port's two routing flags after a test."""
+    names = ["FLAGS_splash_attn", "FLAGS_pallas_flash_min_seqlen"]
+    saved = paddle_tpu_torch.get_flags(names)
+    yield
+    paddle_tpu_torch.set_flags(saved)
+
+
+def test_sdpa_routes_by_the_flag(monkeypatch, routing_flags):
+    """The reference's routing: segment ids go to splash at any length
+    (flag on, no dropout); otherwise a kernel runs only at ``seqlen >=
+    FLAGS_pallas_flash_min_seqlen`` with no mask and no active dropout,
+    where its gate takes the shape (splash: lengths a multiple of 128;
+    flash: a multiple of 16 up to 1024, of 128 above); the rest is the
+    dense attention."""
     seen = _spy_routes(monkeypatch)
     seg = torch.zeros(1, 64, dtype=torch.int32)
-    mask = torch.ones(1, 1, 64, 64, dtype=torch.bool)
-    saved = paddle_tpu_torch.get_flags("FLAGS_splash_attn")
-    try:
-        paddle_tpu_torch.set_flags({"FLAGS_splash_attn": True})
-        assert _route(seen, is_causal=True) == "splash"
-        assert _route(seen, segment_ids=seg) == "splash"
-        assert _route(seen, s=40) == "splash"
-        assert _route(seen, attn_mask=mask) == "dense"
-        assert _route(seen, dropout_p=0.1) == "dense"
-        assert _route(seen, dropout_p=0.1, training=False) == "splash"
-        paddle_tpu_torch.set_flags({"FLAGS_splash_attn": False})
-        assert paddle_tpu_torch.get_flags(["FLAGS_splash_attn"]) == \
-            {"FLAGS_splash_attn": False}
-        assert _route(seen, is_causal=True) == "flash"
-        assert _route(seen, s=2048) == "flash"
-        assert _route(seen, dropout_p=0.1, training=False) == "flash"
-        assert _route(seen, segment_ids=seg) == "dense"
-        assert _route(seen, s=40) == "dense"           # not a multiple of 16
-        assert _route(seen, s=1040) == "dense"         # tiled: % 128
-        assert _route(seen, kvh=1) == "dense"          # GQA: shapes differ
-        assert _route(seen, d=320) == "dense"
-        assert _route(seen, attn_mask=mask) == "dense"
-        assert _route(seen, dropout_p=0.1) == "dense"
-    finally:
-        paddle_tpu_torch.set_flags(saved)
+    mask = torch.ones(1, 1, 1024, 1024, dtype=torch.bool)
+    assert paddle_tpu_torch.get_flags("FLAGS_pallas_flash_min_seqlen") == \
+        {"FLAGS_pallas_flash_min_seqlen": 1024}
+    paddle_tpu_torch.set_flags({"FLAGS_splash_attn": True})
+    assert _route(seen, segment_ids=seg) == "splash"
+    assert _route(seen, segment_ids=seg, dropout_p=0.1) == "dense"
+    assert _route(seen, is_causal=True) == "dense"        # 64 < 1024
+    assert _route(seen, s=1024, is_causal=True) == "splash"
+    assert _route(seen, s=1024, kvh=1) == "splash"        # GQA
+    assert _route(seen, s=1100) == "dense"                # no block
+    assert _route(seen, s=1024, d=320) == "dense"
+    assert _route(seen, s=1024, attn_mask=mask) == "dense"
+    assert _route(seen, s=1024, dropout_p=0.1) == "dense"
+    assert _route(seen, s=1024, dropout_p=0.1, training=False) == "splash"
+    paddle_tpu_torch.set_flags({"FLAGS_pallas_flash_min_seqlen": 16})
+    assert _route(seen, s=128, is_causal=True) == "splash"
+    assert _route(seen, is_causal=True) == "flash"        # splash: % 128
+    assert _route(seen, s=40) == "dense"                  # neither gate
+    paddle_tpu_torch.set_flags({"FLAGS_splash_attn": False,
+                                "FLAGS_pallas_flash_min_seqlen": 1024})
+    assert paddle_tpu_torch.get_flags(["FLAGS_splash_attn"]) == \
+        {"FLAGS_splash_attn": False}
+    assert _route(seen, is_causal=True) == "dense"
+    assert _route(seen, s=1024, is_causal=True) == "flash"
+    assert _route(seen, s=2048) == "flash"
+    assert _route(seen, s=1024, dropout_p=0.1, training=False) == "flash"
+    assert _route(seen, segment_ids=seg) == "dense"
+    assert _route(seen, s=1040) == "dense"                # tiled: % 128
+    assert _route(seen, s=1024, kvh=1) == "dense"         # GQA: shapes differ
+    assert _route(seen, s=1024, d=320) == "dense"
+    assert _route(seen, s=1024, attn_mask=mask) == "dense"
+    assert _route(seen, s=1024, dropout_p=0.1) == "dense"
+    paddle_tpu_torch.set_flags({"FLAGS_pallas_flash_min_seqlen": 16})
+    assert _route(seen, is_causal=True) == "flash"
+    assert _route(seen, s=40) == "dense"          # not a multiple of 16
 
 
 def test_sdpa_refusals_off_the_cpu(splash_off):
-    """Off the CPU, what has no kernel raises (ROADMAP A10) rather than run
-    plain attention; a shape flash takes goes to its wrapper, which has no
-    kernel for ``meta`` tensors (they stand in for a device here)."""
+    """Off the CPU, a mask, active dropout or the dense segment mask raise
+    (ROADMAP A10) rather than run plain attention; the dense attention
+    without them runs there, as the reference runs it on its accelerator
+    (``meta`` tensors stand in for a device); a shape flash takes goes to
+    its wrapper, which has no kernel for ``meta`` tensors."""
     q = torch.zeros(1, 64, 2, 16, device="meta")
     seg = torch.zeros(1, 64, dtype=torch.int32, device="meta")
     for kw in ({"segment_ids": seg}, {"dropout_p": 0.1},
@@ -378,20 +408,24 @@ def test_sdpa_refusals_off_the_cpu(splash_off):
                                         device="meta")}):
         with pytest.raises(NotImplementedError, match="A10"):
             PF.scaled_dot_product_attention(q, q, q, **kw)
-    q40 = torch.zeros(1, 40, 2, 16, device="meta")
-    with pytest.raises(NotImplementedError, match="A10"):
-        PF.scaled_dot_product_attention(q40, q40, q40)
+    for s in (40, 64, 1040):
+        x = torch.zeros(1, s, 2, 16, device="meta")
+        out = PF.scaled_dot_product_attention(x, x, x, is_causal=True)
+        assert out.device.type == "meta" and out.shape == x.shape
+    q1k = torch.zeros(1, 1024, 2, 16, device="meta")
     with pytest.raises(ValueError, match="no kernel for meta"):
-        PF.scaled_dot_product_attention(q, q, q, is_causal=True)
+        PF.scaled_dot_product_attention(q1k, q1k, q1k, is_causal=True)
 
 
 @pytest.mark.parametrize("causal", [True, False])
-def test_sdpa_and_flash_functionals_match_jax_with_splash_off(causal,
-                                                              splash_off):
+def test_sdpa_and_flash_functionals_match_jax_with_splash_off(
+        causal, routing_flags):
     """The reference routes to its Pallas flash kernel with the splash
-    flag off (``FLAGS_pallas_flash_min_seqlen`` lowered so that 64 tokens
-    qualify); the port to its flash entries. ``flash_attention`` and
-    ``flash_attn_qkvpacked`` agree with theirs."""
+    flag off (``FLAGS_pallas_flash_min_seqlen`` lowered in both packages
+    so that 64 tokens qualify); the port to its flash entries.
+    ``flash_attention`` and ``flash_attn_qkvpacked`` agree with theirs."""
+    paddle_tpu_torch.set_flags({"FLAGS_splash_attn": False,
+                                "FLAGS_pallas_flash_min_seqlen": 16})
     q, k, v = _rand(2, 64, 2, 32, seed=5, n=3)
     saved = {n: jflags.get_flag(n) for n in (
         "FLAGS_splash_attn", "FLAGS_pallas_flash_min_seqlen")}
@@ -431,3 +465,98 @@ def test_sdpa_ref_stores_bf16_scores_as_the_reference(splash_off):
         attn_mask=torch.from_numpy(mask), is_causal=True)
     np.testing.assert_array_equal(
         got.float().numpy(), np.asarray(want._data.astype(jnp.float32)))
+
+
+def _bf16_ulp(x):
+    """One bf16 unit in the last place at each element of ``x``."""
+    e = np.floor(np.log2(np.maximum(np.abs(x), 2.0 ** -126)))
+    return 2.0 ** (e - 7)
+
+
+@pytest.mark.parametrize("splash", [True, False])
+@pytest.mark.parametrize("s", [128, 1100])
+def test_sdpa_below_the_gates_matches_the_reference_in_bf16(
+        monkeypatch, routing_flags, s, splash):
+    """With default flags, below ``FLAGS_pallas_flash_min_seqlen`` (128
+    tokens) and where the kernels' block gates refuse the length (1100: no
+    multiple of 128), both packages run the dense attention, whose bf16
+    scores are stored in bf16 before the fp32 softmax. The bf16 outputs
+    agree bit for bit except where XLA's fp32 dot sums in another order
+    than PyTorch's and a score on a bf16 rounding boundary rounds apart:
+    such an element moves by a share of the row's values, within one bf16
+    ulp of the row's largest magnitude. The splash kernel that ran here
+    before keeps fp32 scores: its plain version rounds a third of the
+    elements otherwise."""
+    b, h, d = 1, 2, 32
+    q, k, v = _rand(b, s, h, d, seed=s, n=3)
+    jsaved = jflags.get_flags(["FLAGS_splash_attn",
+                               "FLAGS_pallas_flash_min_seqlen"])
+    assert jsaved["FLAGS_pallas_flash_min_seqlen"] == 1024
+    assert paddle_tpu_torch.get_flags("FLAGS_pallas_flash_min_seqlen") == \
+        {"FLAGS_pallas_flash_min_seqlen": 1024}
+    jflags.set_flags({"FLAGS_splash_attn": splash})
+    try:
+        want = JF.scaled_dot_product_attention(
+            *(paddle.to_tensor(x).astype("bfloat16") for x in (q, k, v)),
+            is_causal=True)
+    finally:
+        jflags.set_flags(jsaved)
+    want = np.asarray(want._data.astype(jnp.float32))
+    paddle_tpu_torch.set_flags({"FLAGS_splash_attn": splash})
+    dense = []
+    orig = SDPA._sdpa_ref
+    monkeypatch.setattr(SDPA, "_sdpa_ref", lambda *a: dense.append(1) or
+                        orig(*a))
+    tq, tk, tv = (torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v))
+    got = PF.scaled_dot_product_attention(tq, tk, tv, is_causal=True)
+    assert dense == [1] and got.dtype == torch.bfloat16
+    got = got.float().numpy()
+    row_ulp = _bf16_ulp(np.abs(want).max(-1, keepdims=True))
+    assert (got == want).mean() > 0.999
+    assert (np.abs(got - want) <= row_ulp).all()
+    before = _np(sa.splash_attention_ref(tq, tk, tv, True))
+    assert (before == want).mean() < 0.9
+
+
+@pytest.mark.parametrize("b,s,h,d,causal", [
+    (1, 130, 2, 32, False), (2, 208, 3, 80, True), (1, 256, 2, 128, True)])
+def test_tiled_plain_matches_jax_at_the_card_check_shapes(b, s, h, d,
+                                                          causal):
+    """The tiled pair's plain versions at the ragged shapes chip_smoke.py
+    phase 3 holds the bf16 forward on warpgroup products to (lengths off
+    its 128-row items, head dims padded to 64 and 128), fp32: against
+    ``fa._fwd`` / ``fa._bwd`` in interpret mode where 64-row blocks divide
+    the length (out, lse and the backward from the reference's own out
+    and lse), else against autograd of the reference's dense
+    `splash_attention_xla` (kvh = nh, no segments: the same function)."""
+    q, k, v, do = _rand(b, s, h, d, seed=s + d)
+    tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
+    out, lse = fa.flash_attention_ref(tq, tk, tv, causal, SCALE,
+                                      return_lse=True)
+    if s % 64 == 0:
+        jq, jk, jv, jdo = (_to_bh(x, torch.float32) for x in (q, k, v, do))
+        jout, jlse = jfa._fwd(jq, jk, jv, SCALE, causal, 64, 64, True)
+        jlse = np.asarray(jlse)
+        np.testing.assert_allclose(lse.numpy(),
+                                   jlse[..., 0].reshape(b, h, s), rtol=0,
+                                   atol=2e-5)
+        jgrads = [_from_bh(g, b, h) for g in jfa._bwd(
+            jq, jk, jv, jout, jlse, jdo, SCALE, causal, 64, 64, True)]
+        jout = _from_bh(jout, b, h)
+        grads = fa.flash_attention_bwd_ref(
+            tq, tk, tv, torch.from_numpy(jout),
+            torch.from_numpy(jlse[..., 0].reshape(b, h, s).copy()), tdo,
+            causal, SCALE)
+    else:
+        jout, vjp = jax.vjp(
+            lambda q, k, v: jsa.splash_attention_xla(
+                q, k, v, causal=causal, scale=SCALE),
+            *map(jnp.asarray, (q, k, v)))
+        jgrads = vjp(jnp.asarray(do))
+        grads = fa.flash_attention_bwd_ref(tq, tk, tv, out, lse, tdo,
+                                           causal, SCALE)
+    np.testing.assert_allclose(out.numpy(), np.asarray(jout), rtol=0,
+                               atol=FWD_TOL[torch.float32])
+    for g, w in zip(grads, jgrads):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0,
+                                   atol=GRAD_TOL[torch.float32])

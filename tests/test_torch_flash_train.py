@@ -1,12 +1,12 @@
 """GPT training through the flash routing (``FLAGS_splash_attn`` off) of
 the PyTorch port against the JAX package.
 
-Both packages run with the splash flag off; the reference also with
-``FLAGS_fused_ce`` on and ``FLAGS_pallas_flash_min_seqlen`` lowered to 16,
-so that its attention at 64 tokens takes the Pallas flash kernels in
-interpret mode (the tests assert that it did), as the port's takes its
-flash entries (their plain versions on CPU tensors): the single-block
-pair, since 64 <= 1024. The tiled pair is held at kernel level in
+Both packages run with the splash flag off and
+``FLAGS_pallas_flash_min_seqlen`` lowered to 16, the reference also with
+``FLAGS_fused_ce`` on, so that its attention at 64 tokens takes the Pallas
+flash kernels in interpret mode (the tests assert that it did), as the
+port's takes its flash entries (their plain versions on CPU tensors): the
+single-block pair, since 64 <= 1024. The tiled pair is held at kernel level in
 tests/test_torch_flash_attention.py (a model above 1024 tokens is too slow
 in interpret mode). Weights are drawn with numpy from a seed and carried
 across by `convert.state_dict_from_jax`. Bars, as in
@@ -42,6 +42,8 @@ TINY = dict(vocab_size=96, hidden_size=32, num_layers=2,
             hidden_dropout_prob=0.0, attention_dropout_prob=0.0)
 JAX_FLAGS = {"FLAGS_splash_attn": False, "FLAGS_fused_ce": True,
              "FLAGS_pallas_flash_min_seqlen": 16}
+PORT_FLAGS = {"FLAGS_splash_attn": False,
+              "FLAGS_pallas_flash_min_seqlen": 16}
 
 
 @pytest.fixture
@@ -49,9 +51,9 @@ def flash_routing(monkeypatch):
     """Both packages on the flash routing; counts the reference's flash
     calls (at trace time) and the port's single-block forwards."""
     saved_j = {n: jflags.get_flag(n) for n in JAX_FLAGS}
-    saved_t = paddle_tpu_torch.get_flags("FLAGS_splash_attn")
+    saved_t = paddle_tpu_torch.get_flags(list(PORT_FLAGS))
     jflags.set_flags(JAX_FLAGS)
-    paddle_tpu_torch.set_flags({"FLAGS_splash_attn": False})
+    paddle_tpu_torch.set_flags(PORT_FLAGS)
     calls = {"jax": 0, "port": 0}
     jorig, torig = jfa.flash_attention, fa.flash_attention_single_ref
 

@@ -171,12 +171,17 @@ def test_init_from_seed_is_reproducible():
 
 
 def test_full_attention_refuses_the_card():
-    """Full-sequence attention off the CPU goes to the splash kernel and
-    nowhere else: on ``meta`` tensors (neither CPU nor CUDA) the splash
-    wrapper's device check raises, so no plain attention runs there."""
+    """Full-sequence attention off the CPU at ``FLAGS_pallas_flash_min_seqlen``
+    tokens and above goes to the splash kernel and nowhere else: on
+    ``meta`` tensors (neither CPU nor CUDA) the splash wrapper's device
+    check raises, so no plain attention runs there. Below it the dense
+    attention runs on any device, as in the reference."""
     from paddle_tpu_torch.nn.functional import scaled_dot_product_attention
 
-    q = torch.zeros(1, 3, 4, 8, device="meta")
+    q = torch.zeros(1, 1024, 4, 8, device="meta")
     with pytest.raises(ValueError, match="splash_attention: no kernel for "
                                          "meta"):
         scaled_dot_product_attention(q, q, q, is_causal=True)
+    q3 = torch.zeros(1, 3, 4, 8, device="meta")
+    out = scaled_dot_product_attention(q3, q3, q3, is_causal=True)
+    assert out.device.type == "meta" and out.shape == q3.shape

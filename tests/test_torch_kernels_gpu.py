@@ -27,6 +27,9 @@ from paddle_tpu_torch.ops.kernels import paged_attention as pa
 from paddle_tpu_torch.ops.kernels import splash_attention as sa
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# lse: fp32 sums in another order; the bf16 forwards on warpgroup products
+# also work in log2 units and convert back
+TOL_LSE = {torch.float32: 1e-4, torch.bfloat16: 1e-3}
 
 
 @pytest.fixture
@@ -313,13 +316,25 @@ def _rel(got, want):
                                                                  1e-30)
 
 
+def _fwd_counter(wrapper, dtype):
+    """The launch counter of a splash or tiled flash forward's route: the
+    bf16 kernel on warpgroup products counts apart."""
+    return "launches_wgmma" if dtype == torch.bfloat16 else "launches"
+
+
 def _attn_inputs(dev, b, s, h, kvh, d, dtype, docs=None, seed=0):
+    """q, k, v as strided views of one packed tensor, and segment ids:
+    ``docs`` documents a row at random cuts (the last row one), or with
+    ``docs`` a tuple, those document lengths in every row."""
     gen = torch.Generator(device=dev).manual_seed(seed)
     qkv = torch.randn(b, s, h + 2 * kvh, d, device=dev,
                       generator=gen).to(dtype)
     q, k, v = qkv.split([h, kvh, kvh], dim=2)
     seg = None
-    if docs:
+    if isinstance(docs, tuple):
+        seg = torch.tensor(np.repeat(np.arange(len(docs)), docs),
+                           dtype=torch.int32, device=dev).repeat(b, 1)
+    elif docs:
         rng = np.random.default_rng(seed)
         rows = []
         for i in range(b):
@@ -335,13 +350,21 @@ def _attn_inputs(dev, b, s, h, kvh, d, dtype, docs=None, seed=0):
 @pytest.mark.parametrize("b,s,h,kvh,d,causal,docs", [
     (2, 128, 4, 4, 64, True, None), (2, 200, 4, 2, 64, True, 3),
     (1, 256, 8, 2, 32, False, 3), (2, 96, 2, 1, 64, False, None),
-    (1, 130, 4, 4, 16, True, None)])
+    (1, 130, 4, 4, 16, True, None),
+    # the bf16 forward's edges: head dims padded to 64 and 128, lengths
+    # off its 128-row items, GQA, key tiles fully masked for some rows
+    (2, 208, 4, 4, 80, False, None), (1, 384, 4, 2, 128, True, 3),
+    (2, 300, 8, 2, 128, False, None), (1, 384, 4, 2, 64, True,
+                                       (130, 170, 84)),
+    (3, 520, 6, 3, 48, True, (300, 220))])
 def test_splash_kernels(cuda, dtype, b, s, h, kvh, d, causal, docs):
     """Forward (out, lse) and backward (dq, dk, dv) against the plain
-    versions; strided q/k/v views (one packed tensor) take no copy."""
+    versions (the fp32 backward takes head_dim up to 64, by shared
+    memory); strided q/k/v views (one packed tensor) take no copy."""
     q, k, v, seg = _attn_inputs(cuda, b, s, h, kvh, d, dtype, docs)
     assert not q.is_contiguous()
-    n_f, n_b = sa.splash_attention_fwd.launches, \
+    counter = _fwd_counter(sa.splash_attention_fwd, dtype)
+    n_f, n_b = getattr(sa.splash_attention_fwd, counter), \
         sa.splash_attention_bwd.launches
     out, lse = sa.splash_attention_fwd(q, k, v, causal, seg)
     torch.cuda.synchronize()
@@ -352,7 +375,10 @@ def test_splash_kernels(cuda, dtype, b, s, h, kvh, d, causal, docs):
     assert float((out.float() - want.float()).abs().max()) <= tol
     fin = torch.isfinite(want_lse)
     assert torch.equal(fin, torch.isfinite(lse))
-    assert float((lse - want_lse)[fin].abs().max()) <= 1e-4
+    assert float((lse - want_lse)[fin].abs().max()) <= TOL_LSE[dtype]
+    assert getattr(sa.splash_attention_fwd, counter) == n_f + 1
+    if not _fp32_bwd_ok(dtype, d):
+        return
     dout = torch.randn(out.shape, device=cuda,
                        generator=torch.Generator(device=cuda).manual_seed(1)
                        ).to(dtype)
@@ -365,28 +391,42 @@ def test_splash_kernels(cuda, dtype, b, s, h, kvh, d, causal, docs):
     again = sa.splash_attention_bwd(q, k, v, out, lse, dout, causal, seg)
     torch.cuda.synchronize()
     assert all(torch.equal(a, g) for a, g in zip(again, got))
-    assert sa.splash_attention_fwd.launches == n_f + 1
     assert sa.splash_attention_bwd.launches == n_b + 2
 
 
 @pytest.mark.gpu
-def test_splash_empty_rows_are_zero(cuda):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sq,sk,h,kvh,d,docs", [
+    (96, 64, 2, 2, 32, (64, 32)), (300, 200, 4, 2, 64, (120, 80, 100)),
+    (260, 130, 4, 1, 128, (100, 30, 130))])
+def test_splash_empty_rows_are_zero(cuda, dtype, sq, sk, h, kvh, d, docs):
     """Non-causal with sk < sq under segments: rows whose document has no
-    key give zero output, lse +inf and zero gradients."""
-    b, sq, sk, h, d = 1, 96, 64, 2, 32
+    key give zero output, lse +inf and zero gradients; the other rows
+    match the plain version."""
     gen = torch.Generator(device=cuda).manual_seed(0)
-    q = torch.randn(b, sq, h, d, device=cuda, generator=gen)
-    k = torch.randn(b, sk, h, d, device=cuda, generator=gen)
-    v = torch.randn(b, sk, h, d, device=cuda, generator=gen)
-    seg = torch.tensor([[0] * 64 + [1] * 32], dtype=torch.int32,
-                       device=cuda)
+    q = torch.randn(1, sq, h, d, device=cuda, generator=gen).to(dtype)
+    k = torch.randn(1, sk, kvh, d, device=cuda, generator=gen).to(dtype)
+    v = torch.randn(1, sk, kvh, d, device=cuda, generator=gen).to(dtype)
+    seg = torch.tensor(np.repeat(np.arange(len(docs)), docs)[None],
+                       dtype=torch.int32, device=cuda)
+    empty = sum(docs[:-1])                  # the last document's rows
+    assert empty == sk or empty + docs[-1] == sq
     out, lse = sa.splash_attention_fwd(q, k, v, False, seg)
+    want, want_lse = sa.splash_attention_ref(q, k, v, False, seg,
+                                             return_lse=True)
+    torch.cuda.synchronize()
+    assert torch.equal(out[:, empty:], torch.zeros_like(out[:, empty:]))
+    assert torch.isinf(lse[..., empty:]).all()
+    assert torch.isfinite(lse[..., :empty]).all()
+    assert float((out.float() - want.float()).abs().max()) <= TOL[dtype]
+    assert float((lse - want_lse)[..., :empty].abs().max()) <= \
+        TOL_LSE[dtype]
+    if not _fp32_bwd_ok(dtype, d):
+        return
     dq, dk, dv = sa.splash_attention_bwd(q, k, v, out, lse,
                                          torch.ones_like(out), False, seg)
     torch.cuda.synchronize()
-    assert torch.equal(out[:, 64:], torch.zeros_like(out[:, 64:]))
-    assert torch.isinf(lse[..., 64:]).all()
-    assert torch.equal(dq[:, 64:], torch.zeros_like(dq[:, 64:]))
+    assert torch.equal(dq[:, empty:], torch.zeros_like(dq[:, empty:]))
     assert torch.isfinite(dk).all() and torch.isfinite(dv).all()
 
 
@@ -480,6 +520,11 @@ def test_training_kernel_errors(cuda):
 FLASH_CASES = [(2, 128, 4, 64, True), (1, 200, 2, 64, False),
                (2, 96, 3, 16, True), (1, 256, 2, 128, True),
                (1, 130, 2, 32, False)]
+# the tiled pair also at the bf16 forward's edges: head dims padded to 64
+# and 128, lengths off its 128-row items and 128-key tiles
+FLASH_TILED_CASES = FLASH_CASES + [
+    (2, 208, 3, 80, True), (1, 384, 2, 128, False), (3, 520, 4, 48, True),
+    (1, 1280, 2, 64, True)]
 # the single-block pair also at lengths under, at and off the bf16
 # forward's 128-row tiles, and at every padded head dim
 FLASH_SINGLE_CASES = FLASH_CASES + [
@@ -534,13 +579,15 @@ def test_flash_single_kernels(cuda, dtype, b, s, h, d, causal):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,s,h,d,causal", FLASH_CASES)
+@pytest.mark.parametrize("b,s,h,d,causal", FLASH_TILED_CASES)
 def test_flash_tiled_kernels(cuda, dtype, b, s, h, d, causal):
     """#7 (out, lse) and #8 from that out and lse against their plain
-    versions (P rounded per 64-key tile, unnormalised); the backward
-    twice, bit for bit."""
+    versions (P rounded per 64-key tile, unnormalised; the bf16 forward's
+    128-key tiles round within the bf16 tolerance); the backward twice,
+    bit for bit."""
     q, k, v, dout = _flash_inputs(cuda, b, s, h, d, dtype)
-    n_f, n_b = fa.flash_attention_fwd.launches, \
+    counter = _fwd_counter(fa.flash_attention_fwd, dtype)
+    n_f, n_b = getattr(fa.flash_attention_fwd, counter), \
         fa.flash_attention_bwd.launches
     out, lse = fa.flash_attention_fwd(q, k, v, causal)
     torch.cuda.synchronize()
@@ -549,8 +596,8 @@ def test_flash_tiled_kernels(cuda, dtype, b, s, h, d, causal):
     assert out.dtype == dtype and torch.isfinite(out).all()
     assert float((out.float() - want.float()).abs().max()) <= TOL[dtype]
     assert torch.isfinite(lse).all()
-    assert float((lse - want_lse).abs().max()) <= 1e-4
-    assert fa.flash_attention_fwd.launches == n_f + 1
+    assert float((lse - want_lse).abs().max()) <= TOL_LSE[dtype]
+    assert getattr(fa.flash_attention_fwd, counter) == n_f + 1
     if not _fp32_bwd_ok(dtype, d):
         return
     got = fa.flash_attention_bwd(q, k, v, out, lse, dout, causal)
@@ -588,7 +635,7 @@ def test_flash_outside_lse_and_unequal_lengths(cuda, dtype):
             assert _rel(g, r) <= TOL[dtype]
     whole, whole_lse = fa.flash_attention_ref(q, k, v, False,
                                               return_lse=True)
-    assert float((lse - whole_lse).abs().max()) <= 1e-4
+    assert float((lse - whole_lse).abs().max()) <= TOL_LSE[dtype]
     assert float((out.float() - whole.float()).abs().max()) <= TOL[dtype]
     wdq = fa.flash_attention_bwd_ref(q, k, v, whole, whole_lse, dout,
                                      False)[0]
@@ -598,28 +645,64 @@ def test_flash_outside_lse_and_unequal_lengths(cuda, dtype):
 @pytest.mark.gpu
 def test_flash_autograd_and_sdpa_route_on_the_card(cuda):
     """`flash_attention` and SDPA with the splash flag off launch the
-    flash kernels of the length's path, never the plain versions."""
+    flash kernels of the length's path, never the plain versions (256
+    tokens with ``FLAGS_pallas_flash_min_seqlen`` lowered to 16; 1280 at
+    the default); under the default gate 256 tokens take the dense
+    attention and no kernel, as in the reference."""
     import paddle_tpu_torch
     from paddle_tpu_torch.nn import functional as PF
 
-    saved = paddle_tpu_torch.get_flags("FLAGS_splash_attn")
-    paddle_tpu_torch.set_flags({"FLAGS_splash_attn": False})
+    names = ["FLAGS_splash_attn", "FLAGS_pallas_flash_min_seqlen"]
+    saved = paddle_tpu_torch.get_flags(names)
+    counters = [(fa.flash_attention_fwd_single, "launches"),
+                (fa.flash_attention_bwd_single, "launches"),
+                (fa.flash_attention_fwd, "launches_wgmma"),
+                (fa.flash_attention_bwd, "launches")]
+
+    def sdpa(s):
+        q, k, v, _ = _flash_inputs(cuda, 1, s, 2, 64, torch.bfloat16)
+        q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+        n = [getattr(f, c) for f, c in counters]
+        PF.scaled_dot_product_attention(q, k, v, is_causal=True) \
+            .float().sum().backward()
+        torch.cuda.synchronize()
+        assert all(torch.isfinite(t.grad).all() for t in (q, k, v))
+        return [getattr(f, c) - m for (f, c), m in zip(counters, n)]
+
     try:
-        for s, fwd, bwd in ((256, "flash_attention_fwd_single",
-                             "flash_attention_bwd_single"),
-                            (1280, "flash_attention_fwd",
-                             "flash_attention_bwd")):
-            q, k, v, _ = _flash_inputs(cuda, 1, s, 2, 64, torch.bfloat16)
-            q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
-            n = (getattr(fa, fwd).launches, getattr(fa, bwd).launches)
-            PF.scaled_dot_product_attention(q, k, v, is_causal=True) \
-                .float().sum().backward()
-            torch.cuda.synchronize()
-            assert (getattr(fa, fwd).launches,
-                    getattr(fa, bwd).launches) == (n[0] + 1, n[1] + 1)
-            assert all(torch.isfinite(t.grad).all() for t in (q, k, v))
+        paddle_tpu_torch.set_flags({"FLAGS_splash_attn": False})
+        assert sdpa(256) == [0, 0, 0, 0]
+        assert sdpa(1280) == [0, 0, 1, 1]
+        paddle_tpu_torch.set_flags({"FLAGS_pallas_flash_min_seqlen": 16})
+        assert sdpa(256) == [1, 1, 0, 0]
     finally:
         paddle_tpu_torch.set_flags(saved)
+
+
+@pytest.mark.gpu
+def test_sdpa_routes_short_and_unblocked_lengths_to_dense_on_the_card(
+        cuda):
+    """Under the default gate, SDPA on the card runs the dense attention
+    below 1024 tokens and where no kernel's block gate takes the length
+    (1100), and splash's bf16 forward at 1024, equal to its plain
+    version; segment ids go to splash at any length."""
+    from paddle_tpu_torch.nn import functional as PF
+
+    for s, launched in ((128, 0), (1100, 0), (1024, 1)):
+        q, k, v, _ = _attn_inputs(cuda, 1, s, 4, 4, 64, torch.bfloat16)
+        n = sa.splash_attention_fwd.launches_wgmma
+        out = PF.scaled_dot_product_attention(q, k, v, is_causal=True)
+        torch.cuda.synchronize()
+        assert sa.splash_attention_fwd.launches_wgmma == n + launched
+        want = sa.splash_attention_ref(q, k, v, True)
+        assert float((out.float() - want.float()).abs().max()) <= 2e-2
+    q, k, v, seg = _attn_inputs(cuda, 2, 96, 4, 2, 64, torch.bfloat16,
+                                docs=3)
+    n = sa.splash_attention_fwd.launches_wgmma
+    PF.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                    segment_ids=seg)
+    torch.cuda.synchronize()
+    assert sa.splash_attention_fwd.launches_wgmma == n + 1
 
 
 @pytest.mark.gpu

@@ -196,10 +196,11 @@ def test_mask_or_dropout_on_the_card_raises():
         PF.scaled_dot_product_attention(
             q, q, q, attn_mask=torch.ones(1, 1, 8, 8, dtype=torch.bool,
                                           device="meta"))
-    # dropout outside training is no dropout: the splash wrapper takes
-    # it, and refuses a device it has no kernel for
+    # dropout outside training is no dropout: at 1024 tokens the splash
+    # wrapper takes it, and refuses a device it has no kernel for
+    q1k = torch.zeros(1, 1024, 2, 16, device="meta")
     with pytest.raises(ValueError, match="no kernel for meta"):
-        PF.scaled_dot_product_attention(q, q, q, dropout_p=0.1,
+        PF.scaled_dot_product_attention(q1k, q1k, q1k, dropout_p=0.1,
                                         training=False)
 
 
@@ -207,8 +208,65 @@ def test_wrapper_counts_no_launch_on_the_cpu():
     """CPU tensors take the plain versions: the launch counters stay."""
     q, k, v = (torch.from_numpy(a).requires_grad_()
                for a in _rand(1, 32, 2, 2, 16, seed=7))
-    n_f, n_b = sa.splash_attention_fwd.launches, \
-        sa.splash_attention_bwd.launches
+    def counts():
+        return (sa.splash_attention_fwd.launches,
+                sa.splash_attention_fwd.launches_wgmma,
+                sa.splash_attention_bwd.launches)
+
+    before = counts()
     sa.splash_attention(q, k, v).sum().backward()
-    assert (sa.splash_attention_fwd.launches,
-            sa.splash_attention_bwd.launches) == (n_f, n_b)
+    sa.splash_attention(*(t.detach().bfloat16() for t in (q, k, v)))
+    assert counts() == before
+
+
+# The shapes chip_smoke.py phase 3 adds for the bf16 forward on warpgroup
+# products (its 128-row items and 128-key tiles): ragged lengths, head
+# dims padded to 64 and 128, GQA, a key tile fully masked for some rows
+# (rows 300-383 see none of keys 0-255) and rows with no visible key
+# (non-causal, sk < sq: the third document's rows). (b, s, h, kvh, d,
+# causal, segment ids, sk); segment ids: an int for that many documents a
+# row at random cuts, a tuple for those document lengths in every row.
+CARD_SHAPES = [
+    (2, 200, 8, 2, 64, True, 3, None),
+    (1, 130, 4, 4, 16, True, None, None),
+    (2, 208, 4, 4, 80, False, None, None),
+    (1, 384, 4, 2, 128, True, 3, None),
+    (1, 384, 4, 2, 64, True, (130, 170, 84), None),
+    (1, 300, 4, 2, 64, False, (120, 80, 100), 200),
+]
+
+
+@pytest.mark.parametrize("b,s,h,kvh,d,causal,docs,sk", CARD_SHAPES)
+def test_plain_version_matches_jax_at_the_card_check_shapes(
+        b, s, h, kvh, d, causal, docs, sk):
+    """The port's splash (its plain forward and the lse-based backward
+    on CPU tensors) against the reference's `splash_attention` in
+    interpret mode where its gate takes the shape (lengths a multiple of
+    128), else its `splash_attention_xla`: the chain kernel -> plain ->
+    reference at the shapes the card check holds the kernel to."""
+    q, k, v = _rand(b, s, h, kvh, d, seed=s + d, sk=sk)
+    if isinstance(docs, tuple):
+        seg = np.tile(np.repeat(np.arange(len(docs)), docs),
+                      (b, 1)).astype(np.int32)
+    else:
+        seg = None if docs is None else _segments(b, s, docs, seed=s)
+    cot = np.random.default_rng(d).standard_normal((b, s, h, d)) \
+        .astype(np.float32)
+    jseg = None if seg is None else jnp.asarray(seg)
+    kernel = jsa.supports((b, s, h, d), kvh, jnp.float32, sk or s)
+
+    def jf(q, k, v):
+        if kernel:
+            return jsa.splash_attention(q, k, v, causal=causal,
+                                        segment_ids=jseg, interpret=True)
+        return jsa.splash_attention_xla(q, k, v, causal=causal,
+                                        segment_ids=jseg)
+
+    jout, vjp = jax.vjp(jf, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    jgrads = vjp(jnp.asarray(cot))
+    got = _port(q, k, v, causal, seg, cot)
+    np.testing.assert_allclose(got[0], np.asarray(jout), rtol=0, atol=ATOL)
+    for g, want in zip(got[1:], jgrads):
+        np.testing.assert_allclose(g, np.asarray(want), rtol=0, atol=ATOL)
+    if sk is not None:                     # the rows with no visible key
+        assert np.all(got[0][:, sum(docs[:-1]):] == 0.0)

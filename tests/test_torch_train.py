@@ -156,12 +156,15 @@ def test_loss_equals_the_criterion_over_logits():
 
 def test_recompute_replays_the_block_forward():
     """With use_recompute each block's forward runs again in the
-    backward: twice the attention forwards of a plain step, the same
-    gradients."""
-    from paddle_tpu_torch.ops.kernels import splash_attention as sa
+    backward: twice the attention forwards of a plain step (64 tokens,
+    under ``FLAGS_pallas_flash_min_seqlen``: the dense attention), the
+    same gradients."""
+    import importlib
 
+    sdpa = importlib.import_module(
+        "paddle_tpu_torch.nn.functional.flash_attention")
     calls = []
-    orig = sa.splash_attention_ref
+    orig = sdpa._sdpa_ref
 
     def counting(*a, **kw):
         calls.append(1)
@@ -172,11 +175,11 @@ def test_recompute_replays_the_block_forward():
     for recompute in (False, True):
         _, tm = make_models(use_recompute=recompute)
         calls.clear()
-        sa.splash_attention_ref = counting
+        sdpa._sdpa_ref = counting
         try:
             tm.loss(bt["input_ids"], bt["labels"]).backward()
         finally:
-            sa.splash_attention_ref = orig
+            sdpa._sdpa_ref = orig
         grads.append([p.grad for p in tm.parameters()])
         assert len(calls) == TINY["num_layers"] * (2 if recompute else 1)
     for a, b in zip(*grads):
