@@ -9,10 +9,12 @@ Phases, one line each (any failure exits non-zero, nothing is caught):
 2. build every kernel from ``paddle_tpu_torch/csrc`` with ``nvcc``, one
    compiler per source, all started together; for each kernel redesigned
    on warpgroup products (``csrc/hopper_tiles.cuh``: the bf16 fused CE
-   backward, the single-block flash forward, and the tiled flash and
-   splash forwards of ``csrc/attention_wgmma.cuh``), its registers,
-   spills and shared memory from the ``-Xptxas=-v`` log and the ``HGMMA``
-   instructions in its SASS (``cuobjdump``; the run fails on none);
+   backward, the single-block flash forward, the tiled flash and splash
+   forwards of ``csrc/attention_wgmma.cuh``, and the dQ and dK/dV
+   kernels of both flash backwards, ``csrc/attention_wgmma_bwd.cuh``),
+   its registers, spills and shared memory from the ``-Xptxas=-v`` log
+   and the ``HGMMA`` instructions in its SASS (``cuobjdump``; the run
+   fails on none, and on a flash backward that spills at head dim 64);
 3. each kernel against its plain PyTorch version on the card, in fp32
    and bf16 (tolerances at `check_kernels` and
    `check_training_kernels`), at the shapes the serving and training
@@ -23,9 +25,10 @@ Phases, one line each (any failure exits non-zero, nothing is caught):
    (a ragged case and one over four vocab chunks), each backward run
    twice and compared bit for bit; the flash pairs at the flash runs'
    shapes (single-block [8, 1024, 32, 64], tiled [4, 2048, 32, 64]) with
-   each backward run twice and compared bit for bit, both forwards at
-   ragged shapes, and a ring tick (a key block's forward, and its
-   backward from the global lse and out of two key halves); then timed
+   each backward run twice and compared bit for bit, both pairs at
+   ragged shapes (forward and backward), and a ring tick (a key block's
+   forward, and its backward from the global lse and out of two key
+   halves); then timed
    with CUDA events (L2 flushed between launches) beside the plain
    version and one PyTorch library call on the same inputs;
 4. serving parity: a tiny fp32 GPT served on the card (kernels) and on
@@ -57,9 +60,11 @@ Phases, one line each (any failure exits non-zero, nothing is caught):
    splash backward and the CE must be > 0, every other training kernel
    (the fp32 splash forward among them) 0, and every loss finite;
 10. the same with ``FLAGS_splash_attn`` off (the reference's flash
-    routing), 2 warm-up and 3 timed steps at 8 x 1024 (the single-block
-    pair must run, and no other attention kernel) and at 4 x 2048 (the
-    bf16 tiled forward on warpgroup products and the tiled backward);
+    routing, the flag's off setting; splash is its default), 2 warm-up
+    and 3 timed steps at 8 x 1024 (the single-block forward and the bf16
+    single-block backward on warpgroup products must run, and no other
+    attention kernel, the fp32 backward route among them) and at 4 x 2048
+    (the bf16 tiled forward and backward on warpgroup products);
 11. one JSON line ``{"kernels": [...]}`` with each kernel's error,
     times, bound and launches (a paged kernel's from the serving run of
     its pools, splash's and the CE's from phase 9, a flash pair's from
@@ -139,7 +144,22 @@ WGMMA_KERNELS = {
     "flash_fwd_wgmma_kernel": ("flash_attention", "flash_fwd_wgmma_kernel"),
     "splash_fwd_wgmma_kernel": ("splash_attention",
                                 "splash_fwd_wgmma_kernel"),
+    # the bf16 flash backwards (csrc/attention_wgmma_bwd.cuh), two
+    # kernels each: #6's and #8's
+    "flash_single_bwd_wgmma_kernels[dq]": ("flash_attention",
+                                           "flash_single_dq_wgmma_kernel"),
+    "flash_single_bwd_wgmma_kernels[dkdv]": (
+        "flash_attention", "flash_single_dkdv_wgmma_kernel"),
+    "flash_bwd_wgmma_kernels[dq]": ("flash_attention",
+                                    "flash_dq_wgmma_kernel"),
+    "flash_bwd_wgmma_kernels[dkdv]": ("flash_attention",
+                                      "flash_dkdv_wgmma_kernel"),
 }
+# kernels whose head-dim-64 instantiation (the training path's) must not
+# spill
+NO_SPILL_AT_64 = ("flash_single_dq_wgmma_kernel",
+                  "flash_single_dkdv_wgmma_kernel", "flash_dq_wgmma_kernel",
+                  "flash_dkdv_wgmma_kernel")
 
 
 def _template_args(mangled):
@@ -203,7 +223,8 @@ def _hgmma_counts(lib):
 def check_wgmma_kernels(built):
     """Registers, spills and shared memory (static from ptxas, dynamic
     from the launcher) of each redesigned kernel, and the HGMMA
-    instructions of its SASS; fails if one has none."""
+    instructions of its SASS; fails if one has none, or if a flash
+    backward spills at head dim 64."""
     from paddle_tpu_torch.ops.kernels import _build
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
     from paddle_tpu_torch.ops.kernels import fused_cross_entropy as fce
@@ -220,6 +241,10 @@ def check_wgmma_kernels(built):
                    fl.flash_fwd_bf16_smem(int(args[0]))),
                "splash_fwd_wgmma_kernel": lambda args: (
                    sp.splash_fwd_bf16_smem(int(args[0]), int(args[1])))}
+    for fn in ("flash_single_dq_wgmma_kernel", "flash_dq_wgmma_kernel"):
+        dynamic[fn] = lambda args: fl.flash_bwd_dq_bf16_smem(int(args[0]))
+    for fn in ("flash_single_dkdv_wgmma_kernel", "flash_dkdv_wgmma_kernel"):
+        dynamic[fn] = lambda args: fl.flash_bwd_dkdv_bf16_smem(int(args[0]))
     report = {}
     for name, (src, fn) in WGMMA_KERNELS.items():
         saved = _build.library_path(src).with_suffix(".log")
@@ -249,6 +274,11 @@ def check_wgmma_kernels(built):
             raise AssertionError(f"{name}: no {fn} in the build")
         if hg is not None and (not hg or min(hg.values()) <= 0):
             raise AssertionError(f"{name}: a {fn} has no HGMMA: {hg}")
+        spills = [e for e in entries if fn in NO_SPILL_AT_64
+                  and e["kernel"].endswith("<64>")
+                  and e["spill_stores"] != 0]
+        if spills:
+            raise AssertionError(f"{name}: spills at head dim 64: {spills}")
     return report
 
 
@@ -887,21 +917,30 @@ FLASH_TPU = "paddle_tpu/ops/pallas/flash_attention.py"
 # entry -> TPU kernel line; the path's shapes (causal): the single-block
 # pair at the 1024-token run's, the tiled pair at the 2048-token run's
 FLASH_LINES = {"flash_single_fwd_kernel": 125,
-               "flash_single_bwd_kernels": 139,
-               "flash_fwd_wgmma_kernel": 201, "flash_bwd_kernels": 291}
+               "flash_single_bwd_wgmma_kernels": 139,
+               "flash_fwd_wgmma_kernel": 201, "flash_bwd_wgmma_kernels": 291}
+# the fp32 routes of the entries whose bf16 route is on warpgroup products
+FP32_ROUTES = {
+    "flash_fwd_wgmma_kernel": "flash_fwd_kernel",
+    "flash_single_bwd_wgmma_kernels": "flash_single_dq_kernel + "
+                                      "flash_single_dkdv_kernel",
+    "flash_bwd_wgmma_kernels": "flash_delta_kernel + flash_dkdv_kernel + "
+                               "flash_dq_kernel"}
 FLASH_SHAPES = {"single": (8, 1024, 32, 64), "tiled": (4, 2048, 32, 64)}
 # the ring's off-diagonal tick on the tiled pair: the second half of the
 # rows against the first half of the keys (a full block), from the global
 # lse and out of both halves
 RING_TICK = {"flash_fwd_wgmma_kernel[ring tick]": "flash_fwd_wgmma_kernel",
-             "flash_bwd_kernels[outside lse]": "flash_bwd_kernels"}
+             "flash_bwd_wgmma_kernels[outside lse]": "flash_bwd_wgmma_kernels"}
 
 
-# the single-block forward at ragged shapes: s not a multiple of the
-# bf16 kernel's 128-row tiles, d padded to 64 or 128, causal and not
+# the single-block pair at ragged shapes: s not a multiple of the bf16
+# kernels' 128-row (or the backward's 64-row) tiles, d padded to 64 or
+# 128, causal and not; the backward too where its route takes d (fp32:
+# up to 64)
 FLASH_SINGLE_RAGGED = [((2, 80, 4, 16), False), ((2, 80, 4, 16), True),
                        ((2, 16, 2, 32), True), ((2, 208, 3, 80), False),
-                       ((1, 1008, 4, 128), True)]
+                       ((2, 200, 3, 48), True), ((1, 1008, 4, 128), True)]
 # the tiled pair at ragged shapes (the bf16 forward's 128-row items and
 # 128-key tiles, head dims padded to 64 and 128): forward and the backward
 # from its out and lse
@@ -1016,8 +1055,9 @@ def check_flash_kernels(dev, flush):
     for dtype in (torch.float32, torch.bfloat16):
         for path, (fwd_name, bwd_name) in (
                 ("single", ("flash_single_fwd_kernel",
-                            "flash_single_bwd_kernels")),
-                ("tiled", ("flash_fwd_wgmma_kernel", "flash_bwd_kernels"))):
+                            "flash_single_bwd_wgmma_kernels")),
+                ("tiled", ("flash_fwd_wgmma_kernel",
+                           "flash_bwd_wgmma_kernels"))):
             e, fin, same, _ = _flash_case(dev, path, dtype)
             _check(f"flash {path}", dtype, e["out"], e["bwd_rel"], fin,
                    e["lse"], same)
@@ -1037,8 +1077,8 @@ def check_flash_kernels(dev, flush):
                                  f"off the whole by {e['merge']}")
         errs[("flash_fwd_wgmma_kernel[ring tick]", dtype)] = (
             max(e["out"], e["lse"]),)
-        errs[("flash_bwd_kernels[outside lse]", dtype)] = (e["bwd_abs"],
-                                                          e["bwd_rel"])
+        errs[("flash_bwd_wgmma_kernels[outside lse]", dtype)] = (
+            e["bwd_abs"], e["bwd_rel"])
         print(f"[3/{PHASES}] flash ring tick (rows 1024-2047 over two key "
               f"halves, outside lse) {str(dtype)[6:]}: out max abs err "
               f"{e['out']:.3g}, lse {e['lse']:.3g}; backward max abs err "
@@ -1059,29 +1099,35 @@ def check_flash_kernels(dev, flush):
               flush=True)
 
     for shape, causal in FLASH_SINGLE_RAGGED:
-        errs_r = {}
+        said = []
         for dtype in (torch.float32, torch.bfloat16):
-            q, k, v, _ = _qkv(dev, shape, dtype, seed=2)
-            out = fa.flash_attention_fwd_single(q, k, v, causal)
-            torch.cuda.synchronize()
-            err = _max_err(out, fa.flash_attention_single_ref(q, k, v,
-                                                              causal))
-            if not (err <= TOL_FWD[dtype] and torch.isfinite(out).all()):
-                raise AssertionError(f"flash_single_fwd_kernel {shape} "
-                                     f"causal {causal} {dtype}: max abs "
-                                     f"err {err}")
-            errs_r[dtype] = err
-        print(f"[3/{PHASES}] flash single forward {list(shape)} "
-              f"{'causal' if causal else 'full'}: max abs err fp32 "
-              f"{errs_r[torch.float32]:.3g} bf16 "
-              f"{errs_r[torch.bfloat16]:.3g}", flush=True)
+            if dtype == torch.float32 and shape[3] > 64:
+                # the fp32 backward takes d <= 64: the forward alone
+                q, k, v, _ = _qkv(dev, shape, dtype, seed=2)
+                out = fa.flash_attention_fwd_single(q, k, v, causal)
+                torch.cuda.synchronize()
+                err = _max_err(out, fa.flash_attention_single_ref(
+                    q, k, v, causal))
+                _check(f"flash single {shape} causal {causal}", dtype, err,
+                       0.0, bool(torch.isfinite(out).all()))
+                said.append(f"{str(dtype)[6:]} out {err:.3g}")
+                continue
+            e, fin, same, _ = _flash_case(dev, "single", dtype, shape,
+                                          causal)
+            _check(f"flash single {shape} causal {causal}", dtype,
+                   e["out"], e["bwd_rel"], fin, 0.0, same)
+            said.append(f"{str(dtype)[6:]} out {e['out']:.3g}, backward "
+                        f"relative {e['bwd_rel']:.3g} (bit-identical twice)")
+        print(f"[3/{PHASES}] flash single {list(shape)} "
+              f"{'causal' if causal else 'full'}: max abs err "
+              f"{'; '.join(said)}", flush=True)
 
     bf = torch.bfloat16
     results = {}
     for path, pair in (("single", ("flash_single_fwd_kernel",
-                                   "flash_single_bwd_kernels")),
+                                   "flash_single_bwd_wgmma_kernels")),
                        ("tiled", ("flash_fwd_wgmma_kernel",
-                                  "flash_bwd_kernels")),
+                                  "flash_bwd_wgmma_kernels")),
                        ("tick", tuple(RING_TICK))):
         if path == "tick":
             *_, (q, k, v, out, lse, dout) = _ring_tick_case(dev, bf)
@@ -1136,8 +1182,8 @@ def check_flash_kernels(dev, flush):
     for name, r in results.items():
         e32, e16 = errs[(name, torch.float32)], errs[(name, bf)]
         r["max_abs_err"], r["max_abs_err_fp32"] = e16[0], e32[0]
-        if name.startswith("flash_fwd_wgmma_kernel"):
-            r["fp32_route"] = "flash_fwd_kernel"
+        if name.split("[")[0] in FP32_ROUTES:
+            r["fp32_route"] = FP32_ROUTES[name.split("[")[0]]
         if len(e16) > 1:
             r["max_rel_err"], r["max_rel_err_fp32"] = e16[1], e32[1]
         lib = "null" if r["library_ms"] is None else \
@@ -1149,8 +1195,8 @@ def check_flash_kernels(dev, flush):
 
 
 # kernel -> (wrapper module, wrapper, its launch counter); the splash and
-# tiled flash forwards count their bf16 route (warpgroup products) apart
-# from their fp32 one
+# tiled flash forwards and both flash backwards count their bf16 route
+# (warpgroup products) apart from their fp32 one
 TRAIN_COUNTERS = {
     "splash_fwd_wgmma_kernel": ("splash_attention", "splash_attention_fwd",
                                 "launches_wgmma"),
@@ -1164,12 +1210,17 @@ TRAIN_COUNTERS = {
                              "launches"),
     "flash_single_fwd_kernel": ("flash_attention",
                                 "flash_attention_fwd_single", "launches"),
+    "flash_single_bwd_wgmma_kernels": ("flash_attention",
+                                       "flash_attention_bwd_single",
+                                       "launches_wgmma"),
     "flash_single_bwd_kernels": ("flash_attention",
                                  "flash_attention_bwd_single", "launches"),
     "flash_fwd_wgmma_kernel": ("flash_attention", "flash_attention_fwd",
                                "launches_wgmma"),
     "flash_fwd_kernel": ("flash_attention", "flash_attention_fwd",
                          "launches"),
+    "flash_bwd_wgmma_kernels": ("flash_attention", "flash_attention_bwd",
+                                "launches_wgmma"),
     "flash_bwd_kernels": ("flash_attention", "flash_attention_bwd",
                           "launches"),
 }
@@ -1178,17 +1229,19 @@ CE_KERNELS = ("fused_ce_fwd_kernel", "fused_ce_bwd_kernels")
 
 def _path_kernels(seq, splash, bf16=True):
     """The training kernels a step at ``seq`` tokens launches: splash with
-    the flag on, else the flash pair of the length's path (the forwards of
-    splash and the tiled pair on warpgroup products in bf16); and the
-    CE."""
+    the flag on, else the flash pair of the length's path (in bf16 the
+    forwards of splash and the tiled pair and both flash backwards on
+    warpgroup products); and the CE."""
     if splash:
         attn = ("splash_fwd_wgmma_kernel" if bf16 else "splash_fwd_kernel",
                 "splash_bwd_kernels")
     elif seq <= 1024:
-        attn = ("flash_single_fwd_kernel", "flash_single_bwd_kernels")
+        attn = ("flash_single_fwd_kernel",
+                "flash_single_bwd_wgmma_kernels" if bf16
+                else "flash_single_bwd_kernels")
     else:
         attn = ("flash_fwd_wgmma_kernel" if bf16 else "flash_fwd_kernel",
-                "flash_bwd_kernels")
+                "flash_bwd_wgmma_kernels" if bf16 else "flash_bwd_kernels")
     return attn + CE_KERNELS
 
 
@@ -1460,7 +1513,7 @@ def main() -> int:
     where.update({name: where[base] for name, base in RING_TICK.items()})
     keys = ("max_abs_err", "max_abs_err_fp32", "max_rel_err",
             "max_rel_err_fp32", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "library", "shape", "causal")
+            "library_ms", "library", "shape", "causal", "fp32_route")
     line = [{"name": name, "route": "cuda", "source": where[name][0],
              "replaces": where[name][1], "launches": launches[name],
              **({"launches_per_step": launches[name] / steps[name]}

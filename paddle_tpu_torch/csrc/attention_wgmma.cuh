@@ -123,59 +123,64 @@ struct FwdItem {
   }
 };
 
-// S[64 rows x 128 keys] = Q K^T of one warpgroup (raw products).
-template <int D>
-__device__ __forceinline__ void issue_scores(float (&s)[64], uint32_t q_addr,
-                                             uint32_t k_addr) {
-  constexpr int kPanel = kRows * hop::kRowBytes;
-  hop::fence_regs(s);
+// acc[64 x N] = A B^T over D: A (64 rows) and B (N rows) K-major, their
+// panels of 64 columns a_panel / b_panel bytes apart (S = Q K^T: both
+// panels of 128 rows).
+template <int N, int D>
+__device__ __forceinline__ void issue_ss(float (&acc)[N / 2], uint32_t a,
+                                         uint32_t a_panel, uint32_t b,
+                                         uint32_t b_panel) {
+  hop::fence_regs(acc);
   hop::fence();
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
-    const uint32_t off = (kk >> 2) * kPanel + (kk & 3) * 32;
-    hop::mma_ss<128, 0, 0>(s, hop::desc(q_addr + off, 16, 1024),
-                           hop::desc(k_addr + off, 16, 1024), kk > 0);
+    const uint32_t c = (kk & 3) * 32;
+    hop::mma_ss<N, 0, 0>(acc, hop::desc(a + (kk >> 2) * a_panel + c, 16,
+                                        1024),
+                         hop::desc(b + (kk >> 2) * b_panel + c, 16, 1024),
+                         kk > 0);
   }
   hop::commit();
 }
 
-// O[64 x D] += P V: P from the A registers, V MN-major.
-template <int D>
-__device__ __forceinline__ void issue_pv(float (&o)[D / 2],
-                                         const uint32_t (&a)[kRows / 16][4],
-                                         uint32_t v_addr) {
-  constexpr int kPanel = kRows * hop::kRowBytes;
-  hop::fence_regs(o);
+// acc[64 x N] += A B: A[64 x K] from the A registers, B [K rows x N]
+// MN-major, its panels of 64 columns b_panel bytes apart (O += P V).
+template <int N, int K>
+__device__ __forceinline__ void issue_rs(float (&acc)[N / 2],
+                                         const uint32_t (&a)[K / 16][4],
+                                         uint32_t b, uint32_t b_panel) {
+  hop::fence_regs(acc);
   hop::fence();
 #pragma unroll
-  for (int kk = 0; kk < kRows / 16; ++kk)
-    hop::mma_rs<D, 1>(o, a[kk],
-                      hop::desc(v_addr + kk * 16 * hop::kRowBytes, kPanel,
-                                1024),
+  for (int kk = 0; kk < K / 16; ++kk)
+    hop::mma_rs<N, 1>(acc, a[kk],
+                      hop::desc(b + kk * 16 * hop::kRowBytes, b_panel, 1024),
                       1);
   hop::commit();
 }
 
-// Keeps P's A registers live until the P.V that reads them has been
+// Keeps A registers live until the product that reads them has been
 // waited for (the compiler does not know the product reads them late).
-__device__ __forceinline__ void fence_a(uint32_t (&a)[kRows / 16][4]) {
+template <int K>
+__device__ __forceinline__ void fence_a(uint32_t (&a)[K][4]) {
 #pragma unroll
-  for (int kk = 0; kk < kRows / 16; ++kk)
+  for (int kk = 0; kk < K; ++kk)
 #pragma unroll
     for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[kk][i])::"memory");
 }
 
-// Scale the raw products to log2 units; keys past sk, past the diagonal
-// or of another segment -inf. Only a tile that needs it is masked.
-template <bool kSeg>
-__device__ __forceinline__ void mask_scores(float (&s)[64], int t, int k0,
+// Scale the raw products of a tile of N keys to log2 units; keys past
+// sk, past the diagonal or of another segment -inf. Only a tile that
+// needs it is masked.
+template <bool kSeg, int N = kRows>
+__device__ __forceinline__ void mask_scores(float (&s)[N / 2], int t, int k0,
                                             int row0, int rows_lo,
                                             const int* ids,
                                             const int (&seg_r)[2],
                                             float sl2, const Geometry& g) {
-  if (kSeg || k0 + kRows > g.sk || (g.causal && k0 + kRows - 1 > rows_lo)) {
+  if (kSeg || k0 + N > g.sk || (g.causal && k0 + N - 1 > rows_lo)) {
 #pragma unroll
-    for (int i = 0; i < 64; ++i) {
+    for (int i = 0; i < N / 2; ++i) {
       const int c = hop::acc_col(t, i), j = k0 + c, r = (i >> 1) & 1;
       bool vis = j < g.sk && (!g.causal || j <= row0 + 8 * r);
       if constexpr (kSeg) vis = vis && ids[c] == seg_r[r];
@@ -183,7 +188,7 @@ __device__ __forceinline__ void mask_scores(float (&s)[64], int t, int k0,
     }
   } else {
 #pragma unroll
-    for (int i = 0; i < 64; ++i) s[i] *= sl2;
+    for (int i = 0; i < N / 2; ++i) s[i] *= sl2;
   }
 }
 
@@ -338,7 +343,8 @@ __device__ __forceinline__ void fwd_body(const CUtensorMap& tq,
     // tile 0: S, softmax
     hop::bar_wait(&k_full[kr.stage], kr.phase);
     if (kPingPong) named_sync(1 + wg);
-    issue_scores<D>(s, q_addr, k_base + kr.stage * L::kTile);
+    issue_ss<kRows, D>(s, q_addr, L::kPanel, k_base + kr.stage * L::kTile,
+                       L::kPanel);
     if (kPingPong) named_arrive(2 - wg);
     hop::wait<0>();
     hop::fence_regs(s);
@@ -355,8 +361,9 @@ __device__ __forceinline__ void fwd_body(const CUtensorMap& tq,
       hop::bar_wait(&k_full[kr.stage], kr.phase);
       hop::bar_wait(&v_full[vr.stage], vr.phase);
       if (kPingPong) named_sync(1 + wg);
-      issue_scores<D>(s, q_addr, k_base + kr.stage * L::kTile);
-      issue_pv<D>(o, a, v_base + vr.stage * L::kTile);
+      issue_ss<kRows, D>(s, q_addr, L::kPanel,
+                         k_base + kr.stage * L::kTile, L::kPanel);
+      issue_rs<D, kRows>(o, a, v_base + vr.stage * L::kTile, L::kPanel);
       if (kPingPong) named_arrive(2 - wg);
       hop::wait<1>();
       hop::fence_regs(s);
@@ -378,7 +385,7 @@ __device__ __forceinline__ void fwd_body(const CUtensorMap& tq,
     }
     // the last P.V
     hop::bar_wait(&v_full[vr.stage], vr.phase);
-    issue_pv<D>(o, a, v_base + vr.stage * L::kTile);
+    issue_rs<D, kRows>(o, a, v_base + vr.stage * L::kTile, L::kPanel);
     hop::wait<0>();
     hop::fence_regs(o);
     hop::bar_arrive(&v_empty[vr.stage]);
@@ -426,22 +433,26 @@ inline cudaError_t persistent_grid(long long items, int* grid) {
   return cudaSuccess;
 }
 
-// bf16 tensor maps of the q, k, v views: dims (d, heads, rows, batch),
-// boxes of 64 columns x 128 rows.
+// A bf16 tensor map of a [b, rows, heads, d] view (element strides v):
+// dims (d, heads, rows, batch), boxes of 64 columns x box_rows rows.
+inline cudaError_t view_map(CUtensorMap* map, const void* p, View v,
+                            int heads, int rows, int b, int d,
+                            int box_rows) {
+  const long long dims[4] = {d, heads, rows, b};
+  const long long strides[3] = {v.h, v.s, v.b};
+  const int box[4] = {64, 1, box_rows, 1};
+  return hop::make_map(map, p, 4, dims, strides, box);
+}
+
+// The q, k, v views' maps, boxes of 128 rows.
 inline cudaError_t qkv_maps(CUtensorMap (&maps)[3], const void* q,
                             const void* k, const void* v, View qv, View kv,
                             View vv, int b, const Geometry& g) {
-  const void* ptrs[3] = {q, k, v};
-  const View views[3] = {qv, kv, vv};
-  const int rows[3] = {g.sq, g.sk, g.sk}, heads[3] = {g.nh, g.kvh, g.kvh};
-  const int box[4] = {64, 1, kRows, 1};
-  for (int i = 0; i < 3; ++i) {
-    const long long dims[4] = {g.d, heads[i], rows[i], b};
-    const long long strides[3] = {views[i].h, views[i].s, views[i].b};
-    const cudaError_t err =
-        hop::make_map(&maps[i], ptrs[i], 4, dims, strides, box);
-    if (err != cudaSuccess) return err;
-  }
+  cudaError_t err;
+  if ((err = view_map(&maps[0], q, qv, g.nh, g.sq, b, g.d, kRows)) ||
+      (err = view_map(&maps[1], k, kv, g.kvh, g.sk, b, g.d, kRows)) ||
+      (err = view_map(&maps[2], v, vv, g.kvh, g.sk, b, g.d, kRows)))
+    return err;
   return cudaSuccess;
 }
 

@@ -5,13 +5,17 @@
 // Replaces the TPU kernels of paddle_tpu/ops/pallas/flash_attention.py:
 //   #5 flash_single_fwd_wgmma_kernel (bf16),
 //      flash_single_fwd_kernel (fp32) <- _fwd_single_kernel (seq <= 1024)
-//   #6 flash_single_dq_kernel,
-//      flash_single_dkdv_kernel    <- _bwd_single_kernel
+//   #6 flash_single_dq_wgmma_kernel,
+//      flash_single_dkdv_wgmma_kernel (bf16),
+//      flash_single_dq_kernel,
+//      flash_single_dkdv_kernel (fp32) <- _bwd_single_kernel
 //   #7 flash_fwd_wgmma_kernel (bf16),
 //      flash_fwd_kernel (fp32)     <- _fwd_kernel (the tiled path)
-//   #8 flash_delta_kernel,
+//   #8 flash_delta_kernel, then
+//      flash_dq_wgmma_kernel,
+//      flash_dkdv_wgmma_kernel (bf16),
 //      flash_dkdv_kernel,
-//      flash_dq_kernel             <- _bwd_fused_kernel
+//      flash_dq_kernel (fp32)      <- _bwd_fused_kernel
 // The plain PyTorch versions in ops/kernels/flash_attention.py
 // (flash_attention_single_ref / flash_attention_single_bwd_ref,
 // flash_attention_ref / flash_attention_bwd_ref) define the contract; these
@@ -31,7 +35,8 @@
 // (under ring attention they are the global ones, so p = exp(s - lse) sums
 // to less than 1 over one key block, and nothing renormalises), computes
 // delta = rowsum(dO * O) in fp32 from the given out, and sums dK, dV and dQ
-// in fp32, cast once.
+// in fp32, cast once (in bf16 the warpgroup backward of
+// attention_wgmma_bwd.cuh, shared with #6; in fp32 splash's bodies).
 //
 // #5 keeps the single-block kernel's numerics although a 1024 x 1024 fp32
 // score row does not fit a block (227 KB, and a 1024-key row is 4 KB of
@@ -62,9 +67,14 @@
 // walks the key tiles for m, l and delta = sum_j p_j dP_j (the TPU kernel's
 // delta, not rowsum(dO * O), which differs once P is rounded), writes them
 // to a [3, b, nh, sq] fp32 scratch, then walks them again for dQ; the dK/dV
-// kernel, launched after it, reads the scratch. Neither kernel uses float
-// atomics: every sum lives in one block in a fixed order, so gradients are
-// bit-reproducible, and the [s, s] matrix never reaches device memory.
+// kernel, launched after it, reads the scratch and forms
+// p = exp(s - m) / l, normalised before its cast as in the TPU kernel.
+// In bf16 both are attention_wgmma_bwd.cuh's persistent warpgroup bodies
+// (its note gives the design: TMA rings, every score tile in registers,
+// dK/dV key-stationary, dQ query-stationary); in fp32 splash's bodies of
+// attention_tiles.cuh. Neither route uses float atomics: every sum lives
+// in one block in a fixed order, so gradients are bit-reproducible, and
+// the [s, s] matrix never reaches device memory.
 //
 // What bounds them on the H100 (bytes over 3.35 TB/s or operations over
 // 989 TFLOP/s, the larger; causal bf16, d 64): #5 at [8, 1024, 32, 64]
@@ -75,12 +85,14 @@
 // products where the bound counts 2; the exponentials too), the diagonal
 // tile's masked half, no overlap of one warpgroup's softmax with its own
 // products (the two warpgroups interleave only by chance) and 4-byte
-// output stores. #6, #8
-// and #7's fp32 route keep splash's list (wmma or CUDA cores from shared
-// memory, no cp.async/TMA pipelining, 4-warp blocks) and #6 computes S and
-// dP three times (9 products where the bound counts 5).
+// output stores. The bf16 #6 does 9 products where its bound counts 5 (S
+// and dP in the dQ kernel's statistics walk, its dQ walk and the dK/dV
+// kernel) and #8 7 (S and dP in both kernels) plus a delta kernel of its
+// own; what else they leave on the table is in attention_wgmma_bwd.cuh's
+// note. The fp32 routes of #6, #7 and #8 keep splash's list (CUDA cores
+// from shared memory, no cp.async/TMA pipelining, 4-warp blocks).
 
-#include "attention_wgmma.cuh"
+#include "attention_wgmma_bwd.cuh"
 
 namespace {
 
@@ -187,7 +199,8 @@ template <int D>
 __device__ __forceinline__ void single_fwd_scores(
     float (&s)[64], uint32_t q_addr, uint32_t k_addr, int k0, int rows_lo,
     int row0, int t, float sl2, const Geometry& g) {
-  attn_wg::issue_scores<D>(s, q_addr, k_addr);
+  constexpr uint32_t kPanel = attn_wg::kRows * hop::kRowBytes;
+  attn_wg::issue_ss<attn_wg::kRows, D>(s, q_addr, kPanel, k_addr, kPanel);
   hop::wait<0>();
   hop::fence_regs(s);
   const int no_seg[2] = {0, 0};
@@ -326,14 +339,7 @@ __global__ void __launch_bounds__(hop::kThreads, 1)
       for (int kk = 0; kk < kB / 16; ++kk) hop::pack_a(s, kk, a[kk]);
       const uint32_t v_addr =
           hop::smem_addr(sm + L::kV + (size_t)ring.stage * L::kTile);
-      hop::fence_regs(o);
-      hop::fence();
-#pragma unroll
-      for (int kk = 0; kk < kB / 16; ++kk)
-        hop::mma_rs<D, 1>(o, a[kk],
-                          hop::desc(v_addr + kk * 16 * hop::kRowBytes,
-                                    L::kPanel, 1024), 1);
-      hop::commit();
+      attn_wg::issue_rs<D, kB>(o, a, v_addr, L::kPanel);
       hop::wait<0>();
       hop::fence_regs(o);
       hop::bar_arrive(&empty[ring.stage]);
@@ -362,6 +368,34 @@ __global__ void __launch_bounds__(kThreads) flash_single_dq_kernel(
     const T* __restrict__ dout, attn::Stats st, T* __restrict__ dq, View qv,
     View kv, View vv, Geometry g) {
   attn::dq_body<T, true, true>(q, k, v, dout, st, nullptr, dq, qv, kv, vv, g);
+}
+
+// bf16: attention_wgmma_bwd.cuh's bodies with #6's statistics (the dQ
+// kernel writes m, l and delta; the dK/dV kernel reads them). D: the head
+// dim padded to 64 or 128.
+template <int D>
+__global__ void __launch_bounds__(attn_wg::kThreads, 1)
+    flash_single_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                                 const __grid_constant__ CUtensorMap tk,
+                                 const __grid_constant__ CUtensorMap tv,
+                                 const __grid_constant__ CUtensorMap tdo,
+                                 attn::Stats st,
+                                 __nv_bfloat16* __restrict__ dq, Geometry g,
+                                 int batch) {
+  attn_wg::dq_body<D, true>(tq, tk, tv, tdo, st, dq, g, batch);
+}
+
+template <int D>
+__global__ void __launch_bounds__(attn_wg::kThreads, 1)
+    flash_single_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                                   const __grid_constant__ CUtensorMap tk,
+                                   const __grid_constant__ CUtensorMap tv,
+                                   const __grid_constant__ CUtensorMap tdo,
+                                   attn::Stats st,
+                                   __nv_bfloat16* __restrict__ dk,
+                                   __nv_bfloat16* __restrict__ dv,
+                                   Geometry g, int batch) {
+  attn_wg::dkdv_body<D, true>(tq, tk, tv, tdo, st, dk, dv, g, batch);
 }
 
 template <typename T>
@@ -411,6 +445,31 @@ __global__ void __launch_bounds__(kThreads) flash_dkdv_kernel(
     T* __restrict__ dk, T* __restrict__ dv, View qv, View kv, View vv,
     Geometry g) {
   attn::dkdv_body<T, false>(q, k, v, dout, st, seg, dk, dv, qv, kv, vv, g);
+}
+
+// bf16: attention_wgmma_bwd.cuh's bodies from the outside lse and the
+// delta of flash_delta_kernel. D: the head dim padded to 64 or 128.
+template <int D>
+__global__ void __launch_bounds__(attn_wg::kThreads, 1)
+    flash_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const __grid_constant__ CUtensorMap tdo,
+                          attn::Stats st, __nv_bfloat16* __restrict__ dq,
+                          Geometry g, int batch) {
+  attn_wg::dq_body<D, false>(tq, tk, tv, tdo, st, dq, g, batch);
+}
+
+template <int D>
+__global__ void __launch_bounds__(attn_wg::kThreads, 1)
+    flash_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                            const __grid_constant__ CUtensorMap tk,
+                            const __grid_constant__ CUtensorMap tv,
+                            const __grid_constant__ CUtensorMap tdo,
+                            attn::Stats st, __nv_bfloat16* __restrict__ dk,
+                            __nv_bfloat16* __restrict__ dv, Geometry g,
+                            int batch) {
+  attn_wg::dkdv_body<D, false>(tq, tk, tv, tdo, st, dk, dv, g, batch);
 }
 
 template <typename T>
@@ -467,12 +526,13 @@ cudaError_t fwd_single_bf16(const void* q, const void* k, const void* v,
                    : launch_single_wgmma<128>(maps, out, b, g, stream);
 }
 
-// dQ first (it writes the row stats), then dK/dV (which read them).
-template <typename T>
-cudaError_t bwd_single(const void* q, const void* k, const void* v,
-                       const void* dout, float* stats, void* dq, void* dk,
-                       void* dv, View qv, View kv, View vv, int b,
-                       const Geometry& g, cudaStream_t stream) {
+// fp32 #6: tile_mma.cuh's kernels, dQ first (it writes the row stats),
+// then dK/dV (which read them).
+cudaError_t bwd_single_fp32(const void* q, const void* k, const void* v,
+                            const void* dout, float* stats, void* dq,
+                            void* dk, void* dv, View qv, View kv, View vv,
+                            int b, const Geometry& g, cudaStream_t stream) {
+  using T = float;
   const size_t smem_q = attn::bwd_smem<T>(g.d, 1, 3);
   const size_t smem_kv = attn::bwd_smem<T>(g.d, 2, 3);
   cudaError_t err = tile::prepare(flash_single_dq_kernel<T>, smem_q);
@@ -492,6 +552,53 @@ cudaError_t bwd_single(const void* q, const void* k, const void* v,
       (const T*)q, (const T*)k, (const T*)v, (const T*)dout, st, (T*)dk,
       (T*)dv, qv, kv, vv, g);
   return cudaGetLastError();
+}
+
+// bf16 #6: the wgmma dQ kernel (which writes the statistics), then the
+// wgmma dK/dV kernel.
+cudaError_t bwd_single_bf16(const void* q, const void* k, const void* v,
+                            const void* dout, float* stats, void* dq,
+                            void* dk, void* dv, View qv, View kv, View vv,
+                            int b, const Geometry& g, cudaStream_t stream) {
+  const size_t n = (size_t)b * g.nh * g.sq;
+  const attn::Stats st{stats, stats + n, stats + 2 * n};
+  return g.d <= 64
+             ? attn_wg::launch_bwd<64>(flash_single_dq_wgmma_kernel<64>,
+                                       flash_single_dkdv_wgmma_kernel<64>, q,
+                                       k, v, dout, st, dq, dk, dv, qv, kv, vv,
+                                       b, g, stream)
+             : attn_wg::launch_bwd<128>(flash_single_dq_wgmma_kernel<128>,
+                                        flash_single_dkdv_wgmma_kernel<128>,
+                                        q, k, v, dout, st, dq, dk, dv, qv, kv,
+                                        vv, b, g, stream);
+}
+
+// bf16 #8: delta = rowsum(dO * O) (flash_delta_kernel), then the wgmma
+// dQ and dK/dV kernels.
+cudaError_t bwd_bf16(const void* q, const void* k, const void* v,
+                     const void* out, const void* dout, float* lse,
+                     float* delta, void* dq, void* dk, void* dv, View qv,
+                     View kv, View vv, int b, const Geometry& g,
+                     cudaStream_t stream) {
+  using T = __nv_bfloat16;
+  const long long n_rows = (long long)b * g.sq * g.nh;
+  const int rows_per_block = kThreads / 32;
+  flash_delta_kernel<T>
+      <<<(unsigned)((n_rows + rows_per_block - 1) / rows_per_block),
+         kThreads, 0, stream>>>((const T*)out, (const T*)dout, delta, n_rows,
+                                g.sq, g.nh, g.d);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const attn::Stats st{lse, nullptr, delta};
+  return g.d <= 64
+             ? attn_wg::launch_bwd<64>(flash_dq_wgmma_kernel<64>,
+                                       flash_dkdv_wgmma_kernel<64>, q, k, v,
+                                       dout, st, dq, dk, dv, qv, kv, vv, b, g,
+                                       stream)
+             : attn_wg::launch_bwd<128>(flash_dq_wgmma_kernel<128>,
+                                        flash_dkdv_wgmma_kernel<128>, q, k, v,
+                                        dout, st, dq, dk, dv, qv, kv, vv, b,
+                                        g, stream);
 }
 
 Geometry geometry(int sq, int sk, int nh, int d, int causal, float scale) {
@@ -541,10 +648,10 @@ extern "C" int flash_bwd_single(const void* q, const void* k, const void* v,
   const View qv{qb, qs, qh}, kv{kb, ks, kh}, vv{vb, vs, vh};
   cudaStream_t s = (cudaStream_t)stream;
   if (bf16)
-    return (int)bwd_single<__nv_bfloat16>(q, k, v, dout, (float*)stats, dq,
-                                          dk, dv, qv, kv, vv, b, g, s);
-  return (int)bwd_single<float>(q, k, v, dout, (float*)stats, dq, dk, dv, qv,
+    return (int)bwd_single_bf16(q, k, v, dout, (float*)stats, dq, dk, dv, qv,
                                 kv, vv, b, g, s);
+  return (int)bwd_single_fp32(q, k, v, dout, (float*)stats, dq, dk, dv, qv,
+                              kv, vv, b, g, s);
 }
 
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
@@ -593,12 +700,22 @@ extern "C" int flash_bwd(const void* q, const void* k, const void* v,
   cudaStream_t s = (cudaStream_t)stream;
   float* l = const_cast<float*>((const float*)lse);
   if (bf16)
-    return (int)attn::launch_bwd<__nv_bfloat16>(
-        flash_delta_kernel<__nv_bfloat16>, flash_dkdv_kernel<__nv_bfloat16>,
-        flash_dq_kernel<__nv_bfloat16>, q, k, v, out, dout, l, nullptr,
-        (float*)delta, dq, dk, dv, qv, kv, vv, b, g, s);
+    return (int)bwd_bf16(q, k, v, out, dout, l, (float*)delta, dq, dk, dv, qv,
+                         kv, vv, b, g, s);
   return (int)attn::launch_bwd<float>(
       flash_delta_kernel<float>, flash_dkdv_kernel<float>,
       flash_dq_kernel<float>, q, k, v, out, dout, l, nullptr, (float*)delta,
       dq, dk, dv, qv, kv, vv, b, g, s);
+}
+
+// The dynamic shared memory a bf16 backward's dQ / dK/dV block (#6's and
+// #8's alike) launches with at head dim d.
+extern "C" int flash_bwd_dq_bf16_smem(int d) {
+  return (int)(d <= 64 ? attn_wg::DqSmem<64>::kBytes
+                       : attn_wg::DqSmem<128>::kBytes);
+}
+
+extern "C" int flash_bwd_dkdv_bf16_smem(int d) {
+  return (int)(d <= 64 ? attn_wg::DkdvSmem<64>::kBytes
+                       : attn_wg::DkdvSmem<128>::kBytes);
 }

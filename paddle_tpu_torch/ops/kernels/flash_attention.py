@@ -10,7 +10,8 @@ the reference:
   is an exact softmax, ``P = exp(s - max) / sum`` rounded to the value
   dtype before ``P V``, with no lse (in bf16 on warpgroup products,
   ``csrc/hopper_tiles.cuh``); `flash_attention_bwd_single` (#6)
-  recomputes it from q, k, v alone, with ``delta = sum(p * dP)``.
+  recomputes it from q, k, v alone, with ``delta = sum(p * dP)`` (in
+  bf16 on warpgroup products, ``csrc/attention_wgmma_bwd.cuh``).
 * tiled: `flash_attention_fwd` (#7) is an online softmax over key tiles
   returning ``(out, lse)``: ``P`` is rounded unnormalised, after the
   running max is subtracted, and ``O`` divided by the sum at the end (in
@@ -20,14 +21,16 @@ the reference:
   ring attention they are the global ones, so ``p = exp(s - lse)`` sums to
   less than 1 over one key block; nothing renormalises, and
   ``delta = rowsum(dO * O)`` comes from the given ``out``. This is the
-  contract ``ring_flash_attention`` builds on.
+  contract ``ring_flash_attention`` builds on (in bf16 on the warpgroup
+  backward of ``csrc/attention_wgmma_bwd.cuh``, shared with #6).
 
 `flash_attention` picks the path as the reference does and is
 differentiable (two ``torch.autograd.Function``s: the single path keeps
 q, k, v for its backward, the tiled path q, k, v, out, lse). ``block_q`` /
 ``block_k`` only select the tiled path, as in the reference; the kernels
-pick their own tiles (64 rows and 64 keys), and the plain tiled forward
-rounds ``P`` per 64-key tile as the kernel does.
+pick their own tiles (64 rows and keys in fp32; 128 in the bf16
+forwards, 64 to 128 in the bf16 backwards), and the plain tiled forward
+rounds ``P`` per 64-key tile as the fp32 kernel does.
 
 Routing is by the tensors' device, nothing else: CPU tensors take the
 plain versions (`flash_attention_single_ref`,
@@ -39,9 +42,10 @@ float32 and bfloat16 (float16: ROADMAP queue B), ``d`` a multiple of 16 up
 to 128 (up to 64 for a float32 backward, by shared memory; larger ``d``:
 ROADMAP queue B), and q/k/v as strided views (unit stride along ``d``,
 16-byte aligned rows), so the qkv product's views need no copy. Each entry
-counts its launches in ``<entry>.launches``, except the bf16 tiled
-forward's, which count in ``flash_attention_fwd.launches_wgmma``: the
-route depends on the dtype alone.
+counts its launches in ``<entry>.launches``, except the bf16 launches of
+the tiled forward and of both backwards, which count in
+``<entry>.launches_wgmma``: the route depends on the dtype alone, and a
+bf16 CUDA tensor reaches its warpgroup kernel or raises.
 """
 from __future__ import annotations
 
@@ -77,6 +81,9 @@ _SIGNATURES = {
     # d: the bf16 single-block / tiled forward's dynamic shared memory
     "flash_fwd_single_bf16_smem": (_I,),
     "flash_fwd_bf16_smem": (_I,),
+    # d: a bf16 backward's dQ / dK/dV block's dynamic shared memory
+    "flash_bwd_dq_bf16_smem": (_I,),
+    "flash_bwd_dkdv_bf16_smem": (_I,),
 }
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -298,8 +305,10 @@ def flash_attention_fwd_single(q, k, v, causal=True, scale=None):
 
 def flash_attention_bwd_single(q, k, v, dout, causal=True, scale=None):
     """The single-block backward from q, k, v and dout alone: ``(dq, dk,
-    dv)``; CUDA tensors launch ``flash_single_dq_kernel`` then
-    ``flash_single_dkdv_kernel`` (one count)."""
+    dv)``; CUDA tensors launch ``flash_single_dq_wgmma_kernel`` then
+    ``flash_single_dkdv_wgmma_kernel`` (bf16, one count in
+    ``.launches_wgmma``) or ``flash_single_dq_kernel`` then
+    ``flash_single_dkdv_kernel`` (fp32, one count in ``.launches``)."""
     _check(q, k, v, causal, backward=True)
     sc = _scale(q, scale)
     if q.device.type == "cpu":
@@ -315,7 +324,10 @@ def flash_attention_bwd_single(q, k, v, dout, causal=True, scale=None):
         _run("flash_bwd_single", q.data_ptr(), k.data_ptr(), v.data_ptr(),
              dout.data_ptr(), stats.data_ptr(), dq.data_ptr(),
              dk.data_ptr(), dv.data_ptr(), *_args(q, k, v, causal, sc))
-    flash_attention_bwd_single.launches += 1
+    if q.dtype == torch.bfloat16:
+        flash_attention_bwd_single.launches_wgmma += 1
+    else:
+        flash_attention_bwd_single.launches += 1
     return dq, dk, dv
 
 
@@ -345,8 +357,10 @@ def flash_attention_fwd(q, k, v, causal=True, scale=None):
 def flash_attention_bwd(q, k, v, out, lse, dout, causal=True, scale=None):
     """The tiled backward from an outside ``out`` and ``lse`` (the
     forward's, or a ring's global ones): ``(dq, dk, dv)``; CUDA tensors
-    launch ``flash_delta_kernel``, ``flash_dkdv_kernel`` and
-    ``flash_dq_kernel`` (one count)."""
+    launch ``flash_delta_kernel``, then ``flash_dq_wgmma_kernel`` and
+    ``flash_dkdv_wgmma_kernel`` (bf16, one count in ``.launches_wgmma``)
+    or ``flash_dkdv_kernel`` and ``flash_dq_kernel`` (fp32, one count in
+    ``.launches``)."""
     _check(q, k, v, causal, backward=True)
     sc = _scale(q, scale)
     if q.device.type == "cpu":
@@ -367,7 +381,10 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal=True, scale=None):
              out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
              delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
              *_args(q, k, v, causal, sc))
-    flash_attention_bwd.launches += 1
+    if q.dtype == torch.bfloat16:
+        flash_attention_bwd.launches_wgmma += 1
+    else:
+        flash_attention_bwd.launches += 1
     return dq, dk, dv
 
 
@@ -430,6 +447,8 @@ def flash_attention(q, k, v, causal=True, scale=None, block_q=None,
 
 flash_attention_fwd_single.launches = 0
 flash_attention_bwd_single.launches = 0
+flash_attention_bwd_single.launches_wgmma = 0
 flash_attention_fwd.launches = 0
 flash_attention_fwd.launches_wgmma = 0
 flash_attention_bwd.launches = 0
+flash_attention_bwd.launches_wgmma = 0

@@ -35,9 +35,11 @@ from .utils import flags
 _KERNELS = ("splash_fwd_wgmma_kernel", "splash_fwd_kernel",
             "splash_delta_kernel", "splash_dkdv_kernel", "splash_dq_kernel",
             "flash_single_fwd_wgmma_kernel", "flash_single_fwd_kernel",
+            "flash_single_dq_wgmma_kernel", "flash_single_dkdv_wgmma_kernel",
             "flash_single_dq_kernel", "flash_single_dkdv_kernel",
             "flash_fwd_wgmma_kernel", "flash_fwd_kernel",
-            "flash_delta_kernel", "flash_dkdv_kernel", "flash_dq_kernel",
+            "flash_delta_kernel", "flash_dq_wgmma_kernel",
+            "flash_dkdv_wgmma_kernel", "flash_dkdv_kernel", "flash_dq_kernel",
             "fused_ce_fwd_kernel", "fused_ce_combine_kernel",
             "fused_ce_bwd_wgmma_kernel<0>", "fused_ce_bwd_wgmma_kernel<1>",
             "fused_ce_bwd_wgmma_kernel<2>", "fused_ce_dh_kernel",

@@ -4,14 +4,17 @@ The four plain versions (which CPU tensors take, and which the CUDA
 kernels follow) against the reference's Pallas kernels in interpret mode:
 `flash_attention_single_ref` / `_bwd_ref` against ``fa._fwd_single`` /
 ``fa._bwd_single`` (s 16, 64, 80 and 128: under, at and off the bf16
-kernel's 128-row tiles), `flash_attention_ref` /
+kernel's 128-row tiles; and s 130, 200 and 384 at head dims 16, 48, 80
+and 128, the edges of the bf16 warpgroup backward), `flash_attention_ref` /
 `flash_attention_bwd_ref` against ``fa._fwd`` / ``fa._bwd`` (s 256 with
 64-row blocks, as tests/test_pallas.py forces the tiled path), causal and
 not, fp32 and bf16; the lse against lane 0 of the reference's
 lane-replicated one; the bf16 cast points of both paths; the ring
 composition of the tiled entries from an outside (global) lse against
-``ring_flash_attention`` on a CPU mesh; and the routing of
-``scaled_dot_product_attention`` under ``FLAGS_splash_attn``.
+``ring_flash_attention`` on a CPU mesh; the routing of
+``scaled_dot_product_attention`` under ``FLAGS_splash_attn``; the launch
+counters of both routes (CPU calls move none); and, for bit-reproducible
+gradients, no float atomics in the attention CUDA sources.
 
 Inputs are numpy arrays from a seed, handed to both. Tolerances: fp32
 forward 2e-5 and gradients 5e-4 (tests/test_pallas.py and
@@ -101,6 +104,33 @@ def test_single_block_plain_matches_jax_kernel(s, causal, dtype):
                                               SCALE)
     for g, w in zip(grads, jgrads):
         assert g.dtype == dtype
+        np.testing.assert_allclose(_np(g), _from_bh(w, b, h), rtol=0,
+                                   atol=GRAD_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [16, 48, 80, 128])
+@pytest.mark.parametrize("s", [130, 200, 384])
+def test_single_block_plain_matches_jax_kernel_at_wgmma_edges(s, d, causal,
+                                                              dtype):
+    """The single-block pair's plain versions at the edges of the bf16
+    warpgroup backward: lengths off its 128-row and 128-key (and 64-row)
+    tiles, head dims padded to 64 and 128; the forward and the backward
+    (which recomputes the softmax and its delta = sum(p * dP)) against
+    the Pallas kernels in interpret mode."""
+    b, h = 1, 2
+    q, k, v, do = _rand(b, s, h, d, seed=s + d)
+    sc = 1.0 / d ** 0.5
+    tq, tk, tv, tdo = (torch.from_numpy(x).to(dtype) for x in (q, k, v, do))
+    jq, jk, jv, jdo = (_to_bh(x, dtype) for x in (q, k, v, do))
+    want = _from_bh(jfa._fwd_single(jq, jk, jv, sc, causal, True), b, h)
+    got = fa.flash_attention_single_ref(tq, tk, tv, causal, sc)
+    np.testing.assert_allclose(_np(got), want, rtol=0, atol=FWD_TOL[dtype])
+    jgrads = jfa._bwd_single(jq, jk, jv, jdo, sc, causal, True)
+    grads = fa.flash_attention_single_bwd_ref(tq, tk, tv, tdo, causal, sc)
+    for g, w in zip(grads, jgrads):
+        assert g.dtype == dtype and tuple(g.shape) == (b, s, h, d)
         np.testing.assert_allclose(_np(g), _from_bh(w, b, h), rtol=0,
                                    atol=GRAD_TOL[dtype])
 
@@ -219,6 +249,49 @@ def test_path_selection_and_no_launch_on_the_cpu(monkeypatch):
         "flash_attention_fwd_single", "flash_attention_bwd_single",
         "flash_attention_fwd", "flash_attention_bwd")]
     assert fa.flash_attention_fwd.launches_wgmma == wgmma
+
+
+def test_backward_counters_split_by_route_and_cpu_moves_none():
+    """Both backward entries count their bf16 (warpgroup) launches in
+    ``.launches_wgmma`` apart from their fp32 ones in ``.launches``; CPU
+    calls, which take the plain versions, move neither."""
+    entries = (fa.flash_attention_fwd_single, fa.flash_attention_bwd_single,
+               fa.flash_attention_fwd, fa.flash_attention_bwd)
+    for f in (fa.flash_attention_bwd_single, fa.flash_attention_bwd,
+              fa.flash_attention_fwd):
+        assert isinstance(f.launches, int)
+        assert isinstance(f.launches_wgmma, int)
+    before = [(f.launches, getattr(f, "launches_wgmma", 0)) for f in entries]
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, do = (torch.from_numpy(x).to(dtype)
+                       for x in _rand(1, 64, 2, 16, seed=5))
+        fa.flash_attention_fwd_single(q, k, v)
+        fa.flash_attention_bwd_single(q, k, v, do)
+        out, lse = fa.flash_attention_fwd(q, k, v)
+        fa.flash_attention_bwd(q, k, v, out, lse, do)
+    assert before == [(f.launches, getattr(f, "launches_wgmma", 0))
+                      for f in entries]
+
+
+_CSRC = paddle_tpu_torch.__path__[0] + "/csrc"
+_ATTENTION_SOURCES = ("flash_attention.cu", "splash_attention.cu",
+                      "attention_tiles.cuh", "attention_wgmma.cuh",
+                      "attention_wgmma_bwd.cuh", "hopper_tiles.cuh",
+                      "tile_mma.cuh")
+
+
+@pytest.mark.parametrize("name", _ATTENTION_SOURCES)
+def test_attention_sources_use_no_float_atomics(name):
+    """Bit-reproducible training gradients: no attention source adds
+    floats with atomics (every sum is owned by one block, in a fixed
+    order), in CUDA C++ or in inline PTX."""
+    import re
+
+    with open(f"{_CSRC}/{name}") as f:
+        code = "\n".join(line.split("//")[0] for line in f)
+    assert not re.search(r"\batomicAdd\w*\s*\(", code)
+    ptx_float_add = r"\b(red|atom)(\.\w+)*\.add(\.\w+)*\.(f16|bf16|f32|f64)"
+    assert not re.search(ptx_float_add, code)
 
 
 def test_supports_follows_the_reference_gates():

@@ -1,7 +1,7 @@
-"""The PyTorch port stands alone: no module of ``paddle_tpu_torch`` and
-not ``chip_smoke.py`` imports ``jax`` or any module of ``paddle_tpu``
-(only the tests import both). Checked on the source's import statements,
-so a lazy import inside a function counts too."""
+"""The PyTorch port stands alone: no module of ``paddle_tpu_torch``, nor
+``chip_smoke.py`` or ``chip_ab.py``, imports ``jax`` or any module of
+``paddle_tpu`` (only the tests import both). Checked on the source's
+import statements, so a lazy import inside a function counts too."""
 import ast
 from pathlib import Path
 
@@ -9,7 +9,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "paddle_tpu_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py"]
+    [ROOT / "chip_smoke.py", ROOT / "chip_ab.py"]
 BANNED = ("jax", "jaxlib", "paddle_tpu")
 
 

@@ -317,8 +317,9 @@ def _rel(got, want):
 
 
 def _fwd_counter(wrapper, dtype):
-    """The launch counter of a splash or tiled flash forward's route: the
-    bf16 kernel on warpgroup products counts apart."""
+    """The launch counter of a splash or tiled flash forward's route, or
+    a flash backward's: the bf16 kernels on warpgroup products count
+    apart."""
     return "launches_wgmma" if dtype == torch.bfloat16 else "launches"
 
 
@@ -526,10 +527,12 @@ FLASH_TILED_CASES = FLASH_CASES + [
     (2, 208, 3, 80, True), (1, 384, 2, 128, False), (3, 520, 4, 48, True),
     (1, 1280, 2, 64, True)]
 # the single-block pair also at lengths under, at and off the bf16
-# forward's 128-row tiles, and at every padded head dim
+# kernels' 128-row (and the backward's 64-row) tiles, and at every padded
+# head dim
 FLASH_SINGLE_CASES = FLASH_CASES + [
     (1, s, 2, d, causal) for s in (16, 80, 1008, 1024)
-    for d in (16, 32, 64, 128) for causal in (True, False)]
+    for d in (16, 32, 64, 128) for causal in (True, False)] + [
+    (2, 200, 3, 48, True), (1, 200, 2, 48, False)]
 
 
 def _flash_inputs(dev, b, s, h, d, dtype, seed=0, sk=None):
@@ -553,11 +556,13 @@ def _fp32_bwd_ok(dtype, d):
 @pytest.mark.parametrize("b,s,h,d,causal", FLASH_SINGLE_CASES)
 def test_flash_single_kernels(cuda, dtype, b, s, h, d, causal):
     """#5 and #6 against their plain versions (exact softmax, P rounded
-    after the division); the backward twice, bit for bit."""
+    after the division); the backward twice, bit for bit, counted in its
+    route's counter (bf16: the warpgroup kernels)."""
     q, k, v, dout = _flash_inputs(cuda, b, s, h, d, dtype)
     assert not q.is_contiguous()
+    counter = _fwd_counter(fa.flash_attention_bwd_single, dtype)
     n_f, n_b = fa.flash_attention_fwd_single.launches, \
-        fa.flash_attention_bwd_single.launches
+        getattr(fa.flash_attention_bwd_single, counter)
     out = fa.flash_attention_fwd_single(q, k, v, causal)
     torch.cuda.synchronize()
     want = fa.flash_attention_single_ref(q, k, v, causal)
@@ -574,7 +579,7 @@ def test_flash_single_kernels(cuda, dtype, b, s, h, d, causal):
         assert g.dtype == dtype and torch.isfinite(g).all()
         assert _rel(g, r) <= TOL[dtype]
     assert all(torch.equal(a, g) for a, g in zip(again, got))
-    assert fa.flash_attention_bwd_single.launches == n_b + 2
+    assert getattr(fa.flash_attention_bwd_single, counter) == n_b + 2
 
 
 @pytest.mark.gpu
@@ -584,11 +589,12 @@ def test_flash_tiled_kernels(cuda, dtype, b, s, h, d, causal):
     """#7 (out, lse) and #8 from that out and lse against their plain
     versions (P rounded per 64-key tile, unnormalised; the bf16 forward's
     128-key tiles round within the bf16 tolerance); the backward twice,
-    bit for bit."""
+    bit for bit. Both entries count bf16 launches (warpgroup kernels)
+    apart from fp32 ones."""
     q, k, v, dout = _flash_inputs(cuda, b, s, h, d, dtype)
     counter = _fwd_counter(fa.flash_attention_fwd, dtype)
     n_f, n_b = getattr(fa.flash_attention_fwd, counter), \
-        fa.flash_attention_bwd.launches
+        getattr(fa.flash_attention_bwd, counter)
     out, lse = fa.flash_attention_fwd(q, k, v, causal)
     torch.cuda.synchronize()
     want, want_lse = fa.flash_attention_ref(q, k, v, causal,
@@ -608,7 +614,7 @@ def test_flash_tiled_kernels(cuda, dtype, b, s, h, d, causal):
         assert g.dtype == dtype and torch.isfinite(g).all()
         assert _rel(g, r) <= TOL[dtype]
     assert all(torch.equal(a, g) for a, g in zip(again, got))
-    assert fa.flash_attention_bwd.launches == n_b + 2
+    assert getattr(fa.flash_attention_bwd, counter) == n_b + 2
 
 
 @pytest.mark.gpu
@@ -655,9 +661,9 @@ def test_flash_autograd_and_sdpa_route_on_the_card(cuda):
     names = ["FLAGS_splash_attn", "FLAGS_pallas_flash_min_seqlen"]
     saved = paddle_tpu_torch.get_flags(names)
     counters = [(fa.flash_attention_fwd_single, "launches"),
-                (fa.flash_attention_bwd_single, "launches"),
+                (fa.flash_attention_bwd_single, "launches_wgmma"),
                 (fa.flash_attention_fwd, "launches_wgmma"),
-                (fa.flash_attention_bwd, "launches")]
+                (fa.flash_attention_bwd, "launches_wgmma")]
 
     def sdpa(s):
         q, k, v, _ = _flash_inputs(cuda, 1, s, 2, 64, torch.bfloat16)
