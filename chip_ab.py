@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Training step times of two checkouts, for an A/B inside one card call.
+"""Training step times and serving figures of two checkouts, for an A/B
+inside one card call.
 
     cd <checkout> && python3 <path to>/chip_ab.py <tag>
 
@@ -8,16 +9,23 @@ current directory, not of the directory this script sits in, and runs
 its ``train_full_width`` as phases 9 and 10 do: splash at 8 x 1024 (5
 timed steps), then with ``FLAGS_splash_attn`` off the flash pairs at 8 x
 1024 and 4 x 2048 (3 timed steps each), GPT-3 1.3B width, each run
-failing on a kernel launched off its path. Prints one line, ``AB `` and
+failing on a kernel launched off its path. Then its ``serve_full_width``
+as phases 5 and 6 do, over bf16 and int8 pools (16 greedy requests),
+and the same requests once more under ``torch.profiler``, which gives
+the chunk attention's device time and launches (every kernel whose
+name holds ``paged_chunk``: either route). Prints one line, ``AB `` and
 a JSON object: the tag, the card's ``nvidia-smi`` name and power limit,
-and for each run its step times, median, peak device memory, tokens/s
-and kernel launches. Run the parent checkout, this one, this one again
-and the parent again in one call, and compare medians within the call.
-Needs a CUDA card; imports torch, numpy and the port only.
+for each training run its step times, median, peak device memory,
+tokens/s and kernel launches, and for each serving run its output
+tok/s, TTFT p50 and chunk device time. Run the parent checkout, this
+one, this one again and the parent again in one call, and compare
+within the call. Needs a CUDA card; imports torch, numpy and the port
+only.
 """
 from __future__ import annotations
 
 import contextlib
+import gc
 import io
 import json
 import os
@@ -33,14 +41,52 @@ KEYS = ("step_ms", "step_ms_median", "max_memory_allocated",
         "tokens_per_s", "launches")
 
 
-def run(dev, **kw) -> dict:
-    """One `train_full_width` run; its printed stats, the keys above."""
+def _stats_line(fn, *args, **kw) -> dict:
+    """The JSON stats of the last line ``fn`` prints."""
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
-        chip_smoke.train_full_width(dev, **kw)
-    stats = json.loads(out.getvalue().strip().splitlines()[-1]
-                       .split(": ", 1)[1])
+        fn(*args, **kw)
+    return json.loads(out.getvalue().strip().splitlines()[-1]
+                      .split(": ", 1)[1])
+
+
+def run(dev, **kw) -> dict:
+    """One `train_full_width` run; its printed stats, the keys above."""
+    stats = _stats_line(chip_smoke.train_full_width, dev, **kw)
     return {k: stats[k] for k in KEYS}
+
+
+def serve(dev, model, kv_quant) -> dict:
+    """Phase 5's (bf16) or 6's (int8) serving run: output tok/s, TTFT p50;
+    then its requests again under the profiler (warmed up first): the
+    device seconds and launches of the chunk kernels."""
+    from paddle_tpu_torch import profile_serving
+    from paddle_tpu_torch.serving import ServingEngine
+
+    stats = _stats_line(chip_smoke.serve_full_width, dev, model, kv_quant)
+    eng = ServingEngine(model, max_slots=8, max_len=1024, page_size=16,
+                        chunk_size=64, prefill_batch=4,
+                        cache_dtype=torch.bfloat16, kv_quant=kv_quant,
+                        device=dev)
+    requests = profile_serving._requests(model.config.vocab_size)
+    profile_serving._serve(eng, requests)
+    cuda = torch.profiler.ProfilerActivity.CUDA
+    with torch.profiler.profile(activities=[cuda]) as prof:
+        profile_serving._serve(eng, requests)
+    chunk_us, chunk_n = 0.0, 0
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA and \
+                "paged_chunk" in ev.key:
+            chunk_us += getattr(ev, "self_device_time_total",
+                                getattr(ev, "self_cuda_time_total", 0))
+            chunk_n += ev.count
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"output_tok_s": stats["output_tok_s"],
+            "ttft_p50_s": stats["ttft_p50_s"],
+            "launches": stats["launches"],
+            "chunk_device_s": chunk_us / 1e6, "chunk_kernels": chunk_n}
 
 
 def main() -> int:
@@ -56,6 +102,12 @@ def main() -> int:
                                      splash=False, phase=10)
         result["flash_4x2048"] = run(dev, timed=3, batch=4, seq=2048,
                                      splash=False, phase=10)
+    from paddle_tpu_torch.models import GPTForCausalLM, gpt_config
+
+    model = GPTForCausalLM(gpt_config("gpt3-1.3b"), device=dev,
+                           dtype=torch.bfloat16, seed=0)
+    for quant in (None, "int8"):
+        result[f"serve_{quant or 'bf16'}"] = serve(dev, model, quant)
     print("AB " + json.dumps(result), flush=True)
     return 0
 

@@ -10,18 +10,24 @@ Phases, one line each (any failure exits non-zero, nothing is caught):
    compiler per source, all started together; for each kernel redesigned
    on warpgroup products (``csrc/hopper_tiles.cuh``: the bf16 fused CE
    backward, the single-block flash forward, the tiled flash and splash
-   forwards of ``csrc/attention_wgmma.cuh``, and the dQ and dK/dV
-   kernels of both flash backwards, ``csrc/attention_wgmma_bwd.cuh``),
-   its registers, spills and shared memory from the ``-Xptxas=-v`` log
-   and the ``HGMMA`` instructions in its SASS (``cuobjdump``; the run
-   fails on none, and on a flash backward that spills at head dim 64);
+   forwards of ``csrc/attention_wgmma.cuh``, the dQ and dK/dV kernels of
+   both flash backwards and of the splash backward,
+   ``csrc/attention_wgmma_bwd.cuh``, and the chunk attention of
+   ``csrc/paged_wgmma.cuh``), its registers, spills and shared memory
+   from the ``-Xptxas=-v`` log and the ``HGMMA`` instructions in its
+   SASS (``cuobjdump``; the run fails on none, and on a backward or
+   chunk kernel that spills at head dim 64);
 3. each kernel against its plain PyTorch version on the card, in fp32
    and bf16 (tolerances at `check_kernels` and
    `check_training_kernels`), at the shapes the serving and training
-   paths give it: the paged kernels over bf16, int8 and int4 pools;
-   splash (the path's shape and GQA with segments in both dtypes; in
-   bf16 also ragged lengths, head dims 16, 80 and 128, a key tile fully
-   masked for some rows and rows with no visible key) and the fused CE
+   paths give it: the paged kernels over bf16, int8 and int4 pools (the
+   chunk's bf16 warpgroup route also at GQA, c of 1 to 64, head dims 16
+   to 128 and shuffled page tables, bit-identical on a second call, and
+   its pages route timed beside it); splash (the path's shape and GQA
+   with segments in both dtypes; in bf16 also ragged lengths, head dims
+   16, 80 and 128, a key tile fully masked for some rows and rows with
+   no visible key; the bf16 backward on warpgroup products) and the
+   fused CE
    (a ragged case and one over four vocab chunks), each backward run
    twice and compared bit for bit; the flash pairs at the flash runs'
    shapes (single-block [8, 1024, 32, 64], tiled [4, 2048, 32, 64]) with
@@ -37,10 +43,12 @@ Phases, one line each (any failure exits non-zero, nothing is caught):
 5. the serving path at GPT-3 1.3B width: 16 greedy requests through
    ``ServingEngine`` with bf16 weights and pools; the paged kernels'
    launch counters are zeroed just before and read just after: the fp
-   kernels must be > 0, the quantized ones 0;
+   decode kernel and the chunk's warpgroup kernel over bf16 pools must
+   be > 0, the chunk's pages route and the quantized kernels 0;
 6. the same workload with ``kv_quant="int8"`` and then ``"int4"``: the
-   quantized kernels of that mode must be > 0, every other paged kernel
-   0; pool bytes and capacity against the bf16 run;
+   quantized decode kernel and the chunk's warpgroup kernel of that mode
+   must be > 0, every other paged kernel 0; pool bytes and capacity
+   against the bf16 run;
 7. ``generate()`` at the same width, 8 prompts of 128 tokens and 32 new
    tokens over the paged cache with bf16 and with int8 pools: the
    decode kernel of the pools must have run, and no splash forward (a
@@ -56,9 +64,10 @@ Phases, one line each (any failure exits non-zero, nothing is caught):
    weights, fp32 masters, bf16 moments, clip 1.0) over 8 x 1024 random
    tokens with recompute, 2 warm-up and 5 timed steps; the training
    kernels' counters are zeroed just before the timed steps and read
-   just after: the bf16 splash forward on warpgroup products, the
-   splash backward and the CE must be > 0, every other training kernel
-   (the fp32 splash forward among them) 0, and every loss finite;
+   just after: the bf16 splash forward and backward on warpgroup
+   products and the CE must be > 0, every other training kernel (the
+   fp32 splash forward and backward among them) 0, and every loss
+   finite;
 10. the same with ``FLAGS_splash_attn`` off (the reference's flash
     routing, the flag's off setting; splash is its default), 2 warm-up
     and 3 timed steps at 8 x 1024 (the single-block forward and the bf16
@@ -154,12 +163,23 @@ WGMMA_KERNELS = {
                                     "flash_dq_wgmma_kernel"),
     "flash_bwd_wgmma_kernels[dkdv]": ("flash_attention",
                                       "flash_dkdv_wgmma_kernel"),
+    # the bf16 splash backward on the same bodies, with GQA and segment
+    # ids
+    "splash_bwd_wgmma_kernels[dq]": ("splash_attention",
+                                     "splash_dq_wgmma_kernel"),
+    "splash_bwd_wgmma_kernels[dkdv]": ("splash_attention",
+                                       "splash_dkdv_wgmma_kernel"),
+    # the bf16 chunk attention over bf16, int8 and int4 pools
+    # (csrc/paged_wgmma.cuh)
+    "paged_chunk_wgmma_kernel": ("paged_attention",
+                                 "paged_chunk_wgmma_kernel"),
 }
-# kernels whose head-dim-64 instantiation (the training path's) must not
-# spill
+# kernels whose head-dim-64 instantiations (the training and serving
+# paths' head dim) must not spill
 NO_SPILL_AT_64 = ("flash_single_dq_wgmma_kernel",
                   "flash_single_dkdv_wgmma_kernel", "flash_dq_wgmma_kernel",
-                  "flash_dkdv_wgmma_kernel")
+                  "flash_dkdv_wgmma_kernel", "splash_dq_wgmma_kernel",
+                  "splash_dkdv_wgmma_kernel", "paged_chunk_wgmma_kernel")
 
 
 def _template_args(mangled):
@@ -228,11 +248,13 @@ def check_wgmma_kernels(built):
     from paddle_tpu_torch.ops.kernels import _build
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
     from paddle_tpu_torch.ops.kernels import fused_cross_entropy as fce
+    from paddle_tpu_torch.ops.kernels import paged_attention as pa
     from paddle_tpu_torch.ops.kernels import splash_attention as sa
 
     ce = _build.load("fused_cross_entropy", fce._SIGNATURES)
     fl = _build.load("flash_attention", fa._SIGNATURES)
     sp = _build.load("splash_attention", sa._SIGNATURES)
+    pg = _build.load("paged_attention", pa._SIGNATURES)
     dynamic = {"fused_ce_bwd_wgmma_kernel": lambda args: (
                    ce.fused_ce_bwd_bf16_smem()),
                "flash_single_fwd_wgmma_kernel": lambda args: (
@@ -245,6 +267,12 @@ def check_wgmma_kernels(built):
         dynamic[fn] = lambda args: fl.flash_bwd_dq_bf16_smem(int(args[0]))
     for fn in ("flash_single_dkdv_wgmma_kernel", "flash_dkdv_wgmma_kernel"):
         dynamic[fn] = lambda args: fl.flash_bwd_dkdv_bf16_smem(int(args[0]))
+    for which, fn in enumerate(("splash_dq_wgmma_kernel",
+                                "splash_dkdv_wgmma_kernel")):
+        dynamic[fn] = lambda args, w=which: sp.splash_bwd_bf16_smem(
+            int(args[0]), int(args[1]), w)
+    dynamic["paged_chunk_wgmma_kernel"] = lambda args: (
+        pg.paged_chunk_wgmma_smem(int(args[0]), int(args[1])))
     report = {}
     for name, (src, fn) in WGMMA_KERNELS.items():
         saved = _build.library_path(src).with_suffix(".log")
@@ -275,7 +303,7 @@ def check_wgmma_kernels(built):
         if hg is not None and (not hg or min(hg.values()) <= 0):
             raise AssertionError(f"{name}: a {fn} has no HGMMA: {hg}")
         spills = [e for e in entries if fn in NO_SPILL_AT_64
-                  and e["kernel"].endswith("<64>")
+                  and e["kernel"].startswith(f"{fn}<64")
                   and e["spill_stores"] != 0]
         if spills:
             raise AssertionError(f"{name}: spills at head dim 64: {spills}")
@@ -288,27 +316,59 @@ def check_wgmma_kernels(built):
 
 PAGED_SOURCE = "paddle_tpu_torch/csrc/paged_attention.cu"
 PAGED_TPU = "paddle_tpu/ops/pallas/paged_attention.py"
-# kernel -> (wrapper, its launch counter, pool quant mode, TPU kernel line)
+# kernel -> (wrapper, its launch counter, pool quant mode, TPU kernel line);
+# the chunk rows are its bf16 route (warpgroup products), which the
+# serving path takes
 PAGED_KERNELS = {
     "paged_decode_kernel": ("paged_attention", "launches", None, 163),
-    "paged_chunk_kernel": ("paged_attention_chunk", "launches", None, 400),
+    "paged_chunk_wgmma_kernel": ("paged_attention_chunk", "launches_wgmma",
+                                 None, 400),
     "paged_decode_q_kernel[int8]": ("paged_attention", "launches_int8",
                                     "int8", 208),
     "paged_decode_q_kernel[int4]": ("paged_attention", "launches_int4",
                                     "int4", 208),
-    "paged_chunk_q_kernel[int8]": ("paged_attention_chunk", "launches_int8",
-                                   "int8", 400),
-    "paged_chunk_q_kernel[int4]": ("paged_attention_chunk", "launches_int4",
-                                   "int4", 400),
+    "paged_chunk_wgmma_kernel[int8]": ("paged_attention_chunk",
+                                       "launches_wgmma_int8", "int8", 400),
+    "paged_chunk_wgmma_kernel[int4]": ("paged_attention_chunk",
+                                       "launches_wgmma_int4", "int4", 400),
+}
+# the chunk's other route (fp32, and bf16 geometries the warpgroup
+# kernel's gate refuses): held in fp32 and timed in bf16 beside the
+# warpgroup kernel, and never launched on the bf16 serving path
+PAGES_ROUTE = {
+    "paged_chunk_wgmma_kernel": ("paged_chunk_kernel", "launches"),
+    "paged_chunk_wgmma_kernel[int8]": ("paged_chunk_q_kernel[int8]",
+                                       "launches_int8"),
+    "paged_chunk_wgmma_kernel[int4]": ("paged_chunk_q_kernel[int4]",
+                                       "launches_int4"),
 }
 SDPA_OVER_DEQUANT = ("scaled_dot_product_attention over the bf16 K/V the "
                      "pools dequantize to (dequant not counted)")
+# the chunk's warpgroup route at the card tests' other geometries, over
+# bf16, int8 and int4 pools with shuffled page tables: (slots, nh, kvh,
+# d, page size, pages a slot, c, starts: 0, mid-page, the table's end)
+CHUNK_CASES = {
+    "gqa nh16 kvh1 c5": (3, 16, 1, 64, 16, 8, 5, (0, 5, 123)),
+    "gqa nh8 kvh2 c40": (3, 8, 2, 64, 16, 8, 40, (0, 5, 88)),
+    "c1": (3, 4, 1, 64, 16, 8, 1, (0, 5, 127)),
+    "c33": (3, 2, 2, 64, 16, 8, 33, (0, 7, 95)),
+    "d128 c64": (3, 4, 2, 128, 16, 8, 64, (0, 9, 64)),
+    "d32 page 8": (3, 4, 4, 32, 8, 16, 8, (0, 5, 120)),
+    "d16": (3, 16, 1, 16, 16, 8, 5, (0, 5, 123)),
+}
+
+
+def _paged_counters():
+    """(kernel, wrapper, counter) of every paged kernel and route."""
+    rows = [(name, w, c) for name, (w, c, _, _) in PAGED_KERNELS.items()]
+    return rows + [(old, "paged_attention_chunk", c)
+                   for old, c in PAGES_ROUTE.values()]
 
 
 def _paged_reset():
     from paddle_tpu_torch.ops.kernels import paged_attention as pa
 
-    for wrapper, counter, _, _ in PAGED_KERNELS.values():
+    for _, wrapper, counter in _paged_counters():
         setattr(getattr(pa, wrapper), counter, 0)
 
 
@@ -316,14 +376,74 @@ def _paged_launches():
     from paddle_tpu_torch.ops.kernels import paged_attention as pa
 
     return {name: getattr(getattr(pa, wrapper), counter)
-            for name, (wrapper, counter, _, _) in PAGED_KERNELS.items()}
+            for name, wrapper, counter in _paged_counters()}
+
+
+def _pools(k32, v32, quant, dtype=torch.bfloat16):
+    """(k, v, scale keywords) of fp32 K/V as ``dtype`` or quantized
+    pools."""
+    from paddle_tpu_torch.inference.kv_cache import quantize_rows
+
+    if quant is None:
+        return k32.to(dtype), v32.to(dtype), {}
+    (kq, ks), (vq, vs) = quantize_rows(k32, quant), quantize_rows(v32, quant)
+    return kq, vq, {"k_scales": ks, "v_scales": vs}
+
+
+def _pages_route(q, k, v, table, start, quant, sc):
+    """The chunk through its pages route (``paged_chunk`` /
+    ``paged_chunk_q``), whatever the dtype."""
+    from paddle_tpu_torch.ops.kernels import paged_attention as pa
+
+    return pa._launch("paged_chunk", q, k, v, table, start,
+                      (q.shape[0], q.shape[1]), 1.0 / q.shape[-1] ** 0.5,
+                      sc.get("k_scales"), sc.get("v_scales"), quant)[0]
+
+
+def check_chunk_cases(dev):
+    """The chunk's warpgroup route against the plain version at
+    `CHUNK_CASES` over each pool (bf16 tolerance), each call counted on
+    the route's own counter and bit-identical on a second call."""
+    from paddle_tpu_torch.ops.kernels import paged_attention as pa
+
+    chunk = pa.paged_attention_chunk
+    for case, (b, nh, kvh, d, ps, pp, c, starts) in CHUNK_CASES.items():
+        gen = torch.Generator(device=dev).manual_seed(1)
+        num_pages = 1 + b * pp
+        q = torch.randn(b, c, nh, d, device=dev, generator=gen).bfloat16()
+        k32 = torch.randn(kvh, num_pages, ps, d, device=dev, generator=gen)
+        v32 = torch.randn(kvh, num_pages, ps, d, device=dev, generator=gen)
+        table = (torch.randperm(num_pages - 1, device=dev, generator=gen)
+                 + 1).to(torch.int32).reshape(b, pp)
+        start = torch.tensor(starts, dtype=torch.int32, device=dev)
+        errs = {}
+        for quant in (None, "int8", "int4"):
+            k, v, sc = _pools(k32, v32, quant)
+            counter = "launches_wgmma" + (f"_{quant}" if quant else "")
+            n = getattr(chunk, counter)
+            got = chunk(q, k, v, table, start, **sc)
+            again = chunk(q, k, v, table, start, **sc)
+            torch.cuda.synchronize()
+            want = pa.paged_attention_chunk_ref(q, k, v, table, start, **sc)
+            errs[quant or "bf16"] = err = _max_err(got, want)
+            if not (getattr(chunk, counter) == n + 2 and err <= 2e-2
+                    and torch.isfinite(got).all()
+                    and torch.equal(got, again)):
+                raise AssertionError(
+                    f"chunk {case} {quant or 'bf16'} pools: err {err}, "
+                    f"{getattr(chunk, counter) - n} launches of 2, or a "
+                    f"second call differs")
+        print(f"[3/{PHASES}] paged_chunk_wgmma_kernel {case} q "
+              f"{[b, c, nh, d]} kvh {kvh} page {ps}: max abs err "
+              f"{json.dumps(errs)}, bit-identical on a second call",
+              flush=True)
 
 
 def check_kernels(dev, flush):
-    """The four paged kernels (fp, and int8 / int4 pools) at the serving
+    """The paged kernels (fp, and int8 / int4 pools) at the serving
     path's shapes: decode q [8, 32, 64] over pools of 513 pages of 16
-    rows, lens 0..1024; one chunk-prefill call q [4, 64, 32, 64]."""
-    from paddle_tpu_torch.inference.kv_cache import quantize_rows
+    rows, lens 0..1024; one chunk-prefill call q [4, 64, 32, 64]. The
+    chunk also at `CHUNK_CASES`, and its pages route beside it."""
     from paddle_tpu_torch.ops.kernels import paged_attention as pa
 
     b, nh, kvh, d, ps, pp = 8, 32, 32, 64, 16, 64   # decode at 1.3B width
@@ -341,42 +461,40 @@ def check_kernels(dev, flush):
     qc32 = torch.randn(cb, c, nh, d, device=dev, generator=gen)
     ptc = pt[:cb].contiguous()
     start = torch.tensor([0, 64, 300, L - c], dtype=torch.int32, device=dev)
-    quantized = {quant: (quantize_rows(k32, quant),
-                         quantize_rows(v32, quant))
-                 for quant in ("int8", "int4")}
 
     results = {}
-    for name, (wrapper, _, quant, _) in PAGED_KERNELS.items():
+    for name, (wrapper, counter, quant, _) in PAGED_KERNELS.items():
         kernel = getattr(pa, wrapper)
         plain = getattr(pa, wrapper + "_ref")
         q, table, pos = ((q32, pt, lens) if wrapper == "paged_attention"
                          else (qc32, ptc, start))
-        if quant is None:
-            def pools(dtype):
-                return k32.to(dtype), v32.to(dtype), {}
-            row_bytes = d * 2                       # bf16 pools, timed
-        else:
-            (kq, ks), (vq, vs) = quantized[quant]
-
-            def pools(dtype, kq=kq, vq=vq, ks=ks, vs=vs):
-                return kq, vq, {"k_scales": ks, "v_scales": vs}
-            row_bytes = (d if quant == "int8" else d // 2) + 4
+        # a key's K (or V) bytes: bf16 pools, or the quantized row and
+        # its scale
+        row_bytes = 2 * d if quant is None else \
+            (d if quant == "int8" else d // 2) + 4
         errs = {}
         for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
-            kp, vp, sc = pools(dtype)
+            kp, vp, sc = _pools(k32, v32, quant, dtype)
             args = (q.to(dtype), kp, vp, table, pos)
             got = kernel(*args, **sc)
             torch.cuda.synchronize()
             want = plain(*args, **sc)
-            err = float((got.float() - want.float()).abs().max())
+            err = _max_err(got, want)
             if not (err <= tol and torch.isfinite(got).all()):
                 raise AssertionError(
                     f"{name} {dtype}: max abs err {err} > {tol}")
             errs[dtype] = err
         # times at the serving path's dtype (bf16 q; bf16 or quantized
         # pools)
-        kp, vp, sc = pools(torch.bfloat16)
+        kp, vp, sc = _pools(k32, v32, quant)
         args = (q.to(torch.bfloat16), kp, vp, table, pos)
+        if name in PAGES_ROUTE:
+            n = getattr(kernel, counter)
+            kernel(*args, **sc)
+            torch.cuda.synchronize()
+            if getattr(kernel, counter) != n + 1:
+                raise AssertionError(f"{name}: bf16 call not counted on "
+                                     f"{wrapper}.{counter}")
         kd = pa._densify(kp, table, sc.get("k_scales")).to(torch.bfloat16)
         vd = pa._densify(vp, table, sc.get("v_scales")).to(torch.bfloat16)
         if q.dim() == 3:
@@ -412,14 +530,25 @@ def check_kernels(dev, flush):
             "bound_ms": b_ms, "bound_by": b_by,
             "shape": list(q.shape),
         }
-        if quant is not None:
-            results[name]["library"] = SDPA_OVER_DEQUANT
         r = results[name]
-        print(f"[3/{PHASES}] {name}: q {r['shape']} max abs err fp32 "
-              f"{errs[torch.float32]:.3g} bf16 {errs[torch.bfloat16]:.3g}; "
-              f"bf16 kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-              f"sdpa {r['library_ms']:.4f} ms, bound {b_ms:.4f} ms "
-              f"({b_by})", flush=True)
+        if quant is not None:
+            r["library"] = SDPA_OVER_DEQUANT
+        line = (f"[3/{PHASES}] {name}: q {r['shape']} max abs err fp32 "
+                f"{errs[torch.float32]:.3g} bf16 {errs[torch.bfloat16]:.3g}")
+        if name in PAGES_ROUTE:
+            # the pages route on the same bf16 inputs
+            old = PAGES_ROUTE[name][0]
+            r["fp32_route"] = old
+            r["pages_route_max_abs_err"] = _max_err(
+                _pages_route(*args, quant, sc), plain(*args, **sc))
+            r["pages_route_ms"] = time_ms(
+                lambda: _pages_route(*args, quant, sc), flush)
+            line += (f" ({old} {r['pages_route_max_abs_err']:.3g}, "
+                     f"{r['pages_route_ms']:.4f} ms)")
+        print(f"{line}; bf16 kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, sdpa {r['library_ms']:.4f} ms, "
+              f"bound {b_ms:.4f} ms ({b_by})", flush=True)
+    check_chunk_cases(dev)
     return results
 
 
@@ -725,9 +854,14 @@ def _splash_case(dev, b, s, h, kvh, d, causal, docs, dtype, seed=0,
             b, s, docs, np.random.default_rng(seed))).to(dev)
     out, lse = sa.splash_attention_fwd(q, k, v, causal, seg)
     dout = torch.randn(out.shape, device=dev, generator=gen).to(dtype)
+    counter = "launches_wgmma" if dtype == torch.bfloat16 else "launches"
+    n = getattr(sa.splash_attention_bwd, counter)
     grads = sa.splash_attention_bwd(q, k, v, out, lse, dout, causal, seg)
     again = sa.splash_attention_bwd(q, k, v, out, lse, dout, causal, seg)
     torch.cuda.synchronize()
+    if getattr(sa.splash_attention_bwd, counter) != n + 2:
+        raise AssertionError(f"splash backward {dtype}: not counted on "
+                             f".{counter}")
     want, want_lse = sa.splash_attention_ref(q, k, v, causal, seg,
                                              return_lse=True)
     ref = sa.splash_attention_bwd_ref(q, k, v, out, lse, dout, causal, seg)
@@ -844,7 +978,7 @@ def check_training_kernels(dev, flush):
              lambda: sa.splash_attention_ref(q, k, v, True,
                                              return_lse=True),
              4 * tok + lse_b, 2 * prod, lambda: lib_f),
-            ("splash_bwd_kernels",
+            ("splash_bwd_wgmma_kernels",
              lambda: sa.splash_attention_bwd(q, k, v, out, lse, dout, True),
              lambda: sa.splash_attention_bwd_ref(q, k, v, out, lse, dout,
                                                  True),
@@ -888,7 +1022,8 @@ def check_training_kernels(dev, flush):
 
     case_of = {"splash_fwd_wgmma_kernel": ("splash [8,1024,32,64] causal",
                                            0),
-               "splash_bwd_kernels": ("splash [8,1024,32,64] causal", 1),
+               "splash_bwd_wgmma_kernels": ("splash [8,1024,32,64] causal",
+                                            1),
                "fused_ce_fwd_kernel": ("fused_ce [8192,2048]x[50304,2048]",
                                        0),
                "fused_ce_bwd_kernels": ("fused_ce [8192,2048]x[50304,2048]",
@@ -899,6 +1034,8 @@ def check_training_kernels(dev, flush):
         r["max_abs_err_fp32"] = errs[(case, torch.float32)][which]
         if name == "splash_fwd_wgmma_kernel":
             r["fp32_route"] = "splash_fwd_kernel"
+        if name == "splash_bwd_wgmma_kernels":
+            r["fp32_route"] = "splash_bwd_kernels"
         if which:
             r["max_rel_err"] = errs[(case, torch.bfloat16)][2]
             r["max_rel_err_fp32"] = errs[(case, torch.float32)][2]
@@ -1202,6 +1339,8 @@ TRAIN_COUNTERS = {
                                 "launches_wgmma"),
     "splash_fwd_kernel": ("splash_attention", "splash_attention_fwd",
                           "launches"),
+    "splash_bwd_wgmma_kernels": ("splash_attention", "splash_attention_bwd",
+                                 "launches_wgmma"),
     "splash_bwd_kernels": ("splash_attention", "splash_attention_bwd",
                            "launches"),
     "fused_ce_fwd_kernel": ("fused_cross_entropy", "fused_ce_fwd",
@@ -1233,8 +1372,8 @@ def _path_kernels(seq, splash, bf16=True):
     forwards of splash and the tiled pair and both flash backwards on
     warpgroup products); and the CE."""
     if splash:
-        attn = ("splash_fwd_wgmma_kernel" if bf16 else "splash_fwd_kernel",
-                "splash_bwd_kernels")
+        attn = ("splash_fwd_wgmma_kernel", "splash_bwd_wgmma_kernels") \
+            if bf16 else ("splash_fwd_kernel", "splash_bwd_kernels")
     elif seq <= 1024:
         attn = ("flash_single_fwd_kernel",
                 "flash_single_bwd_wgmma_kernels" if bf16
@@ -1501,7 +1640,7 @@ def main() -> int:
     where.update({
         "splash_fwd_wgmma_kernel": (
             SPLASH_SOURCE, "paddle_tpu/ops/pallas/splash_attention.py:139"),
-        "splash_bwd_kernels": (
+        "splash_bwd_wgmma_kernels": (
             SPLASH_SOURCE, "paddle_tpu/ops/pallas/splash_attention.py:255"),
         "fused_ce_fwd_kernel": (
             CE_SOURCE, "paddle_tpu/ops/pallas/fused_cross_entropy.py:92"),
@@ -1513,7 +1652,8 @@ def main() -> int:
     where.update({name: where[base] for name, base in RING_TICK.items()})
     keys = ("max_abs_err", "max_abs_err_fp32", "max_rel_err",
             "max_rel_err_fp32", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "library", "shape", "causal", "fp32_route")
+            "library_ms", "library", "shape", "causal", "fp32_route",
+            "pages_route_max_abs_err", "pages_route_ms")
     line = [{"name": name, "route": "cuda", "source": where[name][0],
              "replaces": where[name][1], "launches": launches[name],
              **({"launches_per_step": launches[name] / steps[name]}

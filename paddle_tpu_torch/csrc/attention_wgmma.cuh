@@ -64,30 +64,18 @@ namespace attn_wg {
 
 using attn::Geometry;
 using attn::View;
+using hop::fence_a;
+using hop::issue_rs;
+using hop::issue_ss;
+using hop::named_arrive;
+using hop::named_sync;
+using hop::reg_alloc;
+using hop::reg_dealloc;
 
 constexpr int kRows = 128;   // query rows of an item, keys of a tile
 // two consumer warpgroups and a producer warpgroup (setmaxnreg moves
 // registers between warpgroups only)
 constexpr int kThreads = hop::kConsumers + 128;
-
-// Named barriers over the two consumer warpgroups (id 1 and 2: the
-// ping-pong's turns; 0 is __syncthreads).
-__device__ __forceinline__ void named_sync(int id) {
-  asm volatile("bar.sync %0, %1;" ::"r"(id), "n"(hop::kConsumers) : "memory");
-}
-__device__ __forceinline__ void named_arrive(int id) {
-  asm volatile("bar.arrive %0, %1;" ::"r"(id), "n"(hop::kConsumers)
-               : "memory");
-}
-// setmaxnreg: a warpgroup's registers a thread, raised or lowered.
-template <int N>
-__device__ __forceinline__ void reg_alloc() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(N));
-}
-template <int N>
-__device__ __forceinline__ void reg_dealloc() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(N));
-}
 
 // Shared memory of a block: two Q tiles, the K and V rings, each K stage's
 // segment ids (kSeg), the mbarriers. D: the head dim padded to 64 or 128.
@@ -122,52 +110,6 @@ struct FwdItem {
     n_kt = g.causal ? min(nk, qt + 1) : nk;
   }
 };
-
-// acc[64 x N] = A B^T over D: A (64 rows) and B (N rows) K-major, their
-// panels of 64 columns a_panel / b_panel bytes apart (S = Q K^T: both
-// panels of 128 rows).
-template <int N, int D>
-__device__ __forceinline__ void issue_ss(float (&acc)[N / 2], uint32_t a,
-                                         uint32_t a_panel, uint32_t b,
-                                         uint32_t b_panel) {
-  hop::fence_regs(acc);
-  hop::fence();
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const uint32_t c = (kk & 3) * 32;
-    hop::mma_ss<N, 0, 0>(acc, hop::desc(a + (kk >> 2) * a_panel + c, 16,
-                                        1024),
-                         hop::desc(b + (kk >> 2) * b_panel + c, 16, 1024),
-                         kk > 0);
-  }
-  hop::commit();
-}
-
-// acc[64 x N] += A B: A[64 x K] from the A registers, B [K rows x N]
-// MN-major, its panels of 64 columns b_panel bytes apart (O += P V).
-template <int N, int K>
-__device__ __forceinline__ void issue_rs(float (&acc)[N / 2],
-                                         const uint32_t (&a)[K / 16][4],
-                                         uint32_t b, uint32_t b_panel) {
-  hop::fence_regs(acc);
-  hop::fence();
-#pragma unroll
-  for (int kk = 0; kk < K / 16; ++kk)
-    hop::mma_rs<N, 1>(acc, a[kk],
-                      hop::desc(b + kk * 16 * hop::kRowBytes, b_panel, 1024),
-                      1);
-  hop::commit();
-}
-
-// Keeps A registers live until the product that reads them has been
-// waited for (the compiler does not know the product reads them late).
-template <int K>
-__device__ __forceinline__ void fence_a(uint32_t (&a)[K][4]) {
-#pragma unroll
-  for (int kk = 0; kk < K; ++kk)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[kk][i])::"memory");
-}
 
 // Scale the raw products of a tile of N keys to log2 units; keys past
 // sk, past the diagonal or of another segment -inf. Only a tile that

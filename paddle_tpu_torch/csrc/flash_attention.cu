@@ -379,10 +379,10 @@ __global__ void __launch_bounds__(attn_wg::kThreads, 1)
                                  const __grid_constant__ CUtensorMap tk,
                                  const __grid_constant__ CUtensorMap tv,
                                  const __grid_constant__ CUtensorMap tdo,
-                                 attn::Stats st,
+                                 attn::Stats st, const int* seg,
                                  __nv_bfloat16* __restrict__ dq, Geometry g,
                                  int batch) {
-  attn_wg::dq_body<D, true>(tq, tk, tv, tdo, st, dq, g, batch);
+  attn_wg::dq_body<D, true>(tq, tk, tv, tdo, st, nullptr, dq, g, batch);
 }
 
 template <int D>
@@ -391,11 +391,12 @@ __global__ void __launch_bounds__(attn_wg::kThreads, 1)
                                    const __grid_constant__ CUtensorMap tk,
                                    const __grid_constant__ CUtensorMap tv,
                                    const __grid_constant__ CUtensorMap tdo,
-                                   attn::Stats st,
+                                   attn::Stats st, const int* seg,
                                    __nv_bfloat16* __restrict__ dk,
                                    __nv_bfloat16* __restrict__ dv,
                                    Geometry g, int batch) {
-  attn_wg::dkdv_body<D, true>(tq, tk, tv, tdo, st, dk, dv, g, batch);
+  attn_wg::dkdv_body<D, true>(tq, tk, tv, tdo, st, nullptr, dk, dv, g,
+                              batch);
 }
 
 template <typename T>
@@ -455,9 +456,10 @@ __global__ void __launch_bounds__(attn_wg::kThreads, 1)
                           const __grid_constant__ CUtensorMap tk,
                           const __grid_constant__ CUtensorMap tv,
                           const __grid_constant__ CUtensorMap tdo,
-                          attn::Stats st, __nv_bfloat16* __restrict__ dq,
-                          Geometry g, int batch) {
-  attn_wg::dq_body<D, false>(tq, tk, tv, tdo, st, dq, g, batch);
+                          attn::Stats st, const int* seg,
+                          __nv_bfloat16* __restrict__ dq, Geometry g,
+                          int batch) {
+  attn_wg::dq_body<D, false>(tq, tk, tv, tdo, st, nullptr, dq, g, batch);
 }
 
 template <int D>
@@ -466,10 +468,11 @@ __global__ void __launch_bounds__(attn_wg::kThreads, 1)
                             const __grid_constant__ CUtensorMap tk,
                             const __grid_constant__ CUtensorMap tv,
                             const __grid_constant__ CUtensorMap tdo,
-                            attn::Stats st, __nv_bfloat16* __restrict__ dk,
+                            attn::Stats st, const int* seg,
+                            __nv_bfloat16* __restrict__ dk,
                             __nv_bfloat16* __restrict__ dv, Geometry g,
                             int batch) {
-  attn_wg::dkdv_body<D, false>(tq, tk, tv, tdo, st, dk, dv, g, batch);
+  attn_wg::dkdv_body<D, false>(tq, tk, tv, tdo, st, nullptr, dk, dv, g, batch);
 }
 
 template <typename T>
@@ -562,15 +565,14 @@ cudaError_t bwd_single_bf16(const void* q, const void* k, const void* v,
                             int b, const Geometry& g, cudaStream_t stream) {
   const size_t n = (size_t)b * g.nh * g.sq;
   const attn::Stats st{stats, stats + n, stats + 2 * n};
-  return g.d <= 64
-             ? attn_wg::launch_bwd<64>(flash_single_dq_wgmma_kernel<64>,
-                                       flash_single_dkdv_wgmma_kernel<64>, q,
-                                       k, v, dout, st, dq, dk, dv, qv, kv, vv,
-                                       b, g, stream)
-             : attn_wg::launch_bwd<128>(flash_single_dq_wgmma_kernel<128>,
-                                        flash_single_dkdv_wgmma_kernel<128>,
-                                        q, k, v, dout, st, dq, dk, dv, qv, kv,
-                                        vv, b, g, stream);
+  return g.d <= 64 ? attn_wg::launch_bwd<64, false>(
+                         flash_single_dq_wgmma_kernel<64>,
+                         flash_single_dkdv_wgmma_kernel<64>, q, k, v, dout,
+                         st, nullptr, dq, dk, dv, qv, kv, vv, b, g, stream)
+                   : attn_wg::launch_bwd<128, false>(
+                         flash_single_dq_wgmma_kernel<128>,
+                         flash_single_dkdv_wgmma_kernel<128>, q, k, v, dout,
+                         st, nullptr, dq, dk, dv, qv, kv, vv, b, g, stream);
 }
 
 // bf16 #8: delta = rowsum(dO * O) (flash_delta_kernel), then the wgmma
@@ -590,15 +592,14 @@ cudaError_t bwd_bf16(const void* q, const void* k, const void* v,
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const attn::Stats st{lse, nullptr, delta};
-  return g.d <= 64
-             ? attn_wg::launch_bwd<64>(flash_dq_wgmma_kernel<64>,
-                                       flash_dkdv_wgmma_kernel<64>, q, k, v,
-                                       dout, st, dq, dk, dv, qv, kv, vv, b, g,
-                                       stream)
-             : attn_wg::launch_bwd<128>(flash_dq_wgmma_kernel<128>,
-                                        flash_dkdv_wgmma_kernel<128>, q, k, v,
-                                        dout, st, dq, dk, dv, qv, kv, vv, b,
-                                        g, stream);
+  return g.d <= 64 ? attn_wg::launch_bwd<64, false>(
+                         flash_dq_wgmma_kernel<64>, flash_dkdv_wgmma_kernel<64>,
+                         q, k, v, dout, st, nullptr, dq, dk, dv, qv, kv, vv, b,
+                         g, stream)
+                   : attn_wg::launch_bwd<128, false>(
+                         flash_dq_wgmma_kernel<128>,
+                         flash_dkdv_wgmma_kernel<128>, q, k, v, dout, st,
+                         nullptr, dq, dk, dv, qv, kv, vv, b, g, stream);
 }
 
 Geometry geometry(int sq, int sk, int nh, int d, int causal, float scale) {

@@ -1,11 +1,14 @@
 // Hopper tile layer (sm_90a): warpgroup products fed by a ring of tiles
 // that the Tensor Memory Accelerator copies into shared memory. Used by the
 // bf16 routes of the fused CE backward (fused_cross_entropy.cu, TPU kernel
-// #12), the single-block flash forward (flash_attention.cu, #5) and the
+// #12), the single-block flash forward (flash_attention.cu, #5), the
 // online-softmax forward of the tiled flash and splash kernels
-// (attention_wgmma.cuh, #7 and #9); the fp32 routes stay on tile_mma.cuh
-// (wgmma has no true-fp32 form and TF32 is off by the port's numerics
-// contract).
+// (attention_wgmma.cuh, #7 and #9), the flash and splash backwards
+// (attention_wgmma_bwd.cuh, #6, #8 and #10) and the chunk attention over
+// paged pools (paged_wgmma.cuh, #3 and #4, whose rows are copied by
+// threads with cp.async, not by TMA); the fp32 routes stay on
+// tile_mma.cuh or paged_attention.cu's CUDA-core body (wgmma has no
+// true-fp32 form and TF32 is off by the port's numerics contract).
 //
 // What it offers, and each helper's contract:
 //   * Swizzled panels. Every operand tile lives in shared memory as
@@ -37,6 +40,13 @@
 //     lanes shares a row (`quad_max`, `quad_sum`). `pack_a` turns 16
 //     columns of such an fp32 fragment into the four bf16x2 A registers of
 //     an RS product: the accumulator layout is the A layout.
+//   * Product batches (`issue_ss`, `issue_rs`: a whole k loop, fenced and
+//     committed) and the named barriers over the two consumer warpgroups
+//     (`named_sync`, `named_arrive`).
+//   * Copies by threads (`cp_async`, 16, 8 or 4 bytes, zero-filling when
+//     told to): what a thread writes to shared memory reaches the products
+//     (the async proxy) only after its `fence_async_smem`, which comes
+//     before the arrival on the consumers' barrier.
 //   * The ring (`Ring`): stages of tiles, a "full" mbarrier (one arrival
 //     with the copy's transaction bytes) and an "empty" mbarrier (every
 //     consumer thread arrives when its products have read the stage) per
@@ -366,6 +376,114 @@ __device__ __forceinline__ void pack_a(const float (&p)[R], int kk,
 #pragma unroll
   for (int i = 0; i < 4; ++i)
     a[i] = pack_bf16(p[8 * kk + 2 * i], p[8 * kk + 2 * i + 1]);
+}
+
+// ---------------------------------------------------------------------------
+// product batches and consumer barriers
+// ---------------------------------------------------------------------------
+
+// acc[64 x N] = A B^T over D: A (64 rows) and B (N rows) K-major, their
+// panels of 64 columns a_panel / b_panel bytes apart (S = Q K^T: both
+// panels of 128 rows).
+template <int N, int D>
+__device__ __forceinline__ void issue_ss(float (&acc)[N / 2], uint32_t a,
+                                         uint32_t a_panel, uint32_t b,
+                                         uint32_t b_panel) {
+  fence_regs(acc);
+  fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t c = (kk & 3) * 32;
+    mma_ss<N, 0, 0>(acc, desc(a + (kk >> 2) * a_panel + c, 16, 1024),
+                    desc(b + (kk >> 2) * b_panel + c, 16, 1024), kk > 0);
+  }
+  commit();
+}
+
+// acc[64 x N] += A B: A[64 x K] from the A registers, B [K rows x N]
+// MN-major, its panels of 64 columns b_panel bytes apart (O += P V).
+template <int N, int K>
+__device__ __forceinline__ void issue_rs(float (&acc)[N / 2],
+                                         const uint32_t (&a)[K / 16][4],
+                                         uint32_t b, uint32_t b_panel) {
+  fence_regs(acc);
+  fence();
+#pragma unroll
+  for (int kk = 0; kk < K / 16; ++kk)
+    mma_rs<N, 1>(acc, a[kk], desc(b + kk * 16 * kRowBytes, b_panel, 1024),
+                 1);
+  commit();
+}
+
+// Keeps A registers live until the product that reads them has been
+// waited for (the compiler does not know the product reads them late).
+template <int K>
+__device__ __forceinline__ void fence_a(uint32_t (&a)[K][4]) {
+#pragma unroll
+  for (int kk = 0; kk < K; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[kk][i])::"memory");
+}
+
+// Named barriers over the two consumer warpgroups (id 1 and 2: the
+// ping-pong's turns; 0 is __syncthreads).
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "n"(kConsumers) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "n"(kConsumers)
+               : "memory");
+}
+
+// setmaxnreg: a warpgroup's registers a thread, raised or lowered.
+template <int N>
+__device__ __forceinline__ void reg_alloc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void reg_dealloc() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(N));
+}
+
+// ---------------------------------------------------------------------------
+// copies by threads
+// ---------------------------------------------------------------------------
+
+// cp.async of `bytes` (4, 8 or 16) from global to shared memory; with
+// `fill` false the destination gets zeros and nothing is read.
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
+                                         int bytes, bool fill) {
+  const uint32_t d = smem_addr(dst);
+  const uint32_t n = fill ? bytes : 0;
+  if (bytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d),
+                 "l"(src), "r"(n)
+                 : "memory");
+  else if (bytes == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;" ::"r"(d),
+                 "l"(src), "r"(n)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(d),
+                 "l"(src), "r"(n)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// Until at most n of this thread's cp.async groups are in flight.
+template <int n>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(n) : "memory");
+}
+
+// Orders this thread's shared-memory writes (plain stores, completed
+// cp.async copies) before the products' reads of them (the async
+// proxy); then the thread arrives on the barrier the consumers wait on.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
 }
 
 // Opt a kernel into its dynamic shared memory.

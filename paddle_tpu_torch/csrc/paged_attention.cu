@@ -5,10 +5,17 @@
 // Replaces the TPU kernels of paddle_tpu/ops/pallas/paged_attention.py:
 //   paged_decode_kernel    <- _decode_kernel (fp pools), launched through
 //                             _paged_attention_pallas
+//   paged_chunk_wgmma_kernel (bf16 q over bf16, int8 or int4 pools),
 //   paged_chunk_kernel     <- _chunk_kernel (fp branch), launched through
 //                             _paged_attention_chunk_pallas
 //   paged_decode_q_kernel  <- _decode_kernel_q (int8 / int4 pools)
 //   paged_chunk_q_kernel   <- _chunk_kernel, int8 / int4 branches
+// The chunk's bf16 route, paged_chunk_wgmma_kernel, is paged_wgmma.cuh's
+// warpgroup body (its note gives its design and what it leaves on the
+// table); it takes head dims that are a multiple of 8 up to 128, and the
+// wrapper's gate (ops/kernels/paged_attention.py `chunk_route`) sends
+// every other chunk call, and the fp32 one, to the kernels below. The
+// rest of this note is about those and the decode kernels.
 // The plain PyTorch versions (paged_attention_ref /
 // paged_attention_chunk_ref in ops/kernels/paged_attention.py) define the
 // contract; these kernels follow their arithmetic: fp32 scores, fp32
@@ -69,6 +76,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "paged_wgmma.cuh"
 
 namespace {
 
@@ -619,6 +628,35 @@ cudaError_t dispatch_q(const void* q, const void* k, const void* v,
                                s);
 }
 
+// bf16 q over bf16, int8 or int4 pools (chunk only): paged_wgmma.cuh's
+// warpgroup body. D: the head dim padded to 64 or 128; kMode:
+// paged_wg::kBf16, kInt8 or kInt4.
+template <int D, int kMode>
+__global__ void __launch_bounds__(paged_wg::kThreads, 1)
+    paged_chunk_wgmma_kernel(const paged_wg::ChunkArgs a) {
+  paged_wg::chunk_body<D, kMode>(a);
+}
+
+template <int D, int kMode>
+cudaError_t launch_wgmma(const paged_wg::ChunkArgs& a, int b,
+                         cudaStream_t stream) {
+  const size_t smem = paged_wg::ChunkSmem<D, kMode>::kBytes;
+  const auto kernel = paged_chunk_wgmma_kernel<D, kMode>;
+  const cudaError_t err = hop::prepare(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const int rows = a.nh / a.kvh * a.c;
+  const dim3 grid(b, a.kvh, (rows + paged_wg::kRows - 1) / paged_wg::kRows);
+  kernel<<<grid, paged_wg::kThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <int kMode>
+cudaError_t dispatch_wgmma(const paged_wg::ChunkArgs& a, int b,
+                           cudaStream_t stream) {
+  return a.d <= 64 ? launch_wgmma<64, kMode>(a, b, stream)
+                   : launch_wgmma<128, kMode>(a, b, stream);
+}
+
 }  // namespace
 
 // Plain C interface for ctypes. Each returns the cudaError_t of its
@@ -669,4 +707,59 @@ extern "C" int paged_chunk_q(const void* q, const void* k_pages,
   return (int)dispatch_q(q, k_pages, v_pages, k_scales, v_scales, out,
                          page_tables, start, true, b, c, nh, kvh, d,
                          num_pages, ps, pp, scale, q_bf16, int4, stream);
+}
+
+// The bf16 chunk route on warpgroup products (paged_wgmma.cuh): q bf16
+// [b, c, nh, d] with d a multiple of 8 up to 128, over bf16 pools (mode
+// 0; scales null), int8 (1) or int4 (2) pools with their scales. Rows
+// of 4-byte multiples and pools aligned to 4 bytes (a copy takes 16, 8
+// or 4 bytes, as the rows and the pools allow); anything else returns
+// cudaErrorInvalidValue, and the wrapper's gate keeps it on
+// paged_chunk / paged_chunk_q.
+extern "C" int paged_chunk_wgmma(const void* q, const void* k_pages,
+                                 const void* v_pages, const void* k_scales,
+                                 const void* v_scales, void* out,
+                                 const void* page_tables, const void* start,
+                                 int b, int c, int nh, int kvh, int d,
+                                 int num_pages, int ps, int pp, float scale,
+                                 int mode, void* stream) {
+  if (!geometry_ok(b, c, nh, kvh, d, num_pages, ps, pp) || d % 8 ||
+      d > 128 || mode < 0 || mode > 2 ||
+      (((uintptr_t)q | (uintptr_t)out) % 16) ||
+      (mode && (k_scales == nullptr || v_scales == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  const int row_bytes = mode == paged_wg::kBf16   ? 2 * d
+                        : mode == paged_wg::kInt8 ? d
+                                                  : d / 2;
+  const uintptr_t align = (uintptr_t)k_pages | (uintptr_t)v_pages |
+                          (uintptr_t)row_bytes;
+  const int cp_bytes = align % 16 == 0 ? 16 : align % 8 == 0 ? 8
+                       : align % 4 == 0 ? 4 : 0;
+  if (!cp_bytes) return (int)cudaErrorInvalidValue;
+  const paged_wg::ChunkArgs a{(const __nv_bfloat16*)q, (__nv_bfloat16*)out,
+                              (const unsigned char*)k_pages,
+                              (const unsigned char*)v_pages,
+                              (const float*)k_scales, (const float*)v_scales,
+                              (const int*)page_tables, (const int*)start, c,
+                              nh, kvh, d, num_pages, ps, pp, scale,
+                              cp_bytes};
+  cudaStream_t s = (cudaStream_t)stream;
+  if (mode == paged_wg::kBf16)
+    return (int)dispatch_wgmma<paged_wg::kBf16>(a, b, s);
+  if (mode == paged_wg::kInt8)
+    return (int)dispatch_wgmma<paged_wg::kInt8>(a, b, s);
+  return (int)dispatch_wgmma<paged_wg::kInt4>(a, b, s);
+}
+
+// The dynamic shared memory a paged_chunk_wgmma block launches with at
+// head dim d over pools of `mode`.
+extern "C" int paged_chunk_wgmma_smem(int d, int mode) {
+  using paged_wg::ChunkSmem;
+  if (d <= 64)
+    return (int)(mode == 0   ? ChunkSmem<64, 0>::kBytes
+                 : mode == 1 ? ChunkSmem<64, 1>::kBytes
+                             : ChunkSmem<64, 2>::kBytes);
+  return (int)(mode == 0   ? ChunkSmem<128, 0>::kBytes
+               : mode == 1 ? ChunkSmem<128, 1>::kBytes
+                           : ChunkSmem<128, 2>::kBytes);
 }

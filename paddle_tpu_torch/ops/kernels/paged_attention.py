@@ -21,15 +21,24 @@ signatures and layouts (see that module's docstring):
   positions ``<= start[i] + t`` (causal only: rows past a prompt's end
   attend stale pool data and their outputs are the caller's to discard).
 
-Routing is by the tensors' device, nothing else: CPU tensors take the
-plain versions (`paged_attention_ref`, `paged_attention_chunk_ref`,
+Routing is by the tensors' device first: CPU tensors take the plain
+versions (`paged_attention_ref`, `paged_attention_chunk_ref`,
 transcriptions of ``paged_attention_xla`` / ``paged_attention_chunk_xla``
 and their ``_densify``, which dequantizes); CUDA tensors launch a
-kernel of ``csrc/paged_attention.cu`` or raise: ``paged_decode_kernel``
-/ ``paged_chunk_kernel`` over fp pools, ``paged_decode_q_kernel`` /
-``paged_chunk_q_kernel`` over int8 or int4 pools. Each wrapper counts
-its launches: ``<wrapper>.launches`` the fp kernel's,
-``<wrapper>.launches_int8`` / ``.launches_int4`` the quantized ones'.
+kernel of ``csrc/paged_attention.cu`` or raise. Decode takes
+``paged_decode_kernel`` over fp pools and ``paged_decode_q_kernel`` over
+int8 or int4 pools. The chunk takes ``paged_chunk_wgmma_kernel``
+(warpgroup products, ``csrc/paged_wgmma.cuh``) where `chunk_route`
+says so: a bf16 ``q`` over bf16, int8 or int4 pools, ``head_dim`` a
+multiple of 8 up to 128, ``q`` 16-byte and the pools 4-byte aligned.
+Every other chunk call (fp32 ``q`` or pools, ``head_dim`` past 128 or
+not a multiple of 8, a misaligned ``q`` or pool) takes
+``paged_chunk_kernel`` over fp pools or ``paged_chunk_q_kernel`` over
+int8 or int4 pools. Each wrapper counts
+its launches by route: ``<wrapper>.launches`` the fp kernel's,
+``<wrapper>.launches_int8`` / ``.launches_int4`` the quantized ones',
+and the chunk's warpgroup route ``.launches_wgmma`` (bf16 pools),
+``.launches_wgmma_int8`` / ``.launches_wgmma_int4``.
 """
 from __future__ import annotations
 
@@ -41,7 +50,8 @@ from ...nn.quant import unpack_q4
 from . import _build
 
 __all__ = ["paged_attention", "paged_attention_chunk",
-           "paged_attention_ref", "paged_attention_chunk_ref"]
+           "paged_attention_ref", "paged_attention_chunk_ref",
+           "chunk_route"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -56,7 +66,14 @@ _SIGNATURES = {
                        _I, _I, _F, _I, _I, _P),
     "paged_chunk_q": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                       _I, _I, _I, _F, _I, _I, _P),
+    # q, k, v, k_scales, v_scales, out, page_tables, start | b, c, nh,
+    # kvh, d, num_pages, ps, pp, scale, mode (0 bf16, 1 int8, 2 int4)
+    "paged_chunk_wgmma": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                          _I, _I, _I, _I, _F, _I, _P),
+    # d, mode: the warpgroup route's dynamic shared memory
+    "paged_chunk_wgmma_smem": (_I, _I),
 }
+_WGMMA_MODES = {None: 0, "int8": 1, "int4": 2}
 _DTYPES = (torch.float32, torch.bfloat16)
 _QUANT_DTYPES = (torch.int8, torch.uint8)
 _MAX_HEAD_DIM = 256     # the kernels' shared memory holds [64, d] K/V tiles
@@ -237,9 +254,50 @@ def _launch(fn, q, k_pages, v_pages, page_tables, lens, extra, scale,
     return out, True
 
 
-def _count(wrapper, quant, launched):
-    attr = "launches" if quant is None else f"launches_{quant}"
+def chunk_route(q, k_pages, v_pages, quant):
+    """``"wgmma"`` where `paged_attention_chunk` launches its warpgroup
+    kernel (``paged_chunk_wgmma_kernel``), else ``"pages"`` (the
+    ``paged_chunk`` / ``paged_chunk_q`` kernels): the gate named in the
+    module docstring, read from dtypes, ``head_dim`` and the pools'
+    addresses."""
+    d = q.shape[-1]
+    pools = quant is not None or k_pages.dtype == torch.bfloat16
+    if (q.dtype == torch.bfloat16 and pools and d % 8 == 0 and d <= 128
+            and q.data_ptr() % 16 == 0
+            and (k_pages.data_ptr() | v_pages.data_ptr()) % 4 == 0):
+        return "wgmma"
+    return "pages"
+
+
+def _count(wrapper, quant, launched, route="pages"):
+    attr = "launches" if route == "pages" else "launches_wgmma"
+    if quant is not None:
+        attr += f"_{quant}"
     setattr(wrapper, attr, getattr(wrapper, attr) + launched)
+
+
+def _launch_wgmma(q, k_pages, v_pages, page_tables, start, scale,
+                  k_scales, v_scales, quant):
+    """``paged_chunk_wgmma`` on q's stream; returns (out, launched)."""
+    kvh, num_pages, page_size, _ = k_pages.shape
+    out = torch.empty_like(q)
+    if q.shape[0] == 0:
+        return out, False
+    lib = _build.load("paged_attention", _SIGNATURES)
+    b, c, nh, d = q.shape
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.paged_chunk_wgmma(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            None if k_scales is None else k_scales.data_ptr(),
+            None if v_scales is None else v_scales.data_ptr(),
+            out.data_ptr(), page_tables.data_ptr(), start.data_ptr(), b, c,
+            nh, kvh, d, num_pages, page_size, page_tables.shape[1],
+            float(scale), _WGMMA_MODES[quant], stream)
+    if rc:
+        raise RuntimeError(f"paged_chunk_wgmma launch failed: CUDA error "
+                           f"{rc}")
+    return out, True
 
 
 def paged_attention(q, k_pages, v_pages, page_tables, seq_lens,
@@ -282,13 +340,22 @@ def paged_attention_chunk(q, k_pages, v_pages, page_tables, start,
                                          v_scales=v_scales)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention_chunk: no kernel for {q.device}")
-    out, launched = _launch("paged_chunk", q, k_pages, v_pages, page_tables,
-                            start, (q.shape[0], q.shape[1]), scale,
-                            k_scales, v_scales, quant)
-    _count(paged_attention_chunk, quant, launched)
+    route = chunk_route(q, k_pages, v_pages, quant)
+    if route == "wgmma":
+        out, launched = _launch_wgmma(q, k_pages, v_pages, page_tables,
+                                      start, scale, k_scales, v_scales,
+                                      quant)
+    else:
+        out, launched = _launch("paged_chunk", q, k_pages, v_pages,
+                                page_tables, start, (q.shape[0], q.shape[1]),
+                                scale, k_scales, v_scales, quant)
+    _count(paged_attention_chunk, quant, launched, route)
     return out
 
 
 for _w in (paged_attention, paged_attention_chunk):
     _w.launches = _w.launches_int8 = _w.launches_int4 = 0
+paged_attention_chunk.launches_wgmma = 0
+paged_attention_chunk.launches_wgmma_int8 = 0
+paged_attention_chunk.launches_wgmma_int4 = 0
 del _w

@@ -13,8 +13,11 @@ matches no visible key gets zero output and zero gradients.
   ``+inf`` on empty rows; kernel #9: ``splash_fwd_wgmma_kernel`` in bf16
   (warpgroup products, ``csrc/attention_wgmma.cuh``),
   ``splash_fwd_kernel`` in fp32.
-* `splash_attention_bwd`: ``(dq, dk, dv)`` from the lse; kernel #10,
-  the ``splash_delta`` / ``splash_dkdv`` / ``splash_dq`` kernels.
+* `splash_attention_bwd`: ``(dq, dk, dv)`` from the lse; kernel #10:
+  in bf16 ``splash_delta_kernel`` then ``splash_dq_wgmma_kernel`` and
+  ``splash_dkdv_wgmma_kernel`` (warpgroup products,
+  ``csrc/attention_wgmma_bwd.cuh``), in fp32 the ``splash_delta`` /
+  ``splash_dkdv`` / ``splash_dq`` kernels.
 
 Routing is by the tensors' device, nothing else: CPU tensors take the
 plain versions (`splash_attention_ref`, a transcription of
@@ -24,10 +27,9 @@ launch the kernels of ``csrc/splash_attention.cu`` or raise. The kernels
 take q/k/v as strided views (unit stride along ``d``, 16-byte aligned
 rows), so ``qkv.reshape(b, s, 3, nh, d)[:, :, i]`` needs no copy; they
 take ``d`` a multiple of 16 up to 128 (fp32 backward: up to 64, by shared
-memory). Each forward and backward wrapper counts its launches in
-``<wrapper>.launches``, except the bf16 forward's, which count in
-``splash_attention_fwd.launches_wgmma``: the route depends on the dtype
-alone.
+memory). Each forward and backward wrapper counts its fp32 launches in
+``<wrapper>.launches`` and its bf16 launches (warpgroup products) in
+``<wrapper>.launches_wgmma``: the route depends on the dtype alone.
 """
 from __future__ import annotations
 
@@ -54,6 +56,8 @@ _SIGNATURES = {
     "splash_bwd": (_P,) * 11 + _STRIDES + _GEOMETRY,
     # d, seg: the bf16 forward's dynamic shared memory
     "splash_fwd_bf16_smem": (_I, _I),
+    # d, seg, which (0 dQ, 1 dK/dV): the bf16 backward's
+    "splash_bwd_bf16_smem": (_I, _I, _I),
 }
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -254,7 +258,8 @@ def splash_attention_fwd(q, k, v, causal=True, segment_ids=None,
 def splash_attention_bwd(q, k, v, out, lse, dout, causal=True,
                          segment_ids=None, scale=None):
     """``(dq, dk, dv)`` in q/k/v's dtypes from the forward's ``out`` and
-    ``lse``; CUDA tensors launch the three backward kernels (one count)."""
+    ``lse``; CUDA tensors launch the three backward kernels (one count:
+    ``launches_wgmma`` in bf16, ``launches`` in fp32)."""
     _check(q, k, v, causal, segment_ids)
     sc = _scale(q, scale)
     if q.device.type == "cpu":
@@ -277,7 +282,10 @@ def splash_attention_bwd(q, k, v, out, lse, dout, causal=True,
              None if seg is None else seg.data_ptr(), delta.data_ptr(),
              dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), *_views(q, k, v),
              *_geometry(q, k, causal, sc), stream)
-    splash_attention_bwd.launches += 1
+    if q.dtype == torch.bfloat16:
+        splash_attention_bwd.launches_wgmma += 1
+    else:
+        splash_attention_bwd.launches += 1
     return dq, dk, dv
 
 
@@ -308,3 +316,4 @@ def splash_attention(q, k, v, causal=True, segment_ids=None, scale=None):
 splash_attention_fwd.launches = 0
 splash_attention_fwd.launches_wgmma = 0
 splash_attention_bwd.launches = 0
+splash_attention_bwd.launches_wgmma = 0

@@ -29,7 +29,8 @@ from .models import GPTForCausalLM, gpt_config
 from .serving import ServingEngine, ServingMetrics
 
 _ATTENTION = ("paged_decode_kernel", "paged_chunk_kernel",
-              "paged_decode_q_kernel", "paged_chunk_q_kernel")
+              "paged_chunk_wgmma_kernel", "paged_decode_q_kernel",
+              "paged_chunk_q_kernel")
 _GEMM = ("gemm", "cutlass", "cublas", "sm90_xmma", "nvjet")
 
 

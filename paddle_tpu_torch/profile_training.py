@@ -33,7 +33,9 @@ from .optimizer import AdamW
 from .utils import flags
 
 _KERNELS = ("splash_fwd_wgmma_kernel", "splash_fwd_kernel",
-            "splash_delta_kernel", "splash_dkdv_kernel", "splash_dq_kernel",
+            "splash_delta_kernel", "splash_dq_wgmma_kernel",
+            "splash_dkdv_wgmma_kernel", "splash_dkdv_kernel",
+            "splash_dq_kernel",
             "flash_single_fwd_wgmma_kernel", "flash_single_fwd_kernel",
             "flash_single_dq_wgmma_kernel", "flash_single_dkdv_wgmma_kernel",
             "flash_single_dq_kernel", "flash_single_dkdv_kernel",

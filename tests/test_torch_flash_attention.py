@@ -277,7 +277,8 @@ _CSRC = paddle_tpu_torch.__path__[0] + "/csrc"
 _ATTENTION_SOURCES = ("flash_attention.cu", "splash_attention.cu",
                       "attention_tiles.cuh", "attention_wgmma.cuh",
                       "attention_wgmma_bwd.cuh", "hopper_tiles.cuh",
-                      "tile_mma.cuh")
+                      "tile_mma.cuh", "paged_attention.cu",
+                      "paged_wgmma.cuh")
 
 
 @pytest.mark.parametrize("name", _ATTENTION_SOURCES)

@@ -51,13 +51,33 @@ def _inputs(dev, b, nh, kvh, d, ps, pp, c=None, seed=0):
     return q, k, v, pt
 
 
+_PAGED_COUNTERS = ("launches", "launches_int8", "launches_int4",
+                   "launches_wgmma", "launches_wgmma_int8",
+                   "launches_wgmma_int4")
+
+
+def _route_counter(kernel, q, k, v, quant):
+    """The counter a paged call counts on: the chunk's route
+    (`pa.chunk_route`; decode has one), then the pools' mode."""
+    route = pa.chunk_route(q, k, v, quant) \
+        if kernel is pa.paged_attention_chunk else "pages"
+    name = "launches" if route == "pages" else "launches_wgmma"
+    return name if quant is None else f"{name}_{quant}"
+
+
+def _counts(kernel):
+    return {c: getattr(kernel, c) for c in _PAGED_COUNTERS
+            if hasattr(kernel, c)}
+
+
 def _check(kernel, plain, args, q_dtype, kv_dtype):
     q, k, v, pt, pos = args
     args = (q.to(q_dtype), k.to(kv_dtype), v.to(kv_dtype), pt, pos)
-    n = kernel.launches
+    counter = _route_counter(kernel, *args[:3], None)
+    before = _counts(kernel)
     got = kernel(*args)
     torch.cuda.synchronize()
-    assert kernel.launches == n + 1
+    assert _counts(kernel) == {**before, counter: before[counter] + 1}
     assert got.dtype == q_dtype and got.shape == q.shape
     want = plain(*args)
     tol = max(TOL[q_dtype], TOL[kv_dtype])
@@ -94,8 +114,62 @@ def test_chunk_kernel(cuda, q_dtype, kv_dtype, nh, kvh, c):
     q, k, v, pt = _inputs(cuda, b, nh, kvh, d, ps, pp, c=c)
     start = torch.tensor([0, 5, pp * ps - c], dtype=torch.int32,
                          device=cuda)
+    if q_dtype == torch.bfloat16:      # the warpgroup route takes them
+        assert pa.chunk_route(q.bfloat16(), k.bfloat16(), v.bfloat16(),
+                              None) == "wgmma"
     _check(pa.paged_attention_chunk, pa.paged_attention_chunk_ref,
            (q, k, v, pt, start), q_dtype, kv_dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quant", [None, "int8", "int4"])
+@pytest.mark.parametrize("b,nh,kvh,d,ps,pp,c,starts", [
+    (4, 32, 32, 64, 16, 64, 64, (0, 64, 300, 960)),
+    (3, 16, 1, 64, 16, 8, 5, (0, 5, 123)), (3, 8, 2, 64, 16, 8, 40,
+                                            (0, 5, 88)),
+    (3, 4, 1, 64, 16, 8, 1, (0, 5, 127)), (3, 4, 2, 128, 16, 8, 64,
+                                           (0, 9, 64)),
+    (3, 4, 4, 32, 8, 16, 8, (0, 5, 120)), (2, 4, 2, 64, 32, 4, 17,
+                                           (0, 111))])
+def test_chunk_wgmma_route(cuda, quant, b, nh, kvh, d, ps, pp, c, starts):
+    """The chunk's bf16 warpgroup route over bf16, int8 and int4 pools:
+    shuffled page tables, starts at 0, mid-page and at the table's end,
+    GQA, c of 1 to 64, head dims 32 to 128; against the plain version,
+    counted on its own counter and bit-identical on a second call."""
+    q, k, v, pt = _inputs(cuda, b, nh, kvh, d, ps, pp, c=c)
+    start = torch.tensor(starts, dtype=torch.int32, device=cuda)
+    q = q.bfloat16()
+    if quant is None:
+        k, v, sc = k.bfloat16(), v.bfloat16(), {}
+    else:
+        (k, ks), (v, vs) = quantize_rows(k, quant), quantize_rows(v, quant)
+        sc = {"k_scales": ks, "v_scales": vs}
+    chunk = pa.paged_attention_chunk
+    counter = _route_counter(chunk, q, k, v, quant)
+    assert counter.startswith("launches_wgmma")
+    before = _counts(chunk)
+    got = chunk(q, k, v, pt, start, **sc)
+    again = chunk(q, k, v, pt, start, **sc)
+    torch.cuda.synchronize()
+    assert _counts(chunk) == {**before, counter: before[counter] + 2}
+    want = pa.paged_attention_chunk_ref(q, k, v, pt, start, **sc)
+    assert torch.isfinite(got).all() and torch.equal(got, again)
+    assert float((got.float() - want.float()).abs().max()) <= TOL[
+        torch.bfloat16]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [256, 12])
+def test_chunk_pages_route_takes_what_the_gate_refuses(cuda, d):
+    """A bf16 chunk the warpgroup kernel's gate refuses (head_dim past
+    128, or not a multiple of 8) runs on the pages route and counts
+    there."""
+    q, k, v, pt = _inputs(cuda, 3, 4, 2, d, 16, 4, c=7)
+    args = (q.bfloat16(), k.bfloat16(), v.bfloat16())
+    assert pa.chunk_route(*args, None) == "pages"
+    start = torch.tensor([0, 5, 57], dtype=torch.int32, device=cuda)
+    _check(pa.paged_attention_chunk, pa.paged_attention_chunk_ref,
+           (q, k, v, pt, start), torch.bfloat16, torch.bfloat16)
 
 
 @pytest.mark.gpu
@@ -130,13 +204,12 @@ def test_unaligned_rows_take_scalar_loads(cuda, dtype, d, offset):
 def _check_quant(kernel, plain, q, k, v, pt, pos, quant, q_dtype):
     kq, ks = quantize_rows(k, quant)
     vq, vs = quantize_rows(v, quant)
-    counter = f"launches_{quant}"
-    before = (kernel.launches, getattr(kernel, counter))
     args = (q.to(q_dtype), kq, vq, pt, pos)
+    counter = _route_counter(kernel, *args[:3], quant)
+    before = _counts(kernel)
     got = kernel(*args, k_scales=ks, v_scales=vs)
     torch.cuda.synchronize()
-    assert (kernel.launches, getattr(kernel, counter)) == \
-        (before[0], before[1] + 1)
+    assert _counts(kernel) == {**before, counter: before[counter] + 1}
     assert got.dtype == q_dtype and got.shape == q.shape
     want = plain(*args, k_scales=ks, v_scales=vs)
     err = float((got.float() - want.float()).abs().max())
@@ -318,8 +391,8 @@ def _rel(got, want):
 
 def _fwd_counter(wrapper, dtype):
     """The launch counter of a splash or tiled flash forward's route, or
-    a flash backward's: the bf16 kernels on warpgroup products count
-    apart."""
+    a splash or flash backward's: the bf16 kernels on warpgroup products
+    count apart."""
     return "launches_wgmma" if dtype == torch.bfloat16 else "launches"
 
 
@@ -366,7 +439,7 @@ def test_splash_kernels(cuda, dtype, b, s, h, kvh, d, causal, docs):
     assert not q.is_contiguous()
     counter = _fwd_counter(sa.splash_attention_fwd, dtype)
     n_f, n_b = getattr(sa.splash_attention_fwd, counter), \
-        sa.splash_attention_bwd.launches
+        getattr(sa.splash_attention_bwd, counter)
     out, lse = sa.splash_attention_fwd(q, k, v, causal, seg)
     torch.cuda.synchronize()
     want, want_lse = sa.splash_attention_ref(q, k, v, causal, seg,
@@ -392,7 +465,7 @@ def test_splash_kernels(cuda, dtype, b, s, h, kvh, d, causal, docs):
     again = sa.splash_attention_bwd(q, k, v, out, lse, dout, causal, seg)
     torch.cuda.synchronize()
     assert all(torch.equal(a, g) for a, g in zip(again, got))
-    assert sa.splash_attention_bwd.launches == n_b + 2
+    assert getattr(sa.splash_attention_bwd, counter) == n_b + 2
 
 
 @pytest.mark.gpu

@@ -249,13 +249,19 @@ def test_quant_cpu_tensors_take_the_plain_version_without_counting(quant):
     q, k, v, pt, ks, vs = _attention_inputs(quant, c=4)
     st = np.asarray([0, 3, 9], np.int32)
     fn = tpa.paged_attention_chunk
-    before = (fn.launches, fn.launches_int8, fn.launches_int4)
+    counters = ("launches", "launches_int8", "launches_int4",
+                "launches_wgmma", "launches_wgmma_int8",
+                "launches_wgmma_int4")
+    before = [getattr(fn, c) for c in counters]
     args = _t(q, k, v, pt, st)
     tks, tvs = _t(ks, vs)
-    got = fn(*args, k_scales=tks, v_scales=tvs)
-    want = tpa.paged_attention_chunk_ref(*args, k_scales=tks, v_scales=tvs)
-    assert torch.equal(got, want)
-    assert (fn.launches, fn.launches_int8, fn.launches_int4) == before
+    for q_dtype in (torch.float32, torch.bfloat16):
+        args[0] = args[0].to(q_dtype)
+        got = fn(*args, k_scales=tks, v_scales=tvs)
+        want = tpa.paged_attention_chunk_ref(*args, k_scales=tks,
+                                             v_scales=tvs)
+        assert torch.equal(got, want)
+    assert [getattr(fn, c) for c in counters] == before
 
 
 def test_quant_wrapper_validates_inputs():

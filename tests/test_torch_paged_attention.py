@@ -120,13 +120,60 @@ def test_wrapper_validates_inputs():
         tpa.paged_attention(tq[:, :3].contiguous(), tk, tv, tpt, tsl)
 
 
+_COUNTERS = ("launches", "launches_int8", "launches_int4", "launches_wgmma",
+             "launches_wgmma_int8", "launches_wgmma_int4")
+
+
+def _counts():
+    return [getattr(fn, c, None) for c in _COUNTERS
+            for fn in (tpa.paged_attention, tpa.paged_attention_chunk)]
+
+
 def test_cpu_tensors_take_the_plain_version_without_counting():
     q, k, v, pt = _inputs(c=4)
     st = np.asarray([0, 3, 9], np.int32)
-    before = (tpa.paged_attention.launches,
-              tpa.paged_attention_chunk.launches)
-    got = tpa.paged_attention_chunk(*_t(q, k, v, pt, st))
-    want = tpa.paged_attention_chunk_ref(*_t(q, k, v, pt, st))
-    assert torch.equal(got, want)
-    assert (tpa.paged_attention.launches,
-            tpa.paged_attention_chunk.launches) == before
+    before = _counts()
+    tq, tk, tv, tpt, tst = _t(q, k, v, pt, st)
+    for dtype in (torch.float32, torch.bfloat16):
+        args = (tq.to(dtype), tk.to(dtype), tv.to(dtype), tpt, tst)
+        got = tpa.paged_attention_chunk(*args)
+        want = tpa.paged_attention_chunk_ref(*args)
+        assert torch.equal(got, want)
+    assert _counts() == before
+
+
+def _pool(shape, dtype, offset=0):
+    """A zero pool of ``shape`` starting ``offset`` elements into its
+    storage (off the allocation's alignment)."""
+    n = int(np.prod(shape))
+    return torch.zeros(n + offset, dtype=dtype)[offset:].view(shape)
+
+
+# (q dtype, pool dtype, head_dim, pool offset, q offset) -> route: the
+# warpgroup kernel takes a bf16 q over bf16, int8 or int4 (uint8) pools
+# with head_dim a multiple of 8 up to 128, q 16-byte and the pools
+# 4-byte aligned; every other call the pages kernels
+@pytest.mark.parametrize("q_dtype,pool_dtype,d,pool_off,q_off,route", [
+    (torch.bfloat16, torch.bfloat16, 64, 0, 0, "wgmma"),
+    (torch.bfloat16, torch.bfloat16, 128, 0, 0, "wgmma"),
+    (torch.bfloat16, torch.bfloat16, 8, 0, 0, "wgmma"),
+    (torch.bfloat16, torch.int8, 64, 0, 0, "wgmma"),
+    (torch.bfloat16, torch.int8, 16, 4, 0, "wgmma"),
+    (torch.bfloat16, torch.uint8, 16, 0, 0, "wgmma"),
+    (torch.float32, torch.float32, 64, 0, 0, "pages"),
+    (torch.float32, torch.int8, 64, 0, 0, "pages"),
+    (torch.bfloat16, torch.float32, 64, 0, 0, "pages"),
+    (torch.bfloat16, torch.bfloat16, 256, 0, 0, "pages"),
+    (torch.bfloat16, torch.bfloat16, 12, 0, 0, "pages"),
+    (torch.bfloat16, torch.bfloat16, 64, 1, 0, "pages"),
+    (torch.bfloat16, torch.int8, 64, 3, 0, "pages"),
+    (torch.bfloat16, torch.bfloat16, 64, 0, 1, "pages")])
+def test_chunk_route_gate(q_dtype, pool_dtype, d, pool_off, q_off, route):
+    """`chunk_route`, the host-side choice between the chunk's two CUDA
+    routes, read without a card from dtypes, head_dim and addresses."""
+    quant = {torch.int8: "int8", torch.uint8: "int4"}.get(pool_dtype)
+    pd = d // 2 if quant == "int4" else d
+    q = _pool((2, 4, 4, d), q_dtype, q_off)
+    k = _pool((2, 9, 16, pd), pool_dtype, pool_off)
+    v = _pool((2, 9, 16, pd), pool_dtype, pool_off)
+    assert tpa.chunk_route(q, k, v, quant) == route

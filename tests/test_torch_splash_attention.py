@@ -211,11 +211,13 @@ def test_wrapper_counts_no_launch_on_the_cpu():
     def counts():
         return (sa.splash_attention_fwd.launches,
                 sa.splash_attention_fwd.launches_wgmma,
-                sa.splash_attention_bwd.launches)
+                sa.splash_attention_bwd.launches,
+                sa.splash_attention_bwd.launches_wgmma)
 
     before = counts()
     sa.splash_attention(q, k, v).sum().backward()
-    sa.splash_attention(*(t.detach().bfloat16() for t in (q, k, v)))
+    qb, kb, vb = (t.detach().bfloat16().requires_grad_() for t in (q, k, v))
+    sa.splash_attention(qb, kb, vb).float().sum().backward()
     assert counts() == before
 
 
