@@ -12,12 +12,13 @@ timed steps), then with ``FLAGS_splash_attn`` off the flash pairs at 8 x
 failing on a kernel launched off its path. Then its ``serve_full_width``
 as phases 5 and 6 do, over bf16 and int8 pools (16 greedy requests),
 and the same requests once more under ``torch.profiler``, which gives
-the chunk attention's device time and launches (every kernel whose
-name holds ``paged_chunk``: either route). Prints one line, ``AB `` and
-a JSON object: the tag, the card's ``nvidia-smi`` name and power limit,
-for each training run its step times, median, peak device memory,
-tokens/s and kernel launches, and for each serving run its output
-tok/s, TTFT p50 and chunk device time. Run the parent checkout, this
+the decode and the chunk attention's device time and launches (every
+kernel whose name holds ``paged_decode`` or ``paged_chunk``: either
+route). Prints one line, ``AB `` and a JSON object: the tag, the card's
+``nvidia-smi`` name and power limit, for each training run its step
+times, median, peak device memory, tokens/s and kernel launches, and for
+each serving run its output tok/s, TTFT p50 and the decode's and the
+chunk's device time. Run the parent checkout, this
 one, this one again and the parent again in one call, and compare
 within the call. Needs a CUDA card; imports torch, numpy and the port
 only.
@@ -59,7 +60,8 @@ def run(dev, **kw) -> dict:
 def serve(dev, model, kv_quant) -> dict:
     """Phase 5's (bf16) or 6's (int8) serving run: output tok/s, TTFT p50;
     then its requests again under the profiler (warmed up first): the
-    device seconds and launches of the chunk kernels."""
+    device seconds and launches of the decode and of the chunk
+    kernels."""
     from paddle_tpu_torch import profile_serving
     from paddle_tpu_torch.serving import ServingEngine
 
@@ -73,20 +75,24 @@ def serve(dev, model, kv_quant) -> dict:
     cuda = torch.profiler.ProfilerActivity.CUDA
     with torch.profiler.profile(activities=[cuda]) as prof:
         profile_serving._serve(eng, requests)
-    chunk_us, chunk_n = 0.0, 0
+    us = {"decode": 0.0, "chunk": 0.0}
+    n = {"decode": 0, "chunk": 0}
     for ev in prof.key_averages():
-        if ev.device_type == torch.autograd.DeviceType.CUDA and \
-                "paged_chunk" in ev.key:
-            chunk_us += getattr(ev, "self_device_time_total",
-                                getattr(ev, "self_cuda_time_total", 0))
-            chunk_n += ev.count
+        for kind in us:
+            if ev.device_type == torch.autograd.DeviceType.CUDA and \
+                    f"paged_{kind}" in ev.key:
+                us[kind] += getattr(ev, "self_device_time_total",
+                                    getattr(ev, "self_cuda_time_total", 0))
+                n[kind] += ev.count
     del eng
     gc.collect()
     torch.cuda.empty_cache()
     return {"output_tok_s": stats["output_tok_s"],
             "ttft_p50_s": stats["ttft_p50_s"],
             "launches": stats["launches"],
-            "chunk_device_s": chunk_us / 1e6, "chunk_kernels": chunk_n}
+            "decode_device_s": us["decode"] / 1e6,
+            "decode_kernels": n["decode"],
+            "chunk_device_s": us["chunk"] / 1e6, "chunk_kernels": n["chunk"]}
 
 
 def main() -> int:

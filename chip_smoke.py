@@ -9,49 +9,56 @@ Phases, one line each (any failure exits non-zero, nothing is caught):
 2. build every kernel from ``paddle_tpu_torch/csrc`` with ``nvcc``, one
    compiler per source, all started together; for each kernel redesigned
    on warpgroup products (``csrc/hopper_tiles.cuh``: the bf16 fused CE
-   backward, the single-block flash forward, the tiled flash and splash
-   forwards of ``csrc/attention_wgmma.cuh``, the dQ and dK/dV kernels of
-   both flash backwards and of the splash backward,
-   ``csrc/attention_wgmma_bwd.cuh``, and the chunk attention of
+   backward and forward on one mainloop, the single-block flash forward,
+   the tiled flash and splash forwards of ``csrc/attention_wgmma.cuh``,
+   the dQ and dK/dV kernels of both flash backwards and of the splash
+   backward, ``csrc/attention_wgmma_bwd.cuh``, and the chunk attention of
    ``csrc/paged_wgmma.cuh``), its registers, spills and shared memory
    from the ``-Xptxas=-v`` log and the ``HGMMA`` instructions in its
    SASS (``cuobjdump``; the run fails on none, and on a backward or
-   chunk kernel that spills at head dim 64);
+   chunk kernel that spills at head dim 64); the same for the split-K
+   decode of ``csrc/paged_split.cuh`` (CUDA cores; it fails on any
+   spill);
 3. each kernel against its plain PyTorch version on the card, in fp32
    and bf16 (tolerances at `check_kernels` and
    `check_training_kernels`), at the shapes the serving and training
-   paths give it: the paged kernels over bf16, int8 and int4 pools (the
-   chunk's bf16 warpgroup route also at GQA, c of 1 to 64, head dims 16
-   to 128 and shuffled page tables, bit-identical on a second call, and
-   its pages route timed beside it); splash (the path's shape and GQA
+   paths give it: the paged kernels over bf16, int8 and int4 pools, each
+   bit-identical on a second call and timed beside its pages route (the
+   first design) on the same inputs (the chunk's bf16 warpgroup route
+   also at GQA, c of 1 to 64, head dims 16 to 128 and shuffled page
+   tables; the decode's split route also at GQA, head dims 16 to 256
+   and lengths at page and split edges); splash (the path's shape and GQA
    with segments in both dtypes; in bf16 also ragged lengths, head dims
    16, 80 and 128, a key tile fully masked for some rows and rows with
    no visible key; the bf16 backward on warpgroup products) and the
-   fused CE
-   (a ragged case and one over four vocab chunks), each backward run
-   twice and compared bit for bit; the flash pairs at the flash runs'
+   fused CE (a ragged case and one over four vocab chunks; the bf16
+   forward's first design timed beside it), each forward and backward
+   run twice and compared bit for bit; the flash pairs at the flash runs'
    shapes (single-block [8, 1024, 32, 64], tiled [4, 2048, 32, 64]) with
    each backward run twice and compared bit for bit, both pairs at
    ragged shapes (forward and backward), and a ring tick (a key block's
    forward, and its backward from the global lse and out of two key
    halves); then timed
    with CUDA events (L2 flushed between launches) beside the plain
-   version and one PyTorch library call on the same inputs;
+   version and one PyTorch library call on the same inputs (the paged
+   kernels, their pages routes and SDPA as CUDA-graph replays: their
+   wrappers take longer on the host than the kernels on the card);
 4. serving parity: a tiny fp32 GPT served on the card (kernels) and on
    the CPU (plain versions) over fp32, int8 and int4 pools gives
    identical greedy tokens;
 5. the serving path at GPT-3 1.3B width: 16 greedy requests through
    ``ServingEngine`` with bf16 weights and pools; the paged kernels'
-   launch counters are zeroed just before and read just after: the fp
-   decode kernel and the chunk's warpgroup kernel over bf16 pools must
-   be > 0, the chunk's pages route and the quantized kernels 0;
+   launch counters are zeroed just before and read just after: the
+   decode's split route and the chunk's warpgroup kernel over bf16 pools
+   must be > 0, both pages routes and the quantized kernels 0;
 6. the same workload with ``kv_quant="int8"`` and then ``"int4"``: the
-   quantized decode kernel and the chunk's warpgroup kernel of that mode
-   must be > 0, every other paged kernel 0; pool bytes and capacity
-   against the bf16 run;
+   split decode and the chunk's warpgroup kernel of that mode must be >
+   0, every other paged kernel 0; pool bytes and capacity against the
+   bf16 run;
 7. ``generate()`` at the same width, 8 prompts of 128 tokens and 32 new
-   tokens over the paged cache with bf16 and with int8 pools: the
-   decode kernel of the pools must have run, and no splash forward (a
+   tokens over the paged cache with bf16 and with int8 pools: the split
+   decode of the pools must have run, and neither its pages route nor a
+   splash forward (a
    128-token prefill is under ``FLAGS_pallas_flash_min_seqlen``: the
    dense attention, as in the reference);
 8. training parity: a tiny fp32 GPT takes three ``TrainStep``s (AdamW,
@@ -64,10 +71,10 @@ Phases, one line each (any failure exits non-zero, nothing is caught):
    weights, fp32 masters, bf16 moments, clip 1.0) over 8 x 1024 random
    tokens with recompute, 2 warm-up and 5 timed steps; the training
    kernels' counters are zeroed just before the timed steps and read
-   just after: the bf16 splash forward and backward on warpgroup
-   products and the CE must be > 0, every other training kernel (the
-   fp32 splash forward and backward among them) 0, and every loss
-   finite;
+   just after: the bf16 splash forward and backward and the bf16 CE
+   forward on warpgroup products and the CE backward must be > 0, every
+   other training kernel (the fp32 splash and CE routes among them) 0,
+   and every loss finite;
 10. the same with ``FLAGS_splash_attn`` off (the reference's flash
     routing, the flag's off setting; splash is its default), 2 warm-up
     and 3 timed steps at 8 x 1024 (the single-block forward and the bf16
@@ -132,6 +139,22 @@ def time_ms(fn, flush, iters=20, warmup=3) -> float:
     return sum(s.elapsed_time(e) for s, e in events) / iters
 
 
+def graph_ms(fn, flush, iters=20) -> float:
+    """`time_ms` of replays of ``fn`` captured in a CUDA graph: the
+    device time without the host's time to launch it. A paged call's
+    Python wrapper takes longer on the host (about 60 us) than its kernel
+    on the card, so eager launches would time the host."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                                  # warm-up, off the graph
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return time_ms(graph.replay, flush, iters)
+
+
 def bound_ms(nbytes: float, flops: float, itemsize: int):
     t_bytes = nbytes / HBM_BYTES_PER_S
     peak = BF16_FLOP_PER_S if itemsize == 2 else FP32_FLOP_PER_S
@@ -148,6 +171,9 @@ def bound_ms(nbytes: float, flops: float, itemsize: int):
 WGMMA_KERNELS = {
     "fused_ce_bwd_kernels": ("fused_cross_entropy",
                              "fused_ce_bwd_wgmma_kernel"),
+    # the bf16 CE forward on the backward's mainloop
+    "fused_ce_fwd_wgmma_kernel": ("fused_cross_entropy",
+                                  "fused_ce_fwd_wgmma_kernel"),
     "flash_single_fwd_kernel": ("flash_attention",
                                 "flash_single_fwd_wgmma_kernel"),
     "flash_fwd_wgmma_kernel": ("flash_attention", "flash_fwd_wgmma_kernel"),
@@ -174,6 +200,16 @@ WGMMA_KERNELS = {
     "paged_chunk_wgmma_kernel": ("paged_attention",
                                  "paged_chunk_wgmma_kernel"),
 }
+# the redesigned kernels on CUDA cores (no HGMMA): the split-K decode over
+# each pool kind (csrc/paged_split.cuh), which must not spill at all (its
+# instantiations cover every head dim, 64 among them)
+CUDA_CORE_KERNELS = {
+    "paged_decode_split_kernel": ("paged_attention",
+                                  "paged_decode_split_kernel"),
+}
+# the split decode's shared memory is reported at the serving path's
+# geometry: head dim 64, pages of 16 rows, MHA, a full ring
+DECODE_PATH_GEOMETRY = (64, 16, 1, 4)
 # kernels whose head-dim-64 instantiations (the training and serving
 # paths' head dim) must not spill
 NO_SPILL_AT_64 = ("flash_single_dq_wgmma_kernel",
@@ -243,8 +279,9 @@ def _hgmma_counts(lib):
 def check_wgmma_kernels(built):
     """Registers, spills and shared memory (static from ptxas, dynamic
     from the launcher) of each redesigned kernel, and the HGMMA
-    instructions of its SASS; fails if one has none, or if a flash
-    backward spills at head dim 64."""
+    instructions of its SASS; fails if a warpgroup kernel has none, if a
+    backward or the chunk spills at head dim 64, or if the split decode
+    spills at all."""
     from paddle_tpu_torch.ops.kernels import _build
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
     from paddle_tpu_torch.ops.kernels import fused_cross_entropy as fce
@@ -257,6 +294,11 @@ def check_wgmma_kernels(built):
     pg = _build.load("paged_attention", pa._SIGNATURES)
     dynamic = {"fused_ce_bwd_wgmma_kernel": lambda args: (
                    ce.fused_ce_bwd_bf16_smem()),
+               "fused_ce_fwd_wgmma_kernel": lambda args: (
+                   ce.fused_ce_bwd_bf16_smem()),
+               "paged_decode_split_kernel": lambda args: (
+                   pg.paged_decode_split_smem(int(args[0]),
+                                              *DECODE_PATH_GEOMETRY)),
                "flash_single_fwd_wgmma_kernel": lambda args: (
                    fl.flash_fwd_single_bf16_smem(int(args[0]))),
                "flash_fwd_wgmma_kernel": lambda args: (
@@ -274,7 +316,8 @@ def check_wgmma_kernels(built):
     dynamic["paged_chunk_wgmma_kernel"] = lambda args: (
         pg.paged_chunk_wgmma_smem(int(args[0]), int(args[1])))
     report = {}
-    for name, (src, fn) in WGMMA_KERNELS.items():
+    for name, (src, fn) in {**WGMMA_KERNELS, **CUDA_CORE_KERNELS}.items():
+        cores = name in CUDA_CORE_KERNELS
         saved = _build.library_path(src).with_suffix(".log")
         log = built.get(src, {}).get("log") or (
             saved.read_text() if saved.exists() else "")
@@ -300,11 +343,12 @@ def check_wgmma_kernels(built):
               flush=True)
         if not entries:
             raise AssertionError(f"{name}: no {fn} in the build")
-        if hg is not None and (not hg or min(hg.values()) <= 0):
+        if not cores and hg is not None and (not hg or
+                                             min(hg.values()) <= 0):
             raise AssertionError(f"{name}: a {fn} has no HGMMA: {hg}")
-        spills = [e for e in entries if fn in NO_SPILL_AT_64
-                  and e["kernel"].startswith(f"{fn}<64")
-                  and e["spill_stores"] != 0]
+        spills = [e for e in entries if e["spill_stores"] != 0 and (
+            cores or fn in NO_SPILL_AT_64
+            and e["kernel"].startswith(f"{fn}<64"))]
         if spills:
             raise AssertionError(f"{name}: spills at head dim 64: {spills}")
     return report
@@ -317,25 +361,33 @@ def check_wgmma_kernels(built):
 PAGED_SOURCE = "paddle_tpu_torch/csrc/paged_attention.cu"
 PAGED_TPU = "paddle_tpu/ops/pallas/paged_attention.py"
 # kernel -> (wrapper, its launch counter, pool quant mode, TPU kernel line);
-# the chunk rows are its bf16 route (warpgroup products), which the
-# serving path takes
+# the decode rows are its split-K route and the chunk rows its bf16 route
+# (warpgroup products), which the serving path takes
 PAGED_KERNELS = {
-    "paged_decode_kernel": ("paged_attention", "launches", None, 163),
+    "paged_decode_split_kernel": ("paged_attention", "launches_split", None,
+                                  163),
     "paged_chunk_wgmma_kernel": ("paged_attention_chunk", "launches_wgmma",
                                  None, 400),
-    "paged_decode_q_kernel[int8]": ("paged_attention", "launches_int8",
-                                    "int8", 208),
-    "paged_decode_q_kernel[int4]": ("paged_attention", "launches_int4",
-                                    "int4", 208),
+    "paged_decode_split_kernel[int8]": ("paged_attention",
+                                        "launches_split_int8", "int8", 208),
+    "paged_decode_split_kernel[int4]": ("paged_attention",
+                                        "launches_split_int4", "int4", 208),
     "paged_chunk_wgmma_kernel[int8]": ("paged_attention_chunk",
                                        "launches_wgmma_int8", "int8", 400),
     "paged_chunk_wgmma_kernel[int4]": ("paged_attention_chunk",
                                        "launches_wgmma_int4", "int4", 400),
 }
-# the chunk's other route (fp32, and bf16 geometries the warpgroup
-# kernel's gate refuses): held in fp32 and timed in bf16 beside the
-# warpgroup kernel, and never launched on the bf16 serving path
+# the other route of each (the pages kernels: the decode's and the
+# chunk's first design, which take what the new kernels' gates refuse,
+# and fp32 chunks): the same wrapper's counter; held against the plain
+# version and timed on the same bf16 inputs beside the new kernel, and
+# never launched on the serving path
 PAGES_ROUTE = {
+    "paged_decode_split_kernel": ("paged_decode_kernel", "launches"),
+    "paged_decode_split_kernel[int8]": ("paged_decode_q_kernel[int8]",
+                                        "launches_int8"),
+    "paged_decode_split_kernel[int4]": ("paged_decode_q_kernel[int4]",
+                                        "launches_int4"),
     "paged_chunk_wgmma_kernel": ("paged_chunk_kernel", "launches"),
     "paged_chunk_wgmma_kernel[int8]": ("paged_chunk_q_kernel[int8]",
                                        "launches_int8"),
@@ -361,8 +413,8 @@ CHUNK_CASES = {
 def _paged_counters():
     """(kernel, wrapper, counter) of every paged kernel and route."""
     rows = [(name, w, c) for name, (w, c, _, _) in PAGED_KERNELS.items()]
-    return rows + [(old, "paged_attention_chunk", c)
-                   for old, c in PAGES_ROUTE.values()]
+    return rows + [(PAGES_ROUTE[name][0], w, PAGES_ROUTE[name][1])
+                   for name, (w, _, _, _) in PAGED_KERNELS.items()]
 
 
 def _paged_reset():
@@ -390,14 +442,17 @@ def _pools(k32, v32, quant, dtype=torch.bfloat16):
     return kq, vq, {"k_scales": ks, "v_scales": vs}
 
 
-def _pages_route(q, k, v, table, start, quant, sc):
-    """The chunk through its pages route (``paged_chunk`` /
-    ``paged_chunk_q``), whatever the dtype."""
+def _pages_route(q, k, v, table, pos, quant, sc):
+    """The decode (q ``[b, nh, d]``, ``pos`` the lengths) or the chunk
+    (``pos`` the starts) through its pages route (``paged_decode(_q)`` /
+    ``paged_chunk(_q)``), whatever the dtype and geometry."""
     from paddle_tpu_torch.ops.kernels import paged_attention as pa
 
-    return pa._launch("paged_chunk", q, k, v, table, start,
-                      (q.shape[0], q.shape[1]), 1.0 / q.shape[-1] ** 0.5,
-                      sc.get("k_scales"), sc.get("v_scales"), quant)[0]
+    fn, extra = ("paged_decode", q.shape[:1]) if q.dim() == 3 else \
+        ("paged_chunk", q.shape[:2])
+    return pa._launch(fn, q, k, v, table, pos, tuple(extra),
+                      1.0 / q.shape[-1] ** 0.5, sc.get("k_scales"),
+                      sc.get("v_scales"), quant)[0]
 
 
 def check_chunk_cases(dev):
@@ -439,11 +494,72 @@ def check_chunk_cases(dev):
               flush=True)
 
 
+# the decode's split route at the card tests' other geometries, fp32 q
+# over fp32 pools and bf16 q over bf16, int8 and int4 pools, with
+# shuffled page tables and lengths at page and split edges: (slots, nh,
+# kvh, d, page size, pages a slot)
+DECODE_CASES = {
+    "gqa nh16 kvh4 d128": (6, 16, 4, 128, 16, 20),
+    "gqa nh16 kvh2 d256": (6, 16, 2, 256, 16, 20),
+    "gqa nh8 kvh1 d16 page 8": (6, 8, 1, 16, 8, 40),
+    "mha nh4 d64 page 32": (6, 4, 4, 64, 32, 10),
+}
+DECODE_LENS = (0, 15, 128, 129, 256, 320)
+
+
+def check_decode_cases(dev):
+    """The decode's split route against the plain version at
+    `DECODE_CASES`, each call counted on the route's own counter and
+    bit-identical on a second call."""
+    from paddle_tpu_torch.ops.kernels import paged_attention as pa
+
+    dec = pa.paged_attention
+    for case, (b, nh, kvh, d, ps, pp) in DECODE_CASES.items():
+        gen = torch.Generator(device=dev).manual_seed(2)
+        num_pages = 1 + b * pp
+        q = torch.randn(b, nh, d, device=dev, generator=gen)
+        k32 = torch.randn(kvh, num_pages, ps, d, device=dev, generator=gen)
+        v32 = torch.randn(kvh, num_pages, ps, d, device=dev, generator=gen)
+        table = (torch.randperm(num_pages - 1, device=dev, generator=gen)
+                 + 1).to(torch.int32).reshape(b, pp)
+        lens = torch.tensor(DECODE_LENS, dtype=torch.int32, device=dev)
+        errs = {}
+        for q_dtype, quant, tol in ((torch.float32, None, 1e-4),
+                                    (torch.bfloat16, None, 2e-2),
+                                    (torch.bfloat16, "int8", 2e-2),
+                                    (torch.bfloat16, "int4", 2e-2)):
+            k, v, sc = _pools(k32, v32, quant)
+            if q_dtype == torch.float32:
+                k, v = k32, v32
+            counter = "launches_split" + (f"_{quant}" if quant else "")
+            n = getattr(dec, counter)
+            args = (q.to(q_dtype), k, v, table, lens)
+            got = dec(*args, **sc)
+            again = dec(*args, **sc)
+            torch.cuda.synchronize()
+            err = _max_err(got, pa.paged_attention_ref(*args, **sc))
+            what = f"{str(q_dtype)[6:]} q, {quant or str(k.dtype)[6:]}"
+            errs[what] = err
+            if not (getattr(dec, counter) == n + 2 and err <= tol
+                    and torch.isfinite(got).all()
+                    and torch.equal(got, again)):
+                raise AssertionError(
+                    f"decode {case} {what}: err {err}, "
+                    f"{getattr(dec, counter) - n} launches of 2, or a "
+                    f"second call differs")
+        print(f"[3/{PHASES}] paged_decode_split_kernel {case} lens "
+              f"{list(DECODE_LENS)}: max abs err {json.dumps(errs)}, "
+              f"bit-identical on a second call", flush=True)
+
+
 def check_kernels(dev, flush):
     """The paged kernels (fp, and int8 / int4 pools) at the serving
     path's shapes: decode q [8, 32, 64] over pools of 513 pages of 16
-    rows, lens 0..1024; one chunk-prefill call q [4, 64, 32, 64]. The
-    chunk also at `CHUNK_CASES`, and its pages route beside it."""
+    rows, lens 0..1024; one chunk-prefill call q [4, 64, 32, 64]; each
+    with its pages route beside it. The kernels, the pages routes and
+    SDPA are timed as CUDA-graph replays (`graph_ms`), the plain versions
+    eagerly. The chunk also at `CHUNK_CASES`, the decode at
+    `DECODE_CASES`."""
     from paddle_tpu_torch.ops.kernels import paged_attention as pa
 
     b, nh, kvh, d, ps, pp = 8, 32, 32, 64, 16, 64   # decode at 1.3B width
@@ -472,29 +588,40 @@ def check_kernels(dev, flush):
         # its scale
         row_bytes = 2 * d if quant is None else \
             (d if quant == "int8" else d // 2) + 4
-        errs = {}
+        # the kernel and its pages route (the first design, which serves
+        # every geometry the gate refuses), each held to the plain version
+        errs, old_errs = {}, {}
+        old = PAGES_ROUTE[name][0]
         for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
             kp, vp, sc = _pools(k32, v32, quant, dtype)
             args = (q.to(dtype), kp, vp, table, pos)
             got = kernel(*args, **sc)
+            got_old = _pages_route(*args, quant, sc)
+            again_old = _pages_route(*args, quant, sc)
             torch.cuda.synchronize()
             want = plain(*args, **sc)
-            err = _max_err(got, want)
+            errs[dtype] = err = _max_err(got, want)
+            old_errs[dtype] = err_old = _max_err(got_old, want)
             if not (err <= tol and torch.isfinite(got).all()):
                 raise AssertionError(
                     f"{name} {dtype}: max abs err {err} > {tol}")
-            errs[dtype] = err
+            if not (err_old <= tol and torch.isfinite(got_old).all()
+                    and torch.equal(got_old, again_old)):
+                raise AssertionError(
+                    f"{old} {dtype}: max abs err {err_old} > {tol}, or a "
+                    f"second call differs")
         # times at the serving path's dtype (bf16 q; bf16 or quantized
         # pools)
         kp, vp, sc = _pools(k32, v32, quant)
         args = (q.to(torch.bfloat16), kp, vp, table, pos)
-        if name in PAGES_ROUTE:
-            n = getattr(kernel, counter)
-            kernel(*args, **sc)
-            torch.cuda.synchronize()
-            if getattr(kernel, counter) != n + 1:
-                raise AssertionError(f"{name}: bf16 call not counted on "
-                                     f"{wrapper}.{counter}")
+        n = getattr(kernel, counter)
+        got = kernel(*args, **sc)
+        again = kernel(*args, **sc)
+        torch.cuda.synchronize()
+        if getattr(kernel, counter) != n + 2 or not torch.equal(got, again):
+            raise AssertionError(f"{name}: bf16 calls not counted on "
+                                 f"{wrapper}.{counter}, or a second call "
+                                 f"differs")
         kd = pa._densify(kp, table, sc.get("k_scales")).to(torch.bfloat16)
         vd = pa._densify(vp, table, sc.get("v_scales")).to(torch.bfloat16)
         if q.dim() == 3:
@@ -524,9 +651,9 @@ def check_kernels(dev, flush):
         results[name] = {
             "max_abs_err": errs[torch.bfloat16],
             "max_abs_err_fp32": errs[torch.float32],
-            "ms": time_ms(lambda: kernel(*args, **sc), flush),
+            "ms": graph_ms(lambda: kernel(*args, **sc), flush),
             "plain_ms": time_ms(lambda: plain(*args, **sc), flush),
-            "library_ms": time_ms(library, flush),
+            "library_ms": graph_ms(library, flush),
             "bound_ms": b_ms, "bound_by": b_by,
             "shape": list(q.shape),
         }
@@ -535,20 +662,22 @@ def check_kernels(dev, flush):
             r["library"] = SDPA_OVER_DEQUANT
         line = (f"[3/{PHASES}] {name}: q {r['shape']} max abs err fp32 "
                 f"{errs[torch.float32]:.3g} bf16 {errs[torch.bfloat16]:.3g}")
-        if name in PAGES_ROUTE:
-            # the pages route on the same bf16 inputs
-            old = PAGES_ROUTE[name][0]
+        # the pages route timed on the same bf16 inputs
+        r["pages_route"] = old
+        if wrapper == "paged_attention_chunk":
             r["fp32_route"] = old
-            r["pages_route_max_abs_err"] = _max_err(
-                _pages_route(*args, quant, sc), plain(*args, **sc))
-            r["pages_route_ms"] = time_ms(
-                lambda: _pages_route(*args, quant, sc), flush)
-            line += (f" ({old} {r['pages_route_max_abs_err']:.3g}, "
-                     f"{r['pages_route_ms']:.4f} ms)")
+        r["pages_route_max_abs_err"] = old_errs[torch.bfloat16]
+        r["pages_route_max_abs_err_fp32"] = old_errs[torch.float32]
+        r["pages_route_ms"] = graph_ms(
+            lambda: _pages_route(*args, quant, sc), flush)
+        line += (f" ({old} fp32 {old_errs[torch.float32]:.3g} bf16 "
+                 f"{old_errs[torch.bfloat16]:.3g}, {r['pages_route_ms']:.4f}"
+                 f" ms), bit-identical on a second call")
         print(f"{line}; bf16 kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, sdpa {r['library_ms']:.4f} ms, "
               f"bound {b_ms:.4f} ms ({b_by})", flush=True)
     check_chunk_cases(dev)
+    check_decode_cases(dev)
     return results
 
 
@@ -710,8 +839,8 @@ def generate_full_width(dev, model):
     cfg = model.config
     ids = np.random.default_rng(2).integers(0, cfg.vocab_size, (8, 128))
     out = {}
-    for quant, decode in ((None, "paged_decode_kernel"),
-                          ("int8", "paged_decode_q_kernel[int8]")):
+    for quant, decode in ((None, "paged_decode_split_kernel"),
+                          ("int8", "paged_decode_split_kernel[int8]")):
         kw = dict(use_cache="paged", cache_dtype=torch.bfloat16,
                   **({"kv_quant": quant} if quant else {}))
         model.generate(ids, 32, **kw)               # engine, warm-up
@@ -741,10 +870,11 @@ def generate_full_width(dev, model):
                 (t == out[None]).mean())
         print(f"[7/{PHASES}] generate gpt3-1.3b paged "
               f"{quant or 'bf16'}: {json.dumps(stats)}", flush=True)
-        if launches[decode] <= 0 or any(splash.values()):
-            raise AssertionError(f"generate {quant}: the decode kernel "
-                                 f"never ran, or a splash forward did: "
-                                 f"{launches}")
+        if launches[decode] <= 0 or launches[PAGES_ROUTE[decode][0]] or \
+                any(splash.values()):
+            raise AssertionError(f"generate {quant}: the split decode "
+                                 f"never ran, or its pages route or a "
+                                 f"splash forward did: {launches}")
     model.__dict__.pop("_generation_engines", None)
 
 
@@ -816,7 +946,7 @@ def _check(name, dtype, fwd_err, bwd_rel, finite, lse_err=0.0, same=True):
         raise AssertionError(f"{name} {dtype}: backward rel err "
                              f"{bwd_rel} > {TOL_BWD[dtype]}")
     if not same:
-        raise AssertionError(f"{name} {dtype}: two backward runs differ")
+        raise AssertionError(f"{name} {dtype}: two runs differ")
 
 
 def _segments(b, s, docs, rng):
@@ -879,10 +1009,11 @@ def _splash_case(dev, b, s, h, kvh, d, causal, docs, dtype, seed=0,
 
 
 def _ce_case(dev, n, vocab, hidden, dtype, seed=0, budget=None):
-    """One fused-CE case in ``dtype``, 5% of labels at ignore_index:
-    errors of the forward (losses, lse) and the backward (dh, dW), and
-    whether a second backward is bit-identical. ``budget``: the bf16
-    backward's scratch budget (small: several vocab chunks)."""
+    """One fused-CE case in ``dtype``, 5% of labels at ignore_index and
+    the last row's label in the vocab's last column: errors of the
+    forward (losses; lse) and the backward (dh, dW), and whether a second
+    forward and a second backward are bit-identical. ``budget``: the
+    bf16 backward's scratch budget (small: several vocab chunks)."""
     from paddle_tpu_torch.ops.kernels import fused_cross_entropy as fce
 
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -891,7 +1022,9 @@ def _ce_case(dev, n, vocab, hidden, dtype, seed=0, budget=None):
         .to(dtype)
     labels = torch.randint(0, vocab, (n,), device=dev, generator=gen)
     labels[torch.rand(n, device=dev, generator=gen) < 0.05] = -100
+    labels[-1] = vocab - 1
     loss, lse = fce.fused_ce_fwd(h, w, labels)
+    loss2, lse2 = fce.fused_ce_fwd(h, w, labels)
     g = torch.where(labels != -100, torch.full_like(loss, 1.0 / n), 0.0)
     saved = fce.SCRATCH_BYTES
     fce.SCRATCH_BYTES = budget or saved
@@ -904,11 +1037,13 @@ def _ce_case(dev, n, vocab, hidden, dtype, seed=0, budget=None):
     want, want_lse = fce.fused_ce_fwd_ref(h, w, labels)
     rdh, rdw = fce.fused_ce_bwd_ref(h, w, labels, lse, g)
     finite = all(bool(torch.isfinite(t).all()) for t in (loss, lse, dh, dw))
-    same = torch.equal(again[0], dh) and torch.equal(again[1], dw)
-    fwd_err = max(_max_err(loss, want), _max_err(lse, want_lse))
+    same = torch.equal(again[0], dh) and torch.equal(again[1], dw) and \
+        torch.equal(loss2, loss) and torch.equal(lse2, lse)
+    fwd_err, lse_err = _max_err(loss, want), _max_err(lse, want_lse)
     bwd_abs = max(_max_err(dh, rdh), _max_err(dw, rdw))
     bwd_rel = max(_rel_err(dh, rdh), _rel_err(dw, rdw))
-    return fwd_err, bwd_abs, bwd_rel, finite, same, (h, w, labels, lse, g)
+    return fwd_err, lse_err, bwd_abs, bwd_rel, finite, same, \
+        (h, w, labels, lse, g)
 
 
 def check_training_kernels(dev, flush):
@@ -946,13 +1081,14 @@ def check_training_kernels(dev, flush):
                            (300, 1000, 256),
                            "fused_ce [1000,512]x[3000,512] in 4 chunks":
                            (1000, 3000, 512, 0, CE_CHUNKED_BUDGET)}.items():
-            fe, ba, br, fin, same, _ = _ce_case(dev, *args[:3], dtype,
-                                                *args[3:])
-            _check(case, dtype, fe, br, fin, same=same)
-            errs[(case, dtype)] = (fe, ba, br)
+            fe, le, ba, br, fin, same, _ = _ce_case(dev, *args[:3], dtype,
+                                                    *args[3:])
+            _check(case, dtype, fe, br, fin, le, same=same)
+            errs[(case, dtype)] = (max(fe, le), ba, br)
             print(f"[3/{PHASES}] {case} {str(dtype)[6:]}: forward max abs "
-                  f"err {fe:.3g}; backward max abs err {ba:.3g}, relative "
-                  f"{br:.3g}, bit-identical on a second run", flush=True)
+                  f"err {fe:.3g}, lse {le:.3g}; backward max abs err "
+                  f"{ba:.3g}, relative {br:.3g}; forward and backward "
+                  f"bit-identical on a second run", flush=True)
         torch.cuda.empty_cache()
 
     # times at the training path's dtype (bf16)
@@ -1002,7 +1138,7 @@ def check_training_kernels(dev, flush):
     hw = (n + vocab) * hidden * 2
     lib_f = time_ms(lib, flush, iters=10)
     for name, kernel, plain, nbytes, flops, lib_ms in (
-            ("fused_ce_fwd_kernel",
+            ("fused_ce_fwd_wgmma_kernel",
              lambda: fce.fused_ce_fwd(h, w, labels),
              lambda: fce.fused_ce_fwd_ref(h, w, labels),
              hw + n * 4 + 2 * n * 4, nvh, lambda: lib_f),
@@ -1017,15 +1153,36 @@ def check_training_kernels(dev, flush):
                                              warmup=1),
                          "library_ms": lib_ms(), "bound_ms": b_ms,
                          "bound_by": b_by, "shape": [n, hidden, vocab]}
-    del h, w, hl, wl, labels, lse, g
+    # the forward's first design (the fp32 route's kernel, in bf16) on
+    # the same inputs
+    lbl32 = labels.to(torch.int32)
+
+    def first_design():
+        out = (torch.empty(n, device=dev), torch.empty(n, device=dev))
+        fce._fwd_tiles(h, w, lbl32, -100, *out)
+        return out
+
+    r = results["fused_ce_fwd_wgmma_kernel"]
+    r["fp32_route"] = r["old_route"] = "fused_ce_fwd_kernel"
+    (loss, lse1), again = first_design(), first_design()
+    want, want_lse = fce.fused_ce_fwd_ref(h, w, labels)
+    _check("fused_ce_fwd_kernel", bf, _max_err(loss, want), 0.0,
+           bool(torch.isfinite(loss).all() and torch.isfinite(lse1).all()),
+           _max_err(lse1, want_lse),
+           torch.equal(loss, again[0]) and torch.equal(lse1, again[1]))
+    r["old_route_max_abs_err"] = max(_max_err(loss, want),
+                                     _max_err(lse1, want_lse))
+    r["old_route_ms"] = time_ms(first_design, flush, iters=5)
+    del loss, lse1, again, want, want_lse
+    del h, w, hl, wl, labels, lse, g, lbl32
     torch.cuda.empty_cache()
 
     case_of = {"splash_fwd_wgmma_kernel": ("splash [8,1024,32,64] causal",
                                            0),
                "splash_bwd_wgmma_kernels": ("splash [8,1024,32,64] causal",
                                             1),
-               "fused_ce_fwd_kernel": ("fused_ce [8192,2048]x[50304,2048]",
-                                       0),
+               "fused_ce_fwd_wgmma_kernel": (
+                   "fused_ce [8192,2048]x[50304,2048]", 0),
                "fused_ce_bwd_kernels": ("fused_ce [8192,2048]x[50304,2048]",
                                         1)}
     for name, r in results.items():
@@ -1039,9 +1196,13 @@ def check_training_kernels(dev, flush):
         if which:
             r["max_rel_err"] = errs[(case, torch.bfloat16)][2]
             r["max_rel_err_fp32"] = errs[(case, torch.float32)][2]
+        old = "" if "old_route" not in r else (
+            f", {r['old_route']} {r['old_route_ms']:.4f} ms (max abs err "
+            f"{r['old_route_max_abs_err']:.3g})")
         print(f"[3/{PHASES}] {name}: bf16 kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
-              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}){old}",
+              flush=True)
     return results
 
 
@@ -1343,6 +1504,8 @@ TRAIN_COUNTERS = {
                                  "launches_wgmma"),
     "splash_bwd_kernels": ("splash_attention", "splash_attention_bwd",
                            "launches"),
+    "fused_ce_fwd_wgmma_kernel": ("fused_cross_entropy", "fused_ce_fwd",
+                                  "launches_wgmma"),
     "fused_ce_fwd_kernel": ("fused_cross_entropy", "fused_ce_fwd",
                             "launches"),
     "fused_ce_bwd_kernels": ("fused_cross_entropy", "fused_ce_bwd",
@@ -1363,14 +1526,17 @@ TRAIN_COUNTERS = {
     "flash_bwd_kernels": ("flash_attention", "flash_attention_bwd",
                           "launches"),
 }
-CE_KERNELS = ("fused_ce_fwd_kernel", "fused_ce_bwd_kernels")
+# the CE's forward (bf16 on warpgroup products, fp32 the tiles) and
+# backward
+CE_KERNELS = ("fused_ce_fwd_wgmma_kernel", "fused_ce_fwd_kernel",
+              "fused_ce_bwd_kernels")
 
 
 def _path_kernels(seq, splash, bf16=True):
     """The training kernels a step at ``seq`` tokens launches: splash with
-    the flag on, else the flash pair of the length's path (in bf16 the
-    forwards of splash and the tiled pair and both flash backwards on
-    warpgroup products); and the CE."""
+    the flag on, else the flash pair of the length's path; and the CE (in
+    bf16 the forwards of splash, of the tiled pair and of the CE, and
+    both flash backwards, on warpgroup products)."""
     if splash:
         attn = ("splash_fwd_wgmma_kernel", "splash_bwd_wgmma_kernels") \
             if bf16 else ("splash_fwd_kernel", "splash_bwd_kernels")
@@ -1381,7 +1547,9 @@ def _path_kernels(seq, splash, bf16=True):
     else:
         attn = ("flash_fwd_wgmma_kernel" if bf16 else "flash_fwd_kernel",
                 "flash_bwd_wgmma_kernels" if bf16 else "flash_bwd_kernels")
-    return attn + CE_KERNELS
+    ce = ("fused_ce_fwd_wgmma_kernel" if bf16 else "fused_ce_fwd_kernel",
+          "fused_ce_bwd_kernels")
+    return attn + ce
 
 
 def _check_launches(launches, expect, what):
@@ -1642,7 +1810,7 @@ def main() -> int:
             SPLASH_SOURCE, "paddle_tpu/ops/pallas/splash_attention.py:139"),
         "splash_bwd_wgmma_kernels": (
             SPLASH_SOURCE, "paddle_tpu/ops/pallas/splash_attention.py:255"),
-        "fused_ce_fwd_kernel": (
+        "fused_ce_fwd_wgmma_kernel": (
             CE_SOURCE, "paddle_tpu/ops/pallas/fused_cross_entropy.py:92"),
         "fused_ce_bwd_kernels": (
             CE_SOURCE, "paddle_tpu/ops/pallas/fused_cross_entropy.py:161"),
@@ -1653,7 +1821,9 @@ def main() -> int:
     keys = ("max_abs_err", "max_abs_err_fp32", "max_rel_err",
             "max_rel_err_fp32", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "library", "shape", "causal", "fp32_route",
-            "pages_route_max_abs_err", "pages_route_ms")
+            "pages_route", "pages_route_max_abs_err",
+            "pages_route_max_abs_err_fp32", "pages_route_ms",
+            "old_route", "old_route_max_abs_err", "old_route_ms")
     line = [{"name": name, "route": "cuda", "source": where[name][0],
              "replaces": where[name][1], "launches": launches[name],
              **({"launches_per_step": launches[name] / steps[name]}

@@ -2,7 +2,9 @@
 // backward: the [N, V] logits and d_logits never exist in device memory.
 //
 // Replaces the TPU kernels of paddle_tpu/ops/pallas/fused_cross_entropy.py:
-//   fused_ce_fwd_kernel (+ fused_ce_combine_kernel)  <- _fwd_kernel (via
+//   bf16: fused_ce_fwd_wgmma_kernel
+//   fp32: fused_ce_fwd_kernel
+//         (+ fused_ce_combine_kernel)               <- _fwd_kernel (via
 //                                                        _fwd_pallas)
 //   bf16: fused_ce_bwd_wgmma_kernel<0, 1, 2>
 //   fp32: fused_ce_dh_kernel, fused_ce_dw_kernel
@@ -21,16 +23,18 @@
 // Layouts: hidden [N, H], weight [V, H] (fp32 or bf16, contiguous), labels
 // [N] int32, g_eff [N] fp32 (the loss cotangent, 0 on ignored rows); loss,
 // lse [N] fp32; dh [N, H], dW [V, H]. Scratch the wrapper allocates: the
-// forward's per-split (m, l, picked) [3, S, N]; the bf16 backward's d chunk
+// forward's per-split (m, l, picked) [3, S, N] (bf16: S = ceil(V / 256),
+// one a vocab tile); the bf16 backward's d chunk
 // [N, Vc] bf16 and, with more than one chunk, dh32 [N, H] fp32; the fp32
 // backward's dh32 [S, Np, H] and dw32 [Vp, H] (Np, Vp: N and V rounded up
 // to a tile; S vocab splits).
 //
-// The forward, and the fp32 backward: 256 threads (8 warps) a block; the
+// The fp32 forward and backward: 256 threads (8 warps) a block; the
 // logits of a tile of 64 tokens x 128 vocab rows are one product over the
-// hidden axis, staged 128 columns at a time, in tile_mma.cuh (wmma on the
-// tensor cores in bf16, each warp a 32 x 32 block of fp32 accumulators;
-// CUDA cores in fp32).
+// hidden axis, staged 128 columns at a time, in tile_mma.cuh (CUDA cores
+// in fp32; the same kernels instantiated for bf16 run wmma on the tensor
+// cores, each warp a 32 x 32 block of fp32 accumulators: the forward's
+// first design, which chip_smoke.py times beside the bf16 route).
 //   forward: a block per (64 tokens, split of the vocab tiles) folds its
 //     tiles into a partial (m, l, picked); fused_ce_combine_kernel merges
 //     the S partials of a token in split order. The wrapper picks S so the
@@ -45,13 +49,26 @@
 //     and written once per step of a block's walk: at N 8192, H 2048, V
 //     50304 about 50 GB for the dh kernel and 100 GB for the dW kernel.
 //
+// The bf16 routes share one warpgroup GEMM mainloop (`bw::mainloop`, on
+// hopper_tiles.cuh: 128 x 256 output tiles, two consumer warpgroups of 64
+// rows with fp32 accumulators in registers, one producer warp keeping a
+// four-stage ring of 64-deep A and B tiles in flight by TMA) under four
+// epilogues.
+//
+// The bf16 forward: one launch of the mainloop over h . W^T, grid (token
+// tiles, vocab tiles of 256) with the token tiles fastest, so the blocks
+// that read one W tile run together and W is read from device memory
+// about once (h stays in L2); then fused_ce_combine_kernel. Its epilogue
+// masks columns past the vocab to -inf, folds each row's 256 logits into
+// (max, sum of exp(logit - max), picked) in registers (each thread its 64
+// columns of two rows, then quad shuffles) and writes them to the
+// [3, tiles, N] partials; the combine merges the tiles in order (no float
+// atomics: bit-identical on a second run).
+//
 // The bf16 backward walks the vocab in chunks of Vc rows (the wrapper picks
 // Vc, a multiple of 256, so the chunk's scratch stays within a fixed
-// budget). For each chunk in order, three launches of one warpgroup GEMM
-// (hopper_tiles.cuh: 128 x 256 output tiles, two consumer warpgroups of 64
-// rows with fp32 accumulators in registers, one producer warp keeping a
-// four-stage ring of 64-deep A and B tiles in flight by TMA) with three
-// epilogues:
+// budget). For each chunk in order, three launches of the mainloop with
+// three epilogues:
 //   1. d chunk: D[N, Vc] = epilogue(h . W_c^T), both operands K-major; the
 //      epilogue applies lse, label and g per row and stores d in bf16 (0
 //      for rows past the vocab). The logits' only computation in the
@@ -72,13 +89,13 @@
 // 2048, V 50304, bf16) the forward's product is 2 N V H = 1.69e12 flops
 // (1.71 ms at 989 TFLOP/s) and the backward's three 5.07e12 (5.12 ms);
 // the bytes (W 206 MB, h 34 MB; the d chunks add 2.5 GB written once and
-// read twice, 0.74 ms) are under that. What the bf16 backward still leaves
-// on the table: the d chunk's round trip through device memory, no
-// persistent walk (an output tile's epilogue does not overlap the next
-// tile's loads; the last chunk's grids fill the card unevenly), 4-byte
-// epilogue stores. The forward keeps the first design's list: wmma from
-// shared memory, no pipelining, the logits staged through fp32 shared
-// memory.
+// read twice, 0.74 ms) are under that. What the bf16 routes still leave
+// on the table: no persistent walk (an output tile's epilogue, in the
+// forward 128 exponentials a thread, does not overlap the next tile's
+// loads; the last grids fill the card unevenly); the backward's d chunk
+// round trip through device memory and 4-byte epilogue stores; the
+// forward's partials (19 MB at the training shape) and a second launch
+// for the combine.
 
 #include "hopper_tiles.cuh"
 #include "tile_mma.cuh"
@@ -369,30 +386,27 @@ struct Args {
 
 int cdiv(int a, int b) { return (a + b - 1) / b; }
 
-}  // namespace bw
-
-// A 128 x 256 output tile, K walked 64 at a time through the ring:
-//   kKind 0, the d chunk: D[tokens, chunk] = epilogue(h . W_c^T); A = h,
-//     B = W_c, both K-major; grid (token tiles, chunk tiles).
-//   kKind 1, dh: dh32 (+)= D . W_c; A = D (K-major), B = W_c (MN-major);
-//     grid (hidden tiles, token tiles), so the blocks that share a row
-//     panel of D run together.
-//   kKind 2, dW: dW[chunk rows] = D^T . h; A = D, B = h, both MN-major;
-//     grid (hidden tiles, chunk tiles).
+// The mainloop every warpgroup GEMM of this file shares: a 128 x 256
+// output tile at (m0, n0), K walked 64 at a time through the ring. The
+// producer warp starts the TMA copies and returns false; the two consumer
+// warpgroups run the products into `acc` (warpgroup wg owns output rows
+// [m0 + 64 wg, m0 + 64 wg + 64)) and return true. kKind picks the
+// operands' majors and the copies' coordinates:
+//   kKind 0, logits: h . W^T (rows v0 + n0 on of W); A = h, B = W, both
+//     K-major (the backward's d chunk, and the forward with v0 = 0).
+//   kKind 1, dh: A = D (K-major), B = W_c (MN-major, K rows from v0).
+//   kKind 2, dW: A = D, B = h, both MN-major.
 // Operand tiles past a tensor's edge arrive as zeros (TMA), so only the
-// epilogue masks.
+// epilogues mask.
 template <int kKind>
-__global__ void __launch_bounds__(hop::kThreads, 1) fused_ce_bwd_wgmma_kernel(
-    const __grid_constant__ CUtensorMap ta,
-    const __grid_constant__ CUtensorMap tb, bw::Args a, int k_steps) {
-  using namespace bw;
+__device__ __forceinline__ bool mainloop(const CUtensorMap* ta,
+                                         const CUtensorMap* tb, int v0,
+                                         int m0, int n0, int k_steps,
+                                         unsigned char* sm,
+                                         float (&acc)[kBN / 2]) {
   constexpr int kAMn = kKind == 2, kBMn = kKind != 0;
-  extern __shared__ unsigned char smem_raw[];
-  unsigned char* sm = hop::align1024(smem_raw);
   uint64_t* full = (uint64_t*)(sm + kStages * kStageBytes);
   uint64_t* empty = full + kStages;
-  const int m0 = (kKind == 0 ? blockIdx.x : blockIdx.y) * kBM;
-  const int n0 = (kKind == 0 ? blockIdx.y : blockIdx.x) * kBN;
   const int tid = threadIdx.x;
   if (tid == 0) {
     for (int s = 0; s < kStages; ++s) {
@@ -414,27 +428,24 @@ __global__ void __launch_bounds__(hop::kThreads, 1) fused_ce_bwd_wgmma_kernel(
         unsigned char* sb = sa + kABytes;
         const int k0 = ks * kBK;
         if (kKind == 0) {
-          hop::load_2d(sa, &ta, bar, k0, m0);
-          hop::load_2d(sb, &tb, bar, k0, a.v0 + n0);
+          hop::load_2d(sa, ta, bar, k0, m0);
+          hop::load_2d(sb, tb, bar, k0, v0 + n0);
         } else if (kKind == 1) {
-          hop::load_2d(sa, &ta, bar, k0, m0);
+          hop::load_2d(sa, ta, bar, k0, m0);
           for (int p = 0; p < kBN / 64; ++p)
-            hop::load_2d(sb + p * kMnPanel, &tb, bar, n0 + 64 * p,
-                         a.v0 + k0);
+            hop::load_2d(sb + p * kMnPanel, tb, bar, n0 + 64 * p, v0 + k0);
         } else {
           for (int p = 0; p < kBM / 64; ++p)
-            hop::load_2d(sa + p * kMnPanel, &ta, bar, m0 + 64 * p, k0);
+            hop::load_2d(sa + p * kMnPanel, ta, bar, m0 + 64 * p, k0);
           for (int p = 0; p < kBN / 64; ++p)
-            hop::load_2d(sb + p * kMnPanel, &tb, bar, n0 + 64 * p, k0);
+            hop::load_2d(sb + p * kMnPanel, tb, bar, n0 + 64 * p, k0);
         }
       }
     }
-    return;
+    return false;
   }
 
-  // consumers: warpgroup wg owns output rows [m0 + 64 wg, m0 + 64 wg + 64)
-  const int wg = tid >> 7, t = tid & 127;
-  float acc[kBN / 2];
+  const int wg = tid >> 7;
 #pragma unroll
   for (int i = 0; i < kBN / 2; ++i) acc[i] = 0.f;
   hop::fence_regs(acc);
@@ -463,7 +474,31 @@ __global__ void __launch_bounds__(hop::kThreads, 1) fused_ce_bwd_wgmma_kernel(
   }
   hop::wait<0>();
   hop::fence_regs(acc);
+  return true;
+}
 
+}  // namespace bw
+
+// The backward's three kinds on the shared mainloop:
+//   kKind 0, the d chunk: D[tokens, chunk] = epilogue(h . W_c^T); grid
+//     (token tiles, chunk tiles).
+//   kKind 1, dh: dh32 (+)= D . W_c; grid (hidden tiles, token tiles), so
+//     the blocks that share a row panel of D run together.
+//   kKind 2, dW: dW[chunk rows] = D^T . h; grid (hidden tiles, chunk
+//     tiles).
+template <int kKind>
+__global__ void __launch_bounds__(hop::kThreads, 1) fused_ce_bwd_wgmma_kernel(
+    const __grid_constant__ CUtensorMap ta,
+    const __grid_constant__ CUtensorMap tb, bw::Args a, int k_steps) {
+  using namespace bw;
+  extern __shared__ unsigned char smem_raw[];
+  const int m0 = (kKind == 0 ? blockIdx.x : blockIdx.y) * kBM;
+  const int n0 = (kKind == 0 ? blockIdx.y : blockIdx.x) * kBN;
+  float acc[kBN / 2];
+  if (!mainloop<kKind>(&ta, &tb, a.v0, m0, n0, k_steps,
+                       hop::align1024(smem_raw), acc))
+    return;
+  const int wg = threadIdx.x >> 7, t = threadIdx.x & 127;
   const int r0 = m0 + 64 * wg + hop::acc_row(t, 0);   // and r0 + 8
   if (kKind == 0) {
     // d = (exp(logit - lse) - onehot) * g in bf16; 0 past the vocab
@@ -523,6 +558,72 @@ __global__ void __launch_bounds__(hop::kThreads, 1) fused_ce_bwd_wgmma_kernel(
   }
 }
 
+// The bf16 forward on the shared mainloop (kind 0's operands, v0 = 0): a
+// 128 x 256 logits tile a block, grid (token tiles, vocab tiles) with the
+// token tiles fastest, so the blocks that read one W tile run together and
+// W is read from device memory about once (h, 34 MB at the training
+// shape, stays in L2). The epilogue folds the tile into one partial a row:
+// columns at v >= vocab are -inf (their W rows arrived as zeros, and a zero
+// logit must not enter the sum); each thread takes the max, sum of
+// exp(logit - max) and the label's logit over its 64 columns of each of
+// its two rows, then the row's quad reduces them. The label matches by
+// column, padded columns of the plain version's 128-wide tiles included
+// (they count as -inf there too); a label past those matches nothing. The
+// quad's first lane writes (m, l, picked) to part[0 / 1 / 2][tile][row],
+// and fused_ce_combine_kernel merges the tiles in order.
+__global__ void __launch_bounds__(hop::kThreads, 1) fused_ce_fwd_wgmma_kernel(
+    const __grid_constant__ CUtensorMap th,
+    const __grid_constant__ CUtensorMap tw, const int* __restrict__ labels,
+    float* __restrict__ part, int n, int vocab, int k_steps) {
+  using namespace bw;
+  extern __shared__ unsigned char smem_raw[];
+  const int m0 = blockIdx.x * kBM, n0 = blockIdx.y * kBN;
+  float acc[kBN / 2];
+  if (!mainloop<0>(&th, &tw, 0, m0, n0, k_steps, hop::align1024(smem_raw),
+                   acc))
+    return;
+  const int wg = threadIdx.x >> 7, t = threadIdx.x & 127;
+  const int r0 = m0 + 64 * wg + hop::acc_row(t, 0);   // and r0 + 8
+  const int v_pad = (vocab + 127) / 128 * 128;
+  int lbl[2];
+  float mx[2], sum[2], pick[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int r = r0 + 8 * e;
+    lbl[e] = r < n ? labels[r] : -1;
+    if (lbl[e] >= v_pad) lbl[e] = -1;
+    mx[e] = -INFINITY;
+    sum[e] = pick[e] = 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < kBN / 2; ++i) {
+    const int e = (i >> 1) & 1, v = n0 + hop::acc_col(t, i);
+    if (v >= vocab) acc[i] = -INFINITY;
+    mx[e] = fmaxf(mx[e], acc[i]);
+    if (v == lbl[e]) pick[e] = acc[i];
+  }
+#pragma unroll
+  for (int e = 0; e < 2; ++e) mx[e] = hop::quad_max(mx[e]);   // finite
+#pragma unroll
+  for (int i = 0; i < kBN / 2; ++i) {
+    const int e = (i >> 1) & 1;
+    sum[e] += __expf(acc[i] - mx[e]);
+  }
+  const size_t plane = (size_t)gridDim.y * n;
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    sum[e] = hop::quad_sum(sum[e]);
+    pick[e] = hop::quad_sum(pick[e]);
+    const int r = r0 + 8 * e;
+    if ((t & 3) == 0 && r < n) {
+      const size_t at = (size_t)blockIdx.y * n + r;
+      part[at] = mx[e];
+      part[plane + at] = sum[e];
+      part[2 * plane + at] = pick[e];
+    }
+  }
+}
+
 // Parts of `count` tiles walked `per_split` at a time.
 int splits_of(int count, int per_split) {
   return (count + per_split - 1) / per_split;
@@ -551,6 +652,31 @@ cudaError_t fwd(const void* h, const void* w, const int* labels, float* loss,
   if (err != cudaSuccess) return err;
   fused_ce_combine_kernel<<<(n + 255) / 256, 256, 0, stream>>>(
       part, labels, loss, lse, n, splits, ignore_index);
+  return cudaGetLastError();
+}
+
+// The bf16 forward: two tensor maps (h and W, K-major), the logits tiles,
+// then the combine over ceil(vocab / 256) tiles.
+cudaError_t fwd_bf16(const void* h, const void* w, const int* labels,
+                     float* loss, float* lse, float* part, int n, int vocab,
+                     int hidden, int ignore_index, cudaStream_t stream) {
+  using namespace bw;
+  const long long h_dims[2] = {hidden, n}, w_dims[2] = {hidden, vocab};
+  const long long stride[1] = {hidden};
+  const int box_h[2] = {64, kBM}, box_w[2] = {64, kBN};
+  CUtensorMap th, tw;
+  cudaError_t err;
+  if ((err = hop::make_map(&th, h, 2, h_dims, stride, box_h)) ||
+      (err = hop::make_map(&tw, w, 2, w_dims, stride, box_w)) ||
+      (err = hop::prepare(fused_ce_fwd_wgmma_kernel, kSmem)))
+    return err;
+  const int tiles = cdiv(vocab, kBN);
+  fused_ce_fwd_wgmma_kernel<<<dim3(cdiv(n, kBM), tiles), hop::kThreads,
+                              kSmem, stream>>>(th, tw, labels, part, n,
+                                               vocab, cdiv(hidden, kBK));
+  if ((err = cudaGetLastError())) return err;
+  fused_ce_combine_kernel<<<cdiv(n, 256), 256, 0, stream>>>(
+      part, labels, loss, lse, n, tiles, ignore_index);
   return cudaGetLastError();
 }
 
@@ -654,6 +780,20 @@ extern "C" int fused_ce_fwd(const void* h, const void* w, const void* labels,
   return (int)fwd<float>(h, w, (const int*)labels, (float*)loss, (float*)lse,
                          (float*)part, n, vocab, hidden, ignore_index,
                          tiles_per_split, s);
+}
+
+// bf16 on warpgroup products: `part` holds [3, ceil(vocab / 256), n]
+// fp32, the per-tile (m, l, picked) the combine merges.
+extern "C" int fused_ce_fwd_bf16(const void* h, const void* w,
+                                 const void* labels, void* loss, void* lse,
+                                 void* part, int n, int vocab, int hidden,
+                                 int ignore_index, void* stream) {
+  if (n <= 0 || vocab <= 0 || hidden <= 0 || hidden % 16 ||
+      bw::cdiv(vocab, bw::kBN) > 65535)
+    return (int)cudaErrorInvalidValue;
+  return (int)fwd_bf16(h, w, (const int*)labels, (float*)loss, (float*)lse,
+                       (float*)part, n, vocab, hidden, ignore_index,
+                       (cudaStream_t)stream);
 }
 
 // fp32 only (bf16 takes fused_ce_bwd_bf16).

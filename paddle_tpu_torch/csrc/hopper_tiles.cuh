@@ -1,13 +1,15 @@
 // Hopper tile layer (sm_90a): warpgroup products fed by a ring of tiles
 // that the Tensor Memory Accelerator copies into shared memory. Used by the
-// bf16 routes of the fused CE backward (fused_cross_entropy.cu, TPU kernel
-// #12), the single-block flash forward (flash_attention.cu, #5), the
-// online-softmax forward of the tiled flash and splash kernels
-// (attention_wgmma.cuh, #7 and #9), the flash and splash backwards
-// (attention_wgmma_bwd.cuh, #6, #8 and #10) and the chunk attention over
-// paged pools (paged_wgmma.cuh, #3 and #4, whose rows are copied by
-// threads with cp.async, not by TMA); the fp32 routes stay on
-// tile_mma.cuh or paged_attention.cu's CUDA-core body (wgmma has no
+// bf16 routes of the fused CE forward and backward (fused_cross_entropy.cu,
+// TPU kernels #11 and #12, one mainloop), the single-block flash forward
+// (flash_attention.cu, #5), the online-softmax forward of the tiled flash
+// and splash kernels (attention_wgmma.cuh, #7 and #9), the flash and
+// splash backwards (attention_wgmma_bwd.cuh, #6, #8 and #10) and the chunk
+// attention over paged pools (paged_wgmma.cuh, #3 and #4, whose rows are
+// copied by threads with cp.async, not by TMA). The split-K decode
+// (paged_split.cuh, #1 and #2) takes only its mbarriers and 1-D bulk
+// copies (`load_1d`) and does its math on CUDA cores. The fp32 routes stay
+// on tile_mma.cuh or paged_attention.cu's CUDA-core body (wgmma has no
 // true-fp32 form and TF32 is off by the port's numerics contract).
 //
 // What it offers, and each helper's contract:
@@ -17,6 +19,7 @@
 //     starts on a 1024-byte boundary. TMA writes exactly this image for a
 //     box whose inner extent is 64 elements (`make_map`, `load_2d`,
 //     `load_4d`); `sw128` gives the byte offset of an element in it.
+//     `load_1d` copies contiguous bytes with no map and no swizzle.
 //   * Descriptors (`desc`). A K-major operand (K contiguous, the rows are
 //     M or N) is one panel per 64 columns of K: a k16 step starts 32 bytes
 //     further along the row, SBO = 1024 (the next 8 rows), LBO unused. An
@@ -183,6 +186,19 @@ __device__ __forceinline__ void load_4d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
       "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// A 1-D bulk copy of `bytes` contiguous bytes (a whole pool page of the
+// paged decode, paged_split.cuh): src, dst and bytes multiples of 16. No
+// tensor map and no swizzle; the transaction bytes count toward `bar`'s
+// complete_tx like a tile's.
+__device__ __forceinline__ void load_1d(void* dst, const void* src,
+                                        uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_addr(bar))
       : "memory");
 }
 

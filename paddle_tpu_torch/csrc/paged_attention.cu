@@ -3,19 +3,23 @@
 // paddle_tpu_torch/inference/kv_cache.py.
 //
 // Replaces the TPU kernels of paddle_tpu/ops/pallas/paged_attention.py:
+//   paged_decode_split_kernel<pool, R> (fp32, bf16, int8 or int4 pools),
 //   paged_decode_kernel    <- _decode_kernel (fp pools), launched through
 //                             _paged_attention_pallas
+//   paged_decode_q_kernel  <- _decode_kernel_q (int8 / int4 pools), the
+//                             same call site
 //   paged_chunk_wgmma_kernel (bf16 q over bf16, int8 or int4 pools),
 //   paged_chunk_kernel     <- _chunk_kernel (fp branch), launched through
 //                             _paged_attention_chunk_pallas
-//   paged_decode_q_kernel  <- _decode_kernel_q (int8 / int4 pools)
 //   paged_chunk_q_kernel   <- _chunk_kernel, int8 / int4 branches
-// The chunk's bf16 route, paged_chunk_wgmma_kernel, is paged_wgmma.cuh's
-// warpgroup body (its note gives its design and what it leaves on the
-// table); it takes head dims that are a multiple of 8 up to 128, and the
-// wrapper's gate (ops/kernels/paged_attention.py `chunk_route`) sends
-// every other chunk call, and the fp32 one, to the kernels below. The
-// rest of this note is about those and the decode kernels.
+// The decode's split-K route, paged_decode_split_kernel, is
+// paged_split.cuh's body, and the chunk's bf16 route,
+// paged_chunk_wgmma_kernel, is paged_wgmma.cuh's warpgroup body (their
+// notes give their designs and what they leave on the table); the
+// wrapper's gates (ops/kernels/paged_attention.py `decode_route`,
+// `chunk_route`) send every call they refuse to the pages kernels below,
+// the ports' first design, on `attend_pages`. The rest of this note is
+// about those.
 // The plain PyTorch versions (paged_attention_ref /
 // paged_attention_chunk_ref in ops/kernels/paged_attention.py) define the
 // contract; these kernels follow their arithmetic: fp32 scores, fp32
@@ -66,8 +70,9 @@
 // per head, stays far below the card's rate even at chunk prefill.
 // What this simple design leaves on the table: one block per (slot, head)
 // walks a long context alone (no split-K over the keys, the
-// flash-decoding fix for long contexts at small batch, so at decode only
-// b * kvh blocks run); loads are plain loads with no cp.async/TMA double
+// flash-decoding fix for long contexts at small batch, which the split
+// route brings, so at decode only b * kvh blocks run); loads are plain
+// loads with no cp.async/TMA double
 // buffering, so a tile's loads and math do not overlap; the math runs on
 // CUDA cores in fp32 rather than wgmma; K/V sit in shared memory as fp32,
 // twice the bytes of bf16, which caps blocks per SM.
@@ -77,6 +82,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "paged_split.cuh"
 #include "paged_wgmma.cuh"
 
 namespace {
@@ -657,6 +663,38 @@ cudaError_t dispatch_wgmma(const paged_wg::ChunkArgs& a, int b,
                    : launch_wgmma<128, kMode>(a, b, stream);
 }
 
+// The split-K decode (paged_split.cuh) over fp32, bf16, int8 or int4
+// pools: kPool a paged_split pool kind, R the query rows a block takes.
+template <int kPool, int R>
+__global__ void __launch_bounds__(paged_split::kThreads)
+    paged_decode_split_kernel(const paged_split::Args a) {
+  paged_split::decode_body<kPool, R>(a);
+}
+
+template <int kPool, int R>
+cudaError_t launch_split(const paged_split::Args& a, int b,
+                         cudaStream_t stream) {
+  const size_t smem = paged_split::smem_bytes(kPool, a.d, a.ps,
+                                              a.nh / a.kvh, a.stages);
+  const auto kernel = paged_decode_split_kernel<kPool, R>;
+  const cudaError_t err = prepare(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(a.splits, a.kvh * a.chunks, b), paged_split::kThreads, smem,
+           stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <int kPool>
+cudaError_t dispatch_split(const paged_split::Args& a, int b,
+                           cudaStream_t stream) {
+  switch (paged_split::rows_of(a.nh / a.kvh)) {
+    case 1: return launch_split<kPool, 1>(a, b, stream);
+    case 2: return launch_split<kPool, 2>(a, b, stream);
+    case 4: return launch_split<kPool, 4>(a, b, stream);
+    default: return launch_split<kPool, 8>(a, b, stream);
+  }
+}
+
 }  // namespace
 
 // Plain C interface for ctypes. Each returns the cudaError_t of its
@@ -762,4 +800,60 @@ extern "C" int paged_chunk_wgmma_smem(int d, int mode) {
   return (int)(mode == 0   ? ChunkSmem<128, 0>::kBytes
                : mode == 1 ? ChunkSmem<128, 1>::kBytes
                            : ChunkSmem<128, 2>::kBytes);
+}
+
+// The split-K decode (paged_split.cuh): q fp32 or bf16 [b, nh, d] with d a
+// multiple of 8 up to 256, over pools of kind `pool` (0 fp32, 1 bf16, 2
+// int8, 3 int4; the quantized ones with their scales), page bytes whole
+// 16-byte words (quantized: ps a multiple of 4) and every pool and scale
+// tensor 16-byte aligned. `part`: the [b * kvh * chunks, splits, R, d + 2]
+// fp32 scratch (R = paged_split::rows_of(nh / kvh), chunks =
+// ceil((nh / kvh) / R), splits = ceil(pp / pages_per_split)); `count`:
+// b * kvh * chunks 32-bit counters, 0 before the call and after it.
+// Anything else returns cudaErrorInvalidValue, and the wrapper's gate
+// keeps it on paged_decode / paged_decode_q.
+extern "C" int paged_decode_split(const void* q, const void* k_pages,
+                                  const void* v_pages, const void* k_scales,
+                                  const void* v_scales, void* out,
+                                  const void* page_tables,
+                                  const void* seq_lens, void* part,
+                                  void* count, int b, int nh, int kvh, int d,
+                                  int num_pages, int ps, int pp, float scale,
+                                  int q_bf16, int pool, int pages_per_split,
+                                  int stages, void* stream) {
+  using namespace paged_split;
+  if (!geometry_ok(b, 1, nh, kvh, d, num_pages, ps, pp) || d % 8 ||
+      d > kMaxHeadDim || pool < kF32 || pool > kInt4 ||
+      pages_per_split < 1 || stages < 1 || stages > kMaxStages)
+    return (int)cudaErrorInvalidValue;
+  const bool quant = pool >= kInt8;
+  const uintptr_t align = (uintptr_t)k_pages | (uintptr_t)v_pages |
+                          (uintptr_t)k_scales | (uintptr_t)v_scales;
+  const int grp = nh / kvh, rows = rows_of(grp);
+  const int chunks = (grp + rows - 1) / rows;
+  if ((ps * row_bytes(pool, d)) % 16 || align % 16 ||
+      (quant && (ps % 4 || !k_scales || !v_scales)) ||
+      kvh * chunks > 65535 || b > 65535 ||
+      smem_bytes(pool, d, ps, grp, stages) > (int)kMaxSmemBytes)
+    return (int)cudaErrorInvalidValue;
+  const Args a{q, out, (const unsigned char*)k_pages,
+               (const unsigned char*)v_pages, (const float*)k_scales,
+               (const float*)v_scales, (const int*)page_tables,
+               (const int*)seq_lens, (float*)part, (unsigned*)count, nh, kvh,
+               d, num_pages, ps, pp, pages_per_split,
+               (pp + pages_per_split - 1) / pages_per_split, stages, chunks,
+               scale, q_bf16};
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (pool) {
+    case kF32: return (int)dispatch_split<kF32>(a, b, s);
+    case kBf16: return (int)dispatch_split<kBf16>(a, b, s);
+    case kInt8: return (int)dispatch_split<kInt8>(a, b, s);
+    default: return (int)dispatch_split<kInt4>(a, b, s);
+  }
+}
+
+// The dynamic shared memory a paged_decode_split block launches with.
+extern "C" int paged_decode_split_smem(int pool, int d, int ps, int grp,
+                                       int stages) {
+  return paged_split::smem_bytes(pool, d, ps, grp, stages);
 }

@@ -10,7 +10,9 @@ tied-embedding layout), ``labels [N]`` int; losses ``[N]`` fp32, 0 where
 
 * `fused_cross_entropy`: the differentiable entry (a
   ``torch.autograd.Function``, gradients in ``hidden`` and ``weight``).
-* `fused_ce_fwd`: ``(losses, lse)``; kernel #11, ``fused_ce_fwd_kernel``.
+* `fused_ce_fwd`: ``(losses, lse)``; kernel #11: in bf16 a warpgroup
+  GEMM with an online-logsumexp epilogue (``fused_ce_fwd_wgmma_kernel``,
+  the backward's mainloop), in fp32 ``fused_ce_fwd_kernel``.
 * `fused_ce_bwd`: ``(dh, dw)`` from the lse and the effective cotangent
   ``g_eff`` (0 on ignored rows); kernel #12: in bf16 three warpgroup
   GEMMs a vocab chunk (`plan_chunks` sizes the chunks), in fp32 the dh
@@ -25,8 +27,9 @@ vocab, and ``H`` a multiple of 16. The wrappers allocate the kernels'
 scratch: the forward's per-split row statistics; the bf16 backward's d
 chunk ``[N, width]`` bf16 and, with more than one chunk, the fp32 sums of
 dh ``[N, H]``, within `SCRATCH_BYTES`; the fp32 backward's fp32 sums of
-dh (one ``[N, H]`` plane per vocab split) and of dW. Each forward and
-backward wrapper counts its launches in ``<wrapper>.launches``.
+dh (one ``[N, H]`` plane per vocab split) and of dW. Each wrapper counts
+its launches in ``<wrapper>.launches``, but the bf16 forward counts in
+``fused_ce_fwd.launches_wgmma``.
 """
 from __future__ import annotations
 
@@ -44,6 +47,9 @@ _SIGNATURES = {
     # h, w, labels, loss, lse, part, n, vocab, hidden, ignore_index,
     # tiles_per_split, bf16, stream
     "fused_ce_fwd": (_P,) * 6 + (_I,) * 6 + (_P,),
+    # bf16 on warpgroup products: h, w, labels, loss, lse, part, n, vocab,
+    # hidden, ignore_index, stream
+    "fused_ce_fwd_bf16": (_P,) * 6 + (_I,) * 4 + (_P,),
     # fp32: h, w, labels, lse, g_eff, dh, dw, dh32, dw32, n, vocab, hidden,
     # tiles_per_split, stream
     "fused_ce_bwd": (_P,) * 9 + (_I,) * 4 + (_P,),
@@ -56,7 +62,7 @@ _SIGNATURES = {
 _DTYPES = (torch.float32, torch.bfloat16)
 BLOCK_V = 128       # the plain versions' vocab tile (_fwd_xla's _LANES)
 ROWS, TILE_V = 64, 128   # the kernels' token and vocab tiles
-CHUNK_TILE = 256         # the bf16 backward's vocab tile: chunks are multiples
+CHUNK_TILE = 256   # the bf16 kernels' vocab tile; chunks are multiples
 SCRATCH_BYTES = 256 << 20   # the bf16 backward's scratch budget
 
 
@@ -205,9 +211,27 @@ def plan_chunks(n, vocab, hidden):
                    for v0 in range(0, vocab, width)]
 
 
+def _fwd_tiles(hidden, weight, lbl, ignore_index, loss, lse):
+    """``fused_ce_fwd_kernel`` + combine (the fp32 route; in bf16 the
+    first design, which `chip_smoke.py` times beside the warpgroup
+    route)."""
+    n, hsz = hidden.shape
+    vocab, dev = weight.shape[0], hidden.device
+    splits, per = _split(n, vocab, dev)
+    part = torch.empty(3, splits, n, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        _run("fused_ce_fwd", hidden.data_ptr(), weight.data_ptr(),
+             lbl.data_ptr(), loss.data_ptr(), lse.data_ptr(),
+             part.data_ptr(), n, vocab, hsz, int(ignore_index), per,
+             int(hidden.dtype == torch.bfloat16),
+             torch.cuda.current_stream(dev).cuda_stream)
+
+
 def fused_ce_fwd(hidden, weight, labels, ignore_index=-100):
-    """``(losses, lse)``, fp32 ``[N]`` each; CUDA tensors launch
-    ``fused_ce_fwd_kernel``."""
+    """``(losses, lse)``, fp32 ``[N]`` each. CUDA tensors launch, in bf16,
+    ``fused_ce_fwd_wgmma_kernel`` (one warpgroup GEMM tile of 128 tokens
+    x 256 vocab rows a block, counted in ``.launches_wgmma``) and in fp32
+    ``fused_ce_fwd_kernel`` (``.launches``), each with the combine."""
     _check(hidden, weight, labels)
     if hidden.device.type == "cpu":
         return fused_ce_fwd_ref(hidden, weight, labels, ignore_index)
@@ -218,15 +242,19 @@ def fused_ce_fwd(hidden, weight, labels, ignore_index=-100):
     if n == 0:
         return loss, lse
     lbl = labels.to(torch.int32).contiguous()
-    splits, per = _split(n, vocab, dev)
-    part = torch.empty(3, splits, n, dtype=torch.float32, device=dev)
+    if hidden.dtype != torch.bfloat16:
+        _fwd_tiles(hidden, weight, lbl, ignore_index, loss, lse)
+        fused_ce_fwd.launches += 1
+        return loss, lse
+    # the per-tile (m, l, picked) of every 256-row vocab tile
+    part = torch.empty(3, -(-vocab // CHUNK_TILE), n, dtype=torch.float32,
+                       device=dev)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        _run("fused_ce_fwd", hidden.data_ptr(), weight.data_ptr(),
+        _run("fused_ce_fwd_bf16", hidden.data_ptr(), weight.data_ptr(),
              lbl.data_ptr(), loss.data_ptr(), lse.data_ptr(),
-             part.data_ptr(), n, vocab, hsz, int(ignore_index), per,
-             int(hidden.dtype == torch.bfloat16), stream)
-    fused_ce_fwd.launches += 1
+             part.data_ptr(), n, vocab, hsz, int(ignore_index),
+             torch.cuda.current_stream(dev).cuda_stream)
+    fused_ce_fwd.launches_wgmma += 1
     return loss, lse
 
 
@@ -298,5 +326,5 @@ def fused_cross_entropy(hidden, weight, labels, ignore_index=-100):
     return _FusedCE.apply(hidden, weight, labels, int(ignore_index))
 
 
-fused_ce_fwd.launches = 0
+fused_ce_fwd.launches = fused_ce_fwd.launches_wgmma = 0
 fused_ce_bwd.launches = 0

@@ -26,18 +26,30 @@ versions (`paged_attention_ref`, `paged_attention_chunk_ref`,
 transcriptions of ``paged_attention_xla`` / ``paged_attention_chunk_xla``
 and their ``_densify``, which dequantizes); CUDA tensors launch a
 kernel of ``csrc/paged_attention.cu`` or raise. Decode takes
-``paged_decode_kernel`` over fp pools and ``paged_decode_q_kernel`` over
-int8 or int4 pools. The chunk takes ``paged_chunk_wgmma_kernel``
-(warpgroup products, ``csrc/paged_wgmma.cuh``) where `chunk_route`
-says so: a bf16 ``q`` over bf16, int8 or int4 pools, ``head_dim`` a
-multiple of 8 up to 128, ``q`` 16-byte and the pools 4-byte aligned.
-Every other chunk call (fp32 ``q`` or pools, ``head_dim`` past 128 or
-not a multiple of 8, a misaligned ``q`` or pool) takes
-``paged_chunk_kernel`` over fp pools or ``paged_chunk_q_kernel`` over
-int8 or int4 pools. Each wrapper counts
+``paged_decode_split_kernel`` (split-K over the keys with bulk page
+copies, ``csrc/paged_split.cuh``) where `decode_route` says so: an fp32
+or bf16 ``q`` over fp32, bf16, int8 or int4 pools, ``head_dim`` a
+multiple of 8 up to 256, a page's bytes whole 16-byte words (quantized
+pools: ``page_size`` a multiple of 4), the pools and scales 16-byte
+aligned, and a ring of two pages that fits a block's shared memory.
+`split_plan` sizes its grid from the page table's width alone; the
+last split of a slot's head merges the splits in the same launch,
+through int counters that the wrapper keeps per (device, stream) and
+that a CUDA-graph capture gets afresh. Every
+other decode call takes ``paged_decode_kernel`` over fp pools and
+``paged_decode_q_kernel`` over int8 or int4 pools. The chunk takes
+``paged_chunk_wgmma_kernel`` (warpgroup products,
+``csrc/paged_wgmma.cuh``) where `chunk_route` says so: a bf16 ``q`` over
+bf16, int8 or int4 pools, ``head_dim`` a multiple of 8 up to 128, ``q``
+16-byte and the pools 4-byte aligned. Every other chunk call (fp32
+``q`` or pools, ``head_dim`` past 128 or not a multiple of 8, a
+misaligned ``q`` or pool) takes ``paged_chunk_kernel`` over fp pools or
+``paged_chunk_q_kernel`` over int8 or int4 pools. Each wrapper counts
 its launches by route: ``<wrapper>.launches`` the fp kernel's,
 ``<wrapper>.launches_int8`` / ``.launches_int4`` the quantized ones',
-and the chunk's warpgroup route ``.launches_wgmma`` (bf16 pools),
+the decode's split route ``.launches_split`` (fp pools),
+``.launches_split_int8`` / ``.launches_split_int4``, and the chunk's
+warpgroup route ``.launches_wgmma`` (bf16 pools),
 ``.launches_wgmma_int8`` / ``.launches_wgmma_int4``.
 """
 from __future__ import annotations
@@ -51,7 +63,7 @@ from . import _build
 
 __all__ = ["paged_attention", "paged_attention_chunk",
            "paged_attention_ref", "paged_attention_chunk_ref",
-           "chunk_route"]
+           "chunk_route", "decode_route", "split_plan"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -72,8 +84,21 @@ _SIGNATURES = {
                           _I, _I, _I, _I, _F, _I, _P),
     # d, mode: the warpgroup route's dynamic shared memory
     "paged_chunk_wgmma_smem": (_I, _I),
+    # q, k, v, k_scales, v_scales, out, page_tables, seq_lens, part,
+    # count | b, nh, kvh, d, num_pages, ps, pp, scale, q_bf16, pool kind,
+    # pages_per_split, stages
+    "paged_decode_split": (_P,) * 10 + (_I,) * 7 + (_F,) + (_I,) * 4
+                          + (_P,),
+    # pool kind, d, ps, nh / kvh, stages: the split route's shared memory
+    "paged_decode_split_smem": (_I,) * 5,
 }
 _WGMMA_MODES = {None: 0, "int8": 1, "int4": 2}
+# The split-K decode (csrc/paged_split.cuh): its pool kinds, the keys a
+# split covers (about), the most ring stages, a block's shared memory
+_SPLIT_KINDS = {torch.float32: 0, torch.bfloat16: 1, "int8": 2, "int4": 3}
+_SPLIT_KEYS = 128
+_SPLIT_STAGES = 4
+_SMEM_BYTES = 232448
 _DTYPES = (torch.float32, torch.bfloat16)
 _QUANT_DTYPES = (torch.int8, torch.uint8)
 _MAX_HEAD_DIM = 256     # the kernels' shared memory holds [64, d] K/V tiles
@@ -269,8 +294,132 @@ def chunk_route(q, k_pages, v_pages, quant):
     return "pages"
 
 
+def split_plan(pp, page_size):
+    """``(pages_per_split, splits)``: the split-K decode's walk over a
+    page table ``pp`` pages wide. From the table's width alone, never from
+    ``seq_lens``: the grid needs no host sync."""
+    per = max(1, _SPLIT_KEYS // page_size)
+    return per, -(-pp // per)
+
+
+def _split_rows(grp):
+    """Query rows a split block takes (paged_split::rows_of)."""
+    return 1 if grp <= 1 else 2 if grp <= 2 else 4 if grp <= 4 else 8
+
+
+def _split_smem(kind, d, page_size, grp, stages):
+    """A split block's dynamic shared memory (paged_split::smem_bytes):
+    the ring of pages, the key groups' merge area, the barriers."""
+    row = (4 * d, 2 * d, d, d // 2)[kind]
+    stage = 2 * page_size * row + (8 * page_size if kind >= 2 else 0)
+    lanes = 1 << max(0, (d // 8 - 1).bit_length())
+    red = 128 // lanes * _split_rows(grp) * (d + 2) * 4
+    return (stages * stage + red + 7) // 8 * 8 + 8 * stages + 16
+
+
+def _split_stages(kind, d, page_size, grp, per):
+    """Ring stages for the split route: up to 4 (and no more than a
+    split's pages) within a block's shared memory; 0 when not even two
+    (or the one page of a one-page split) fit."""
+    want = min(_SPLIT_STAGES, per)
+    for stages in range(want, min(2, want) - 1, -1):
+        if _split_smem(kind, d, page_size, grp, stages) <= _SMEM_BYTES:
+            return stages
+    return 0
+
+
+def _split_kind(k_pages, quant):
+    return _SPLIT_KINDS[quant or k_pages.dtype]
+
+
+def decode_route(q, k_pages, v_pages, quant, k_scales=None,
+                 v_scales=None):
+    """``"split"`` where `paged_attention` launches its split-K kernel
+    (``paged_decode_split_kernel``), else ``"pages"`` (the
+    ``paged_decode`` / ``paged_decode_q`` kernels): the gate named in the
+    module docstring, read from dtypes, shapes and the pools' (and
+    scales') addresses."""
+    b, nh, d = q.shape
+    kvh, _, page_size, pd = k_pages.shape
+    kind = _split_kind(k_pages, quant)
+    row = pd * k_pages.element_size()
+    tensors = [k_pages, v_pages]
+    if quant is not None:
+        tensors += [k_scales, v_scales]
+    grp = nh // kvh
+    chunks = -(-grp // _split_rows(grp))
+    per, _ = split_plan(1, page_size)        # from the page size alone
+    if (d % 8 == 0 and d <= _MAX_HEAD_DIM and page_size * row % 16 == 0
+            and (quant is None or page_size % 4 == 0)
+            and all(t is not None and t.data_ptr() % 16 == 0
+                    for t in tensors)
+            and b <= 65535 and kvh * chunks <= 65535
+            and _split_stages(kind, d, page_size, grp, per) > 0):
+        return "split"
+    return "pages"
+
+
+# the split route's counters, one buffer per (device, stream): 0 between
+# calls (the last split of each (slot, kv head, row chunk) resets its
+# own), so the calls that share one run in stream order. A buffer only
+# grows, on its own stream, and is never captured in a CUDA graph
+_split_counters = {}
+_MIN_COUNTERS = 1 << 16
+
+
+def _counters(device, stream, n):
+    """``n`` zeroed int32 counters for a split launch on ``stream``.
+    Under CUDA-graph capture a fresh buffer: its zero fill is captured
+    with the launch, so each replay starts from 0, and no eager call
+    reads a buffer whose fill was only recorded."""
+    if torch.cuda.is_current_stream_capturing():
+        return torch.zeros(n, dtype=torch.int32, device=device)
+    buf = _split_counters.get((device, stream))
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, _MIN_COUNTERS,
+                              2 * (0 if buf is None else buf.numel())),
+                          dtype=torch.int32, device=device)
+        _split_counters[(device, stream)] = buf
+    return buf
+
+
+def _launch_split(q, k_pages, v_pages, page_tables, seq_lens, scale,
+                  k_scales, v_scales, quant):
+    """``paged_decode_split`` on q's stream; returns (out, launched)."""
+    kvh, num_pages, page_size, _ = k_pages.shape
+    out = torch.empty_like(q)
+    b, nh, d = q.shape
+    if b == 0:
+        return out, False
+    lib = _build.load("paged_attention", _SIGNATURES)
+    pp = page_tables.shape[1]
+    per, splits = split_plan(pp, page_size)
+    kind = _split_kind(k_pages, quant)
+    grp = nh // kvh
+    rows = _split_rows(grp)
+    units = b * kvh * -(-grp // rows)
+    stages = _split_stages(kind, d, page_size, grp, per)
+    part = torch.empty(units * splits * rows * (d + 2), dtype=torch.float32,
+                       device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        count = _counters(q.device, stream, units)
+        rc = lib.paged_decode_split(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            None if k_scales is None else k_scales.data_ptr(),
+            None if v_scales is None else v_scales.data_ptr(),
+            out.data_ptr(), page_tables.data_ptr(), seq_lens.data_ptr(),
+            part.data_ptr(), count.data_ptr(), b, nh, kvh, d, num_pages,
+            page_size, pp, float(scale), int(q.dtype == torch.bfloat16),
+            kind, per, stages, stream)
+    if rc:
+        raise RuntimeError(f"paged_decode_split launch failed: CUDA error "
+                           f"{rc}")
+    return out, True
+
+
 def _count(wrapper, quant, launched, route="pages"):
-    attr = "launches" if route == "pages" else "launches_wgmma"
+    attr = "launches" if route == "pages" else f"launches_{route}"
     if quant is not None:
         attr += f"_{quant}"
     setattr(wrapper, attr, getattr(wrapper, attr) + launched)
@@ -315,10 +464,16 @@ def paged_attention(q, k_pages, v_pages, page_tables, seq_lens,
                                    k_scales=k_scales, v_scales=v_scales)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention: no kernel for {q.device}")
-    out, launched = _launch("paged_decode", q, k_pages, v_pages,
-                            page_tables, seq_lens, (q.shape[0],), scale,
-                            k_scales, v_scales, quant)
-    _count(paged_attention, quant, launched)
+    route = decode_route(q, k_pages, v_pages, quant, k_scales, v_scales)
+    if route == "split":
+        out, launched = _launch_split(q, k_pages, v_pages, page_tables,
+                                      seq_lens, scale, k_scales, v_scales,
+                                      quant)
+    else:
+        out, launched = _launch("paged_decode", q, k_pages, v_pages,
+                                page_tables, seq_lens, (q.shape[0],),
+                                scale, k_scales, v_scales, quant)
+    _count(paged_attention, quant, launched, route)
     return out
 
 
@@ -355,6 +510,9 @@ def paged_attention_chunk(q, k_pages, v_pages, page_tables, start,
 
 for _w in (paged_attention, paged_attention_chunk):
     _w.launches = _w.launches_int8 = _w.launches_int4 = 0
+paged_attention.launches_split = 0
+paged_attention.launches_split_int8 = 0
+paged_attention.launches_split_int4 = 0
 paged_attention_chunk.launches_wgmma = 0
 paged_attention_chunk.launches_wgmma_int8 = 0
 paged_attention_chunk.launches_wgmma_int4 = 0

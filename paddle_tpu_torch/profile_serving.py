@@ -28,9 +28,9 @@ import torch
 from .models import GPTForCausalLM, gpt_config
 from .serving import ServingEngine, ServingMetrics
 
-_ATTENTION = ("paged_decode_kernel", "paged_chunk_kernel",
-              "paged_chunk_wgmma_kernel", "paged_decode_q_kernel",
-              "paged_chunk_q_kernel")
+_ATTENTION = ("paged_decode_split_kernel", "paged_decode_kernel",
+              "paged_chunk_kernel", "paged_chunk_wgmma_kernel",
+              "paged_decode_q_kernel", "paged_chunk_q_kernel")
 _GEMM = ("gemm", "cutlass", "cublas", "sm90_xmma", "nvjet")
 
 

@@ -42,7 +42,8 @@ _KERNELS = ("splash_fwd_wgmma_kernel", "splash_fwd_kernel",
             "flash_fwd_wgmma_kernel", "flash_fwd_kernel",
             "flash_delta_kernel", "flash_dq_wgmma_kernel",
             "flash_dkdv_wgmma_kernel", "flash_dkdv_kernel", "flash_dq_kernel",
-            "fused_ce_fwd_kernel", "fused_ce_combine_kernel",
+            "fused_ce_fwd_wgmma_kernel", "fused_ce_fwd_kernel",
+            "fused_ce_combine_kernel",
             "fused_ce_bwd_wgmma_kernel<0>", "fused_ce_bwd_wgmma_kernel<1>",
             "fused_ce_bwd_wgmma_kernel<2>", "fused_ce_dh_kernel",
             "fused_ce_dw_kernel", "fused_ce_cast_kernel")

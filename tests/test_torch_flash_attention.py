@@ -278,7 +278,7 @@ _ATTENTION_SOURCES = ("flash_attention.cu", "splash_attention.cu",
                       "attention_tiles.cuh", "attention_wgmma.cuh",
                       "attention_wgmma_bwd.cuh", "hopper_tiles.cuh",
                       "tile_mma.cuh", "paged_attention.cu",
-                      "paged_wgmma.cuh")
+                      "paged_wgmma.cuh", "paged_split.cuh")
 
 
 @pytest.mark.parametrize("name", _ATTENTION_SOURCES)

@@ -10,6 +10,11 @@ both. Tolerance: atol 1e-5 in fp32 for losses, lse, dh and dW (the same
 tiles in the same order, fp32 sums; only the summation order inside a
 product differs).
 
+The bf16 forward's walk (256-row vocab tiles, one (m, l, picked) a row
+and tile, merged in tile order) is written out in fp32 and held against
+the reference's ``_fwd_xla``, labels in the last column, in a padded
+column and at ``ignore_index`` included.
+
 The bf16 kernel's walk over vocab chunks is planned in Python
 (`plan_chunks`): the chunks cover the vocab in order with a ragged last
 one, and the scratch stays within its budget; the walk itself, written
@@ -290,3 +295,64 @@ def test_chunked_walk_matches_jax_gradients(monkeypatch, n, vocab, budget):
                                atol=ATOL)
     np.testing.assert_allclose(dw.numpy(), np.asarray(jdw), rtol=0,
                                atol=ATOL)
+
+
+def _tile_walk(h, w, lbl, ii, tile=fce.CHUNK_TILE):
+    """The bf16 forward kernel's algorithm in fp32: per 256-row vocab
+    tile, each row's max, sum of exp(logit - max) and picked logit
+    (columns past the vocab -inf; a label in the plain version's padded
+    128-wide tile matches there as -inf, one past it matches nothing),
+    then the combine over the tiles in order."""
+    vocab = w.shape[0]
+    v_pad = -(-vocab // fce.BLOCK_V) * fce.BLOCK_V
+    lbl = torch.where(lbl >= v_pad, -1, lbl)[:, None]
+    parts = []
+    for v0 in range(0, vocab, tile):
+        cols = v0 + torch.arange(tile)[None]
+        wt = torch.zeros(tile, w.shape[1])
+        wt[:min(tile, vocab - v0)] = w[v0:v0 + tile]
+        x = (h @ wt.T).masked_fill(cols >= vocab, float("-inf"))
+        m = x.max(1).values
+        parts.append((m, torch.exp(x - m[:, None]).sum(1),
+                      torch.where(cols == lbl, x, torch.zeros(())).sum(1)))
+    m = torch.stack([p[0] for p in parts]).max(0).values
+    l = sum(torch.exp(pm - m) * pl for pm, pl, _ in parts)
+    pk = sum(p[2] for p in parts)
+    lse = m + torch.log(l)
+    return torch.where(lbl[:, 0] != ii, lse - pk, torch.zeros(())), lse
+
+
+@pytest.mark.parametrize("n,vocab", [(1, 300), (37, 1000), (64, 512),
+                                     (20, 130)])
+def test_forward_tile_walk_matches_jax(n, vocab):
+    """The bf16 forward's tile walk against the reference's ``_fwd_xla``
+    on the same inputs: N of 1 and off the 128-row tile, vocabs off the
+    256-row tile, labels at ``ignore_index`` and in the vocab's last
+    column; a label in a padded column gives the reference's inf loss."""
+    h, w, lbl = _inputs(n, vocab, seed=7)
+    lbl[-1] = vocab - 1
+    if n > 2:
+        lbl[1] = vocab + 3          # a padded column of the last tile
+    jl, jlse = jfce._fwd_xla(jnp.asarray(h), jnp.asarray(w),
+                             jnp.asarray(lbl, jnp.int32), 128, -100)
+    tl, tlse = _tile_walk(torch.from_numpy(h), torch.from_numpy(w),
+                          torch.from_numpy(lbl), -100)
+    np.testing.assert_allclose(tlse.numpy(), np.asarray(jlse), rtol=0,
+                               atol=ATOL)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=0,
+                               atol=ATOL)
+
+
+def test_cpu_forward_takes_the_plain_version_without_counting():
+    """CPU tensors, fp32 and bf16, take `fused_ce_fwd_ref` and count on
+    neither forward route."""
+    h, w, lbl = _inputs(24, 300, seed=8)
+    before = (fce.fused_ce_fwd.launches, fce.fused_ce_fwd.launches_wgmma)
+    for dtype in (torch.float32, torch.bfloat16):
+        args = (torch.from_numpy(h).to(dtype), torch.from_numpy(w).to(dtype),
+                torch.from_numpy(lbl))
+        for got, want in zip(fce.fused_ce_fwd(*args),
+                             fce.fused_ce_fwd_ref(*args)):
+            assert torch.equal(got, want)
+    assert (fce.fused_ce_fwd.launches,
+            fce.fused_ce_fwd.launches_wgmma) == before

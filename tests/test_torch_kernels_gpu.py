@@ -53,15 +53,18 @@ def _inputs(dev, b, nh, kvh, d, ps, pp, c=None, seed=0):
 
 _PAGED_COUNTERS = ("launches", "launches_int8", "launches_int4",
                    "launches_wgmma", "launches_wgmma_int8",
-                   "launches_wgmma_int4")
+                   "launches_wgmma_int4", "launches_split",
+                   "launches_split_int8", "launches_split_int4")
 
 
-def _route_counter(kernel, q, k, v, quant):
-    """The counter a paged call counts on: the chunk's route
-    (`pa.chunk_route`; decode has one), then the pools' mode."""
-    route = pa.chunk_route(q, k, v, quant) \
-        if kernel is pa.paged_attention_chunk else "pages"
-    name = "launches" if route == "pages" else "launches_wgmma"
+def _route_counter(kernel, q, k, v, quant, scales=None):
+    """The counter a paged call counts on: its route (`pa.chunk_route`,
+    `pa.decode_route`), then the pools' mode."""
+    if kernel is pa.paged_attention_chunk:
+        route = pa.chunk_route(q, k, v, quant)
+    else:
+        route = pa.decode_route(q, k, v, quant, *(scales or ()))
+    name = "launches" if route == "pages" else f"launches_{route}"
     return name if quant is None else f"{name}_{quant}"
 
 
@@ -174,13 +177,18 @@ def test_chunk_pages_route_takes_what_the_gate_refuses(cuda, d):
 
 @pytest.mark.gpu
 def test_decode_is_the_chunk_of_one(cuda):
+    """The pages route's decode is its chunk of one, bit for bit (one
+    body); the split route agrees with both within fp32's bar."""
     q, k, v, pt = _inputs(cuda, 4, 8, 2, 64, 16, 4)
     lens = torch.tensor([3, 16, 17, 64], dtype=torch.int32, device=cuda)
-    dec = pa.paged_attention(q, k, v, pt, lens)
+    dec = pa._launch("paged_decode", q, k, v, pt, lens, (4,), 1 / 8.0,
+                     None, None, None)[0]
     chunk = pa.paged_attention_chunk(q[:, None].contiguous(), k, v, pt,
                                      lens - 1)
+    split = pa.paged_attention(q, k, v, pt, lens)
     torch.cuda.synchronize()
     assert torch.equal(dec, chunk[:, 0])
+    assert float((split - dec).abs().max()) <= TOL[torch.float32]
 
 
 @pytest.mark.gpu
@@ -205,7 +213,7 @@ def _check_quant(kernel, plain, q, k, v, pt, pos, quant, q_dtype):
     kq, ks = quantize_rows(k, quant)
     vq, vs = quantize_rows(v, quant)
     args = (q.to(q_dtype), kq, vq, pt, pos)
-    counter = _route_counter(kernel, *args[:3], quant)
+    counter = _route_counter(kernel, *args[:3], quant, (ks, vs))
     before = _counts(kernel)
     got = kernel(*args, k_scales=ks, v_scales=vs)
     torch.cuda.synchronize()
@@ -293,10 +301,12 @@ def test_quantized_cuda_tensors_never_take_the_plain_version(cuda,
 
     monkeypatch.setattr(pa, "paged_attention_ref", refuse)
     monkeypatch.setattr(pa, "paged_attention_chunk_ref", refuse)
-    n = pa.paged_attention.launches_int8
+    counter = _route_counter(pa.paged_attention, q, kq, vq, "int8",
+                             (ks, vs))
+    n = getattr(pa.paged_attention, counter)
     pa.paged_attention(q, kq, vq, pt, lens, k_scales=ks, v_scales=vs)
     torch.cuda.synchronize()
-    assert pa.paged_attention.launches_int8 == n + 1
+    assert getattr(pa.paged_attention, counter) == n + 1
     with pytest.raises(TypeError, match="float32"):
         pa.paged_attention(q, kq, vq, pt, lens, k_scales=ks.double(),
                            v_scales=vs.double())
@@ -339,6 +349,174 @@ def test_quantized_serving_and_generate_on_the_card_match_the_cpu(cuda,
                                         kv_quant=quant))
     assert served[0] == served[1]
     assert torch.equal(generated[0], generated[1])
+
+
+def _decode_pools(k, v, pool):
+    """K/V as ``pool`` pools ("int8"/"int4" quantized, else that dtype)
+    and their scale keywords."""
+    if pool in ("int8", "int4"):
+        (kq, ks), (vq, vs) = quantize_rows(k, pool), quantize_rows(v, pool)
+        return kq, vq, {"k_scales": ks, "v_scales": vs}
+    return k.to(pool), v.to(pool), {}
+
+
+# the split route's lengths over a table of 20 pages of 16 keys (splits of
+# 8 pages): empty, within and at the edges of a page, of a split, the
+# table's full width and past it
+SPLIT_LENS = (0, 1, 15, 16, 17, 127, 128, 129, 255, 256, 257, 320, 333)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pool", [torch.float32, torch.bfloat16, "int8",
+                                  "int4"])
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nh,kvh,d", [(4, 4, 64), (8, 2, 16), (16, 2, 128),
+                                      (8, 1, 256), (6, 3, 64),
+                                      (32, 2, 32)])
+def test_decode_split_route(cuda, pool, q_dtype, nh, kvh, d):
+    """The split-K decode against the plain version over fp32, bf16, int8
+    and int4 pools: GQA groups 1, 2, 4, 8 and 16 (two row chunks), head
+    dims 16 to 256, shuffled page tables, `SPLIT_LENS`; counted on its
+    own counter only, and bit-identical on a second call."""
+    b, ps, pp = len(SPLIT_LENS), 16, 20
+    q, k, v, pt = _inputs(cuda, b, nh, kvh, d, ps, pp)
+    q = q.to(q_dtype)
+    k, v, sc = _decode_pools(k, v, pool)
+    quant = pool if isinstance(pool, str) else None
+    lens = torch.tensor(SPLIT_LENS, dtype=torch.int32, device=cuda)
+    counter = _route_counter(pa.paged_attention, q, k, v, quant,
+                             tuple(sc.values()))
+    assert counter.startswith("launches_split")
+    before = _counts(pa.paged_attention)
+    got = pa.paged_attention(q, k, v, pt, lens, **sc)
+    again = pa.paged_attention(q, k, v, pt, lens, **sc)
+    torch.cuda.synchronize()
+    assert _counts(pa.paged_attention) == {**before,
+                                           counter: before[counter] + 2}
+    want = pa.paged_attention_ref(q, k, v, pt, lens, **sc)
+    tol = max(TOL[q_dtype], TOL.get(pool, TOL[torch.float32]))
+    assert got.dtype == q_dtype and torch.isfinite(got).all()
+    assert torch.equal(got, again)
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+    assert float((got.float() - want.float()).abs().max()) <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pool", [torch.bfloat16, "int8", "int4"])
+def test_decode_split_in_a_cuda_graph(cuda, pool):
+    """One split decode captured in a CUDA graph: its replay equals the
+    eager call, and a replay after the lengths change on the device (a
+    slot shrinking to 0, one growing past a split) equals the eager call
+    on the new lengths: the grid never read them on the host."""
+    q, k, v, pt = _inputs(cuda, 4, 16, 4, 64, 16, 16)
+    q = q.bfloat16()
+    k, v, sc = _decode_pools(k, v, pool)
+    lens = torch.tensor([0, 17, 200, 256], dtype=torch.int32, device=cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):                # warm-up off the graph
+        eager = pa.paged_attention(q, k, v, pt, lens, **sc)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = pa.paged_attention(q, k, v, pt, lens, **sc)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+    lens.copy_(torch.tensor([5, 0, 129, 256], dtype=torch.int32))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, pa.paged_attention(q, k, v, pt, lens, **sc))
+    assert torch.equal(out[1], torch.zeros_like(out[1]))
+
+
+@pytest.mark.gpu
+def test_decode_split_counters_across_growth_graphs_and_streams(
+        cuda, monkeypatch):
+    """The split route's counters: a capture takes its own (the eager
+    buffers are untouched by it), a graph captured before the eager
+    buffer grows replays right after it grew, and two streams in flight
+    at once keep a buffer each. Every output equals its eager call."""
+    monkeypatch.setattr(pa, "_MIN_COUNTERS", 1)   # grow at these sizes
+    monkeypatch.setattr(pa, "_split_counters", {})
+    small = [t.bfloat16() if t.is_floating_point() else t
+             for t in _inputs(cuda, 2, 8, 2, 64, 16, 16)]
+    big = [t.bfloat16() if t.is_floating_point() else t
+           for t in _inputs(cuda, 12, 16, 8, 64, 16, 16, seed=1)]
+    lens_s = torch.tensor([40, 256], dtype=torch.int32, device=cuda)
+    lens_b = torch.arange(12, dtype=torch.int32, device=cuda) * 23
+    eager_s = pa.paged_attention(*small, lens_s)
+    eager_b = pa.paged_attention(*big, lens_b)
+    torch.cuda.synchronize()
+    pa._split_counters.clear()
+    assert torch.equal(pa.paged_attention(*small, lens_s), eager_s)
+    buffers = {key: id(buf) for key, buf in pa._split_counters.items()}
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = pa.paged_attention(*small, lens_s)
+    assert {key: id(buf) for key, buf in pa._split_counters.items()} == \
+        buffers
+    # the eager buffer grows (the old one goes back to the allocator)
+    assert torch.equal(pa.paged_attention(*big, lens_b), eager_b)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager_s)
+    assert torch.equal(pa.paged_attention(*small, lens_s), eager_s)
+    s1, s2 = torch.cuda.Stream(), torch.cuda.Stream()
+    for s in (s1, s2):
+        s.wait_stream(torch.cuda.current_stream())
+    outs = []
+    for _ in range(3):
+        for s in (s1, s2):
+            with torch.cuda.stream(s):
+                outs.append(pa.paged_attention(*big, lens_b))
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, eager_b) for o in outs)
+    assert {(cuda.index or 0, s.cuda_stream) for s in (s1, s2)} <= {
+        (dev.index, stream) for dev, stream in pa._split_counters}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pool", [torch.float32, torch.bfloat16, "int8",
+                                  "int4"])
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nh,kvh,d", [(32, 32, 64), (8, 2, 128),
+                                      (8, 1, 256)])
+def test_decode_pages_route_where_the_split_route_runs(cuda, pool, q_dtype,
+                                                       nh, kvh, d):
+    """The decode's pages route (``paged_decode_kernel`` /
+    ``paged_decode_q_kernel``), which serves every geometry the split
+    gate refuses, still agrees with the plain version at the geometries
+    the split route took over, and a second call is bit-identical."""
+    b, ps, pp = len(SPLIT_LENS), 16, 20
+    q, k, v, pt = _inputs(cuda, b, nh, kvh, d, ps, pp)
+    q = q.to(q_dtype)
+    k, v, sc = _decode_pools(k, v, pool)
+    quant = pool if isinstance(pool, str) else None
+    lens = torch.tensor(SPLIT_LENS, dtype=torch.int32, device=cuda)
+    args = (q, k, v, pt, lens, (b,), d ** -0.5, sc.get("k_scales"),
+            sc.get("v_scales"), quant)
+    before = _counts(pa.paged_attention)
+    got = pa._launch("paged_decode", *args)[0]
+    again = pa._launch("paged_decode", *args)[0]
+    torch.cuda.synchronize()
+    assert _counts(pa.paged_attention) == before   # not the path's launches
+    want = pa.paged_attention_ref(q, k, v, pt, lens, **sc)
+    tol = max(TOL[q_dtype], TOL.get(pool, TOL[torch.float32]))
+    assert torch.isfinite(got).all() and torch.equal(got, again)
+    assert float((got.float() - want.float()).abs().max()) <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,d,ps,grp", [(0, 256, 16, 8), (1, 64, 16, 1),
+                                           (2, 128, 8, 4), (3, 24, 32, 2)])
+def test_decode_split_gate_knows_the_kernels_shared_memory(cuda, kind, d,
+                                                           ps, grp):
+    """`decode_route`'s shared-memory arithmetic is the kernel's."""
+    lib = pa._build.load("paged_attention", pa._SIGNATURES)
+    for stages in (1, 2, 4):
+        assert pa._split_smem(kind, d, ps, grp, stages) == \
+            lib.paged_decode_split_smem(kind, d, ps, grp, stages)
 
 
 @pytest.mark.gpu
@@ -526,7 +704,8 @@ def test_fused_ce_kernels(cuda, monkeypatch, dtype, n, vocab, hidden,
         .to(dtype)
     labels = torch.randint(0, vocab, (n,), device=cuda, generator=gen)
     labels[::7] = -100
-    n_f, n_b = fce.fused_ce_fwd.launches, fce.fused_ce_bwd.launches
+    counter = _fwd_counter(fce.fused_ce_fwd, dtype)
+    n_f, n_b = getattr(fce.fused_ce_fwd, counter), fce.fused_ce_bwd.launches
     loss, lse = fce.fused_ce_fwd(h, w, labels)
     torch.cuda.synchronize()
     want, want_lse = fce.fused_ce_fwd_ref(h, w, labels)
@@ -547,8 +726,40 @@ def test_fused_ce_kernels(cuda, monkeypatch, dtype, n, vocab, hidden,
     dh2, dw2 = fce.fused_ce_bwd(h, w, labels, lse, g_eff)
     torch.cuda.synchronize()
     assert torch.equal(dh2, dh) and torch.equal(dw2, dw)
-    assert fce.fused_ce_fwd.launches == n_f + 1
+    assert getattr(fce.fused_ce_fwd, counter) == n_f + 1
     assert fce.fused_ce_bwd.launches == n_b + 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,vocab,hidden", [(300, 1000, 64), (1, 300, 128),
+                                            (129, 512, 2048), (17, 130, 48),
+                                            (256, 50304, 256)])
+def test_fused_ce_fwd_wgmma_route(cuda, n, vocab, hidden):
+    """The bf16 forward on warpgroup products against the plain version:
+    N of 1 and off the 128-row tile, vocabs off (and on) the 256-row
+    tile, labels in the last column and at ignore_index; lse within the
+    bf16 bar 1e-3, losses 2e-2; counted on ``launches_wgmma`` only and
+    bit-identical on a second call."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    h = torch.randn(n, hidden, device=cuda, generator=gen).bfloat16()
+    w = (torch.randn(vocab, hidden, device=cuda, generator=gen) * 0.1) \
+        .bfloat16()
+    labels = torch.randint(0, vocab, (n,), device=cuda, generator=gen)
+    labels[::5] = -100
+    labels[-1] = vocab - 1
+    before = (fce.fused_ce_fwd.launches, fce.fused_ce_fwd.launches_wgmma)
+    loss, lse = fce.fused_ce_fwd(h, w, labels)
+    loss2, lse2 = fce.fused_ce_fwd(h, w, labels)
+    torch.cuda.synchronize()
+    assert (fce.fused_ce_fwd.launches,
+            fce.fused_ce_fwd.launches_wgmma) == (before[0], before[1] + 2)
+    want, want_lse = fce.fused_ce_fwd_ref(h, w, labels)
+    assert torch.equal(loss, loss2) and torch.equal(lse, lse2)
+    assert torch.isfinite(loss).all() and torch.isfinite(lse).all()
+    assert float((lse - want_lse).abs().max()) <= TOL_LSE[torch.bfloat16]
+    assert float((loss - want).abs().max()) <= TOL[torch.bfloat16]
+    ignored = labels == -100
+    assert torch.equal(loss[ignored], torch.zeros_like(loss[ignored]))
 
 
 @pytest.mark.gpu

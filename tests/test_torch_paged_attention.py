@@ -121,7 +121,8 @@ def test_wrapper_validates_inputs():
 
 
 _COUNTERS = ("launches", "launches_int8", "launches_int4", "launches_wgmma",
-             "launches_wgmma_int8", "launches_wgmma_int4")
+             "launches_wgmma_int8", "launches_wgmma_int4", "launches_split",
+             "launches_split_int8", "launches_split_int4")
 
 
 def _counts():
@@ -139,6 +140,28 @@ def test_cpu_tensors_take_the_plain_version_without_counting():
         got = tpa.paged_attention_chunk(*args)
         want = tpa.paged_attention_chunk_ref(*args)
         assert torch.equal(got, want)
+    assert _counts() == before
+
+
+def test_cpu_decode_takes_the_plain_version_without_counting():
+    """Decode on CPU tensors, over fp and int8 pools, is the plain
+    version and counts on no route (the split route's counters
+    included)."""
+    q, k, v, pt = _inputs()
+    sl = np.asarray([0, 9, 64], np.int32)
+    before = _counts()
+    tq, tk, tv, tpt, tsl = _t(q, k, v, pt, sl)
+    for dtype in (torch.float32, torch.bfloat16):
+        args = (tq.to(dtype), tk.to(dtype), tv.to(dtype), tpt, tsl)
+        assert torch.equal(tpa.paged_attention(*args),
+                           tpa.paged_attention_ref(*args))
+    kq = torch.from_numpy(np.clip(np.round(k * 20), -127, 127)
+                          .astype(np.int8))
+    scales = torch.full(k.shape[:3], 0.05)
+    got = tpa.paged_attention(tq, kq, kq, tpt, tsl, k_scales=scales,
+                              v_scales=scales)
+    assert torch.equal(got, tpa.paged_attention_ref(
+        tq, kq, kq, tpt, tsl, k_scales=scales, v_scales=scales))
     assert _counts() == before
 
 
@@ -177,3 +200,73 @@ def test_chunk_route_gate(q_dtype, pool_dtype, d, pool_off, q_off, route):
     k = _pool((2, 9, 16, pd), pool_dtype, pool_off)
     v = _pool((2, 9, 16, pd), pool_dtype, pool_off)
     assert tpa.chunk_route(q, k, v, quant) == route
+
+
+# (q dtype, pool dtype, head_dim, page size, pool offset, scale offset) ->
+# route: the split-K kernel takes fp32 or bf16 q over fp32, bf16, int8
+# or int4 (uint8) pools with head_dim a multiple of 8 up to 256, a page's
+# bytes whole 16-byte words (quantized: page size a multiple of 4), pools
+# and scales 16-byte aligned and two pages in a block's shared memory;
+# every other decode the pages kernels
+@pytest.mark.parametrize("q_dtype,pool_dtype,d,ps,pool_off,scale_off,route", [
+    (torch.bfloat16, torch.bfloat16, 64, 16, 0, 0, "split"),
+    (torch.float32, torch.float32, 64, 16, 0, 0, "split"),
+    (torch.float32, torch.bfloat16, 256, 16, 0, 0, "split"),
+    (torch.bfloat16, torch.float32, 8, 16, 0, 0, "split"),
+    (torch.bfloat16, torch.bfloat16, 24, 8, 8, 0, "split"),
+    (torch.bfloat16, torch.int8, 64, 16, 0, 0, "split"),
+    (torch.float32, torch.int8, 16, 4, 16, 4, "split"),
+    (torch.bfloat16, torch.uint8, 16, 16, 0, 0, "split"),
+    (torch.bfloat16, torch.uint8, 256, 32, 0, 0, "split"),
+    (torch.bfloat16, torch.bfloat16, 12, 16, 0, 0, "pages"),
+    (torch.bfloat16, torch.bfloat16, 64, 16, 1, 0, "pages"),
+    (torch.float32, torch.float32, 64, 16, 2, 0, "pages"),
+    (torch.bfloat16, torch.int8, 64, 16, 4, 0, "pages"),
+    (torch.bfloat16, torch.int8, 64, 16, 0, 1, "pages"),
+    (torch.bfloat16, torch.int8, 64, 6, 0, 0, "pages"),
+    (torch.bfloat16, torch.uint8, 8, 2, 0, 0, "pages"),
+    (torch.float32, torch.float32, 256, 128, 0, 0, "pages")])
+def test_decode_route_gate(q_dtype, pool_dtype, d, ps, pool_off, scale_off,
+                           route):
+    """`decode_route`, the host-side choice between the decode's two CUDA
+    routes, read without a card from dtypes, shapes and addresses."""
+    quant = {torch.int8: "int8", torch.uint8: "int4"}.get(pool_dtype)
+    pd = d // 2 if quant == "int4" else d
+    q = _pool((3, 4, d), q_dtype)
+    k = _pool((2, 5, ps, pd), pool_dtype, pool_off)
+    v = _pool((2, 5, ps, pd), pool_dtype, pool_off)
+    sc = {}
+    if quant is not None:
+        sc = {n: _pool((2, 5, ps), torch.float32, scale_off)
+              for n in ("k_scales", "v_scales")}
+    assert tpa.decode_route(q, k, v, quant, **sc) == route
+
+
+def _split_keys(seq_len, split, pp, page_size):
+    """The key positions split ``split`` of a slot of ``seq_len`` keys
+    walks, by the plan the kernel reads (``paged_split.cuh``: pages
+    ``[split * per, (split + 1) * per)`` cut at the slot's last key); the
+    kernel itself is held to this walk by the card tests' lengths."""
+    per, _ = tpa.split_plan(pp, page_size)
+    n = max(0, min(seq_len, pp * page_size))
+    return range(min(n, split * per * page_size),
+                 min(n, (split + 1) * per * page_size))
+
+
+@pytest.mark.parametrize("pp,ps", [(64, 16), (10, 16), (3, 128), (7, 24),
+                                   (1, 16), (9, 32)])
+def test_split_plan_walks_each_live_key_once(pp, ps):
+    """`split_plan` sizes the split route's grid from the table's width
+    alone (about 128 keys a split); each live key lies in exactly one
+    live split, in order, the live splits are the first ones, and a slot
+    of length 0 has none (split 0 then writes its zeros)."""
+    per, splits = tpa.split_plan(pp, ps)
+    assert per == max(1, 128 // ps) and splits == -(-pp // per)
+    L = pp * ps
+    for n in sorted({0, 1, ps - 1, ps, ps + 1, per * ps, per * ps + 1,
+                     L - 1, L, L + 5}):
+        walks = [_split_keys(n, s, pp, ps) for s in range(splits)]
+        assert [key for w in walks for key in w] == list(range(min(n, L)))
+        live = [s for s, w in enumerate(walks) if len(w)]
+        assert live == list(range(-(-min(n, L) // (per * ps))))
+        assert n > 0 or not live
