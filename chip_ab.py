@@ -2,21 +2,24 @@
 """Training step times and serving figures of two checkouts, for an A/B
 inside one card call.
 
-    cd <checkout> && python3 <path to>/chip_ab.py <tag>
+    cd <checkout> && python3 <path to>/chip_ab.py <tag> [--no-serve]
 
 Imports the ``chip_smoke.py`` (and so the ``paddle_tpu_torch``) of the
 current directory, not of the directory this script sits in, and runs
 its ``train_full_width`` as phases 9 and 10 do: splash at 8 x 1024 (5
 timed steps), then with ``FLAGS_splash_attn`` off the flash pairs at 8 x
 1024 and 4 x 2048 (3 timed steps each), GPT-3 1.3B width, each run
-failing on a kernel launched off its path. Then its ``serve_full_width``
+failing on a kernel launched off its path. Then (unless ``--no-serve``)
+its ``serve_full_width``
 as phases 5 and 6 do, over bf16 and int8 pools (16 greedy requests),
 and the same requests once more under ``torch.profiler``, which gives
 the decode and the chunk attention's device time and launches (every
 kernel whose name holds ``paged_decode`` or ``paged_chunk``: either
 route). Prints one line, ``AB `` and a JSON object: the tag, the card's
 ``nvidia-smi`` name and power limit, for each training run its step
-times, median, peak device memory, tokens/s and kernel launches, and for
+times, median, peak device memory, tokens/s, ``mfu``, kernel launches
+and, where the checkout reports them, the optimizer's launches a step
+and ``opt.step()``'s kernels and device time alone, and for
 each serving run its output tok/s, TTFT p50 and the decode's and the
 chunk's device time. Run the parent checkout, this
 one, this one again and the parent again in one call, and compare
@@ -39,7 +42,8 @@ import torch  # noqa: E402
 import chip_smoke  # noqa: E402
 
 KEYS = ("step_ms", "step_ms_median", "max_memory_allocated",
-        "tokens_per_s", "launches")
+        "tokens_per_s", "mfu", "launches", "optimizer_launches_per_step",
+        "optimizer_step_alone")
 
 
 def _stats_line(fn, *args, **kw) -> dict:
@@ -54,7 +58,7 @@ def _stats_line(fn, *args, **kw) -> dict:
 def run(dev, **kw) -> dict:
     """One `train_full_width` run; its printed stats, the keys above."""
     stats = _stats_line(chip_smoke.train_full_width, dev, **kw)
-    return {k: stats[k] for k in KEYS}
+    return {k: stats.get(k) for k in KEYS}
 
 
 def serve(dev, model, kv_quant) -> dict:
@@ -100,7 +104,8 @@ def main() -> int:
         print("chip_ab: no CUDA device", file=sys.stderr)
         return 2
     dev = torch.device("cuda")
-    result = {"tree": sys.argv[1] if len(sys.argv) > 1 else os.getcwd(),
+    args = [a for a in sys.argv[1:] if a != "--no-serve"]
+    result = {"tree": args[0] if args else os.getcwd(),
               "smi": chip_smoke.nvidia_smi(),
               "splash_8x1024": run(dev)}
     with chip_smoke.routing_flags(splash_attn=False):
@@ -108,12 +113,13 @@ def main() -> int:
                                      splash=False, phase=10)
         result["flash_4x2048"] = run(dev, timed=3, batch=4, seq=2048,
                                      splash=False, phase=10)
-    from paddle_tpu_torch.models import GPTForCausalLM, gpt_config
+    if "--no-serve" not in sys.argv:
+        from paddle_tpu_torch.models import GPTForCausalLM, gpt_config
 
-    model = GPTForCausalLM(gpt_config("gpt3-1.3b"), device=dev,
-                           dtype=torch.bfloat16, seed=0)
-    for quant in (None, "int8"):
-        result[f"serve_{quant or 'bf16'}"] = serve(dev, model, quant)
+        model = GPTForCausalLM(gpt_config("gpt3-1.3b"), device=dev,
+                               dtype=torch.bfloat16, seed=0)
+        for quant in (None, "int8"):
+            result[f"serve_{quant or 'bf16'}"] = serve(dev, model, quant)
     print("AB " + json.dumps(result), flush=True)
     return 0
 

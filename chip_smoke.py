@@ -18,6 +18,7 @@ Phases, one line each (any failure exits non-zero, nothing is caught):
    SASS (``cuobjdump``; the run fails on none, and on a backward or
    chunk kernel that spills at head dim 64); the same for the split-K
    decode of ``csrc/paged_split.cuh`` (CUDA cores; it fails on any
+   spill) and the optimizer's kernels of ``csrc/multi_tensor.cu`` (no
    spill);
 3. each kernel against its plain PyTorch version on the card, in fp32
    and bf16 (tolerances at `check_kernels` and
@@ -42,7 +43,15 @@ Phases, one line each (any failure exits non-zero, nothing is caught):
    with CUDA events (L2 flushed between launches) beside the plain
    version and one PyTorch library call on the same inputs (the paged
    kernels, their pages routes and SDPA as CUDA-graph replays: their
-   wrappers take longer on the host than the kernels on the card);
+   wrappers take longer on the host than the kernels on the card); the
+   optimizer's kernels (``csrc/multi_tensor.cu``: the norm with the
+   non-finite check, and the fused Adam update) on the GPT-3 1.3B
+   parameter list in its two configurations (bf16 parameters with fp32
+   masters and bf16 moments; fp32 with amsgrad), with a group's lr and
+   decay, L2 terms and a parameter outside the clip, and at odd sizes
+   and more tensors than one launch takes, each bit-identical on a
+   second call and unchanged under a set ``found_inf``, timed as
+   CUDA-graph replays beside ``torch._fused_adamw_``;
 4. serving parity: a tiny fp32 GPT served on the card (kernels) and on
    the CPU (plain versions) over fp32, int8 and int4 pools gives
    identical greedy tokens;
@@ -66,15 +75,23 @@ Phases, one line each (any failure exits non-zero, nothing is caught):
    segment ids through splash, then with ``FLAGS_splash_attn`` off
    through the flash pairs at 128 (``FLAGS_pallas_flash_min_seqlen``
    lowered to 16) and 1280 tokens; losses and parameters must agree, the
-   path's kernels must have run and no other training kernel;
+   path's kernels (the optimizer's norm and update among them) must
+   have run and no other training kernel; then a guarded variant
+   (``GradScaler`` + ``guard_nonfinite``, an inf loss at the second of
+   four steps, steps 2-4 under ``torch.cuda.set_sync_debug_mode
+   ("error")``): the skip bit-identical on the card and on the CPU, the
+   scale and the parameters in agreement;
 9. the training path at GPT-3 1.3B width: ``TrainStep`` + AdamW (bf16
    weights, fp32 masters, bf16 moments, clip 1.0) over 8 x 1024 random
    tokens with recompute, 2 warm-up and 5 timed steps; the training
    kernels' counters are zeroed just before the timed steps and read
    just after: the bf16 splash forward and backward and the bf16 CE
-   forward on warpgroup products and the CE backward must be > 0, every
-   other training kernel (the fp32 splash and CE routes among them) 0,
-   and every loss finite;
+   forward on warpgroup products, the CE backward and the optimizer's
+   norm and update must be > 0, every other training kernel (the fp32
+   splash and CE routes among them) 0, and every loss finite; the
+   optimizer's launches a step must be 2 (one norm, one update of the
+   one dtype group), and ``opt.step()`` alone under the profiler must
+   launch those two kernels and nothing else;
 10. the same with ``FLAGS_splash_attn`` off (the reference's flash
     routing, the flag's off setting; splash is its default), 2 warm-up
     and 3 timed steps at 8 x 1024 (the single-block forward and the bf16
@@ -83,8 +100,8 @@ Phases, one line each (any failure exits non-zero, nothing is caught):
     (the bf16 tiled forward and backward on warpgroup products);
 11. one JSON line ``{"kernels": [...]}`` with each kernel's error,
     times, bound and launches (a paged kernel's from the serving run of
-    its pools, splash's and the CE's from phase 9, a flash pair's from
-    its phase-10 run).
+    its pools, splash's, the CE's and the optimizer's from phase 9, a
+    flash pair's from its phase-10 run).
 
 It then prints the ``nvidia-smi`` line again and, last, ``{"ok": true,
 "device": {...}}``. Imports torch, numpy and the port only.
@@ -245,6 +262,9 @@ def _ptxas_functions(log):
                       line)
         if m:
             out[fn].update(spill_stores=int(m[1]), spill_loads=int(m[2]))
+        m = re.search(r"(\d+) bytes stack frame", line)
+        if m:
+            out[fn]["stack_frame"] = int(m[1])
         m = re.search(r"Used (\d+) registers", line)
         if m:
             sm = re.search(r"(\d+) bytes smem", line)
@@ -352,6 +372,45 @@ def check_wgmma_kernels(built):
         if spills:
             raise AssertionError(f"{name}: spills at head dim 64: {spills}")
     return report
+
+
+def _mt_types(mangled):
+    """``<P, M>`` of a mangled ``mt_adam_kernel`` instantiation."""
+    args = mangled.split("kernelI", 1)[1].split("EEv", 1)[0]
+    names = (("13__nv_bfloat16", "bf16"), ("6__half", "fp16"), ("f", "fp32"))
+    out = []
+    while args:
+        for code, name in names:
+            if args.startswith(code):
+                out.append(name)
+                args = args[len(code):]
+                break
+        else:                     # a substitution: the first argument again
+            out.append(out[0])
+            args = args[args.index("_") + 1:]
+    return f"<{', '.join(out)}>"
+
+
+def check_multi_tensor_build(built):
+    """Registers, spills and stack of the optimizer's kernels (CUDA cores,
+    ``csrc/multi_tensor.cu``); fails on a spill."""
+    from paddle_tpu_torch.ops.kernels import _build
+
+    saved = _build.library_path("multi_tensor").with_suffix(".log")
+    log = built.get("multi_tensor", {}).get("log") or (
+        saved.read_text() if saved.exists() else "")
+    entries = [{"kernel": ("mt_norm_kernel" if "mt_norm" in k else
+                           "mt_adam_kernel" + _mt_types(k)),
+                "registers": p.get("registers", "not measured"),
+                "spill_stores": p.get("spill_stores", "not measured"),
+                "stack_frame": p.get("stack_frame", "not measured"),
+                "static_smem": p.get("static_smem", "not measured")}
+               for k, p in sorted(_ptxas_functions(log).items())
+               if "mt_norm_kernel" in k or "mt_adam_kernel" in k]
+    print(f"[2/{PHASES}] multi_tensor (multi_tensor.cu): "
+          f"{json.dumps(entries)}", flush=True)
+    if not entries or any(e["spill_stores"] != 0 for e in entries):
+        raise AssertionError(f"multi_tensor: missing or spilling: {entries}")
 
 
 # ---------------------------------------------------------------------------
@@ -1525,18 +1584,24 @@ TRAIN_COUNTERS = {
                                 "launches_wgmma"),
     "flash_bwd_kernels": ("flash_attention", "flash_attention_bwd",
                           "launches"),
+    # the optimizer: the clip's norm and the fused AdamW update
+    "mt_norm_kernel": ("multi_tensor", "multi_tensor_norm", "launches"),
+    "mt_adam_kernel": ("multi_tensor", "multi_tensor_adam", "launches"),
 }
 # the CE's forward (bf16 on warpgroup products, fp32 the tiles) and
 # backward
 CE_KERNELS = ("fused_ce_fwd_wgmma_kernel", "fused_ce_fwd_kernel",
               "fused_ce_bwd_kernels")
+# the optimizer's kernels (AdamW with the global-norm clip: every run)
+OPT_KERNELS = ("mt_norm_kernel", "mt_adam_kernel")
 
 
 def _path_kernels(seq, splash, bf16=True):
     """The training kernels a step at ``seq`` tokens launches: splash with
-    the flag on, else the flash pair of the length's path; and the CE (in
+    the flag on, else the flash pair of the length's path; the CE (in
     bf16 the forwards of splash, of the tiled pair and of the CE, and
-    both flash backwards, on warpgroup products)."""
+    both flash backwards, on warpgroup products); and the optimizer's
+    norm and fused update."""
     if splash:
         attn = ("splash_fwd_wgmma_kernel", "splash_bwd_wgmma_kernels") \
             if bf16 else ("splash_fwd_kernel", "splash_bwd_kernels")
@@ -1549,7 +1614,7 @@ def _path_kernels(seq, splash, bf16=True):
                 "flash_bwd_wgmma_kernels" if bf16 else "flash_bwd_kernels")
     ce = ("fused_ce_fwd_wgmma_kernel" if bf16 else "fused_ce_fwd_kernel",
           "fused_ce_bwd_kernels")
-    return attn + ce
+    return attn + ce + OPT_KERNELS
 
 
 def _check_launches(launches, expect, what):
@@ -1593,6 +1658,296 @@ class _TrainCounters:
     def read(self):
         return {name: getattr(fn, attr) for name, (fn, attr)
                 in self.at.items()}
+
+
+# ---------------------------------------------------------------------------
+# phase 3, the optimizer's multi-tensor kernels
+# ---------------------------------------------------------------------------
+
+MT_SOURCE = "paddle_tpu_torch/csrc/multi_tensor.cu"
+# kernel -> the reference code it replaces (XLA, not Pallas: the fused
+# update jits `_build_fused_fn`; the norm is the clip's)
+MT_REPLACES = {
+    "mt_norm_kernel": "paddle_tpu/nn/clip.py:50",
+    "mt_adam_kernel": "paddle_tpu/optimizer/__init__.py:161 (XLA)",
+}
+# the two configurations the training path uses: (parameter dtype,
+# masters, moment dtype, amsgrad); phase 9's first, timed
+MT_CONFIGS = {
+    "bf16 params, fp32 masters, bf16 moments":
+        (torch.bfloat16, True, torch.bfloat16, False),
+    "fp32 params and moments, amsgrad":
+        (torch.float32, False, torch.float32, True),
+}
+# odd sizes: one element, numel not a multiple of the 8-element vector or
+# of the 2048-element chunk; then more tensors than one launch's table
+MT_ODD = (1, 7, 2049, 3 * 2048 + 5)
+# fp32 values within 4 fp32 ulps of the plain version, bf16 ones within
+# 1 bf16 ulp (one IEEE operation at a time in both; powf and the
+# bias-corrected step may differ in the last place); the norm within 1e-6
+# relative (fp64 block sums against fp32 tree sums)
+MT_ULPS = {torch.float32: 4, torch.bfloat16: 1}
+
+
+def _ulps(got, want):
+    """max |got - want| in units of the last place of ``want`` in its
+    dtype (fp32 or bf16)."""
+    mant = 23 if want.dtype == torch.float32 else 7
+    tiny = 2.0 ** -149 if want.dtype == torch.float32 else 2.0 ** -133
+    w = want.double()
+    e = torch.floor(torch.log2(w.abs().clamp(min=tiny)))
+    return float(((got.double() - w).abs()
+                  / torch.exp2(e - mant).clamp(min=tiny)).max())
+
+
+def _mt_state(dev, shapes, config, seed):
+    """Random optimizer state of one configuration, from ``seed``: the
+    wrapper's keyword lists."""
+    pdtype, master, mdtype, amsgrad = config
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(shape, dtype, scale, positive=False):
+        x = torch.randn(shape, device=dev, generator=gen)
+        x = (x.abs_() if positive else x).mul_(scale)
+        return x.to(dtype)
+
+    params = [rnd(s, pdtype, 0.02) for s in shapes]
+    return {"params": params,
+            "grads": [rnd(s, pdtype, 1.0) for s in shapes],
+            "masters": [p.float() if master else None for p in params],
+            "exp_avgs": [rnd(s, mdtype, 1e-3) for s in shapes],
+            "exp_avg_sqs": [rnd(s, mdtype, 1e-6, True) for s in shapes],
+            "max_exp_avg_sqs": [rnd(s, mdtype, 2e-6, True) for s in shapes]
+            if amsgrad else None}
+
+
+def _mt_keywords(dev, n, found=False, scaled=False):
+    """The update's scalars and per-tensor lists: a group of every fifth
+    tensor at half the lr and no decay, an L2 term on every seventh, the
+    second tensor outside the clip."""
+    return dict(
+        lr=1e-4, beta1=0.9, beta2=0.95, eps=1e-8,
+        step=torch.full((), 9, dtype=torch.int32, device=dev),
+        lr_scales=[0.5 if i % 5 == 4 else 1.0 for i in range(n)],
+        wds=[0.0 if i % 5 == 4 else 0.1 for i in range(n)],
+        l2s=[0.01 if i % 7 == 6 else 0.0 for i in range(n)],
+        need_clip=[i != 1 for i in range(n)],
+        found_inf=torch.full((), found, device=dev),
+        inv_scale=torch.full((), 1 / 1024.0, device=dev) if scaled
+        else None)
+
+
+def _mt_state_errs(got, want):
+    """({list: worst ulps}, the largest absolute error of a value
+    updated: masters, and parameters without one); raises past
+    `MT_ULPS`."""
+    worst, abs_err = {}, 0.0
+    for key, ts in got.items():
+        if key == "grads":
+            continue
+        for i, (a, b) in enumerate(zip(ts or (), want[key] or ())):
+            if a is None:
+                continue
+            u = _ulps(a, b)
+            worst[key] = max(worst.get(key, 0.0), u)
+            if not u <= MT_ULPS[a.dtype]:
+                raise AssertionError(f"mt_adam_kernel: {key} {u} ulps from "
+                                     f"the plain version")
+            if key == "masters" or (key == "params"
+                                    and got["masters"][i] is None):
+                abs_err = max(abs_err, _max_err(a, b))
+    return worst, abs_err
+
+
+def _mt_same(a, b):
+    return all(x is None or torch.equal(x, y)
+               for key in a for x, y in zip(a[key] or (), b[key] or ()))
+
+
+def _mt_case(dev, shapes, config, scaled, seed):
+    """One configuration over ``shapes``: the norm against its plain
+    version, the update (fed the kernel's clip scale) twice (bit for
+    bit) and against its plain version, and a set found_inf, which must
+    leave every byte. Returns (the first run's state, its keywords, its
+    norm stats, the errors)."""
+    from paddle_tpu_torch.ops.kernels import multi_tensor as mt
+
+    n = len(shapes)
+    runs = []
+    for _ in range(2):
+        st = _mt_state(dev, shapes, config, seed)
+        kw = _mt_keywords(dev, n, scaled=scaled)
+        stats, found = mt.multi_tensor_norm(
+            st["grads"], kw["need_clip"], kw["inv_scale"], clip_norm=1.0)
+        mt.multi_tensor_adam(**st, **kw, clip_scale=stats[1])
+        runs.append((st, kw, stats, found))
+    (st, kw, stats, found), (st2, kw2, stats2, _) = runs
+    torch.cuda.synchronize()
+    if not (_mt_same(st, st2) and torch.equal(stats, stats2)):
+        raise AssertionError("multi-tensor kernels differ on a second call")
+    del runs, st2, kw2, stats2
+    torch.cuda.empty_cache()
+    ref = _mt_state(dev, shapes, config, seed)
+    kw_ref = _mt_keywords(dev, n, scaled=scaled)
+    want, want_found = mt.multi_tensor_norm_ref(
+        ref["grads"], kw_ref["need_clip"], kw_ref["inv_scale"],
+        clip_norm=1.0)
+    norm_rel = abs(float(stats[0]) - float(want[0])) / float(want[0])
+    norm_abs = abs(float(stats[0].sqrt()) - float(want[0].sqrt()))
+    if not norm_rel <= 1e-6 or bool(found) or bool(want_found):
+        raise AssertionError(f"mt_norm_kernel: sum of squares {norm_rel} "
+                             f"rel off the plain version, found "
+                             f"{bool(found)}")
+    mt.multi_tensor_adam_ref(**ref, **kw_ref, clip_scale=stats[1])
+    errs, abs_err = _mt_state_errs(st, ref)
+    if int(kw["step"]) != 10 or int(kw_ref["step"]) != 10:
+        raise AssertionError("the step counter was not raised once")
+    del ref
+    torch.cuda.empty_cache()
+    # the gate: a set found_inf writes nothing, the counter included
+    snap = {k: None if v is None else [None if t is None else t.clone()
+                                       for t in v] for k, v in st.items()}
+    kw_bad = _mt_keywords(dev, n, found=True, scaled=scaled)
+    mt.multi_tensor_adam(**st, **kw_bad, clip_scale=stats[1])
+    torch.cuda.synchronize()
+    if not _mt_same(st, snap) or int(kw_bad["step"]) != 9:
+        raise AssertionError("mt_adam_kernel wrote under found_inf")
+    del snap
+    torch.cuda.empty_cache()
+    return st, kw, stats, {"norm_rel_err": norm_rel,
+                           "norm_abs_err": norm_abs, "ulps": errs,
+                           "max_abs_err": abs_err}
+
+
+def _mt_bytes(shapes, config):
+    """The update's bytes a step: g, the value updated (master or
+    parameter), the moments read once and written once, the parameter
+    written."""
+    pdtype, master, mdtype, amsgrad = config
+    pb = 2 if pdtype != torch.float32 else 4
+    mb = 2 if mdtype != torch.float32 else 4
+    per = pb + (8 + pb if master else 2 * pb) + 2 * mb * (3 if amsgrad
+                                                          else 2)
+    return float(sum(int(np.prod(s)) for s in shapes) * per)
+
+
+def check_optimizer_kernels(dev, flush):
+    """Kernels (a) `multi_tensor_norm` and (b) `multi_tensor_adam` against
+    their plain versions: on the GPT-3 1.3B parameter list (its 292
+    shapes, random state) in the two configurations of `MT_CONFIGS`, with
+    a group's lr and decay, L2 terms and a parameter outside the clip;
+    then at odd sizes and more tensors than one table in both (with the
+    loss-scale unscale). Each bit-identical on a second call; a set
+    found_inf leaves every byte. Timed as CUDA-graph replays (phase 9's
+    configuration) beside the bound, the plain version and
+    ``torch._fused_adamw_`` over fp32 lists of the same shapes (for the
+    norm: ``vector_norm`` over ``_foreach_norm``)."""
+    from paddle_tpu_torch.models import GPTForCausalLM, gpt_config
+    from paddle_tpu_torch.ops.kernels import multi_tensor as mt
+
+    model = GPTForCausalLM(gpt_config("gpt3-1.3b"), device=dev,
+                           dtype=torch.bfloat16, seed=0)
+    shapes = [tuple(p.shape) for p in model.parameters()]
+    del model
+    torch.cuda.empty_cache()
+    numel = sum(int(np.prod(s)) for s in shapes)
+    results, report = {}, {}
+    for i, (name, config) in enumerate(MT_CONFIGS.items()):
+        st, kw, stats, errs = _mt_case(dev, shapes, config, False, seed=i)
+        report[name] = errs
+        print(f"[3/{PHASES}] multi-tensor, gpt3-1.3b list ({len(shapes)} "
+              f"tensors, {numel} params), {name}: {json.dumps(errs)}; "
+              f"bit-identical twice; found_inf leaves every byte",
+              flush=True)
+        if i:
+            del st, kw, stats
+            torch.cuda.empty_cache()
+            continue
+        # times at phase 9's configuration, on this state
+        need, grads = kw["need_clip"], st["grads"]
+        kw["found_inf"] = None
+
+        def norm():
+            return mt.multi_tensor_norm(grads, need, clip_norm=1.0)
+
+        def update():
+            mt.multi_tensor_adam(**st, **kw, clip_scale=stats[1])
+
+        def plain_norm():
+            return mt.multi_tensor_norm_ref(grads, need, clip_norm=1.0)
+
+        def plain_update():
+            mt.multi_tensor_adam_ref(**st, **kw, clip_scale=stats[1])
+
+        t = {"norm": graph_ms(norm, flush), "update": graph_ms(update, flush),
+             "plain_norm": time_ms(plain_norm, flush, iters=3, warmup=1),
+             "plain_update": time_ms(plain_update, flush, iters=3,
+                                     warmup=1)}
+        lib_norm = lambda: torch.linalg.vector_norm(  # noqa: E731
+            torch.stack(torch._foreach_norm(grads, 2)).float())
+        t["library_norm"] = graph_ms(lib_norm, flush)
+        del st, kw, grads, stats
+        torch.cuda.empty_cache()
+        # the yardstick: torch._fused_adamw_ over fp32 lists
+        gen = torch.Generator(device=dev).manual_seed(7)
+        lists = [[torch.randn(s, device=dev, generator=gen) for s in shapes]
+                 for _ in range(4)]
+        lists[3] = [x.abs_() for x in lists[3]]
+        steps = [torch.full((), 9.0, device=dev) for _ in shapes]
+        fused = lambda: torch._fused_adamw_(  # noqa: E731
+            lists[0], lists[1], lists[2], lists[3], [], steps, lr=1e-4,
+            beta1=0.9, beta2=0.95, weight_decay=0.1, eps=1e-8,
+            amsgrad=False, maximize=False)
+        t["library_update"] = graph_ms(fused, flush)
+        del lists, steps
+        torch.cuda.empty_cache()
+        n_bytes = float(numel * 2)
+        u_bytes = _mt_bytes(shapes, config)
+        for kernel, ms, plain, lib, nbytes, flops, library in (
+                ("mt_norm_kernel", t["norm"], t["plain_norm"],
+                 t["library_norm"], n_bytes, 2.0 * numel,
+                 "torch.linalg.vector_norm over torch._foreach_norm"),
+                ("mt_adam_kernel", t["update"], t["plain_update"],
+                 t["library_update"], u_bytes, 20.0 * numel,
+                 "torch._fused_adamw_ over fp32 lists")):
+            t_bytes = nbytes / HBM_BYTES_PER_S
+            t_ops = flops / FP32_FLOP_PER_S
+            results[kernel] = {
+                "ms": ms, "plain_ms": plain, "library_ms": lib,
+                "library": library,
+                "bound_ms": max(t_bytes, t_ops) * 1e3,
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "shape": [len(shapes), numel], "config": name}
+        results["mt_norm_kernel"]["max_abs_err"] = errs["norm_abs_err"]
+        results["mt_adam_kernel"]["max_abs_err"] = errs["max_abs_err"]
+        for kernel, r in results.items():
+            print(f"[3/{PHASES}] {kernel}: {r['ms']:.4f} ms, plain "
+                  f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} "
+                  f"ms ({r['library']}), bound {r['bound_ms']:.4f} ms "
+                  f"({r['bound_by']})", flush=True)
+    # odd sizes and more tensors than one launch's table, loss-scaled
+    sizes = list(MT_ODD) + [int(x) for x in np.random.default_rng(0)
+                            .integers(1, 5000, mt.MAX_TENSORS + 40)]
+    for i, (name, config) in enumerate(MT_CONFIGS.items()):
+        before = mt.multi_tensor_adam.launches
+        st, kw, stats, errs = _mt_case(dev, [(s,) for s in sizes], config,
+                                       True, seed=10 + i)
+        report[f"odd sizes, {name}"] = errs
+        per_call = (mt.multi_tensor_adam.launches - before) / 3
+        print(f"[3/{PHASES}] multi-tensor, {len(sizes)} tensors of "
+              f"{list(MT_ODD)} and 1-4999 elements, {name}, unscaled by "
+              f"1/1024: {json.dumps(errs)}; {per_call:g} update launches "
+              f"a call", flush=True)
+        if per_call != -(-len(sizes) // mt.MAX_TENSORS):
+            raise AssertionError("the update's table did not split")
+        del st, kw, stats
+        torch.cuda.empty_cache()
+    # the errors of the line: the worst over every case
+    worst_rel = max(r["norm_rel_err"] for r in report.values())
+    worst_ulps = max(max(r["ulps"].values()) for r in report.values())
+    results["mt_norm_kernel"]["max_rel_err"] = worst_rel
+    results["mt_adam_kernel"]["max_ulps"] = worst_ulps
+    return results
 
 
 # ---------------------------------------------------------------------------
@@ -1656,9 +2011,119 @@ def train_parity(dev, splash=True, seq=128):
                     "train parity")
 
 
+def train_guarded_parity(dev):
+    """The guarded step: a tiny fp32 GPT takes four ``TrainStep``s with a
+    ``GradScaler`` and ``guard_nonfinite`` (AdamW, global-norm clip), the
+    second over a loss multiplied by inf (every grad non-finite), on the
+    card and on the CPU. The skipped step must leave parameters, masters,
+    moments and the step count bit-identical on both, and the scale
+    halve; losses, scales and parameters must agree. Every step after
+    the first (which makes the state and the optimizer's tables) runs
+    under ``torch.cuda.set_sync_debug_mode("error")``, so a host sync
+    inside the step fails the phase."""
+    from paddle_tpu_torch.amp import GradScaler
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+
+    seq = 128
+    cfg = GPTConfig(vocab_size=128, hidden_size=64, num_layers=2,
+                    num_attention_heads=4, max_position_embeddings=seq)
+    rng = np.random.default_rng(1)
+    cpu = GPTForCausalLM(cfg, device="cpu")
+    sd = {name: torch.from_numpy(
+              (rng.standard_normal(tuple(t.shape)) * 0.3).astype(np.float32))
+          for name, t in cpu.state_dict().items()}
+    ids = rng.integers(0, 128, (2, seq))
+    labels = rng.integers(0, 128, (2, seq))
+    ks = (1.0, float("inf"), 1.0, 1.0)
+    out = {}
+    for where in ("card", "cpu"):
+        d = dev if where == "card" else torch.device("cpu")
+        model = GPTForCausalLM(cfg, device=d)
+        model.load_state_dict(sd)
+        opt = AdamW(learning_rate=1e-3, parameters=model.parameters(),
+                    grad_clip=ClipGradByGlobalNorm(1.0))
+        scaler = GradScaler(init_loss_scaling=1024.0, incr_every_n_steps=2)
+        step = TrainStep(model, lambda m, x, y, k: m.loss(x, y) * k, opt,
+                         scaler=scaler, guard_nonfinite=True)
+        batch = [torch.from_numpy(a).to(d) for a in (ids, labels)]
+        mults = [torch.full((), k, device=d) for k in ks]
+        losses = [step(*batch, mults[0])]
+        if where == "card":
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            before = [t.clone() for t in opt._state()]
+            losses.append(step(*batch, mults[1]))
+            after = [t.clone() for t in opt._state()]
+            for k in mults[2:]:
+                losses.append(step(*batch, k))
+        finally:
+            if where == "card":
+                torch.cuda.set_sync_debug_mode(0)
+        skipped_same = len(after) == len(before) and all(
+            torch.equal(a, b) for a, b in zip(after, before))
+        out[where] = {
+            "losses": [float(x) for x in losses],
+            "skip_bit_identical": bool(skipped_same),
+            "step_count": opt._step_count,
+            "scale": scaler.get_loss_scaling(),
+            "skipped": int(step.guard.skipped),
+            "params": {k: t.detach().cpu() for k, t in
+                       model.state_dict().items()}}
+    card, cpu_ = out["card"], out["cpu"]
+    loss_err = max(abs(a - b) for a, b in zip(card["losses"], cpu_["losses"])
+                   if np.isfinite(b))
+    param_rel = max(_rel_err(card["params"][k], cpu_["params"][k])
+                    for k in cpu_["params"])
+    print(f"[8/{PHASES}] train guarded (GradScaler + guard_nonfinite, an "
+          f"inf loss at step 2; steps 2-4 under sync debug mode 'error'): "
+          f"losses card {card['losses']} cpu {cpu_['losses']}; skip "
+          f"bit-identical card {card['skip_bit_identical']} cpu "
+          f"{cpu_['skip_bit_identical']}; step count {card['step_count']} /"
+          f" {cpu_['step_count']}; scale {card['scale']} / {cpu_['scale']};"
+          f" params max rel diff {param_rel:.3g}", flush=True)
+    for r in (card, cpu_):
+        if not (r["skip_bit_identical"] and r["step_count"] == 3
+                and r["skipped"] == 1 and r["scale"] == 1024.0
+                and np.isinf(r["losses"][1])):
+            raise AssertionError(f"guarded step: {r}")
+    if not (loss_err <= 1e-4 and param_rel <= 1e-3):
+        raise AssertionError(f"guarded step: card/CPU losses differ by "
+                             f"{loss_err}, params by {param_rel} rel")
+
+
 # ---------------------------------------------------------------------------
 # phases 9-10: the training path at GPT-3 1.3B width
 # ---------------------------------------------------------------------------
+
+OPT_LAUNCHES = 2
+
+
+def _optimizer_step_alone(model, opt, ids, labels):
+    """One more step's grads, then ``opt.step()`` alone under
+    ``torch.profiler``: the device kernels it launched, in order, and
+    their device time (the step's grads are dropped after)."""
+    model.loss(ids, labels).backward()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        opt.step()
+        torch.cuda.synchronize()
+    opt.clear_grad()
+    kernels = sorted((ev for ev in prof.events()
+                      if ev.device_type == torch.autograd.DeviceType.CUDA
+                      and "memcpy" not in ev.name.lower()
+                      and "memset" not in ev.name.lower()),
+                     key=lambda ev: ev.time_range.start)
+    names = [("mt_norm_kernel" if "mt_norm_kernel" in ev.name else
+              "mt_adam_kernel" if "mt_adam_kernel" in ev.name else ev.name)
+             for ev in kernels]
+    us = sum(ev.time_range.elapsed_us() for ev in kernels)
+    return {"kernels": names, "device_ms": us / 1e3}
+
 
 def train_full_width(dev, warmup=2, timed=5, batch=8, seq=1024,
                      splash=True, phase=9):
@@ -1701,6 +2166,7 @@ def train_full_width(dev, warmup=2, timed=5, batch=8, seq=1024,
         times.append(time.perf_counter() - t0)
         losses.append(float(loss))
     launches = counters.read()
+    opt_step = _optimizer_step_alone(model, opt, ids, labels)
 
     params = sum(p.numel() for p in model.parameters())
     tokens = batch * seq
@@ -1724,12 +2190,22 @@ def train_full_width(dev, warmup=2, timed=5, batch=8, seq=1024,
         "max_memory_allocated": torch.cuda.max_memory_allocated(),
         "launches": {k: n for k, n in launches.items() if n},
         "launches_per_step": {k: launches[k] / timed for k in ran},
+        "optimizer_launches_per_step": sum(
+            launches[k] for k in OPT_KERNELS) / timed,
+        "optimizer_step_alone": opt_step,
     }
     print(f"[{phase}/{PHASES}] train gpt3-1.3b {stats['attention']} seq "
           f"{seq}: {json.dumps(stats)}", flush=True)
     if not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite loss: {losses}")
     _check_launches(launches, ran, f"train seq {seq}")
+    # one norm and one update launch (one dtype group: every parameter
+    # bf16), whatever the parameter count
+    if stats["optimizer_launches_per_step"] != OPT_LAUNCHES:
+        raise AssertionError(f"optimizer launches a step: "
+                             f"{stats['optimizer_launches_per_step']}")
+    if opt_step["kernels"] != list(OPT_KERNELS):
+        raise AssertionError(f"opt.step() launched {opt_step['kernels']}")
     del model, opt, step
     gc.collect()
     torch.cuda.empty_cache()
@@ -1758,11 +2234,13 @@ def main() -> int:
     print(f"[2/{PHASES}] build: {sorted(built) or 'up to date'} in "
           f"{time.perf_counter() - t0:.1f} s; ptxas: {regs}", flush=True)
     check_wgmma_kernels(built)
+    check_multi_tensor_build(built)
 
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     kernels = check_kernels(dev, flush)
     kernels.update(check_training_kernels(dev, flush))
     kernels.update(check_flash_kernels(dev, flush))
+    kernels.update(check_optimizer_kernels(dev, flush))
     del flush
     torch.cuda.empty_cache()
     parity(dev)
@@ -1789,6 +2267,7 @@ def main() -> int:
         with routing_flags(pallas_flash_min_seqlen=16):
             train_parity(dev, splash=False, seq=128)
         train_parity(dev, splash=False, seq=1280)
+    train_guarded_parity(dev)
     steps = {}
     ran, n = train_full_width(dev)
     launches.update(ran)
@@ -1798,8 +2277,9 @@ def main() -> int:
             ran, n = train_full_width(dev, timed=3, batch=batch, seq=seq,
                                       splash=False, phase=10)
             launches.update({k: m for k, m in ran.items()
-                             if k not in CE_KERNELS})
-            steps.update({k: n for k in ran if k not in CE_KERNELS})
+                             if k not in CE_KERNELS + OPT_KERNELS})
+            steps.update({k: n for k in ran
+                          if k not in CE_KERNELS + OPT_KERNELS})
     for name, base in RING_TICK.items():
         launches[name], steps[name] = launches[base], steps[base]
 
@@ -1818,12 +2298,15 @@ def main() -> int:
     where.update({name: (FLASH_SOURCE, f"{FLASH_TPU}:{line}")
                   for name, line in FLASH_LINES.items()})
     where.update({name: where[base] for name, base in RING_TICK.items()})
+    where.update({name: (MT_SOURCE, line)
+                  for name, line in MT_REPLACES.items()})
     keys = ("max_abs_err", "max_abs_err_fp32", "max_rel_err",
             "max_rel_err_fp32", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "library", "shape", "causal", "fp32_route",
             "pages_route", "pages_route_max_abs_err",
             "pages_route_max_abs_err_fp32", "pages_route_ms",
-            "old_route", "old_route_max_abs_err", "old_route_ms")
+            "old_route", "old_route_max_abs_err", "old_route_ms",
+            "max_ulps", "config")
     line = [{"name": name, "route": "cuda", "source": where[name][0],
              "replaces": where[name][1], "launches": launches[name],
              **({"launches_per_step": launches[name] / steps[name]}

@@ -1,17 +1,39 @@
-"""Dynamic loss scaling state: the port of paddle_tpu/amp/grad_scaler.py's
-``AmpScaler`` / ``GradScaler`` as `jit.TrainStep` binds it (``scaler=``).
+"""Dynamic loss scaling: the port of paddle_tpu/amp/grad_scaler.py's
+``AmpScaler`` / ``GradScaler``.
 
 The scaler holds the configuration and the state: the scale, the
 incr/decr ratios, ``incr_every_n_steps``, ``decr_every_n_nan_or_inf``,
-the good and bad step counters and the last step's found-inf flag. The
-step that binds it (`jit.nonfinite_guard.GuardSpec`) owns the update
-rule and writes the state back after every step as device scalars;
-`state_dict` reads them as plain numbers. The eager
-``minimize``/``step``/``update`` loop of the reference is not ported.
+the good and bad step counters and the last step's found-inf flag.
+
+Two ways to use it, as in the reference:
+
+* bound to `jit.TrainStep` (``scaler=``): the step's guard
+  (`jit.nonfinite_guard.GuardSpec`) owns the update rule, runs it on the
+  device and writes the state back after every step as device scalars;
+  `state_dict` reads them as plain numbers.
+* the eager loop: ``scaler.scale(loss).backward()``, then
+  ``scaler.minimize(opt, loss)`` or ``scaler.step(opt)`` +
+  ``scaler.update()``. `unscale_` unscales every grad in one pass
+  (`ops.kernels.multi_tensor.multi_tensor_norm`: the unscale written in
+  place with the reference's rounding and ``found_inf`` as a device flag),
+  and the step decision reads the flag back once (`_found`, the
+  reference's single host read).
 """
 from __future__ import annotations
 
-__all__ = ["AmpScaler", "GradScaler"]
+import enum
+
+import torch
+
+from ..ops.kernels.multi_tensor import multi_tensor_norm
+
+__all__ = ["AmpScaler", "GradScaler", "OptimizerState"]
+
+
+class OptimizerState(enum.Enum):
+    INIT = 0
+    UNSCALED = 1
+    STEPPED = 2
 
 
 class AmpScaler:
@@ -28,12 +50,90 @@ class AmpScaler:
         self._good_steps = 0
         self._bad_steps = 0
         self._found_inf = False
+        self._opt_states = {}
 
     def is_enable(self):
         return self._enable
 
+    def is_use_dynamic_loss_scaling(self):
+        return self._use_dynamic
+
+    def scale(self, var):
+        if not self._enable:
+            return var
+        return var * self._scale
+
+    def _unscale(self, optimizer):
+        """Unscale every grad of ``optimizer`` in place, once a step, and
+        keep ``found_inf`` as a device flag (judged on the scaled grads)."""
+        if not self._enable:
+            return
+        if self._opt_states.get(id(optimizer)) == OptimizerState.UNSCALED:
+            return
+        grads = [p.grad for p in optimizer._parameter_list
+                 if p.grad is not None]
+        if grads:
+            inv = torch.full((), 1.0 / float(self._scale),
+                             dtype=torch.float32, device=grads[0].device)
+            _, self._found_inf = multi_tensor_norm(grads, inv_scale=inv,
+                                                   write=True)
+        else:
+            self._found_inf = False
+        self._opt_states[id(optimizer)] = OptimizerState.UNSCALED
+
+    def unscale_(self, optimizer):
+        return self._unscale(optimizer)
+
+    def _found(self):
+        """The single device-to-host read of ``found_inf``."""
+        self._found_inf = bool(self._found_inf)
+        return self._found_inf
+
+    def minimize(self, optimizer, loss, *args, **kwargs):
+        self._unscale(optimizer)
+        if not self._found():
+            optimizer.step()
+        self._update()
+        self._opt_states.pop(id(optimizer), None)
+        optimizer.clear_grad()
+
+    def step(self, optimizer):
+        if not self._enable:
+            optimizer.step()
+            return
+        self._unscale(optimizer)
+        if not self._found():
+            optimizer.step()
+        self._opt_states[id(optimizer)] = OptimizerState.STEPPED
+
+    def update(self):
+        if not self._enable:
+            return
+        self._update()
+        self._opt_states.clear()
+
+    def _update(self):
+        if not self._use_dynamic:
+            return
+        if self._found():
+            self._bad_steps = int(self._bad_steps) + 1
+            self._good_steps = 0
+            if self._bad_steps >= self._decr_every_n_nan_or_inf:
+                self._scale = max(float(self._scale) * self._decr_ratio,
+                                  1.0)
+                self._bad_steps = 0
+        else:
+            self._good_steps = int(self._good_steps) + 1
+            self._bad_steps = 0
+            if self._good_steps >= self._incr_every_n_steps:
+                self._scale = float(self._scale) * self._incr_ratio
+                self._good_steps = 0
+
     def get_loss_scaling(self):
         return float(self._scale)
+
+    def set_init_loss_scaling(self, value):
+        self._scale = float(value)
 
     def state_dict(self):
         return {

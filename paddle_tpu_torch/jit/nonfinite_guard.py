@@ -8,13 +8,16 @@ paddle_tpu/jit/nonfinite_guard.py.
   1.0), and `GuardSpec.update`, the reference's rule word for word over
   device scalars.
 
-The gate differs from the reference's, which selects the old state with
-``jnp.where`` inside the compiled step. The port runs eagerly, so
-`jit.TrainStep` reads ``found_inf`` back to the host once a step and
-skips the optimizer step on a bad one: parameters, masters, moments and
-the step count stay bit-identical because nothing touches them. That is
-the step's one host sync. A step captured as a CUDA graph will need the
-device-side gate instead (later work).
+The gate is the reference's, on the device: `jit.TrainStep` hands the
+optimizer's gated step (`optimizer.Optimizer._guarded_step`) the inverse
+loss scale, the step finds ``found_inf`` in one pass over the grads
+(`ops.kernels.multi_tensor.multi_tensor_norm`) and skips the update where
+it is set without reading it back: the fused Adam/AdamW kernel writes
+nothing, and the per-parameter optimizers select their old state with
+``torch.where``, as the reference's ``gate`` does. Parameters, masters,
+moments and the step count stay bit-identical, and `GuardSpec.update`
+advances the scale and the counters from the same device flag. A guarded
+step makes no host sync.
 """
 from __future__ import annotations
 

@@ -12,24 +12,26 @@ One call runs, in the reference's order (train_step.py ``step_fn``):
 2. with ``accum_steps`` > 1, the batch's dim 0 split into that many
    micro-batches, each loss scaled by ``1 / accum_steps`` and its
    backward accumulated on the parameters' grads;
-3. with a guard (``scaler`` or ``guard_nonfinite``), one finiteness
-   check over the grads, then the unscale;
-4. ``optimizer.step()`` (its grad clip first), then ``clear_grad``;
-5. the gate: a step whose grads were not finite skips the optimizer, so
-   nothing of its state moves, and the guard state advances by
-   `GuardSpec.update`.
+3. with a guard (``scaler`` or ``guard_nonfinite``), the optimizer's
+   gated step (`optimizer.Optimizer._guarded_step`): one finiteness check
+   over the (still scaled) grads, the unscale, the grad clip and the
+   update, which a step whose grads were not finite skips on the device,
+   so nothing of the optimizer's state moves (parameters, masters,
+   moments, the step count); without a guard, ``optimizer.step()`` (its
+   grad clip first); then ``clear_grad``;
+4. the guard state advances by `GuardSpec.update` from the device flag.
 
 The step runs eagerly: the reference's jit, buffer donation, retrace
 sentinel, compile cache and sharding are not ported. The returned loss
-stays on the device; the only host sync is the guard's read of
-``found_inf`` (see `nonfinite_guard`).
+stays on the device, and nothing is read back to the host, guarded or
+not: the gate is a device flag the optimizer's kernels read (see
+`nonfinite_guard`).
 """
 from __future__ import annotations
 
 import torch
 
-from ..nn.clip import scale_
-from .nonfinite_guard import GuardSpec, all_finite
+from .nonfinite_guard import GuardSpec
 
 __all__ = ["TrainStep"]
 
@@ -88,17 +90,11 @@ class TrainStep:
             backward(loss)
             loss = loss.detach()
 
-        found = None
-        if guard is not None:
-            grads = [p.grad for p in params if p.grad is not None]
-            found = ~all_finite(grads)
-            if scale is not None:
-                inv = 1.0 / scale
-                for g in grads:
-                    scale_(g, inv)
-        # the gate: the one host sync of a guarded step
-        if found is None or not bool(found):
+        if guard is None:
             self.optimizer.step()
+        else:
+            found = self.optimizer._guarded_step(
+                None if scale is None else torch.reciprocal(scale))
         self.optimizer.clear_grad()
         if guard is not None:
             self._guard_state = guard.update(self._guard_state, found)

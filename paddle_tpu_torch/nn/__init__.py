@@ -1,3 +1,5 @@
-from .clip import ClipGradByGlobalNorm
+from .clip import (ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue,
+                   clip_grad_norm_)
 
-__all__ = ["ClipGradByGlobalNorm"]
+__all__ = ["ClipGradByGlobalNorm", "ClipGradByNorm", "ClipGradByValue",
+           "clip_grad_norm_"]

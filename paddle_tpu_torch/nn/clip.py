@@ -1,46 +1,81 @@
-"""Gradient clipping: the port of paddle_tpu/nn/clip.py's
-``ClipGradByGlobalNorm``.
+"""Gradient clipping: the port of paddle_tpu/nn/clip.py.
 
 A clip is called by `optimizer.Optimizer.step` on the ``(param, grad)``
-pairs it is about to apply. The global norm is taken in fp32 from the
-grads as stored (bf16 grads stay bf16: the norm upcasts, the grads do
-not), ``scale = min(clip_norm / max(norm, 1e-12), 1)``, and every grad is
-scaled and rounded back to its own dtype. Parameters with
-``need_clip = False`` are neither counted nor scaled. The grads are
-scaled in place, where the reference returned new arrays.
+pairs it is about to apply and returns the pairs to apply. Parameters
+with ``need_clip = False`` are neither counted nor changed.
+
+* `ClipGradByGlobalNorm`: the fp32 global norm of the grads as stored
+  (bf16 grads stay bf16: the norm upcasts, the grads do not) comes from
+  `ops.kernels.multi_tensor.multi_tensor_norm` (one kernel launch on the
+  card), ``scale = min(clip_norm / max(norm, 1e-12), 1)``, and every grad
+  is scaled and rounded back to its own dtype, in place (where the
+  reference returned new arrays). `optimizer.Adam`'s fused step does not
+  call it: it takes the same norm and folds the scale into its update
+  kernel with the same rounding.
+* `ClipGradByValue`, `ClipGradByNorm` (each grad by its own norm) and
+  `clip_grad_norm_` (the torch-style utility over parameters), plain
+  tensor code as the reference runs them; the first two return new grads.
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["ClipGradByGlobalNorm"]
+from ..ops.kernels.multi_tensor import multi_tensor_norm
+
+__all__ = ["ClipGradBase", "ClipGradByGlobalNorm", "ClipGradByNorm",
+           "ClipGradByValue", "clip_grad_norm_"]
 
 
-class ClipGradByGlobalNorm:
+def _clipped(p, g):
+    return g is not None and getattr(p, "need_clip", True)
+
+
+class ClipGradBase:
+    def __call__(self, params_grads):
+        raise NotImplementedError
+
+
+class ClipGradByValue(ClipGradBase):
+    def __init__(self, max, min=None):
+        self.max = max
+        self.min = -max if min is None else min
+
+    @torch.no_grad()
+    def __call__(self, params_grads):
+        return [(p, g.clamp(self.min, self.max) if _clipped(p, g) else g)
+                for p, g in params_grads]
+
+
+class ClipGradByNorm(ClipGradBase):
+    def __init__(self, clip_norm):
+        self.clip_norm = clip_norm
+
+    @torch.no_grad()
+    def __call__(self, params_grads):
+        out = []
+        for p, g in params_grads:
+            if _clipped(p, g):
+                norm = g.float().square().sum().sqrt()
+                scale = (torch.full((), self.clip_norm, device=g.device)
+                         / norm.clamp(min=1e-12)).clamp(max=1.0)
+                g = (g.float() * scale).to(g.dtype)
+            out.append((p, g))
+        return out
+
+
+class ClipGradByGlobalNorm(ClipGradBase):
     def __init__(self, clip_norm, group_name="default_group",
                  auto_skip_clip=False):
         self.clip_norm = float(clip_norm)
 
-    def global_norm(self, params_grads):
-        """The fp32 global norm of the clipped grads (a device scalar), or
-        None when there are none."""
-        grads = [g for p, g in params_grads
-                 if g is not None and getattr(p, "need_clip", True)]
-        if not grads:
-            return None
-        norms = torch.stack([torch.linalg.vector_norm(g, dtype=torch.float32)
-                             for g in grads])
-        return norms.square().sum().sqrt()
-
     @torch.no_grad()
     def __call__(self, params_grads):
-        norm = self.global_norm(params_grads)
-        if norm is None:
-            return params_grads
-        scale = (self.clip_norm / norm.clamp(min=1e-12)).clamp(max=1.0)
-        for p, g in params_grads:
-            if g is not None and getattr(p, "need_clip", True):
-                scale_(g, scale)
+        grads = [g for p, g in params_grads if _clipped(p, g)]
+        if grads:
+            # (sum of squares, scale)
+            stats, _ = multi_tensor_norm(grads, clip_norm=self.clip_norm)
+            for g in grads:
+                scale_(g, stats[1])
         return params_grads
 
 
@@ -52,3 +87,25 @@ def scale_(g, scale):
         g.mul_(scale)
     else:
         g.copy_(g.float().mul_(scale))
+
+
+@torch.no_grad()
+def clip_grad_norm_(parameters, max_norm, norm_type=2.0,
+                    error_if_nonfinite=False):
+    """paddle.nn.utils.clip_grad_norm_: scale every grad in place so
+    their joint ``norm_type`` norm is at most ``max_norm``; returns the
+    norm before clipping (a device scalar)."""
+    params = [p for p in parameters if p.grad is not None]
+    if not params:
+        return torch.zeros(())
+    dev = params[0].grad.device
+    if norm_type == float("inf"):
+        total = torch.stack([p.grad.abs().max() for p in params]).max()
+    else:
+        total = sum(p.grad.float().abs().pow(norm_type).sum()
+                    for p in params).pow(1.0 / norm_type)
+    scale = (torch.full((), max_norm, device=dev)
+             / total.clamp(min=1e-12)).clamp(max=1.0)
+    for p in params:
+        p.grad.copy_((p.grad.float() * scale).to(p.grad.dtype))
+    return total

@@ -1,21 +1,42 @@
 """Optimizer base: the port of paddle_tpu/optimizer/optimizer.py.
 
-It keeps the parameter list, the grad clip, the step count (raised before
-the update, as the reference does), a float learning rate with
-`get_lr` / `set_lr`, per-parameter accumulators, and the
+It keeps the parameter list and its groups (a group's ``learning_rate``
+is a scale of the base lr, its ``weight_decay`` overrides the optimizer's;
+both kept on the optimizer, keyed by parameter), the grad clip, the step
+count, the learning rate (a float with `get_lr` / `set_lr`, or an
+`lr.LRScheduler` the caller steps), per-parameter accumulators and the
 ``multi_precision`` master weights: an fp32 master for every bf16/fp16
-parameter, created lazily at its first update from the low-precision
-parameter itself (upcast), updated in fp32 and written back as the master
-and then the downcast parameter (`_write_param`).
+parameter, created from the low-precision parameter itself (upcast) at its
+first update, updated in fp32 and written back as the master and then the
+downcast parameter (`_write_param`).
+
+The step count lives on the device (an int32 counter on the parameters'
+device), so a gated step can leave it alone without reading anything
+back; `_step_count` reads it when asked. `step` raises it before the
+update, as the reference does. Optimizers with a fused update (`Adam`,
+`AdamW`) take it through `_maybe_fused_step`; the others run
+`_append_optimize_op` one parameter at a time, with L2 decay folded into
+the gradient (`_apply_decay`).
+
+`_guarded_step` is the training step's gate (`jit.TrainStep` with a
+``scaler`` or ``guard_nonfinite``): it unscales the grads, finds a
+non-finite one and skips the update on the device. The fused update
+skips inside its kernel; the per-parameter path snapshots its state
+(parameters, masters, accumulators, the count) and selects the old
+values back with ``torch.where``, as the reference's ``gate`` does. No
+host read either way.
 
 PyTorch updates in place where the JAX package returned new arrays: the
 accumulators, masters and parameters keep their storage across steps.
-Learning-rate schedulers (paddle_tpu/optimizer/lr.py) and parameter
-groups are not ported yet.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
+
+from ..ops.kernels.multi_tensor import multi_tensor_norm
+from .lr import LRScheduler
 
 __all__ = ["Optimizer"]
 
@@ -24,54 +45,138 @@ class Optimizer:
     def __init__(self, learning_rate=0.001, parameters=None,
                  weight_decay=None, grad_clip=None, multi_precision=False,
                  name=None):
-        if not isinstance(learning_rate, (int, float)):
-            raise NotImplementedError(
-                "learning-rate schedulers are not ported yet; pass a float "
-                "and use set_lr")
         if parameters is None:
             raise ValueError("the optimizer needs parameters=")
-        self._learning_rate = float(learning_rate)
-        # plain tensors, or (name, tensor) pairs as named_parameters()
-        # gives them: names reach apply_decay_param_fun
+        self._learning_rate = learning_rate
+        # plain tensors, (name, tensor) pairs as named_parameters() gives
+        # them (names reach apply_decay_param_fun and state_dict), or
+        # groups: dicts of "params" with "learning_rate" (a scale of the
+        # base lr) and "weight_decay" overrides
         self._parameter_list, self._names = [], {}
+        self._group_lr_scale, self._group_wd = {}, {}
         for entry in parameters:
             if isinstance(entry, dict):
-                raise NotImplementedError(
-                    "parameter groups are not ported yet")
+                for p in self._add_params(entry["params"]):
+                    if "learning_rate" in entry:
+                        self._group_lr_scale[p] = float(
+                            entry["learning_rate"])
+                    if "weight_decay" in entry:
+                        wd = entry["weight_decay"]
+                        self._group_wd[p] = (
+                            float(wd) if isinstance(wd, (int, float))
+                            else getattr(wd, "_coeff", 0.0))
+            else:
+                self._add_params([entry])
+        self._grad_clip = grad_clip
+        self._multi_precision = multi_precision
+        self._weight_decay = (float(weight_decay)
+                              if isinstance(weight_decay, (int, float))
+                              else weight_decay)
+        self._accumulators = {}    # name -> {param: tensor}
+        self._master_weights = {}  # param -> fp32 tensor
+        self._step_t = None        # the device step counter (int32)
+        self._step_host = 0        # the count before the counter exists
+        self._snapshot = None      # the gate's (live, old) pairs
+
+    def _add_params(self, entries):
+        added = []
+        for entry in entries:
             if isinstance(entry, tuple):
                 name, entry = entry
                 self._names[entry] = name
             self._parameter_list.append(entry)
-        self._grad_clip = grad_clip
-        self._multi_precision = multi_precision
-        self._weight_decay = (float(weight_decay) if weight_decay else 0.0)
-        self._accumulators = {}    # name -> {param: tensor}
-        self._master_weights = {}  # param -> fp32 tensor
-        self._step_count = 0
+            added.append(entry)
+        return added
 
     # -- lr ----------------------------------------------------------------
     def get_lr(self):
-        return self._learning_rate
+        if isinstance(self._learning_rate, LRScheduler):
+            return self._learning_rate.get_lr()
+        return float(self._learning_rate)
 
     def set_lr(self, value):
+        if isinstance(self._learning_rate, LRScheduler):
+            raise RuntimeError("cannot set_lr when using an LRScheduler")
         self._learning_rate = float(value)
+
+    def set_lr_scheduler(self, scheduler):
+        self._learning_rate = scheduler
+
+    def _param_lr_scale(self, p):
+        if p in self._group_lr_scale:
+            return self._group_lr_scale[p]
+        return (getattr(p, "optimize_attr", None) or {}).get(
+            "learning_rate", 1.0)
+
+    def _param_group_wd(self, p):
+        return self._group_wd.get(p)
+
+    def _cur_lr(self, p):
+        """The base lr times ``p``'s group scale."""
+        lr, scale = self.get_lr(), self._param_lr_scale(p)
+        return lr * scale if scale != 1.0 else lr
+
+    # -- the step count ------------------------------------------------------
+    def _device(self):
+        return self._parameter_list[0].device if self._parameter_list \
+            else torch.device("cpu")
+
+    def _step_tensor(self):
+        if self._step_t is None:
+            self._step_t = torch.tensor(self._step_host, dtype=torch.int32,
+                                        device=self._device())
+        return self._step_t
+
+    @property
+    def _step_count(self):
+        """The step count as a Python int (reads the device counter)."""
+        return self._step_host if self._step_t is None \
+            else int(self._step_t)
+
+    @_step_count.setter
+    def _step_count(self, value):
+        if self._step_t is None:
+            self._step_host = int(value)
+        else:
+            self._step_t.fill_(int(value))
+
+    def _t(self):
+        """The (raised) step count as an fp32 device scalar."""
+        return self._step_tensor().float()
 
     # -- state -------------------------------------------------------------
     def _use_master(self, p):
         return self._multi_precision and p.dtype in (torch.float16,
                                                      torch.bfloat16)
 
-    def _get_accumulator(self, name, p, dtype=None):
+    def _get_accumulator(self, name, p, init=None, dtype=None):
+        """``p``'s accumulator ``name``, made at its first use: zeros in
+        ``dtype`` (default fp32 under a master, else ``p``'s dtype), or
+        ``init`` filled."""
         store = self._accumulators.setdefault(name, {})
         if p not in store:
             dt = dtype or (torch.float32 if self._use_master(p) else p.dtype)
-            store[p] = torch.zeros(p.shape, dtype=dt, device=p.device)
+            t = torch.zeros(p.shape, dtype=dt, device=p.device) \
+                if init is None else torch.full(p.shape, init, dtype=dt,
+                                                device=p.device)
+            self._track(t)
+            store[p] = t
         return store[p]
+
+    def _set_accumulator(self, name, p, value):
+        self._accumulators[name][p].copy_(value)
 
     def _master_weight(self, p):
         if p not in self._master_weights:
             self._master_weights[p] = p.detach().float()   # a copy
+            self._track(self._master_weights[p])
         return self._master_weights[p]
+
+    def _track(self, t):
+        """State made inside a gated step: its initial value is the old
+        one the gate restores."""
+        if self._snapshot is not None:
+            self._snapshot.append((t, t.clone()))
 
     def _param_value(self, p):
         """What the update reads: the fp32 master, or the parameter."""
@@ -84,6 +189,19 @@ class Optimizer:
             self._master_weights[p].copy_(value)
         p.detach().copy_(value)
 
+    def _apply_decay(self, p, g):
+        """L2 regularization folded into the gradient (the group's
+        ``weight_decay`` or the optimizer's)."""
+        wd = self._param_group_wd(p)
+        if wd is None:
+            wd = self._weight_decay
+        if wd is None:
+            return g
+        coeff = wd if isinstance(wd, float) else getattr(wd, "_coeff", 0.0)
+        if coeff == 0.0:
+            return g
+        return g + coeff * self._param_value(p).to(g.dtype)
+
     # -- step --------------------------------------------------------------
     def _params_grads(self):
         return [(p, p.grad) for p in self._parameter_list
@@ -91,16 +209,140 @@ class Optimizer:
 
     @torch.no_grad()
     def step(self):
-        params_grads = self._params_grads()
-        if self._grad_clip is not None:
-            params_grads = self._grad_clip(params_grads)
-        self._step_count += 1
-        self._update(params_grads)
+        self._run_step(self._params_grads())
 
-    def _update(self, params_grads):
+    @torch.no_grad()
+    def _guarded_step(self, inv_scale=None):
+        """The gated step of `jit.TrainStep`: unscale the grads by
+        ``inv_scale`` (a device fp32 scalar, or None), and update unless
+        some grad is not finite (judged before the unscale). Returns
+        ``found_inf``, a device bool; nothing is read back."""
+        return self._run_step(self._params_grads(), inv_scale, guard=True)
+
+    def _run_step(self, params_grads, inv_scale=None, guard=False):
+        found = self._maybe_fused_step(params_grads, inv_scale, guard)
+        if found is not False:
+            return found
+        found = None
+        if guard:
+            _, found = multi_tensor_norm(
+                [g for _, g in params_grads], inv_scale=inv_scale,
+                write=inv_scale is not None, device=self._device())
+        with self._gated(found):
+            if self._grad_clip is not None:
+                params_grads = self._grad_clip(params_grads)
+            self._step_tensor().add_(1)
+            self._before_update()
+            for p, g in params_grads:
+                if self._use_master(p):
+                    g = g.float()
+                self._append_optimize_op(p, self._apply_decay(p, g))
+            self._after_update()
+        return found
+
+    def _before_update(self):
+        """Subclass hook: once a step, after the count is raised and before
+        the first parameter's update (Adam's per-step scalars)."""
+
+    def _after_update(self):
+        """Subclass hook: state advanced once a step, after every
+        parameter's update (NAdam's momentum product)."""
+
+    @contextlib.contextmanager
+    def _gated(self, found):
+        """With ``found`` (a device bool), every piece of state the block
+        touches (parameters, masters, accumulators, the count, and what it
+        creates) is selected back to its old value where ``found`` is
+        set."""
+        if found is None:
+            yield
+            return
+        self._snapshot = snap = [(t, t.clone()) for t in self._state()]
+        try:
+            yield
+        finally:
+            self._snapshot = None
+        for live, old in snap:
+            live.copy_(torch.where(found, old, live))
+
+    def _state(self):
+        yield self._step_tensor()
+        for p in self._parameter_list:
+            yield p.detach()
+        yield from self._master_weights.values()
+        for store in self._accumulators.values():
+            yield from store.values()
+
+    def _maybe_fused_step(self, params_grads, inv_scale=None, guard=False):
+        """Subclass hook: apply the whole step (clip, count, update) as
+        one fused program and return ``found_inf`` (None unguarded);
+        False when not handled (the per-parameter path runs)."""
+        return False
+
+    def _append_optimize_op(self, p, g):
         raise NotImplementedError
+
+    @torch.no_grad()
+    def minimize(self, loss, startup_program=None, parameters=None,
+                 no_grad_set=None):
+        self.step()
+        return None, None
 
     def clear_grad(self, set_to_zero=True):
         """Drop the grads (their memory goes back to the allocator)."""
         for p in self._parameter_list:
             p.grad = None
+
+    clear_gradients = clear_grad
+
+    # -- state dict -----------------------------------------------------------
+    def _key(self, p):
+        """A parameter's name in the state dict: its given name, else
+        ``param_<index>`` in the parameter list (non-parameter keys, like
+        NAdam's ``_global``, as they are)."""
+        if not isinstance(p, torch.Tensor):
+            return p
+        if p in self._names:
+            return self._names[p]
+        for i, q in enumerate(self._parameter_list):
+            if q is p:
+                return f"param_{i}"
+        raise KeyError("not a parameter of this optimizer")
+
+    def _lookup(self):
+        table = {self._key(p): p for p in self._parameter_list}
+        return lambda k: table.get(k, k)
+
+    def state_dict(self):
+        state = {
+            "accumulators": {
+                name: {self._key(p): t.detach().clone()
+                       for p, t in store.items()}
+                for name, store in self._accumulators.items()},
+            "master_weights": {self._key(p): t.detach().clone()
+                               for p, t in self._master_weights.items()},
+            "step": self._step_count,
+        }
+        if isinstance(self._learning_rate, LRScheduler):
+            state["LR_Scheduler"] = self._learning_rate.state_dict()
+        return state
+
+    def set_state_dict(self, state_dict):
+        find = self._lookup()
+        for name, store in state_dict.get("accumulators", {}).items():
+            tgt = self._accumulators.setdefault(name, {})
+            for k, v in store.items():
+                p = find(k)
+                dev = p.device if isinstance(p, torch.Tensor) \
+                    else self._device()
+                tgt[p] = torch.as_tensor(v).to(dev).clone()
+        for k, v in state_dict.get("master_weights", {}).items():
+            p = find(k)
+            self._master_weights[p] = torch.as_tensor(v).to(
+                p.device, torch.float32).clone()
+        self._step_count = state_dict.get("step", 0)
+        if "LR_Scheduler" in state_dict and isinstance(self._learning_rate,
+                                                       LRScheduler):
+            self._learning_rate.set_state_dict(state_dict["LR_Scheduler"])
+
+    load_state_dict = set_state_dict

@@ -1,7 +1,7 @@
 """The port's CUDA kernels against their plain versions: paged attention
 over fp, int8 and int4 pools (serving), splash attention, flash attention
 (both paths) and the fused cross entropy (training), forward and
-backward.
+backward; the optimizer's multi-tensor norm and Adam update.
 
 These run only on a CUDA card (marker ``gpu``; each test skips without
 one). The file imports torch, numpy and the port only, so it runs on a
@@ -23,6 +23,7 @@ import torch
 from paddle_tpu_torch.inference.kv_cache import quantize_rows
 from paddle_tpu_torch.ops.kernels import flash_attention as fa
 from paddle_tpu_torch.ops.kernels import fused_cross_entropy as fce
+from paddle_tpu_torch.ops.kernels import multi_tensor as mt
 from paddle_tpu_torch.ops.kernels import paged_attention as pa
 from paddle_tpu_torch.ops.kernels import splash_attention as sa
 
@@ -1033,4 +1034,304 @@ def test_flash_refusals_raise_without_a_fallback(cuda, monkeypatch):
         fa.flash_attention_bwd(q, q, q, out, lse, out[:, :32])
     with pytest.raises(ValueError, match="dout"):
         fa.flash_attention_bwd_single(q, q, q, out.cpu())
+    torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# the optimizer's multi-tensor kernels
+# ---------------------------------------------------------------------------
+
+# sizes: one element, numel not a multiple of the 8-element vector or of
+# the 2048-element chunk, several chunks
+MT_SIZES = (1, 7, 2048, 2049, 3 * 2048 + 5, 40000)
+
+
+def _ulps(got, want, dtype):
+    """|got - want| in units of the last place of ``want`` in ``dtype``
+    (fp32 or bf16), elementwise, as float64."""
+    w = want.double()
+    mant = {torch.float32: 23, torch.bfloat16: 7}[dtype]
+    tiny = {torch.float32: 2.0 ** -149, torch.bfloat16: 2.0 ** -133}[dtype]
+    e = torch.floor(torch.log2(w.abs().clamp(min=tiny)))
+    return (got.double() - w).abs() / torch.exp2(e - mant).clamp(min=tiny)
+
+
+def _adam_state(dev, pdtype, master, mdtype, amsgrad, sizes=MT_SIZES,
+                seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(n, dt, scale=1.0, positive=False):
+        x = torch.randn(n, device=dev, generator=gen) * scale
+        return (x.abs() if positive else x).to(dt)
+
+    ps = [rnd(n, pdtype) for n in sizes]
+    return dict(
+        params=ps, grads=[rnd(n, pdtype, 3.0) for n in sizes],
+        masters=[p.float() if master else None for p in ps],
+        exp_avgs=[rnd(n, mdtype, 0.1) for n in sizes],
+        exp_avg_sqs=[rnd(n, mdtype, 0.01, True) for n in sizes],
+        max_exp_avg_sqs=[rnd(n, mdtype, 0.02, True) for n in sizes]
+        if amsgrad else None)
+
+
+def _clone_state(st):
+    return {k: None if v is None else [None if t is None else t.clone()
+                                       for t in v] for k, v in st.items()}
+
+
+def _adam_kw(dev, n, found=False):
+    return dict(lr=1e-3, beta1=0.9, beta2=0.999, eps=1e-8,
+                step=torch.tensor(6, dtype=torch.int32, device=dev),
+                lr_scales=[1.0, 0.5, 2.0, 1.0, 0.25, 1.0][:n] +
+                [1.0] * max(0, n - 6),
+                wds=[0.01, 0.0, 0.1, 0.01, 0.01, 0.0][:n] +
+                [0.01] * max(0, n - 6),
+                l2s=[0.0, 0.02, 0.0, 0.0, 0.05, 0.0][:n] +
+                [0.0] * max(0, n - 6),
+                need_clip=[True, False, True, True, True, False][:n] +
+                [True] * max(0, n - 6),
+                found_inf=torch.tensor(found, device=dev),
+                inv_scale=torch.tensor(1 / 256.0, device=dev),
+                clip_scale=torch.tensor(0.37, device=dev))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("write", [False, True])
+@pytest.mark.parametrize("unscale", [False, True])
+def test_multi_tensor_norm_matches_plain(cuda, unscale, write):
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    dts = (torch.float32, torch.bfloat16, torch.float16)
+    grads = [(torch.randn(n, device=cuda, generator=gen) * 40).to(
+        dts[i % 3]) for i, n in enumerate(MT_SIZES * 2)]
+    clip = [i % 4 != 1 for i in range(len(grads))]
+    inv = torch.tensor(1 / 64.0, device=cuda) if unscale else None
+    runs = []
+    for _ in range(2):
+        gs = [g.clone() for g in grads]
+        before = mt.multi_tensor_norm.launches
+        stats, found = mt.multi_tensor_norm(gs, clip, inv, 1.0, write)
+        assert mt.multi_tensor_norm.launches == before + 1
+        runs.append((stats, found, gs))
+    ref_gs = [g.clone() for g in grads]
+    want, want_found = mt.multi_tensor_norm_ref(ref_gs, clip, inv, 1.0,
+                                                write)
+    torch.cuda.synchronize()
+    (stats, found, gs), (stats2, _, gs2) = runs
+    assert torch.equal(stats, stats2)
+    assert abs(float(stats[0]) - float(want[0])) <= 1e-6 * float(want[0])
+    assert abs(float(stats[1]) - float(want[1])) <= 1e-6 * float(want[1])
+    assert bool(found) == bool(want_found) is False
+    for a, b in zip(gs, ref_gs):
+        assert torch.equal(a, b)
+    grads[4][3] = float("nan")
+    grads[7][0] = float("inf")
+    _, found = mt.multi_tensor_norm(grads, clip, inv)
+    assert bool(found)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pdtype,master,mdtype,amsgrad", [
+    (torch.bfloat16, True, torch.bfloat16, False),
+    (torch.bfloat16, True, torch.float32, True),
+    (torch.float32, False, torch.float32, False),
+    (torch.float32, False, torch.float32, True),
+    (torch.float32, False, torch.bfloat16, False),
+    (torch.bfloat16, False, torch.bfloat16, True),
+    (torch.float16, True, torch.float32, False)])
+def test_multi_tensor_adam_matches_plain(cuda, pdtype, master, mdtype,
+                                         amsgrad):
+    """fp32 values within 4 fp32 ulps of the plain version, bf16 ones
+    within 1 bf16 ulp; bit-identical on a second call; the counter
+    raised once."""
+    st = _adam_state(cuda, pdtype, master, mdtype, amsgrad)
+    n = len(MT_SIZES)
+    ref = _clone_state(st)
+    kw_ref = _adam_kw(cuda, n)
+    mt.multi_tensor_adam_ref(**ref, **kw_ref)
+    outs = []
+    for _ in range(2):
+        got = _clone_state(st)
+        kw = _adam_kw(cuda, n)
+        before = mt.multi_tensor_adam.launches
+        mt.multi_tensor_adam(**got, **kw)
+        assert mt.multi_tensor_adam.launches == before + 1
+        outs.append((got, kw))
+    torch.cuda.synchronize()
+    (got, kw), (got2, _) = outs
+    assert int(kw["step"]) == int(kw_ref["step"]) == 7
+    for key, ts in got.items():
+        if ts is None:
+            continue
+        for a, b, c in zip(ts, ref[key], got2[key]):
+            if a is None:
+                continue
+            assert torch.equal(a, c), key
+            if a.dtype == torch.float16:
+                torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-6)
+                continue
+            bar = 4 if a.dtype == torch.float32 else 1
+            assert float(_ulps(a, b, a.dtype).max()) <= bar, key
+
+
+@pytest.mark.gpu
+def test_multi_tensor_adam_found_inf_leaves_every_byte(cuda):
+    st = _adam_state(cuda, torch.bfloat16, True, torch.bfloat16, True)
+    before = _clone_state(st)
+    kw = _adam_kw(cuda, len(MT_SIZES), found=True)
+    mt.multi_tensor_adam(**st, **kw)
+    torch.cuda.synchronize()
+    assert int(kw["step"]) == 6
+    for key, ts in st.items():
+        for a, b in zip(ts, before[key]):
+            if a is not None:
+                assert torch.equal(a.view(torch.uint8) if a.dim() else a,
+                                   b.view(torch.uint8) if b.dim() else b)
+
+
+@pytest.mark.gpu
+def test_multi_tensor_tables_split_across_launches(cuda):
+    """More tensors than one launch's table, in two dtype groups: the norm
+    combines every launch's partials; the Adam launches raise the
+    counter once, in the last."""
+    sizes = [int(s) for s in np.random.default_rng(0).integers(
+        1, 3000, mt.MAX_TENSORS + 200)]
+    st = _adam_state(cuda, torch.float32, False, torch.float32, False,
+                     sizes)
+    half = len(sizes) // 2
+    for key in ("params", "grads"):
+        st[key][half:] = [t.bfloat16() for t in st[key][half:]]
+    st["masters"][half:] = [p.float() for p in st["params"][half:]]
+    groups = -(-half // mt.MAX_TENSORS) + -(-(len(sizes) - half)
+                                          // mt.MAX_TENSORS)
+    ref = _clone_state(st)
+    kw_ref = _adam_kw(cuda, len(sizes))
+    mt.multi_tensor_adam_ref(**ref, **kw_ref)
+    kw = _adam_kw(cuda, len(sizes))
+    before = mt.multi_tensor_adam.launches
+    mt.multi_tensor_adam(**st, **kw)
+    assert mt.multi_tensor_adam.launches - before == groups
+    n_before = mt.multi_tensor_norm.launches
+    stats, _ = mt.multi_tensor_norm(st["grads"], clip_norm=1.0)
+    want, _ = mt.multi_tensor_norm_ref(st["grads"], clip_norm=1.0)
+    assert mt.multi_tensor_norm.launches - n_before == \
+        -(-len(sizes) // mt.MAX_TENSORS)
+    torch.cuda.synchronize()
+    assert int(kw["step"]) == 7
+    assert abs(float(stats[0]) - float(want[0])) <= 1e-6 * float(want[0])
+    for key in ("params", "masters", "exp_avgs", "exp_avg_sqs"):
+        for a, b in zip(st[key], ref[key]):
+            if a is not None:
+                bar = 4 if a.dtype == torch.float32 else 1
+                assert float(_ulps(a, b, a.dtype).max()) <= bar, key
+
+
+def _tiny_adamw(dev, seed=0):
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    ps = [torch.nn.Parameter(torch.randn(n, device=dev, generator=gen)
+                             .to(torch.bfloat16 if i % 2 else torch.float32))
+          for i, n in enumerate((300, 64, 4096, 17))]
+    ps[3].need_clip = False
+    opt = AdamW(learning_rate=1e-2, parameters=ps, multi_precision=True,
+                moment_dtype="bfloat16", amsgrad=True,
+                grad_clip=ClipGradByGlobalNorm(0.5))
+    grads = [torch.randn(p.shape, device=dev, generator=gen).to(p.dtype)
+             for p in ps]
+    return ps, opt, grads
+
+
+@pytest.mark.gpu
+def test_adamw_runs_the_kernels_and_matches_the_cpu(cuda):
+    """The default AdamW on CUDA tensors: one norm and one Adam launch a
+    dtype group a step; 3 steps near the same steps on the CPU (the
+    norms' sums run in other orders, so a clipped bf16 grad may round the
+    other way: an Adam step of lr 1e-2 moves by about 1e-3 of itself)."""
+    ps, opt, grads = _tiny_adamw(cuda)
+    cps = [torch.nn.Parameter(p.detach().cpu()) for p in ps]
+    cps[3].need_clip = False
+    from paddle_tpu_torch.optimizer import AdamW
+    copt = AdamW(learning_rate=1e-2, parameters=cps, multi_precision=True,
+                 moment_dtype="bfloat16", amsgrad=True,
+                 grad_clip=type(opt._grad_clip)(0.5))
+    n0, a0 = mt.multi_tensor_norm.launches, mt.multi_tensor_adam.launches
+    for _ in range(3):
+        for p, cp, g in zip(ps, cps, grads):
+            p.grad, cp.grad = g.clone(), g.cpu()
+        opt.step()
+        copt.step()
+    assert mt.multi_tensor_norm.launches - n0 == 3
+    assert mt.multi_tensor_adam.launches - a0 == 6   # fp32 and bf16 groups
+    assert opt._step_count == copt._step_count == 3
+    for p, cp in zip(ps, cps):
+        m = opt._master_weights.get(p)
+        got = (m if m is not None else p.detach()).cpu()
+        cm = copt._master_weights.get(cp)
+        want = cm if cm is not None else cp.detach()
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_fused_step_replays_as_a_cuda_graph(cuda):
+    """``opt.step()`` (the norm and the Adam launches) captured in a CUDA
+    graph and replayed twice equals two eager steps bit for bit."""
+    pa_, oa, grads = _tiny_adamw(cuda)
+    pb, ob, _ = _tiny_adamw(cuda)
+    for p, q, g in zip(pa_, pb, grads):
+        p.grad, q.grad = g.clone(), g.clone()
+    # warm-up (the tables are built outside the capture), then back to the
+    # initial state
+    init = [p.detach().clone() for p in pb]
+    ob.step()
+    with torch.no_grad():
+        for p, x in zip(pb, init):
+            p.copy_(x)
+        for p, m in ob._master_weights.items():
+            m.copy_(p.detach().float())
+        for store in ob._accumulators.values():
+            for t in store.values():
+                t.zero_()
+        ob._step_count = 0
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side), torch.cuda.graph(graph):
+        ob.step()
+    torch.cuda.current_stream().wait_stream(side)
+    for _ in range(2):
+        oa.step()
+        graph.replay()
+    torch.cuda.synchronize()
+    assert oa._step_count == ob._step_count == 2
+    for p, q in zip(pa_, pb):
+        assert torch.equal(p, q)
+        if p in oa._master_weights:
+            assert torch.equal(oa._master_weights[p], ob._master_weights[q])
+    for name, store in oa._accumulators.items():
+        for p, q in zip(pa_, pb):
+            assert torch.equal(store[p], ob._accumulators[name][q])
+
+
+@pytest.mark.gpu
+def test_multi_tensor_refusals_raise_without_a_fallback(cuda, monkeypatch):
+    def refuse(*a, **kw):
+        raise AssertionError("plain version called for CUDA tensors")
+
+    monkeypatch.setattr(mt, "multi_tensor_norm_ref", refuse)
+    monkeypatch.setattr(mt, "multi_tensor_adam_ref", refuse)
+    st = _adam_state(cuda, torch.float32, False, torch.float32, False)
+    kw = _adam_kw(cuda, len(MT_SIZES))
+    bad = _clone_state(st)
+    bad["grads"][0] = bad["grads"][0].bfloat16()
+    with pytest.raises(TypeError, match="dtype"):
+        mt.multi_tensor_adam(**bad, **kw)
+    bad = _clone_state(st)
+    bad["params"][2] = torch.randn(64, 64, device=cuda).t()
+    with pytest.raises(ValueError, match="contiguous"):
+        mt.multi_tensor_adam(**bad, **kw)
+    with pytest.raises(TypeError, match="int32"):
+        mt.multi_tensor_adam(**st, **{**kw, "step": kw["step"].long()})
+    with pytest.raises(TypeError, match="no kernel"):
+        mt.multi_tensor_norm([torch.ones(3, device=cuda, dtype=torch.int32)])
     torch.cuda.synchronize()
