@@ -52,24 +52,35 @@ Phases, one line each (any failure exits non-zero, nothing is caught):
    and more tensors than one launch takes, each bit-identical on a
    second call and unchanged under a set ``found_inf``, timed as
    CUDA-graph replays beside ``torch._fused_adamw_``;
-4. serving parity: a tiny fp32 GPT served on the card (kernels) and on
-   the CPU (plain versions) over fp32, int8 and int4 pools gives
-   identical greedy tokens;
+4. serving parity: a tiny fp32 GPT served through the engine's CUDA
+   graphs on the card, its eager loop on the card (kernels) and on the
+   CPU (plain versions) over fp32, int8 and int4 pools, at decode bursts
+   1 and 4, gives identical greedy tokens (one decode graph each); then
+   sampled requests with fixed seeds give identical tokens through the
+   graphs and the eager loop on the card;
 5. the serving path at GPT-3 1.3B width: 16 greedy requests through
-   ``ServingEngine`` with bf16 weights and pools; the paged kernels'
-   launch counters are zeroed just before and read just after: the
-   decode's split route and the chunk's warpgroup kernel over bf16 pools
-   must be > 0, both pages routes and the quantized kernels 0;
-6. the same workload with ``kv_quant="int8"`` and then ``"int4"``: the
-   split decode and the chunk's warpgroup kernel of that mode must be >
-   0, every other paged kernel 0; pool bytes and capacity against the
-   bf16 run;
+   ``ServingEngine`` with bf16 weights and pools, first through the eager
+   loop (``compiled=False``), then through the CUDA graphs (the
+   default), each after ``warmup()``; the paged kernels' launch counters
+   are zeroed just before and read just after each run: the decode's
+   split route and the chunk's warpgroup kernel over bf16 pools must be
+   > 0, both pages routes and the quantized kernels 0, and the launches
+   a call equal in the two runs; the greedy tokens must be identical,
+   and the graph run must capture nothing after ``warmup()`` (one decode
+   graph, at most one prefill graph a chunk bucket); tok/s, TTFT and
+   inter-token latency, peak memory (allocated, and reserved: the graphs'
+   pools) and the warm-up time of both;
+6. the same with ``kv_quant="int8"`` and then ``"int4"``: the split
+   decode and the chunk's warpgroup kernel of that mode must be > 0,
+   every other paged kernel 0; pool bytes and capacity against the bf16
+   run;
 7. ``generate()`` at the same width, 8 prompts of 128 tokens and 32 new
-   tokens over the paged cache with bf16 and with int8 pools: the split
-   decode of the pools must have run, and neither its pages route nor a
-   splash forward (a
-   128-token prefill is under ``FLAGS_pallas_flash_min_seqlen``: the
-   dense attention, as in the reference);
+   tokens over the paged cache with bf16 and with int8 pools, compiled:
+   the decode graph is captured in the warm-up call and replayed in the
+   measured one; the split decode of the pools must have run, and
+   neither its pages route nor a splash forward (a 128-token prefill is
+   under ``FLAGS_pallas_flash_min_seqlen``: the dense attention, as in
+   the reference);
 8. training parity: a tiny fp32 GPT takes three ``TrainStep``s (AdamW,
    global-norm clip) on the card and on the CPU, with packed-sequence
    segment ids through splash, then with ``FLAGS_splash_attn`` off
@@ -100,8 +111,8 @@ Phases, one line each (any failure exits non-zero, nothing is caught):
     (the bf16 tiled forward and backward on warpgroup products);
 11. one JSON line ``{"kernels": [...]}`` with each kernel's error,
     times, bound and launches (a paged kernel's from the serving run of
-    its pools, splash's, the CE's and the optimizer's from phase 9, a
-    flash pair's from its phase-10 run).
+    its pools' graph run, splash's, the CE's and the optimizer's from
+    phase 9, a flash pair's from its phase-10 run).
 
 It then prints the ``nvidia-smi`` line again and, last, ``{"ok": true,
 "device": {...}}``. Imports torch, numpy and the port only.
@@ -745,8 +756,11 @@ def check_kernels(dev, flush):
 # ---------------------------------------------------------------------------
 
 def parity(dev):
-    """The same greedy requests served on the card and on the CPU, over
-    fp32 pools and over int8 and int4 pools."""
+    """The same greedy requests served through the CUDA graphs on the
+    card, the eager loop on the card and the eager loop on the CPU, over
+    fp32 pools and over int8 and int4 pools, at decode bursts 1 and 4;
+    then sampled requests with fixed seeds, graphs against the eager
+    loop on the card."""
     from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
     from paddle_tpu_torch.serving import ServingEngine
 
@@ -763,29 +777,50 @@ def parity(dev):
     prompts = [rng.integers(1, 128, (n,)).astype(np.int32)
                for n in (5, 17, 33, 64, 9, 70)]
     budgets = [int(n) for n in rng.integers(8, 17, len(prompts))]
+
+    def serve(where, compiled, **kw):
+        eng = ServingEngine(card if where == "card" else cpu, max_slots=4,
+                            max_len=128, page_size=16, chunk_size=32,
+                            prefill_batch=2, compiled=compiled,
+                            device=dev if where == "card" else "cpu", **kw)
+        handles = [eng.submit(p, n, seed=7 + i)
+                   for i, (p, n) in enumerate(zip(prompts, budgets))]
+        eng.run()
+        lk = eng.leak_check()
+        if not (lk["free_pages"] == lk["total_pages"]
+                and lk["free_slots"] == lk["total_slots"]
+                and lk["resident_slot_pages"] == 0):
+            raise AssertionError(f"{where} {kw} engine leaked: {lk}")
+        if compiled and where == "card" and \
+                eng.compile_counts()["decode_traces"] != 1:
+            raise AssertionError(f"{kw}: decode captured "
+                                 f"{eng.compile_counts()}")
+        return [h.output_tokens for h in handles]
+
     for quant in (None, "int8", "int4"):
-        tokens = {}
-        for where, model in (("card", card), ("cpu", cpu)):
-            eng = ServingEngine(model, max_slots=4, max_len=128,
-                                page_size=16, chunk_size=32, prefill_batch=2,
-                                kv_quant=quant,
-                                device=dev if where == "card" else "cpu")
-            handles = [eng.submit(p, n) for p, n in zip(prompts, budgets)]
-            eng.run()
-            tokens[where] = [h.output_tokens for h in handles]
-            lk = eng.leak_check()
-            if not (lk["free_pages"] == lk["total_pages"]
-                    and lk["free_slots"] == lk["total_slots"]
-                    and lk["resident_slot_pages"] == 0):
-                raise AssertionError(f"{where} {quant} engine leaked: {lk}")
-        if tokens["card"] != tokens["cpu"]:
-            raise AssertionError(f"card/CPU greedy tokens differ ({quant} "
-                                 f"pools):\n{tokens['card']}\n"
-                                 f"{tokens['cpu']}")
-        n = sum(len(t) for t in tokens["card"])
-        print(f"[4/{PHASES}] parity: tiny fp32 GPT, {quant or 'fp32'} "
-              f"pools, {len(prompts)} greedy requests, {n} tokens identical "
-              f"on card and CPU; no leaks", flush=True)
+        for burst in (1, 4):
+            kw = dict(kv_quant=quant, decode_burst=burst)
+            tokens = {"card graph": serve("card", True, **kw),
+                      "card eager": serve("card", False, **kw),
+                      "cpu": serve("cpu", False, **kw)}
+            if len({json.dumps(t) for t in tokens.values()}) != 1:
+                raise AssertionError(
+                    f"greedy tokens differ ({quant} pools, burst "
+                    f"{burst}): {json.dumps(tokens)}")
+            n = sum(len(t) for t in tokens["cpu"])
+            print(f"[4/{PHASES}] parity: tiny fp32 GPT, {quant or 'fp32'} "
+                  f"pools, burst {burst}, {len(prompts)} greedy requests, "
+                  f"{n} tokens identical through the card's graphs, its "
+                  f"eager loop and the CPU; no leaks", flush=True)
+    kw = dict(do_sample=True, top_k=20, top_p=0.9, decode_burst=4)
+    graph, eager = serve("card", True, **kw), serve("card", False, **kw)
+    if graph != eager:
+        raise AssertionError(f"sampled tokens differ, graphs {graph}, "
+                             f"eager {eager}")
+    print(f"[4/{PHASES}] parity: sampled requests (top-k 20, top-p 0.9, "
+          f"burst 4, fixed seeds), {sum(len(t) for t in graph)} tokens "
+          f"identical through the card's graphs and its eager loop",
+          flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -793,24 +828,25 @@ def parity(dev):
 # pools
 # ---------------------------------------------------------------------------
 
-def serve_full_width(dev, model, kv_quant=None, phase=5):
-    from paddle_tpu_torch.serving import ServingEngine, ServingMetrics
+def _serve_run(dev, model, kv_quant, compiled):
+    """One engine over phase 5's workload: `warmup()`, then the 16
+    requests with the paged counters zeroed just before and read just
+    after. Prints one line; (stats, tokens, launches of the kernels of
+    ``kv_quant``'s pools)."""
+    from paddle_tpu_torch.serving import ServingEngine
 
     cfg = model.config
     t0 = time.perf_counter()
     eng = ServingEngine(model, max_slots=8, max_len=1024, page_size=16,
                         chunk_size=64, prefill_batch=4,
                         cache_dtype=torch.bfloat16, kv_quant=kv_quant,
-                        device=dev)
+                        compiled=compiled, device=dev)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
-    # warm-up (cuBLAS heuristics, allocator): one short request, then
-    # fresh metrics and step counters for the measured run
-    eng.submit(np.random.default_rng(1).integers(0, cfg.vocab_size, (64,)),
-               4)
-    eng.run()
-    eng.metrics = ServingMetrics(clock=eng.clock)
-    eng.scheduler.metrics = eng.metrics
+    # the graphs' captures (eager: one request a bucket), then fresh
+    # metrics and step counters for the measured run
+    eng.warmup()
+    counts = eng.compile_counts()
     eng.prefill_step.calls = eng.decode_step.calls = 0
     rng = np.random.default_rng(0)
     lens = rng.integers(64, 769, 16)
@@ -841,6 +877,12 @@ def serve_full_width(dev, model, kv_quant=None, phase=5):
     if leaks["free_pages"] != leaks["total_pages"] or \
             leaks["free_slots"] != leaks["total_slots"]:
         raise AssertionError(f"leaked pages or slots: {leaks}")
+    if compiled and (eng.compile_counts() != counts
+                     or counts["decode_traces"] != 1
+                     or counts["prefill_traces"]
+                     > len(counts["chunk_buckets"])):
+        raise AssertionError(f"captures: {counts} after warmup(), "
+                             f"{eng.compile_counts()} after the run")
     pool = eng.cache.pool_stats()
     # the kernels this run must go through, and the ones it must not
     ran = [k for k, (_, _, quant, _) in PAGED_KERNELS.items()
@@ -851,7 +893,10 @@ def serve_full_width(dev, model, kv_quant=None, phase=5):
         "model": "gpt3-1.3b", "layers": cfg.num_layers,
         "hidden": cfg.hidden_size, "heads": cfg.num_attention_heads,
         "vocab": cfg.vocab_size, "dtype": "bfloat16",
-        "kv_quant": kv_quant, "setup_s": round(setup_s, 3),
+        "kv_quant": kv_quant, "compiled": compiled,
+        "setup_s": round(setup_s, 3),
+        "warmup_ms": eng.warmup_report["warmup_ms"],
+        "compile_counts": counts,
         "requests": len(handles), "finished": snap["finished"],
         "prompt_tokens": int(lens.sum()),
         "generated_tokens": snap["generated_tokens"],
@@ -860,25 +905,57 @@ def serve_full_width(dev, model, kv_quant=None, phase=5):
         "ttft_p50_s": snap["ttft_p50_s"], "ttft_p99_s": snap["ttft_p99_s"],
         "itl_p50_s": snap["itl_p50_s"], "itl_p99_s": snap["itl_p99_s"],
         "decode_steps": snap["decode_steps"],
+        "decode_calls": calls["decode"],
         "prefill_calls": calls["chunk"],
         "preemptions": snap["preemptions"],
         "pool_bytes": pool["pool_bytes"],
         "kv_bytes_per_token": pool["bytes_per_token"],
         "effective_slots_vs_bf16": pool["effective_slots_vs_bf16"],
         "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        # the graphs' private pools are reserved, not allocated
+        "max_memory_reserved": torch.cuda.max_memory_reserved(),
         "launches": launches,
         "launches_per_call": {
             k: launches[k] / max(calls["decode" if "decode" in k
                                        else "chunk"], 1) for k in ran},
     }
-    print(f"[{phase}/{PHASES}] serve gpt3-1.3b {kv_quant or 'bf16'} pools: "
-          f"{json.dumps(stats)}", flush=True)
+    tokens = [h.output_tokens for h in handles]
+    del eng, handles
+    gc.collect()
+    torch.cuda.empty_cache()
     if min(launches[k] for k in ran) <= 0:
         raise AssertionError(f"a kernel never ran on the path: {launches}")
     idle = {k: n for k, n in launches.items() if k not in ran and n}
     if idle:
         raise AssertionError(f"kernels of other pools ran: {idle}")
-    return {k: launches[k] for k in ran}, stats
+    return stats, tokens, {k: launches[k] for k in ran}
+
+
+def serve_full_width(dev, model, kv_quant=None, phase=5):
+    """Phase 5's workload (6's with ``kv_quant``) through the eager loop
+    (``compiled=False``), then through the engine's CUDA graphs (its
+    default): one line each, the graphs' last. Greedy tokens and the
+    paged kernels' launches a call must be identical; no capture may
+    happen after `warmup()`. Returns the graph run's (launches, stats)."""
+    eager, eager_tokens, _ = _serve_run(dev, model, kv_quant, False)
+    print(f"[{phase}/{PHASES}] serve gpt3-1.3b {kv_quant or 'bf16'} pools, "
+          f"eager loop: {json.dumps(eager)}", flush=True)
+    stats, tokens, ran = _serve_run(dev, model, kv_quant, True)
+    if tokens != eager_tokens:
+        raise AssertionError(f"{kv_quant or 'bf16'} pools: greedy tokens of "
+                             f"the graphs and the eager loop differ")
+    if stats["launches_per_call"] != eager["launches_per_call"]:
+        raise AssertionError(f"launches a call differ: graphs "
+                             f"{stats['launches_per_call']}, eager "
+                             f"{eager['launches_per_call']}")
+    stats["tokens_equal_to_eager"] = True
+    stats["eager"] = {k: eager[k] for k in (
+        "output_tok_s", "wall_s", "ttft_p50_s", "ttft_p99_s", "itl_p50_s",
+        "itl_p99_s", "warmup_ms", "max_memory_allocated",
+        "max_memory_reserved")}
+    print(f"[{phase}/{PHASES}] serve gpt3-1.3b {kv_quant or 'bf16'} pools: "
+          f"{json.dumps(stats)}", flush=True)
+    return ran, stats
 
 
 # ---------------------------------------------------------------------------
@@ -887,10 +964,11 @@ def serve_full_width(dev, model, kv_quant=None, phase=5):
 
 def generate_full_width(dev, model):
     """``generate()`` of 8 prompts of 128 tokens, 32 new tokens, over the
-    paged cache with bf16 pools and with int8 pools: one warm-up call,
-    then one call with the kernels' counters zeroed just before and read
-    just after. The decode kernel of the pools must have run, and no
-    splash forward: a 128-token prefill is under
+    paged cache with bf16 pools and with int8 pools, compiled (the
+    default): one warm-up call, which captures the decode graph, then one
+    call with the kernels' counters zeroed just before and read just
+    after, which must capture nothing. The decode kernel of the pools
+    must have run, and no splash forward: a 128-token prefill is under
     ``FLAGS_pallas_flash_min_seqlen``, so it takes the dense attention,
     as in the reference."""
     from paddle_tpu_torch.ops.kernels import splash_attention as sa
@@ -904,6 +982,9 @@ def generate_full_width(dev, model):
                   **({"kv_quant": quant} if quant else {}))
         model.generate(ids, 32, **kw)               # engine, warm-up
         torch.cuda.synchronize()
+        eng, = [e for e in model._generation_engines.values()
+                if e.kind == "paged" and e.kv_quant == quant]
+        captures = eng.decode_step.trace_count
         _paged_reset()
         sa.splash_attention_fwd.launches = 0
         sa.splash_attention_fwd.launches_wgmma = 0
@@ -919,8 +1000,15 @@ def generate_full_width(dev, model):
         if not (t.shape == (8, 32) and (t >= 0).all()
                 and (t < cfg.vocab_size).all()):
             raise AssertionError(f"generate {quant}: bad tokens {t.shape}")
+        if not (eng.compiled and captures == 1 ==
+                eng.decode_step.trace_count == eng.decode_step.cache_size()):
+            raise AssertionError(
+                f"generate {quant}: the decode graph was captured "
+                f"{captures} then {eng.decode_step.trace_count} times")
         out[quant] = t
-        stats = {"kv_quant": quant, "batch": 8, "prompt": 128, "new": 32,
+        stats = {"kv_quant": quant, "compiled": eng.compiled,
+                 "decode_graphs": eng.decode_step.cache_size(),
+                 "batch": 8, "prompt": 128, "new": 32,
                  "wall_s": round(wall, 4),
                  "output_tok_s": round(t.size / wall, 2),
                  "launches": {k: n for k, n in launches.items() if n}}
@@ -2257,8 +2345,9 @@ def main() -> int:
         print(f"[6/{PHASES}] {quant} pools: pool_bytes {ratio:.4f}x the "
               f"bf16 run's, effective_slots_vs_bf16 "
               f"{stats['effective_slots_vs_bf16']}, output tok/s "
-              f"{stats['output_tok_s']} vs {bf16['output_tok_s']}",
-              flush=True)
+              f"{stats['output_tok_s']} vs {bf16['output_tok_s']} (graphs; "
+              f"eager {stats['eager']['output_tok_s']} vs "
+              f"{bf16['eager']['output_tok_s']})", flush=True)
     generate_full_width(dev, model)
     del model
     torch.cuda.empty_cache()

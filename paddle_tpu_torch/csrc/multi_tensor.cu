@@ -41,7 +41,7 @@
 // value is the one updated; the parameter gets it rounded). Per element,
 // in registers:
 //   g = grad; with inv_scale g = round_P(g * inv); with the clip scale
-//   and the tensor's need_clip g = round_P(g * scale)   (clip.py scale_)
+//   and the tensor's need_clip g = round_P(g * scale)   (clip.py scaled)
 //   g += l2 * pv                                        (Adam's L2 term)
 //   m = b1 m + (1 - b1) g;  v = b2 v + ((1 - b2) g) g;  vmax = max(vmax, v)
 //   out = pv (1 - lr_t wd) - lr_t (m / bc1) / (sqrt((vmax or v) / bc2) + eps)

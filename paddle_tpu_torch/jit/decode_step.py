@@ -5,13 +5,25 @@ generation engine that drives the first two.
 Counterparts of ``PrefillStep``, ``DecodeStep``, ``ChunkPrefillStep``,
 ``ServeDecodeStep`` and ``GenerationEngine`` in
 paddle_tpu/jit/decode_step.py, with the same argument order and return
-values, run eagerly. The reference compiles each step once and threads
-the cache state through it as pytrees with donated pool buffers; here a
-step binds the state onto the engine's cache, runs the model (which
-updates the pools in place) and hands the state back. The parameters
-live in the model, so the reference's leading ``params`` argument is
-gone, and the generation steps take a ``torch.Generator`` (or None for
-greedy) where the reference threads a PRNG key.
+values. The reference compiles each step once and threads the cache
+state through it as pytrees with donated pool buffers; here a step binds
+the state onto the engine's cache, runs the model (which updates the
+pools in place) and hands the state back. The parameters live in the
+model, so the reference's leading ``params`` argument is gone, and the
+generation steps take a ``torch.Generator`` (or None for greedy) where
+the reference threads a PRNG key.
+
+Where the reference compiles, the serving steps and a paged
+``DecodeStep`` replay CUDA graphs (`graphs.StepGraphs`) when the engine
+is ``compiled`` and its cache lives on a CUDA device: the decode burst
+unrolled in one graph, and one graph per chunk-prefill bucket. Their
+inputs are copied into static device tensors first. Greedy sampling
+(``argmax``) is part of the graph; under ``do_sample`` a graph ends at
+the logits and the draw runs eagerly after it, one graph a decode step,
+since a row's generator is seeded on the host from its (seed, position).
+On CPU tensors, or with ``compiled=False``, the steps run eagerly. Each
+step's ``trace_count`` counts captures when compiled and calls when
+eager, as the reference's traces, and `cache_size` the graphs it holds.
 
 ``buffers`` are the cache's pools (``layers`` of a dense cache;
 ``k_layers`` / ``v_layers`` of a paged one, with ``k_scales`` /
@@ -28,6 +40,7 @@ import torch
 
 from ..inference.kv_cache import DenseKVCache, PagedKVCache
 from ..nn.functional.sampling import sample_logits, sample_logits_per_slot
+from .graphs import StaticInputs, StepGraphs
 
 __all__ = ["GenerationEngine", "PrefillStep", "DecodeStep",
            "ChunkPrefillStep", "ServeDecodeStep", "DEFAULT_PREFILL_BUCKETS",
@@ -55,6 +68,20 @@ class _Step:
     def __init__(self, engine):
         self.engine = engine
         self.calls = 0
+        self.trace_count = 0   # captures when compiled, calls when eager
+        self._graphs = StepGraphs()
+        self._static = None
+
+    def cache_size(self):
+        """The CUDA graphs this step holds (0 when it runs eagerly)."""
+        return len(self._graphs)
+
+    def _compiled(self):
+        """Whether this call replays a graph: a ``compiled`` engine over a
+        CUDA cache."""
+        eng = self.engine
+        return getattr(eng, "compiled", False) and \
+            eng.cache.device.type == "cuda"
 
     def _enter(self, buffers, meta):
         cache = self.engine.cache
@@ -65,11 +92,61 @@ class _Step:
                                               device=cache.device)
         cache.load_state(state)
         self.calls += 1
+        self.trace_count += 1
         return cache
 
     def _exit_state(self):
         cache = self.engine.cache
         return split_state(cache.kind, cache.state())
+
+    # -- the graph path ----------------------------------------------------
+    def _bind(self, buffers, meta):
+        """Bind the pools and the static copies of ``meta`` onto the
+        cache; returns the static inputs."""
+        cache = self.engine.cache
+        if self._static is None:
+            self._static = StaticInputs(cache.device)
+        st = self._static
+        cache.load_state({**buffers, **meta, **{
+            name: st.load(name, meta[name], dtype)
+            for name, dtype in _META_DTYPES.items() if name in meta}})
+        self.calls += 1
+        return st
+
+    def _replay(self, key, body, load, idle):
+        """Replay ``key``'s graph of ``body`` (the step over the static
+        inputs, which may rebind ``cache.seq_lens``; the graph writes the
+        result into the static ``seq_lens``). ``load()`` fills the static
+        inputs from this call's arguments, ``idle()`` with values whose
+        writes land on the trash page and change no length: those of the
+        warm-up call before a capture."""
+        cache = self.engine.cache
+        load()
+        graph = self._graphs.lookup(key, cache)
+        if graph is None:
+            sl = cache.seq_lens
+
+            def fn():
+                out = body()
+                sl.copy_(cache.seq_lens)
+                cache.seq_lens = sl
+                return out
+
+            idle()
+            graph = self._graphs.capture(key, fn, cache.device)
+            self.trace_count += 1
+            load()
+        return graph.replay()
+
+    def _exit_graph(self, meta):
+        """The state after a replay: the static ``seq_lens`` (written by
+        the graph), and the caller's page tables and active flags (which
+        no step changes), so the host bookkeeping reads them without a
+        copy back."""
+        buffers, out = self._exit_state()
+        out.update({k: meta[k] for k in ("page_tables", "active")
+                    if k in meta})
+        return buffers, out
 
 
 # ---------------------------------------------------------------------------
@@ -90,7 +167,8 @@ class PrefillStep(_GenerationStep):
 
     ids: [b, bucket] prompts right-padded to the bucket; lens: [b] true
     prompt lengths (one shared length for the dense cache); slot_ids:
-    [b] the rows' slots (paged)."""
+    [b] the rows' slots (paged). Runs eagerly (a dense cache's write
+    position is a host int)."""
 
     @torch.no_grad()
     def __call__(self, buffers, meta, ids, lens, slot_ids, generator=None):
@@ -122,17 +200,15 @@ class PrefillStep(_GenerationStep):
 class DecodeStep(_GenerationStep):
     """One-token cached decode step over the whole batch: the dense
     cache advances its shared position, the paged cache the seq_lens of
-    its active slots."""
+    its active slots. Over a paged CUDA cache of a ``compiled`` engine it
+    replays a graph (greedy: the ``argmax`` too); the tokens and logits
+    it returns are copies, which the next call leaves alone."""
 
-    @torch.no_grad()
-    def __call__(self, buffers, meta, tokens, generator=None):
+    def _logits(self, cache, cur):
         eng = self.engine
-        cache = self._enter(buffers, meta)
-        dev = cache.device
-        cur = torch.as_tensor(tokens, device=dev).long()
         b = cur.shape[0]
         if cache.kind == "dense":
-            pos_ids = torch.full((b, 1), cache.pos, device=dev)
+            pos_ids = torch.full((b, 1), cache.pos, device=cache.device)
         else:
             pos_ids = cache.seq_lens[:, None]
         hidden = eng.model.gpt.decode_step(cur.reshape(b, 1), cache, pos_ids)
@@ -142,8 +218,39 @@ class DecodeStep(_GenerationStep):
         else:
             sl = cache.seq_lens
             cache.seq_lens = torch.where(cache.active, sl + 1, sl)
-        ids_next = self._sample(logits, generator)
-        return (ids_next, logits) + self._exit_state()
+        return logits
+
+    @torch.no_grad()
+    def __call__(self, buffers, meta, tokens, generator=None):
+        eng = self.engine
+        if not (self._compiled() and eng.cache.kind == "paged"):
+            cache = self._enter(buffers, meta)
+            cur = torch.as_tensor(tokens, device=cache.device).long()
+            logits = self._logits(cache, cur)
+            ids_next = self._sample(logits, generator)
+            return (ids_next, logits) + self._exit_state()
+        st = self._bind(buffers, meta)
+        cache = eng.cache
+        greedy = not eng.do_sample
+
+        def load():
+            st.load("tokens", tokens, torch.int64)
+            st.load("active", meta["active"], torch.bool)
+
+        def idle():
+            st["tokens"].zero_()
+            st["active"].zero_()
+
+        def body():
+            logits = self._logits(cache, st["tokens"])
+            return (self._sample(logits, None) if greedy else None), logits
+
+        ids_next, logits = self._replay(("decode", greedy), body, load,
+                                        idle)
+        logits = logits.clone()
+        ids_next = (ids_next.clone() if greedy
+                    else self._sample(logits, generator))
+        return (ids_next, logits) + self._exit_graph(meta)
 
 
 # ---------------------------------------------------------------------------
@@ -151,11 +258,12 @@ class DecodeStep(_GenerationStep):
 # ---------------------------------------------------------------------------
 
 class _ServingStep(_Step):
-    def _sample(self, logits, seeds, positions):
+    def _sample(self, logits, seeds, positions, greedy=None):
         eng = self.engine
         return sample_logits_per_slot(
             logits, seeds, positions, temperature=eng.temperature,
-            top_k=eng.top_k, top_p=eng.top_p, greedy=not eng.do_sample)
+            top_k=eng.top_k, top_p=eng.top_p,
+            greedy=not eng.do_sample if greedy is None else greedy)
 
 
 class ChunkPrefillStep(_ServingStep):
@@ -164,7 +272,8 @@ class ChunkPrefillStep(_ServingStep):
     over the context cached so far, and sample the prefill-complete
     token with the request's own RNG stream. The sampled token only
     means something when this was the prompt's final chunk; the host
-    discards it otherwise.
+    discards it otherwise. Compiled on the card, one graph a chunk
+    bucket (the ids' width); its outputs hold until the next call.
 
     Rows whose slot id is ``max_slots`` are the engine's padding rows.
     The reference handles that out-of-range id silently: its page-table
@@ -172,16 +281,8 @@ class ChunkPrefillStep(_ServingStep):
     Torch raises on both, so both are spelled out here (the gather in
     ``kv_cache.slot_rows``, the drop below)."""
 
-    @torch.no_grad()
-    def __call__(self, buffers, meta, ids, slot_ids, start, lens_new,
-                 seeds):
+    def _logits(self, cache, ids, sid, st, ln):
         eng = self.engine
-        cache = self._enter(buffers, meta)
-        dev = cache.device
-        ids = torch.as_tensor(ids, dtype=torch.int64, device=dev)
-        sid = torch.as_tensor(slot_ids, dtype=torch.int32, device=dev)
-        st = torch.as_tensor(start, dtype=torch.int32, device=dev)
-        ln = torch.as_tensor(lens_new, dtype=torch.int32, device=dev)
         hidden = eng.model.gpt.prefill_chunk(ids, cache, sid, st, ln)
         # last valid chunk position per row (a padding row's -1 clamps
         # to 0; its logits are discarded)
@@ -196,10 +297,54 @@ class ChunkPrefillStep(_ServingStep):
         sl = torch.cat([cache.seq_lens, cache.seq_lens.new_zeros(1)])
         sl[sid.clamp(max=n).long()] = ln
         cache.seq_lens = sl[:n]
-        # the sample position is the context length after this chunk, as
-        # at decode: a preempted request's re-prefill resumes its stream
-        ids_next = self._sample(logits, seeds, lens_new)
-        return (ids_next, logits) + self._exit_state()
+        return logits
+
+    @torch.no_grad()
+    def __call__(self, buffers, meta, ids, slot_ids, start, lens_new,
+                 seeds):
+        eng = self.engine
+        if not self._compiled():
+            cache = self._enter(buffers, meta)
+            dev = cache.device
+            logits = self._logits(
+                cache, torch.as_tensor(ids, dtype=torch.int64, device=dev),
+                torch.as_tensor(slot_ids, dtype=torch.int32, device=dev),
+                torch.as_tensor(start, dtype=torch.int32, device=dev),
+                torch.as_tensor(lens_new, dtype=torch.int32, device=dev))
+            # the sample position is the context length after this chunk,
+            # as at decode: a preempted request's re-prefill resumes its
+            # stream
+            ids_next = self._sample(logits, seeds, lens_new)
+            return (ids_next, logits) + self._exit_state()
+        st = self._bind(buffers, meta)
+        cache = eng.cache
+        bucket = np.shape(ids)[1]
+        greedy = not eng.do_sample
+        names = ("slot_ids", "start", "lens_new")
+
+        def load():
+            st.load(f"ids{bucket}", ids, torch.int64)
+            for name, value in zip(names, (slot_ids, start, lens_new)):
+                st.load(name, value, torch.int32)
+
+        def idle():
+            # every row padding: writes to the trash page, no length moves
+            st[f"ids{bucket}"].zero_()
+            st["slot_ids"].fill_(cache.max_slots)
+            st["start"].zero_()
+            st["lens_new"].zero_()
+
+        def body():
+            logits = self._logits(cache, st[f"ids{bucket}"],
+                                  *(st[n] for n in names))
+            return (self._sample(logits, None, None, greedy=True)
+                    if greedy else None), logits
+
+        ids_next, logits = self._replay(("chunk", bucket, greedy), body,
+                                        load, idle)
+        if not greedy:
+            ids_next = self._sample(logits, seeds, lens_new)
+        return (ids_next, logits) + self._exit_graph(meta)
 
 
 class ServeDecodeStep(_ServingStep):
@@ -209,26 +354,67 @@ class ServeDecodeStep(_ServingStep):
     slots (free, or still chunk-prefilling) write to the trash page,
     attend nothing and keep their seq_lens; their samples are discarded
     by the host. A slot whose request finishes mid-burst saturates its
-    seq_len at the engine window and writes on the trash page."""
+    seq_len at the engine window and writes on the trash page. Compiled
+    on the card, a greedy burst is one graph and a sampled burst one
+    graph a step with the draw between; the outputs hold until the next
+    call."""
+
+    def _logits(self, cache, cur):
+        eng = self.engine
+        b = cur.shape[0]
+        hidden = eng.model.gpt.decode_step(
+            cur.reshape(b, 1), cache, cache.seq_lens[:, None])
+        logits = eng.model.head(hidden)[:, 0]                # [b, vocab]
+        sl = cache.seq_lens
+        cache.seq_lens = torch.where(
+            cache.active, torch.clamp(sl + 1, max=eng.max_len), sl)
+        return logits
 
     @torch.no_grad()
     def __call__(self, buffers, meta, tokens, seeds):
         eng = self.engine
-        cache = self._enter(buffers, meta)
-        cur = torch.as_tensor(tokens, dtype=torch.int32, device=cache.device)
-        b = cur.shape[0]
+        k = eng.decode_burst
+        if not self._compiled():
+            cache = self._enter(buffers, meta)
+            cur = torch.as_tensor(tokens, dtype=torch.int32,
+                                  device=cache.device)
+            toks = []
+            for _ in range(k):
+                logits = self._logits(cache, cur)
+                cur = self._sample(logits, seeds, cache.seq_lens)
+                toks.append(cur)
+            return (torch.stack(toks), logits) + self._exit_state()
+        st = self._bind(buffers, meta)
+        cache = eng.cache
+
+        def load():
+            st.load("tokens", tokens, torch.int32)
+            st.load("active", meta["active"], torch.bool)
+
+        def idle():
+            st["tokens"].zero_()
+            st["active"].zero_()
+
+        if not eng.do_sample:
+            def burst():
+                cur, toks = st["tokens"], []
+                for _ in range(k):
+                    logits = self._logits(cache, cur)
+                    cur = self._sample(logits, None, None)
+                    toks.append(cur)
+                return torch.stack(toks), logits
+
+            out, logits = self._replay(("burst", k), burst, load, idle)
+            return (out, logits) + self._exit_graph(meta)
         toks = []
-        for _ in range(eng.decode_burst):
-            hidden = eng.model.gpt.decode_step(
-                cur.reshape(b, 1), cache, cache.seq_lens[:, None])
-            logits = eng.model.head(hidden)[:, 0]            # [b, vocab]
-            sl = cache.seq_lens
-            new_sl = torch.where(cache.active,
-                                 torch.clamp(sl + 1, max=eng.max_len), sl)
-            cache.seq_lens = new_sl
-            cur = self._sample(logits, seeds, new_sl)
+        for i in range(k):
+            logits = self._replay(
+                ("step",), lambda: self._logits(cache, st["tokens"]),
+                load if i == 0 else (lambda: None), idle)
+            cur = self._sample(logits, seeds, cache.seq_lens)
+            st["tokens"].copy_(cur)
             toks.append(cur)
-        return (torch.stack(toks), logits) + self._exit_state()
+        return (torch.stack(toks), logits) + self._exit_graph(meta)
 
 
 # ---------------------------------------------------------------------------
@@ -241,16 +427,19 @@ class GenerationEngine:
     ``kind`` picks the cache: "dense" (aligned batch, one shared write
     position) or "paged" (ragged prompt lengths, page pools, optionally
     ``kv_quant="int8"|"int4"``). `generate()` runs prompt -> tokens end
-    to end. ``compiled`` and ``donate`` are accepted and ignored: the
-    steps run eagerly and update the cache in place. Speculative
-    decoding (``draft_model``) is not ported yet."""
+    to end. With ``compiled`` (the default) a paged cache on a CUDA
+    device decodes by replaying a CUDA graph; the prompt pass, and every
+    step of a dense cache (whose write position is a host int), run
+    eagerly. ``donate`` is accepted and does nothing: the steps update
+    the cache in place. Speculative decoding (``draft_model``) is not
+    ported yet."""
 
     def __init__(self, model, kind="dense", batch=1, max_len=128,
                  do_sample=False, top_k=0, top_p=1.0, temperature=1.0,
                  compiled=True, cache_dtype=None, page_size=16,
                  prefill_buckets=DEFAULT_PREFILL_BUCKETS, donate=True,
                  draft_model=None, spec_k=4, kv_quant=None):
-        del compiled, donate, spec_k
+        del donate, spec_k
         cfg = model.config
         if max_len > cfg.max_position_embeddings:
             raise ValueError(
@@ -267,6 +456,7 @@ class GenerationEngine:
                 "ROADMAP queue A6 (speculative decoding)")
         self.model = model
         self.device = next(model.parameters()).device
+        self.compiled = bool(compiled)
         self.kind = kind
         self.batch = batch
         self.max_len = max_len

@@ -1,0 +1,131 @@
+"""CUDA graphs of the decode stack's steps: capture once, replay each call.
+
+The port's counterpart of the reference's compiled step (``jax.jit`` over
+a step function, paddle_tpu/jit/decode_step.py ``_Step``). Eager PyTorch
+issues each of a decode step's kernels from the host, which costs more
+than the kernels take on the card at serving batch sizes; a captured
+``torch.cuda.CUDAGraph`` launches them all with one call.
+
+* `StaticInputs`: the device tensors a graph reads. Before each replay
+  `StaticInputs.load` refills one from a host array (an asynchronous
+  copy) or from another device tensor.
+* `StepGraphs`: one step's graphs, one a key (its input shapes), valid
+  for one cache: a cache made anew (a recovered engine) drops them all.
+  `StepGraphs.capture` first runs the step body once eagerly on a side
+  stream (the warm-up: cuBLAS handles and workspaces, the split decode's
+  counters, the allocator's blocks come into being outside the capture),
+  then captures it on the same stream. The caller fills the static
+  inputs for that warm-up with values that change nothing it keeps (all
+  slots inactive, all chunk rows padding: their writes land on the trash
+  page), so the warm-up and the capture cost no extra step.
+* The paged kernels count their launches in Python, which a replay does
+  not run: a capture records how far it moved the counters
+  (``ops/kernels/paged_attention.py`` `counters`), puts them back, and
+  each replay adds that difference.
+
+A failed capture or replay raises; nothing here falls back to the eager
+loop. A graph's outputs live in its private memory pool and are
+overwritten by its next replay.
+"""
+from __future__ import annotations
+
+import weakref
+
+import numpy as np
+import torch
+
+from ..ops.kernels import paged_attention
+
+__all__ = ["StaticInputs", "StepGraphs"]
+
+_NP_DTYPES = {torch.int32: np.int32, torch.int64: np.int64,
+              torch.bool: np.bool_}
+
+
+class StaticInputs:
+    """Named device tensors at fixed addresses, which captured graphs
+    read."""
+
+    def __init__(self, device):
+        self.device = device
+        self._t = {}
+
+    def __getitem__(self, name):
+        return self._t[name]
+
+    def load(self, name, value, dtype):
+        """The static tensor ``name`` (made at ``value``'s shape on first
+        use), holding ``value``: a host array or CPU tensor is copied in
+        asynchronously, a device tensor on the device; the tensor itself
+        is left as it is."""
+        t = self._t.get(name)
+        if value is t:
+            return t
+        if isinstance(value, torch.Tensor) and value.device.type != "cpu":
+            src = value
+        else:
+            if isinstance(value, torch.Tensor):
+                value = value.numpy()
+            src = torch.from_numpy(np.ascontiguousarray(value,
+                                                        _NP_DTYPES[dtype]))
+        if t is None or t.shape != src.shape:
+            t = torch.zeros(src.shape, dtype=dtype, device=self.device)
+            self._t[name] = t
+        t.copy_(src, non_blocking=True)
+        return t
+
+
+class _Graph:
+    def __init__(self, graph, out, launches):
+        self.graph = graph
+        self.out = out
+        self.launches = launches
+
+    def replay(self):
+        self.graph.replay()
+        paged_attention.add_counts(self.launches)
+        return self.out
+
+
+class StepGraphs:
+    """The CUDA graphs of one step, one a key, for one cache."""
+
+    def __init__(self):
+        self._graphs = {}
+        self._owner = None
+        self._stream = None
+
+    def __len__(self):
+        return len(self._graphs)
+
+    def lookup(self, key, cache):
+        """The graph of ``key`` captured over ``cache``'s pools, or None.
+        A graph holds its pools' addresses, so a lookup with another cache
+        drops every graph."""
+        if self._owner is None or self._owner() is not cache:
+            self._graphs.clear()
+            self._owner = weakref.ref(cache)
+        return self._graphs.get(key)
+
+    def capture(self, key, fn, device):
+        """Run ``fn`` (the step body over the static inputs, returning its
+        outputs) once eagerly on a side stream, then capture it there;
+        returns the graph, not yet replayed."""
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(device)
+        side, cur = self._stream, torch.cuda.current_stream(device)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            fn()
+        cur.wait_stream(side)
+        before = paged_attention.counters()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            out = fn()
+        after = paged_attention.counters()
+        launches = {k: after[k] - before[k] for k in after
+                    if after[k] != before[k]}
+        # the capture launched nothing
+        paged_attention.add_counts({k: -n for k, n in launches.items()})
+        self._graphs[key] = g = _Graph(graph, out, launches)
+        return g

@@ -9,9 +9,9 @@ One call runs, in the reference's order (train_step.py ``step_fn``):
 
 1. the forward and the backward of ``loss * scale`` (``scale`` is the
    bound GradScaler's loss scale, else no scaling);
-2. with ``accum_steps`` > 1, the batch's dim 0 split into that many
-   micro-batches, each loss scaled by ``1 / accum_steps`` and its
-   backward accumulated on the parameters' grads;
+2. with ``accumulate_steps`` > 1, the batch's dim 0 split into that
+   many micro-batches, each loss scaled by ``1 / accumulate_steps`` and
+   its backward accumulated on the parameters' grads;
 3. with a guard (``scaler`` or ``guard_nonfinite``), the optimizer's
    gated step (`optimizer.Optimizer._guarded_step`): one finiteness check
    over the (still scaled) grads, the unscale, the grad clip and the
@@ -21,8 +21,12 @@ One call runs, in the reference's order (train_step.py ``step_fn``):
    grad clip first); then ``clear_grad``;
 4. the guard state advances by `GuardSpec.update` from the device flag.
 
-The step runs eagerly: the reference's jit, buffer donation, retrace
-sentinel, compile cache and sharding are not ported. The returned loss
+The constructor takes the reference's arguments in its order:
+``donate`` is accepted and does nothing (the step updates the state in
+place), ``accum_steps`` overrides ``accumulate_steps`` as in the
+reference, and ``numerics`` (the training-numerics monitor) raises until
+ROADMAP queue A7 ports it. The step runs eagerly: the reference's jit,
+retrace sentinel, compile cache and sharding are not ported. The returned loss
 stays on the device, and nothing is read back to the host, guarded or
 not: the gate is a device flag the optimizer's kernels read (see
 `nonfinite_guard`).
@@ -37,18 +41,30 @@ __all__ = ["TrainStep"]
 
 
 class TrainStep:
-    def __init__(self, model, loss_fn, optimizer, accum_steps=1,
-                 scaler=None, guard_nonfinite=None):
+    def __init__(self, model, loss_fn, optimizer, donate=True,
+                 accumulate_steps=1, accum_steps=None, scaler=None,
+                 guard_nonfinite=None, numerics=None):
+        del donate          # the state is updated in place
+        if numerics is not None:
+            raise NotImplementedError(
+                "TrainStep(numerics=...) is not ported yet: ROADMAP queue "
+                "A7 (the numerics monitor)")
+        if accum_steps is not None:
+            if int(accumulate_steps) not in (1, int(accum_steps)):
+                raise ValueError(
+                    f"conflicting accumulate_steps={accumulate_steps} "
+                    f"and accum_steps={accum_steps}")
+            accumulate_steps = accum_steps
         self.model = model
         self.loss_fn = loss_fn
         self.optimizer = optimizer
-        self.accum_steps = int(accum_steps)
+        self.accumulate_steps = int(accumulate_steps)
         self.guard = (GuardSpec(scaler)
                       if (scaler is not None or guard_nonfinite) else None)
         self._guard_state = None
 
     def _split(self, batch):
-        acc = self.accum_steps
+        acc = self.accumulate_steps
         sizes = {t.shape[0] for t in batch
                  if isinstance(t, torch.Tensor) and t.dim() > 0}
         if len(sizes) > 1:
@@ -77,7 +93,7 @@ class TrainStep:
             (loss if scale is None else loss * scale.to(loss.dtype)) \
                 .backward()
 
-        acc = self.accum_steps
+        acc = self.accumulate_steps
         if acc > 1:
             losses = []
             for micro in self._split(batch):

@@ -8,10 +8,11 @@ with ``need_clip = False`` are neither counted nor changed.
   (bf16 grads stay bf16: the norm upcasts, the grads do not) comes from
   `ops.kernels.multi_tensor.multi_tensor_norm` (one kernel launch on the
   card), ``scale = min(clip_norm / max(norm, 1e-12), 1)``, and every grad
-  is scaled and rounded back to its own dtype, in place (where the
-  reference returned new arrays). `optimizer.Adam`'s fused step does not
-  call it: it takes the same norm and folds the scale into its update
-  kernel with the same rounding.
+  is scaled and rounded back to its own dtype into a new tensor, as the
+  reference returns new arrays: the caller's grads stay as they were.
+  `optimizer.Optimizer.step` does not call it: it takes the same norm and
+  scales each grad as its update reads it (`scaled`), and `optimizer.Adam`'s
+  fused step folds the scale into its update kernel with the same rounding.
 * `ClipGradByValue`, `ClipGradByNorm` (each grad by its own norm) and
   `clip_grad_norm_` (the torch-style utility over parameters), plain
   tensor code as the reference runs them; the first two return new grads.
@@ -71,22 +72,21 @@ class ClipGradByGlobalNorm(ClipGradBase):
     @torch.no_grad()
     def __call__(self, params_grads):
         grads = [g for p, g in params_grads if _clipped(p, g)]
-        if grads:
-            # (sum of squares, scale)
-            stats, _ = multi_tensor_norm(grads, clip_norm=self.clip_norm)
-            for g in grads:
-                scale_(g, stats[1])
-        return params_grads
+        if not grads:
+            return params_grads
+        # (sum of squares, scale)
+        stats, _ = multi_tensor_norm(grads, clip_norm=self.clip_norm)
+        return [(p, scaled(g, stats[1]) if _clipped(p, g) else g)
+                for p, g in params_grads]
 
 
-def scale_(g, scale):
-    """``g = (g * scale)`` in fp32, rounded to g's dtype, in place. (An
-    in-place multiply of a bf16 tensor would round ``scale`` to bf16
-    first.)"""
+def scaled(g, scale):
+    """``g * scale`` in fp32, rounded to g's dtype, as a new tensor. (A
+    multiply of a bf16 tensor by a tensor scale would round ``scale`` to
+    bf16 first.)"""
     if g.dtype == torch.float32:
-        g.mul_(scale)
-    else:
-        g.copy_(g.float().mul_(scale))
+        return g * scale
+    return g.float().mul_(scale).to(g.dtype)
 
 
 @torch.no_grad()

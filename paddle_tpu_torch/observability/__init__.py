@@ -1,3 +1,5 @@
-from .registry import Gauge, Histogram, MetricsRegistry, percentile
+from .registry import (Counter, Gauge, Histogram, MetricsRegistry,
+                       percentile, registry)
 
-__all__ = ["Gauge", "Histogram", "MetricsRegistry", "percentile"]
+__all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry",
+           "percentile", "registry"]

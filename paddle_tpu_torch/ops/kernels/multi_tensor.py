@@ -24,7 +24,7 @@ train_step.py:355-369) feed it.
   and the moments (and ``vmax`` under amsgrad) in their own dtypes; the
   grads unscaled by ``inv_scale`` and scaled by ``clip_scale`` (on the
   ``need_clip`` tensors), each rounded to the grad's dtype as
-  ``nn/clip.py`` ``scale_`` does; a per-tensor lr scale, decoupled decay
+  ``nn/clip.py`` ``scaled`` does; a per-tensor lr scale, decoupled decay
   and L2 coefficient; the bias corrections in fp32 from ``step`` (a
   device int32 counter, read as ``step + 1`` and raised by one). With
   ``found_inf`` (a device bool) set nothing is written, the counter

@@ -63,7 +63,8 @@ from . import _build
 
 __all__ = ["paged_attention", "paged_attention_chunk",
            "paged_attention_ref", "paged_attention_chunk_ref",
-           "chunk_route", "decode_route", "split_plan"]
+           "add_counts", "chunk_route", "counters", "decode_route",
+           "split_plan"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -508,12 +509,28 @@ def paged_attention_chunk(q, k_pages, v_pages, page_tables, start,
     return out
 
 
-for _w in (paged_attention, paged_attention_chunk):
-    _w.launches = _w.launches_int8 = _w.launches_int4 = 0
-paged_attention.launches_split = 0
-paged_attention.launches_split_int8 = 0
-paged_attention.launches_split_int4 = 0
-paged_attention_chunk.launches_wgmma = 0
-paged_attention_chunk.launches_wgmma_int8 = 0
-paged_attention_chunk.launches_wgmma_int4 = 0
-del _w
+# every launch counter: (wrapper, attribute)
+_COUNTERS = tuple(
+    (w, f"launches{route}{quant}")
+    for w, routes in ((paged_attention, ("", "_split")),
+                      (paged_attention_chunk, ("", "_wgmma")))
+    for route in routes for quant in ("", "_int8", "_int4"))
+for _w, _attr in _COUNTERS:
+    setattr(_w, _attr, 0)
+del _w, _attr
+
+
+def counters():
+    """A snapshot of every launch counter of this module, ``{(wrapper
+    name, attribute): count}``. A CUDA-graph replay calls no Python, so
+    a capture records the difference of two snapshots and its replays
+    add it (`add_counts`): the counters then count kernels that ran."""
+    return {(w.__name__, attr): getattr(w, attr) for w, attr in _COUNTERS}
+
+
+def add_counts(delta):
+    """Add ``delta`` (keys as `counters` gives them) to the counters."""
+    for w, attr in _COUNTERS:
+        n = delta.get((w.__name__, attr), 0)
+        if n:
+            setattr(w, attr, getattr(w, attr) + n)

@@ -380,7 +380,7 @@ class NAdam(Optimizer):
         store = self._accumulators.setdefault("nadam_mu_product", {})
         if "_global" not in store:
             store["_global"] = torch.ones((), device=self._device())
-            self._track(store["_global"])
+            self._track(store["_global"], whole_step=True)
         return store["_global"]
 
     def _mu(self, t):

@@ -18,23 +18,29 @@ update, as the reference does. Optimizers with a fused update (`Adam`,
 `_append_optimize_op` one parameter at a time, with L2 decay folded into
 the gradient (`_apply_decay`).
 
+A global-norm clip (`nn.ClipGradByGlobalNorm`) on the per-parameter path
+takes its scale from one `multi_tensor_norm` and scales each grad as its
+update reads it, so no second copy of the grads exists and ``p.grad`` is
+never written, as in the reference (the other clips return new grads).
+
 `_guarded_step` is the training step's gate (`jit.TrainStep` with a
 ``scaler`` or ``guard_nonfinite``): it unscales the grads, finds a
 non-finite one and skips the update on the device. The fused update
-skips inside its kernel; the per-parameter path snapshots its state
-(parameters, masters, accumulators, the count) and selects the old
-values back with ``torch.where``, as the reference's ``gate`` does. No
-host read either way.
+skips inside its kernel; the per-parameter path selects each
+parameter's old state (the parameter, its master and accumulators, and
+what its update creates) back with ``torch.where`` right after that
+parameter's update, as the reference's ``gate`` does, so at most one
+parameter's state is copied at a time; the count and the optimizer-wide
+accumulators are selected back after the loop. No host read either way.
 
 PyTorch updates in place where the JAX package returned new arrays: the
 accumulators, masters and parameters keep their storage across steps.
 """
 from __future__ import annotations
 
-import contextlib
-
 import torch
 
+from ..nn.clip import ClipGradByGlobalNorm, scaled
 from ..ops.kernels.multi_tensor import multi_tensor_norm
 from .lr import LRScheduler
 
@@ -76,7 +82,9 @@ class Optimizer:
         self._master_weights = {}  # param -> fp32 tensor
         self._step_t = None        # the device step counter (int32)
         self._step_host = 0        # the count before the counter exists
-        self._snapshot = None      # the gate's (live, old) pairs
+        # the gate's (live, old) pairs of one parameter's update, and of
+        # the whole step
+        self._snapshot = self._step_snapshot = None
 
     def _add_params(self, entries):
         added = []
@@ -172,11 +180,14 @@ class Optimizer:
             self._track(self._master_weights[p])
         return self._master_weights[p]
 
-    def _track(self, t):
+    def _track(self, t, whole_step=False):
         """State made inside a gated step: its initial value is the old
-        one the gate restores."""
-        if self._snapshot is not None:
-            self._snapshot.append((t, t.clone()))
+        one the gate restores, after the update of the parameter that made
+        it, or with ``whole_step`` (state that every update reads) after
+        the loop."""
+        snap = self._step_snapshot if whole_step else self._snapshot
+        if snap is not None:
+            snap.append((t, t.clone()))
 
     def _param_value(self, p):
         """What the update reads: the fp32 master, or the parameter."""
@@ -223,22 +234,54 @@ class Optimizer:
         found = self._maybe_fused_step(params_grads, inv_scale, guard)
         if found is not False:
             return found
-        found = None
-        if guard:
-            _, found = multi_tensor_norm(
-                [g for _, g in params_grads], inv_scale=inv_scale,
+        clip = self._grad_clip
+        global_clip = isinstance(clip, ClipGradByGlobalNorm)
+        stats = found = None
+        if guard or global_clip:
+            stats, found = multi_tensor_norm(
+                [g for _, g in params_grads],
+                need_clip=[global_clip and getattr(p, "need_clip", True)
+                           for p, _ in params_grads],
+                inv_scale=inv_scale,
+                clip_norm=clip.clip_norm if global_clip else None,
                 write=inv_scale is not None, device=self._device())
-        with self._gated(found):
-            if self._grad_clip is not None:
-                params_grads = self._grad_clip(params_grads)
+            if not guard:
+                found = None
+        if clip is not None and not global_clip:
+            params_grads = clip(params_grads)
+        self._step_snapshot = snap = (
+            None if found is None
+            else [(t, t.clone()) for t in self._step_state()])
+        try:
             self._step_tensor().add_(1)
             self._before_update()
             for p, g in params_grads:
+                if global_clip and getattr(p, "need_clip", True):
+                    g = scaled(g, stats[1])
                 if self._use_master(p):
                     g = g.float()
-                self._append_optimize_op(p, self._apply_decay(p, g))
+                self._gated_update(found, p, g)
             self._after_update()
+        finally:
+            self._step_snapshot = None
+        _select_back(found, snap)
         return found
+
+    def _gated_update(self, found, p, g):
+        """``p``'s update (its L2 decay folded into ``g``). With ``found``
+        (a device bool), its state (the parameter, its master, its
+        accumulators and what the update creates) is selected back to the
+        old values where it is set."""
+        if found is None:
+            self._append_optimize_op(p, self._apply_decay(p, g))
+            return
+        self._snapshot = snap = [(t, t.clone())
+                                 for t in self._state_of_param(p)]
+        try:
+            self._append_optimize_op(p, self._apply_decay(p, g))
+        finally:
+            self._snapshot = None
+        _select_back(found, snap)
 
     def _before_update(self):
         """Subclass hook: once a step, after the count is raised and before
@@ -248,22 +291,23 @@ class Optimizer:
         """Subclass hook: state advanced once a step, after every
         parameter's update (NAdam's momentum product)."""
 
-    @contextlib.contextmanager
-    def _gated(self, found):
-        """With ``found`` (a device bool), every piece of state the block
-        touches (parameters, masters, accumulators, the count, and what it
-        creates) is selected back to its old value where ``found`` is
-        set."""
-        if found is None:
-            yield
-            return
-        self._snapshot = snap = [(t, t.clone()) for t in self._state()]
-        try:
-            yield
-        finally:
-            self._snapshot = None
-        for live, old in snap:
-            live.copy_(torch.where(found, old, live))
+    def _step_state(self):
+        """The count and the accumulators keyed by no parameter (NAdam's
+        momentum product)."""
+        yield self._step_tensor()
+        for store in self._accumulators.values():
+            for k, t in store.items():
+                if not isinstance(k, torch.Tensor):
+                    yield t
+
+    def _state_of_param(self, p):
+        """``p``, its master and its accumulators, as they are now."""
+        yield p.detach()
+        if p in self._master_weights:
+            yield self._master_weights[p]
+        for store in self._accumulators.values():
+            if p in store:
+                yield store[p]
 
     def _state(self):
         yield self._step_tensor()
@@ -346,3 +390,10 @@ class Optimizer:
             self._learning_rate.set_state_dict(state_dict["LR_Scheduler"])
 
     load_state_dict = set_state_dict
+
+
+def _select_back(found, snap):
+    """``live = old`` where ``found`` is set, for each (live, old) pair,
+    in place (no temporary of the tensor's size)."""
+    for live, old in snap or ():
+        torch.where(found, old, live, out=live)

@@ -1,13 +1,16 @@
 """Where the serving path's time goes on the card.
 
     python -m paddle_tpu_torch.profile_serving [--timed N]
-        [--kv-quant {int8,int4}]
+        [--kv-quant {int8,int4}] [--eager]
 
 Serves the workload of ``chip_smoke.py`` phase 5 (GPT-3 1.3B width,
 bf16 weights, bf16 pools or with ``--kv-quant`` int8 / int4 ones, 8
 slots, 16 greedy requests with prompts of 64-768 tokens and 32-128 new
-tokens, all from seed 0) once to warm up,
-then again under ``torch.profiler``, and prints one JSON line: the wall
+tokens, all from seed 0) through the engine's CUDA graphs (its
+default, ``compiled=True``; ``--eager`` serves through the eager loop,
+``compiled=False``): `ServingEngine.warmup`, the workload once to warm
+up, then again under ``torch.profiler``, and prints one JSON line: the
+path, the engine's capture counts, the wall
 time, the device time summed over every kernel (one stream, so kernels
 never overlap), the device's idle share of the wall time, the device
 time of the paged-attention kernels, of the matrix products and of
@@ -26,7 +29,7 @@ import numpy as np
 import torch
 
 from .models import GPTForCausalLM, gpt_config
-from .serving import ServingEngine, ServingMetrics
+from .serving import ServingEngine
 
 _ATTENTION = ("paged_decode_split_kernel", "paged_decode_kernel",
               "paged_chunk_kernel", "paged_chunk_wgmma_kernel",
@@ -44,8 +47,7 @@ def _requests(vocab, seed=0):
 
 def _serve(engine, requests):
     """Serve ``requests`` on fresh metrics; (handles, snapshot, wall)."""
-    engine.metrics = ServingMetrics(clock=engine.clock)
-    engine.scheduler.metrics = engine.metrics
+    engine.reset_metrics()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     handles = [engine.submit(p, n) for p, n in requests]
@@ -60,6 +62,8 @@ def main(argv=None):
                     help="N timed runs without the profiler instead")
     ap.add_argument("--kv-quant", choices=("int8", "int4"), default=None,
                     help="store the KV pages quantized")
+    ap.add_argument("--eager", action="store_true",
+                    help="the eager loop (compiled=False), not the graphs")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_serving needs a CUDA card")
@@ -68,14 +72,16 @@ def main(argv=None):
     engine = ServingEngine(model, max_slots=8, max_len=1024, page_size=16,
                            chunk_size=64, prefill_batch=4,
                            cache_dtype=torch.bfloat16,
-                           kv_quant=args.kv_quant)
+                           kv_quant=args.kv_quant, compiled=not args.eager)
     requests = _requests(cfg.vocab_size)
+    engine.warmup()
     _serve(engine, requests)                       # warm-up
     if args.timed:
         for run in range(args.timed):
             handles, snap, wall = _serve(engine, requests)
             print(json.dumps({
-                "run": run, "kv_quant": args.kv_quant, "wall_s": wall,
+                "run": run, "kv_quant": args.kv_quant,
+                "compiled": engine.compiled, "wall_s": wall,
                 "generated_tokens": snap["generated_tokens"],
                 "output_tok_s": snap["generated_tokens"] / wall,
                 **{k: snap[k] for k in ("ttft_p50_s", "ttft_p99_s",
@@ -105,6 +111,8 @@ def main(argv=None):
     out = {
         "device": torch.cuda.get_device_name(0),
         "kv_quant": args.kv_quant,
+        "compiled": engine.compiled,
+        "compile_counts": engine.compile_counts(),
         "requests": len(handles),
         "generated_tokens": sum(len(h.output_tokens) for h in handles),
         "wall_s": wall,

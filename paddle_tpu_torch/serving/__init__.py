@@ -5,7 +5,9 @@
 * ``RequestScheduler``: admission, preemption and retirement over the
   cache's slot and page bookkeeping.
 * ``ServingMetrics``: queue depth, TTFT, inter-token latency, tok/s and
-  preemption counters.
+  preemption counters, and their Prometheus text.
+* ``traffic``: synthetic Poisson traffic, served with real-time
+  arrivals, and the static generate-and-wait baseline.
 """
 from .engine import ServingEngine
 from .metrics import ServingMetrics, percentile

@@ -23,11 +23,21 @@ scale a row; int4 packs two values a byte): 1.88x or 3.56x the tokens
 of bf16 pools in the same memory at head_dim 64, with the dequant fused
 into the paged-attention kernels.
 
-Counterpart of paddle_tpu/serving/engine.py. Not here yet, and refused
-at construction: speculative decoding, the online tuner, the fleet
-roles (prefill-only replicas, host KV ring), the debug server, SLOs and
-step-failure retries. ``trace`` is accepted and records
-no spans: request tracing comes with the observability slice.
+On a CUDA device with ``compiled=True`` (the default, as the
+reference's) the decode burst and each chunk bucket's prefill replay
+CUDA graphs (`jit.graphs`), the port's counterpart of the reference's
+compiled steps: `warmup` captures them, `compile_counts` counts them.
+``compiled=False``, and any engine on the CPU, runs the steps eagerly.
+
+Counterpart of paddle_tpu/serving/engine.py, with its constructor.
+Refused at construction until their slices land: speculative decoding
+(``draft_model``, ROADMAP queue A6), and the online tuner, the fleet
+roles (``prefill_only``, ``host_kv_ring``), the debug server, SLOs and
+step-failure retries (A8). The options that only matter with one of
+those (``spec_k``, ``tuner_kw``, ``recover_backoff_s``) and the request
+tracer's (``trace``, ``trace_capacity``, the ``exemplar_*`` options)
+are accepted and record nothing; ``donate`` is accepted and does
+nothing (the steps update the pools in place).
 """
 from __future__ import annotations
 
@@ -39,6 +49,7 @@ import torch
 from ..framework.device import resolve_device
 from ..inference.kv_cache import PagedKVCache
 from ..jit.decode_step import ChunkPrefillStep, ServeDecodeStep, split_state
+from ..observability import registry as _global_registry
 from .metrics import ServingMetrics
 from .request import FinishReason, Request, RequestHandle, RequestState
 from .scheduler import RequestScheduler
@@ -46,16 +57,16 @@ from .scheduler import RequestScheduler
 __all__ = ["ServingEngine"]
 
 # constructor options of the reference that the port does not have yet,
-# and the slice that brings each; off is None or a falsy value (for
+# and the queue item that brings each; off is None or a falsy value (for
 # debug_port, where 0 means "any port", only None)
 _NOT_PORTED = {
-    "draft_model": "the speculative-decoding slice",
-    "tuner": "the online-tuner slice",
-    "host_kv_ring": "the fleet slice",
-    "prefill_only": "the fleet slice",
-    "debug_port": "the observability slice",
-    "slos": "the observability slice",
-    "recover_retries": "the fleet slice",
+    "draft_model": "ROADMAP queue A6 (speculative decoding)",
+    "tuner": "ROADMAP queue A8 (the online tuner)",
+    "host_kv_ring": "ROADMAP queue A8 (the fleet)",
+    "prefill_only": "ROADMAP queue A8 (the fleet)",
+    "debug_port": "ROADMAP queue A8 (observability)",
+    "slos": "ROADMAP queue A8 (observability)",
+    "recover_retries": "ROADMAP queue A8 (the fleet)",
 }
 
 
@@ -64,16 +75,28 @@ class ServingEngine:
                  num_pages=None, chunk_size=64,
                  prefill_chunks_per_step=1, prefill_batch=4,
                  decode_burst=1, do_sample=False, top_k=0, top_p=1.0,
-                 temperature=1.0, cache_dtype=None, admit_watermark="auto",
-                 clock=time.perf_counter, trace=True, device=None,
-                 kv_quant=None, **later):
+                 temperature=1.0, compiled=True, cache_dtype=None,
+                 kv_quant=None, draft_model=None, spec_k=4,
+                 donate=True, admit_watermark="auto",
+                 clock=time.perf_counter,
+                 trace=True, trace_capacity=256, exemplar_capacity=32,
+                 exemplar_quantile=99.0, exemplar_min_samples=32,
+                 slos=(), debug_port=None, tuner=False, tuner_kw=None,
+                 prefill_only=False, host_kv_ring=None,
+                 recover_retries=0, recover_backoff_s=0.05, device=None):
+        later = dict(draft_model=draft_model, tuner=tuner,
+                     host_kv_ring=host_kv_ring, prefill_only=prefill_only,
+                     debug_port=debug_port, slos=slos,
+                     recover_retries=recover_retries)
         for name, value in later.items():
-            if name not in _NOT_PORTED:
-                raise TypeError(f"unexpected argument {name!r}")
             if value is not None and (name == "debug_port" or value):
                 raise NotImplementedError(
-                    f"ServingEngine({name}=...) is not ported yet: it "
-                    f"comes with {_NOT_PORTED[name]}")
+                    f"ServingEngine({name}=...) is not ported yet: "
+                    f"{_NOT_PORTED[name]}")
+        # accepted; they matter only with a refused option or the tracer
+        del (spec_k, donate, trace, trace_capacity, exemplar_capacity,
+             exemplar_quantile, exemplar_min_samples, tuner_kw,
+             recover_backoff_s)
         self.device = resolve_device(device)
         param = next(model.parameters())
         if param.device != self.device:
@@ -105,8 +128,8 @@ class ServingEngine:
         self.top_k = int(top_k)
         self.top_p = float(top_p)
         self.temperature = float(temperature)
+        self.compiled = bool(compiled)
         self.clock = clock
-        del trace   # accepted; request tracing comes with a later slice
         self._cache_dtype = cache_dtype or torch.float32
         self.pages_per_seq = -(-self.max_len // self.page_size)
         # full provisioning by default; pass a smaller pool to
@@ -115,6 +138,7 @@ class ServingEngine:
                              1 + self.max_slots * self.pages_per_seq)
         self.cache = self._make_cache()
         self.metrics = ServingMetrics(clock=clock)
+        self._register_mem_gauges()
         self.scheduler = RequestScheduler(
             self.cache, self.metrics, admit_watermark=admit_watermark)
         self.scheduler.token_lookahead = self.decode_burst
@@ -125,11 +149,15 @@ class ServingEngine:
             bkts.append(b)
             b *= 2
         self.chunk_buckets = tuple(bkts) + (self.chunk_size,)
+        self.last_warmup_ms = None
+        self._warmup_report = {}
         self._buffers = self._split_buffers()
         # per-slot host mirrors refreshed every step
         self._tokens = np.zeros((self.max_slots,), np.int32)
         self._seeds = np.zeros((self.max_slots,), np.uint32)
         self._rid = 0
+        # the deadline sweep runs only once a deadline request exists
+        self._has_deadlines = False
 
     def _make_cache(self):
         cfg = self.model.config
@@ -145,10 +173,15 @@ class ServingEngine:
 
     # -- client surface ---------------------------------------------------
     def submit(self, prompt, max_new_tokens, priority=0,
-               eos_token_id=None, seed=None, on_token=None) -> RequestHandle:
+               eos_token_id=None, seed=None, on_token=None, rid=None,
+               deadline_s=None) -> RequestHandle:
         """Queue a request; returns a streaming handle immediately.
         Tokens arrive as the engine steps (`step()`/`run()`/`stream()`).
-        ``seed`` (default: the request id) keys its sampling stream."""
+        ``seed`` (default: the request id) keys its sampling stream.
+        ``rid`` overrides the engine-local request id (later ids continue
+        above it). ``deadline_s`` is a wall budget from submit: a request
+        still unfinished when it expires retires with finish reason
+        ``deadline_exceeded`` (pages freed) at the next step."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size == 0:
             raise ValueError("empty prompt")
@@ -163,14 +196,23 @@ class ServingEngine:
             raise ValueError(
                 f"request needs {self.cache.pages_needed(total)} pages "
                 f"but the pool only has {self.num_pages - 1}")
-        rid = self._rid
-        self._rid += 1
+        if rid is None:
+            rid = self._rid
+            self._rid += 1
+        else:
+            rid = int(rid)
+            self._rid = max(self._rid, rid + 1)
         req = Request(rid, prompt, int(max_new_tokens),
                       priority=int(priority), eos_token_id=eos_token_id,
-                      seed=int(seed) if seed is not None else rid)
+                      seed=int(seed) if seed is not None else rid,
+                      deadline_s=(float(deadline_s)
+                                  if deadline_s is not None else None))
         handle = RequestHandle(req, on_token=on_token)
         handle.arrival_seq = rid
         handle.submit_time = self.clock()
+        if req.deadline_s is not None:
+            handle.deadline = handle.submit_time + req.deadline_s
+            self._has_deadlines = True
         self.scheduler.enqueue(handle)
         self.metrics.on_submit()
         return handle
@@ -183,6 +225,8 @@ class ServingEngine:
         sched = self.scheduler
         worked = False
         try:
+            if self._has_deadlines:
+                self._expire_deadlines()
             for h in sched.admit():
                 # full-width uint32: distinct seeds stay distinct streams
                 self._seeds[h.slot] = np.uint32(
@@ -224,8 +268,130 @@ class ServingEngine:
                                    "engine is idle")
             self.step()
 
+    # -- deadlines --------------------------------------------------------
+    def _expire_deadlines(self):
+        """Retire every request whose wall deadline has passed: waiting
+        handles finish straight from the queue, resident ones through
+        the normal retire path (pages freed at once). Runs at the top of
+        each step, so a request overruns its deadline by at most one
+        dispatch."""
+        now = self.clock()
+        sched = self.scheduler
+        expired = 0
+        for h in [h for h in sched.waiting
+                  if h.deadline is not None and now > h.deadline]:
+            sched.waiting.remove(h)
+            h.state = RequestState.FINISHED
+            h.finish_reason = FinishReason.DEADLINE_EXCEEDED
+            h.finish_time = now
+            self.metrics.on_finish(h)
+            expired += 1
+        for slot, h in [(s, h) for s, h in sched.running.items()
+                        if h.deadline is not None and now > h.deadline]:
+            sched.retire(slot, FinishReason.DEADLINE_EXCEEDED, now)
+            expired += 1
+        if expired:
+            _global_registry().counter("serving.deadline_exceeded").inc(
+                expired)
+
+    # -- introspection and warm-up ------------------------------------------
+    def compile_counts(self) -> dict:
+        """Capture probe: decode stays at one graph across any
+        admit/preempt/retire churn, prefill at most one per chunk
+        bucket. Counts calls instead when the steps run eagerly (on the
+        CPU, or ``compiled=False``), as the reference's eager steps
+        count theirs."""
+        return {
+            "decode_traces": self.decode_step.trace_count,
+            "decode_executables": self.decode_step.cache_size(),
+            "prefill_traces": self.prefill_step.trace_count,
+            "prefill_executables": self.prefill_step.cache_size(),
+            "chunk_buckets": list(self.chunk_buckets),
+        }
+
     def metrics_snapshot(self) -> dict:
         return self.metrics.snapshot()
+
+    def metrics_text(self) -> str:
+        """Prometheus text exposition of this engine's metrics: counters
+        and gauges, and TTFT and inter-token latency summaries with
+        p50/p90/p99 quantiles."""
+        return self.metrics.expose()
+
+    def reset_metrics(self):
+        """Fresh metrics (after a warm-up, say): a measured window starts
+        from zero. Request tracing and SLOs are not ported (ROADMAP queue
+        A8), so there is nothing else to clear."""
+        self.metrics = ServingMetrics(clock=self.clock)
+        self.scheduler.metrics = self.metrics
+        self._register_mem_gauges()
+
+    def warmup(self):
+        """Capture every graph the serving loop can replay (the decode
+        burst and one chunk-prefill graph per bucket) by serving one
+        request per bucket, then reset the metrics, so a measured window
+        never pays a capture. Buckets warm one at a time (a joint batch
+        would only reach the largest). Eager steps (the CPU,
+        ``compiled=False``) just run. `last_warmup_ms` and
+        `warmup_report` record the wall time and the program count; there
+        is no compile cache (ROADMAP queue A8), so its hits and misses
+        are 0."""
+        t0 = time.perf_counter()
+        for b in self.chunk_buckets:
+            plen = max(1, min(b, self.max_len - 2))
+            self.submit(np.ones((plen,), np.int32), 2)
+            self.run()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.last_warmup_ms = (time.perf_counter() - t0) * 1e3
+        self._warmup_report = {
+            "warmup_ms": round(self.last_warmup_ms, 3),
+            "programs": len(self.chunk_buckets) + 1,
+            "cache_hits": 0, "cache_misses": 0,
+        }
+        self.reset_metrics()
+        return self
+
+    @property
+    def warmup_report(self) -> dict:
+        """The last `warmup()`'s wall time, program count and compile
+        cache hits and misses."""
+        return dict(self._warmup_report)
+
+    def set_decode_burst(self, k):
+        """Change the decode burst between engine steps. The burst is
+        unrolled inside the decode graph, so this builds a fresh decode
+        step, which captures anew on its first call."""
+        k = max(1, int(k))
+        if k != self.decode_burst:
+            self.decode_burst = k
+            self.decode_step = ServeDecodeStep(self)
+            self.scheduler.token_lookahead = k
+        return self
+
+    def _pool_stats_cached(self, ttl_s=0.2):
+        """One `pool_stats()` walk shared by the gauges of one scrape;
+        the serving loop never reads it. Wall-clock TTL on purpose: the
+        injectable ``clock`` may be frozen in tests."""
+        now = time.monotonic()
+        cached = self._pool_stats_memo
+        if cached is None or now - cached[0] > ttl_s:
+            cached = (now, self.cache.pool_stats())
+            self._pool_stats_memo = cached
+        return cached[1]
+
+    def _register_mem_gauges(self):
+        """The page pool's occupancy and fragmentation as lazy gauges,
+        read through ``self`` so a recovered engine's new cache stays
+        covered."""
+        self._pool_stats_memo = None
+        reg = self.metrics.registry
+        reg.gauge("serving.kv.free_pages").set_fn(
+            lambda: self.cache.free_page_count)
+        for stat in ("used_pages", "occupancy", "fragmentation",
+                     "max_contiguous_free"):
+            reg.gauge(f"serving.kv.{stat}").set_fn(
+                (lambda s: lambda: self._pool_stats_cached()[s])(stat))
 
     # -- step mechanics ---------------------------------------------------
     def _meta(self):
@@ -340,7 +506,9 @@ class ServingEngine:
 
     def _recover(self):
         """A failed step may leave the pools half-written: requeue every
-        resident request for resume and start from a fresh cache."""
+        resident request for resume and start from a fresh cache. The
+        steps' graphs hold the old pools' addresses: they drop them when
+        they next see the new cache, and capture anew."""
         self.scheduler.abort_all()
         self.cache = self._make_cache()
         self.scheduler.cache = self.cache

@@ -5,8 +5,12 @@ loop feed it events, and ``snapshot()`` renders the surface a run
 records (queue depth, running/waiting, per-request TTFT and inter-token
 latency percentiles, aggregate tok/s, preemption and page-reclaim
 counters). Everything is host-side and O(1) per event; no device sync
-is ever added for metrics. The latency samples are ring
-``Histogram``s on a per-engine ``MetricsRegistry``.
+is ever added for metrics. The latency samples are ring ``Histogram``s
+on a per-engine ``MetricsRegistry``, and `expose` renders that registry
+as Prometheus text, with the reference's metric names and types
+(paddle_tpu/serving/metrics.py). The speculative-decoding counters
+(ROADMAP queue A6) and the host KV ring's (A8) are there and stay 0
+until those slices land.
 """
 from __future__ import annotations
 
@@ -22,13 +26,16 @@ class ServingMetrics:
     # in place), published through lazy gauges
     _COUNTERS = ("submitted", "admitted", "resumed", "finished",
                  "preemptions", "evicted_pages", "prefill_chunks",
-                 "decode_steps", "generated_tokens")
+                 "decode_steps", "generated_tokens",
+                 "spec_dispatches", "spec_proposed", "spec_accepted",
+                 "spec_emitted", "kv_evictions", "kv_onloads")
     _GAUGES = ("queue_depth", "running")
 
-    def __init__(self, clock=time.perf_counter, slo=None):
+    def __init__(self, clock=time.perf_counter, registry=None, slo=None):
         if slo is not None:
             raise NotImplementedError(
-                "SLO tracking is not ported yet (observability slice)")
+                "SLO tracking is not ported yet: ROADMAP queue A8 "
+                "(observability)")
         self.clock = clock
         self.start_time = clock()
         self.submitted = 0
@@ -40,10 +47,14 @@ class ServingMetrics:
         self.prefill_chunks = 0
         self.decode_steps = 0
         self.generated_tokens = 0
+        self.spec_dispatches = self.spec_proposed = 0
+        self.spec_accepted = self.spec_emitted = 0
+        self.kv_evictions = self.kv_onloads = 0
         # gauges (refreshed every engine step)
         self.queue_depth = 0
         self.running = 0
-        self.registry = MetricsRegistry()
+        self.registry = registry if registry is not None \
+            else MetricsRegistry()
         self.ttft_s = self.registry.histogram("serving.ttft_s",
                                               window=4096)
         self.itl_s = self.registry.histogram("serving.itl_s",
@@ -57,6 +68,12 @@ class ServingMetrics:
             lambda: round(self.generated_tokens
                           / max(self.clock() - self.start_time, 1e-9),
                           2))
+        self.registry.gauge("serving.spec.accept_rate").set_fn(
+            lambda: round(self.spec_accepted
+                          / max(self.spec_proposed, 1), 4))
+        self.registry.gauge("serving.spec.tokens_per_dispatch").set_fn(
+            lambda: round(self.spec_emitted
+                          / max(self.spec_dispatches, 1), 4))
 
     # -- event feeds ------------------------------------------------------
     def on_submit(self):
@@ -86,6 +103,10 @@ class ServingMetrics:
         self.running = running
 
     # -- surface ----------------------------------------------------------
+    def expose(self) -> str:
+        """Prometheus text exposition of this engine's registry."""
+        return self.registry.expose()
+
     def snapshot(self) -> dict:
         elapsed = max(self.clock() - self.start_time, 1e-9)
         return {
@@ -98,6 +119,16 @@ class ServingMetrics:
             "prefill_chunks": self.prefill_chunks,
             "decode_steps": self.decode_steps,
             "generated_tokens": self.generated_tokens,
+            "spec_dispatches": self.spec_dispatches,
+            "spec_proposed": self.spec_proposed,
+            "spec_accepted": self.spec_accepted,
+            "spec_emitted": self.spec_emitted,
+            "spec_accept_rate": round(
+                self.spec_accepted / max(self.spec_proposed, 1), 4),
+            "spec_tokens_per_dispatch": round(
+                self.spec_emitted / max(self.spec_dispatches, 1), 4),
+            "kv_evictions": self.kv_evictions,
+            "kv_onloads": self.kv_onloads,
             "queue_depth": self.queue_depth,
             "running": self.running,
             "elapsed_s": round(elapsed, 4),

@@ -37,6 +37,7 @@ class FinishReason(enum.Enum):
     EOS = "eos"
     LENGTH = "length"        # max_new_tokens reached
     ABORTED = "aborted"
+    DEADLINE_EXCEEDED = "deadline_exceeded"
 
 
 @dataclass
@@ -47,6 +48,7 @@ class Request:
     priority: int = 0                   # higher = preempted later
     eos_token_id: int | None = None
     seed: int | None = None             # defaults to rid (engine)
+    deadline_s: float | None = None     # wall budget from submit
 
 
 class RequestHandle:
@@ -74,6 +76,9 @@ class RequestHandle:
         self.submit_time: float | None = None
         self.first_token_time: float | None = None
         self.finish_time: float | None = None
+        # absolute wall deadline, set by the engine at submit from
+        # request.deadline_s
+        self.deadline: float | None = None
         self._token_times: list[float] = []
         self._stream_cursor = 0
 

@@ -1335,3 +1335,228 @@ def test_multi_tensor_refusals_raise_without_a_fallback(cuda, monkeypatch):
     with pytest.raises(TypeError, match="no kernel"):
         mt.multi_tensor_norm([torch.ones(3, device=cuda, dtype=torch.int32)])
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# serving and generation as CUDA graphs
+# ---------------------------------------------------------------------------
+
+def _tiny_gpt(dev):
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+
+    cfg = GPTConfig(vocab_size=128, hidden_size=64, num_layers=2,
+                    num_attention_heads=4, max_position_embeddings=128)
+    return GPTForCausalLM(cfg, device=dev, seed=0)
+
+
+def _serve_tiny(model, dev, compiled, quant=None, burst=1, warm=False,
+                **kw):
+    """Six staggered requests (prompts 5-70 tokens, 8-16 new) through a
+    tiny engine, after `warmup()` and zeroed paged counters with
+    ``warm``; (engine, handles)."""
+    from paddle_tpu_torch.serving import ServingEngine
+
+    eng = ServingEngine(model, max_slots=4, max_len=128, page_size=16,
+                        chunk_size=32, prefill_batch=2, kv_quant=quant,
+                        decode_burst=burst, compiled=compiled, device=dev,
+                        **kw)
+    if warm:
+        eng.warmup()
+        for w, c in pa._COUNTERS:
+            setattr(w, c, 0)
+    rng = np.random.default_rng(0)
+    handles = []
+    for i, n in enumerate((5, 17, 33, 64, 9, 70)):
+        prompt = rng.integers(1, 128, (n,)).astype(np.int32)
+        handles.append(eng.submit(prompt, int(rng.integers(8, 17)),
+                                  seed=100 + i))
+        eng.step()
+    eng.run()
+    return eng, handles
+
+
+def _pools_equal_past_page_0(a, b):
+    """Every pool (and scale pool) of two caches bit-identical outside
+    the trash page, whose colliding writes land in no fixed order."""
+    names = ["k_layers", "v_layers"] + (["k_scales", "v_scales"]
+                                        if a.quantized else [])
+    return all(torch.equal(x[:, 1:], y[:, 1:])
+               for n in names for x, y in zip(getattr(a, n), getattr(b, n)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("burst", [1, 4])
+@pytest.mark.parametrize("quant", [None, "int8", "int4"])
+def test_serving_graphs_match_the_eager_loop(cuda, quant, burst):
+    """The same requests through the captured graphs and the eager loop:
+    greedy tokens identical, the pools bit-identical past page 0, one
+    decode graph and at most one prefill graph a bucket."""
+    model = _tiny_gpt(cuda)
+    ge, gh = _serve_tiny(model, cuda, True, quant, burst)
+    ee, eh = _serve_tiny(model, cuda, False, quant, burst)
+    assert [h.output_tokens for h in gh] == [h.output_tokens for h in eh]
+    assert _pools_equal_past_page_0(ge.cache, ee.cache)
+    counts = ge.compile_counts()
+    assert counts["decode_traces"] == counts["decode_executables"] == 1
+    assert counts["prefill_traces"] == counts["prefill_executables"] <= \
+        len(ge.chunk_buckets)
+    assert ee.compile_counts()["decode_executables"] == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("burst", [1, 3])
+def test_sampled_serving_graphs_match_the_eager_loop(cuda, burst):
+    """Under ``do_sample`` a graph ends at the logits and the draw runs
+    between replays: the streams equal the eager loop's."""
+    model = _tiny_gpt(cuda)
+    kw = dict(do_sample=True, top_k=20, top_p=0.9, temperature=0.8)
+    _, gh = _serve_tiny(model, cuda, True, burst=burst, **kw)
+    _, eh = _serve_tiny(model, cuda, False, burst=burst, **kw)
+    assert [h.output_tokens for h in gh] == [h.output_tokens for h in eh]
+
+
+@pytest.mark.gpu
+def test_graph_replays_count_their_launches(cuda):
+    """The paged kernels' counters count replays: after `warmup()` (whose
+    captures follow one eager call each, with idle inputs) a run counts
+    what the eager loop counts, and N more replays of the decode graph
+    add N times the launches its capture recorded."""
+    model = _tiny_gpt(cuda)
+    runs = {}
+    for compiled in (True, False):
+        eng, _ = _serve_tiny(model, cuda, compiled, warm=True)
+        torch.cuda.synchronize()
+        runs[compiled] = pa.counters()
+    assert runs[True] == runs[False]
+    assert runs[True][("paged_attention", "launches_split")] > 0
+    eng, _ = _serve_tiny(model, cuda, True, warm=True)
+    assert eng.compile_counts()["decode_traces"] == 1
+    graph = eng.decode_step._graphs.lookup(("burst", 1), eng.cache)
+    assert graph.launches == {("paged_attention", "launches_split"): 2}
+    before = pa.counters()
+    for _ in range(5):
+        graph.replay()
+    torch.cuda.synchronize()
+    after = pa.counters()
+    assert {k: after[k] - before[k] for k in after
+            if after[k] != before[k]} == {
+        k: 5 * n for k, n in graph.launches.items()}
+
+
+@pytest.mark.gpu
+def test_recovered_engine_recaptures(cuda, monkeypatch):
+    """A failed step gives the engine a fresh cache: the graphs of the
+    old pools are dropped, the next step captures anew, and the tokens
+    equal an undisturbed run's."""
+    model = _tiny_gpt(cuda)
+    _, want = _serve_tiny(model, cuda, True)
+    from paddle_tpu_torch.serving import ServingEngine
+
+    eng = ServingEngine(model, max_slots=4, max_len=128, page_size=16,
+                        chunk_size=32, prefill_batch=2, device=cuda)
+    rng = np.random.default_rng(0)
+    handles = []
+    for i, n in enumerate((5, 17, 33, 64, 9, 70)):
+        prompt = rng.integers(1, 128, (n,)).astype(np.int32)
+        handles.append(eng.submit(prompt, int(rng.integers(8, 17)),
+                                  seed=100 + i))
+        eng.step()
+    assert eng.decode_step.trace_count == 1
+    step = eng.decode_step
+    monkeypatch.setattr(eng, "decode_step", lambda *a: 1 / 0)
+    with pytest.raises(ZeroDivisionError):
+        eng.step()
+    monkeypatch.setattr(eng, "decode_step", step)
+    eng.run()
+    assert eng.decode_step.trace_count == 2
+    assert eng.decode_step.cache_size() == 1
+    assert [h.output_tokens for h in handles] == \
+        [h.output_tokens for h in want]
+
+
+@pytest.mark.gpu
+def test_set_decode_burst_recaptures(cuda):
+    """`warmup()` captures every graph; `set_decode_burst(4)` builds a
+    fresh decode step that captures once, with the tokens of an eager
+    engine at burst 4."""
+    model = _tiny_gpt(cuda)
+    from paddle_tpu_torch.serving import ServingEngine
+
+    eng = ServingEngine(model, max_slots=4, max_len=128, page_size=16,
+                        chunk_size=32, prefill_batch=2, device=cuda)
+    eng.warmup()
+    counts = eng.compile_counts()
+    assert counts["decode_traces"] == 1
+    assert counts["prefill_traces"] == len(eng.chunk_buckets) == 3
+    assert eng.warmup_report["programs"] == 4
+    eng.set_decode_burst(4)
+    assert eng.decode_step.trace_count == 0
+    rng = np.random.default_rng(0)
+    handles = []
+    for i, n in enumerate((5, 17, 33, 64, 9, 70)):
+        prompt = rng.integers(1, 128, (n,)).astype(np.int32)
+        handles.append(eng.submit(prompt, int(rng.integers(8, 17)),
+                                  seed=100 + i))
+        eng.step()
+    eng.run()
+    _, want = _serve_tiny(model, cuda, False, burst=4)
+    assert [h.output_tokens for h in handles] == \
+        [h.output_tokens for h in want]
+    counts = eng.compile_counts()
+    assert counts["decode_traces"] == counts["decode_executables"] == 1
+    assert counts["prefill_traces"] == 3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quant", [None, "int8"])
+def test_paged_generate_replays_its_decode_graph(cuda, quant):
+    """``generate(use_cache="paged")`` decodes by replaying one graph,
+    with the tokens and logits of ``compiled=False``."""
+    model = _tiny_gpt(cuda)
+    ids = np.random.default_rng(3).integers(1, 128, (3, 20))
+    kw = dict(use_cache="paged", seq_lens=[20, 9, 14], return_logits=True,
+              **({"kv_quant": quant} if quant else {}))
+    out = {}
+    for compiled in (True, False):
+        model.__dict__.pop("_generation_engines", None)
+        model.generate(ids, 6, compiled=compiled, **kw)
+        out[compiled] = model.generate(ids, 12, compiled=compiled, **kw)
+        eng = next(iter(model._generation_engines.values()))
+        assert eng.decode_step.cache_size() == int(compiled)
+    assert eng.decode_step.trace_count == 16
+    model.__dict__.pop("_generation_engines", None)
+    assert torch.equal(out[True][0], out[False][0])
+    assert torch.equal(out[True][1], out[False][1])
+
+
+@pytest.mark.gpu
+def test_guarded_per_parameter_step_copies_one_parameter_state(cuda):
+    """A guarded Momentum step over about 64 M fp32 parameters holds at
+    most the largest parameter's state (itself and its velocity) more
+    than the unguarded step, whether it updates or skips."""
+    from paddle_tpu_torch.optimizer import Momentum
+
+    shapes = [(4096, 8192), (4096, 4096), (2048, 4096), (2048, 4096)]
+    ps = [torch.nn.Parameter(torch.randn(s, device=cuda)) for s in shapes]
+    opt = Momentum(learning_rate=0.1, momentum=0.9, parameters=ps)
+    for p in ps:
+        p.grad = torch.randn_like(p)
+    opt.step()                              # the velocities exist
+    largest = 2 * max(p.numel() for p in ps) * 4
+
+    def peak_over(fn):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated() - base
+
+    plain = peak_over(opt.step)
+    guarded = peak_over(opt._guarded_step)
+    ps[1].grad[7, 7] = float("inf")
+    before = [p.detach().clone() for p in ps]
+    skipped = peak_over(opt._guarded_step)
+    assert all(torch.equal(p, b) for p, b in zip(ps, before))
+    assert guarded - plain <= largest + (1 << 20), (plain, guarded)
+    assert skipped - plain <= largest + (1 << 20), (plain, skipped)

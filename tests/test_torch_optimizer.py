@@ -625,3 +625,137 @@ def test_guarded_train_step_makes_no_host_read(opt_kind, scaler):
         step(x, y, one)
     assert opt._step_count == 2
     assert not torch.equal(model[2].weight, before[3])
+
+
+# ---------------------------------------------------------------------------
+# 7. p.grad after step(), and the guarded per-parameter step's selection
+# ---------------------------------------------------------------------------
+
+# every optimizer of the reference (the 12 others, and Adam / AdamW on the
+# fused and the per-parameter path)
+STEPPED = {**OTHERS,
+           "Adam_fused": dict(cls="Adam", weight_decay=0.02),
+           "Adam_per_param": dict(cls="Adam", weight_decay=0.02,
+                                  use_multi_tensor=False),
+           "AdamW_fused": dict(cls="AdamW"),
+           "AdamW_per_param": dict(cls="AdamW", use_multi_tensor=False)}
+# grad_clip objects of the two packages; "clip_grad_norm_" is the in-place
+# utility called before step()
+CLIP_KINDS = {
+    "global_norm": lambda nn: nn.ClipGradByGlobalNorm(0.5),
+    "norm": lambda nn: nn.ClipGradByNorm(0.5),
+    "value": lambda nn: nn.ClipGradByValue(0.3),
+    "clip_grad_norm_": None,
+}
+
+
+def _stepped(framework, name, arrays, clip):
+    kw = dict(STEPPED[name])
+    cls = kw.pop("cls", name)
+    kw.setdefault("learning_rate", 0.01)
+    jax_side = framework == "jax"
+    ps = _jparams(arrays) if jax_side else _tparams(arrays)
+    if jax_side:
+        kw.pop("use_multi_tensor", None)
+    make = CLIP_KINDS.get(clip)
+    if make is not None:
+        import paddle_tpu_torch.nn as tnn
+        kw["grad_clip"] = make(jnn if jax_side else tnn)
+    return ps, getattr(popt if jax_side else topt, cls)(parameters=ps, **kw)
+
+
+@pytest.mark.parametrize("clip", list(CLIP_KINDS))
+@pytest.mark.parametrize("name", list(STEPPED))
+def test_grads_after_step_match_jax(name, clip):
+    """``p.grad`` after ``step()`` is what the reference leaves: the grad
+    as given under a clip object (its clipped copy feeds the update
+    only), the clipped grad after ``clip_grad_norm_``; the parameters
+    follow the reference's."""
+    arrays = _init(7)
+    jps, jopt = _stepped("jax", name, arrays, clip)
+    tps, topt_ = _stepped("torch", name, arrays, clip)
+    for step in range(2):
+        gs = _grads(step, scale=2.0, seed=400)
+        _set_grads(jps, tps, gs)
+        if clip == "clip_grad_norm_":
+            jnn.clip.clip_grad_norm_(jps, 1.0)
+            clip_grad_norm_(tps, 1.0)
+        jopt.step()
+        topt_.step()
+        for i, (tp, jp, g) in enumerate(zip(tps, jps, gs)):
+            np.testing.assert_allclose(tp.grad.numpy(), _f32(jp.grad._data),
+                                       rtol=1e-6, atol=1e-7,
+                                       err_msg=f"{name} {clip} w{i}")
+            if clip != "clip_grad_norm_":
+                np.testing.assert_array_equal(tp.grad.numpy(), g)
+    for i, (tp, jp) in enumerate(zip(tps, jps)):
+        np.testing.assert_allclose(tp.detach().numpy(), _f32(jp._data),
+                                   rtol=1e-5, atol=1e-6,
+                                   err_msg=f"{name} {clip} w{i}")
+
+
+def _old_gated_step(opt):
+    """The guarded step as the per-parameter path ran it before: snapshot
+    every tensor of the state, run the plain step, select it all back
+    where a grad was not finite (state must exist already)."""
+    pg = opt._params_grads()
+    _, found = mt.multi_tensor_norm([g for _, g in pg])
+    snap = [(t, t.clone()) for t in opt._state()]
+    opt._run_step(pg)
+    for live, old in snap:
+        live.copy_(torch.where(found, old, live))
+    return found
+
+
+# the 12 other optimizers (14 configurations) and the per-parameter Adam
+GATED = [n for n in STEPPED if not n.endswith("_fused")]
+
+
+def _gated_run(name, clip, step_fn, skip_at, steps=4):
+    arrays = _init(8)
+    ps, opt = _stepped("torch", name, arrays, clip)
+    for step in range(steps):
+        gs = _grads(step, scale=1.5, seed=500)
+        if step == skip_at:
+            gs[2][1, 3] = np.inf
+        for p, g in zip(ps, gs):
+            p.grad = torch.from_numpy(g)
+        step_fn(opt)
+    return ps, opt
+
+
+@pytest.mark.parametrize("clip", ["global_norm", None])
+@pytest.mark.parametrize("name", GATED)
+def test_guarded_per_parameter_step_equals_the_whole_state_snapshot(name,
+                                                                    clip):
+    """Guarded steps with an inf at step 2 of 4 select each parameter's
+    state back right after its update: every parameter, master and
+    accumulator, and the count, bit for bit the old whole-state
+    snapshot's."""
+    new_ps, new = _gated_run(name, clip, lambda o: o._guarded_step(), 2)
+    old_ps, old = _gated_run(name, clip, _old_gated_step, 2)
+    assert new._step_count == old._step_count == 3
+    for a, b in zip(new_ps, old_ps):
+        assert torch.equal(a, b)
+    for store_name, store in new._accumulators.items():
+        for (ka, a), (kb, b) in zip(store.items(), old._accumulators[
+                store_name].items()):
+            assert torch.equal(a, b), (name, store_name)
+
+
+@pytest.mark.parametrize("name", GATED)
+def test_guarded_skip_of_the_first_step_leaves_fresh_state(name):
+    """A first step skipped (an inf grad) while its update creates the
+    accumulators leaves them at their initial values: the next steps
+    match an optimizer that never took the skipped one, bit for bit."""
+    ps, opt = _gated_run(name, "global_norm", lambda o: o._guarded_step(),
+                         0, steps=3)
+    arrays = _init(8)
+    ref_ps, ref = _stepped("torch", name, arrays, "global_norm")
+    for step in (1, 2):
+        for p, g in zip(ref_ps, _grads(step, scale=1.5, seed=500)):
+            p.grad = torch.from_numpy(g)
+        ref._guarded_step()
+    assert opt._step_count == ref._step_count == 2
+    for a, b in zip(ps, ref_ps):
+        assert torch.equal(a, b)

@@ -190,7 +190,10 @@ def test_recompute_replays_the_block_forward():
 # 2. the training step
 # ---------------------------------------------------------------------------
 
-def _trajectory(acc, steps=5):
+def _trajectory(acc, steps=5, port_args=None):
+    """5 AdamW steps of both packages; ``port_args`` builds the port's
+    `TrainStep` from (model, loss_fn, optimizer) instead of
+    ``accum_steps=acc``."""
     jm, tm = make_models()
     bt = batch(b=4, s=32, seed=2)
     jopt = popt.AdamW(learning_rate=1e-3, weight_decay=0.01,
@@ -200,8 +203,9 @@ def _trajectory(acc, steps=5):
     topt = AdamW(learning_rate=1e-3, weight_decay=0.01,
                  parameters=tm.parameters(),
                  grad_clip=ClipGradByGlobalNorm(1.0))
-    tstep = TrainStep(tm, lambda m, x, y: m.loss(x, y), topt,
-                      accum_steps=acc)
+    loss_fn = lambda m, x, y: m.loss(x, y)  # noqa: E731
+    tstep = (TrainStep(tm, loss_fn, topt, accum_steps=acc)
+             if port_args is None else port_args(tm, loss_fn, topt))
     ja = [paddle.to_tensor(bt[k], dtype="int64") for k in ("ids", "labels")]
     ta = [torch.from_numpy(bt[k]) for k in ("ids", "labels")]
     jl = [float(jstep(*ja)) for _ in range(steps)]
@@ -218,6 +222,37 @@ def test_train_step_trajectory_matches_jax(acc):
     want = _jax_params(jm)
     for name, got in _port_params(tm).items():
         assert _rel(got, want[name]) < 5e-3, name
+
+
+@pytest.mark.parametrize("form", ["accumulate_steps", "positional"])
+def test_train_step_takes_the_reference_signature(form):
+    """The reference's order and names: the fourth positional argument is
+    ``donate`` (accepted, the state is updated in place) and
+    ``accumulate_steps`` the micro-batch count; the trajectory holds the
+    repo's bars against the reference's."""
+    build = {
+        "accumulate_steps": lambda m, f, o: TrainStep(
+            m, f, o, donate=True, accumulate_steps=2),
+        "positional": lambda m, f, o: TrainStep(m, f, o, False, 2),
+    }[form]
+    jm, tm, jl, tl, topt = _trajectory(2, port_args=build)
+    assert max(abs(a - b) for a, b in zip(jl, tl)) < 5e-4, (jl, tl)
+    want = _jax_params(jm)
+    for name, got in _port_params(tm).items():
+        assert _rel(got, want[name]) < 5e-3, name
+
+
+def test_train_step_accum_steps_overrides_and_numerics_waits_for_a7():
+    _, tm = make_models()
+    opt = AdamW(parameters=tm.parameters())
+    loss_fn = lambda m, x, y: m.loss(x, y)  # noqa: E731
+    assert TrainStep(tm, loss_fn, opt, accum_steps=4).accumulate_steps == 4
+    assert TrainStep(tm, loss_fn, opt, accumulate_steps=4,
+                     accum_steps=4).accumulate_steps == 4
+    with pytest.raises(ValueError, match="conflicting"):
+        TrainStep(tm, loss_fn, opt, accumulate_steps=2, accum_steps=4)
+    with pytest.raises(NotImplementedError, match="A7"):
+        TrainStep(tm, loss_fn, opt, numerics=True)
 
 
 def test_train_step_accum_divisibility_errors():
@@ -310,18 +345,22 @@ def test_clip_matches_jax_and_keeps_dtypes():
     params = [torch.zeros(s) for s in shapes]
     params[2].need_clip = False
     tg = [torch.from_numpy(g.copy()) for g in gs]
-    ClipGradByGlobalNorm(1.0)(list(zip(params, tg)))
+    tout = ClipGradByGlobalNorm(1.0)(list(zip(params, tg)))
     jparams = [paddle.to_tensor(np.zeros(s, np.float32)) for s in shapes]
     jparams[2].need_clip = False
     out = JClip(1.0)(list(zip(jparams, [paddle.to_tensor(g) for g in gs])))
-    for t, (_, j) in zip(tg, out):
+    for (_, t), (_, j) in zip(tout, out):
         np.testing.assert_allclose(t.numpy(), np.asarray(j._data), rtol=1e-6,
                                    atol=1e-7)
-    np.testing.assert_array_equal(tg[2].numpy(), gs[2])
+    np.testing.assert_array_equal(tout[2][1].numpy(), gs[2])
+    # new grads, as the reference returns: the caller's stay as they were
+    for t, g in zip(tg, gs):
+        np.testing.assert_array_equal(t.numpy(), g)
     bf = torch.from_numpy(gs[0]).bfloat16()
-    ClipGradByGlobalNorm(1.0)([(params[0], bf)])
-    assert bf.dtype == torch.bfloat16
-    assert abs(float(bf.float().norm()) - 1.0) < 1e-2
+    (_, bf_out), = ClipGradByGlobalNorm(1.0)([(params[0], bf)])
+    assert bf_out.dtype == torch.bfloat16
+    assert abs(float(bf_out.float().norm()) - 1.0) < 1e-2
+    assert torch.equal(bf, torch.from_numpy(gs[0]).bfloat16())
 
 
 # ---------------------------------------------------------------------------
