@@ -109,7 +109,23 @@ Phases, one line each (any failure exits non-zero, nothing is caught):
     single-block backward on warpgroup products must run, and no other
     attention kernel, the fp32 backward route among them) and at 4 x 2048
     (the bf16 tiled forward and backward on warpgroup products);
-11. one JSON line ``{"kernels": [...]}`` with each kernel's error,
+11. ResNet parity: resnet18 at 32 x 32, batch 4, Momentum(0.1, 0.9),
+    three ``TrainStep``s on the card and on the CPU, each from the CPU's
+    state (a trajectory at this size is chaotic); losses, parameters,
+    batch norm buffers and velocities must agree; then a guarded step
+    over a batch with an inf (under ``set_sync_debug_mode("error")`` on
+    the card) must leave them bit-identical on both;
+12. ResNet-50 training at the reference bench lane's configuration
+    (``bench.py`` ``run_resnet_config``: fp32, batch 32 of 224 x 224,
+    Momentum(0.1, 0.9)): 2 warm-up and 5 timed steps (step ms, images/s,
+    ``mfu_fp32`` from the convolutions' and the Linear's FLOPs, peak
+    memory), then 5 steps through ``step.prefetch`` with a new host batch
+    a step (images/s, ``input_stall_ms``, ``h2d_ms``); every loss finite
+    and every counter of the port's own kernels at 0 (convolution, batch
+    norm and pooling run as cuDNN and aten ops); then ``save`` of the
+    model and the Momentum state and ``load`` into a fresh CPU model and
+    optimizer, bit for bit;
+13. one JSON line ``{"kernels": [...]}`` with each kernel's error,
     times, bound and launches (a paged kernel's from the serving run of
     its pools' graph run, splash's, the CE's and the optimizer's from
     phase 9, a flash pair's from its phase-10 run).
@@ -136,7 +152,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
 BF16_FLOP_PER_S = 989e12        # dense bf16 tensor-core peak
 FP32_FLOP_PER_S = 67e12         # fp32 outside the tensor cores
-PHASES = 11
+PHASES = 13
 
 
 def nvidia_smi() -> str:
@@ -2300,6 +2316,300 @@ def train_full_width(dev, warmup=2, timed=5, batch=8, seq=1024,
     return {k: launches[k] for k in ran}, timed
 
 
+# ---------------------------------------------------------------------------
+# phases 11-12: ResNet training (the vision slice)
+# ---------------------------------------------------------------------------
+
+def _port_counters():
+    """Zero / read every launch counter of the port's own kernels (the
+    training, optimizer and paged kernels)."""
+    train = _TrainCounters()
+
+    def zero():
+        train.zero()
+        _paged_reset()
+
+    def read():
+        return {**train.read(), **_paged_launches()}
+
+    return zero, read
+
+
+def _resnet_step(model, lr=0.1, **kw):
+    """(optimizer, step): the bench lane's Momentum(lr, 0.9) and
+    ``TrainStep`` over ``CrossEntropyLoss`` (``kw``: the guard)."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.nn import CrossEntropyLoss
+    from paddle_tpu_torch.optimizer import Momentum
+
+    crit = CrossEntropyLoss()
+    opt = Momentum(learning_rate=lr, momentum=0.9,
+                   parameters=model.parameters())
+    return opt, TrainStep(model, lambda m, x, y: crit(m(x), y), opt, **kw)
+
+
+def _resnet_state(model, opt):
+    """The model's parameters and buffers and the optimizer's velocities,
+    by name, on the CPU."""
+    out = {k: t.detach().cpu() for k, t in model.state_dict().items()}
+    names = {p: n for n, p in model.named_parameters()}
+    for p, v in opt._accumulators.get("velocity", {}).items():
+        out[f"velocity:{names[p]}"] = v.detach().cpu()
+    return out
+
+
+def _set_resnet_state(model, opt, state):
+    """`_resnet_state`'s values into ``model`` and ``opt``, in place."""
+    with torch.no_grad():
+        model.load_state_dict({k: v for k, v in state.items()
+                               if not k.startswith("velocity:")})
+        for n, p in model.named_parameters():
+            v = state.get(f"velocity:{n}")
+            if v is not None:
+                opt._get_accumulator("velocity", p).copy_(v)
+
+
+def resnet_parity(dev):
+    """Phase 11: resnet18 at 32 x 32, batch 4, 10 classes, Momentum(0.1,
+    0.9), 3 ``TrainStep``s on the card and on the CPU from the same
+    weights; each step starts both from the CPU's state (parameters,
+    buffers, velocities), because a trajectory at this size is chaotic
+    (batch norm over 4 values a channel in layer4: a 1e-7 relative change
+    of the weights moves the third loss past 5e-4 on the CPU alone,
+    tests/test_torch_vision.py).
+    Loss 1e-4, parameters, buffers and velocities 1e-3 relative. Then a
+    guarded step over a batch with an inf, under
+    ``set_sync_debug_mode("error")``: parameters, buffers and velocities
+    bit-identical to before it, on the card and on the CPU."""
+    from paddle_tpu_torch.vision.models import resnet18
+
+    rng = np.random.default_rng(11)
+    batches = [(rng.standard_normal((4, 3, 32, 32)).astype(np.float32),
+                rng.integers(0, 10, (4,))) for _ in range(4)]
+    models = {"card": resnet18(num_classes=10, device=dev, seed=0),
+              "cpu": resnet18(num_classes=10, device="cpu", seed=0)}
+    models["card"].load_state_dict(models["cpu"].state_dict())
+    steps = {w: _resnet_step(m) for w, m in models.items()}
+    losses, loss_err, rel = {"card": [], "cpu": []}, 0.0, 0.0
+    for i, (x, y) in enumerate(batches[:3]):
+        if i:
+            _set_resnet_state(models["card"], steps["card"][0],
+                              _resnet_state(models["cpu"], steps["cpu"][0]))
+        for where, (opt, step) in steps.items():
+            d = dev if where == "card" else torch.device("cpu")
+            losses[where].append(float(step(torch.from_numpy(x).to(d),
+                                            torch.from_numpy(y).to(d))))
+        loss_err = max(loss_err, abs(losses["card"][-1]
+                                     - losses["cpu"][-1]))
+        got = _resnet_state(models["card"], steps["card"][0])
+        want = _resnet_state(models["cpu"], steps["cpu"][0])
+        rel = max(rel, max(_rel_err(got[k], want[k]) for k in want))
+
+    guarded = {}
+    bad = batches[3][0].copy()
+    bad[1, 2, 5, 5] = np.inf
+    for where, model in models.items():
+        d = dev if where == "card" else torch.device("cpu")
+        opt, step = _resnet_step(model, guard_nonfinite=True)
+        x, y = (torch.from_numpy(a).to(d) for a in batches[3])
+        step(x, y)                           # makes the velocities
+        before = _resnet_state(model, opt)
+        xb = torch.from_numpy(bad).to(d)
+        if where == "card":
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            loss = step(xb, y)
+        finally:
+            if where == "card":
+                torch.cuda.set_sync_debug_mode(0)
+        after = _resnet_state(model, opt)
+        guarded[where] = {
+            "loss": float(loss),
+            "rollback_bit_identical": before.keys() == after.keys() and all(
+                torch.equal(before[k], after[k]) for k in before),
+            "skipped": int(step.guard.skipped)}
+    print(f"[11/{PHASES}] resnet parity: resnet18 32x32 batch 4, "
+          f"Momentum(0.1, 0.9), 3 TrainSteps, each from the CPU's state; "
+          f"losses card {losses['card']} cpu {losses['cpu']} (max |diff| "
+          f"{loss_err:.3g}); params, buffers and velocities max rel diff "
+          f"{rel:.3g}; guarded inf step (sync debug 'error' on the card): "
+          f"{json.dumps(guarded)}; cudnn deterministic "
+          f"{torch.backends.cudnn.deterministic} benchmark "
+          f"{torch.backends.cudnn.benchmark} allow_tf32 "
+          f"{torch.backends.cudnn.allow_tf32}; {nvidia_smi()}", flush=True)
+    if not loss_err <= 1e-4:
+        raise AssertionError(f"resnet card/CPU losses differ by {loss_err}")
+    if not rel <= 1e-3:
+        raise AssertionError(f"resnet card/CPU state differs by {rel} rel")
+    for where, r in guarded.items():
+        if not (r["rollback_bit_identical"] and r["skipped"] == 1
+                and not np.isfinite(r["loss"])):
+            raise AssertionError(f"resnet guarded step, {where}: {r}")
+
+
+def _resnet_flops(model, x):
+    """Training FLOPs of one step: 2 x the multiply-adds of every
+    convolution and Linear in a forward at ``x``'s shape, times 3 (the
+    backward takes two products a forward product)."""
+    from paddle_tpu_torch.nn import Conv2D
+
+    macs = []
+
+    def conv(m, inp, out):
+        kh, kw = m.weight.shape[2:]
+        macs.append(out.numel() * m.weight.shape[1] * kh * kw)
+
+    def linear(m, inp, out):
+        macs.append(out.numel() * m.in_features)
+
+    hooks = [m.register_forward_hook(conv if isinstance(m, Conv2D)
+                                     else linear)
+             for m in model.modules()
+             if isinstance(m, (Conv2D, torch.nn.Linear))]
+    try:
+        with torch.no_grad():
+            model.eval()
+            model(x)
+            model.train()
+    finally:
+        for h in hooks:
+            h.remove()
+    return 3 * 2.0 * sum(macs)
+
+
+def resnet_full_width(dev, warmup=2, timed=5, batch=32):
+    """Phase 12: ResNet-50 at the bench lane's configuration
+    (bench.py:544-600: resnet50(num_classes=1000) from seed 0,
+    CrossEntropyLoss, Momentum(0.1, 0.9), fp32, batch 32 of 3 x 224 x 224
+    random images and labels from ``default_rng(0)``); ``warmup`` then
+    ``timed`` steps on one batch held on the card, then ``timed`` steps
+    through ``step.prefetch(..., depth=2)`` over a new random host batch a
+    step. Every counter of the port's own kernels is zeroed before the
+    ResNet steps and must read 0 after them (they run cuDNN and aten
+    only). Then the model and the Momentum state go through `save` and
+    `load` into a fresh CPU model and optimizer, bit for bit."""
+    import shutil
+    import tempfile
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import convert
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision.models import resnet50
+
+    zero, read = _port_counters()
+    t0 = time.perf_counter()
+    model = resnet50(num_classes=1000, device=dev, seed=0)
+    opt, step = _resnet_step(model)
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((batch, 3, 224, 224))
+                         .astype(np.float32)).to(dev)
+    y = torch.from_numpy(rng.integers(0, 1000, (batch,))).to(dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    flops = _resnet_flops(model, x)
+    zero()
+    losses = [float(step(x, y)) for _ in range(warmup)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(timed):
+        t0 = time.perf_counter()
+        loss = step(x, y)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    peak = torch.cuda.max_memory_allocated()
+
+    def host_batches():
+        for _ in range(timed):
+            yield (rng.standard_normal((batch, 3, 224, 224))
+                   .astype(np.float32),
+                   rng.integers(0, 1000, (batch,), dtype=np.int64))
+
+    pf = step.prefetch(host_batches(), depth=2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pf_losses = [step(xb, yb) for xb, yb in pf]
+    torch.cuda.synchronize()
+    pf_s = time.perf_counter() - t0
+    losses += [float(v) for v in pf_losses]
+    launches = read()
+    pf_stats = pf.get_stats()
+
+    # the file goes to a scratch directory of the checkout (gitignored)
+    scratch = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "chip_scratch")
+    os.makedirs(scratch, exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=scratch)
+    try:
+        path = os.path.join(tmp, "resnet50.pdparams")
+        t0 = time.perf_counter()
+        pt.save({"model": convert.state_dict_to_jax(
+                     model.state_dict(), model=model, tensors=True),
+                 "opt": convert.optimizer_state_to_jax(opt.state_dict(),
+                                                       model, opt)}, path)
+        save_s = time.perf_counter() - t0
+        file_bytes = os.path.getsize(path)
+        t0 = time.perf_counter()
+        ck = pt.load(path)
+        cpu_model = resnet50(num_classes=1000, device="cpu", seed=1)
+        cpu_model.load_state_dict(convert.state_dict_from_jax(
+            ck["model"], model=cpu_model))
+        cpu_opt = Momentum(learning_rate=0.1, momentum=0.9,
+                           parameters=cpu_model.parameters())
+        cpu_opt.set_state_dict(convert.optimizer_state_from_jax(
+            ck["opt"], cpu_model, cpu_opt))
+        load_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    got, want = _resnet_state(cpu_model, cpu_opt), _resnet_state(model, opt)
+    same = got.keys() == want.keys() and all(
+        torch.equal(got[k], want[k]) for k in want)
+
+    step_s = statistics.median(times)
+    stats = {
+        "model": "resnet50", "num_classes": 1000, "batch": batch,
+        "image": [3, 224, 224], "dtype": "float32",
+        "optimizer": "Momentum(0.1, 0.9), per-parameter",
+        "params": sum(p.numel() for p in model.parameters()),
+        "setup_s": setup_s, "losses": losses,
+        "step_ms": [t * 1e3 for t in times],
+        "step_ms_median": step_s * 1e3,
+        "images_per_s": batch / step_s,
+        "train_flops_per_step": flops,
+        "mfu_fp32": flops / step_s / FP32_FLOP_PER_S,
+        "max_memory_allocated": peak,
+        "prefetch": {"steps": timed, "depth": 2, "wall_s": pf_s,
+                     "images_per_s": batch * timed / pf_s,
+                     "input_stall_ms_mean": pf_stats["input_stall_ms"]
+                     ["mean"],
+                     "h2d_ms_mean": pf_stats["h2d_ms"]["mean"],
+                     "per_step_input_stall_ms":
+                         pf_stats["per_step_input_stall_ms"],
+                     "per_step_h2d_ms": pf_stats["per_step_h2d_ms"]},
+        "port_kernel_launches": {k: n for k, n in launches.items() if n},
+        "checkpoint": {"file_bytes": file_bytes, "save_s": save_s,
+                       "load_s": load_s, "bit_identical": same},
+        "cudnn": {"deterministic": torch.backends.cudnn.deterministic,
+                  "benchmark": torch.backends.cudnn.benchmark,
+                  "allow_tf32": torch.backends.cudnn.allow_tf32},
+        "nvidia_smi": nvidia_smi(),
+    }
+    print(f"[12/{PHASES}] train resnet50 (bench lane): {json.dumps(stats)}",
+          flush=True)
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite resnet50 loss: {losses}")
+    if stats["port_kernel_launches"]:
+        raise AssertionError(f"the port's kernels ran in the ResNet steps: "
+                             f"{stats['port_kernel_launches']}")
+    if not same:
+        raise AssertionError("resnet50 save/load is not bit-identical")
+    del model, opt, step, cpu_model, cpu_opt, ck
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -2371,6 +2681,8 @@ def main() -> int:
                           if k not in CE_KERNELS + OPT_KERNELS})
     for name, base in RING_TICK.items():
         launches[name], steps[name] = launches[base], steps[base]
+    resnet_parity(dev)
+    resnet_full_width(dev)
 
     where = {name: (PAGED_SOURCE, f"{PAGED_TPU}:{line}")
              for name, (_, _, _, line) in PAGED_KERNELS.items()}
@@ -2402,7 +2714,7 @@ def main() -> int:
                 if name in steps else {}),
              **{k: r[k] for k in keys if k in r}}
             for name, r in kernels.items()]
-    print(f"[11/{PHASES}] kernels:", flush=True)
+    print(f"[13/{PHASES}] kernels:", flush=True)
     print(json.dumps({"kernels": line}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -6,7 +6,8 @@ package imports ``torch`` and numpy only, never ``jax`` and never
 ``paddle_tpu``.
 
 Ported so far: the serving path (fp, int8 and int4 KV pages),
-generation and single-card pretraining, through splash attention or,
+generation, ResNet training, checkpoint files, and single-card
+pretraining through splash attention or,
 with ``FLAGS_splash_attn`` off, the flash kernels. ``serving.ServingEngine``
 drives ``jit.decode_step`` (chunked prefill and the decode burst) over
 ``models.gpt`` and the paged KV cache of ``inference.kv_cache``; its
@@ -22,11 +23,21 @@ fused cross entropy, forward and backward, in
 binds every kernel; `get_flags` / `set_flags` (``utils.flags``) read and
 set the routing flags.
 
+Vision training: ``vision.models`` (the ResNet family) over ``nn``'s
+convolution, batch norm, pooling, Linear and cross-entropy layers,
+trained by ``jit.TrainStep`` (``optimizer.Momentum``); these run as
+cuDNN and aten ops, as the reference runs XLA ops. ``io.DevicePrefetcher``
+(``TrainStep.prefetch``) stages host batches on the card on a side
+stream. `save` / `load` (``framework.io``) read and write the
+reference's ``paddle.save`` files; ``convert`` maps a model's and an
+optimizer's state between the two packages.
+
 Entry points take ``device=``: the default is the CUDA card, and a
 machine without one raises. ``device="cpu"`` runs the kernels' plain
 PyTorch versions, which is how the tests run.
 """
 
+from .framework.io import load, save
 from .utils.flags import get_flags, set_flags
 
-__all__ = ["get_flags", "set_flags"]
+__all__ = ["get_flags", "load", "save", "set_flags"]

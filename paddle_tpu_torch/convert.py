@@ -1,28 +1,66 @@
-"""Carry parameters between the JAX package and the port.
+"""Carry parameters and optimizer state between the JAX package and the
+port.
 
-The reference's parameters come across as numpy arrays keyed by its
-``named_parameters()`` names, which the port's modules keep. One layout
+The reference's parameters come across keyed by its ``state_dict()``
+names (parameters and persistable buffers, such as batch norm's
+``_mean`` and ``_variance``), which the port's modules keep. One layout
 differs: a Paddle ``Linear.weight`` is ``[in, out]``, a
-``torch.nn.Linear.weight`` is ``[out, in]``, so every Linear weight
-(``qkv``, ``out_proj``, ``fc1``, ``fc2`` and the untied ``lm_head``) is
-transposed on the way in and back on the way out. Embedding and
-LayerNorm weights cross as they are. The round trip is bit-exact.
+``torch.nn.Linear.weight`` is ``[out, in]``, so every Linear weight is
+transposed on the way in and back on the way out. Given the port's
+model, the Linear weights are exactly the ``.weight`` of each
+``torch.nn.Linear`` in it; without one, the names of GPT's Linear layers
+(``qkv``, ``out_proj``, ``fc1``, ``fc2`` and the untied ``lm_head``)
+decide. Everything else crosses as it is. The round trip is bit-exact.
+
+bf16 crosses as its raw 16-bit pattern: into the port as a torch
+bfloat16 view, and out as numpy ``ml_dtypes.bfloat16`` where the caller's
+process has loaded ``ml_dtypes`` (the JAX package does), else as a
+`framework.io.Bfloat16Bits` array (uint16 bits marked as bf16), which
+`framework.io.save` writes as the reference's bf16 arrays. Nothing here
+imports ``ml_dtypes``.
+
+Optimizer state: the reference keys a parameter's accumulators and
+master weight by ``p.name``, ``param_<counter>`` from a process-wide
+counter that each new parameter takes in the order it is created. The
+port keys them by `optimizer.Optimizer._key`. `optimizer_state_from_jax`
+/ `optimizer_state_to_jax` map one onto the other through the model:
+the file's keys in the rank order of their counters are the model's
+``named_parameters()`` in order (on the way out, ``names`` ({state-dict
+name: reference ``p.name``}) may give the keys). The port's models
+register their parameters in the order the reference creates them (a
+ResNet block its ``downsample`` first), so the two orders agree; every
+state's shape is checked against its parameter's. A Linear weight's
+moments and master are transposed as the weight is; the step count and
+the ``LR_Scheduler`` state cross as they are.
 """
 from __future__ import annotations
 
 import re
+import sys
 
 import numpy as np
 import torch
 
-__all__ = ["state_dict_from_jax", "state_dict_to_jax"]
+from .framework.io import Bfloat16Bits
 
-_LINEAR_WEIGHT = re.compile(
+__all__ = ["linear_weights", "optimizer_state_from_jax",
+           "optimizer_state_to_jax", "state_dict_from_jax",
+           "state_dict_to_jax"]
+
+_GPT_LINEAR_WEIGHT = re.compile(
     r"(\.(qkv|out_proj|fc1|fc2)|^lm_head)\.weight$")
+_COUNTER_KEY = re.compile(r"^param_(\d+)$")
 
 
-def _to_torch(a: np.ndarray) -> torch.Tensor:
-    if a.dtype.name == "bfloat16":
+def _to_torch(a) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu()
+    bf16 = isinstance(a, Bfloat16Bits) or np.asarray(a).dtype.name == \
+        "bfloat16"
+    a = np.asarray(a)
+    if not (a.flags.c_contiguous and a.flags.writeable):
+        a = np.array(a, order="C")
+    if bf16:
         # numpy has no bf16 of its own (the reference's comes from
         # ml_dtypes): cross as the raw 16-bit pattern
         return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
@@ -30,33 +68,167 @@ def _to_torch(a: np.ndarray) -> torch.Tensor:
 
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
-    t = t.detach().cpu()
+    t = t.detach().cpu().contiguous()
     if t.dtype == torch.bfloat16:
-        import ml_dtypes
-
-        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+        bits = t.view(torch.int16).numpy().view(np.uint16)
+        ml_dtypes = sys.modules.get("ml_dtypes")
+        if ml_dtypes is not None:
+            return bits.view(ml_dtypes.bfloat16)
+        return bits.view(Bfloat16Bits)
     return t.numpy()
 
 
-def state_dict_from_jax(named_numpy: dict) -> dict[str, torch.Tensor]:
-    """{JAX parameter name: array} -> a state dict for the port's model
-    (``GPTForCausalLM.load_state_dict``); CPU tensors, copied."""
+def linear_weights(model=None, names=()) -> set:
+    """The state-dict names of the Linear weights: the ``.weight`` of
+    each ``torch.nn.Linear`` in ``model``, or, without a model, those of
+    ``names`` that GPT's Linear layers have."""
+    if model is None:
+        return {n for n in names if _GPT_LINEAR_WEIGHT.search(n)}
+    return {f"{prefix}.weight" if prefix else "weight"
+            for prefix, m in model.named_modules()
+            if isinstance(m, torch.nn.Linear)}
+
+
+def _check_shapes(model, tensors):
+    """Each tensor's shape against the model's entry of that name."""
+    want = {n: tuple(t.shape) for n, t in model.state_dict().items()}
+    for name, t in tensors.items():
+        if name not in want:
+            raise KeyError(f"{name}: not in the model's state dict")
+        if tuple(t.shape) != want[name]:
+            raise ValueError(
+                f"{name}: shape {tuple(t.shape)} after the layout map, the "
+                f"model's is {want[name]}")
+
+
+def state_dict_from_jax(named, model=None) -> dict[str, torch.Tensor]:
+    """{reference state-dict name: array or tensor} -> a state dict for
+    the port's ``model`` (``load_state_dict``); CPU tensors, copied. With
+    ``model``, its Linear weights are transposed and every shape is
+    checked against it."""
+    transpose = linear_weights(model, named)
     out = {}
-    for name, arr in named_numpy.items():
-        a = np.asarray(arr)
-        if _LINEAR_WEIGHT.search(name):
-            a = a.T
-        out[name] = _to_torch(np.array(a, order="C"))
+    for name, arr in named.items():
+        t = _to_torch(arr)
+        if name in transpose:
+            t = t.t()
+        out[name] = t.contiguous().clone()
+    if model is not None:
+        _check_shapes(model, out)
     return out
 
 
-def state_dict_to_jax(state_dict: dict) -> dict[str, np.ndarray]:
+def state_dict_to_jax(state_dict, model=None, tensors=False) -> dict:
     """The inverse of `state_dict_from_jax`: the port's state dict ->
-    {JAX parameter name: numpy array} in the reference's layouts."""
+    {reference name: numpy array} in the reference's layouts (with
+    ``tensors``, CPU tensors in those layouts, which `framework.io.save`
+    writes as the reference's tensor payloads)."""
+    transpose = linear_weights(model, state_dict)
     out = {}
     for name, t in state_dict.items():
-        a = _to_numpy(t)
-        if _LINEAR_WEIGHT.search(name):
-            a = a.T
-        out[name] = np.ascontiguousarray(a)
+        if name in transpose:
+            t = t.t()
+        out[name] = (t.detach().cpu().contiguous() if tensors
+                     else _to_numpy(t))
+    return out
+
+
+def _reference_names(model, names):
+    """{port parameter: reference key} for ``model``: ``names`` maps its
+    state-dict names to the reference's ``p.name``; without it, the rank
+    in ``named_parameters()`` names them ``param_<rank>``, as a process
+    that builds the model first numbers them."""
+    order = list(model.named_parameters())
+    if names is None:
+        return {p: f"param_{i}" for i, (_, p) in enumerate(order)}
+    missing = [n for n, _ in order if n not in names]
+    if missing:
+        raise KeyError(f"names= lacks parameters {missing}")
+    return {p: names[n] for n, p in order}
+
+
+def _state_keys(state):
+    keys = set(state.get("master_weights", {}))
+    for store in state.get("accumulators", {}).values():
+        keys.update(store)
+    return keys
+
+
+def optimizer_state_from_jax(state, model, optimizer) -> dict:
+    """A reference ``Optimizer.state_dict()`` (as `framework.io.load`
+    gives it) -> a state dict for the port's ``optimizer.set_state_dict``
+    over ``model``. Keys that name no parameter (NAdam's ``_global``)
+    cross as they are; the parameter keys must number the model's
+    parameters exactly."""
+    order = list(model.named_parameters())
+    transpose = linear_weights(model)
+    counted = sorted((int(m.group(1)), k) for k in _state_keys(state)
+                     if (m := _COUNTER_KEY.match(k)))
+    if len(counted) != len(order):
+        raise ValueError(
+            f"the state holds {len(counted)} parameters' keys, the "
+            f"model has {len(order)} parameters")
+    ref = {k: pair for (_, k), pair in zip(counted, order)}
+
+    def cross(key, value):
+        if key not in ref:
+            return key, _to_torch(value)
+        name, p = ref[key]
+        t = _to_torch(value)
+        if name in transpose:
+            t = t.t()
+        if tuple(t.shape) != tuple(p.shape):
+            raise ValueError(f"{name} ({key}): state of shape "
+                             f"{tuple(t.shape)}, the parameter's is "
+                             f"{tuple(p.shape)}")
+        return optimizer._key(p), t.contiguous().clone()
+
+    out = {"accumulators": {
+               acc: dict(cross(k, v) for k, v in store.items())
+               for acc, store in state.get("accumulators", {}).items()},
+           "master_weights": dict(
+               cross(k, v) for k, v in state.get("master_weights",
+                                                 {}).items()),
+           "step": state.get("step", 0)}
+    if "LR_Scheduler" in state:
+        out["LR_Scheduler"] = dict(state["LR_Scheduler"])
+    return out
+
+
+def optimizer_state_to_jax(state, model, optimizer, names=None) -> dict:
+    """The inverse of `optimizer_state_from_jax`: the port's
+    ``optimizer.state_dict()`` -> the reference's, keyed by ``names``
+    ({state-dict name: the reference model's ``p.name``}) or by
+    ``param_<rank in named_parameters()>``, numpy leaves in the
+    reference's layouts."""
+    find = optimizer._lookup()
+    ref = _reference_names(model, names)
+    by_param = {p: n for n, p in model.named_parameters()}
+    transpose = linear_weights(model)
+
+    def cross(key, value):
+        p = find(key)
+        if not isinstance(p, torch.Tensor):
+            return key, _to_numpy(value)
+        name = by_param.get(p)
+        if name is None:
+            raise KeyError(f"{key}: the optimizer's parameter is not in "
+                           f"the model")
+        if tuple(value.shape) != tuple(p.shape):
+            raise ValueError(f"{name} ({key}): state of shape "
+                             f"{tuple(value.shape)}, the parameter's is "
+                             f"{tuple(p.shape)}")
+        if name in transpose:
+            value = value.t()
+        return ref[p], _to_numpy(value)
+
+    out = {"accumulators": {
+               acc: dict(cross(k, v) for k, v in store.items())
+               for acc, store in state.get("accumulators", {}).items()},
+           "master_weights": dict(
+               cross(k, v) for k, v in state.get("master_weights",
+                                                 {}).items()),
+           "step": state.get("step", 0)}
+    if "LR_Scheduler" in state:
+        out["LR_Scheduler"] = dict(state["LR_Scheduler"])
     return out

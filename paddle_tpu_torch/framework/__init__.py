@@ -1,3 +1,4 @@
 from .device import resolve_device
+from .io import load, save
 
-__all__ = ["resolve_device"]
+__all__ = ["load", "resolve_device", "save"]

@@ -17,9 +17,19 @@ One call runs, in the reference's order (train_step.py ``step_fn``):
    over the (still scaled) grads, the unscale, the grad clip and the
    update, which a step whose grads were not finite skips on the device,
    so nothing of the optimizer's state moves (parameters, masters,
-   moments, the step count); without a guard, ``optimizer.step()`` (its
+   moments, the step count); the model's buffers (batch norm's running
+   statistics, which the forward moves) are selected back to their
+   values from before the forward by the same flag, as the reference's
+   state includes them; without a guard, ``optimizer.step()`` (its
    grad clip first); then ``clear_grad``;
-4. the guard state advances by `GuardSpec.update` from the device flag.
+4. the guard state advances by `GuardSpec.update` from the device flag;
+5. an `optimizer.lr.LRScheduler` driving the optimizer's learning rate
+   takes one step, as the reference's step advances its host-side
+   schedulers.
+
+`prefetch` wraps a loader in an `io.DevicePrefetcher` bound to the
+step's device, so the next batches' host-to-device copies overlap the
+running step.
 
 The constructor takes the reference's arguments in its order:
 ``donate`` is accepted and does nothing (the step updates the state in
@@ -35,6 +45,8 @@ from __future__ import annotations
 
 import torch
 
+from ..io.device_prefetcher import DevicePrefetcher
+from ..optimizer.optimizer import _select_back
 from .nonfinite_guard import GuardSpec
 
 __all__ = ["TrainStep"]
@@ -63,6 +75,17 @@ class TrainStep:
                       if (scaler is not None or guard_nonfinite) else None)
         self._guard_state = None
 
+    def prefetch(self, loader, depth=2, **kw):
+        """``loader`` wrapped in an `io.DevicePrefetcher` that stages its
+        batches on this step's device (that of the model's parameters)
+        while the previous step runs::
+
+            for x, y in step.prefetch(loader):
+                loss = step(x, y)
+        """
+        kw.setdefault("device", next(self.model.parameters()).device)
+        return DevicePrefetcher(loader, depth=depth, **kw)
+
     def _split(self, batch):
         acc = self.accumulate_steps
         sizes = {t.shape[0] for t in batch
@@ -88,6 +111,9 @@ class TrainStep:
                 self._guard_state = guard.init_state(params[0].device)
             if guard.scaling:
                 scale = self._guard_state["scale"]
+            # the forward moves the buffers (running statistics): their
+            # old values, for the gate
+            buffers = [(b, b.clone()) for b in self.model.buffers()]
 
         def backward(loss):
             (loss if scale is None else loss * scale.to(loss.dtype)) \
@@ -111,8 +137,12 @@ class TrainStep:
         else:
             found = self.optimizer._guarded_step(
                 None if scale is None else torch.reciprocal(scale))
+            _select_back(found, buffers)
         self.optimizer.clear_grad()
         if guard is not None:
             self._guard_state = guard.update(self._guard_state, found)
             guard.writeback(self._guard_state)
+        sched = getattr(self.optimizer, "_learning_rate", None)
+        if hasattr(sched, "step"):
+            sched.step()
         return loss

@@ -2,6 +2,7 @@
 
     [FLAGS_splash_attn=0] python -m paddle_tpu_torch.profile_training \\
         [--steps N] [--seq S] [--batch B] [--per-param]
+    python -m paddle_tpu_torch.profile_training --resnet [--batch B]
 
 Builds the configuration of ``chip_smoke.py`` phases 9-10 (GPT-3 1.3B
 width, bf16 weights from seed 0, fp32 masters, bf16 AdamW moments,
@@ -23,6 +24,19 @@ launched between ``opt.step()``'s entry and its exit (a
 aten calls and the clip's norm kernel), beside the range's span on the
 device, which holds the gaps between its kernels too. Needs a CUDA
 card.
+
+``--resnet`` profiles ``chip_smoke.py`` phase 12's step instead
+(ResNet-50 from seed 0, fp32, Momentum(0.1, 0.9), CrossEntropyLoss, a
+``--batch`` of 3 x 224 x 224 random images, default 32) and splits its
+device time into cuDNN's convolutions (their layout transposes
+included), batch norm, pooling, the optimizer (the kernels inside
+``opt.step()``: the per-parameter Momentum loop's aten calls) and the
+rest (ReLU, residual adds, the Linear, the loss, grad accumulation).
+A kernel's group is that of the operator that launched it
+(``aten::convolution``, ``ConvolutionBackward0``, ``aten::batch_norm``,
+...), not its name: cuDNN's convolution kernels and cuBLAS's matrix
+products are named alike. The sums of gradients that meet at a tensor
+count as the rest.
 """
 from __future__ import annotations
 
@@ -35,9 +49,10 @@ import torch
 
 from .jit import TrainStep
 from .models import GPTForCausalLM, gpt_config
-from .nn import ClipGradByGlobalNorm
-from .optimizer import AdamW
+from .nn import ClipGradByGlobalNorm, CrossEntropyLoss
+from .optimizer import AdamW, Momentum
 from .utils import flags
+from .vision.models import resnet50
 
 _KERNELS = ("splash_fwd_wgmma_kernel", "splash_fwd_kernel",
             "splash_delta_kernel", "splash_dq_wgmma_kernel",
@@ -57,6 +72,17 @@ _KERNELS = ("splash_fwd_wgmma_kernel", "splash_fwd_kernel",
 _GEMM = ("gemm", "cutlass", "cublas", "sm90_xmma", "nvjet")
 _OPTIMIZER = ("mt_norm_kernel", "mt_adam_kernel")
 _RANGE = "optimizer.step"
+# the ResNet step's groups by the operator (lower case) that launched a
+# kernel: the forward's aten operator or the backward's autograd node (the
+# 1 x 1 adaptive pool runs as a mean, its backward as MeanBackward). Not
+# the engine's ``evaluate_function`` range around a node: it also holds
+# the sums of gradients that meet at a tensor (the residual adds').
+_ENGINE = "autograd::engine::evaluate_function"
+_RESNET_GROUPS = (
+    ("batch_norm", ("batch_norm", "batchnorm")),
+    ("pooling", ("pool", "meanbackward")),
+    ("convolution", ("convolution",)),
+)
 
 
 def _annotate(opt):
@@ -90,32 +116,37 @@ def build(batch=8, seq=1024, seed=0, per_param=False):
     return step, ids, labels
 
 
-def main(argv=None):
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--steps", type=int, default=2,
-                    help="steps under the profiler")
-    ap.add_argument("--seq", type=int, default=1024, help="tokens a row")
-    ap.add_argument("--batch", type=int, default=8, help="rows a step")
-    ap.add_argument("--per-param", action="store_true",
-                    help="AdamW's per-parameter loop (use_multi_tensor="
-                         "False) instead of the fused kernels")
-    args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        raise SystemExit("profile_training needs a CUDA card")
-    step, ids, labels = build(args.batch, args.seq,
-                              per_param=args.per_param)
+def build_resnet(batch=32, seed=0):
+    """(step, images, labels) of ``chip_smoke.py`` phase 12."""
+    model = resnet50(num_classes=1000, seed=seed)
+    crit = CrossEntropyLoss()
+    opt = Momentum(learning_rate=0.1, momentum=0.9,
+                   parameters=model.parameters())
+    _annotate(opt)
+    step = TrainStep(model, lambda m, x, y: crit(m(x), y), opt)
+    rng = np.random.default_rng(seed)
+    dev = next(model.parameters()).device
+    x = torch.from_numpy(rng.standard_normal((batch, 3, 224, 224))
+                         .astype(np.float32)).to(dev)
+    y = torch.from_numpy(rng.integers(0, 1000, (batch,))).to(dev)
+    return step, x, y
+
+
+def _profile(step, batch, steps):
+    """``steps`` steps under the profiler after two warm-up steps: (the
+    device time and count of each kernel, the profiler, the wall)."""
     for _ in range(2):                                 # warm-up
-        float(step(ids, labels))
+        float(step(*batch))
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        for _ in range(args.steps):
-            step(ids, labels)
+        for _ in range(steps):
+            step(*batch)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
+    cuda = torch.autograd.DeviceType.CUDA
     kernels = {}
     for ev in prof.key_averages():
         dev_us = getattr(ev, "self_device_time_total",
@@ -124,6 +155,131 @@ def main(argv=None):
         if dev_us > 0 and ev.device_type == cuda and ev.key != _RANGE:
             us, n = kernels.get(ev.key, (0.0, 0))
             kernels[ev.key] = (us + dev_us, n + ev.count)
+    return kernels, prof, wall
+
+
+def _optimizer_time(prof, steps, fused=0.0):
+    """Seconds a step of the kernels inside ``opt.step()`` (the aten
+    calls' device time, attributed to the range, plus ``fused``: ours,
+    launched through ctypes and attributed to no operator), and the
+    range's span on the device, the gaps between its kernels included."""
+    cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
+    ranges = [ev for ev in prof.events() if ev.name == _RANGE]
+    inside = sum(ev.device_time_total for ev in ranges
+                 if ev.device_type == cpu) / 1e6 / steps + fused
+    span = sum(ev.time_range.elapsed_us() for ev in ranges
+               if ev.device_type == cuda) / 1e6 / steps
+    return inside, span
+
+
+def _top(kernels):
+    return [{"name": k[:90], "s": us / 1e6, "count": n}
+            for k, (us, n) in sorted(kernels.items(),
+                                     key=lambda kv: -kv[1][0])[:15]]
+
+
+def _optimizer_step_alone(step, batch):
+    """One more forward and backward, then ``opt.step()`` alone under the
+    profiler: its kernels (copies and fills not counted), their device
+    time, and the host time of the call."""
+    step.loss_fn(step.model, *batch).backward()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step.optimizer.step()
+        host = time.perf_counter() - t0
+        torch.cuda.synchronize()
+    step.optimizer.clear_grad()
+    kernels = [ev for ev in prof.events()
+               if ev.device_type == torch.autograd.DeviceType.CUDA
+               and not any(w in ev.name.lower() for w in ("memcpy",
+                                                         "memset"))]
+    return {"kernels": len(kernels),
+            "device_ms": sum(ev.time_range.elapsed_us()
+                             for ev in kernels) / 1e3,
+            "host_ms": host * 1e3}
+
+
+def _kernels_under(ev):
+    """(name, device us) of each kernel ``ev`` and its children launched."""
+    for k in ev.kernels:
+        yield k.name, k.duration
+    for child in ev.cpu_children:
+        yield from _kernels_under(child)
+
+
+def _resnet_group(ev):
+    if ev.name.startswith(_ENGINE):
+        return None
+    name = ev.name.lower()
+    return next((group for group, marks in _RESNET_GROUPS
+                 if any(m in name for m in marks)), None)
+
+
+def profile_resnet(batch, steps):
+    """One JSON line: the ResNet-50 step's device time by group."""
+    step, x, y = build_resnet(batch)
+    kernels, prof, wall = _profile(step, (x, y), steps)
+    busy = sum(us for us, _ in kernels.values()) / 1e6 / steps
+    optimizer, span = _optimizer_time(prof, steps)
+    groups = dict.fromkeys((g for g, _ in _RESNET_GROUPS), 0.0)
+    named = {g: {} for g in groups}
+    for ev in prof.events():
+        group = _resnet_group(ev)
+        if group is None or ev.device_type != torch.autograd.DeviceType.CPU:
+            continue
+        outer = ev.cpu_parent
+        while outer is not None and _resnet_group(outer) is None:
+            outer = outer.cpu_parent
+        if outer is None:     # the outermost operator of its group
+            groups[group] += ev.device_time_total / 1e6 / steps
+            for name, us in _kernels_under(ev):
+                named[group][name] = named[group].get(name, 0.0) + us
+    print(json.dumps({
+        "device": torch.cuda.get_device_name(0), "model": "resnet50",
+        "batch": batch, "dtype": "float32", "steps": steps,
+        "wall_s_per_step": wall / steps,
+        "device_busy_s_per_step": busy,
+        "device_idle_share": 1.0 - busy * steps / wall,
+        "kernels_per_step": sum(n for _, n in kernels.values()) / steps,
+        **{f"{g}_s_per_step": t for g, t in groups.items()},
+        "optimizer_s_per_step": optimizer,
+        "optimizer_span_s_per_step": span,
+        "other_s_per_step": busy - sum(groups.values()) - optimizer,
+        "optimizer_step_alone": _optimizer_step_alone(step, (x, y)),
+        "group_top_kernels": {
+            g: [{"name": k[:90], "s_per_step": us / 1e6 / steps}
+                for k, us in sorted(n.items(), key=lambda kv: -kv[1])[:12]]
+            for g, n in named.items()},
+        "top_kernels": _top(kernels),
+    }))
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--steps", type=int, default=2,
+                    help="steps under the profiler")
+    ap.add_argument("--seq", type=int, default=1024, help="tokens a row")
+    ap.add_argument("--batch", type=int, default=None,
+                    help="rows (images with --resnet) a step; default 8 "
+                         "(32 with --resnet)")
+    ap.add_argument("--per-param", action="store_true",
+                    help="AdamW's per-parameter loop (use_multi_tensor="
+                         "False) instead of the fused kernels")
+    ap.add_argument("--resnet", action="store_true",
+                    help="ResNet-50's fp32 step (chip_smoke.py phase 12) "
+                         "instead of GPT's; --batch defaults to 32")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_training needs a CUDA card")
+    if args.resnet:
+        profile_resnet(args.batch or 32, args.steps)
+        return
+    args.batch = args.batch or 8
+    step, ids, labels = build(args.batch, args.seq,
+                              per_param=args.per_param)
+    kernels, prof, wall = _profile(step, (ids, labels), args.steps)
     busy = sum(us for us, _ in kernels.values()) / 1e6
 
     def share(names):
@@ -133,19 +289,11 @@ def main(argv=None):
     ours = {n: t for n in _KERNELS
             if (t := share((n.lower(),)) / args.steps) > 0}
     gemm = share(_GEMM) / args.steps
-    # every kernel launched inside opt.step()'s range: the aten calls'
-    # (attributed to the range) and ours, which are launched through
-    # ctypes, attributed to no operator and so taken by name; and the
-    # range's span on the device, gaps between its kernels included
-    ranges = [ev for ev in prof.events() if ev.name == _RANGE]
+    # every kernel launched inside opt.step()'s range: ours are taken by
+    # name
     fused = {n: t for n in _OPTIMIZER
              if (t := share((n.lower(),)) / args.steps) > 0}
-    optimizer = sum(ev.device_time_total for ev in ranges
-                    if ev.device_type == cpu) / 1e6 / args.steps \
-        + sum(fused.values())
-    span = sum(ev.time_range.elapsed_us() for ev in ranges
-               if ev.device_type == cuda) / 1e6 / args.steps
-    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:15]
+    optimizer, span = _optimizer_time(prof, args.steps, sum(fused.values()))
     print(json.dumps({
         "device": torch.cuda.get_device_name(0),
         "seq": args.seq, "batch": args.batch,
@@ -163,8 +311,7 @@ def main(argv=None):
         "gemm_s_per_step": gemm,
         "other_s_per_step": (busy / args.steps - gemm - sum(ours.values())
                              - optimizer),
-        "top_kernels": [{"name": k[:90], "s": us / 1e6, "count": n}
-                        for k, (us, n) in top],
+        "top_kernels": _top(kernels),
     }))
 
 

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: no module of ``paddle_tpu_torch``, nor
-``chip_smoke.py`` or ``chip_ab.py``, imports ``jax`` or any module of
-``paddle_tpu`` (only the tests import both). Checked on the source's
+``chip_smoke.py`` or ``chip_ab.py``, imports ``jax``, ``ml_dtypes`` (it
+comes with jax, and the card's machine has neither) or any module of
+``paddle_tpu`` (only the tests import them). Checked on the source's
 import statements, so a lazy import inside a function counts too."""
 import ast
 from pathlib import Path
@@ -10,7 +11,7 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "paddle_tpu_torch").rglob("*.py")) + \
     [ROOT / "chip_smoke.py", ROOT / "chip_ab.py"]
-BANNED = ("jax", "jaxlib", "paddle_tpu")
+BANNED = ("jax", "jaxlib", "ml_dtypes", "paddle_tpu")
 
 
 def _imported(tree):
@@ -37,6 +38,7 @@ def test_no_jax_or_reference_imports(path):
 
 def test_the_scan_sees_what_it_must():
     assert _banned("jax.numpy") and _banned("paddle_tpu.serving")
+    assert _banned("ml_dtypes")
     assert not _banned("paddle_tpu_torch.serving")
     src = "import jax\nfrom paddle_tpu.models import gpt\nimport torch\n"
     assert [m for m in _imported(ast.parse(src)) if _banned(m)] == \
