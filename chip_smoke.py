@@ -102,7 +102,9 @@ Phases, one line each (any failure exits non-zero, nothing is caught):
    splash and CE routes among them) 0, and every loss finite; the
    optimizer's launches a step must be 2 (one norm, one update of the
    one dtype group), and ``opt.step()`` alone under the profiler must
-   launch those two kernels and nothing else;
+   launch those two kernels and nothing else; the steps run with the
+   numerics monitor on (the default), then 1 + 5 more with
+   ``numerics=False`` give the monitor's cost;
 10. the same with ``FLAGS_splash_attn`` off (the reference's flash
     routing, the flag's off setting; splash is its default), 2 warm-up
     and 3 timed steps at 8 x 1024 (the single-block forward and the bf16
@@ -125,10 +127,32 @@ Phases, one line each (any failure exits non-zero, nothing is caught):
     norm and pooling run as cuDNN and aten ops); then ``save`` of the
     model and the Momentum state and ``load`` into a fresh CPU model and
     optimizer, bit for bit;
-13. one JSON line ``{"kernels": [...]}`` with each kernel's error,
+13. fused-scan parity: a tiny fp32 ``scan_layers`` GPT takes three
+    ``FusedScanTrainStep``s (AdamW, global-norm clip, fused head, packed
+    segment ids) on the card and on the CPU at ``layer_chunk`` 1 and 3;
+    then a guarded run (``GradScaler`` + ``guard_nonfinite``, an inf in
+    the embedding row of a batch token at the second of four steps,
+    steps 2-4 under ``torch.cuda.set_sync_debug_mode("error")``): losses
+    1e-4, parameters 1e-3 rel, the skip bit-identical on both, the step
+    count raised once a step; the fp32 splash and CE kernels and the
+    optimizer's norm and update must have run, no other training kernel;
+14. GPT-3 1.3B through ``FusedScanTrainStep`` at the reference bench's
+    default configuration for the model (``bench.py:52-64,79-86,
+    100-126``: fp32 parameters with no separate masters, AdamW(1e-4)
+    with bf16 moments, no clip, ``fused_head=True``,
+    ``compute_dtype="bfloat16"``, ``layer_chunk=1``), 8 x 1024 random
+    tokens, 2 warm-up and 5 timed steps with the numerics monitor on,
+    then the same with ``numerics=False``: tokens/s, step ms, ``mfu``,
+    peak memory; a step's launches must be 48 splash forwards (forward
+    and recompute), 24 backwards, one CE forward and backward on
+    warpgroup products and 25 ``mt_adam_kernel`` (one a layer, one for
+    the outer parameters), every other training kernel 0 (the monitor's
+    sums of squares run ``mt_norm_kernel``), and every loss finite;
+15. one JSON line ``{"kernels": [...]}`` with each kernel's error,
     times, bound and launches (a paged kernel's from the serving run of
     its pools' graph run, splash's, the CE's and the optimizer's from
-    phase 9, a flash pair's from its phase-10 run).
+    phase 9, a flash pair's from its phase-10 run; splash's, the CE's
+    and the optimizer's phase-14 launches beside them).
 
 It then prints the ``nvidia-smi`` line again and, last, ``{"ok": true,
 "device": {...}}``. Imports torch, numpy and the port only.
@@ -152,7 +176,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
 BF16_FLOP_PER_S = 989e12        # dense bf16 tensor-core peak
 FP32_FLOP_PER_S = 67e12         # fp32 outside the tensor cores
-PHASES = 13
+PHASES = 15
 
 
 def nvidia_smi() -> str:
@@ -1775,14 +1799,21 @@ MT_REPLACES = {
     "mt_norm_kernel": "paddle_tpu/nn/clip.py:50",
     "mt_adam_kernel": "paddle_tpu/optimizer/__init__.py:161 (XLA)",
 }
-# the two configurations the training path uses: (parameter dtype,
-# masters, moment dtype, amsgrad); phase 9's first, timed
+# the configurations the training path uses: (parameter dtype, masters,
+# moment dtype, amsgrad); phase 9's first, timed; phase 14's last
 MT_CONFIGS = {
     "bf16 params, fp32 masters, bf16 moments":
         (torch.bfloat16, True, torch.bfloat16, False),
     "fp32 params and moments, amsgrad":
         (torch.float32, False, torch.float32, True),
+    "fp32 params (own masters), bf16 moments, one call a layer":
+        (torch.float32, False, torch.bfloat16, False),
 }
+# the configurations updated as `FusedScanTrainStep` does: one call a
+# layer's tensors with ``bump=False``, then one over the rest that raises
+# the step counter
+MT_PER_LAYER = ("fp32 params (own masters), bf16 moments, one call a "
+                "layer",)
 # odd sizes: one element, numel not a multiple of the 8-element vector or
 # of the 2048-element chunk; then more tensors than one launch's table
 MT_ODD = (1, 7, 2049, 3 * 2048 + 5)
@@ -1868,12 +1899,28 @@ def _mt_same(a, b):
                for key in a for x, y in zip(a[key] or (), b[key] or ()))
 
 
-def _mt_case(dev, shapes, config, scaled, seed):
+def _mt_update(fn, st, kw, clip_scale, groups=None):
+    """One step's update by ``fn`` (the wrapper or its plain version):
+    one call over the list, or one call a group of ``groups`` (index
+    lists) with ``bump=False`` and the last with ``bump=True``."""
+    if groups is None:
+        return fn(**st, **kw, clip_scale=clip_scale)
+    per = ("lr_scales", "wds", "l2s", "need_clip")
+    for j, idx in enumerate(groups):
+        fn(**{k: None if v is None else [v[i] for i in idx]
+              for k, v in st.items()},
+           **{k: [v[i] for i in idx] if k in per else v
+              for k, v in kw.items()},
+           clip_scale=clip_scale, bump=j == len(groups) - 1)
+
+
+def _mt_case(dev, shapes, config, scaled, seed, groups=None):
     """One configuration over ``shapes``: the norm against its plain
-    version, the update (fed the kernel's clip scale) twice (bit for
-    bit) and against its plain version, and a set found_inf, which must
-    leave every byte. Returns (the first run's state, its keywords, its
-    norm stats, the errors)."""
+    version, the update (fed the kernel's clip scale; ``groups``: in
+    calls as `_mt_update` makes them) twice (bit for bit) and against its
+    plain version, and a set found_inf, which must leave every byte.
+    Returns (the first run's state, its keywords, its norm stats, the
+    errors)."""
     from paddle_tpu_torch.ops.kernels import multi_tensor as mt
 
     n = len(shapes)
@@ -1883,7 +1930,7 @@ def _mt_case(dev, shapes, config, scaled, seed):
         kw = _mt_keywords(dev, n, scaled=scaled)
         stats, found = mt.multi_tensor_norm(
             st["grads"], kw["need_clip"], kw["inv_scale"], clip_norm=1.0)
-        mt.multi_tensor_adam(**st, **kw, clip_scale=stats[1])
+        _mt_update(mt.multi_tensor_adam, st, kw, stats[1], groups)
         runs.append((st, kw, stats, found))
     (st, kw, stats, found), (st2, kw2, stats2, _) = runs
     torch.cuda.synchronize()
@@ -1902,7 +1949,7 @@ def _mt_case(dev, shapes, config, scaled, seed):
         raise AssertionError(f"mt_norm_kernel: sum of squares {norm_rel} "
                              f"rel off the plain version, found "
                              f"{bool(found)}")
-    mt.multi_tensor_adam_ref(**ref, **kw_ref, clip_scale=stats[1])
+    _mt_update(mt.multi_tensor_adam_ref, ref, kw_ref, stats[1], groups)
     errs, abs_err = _mt_state_errs(st, ref)
     if int(kw["step"]) != 10 or int(kw_ref["step"]) != 10:
         raise AssertionError("the step counter was not raised once")
@@ -1912,7 +1959,7 @@ def _mt_case(dev, shapes, config, scaled, seed):
     snap = {k: None if v is None else [None if t is None else t.clone()
                                        for t in v] for k, v in st.items()}
     kw_bad = _mt_keywords(dev, n, found=True, scaled=scaled)
-    mt.multi_tensor_adam(**st, **kw_bad, clip_scale=stats[1])
+    _mt_update(mt.multi_tensor_adam, st, kw_bad, stats[1], groups)
     torch.cuda.synchronize()
     if not _mt_same(st, snap) or int(kw_bad["step"]) != 9:
         raise AssertionError("mt_adam_kernel wrote under found_inf")
@@ -1952,17 +1999,31 @@ def check_optimizer_kernels(dev, flush):
     model = GPTForCausalLM(gpt_config("gpt3-1.3b"), device=dev,
                            dtype=torch.bfloat16, seed=0)
     shapes = [tuple(p.shape) for p in model.parameters()]
+    # the fused-scan step's calls: each layer's tensors, then the rest
+    layer_of = [int(n.split(".")[2]) if n.startswith("gpt.blocks.")
+                else None for n, _ in model.named_parameters()]
+    per_layer = [[i for i, l in enumerate(layer_of) if l == layer]
+                 for layer in sorted({l for l in layer_of if l is not None})]
+    per_layer.append([i for i, l in enumerate(layer_of) if l is None])
     del model
     torch.cuda.empty_cache()
     numel = sum(int(np.prod(s)) for s in shapes)
     results, report = {}, {}
     for i, (name, config) in enumerate(MT_CONFIGS.items()):
-        st, kw, stats, errs = _mt_case(dev, shapes, config, False, seed=i)
+        groups = per_layer if name in MT_PER_LAYER else None
+        before = mt.multi_tensor_adam.launches
+        st, kw, stats, errs = _mt_case(dev, shapes, config, False, seed=i,
+                                       groups=groups)
         report[name] = errs
+        per_call = (mt.multi_tensor_adam.launches - before) / 3
         print(f"[3/{PHASES}] multi-tensor, gpt3-1.3b list ({len(shapes)} "
               f"tensors, {numel} params), {name}: {json.dumps(errs)}; "
-              f"bit-identical twice; found_inf leaves every byte",
-              flush=True)
+              f"{per_call:g} update launches a step; bit-identical twice; "
+              f"found_inf leaves every byte; the step counter raised once "
+              f"a step", flush=True)
+        if groups is not None and per_call != len(groups):
+            raise AssertionError(f"{name}: {per_call} update launches a "
+                                 f"step, expected {len(groups)}")
         if i:
             del st, kw, stats
             torch.cuda.empty_cache()
@@ -2243,6 +2304,7 @@ def train_full_width(dev, warmup=2, timed=5, batch=8, seq=1024,
 
     cfg = gpt_config("gpt3-1.3b", use_recompute=True,
                      max_position_embeddings=seq)
+    before = torch.cuda.memory_allocated()     # what earlier phases hold
     t0 = time.perf_counter()
     model = GPTForCausalLM(cfg, device=dev, dtype=torch.bfloat16, seed=0)
     opt = AdamW(learning_rate=1e-4, parameters=model.parameters(),
@@ -2270,6 +2332,20 @@ def train_full_width(dev, warmup=2, timed=5, batch=8, seq=1024,
         times.append(time.perf_counter() - t0)
         losses.append(float(loss))
     launches = counters.read()
+    peak = torch.cuda.max_memory_allocated()
+    # the same steps without the numerics monitor: its cost
+    step_off = TrainStep(model, lambda m, x, y: m.loss(x, y), opt,
+                         numerics=False)
+    off_losses = [float(step_off(ids, labels))]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times_off = []
+    for _ in range(timed):
+        t0 = time.perf_counter()
+        loss = step_off(ids, labels)
+        torch.cuda.synchronize()
+        times_off.append(time.perf_counter() - t0)
+        off_losses.append(float(loss))
     opt_step = _optimizer_step_alone(model, opt, ids, labels)
 
     params = sum(p.numel() for p in model.parameters())
@@ -2291,7 +2367,16 @@ def train_full_width(dev, warmup=2, timed=5, batch=8, seq=1024,
         "step_ms_median": step_s * 1e3,
         "tokens_per_s": tokens / step_s,
         "mfu": (6.0 * params * tokens + attn) / step_s / BF16_FLOP_PER_S,
-        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "max_memory_allocated": peak,
+        "memory_allocated_before": before,
+        "numerics": "on",
+        "numerics_off": {
+            "losses": off_losses,
+            "step_ms": [t * 1e3 for t in times_off],
+            "step_ms_median": statistics.median(times_off) * 1e3,
+            "tokens_per_s": tokens / statistics.median(times_off),
+            "max_memory_allocated": torch.cuda.max_memory_allocated()},
+        "numerics_cost": step_s / statistics.median(times_off) - 1.0,
         "launches": {k: n for k, n in launches.items() if n},
         "launches_per_step": {k: launches[k] / timed for k in ran},
         "optimizer_launches_per_step": sum(
@@ -2300,8 +2385,8 @@ def train_full_width(dev, warmup=2, timed=5, batch=8, seq=1024,
     }
     print(f"[{phase}/{PHASES}] train gpt3-1.3b {stats['attention']} seq "
           f"{seq}: {json.dumps(stats)}", flush=True)
-    if not all(np.isfinite(losses)):
-        raise AssertionError(f"non-finite loss: {losses}")
+    if not all(np.isfinite(losses + off_losses)):
+        raise AssertionError(f"non-finite loss: {losses} {off_losses}")
     _check_launches(launches, ran, f"train seq {seq}")
     # one norm and one update launch (one dtype group: every parameter
     # bf16), whatever the parameter count
@@ -2310,10 +2395,429 @@ def train_full_width(dev, warmup=2, timed=5, batch=8, seq=1024,
                              f"{stats['optimizer_launches_per_step']}")
     if opt_step["kernels"] != list(OPT_KERNELS):
         raise AssertionError(f"opt.step() launched {opt_step['kernels']}")
-    del model, opt, step
+    del model, opt, step, step_off
     gc.collect()
     torch.cuda.empty_cache()
     return {k: launches[k] for k in ran}, timed
+
+
+# ---------------------------------------------------------------------------
+# phases 13-14: fused-scan training (scan_layers GPT, FusedScanTrainStep)
+# ---------------------------------------------------------------------------
+
+def _scan_gpt(dev, sd, cfg):
+    from paddle_tpu_torch.models import GPTForCausalLM
+
+    model = GPTForCausalLM(cfg, device=dev)
+    model.load_state_dict(sd)
+    return model
+
+
+def fused_scan_parity(dev):
+    """Three ``FusedScanTrainStep``s of a tiny fp32 ``scan_layers`` GPT
+    (AdamW, global-norm clip, fused head, packed segment ids) on the card
+    and on the CPU, at ``layer_chunk`` 1 and 3; then a guarded run
+    (``GradScaler`` + ``guard_nonfinite``) whose second of four steps
+    meets an inf in the embedding row of a batch token (put back after
+    the step), steps 2-4 under ``torch.cuda.set_sync_debug_mode
+    ("error")``. The step count must rise once a step (skipped steps
+    aside), the skip leave every byte of the optimizer's state, and the
+    path's kernels run, no other training kernel. Then phase 14's
+    configuration at this size, card against CPU
+    (`fused_scan_bf16_parity`), and both steps past the numerics
+    monitor's queue under sync debug mode "error"
+    (`monitor_past_its_ring`)."""
+    from paddle_tpu_torch.amp import GradScaler
+    from paddle_tpu_torch.jit import FusedScanTrainStep
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+
+    seq = 128
+    cfg = GPTConfig(vocab_size=128, hidden_size=64, num_layers=3,
+                    num_attention_heads=4, max_position_embeddings=seq,
+                    scan_layers=True)
+    rng = np.random.default_rng(2)
+    cpu = GPTForCausalLM(cfg, device="cpu")
+    sd = {name: torch.from_numpy(
+              (rng.standard_normal(tuple(t.shape)) * 0.3).astype(np.float32))
+          for name, t in cpu.state_dict().items()}
+    ids = rng.integers(0, 128, (2, seq))
+    labels = rng.integers(0, 128, (2, seq))
+    seg = _segments(2, seq, 3, rng)
+    counters = _TrainCounters()
+    counters.zero()
+    out = {}
+    for chunk in (1, 3):
+        for where in ("card", "cpu"):
+            d = dev if where == "card" else torch.device("cpu")
+            model = _scan_gpt(d, sd, cfg)
+            opt = AdamW(learning_rate=1e-3, parameters=model.parameters(),
+                        grad_clip=ClipGradByGlobalNorm(1.0))
+            step = FusedScanTrainStep(model, opt, fused_head=True,
+                                      layer_chunk=chunk)
+            batch = [torch.from_numpy(a).to(d) for a in (ids, labels, seg)]
+            out[chunk, where] = {
+                "losses": [float(step(*batch)) for _ in range(3)],
+                "step_count": opt._step_count,
+                "params": {k: t.detach().cpu() for k, t in
+                           model.state_dict().items()}}
+    launches = counters.read()
+    errs = {}
+    for chunk in (1, 3):
+        card, cpu_ = out[chunk, "card"], out[chunk, "cpu"]
+        errs[chunk] = (
+            max(abs(a - b) for a, b in zip(card["losses"], cpu_["losses"])),
+            max(_rel_err(card["params"][k], cpu_["params"][k])
+                for k in cpu_["params"]))
+    print(f"[13/{PHASES}] fused-scan parity: tiny fp32 scan GPT, 3 "
+          f"FusedScanTrainSteps (clip, fused head, segments); losses "
+          + "; ".join(f"layer_chunk {c}: card {out[c, 'card']['losses']} "
+                      f"cpu {out[c, 'cpu']['losses']} (max |diff| "
+                      f"{errs[c][0]:.3g}, params max rel diff "
+                      f"{errs[c][1]:.3g})" for c in (1, 3))
+          + f"; step counts { {f'{c}/{w}': r['step_count'] for (c, w), r in out.items()} }"
+          f"; kernel launches { {k: n for k, n in launches.items() if n} }",
+          flush=True)
+    for c, (loss_err, param_rel) in errs.items():
+        if not (loss_err <= 1e-4 and param_rel <= 1e-3):
+            raise AssertionError(f"fused scan, layer_chunk {c}: card/CPU "
+                                 f"losses differ by {loss_err}, params by "
+                                 f"{param_rel} rel")
+    if any(r["step_count"] != 3 for r in out.values()):
+        raise AssertionError("the step count did not rise once a step")
+    _check_launches(launches, _path_kernels(seq, True, bf16=False),
+                    "fused-scan parity")
+
+    # the guarded run
+    res = {}
+    for where in ("card", "cpu"):
+        d = dev if where == "card" else torch.device("cpu")
+        model = _scan_gpt(d, sd, cfg)
+        opt = AdamW(learning_rate=1e-3, parameters=model.parameters(),
+                    grad_clip=ClipGradByGlobalNorm(1.0))
+        scaler = GradScaler(init_loss_scaling=1024.0, incr_every_n_steps=2)
+        step = FusedScanTrainStep(model, opt, fused_head=True,
+                                  scaler=scaler, guard_nonfinite=True)
+        batch = [torch.from_numpy(a).to(d) for a in (ids, labels, seg)]
+        wte = model.gpt.wte.weight.detach()
+        row = int(ids[0, 0])
+        losses = [step(*batch)]
+        if where == "card":
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            before = [t.clone() for t in opt._state()]
+            kept = wte[row].clone()
+            wte[row] = float("inf")
+            losses.append(step(*batch))
+            wte[row] = kept
+            after = [t.clone() for t in opt._state()]
+            for _ in range(2):
+                losses.append(step(*batch))
+        finally:
+            if where == "card":
+                torch.cuda.set_sync_debug_mode(0)
+        res[where] = {
+            "losses": [float(x) for x in losses],
+            "skip_bit_identical": len(after) == len(before) and all(
+                torch.equal(a, b) for a, b in zip(after, before)),
+            "step_count": opt._step_count,
+            "scale": scaler.get_loss_scaling(),
+            "skipped": int(step._guard.skipped),
+            "params": {k: t.detach().cpu() for k, t in
+                       model.state_dict().items()}}
+    card, cpu_ = res["card"], res["cpu"]
+    loss_err = max(abs(a - b) for a, b in zip(card["losses"], cpu_["losses"])
+                   if np.isfinite(b))
+    param_rel = max(_rel_err(card["params"][k], cpu_["params"][k])
+                    for k in cpu_["params"])
+    print(f"[13/{PHASES}] fused-scan guarded (GradScaler + "
+          f"guard_nonfinite, an inf embedding row at step 2; steps 2-4 "
+          f"under sync debug mode 'error'): losses card {card['losses']} "
+          f"cpu {cpu_['losses']}; skip bit-identical card "
+          f"{card['skip_bit_identical']} cpu {cpu_['skip_bit_identical']}; "
+          f"step count {card['step_count']} / {cpu_['step_count']}; scale "
+          f"{card['scale']} / {cpu_['scale']}; params max rel diff "
+          f"{param_rel:.3g}", flush=True)
+    for r in (card, cpu_):
+        if not (r["skip_bit_identical"] and r["step_count"] == 3
+                and r["skipped"] == 1 and r["scale"] == 1024.0
+                and not np.isfinite(r["losses"][1])):
+            raise AssertionError(f"guarded fused step: "
+                                 f"{ {k: v for k, v in r.items() if k != 'params'} }")
+    if not (loss_err <= 1e-4 and param_rel <= 1e-3):
+        raise AssertionError(f"guarded fused step: card/CPU losses differ "
+                             f"by {loss_err}, params by {param_rel} rel")
+    fused_scan_bf16_parity(dev, sd, cfg, ids, labels, seg)
+    monitor_past_its_ring(dev, cfg)
+
+
+# phase 14's configuration at phase 13's size, card against CPU: the
+# losses and the whole update ``w3 - w0`` (its norm relative to the
+# CPU's). cuBLAS, the kernels and the CPU round bf16 at other places, and
+# Adam turns the rounding of near-zero grads into whole steps, so the
+# bars are loose (the gaps measured on an H100: 6.7e-4 and 0.093, see
+# PERF.md); the same update moved one layer along the stack misses the
+# update bar by far. That the card computed in bf16 at all is held
+# apart: its first loss must move from a run computed in fp32 by more
+# than `BF16_SCAN_CAST_MIN` (1.2e-4 measured; fp32 card against CPU
+# 4.8e-7).
+BF16_SCAN_LOSS_BAR = 3e-3
+BF16_SCAN_UPDATE_BAR = 0.3
+BF16_SCAN_CAST_MIN = 1e-5
+
+
+def fused_scan_bf16_parity(dev, sd, cfg, ids, labels, seg):
+    """Three ``FusedScanTrainStep``s at phase 14's configuration (fp32
+    parameters that are their own masters, bf16 moments, bf16 compute,
+    the fused head, no clip) over phase 13's tiny model, on the card and
+    on the CPU, so that ``mt_adam_kernel<float, bf16>`` takes each
+    layer's slices with ``bump=False``; then the same on the card
+    computed in fp32 (``compute_dtype=None``), which the bf16 run's first
+    loss must differ from."""
+    from paddle_tpu_torch.jit import FusedScanTrainStep
+    from paddle_tpu_torch.optimizer import AdamW
+
+    out = {}
+    for where, cd in (("card", "bfloat16"), ("cpu", "bfloat16"),
+                      ("card", None)):
+        d = dev if where == "card" else torch.device("cpu")
+        model = _scan_gpt(d, sd, cfg)
+        opt = AdamW(learning_rate=1e-3, parameters=model.parameters(),
+                    moment_dtype="bfloat16")
+        step = FusedScanTrainStep(model, opt, fused_head=True,
+                                  compute_dtype=cd, layer_chunk=1)
+        batch = [torch.from_numpy(a).to(d) for a in (ids, labels, seg)]
+        out[where, cd] = {
+            "losses": [float(step(*batch)) for _ in range(3)],
+            "step_count": opt._step_count,
+            "moments": sorted({str(t.dtype) for store in
+                               opt._accumulators.values()
+                               for t in store.values()}),
+            "params": {k: t.detach().cpu() for k, t in
+                       model.state_dict().items()}}
+    card, ref = out["card", "bfloat16"], out["cpu", "bfloat16"]
+
+    def update_gap(r, roll=False):
+        num = den = 0.0
+        for k, w0 in sd.items():
+            d, want = r["params"][k] - w0, ref["params"][k] - w0
+            if roll and k.startswith("gpt.blocks."):
+                d = d.roll(1, 0)
+            num += float((d - want).double().square().sum())
+            den += float(want.double().square().sum())
+        return (num / den) ** 0.5
+
+    loss_gap = max(abs(a - b) for a, b in zip(card["losses"],
+                                              ref["losses"]))
+    upd, rolled = update_gap(card), update_gap(card, roll=True)
+    fp32 = out["card", None]
+    cast = abs(card["losses"][0] - fp32["losses"][0])
+    fp32_gaps = (max(abs(a - b) for a, b in zip(fp32["losses"],
+                                                ref["losses"])),
+                 update_gap(fp32))
+    print(f"[13/{PHASES}] fused-scan bf16 compute (fp32 params, bf16 "
+          f"moments, fused head, no clip): losses card {card['losses']} "
+          f"cpu {ref['losses']}; max |diff| {loss_gap:.3g} (bar "
+          f"{BF16_SCAN_LOSS_BAR}), update rel diff {upd:.3g} (bar "
+          f"{BF16_SCAN_UPDATE_BAR}; moved one layer along the stack "
+          f"{rolled:.3g}); computed in fp32 on the card: losses "
+          f"{fp32['losses']}, first loss moved {cast:.3g} by the bf16 "
+          f"cast (at least {BF16_SCAN_CAST_MIN}), from the CPU's bf16 run "
+          f"{fp32_gaps[0]:.3g} in loss and {fp32_gaps[1]:.3g} in the "
+          f"update; moments "
+          f"{card['moments']}; step counts "
+          f"{[r['step_count'] for r in out.values()]}", flush=True)
+    if not (loss_gap <= BF16_SCAN_LOSS_BAR and upd <= BF16_SCAN_UPDATE_BAR
+            and rolled > BF16_SCAN_UPDATE_BAR
+            and cast > BF16_SCAN_CAST_MIN):
+        raise AssertionError(f"fused scan in bf16: loss gap {loss_gap}, "
+                             f"update gap {upd} (rolled {rolled}), cast "
+                             f"{cast}")
+    if any(r["step_count"] != 3 for r in out.values()) or \
+            card["moments"] != ["torch.bfloat16"]:
+        raise AssertionError("bf16 fused step: step count or moments")
+
+
+def monitor_past_its_ring(dev, cfg, steps=70):
+    """``steps`` steps of ``TrainStep`` (the unrolled model) and of
+    ``FusedScanTrainStep`` with the numerics monitor on, past its 64-block
+    queue, under ``torch.cuda.set_sync_debug_mode("error")`` after a
+    first step (which builds the optimizer's tables). Past the queue's
+    depth each step folds the oldest blocks whose copies to the host have
+    landed, never waiting: after a ``synchronize`` outside the guarded
+    loop, the last four steps must fold exactly what the queue holds
+    beyond its depth."""
+    from dataclasses import replace
+
+    from paddle_tpu_torch.jit import FusedScanTrainStep, TrainStep
+    from paddle_tpu_torch.models import GPTForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+
+    ids = torch.zeros(2, cfg.max_position_embeddings, dtype=torch.long,
+                      device=dev)
+    seen = {}
+    for fused in (False, True):
+        model = GPTForCausalLM(replace(cfg, scan_layers=fused), device=dev,
+                               seed=0)
+        opt = AdamW(learning_rate=1e-3, parameters=model.parameters())
+        if fused:
+            step = FusedScanTrainStep(model, opt, numerics=True)
+            mon = step._numerics
+        else:
+            step = TrainStep(model, lambda m, x, y: m.loss(x, y), opt,
+                             numerics=True)
+            mon = step.numerics
+        step(ids, ids)
+        torch.cuda.synchronize()
+        try:
+            torch.cuda.set_sync_debug_mode("error")
+            for _ in range(steps - 5):
+                step(ids, ids)
+            torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            for _ in range(4):
+                step(ids, ids)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        name = type(step).__name__
+        seen[name] = (mon._steps_seen, mon.summary()["steps_seen"])
+        if seen[name] != (steps - mon._depth, steps):
+            raise AssertionError(f"{name}: the monitor folded {seen[name]}")
+    print(f"[13/{PHASES}] numerics monitor past its queue: {steps} steps "
+          f"of each step under sync debug mode 'error'; (folded in the "
+          f"steps, seen at the boundary) {seen}", flush=True)
+
+
+# a fused-scan step's launches at GPT-3 1.3B (24 layers, layer_chunk 1, no
+# clip): splash forward in the forward and in each recompute, its backward
+# once a layer, the CE once each way, one Adam update a layer chunk and one
+# for the outer parameters
+FUSED_SCAN_LAUNCHES = {"splash_fwd_wgmma_kernel": 48,
+                       "splash_bwd_wgmma_kernels": 24,
+                       "fused_ce_fwd_wgmma_kernel": 1,
+                       "fused_ce_bwd_kernels": 1,
+                       "mt_adam_kernel": 25}
+
+
+def fused_scan_full_width(dev, warmup=2, timed=5, batch=8, seq=1024):
+    """GPT-3 1.3B through ``FusedScanTrainStep`` at ``bench.py``'s default
+    configuration for it (fp32 parameters, no masters, AdamW(1e-4) with
+    bf16 moments, no clip, the fused head, bf16 compute, one layer a
+    chunk) over ``batch`` x ``seq`` random tokens: ``warmup`` + ``timed``
+    steps with the numerics monitor on, then with it off. The training
+    kernels' counters are zeroed just before each timed run and read just
+    after; the timed steps must build no multi-tensor table."""
+    from paddle_tpu_torch.jit import FusedScanTrainStep
+    from paddle_tpu_torch.models import (GPTForCausalLM,
+                                         GPTPretrainingCriterion, gpt_config)
+    from paddle_tpu_torch.ops.kernels import multi_tensor as mt
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = gpt_config("gpt3-1.3b", max_position_embeddings=seq,
+                     hidden_dropout_prob=0.0, attention_dropout_prob=0.0,
+                     scan_layers=True)
+    before = torch.cuda.memory_allocated()     # what earlier phases hold
+    t0 = time.perf_counter()
+    model = GPTForCausalLM(cfg, device=dev, dtype=torch.float32, seed=0)
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                moment_dtype="bfloat16")
+    rng = np.random.default_rng(0)
+    ids = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                        (batch, seq))).to(dev)
+    labels = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                           (batch, seq))).to(dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    params = sum(p.numel() for p in model.parameters())
+    tokens = batch * seq
+    attn = 6 * 2.0 * batch * seq * (seq + 1) / 2 * cfg.hidden_size \
+        * cfg.num_layers
+    counters = _TrainCounters()
+    # a table build of the multi-tensor kernels (its `_launches`) in the
+    # timed steps would mean the plan cache lost a list of the step
+    real_launches, builds = mt._launches, []
+    mt._launches = lambda *a, **k: builds.append(1) or real_launches(*a,
+                                                                      **k)
+    runs = {}
+    for numerics in (True, False):
+        step = FusedScanTrainStep(model, opt,
+                                  criterion=GPTPretrainingCriterion(),
+                                  fused_head=True, compute_dtype="bfloat16",
+                                  layer_chunk=1, numerics=numerics)
+        losses = [float(step(ids, labels)) for _ in range(warmup)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        counters.zero()
+        built = len(builds)
+        times = []
+        for _ in range(timed):
+            t0 = time.perf_counter()
+            loss = step(ids, labels)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(float(loss))
+        launches = counters.read()
+        built = len(builds) - built
+        step_s = statistics.median(times)
+        runs["on" if numerics else "off"] = {
+            "losses": losses, "step_ms": [t * 1e3 for t in times],
+            "step_ms_median": step_s * 1e3,
+            "tokens_per_s": tokens / step_s,
+            "mfu": (6.0 * params * tokens + attn) / step_s
+            / BF16_FLOP_PER_S,
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "launches": {k: n for k, n in launches.items() if n},
+            "launches_per_step": {k: n / timed for k, n in launches.items()
+                                  if n},
+            "optimizer_tables_built": built,
+            "monitor_summary": (step._numerics.summary() if numerics
+                                else None)}
+        del step
+    mt._launches = real_launches
+    stats = {
+        "model": "gpt3-1.3b", "step": "FusedScanTrainStep",
+        "layers": cfg.num_layers, "hidden": cfg.hidden_size,
+        "heads": cfg.num_attention_heads, "vocab": cfg.vocab_size,
+        "seq": seq, "batch": batch, "params": params,
+        "dtype": "float32 parameters (their own masters), bf16 compute, "
+                 "bf16 moments", "layer_chunk": 1, "fused_head": True,
+        "clip": None, "setup_s": setup_s,
+        "memory_allocated_before": before,
+        "step_count": opt._step_count,
+        "numerics_on": runs["on"], "numerics_off": runs["off"],
+        "numerics_cost": (runs["on"]["step_ms_median"]
+                          / runs["off"]["step_ms_median"] - 1.0),
+        "nvidia_smi": nvidia_smi(),
+    }
+    print(f"[14/{PHASES}] train gpt3-1.3b FusedScanTrainStep: "
+          f"{json.dumps(stats)}", flush=True)
+    for name, r in runs.items():
+        if not all(np.isfinite(r["losses"])):
+            raise AssertionError(f"non-finite fused-scan loss ({name}): "
+                                 f"{r['losses']}")
+        expect = dict(FUSED_SCAN_LAUNCHES)
+        per_step = r["launches_per_step"]
+        if name == "on":        # the monitor's sums of squares
+            expect["mt_norm_kernel"] = per_step.get("mt_norm_kernel", 0)
+            if not expect["mt_norm_kernel"]:
+                raise AssertionError("the monitor ran no mt_norm_kernel")
+        if per_step != expect:
+            raise AssertionError(f"fused-scan launches a step ({name}): "
+                                 f"{per_step}, expected {expect}")
+        if r["optimizer_tables_built"]:
+            raise AssertionError(f"fused-scan ({name}): "
+                                 f"{r['optimizer_tables_built']} optimizer "
+                                 f"tables built in the timed steps")
+    if stats["step_count"] != 2 * (warmup + timed):
+        raise AssertionError(f"step count {stats['step_count']}")
+    launches = {k: n for k, n in runs["on"]["launches"].items()}
+    del model, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, timed
 
 
 # ---------------------------------------------------------------------------
@@ -2483,7 +2987,8 @@ def resnet_full_width(dev, warmup=2, timed=5, batch=32):
     (bench.py:544-600: resnet50(num_classes=1000) from seed 0,
     CrossEntropyLoss, Momentum(0.1, 0.9), fp32, batch 32 of 3 x 224 x 224
     random images and labels from ``default_rng(0)``); ``warmup`` then
-    ``timed`` steps on one batch held on the card, then ``timed`` steps
+    ``timed`` steps on one batch held on the card (then as many more
+    with the numerics monitor off, beside them), then ``timed`` steps
     through ``step.prefetch(..., depth=2)`` over a new random host batch a
     step. Every counter of the port's own kernels is zeroed before the
     ResNet steps and must read 0 after them (they run cuDNN and aten
@@ -2494,6 +2999,8 @@ def resnet_full_width(dev, warmup=2, timed=5, batch=32):
 
     import paddle_tpu_torch as pt
     from paddle_tpu_torch import convert
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.nn import CrossEntropyLoss
     from paddle_tpu_torch.optimizer import Momentum
     from paddle_tpu_torch.vision.models import resnet50
 
@@ -2520,6 +3027,25 @@ def resnet_full_width(dev, warmup=2, timed=5, batch=32):
         times.append(time.perf_counter() - t0)
         losses.append(float(loss))
     peak = torch.cuda.max_memory_allocated()
+    # the same steps without the numerics monitor: its cost
+    crit = CrossEntropyLoss()
+    step_off = TrainStep(model, lambda m, a, b: crit(m(a), b), opt,
+                         numerics=False)
+    off_losses = [float(step_off(x, y))]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times_off = []
+    for _ in range(timed):
+        t0 = time.perf_counter()
+        loss = step_off(x, y)
+        torch.cuda.synchronize()
+        times_off.append(time.perf_counter() - t0)
+        off_losses.append(float(loss))
+    off = {"losses": off_losses, "step_ms": [t * 1e3 for t in times_off],
+           "step_ms_median": statistics.median(times_off) * 1e3,
+           "images_per_s": batch / statistics.median(times_off),
+           "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    del step_off
 
     def host_batches():
         for _ in range(timed):
@@ -2580,6 +3106,8 @@ def resnet_full_width(dev, warmup=2, timed=5, batch=32):
         "train_flops_per_step": flops,
         "mfu_fp32": flops / step_s / FP32_FLOP_PER_S,
         "max_memory_allocated": peak,
+        "numerics": "on", "numerics_off": off,
+        "numerics_cost": step_s / (off["step_ms_median"] / 1e3) - 1.0,
         "prefetch": {"steps": timed, "depth": 2, "wall_s": pf_s,
                      "images_per_s": batch * timed / pf_s,
                      "input_stall_ms_mean": pf_stats["input_stall_ms"]
@@ -2598,8 +3126,9 @@ def resnet_full_width(dev, warmup=2, timed=5, batch=32):
     }
     print(f"[12/{PHASES}] train resnet50 (bench lane): {json.dumps(stats)}",
           flush=True)
-    if not all(np.isfinite(losses)):
-        raise AssertionError(f"non-finite resnet50 loss: {losses}")
+    if not all(np.isfinite(losses + off_losses)):
+        raise AssertionError(f"non-finite resnet50 loss: {losses} "
+                             f"{off_losses}")
     if stats["port_kernel_launches"]:
         raise AssertionError(f"the port's kernels ran in the ResNet steps: "
                              f"{stats['port_kernel_launches']}")
@@ -2683,6 +3212,8 @@ def main() -> int:
         launches[name], steps[name] = launches[base], steps[base]
     resnet_parity(dev)
     resnet_full_width(dev)
+    fused_scan_parity(dev)
+    fused, fused_steps = fused_scan_full_width(dev)
 
     where = {name: (PAGED_SOURCE, f"{PAGED_TPU}:{line}")
              for name, (_, _, _, line) in PAGED_KERNELS.items()}
@@ -2712,9 +3243,12 @@ def main() -> int:
              "replaces": where[name][1], "launches": launches[name],
              **({"launches_per_step": launches[name] / steps[name]}
                 if name in steps else {}),
+             **({"launches_fused_scan": fused[name],
+                 "launches_fused_scan_per_step": fused[name] / fused_steps}
+                if name in fused else {}),
              **{k: r[k] for k in keys if k in r}}
             for name, r in kernels.items()]
-    print(f"[13/{PHASES}] kernels:", flush=True)
+    print(f"[15/{PHASES}] kernels:", flush=True)
     print(json.dumps({"kernels": line}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -8,9 +8,13 @@ differs: a Paddle ``Linear.weight`` is ``[in, out]``, a
 ``torch.nn.Linear.weight`` is ``[out, in]``, so every Linear weight is
 transposed on the way in and back on the way out. Given the port's
 model, the Linear weights are exactly the ``.weight`` of each
-``torch.nn.Linear`` in it; without one, the names of GPT's Linear layers
-(``qkv``, ``out_proj``, ``fc1``, ``fc2`` and the untied ``lm_head``)
-decide. Everything else crosses as it is. The round trip is bit-exact.
+``torch.nn.Linear`` in it, and the stacked weight of each Linear of a
+scan model's template block (`models.gpt.GPTStackedBlocks`: the
+reference's ``[L, in, out]``, the port's ``[L, out, in]``: the last two
+axes swap); without one, the names of GPT's Linear layers (``qkv``,
+``out_proj``, ``fc1``, ``fc2``, their stacked ``blocks__..._weight``,
+and the untied ``lm_head``) decide. Everything else crosses as it is.
+The round trip is bit-exact.
 
 bf16 crosses as its raw 16-bit pattern: into the port as a torch
 bfloat16 view, and out as numpy ``ml_dtypes.bfloat16`` where the caller's
@@ -48,7 +52,8 @@ __all__ = ["linear_weights", "optimizer_state_from_jax",
            "state_dict_to_jax"]
 
 _GPT_LINEAR_WEIGHT = re.compile(
-    r"(\.(qkv|out_proj|fc1|fc2)|^lm_head)\.weight$")
+    r"(\.(qkv|out_proj|fc1|fc2)|^lm_head)\.weight$"
+    r"|__(qkv|out_proj|fc1|fc2)__weight$")
 _COUNTER_KEY = re.compile(r"^param_(\d+)$")
 
 
@@ -80,13 +85,27 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
 
 def linear_weights(model=None, names=()) -> set:
     """The state-dict names of the Linear weights: the ``.weight`` of
-    each ``torch.nn.Linear`` in ``model``, or, without a model, those of
-    ``names`` that GPT's Linear layers have."""
+    each ``torch.nn.Linear`` in ``model`` and the stacked weight of each
+    ``torch.nn.Linear`` of a stacked template block in it, or, without a
+    model, those of ``names`` that GPT's Linear layers have."""
     if model is None:
         return {n for n in names if _GPT_LINEAR_WEIGHT.search(n)}
-    return {f"{prefix}.weight" if prefix else "weight"
-            for prefix, m in model.named_modules()
-            if isinstance(m, torch.nn.Linear)}
+    out = set()
+    for prefix, m in model.named_modules():
+        dot = f"{prefix}." if prefix else ""
+        if isinstance(m, torch.nn.Linear):
+            out.add(f"{dot}weight")
+        template = getattr(m, "_template", None)
+        if isinstance(template, torch.nn.Module):
+            out.update(f"{dot}blocks__" + f"{lin}.weight".replace(".", "__")
+                       for lin, sub in template.named_modules()
+                       if isinstance(sub, torch.nn.Linear))
+    return out
+
+
+def _swap(t):
+    """A Linear weight (or a stack of them) in the other layout."""
+    return t.transpose(-2, -1)
 
 
 def _check_shapes(model, tensors):
@@ -111,7 +130,7 @@ def state_dict_from_jax(named, model=None) -> dict[str, torch.Tensor]:
     for name, arr in named.items():
         t = _to_torch(arr)
         if name in transpose:
-            t = t.t()
+            t = _swap(t)
         out[name] = t.contiguous().clone()
     if model is not None:
         _check_shapes(model, out)
@@ -127,7 +146,7 @@ def state_dict_to_jax(state_dict, model=None, tensors=False) -> dict:
     out = {}
     for name, t in state_dict.items():
         if name in transpose:
-            t = t.t()
+            t = _swap(t)
         out[name] = (t.detach().cpu().contiguous() if tensors
                      else _to_numpy(t))
     return out
@@ -176,7 +195,7 @@ def optimizer_state_from_jax(state, model, optimizer) -> dict:
         name, p = ref[key]
         t = _to_torch(value)
         if name in transpose:
-            t = t.t()
+            t = _swap(t)
         if tuple(t.shape) != tuple(p.shape):
             raise ValueError(f"{name} ({key}): state of shape "
                              f"{tuple(t.shape)}, the parameter's is "
@@ -219,7 +238,7 @@ def optimizer_state_to_jax(state, model, optimizer, names=None) -> dict:
                              f"{tuple(value.shape)}, the parameter's is "
                              f"{tuple(p.shape)}")
         if name in transpose:
-            value = value.t()
+            value = _swap(value)
         return ref[p], _to_numpy(value)
 
     out = {"accumulators": {

@@ -27,15 +27,22 @@ One call runs, in the reference's order (train_step.py ``step_fn``):
    takes one step, as the reference's step advances its host-side
    schedulers.
 
+With ``numerics`` (default: ``FLAGS_numerics_monitor``, on, as in the
+reference) the step also fills the reference's per-parameter stats block
+on the device (one row a trainable parameter: the unscaled grad's, the
+parameter's and the update's squared norms and the grad's finiteness,
+`observability.numerics`), from the grads before the update and a copy
+of the parameters kept across it, and hands it to a `NumericsMonitor`
+(``step.numerics``), which reads it back lazily.
+
 `prefetch` wraps a loader in an `io.DevicePrefetcher` bound to the
 step's device, so the next batches' host-to-device copies overlap the
 running step.
 
 The constructor takes the reference's arguments in its order:
 ``donate`` is accepted and does nothing (the step updates the state in
-place), ``accum_steps`` overrides ``accumulate_steps`` as in the
-reference, and ``numerics`` (the training-numerics monitor) raises until
-ROADMAP queue A7 ports it. The step runs eagerly: the reference's jit,
+place), and ``accum_steps`` overrides ``accumulate_steps`` as in the
+reference. The step runs eagerly: the reference's jit,
 retrace sentinel, compile cache and sharding are not ported. The returned loss
 stays on the device, and nothing is read back to the host, guarded or
 not: the gate is a device flag the optimizer's kernels read (see
@@ -46,6 +53,7 @@ from __future__ import annotations
 import torch
 
 from ..io.device_prefetcher import DevicePrefetcher
+from ..observability.numerics import NumericsMonitor, monitor_enabled
 from ..optimizer.optimizer import _select_back
 from .nonfinite_guard import GuardSpec
 
@@ -57,10 +65,6 @@ class TrainStep:
                  accumulate_steps=1, accum_steps=None, scaler=None,
                  guard_nonfinite=None, numerics=None):
         del donate          # the state is updated in place
-        if numerics is not None:
-            raise NotImplementedError(
-                "TrainStep(numerics=...) is not ported yet: ROADMAP queue "
-                "A7 (the numerics monitor)")
         if accum_steps is not None:
             if int(accumulate_steps) not in (1, int(accum_steps)):
                 raise ValueError(
@@ -74,6 +78,14 @@ class TrainStep:
         self.guard = (GuardSpec(scaler)
                       if (scaler is not None or guard_nonfinite) else None)
         self._guard_state = None
+        self.numerics = None
+        if numerics if numerics is not None else monitor_enabled():
+            named = [(n, p) for n, p in model.named_parameters()
+                     if p.requires_grad]
+            if named:
+                self.numerics = NumericsMonitor(
+                    type(self).__name__, len(named),
+                    row_labels=[n for n, _ in named])
 
     def prefetch(self, loader, depth=2, **kw):
         """``loader`` wrapped in an `io.DevicePrefetcher` that stages its
@@ -132,12 +144,16 @@ class TrainStep:
             backward(loss)
             loss = loss.detach()
 
+        inv = None if scale is None else torch.reciprocal(scale)
+        if self.numerics is not None:
+            rows = _numerics_before(params, inv)
         if guard is None:
             self.optimizer.step()
         else:
-            found = self.optimizer._guarded_step(
-                None if scale is None else torch.reciprocal(scale))
+            found = self.optimizer._guarded_step(inv)
             _select_back(found, buffers)
+        if self.numerics is not None:
+            self.numerics.on_step(_numerics_after(params, rows))
         self.optimizer.clear_grad()
         if guard is not None:
             self._guard_state = guard.update(self._guard_state, found)
@@ -146,3 +162,35 @@ class TrainStep:
         if hasattr(sched, "step"):
             sched.step()
         return loss
+
+
+def _numerics_before(params, inv):
+    """The rows' fields known before the update: each grad's squared norm
+    (unscaled by ``inv``), the parameter's, and a copy of the parameters
+    for the update's norm."""
+    f32 = torch.float32
+    zero = torch.zeros((), dtype=f32, device=params[0].device)
+    have = [i for i, p in enumerate(params)
+            if p.grad is not None and p.grad.is_floating_point()]
+    g_sq = [zero] * len(params)
+    norms = torch._foreach_norm([params[i].grad for i in have], 2,
+                                dtype=f32) if have else []
+    for i, n in zip(have, norms):
+        g_sq[i] = n.square() if inv is None else n.square() * inv * inv
+    p_sq = torch.stack(torch._foreach_norm(
+        [p.detach() for p in params], 2, dtype=f32)).square()
+    return torch.stack(g_sq), p_sq, [p.detach().clone() for p in params]
+
+
+def _numerics_after(params, rows):
+    """The ``[parameters, NFIELDS]`` block: the update's squared norm
+    from the copy (0 where the guard skipped the step: the parameters did
+    not move); finiteness from the grad's square-sum, as the reference
+    derives it."""
+    g_sq, p_sq, old = rows
+    torch._foreach_sub_(old, [p.detach() for p in params])
+    u_sq = torch.stack(torch._foreach_norm(old, 2,
+                                           dtype=torch.float32)).square()
+    z = torch.zeros_like(g_sq)
+    return torch.stack([g_sq, p_sq, u_sq, z, z,
+                        (~torch.isfinite(g_sq)).float(), z, z], dim=1)

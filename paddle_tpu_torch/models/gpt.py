@@ -12,7 +12,9 @@ Training: ``forward`` / ``loss`` run full-sequence causal attention
 through `nn.functional.scaled_dot_product_attention` (the splash kernel,
 with packed-sequence ``segment_ids``; with ``FLAGS_splash_attn`` off, the
 flash kernels), ``use_recompute`` checkpoints each block (its attention
-forward runs again in the backward), and ``loss`` feeds the final
+forward runs again in the backward; with ``recompute_policy="dots"`` only
+what lies between the Linear products, which are kept), and ``loss``
+feeds the final
 hiddens to the fused LM-head cross entropy (`fused_lm_loss`), so the
 ``[tokens, vocab]`` logits never exist. Serving runs over a `PagedKVCache` with fp, int8 or int4 pools:
 ``decode_step`` (one token per slot, the paged decode kernels) and
@@ -22,12 +24,18 @@ kernels). Generation (``generate``, over `jit.GenerationEngine`) adds
 kernel that fills a paged or a `DenseKVCache`, whose decode runs
 `incubate.nn.functional.masked_multihead_attention`.
 
-Not ported yet, and refused by `GPTConfig`: scan_layers and the "dots"
-recompute policy (ROADMAP queue A7), MoE and ring attention (A9/A10),
-draft heads (A6).
+``scan_layers=True`` stores the decoder stack as one ``[num_layers,
+...]`` parameter per block parameter (`GPTStackedBlocks`, the
+reference's names), which `jit.FusedScanTrainStep` trains one layer
+chunk at a time; such a model trains and evaluates, and refuses the
+cached serving paths, as the reference does.
+
+Not ported yet, and refused by `GPTConfig`: MoE and ring attention
+(A9/A10), draft heads (A6).
 """
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 
@@ -35,7 +43,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.func import functional_call
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..framework.device import resolve_device
 from ..incubate.nn import functional as IF
@@ -48,7 +58,32 @@ from ..ops.kernels.paged_attention import (paged_attention,
                                            paged_attention_chunk)
 
 __all__ = ["GPTConfig", "GPT_CONFIGS", "gpt_config", "GPTForCausalLM",
-           "GPTModel", "GPTPretrainingCriterion", "fused_lm_loss"]
+           "GPTModel", "GPTPretrainingCriterion", "GPTStackedBlocks",
+           "fused_lm_loss"]
+
+
+# recompute policies: full recompute, or the reference's "dots"
+# (jax.checkpoint_policies.dots_with_no_batch_dims_saveable: keep the
+# products without batch dimensions, the Linear layers', recompute the rest)
+_POLICIES = (None, "nothing", "full", "dots")
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def recompute(fn, policy, *args):
+    """``fn(*args)`` under a non-reentrant checkpoint: the backward runs
+    it again (the generator state restored, so dropout draws the same
+    masks) and keeps only its inputs, or with ``policy="dots"`` its
+    Linear products as well (a selective checkpoint)."""
+    kw = {}
+    if policy == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy)
+    return checkpoint(fn, *args, use_reentrant=False, **kw)
 
 
 @dataclass
@@ -65,21 +100,21 @@ class GPTConfig:
     initializer_range: float = 0.02
     tie_word_embeddings: bool = True
     use_recompute: bool = False
-    recompute_policy: str = None
+    recompute_policy: str = None        # None / "full" / "nothing", "dots"
+    scan_layers: bool = False
     # accepted for the reference's signature, refused until their slices
     use_ring_attention: bool = False
-    scan_layers: bool = False
     num_experts: int = 0
     num_draft_heads: int = 0
 
     def __post_init__(self):
         if not self.intermediate_size:
             self.intermediate_size = 4 * self.hidden_size
+        if self.recompute_policy not in _POLICIES:
+            raise ValueError(
+                f"unknown recompute policy {self.recompute_policy!r}; use "
+                f"'dots' or 'nothing'/'full'")
         refused = {
-            "scan_layers=True": (self.scan_layers, "A7 (scan_layers / "
-                                 "FusedScanTrainStep)"),
-            "recompute_policy='dots'": (self.recompute_policy is not None,
-                                        "A7 (selective recompute)"),
             "num_experts>0": (self.num_experts > 0, "A9/A10 (MoE)"),
             "use_ring_attention=True": (self.use_ring_attention,
                                         "A9 (ring attention)"),
@@ -233,6 +268,7 @@ class GPTBlock(nn.Module):
         self.mlp = GPTMLP(config, **factory)
         self.dropout = nn.Dropout(config.hidden_dropout_prob)
         self.use_recompute = config.use_recompute
+        self.recompute_policy = config.recompute_policy
 
     def _inner(self, x, segment_ids):
         x = x + self.dropout(self.attn(self.ln_1(x), segment_ids))
@@ -240,10 +276,11 @@ class GPTBlock(nn.Module):
 
     def forward(self, x, segment_ids=None):
         if self.use_recompute and self.training:
-            # keep only the block's input; the backward replays the
-            # forward (and its attention kernel) first
-            return checkpoint(self._inner, x, segment_ids,
-                              use_reentrant=False)
+            # keep the block's input (and with "dots" its Linear
+            # products); the backward replays the rest of the forward
+            # (and its attention kernel) first
+            return recompute(self._inner, self.recompute_policy, x,
+                             segment_ids)
         return self._inner(x, segment_ids)
 
     def forward_prefill(self, x, cache, layer_idx, plan):
@@ -262,6 +299,58 @@ class GPTBlock(nn.Module):
         return x + self.mlp(self.ln_2(x))
 
 
+class GPTStackedBlocks(nn.Module):
+    """The decoder stack as one ``[num_layers, ...]`` parameter per
+    parameter of a `GPTBlock`, under the reference's flat names
+    (``blocks__`` + the block's name with ``.`` -> ``__``; a Linear
+    weight is ``[num_layers, out, in]``).
+
+    The template block holds no memory: it lives on the ``meta`` device
+    and is not a registered submodule, as in the reference. Layer ``i``
+    runs it through `torch.func.functional_call` over the stacked
+    parameters' slices ``[i]``; with ``use_recompute`` each layer is one
+    checkpoint (`recompute`, under the config's policy)."""
+
+    def __init__(self, config: GPTConfig, device=None, dtype=None):
+        super().__init__()
+        self.config = config
+        template = GPTBlock(config, device="meta", dtype=dtype)
+        template.use_recompute = False     # the stack checkpoints a layer
+        object.__setattr__(self, "_template", template)
+        self._stacked_names = []           # (flat name, template name)
+        for pname, p in template.named_parameters():
+            flat = "blocks__" + pname.replace(".", "__")
+            self.register_parameter(flat, nn.Parameter(torch.empty(
+                (config.num_layers,) + tuple(p.shape), device=device,
+                dtype=dtype)))
+            self._stacked_names.append((flat, pname))
+
+    def stacked(self):
+        """The stacked parameters, in the template's order."""
+        return [getattr(self, flat) for flat, _ in self._stacked_names]
+
+    def layer(self, x, segment_ids, *leaves):
+        """One layer over ``leaves`` (one tensor per stacked parameter,
+        in the template's order), in the template's current mode."""
+        return functional_call(
+            self._template,
+            {pname: t for (_, pname), t in zip(self._stacked_names, leaves)},
+            (x, segment_ids))
+
+    def forward(self, x, segment_ids=None):
+        cfg = self.config
+        self._template.train(self.training)
+        stacked = self.stacked()
+        for i in range(cfg.num_layers):
+            leaves = [s[i] for s in stacked]
+            if cfg.use_recompute and self.training:
+                x = recompute(self.layer, cfg.recompute_policy, x,
+                              segment_ids, *leaves)
+            else:
+                x = self.layer(x, segment_ids, *leaves)
+        return x
+
+
 class GPTModel(nn.Module):
     def __init__(self, config: GPTConfig, **factory):
         super().__init__()
@@ -271,8 +360,11 @@ class GPTModel(nn.Module):
         self.wpe = nn.Embedding(config.max_position_embeddings,
                                 config.hidden_size, **factory)
         self.drop = nn.Dropout(config.hidden_dropout_prob)
-        self.blocks = nn.ModuleList([GPTBlock(config, **factory)
-                                     for _ in range(config.num_layers)])
+        if config.scan_layers:
+            self.blocks = GPTStackedBlocks(config, **factory)
+        else:
+            self.blocks = nn.ModuleList([GPTBlock(config, **factory)
+                                         for _ in range(config.num_layers)])
         self.ln_f = LayerNorm(config.hidden_size,
                               eps=config.layer_norm_epsilon, **factory)
 
@@ -293,9 +385,20 @@ class GPTModel(nn.Module):
         if position_ids is None:
             position_ids = torch.arange(s, device=input_ids.device)[None]
         x = self.drop(self._embed(input_ids, position_ids))
-        for block in self.blocks:
-            x = block(x, segment_ids)
+        if self.config.scan_layers:
+            x = self.blocks(x, segment_ids)
+        else:
+            for block in self.blocks:
+                x = block(x, segment_ids)
         return self.ln_f(x)
+
+    def _check_decodable(self):
+        if self.config.scan_layers:
+            raise NotImplementedError(
+                "generate()/decode over scan_layers=True models is not "
+                "plumbed (the stacked stack has no per-layer cache slot), "
+                "as in the reference; build the model with "
+                "scan_layers=False for serving")
 
     def prefill(self, input_ids, cache, seq_lens=None, slot_ids=None):
         """Prompt pass writing every layer's K/V into ``cache``.
@@ -305,6 +408,7 @@ class GPTModel(nn.Module):
         the paged cache (the dense cache ignores both: its batch is
         aligned). Returns the [b, s, hidden] hiddens; the caller gathers
         the last valid position and owns the cache's lengths."""
+        self._check_decodable()
         b, s = input_ids.shape
         x = self._embed(input_ids,
                         torch.arange(s, device=input_ids.device)[None])
@@ -321,6 +425,7 @@ class GPTModel(nn.Module):
     def decode_step(self, tokens, cache, position_ids):
         """One cached decode step: tokens [b, 1] -> hiddens [b, 1, h].
         The caller owns advancing cache.seq_lens (cache.pos)."""
+        self._check_decodable()
         x = self._embed(tokens, position_ids)
         plan = decode_plan(cache) if cache.kind == "paged" else None
         for l, block in enumerate(self.blocks):
@@ -336,6 +441,7 @@ class GPTModel(nn.Module):
         slot_ids/start/seq_lens_new: [b] int32. Returns the window
         hiddens [b, c, hidden]. The caller owns advancing
         cache.seq_lens to seq_lens_new."""
+        self._check_decodable()
         c = input_ids.shape[1]
         pos = start.long()[:, None] + torch.arange(
             c, device=input_ids.device)[None]
@@ -354,7 +460,8 @@ class GPTForCausalLM(nn.Module):
     with ``seed``, as the reference initialises them: normal(0,
     ``initializer_range``) for matrices, the residual projections
     (out_proj, fc2) scaled by 1/sqrt(2 * num_layers), zero biases and
-    unit LayerNorm scales."""
+    unit LayerNorm scales (a stacked parameter of a scan model by the
+    rank of its layer's slice)."""
 
     def __init__(self, config: GPTConfig, device=None, dtype=torch.float32,
                  seed=0):
@@ -372,9 +479,10 @@ class GPTForCausalLM(nn.Module):
         std = self.config.initializer_range
         resid = 1.0 / math.sqrt(2.0 * self.config.num_layers)
         for name, p in self.named_parameters():
-            if p.ndim >= 2:
+            if p.ndim - ("blocks__" in name) >= 2:
                 p.normal_(0.0, std, generator=gen)
-                if name.endswith(("out_proj.weight", "fc2.weight")):
+                if name.endswith(("out_proj.weight", "fc2.weight",
+                                  "out_proj__weight", "fc2__weight")):
                     p.mul_(resid)
             elif name.endswith("bias"):
                 p.zero_()

@@ -1,5 +1,6 @@
+from .numerics import NumericsMonitor
 from .registry import (Counter, Gauge, Histogram, MetricsRegistry,
                        percentile, registry)
 
 __all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry",
-           "percentile", "registry"]
+           "NumericsMonitor", "percentile", "registry"]

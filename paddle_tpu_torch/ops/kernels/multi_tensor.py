@@ -26,9 +26,10 @@ train_step.py:355-369) feed it.
   ``need_clip`` tensors), each rounded to the grad's dtype as
   ``nn/clip.py`` ``scaled`` does; a per-tensor lr scale, decoupled decay
   and L2 coefficient; the bias corrections in fp32 from ``step`` (a
-  device int32 counter, read as ``step + 1`` and raised by one). With
-  ``found_inf`` (a device bool) set nothing is written, the counter
-  included. One launch per (parameter, moment) dtype group of up to
+  device int32 counter, read as ``step + 1``, and raised by one with
+  ``bump``: `jit.FusedScanTrainStep` updates one step's tensors in
+  several calls and raises it in the last). With ``found_inf`` (a device
+  bool) set nothing is written, the counter included. One launch per (parameter, moment) dtype group of up to
   `MAX_TENSORS` tensors (``mt_adam_kernel<P, M>``).
 
 Routing is by the tensors' device, nothing else: CPU tensors take the
@@ -187,7 +188,7 @@ def multi_tensor_adam_ref(params, grads, masters, exp_avgs, exp_avg_sqs,
                           max_exp_avg_sqs=None, *, lr, beta1, beta2, eps,
                           step, lr_scales=None, wds=None, l2s=None,
                           need_clip=None, found_inf=None, inv_scale=None,
-                          clip_scale=None):
+                          clip_scale=None, bump=True):
     """The plain version of `multi_tensor_adam` (see the module
     docstring); updates in place, returns None."""
     n = len(params)
@@ -217,6 +218,11 @@ def multi_tensor_adam_ref(params, grads, masters, exp_avgs, exp_avg_sqs,
                            (vmax, vm)):
             if store is not None:
                 store.copy_(_gate(found_inf, store, new.to(store.dtype)))
+    if bump:
+        _bump(step, found_inf)
+
+
+def _bump(step, found_inf):
     step.add_(1 if found_inf is None else (~found_inf).to(step.dtype))
 
 
@@ -228,7 +234,10 @@ _occupancy = {}
 _counters = {}
 _norm_plans = {}
 _adam_plans = {}
-_MAX_PLANS = 16
+# a fused-scan step updates each layer chunk's slices through a list of
+# its own (25 lists a step at GPT-3 1.3B, layer_chunk=1): every list of a
+# step stays cached, so the steps after the first build and upload nothing
+_MAX_PLANS = 256
 
 
 def _lib():
@@ -388,11 +397,13 @@ def multi_tensor_norm(grads, need_clip=None, inv_scale=None, clip_norm=None,
 def multi_tensor_adam(params, grads, masters, exp_avgs, exp_avg_sqs,
                       max_exp_avg_sqs=None, *, lr, beta1, beta2, eps, step,
                       lr_scales=None, wds=None, l2s=None, need_clip=None,
-                      found_inf=None, inv_scale=None, clip_scale=None):
+                      found_inf=None, inv_scale=None, clip_scale=None,
+                      bump=True):
     """``_adam_math`` over every tensor in place (see the module
     docstring). ``masters[i]`` is the fp32 master of ``params[i]`` or
     None; ``max_exp_avg_sqs`` the amsgrad ``vmax`` list or None;
-    ``step`` an int32 device counter; ``found_inf``, ``inv_scale`` and
+    ``step`` an int32 device counter (raised only with ``bump``);
+    ``found_inf``, ``inv_scale`` and
     ``clip_scale`` device scalars or None. CUDA tensors launch
     ``mt_adam_kernel<P, M>`` once per (parameter, moment) dtype group of
     up to `MAX_TENSORS` tensors, counted in ``.launches``."""
@@ -408,7 +419,7 @@ def multi_tensor_adam(params, grads, masters, exp_avgs, exp_avg_sqs,
     kw = dict(lr=lr, beta1=beta1, beta2=beta2, eps=eps, step=step,
               lr_scales=lr_scales, wds=wds, l2s=l2s, need_clip=need_clip,
               found_inf=found_inf, inv_scale=inv_scale,
-              clip_scale=clip_scale)
+              clip_scale=clip_scale, bump=bump)
     if step.device.type == "cpu":
         return multi_tensor_adam_ref(params, grads, masters, exp_avgs,
                                      exp_avg_sqs, max_exp_avg_sqs, **kw)
@@ -470,7 +481,8 @@ def multi_tensor_adam(params, grads, masters, exp_avgs, exp_avg_sqs,
 
     table, plan = _cache(_adam_plans, key, build)
     if not plan:                          # nothing to update
-        step.add_(1 if found_inf is None else (~found_inf).to(step.dtype))
+        if bump:
+            _bump(step, found_inf)
         return
     lib = _lib()
     with torch.cuda.device(dev):
@@ -483,7 +495,8 @@ def multi_tensor_adam(params, grads, masters, exp_avgs, exp_avg_sqs,
                 chunks, grid, float(lr), float(beta1), float(beta2),
                 1.0 - beta1, 1.0 - beta2, float(eps), step.data_ptr(),
                 ptr(found_inf), ptr(inv_scale), ptr(clip_scale),
-                int(j == len(plan) - 1), counter.data_ptr(), stream)
+                int(bump and j == len(plan) - 1), counter.data_ptr(),
+                stream)
             if rc:
                 raise RuntimeError(f"mt_adam launch failed: CUDA error {rc}")
             multi_tensor_adam.launches += 1

@@ -3,6 +3,8 @@
     [FLAGS_splash_attn=0] python -m paddle_tpu_torch.profile_training \\
         [--steps N] [--seq S] [--batch B] [--per-param]
     python -m paddle_tpu_torch.profile_training --resnet [--batch B]
+    python -m paddle_tpu_torch.profile_training --fused-scan [--seq S] \
+        [--batch B]
 
 Builds the configuration of ``chip_smoke.py`` phases 9-10 (GPT-3 1.3B
 width, bf16 weights from seed 0, fp32 masters, bf16 AdamW moments,
@@ -37,6 +39,15 @@ A kernel's group is that of the operator that launched it
 ...), not its name: cuDNN's convolution kernels and cuBLAS's matrix
 products are named alike. The sums of gradients that meet at a tensor
 count as the rest.
+
+``--fused-scan`` profiles ``chip_smoke.py`` phase 14's step
+(`jit.FusedScanTrainStep` over GPT-3 1.3B with ``scan_layers``: fp32
+parameters from seed 0, bf16 compute, AdamW with bf16 moments, no clip,
+the fused head, one layer a chunk) twice, with the numerics monitor on
+(the default) and off, and splits the monitor-on step into attention
+(splash), the fused CE, the matrix products, the optimizer
+(``mt_adam_kernel``), the numerics monitor (the device time the monitor
+adds: busy time on minus busy time off) and the rest.
 """
 from __future__ import annotations
 
@@ -47,8 +58,8 @@ import time
 import numpy as np
 import torch
 
-from .jit import TrainStep
-from .models import GPTForCausalLM, gpt_config
+from .jit import FusedScanTrainStep, TrainStep
+from .models import GPTForCausalLM, GPTPretrainingCriterion, gpt_config
 from .nn import ClipGradByGlobalNorm, CrossEntropyLoss
 from .optimizer import AdamW, Momentum
 from .utils import flags
@@ -114,6 +125,65 @@ def build(batch=8, seq=1024, seed=0, per_param=False):
     ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, shape)).to(dev)
     labels = torch.from_numpy(rng.integers(0, cfg.vocab_size, shape)).to(dev)
     return step, ids, labels
+
+
+def build_fused_scan(batch=8, seq=1024, seed=0):
+    """(model, opt, ids, labels) of ``chip_smoke.py`` phase 14."""
+    cfg = gpt_config("gpt3-1.3b", max_position_embeddings=seq,
+                     hidden_dropout_prob=0.0, attention_dropout_prob=0.0,
+                     scan_layers=True)
+    model = GPTForCausalLM(cfg, seed=seed)
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                moment_dtype="bfloat16")
+    rng = np.random.default_rng(seed)
+    dev = next(model.parameters()).device
+    ids = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                        (batch, seq))).to(dev)
+    labels = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                           (batch, seq))).to(dev)
+    return model, opt, ids, labels
+
+
+def profile_fused_scan(batch, seq, steps):
+    """One JSON line: the fused-scan step's device time by column, with
+    the numerics monitor on and off; the monitor's column is the
+    difference of the two runs' busy time over the same model."""
+    model, opt, ids, labels = build_fused_scan(batch, seq)
+    runs = {}
+    for numerics in (True, False):
+        step = FusedScanTrainStep(model, opt,
+                                  criterion=GPTPretrainingCriterion(),
+                                  fused_head=True, compute_dtype="bfloat16",
+                                  layer_chunk=1, numerics=numerics)
+        kernels, _, wall = _profile(step, (ids, labels), steps)
+
+        def share(names):
+            return sum(us for k, (us, _) in kernels.items()
+                       if any(n in k.lower() for n in names)) / 1e6 / steps
+
+        cols = {"attention_s_per_step": share(("splash",)),
+                "fused_ce_s_per_step": share(("fused_ce",)),
+                "gemm_s_per_step": share(_GEMM),
+                "optimizer_s_per_step": share(("mt_adam_kernel",))}
+        busy = share(("",))
+        runs[numerics] = {
+            "wall_s_per_step": wall / steps,
+            "device_busy_s_per_step": busy,
+            "device_idle_share": 1.0 - busy * steps / wall,
+            "kernels_per_step": sum(n for _, n in kernels.values()) / steps,
+            **cols, "other_s_per_step": busy - sum(cols.values()),
+            "training_kernels_s_per_step": {
+                n: t for n in _KERNELS if (t := share((n.lower(),))) > 0},
+            "top_kernels": _top(kernels)}
+    on, off = runs[True], runs[False]
+    numerics = on["device_busy_s_per_step"] - off["device_busy_s_per_step"]
+    on["numerics_s_per_step"] = numerics
+    on["other_s_per_step"] -= numerics
+    print(json.dumps({
+        "device": torch.cuda.get_device_name(0),
+        "step": "FusedScanTrainStep", "model": "gpt3-1.3b",
+        "seq": seq, "batch": batch, "steps": steps,
+        **on, "numerics_off": off}))
 
 
 def build_resnet(batch=32, seed=0):
@@ -270,11 +340,18 @@ def main(argv=None):
     ap.add_argument("--resnet", action="store_true",
                     help="ResNet-50's fp32 step (chip_smoke.py phase 12) "
                          "instead of GPT's; --batch defaults to 32")
+    ap.add_argument("--fused-scan", action="store_true",
+                    help="GPT-3 1.3B through FusedScanTrainStep "
+                         "(chip_smoke.py phase 14), the numerics monitor "
+                         "on and off")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_training needs a CUDA card")
     if args.resnet:
         profile_resnet(args.batch or 32, args.steps)
+        return
+    if args.fused_scan:
+        profile_fused_scan(args.batch or 8, args.seq, args.steps)
         return
     args.batch = args.batch or 8
     step, ids, labels = build(args.batch, args.seq,

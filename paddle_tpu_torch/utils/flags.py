@@ -91,3 +91,11 @@ define_flag("FLAGS_pallas_flash_min_seqlen", 1024,
             "16384 the O(s^2) score matrix OOMs 16G HBM while the flash "
             "kernel trains. Below 1024 XLA's fused softmax is fine and "
             "the kernel is not plumbed for masks/dropout.")
+define_flag("FLAGS_numerics_monitor", True,
+            "training-numerics monitor: every train step (TrainStep, "
+            "FusedScanTrainStep) fills a per-layer-chunk (or "
+            "per-parameter) stats block on the device (grad/param "
+            "sq-norms, update ratio, activation RMS, finite flags), read "
+            "back lazily by observability.numerics.NumericsMonitor at a "
+            "logging boundary. Off removes the stats from the steps. "
+            "Per-step override: numerics=True/False")

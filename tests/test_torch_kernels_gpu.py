@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain versions: paged attention
 over fp, int8 and int4 pools (serving), splash attention, flash attention
 (both paths) and the fused cross entropy (training), forward and
-backward; the optimizer's multi-tensor norm and Adam update.
+backward; the optimizer's multi-tensor norm and Adam update, and the
+fused-scan training step that calls the update once a layer chunk.
 
 These run only on a CUDA card (marker ``gpu``; each test skips without
 one). The file imports torch, numpy and the port only, so it runs on a
@@ -1560,3 +1561,146 @@ def test_guarded_per_parameter_step_copies_one_parameter_state(cuda):
     assert all(torch.equal(p, b) for p, b in zip(ps, before))
     assert guarded - plain <= largest + (1 << 20), (plain, guarded)
     assert skipped - plain <= largest + (1 << 20), (plain, skipped)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("found", [False, True])
+def test_multi_tensor_adam_bump_raises_the_counter_once(cuda, found):
+    """Two calls over halves of one state, the first with ``bump=False``:
+    the counter is read as ``step + 1`` by both and raised once, by the
+    second (not at all under a set ``found_inf``); the values equal one
+    call over the whole list bit for bit."""
+    st = _adam_state(cuda, torch.bfloat16, True, torch.bfloat16, False)
+    n = len(MT_SIZES)
+    whole = _clone_state(st)
+    kw = _adam_kw(cuda, n, found=found)
+    mt.multi_tensor_adam(**whole, **kw)
+    parts = _clone_state(st)
+    kw2 = _adam_kw(cuda, n, found=found)
+    h = n // 2
+    before = mt.multi_tensor_adam.launches
+    for sl, bump in ((slice(0, h), False), (slice(h, n), True)):
+        mt.multi_tensor_adam(
+            **{k: None if v is None else v[sl] for k, v in parts.items()},
+            **{k: v[sl] if isinstance(v, list) else v
+               for k, v in kw2.items()}, bump=bump)
+    torch.cuda.synchronize()
+    assert mt.multi_tensor_adam.launches - before == 2
+    assert int(kw2["step"]) == int(kw["step"]) == (6 if found else 7)
+    for key, ts in whole.items():
+        if ts is None:
+            continue
+        for a, b in zip(ts, parts[key]):
+            if a is not None:
+                assert torch.equal(a, b), key
+
+
+@pytest.mark.gpu
+def test_fused_scan_step_runs_its_kernels_and_matches_the_cpu(cuda):
+    """A tiny fp32 scan GPT, 3 ``FusedScanTrainStep``s (clip, fused
+    head) on the card and the CPU: losses 1e-4, parameters 1e-3 relative
+    (the kernels sum in other orders); one Adam launch a layer chunk plus
+    one a step, the counter raised once a step; a second step builds no
+    optimizer table."""
+    from paddle_tpu_torch.jit import FusedScanTrainStep
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = GPTConfig(vocab_size=128, hidden_size=64, num_layers=4,
+                    num_attention_heads=4, max_position_embeddings=128,
+                    scan_layers=True)
+    rng = np.random.default_rng(0)
+    ids = torch.from_numpy(rng.integers(0, 128, (2, 128)))
+    init = GPTForCausalLM(cfg, device="cpu", seed=3).state_dict()
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        model = GPTForCausalLM(cfg, device=dev)
+        model.load_state_dict(init)
+        opt = AdamW(learning_rate=1e-3, parameters=model.parameters(),
+                    grad_clip=ClipGradByGlobalNorm(1.0))
+        step = FusedScanTrainStep(model, opt, fused_head=True)
+        a0 = mt.multi_tensor_adam.launches
+        losses = [float(step(ids.to(dev), ids.to(dev)))]
+        plans = len(mt._adam_plans)
+        losses += [float(step(ids.to(dev), ids.to(dev))) for _ in range(2)]
+        if dev.type == "cuda":
+            assert mt.multi_tensor_adam.launches - a0 == 3 * (4 + 1)
+            assert len(mt._adam_plans) == plans
+        assert opt._step_count == 3
+        out[dev.type] = (losses, {k: v.detach().cpu() for k, v in
+                                  model.state_dict().items()})
+    (lg, pg), (lc, pc) = out["cuda"], out["cpu"]
+    assert max(abs(a - b) for a, b in zip(lg, lc)) <= 1e-4, (lg, lc)
+    for k in pc:
+        rel = float((pg[k] - pc[k]).abs().max() / pc[k].abs().max())
+        assert rel <= 1e-3, (k, rel)
+
+
+@pytest.mark.gpu
+def test_fused_scan_step_builds_no_table_after_the_first(cuda, monkeypatch):
+    """At GPT-3 1.3B's depth (24 layers, tiny width) a fused step hands
+    the update 25 lists; every one stays cached, so the second step
+    builds and uploads no table (a 16-list cache rebuilt them all)."""
+    from paddle_tpu_torch.jit import FusedScanTrainStep
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+
+    builds = []
+    real = mt._launches
+    monkeypatch.setattr(mt, "_launches",
+                        lambda *a, **k: builds.append(1) or real(*a, **k))
+    monkeypatch.setattr(mt, "_adam_plans", {})
+    cfg = GPTConfig(vocab_size=128, hidden_size=64, num_layers=24,
+                    num_attention_heads=4, max_position_embeddings=128,
+                    scan_layers=True)
+    model = GPTForCausalLM(cfg, device=cuda, seed=0)
+    step = FusedScanTrainStep(model, AdamW(parameters=model.parameters()),
+                              numerics=False)
+    ids = torch.zeros(2, 128, dtype=torch.long, device=cuda)
+    step(ids, ids)
+    assert len(builds) == 25
+    step(ids, ids)
+    assert len(builds) == 25
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fused", [False, True])
+def test_monitored_steps_past_the_ring_make_no_sync(cuda, fused):
+    """70 steps with the numerics monitor on, past its 64-block queue,
+    under ``set_sync_debug_mode("error")``: the blocks' copies to the
+    host never wait for the card, and the queue folds its oldest blocks
+    inside the steps once their copies have landed."""
+    from paddle_tpu_torch.jit import FusedScanTrainStep, TrainStep
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = GPTConfig(vocab_size=128, hidden_size=64, num_layers=2,
+                    num_attention_heads=4, max_position_embeddings=128,
+                    scan_layers=fused)
+    model = GPTForCausalLM(cfg, device=cuda, seed=0)
+    opt = AdamW(learning_rate=1e-3, parameters=model.parameters())
+    if fused:
+        step = FusedScanTrainStep(model, opt, numerics=True)
+        mon = step._numerics
+    else:
+        step = TrainStep(model, lambda m, x, y: m.loss(x, y), opt,
+                         numerics=True)
+        mon = step.numerics
+    ids = torch.zeros(2, 128, dtype=torch.long, device=cuda)
+    step(ids, ids)
+    torch.cuda.synchronize()
+    try:
+        torch.cuda.set_sync_debug_mode("error")
+        for _ in range(65):
+            step(ids, ids)
+        torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()          # the oldest copies have landed
+        torch.cuda.set_sync_debug_mode("error")
+        for _ in range(4):
+            step(ids, ids)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert mon._steps_seen == 70 - 64
+    s = mon.summary()
+    assert s["steps_seen"] == 70 and s["finite_frac"] == 1.0

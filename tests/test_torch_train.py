@@ -251,8 +251,12 @@ def test_train_step_accum_steps_overrides_and_numerics_waits_for_a7():
                      accum_steps=4).accumulate_steps == 4
     with pytest.raises(ValueError, match="conflicting"):
         TrainStep(tm, loss_fn, opt, accumulate_steps=2, accum_steps=4)
-    with pytest.raises(NotImplementedError, match="A7"):
-        TrainStep(tm, loss_fn, opt, numerics=True)
+    # the numerics monitor, ported since: on by default, one row a
+    # parameter; numerics=False leaves it out
+    on = TrainStep(tm, loss_fn, opt, numerics=True)
+    assert on.numerics.rows == len(list(tm.parameters()))
+    assert TrainStep(tm, loss_fn, opt).numerics is not None
+    assert TrainStep(tm, loss_fn, opt, numerics=False).numerics is None
 
 
 def test_train_step_accum_divisibility_errors():
@@ -535,5 +539,12 @@ def test_decorate_o2_and_auto_cast():
     ("num_experts", 4), ("use_ring_attention", True),
     ("num_draft_heads", 2)])
 def test_config_refuses_what_later_slices_own(field, value):
+    if field in ("scan_layers", "recompute_policy"):
+        # ported since (ROADMAP A7): accepted, and a policy the reference
+        # does not know is refused as there
+        assert getattr(GPTConfig(**{**TINY, field: value}), field) == value
+        with pytest.raises(ValueError, match="recompute policy"):
+            GPTConfig(**{**TINY, "recompute_policy": "everything"})
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP queue"):
         GPTConfig(**{**TINY, field: value})
