@@ -51,7 +51,10 @@ Phases, one line each (any failure exits non-zero, nothing is caught):
    decay, L2 terms and a parameter outside the clip, and at odd sizes
    and more tensors than one launch takes, each bit-identical on a
    second call and unchanged under a set ``found_inf``, timed as
-   CUDA-graph replays beside ``torch._fused_adamw_``;
+   CUDA-graph replays beside ``torch._fused_adamw_``; the fused CE again
+   at LLaMA's vocab of 32000, TinyLlama's training shape (h [8192,
+   2048]) and LLaMA-7B's head (h [2048, 4096]), fp32 and bf16, forward
+   and backward, timed as at GPT's;
 4. serving parity: a tiny fp32 GPT served through the engine's CUDA
    graphs on the card, its eager loop on the card (kernels) and on the
    CPU (plain versions) over fp32, int8 and int4 pools, at decode bursts
@@ -148,11 +151,29 @@ Phases, one line each (any failure exits non-zero, nothing is caught):
     warpgroup products and 25 ``mt_adam_kernel`` (one a layer, one for
     the outer parameters), every other training kernel 0 (the monitor's
     sums of squares run ``mt_norm_kernel``), and every loss finite;
-15. one JSON line ``{"kernels": [...]}`` with each kernel's error,
+15. LLaMA parity: a small fp32 GQA LLaMA (hidden 256, 4 layers, 8
+    query over 2 KV heads), tied and untied head, takes three
+    ``TrainStep``s (AdamW, global-norm clip, recompute, through
+    ``model.loss``) on the card and on the CPU, each step from the CPU's
+    state: losses 1e-4, parameters 1e-3 rel; the fp32 CE kernels and the
+    optimizer's two must have run, no attention kernel;
+16. TinyLlama-1.1B training at full width (``llama_config(
+    "tinyllama-1.1b", use_recompute=True)``): bf16 through
+    ``amp.decorate(level="O2")``, AdamW(1e-4) with fp32 masters and
+    bf16 moments, clip 1.0, 4 x 2048 random tokens, 2 warm-up and 5
+    timed steps with the numerics monitor, then 1 + 5 without it: step
+    ms, tokens/s, ``mfu``, peak memory; a step launches exactly one CE
+    forward on warpgroup products, one CE backward, one
+    ``mt_adam_kernel``, one ``mt_norm_kernel`` and no attention kernel
+    (the attention is dense, as in the reference); every loss finite,
+    the first near ln(32000);
+17. one JSON line ``{"kernels": [...]}`` with each kernel's error,
     times, bound and launches (a paged kernel's from the serving run of
     its pools' graph run, splash's, the CE's and the optimizer's from
     phase 9, a flash pair's from its phase-10 run; splash's, the CE's
-    and the optimizer's phase-14 launches beside them).
+    and the optimizer's phase-14 launches beside them, and the CE's and
+    the optimizer's phase-16 launches; the CE rows also carry phase 3's
+    numbers at LLaMA's two heads, ``llama_shapes``).
 
 It then prints the ``nvidia-smi`` line again and, last, ``{"ok": true,
 "device": {...}}``. Imports torch, numpy and the port only.
@@ -176,7 +197,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
 BF16_FLOP_PER_S = 989e12        # dense bf16 tensor-core peak
 FP32_FLOP_PER_S = 67e12         # fp32 outside the tensor cores
-PHASES = 15
+PHASES = 17
 
 
 def nvidia_smi() -> str:
@@ -1233,6 +1254,41 @@ def _ce_case(dev, n, vocab, hidden, dtype, seed=0, budget=None):
         (h, w, labels, lse, g)
 
 
+def _time_ce(flush, h, w, labels, lse, g):
+    """bf16 times of the CE forward and backward kernels on ``_ce_case``'s
+    inputs, beside the plain version, ``F.linear`` + ``F.cross_entropy``
+    (forward; forward + backward minus forward) and the bound."""
+    from paddle_tpu_torch.ops.kernels import fused_cross_entropy as fce
+    F = torch.nn.functional
+
+    (n, hidden), vocab = h.shape, w.shape[0]
+    hl, wl = h.clone().requires_grad_(), w.clone().requires_grad_()
+    lib = lambda: F.cross_entropy(  # noqa: E731
+        F.linear(hl, wl).float(), labels, ignore_index=-100,
+        reduction="none")
+    lib_fb = lambda: torch.autograd.grad(lib(), (hl, wl), g)  # noqa: E731
+    nvh = 2.0 * n * vocab * hidden
+    hw = (n + vocab) * hidden * 2
+    lib_f = time_ms(lib, flush, iters=10)
+    out = {}
+    for name, kernel, plain, nbytes, flops, lib_ms in (
+            ("fused_ce_fwd_wgmma_kernel",
+             lambda: fce.fused_ce_fwd(h, w, labels),
+             lambda: fce.fused_ce_fwd_ref(h, w, labels),
+             hw + n * 4 + 2 * n * 4, nvh, lambda: lib_f),
+            ("fused_ce_bwd_kernels",
+             lambda: fce.fused_ce_bwd(h, w, labels, lse, g),
+             lambda: fce.fused_ce_bwd_ref(h, w, labels, lse, g),
+             2 * hw + 3 * n * 4, 3 * nvh,
+             lambda: time_ms(lib_fb, flush, iters=10) - lib_f)):
+        b_ms, b_by = bound_ms(nbytes, flops, 2)
+        out[name] = {"ms": time_ms(kernel, flush, iters=10),
+                     "plain_ms": time_ms(plain, flush, iters=3, warmup=1),
+                     "library_ms": lib_ms(), "bound_ms": b_ms,
+                     "bound_by": b_by, "shape": [n, hidden, vocab]}
+    return out
+
+
 def check_training_kernels(dev, flush):
     """Splash at the training shape ([8, 1024, 32, 64] causal) and at a
     GQA + segments case; the fused CE at the training shape (8192 tokens,
@@ -1316,30 +1372,7 @@ def check_training_kernels(dev, flush):
     torch.cuda.empty_cache()
 
     *_, (h, w, labels, lse, g) = _ce_case(dev, n, vocab, hidden, bf)
-    hl, wl = h.clone().requires_grad_(), w.clone().requires_grad_()
-    lib = lambda: F.cross_entropy(  # noqa: E731
-        F.linear(hl, wl).float(), labels, ignore_index=-100,
-        reduction="none")
-    lib_fb = lambda: torch.autograd.grad(lib(), (hl, wl), g)  # noqa: E731
-    nvh = 2.0 * n * vocab * hidden
-    hw = (n + vocab) * hidden * 2
-    lib_f = time_ms(lib, flush, iters=10)
-    for name, kernel, plain, nbytes, flops, lib_ms in (
-            ("fused_ce_fwd_wgmma_kernel",
-             lambda: fce.fused_ce_fwd(h, w, labels),
-             lambda: fce.fused_ce_fwd_ref(h, w, labels),
-             hw + n * 4 + 2 * n * 4, nvh, lambda: lib_f),
-            ("fused_ce_bwd_kernels",
-             lambda: fce.fused_ce_bwd(h, w, labels, lse, g),
-             lambda: fce.fused_ce_bwd_ref(h, w, labels, lse, g),
-             2 * hw + 3 * n * 4, 3 * nvh,
-             lambda: time_ms(lib_fb, flush, iters=10) - lib_f)):
-        b_ms, b_by = bound_ms(nbytes, flops, 2)
-        results[name] = {"ms": time_ms(kernel, flush, iters=10),
-                         "plain_ms": time_ms(plain, flush, iters=3,
-                                             warmup=1),
-                         "library_ms": lib_ms(), "bound_ms": b_ms,
-                         "bound_by": b_by, "shape": [n, hidden, vocab]}
+    results.update(_time_ce(flush, h, w, labels, lse, g))
     # the forward's first design (the fp32 route's kernel, in bf16) on
     # the same inputs
     lbl32 = labels.to(torch.int32)
@@ -1361,7 +1394,7 @@ def check_training_kernels(dev, flush):
                                      _max_err(lse1, want_lse))
     r["old_route_ms"] = time_ms(first_design, flush, iters=5)
     del loss, lse1, again, want, want_lse
-    del h, w, hl, wl, labels, lse, g, lbl32
+    del h, w, labels, lse, g, lbl32
     torch.cuda.empty_cache()
 
     case_of = {"splash_fwd_wgmma_kernel": ("splash [8,1024,32,64] causal",
@@ -1985,8 +2018,9 @@ def _mt_bytes(shapes, config):
 def check_optimizer_kernels(dev, flush):
     """Kernels (a) `multi_tensor_norm` and (b) `multi_tensor_adam` against
     their plain versions: on the GPT-3 1.3B parameter list (its 292
-    shapes, random state) in the two configurations of `MT_CONFIGS`, with
+    shapes, random state) in the configurations of `MT_CONFIGS`, with
     a group's lr and decay, L2 terms and a parameter outside the clip;
+    on TinyLlama-1.1B's list (201 shapes) in phase 16's configuration;
     then at odd sizes and more tensors than one table in both (with the
     loss-scale unscale). Each bit-identical on a second call; a set
     found_inf leaves every byte. Timed as CUDA-graph replays (phase 9's
@@ -2090,6 +2124,27 @@ def check_optimizer_kernels(dev, flush):
                   f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} "
                   f"ms ({r['library']}), bound {r['bound_ms']:.4f} ms "
                   f"({r['bound_by']})", flush=True)
+    # TinyLlama-1.1B's list in phase 16's configuration: bf16 weights
+    # under O2 (the RMSNorm weights too), fp32 masters, bf16 moments, an
+    # untied [32000, 2048] head; one call over the list
+    from paddle_tpu_torch.models import llama_config
+
+    llama_shapes = _llama_shapes(llama_config("tinyllama-1.1b"))
+    name = "tinyllama-1.1b list, bf16 params, fp32 masters, bf16 moments"
+    before = mt.multi_tensor_adam.launches
+    st, kw, stats, errs = _mt_case(
+        dev, llama_shapes, MT_CONFIGS["bf16 params, fp32 masters, bf16 "
+                                      "moments"], False, seed=5)
+    report[name] = errs
+    per_call = (mt.multi_tensor_adam.launches - before) / 3
+    print(f"[3/{PHASES}] multi-tensor, {name} ({len(llama_shapes)} "
+          f"tensors, {sum(int(np.prod(s)) for s in llama_shapes)} params): "
+          f"{json.dumps(errs)}; {per_call:g} update launches a step; "
+          f"bit-identical twice; found_inf leaves every byte", flush=True)
+    if per_call != 1:
+        raise AssertionError(f"{name}: {per_call} update launches a step")
+    del st, kw, stats
+    torch.cuda.empty_cache()
     # odd sizes and more tensors than one launch's table, loss-scaled
     sizes = list(MT_ODD) + [int(x) for x in np.random.default_rng(0)
                             .integers(1, 5000, mt.MAX_TENSORS + 40)]
@@ -3139,6 +3194,397 @@ def resnet_full_width(dev, warmup=2, timed=5, batch=32):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 3, the fused CE at LLaMA's heads; phases 15-16: LLaMA training
+# ---------------------------------------------------------------------------
+
+# name -> (tokens, vocab 32000, hidden): TinyLlama-1.1B's training shape
+# (4 x 2048 tokens) and LLaMA-7B's head at 2048 tokens
+LLAMA_CE_SHAPES = {"tinyllama-1.1b": (8192, 32000, 2048),
+                   "llama-7b head": (2048, 32000, 4096)}
+
+
+def check_llama_ce(dev, flush):
+    """The fused CE (#11/#12) at LLaMA's vocab of 32000 (not a multiple
+    of the bf16 backward's chunk tile: ragged chunks), fp32 and bf16,
+    forward and backward against the plain version under phase 3's bars,
+    each bit-identical on a second run; then bf16 times beside the plain
+    version and ``F.linear`` + ``F.cross_entropy``. Returns {kernel
+    name: {shape name: numbers}}."""
+    from paddle_tpu_torch.ops.kernels import fused_cross_entropy as fce
+
+    out = {"fused_ce_fwd_wgmma_kernel": {}, "fused_ce_bwd_kernels": {}}
+    for shape, (n, vocab, hidden) in LLAMA_CE_SHAPES.items():
+        errs = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            fe, le, ba, br, fin, same, args = _ce_case(dev, n, vocab, hidden,
+                                                       dtype, seed=3)
+            _check(f"fused_ce {shape}", dtype, fe, br, fin, le, same=same)
+            errs[dtype] = (max(fe, le), ba, br)
+            print(f"[3/{PHASES}] fused_ce {shape} [{n},{hidden}]x[{vocab},"
+                  f"{hidden}] {str(dtype)[6:]}: forward max abs err "
+                  f"{fe:.3g}, lse {le:.3g}; backward max abs err {ba:.3g}, "
+                  f"relative {br:.3g}; forward and backward bit-identical "
+                  f"on a second run; backward chunks "
+                  f"{fce.plan_chunks(n, vocab, hidden)}", flush=True)
+            if dtype == torch.float32:
+                del args
+                torch.cuda.empty_cache()
+        for name, r in _time_ce(flush, *args).items():
+            which = int(name == "fused_ce_bwd_kernels")
+            r["max_abs_err"] = errs[torch.bfloat16][which]
+            r["max_abs_err_fp32"] = errs[torch.float32][which]
+            if which:
+                r["max_rel_err"] = errs[torch.bfloat16][2]
+                r["max_rel_err_fp32"] = errs[torch.float32][2]
+            out[name][shape] = r
+            print(f"[3/{PHASES}] {name} {shape}: bf16 kernel {r['ms']:.4f} "
+                  f"ms, plain {r['plain_ms']:.4f} ms, library "
+                  f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                  f"({r['bound_by']})", flush=True)
+        del args
+        torch.cuda.empty_cache()
+    return out
+
+
+# the phase-15 model: fp32 GQA at a few layers
+LLAMA_SMALL = dict(vocab_size=512, hidden_size=256, num_layers=4,
+                   num_attention_heads=8, num_key_value_heads=2,
+                   intermediate_size=688, max_position_embeddings=256,
+                   use_recompute=True)
+
+
+def llama_parity(dev):
+    """Phase 15: a small fp32 GQA LLaMA (``LLAMA_SMALL``), tied and
+    untied head, takes three ``TrainStep``s of AdamW with a global-norm
+    clip through ``model.loss`` with recompute, on the card and on the
+    CPU, each step from the CPU's state (parameters, moments and step
+    count, through ``state_dict``): losses 1e-4, parameters 1e-3 rel.
+    One CPU step comes first, so every compared step has moments: Adam's
+    first step moves each element by about lr whatever its gradient, so
+    a gradient of summation noise moves an element by up to 2 lr, which
+    takes 1e-7 relative noise in the weights to 1e-3 relative in the
+    parameters on the CPU alone (and to 1e-5 from the second step on).
+    The fp32 CE kernels and the optimizer's two kernels must have run, no
+    attention kernel and no other training kernel."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+
+    rng = np.random.default_rng(15)
+    seq = 128
+    batches = [(torch.from_numpy(rng.integers(0, 512, (2, seq))),
+                torch.from_numpy(rng.integers(0, 512, (2, seq))))
+               for _ in range(4)]
+    counters = _TrainCounters()
+    report = {}
+    for tied in (True, False):
+        cfg = LlamaConfig(**LLAMA_SMALL, tie_word_embeddings=tied)
+        runs = {}
+        for where, d in (("cpu", torch.device("cpu")), ("card", dev)):
+            model = LlamaForCausalLM(cfg, device=d, seed=1)
+            opt = AdamW(learning_rate=1e-3, parameters=model.parameters(),
+                        grad_clip=ClipGradByGlobalNorm(1.0))
+            runs[where] = (model, opt, TrainStep(
+                model, lambda m, x, y: m.loss(x, y), opt), d)
+        cpu_model, cpu_opt, cpu_step, _ = runs["cpu"]
+        cpu_step(*batches[0])                       # the moments
+        losses, loss_err, rel, worst = {"card": [], "cpu": []}, 0.0, 0.0, ""
+        for ids, labels in batches[1:]:
+            card_model, card_opt, card_step, _ = runs["card"]
+            card_model.load_state_dict(cpu_model.state_dict())
+            card_opt.set_state_dict(cpu_opt.state_dict())
+            counters.zero()
+            for where, (model, opt, step, d) in runs.items():
+                losses[where].append(float(step(ids.to(d), labels.to(d))))
+            launches = counters.read()
+            _check_launches(launches, ("fused_ce_fwd_kernel",
+                                       "fused_ce_bwd_kernels") + OPT_KERNELS,
+                            "llama parity")
+            loss_err = max(loss_err, abs(losses["card"][-1]
+                                         - losses["cpu"][-1]))
+            want = cpu_model.state_dict()
+            rel, worst = max((rel, worst), max(
+                (_rel_err(t.cpu(), want[k]), k)
+                for k, t in card_model.state_dict().items()))
+        report["tied" if tied else "untied"] = {
+            "losses_card": losses["card"], "losses_cpu": losses["cpu"],
+            "max_loss_diff": loss_err, "params_max_rel_diff": rel,
+            "worst": worst, "step_count": card_opt._step_count}
+    print(f"[15/{PHASES}] llama parity: fp32 GQA LLaMA {LLAMA_SMALL}, 3 "
+          f"TrainSteps (AdamW, clip 1.0, recompute) each from the CPU's "
+          f"state after one CPU step: {json.dumps(report)}; kernel "
+          f"launches a step { {k: n for k, n in launches.items() if n} }",
+          flush=True)
+    for case, r in report.items():
+        if not r["max_loss_diff"] <= 1e-4:
+            raise AssertionError(f"llama {case}: card/CPU losses differ by "
+                                 f"{r['max_loss_diff']}")
+        if not r["params_max_rel_diff"] <= 1e-3:
+            raise AssertionError(f"llama {case}: card/CPU params differ by "
+                                 f"{r['params_max_rel_diff']} rel")
+
+
+def _llama_shapes(cfg):
+    """A LLaMA's parameter shapes in creation order (untied head)."""
+    h, i = cfg.hidden_size, cfg.intermediate_size
+    hd = h // cfg.num_attention_heads
+    q, kv = cfg.num_attention_heads * hd, cfg.num_key_value_heads * hd
+    layer = [(h,), (q, h), (kv, h), (kv, h), (h, q), (h,), (i, h), (i, h),
+             (h, i)]
+    return ([(cfg.vocab_size, h)] + layer * cfg.num_layers
+            + [(h,), (cfg.vocab_size, h)])
+
+
+# phase 15's bf16 case, card against CPU (each step from the CPU's
+# state): the loss, and the fp32 masters' update relative to the CPU
+# update's norm over the whole model. Measured on an H100 (700 W): the
+# card 2.96e-4 in loss and 0.0151 / 0.0076 / 0.0073 in the update; the
+# same steps computed in fp32 on the card 6.61e-4 and 0.0208 / 0.0124 /
+# 0.0083 (what bf16 rounding alone moves); the update moved one layer
+# along the stack 1.41. The bars lie between: the fp32 run must miss the
+# loss bar and the moved update the update bar.
+LLAMA_O2_LOSS_BAR = 4.5e-4
+LLAMA_O2_UPDATE_BAR = 0.05
+
+
+def llama_o2_parity(dev):
+    """Phase 15, bf16: phase 16's configuration at ``LLAMA_SMALL``'s
+    size with an untied head (``amp.decorate(level="O2")``: bf16 weights,
+    RMSNorm's too, fp32 masters; AdamW(1e-3) with bf16 moments and a
+    global-norm clip; bf16 attention scores), card against CPU over three
+    ``TrainStep``s, each from the CPU's state after one CPU step. Held:
+    the losses, and the update of the fp32 masters relative to the CPU
+    update's norm. Controls: the card's update against the CPU's moved
+    one layer along the stack, which must miss the update bar, and the
+    same steps on the card computed in fp32 (no ``decorate``, from the
+    CPU's masters and moments), which must miss the loss bar. The bf16
+    CE kernels and the optimizer's two kernels must have run, and no
+    attention kernel."""
+    from paddle_tpu_torch import get_flags
+    from paddle_tpu_torch.amp import decorate
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+
+    if get_flags(["FLAGS_attention_fp32_scores"])[
+            "FLAGS_attention_fp32_scores"]:
+        raise AssertionError("phase 15's bf16 case needs bf16 scores")
+    cfg = LlamaConfig(**LLAMA_SMALL, tie_word_embeddings=False)
+    rng = np.random.default_rng(16)
+    seq = 128
+    batches = [(torch.from_numpy(rng.integers(0, 512, (2, seq))),
+                torch.from_numpy(rng.integers(0, 512, (2, seq))))
+               for _ in range(4)]
+
+    def make(d, o2):
+        model = LlamaForCausalLM(cfg, device=d, seed=1)
+        opt = AdamW(learning_rate=1e-3, parameters=model.parameters(),
+                    moment_dtype="bfloat16",
+                    grad_clip=ClipGradByGlobalNorm(1.0))
+        if o2:
+            model, opt = decorate(models=model, optimizers=opt, level="O2")
+        return model, opt, TrainStep(model, lambda m, x, y: m.loss(x, y),
+                                     opt)
+
+    cpu, card, ctl = (make(torch.device("cpu"), True), make(dev, True),
+                      make(dev, False))
+    if [tuple(p.shape) for p in cpu[0].parameters()] != _llama_shapes(cfg):
+        raise AssertionError("_llama_shapes is not the model's list")
+    if {p.dtype for p in card[0].parameters()} != {torch.bfloat16}:
+        raise AssertionError("O2 left a parameter outside bf16")
+    cpu[2](*batches[0])                             # the moments
+    names = [n for n, _ in cpu[0].named_parameters()]
+    counters = _TrainCounters()
+    losses = {"card": [], "cpu": [], "fp32 on the card": []}
+    gaps = {"card": [], "fp32 on the card": [], "shifted": []}
+    for ids, labels in batches[1:]:
+        sd, osd = cpu[0].state_dict(), cpu[1].state_dict()
+        start = [cpu[1]._master_weights[p].clone()
+                 for p in cpu[0].parameters()]
+        card[0].load_state_dict(sd)
+        card[1].set_state_dict(osd)
+        with torch.no_grad():
+            for p, m in zip(ctl[0].parameters(), start):
+                p.copy_(m)
+        ctl[1].set_state_dict({"accumulators": osd["accumulators"],
+                               "step": osd["step"]})
+        counters.zero()
+        losses["card"].append(float(card[2](ids.to(dev), labels.to(dev))))
+        launches = counters.read()
+        _check_launches(launches, ("fused_ce_fwd_wgmma_kernel",
+                                   "fused_ce_bwd_kernels") + OPT_KERNELS,
+                        "llama O2 parity")
+        losses["fp32 on the card"].append(
+            float(ctl[2](ids.to(dev), labels.to(dev))))
+        losses["cpu"].append(float(cpu[2](ids, labels)))
+        want = [cpu[1]._master_weights[p] - s
+                for p, s in zip(cpu[0].parameters(), start)]
+        got = {"card": [card[1]._master_weights[p].cpu() - s for p, s in
+                        zip(card[0].parameters(), start)],
+               "fp32 on the card": [p.detach().cpu() - s for p, s in
+                                    zip(ctl[0].parameters(), start)]}
+        # layer l's update against the CPU's of layer l + 1
+        nxt = {n: names.index(n.replace(f"layers.{l}.", f"layers.{l + 1}."))
+               for n in names if (l := _layer_of(n)) is not None
+               and l + 1 < cfg.num_layers}
+        got["shifted"] = [got["card"][names.index(n)] for n in nxt]
+        den = sum(float(w.double().square().sum()) for w in want)
+        for case in gaps:
+            ref = [want[j] for j in nxt.values()] if case == "shifted" \
+                else want
+            num = sum(float((a - b).double().square().sum())
+                      for a, b in zip(got[case], ref))
+            sub = den if case != "shifted" else sum(
+                float(w.double().square().sum()) for w in ref)
+            gaps[case].append((num / sub) ** 0.5)
+    loss_gap = {case: max(abs(a - b) for a, b in zip(ls, losses["cpu"]))
+                for case, ls in losses.items() if case != "cpu"}
+    report = {"losses": losses, "max_loss_diff": loss_gap,
+              "update_rel_diff": gaps,
+              "bars": {"loss": LLAMA_O2_LOSS_BAR,
+                       "update": LLAMA_O2_UPDATE_BAR},
+              "step_count": card[1]._step_count}
+    print(f"[15/{PHASES}] llama parity, bf16 O2 (bf16 weights and scores, "
+          f"fp32 masters, bf16 moments, untied head), 3 TrainSteps each "
+          f"from the CPU's state after one CPU step: {json.dumps(report)}",
+          flush=True)
+    if not (loss_gap["card"] <= LLAMA_O2_LOSS_BAR
+            and max(gaps["card"]) <= LLAMA_O2_UPDATE_BAR):
+        raise AssertionError(f"llama O2: card/CPU loss gap "
+                             f"{loss_gap['card']}, update gap "
+                             f"{gaps['card']}")
+    if not min(gaps["shifted"]) > LLAMA_O2_UPDATE_BAR:
+        raise AssertionError(f"llama O2: the update moved a layer along "
+                             f"passes the bar: {gaps['shifted']}")
+    if not loss_gap["fp32 on the card"] > LLAMA_O2_LOSS_BAR:
+        raise AssertionError("llama O2: the run computed in fp32 passes "
+                             "the loss bar, which then cannot see bf16")
+    del cpu, card, ctl
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _layer_of(name):
+    """The layer index of a LLaMA parameter's name, else None."""
+    parts = name.split(".")
+    return int(parts[2]) if parts[1:2] == ["layers"] else None
+
+
+def llama_full_width(dev, warmup=2, timed=5, batch=4, seq=2048):
+    """Phase 16: TinyLlama-1.1B (``llama_config("tinyllama-1.1b",
+    use_recompute=True)``, every width as published) in bf16 through
+    ``amp.decorate(level="O2")`` (fp32 masters), AdamW(1e-4) with bf16
+    moments and ``ClipGradByGlobalNorm(1.0)``, ``batch`` x ``seq`` random
+    tokens from seed 0: ``warmup`` + ``timed`` steps with the numerics
+    monitor, then 1 + ``timed`` without. The training kernels' counters
+    are zeroed just before the timed steps and read just after: a step
+    launches one CE forward on warpgroup products and one CE backward,
+    one ``mt_adam_kernel`` (one dtype group) and one ``mt_norm_kernel``
+    (the clip), and no attention kernel (the attention is dense, as in
+    the reference). Every loss finite, the first near ln(32000)."""
+    from paddle_tpu_torch.amp import decorate
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama_config
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = llama_config("tinyllama-1.1b", use_recompute=True)
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg, device=dev, seed=0)
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                moment_dtype="bfloat16", grad_clip=ClipGradByGlobalNorm(1.0))
+    model, opt = decorate(models=model, optimizers=opt, level="O2")
+    step = TrainStep(model, lambda m, x, y: m.loss(x, y), opt)
+    rng = np.random.default_rng(0)
+    ids = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                        (batch, seq))).to(dev)
+    labels = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                           (batch, seq))).to(dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    losses = [float(step(ids, labels)) for _ in range(warmup)]
+
+    counters = _TrainCounters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counters.zero()
+    times = []
+    for _ in range(timed):
+        t0 = time.perf_counter()
+        loss = step(ids, labels)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    launches = counters.read()
+    peak = torch.cuda.max_memory_allocated()
+    step_off = TrainStep(model, lambda m, x, y: m.loss(x, y), opt,
+                         numerics=False)
+    off_losses = [float(step_off(ids, labels))]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times_off = []
+    for _ in range(timed):
+        t0 = time.perf_counter()
+        loss = step_off(ids, labels)
+        torch.cuda.synchronize()
+        times_off.append(time.perf_counter() - t0)
+        off_losses.append(float(loss))
+
+    params = sum(p.numel() for p in model.parameters())
+    tokens = batch * seq
+    pairs = seq * (seq + 1) / 2
+    # forward + backward attention products (2 + 4) over the causal
+    # pairs, recompute not counted; the dense path computes the whole
+    # [seq, seq] square
+    attn = 6 * 2.0 * batch * pairs * cfg.hidden_size * cfg.num_layers
+    step_s = statistics.median(times)
+    per_step = {k: launches[k] / timed for k in launches if launches[k]}
+    stats = {
+        "model": "tinyllama-1.1b", "layers": cfg.num_layers,
+        "hidden": cfg.hidden_size, "heads": cfg.num_attention_heads,
+        "kv_heads": cfg.num_key_value_heads,
+        "intermediate": cfg.intermediate_size, "vocab": cfg.vocab_size,
+        "seq": seq, "batch": batch, "attention": "dense (as the reference)",
+        "params": params,
+        "dtype": "bfloat16 via amp.decorate O2 (fp32 masters, bf16 moments)",
+        "recompute": True, "setup_s": round(setup_s, 3),
+        "losses": losses, "step_ms": [t * 1e3 for t in times],
+        "step_ms_median": step_s * 1e3, "tokens_per_s": tokens / step_s,
+        "mfu": (6.0 * params * tokens + attn) / step_s / BF16_FLOP_PER_S,
+        "max_memory_allocated": peak, "memory_allocated_before": before,
+        "numerics": "on",
+        "numerics_off": {
+            "losses": off_losses,
+            "step_ms": [t * 1e3 for t in times_off],
+            "step_ms_median": statistics.median(times_off) * 1e3,
+            "tokens_per_s": tokens / statistics.median(times_off),
+            "max_memory_allocated": torch.cuda.max_memory_allocated()},
+        "numerics_cost": step_s / statistics.median(times_off) - 1.0,
+        "launches": {k: n for k, n in launches.items() if n},
+        "launches_per_step": per_step,
+    }
+    print(f"[16/{PHASES}] train tinyllama-1.1b: {json.dumps(stats)}",
+          flush=True)
+    if not all(np.isfinite(losses + off_losses)):
+        raise AssertionError(f"non-finite loss: {losses} {off_losses}")
+    if not abs(losses[0] - float(np.log(cfg.vocab_size))) < 0.5:
+        raise AssertionError(f"first loss {losses[0]} is not near "
+                             f"ln({cfg.vocab_size})")
+    want = {"fused_ce_fwd_wgmma_kernel": 1.0, "fused_ce_bwd_kernels": 1.0,
+            "mt_adam_kernel": 1.0, "mt_norm_kernel": 1.0}
+    if per_step != want:
+        raise AssertionError(f"llama launches a step {per_step}, want "
+                             f"{want} (no attention kernel)")
+    del model, opt, step, step_off
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {k: launches[k] for k in want}, timed
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -3168,6 +3614,7 @@ def main() -> int:
     kernels.update(check_training_kernels(dev, flush))
     kernels.update(check_flash_kernels(dev, flush))
     kernels.update(check_optimizer_kernels(dev, flush))
+    llama_ce = check_llama_ce(dev, flush)
     del flush
     torch.cuda.empty_cache()
     parity(dev)
@@ -3214,6 +3661,9 @@ def main() -> int:
     resnet_full_width(dev)
     fused_scan_parity(dev)
     fused, fused_steps = fused_scan_full_width(dev)
+    llama_parity(dev)
+    llama_o2_parity(dev)
+    llama, llama_steps = llama_full_width(dev)
 
     where = {name: (PAGED_SOURCE, f"{PAGED_TPU}:{line}")
              for name, (_, _, _, line) in PAGED_KERNELS.items()}
@@ -3246,9 +3696,14 @@ def main() -> int:
              **({"launches_fused_scan": fused[name],
                  "launches_fused_scan_per_step": fused[name] / fused_steps}
                 if name in fused else {}),
+             **({"launches_llama": llama[name],
+                 "launches_llama_per_step": llama[name] / llama_steps}
+                if name in llama else {}),
+             **({"llama_shapes": llama_ce[name]} if name in llama_ce
+                else {}),
              **{k: r[k] for k in keys if k in r}}
             for name, r in kernels.items()]
-    print(f"[15/{PHASES}] kernels:", flush=True)
+    print(f"[17/{PHASES}] kernels:", flush=True)
     print(json.dumps({"kernels": line}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

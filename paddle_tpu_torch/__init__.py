@@ -23,6 +23,12 @@ fused cross entropy, forward and backward, in
 binds every kernel; `get_flags` / `set_flags` (``utils.flags``) read and
 set the routing flags.
 
+LLaMA training: ``models.llama`` (RMSNorm, RoPE, grouped-query dense
+attention, SwiGLU) over the rest of ``nn`` (``ParamAttr``,
+``initializer``, the activation, common, norm, container and loss
+layers and functionals), trained by ``jit.TrainStep`` through the fused
+cross entropy.
+
 Vision training: ``vision.models`` (the ResNet family) over ``nn``'s
 convolution, batch norm, pooling, Linear and cross-entropy layers,
 trained by ``jit.TrainStep`` (``optimizer.Momentum``); these run as

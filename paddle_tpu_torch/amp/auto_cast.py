@@ -1,7 +1,8 @@
 """AMP decoration: the port of paddle_tpu/amp/auto_cast.py's ``decorate``.
 
 ``decorate(level="O2")`` casts the fp32 parameters of every module that is
-not a LayerNorm or BatchNorm to the AMP dtype (bf16 by default), in place
+not a LayerNorm or a batch norm (torch's or the port's) to the AMP dtype
+(bf16 by default), in place
 (the modules keep their Parameter objects), and turns on the optimizers'
 ``multi_precision`` fp32 masters. The port's `models.gpt.LayerNorm`
 normalises in its fp32 weights' dtype and returns the bf16 activations'
@@ -18,10 +19,13 @@ import contextlib
 import torch
 from torch import nn
 
+from ..nn.layer.norm import _BatchNormBase
+
 __all__ = ["auto_cast", "decorate"]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16}
-_KEEP_FP32 = (nn.LayerNorm, nn.modules.batchnorm._BatchNorm)
+_KEEP_FP32 = (nn.LayerNorm, nn.modules.batchnorm._BatchNorm,
+              _BatchNormBase)
 
 
 @contextlib.contextmanager

@@ -11,9 +11,11 @@ model, the Linear weights are exactly the ``.weight`` of each
 ``torch.nn.Linear`` in it, and the stacked weight of each Linear of a
 scan model's template block (`models.gpt.GPTStackedBlocks`: the
 reference's ``[L, in, out]``, the port's ``[L, out, in]``: the last two
-axes swap); without one, the names of GPT's Linear layers (``qkv``,
-``out_proj``, ``fc1``, ``fc2``, their stacked ``blocks__..._weight``,
-and the untied ``lm_head``) decide. Everything else crosses as it is.
+axes swap); without one, the names of GPT's and LLaMA's Linear layers
+(``qkv``, ``out_proj``, ``fc1``, ``fc2``, their stacked
+``blocks__..._weight``, ``q_proj``, ``k_proj``, ``v_proj``, ``o_proj``,
+``gate_proj``, ``up_proj``, ``down_proj``, and the untied ``lm_head``)
+decide. Everything else crosses as it is.
 The round trip is bit-exact.
 
 bf16 crosses as its raw 16-bit pattern: into the port as a torch
@@ -51,8 +53,9 @@ __all__ = ["linear_weights", "optimizer_state_from_jax",
            "optimizer_state_to_jax", "state_dict_from_jax",
            "state_dict_to_jax"]
 
-_GPT_LINEAR_WEIGHT = re.compile(
-    r"(\.(qkv|out_proj|fc1|fc2)|^lm_head)\.weight$"
+_LINEAR_WEIGHT = re.compile(
+    r"(\.(qkv|out_proj|fc1|fc2|q_proj|k_proj|v_proj|o_proj|gate_proj"
+    r"|up_proj|down_proj)|^lm_head)\.weight$"
     r"|__(qkv|out_proj|fc1|fc2)__weight$")
 _COUNTER_KEY = re.compile(r"^param_(\d+)$")
 
@@ -87,9 +90,10 @@ def linear_weights(model=None, names=()) -> set:
     """The state-dict names of the Linear weights: the ``.weight`` of
     each ``torch.nn.Linear`` in ``model`` and the stacked weight of each
     ``torch.nn.Linear`` of a stacked template block in it, or, without a
-    model, those of ``names`` that GPT's Linear layers have."""
+    model, those of ``names`` that GPT's and LLaMA's Linear layers
+    have."""
     if model is None:
-        return {n for n in names if _GPT_LINEAR_WEIGHT.search(n)}
+        return {n for n in names if _LINEAR_WEIGHT.search(n)}
     out = set()
     for prefix, m in model.named_modules():
         dot = f"{prefix}." if prefix else ""

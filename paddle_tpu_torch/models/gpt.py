@@ -35,7 +35,6 @@ Not ported yet, and refused by `GPTConfig`: MoE and ring attention
 """
 from __future__ import annotations
 
-import functools
 import math
 from dataclasses import dataclass
 
@@ -44,9 +43,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.func import functional_call
-from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
-                                    create_selective_checkpoint_contexts)
 
+from ..distributed.fleet.recompute import POLICIES, recompute
 from ..framework.device import resolve_device
 from ..incubate.nn import functional as IF
 from ..inference.kv_cache import (decode_plan, dense_write_prefill,
@@ -60,30 +58,6 @@ from ..ops.kernels.paged_attention import (paged_attention,
 __all__ = ["GPTConfig", "GPT_CONFIGS", "gpt_config", "GPTForCausalLM",
            "GPTModel", "GPTPretrainingCriterion", "GPTStackedBlocks",
            "fused_lm_loss"]
-
-
-# recompute policies: full recompute, or the reference's "dots"
-# (jax.checkpoint_policies.dots_with_no_batch_dims_saveable: keep the
-# products without batch dimensions, the Linear layers', recompute the rest)
-_POLICIES = (None, "nothing", "full", "dots")
-_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
-
-
-def _dots_policy(ctx, op, *args, **kwargs):
-    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
-            else CheckpointPolicy.PREFER_RECOMPUTE)
-
-
-def recompute(fn, policy, *args):
-    """``fn(*args)`` under a non-reentrant checkpoint: the backward runs
-    it again (the generator state restored, so dropout draws the same
-    masks) and keeps only its inputs, or with ``policy="dots"`` its
-    Linear products as well (a selective checkpoint)."""
-    kw = {}
-    if policy == "dots":
-        kw["context_fn"] = functools.partial(
-            create_selective_checkpoint_contexts, _dots_policy)
-    return checkpoint(fn, *args, use_reentrant=False, **kw)
 
 
 @dataclass
@@ -110,7 +84,7 @@ class GPTConfig:
     def __post_init__(self):
         if not self.intermediate_size:
             self.intermediate_size = 4 * self.hidden_size
-        if self.recompute_policy not in _POLICIES:
+        if self.recompute_policy not in POLICIES:
             raise ValueError(
                 f"unknown recompute policy {self.recompute_policy!r}; use "
                 f"'dots' or 'nothing'/'full'")
@@ -279,8 +253,8 @@ class GPTBlock(nn.Module):
             # keep the block's input (and with "dots" its Linear
             # products); the backward replays the rest of the forward
             # (and its attention kernel) first
-            return recompute(self._inner, self.recompute_policy, x,
-                             segment_ids)
+            return recompute(self._inner, x, segment_ids,
+                             policy=self.recompute_policy)
         return self._inner(x, segment_ids)
 
     def forward_prefill(self, x, cache, layer_idx, plan):
@@ -344,8 +318,8 @@ class GPTStackedBlocks(nn.Module):
         for i in range(cfg.num_layers):
             leaves = [s[i] for s in stacked]
             if cfg.use_recompute and self.training:
-                x = recompute(self.layer, cfg.recompute_policy, x,
-                              segment_ids, *leaves)
+                x = recompute(self.layer, x, segment_ids, *leaves,
+                              policy=cfg.recompute_policy)
             else:
                 x = self.layer(x, segment_ids, *leaves)
         return x

@@ -1,10 +1,9 @@
+from . import initializer
 from .clip import (ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue,
                    clip_grad_norm_)
-from .layer import (AdaptiveAvgPool2D, AvgPool2D, BatchNorm, BatchNorm1D,
-                    BatchNorm2D, BatchNorm3D, Conv2D, CrossEntropyLoss,
-                    Linear, MaxPool2D)
+from .layer import *  # noqa: F401,F403
+from .layer import __all__ as _layers
 
-__all__ = ["AdaptiveAvgPool2D", "AvgPool2D", "BatchNorm", "BatchNorm1D",
-           "BatchNorm2D", "BatchNorm3D", "ClipGradByGlobalNorm",
-           "ClipGradByNorm", "ClipGradByValue", "Conv2D", "CrossEntropyLoss",
-           "Linear", "MaxPool2D", "clip_grad_norm_"]
+__all__ = sorted(_layers + ["ClipGradByGlobalNorm", "ClipGradByNorm",
+                            "ClipGradByValue", "clip_grad_norm_",
+                            "initializer"])

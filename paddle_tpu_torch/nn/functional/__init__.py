@@ -1,12 +1,21 @@
+from .activation import *  # noqa: F401,F403
+from .activation import __all__ as _activation
+from .common import *  # noqa: F401,F403
+from .common import __all__ as _common
+from .common import (affine_grid, channel_shuffle, fold,  # noqa: F401
+                     grid_sample, interpolate, pixel_shuffle,
+                     pixel_unshuffle, temporal_shift, unfold, upsample)
 from .conv import conv2d
 from .extras import flash_attn_qkvpacked
 from .flash_attention import flash_attention, scaled_dot_product_attention
-from .loss import cross_entropy, fused_linear_cross_entropy
-from .norm import batch_norm
+from .loss import *  # noqa: F401,F403
+from .loss import __all__ as _loss
+from .norm import *  # noqa: F401,F403
+from .norm import __all__ as _norm
 from .pooling import adaptive_avg_pool2d, avg_pool2d, max_pool2d
 from .sampling import sample_logits, sample_logits_per_slot
 
-__all__ = ["adaptive_avg_pool2d", "avg_pool2d", "batch_norm", "conv2d",
-           "cross_entropy", "flash_attention", "flash_attn_qkvpacked",
-           "fused_linear_cross_entropy", "max_pool2d", "sample_logits",
-           "sample_logits_per_slot", "scaled_dot_product_attention"]
+__all__ = sorted(_activation + _common + _loss + _norm + [
+    "adaptive_avg_pool2d", "avg_pool2d", "conv2d", "flash_attention",
+    "flash_attn_qkvpacked", "max_pool2d", "sample_logits",
+    "sample_logits_per_slot", "scaled_dot_product_attention"])

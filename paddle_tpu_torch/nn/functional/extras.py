@@ -1,5 +1,6 @@
 """The port of paddle_tpu/nn/functional/extras.py: only
-``flash_attn_qkvpacked`` so far (the rest: ROADMAP queue A3/A10)."""
+``flash_attn_qkvpacked`` so far (``log_sigmoid`` lives in
+`activation`; the rest: ROADMAP queue A10)."""
 from __future__ import annotations
 
 from .flash_attention import flash_attention

@@ -1,7 +1,8 @@
 """``Conv2D``: the port of paddle_tpu/nn/layer/conv.py's 2-D convolution
-layer. Weight ``[out, in / groups, kh, kw]`` and bias drawn from
-Uniform(-1/sqrt(fan_in), 1/sqrt(fan_in)), fan_in = in / groups * kh *
-kw, as in the reference."""
+layer. Weight ``[out, in / groups, kh, kw]`` and bias drawn by default
+from Uniform(-1/sqrt(fan_in), 1/sqrt(fan_in)), fan_in = in / groups *
+kh * kw, as in the reference; ``weight_attr`` / ``bias_attr`` take what
+the reference's take (`layers.ParamAttr`)."""
 from __future__ import annotations
 
 import math
@@ -9,7 +10,8 @@ import math
 import torch
 
 from .. import functional as PF
-from .layers import wants_parameter
+from ..initializer import Uniform
+from .layers import create_parameter
 
 __all__ = ["Conv2D"]
 
@@ -28,29 +30,20 @@ class Conv2D(torch.nn.Module):
             raise NotImplementedError(
                 f"Conv2D padding_mode={padding_mode!r} is not ported yet: "
                 "ROADMAP queue A10")
-        wants_parameter(weight_attr, "weight_attr")
         self._in_channels, self._out_channels = in_channels, out_channels
         self._kernel_size = _pair(kernel_size)
         self._stride, self._padding = stride, padding
         self._dilation, self._groups = dilation, groups
         self._data_format = data_format
-        factory = dict(device=device, dtype=dtype)
-        self.weight = torch.nn.Parameter(torch.empty(
-            out_channels, in_channels // groups, *self._kernel_size,
-            **factory))
-        self.bias = (torch.nn.Parameter(
-                         torch.empty(out_channels, **factory))
-                     if wants_parameter(bias_attr, "bias_attr") else None)
-        self.reset_parameters(generator)
-
-    @torch.no_grad()
-    def reset_parameters(self, generator=None):
-        fan_in = self._in_channels // self._groups * math.prod(
-            self._kernel_size)
+        fan_in = in_channels // groups * math.prod(self._kernel_size)
         bound = 1.0 / math.sqrt(fan_in)
-        self.weight.uniform_(-bound, bound, generator=generator)
-        if self.bias is not None:
-            self.bias.uniform_(-bound, bound, generator=generator)
+        kw = dict(dtype=dtype, device=device, generator=generator,
+                  default_initializer=Uniform(-bound, bound))
+        self.weight = create_parameter(
+            [out_channels, in_channels // groups, *self._kernel_size],
+            weight_attr, **kw)
+        self.bias = create_parameter([out_channels], bias_attr,
+                                     is_bias=True, **kw)
 
     def forward(self, x):
         return PF.conv2d(x, self.weight, self.bias, self._stride,

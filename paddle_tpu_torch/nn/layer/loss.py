@@ -1,32 +1,142 @@
-"""``CrossEntropyLoss``: the port of paddle_tpu/nn/layer/loss.py's, over
-`nn.functional.cross_entropy` (hard labels: softmax cross entropy in
-fp32, ``ignore_index``, the mean over the labels kept). Class weights,
-soft labels, label smoothing, another ``axis`` and ``use_softmax=False``
-raise until ROADMAP queue A3 ports them."""
+"""Loss layers: the port of paddle_tpu/nn/layer/loss.py, each over its
+`nn.functional` counterpart with the reference's arguments."""
 from __future__ import annotations
 
-import torch
-
 from .. import functional as PF
+from .layers import Layer
 
-__all__ = ["CrossEntropyLoss"]
+__all__ = ["BCELoss", "BCEWithLogitsLoss", "CosineEmbeddingLoss",
+           "CrossEntropyLoss", "HingeEmbeddingLoss", "KLDivLoss", "L1Loss",
+           "MSELoss", "MarginRankingLoss", "NLLLoss", "SmoothL1Loss",
+           "TripletMarginLoss"]
 
 
-class CrossEntropyLoss(torch.nn.Module):
+class CrossEntropyLoss(Layer):
     def __init__(self, weight=None, ignore_index=-100, reduction="mean",
                  soft_label=False, axis=-1, use_softmax=True,
                  label_smoothing=0.0, name=None):
         super().__init__()
-        refused = {"weight": weight is not None, "soft_label": soft_label,
-                   "axis": axis != -1, "use_softmax": not use_softmax,
-                   "label_smoothing": label_smoothing != 0.0}
-        if any(refused.values()):
-            what = ", ".join(k for k, v in refused.items() if v)
-            raise NotImplementedError(
-                f"CrossEntropyLoss({what}) is not ported yet: ROADMAP "
-                "queue A3")
-        self.ignore_index, self.reduction = ignore_index, reduction
+        self.weight, self.ignore_index = weight, ignore_index
+        self.reduction, self.soft_label = reduction, soft_label
+        self.axis = axis
+        self.use_softmax, self.label_smoothing = use_softmax, label_smoothing
 
     def forward(self, input, label):
-        return PF.cross_entropy(input, label, ignore_index=self.ignore_index,
-                                reduction=self.reduction)
+        return PF.cross_entropy(
+            input, label, weight=self.weight, ignore_index=self.ignore_index,
+            reduction=self.reduction, soft_label=self.soft_label,
+            axis=self.axis, use_softmax=self.use_softmax,
+            label_smoothing=self.label_smoothing)
+
+
+class MSELoss(Layer):
+    def __init__(self, reduction="mean"):
+        super().__init__()
+        self.reduction = reduction
+
+    def forward(self, input, label):
+        return PF.mse_loss(input, label, self.reduction)
+
+
+class L1Loss(Layer):
+    def __init__(self, reduction="mean", name=None):
+        super().__init__()
+        self.reduction = reduction
+
+    def forward(self, input, label):
+        return PF.l1_loss(input, label, self.reduction)
+
+
+class SmoothL1Loss(Layer):
+    def __init__(self, reduction="mean", delta=1.0, name=None):
+        super().__init__()
+        self.reduction, self.delta = reduction, delta
+
+    def forward(self, input, label):
+        return PF.smooth_l1_loss(input, label, self.reduction, self.delta)
+
+
+class NLLLoss(Layer):
+    def __init__(self, weight=None, ignore_index=-100, reduction="mean",
+                 name=None):
+        super().__init__()
+        self.weight, self.ignore_index = weight, ignore_index
+        self.reduction = reduction
+
+    def forward(self, input, label):
+        return PF.nll_loss(input, label, self.weight, self.ignore_index,
+                           self.reduction)
+
+
+class BCELoss(Layer):
+    def __init__(self, weight=None, reduction="mean", name=None):
+        super().__init__()
+        self.weight, self.reduction = weight, reduction
+
+    def forward(self, input, label):
+        return PF.binary_cross_entropy(input, label, self.weight,
+                                       self.reduction)
+
+
+class BCEWithLogitsLoss(Layer):
+    def __init__(self, weight=None, reduction="mean", pos_weight=None,
+                 name=None):
+        super().__init__()
+        self.weight, self.reduction = weight, reduction
+        self.pos_weight = pos_weight
+
+    def forward(self, logit, label):
+        return PF.binary_cross_entropy_with_logits(
+            logit, label, self.weight, self.reduction, self.pos_weight)
+
+
+class KLDivLoss(Layer):
+    def __init__(self, reduction="mean", log_target=False):
+        super().__init__()
+        self.reduction, self.log_target = reduction, log_target
+
+    def forward(self, input, label):
+        return PF.kl_div(input, label, self.reduction, self.log_target)
+
+
+class HingeEmbeddingLoss(Layer):
+    def __init__(self, margin=1.0, reduction="mean", name=None):
+        super().__init__()
+        self.margin, self.reduction = margin, reduction
+
+    def forward(self, input, label):
+        return PF.hinge_embedding_loss(input, label, self.margin,
+                                       self.reduction)
+
+
+class MarginRankingLoss(Layer):
+    def __init__(self, margin=0.0, reduction="mean", name=None):
+        super().__init__()
+        self.margin, self.reduction = margin, reduction
+
+    def forward(self, input, other, label):
+        return PF.margin_ranking_loss(input, other, label, self.margin,
+                                      self.reduction)
+
+
+class CosineEmbeddingLoss(Layer):
+    def __init__(self, margin=0.0, reduction="mean", name=None):
+        super().__init__()
+        self.margin, self.reduction = margin, reduction
+
+    def forward(self, input1, input2, label):
+        return PF.cosine_embedding_loss(input1, input2, label, self.margin,
+                                        self.reduction)
+
+
+class TripletMarginLoss(Layer):
+    def __init__(self, margin=1.0, p=2.0, epsilon=1e-6, swap=False,
+                 reduction="mean", name=None):
+        super().__init__()
+        self.margin, self.p, self.epsilon = margin, p, epsilon
+        self.swap, self.reduction = swap, reduction
+
+    def forward(self, input, positive, negative):
+        return PF.triplet_margin_loss(input, positive, negative,
+                                      self.margin, self.p, self.epsilon,
+                                      self.swap, self.reduction)

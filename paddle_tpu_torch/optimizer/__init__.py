@@ -105,10 +105,13 @@ class Adam(Optimizer):
         return 0.0
 
     def _l2_coeff(self, p):
+        """The L2 term of ``p`` (none with a ``regularizer`` of its own,
+        as in the reference); the fused and per-parameter paths both
+        read it."""
         wd = self._param_group_wd(p)
         if wd is None:
             wd = self._weight_decay
-        if wd is None:
+        if wd is None or getattr(p, "regularizer", None) is not None:
             return 0.0
         return float(wd if isinstance(wd, float)
                      else getattr(wd, "_coeff", 0.0))

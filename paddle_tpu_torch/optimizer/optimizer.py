@@ -202,14 +202,16 @@ class Optimizer:
 
     def _apply_decay(self, p, g):
         """L2 regularization folded into the gradient (the group's
-        ``weight_decay`` or the optimizer's)."""
+        ``weight_decay`` or the optimizer's); none for a parameter with a
+        ``regularizer`` of its own (`nn.ParamAttr`), as in the
+        reference."""
         wd = self._param_group_wd(p)
         if wd is None:
             wd = self._weight_decay
         if wd is None:
             return g
         coeff = wd if isinstance(wd, float) else getattr(wd, "_coeff", 0.0)
-        if coeff == 0.0:
+        if coeff == 0.0 or getattr(p, "regularizer", None) is not None:
             return g
         return g + coeff * self._param_value(p).to(g.dtype)
 

@@ -5,6 +5,8 @@
     python -m paddle_tpu_torch.profile_training --resnet [--batch B]
     python -m paddle_tpu_torch.profile_training --fused-scan [--seq S] \
         [--batch B]
+    python -m paddle_tpu_torch.profile_training --llama [--seq S] \
+        [--batch B]
 
 Builds the configuration of ``chip_smoke.py`` phases 9-10 (GPT-3 1.3B
 width, bf16 weights from seed 0, fp32 masters, bf16 AdamW moments,
@@ -48,6 +50,20 @@ the fused head, one layer a chunk) twice, with the numerics monitor on
 (splash), the fused CE, the matrix products, the optimizer
 (``mt_adam_kernel``), the numerics monitor (the device time the monitor
 adds: busy time on minus busy time off) and the rest.
+
+``--llama`` profiles ``chip_smoke.py`` phase 16's step (TinyLlama-1.1B
+from seed 0 through ``amp.decorate(level="O2")``, AdamW with fp32
+masters and bf16 moments, clip 1.0, recompute, ``--batch`` x ``--seq``
+random tokens, default 4 x 2048) with the numerics monitor on and off,
+and splits the monitor-on step into the dense attention (its two
+batched products, scale, mask, casts and softmax, forward, recompute and
+backward: every kernel launched under an ``aten::bmm`` (only the
+attention's products are batched; the Linear layers' are ``aten::mm``)
+or under an operator with an input of ``batch * heads * seq * seq``
+elements, the score matrix), the fused CE, the other matrix products,
+the optimizer (the kernels inside ``opt.step()``), the numerics monitor
+(busy time on minus off) and the rest (RMSNorm, RoPE, SwiGLU, the
+residual adds, the embedding).
 """
 from __future__ import annotations
 
@@ -59,7 +75,9 @@ import numpy as np
 import torch
 
 from .jit import FusedScanTrainStep, TrainStep
-from .models import GPTForCausalLM, GPTPretrainingCriterion, gpt_config
+from .amp import decorate
+from .models import (GPTForCausalLM, GPTPretrainingCriterion, LlamaForCausalLM,
+                     gpt_config, llama_config)
 from .nn import ClipGradByGlobalNorm, CrossEntropyLoss
 from .optimizer import AdamW, Momentum
 from .utils import flags
@@ -186,6 +204,89 @@ def profile_fused_scan(batch, seq, steps):
         **on, "numerics_off": off}))
 
 
+def build_llama(batch=4, seq=2048, seed=0):
+    """(model, opt, ids, labels) of ``chip_smoke.py`` phase 16."""
+    cfg = llama_config("tinyllama-1.1b", use_recompute=True)
+    model = LlamaForCausalLM(cfg, seed=seed)
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                moment_dtype="bfloat16", grad_clip=ClipGradByGlobalNorm(1.0))
+    decorate(models=model, optimizers=opt, level="O2")
+    _annotate(opt)
+    rng = np.random.default_rng(seed)
+    dev = next(model.parameters()).device
+    ids = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                        (batch, seq))).to(dev)
+    labels = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                           (batch, seq))).to(dev)
+    return model, opt, ids, labels
+
+
+def _is_attention(ev, scores):
+    """Whether ``ev`` or an operator around it is the dense attention's:
+    a batched product, or an input of ``scores`` elements."""
+    while ev is not None:
+        if "bmm" in ev.name:
+            return True
+        for shape in ev.input_shapes or ():
+            if shape and int(np.prod(shape)) == scores:
+                return True
+        ev = ev.cpu_parent
+    return False
+
+
+def profile_llama(batch, seq, steps):
+    """One JSON line: TinyLlama-1.1B's step (phase 16) by column, with
+    the numerics monitor on and off."""
+    model, opt, ids, labels = build_llama(batch, seq)
+    cfg = model.config
+    scores = batch * cfg.num_attention_heads * seq * seq
+    runs = {}
+    for numerics in (True, False):
+        step = TrainStep(model, lambda m, x, y: m.loss(x, y), opt,
+                         numerics=numerics)
+        kernels, prof, wall = _profile(step, (ids, labels), steps,
+                                       record_shapes=True)
+        busy = sum(us for us, _ in kernels.values()) / 1e6 / steps
+        attention = gemm = 0.0
+        for ev in prof.events():
+            if ev.device_type != torch.autograd.DeviceType.CPU:
+                continue
+            for k in ev.kernels:
+                if _is_attention(ev, scores):
+                    attention += k.duration
+                elif any(g in k.name.lower() for g in _GEMM):
+                    gemm += k.duration
+
+        def share(names):
+            return sum(us for key, (us, _) in kernels.items()
+                       if any(n in key.lower() for n in names)) / 1e6 / steps
+
+        fused = sum(share((n,)) for n in _OPTIMIZER)
+        optimizer, span = _optimizer_time(prof, steps, fused)
+        cols = {"attention_s_per_step": attention / 1e6 / steps,
+                "fused_ce_s_per_step": share(("fused_ce",)),
+                "gemm_s_per_step": gemm / 1e6 / steps,
+                "optimizer_s_per_step": optimizer}
+        runs[numerics] = {
+            "wall_s_per_step": wall / steps,
+            "device_busy_s_per_step": busy,
+            "device_idle_share": 1.0 - busy * steps / wall,
+            "kernels_per_step": sum(n for _, n in kernels.values()) / steps,
+            **cols, "optimizer_span_s_per_step": span,
+            "other_s_per_step": busy - sum(cols.values()),
+            "top_kernels": _top(kernels)}
+    on, off = runs[True], runs[False]
+    numerics = on["device_busy_s_per_step"] - off["device_busy_s_per_step"]
+    on["numerics_s_per_step"] = numerics
+    on["other_s_per_step"] -= numerics
+    on["attention_share_of_busy"] = (on["attention_s_per_step"]
+                                     / on["device_busy_s_per_step"])
+    print(json.dumps({
+        "device": torch.cuda.get_device_name(0), "step": "TrainStep",
+        "model": "tinyllama-1.1b", "seq": seq, "batch": batch,
+        "steps": steps, **on, "numerics_off": off}))
+
+
 def build_resnet(batch=32, seed=0):
     """(step, images, labels) of ``chip_smoke.py`` phase 12."""
     model = resnet50(num_classes=1000, seed=seed)
@@ -202,7 +303,7 @@ def build_resnet(batch=32, seed=0):
     return step, x, y
 
 
-def _profile(step, batch, steps):
+def _profile(step, batch, steps, record_shapes=False):
     """``steps`` steps under the profiler after two warm-up steps: (the
     device time and count of each kernel, the profiler, the wall)."""
     for _ in range(2):                                 # warm-up
@@ -210,7 +311,8 @@ def _profile(step, batch, steps):
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
+    with torch.profiler.profile(activities=acts,
+                                record_shapes=record_shapes) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             step(*batch)
@@ -330,7 +432,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=2,
                     help="steps under the profiler")
-    ap.add_argument("--seq", type=int, default=1024, help="tokens a row")
+    ap.add_argument("--seq", type=int, default=None,
+                    help="tokens a row; default 1024 (2048 with --llama)")
     ap.add_argument("--batch", type=int, default=None,
                     help="rows (images with --resnet) a step; default 8 "
                          "(32 with --resnet)")
@@ -340,6 +443,10 @@ def main(argv=None):
     ap.add_argument("--resnet", action="store_true",
                     help="ResNet-50's fp32 step (chip_smoke.py phase 12) "
                          "instead of GPT's; --batch defaults to 32")
+    ap.add_argument("--llama", action="store_true",
+                    help="TinyLlama-1.1B's bf16 O2 step (chip_smoke.py "
+                         "phase 16), the numerics monitor on and off; "
+                         "--seq defaults to 2048, --batch to 4")
     ap.add_argument("--fused-scan", action="store_true",
                     help="GPT-3 1.3B through FusedScanTrainStep "
                          "(chip_smoke.py phase 14), the numerics monitor "
@@ -351,9 +458,12 @@ def main(argv=None):
         profile_resnet(args.batch or 32, args.steps)
         return
     if args.fused_scan:
-        profile_fused_scan(args.batch or 8, args.seq, args.steps)
+        profile_fused_scan(args.batch or 8, args.seq or 1024, args.steps)
         return
-    args.batch = args.batch or 8
+    if args.llama:
+        profile_llama(args.batch or 4, args.seq or 2048, args.steps)
+        return
+    args.batch, args.seq = args.batch or 8, args.seq or 1024
     step, ids, labels = build(args.batch, args.seq,
                               per_param=args.per_param)
     kernels, prof, wall = _profile(step, (ids, labels), args.steps)

@@ -99,3 +99,17 @@ define_flag("FLAGS_numerics_monitor", True,
             "back lazily by observability.numerics.NumericsMonitor at a "
             "logging boundary. Off removes the stats from the steps. "
             "Per-step override: numerics=True/False")
+define_flag("FLAGS_attention_fp32_scores", False,
+            "store attention scores in fp32 instead of the input dtype "
+            "(softmax math is fp32 either way); costs ~2x score-matrix "
+            "HBM traffic")
+define_flag("FLAGS_fused_ce_chunks", 4,
+            "token-chunk count for fused_linear_cross_entropy: logits are "
+            "computed per chunk and discarded instead of materializing the "
+            "full [tokens, vocab] fp32 matrix")
+define_flag("FLAGS_fused_ce", True,
+            "route fused_linear_cross_entropy through the vocab-tiled "
+            "streaming CE (ops/kernels/fused_cross_entropy.py) — the "
+            "[tokens, vocab] logits never exist in forward or backward. "
+            "Off restores the token-chunked logsumexp path "
+            "(FLAGS_fused_ce_chunks).")

@@ -203,13 +203,67 @@ def test_cross_entropy_matches_jax():
 
 
 def test_token_chunked_route_is_not_ported():
-    h = torch.zeros(4, 16)
-    w = torch.zeros(8, 16)
-    lbl = torch.zeros(4, dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="token-chunked"):
-        PF.fused_linear_cross_entropy(h, w, lbl, n_chunks=2)
-    with pytest.raises(NotImplementedError, match="token-chunked"):
-        PF.fused_linear_cross_entropy(h, w, lbl, vocab_tiled=False)
+    """Ported since (ROADMAP A3): ``vocab_tiled=False`` takes the
+    token-chunked route, an explicit ``n_chunks`` alone keeps the
+    vocab-tiled one (as in the reference), and both give the same
+    loss."""
+    rng = np.random.default_rng(0)
+    h = torch.from_numpy(rng.standard_normal((4, 16)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((8, 16)).astype(np.float32))
+    lbl = torch.from_numpy(rng.integers(0, 8, 4))
+    tiled = PF.fused_linear_cross_entropy(h, w, lbl, n_chunks=2)
+    chunked = PF.fused_linear_cross_entropy(h, w, lbl, vocab_tiled=False)
+    assert abs(float(tiled) - float(chunked)) < 1e-5
+
+
+@pytest.mark.parametrize("n_chunks", [1, 4])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("transpose_y", [True, False])
+def test_token_chunked_route_matches_jax(n_chunks, dtype, transpose_y):
+    """``vocab_tiled=False`` against the reference's token-chunked
+    custom VJP on the same inputs: per-token losses under a random
+    cotangent, dh and dW, with the head as [V, H] or [H, V], 38 tokens
+    over 1 or 4 chunks (the last one short). fp32 within ATOL; in bf16
+    (``d`` rounded to the hidden states' dtype, dW summed over chunks in
+    fp32 and cast) the losses within ATOL and both gradients bit for bit
+    (as measured)."""
+    rng = np.random.default_rng(3)
+    b, s, hid, vocab = 2, 19, 32, 200
+    h = rng.standard_normal((b, s, hid)).astype(np.float32)
+    w_vh = (rng.standard_normal((vocab, hid)) * 0.1).astype(np.float32)
+    w = w_vh if transpose_y else np.ascontiguousarray(w_vh.T)
+    lbl = rng.integers(0, vocab, (b, s))
+    lbl[0, ::3] = -100
+    cot = rng.standard_normal((b, s)).astype(np.float32)
+
+    jh, jw = paddle.to_tensor(h).astype(dtype), paddle.to_tensor(w).astype(
+        dtype)
+    jh.stop_gradient = jw.stop_gradient = False
+    jout = JF.fused_linear_cross_entropy(
+        jh, jw, paddle.to_tensor(lbl, dtype="int64"),
+        transpose_y=transpose_y, reduction="none", n_chunks=n_chunks,
+        vocab_tiled=False)
+    (jout * paddle.to_tensor(cot)).sum().backward()
+
+    th = torch.from_numpy(h).to(getattr(torch, dtype)).requires_grad_()
+    tw = torch.from_numpy(w).to(getattr(torch, dtype)).requires_grad_()
+    tout = PF.fused_linear_cross_entropy(
+        th, tw, torch.from_numpy(lbl), transpose_y=transpose_y,
+        reduction="none", n_chunks=n_chunks, vocab_tiled=False)
+    (tout * torch.from_numpy(cot)).sum().backward()
+
+    def host(t):
+        return np.asarray(t.astype("float32").numpy())
+
+    assert th.grad.dtype == tw.grad.dtype == getattr(torch, dtype)
+    np.testing.assert_allclose(tout.detach().numpy(), host(jout), rtol=0,
+                               atol=ATOL)
+    for got, want in ((th.grad, jh.grad), (tw.grad, jw.grad)):
+        if dtype == "float32":
+            np.testing.assert_allclose(got.numpy(), host(want), rtol=0,
+                                       atol=ATOL)
+        else:
+            np.testing.assert_array_equal(got.float().numpy(), host(want))
 
 
 def _scratch(n, hidden, width, n_chunks):

@@ -733,6 +733,45 @@ def test_fused_ce_kernels(cuda, monkeypatch, dtype, n, vocab, hidden,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,hidden", [(1000, 2048), (300, 4096)])
+def test_fused_ce_at_llama_vocab(cuda, dtype, n, hidden):
+    """LLaMA's vocab of 32000 (TinyLlama's hidden 2048, LLaMA-7B's 4096)
+    through `fused_linear_cross_entropy`, the untied head's ``[vocab,
+    hidden]`` weight with ``transpose_y=True``: loss and both gradients
+    against the plain version on the same inputs, one forward and one
+    backward launch."""
+    from paddle_tpu_torch.nn import functional as PF
+
+    vocab = 32000
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    h = torch.randn(n, hidden, device=cuda, generator=gen).to(dtype)
+    w = (torch.randn(vocab, hidden, device=cuda, generator=gen) * 0.02) \
+        .to(dtype)
+    labels = torch.randint(0, vocab, (n,), device=cuda, generator=gen)
+    labels[::9] = -100
+    labels[-1] = vocab - 1
+    counter = _fwd_counter(fce.fused_ce_fwd, dtype)
+    n_f, n_b = getattr(fce.fused_ce_fwd, counter), fce.fused_ce_bwd.launches
+    grads = []
+    for kernel in (True, False):
+        hk, wk = h.clone().requires_grad_(), w.clone().requires_grad_()
+        if kernel:
+            loss = PF.fused_linear_cross_entropy(hk, wk, labels)
+        else:
+            losses, _ = fce.fused_ce_fwd_ref(hk, wk, labels)
+            loss = losses.sum() / (labels != -100).sum()
+        loss.backward()
+        grads.append((loss.detach(), hk.grad, wk.grad))
+    torch.cuda.synchronize()
+    assert getattr(fce.fused_ce_fwd, counter) == n_f + 1
+    assert fce.fused_ce_bwd.launches == n_b + 1
+    (loss, dh, dw), (want, rdh, rdw) = grads
+    assert abs(float(loss) - float(want)) <= 1e-4
+    assert _rel(dh, rdh) <= TOL[dtype] and _rel(dw, rdw) <= TOL[dtype]
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("n,vocab,hidden", [(300, 1000, 64), (1, 300, 128),
                                             (129, 512, 2048), (17, 130, 48),
                                             (256, 50304, 256)])

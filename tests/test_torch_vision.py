@@ -336,10 +336,13 @@ def test_layer_initialisers_follow_the_reference():
     assert bn.weight.eq(1).all() and not bn.bias.any()
     assert list(bn.state_dict()) == ["weight", "bias", "_mean", "_variance"]
     assert pnn.BatchNorm2D(5, weight_attr=False).weight is None
-    with pytest.raises(NotImplementedError, match="A3"):
-        pnn.Conv2D(2, 2, 1, weight_attr="w")
-    with pytest.raises(NotImplementedError, match="A3"):
-        pnn.CrossEntropyLoss(soft_label=True)
+    # attrs and soft labels, ported since (ROADMAP A3)
+    fixed = pnn.Conv2D(2, 2, 1, weight_attr=pnn.ParamAttr(
+        initializer=pnn.initializer.Constant(0.5)), bias_attr=False)
+    assert fixed.weight.eq(0.5).all() and fixed.bias is None
+    soft = torch.softmax(torch.randn(3, 4), -1)
+    assert torch.isfinite(pnn.CrossEntropyLoss(soft_label=True)(
+        torch.randn(3, 4), soft))
     a = tvm.resnet18(num_classes=10, device="cpu", seed=3)
     b = tvm.resnet18(num_classes=10, device="cpu", seed=3)
     assert all(torch.equal(x, y) for x, y in zip(a.state_dict().values(),
