@@ -54,7 +54,14 @@ Phases, one line each (any failure exits non-zero, nothing is caught):
    CUDA-graph replays beside ``torch._fused_adamw_``; the fused CE again
    at LLaMA's vocab of 32000, TinyLlama's training shape (h [8192,
    2048]) and LLaMA-7B's head (h [2048, 4096]), fp32 and bf16, forward
-   and backward, timed as at GPT's;
+   and backward, timed as at GPT's; the weight-only linear
+   (``csrc/weight_only.cu``) on each of GPT-3 1.3B's four projections at
+   M = 1, 8 (its decode route) and 1024 (its tiled route), int8 per
+   channel, int4 and int8 grouped 128, fp32 and bf16 x (and fp16 on
+   qkv), each within its bar of the plain version and bit-identical on a
+   second call, timed as CUDA-graph replays beside the plain version,
+   its byte bound, ``F.linear`` over the bf16 weight and
+   ``weight_dequantize`` + the product;
 4. serving parity: a tiny fp32 GPT served through the engine's CUDA
    graphs on the card, its eager loop on the card (kernels) and on the
    CPU (plain versions) over fp32, int8 and int4 pools, at decode bursts
@@ -167,13 +174,25 @@ Phases, one line each (any failure exits non-zero, nothing is caught):
     ``mt_adam_kernel``, one ``mt_norm_kernel`` and no attention kernel
     (the attention is dense, as in the reference); every loss finite,
     the first near ln(32000);
-17. one JSON line ``{"kernels": [...]}`` with each kernel's error,
+17. ``bench.py``'s decode lane (``run_decode_config``) at GPT-3 1.3B
+    width: prompt 128, 64 new tokens, batch 1 and 8, greedy, over the
+    dense cache, the paged cache and the dense cache with
+    ``quantize_for_decode`` int8 weights, in fp32 (weights and cache, the
+    reference's) and in bf16: decode tok/s, prefill TTFT and cold-start
+    ms, peak memory, the weight-only launches per route and the graph
+    counts; each run captures one prompt graph and one decode graph in
+    its warm-up call and none after, the int8 runs launch the weight-only
+    kernel on both routes and the fp runs never; the fp32 int8 model's
+    logits within 2e-4 of its ``weight_dequantize`` twin's; first a tiny
+    int8 GPT's dense greedy tokens equal on the card and the CPU;
+18. one JSON line ``{"kernels": [...]}`` with each kernel's error,
     times, bound and launches (a paged kernel's from the serving run of
     its pools' graph run, splash's, the CE's and the optimizer's from
     phase 9, a flash pair's from its phase-10 run; splash's, the CE's
     and the optimizer's phase-14 launches beside them, and the CE's and
     the optimizer's phase-16 launches; the CE rows also carry phase 3's
-    numbers at LLaMA's two heads, ``llama_shapes``).
+    numbers at LLaMA's two heads, ``llama_shapes``; the weight-only
+    kernels' launches from phase 17's int8 runs, with every phase-3 row).
 
 It then prints the ``nvidia-smi`` line again and, last, ``{"ok": true,
 "device": {...}}``. Imports torch, numpy and the port only.
@@ -197,7 +216,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
 BF16_FLOP_PER_S = 989e12        # dense bf16 tensor-core peak
 FP32_FLOP_PER_S = 67e12         # fp32 outside the tensor cores
-PHASES = 17
+PHASES = 18
 
 
 def nvidia_smi() -> str:
@@ -3585,6 +3604,325 @@ def llama_full_width(dev, warmup=2, timed=5, batch=4, seq=2048):
     return {k: launches[k] for k in want}, timed
 
 
+# ---------------------------------------------------------------------------
+# phase 3, the weight-only linear; phase 17, the decode lane
+# ---------------------------------------------------------------------------
+
+WO_SOURCE = "paddle_tpu_torch/csrc/weight_only.cu"
+WO_REPLACES = "paddle_tpu/nn/quant/__init__.py:154"
+# GPT-3 1.3B's four projections, [out, in]
+WO_PROJECTIONS = {"qkv": (6144, 2048), "out_proj": (2048, 2048),
+                  "fc1": (8192, 2048), "fc2": (2048, 8192)}
+WO_ROWS = (1, 8, 1024)             # decode at batch 1 and 8; a prompt pass
+WO_QUANTS = {"int8": ("weight_only_int8", -1),
+             "int4": ("weight_only_int4", -1),
+             "int8_g128": ("weight_only_int8", 128)}
+# the error over the plain output's largest magnitude: fp32 sums in
+# another order; bf16 / fp16 one rounding of the output
+WO_TOL = {torch.float32: 1e-5, torch.bfloat16: 8e-3, torch.float16: 8e-3}
+WO_KERNELS = {"gemv": "wo_gemv_kernel", "tiled": "wo_tiled_kernel"}
+# a route's rows in the kernels line, one list each, in this order
+WO_ROW_KEYS = ("proj", "m", "quant", "dtype", "max_rel_err", "ms",
+               "plain_ms", "bound_ms", "bytes_bound_ms", "library_ms",
+               "dequant_linear_ms")
+# the headline shape of each route in the kernels line: fc1, int8 per
+# channel, bf16 x, at the lane's batch 8 (decode) and its prompt pass
+WO_HEADLINE = {"gemv": ("fc1", 8, "int8", "bfloat16"),
+               "tiled": ("fc1", 1024, "int8", "bfloat16")}
+
+
+def _wo_row(dev, flush, proj, m, quant, dtype, seed):
+    """One row of phase 3's weight-only table: the kernel against its
+    plain version (and bit-identical twice), then its graph-replay time
+    beside the plain version, the byte bound and the two library
+    yardsticks."""
+    from paddle_tpu_torch.nn.quant import weight_dequantize, weight_quantize
+    from paddle_tpu_torch.ops.kernels import weight_only as wo
+
+    n, k = WO_PROJECTIONS[proj]
+    algo, group = WO_QUANTS[quant]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, s = weight_quantize(torch.randn(k, n, device=dev, generator=gen) *
+                           0.02, algo=algo, group_size=group)
+    x = torch.randn(m, k, device=dev, generator=gen).to(dtype)
+    b = (torch.randn(n, device=dev, generator=gen) * 0.02).to(dtype)
+    route = "gemv" if m <= wo.GEMV_MAX_ROWS else "tiled"
+    counter = f"launches_{route}"
+    before = getattr(wo.weight_only_linear, counter)
+    got = wo.weight_only_linear(x, q, b, s)
+    again = wo.weight_only_linear(x, q, b, s)
+    torch.cuda.synchronize()
+    want = wo.weight_only_linear_ref(x, q, b, s)
+    err = _rel_err(got, want)
+    name = f"weight_only {proj} [{n},{k}] M {m} {quant} {str(dtype)[6:]}"
+    if getattr(wo.weight_only_linear, counter) != before + 2:
+        raise AssertionError(f"{name}: not counted on {counter}")
+    if not (err <= WO_TOL[dtype] and torch.isfinite(got).all()
+            and torch.equal(got, again)):
+        raise AssertionError(f"{name}: error {err} over the largest output "
+                             f"> {WO_TOL[dtype]}, or a second call differs")
+    isz = x.element_size()
+    # the int8 weight, its scales, x, y and the bias once each
+    nbytes = float(n * k + s.numel() * 4 + (m * k + m * n + n) * isz)
+    b_ms, b_by = bound_ms(nbytes, 2.0 * m * n * k, isz)
+    wb = weight_dequantize(q, s, algo=algo, out_dtype=torch.bfloat16) \
+        .t().contiguous()
+    xb = x.to(torch.bfloat16)
+    bb = b.to(torch.bfloat16)
+    row = {
+        "proj": proj, "shape": [m, n, k], "quant": quant,
+        "dtype": str(dtype)[6:], "route": route, "max_rel_err": err,
+        "max_abs_err": _max_err(got, want),
+        "ms": graph_ms(lambda: wo.weight_only_linear(x, q, b, s), flush),
+        "plain_ms": time_ms(lambda: wo.weight_only_linear_ref(x, q, b, s),
+                            flush),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "bytes_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+        # F.linear over the bf16 weight, what int8 is meant to beat
+        "library_ms": graph_ms(
+            lambda: torch.nn.functional.linear(xb, wb, bb), flush),
+        # weight_dequantize + the product, the dequantize counted
+        "dequant_linear_ms": graph_ms(
+            lambda: torch.addmm(b, x, weight_dequantize(
+                q, s, algo=algo, out_dtype=dtype)), flush),
+    }
+    print(f"[3/{PHASES}] {name}: {route}, error/max {err:.3g}, "
+          f"bit-identical twice; {row['ms']:.4f} ms (plain "
+          f"{row['plain_ms']:.4f}, bf16 F.linear {row['library_ms']:.4f}, "
+          f"dequantize + product {row['dequant_linear_ms']:.4f}, bound "
+          f"{b_ms:.4f} {b_by})", flush=True)
+    return row
+
+
+def check_weight_only(dev, flush):
+    """Phase 3's weight-only rows (``csrc/weight_only.cu``): each of GPT-3
+    1.3B's four projections at M = 1, 8 and 1024, in int8 per channel,
+    int4 and int8 grouped 128, with fp32 and bf16 x, and one fp16 case;
+    each held to `weight_only_linear_ref` (`WO_TOL`) and bit-identical on
+    a second call, and timed as graph replays (L2 flushed) beside the
+    plain version, the byte bound and two library yardsticks. Returns
+    the kernels line's two entries, the headline numbers of each route
+    (`WO_HEADLINE`) and all its rows."""
+    rows = []
+    seed = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for proj in WO_PROJECTIONS:
+            for m in WO_ROWS:
+                for quant in WO_QUANTS:
+                    seed += 1
+                    rows.append(_wo_row(dev, flush, proj, m, quant, dtype,
+                                        seed))
+    rows.append(_wo_row(dev, flush, "qkv", 8, "int8", torch.float16,
+                        seed + 1))
+    rows.append(_wo_row(dev, flush, "qkv", 1024, "int8", torch.float16,
+                        seed + 2))
+    out = {}
+    for route, kernel in WO_KERNELS.items():
+        proj, m, quant, dtype = WO_HEADLINE[route]
+        head, = [r for r in rows if (r["proj"], r["shape"][0], r["quant"],
+                                     r["dtype"]) == (proj, m, quant, dtype)]
+        mine = [r for r in rows if r["route"] == route]
+        out[kernel] = {
+            **{k: head[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                    "bound_ms", "bound_by", "library_ms",
+                                    "dequant_linear_ms", "shape")},
+            "max_rel_err": max(r["max_rel_err"] for r in mine),
+            "library": "torch.nn.functional.linear over the bf16 weight",
+            "config": f"{proj} {quant} {dtype} x",
+            "row_keys": WO_ROW_KEYS,
+            "rows": [[r["shape"][0] if k == "m" else r[k]
+                      for k in WO_ROW_KEYS] for r in mine]}
+    return out
+
+
+DECODE_LANE = dict(prompt=128, new=64, batches=(1, 8))
+
+
+def _decode_run(model, kind, bs, ids, cache_dtype):
+    """bench.py ``run_decode_config``'s timing of one (model, cache,
+    batch): a cold ``generate(ids, 2)`` (which captures the prompt
+    bucket's graph and the decode graph), ``generate(ids, 1)`` (TTFT),
+    then ``generate(ids, new)`` with the weight-only counters zeroed just
+    before and read just after; graph counts after each; peak memory
+    over the three."""
+    from paddle_tpu_torch.jit import GenerationEngine
+    from paddle_tpu_torch.ops.kernels import weight_only as wo
+
+    new = DECODE_LANE["new"]
+    eng = GenerationEngine(model, kind=kind, batch=bs,
+                           max_len=DECODE_LANE["prompt"] + new,
+                           cache_dtype=cache_dtype)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng.generate(ids, 2)
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    graphs = [(eng.prefill_step.trace_count, eng.decode_step.trace_count)]
+    t0 = time.perf_counter()
+    eng.generate(ids, 1)
+    torch.cuda.synchronize()
+    ttft = time.perf_counter() - t0
+    wo.weight_only_linear.launches_gemv = 0
+    wo.weight_only_linear.launches_tiled = 0
+    t0 = time.perf_counter()
+    toks = eng.generate(ids, new)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    graphs.append((eng.prefill_step.trace_count, eng.decode_step.trace_count))
+    t = toks.numpy()
+    if not (t.shape == (bs, new) and (t >= 0).all()
+            and (t < model.config.vocab_size).all()):
+        raise AssertionError(f"decode lane {kind} bs{bs}: bad tokens "
+                             f"{t.shape}")
+    if not (graphs == [(1, 1), (1, 1)] and eng.prefill_step.cache_size() == 1
+            and eng.decode_step.cache_size() == 1):
+        raise AssertionError(
+            f"decode lane {kind} bs{bs}: (prompt, decode) captures {graphs}, "
+            f"graphs {eng.prefill_step.cache_size()}, "
+            f"{eng.decode_step.cache_size()}: one each, in the warm-up")
+    decode_s = max(total - ttft, 1e-9)
+    return {
+        "decode_tok_s": bs * (new - 1) / decode_s,
+        "prefill_ttft_ms": ttft * 1e3, "cold_start_ms": cold * 1e3,
+        "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches_gemv": wo.weight_only_linear.launches_gemv,
+        "launches_tiled": wo.weight_only_linear.launches_tiled,
+        "prefill_graphs": eng.prefill_step.cache_size(),
+        "decode_graphs": eng.decode_step.cache_size(),
+        "captures": graphs[-1]}
+
+
+def _dequantized_twin(qmodel, cfg, dev, dtype):
+    """A fp model whose Linears hold ``weight_dequantize`` of the
+    quantized model's weights (the same function through ``F.linear``),
+    with the quantized model's other parameters (biases among them)."""
+    from paddle_tpu_torch.models import GPTForCausalLM
+    from paddle_tpu_torch.nn.quant import WeightOnlyLinear, weight_dequantize
+
+    twin = GPTForCausalLM(cfg, device=dev, dtype=dtype, seed=0)
+    twin.eval()
+    mods = dict(twin.named_modules())
+    with torch.no_grad():
+        for name, mod in qmodel.named_modules():
+            if isinstance(mod, WeightOnlyLinear):
+                lin = mods[name]
+                lin.weight.copy_(weight_dequantize(
+                    mod.quant_weight, mod.weight_scale, out_dtype=dtype).t())
+        sd = {k: v for k, v in qmodel.state_dict().items()
+              if "quant_weight" not in k and "weight_scale" not in k}
+        twin.load_state_dict(sd, strict=False)
+    return twin
+
+
+def _tiny_int8_dense_parity(dev):
+    """The int8 dense decode on the card (graphs) gives the CPU port's
+    greedy tokens on a tiny model (phase 4's weights)."""
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.nn.quant import quantize_for_decode
+
+    cfg = GPTConfig(vocab_size=128, hidden_size=64, num_layers=2,
+                    num_attention_heads=4, max_position_embeddings=128,
+                    tie_word_embeddings=False)
+    cpu = GPTForCausalLM(cfg, device="cpu")
+    rng = np.random.default_rng(0)
+    sd = {name: torch.from_numpy(
+              (rng.standard_normal(tuple(t.shape)) * 0.3).astype(np.float32))
+          for name, t in cpu.state_dict().items()}
+    cpu.load_state_dict(sd)
+    card = GPTForCausalLM(cfg, device=dev)
+    card.load_state_dict(sd)
+    quantize_for_decode(cpu)
+    quantize_for_decode(card)
+    ids = rng.integers(1, 128, (4, 24))
+    want = cpu.generate(ids, 16).numpy()
+    got = card.generate(ids, 16).numpy()
+    if not np.array_equal(got, want):
+        raise AssertionError(f"tiny int8 dense decode: card {got.tolist()} "
+                             f"vs cpu {want.tolist()}")
+    print(f"[17/{PHASES}] decode lane: tiny int8 GPT (untied head), dense "
+          f"greedy tokens {got.size} identical on the card (graphs) and the "
+          f"CPU", flush=True)
+
+
+def decode_lane(dev):
+    """Phase 17: ``bench.py``'s decode lane (``run_decode_config``) at
+    GPT-3 1.3B width (24 layers, random weights from seed 0, prompt 128,
+    64 new tokens, batch 1 and 8, greedy), over the dense cache, the
+    paged cache and the dense cache with ``quantize_for_decode`` int8
+    weights; in the reference's fp32 (weights and cache), then bf16
+    weights over a bf16 cache. Each run captures one prompt graph and
+    one decode graph in its warm-up call and none after; the int8 runs
+    launch the weight-only kernel on both routes (once a projection a
+    prompt pass and a decode step), the fp runs never. The fp32 int8
+    model's logits are held within 2e-4 of its twin that holds
+    ``weight_dequantize`` of its weights. Returns {route: launches} over
+    the int8 runs' timed calls, and the decode steps and prompt passes
+    those took."""
+    from paddle_tpu_torch.models import GPTForCausalLM, gpt_config
+    from paddle_tpu_torch.nn.quant import quantize_for_decode
+
+    _tiny_int8_dense_parity(dev)
+    prompt, new = DECODE_LANE["prompt"], DECODE_LANE["new"]
+    cfg = gpt_config("gpt3-1.3b", max_position_embeddings=prompt + new)
+    per_pass = 4 * cfg.num_layers          # the quantized projections
+    launches = {"gemv": 0, "tiled": 0, "decode_steps": 0, "prompt_passes": 0}
+    rng = np.random.default_rng(0)
+    ids = {bs: rng.integers(1, cfg.vocab_size, (bs, prompt))
+           for bs in DECODE_LANE["batches"]}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        models = {"fp": GPTForCausalLM(cfg, device=dev, dtype=dtype, seed=0),
+                  "int8": quantize_for_decode(
+                      GPTForCausalLM(cfg, device=dev, dtype=dtype, seed=0))}
+        for m in models.values():
+            m.eval()
+        for bs in DECODE_LANE["batches"]:
+            for kind, tag in (("dense", "fp"), ("paged", "fp"),
+                              ("dense", "int8")):
+                r = _decode_run(models[tag], kind, bs, ids[bs], dtype)
+                want = (per_pass * (new - 1), per_pass) if tag == "int8" \
+                    else (0, 0)
+                if (r["launches_gemv"], r["launches_tiled"]) != want:
+                    raise AssertionError(
+                        f"decode lane {name} {kind} {tag} bs{bs}: weight-only "
+                        f"launches gemv {r['launches_gemv']}, tiled "
+                        f"{r['launches_tiled']}, want {want}")
+                if tag == "int8":
+                    launches["gemv"] += r["launches_gemv"]
+                    launches["tiled"] += r["launches_tiled"]
+                    launches["decode_steps"] += new - 1
+                    launches["prompt_passes"] += 1
+                print(f"[17/{PHASES}] decode lane gpt3-1.3b {name} "
+                      f"{kind}{'_int8' if tag == 'int8' else ''} bs{bs}: "
+                      f"{json.dumps(r)}", flush=True)
+        if dtype == torch.float32:
+            twin = _dequantized_twin(models["int8"], cfg, dev, dtype)
+            bs, steps = DECODE_LANE["batches"][-1], min(16, new)
+            got_t, got_l = models["int8"].generate(ids[bs], steps,
+                                                   return_logits=True)
+            want_t, want_l = twin.generate(ids[bs], steps,
+                                           return_logits=True)
+            # steps up to the first token that differs share a context
+            same = (got_t == want_t).all(0).numpy()
+            upto = int(np.argmin(same)) + 1 if not same.all() else steps
+            err = float((got_l[:, :upto] - want_l[:, :upto]).abs().max())
+            print(f"[17/{PHASES}] decode lane fp32 int8 vs its "
+                  f"weight_dequantize twin (F.linear), bs{bs} {steps} tokens: "
+                  f"logits max abs diff {err:.3g} over {upto} steps, tokens "
+                  f"equal {bool(same.all())}", flush=True)
+            if not err <= 2e-4:
+                raise AssertionError(f"int8 logits differ from the "
+                                     f"dequantized model's by {err} > 2e-4")
+            del twin
+        for m in models.values():
+            m.__dict__.pop("_generation_engines", None)
+        del models
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -3615,6 +3953,7 @@ def main() -> int:
     kernels.update(check_flash_kernels(dev, flush))
     kernels.update(check_optimizer_kernels(dev, flush))
     llama_ce = check_llama_ce(dev, flush)
+    weight_only = check_weight_only(dev, flush)
     del flush
     torch.cuda.empty_cache()
     parity(dev)
@@ -3664,6 +4003,7 @@ def main() -> int:
     llama_parity(dev)
     llama_o2_parity(dev)
     llama, llama_steps = llama_full_width(dev)
+    lane = decode_lane(dev)
 
     where = {name: (PAGED_SOURCE, f"{PAGED_TPU}:{line}")
              for name, (_, _, _, line) in PAGED_KERNELS.items()}
@@ -3703,7 +4043,21 @@ def main() -> int:
                 else {}),
              **{k: r[k] for k in keys if k in r}}
             for name, r in kernels.items()]
-    print(f"[17/{PHASES}] kernels:", flush=True)
+    for route, name in WO_KERNELS.items():
+        r = weight_only[name]
+        line.append({"name": name, "route": "cuda", "source": WO_SOURCE,
+                     "replaces": WO_REPLACES, "launches": lane[route],
+                     # the gemv's a decode step, the tiled kernel's a
+                     # prompt pass
+                     "launches_per_step": lane[route] / lane[
+                         "decode_steps" if route == "gemv"
+                         else "prompt_passes"],
+                     **{k: r[k] for k in ("max_abs_err", "max_rel_err", "ms",
+                                          "plain_ms", "bound_ms", "bound_by",
+                                          "library_ms", "library",
+                                          "dequant_linear_ms", "shape",
+                                          "config", "row_keys", "rows")}})
+    print(f"[18/{PHASES}] kernels:", flush=True)
     print(json.dumps({"kernels": line}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

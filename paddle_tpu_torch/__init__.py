@@ -14,7 +14,10 @@ drives ``jit.decode_step`` (chunked prefill and the decode burst) over
 paged-attention kernels (decode and chunk, over fp pools and over
 quantized pools whose dequant they fuse) are hand-written CUDA in
 ``csrc/paged_attention.cu``. ``GPTForCausalLM.generate`` runs
-``jit.GenerationEngine`` over the paged or the dense cache.
+``jit.GenerationEngine`` over the paged or the dense cache, as CUDA
+graphs on the card; ``nn.quant.quantize_for_decode`` gives it int8 /
+int4 weight-only Linears, whose product is the hand-written
+``csrc/weight_only.cu``.
 ``jit.TrainStep`` drives
 ``models.gpt``'s ``loss`` (splash or flash attention and the vocab-tiled
 fused cross entropy, forward and backward, in

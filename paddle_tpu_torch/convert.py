@@ -15,7 +15,9 @@ axes swap); without one, the names of GPT's and LLaMA's Linear layers
 (``qkv``, ``out_proj``, ``fc1``, ``fc2``, their stacked
 ``blocks__..._weight``, ``q_proj``, ``k_proj``, ``v_proj``, ``o_proj``,
 ``gate_proj``, ``up_proj``, ``down_proj``, and the untied ``lm_head``)
-decide. Everything else crosses as it is.
+decide. Everything else crosses as it is, among it a quantized model's
+``quant_weight`` (int8 ``[out, in]`` on both sides, after
+`nn.quant.quantize_for_decode`), ``weight_scale`` and ``bias``.
 The round trip is bit-exact.
 
 bf16 crosses as its raw 16-bit pattern: into the port as a torch

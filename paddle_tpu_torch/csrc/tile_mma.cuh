@@ -1,14 +1,15 @@
 // Shared-memory tile products for the port's training kernels
-// (splash_attention.cu, fused_cross_entropy.cu).
+// (splash_attention.cu, fused_cross_entropy.cu) and the weight-only
+// linear's prompt-pass route (weight_only.cu).
 //
 // A kernel that includes this runs kNT threads (128 by default; the
 // template argument of `stage` and `mma`), stages its operand tiles in
-// shared memory in the storage type T (fp32 or bf16), and forms products
+// shared memory in the storage type T (fp32, bf16 or fp16), and forms products
 // into fp32 tiles with `mma`, in shared or in device memory:
-//   * bf16: tensor cores through nvcuda::wmma (16 x 16 x 16 fragments,
-//     fp32 accumulation), each warp a 32 x 32 block of outputs (2 x 2
-//     fragments, so every operand fragment it loads feeds two products)
-//     where the tile allows, else one fragment at a time;
+//   * bf16 and fp16: tensor cores through nvcuda::wmma (16 x 16 x 16
+//     fragments, fp32 accumulation), each warp a 32 x 32 block of outputs
+//     (2 x 2 fragments, so every operand fragment it loads feeds two
+//     products) where the tile allows, else one fragment at a time;
 //   * fp32: true fp32 on the CUDA cores (never TF32), a 4 x 4 register tile
 //     of outputs per thread.
 // Transposed operands cost nothing: wmma reads either layout from shared
@@ -16,6 +17,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <mma.h>
@@ -32,6 +34,7 @@ __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) {
@@ -41,6 +44,14 @@ template <> __device__ __forceinline__ __nv_bfloat16
 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
+template <> __device__ __forceinline__ __half from_f<__half>(float x) {
+  return __float2half_rn(x);
+}
+
+// The 16-bit storage types, which take the tensor-core branch of `mma`.
+template <typename T>
+constexpr bool kHalfWidth = std::is_same<T, __nv_bfloat16>::value ||
+                            std::is_same<T, __half>::value;
 
 // Row pitch (elements) of a staged tile of `cols` columns: 16 bytes of
 // padding, so rows start on 16-byte boundaries, a 16-row fragment starts
@@ -76,13 +87,12 @@ __device__ __forceinline__ void stage(T* dst, int ld, const T* src,
   }
 }
 
-// The bf16 branch of `mma`: each warp in turn takes an (16 F) x (16 F)
+// The bf16 / fp16 branch of `mma`: each warp in turn takes an (16 F) x (16 F)
 // block of C, holds its F x F accumulator fragments in registers over the
 // whole K loop, and loads F fragments of A and F of B per step of 16.
-template <int F, bool kATrans, bool kBTrans, int kNT>
-__device__ __forceinline__ void mma_blocks(float* c, int ldc,
-                                           const __nv_bfloat16* a, int lda,
-                                           const __nv_bfloat16* b, int ldb,
+template <int F, bool kATrans, bool kBTrans, int kNT, typename T>
+__device__ __forceinline__ void mma_blocks(float* c, int ldc, const T* a,
+                                           int lda, const T* b, int ldb,
                                            int M, int N, int K, bool acc) {
   using namespace nvcuda;
   using LA = std::conditional_t<kATrans, wmma::col_major, wmma::row_major>;
@@ -102,8 +112,8 @@ __device__ __forceinline__ void mma_blocks(float* c, int ldc,
           wmma::fill_fragment(cf[r][e], 0.f);
       }
     for (int k = 0; k < K; k += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, LA> af[F];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, LB> bf[F];
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, T, LA> af[F];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, T, LB> bf[F];
 #pragma unroll
       for (int r = 0; r < F; ++r) {
         const int m = i + 16 * r;
@@ -143,7 +153,7 @@ template <typename T, bool kATrans, bool kBTrans, int kNT = kThreads>
 __device__ __forceinline__ void mma(float* c, int ldc, const T* a, int lda,
                                     const T* b, int ldb, int M, int N, int K,
                                     bool acc) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+  if constexpr (kHalfWidth<T>) {
     if (((M | N) & 31) == 0)
       mma_blocks<2, kATrans, kBTrans, kNT>(c, ldc, a, lda, b, ldb, M, N, K,
                                            acc);

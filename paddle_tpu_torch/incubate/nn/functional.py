@@ -1,15 +1,32 @@
 """Fused decode-time functionals of ``paddle.incubate.nn.functional``.
 
 Counterpart of paddle_tpu/incubate/nn/functional.py, so far only
-`masked_multihead_attention`, and only the arguments that the dense
-decode step of `models.gpt` passes. It has no Pallas kernel in the
-reference (XLA fuses it there), so it is plain PyTorch here.
+`masked_multihead_attention`. It has no Pallas kernel in the reference
+(XLA fuses it there), so it is plain PyTorch here.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 __all__ = ["masked_multihead_attention"]
+
+
+def _positions(sequence_lengths, b, device):
+    """The write positions as a device int64 ``[b]`` tensor, and whether
+    they are one shared position (aligned) or one a row (ragged). Nothing
+    is read back to the host: an aligned tensor position stays on the
+    device, a host int becomes a fill."""
+    if isinstance(sequence_lengths, torch.Tensor):
+        pos = sequence_lengths.to(device=device, dtype=torch.int64)
+    elif np.ndim(sequence_lengths) == 0:
+        pos = torch.full((), int(sequence_lengths), dtype=torch.int64,
+                         device=device)
+    else:
+        pos = torch.as_tensor(np.asarray(sequence_lengths),
+                              dtype=torch.int64, device=device)
+    ragged = pos.numel() > 1
+    return (pos.reshape(b) if ragged else pos.reshape(1)), ragged
 
 
 def masked_multihead_attention(x, cache_kv=None, bias=None, src_mask=None,
@@ -18,54 +35,68 @@ def masked_multihead_attention(x, cache_kv=None, bias=None, src_mask=None,
                                seq_len=1, rotary_emb_dims=0,
                                use_neox_rotary_style=False, **kwargs):
     """The dense-cache decode step: one new token a sequence, its K/V
-    written into the cache at the shared position, q attending the
-    cache up to and including it.
+    written into the cache at its position, q attending the cache up to
+    and including it.
 
     x: [bsz, 3 * num_head * head_dim] fused qkv of the current token;
-    cache_kv: [2, bsz, num_head, max_seq, head_dim];
-    sequence_lengths: the write position (tokens already cached), an int
-    or a one-element tensor: the aligned batch.
+    cache_kv: [2, bsz, num_head, max_seq, head_dim]; bias: added to x
+    ([3 * num_head * head_dim]); src_mask: an additive bias broadcastable
+    to [bsz, 1, 1, max_seq] (a leading 1 broadcasts over the batch),
+    added to the scores before the positions past a row's own are
+    filled with -1e9; sequence_lengths: the write position (tokens
+    already cached): an int or a one-element tensor (the aligned batch:
+    a device tensor is never read back to the host), or a [bsz] /
+    [bsz, 1] tensor (ragged: each row writes and sees up to its own).
+    ``cum_offsets``, ``seq_len``, ``use_neox_rotary_style`` and further
+    keywords are accepted and unused, as in the reference.
 
     Returns (out [bsz, num_head * head_dim] in x's dtype, cache_kv). The
     reference returns an updated copy of the cache; here the cache is
     written in place (no second [2, bsz, nh, max_seq, d] buffer) and
     returned as it is."""
-    unported = {"bias": bias is not None, "src_mask": src_mask is not None,
-                "cum_offsets": cum_offsets is not None,
-                "rotary_tensor": rotary_tensor is not None,
-                "beam_cache_offset": beam_cache_offset is not None,
-                "seq_len != 1": seq_len != 1,
-                "rotary_emb_dims": bool(rotary_emb_dims),
-                "use_neox_rotary_style": bool(use_neox_rotary_style),
-                **{k: True for k in kwargs}}
-    named = [k for k, on in unported.items() if on]
-    if named:
+    del cum_offsets, seq_len, use_neox_rotary_style, kwargs
+    if rotary_tensor is not None or rotary_emb_dims:
         raise NotImplementedError(
-            f"masked_multihead_attention({', '.join(named)}) is not ported "
-            f"yet: only the dense decode step's arguments are")
+            "apply fused_rotary_position_embedding to q/k before the "
+            "cache append; the in-kernel rotary path is not plumbed")
+    if beam_cache_offset is not None:
+        raise NotImplementedError("beam_cache_offset (beam search decode "
+                                  "cache reordering) is descoped")
     if cache_kv is None:
         raise ValueError("masked_multihead_attention needs cache_kv "
                          "([2, bsz, num_head, max_seq, head_dim])")
     if sequence_lengths is None:
-        raise ValueError("sequence_lengths is required (the write "
-                         "position of the aligned batch)")
-    if isinstance(sequence_lengths, torch.Tensor):
-        if sequence_lengths.numel() != 1:
-            raise NotImplementedError(
-                "ragged sequence_lengths (one position a row) are not "
-                "ported yet: pass the aligned batch's one position")
-        sequence_lengths = int(sequence_lengths)
-    pos = int(sequence_lengths)
+        raise ValueError(
+            "sequence_lengths is required (int for an aligned batch, "
+            "[bsz] tensor for ragged positions)")
     _, b, nh, ms, d = cache_kv.shape
+    pos, ragged = _positions(sequence_lengths, b, x.device)
+    if bias is not None:
+        x = x + bias.reshape(1, -1)
     qkv = x.reshape(b, 3, nh, d)
     q, k, v = qkv[:, 0], qkv[:, 1], qkv[:, 2]               # [b, nh, d]
-    cache_kv[0, :, :, pos] = k.to(cache_kv.dtype)
-    cache_kv[1, :, :, pos] = v.to(cache_kv.dtype)
+    if ragged:
+        rows = torch.arange(b, device=x.device)
+        cache_kv[0, rows, :, pos] = k.to(cache_kv.dtype)
+        cache_kv[1, rows, :, pos] = v.to(cache_kv.dtype)
+        visible = torch.arange(ms, device=x.device)[None] <= pos[:, None]
+    else:
+        # one column of every row: [2, b, nh, 1, d] at the device position
+        cache_kv.index_copy_(3, pos, torch.stack([k, v])[:, :, :, None]
+                             .to(cache_kv.dtype))
+        visible = (torch.arange(ms, device=x.device) <= pos)[None]
     kc = cache_kv[0].float()                                 # [b, nh, ms, d]
     vc = cache_kv[1].float()
     s = torch.einsum("bhd,bhkd->bhk", q.float(), kc) / (d ** 0.5)
-    visible = torch.arange(ms, device=x.device) <= pos
-    s = s.masked_fill(~visible, -1e9)
+    if src_mask is not None:
+        # rank 4, the singleton middle dims collapsed; the batch dim
+        # broadcasts (a [1, 1, 1, ms] mask applies to every row)
+        mv = src_mask.float()
+        while mv.dim() < 4:
+            mv = mv[None]
+        mv = mv.reshape(mv.shape[0], 1, mv.shape[-1])
+        s = s + mv[:, :, :ms]
+    s = s.masked_fill(~visible[:, None, :], -1e9)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhk,bhkd->bhd", p, vc)
     return out.reshape(b, nh * d).to(x.dtype), cache_kv

@@ -16,8 +16,9 @@ Counterpart of paddle_tpu/inference/kv_cache.py:
   (max|row| / 7); head_dim must be even. The kernels dequantize as they
   stage the keys.
 * ``DenseKVCache``: per layer ``[2, batch, num_heads, max_len,
-  head_dim]`` with one shared write position, the aligned-batch cache of
-  `generate(use_cache="dense")`.
+  head_dim]`` with one shared write position ``pos`` (a device int32
+  scalar, set and advanced on the device, as the reference keeps it), the
+  aligned-batch cache of `generate(use_cache="dense")`.
 
 Page 0 of every paged pool (scale pools too) is the **trash page**:
 writes of padding and inactive-slot tokens land there at ``pos %
@@ -277,9 +278,10 @@ def prefill_plan(cache, slot_ids, start, seq_lens_new, c):
 # ---------------------------------------------------------------------------
 
 class DenseKVCache:
-    """Aligned-batch dense cache: one shared write position ``pos`` (a
-    host int: the tokens already cached), one slice write a layer a
-    step."""
+    """Aligned-batch dense cache: one shared write position ``pos`` (the
+    tokens already cached: a device int32 0-d tensor, which the steps set
+    and advance in place and never read back to the host), one column
+    write a layer a step."""
 
     kind = "dense"
 
@@ -294,7 +296,7 @@ class DenseKVCache:
         shape = (2, batch, num_heads, max_len, head_dim)
         self.layers = [torch.zeros(shape, dtype=dtype, device=self.device)
                        for _ in range(num_layers)]
-        self.pos = 0
+        self.pos = torch.zeros((), dtype=torch.int32, device=self.device)
 
     def layer(self, l):
         return self.layers[l]

@@ -13,11 +13,13 @@ model, so the reference's leading ``params`` argument is gone, and the
 generation steps take a ``torch.Generator`` (or None for greedy) where
 the reference threads a PRNG key.
 
-Where the reference compiles, the serving steps and a paged
-``DecodeStep`` replay CUDA graphs (`graphs.StepGraphs`) when the engine
-is ``compiled`` and its cache lives on a CUDA device: the decode burst
-unrolled in one graph, and one graph per chunk-prefill bucket. Their
-inputs are copied into static device tensors first. Greedy sampling
+Where the reference compiles, the steps replay CUDA graphs
+(`graphs.StepGraphs`) when the engine is ``compiled`` and its cache
+lives on a CUDA device: the serving decode burst unrolled in one graph,
+one graph per chunk-prefill bucket, one per prompt bucket of the
+generation prefill, and one for the generation decode step, over a dense
+or a paged cache. Their inputs are copied into static device tensors
+first. Greedy sampling
 (``argmax``) is part of the graph; under ``do_sample`` a graph ends at
 the logits and the draw runs eagerly after it, one graph a decode step,
 since a row's generator is seeded on the host from its (seed, position).
@@ -28,7 +30,8 @@ eager, as the reference's traces, and `cache_size` the graphs it holds.
 ``buffers`` are the cache's pools (``layers`` of a dense cache;
 ``k_layers`` / ``v_layers`` of a paged one, with ``k_scales`` /
 ``v_scales`` when it is quantized). ``meta`` is the rest: a dense
-cache's ``pos`` (a host int), or the paged host bookkeeping
+cache's ``pos`` (a device int32 scalar, which the steps set and advance
+on the device), or the paged host bookkeeping
 (``page_tables``, ``seq_lens``, ``active``) as numpy arrays or the
 device tensors the previous step returned, which a step copies onto the
 cache's device; it returns the updated ``seq_lens`` as a device tensor.
@@ -49,7 +52,7 @@ __all__ = ["GenerationEngine", "PrefillStep", "DecodeStep",
 DEFAULT_PREFILL_BUCKETS = (16, 32, 64, 128, 256, 512, 1024, 2048)
 
 _META_DTYPES = {"page_tables": torch.int32, "seq_lens": torch.int32,
-                "active": torch.bool}
+                "active": torch.bool, "pos": torch.int32}
 # per cache kind, the state keys that are pool buffers (the rest is
 # metadata); presence-filtered, so the scale pools ride with the payload
 # exactly when the cache is quantized
@@ -115,25 +118,32 @@ class _Step:
 
     def _replay(self, key, body, load, idle):
         """Replay ``key``'s graph of ``body`` (the step over the static
-        inputs, which may rebind ``cache.seq_lens``; the graph writes the
-        result into the static ``seq_lens``). ``load()`` fills the static
-        inputs from this call's arguments, ``idle()`` with values whose
-        writes land on the trash page and change no length: those of the
-        warm-up call before a capture."""
+        inputs, which may rebind a paged ``cache.seq_lens``; the graph
+        writes the result into the static ``seq_lens``). ``load()`` fills
+        the static inputs from this call's arguments; ``idle()`` prepares
+        the warm-up run before a capture so that it leaves nothing behind
+        that the real step does not overwrite (a paged step's writes go
+        to the trash page and no length moves), and may return a callable
+        that undoes the rest after the capture (a dense decode's advanced
+        position)."""
         cache = self.engine.cache
         load()
         graph = self._graphs.lookup(key, cache)
         if graph is None:
-            sl = cache.seq_lens
+            fn = body
+            if cache.kind == "paged":
+                sl = cache.seq_lens
 
-            def fn():
-                out = body()
-                sl.copy_(cache.seq_lens)
-                cache.seq_lens = sl
-                return out
+                def fn():
+                    out = body()
+                    sl.copy_(cache.seq_lens)
+                    cache.seq_lens = sl
+                    return out
 
-            idle()
+            undo = idle()
             graph = self._graphs.capture(key, fn, cache.device)
+            if undo is not None:
+                undo()
             self.trace_count += 1
             load()
         return graph.replay()
@@ -167,19 +177,14 @@ class PrefillStep(_GenerationStep):
 
     ids: [b, bucket] prompts right-padded to the bucket; lens: [b] true
     prompt lengths (one shared length for the dense cache); slot_ids:
-    [b] the rows' slots (paged). Runs eagerly (a dense cache's write
-    position is a host int)."""
+    [b] the rows' slots (paged). On the card of a ``compiled`` engine,
+    one graph a prompt bucket: the ids, lengths and slot ids (and a paged
+    cache's page tables) are its static inputs. The pass reads no cached
+    K/V, so the capture's warm-up run is the real step, which the replay
+    repeats."""
 
-    @torch.no_grad()
-    def __call__(self, buffers, meta, ids, lens, slot_ids, generator=None):
+    def _logits(self, cache, ids, ln, sid):
         eng = self.engine
-        cache = self._enter(buffers, meta)
-        dev = cache.device
-        ids = torch.as_tensor(np.asarray(ids), dtype=torch.int64, device=dev)
-        b = ids.shape[0]
-        lens_h = np.broadcast_to(np.asarray(lens, np.int32).reshape(-1), (b,))
-        ln = torch.as_tensor(lens_h.copy(), device=dev)
-        sid = torch.as_tensor(np.asarray(slot_ids, np.int32), device=dev)
         hidden = eng.model.gpt.prefill(ids, cache, seq_lens=ln, slot_ids=sid)
         # the last valid position of each row
         h = hidden.shape[-1]
@@ -188,33 +193,71 @@ class PrefillStep(_GenerationStep):
                             .expand(-1, 1, h))[:, 0]
         logits = eng.model.head(last)
         if cache.kind == "dense":
-            cache.pos = int(lens_h[0])
+            cache.pos.copy_(ln[0])
         else:
             sl = cache.seq_lens.clone()
             sl[sid.long()] = ln
             cache.seq_lens = sl
-        ids_next = self._sample(logits, generator)
-        return (ids_next, logits) + self._exit_state()
+        return logits
+
+    @torch.no_grad()
+    def __call__(self, buffers, meta, ids, lens, slot_ids, generator=None):
+        eng = self.engine
+        ids = np.asarray(ids)
+        b, bucket = ids.shape
+        lens = np.broadcast_to(np.asarray(lens, np.int32).reshape(-1),
+                               (b,)).copy()
+        slot_ids = np.asarray(slot_ids, np.int32)
+        if not self._compiled():
+            cache = self._enter(buffers, meta)
+            dev = cache.device
+            logits = self._logits(
+                cache, torch.as_tensor(ids, dtype=torch.int64, device=dev),
+                torch.as_tensor(lens, device=dev),
+                torch.as_tensor(slot_ids, device=dev))
+            ids_next = self._sample(logits, generator)
+            return (ids_next, logits) + self._exit_state()
+        st = self._bind(buffers, meta)
+        cache = eng.cache
+        greedy = not eng.do_sample
+
+        def load():
+            st.load(f"ids{bucket}", ids, torch.int64)
+            st.load("lens", lens, torch.int32)
+            st.load("slot_ids", slot_ids, torch.int32)
+
+        def body():
+            logits = self._logits(cache, st[f"ids{bucket}"], st["lens"],
+                                  st["slot_ids"])
+            return (self._sample(logits, None) if greedy else None), logits
+
+        ids_next, logits = self._replay(("prefill", bucket, greedy), body,
+                                        load, lambda: None)
+        logits = logits.clone()
+        ids_next = (ids_next.clone() if greedy
+                    else self._sample(logits, generator))
+        return (ids_next, logits) + self._exit_graph(meta)
 
 
 class DecodeStep(_GenerationStep):
     """One-token cached decode step over the whole batch: the dense
-    cache advances its shared position, the paged cache the seq_lens of
-    its active slots. Over a paged CUDA cache of a ``compiled`` engine it
-    replays a graph (greedy: the ``argmax`` too); the tokens and logits
-    it returns are copies, which the next call leaves alone."""
+    cache advances its shared position (on the device, in place), the
+    paged cache the seq_lens of its active slots. Over a CUDA cache of a
+    ``compiled`` engine it replays a graph (greedy: the ``argmax`` too);
+    the tokens and logits it returns are copies, which the next call
+    leaves alone."""
 
     def _logits(self, cache, cur):
         eng = self.engine
         b = cur.shape[0]
         if cache.kind == "dense":
-            pos_ids = torch.full((b, 1), cache.pos, device=cache.device)
+            pos_ids = cache.pos.reshape(1, 1).expand(b, 1)
         else:
             pos_ids = cache.seq_lens[:, None]
         hidden = eng.model.gpt.decode_step(cur.reshape(b, 1), cache, pos_ids)
         logits = eng.model.head(hidden)[:, 0]               # [b, vocab]
         if cache.kind == "dense":
-            cache.pos += 1
+            cache.pos.add_(1)
         else:
             sl = cache.seq_lens
             cache.seq_lens = torch.where(cache.active, sl + 1, sl)
@@ -223,7 +266,7 @@ class DecodeStep(_GenerationStep):
     @torch.no_grad()
     def __call__(self, buffers, meta, tokens, generator=None):
         eng = self.engine
-        if not (self._compiled() and eng.cache.kind == "paged"):
+        if not self._compiled():
             cache = self._enter(buffers, meta)
             cur = torch.as_tensor(tokens, device=cache.device).long()
             logits = self._logits(cache, cur)
@@ -232,14 +275,22 @@ class DecodeStep(_GenerationStep):
         st = self._bind(buffers, meta)
         cache = eng.cache
         greedy = not eng.do_sample
+        paged = cache.kind == "paged"
 
         def load():
             st.load("tokens", tokens, torch.int64)
-            st.load("active", meta["active"], torch.bool)
+            if paged:
+                st.load("active", meta["active"], torch.bool)
 
         def idle():
-            st["tokens"].zero_()
-            st["active"].zero_()
+            if paged:
+                st["tokens"].zero_()
+                st["active"].zero_()
+                return None
+            # the warm-up writes the column that the step writes anyway;
+            # only the position it advances is put back
+            pos = cache.pos.clone()
+            return lambda: cache.pos.copy_(pos)
 
         def body():
             logits = self._logits(cache, st["tokens"])
@@ -427,10 +478,10 @@ class GenerationEngine:
     ``kind`` picks the cache: "dense" (aligned batch, one shared write
     position) or "paged" (ragged prompt lengths, page pools, optionally
     ``kv_quant="int8"|"int4"``). `generate()` runs prompt -> tokens end
-    to end. With ``compiled`` (the default) a paged cache on a CUDA
-    device decodes by replaying a CUDA graph; the prompt pass, and every
-    step of a dense cache (whose write position is a host int), run
-    eagerly. ``donate`` is accepted and does nothing: the steps update
+    to end. With ``compiled`` (the default) a cache on a CUDA device,
+    dense or paged, runs its prompt pass (one graph a prompt bucket) and
+    its decode steps (one graph) as CUDA graph replays. ``donate`` is
+    accepted and does nothing: the steps update
     the cache in place. Speculative decoding (``draft_model``) is not
     ported yet."""
 
@@ -531,7 +582,7 @@ class GenerationEngine:
                     "the dense cache needs an aligned batch (one shared "
                     "prompt length); use use_cache='paged' for ragged "
                     "prompts")
-            cache.pos = 0
+            cache.pos.zero_()
         else:
             # fresh slots for this batch, lowest first: row i is slot i
             for slot in list(cache._slot_pages):

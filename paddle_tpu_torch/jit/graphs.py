@@ -17,11 +17,15 @@ than the kernels take on the card at serving batch sizes; a captured
   then captures it on the same stream. The caller fills the static
   inputs for that warm-up with values that change nothing it keeps (all
   slots inactive, all chunk rows padding: their writes land on the trash
-  page), so the warm-up and the capture cost no extra step.
-* The paged kernels count their launches in Python, which a replay does
-  not run: a capture records how far it moved the counters
-  (``ops/kernels/paged_attention.py`` `counters`), puts them back, and
-  each replay adds that difference.
+  page), or with the call's own inputs where the step can run twice (a
+  generation prompt pass), or puts back what the warm-up moved (a dense
+  decode's position), so the warm-up and the capture cost no extra
+  step.
+* The kernels count their launches in Python, which a replay does not
+  run: a capture records how far it moved the counters of every kernel a
+  decode-stack step can launch (the paged kernels', the weight-only
+  linear's, the splash and flash forwards'), puts them back, and each
+  replay adds that difference.
 
 A failed capture or replay raises; nothing here falls back to the eager
 loop. A graph's outputs live in its private memory pool and are
@@ -35,8 +39,39 @@ import numpy as np
 import torch
 
 from ..ops.kernels import paged_attention
+from ..ops.kernels.flash_attention import (flash_attention_fwd,
+                                           flash_attention_fwd_single)
+from ..ops.kernels.splash_attention import splash_attention_fwd
+from ..ops.kernels.weight_only import weight_only_linear
 
 __all__ = ["StaticInputs", "StepGraphs"]
+
+# the launch counters, besides the paged kernels', that a step's graph
+# can move: (wrapper, attribute)
+_OTHER_COUNTERS = (
+    (weight_only_linear, "launches_gemv"),
+    (weight_only_linear, "launches_tiled"),
+    (splash_attention_fwd, "launches"),
+    (splash_attention_fwd, "launches_wgmma"),
+    (flash_attention_fwd_single, "launches"),
+    (flash_attention_fwd, "launches"),
+    (flash_attention_fwd, "launches_wgmma"))
+
+
+def _counters():
+    """A snapshot of every launch counter a step's graph can move,
+    ``{(wrapper name, attribute): count}``."""
+    return {**paged_attention.counters(),
+            **{(w.__name__, a): getattr(w, a) for w, a in _OTHER_COUNTERS}}
+
+
+def _add_counts(delta):
+    """Add ``delta`` (keys as `_counters` gives them) to the counters."""
+    paged_attention.add_counts(delta)
+    for w, a in _OTHER_COUNTERS:
+        n = delta.get((w.__name__, a), 0)
+        if n:
+            setattr(w, a, getattr(w, a) + n)
 
 _NP_DTYPES = {torch.int32: np.int32, torch.int64: np.int64,
               torch.bool: np.bool_}
@@ -83,7 +118,7 @@ class _Graph:
 
     def replay(self):
         self.graph.replay()
-        paged_attention.add_counts(self.launches)
+        _add_counts(self.launches)
         return self.out
 
 
@@ -118,14 +153,14 @@ class StepGraphs:
         with torch.cuda.stream(side):
             fn()
         cur.wait_stream(side)
-        before = paged_attention.counters()
+        before = _counters()
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, stream=side):
             out = fn()
-        after = paged_attention.counters()
+        after = _counters()
         launches = {k: after[k] - before[k] for k in after
                     if after[k] != before[k]}
         # the capture launched nothing
-        paged_attention.add_counts({k: -n for k, n in launches.items()})
+        _add_counts({k: -n for k, n in launches.items()})
         self._graphs[key] = g = _Graph(graph, out, launches)
         return g

@@ -175,7 +175,8 @@ class GPTAttention(nn.Module):
 
     def forward_decode(self, x, cache, layer_idx, plan):
         """One token per slot. Dense cache: `masked_multihead_attention`
-        appends it at the shared position and attends the cache. Paged:
+        appends it at the shared position (``cache.pos``, a device int32
+        scalar, read on the device) and attends the cache. Paged:
         write it into this layer's pools (inactive slots to the trash
         page; quantized with its scale in int8/int4 pools), then ragged
         paged attention. ``plan`` is the step's `decode_plan` (None for
@@ -501,7 +502,8 @@ class GPTForCausalLM(nn.Module):
                 f"max_position_embeddings={cap}")
         max_len = min(cap, -(-need // 64) * 64)
         # the parameter layout keeps a stale engine from surviving a
-        # change of dtype, shape or device
+        # change of dtype, shape or device (or a `quantize_for_decode`
+        # swap, which renames the Linears' parameters)
         struct = hash(tuple((n, str(p.dtype), tuple(p.shape), str(p.device))
                             for n, p in self.named_parameters()))
         key = (use_cache, b, max_len, bool(do_sample), int(top_k),
@@ -523,8 +525,12 @@ class GPTForCausalLM(nn.Module):
                                return_logits=return_logits)
 
     def head(self, hidden):
-        """LM head: hiddens [..., hidden] -> logits [..., vocab]."""
-        return F.linear(hidden, self.head_weight())
+        """LM head: hiddens [..., hidden] -> logits [..., vocab]: the
+        ``wte`` product when tied, else ``lm_head`` itself (a
+        `nn.quant.WeightOnlyLinear` after `quantize_for_decode`)."""
+        if self.lm_head is None:
+            return F.linear(hidden, self.gpt.wte.weight)
+        return self.lm_head(hidden)
 
     def head_weight(self):
         """The LM head's ``[vocab, hidden]`` weight: ``wte`` when tied."""

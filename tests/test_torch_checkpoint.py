@@ -451,6 +451,42 @@ def test_linear_weights_come_from_the_model_not_from_names():
         "gpt.blocks.0.attn.qkv.weight"].shape) == {6, 2}
 
 
+@pytest.mark.parametrize("with_model", [True, False],
+                         ids=["model", "names"])
+def test_quantized_gpt_crosses_both_ways(with_model):
+    """A reference GPT after `quantize_for_decode` (untied head, so every
+    projection and the head are int8): ``quant_weight`` is ``[out, in]``
+    on both sides and crosses untransposed, ``weight_scale`` and ``bias``
+    as they are; the port gives the reference's logits (fp32, 1e-5 of
+    the largest) and the state comes back bit for bit."""
+    from paddle_tpu.nn.quant import quantize_for_decode as jquant
+    from paddle_tpu_torch.nn.quant import quantize_for_decode as tquant
+
+    cfg = dict(TINY, tie_word_embeddings=False)
+    paddle.seed(3)
+    jm = jquant(JModel(JConfig(**cfg)))
+    jm.eval()
+    ref = {n: np.asarray(t._data) for n, t in jm.state_dict().items()}
+    name = "gpt.blocks.1.attn.qkv.quant_weight"
+    assert ref[name].dtype == np.int8 and ref[name].shape == (96, 32)
+    assert "lm_head.quant_weight" in ref
+    tm = tquant(GPTForCausalLM(GPTConfig(**cfg), device="cpu"))
+    tm.eval()
+    sd = convert.state_dict_from_jax(ref, model=tm if with_model else None)
+    assert sd[name].dtype == torch.int8 and tuple(sd[name].shape) == (96, 32)
+    tm.load_state_dict(sd)
+    ids = np.random.default_rng(2).integers(1, 96, (2, 9))
+    want = np.asarray(jm(paddle.to_tensor(ids, dtype="int64"))._data)
+    got = tm(torch.from_numpy(ids)).detach().numpy()
+    assert _rel(got, want) < 1e-5
+    back = convert.state_dict_to_jax(tm.state_dict(),
+                                     model=tm if with_model else None)
+    assert sorted(back) == sorted(ref)
+    for k in ref:
+        assert back[k].dtype == ref[k].dtype and \
+            np.array_equal(back[k], ref[k]), k
+
+
 def test_resnet_fc_weight_is_transposed():
     paddle.seed(0)
     jm = jresnet18(num_classes=10)

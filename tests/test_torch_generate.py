@@ -18,6 +18,7 @@ from paddle_tpu.models import GPTConfig as JConfig
 from paddle_tpu.models import GPTForCausalLM as JModel
 from paddle_tpu_torch import convert
 from paddle_tpu_torch.jit import GenerationEngine
+from paddle_tpu_torch.jit.decode_step import split_state
 from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
 
 CFG = dict(vocab_size=64, hidden_size=32, num_layers=2,
@@ -216,12 +217,117 @@ def test_masked_multihead_attention_matches_reference():
     np.testing.assert_array_equal(tc.numpy(), np.asarray(jc._data))
     np.testing.assert_allclose(to.numpy(), np.asarray(jo._data), rtol=0,
                                atol=1e-5)
+    # a src_mask and ragged positions, which the dense step does not
+    # pass, as the reference takes them (tests/test_torch_quant.py holds
+    # every combination)
     tx = torch.from_numpy(x)
-    with pytest.raises(NotImplementedError, match="src_mask"):
-        tif.masked_multihead_attention(tx, tc, sequence_lengths=pos,
-                                       src_mask=torch.zeros(b, 1, 1, ms))
-    with pytest.raises(NotImplementedError, match="ragged"):
-        tif.masked_multihead_attention(
-            tx, tc, sequence_lengths=torch.tensor([1, 2, 3]))
+    mask = rng.standard_normal((b, 1, 1, ms)).astype(np.float32)
+    ragged = np.asarray([1, 2, 3], np.int32)
+    jo, jc = jif.masked_multihead_attention(
+        paddle.to_tensor(x), jc, sequence_lengths=paddle.to_tensor(ragged),
+        src_mask=paddle.to_tensor(mask))
+    to, _ = tif.masked_multihead_attention(
+        tx, tc, sequence_lengths=torch.from_numpy(ragged),
+        src_mask=torch.from_numpy(mask))
+    np.testing.assert_array_equal(tc.numpy(), np.asarray(jc._data))
+    np.testing.assert_allclose(to.numpy(), np.asarray(jo._data), rtol=0,
+                               atol=1e-5)
     with pytest.raises(ValueError, match="sequence_lengths"):
         tif.masked_multihead_attention(tx, tc)
+
+
+# ---------------------------------------------------------------------------
+# the dense cache's position on the device, and weight-only int8 decoding
+# ---------------------------------------------------------------------------
+
+def test_dense_steps_read_nothing_back_to_the_host(models, monkeypatch):
+    """The dense cache's write position is a device int32 scalar, as the
+    reference's is: the prompt pass sets it and each decode step advances
+    it without a host read (``item``, ``int()`` and ``tolist`` of a tensor
+    raise here), and the tokens are `generate()`'s."""
+    _, tm = models
+    eng = GenerationEngine(tm, kind="dense", batch=2, max_len=32)
+    assert eng.cache.pos.dtype == torch.int32 and eng.cache.pos.dim() == 0
+    ids = _ids(2, 5, seed=6)
+    want = eng.generate(ids, 4)
+    buffers, meta = split_state("dense", eng.cache.state())
+    meta["pos"].fill_(9)                    # a stale position: reset
+
+    def host_read(*args, **kwargs):
+        raise AssertionError("a dense step read a tensor back to the host")
+
+    for name in ("item", "__int__", "tolist"):
+        monkeypatch.setattr(torch.Tensor, name, host_read)
+    padded = np.concatenate([ids, np.zeros((2, 11), ids.dtype)], axis=1)
+    tok, _, buffers, meta = eng.prefill_step(
+        buffers, meta, padded, np.full((2,), 5, np.int32),
+        np.arange(2, dtype=np.int32))
+    toks = [tok]
+    for _ in range(3):
+        tok, _, buffers, meta = eng.decode_step(buffers, meta, tok)
+        toks.append(tok)
+    monkeypatch.undo()
+    pos = meta["pos"]
+    assert isinstance(pos, torch.Tensor) and pos.dtype == torch.int32
+    assert pos.dim() == 0 and int(pos) == 5 + 3
+    assert torch.equal(torch.stack(toks, 1).int(), want)
+
+
+QCFG = dict(CFG, tie_word_embeddings=False)
+
+
+@pytest.fixture(scope="module")
+def quant_models():
+    """(reference, port) untied GPTs holding the same numpy weights, both
+    through `quantize_for_decode` (its default names: every projection
+    and the LM head)."""
+    from paddle_tpu.nn.quant import quantize_for_decode as jquant
+    from paddle_tpu_torch.nn.quant import quantize_for_decode as tquant
+
+    paddle.seed(0)
+    jm = JModel(JConfig(**QCFG))
+    jm.eval()
+    rng = np.random.default_rng(1)
+    named = {}
+    for name, p in jm.named_parameters():
+        a = rng.standard_normal(tuple(p.shape)).astype(np.float32)
+        a = (0.1 * a if name.endswith("bias")
+             else 1.0 + 0.1 * a if p.ndim == 1 else 0.3 * a)
+        p._data = jnp.asarray(a)
+        named[name] = a
+    tm = GPTForCausalLM(GPTConfig(**QCFG), device="cpu")
+    tm.load_state_dict(convert.state_dict_from_jax(named))
+    return jquant(jm), tquant(tm)
+
+
+@pytest.mark.parametrize("cache", ["dense", "paged"])
+def test_int8_weights_match_reference(quant_models, cache):
+    """Greedy tokens through the int8 weight-only model equal the
+    reference's quantized model's, the logits within 2e-4, and the swap
+    builds a new engine (the parameters' names changed)."""
+    from paddle_tpu_torch.nn.quant import WeightOnlyLinear
+
+    jm, tm = quant_models
+    assert isinstance(tm.lm_head, WeightOnlyLinear)
+    assert isinstance(tm.gpt.blocks[1].mlp.fc2, WeightOnlyLinear)
+    ids = _ids(3, 10, seed=7)
+    jt, jl = jm.generate(ids, 8, return_logits=True, use_cache=cache)
+    tt, tl = tm.generate(ids, 8, return_logits=True, use_cache=cache)
+    np.testing.assert_array_equal(tt.numpy(), np.asarray(jt._data))
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl._data), rtol=0,
+                               atol=LOGIT_ATOL)
+
+
+def test_quantize_for_decode_makes_a_new_engine():
+    from paddle_tpu_torch.nn.quant import quantize_for_decode
+
+    tm = GPTForCausalLM(GPTConfig(**QCFG), device="cpu")
+    ids = _ids(2, 6, seed=8)
+    fp = tm.generate(ids, 5)
+    (before,) = tm._generation_engines.values()
+    quantize_for_decode(tm)
+    q = tm.generate(ids, 5)
+    assert len(tm._generation_engines) == 2
+    assert tm._generation_engines[list(tm._generation_engines)[-1]] \
+        is not before
+    assert q.shape == fp.shape

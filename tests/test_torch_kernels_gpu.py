@@ -2,7 +2,9 @@
 over fp, int8 and int4 pools (serving), splash attention, flash attention
 (both paths) and the fused cross entropy (training), forward and
 backward; the optimizer's multi-tensor norm and Adam update, and the
-fused-scan training step that calls the update once a layer chunk.
+fused-scan training step that calls the update once a layer chunk; the
+weight-only int8 / int4 linear at its edge shapes, and the dense
+generation graphs over fp32 and int8 weights.
 
 These run only on a CUDA card (marker ``gpu``; each test skips without
 one). The file imports torch, numpy and the port only, so it runs on a
@@ -1743,3 +1745,116 @@ def test_monitored_steps_past_the_ring_make_no_sync(cuda, fused):
     assert mon._steps_seen == 70 - 64
     s = mon.summary()
     assert s["steps_seen"] == 70 and s["finite_frac"] == 1.0
+
+
+# ---------------------------------------------------------------------------
+# the weight-only linear (csrc/weight_only.cu) and the dense decode graphs
+# ---------------------------------------------------------------------------
+
+# (k, n, group): aligned; K not a multiple of 16 (the scalar loads) and N
+# not of the tile; grouped 128 and 64; K past one split of the decode
+# route, aligned and not
+WO_SHAPES = [(256, 96, -1), (200, 70, -1), (384, 100, 128), (2560, 33, 64),
+             (1030, 40, -1)]
+# the output's error over its largest magnitude: fp32 sums in another
+# order; bf16 / fp16 one rounding of the output
+WO_TOL = {torch.float32: 1e-5, torch.bfloat16: 8e-3, torch.float16: 8e-3}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16],
+                         ids=["fp32", "bf16", "fp16"])
+@pytest.mark.parametrize("m", [1, 5, 16, 17, 70])
+@pytest.mark.parametrize("shape", WO_SHAPES,
+                         ids=[f"k{k}_n{n}_g{g}" for k, n, g in WO_SHAPES])
+def test_weight_only_linear_against_plain(cuda, dtype, m, shape):
+    """The kernel (decode route for M <= 16, tiled above) against
+    `weight_only_linear_ref` on the same card inputs, with a bias; a
+    second call is bit-identical; the route's counter moves once."""
+    from paddle_tpu_torch.nn.quant import weight_quantize
+    from paddle_tpu_torch.ops.kernels import weight_only as wo
+
+    k, n, group = shape
+    gen = torch.Generator(device=cuda).manual_seed(m + k)
+    w = torch.randn(k, n, device=cuda, generator=gen)
+    q, s = weight_quantize(w, group_size=group)
+    x = torch.randn(m, k, device=cuda, generator=gen).to(dtype)
+    b = torch.randn(n, device=cuda, generator=gen).to(dtype)
+    route = "launches_gemv" if m <= wo.GEMV_MAX_ROWS else "launches_tiled"
+    before = getattr(wo.weight_only_linear, route)
+    got = wo.weight_only_linear(x, q, b, s)
+    again = wo.weight_only_linear(x, q, b, s)
+    torch.cuda.synchronize()
+    assert getattr(wo.weight_only_linear, route) == before + 2
+    want = wo.weight_only_linear_ref(x, q, b, s)
+    assert got.dtype == dtype and got.shape == (m, n)
+    err = float((got.float() - want.float()).abs().max() /
+                want.float().abs().max())
+    assert err <= WO_TOL[dtype], err
+    assert torch.equal(got, again)
+
+
+@pytest.mark.gpu
+def test_weight_only_linear_refuses_on_the_card(cuda):
+    from paddle_tpu_torch.ops.kernels import weight_only as wo
+
+    q = torch.zeros(8, 32, dtype=torch.int8, device=cuda)
+    with pytest.raises(TypeError):
+        wo.weight_only_linear(torch.zeros(2, 32, dtype=torch.int32,
+                                          device=cuda), q)
+    with pytest.raises(ValueError, match="on cpu"):
+        wo.weight_only_linear(torch.zeros(2, 32, device=cuda), q.cpu())
+    y = wo.weight_only_linear(torch.zeros(0, 32, device=cuda), q)
+    assert y.shape == (0, 8)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("int8", [False, True], ids=["fp32", "int8"])
+def test_dense_generate_replays_its_graphs(cuda, int8):
+    """``generate(use_cache="dense")`` replays one prompt graph a bucket
+    and one decode graph, with the tokens and logits of
+    ``compiled=False`` on the card and the greedy tokens of the CPU; the
+    int8 model's graphs launch the weight-only kernel on both routes."""
+    from paddle_tpu_torch.models import GPTForCausalLM
+    from paddle_tpu_torch.nn.quant import quantize_for_decode
+    from paddle_tpu_torch.ops.kernels import weight_only as wo
+
+    card = _tiny_gpt(cuda)
+    cpu = GPTForCausalLM(card.config, device="cpu")
+    # weights of 0.3 (chip_smoke's parity phases): logits far enough apart
+    # that the card's and the CPU's sums pick the same tokens
+    rng = np.random.default_rng(0)
+    sd = {name: torch.from_numpy(
+              (rng.standard_normal(tuple(t.shape)) * 0.3).astype(np.float32))
+          for name, t in cpu.state_dict().items()}
+    cpu.load_state_dict(sd)
+    card.load_state_dict(sd)
+    if int8:
+        quantize_for_decode(card)
+        quantize_for_decode(cpu)
+    ids = np.random.default_rng(5).integers(1, 128, (3, 20))
+    out = {}
+    for compiled in (True, False):
+        card.__dict__.pop("_generation_engines", None)
+        card.generate(ids, 4, compiled=compiled)
+        wo.weight_only_linear.launches_gemv = 0
+        wo.weight_only_linear.launches_tiled = 0
+        out[compiled] = card.generate(ids, 12, compiled=compiled,
+                                      return_logits=True)
+        eng, = card._generation_engines.values()
+        assert eng.decode_step.cache_size() == int(compiled)
+        assert eng.prefill_step.cache_size() == int(compiled)
+        if compiled:
+            assert eng.decode_step.trace_count == 1
+            assert eng.prefill_step.trace_count == 1
+        layers = card.config.num_layers
+        assert wo.weight_only_linear.launches_tiled == (4 * layers
+                                                        if int8 else 0)
+        assert wo.weight_only_linear.launches_gemv == (
+            11 * (4 * layers) if int8 else 0)
+    card.__dict__.pop("_generation_engines", None)
+    assert torch.equal(out[True][0], out[False][0])
+    assert torch.equal(out[True][1], out[False][1])
+    want = cpu.generate(ids, 12)
+    assert torch.equal(out[True][0], want)

@@ -319,6 +319,9 @@ class _StandInGraph:
 
     def _bound(self):
         c = self.cache
+        if c.kind == "dense":
+            return [t.data_ptr() for t in (c.pos, c.layers[0],
+                                           c.layers[-1])]
         return [t.data_ptr() for t in (c.page_tables, c.seq_lens, c.active,
                                        c.k_layers[0], c.v_layers[-1])]
 
@@ -393,8 +396,9 @@ def test_graph_path_matches_the_eager_loop(models, stand_in_graphs, opts):
                          ids=["greedy", "int8", "sampled"])
 def test_paged_generate_graph_path_matches_eager(models, stand_in_graphs,
                                                  opts):
-    """``generate(use_cache="paged")`` through the decode graph gives the
-    eager steps' tokens and logits, over two calls on one engine."""
+    """``generate(use_cache="paged")`` through the prompt bucket's graph
+    and the decode graph gives the eager steps' tokens and logits, over
+    two calls on one engine."""
     _, tm = models
     ids = np.random.default_rng(2).integers(1, 64, (3, 12))
     out = {}
@@ -406,7 +410,49 @@ def test_paged_generate_graph_path_matches_eager(models, stand_in_graphs,
         out[compiled] = first + (tm.generate(ids, 5, **kw),)
         eng, = tm._generation_engines.values()
         assert eng.decode_step.cache_size() == int(compiled)
+        assert eng.prefill_step.cache_size() == int(compiled)
     tm.__dict__.pop("_generation_engines", None)
     for a, b in zip(out[True], out[False]):
         assert torch.equal(a, b)
-    assert stand_in_graphs == [("decode", "do_sample" not in opts)]
+    greedy = "do_sample" not in opts
+    assert stand_in_graphs == [("prefill", 16, greedy), ("decode", greedy)]
+
+
+@pytest.mark.parametrize("opts", [dict(), dict(int8_weights=True),
+                                  dict(do_sample=True, seed=5, top_k=10)],
+                         ids=["greedy", "int8_weights", "sampled"])
+def test_dense_generate_graph_path_matches_eager(models, stand_in_graphs,
+                                                 opts):
+    """``generate(use_cache="dense")`` through one graph a prompt bucket
+    and one decode graph (the write position a static device scalar)
+    gives the eager steps' tokens and logits, over calls at two prompt
+    buckets on one engine; each graph is captured once."""
+    from paddle_tpu_torch.models import GPTForCausalLM
+    from paddle_tpu_torch.nn.quant import quantize_for_decode
+
+    opts = dict(opts)
+    tm = models[1]
+    if opts.pop("int8_weights", False):
+        tm = quantize_for_decode(GPTForCausalLM(tm.config, device="cpu",
+                                                seed=1))
+    rng = np.random.default_rng(4)
+    short, long = rng.integers(1, 64, (2, 7)), rng.integers(1, 64, (2, 20))
+    out = {}
+    for compiled in (True, False):
+        tm.__dict__.pop("_generation_engines", None)
+        kw = dict(use_cache="dense", compiled=compiled, **opts)
+        out[compiled] = (tm.generate(short, 9, return_logits=True, **kw) +
+                         tm.generate(long, 6, return_logits=True, **kw) +
+                         (tm.generate(short, 4, **kw),))
+        eng, = tm._generation_engines.values()
+        assert eng.decode_step.cache_size() == int(compiled)
+        assert eng.prefill_step.cache_size() == 2 * int(compiled)
+        if compiled:
+            assert eng.decode_step.trace_count == 1
+            assert eng.prefill_step.trace_count == 2
+    tm.__dict__.pop("_generation_engines", None)
+    for a, b in zip(out[True], out[False]):
+        assert torch.equal(a, b)
+    greedy = "do_sample" not in opts
+    assert stand_in_graphs == [("prefill", 16, greedy), ("decode", greedy),
+                               ("prefill", 32, greedy)]
