@@ -61,7 +61,11 @@ Phases, one line each (any failure exits non-zero, nothing is caught):
    qkv), each within its bar of the plain version and bit-identical on a
    second call, timed as CUDA-graph replays beside the plain version,
    its byte bound, ``F.linear`` over the bf16 weight and
-   ``weight_dequantize`` + the product;
+   ``weight_dequantize`` + the product; the chunk kernel over bf16, int8
+   and int4 pools again at the speculative verify's shape (q [8, 5, 32,
+   64]: k = 4, over phase 5's pools), bit-identical twice, timed as
+   CUDA-graph replays beside the plain version, SDPA over the dense K/V
+   and its byte bound;
 4. serving parity: a tiny fp32 GPT served through the engine's CUDA
    graphs on the card, its eager loop on the card (kernels) and on the
    CPU (plain versions) over fp32, int8 and int4 pools, at decode bursts
@@ -185,14 +189,37 @@ Phases, one line each (any failure exits non-zero, nothing is caught):
     kernel on both routes and the fp runs never; the fp32 int8 model's
     logits within 2e-4 of its ``weight_dequantize`` twin's; first a tiny
     int8 GPT's dense greedy tokens equal on the card and the CPU;
-18. one JSON line ``{"kernels": [...]}`` with each kernel's error,
+18. speculative decoding: (a) ``inference.spec_decode_selftest.run_probe``
+    on the CPU and on the card (a tiny fp32 GPT: greedy spec tokens equal
+    to plain decoding's over dense, paged, int8 and int4 caches with a
+    weak independent draft, the self-draft and the strong pair, whose
+    dispatches must be ceil((n-1)/(k+1)); serving parity over fp, int8
+    and int4 pools with no leak; one spec graph an engine on the card):
+    every case's tokens equal on both; (b) ``generate()`` at GPT-3 1.3B
+    width with the strong pair (k = 4), prompt 128, 64 new tokens, batch
+    1 and 8, dense and paged, fp32 and bf16, beside plain decoding of the
+    same target: decode tok/s, TTFT, accept rate, tokens a dispatch, the
+    paged kernels' launches a dispatch, no capture after the warm-up call;
+    fp32 tokens identical to plain, bf16 identical up to each row's first
+    divergence, where the plain logits' top-2 gap must be under
+    ``BF16_GAP_BAR``; (c) phase 5's traffic through ``ServingEngine``
+    with the strong pair (bf16 and int8 pools) and with
+    ``draft_model="self"`` on the zero target, each beside the plain
+    engine of its target: output tok/s, the accept-rate gauge, no capture
+    after ``warmup()``, and the paged kernels' launches exactly those of
+    the dispatches and chunk calls (a draft dispatch: k + 1 one-layer
+    decodes, one 24-layer verify; a self-draft dispatch: a 24-layer
+    decode and a verify);
+19. one JSON line ``{"kernels": [...]}`` with each kernel's error,
     times, bound and launches (a paged kernel's from the serving run of
     its pools' graph run, splash's, the CE's and the optimizer's from
     phase 9, a flash pair's from its phase-10 run; splash's, the CE's
     and the optimizer's phase-14 launches beside them, and the CE's and
     the optimizer's phase-16 launches; the CE rows also carry phase 3's
     numbers at LLaMA's two heads, ``llama_shapes``; the weight-only
-    kernels' launches from phase 17's int8 runs, with every phase-3 row).
+    kernels' launches from phase 17's int8 runs, with every phase-3 row;
+    the chunk rows' verify-shape numbers, and each paged kernel's launches
+    a serving spec dispatch from phase 18).
 
 It then prints the ``nvidia-smi`` line again and, last, ``{"ok": true,
 "device": {...}}``. Imports torch, numpy and the port only.
@@ -216,7 +243,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
 BF16_FLOP_PER_S = 989e12        # dense bf16 tensor-core peak
 FP32_FLOP_PER_S = 67e12         # fp32 outside the tensor cores
-PHASES = 18
+PHASES = 19
 
 
 def nvidia_smi() -> str:
@@ -826,9 +853,69 @@ def check_kernels(dev, flush):
         print(f"{line}; bf16 kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, sdpa {r['library_ms']:.4f} ms, "
               f"bound {b_ms:.4f} ms ({b_by})", flush=True)
+        if wrapper == "paged_attention_chunk":
+            r["verify"] = _verify_row(dev, flush, name, kernel, plain, counter,
+                                      kp, vp, sc, pt, quant, row_bytes)
     check_chunk_cases(dev)
     check_decode_cases(dev)
     return results
+
+
+# the speculative verify's shape at GPT-3 1.3B width (k = 4: c = 5 query
+# rows a slot, 8 slots) over phase 5's serving pools; its starts
+VERIFY_SHAPE = (8, 5, 32, 64)
+VERIFY_STARTS = (0, 1, 17, 100, 333, 512, 777, 1019)
+
+
+def _verify_row(dev, flush, name, kernel, plain, counter, kp, vp, sc, pt,
+                quant, row_bytes):
+    """The chunk kernel at the verify shape, bf16 q over the row's pools:
+    error against the plain version (bit-identical on a second call),
+    graph-replay time beside the plain version's, SDPA's over the dense
+    K/V and the byte bound (q in and out, each visible key's K and V rows
+    once with their scales, the page-table entries, the starts)."""
+    from paddle_tpu_torch.ops.kernels import paged_attention as pa
+
+    b, c, nh, d = VERIFY_SHAPE
+    kvh, ps, L = kp.shape[0], kp.shape[2], pt.shape[1] * kp.shape[2]
+    gen = torch.Generator(device=dev).manual_seed(5)
+    q = torch.randn(b, c, nh, d, device=dev, generator=gen).bfloat16()
+    start = torch.tensor(VERIFY_STARTS, dtype=torch.int32, device=dev)
+    args = (q, kp, vp, pt, start)
+    n = getattr(kernel, counter)
+    got, again = kernel(*args, **sc), kernel(*args, **sc)
+    torch.cuda.synchronize()
+    err = _max_err(got, plain(*args, **sc))
+    if not (getattr(kernel, counter) == n + 2 and err <= 2e-2
+            and torch.isfinite(got).all() and torch.equal(got, again)):
+        raise AssertionError(f"{name} at the verify shape: err {err}, "
+                             f"{getattr(kernel, counter) - n} launches of 2, "
+                             f"or a second call differs")
+    kd = pa._densify(kp, pt, sc.get("k_scales")).to(torch.bfloat16)
+    vd = pa._densify(vp, pt, sc.get("v_scales")).to(torch.bfloat16)
+    ipos = start[:, None] + torch.arange(c, device=dev)[None]
+    mask = (torch.arange(L, device=dev)[None, None]
+            <= ipos[:, :, None])[:, None]
+    qs = q.transpose(1, 2)
+    keys = (start + c).clamp(max=L).double()
+    rows_keys = (ipos + 1).clamp(max=L).double().sum(1) * nh
+    nbytes = float(2 * q.numel() * 2 + (keys.sum() * kvh * 2 * row_bytes)
+                   .item() + ((keys / ps).ceil().sum() * 4).item() + b * 4)
+    b_ms, b_by = bound_ms(nbytes, float((4 * rows_keys.sum() * d).item()), 2)
+    row = {"shape": list(VERIFY_SHAPE), "starts": list(VERIFY_STARTS),
+           "max_abs_err": err,
+           "ms": graph_ms(lambda: kernel(*args, **sc), flush),
+           "plain_ms": time_ms(lambda: plain(*args, **sc), flush),
+           "library_ms": graph_ms(
+               lambda: torch.nn.functional.scaled_dot_product_attention(
+                   qs, kd, vd, attn_mask=mask), flush),
+           "bound_ms": b_ms, "bound_by": b_by}
+    print(f"[3/{PHASES}] {name} at the verify shape q {row['shape']}: max "
+          f"abs err {err:.3g}, bit-identical on a second call; kernel "
+          f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, sdpa "
+          f"{row['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by})",
+          flush=True)
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -3736,61 +3823,79 @@ def check_weight_only(dev, flush):
 
 
 DECODE_LANE = dict(prompt=128, new=64, batches=(1, 8))
+SPEC_K = 4                      # phase 18's proposals a dispatch
 
 
-def _decode_run(model, kind, bs, ids, cache_dtype):
+def _decode_run(model, kind, bs, ids, cache_dtype, draft=None):
     """bench.py ``run_decode_config``'s timing of one (model, cache,
-    batch): a cold ``generate(ids, 2)`` (which captures the prompt
-    bucket's graph and the decode graph), ``generate(ids, 1)`` (TTFT),
-    then ``generate(ids, new)`` with the weight-only counters zeroed just
-    before and read just after; graph counts after each; peak memory
-    over the three."""
+    batch), plain or speculative (``draft``, k = `SPEC_K`): a cold
+    ``generate(ids, 2)`` (which captures the prompt bucket's graph and
+    the decode or spec graph), ``generate(ids, 1)`` (TTFT), then
+    ``generate(ids, new)`` with the weight-only and paged counters
+    zeroed just before and read just after; graph counts after each;
+    peak memory over the three. Returns (stats, tokens, engine)."""
     from paddle_tpu_torch.jit import GenerationEngine
     from paddle_tpu_torch.ops.kernels import weight_only as wo
 
     new = DECODE_LANE["new"]
+    extra = {} if draft is None else dict(draft_model=draft, spec_k=SPEC_K)
     eng = GenerationEngine(model, kind=kind, batch=bs,
                            max_len=DECODE_LANE["prompt"] + new,
-                           cache_dtype=cache_dtype)
+                           cache_dtype=cache_dtype, **extra)
+    step = eng.decode_step if draft is None else eng.spec_step
+
+    def graphs():
+        return (eng.prefill_step.trace_count, step.trace_count)
+
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     eng.generate(ids, 2)
     torch.cuda.synchronize()
-    cold = time.perf_counter() - t0
-    graphs = [(eng.prefill_step.trace_count, eng.decode_step.trace_count)]
+    cold, captures = time.perf_counter() - t0, [graphs()]
     t0 = time.perf_counter()
     eng.generate(ids, 1)
     torch.cuda.synchronize()
     ttft = time.perf_counter() - t0
     wo.weight_only_linear.launches_gemv = 0
     wo.weight_only_linear.launches_tiled = 0
+    _paged_reset()
     t0 = time.perf_counter()
     toks = eng.generate(ids, new)
     torch.cuda.synchronize()
     total = time.perf_counter() - t0
-    graphs.append((eng.prefill_step.trace_count, eng.decode_step.trace_count))
+    captures.append(graphs())
     t = toks.numpy()
     if not (t.shape == (bs, new) and (t >= 0).all()
             and (t < model.config.vocab_size).all()):
         raise AssertionError(f"decode lane {kind} bs{bs}: bad tokens "
                              f"{t.shape}")
-    if not (graphs == [(1, 1), (1, 1)] and eng.prefill_step.cache_size() == 1
-            and eng.decode_step.cache_size() == 1):
+    if not (captures == [(1, 1), (1, 1)]
+            and eng.prefill_step.cache_size() == 1
+            and step.cache_size() == 1):
         raise AssertionError(
-            f"decode lane {kind} bs{bs}: (prompt, decode) captures {graphs}, "
-            f"graphs {eng.prefill_step.cache_size()}, "
-            f"{eng.decode_step.cache_size()}: one each, in the warm-up")
-    decode_s = max(total - ttft, 1e-9)
-    return {
-        "decode_tok_s": bs * (new - 1) / decode_s,
-        "prefill_ttft_ms": ttft * 1e3, "cold_start_ms": cold * 1e3,
-        "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
-        "launches_gemv": wo.weight_only_linear.launches_gemv,
-        "launches_tiled": wo.weight_only_linear.launches_tiled,
-        "prefill_graphs": eng.prefill_step.cache_size(),
-        "decode_graphs": eng.decode_step.cache_size(),
-        "captures": graphs[-1]}
+            f"decode lane {kind} bs{bs} draft {draft is not None}: (prompt, "
+            f"step) captures {captures}, graphs "
+            f"{eng.prefill_step.cache_size()}, {step.cache_size()}: one "
+            f"each, in the warm-up")
+    paged = {k: n for k, n in _paged_launches().items() if n}
+    r = {"decode_tok_s": bs * (new - 1) / max(total - ttft, 1e-9),
+         "prefill_ttft_ms": ttft * 1e3, "cold_start_ms": cold * 1e3,
+         "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+         "launches_gemv": wo.weight_only_linear.launches_gemv,
+         "launches_tiled": wo.weight_only_linear.launches_tiled,
+         "launches_paged": paged,
+         "prefill_graphs": eng.prefill_step.cache_size(),
+         "decode_graphs": step.cache_size(), "captures": captures[-1]}
+    if draft is not None:
+        st = eng.spec_stats
+        r.update(dispatches=st["dispatches"],
+                 tokens_per_dispatch=st["emitted"] / max(
+                     st["dispatches"] * bs, 1),
+                 accept_rate=st["accepted"] / max(st["proposed"], 1),
+                 launches_per_dispatch={k: n / st["dispatches"]
+                                        for k, n in paged.items()})
+    return r, t, eng
 
 
 def _dequantized_twin(qmodel, cfg, dev, dtype):
@@ -3880,7 +3985,7 @@ def decode_lane(dev):
         for bs in DECODE_LANE["batches"]:
             for kind, tag in (("dense", "fp"), ("paged", "fp"),
                               ("dense", "int8")):
-                r = _decode_run(models[tag], kind, bs, ids[bs], dtype)
+                r, _, _ = _decode_run(models[tag], kind, bs, ids[bs], dtype)
                 want = (per_pass * (new - 1), per_pass) if tag == "int8" \
                     else (0, 0)
                 if (r["launches_gemv"], r["launches_tiled"]) != want:
@@ -3921,6 +4026,304 @@ def decode_lane(dev):
         gc.collect()
         torch.cuda.empty_cache()
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 18: speculative decoding
+# ---------------------------------------------------------------------------
+
+# bf16 greedy tokens of the spec engine and of plain decoding may part
+# where the plain logits' two best are closer than the products' rounding
+# (the verify scores k + 1 rows a slot in one product, the plain decode
+# one): the largest top-2 gap allowed at a first divergence. A flip needs
+# the two rows' logits to differ by half the gap at least; each call
+# prints that difference over the rows both runs share
+# (``logits_max_abs_diff``: 0.03125-0.0625 at GPT-3 1.3B width, one bf16
+# ulp of logits of 4-16, over phase 18's four bf16 runs, none of which
+# diverged), so the bar is twice the largest
+BF16_GAP_BAR = 0.125
+
+
+def _spec_tiny(dev):
+    """(a) `spec_decode_selftest.run_probe` on the CPU and on the card:
+    each passes (spec tokens = the same device's plain tokens, one spec
+    graph an engine on the card, the strong pair's dispatch count,
+    serving parity and no leak) and every case's tokens agree."""
+    from paddle_tpu_torch.inference.spec_decode_selftest import run_probe
+
+    cpu, card = run_probe("cpu"), run_probe(dev)
+    for where, rec in (("cpu", cpu), ("card", card)):
+        if rec["check"] != "pass":
+            raise AssertionError(f"spec probe on the {where}: "
+                                 f"{json.dumps({k: v for k, v in rec.items() if k != 'tokens'})}")
+    differ = [k for k in cpu["tokens"] if cpu["tokens"][k] != card["tokens"][k]]
+    if differ:
+        raise AssertionError(f"spec probe: card tokens differ from the CPU's "
+                             f"in {differ}")
+    print(f"[18/{PHASES}] spec decoding, tiny fp32 GPT: greedy spec tokens of "
+          f"{len(cpu['tokens'])} cases (weak draft, self-draft, strong pair "
+          f"over dense, paged, int8, int4; serving over fp, int8, int4 with "
+          f"the strong pair) equal on the card (graphs) and the CPU and to "
+          f"each device's plain decoding; "
+          f"{json.dumps({k: v for k, v in card.items() if k != 'tokens'})}",
+          flush=True)
+
+
+def _spec_lane_case(label, tgt, drf, kind, bs, ids, dtype):
+    """One (target, draft, cache, batch) of phase 18 (b): spec against
+    plain decoding through `_decode_run`; fp32 tokens identical to plain,
+    bf16 identical up to each row's first divergence, where the plain
+    logits' top-2 gap must be under `BF16_GAP_BAR`. Prints one line;
+    returns the spec run's stats."""
+    new = DECODE_LANE["new"]
+    name = str(dtype)[6:]
+    plain, want, peng = _decode_run(tgt, kind, bs, ids, dtype)
+    spec, got, seng = _decode_run(tgt, kind, bs, ids, dtype, drf)
+    same = got == want
+    spec["tokens_equal_to_plain"] = bool(same.all())
+    if dtype == torch.float32 and not same.all():
+        raise AssertionError(
+            f"spec lane {label} fp32 {kind} bs{bs}: tokens differ from plain "
+            f"decoding at {np.argwhere(~same).tolist()}")
+    # the two engines' logits over the steps every row shares
+    _, lg = peng.generate(ids, new, return_logits=True)
+    _, slg = seng.generate(ids, new, return_logits=True)
+    upto = int(np.argmin(same.all(0))) if not same.all() else new
+    spec["logits_max_abs_diff"] = float(
+        (lg[:, :upto] - slg[:, :upto]).abs().max()) if upto else None
+    if not same.all():
+        top2 = lg.topk(2, dim=-1).values
+        gaps = []
+        for row in range(bs):
+            if same[row].all():
+                continue
+            t = int(np.argmin(same[row]))
+            gaps.append(float(top2[row, t, 0] - top2[row, t, 1]))
+        spec["divergence_top2_gaps"] = gaps
+        if max(gaps) >= BF16_GAP_BAR:
+            raise AssertionError(
+                f"spec lane {label} bf16 {kind} bs{bs}: a divergence where "
+                f"the plain top-2 gap is {max(gaps)} >= {BF16_GAP_BAR}")
+    spec["speedup"] = spec["decode_tok_s"] / plain["decode_tok_s"]
+    print(f"[18/{PHASES}] spec lane gpt3-1.3b {label} {name} {kind} bs{bs}: "
+          f"plain {json.dumps(plain)}; spec {json.dumps(spec)}", flush=True)
+    return spec
+
+
+def _spec_generate(dev):
+    """(b) GPT-3 1.3B width, k = 4, prompt 128, 64 new tokens, fp32 and
+    bf16, dense and paged (`_spec_lane_case`): the strong pair at batch 1
+    and 8 (spec against plain decode tok/s, accept rate, tokens a
+    dispatch, no capture after the warm-up call), and at batch 8 the
+    random target, unmodified, as its own draft. The strong pair's blocks
+    1-23 add nothing to the residual stream, so only the second holds the
+    verify's products through the full depth against plain decoding: its
+    draft decodes are plain decoding's, so a verify row that rounds to
+    another argmax is a rejection and a token that differs."""
+    from paddle_tpu_torch.inference.spec_decode_selftest import strong_pair
+    from paddle_tpu_torch.models import GPTForCausalLM, gpt_config
+
+    prompt, new = DECODE_LANE["prompt"], DECODE_LANE["new"]
+    cfg = gpt_config("gpt3-1.3b", max_position_embeddings=prompt + new)
+    rng = np.random.default_rng(0)
+    ids = {bs: rng.integers(1, cfg.vocab_size, (bs, prompt))
+           for bs in DECODE_LANE["batches"]}
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        tgt, drf = strong_pair(cfg, device=dev, dtype=dtype)
+        for bs in DECODE_LANE["batches"]:
+            for kind in ("dense", "paged"):
+                out[(name, kind, bs)] = _spec_lane_case(
+                    "strong pair", tgt, drf, kind, bs, ids[bs], dtype)
+        del tgt, drf
+        gc.collect()
+        rnd = GPTForCausalLM(cfg, device=dev, dtype=dtype, seed=0).eval()
+        bs = max(DECODE_LANE["batches"])
+        for kind in ("dense", "paged"):
+            out[("random_self", name, kind, bs)] = _spec_lane_case(
+                "random target as its own draft", rnd, rnd, kind, bs,
+                ids[bs], dtype)
+        del rnd
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _spec_serve(dev, model, kv_quant, draft, per_dispatch, per_chunk):
+    """Phase 5's traffic through a speculative engine (greedy, graphs)
+    after `warmup()`: the paged counters zeroed just before the run and
+    read just after must equal ``per_dispatch`` times the spec dispatches
+    plus ``per_chunk`` times the chunk calls, every other one 0; no
+    capture after `warmup()`; no leak."""
+    from paddle_tpu_torch.serving import ServingEngine
+
+    cfg = model.config
+    eng = ServingEngine(model, max_slots=8, max_len=1024, page_size=16,
+                        chunk_size=64, prefill_batch=4,
+                        cache_dtype=torch.bfloat16, kv_quant=kv_quant,
+                        draft_model=draft, spec_k=SPEC_K, device=dev)
+    eng.warmup()
+    counts = eng.compile_counts()
+    eng.prefill_step.calls = eng.spec_step.calls = 0
+    rng = np.random.default_rng(0)
+    lens = rng.integers(64, 769, 16)
+    budgets = rng.integers(32, 129, 16)
+    prompts = [rng.integers(0, cfg.vocab_size, (int(n),)).astype(np.int32)
+               for n in lens]
+    gc.collect()
+    torch.cuda.synchronize()
+    _paged_reset()
+    t0 = time.perf_counter()
+    handles = [eng.submit(p, int(n)) for p, n in zip(prompts, budgets)]
+    snap = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _paged_launches()
+    d, c = eng.spec_step.calls, eng.prefill_step.calls
+    want = {k: per_dispatch.get(k, 0) * d + per_chunk.get(k, 0) * c
+            for k in launches}
+    if launches != want:
+        raise AssertionError(f"spec serve {kv_quant}: launches {launches}, "
+                             f"want {want} ({d} dispatches, {c} chunks)")
+    # the run's own launches a dispatch: the chunk calls' share taken out
+    measured = {k: (n - per_chunk.get(k, 0) * c) / d
+                for k, n in launches.items()}
+    measured = {k: v for k, v in measured.items() if v}
+    for h, n in zip(handles, budgets):
+        if not (h.done and len(h.output_tokens) == n):
+            raise AssertionError(f"spec serve: request {h.request.rid} "
+                                 f"{len(h.output_tokens)} of {n} tokens")
+    lk = eng.leak_check()
+    if lk["free_pages"] != lk["total_pages"] or \
+            lk["free_slots"] != lk["total_slots"]:
+        raise AssertionError(f"spec serve: leaked {lk}")
+    if eng.compile_counts() != counts or counts["decode_traces"] != 1:
+        raise AssertionError(f"spec serve captures: {counts} after warmup(), "
+                             f"{eng.compile_counts()} after the run")
+    stats = {"kv_quant": kv_quant, "wall_s": wall,
+             "output_tok_s": snap["generated_tokens"] / wall,
+             "generated_tokens": snap["generated_tokens"],
+             "itl_p50_s": snap["itl_p50_s"], "itl_p99_s": snap["itl_p99_s"],
+             "ttft_p50_s": snap["ttft_p50_s"],
+             "accept_rate": snap["spec_accept_rate"],
+             "tokens_per_dispatch": snap["spec_tokens_per_dispatch"],
+             "dispatches": d, "chunk_calls": c, "compile_counts": counts,
+             "warmup_ms": eng.warmup_report["warmup_ms"],
+             "launches_per_dispatch": measured,
+             "max_memory_reserved": torch.cuda.max_memory_reserved()}
+    tokens = [list(h.output_tokens) for h in handles]
+    del eng, handles
+    gc.collect()
+    torch.cuda.empty_cache()
+    return stats, tokens, prompts
+
+
+def _hold_serve_tokens(label, model, kv_quant, prompts, want, got):
+    """Spec serving tokens against the plain engine's on the same traffic:
+    identical up to each request's first divergence, where the plain
+    target's top-2 logit gap (a bf16 prompt pass over the request's
+    prompt and the plain tokens before it, on ``kv_quant`` pools) must be
+    under `BF16_GAP_BAR`. Returns (share of equal tokens, the gaps)."""
+    from paddle_tpu_torch.jit import GenerationEngine
+
+    gaps = []
+    for p, w, g in zip(prompts, want, got):
+        if len(w) != len(g):
+            raise AssertionError(f"spec serve {label}: {len(g)} tokens, "
+                                 f"plain {len(w)}")
+        diff = [t for t, (a, b) in enumerate(zip(w, g)) if a != b]
+        if not diff:
+            continue
+        ctx = np.concatenate([p, np.asarray(w[:diff[0]], p.dtype)])
+        eng = GenerationEngine(model, kind="paged", batch=1, max_len=1024,
+                               cache_dtype=torch.bfloat16, kv_quant=kv_quant)
+        _, lg = eng.generate(ctx[None], 1, return_logits=True)
+        top2 = lg[0, 0].topk(2).values
+        gaps.append(float(top2[0] - top2[1]))
+        del eng
+    if gaps and max(gaps) >= BF16_GAP_BAR:
+        raise AssertionError(f"spec serve {label}: a divergence where the "
+                             f"plain top-2 gap is {max(gaps)} >= "
+                             f"{BF16_GAP_BAR}")
+    share = float(np.mean([a == b for x, y in zip(want, got)
+                           for a, b in zip(x, y)]))
+    return share, gaps
+
+
+def _spec_serving(dev):
+    """(c) phase 5's traffic with the strong pair at GPT-3 1.3B width
+    (bf16 and int8 pools) and with ``draft_model="self"`` on the zero
+    target (bf16 pools), each beside the plain engine of the same target:
+    output tok/s, the accept-rate gauge, no capture after `warmup()`,
+    exact launches a dispatch (a draft dispatch: k + 1 one-layer decodes
+    on the draft's bf16 pools and one 24-layer verify; a self-draft
+    dispatch: one 24-layer decode and one verify, both on the target's
+    pools; a chunk call: 24 target layers, and 1 for a separate draft's
+    pools); the strong pair's tokens held to plain serving's by
+    `_hold_serve_tokens`, the zero target's equal to plain serving's
+    (every logit is 0: token 0 throughout). Returns {kernel: launches a
+    dispatch, as this run measured them}."""
+    from paddle_tpu_torch.inference.spec_decode_selftest import (
+        strong_pair, zero_self_target)
+    from paddle_tpu_torch.models import gpt_config
+
+    cfg = gpt_config("gpt3-1.3b")
+    n_l, k1 = cfg.num_layers, SPEC_K + 1
+    split, wg = "paged_decode_split_kernel", "paged_chunk_wgmma_kernel"
+    tgt, drf = strong_pair(cfg, device=dev, dtype=torch.bfloat16)
+    per_dispatch = {}
+    for quant in (None, "int8"):
+        verify = wg if quant is None else f"{wg}[int8]"
+        pd = {split: k1, verify: n_l}
+        pc = {verify: n_l}
+        pc[wg] = pc.get(wg, 0) + 1                  # the draft's chunk
+        plain, plain_tokens, _ = _serve_run(dev, tgt, quant, True)
+        spec, tokens, prompts = _spec_serve(dev, tgt, quant, drf, pd, pc)
+        spec["tokens_equal_to_plain_share"], \
+            spec["divergence_top2_gaps"] = _hold_serve_tokens(
+                f"strong pair {quant or 'bf16'}", tgt, quant, prompts,
+                plain_tokens, tokens)
+        spec["speedup"] = spec["output_tok_s"] / plain["output_tok_s"]
+        print(f"[18/{PHASES}] spec serve gpt3-1.3b strong pair "
+              f"{quant or 'bf16'} pools: plain output tok/s "
+              f"{plain['output_tok_s']}; spec {json.dumps(spec)}", flush=True)
+        per_dispatch.update(spec["launches_per_dispatch"])
+    del tgt, drf
+    gc.collect()
+    torch.cuda.empty_cache()
+    ztgt = zero_self_target(SPEC_K, cfg, device=dev, dtype=torch.bfloat16)
+    plain, plain_tokens, _ = _serve_run(dev, ztgt, None, True)
+    pd = {split: n_l, wg: n_l}
+    spec, tokens, _ = _spec_serve(dev, ztgt, None, "self", pd, {wg: n_l})
+    spec["speedup"] = spec["output_tok_s"] / plain["output_tok_s"]
+    print(f"[18/{PHASES}] spec serve gpt3-1.3b zero target, draft_model="
+          f"'self', bf16 pools: plain output tok/s {plain['output_tok_s']}; "
+          f"spec {json.dumps(spec)}", flush=True)
+    if spec["accept_rate"] != 1.0:
+        raise AssertionError(f"zero target self-draft accept rate "
+                             f"{spec['accept_rate']} != 1.0")
+    if [list(t) for t in plain_tokens] != tokens or \
+            any(any(t) for t in tokens):
+        raise AssertionError("zero target self-draft: tokens are not plain "
+                             "serving's, all 0")
+    del ztgt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return per_dispatch
+
+
+def spec_decode(dev):
+    """Phase 18: speculative decoding, (a) the tiny probe card against
+    CPU, (b) `generate()` at GPT-3 1.3B width, (c) serving. Returns
+    {kernel: launches a serving spec dispatch} for the kernels line."""
+    t0 = time.perf_counter()
+    _spec_tiny(dev)
+    _spec_generate(dev)
+    per_dispatch = _spec_serving(dev)
+    print(f"[18/{PHASES}] spec decoding done in {time.perf_counter() - t0:.1f}"
+          f" s", flush=True)
+    return per_dispatch
 
 
 def main() -> int:
@@ -4004,6 +4407,7 @@ def main() -> int:
     llama_o2_parity(dev)
     llama, llama_steps = llama_full_width(dev)
     lane = decode_lane(dev)
+    spec = spec_decode(dev)
 
     where = {name: (PAGED_SOURCE, f"{PAGED_TPU}:{line}")
              for name, (_, _, _, line) in PAGED_KERNELS.items()}
@@ -4028,7 +4432,7 @@ def main() -> int:
             "pages_route", "pages_route_max_abs_err",
             "pages_route_max_abs_err_fp32", "pages_route_ms",
             "old_route", "old_route_max_abs_err", "old_route_ms",
-            "max_ulps", "config")
+            "max_ulps", "config", "verify")
     line = [{"name": name, "route": "cuda", "source": where[name][0],
              "replaces": where[name][1], "launches": launches[name],
              **({"launches_per_step": launches[name] / steps[name]}
@@ -4040,6 +4444,8 @@ def main() -> int:
                  "launches_llama_per_step": llama[name] / llama_steps}
                 if name in llama else {}),
              **({"llama_shapes": llama_ce[name]} if name in llama_ce
+                else {}),
+             **({"launches_per_spec_dispatch": spec[name]} if name in spec
                 else {}),
              **{k: r[k] for k in keys if k in r}}
             for name, r in kernels.items()]
@@ -4057,7 +4463,7 @@ def main() -> int:
                                           "library_ms", "library",
                                           "dequant_linear_ms", "shape",
                                           "config", "row_keys", "rows")}})
-    print(f"[18/{PHASES}] kernels:", flush=True)
+    print(f"[19/{PHASES}] kernels:", flush=True)
     print(json.dumps({"kernels": line}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

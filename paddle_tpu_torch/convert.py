@@ -14,8 +14,8 @@ reference's ``[L, in, out]``, the port's ``[L, out, in]``: the last two
 axes swap); without one, the names of GPT's and LLaMA's Linear layers
 (``qkv``, ``out_proj``, ``fc1``, ``fc2``, their stacked
 ``blocks__..._weight``, ``q_proj``, ``k_proj``, ``v_proj``, ``o_proj``,
-``gate_proj``, ``up_proj``, ``down_proj``, and the untied ``lm_head``)
-decide. Everything else crosses as it is, among it a quantized model's
+``gate_proj``, ``up_proj``, ``down_proj``, the untied ``lm_head`` and
+GPT's ``draft_heads.{j}``) decide. Everything else crosses as it is, among it a quantized model's
 ``quant_weight`` (int8 ``[out, in]`` on both sides, after
 `nn.quant.quantize_for_decode`), ``weight_scale`` and ``bias``.
 The round trip is bit-exact.
@@ -57,7 +57,7 @@ __all__ = ["linear_weights", "optimizer_state_from_jax",
 
 _LINEAR_WEIGHT = re.compile(
     r"(\.(qkv|out_proj|fc1|fc2|q_proj|k_proj|v_proj|o_proj|gate_proj"
-    r"|up_proj|down_proj)|^lm_head)\.weight$"
+    r"|up_proj|down_proj)|^lm_head|^draft_heads\.\d+)\.weight$"
     r"|__(qkv|out_proj|fc1|fc2)__weight$")
 _COUNTER_KEY = re.compile(r"^param_(\d+)$")
 

@@ -47,7 +47,8 @@ __all__ = ["PagedKVCache", "DenseKVCache", "blob_checksum",
            "paged_write_decode",
            "paged_write_prefill", "paged_write_decode_q8",
            "paged_write_prefill_q8", "paged_write_decode_q4",
-           "paged_write_prefill_q4", "dense_write_prefill", "slot_rows",
+           "paged_write_prefill_q4", "dense_write_prefill",
+           "dense_write_chunk", "slot_rows",
            "write_rows", "quantize_rows", "write_rows_quant", "write_layer",
            "layer_scales",
            "decode_plan", "prefill_plan"]
@@ -227,6 +228,29 @@ def dense_write_prefill(cache_l, k_new, v_new):
     s = k_new.shape[1]
     cache_l[0, :, :, :s] = k_new.transpose(1, 2)
     cache_l[1, :, :, :s] = v_new.transpose(1, 2)
+
+
+def dense_write_chunk(cache_l, start, valid_len, k_new, v_new):
+    """Multi-token ragged write into one layer's dense cache, in place:
+    token t of row i lands at position ``start[i] + t``; positions at or
+    past ``valid_len[i]`` (or past max_len) are dropped. The dense face
+    of the speculative verify, whose accepted prefix varies by row.
+
+    cache_l: [2, b, nh, max_len, d]; k_new/v_new: [b, t, nh, d];
+    start/valid_len: [b] int. A dropped token writes back the value it
+    finds at its position modulo max_len, which no kept token of its row
+    writes (the window is shorter than the cache), so the scatter has a
+    fixed shape and no duplicate index."""
+    max_len = cache_l.shape[3]
+    b, t = k_new.shape[:2]
+    pos = start.long()[:, None] + torch.arange(t, device=k_new.device)[None]
+    ok = pos < torch.clamp(valid_len.long()[:, None], max=max_len)
+    idx = pos % max_len
+    rows = torch.arange(b, device=k_new.device)[:, None].expand(b, t)
+    upd = torch.stack([k_new, v_new], dim=2).to(cache_l.dtype)
+    old = cache_l[:, rows, :, idx]                         # [b, t, 2, nh, d]
+    cache_l[:, rows, :, idx] = torch.where(ok[:, :, None, None, None], upd,
+                                           old)
 
 
 def write_layer(cache, layer_idx, flat, k_rows, v_rows):

@@ -1,9 +1,10 @@
 """The decode stack's steps: generation (prompt prefill, one-token
-decode) and serving (chunked prefill, the decode burst), and the
-generation engine that drives the first two.
+decode) and serving (chunked prefill, the decode burst), speculative
+decoding for both, and the generation engine that drives them.
 
 Counterparts of ``PrefillStep``, ``DecodeStep``, ``ChunkPrefillStep``,
-``ServeDecodeStep`` and ``GenerationEngine`` in
+``ServeDecodeStep``, ``SpecDecodeStep``, ``ServeSpecDecodeStep``,
+``SelfDraftProposer`` and ``GenerationEngine`` in
 paddle_tpu/jit/decode_step.py, with the same argument order and return
 values. The reference compiles each step once and threads the cache
 state through it as pytrees with donated pool buffers; here a step binds
@@ -17,9 +18,9 @@ Where the reference compiles, the steps replay CUDA graphs
 (`graphs.StepGraphs`) when the engine is ``compiled`` and its cache
 lives on a CUDA device: the serving decode burst unrolled in one graph,
 one graph per chunk-prefill bucket, one per prompt bucket of the
-generation prefill, and one for the generation decode step, over a dense
-or a paged cache. Their inputs are copied into static device tensors
-first. Greedy sampling
+generation prefill, one for the generation decode step, over a dense
+or a paged cache, and one for a greedy speculative dispatch. Their
+inputs are copied into static device tensors first. Greedy sampling
 (``argmax``) is part of the graph; under ``do_sample`` a graph ends at
 the logits and the draw runs eagerly after it, one graph a decode step,
 since a row's generator is seeded on the host from its (seed, position).
@@ -27,11 +28,17 @@ On CPU tensors, or with ``compiled=False``, the steps run eagerly. Each
 step's ``trace_count`` counts captures when compiled and calls when
 eager, as the reference's traces, and `cache_size` the graphs it holds.
 
+With a draft model (speculative decoding) the prompt passes also fill
+the draft's cache, whose pools live on the engine (``draft_cache``)
+and whose page tables are the target's: they are not threaded through
+the steps.
+
 ``buffers`` are the cache's pools (``layers`` of a dense cache;
 ``k_layers`` / ``v_layers`` of a paged one, with ``k_scales`` /
 ``v_scales`` when it is quantized). ``meta`` is the rest: a dense
 cache's ``pos`` (a device int32 scalar, which the steps set and advance
-on the device), or the paged host bookkeeping
+on the device; a ``[b]`` vector for the speculative step, whose rows
+advance by their own counts), or the paged host bookkeeping
 (``page_tables``, ``seq_lens``, ``active``) as numpy arrays or the
 device tensors the previous step returned, which a step copies onto the
 cache's device; it returns the updated ``seq_lens`` as a device tensor.
@@ -42,12 +49,17 @@ import numpy as np
 import torch
 
 from ..inference.kv_cache import DenseKVCache, PagedKVCache
-from ..nn.functional.sampling import sample_logits, sample_logits_per_slot
+from ..nn.functional.sampling import (draw_rows, sample_logits,
+                                     sample_logits_per_slot,
+                                     spec_accept_greedy,
+                                     spec_accept_sampled, spec_draft_seeds,
+                                     truncated_probs)
 from .graphs import StaticInputs, StepGraphs
 
 __all__ = ["GenerationEngine", "PrefillStep", "DecodeStep",
-           "ChunkPrefillStep", "ServeDecodeStep", "DEFAULT_PREFILL_BUCKETS",
-           "split_state"]
+           "ChunkPrefillStep", "ServeDecodeStep", "SpecDecodeStep",
+           "ServeSpecDecodeStep", "SelfDraftProposer",
+           "DEFAULT_PREFILL_BUCKETS", "split_state"]
 
 DEFAULT_PREFILL_BUCKETS = (16, 32, 64, 128, 256, 512, 1024, 2048)
 
@@ -58,6 +70,85 @@ _META_DTYPES = {"page_tables": torch.int32, "seq_lens": torch.int32,
 # exactly when the cache is quantized
 _BUFFER_KEYS = {"dense": ("layers",),
                 "paged": ("k_layers", "v_layers", "k_scales", "v_scales")}
+
+
+class SelfDraftProposer:
+    """The target's own draft heads (``GPTConfig.num_draft_heads``) as
+    the proposer: k tokens from one target decode step, so speculative
+    decoding needs no second checkpoint and no draft cache. The engines
+    take ``draft_model="self"`` for it. It has the draft's face
+    (``gpt``, ``config``) and owns no parameters and no cache."""
+
+    is_self_draft = True
+
+    def __init__(self, model):
+        if getattr(model, "draft_heads", None) is None:
+            raise ValueError(
+                "draft_model='self' needs a target built with "
+                "GPTConfig.num_draft_heads > 0")
+        self.model = model
+
+    @property
+    def gpt(self):
+        return self.model.gpt
+
+    @property
+    def config(self):
+        return self.model.config
+
+    def parameters(self):
+        return []
+
+
+def _draft_of(model, draft_model):
+    """The engines' ``draft_model`` argument as a draft: "self" becomes a
+    `SelfDraftProposer` of ``model``; any other string is refused."""
+    if isinstance(draft_model, str):
+        if draft_model != "self":
+            raise ValueError(f"unknown draft_model {draft_model!r} (the only "
+                             "string form is 'self')")
+        return SelfDraftProposer(model)
+    return draft_model
+
+
+def check_draft(model, draft_model, spec_k, device):
+    """The reference's checks of a (target, draft, spec_k) triple, and the
+    port's own: a draft model lives on the target's device."""
+    cfg = model.config
+    if getattr(draft_model, "is_self_draft", False):
+        if spec_k > cfg.num_draft_heads:
+            raise ValueError(f"spec_k={spec_k} exceeds the target's "
+                             f"num_draft_heads={cfg.num_draft_heads}")
+    else:
+        draft_model.gpt._check_decodable()
+        if draft_model.config.vocab_size != cfg.vocab_size:
+            raise ValueError(
+                f"draft model vocab_size {draft_model.config.vocab_size} != "
+                f"target {cfg.vocab_size} (proposals must be target ids)")
+        where = next(draft_model.parameters()).device
+        if where != device:
+            raise ValueError(f"the draft model lives on {where}, the "
+                             f"engine on {device}")
+    if spec_k < 1:
+        raise ValueError("spec_k must be >= 1")
+
+
+def draft_cache_like(engine, dense_len=None):
+    """The draft's cache over the target's geometry: a paged cache of the
+    target's pages, slots and pages a slot (the page tables are the
+    target's), or a dense cache ``dense_len`` long; never quantized (a
+    noisy draft costs accept rate, a noisy target output quality)."""
+    dcfg = engine.draft_model.config
+    nh = dcfg.num_attention_heads
+    hd = dcfg.hidden_size // nh
+    c = engine.cache
+    if c.kind == "dense":
+        return DenseKVCache(dcfg.num_layers, c.batch, dense_len, nh, hd,
+                            dtype=engine._cache_dtype, device=engine.device)
+    return PagedKVCache(dcfg.num_layers, nh, hd, num_pages=c.num_pages,
+                        page_size=c.page_size, max_slots=c.max_slots,
+                        pages_per_seq=c.pages_per_seq,
+                        dtype=engine._cache_dtype, device=engine.device)
 
 
 def split_state(kind, state):
@@ -186,6 +277,14 @@ class PrefillStep(_GenerationStep):
     def _logits(self, cache, ids, ln, sid):
         eng = self.engine
         hidden = eng.model.gpt.prefill(ids, cache, seq_lens=ln, slot_ids=sid)
+        dcache = getattr(eng, "draft_cache", None)
+        if dcache is not None:
+            # the draft's cache over the same prompt and slots, so the
+            # first speculative dispatch drafts from a whole context
+            if cache.kind == "paged":
+                dcache.page_tables = cache.page_tables
+            eng.draft_model.gpt.prefill(ids, dcache, seq_lens=ln,
+                                        slot_ids=sid)
         # the last valid position of each row
         h = hidden.shape[-1]
         last = (ln.long() - 1).clamp(min=0)
@@ -335,6 +434,12 @@ class ChunkPrefillStep(_ServingStep):
     def _logits(self, cache, ids, sid, st, ln):
         eng = self.engine
         hidden = eng.model.gpt.prefill_chunk(ids, cache, sid, st, ln)
+        dcache = getattr(eng, "draft_cache", None)
+        if dcache is not None:
+            # the same chunk into the draft's pools (same slots and
+            # positions, the target's page tables)
+            dcache.page_tables = cache.page_tables
+            eng.draft_model.gpt.prefill_chunk(ids, dcache, sid, st, ln)
         # last valid chunk position per row (a padding row's -1 clamps
         # to 0; its logits are discarded)
         last = (ln - st - 1).clamp(min=0).long()
@@ -469,6 +574,262 @@ class ServeDecodeStep(_ServingStep):
 
 
 # ---------------------------------------------------------------------------
+# speculative decoding: draft k, verify once
+# ---------------------------------------------------------------------------
+
+class SpecDecodeStep(_Step):
+    """One speculative dispatch over the whole batch: the draft proposes
+    k tokens a slot, the target scores all k+1 positions in one
+    multi-token pass (`GPTModel.prefill_chunk`: the paged chunk kernels,
+    or the dense cache's attention), and acceptance is bookkeeping on the
+    device, so one dispatch and one host read give 1 to k+1 tokens a
+    slot.
+
+    With a slot's context length sl0 and its incoming token t0 (sampled
+    by the last dispatch, not cached yet):
+
+    1. draft: k+1 one-token decodes over the draft's cache (the target's
+       page tables, the draft's pools); iteration j writes the j-th
+       context token's K/V at sl0+j and proposes d_{j+1}; the last only
+       writes d_k's K/V, so a full accept leaves no hole at sl0+k. Rows
+       past the window are turned off (paged: their writes go to the
+       trash page). A self-draft (`SelfDraftProposer`) runs one target
+       decode on t0 instead and takes the k proposals from the draft
+       heads off h(t0).
+    2. verify: the target's ``prefill_chunk`` over [t0, d_1..d_k] up to
+       each slot's ``caps`` (rows at or past it: trash page or dropped).
+    3. accept: `spec_accept_greedy` (the longest argmax-matching prefix:
+       the tokens of plain greedy decoding) or `spec_accept_sampled`
+       (rejection sampling with the residual correction). The new
+       lengths are ``min(sl0 + 1 + a, caps)`` on active slots; what lies
+       past them is masked by every later read and overwritten by the
+       next dispatch.
+
+    tokens: [b] t0; seeds: [b] host ints (sampling); caps: [b] host ints,
+    each slot's length bound (the context plus the tokens it may still
+    take); positions: [b] host ints, the pre-dispatch lengths (required
+    when sampling: they key the streams). Returns (tokens [b, k+1],
+    counts [b], logits [b, k+1, vocab], buffers, meta): ``tokens[:,
+    :counts]`` are the emitted tokens and logits row t the target's row
+    behind the t-th of them. Over a dense cache ``meta["pos"]`` is a [b]
+    vector.
+
+    Over the serving engine's slot batch every slot is a row: inactive
+    ones (free, or still chunk-prefilling) propose onto the trash page
+    and keep their lengths (their caps are their current lengths), and
+    the scheduler sees only each slot's yield.
+
+    Compiled on the card, a greedy dispatch is one CUDA graph (the draft,
+    the verify, the accept and the length updates); a sampled dispatch
+    replays one graph a draft iteration (the same graph, its index a
+    static input) and one for the verify, with the draws between them,
+    seeded on the host. The paged warm-up of a capture runs with every
+    slot inactive and every cap 0 (all writes to the trash page); a
+    dense warm-up writes only the columns the real dispatch writes, and
+    its positions are put back after the capture."""
+
+    # the draft's and the target's geometry
+    def _state(self, cache, b):
+        eng = self.engine
+        if cache.kind == "paged":
+            return (cache.seq_lens, cache.active,
+                    cache.pages_per_seq * cache.page_size)
+        dcache = eng.draft_cache
+        act = torch.ones(b, dtype=torch.bool, device=cache.device)
+        return cache.pos, act, (dcache.max_len if dcache is not None
+                                else cache.max_len)
+
+    def _draft_hidden(self, cache, cur, dsl, act, limit):
+        """One decode of the draft model at positions ``dsl`` [b]."""
+        eng = self.engine
+        dcache = eng.draft_cache
+        ok = act & (dsl < limit)
+        if cache.kind == "paged":
+            dcache.page_tables = cache.page_tables
+            dcache.seq_lens = dsl
+            dcache.active = ok
+        else:
+            dcache.pos = dsl
+        mpe = eng.draft_model.config.max_position_embeddings
+        return eng.draft_model.gpt.decode_step(
+            cur[:, None], dcache, torch.clamp(dsl, max=mpe - 1)[:, None])
+
+    def _self_draft_logits(self, cache, cur, sl0, act, caps, limit):
+        """The draft heads' logits [b, k, vocab] off one target decode on
+        ``cur`` at ``sl0`` (rows at or past their cap write nothing
+        real)."""
+        eng = self.engine
+        if cache.kind == "paged":
+            cache.active = act & (sl0 < torch.clamp(caps, max=limit))
+        mpe = eng.model.config.max_position_embeddings
+        hidden = eng.model.gpt.decode_step(
+            cur[:, None], cache, torch.clamp(sl0, max=mpe - 1)[:, None])
+        if cache.kind == "paged":
+            cache.active = act
+        return eng.model.draft_logits(hidden)[:, 0, :eng.spec_k]
+
+    def _verify(self, cache, ver, sl0, caps):
+        eng = self.engine
+        b = ver.shape[0]
+        slots = torch.arange(b, dtype=torch.int32, device=ver.device)
+        return eng.model.head(eng.model.gpt.prefill_chunk(
+            ver, cache, slots, sl0, caps))
+
+    @staticmethod
+    def _finish(cache, sl0, act, caps, proposed, a, nxt):
+        """(tokens, counts) of the accepted prefix and the correction or
+        bonus token; the new lengths into the cache's position buffer."""
+        new_sl = torch.where(act, torch.minimum(sl0 + 1 + a, caps), sl0)
+        counts = new_sl - sl0
+        toks = torch.cat([proposed, torch.zeros_like(proposed[:, :1])], 1)
+        toks.scatter_(1, a.long()[:, None], nxt[:, None])
+        if cache.kind == "paged":
+            cache.seq_lens = new_sl
+        else:
+            cache.pos.copy_(new_sl)
+        return toks, counts
+
+    def _greedy(self, cache, t0, caps):
+        """The whole greedy dispatch over device tensors."""
+        eng = self.engine
+        b = t0.shape[0]
+        sl0, act, limit = self._state(cache, b)
+        caps = torch.clamp(caps, max=eng.max_len)
+        if getattr(eng.draft_model, "is_self_draft", False):
+            heads = self._self_draft_logits(cache, t0, sl0, act, caps, limit)
+            proposed = torch.argmax(heads.float(), dim=-1).to(torch.int32)
+        else:
+            cur, prop = t0, []
+            for j in range(eng.spec_k + 1):
+                hidden = self._draft_hidden(cache, cur, sl0 + j, act, limit)
+                if j == eng.spec_k:
+                    break                # write-only: d_k's K/V
+                cur = torch.argmax(eng.draft_model.head(hidden)[:, 0].float(),
+                                   dim=-1).to(torch.int32)
+                prop.append(cur)
+            proposed = torch.stack(prop, dim=1)
+        logits = self._verify(cache, torch.cat([t0[:, None], proposed], 1),
+                              sl0, caps)
+        a, nxt = spec_accept_greedy(logits, proposed)
+        toks, counts = self._finish(cache, sl0, act, caps, proposed, a, nxt)
+        return toks, counts, logits
+
+    def _run(self, key, body, load, idle):
+        if self._compiled():
+            return self._replay(key, body, load, idle)
+        load()
+        return body()
+
+    def _idle(self, cache, st, zero):
+        """The capture warm-up's inputs (see the class docstring)."""
+        if cache.kind == "paged":
+            st["active"].zero_()
+            for name in zero:
+                st[name].zero_()
+            return None
+        pos = cache.pos.clone()
+        return lambda: cache.pos.copy_(pos)
+
+    @torch.no_grad()
+    def __call__(self, buffers, meta, tokens, seeds, caps, positions=None):
+        eng = self.engine
+        st = self._bind(buffers, meta)
+        if not self._compiled():
+            self.trace_count += 1
+        cache = eng.cache
+        paged = cache.kind == "paged"
+        kk = eng.spec_k
+
+        def load():
+            st.load("tokens", tokens, torch.int32)
+            st.load("caps", caps, torch.int32)
+            if paged:
+                st.load("active", meta["active"], torch.bool)
+
+        if not eng.do_sample:
+            toks, counts, logits = self._run(
+                ("spec", kk, True),
+                lambda: self._greedy(cache, st["tokens"], st["caps"]),
+                load, lambda: self._idle(cache, st, ("tokens", "caps")))
+            return (toks, counts, logits) + self._exit_graph(meta)
+        b = np.shape(tokens)[0]
+        self_draft = getattr(eng.draft_model, "is_self_draft", False)
+
+        def probs(logits):
+            return truncated_probs(logits, eng.temperature, eng.top_k,
+                                   eng.top_p)
+
+        prop, qprobs = [], []
+        if self_draft:
+            def heads():
+                sl0, act, limit = self._state(cache, b)
+                return self._self_draft_logits(
+                    cache, st["tokens"], sl0, act,
+                    torch.clamp(st["caps"], max=eng.max_len), limit)
+
+            logits = self._run(("spec_self",), heads, load,
+                               lambda: self._idle(cache, st, ("tokens",)))
+            for j in range(kk):
+                qprobs.append(probs(logits[:, j]))
+                prop.append(draw_rows(qprobs[-1], spec_draft_seeds(
+                    seeds, positions, j)))
+        else:
+            def draft():
+                sl0, act, limit = self._state(cache, b)
+                hidden = self._draft_hidden(cache, st["cur"],
+                                            sl0 + st["j"], act, limit)
+                return eng.draft_model.head(hidden)[:, 0]
+
+            def load_first():
+                load()
+                st.load("cur", tokens, torch.int32)
+                st.load("j", np.zeros(1, np.int32), torch.int32)
+
+            for j in range(kk + 1):
+                if j:
+                    st["j"].fill_(j)
+                    st["cur"].copy_(prop[-1])
+                logits = self._run(
+                    ("spec_draft",), draft,
+                    load_first if j == 0 else (lambda: None),
+                    lambda: self._idle(cache, st, ("cur",)))
+                if j == kk:
+                    break                 # write-only: d_k's K/V
+                qprobs.append(probs(logits))
+                prop.append(draw_rows(qprobs[-1], spec_draft_seeds(
+                    seeds, positions, j)))
+        proposed = torch.stack(prop, dim=1)
+        ver = torch.cat([st["tokens"][:, None], proposed], 1)
+
+        def verify():
+            sl0, _, _ = self._state(cache, b)
+            return self._verify(cache, st["ver"], sl0,
+                                torch.clamp(st["caps"], max=eng.max_len))
+
+        def load_verify():
+            load()
+            st.load("ver", ver, torch.int32)
+
+        logits = self._run(("spec_verify", kk), verify, load_verify,
+                           lambda: self._idle(cache, st, ("caps",)))
+        a, nxt = spec_accept_sampled(probs(logits), torch.stack(qprobs, 1),
+                                     proposed, seeds, positions)
+        sl0, act, _ = self._state(cache, b)
+        toks, counts = self._finish(cache, sl0, act,
+                                    torch.clamp(st["caps"], max=eng.max_len),
+                                    proposed, a, nxt)
+        if paged:
+            # the lengths back into the buffer the step's graphs read
+            st["seq_lens"].copy_(cache.seq_lens)
+            cache.seq_lens = st["seq_lens"]
+        return (toks, counts, logits) + self._exit_graph(meta)
+
+
+# the serving engine's spec step, the reference's name for it
+ServeSpecDecodeStep = SpecDecodeStep
+
+
+# ---------------------------------------------------------------------------
 # the generation engine
 # ---------------------------------------------------------------------------
 
@@ -482,15 +843,22 @@ class GenerationEngine:
     dense or paged, runs its prompt pass (one graph a prompt bucket) and
     its decode steps (one graph) as CUDA graph replays. ``donate`` is
     accepted and does nothing: the steps update
-    the cache in place. Speculative decoding (``draft_model``) is not
-    ported yet."""
+    the cache in place.
+
+    ``draft_model`` (a GPT of the target's vocab, or "self": the target's
+    draft heads) makes the decode loop speculative: `SpecDecodeStep`
+    dispatches of ``spec_k`` proposals each, greedy tokens those of plain
+    decoding. A separate draft gets a cache of the target's geometry
+    (`draft_cache_like`; dense: ``spec_k + 1`` rows longer, the draft
+    runs that far ahead at the window's end), which the prompt pass
+    fills too."""
 
     def __init__(self, model, kind="dense", batch=1, max_len=128,
                  do_sample=False, top_k=0, top_p=1.0, temperature=1.0,
                  compiled=True, cache_dtype=None, page_size=16,
                  prefill_buckets=DEFAULT_PREFILL_BUCKETS, donate=True,
                  draft_model=None, spec_k=4, kv_quant=None):
-        del donate, spec_k
+        del donate
         cfg = model.config
         if max_len > cfg.max_position_embeddings:
             raise ValueError(
@@ -501,10 +869,7 @@ class GenerationEngine:
         if kv_quant is not None and kind != "paged":
             raise ValueError(
                 "kv_quant needs the paged cache (use_cache='paged')")
-        if draft_model is not None:
-            raise NotImplementedError(
-                "GenerationEngine(draft_model=...) is not ported yet: "
-                "ROADMAP queue A6 (speculative decoding)")
+        draft_model = _draft_of(model, draft_model)
         self.model = model
         self.device = next(model.parameters()).device
         self.compiled = bool(compiled)
@@ -525,7 +890,15 @@ class GenerationEngine:
         self._cache_dtype = cache_dtype or torch.float32
         self._page_size = page_size
         self.kv_quant = kv_quant
+        self.draft_model = draft_model
+        self.spec_k = int(spec_k)
         self.cache = self._make_cache()
+        self.draft_cache = self.spec_step = None
+        self.spec_stats = {}
+        if draft_model is not None:
+            check_draft(model, draft_model, self.spec_k, self.device)
+            self.draft_cache = self._make_draft_cache()
+            self.spec_step = SpecDecodeStep(self)
         self.prefill_step = PrefillStep(self)
         self.decode_step = DecodeStep(self)
 
@@ -546,6 +919,12 @@ class GenerationEngine:
             page_size=self._page_size, max_slots=self.batch,
             pages_per_seq=pages_per_seq, dtype=self._cache_dtype,
             quant=self.kv_quant, device=self.device)
+
+    def _make_draft_cache(self):
+        """The draft's fresh cache (None for a self-draft)."""
+        if getattr(self.draft_model, "is_self_draft", False):
+            return None
+        return draft_cache_like(self, self.max_len + self.spec_k + 1)
 
     def _bucket(self, s):
         for bkt in self.prefill_buckets:
@@ -601,25 +980,35 @@ class GenerationEngine:
         try:
             tok, logits, buffers, meta = self.prefill_step(
                 buffers, meta, ids, lens, np.asarray(slots, np.int32), gen)
-            toks, logit_steps = [tok], [logits]
-            cur = lens.copy()
-            for _ in range(max_new_tokens - 1):
-                if self.kind == "paged":
-                    # grow the page tables on demand (host bookkeeping)
-                    for j, slot in enumerate(slots):
-                        cache.reserve(slot, int(cur[j]) + 1)
-                    meta["page_tables"] = cache.page_tables
-                tok, logits, buffers, meta = self.decode_step(
-                    buffers, meta, tok, gen)
-                toks.append(tok)
-                if return_logits:
-                    logit_steps.append(logits)
-                cur += 1
+            if self.spec_step is not None:
+                out, logit_rows, buffers, meta = self._spec_loop(
+                    tok, logits, buffers, meta, lens, slots, max_new_tokens,
+                    seed, return_logits)
+            else:
+                toks, logit_steps = [tok], [logits]
+                cur = lens.copy()
+                for _ in range(max_new_tokens - 1):
+                    if self.kind == "paged":
+                        # grow the page tables on demand (host bookkeeping)
+                        for j, slot in enumerate(slots):
+                            cache.reserve(slot, int(cur[j]) + 1)
+                        meta["page_tables"] = cache.page_tables
+                    tok, logits, buffers, meta = self.decode_step(
+                        buffers, meta, tok, gen)
+                    toks.append(tok)
+                    if return_logits:
+                        logit_steps.append(logits)
+                    cur += 1
+                out = torch.stack(toks, dim=1).cpu().numpy().astype(np.int32)
+                logit_rows = torch.stack(logit_steps, dim=1) \
+                    if return_logits else None
             cache.load_state({**buffers, **meta})
-            out = torch.stack(toks, dim=1).cpu().numpy().astype(np.int32)
         except BaseException:
-            # a failed step may leave the pools half written
+            # a failed step may leave the pools half written: both caches
+            # start again
             self.cache = self._make_cache()
+            self.draft_cache = self._make_draft_cache() \
+                if self.draft_model is not None else None
             raise
         if self.kind == "paged":
             for slot in slots:
@@ -631,5 +1020,64 @@ class GenerationEngine:
                 done |= out[:, t] == eos_token_id
         out_t = torch.from_numpy(out)
         if return_logits:
-            return out_t, torch.stack(logit_steps, dim=1).float().cpu()
+            return out_t, logit_rows.float().cpu()
         return out_t
+
+    def _spec_loop(self, tok, logits, buffers, meta, lens, slots, mnt, seed,
+                   return_logits):
+        """The host side of speculative generation: `SpecDecodeStep`
+        dispatches until every row has ``mnt`` tokens, each row taking its
+        own yield (1 to spec_k + 1; a row that is done takes 0 through its
+        cap). One host read a dispatch (tokens and counts together; the
+        logits too with ``return_logits``). Returns (tokens [b, mnt],
+        logits [b, mnt, vocab] or None, buffers, meta). The call's
+        dispatches, usable proposals (each row's lookahead - 1), accepted
+        proposals and emitted tokens are left in `spec_stats`."""
+        b = len(slots)
+        stats = self.spec_stats = dict.fromkeys(
+            ("dispatches", "proposed", "accepted", "emitted"), 0)
+        first = tok.cpu().numpy().astype(np.int32).reshape(b)
+        outs = [[int(t)] for t in first]
+        rows = [[logits[i]] for i in range(b)] if return_logits else None
+        # the acceptance streams' seeds, from the generation's seed
+        seeds = (np.random.default_rng(seed).integers(
+                     0, 2 ** 31 - 1, b).astype(np.uint32)
+                 if self.do_sample else np.zeros(b, np.uint32))
+        cur = first.copy()
+        # cached length = prompt + emitted - 1: the latest token is the
+        # next dispatch's verify row 0
+        sl = lens.astype(np.int64)
+        if self.kind == "dense":
+            # one position a row from the first dispatch on (on the device)
+            meta["pos"] = meta["pos"].reshape(-1).expand(b).clone()
+        while min(len(o) for o in outs) < mnt:
+            rem = np.array([mnt - len(o) for o in outs], np.int64)
+            caps = sl + np.maximum(np.minimum(self.spec_k + 1, rem), 0)
+            if self.kind == "paged":
+                for j, slot in enumerate(slots):
+                    self.cache.reserve(slot, int(caps[j]))
+                meta["page_tables"] = self.cache.page_tables
+            toks, counts, lg, buffers, meta = self.spec_step(
+                buffers, meta, cur, seeds, caps.astype(np.int32),
+                positions=sl)
+            host = torch.cat([toks, counts[:, None]], 1).cpu().numpy()
+            stats["dispatches"] += 1
+            for i in range(b):
+                c = int(host[i, -1])
+                if caps[i] > sl[i]:
+                    stats["proposed"] += int(caps[i] - sl[i]) - 1
+                    stats["accepted"] += max(c - 1, 0)
+                stats["emitted"] += c
+                outs[i].extend(int(t) for t in host[i, :c])
+                if return_logits:
+                    rows[i].extend(lg[i, :c].clone())
+                if c:
+                    cur[i] = host[i, c - 1]
+                sl[i] += c
+        if self.kind == "dense":
+            # every row ends at the same length: the shared position again
+            meta["pos"] = meta["pos"][0]
+        out = np.stack([np.asarray(o, np.int32) for o in outs])
+        logit_rows = (torch.stack([torch.stack(r) for r in rows])
+                      if return_logits else None)
+        return out, logit_rows, buffers, meta

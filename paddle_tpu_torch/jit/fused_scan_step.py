@@ -59,8 +59,10 @@ knob with no eager counterpart. Refused, as in the reference: an
 unrolled model, an optimizer other than Adam/AdamW, amsgrad,
 ``ClipGradByNorm`` and clips of other types, a ``layer_chunk`` that does
 not divide ``num_layers``, and with ``compute_dtype`` parameters not
-stored in fp32. The reference's MoE aux loss and draft heads ride
-models the port refuses (A9/A10, A6); its retrace sentinel, compile
+stored in fp32. The head adds the draft heads' weighted loss
+(`models.gpt.draft_head_loss`) as the reference's does; the
+reference's MoE aux loss rides models the port refuses (A9/A10); its
+retrace sentinel, compile
 cache, cost and memory analyses are XLA tools with no counterpart here.
 """
 from __future__ import annotations
@@ -210,7 +212,7 @@ class FusedScanTrainStep:
         return h
 
     def _head(self, o, x, labels):
-        from ..models.gpt import fused_lm_loss
+        from ..models.gpt import draft_head_loss, fused_lm_loss
 
         m = self.model
         h = functional_call(m.gpt.ln_f,
@@ -219,8 +221,20 @@ class FusedScanTrainStep:
         w = self._cc(o["gpt.wte.weight"] if m.lm_head is None
                      else o["lm_head.weight"])
         if self._fused_head:
-            return fused_lm_loss(h, w, True, labels)
-        return self._crit(torch.nn.functional.linear(h, w), labels)
+            loss = fused_lm_loss(h, w, True, labels)
+        else:
+            loss = self._crit(torch.nn.functional.linear(h, w), labels)
+        if m.draft_heads is not None:
+            # the heads are outer parameters: their grads ride the outer
+            # pass's
+            heads = [
+                (lambda lin, p: lambda x: functional_call(lin, p, (x,)))(
+                    lin, {"weight": self._cc(o[f"draft_heads.{j}.weight"]),
+                          "bias": self._cc(o[f"draft_heads.{j}.bias"])})
+                for j, lin in enumerate(m.draft_heads)]
+            loss = loss + m.config.draft_head_loss_weight * draft_head_loss(
+                m, h, w, True, labels, heads=heads)
+        return loss
 
     # -- optimizer state ---------------------------------------------------
     def _state(self, params):

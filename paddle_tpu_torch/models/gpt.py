@@ -19,10 +19,19 @@ hiddens to the fused LM-head cross entropy (`fused_lm_loss`), so the
 ``[tokens, vocab]`` logits never exist. Serving runs over a `PagedKVCache` with fp, int8 or int4 pools:
 ``decode_step`` (one token per slot, the paged decode kernels) and
 ``prefill_chunk`` (one bounded window per slot, the paged chunk
-kernels). Generation (``generate``, over `jit.GenerationEngine`) adds
-``prefill``, a causal pass over the whole prompt through the splash
-kernel that fills a paged or a `DenseKVCache`, whose decode runs
+kernels; over a `DenseKVCache`, the reference's XLA attention in plain
+PyTorch: the speculative verify). Generation (``generate``, over
+`jit.GenerationEngine`) adds ``prefill``, a causal pass over the whole
+prompt through the splash kernel that fills a paged or a
+`DenseKVCache`, whose decode runs
 `incubate.nn.functional.masked_multihead_attention`.
+
+``num_draft_heads=k`` adds the reference's self-speculative draft heads
+(``draft_heads``, zero-initialised ``hidden x hidden`` Linears): head j
+proposes the token j+2 positions ahead through ``h + silu(W_j h)`` and
+the shared LM head (`GPTForCausalLM.draft_logits`), and ``loss`` adds
+their auxiliary cross entropy (`draft_head_loss`, weighted by
+``draft_head_loss_weight``) through the fused CE.
 
 ``scan_layers=True`` stores the decoder stack as one ``[num_layers,
 ...]`` parameter per block parameter (`GPTStackedBlocks`, the
@@ -31,7 +40,7 @@ chunk at a time; such a model trains and evaluates, and refuses the
 cached serving paths, as the reference does.
 
 Not ported yet, and refused by `GPTConfig`: MoE and ring attention
-(A9/A10), draft heads (A6).
+(A9/A10).
 """
 from __future__ import annotations
 
@@ -47,7 +56,8 @@ from torch.func import functional_call
 from ..distributed.fleet.recompute import POLICIES, recompute
 from ..framework.device import resolve_device
 from ..incubate.nn import functional as IF
-from ..inference.kv_cache import (decode_plan, dense_write_prefill,
+from ..inference.kv_cache import (decode_plan, dense_write_chunk,
+                                  dense_write_prefill,
                                   layer_scales, prefill_plan,
                                   prefill_write_index, slot_rows,
                                   write_layer)
@@ -57,7 +67,7 @@ from ..ops.kernels.paged_attention import (paged_attention,
 
 __all__ = ["GPTConfig", "GPT_CONFIGS", "gpt_config", "GPTForCausalLM",
            "GPTModel", "GPTPretrainingCriterion", "GPTStackedBlocks",
-           "fused_lm_loss"]
+           "draft_head_loss", "fused_lm_loss"]
 
 
 @dataclass
@@ -76,10 +86,13 @@ class GPTConfig:
     use_recompute: bool = False
     recompute_policy: str = None        # None / "full" / "nothing", "dots"
     scan_layers: bool = False
+    # self-speculative draft heads: head j predicts the token j+2
+    # positions ahead; their auxiliary CE is weighted into `loss`
+    num_draft_heads: int = 0
+    draft_head_loss_weight: float = 0.1
     # accepted for the reference's signature, refused until their slices
     use_ring_attention: bool = False
     num_experts: int = 0
-    num_draft_heads: int = 0
 
     def __post_init__(self):
         if not self.intermediate_size:
@@ -92,8 +105,6 @@ class GPTConfig:
             "num_experts>0": (self.num_experts > 0, "A9/A10 (MoE)"),
             "use_ring_attention=True": (self.use_ring_attention,
                                         "A9 (ring attention)"),
-            "num_draft_heads>0": (self.num_draft_heads > 0,
-                                  "A6 (speculative decoding)"),
         }
         for what, (on, owner) in refused.items():
             if on:
@@ -200,13 +211,30 @@ class GPTAttention(nn.Module):
 
     def forward_prefill_chunk(self, x, cache, layer_idx, start, plan):
         """One window per slot: write its K/V at positions [start,
-        start+c) (past the slot's new length: trash page), then attend
-        the window's queries over the slot's cached context, causal
-        within the window. ``plan`` is the call's `prefill_plan`."""
+        start+c) (past the slot's new length: trash page; dense: dropped),
+        then attend the window's queries over the slot's cached context,
+        causal within the window. ``plan`` is the call's `prefill_plan`
+        (paged), or the rows' new lengths (dense): there the attention is
+        the reference's XLA one, fp32 scores over the whole cache with
+        key j visible to query i when ``j <= start + i``, in plain
+        PyTorch."""
         b, c, h = x.shape
         nh, hd = self.num_heads, self.head_dim
         qkv = self.qkv(x).reshape(b, c, 3, nh, hd)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        if cache.kind == "dense":
+            cache_l = cache.layer(layer_idx)
+            dense_write_chunk(cache_l, start, plan, k, v)
+            s = torch.einsum("bcnd,bnld->bncl", q.float(),
+                             cache_l[0].float()) / (hd ** 0.5)
+            jpos = torch.arange(cache_l.shape[3], device=x.device)
+            ipos = start.long()[:, None] + torch.arange(c, device=x.device)
+            visible = jpos[None, None, :] <= ipos[:, :, None]
+            s = s.masked_fill(~visible[:, None], float("-inf"))
+            p = torch.softmax(s, dim=-1)
+            out = torch.einsum("bncl,bnld->bncd", p, cache_l[1].float())
+            return self.out_proj(out.movedim(1, 2).to(q.dtype)
+                                 .reshape(b, c, h))
         write, rows = plan
         write_layer(cache, layer_idx, write,
                     k.movedim(2, 0).reshape(nh, b * c, hd),
@@ -410,18 +438,22 @@ class GPTModel(nn.Module):
     def prefill_chunk(self, input_ids, cache, slot_ids, start,
                       seq_lens_new):
         """One window of each slot's tokens at positions [start,
-        start+c), attending over the context cached so far.
+        start+c), attending over the context cached so far: the serving
+        tier's chunked prompt prefill and the speculative verify (c =
+        k+1), over paged and dense caches (the dense cache ignores
+        ``slot_ids``: row i is its row i).
 
         input_ids: [b, c] window tokens right-padded to the bucket;
         slot_ids/start/seq_lens_new: [b] int32. Returns the window
         hiddens [b, c, hidden]. The caller owns advancing
-        cache.seq_lens to seq_lens_new."""
+        cache.seq_lens (cache.pos) to seq_lens_new."""
         self._check_decodable()
         c = input_ids.shape[1]
         pos = start.long()[:, None] + torch.arange(
             c, device=input_ids.device)[None]
         x = self._embed(input_ids, pos)
-        plan = prefill_plan(cache, slot_ids, start, seq_lens_new, c)
+        plan = (seq_lens_new if cache.kind == "dense" else
+                prefill_plan(cache, slot_ids, start, seq_lens_new, c))
         for l, block in enumerate(self.blocks):
             x = block.forward_prefill_chunk(x, cache, l, start, plan)
         return self.ln_f(x)
@@ -447,6 +479,13 @@ class GPTForCausalLM(nn.Module):
         self.lm_head = None if config.tie_word_embeddings else nn.Linear(
             config.hidden_size, config.vocab_size, bias=False, device=dev,
             dtype=dtype)
+        # one residual block a head, logits through the shared LM head;
+        # zero-initialised, so an untrained head is the base head
+        self.draft_heads = nn.ModuleList([
+            nn.Linear(config.hidden_size, config.hidden_size, device=dev,
+                      dtype=dtype)
+            for _ in range(config.num_draft_heads)]) \
+            if config.num_draft_heads else None
         self._init_weights(torch.Generator(device=dev).manual_seed(seed))
 
     @torch.no_grad()
@@ -454,7 +493,9 @@ class GPTForCausalLM(nn.Module):
         std = self.config.initializer_range
         resid = 1.0 / math.sqrt(2.0 * self.config.num_layers)
         for name, p in self.named_parameters():
-            if p.ndim - ("blocks__" in name) >= 2:
+            if name.startswith("draft_heads."):
+                p.zero_()
+            elif p.ndim - ("blocks__" in name) >= 2:
                 p.normal_(0.0, std, generator=gen)
                 if name.endswith(("out_proj.weight", "fc2.weight",
                                   "out_proj__weight", "fc2__weight")):
@@ -532,6 +573,21 @@ class GPTForCausalLM(nn.Module):
             return F.linear(hidden, self.gpt.wte.weight)
         return self.lm_head(hidden)
 
+    def draft_hidden(self, hidden, j, head=None):
+        """Draft head j's residual block over hiddens [..., hidden]:
+        ``h + silu(W_j h)`` (``head``: a callable in place of the head's
+        Linear). `head` of the result gives the head's logits."""
+        head = self.draft_heads[j] if head is None else head
+        return hidden + F.silu(head(hidden))
+
+    def draft_logits(self, hidden):
+        """All k draft heads' logits off one final hidden state, through
+        one shared LM-head product: [..., hidden] -> [..., k, vocab]
+        (head j predicts the token j+2 positions ahead)."""
+        return self.head(torch.stack(
+            [self.draft_hidden(hidden, j)
+             for j in range(len(self.draft_heads))], dim=-2))
+
     def head_weight(self):
         """The LM head's ``[vocab, hidden]`` weight: ``wte`` when tied."""
         return self.gpt.wte.weight if self.lm_head is None \
@@ -546,8 +602,31 @@ class GPTForCausalLM(nn.Module):
         hidden = self.gpt(input_ids, position_ids, segment_ids=segment_ids)
         # both heads are [vocab, hidden] here (the reference's untied head
         # is an [hidden, vocab] Paddle Linear with transpose_y=False)
-        return fused_lm_loss(hidden, self.head_weight(), True, labels,
-                             loss_mask)
+        w = self.head_weight()
+        loss = fused_lm_loss(hidden, w, True, labels, loss_mask)
+        if self.draft_heads is not None:
+            loss = loss + self.config.draft_head_loss_weight \
+                * draft_head_loss(self, hidden, w, True, labels, loss_mask)
+        return loss
+
+
+def draft_head_loss(model, hidden, weight, transpose_y, labels,
+                    loss_mask=None, heads=None):
+    """Auxiliary cross entropy of the self-speculative draft heads: head j
+    at position i predicts ``labels[i + j + 1]`` (the base head predicts
+    ``labels[i]``), through the same fused LM-head loss; the mean over
+    heads. ``hidden``: the final (``ln_f``) hiddens; ``heads``: callables
+    in place of the heads' Linears (the fused-scan step's cast
+    parameters)."""
+    k = len(model.draft_heads)
+    total = None
+    for j in range(k):
+        hj = model.draft_hidden(hidden[:, :-(j + 1)], j,
+                                None if heads is None else heads[j])
+        mj = None if loss_mask is None else loss_mask[:, j + 1:]
+        lj = fused_lm_loss(hj, weight, transpose_y, labels[:, j + 1:], mj)
+        total = lj if total is None else total + lj
+    return total / k
 
 
 def fused_lm_loss(hidden, weight, transpose_y, labels, loss_mask=None):

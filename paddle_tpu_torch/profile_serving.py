@@ -1,7 +1,7 @@
 """Where the serving path's time goes on the card.
 
     python -m paddle_tpu_torch.profile_serving [--timed N]
-        [--kv-quant {int8,int4}] [--eager]
+        [--kv-quant {int8,int4}] [--eager] [--spec]
 
 Serves the workload of ``chip_smoke.py`` phase 5 (GPT-3 1.3B width,
 bf16 weights, bf16 pools or with ``--kv-quant`` int8 / int4 ones, 8
@@ -17,7 +17,16 @@ time of the paged-attention kernels, of the matrix products and of
 everything else, and the top kernels by device time. ``--timed N``
 instead serves the workload N more times without the profiler and
 prints one JSON line per run (wall, output tok/s, TTFT and inter-token
-latency percentiles). Needs a CUDA card.
+latency percentiles). ``--spec`` profiles the strong pair instead
+(`inference.spec_decode_selftest.strong_pair` at the same width: the
+target's blocks past block 0 write nothing to the residual, a one-layer
+draft computes its logits), through a plain engine and a speculative one
+(``spec_k`` 4) of the same target, and splits each one's device time into
+the draft's decode (``paged_decode_split_kernel``: only the draft
+decodes in the spec run), the chunk kernel (the prompt chunks, and in the
+spec run the verify too: ``verify_chunk_s`` is the spec run's chunk time
+less the plain run's), GEMM and the rest, with the idle share. Needs a
+CUDA card.
 """
 from __future__ import annotations
 
@@ -28,6 +37,7 @@ import time
 import numpy as np
 import torch
 
+from .inference.spec_decode_selftest import strong_pair
 from .models import GPTForCausalLM, gpt_config
 from .serving import ServingEngine
 
@@ -56,42 +66,13 @@ def _serve(engine, requests):
     return handles, snap, time.perf_counter() - t0
 
 
-def main(argv=None):
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--timed", type=int, default=0, metavar="N",
-                    help="N timed runs without the profiler instead")
-    ap.add_argument("--kv-quant", choices=("int8", "int4"), default=None,
-                    help="store the KV pages quantized")
-    ap.add_argument("--eager", action="store_true",
-                    help="the eager loop (compiled=False), not the graphs")
-    args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        raise SystemExit("profile_serving needs a CUDA card")
-    cfg = gpt_config("gpt3-1.3b")
-    model = GPTForCausalLM(cfg, dtype=torch.bfloat16, seed=0)
-    engine = ServingEngine(model, max_slots=8, max_len=1024, page_size=16,
-                           chunk_size=64, prefill_batch=4,
-                           cache_dtype=torch.bfloat16,
-                           kv_quant=args.kv_quant, compiled=not args.eager)
-    requests = _requests(cfg.vocab_size)
-    engine.warmup()
-    _serve(engine, requests)                       # warm-up
-    if args.timed:
-        for run in range(args.timed):
-            handles, snap, wall = _serve(engine, requests)
-            print(json.dumps({
-                "run": run, "kv_quant": args.kv_quant,
-                "compiled": engine.compiled, "wall_s": wall,
-                "generated_tokens": snap["generated_tokens"],
-                "output_tok_s": snap["generated_tokens"] / wall,
-                **{k: snap[k] for k in ("ttft_p50_s", "ttft_p99_s",
-                                        "itl_p50_s", "itl_p99_s")}}),
-                flush=True)
-        return
+def _profile(engine, requests):
+    """Serve ``requests`` once under ``torch.profiler``: the device-time
+    breakdown (one stream, so kernels never overlap)."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        handles, _, wall = _serve(engine, requests)
+        handles, snap, wall = _serve(engine, requests)
     kernels = {}
     for ev in prof.key_averages():
         dev_us = getattr(ev, "self_device_time_total",
@@ -108,10 +89,7 @@ def main(argv=None):
     attention = {n: share((n.lower(),)) for n in _ATTENTION}
     gemm = share(_GEMM)
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:15]
-    out = {
-        "device": torch.cuda.get_device_name(0),
-        "kv_quant": args.kv_quant,
-        "compiled": engine.compiled,
+    return {
         "compile_counts": engine.compile_counts(),
         "requests": len(handles),
         "generated_tokens": sum(len(h.output_tokens) for h in handles),
@@ -122,9 +100,83 @@ def main(argv=None):
         "gemm_s": gemm,
         "other_s": busy - gemm - sum(attention.values()),
         "kernel_launches": sum(n for _, n in kernels.values()),
+        "decode_steps": snap["decode_steps"],
+        "prefill_chunks": snap["prefill_chunks"],
+        "spec_accept_rate": snap["spec_accept_rate"],
+        "spec_tokens_per_dispatch": snap["spec_tokens_per_dispatch"],
         "top_kernels": [{"name": k[:90], "s": us / 1e6, "count": n}
                         for k, (us, n) in top],
     }
+
+
+def _engine(model, args, **kw):
+    return ServingEngine(model, max_slots=8, max_len=1024, page_size=16,
+                         chunk_size=64, prefill_batch=4,
+                         cache_dtype=torch.bfloat16, kv_quant=args.kv_quant,
+                         compiled=not args.eager, **kw)
+
+
+def _spec(args, cfg):
+    """``--spec``: the strong pair, plain then speculative."""
+    tgt, drf = strong_pair(cfg, dtype=torch.bfloat16)
+    requests = _requests(cfg.vocab_size)
+    out = {"device": torch.cuda.get_device_name(0), "spec_k": 4,
+           "kv_quant": args.kv_quant, "compiled": not args.eager}
+    for name, kw in (("plain", {}), ("spec", dict(draft_model=drf,
+                                                  spec_k=4))):
+        engine = _engine(tgt, args, **kw)
+        engine.warmup()
+        _serve(engine, requests)                   # warm-up
+        out[name] = r = _profile(engine, requests)
+        chunk = sum(v for k, v in r["attention_s"].items() if "chunk" in k)
+        r["draft_decode_s"] = sum(v for k, v in r["attention_s"].items()
+                                  if "decode" in k)
+        r["chunk_s"] = chunk
+        r["rest_s"] = r["device_busy_s"] - r["gemm_s"] - chunk \
+            - r["draft_decode_s"]
+        del engine
+    out["verify_chunk_s"] = out["spec"]["chunk_s"] - out["plain"]["chunk_s"]
+    out["wall_speedup"] = out["plain"]["wall_s"] / out["spec"]["wall_s"]
+    return out
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--timed", type=int, default=0, metavar="N",
+                    help="N timed runs without the profiler instead")
+    ap.add_argument("--kv-quant", choices=("int8", "int4"), default=None,
+                    help="store the KV pages quantized")
+    ap.add_argument("--eager", action="store_true",
+                    help="the eager loop (compiled=False), not the graphs")
+    ap.add_argument("--spec", action="store_true",
+                    help="the strong pair, plain and speculative")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_serving needs a CUDA card")
+    cfg = gpt_config("gpt3-1.3b")
+    if args.spec:
+        print(json.dumps(_spec(args, cfg)))
+        return
+    model = GPTForCausalLM(cfg, dtype=torch.bfloat16, seed=0)
+    engine = _engine(model, args)
+    requests = _requests(cfg.vocab_size)
+    engine.warmup()
+    _serve(engine, requests)                       # warm-up
+    if args.timed:
+        for run in range(args.timed):
+            handles, snap, wall = _serve(engine, requests)
+            print(json.dumps({
+                "run": run, "kv_quant": args.kv_quant,
+                "compiled": engine.compiled, "wall_s": wall,
+                "generated_tokens": snap["generated_tokens"],
+                "output_tok_s": snap["generated_tokens"] / wall,
+                **{k: snap[k] for k in ("ttft_p50_s", "ttft_p99_s",
+                                        "itl_p50_s", "itl_p99_s")}}),
+                flush=True)
+        return
+    out = {"device": torch.cuda.get_device_name(0),
+           "kv_quant": args.kv_quant, "compiled": engine.compiled,
+           **_profile(engine, requests)}
     print(json.dumps(out))
 
 

@@ -23,21 +23,32 @@ scale a row; int4 packs two values a byte): 1.88x or 3.56x the tokens
 of bf16 pools in the same memory at head_dim 64, with the dequant fused
 into the paged-attention kernels.
 
+``draft_model`` (a GPT of the target's vocab, or "self": the target's
+draft heads) with ``spec_k`` makes step 3 a speculative dispatch
+(`ServeSpecDecodeStep`): each running slot takes 1 to spec_k + 1
+tokens, its page lookahead ``min(spec_k + 1, remaining, window)`` and
+its ``caps`` bound keeping acceptance inside its reserved pages. A
+separate draft gets paged pools of the target's geometry (never
+quantized), which its page tables map: a slot's reserve, free or
+preemption moves both. The ``serving.spec.*`` gauges count the usable
+proposals only.
+
 On a CUDA device with ``compiled=True`` (the default, as the
-reference's) the decode burst and each chunk bucket's prefill replay
-CUDA graphs (`jit.graphs`), the port's counterpart of the reference's
-compiled steps: `warmup` captures them, `compile_counts` counts them.
-``compiled=False``, and any engine on the CPU, runs the steps eagerly.
+reference's) the decode burst (or the speculative dispatch) and each
+chunk bucket's prefill replay CUDA graphs (`jit.graphs`), the port's
+counterpart of the reference's compiled steps: `warmup` captures them,
+`compile_counts` counts them. ``compiled=False``, and any engine on the
+CPU, runs the steps eagerly.
 
 Counterpart of paddle_tpu/serving/engine.py, with its constructor.
-Refused at construction until their slices land: speculative decoding
-(``draft_model``, ROADMAP queue A6), and the online tuner, the fleet
-roles (``prefill_only``, ``host_kv_ring``), the debug server, SLOs and
-step-failure retries (A8). The options that only matter with one of
-those (``spec_k``, ``tuner_kw``, ``recover_backoff_s``) and the request
-tracer's (``trace``, ``trace_capacity``, the ``exemplar_*`` options)
-are accepted and record nothing; ``donate`` is accepted and does
-nothing (the steps update the pools in place).
+Refused at construction until their slices land: the online tuner, the
+fleet roles (``prefill_only``, ``host_kv_ring``), the debug server, SLOs
+and step-failure retries (ROADMAP queue A8). The options that only
+matter with one of those (``tuner_kw``, ``recover_backoff_s``) and the
+request tracer's (``trace``, ``trace_capacity``, the ``exemplar_*``
+options; the spec dispatch's spans with them) are accepted and record
+nothing; ``donate`` is accepted and does nothing (the steps update the
+pools in place).
 """
 from __future__ import annotations
 
@@ -48,7 +59,9 @@ import torch
 
 from ..framework.device import resolve_device
 from ..inference.kv_cache import PagedKVCache
-from ..jit.decode_step import ChunkPrefillStep, ServeDecodeStep, split_state
+from ..jit.decode_step import (ChunkPrefillStep, ServeDecodeStep,
+                               ServeSpecDecodeStep, _draft_of, check_draft,
+                               draft_cache_like, split_state)
 from ..observability import registry as _global_registry
 from .metrics import ServingMetrics
 from .request import FinishReason, Request, RequestHandle, RequestState
@@ -60,7 +73,6 @@ __all__ = ["ServingEngine"]
 # and the queue item that brings each; off is None or a falsy value (for
 # debug_port, where 0 means "any port", only None)
 _NOT_PORTED = {
-    "draft_model": "ROADMAP queue A6 (speculative decoding)",
     "tuner": "ROADMAP queue A8 (the online tuner)",
     "host_kv_ring": "ROADMAP queue A8 (the fleet)",
     "prefill_only": "ROADMAP queue A8 (the fleet)",
@@ -84,7 +96,7 @@ class ServingEngine:
                  slos=(), debug_port=None, tuner=False, tuner_kw=None,
                  prefill_only=False, host_kv_ring=None,
                  recover_retries=0, recover_backoff_s=0.05, device=None):
-        later = dict(draft_model=draft_model, tuner=tuner,
+        later = dict(tuner=tuner,
                      host_kv_ring=host_kv_ring, prefill_only=prefill_only,
                      debug_port=debug_port, slos=slos,
                      recover_retries=recover_retries)
@@ -94,7 +106,7 @@ class ServingEngine:
                     f"ServingEngine({name}=...) is not ported yet: "
                     f"{_NOT_PORTED[name]}")
         # accepted; they matter only with a refused option or the tracer
-        del (spec_k, donate, trace, trace_capacity, exemplar_capacity,
+        del (donate, trace, trace_capacity, exemplar_capacity,
              exemplar_quantile, exemplar_min_samples, tuner_kw,
              recover_backoff_s)
         self.device = resolve_device(device)
@@ -136,14 +148,25 @@ class ServingEngine:
         # oversubscribe (preemption reclaims pages under pressure)
         self.num_pages = int(num_pages or
                              1 + self.max_slots * self.pages_per_seq)
+        self.draft_model = _draft_of(model, draft_model)
+        self.spec_k = int(spec_k)
         self.cache = self._make_cache()
+        self.draft_cache = None
+        if self.draft_model is not None:
+            check_draft(model, self.draft_model, self.spec_k, self.device)
+            self.draft_cache = self._make_draft_cache()
         self.metrics = ServingMetrics(clock=clock)
         self._register_mem_gauges()
         self.scheduler = RequestScheduler(
             self.cache, self.metrics, admit_watermark=admit_watermark)
-        self.scheduler.token_lookahead = self.decode_burst
+        # the "auto" admission watermark keeps one dispatch's growth a slot
+        self.scheduler.token_lookahead = (
+            self.spec_k + 1 if self.draft_model is not None
+            else self.decode_burst)
         self.prefill_step = ChunkPrefillStep(self)
         self.decode_step = ServeDecodeStep(self)
+        self.spec_step = (ServeSpecDecodeStep(self)
+                          if self.draft_model is not None else None)
         bkts, b = [], 8
         while b < self.chunk_size:
             bkts.append(b)
@@ -167,6 +190,13 @@ class ServingEngine:
             num_pages=self.num_pages, page_size=self.page_size,
             max_slots=self.max_slots, pages_per_seq=self.pages_per_seq,
             dtype=self._cache_dtype, quant=self.kv_quant, device=self.device)
+
+    def _make_draft_cache(self):
+        """The draft's pools over the target's slots and pages (None for a
+        self-draft)."""
+        if getattr(self.draft_model, "is_self_draft", False):
+            return None
+        return draft_cache_like(self)
 
     def _split_buffers(self):
         return split_state("paged", self.cache.state())[0]
@@ -300,10 +330,14 @@ class ServingEngine:
         admit/preempt/retire churn, prefill at most one per chunk
         bucket. Counts calls instead when the steps run eagerly (on the
         CPU, or ``compiled=False``), as the reference's eager steps
-        count theirs."""
+        count theirs. Under speculative decoding the decode keys are the
+        spec step's (greedy: one graph; sampled: a draft and a verify
+        graph)."""
+        dstep = self.spec_step if self.spec_step is not None \
+            else self.decode_step
         return {
-            "decode_traces": self.decode_step.trace_count,
-            "decode_executables": self.decode_step.cache_size(),
+            "decode_traces": dstep.trace_count,
+            "decode_executables": dstep.cache_size(),
             "prefill_traces": self.prefill_step.trace_count,
             "prefill_executables": self.prefill_step.cache_size(),
             "chunk_buckets": list(self.chunk_buckets),
@@ -361,9 +395,15 @@ class ServingEngine:
     def set_decode_burst(self, k):
         """Change the decode burst between engine steps. The burst is
         unrolled inside the decode graph, so this builds a fresh decode
-        step, which captures anew on its first call."""
+        step, which captures anew on its first call. Refused under
+        speculative decoding, whose dispatch ``spec_k`` shapes."""
         k = max(1, int(k))
         if k != self.decode_burst:
+            if self.spec_step is not None:
+                raise ValueError(
+                    "decode_burst is unused under speculative decoding "
+                    "(spec_k owns the decode program); tune spec_k at "
+                    "construction")
             self.decode_burst = k
             self.decode_step = ServeDecodeStep(self)
             self.scheduler.token_lookahead = k
@@ -451,31 +491,41 @@ class ServingEngine:
             self._tokens[h.slot] = token
             self._emit(h, token)
 
-    def _run_decode(self) -> bool:
+    def _live_decode_slots(self, max_ahead):
+        """The running slots one decode dispatch advances, highest
+        priority first so page pressure lands on the lowest, and each
+        one's page lookahead: ``min(max_ahead, remaining budget,
+        window)``. Tokens sampled past the budget are discarded and their
+        writes land on the trash page, so no real pages are reserved for
+        them. Returns (live, {slot: lookahead})."""
         sched = self.scheduler
-        # highest priority first so page pressure lands on the lowest
         order = sorted(sched.decode_slots(),
                        key=lambda s: sched._key(sched.running[s]))
-        # the burst length is uniform, but the page lookahead is capped
-        # per slot by the request's remaining budget (and the window):
-        # tokens sampled past the budget are discarded and their writes
-        # land on the trash page, so no real pages are reserved for them
-        k = self.decode_burst
-        live = []
+        live, ahead = [], {}
         for slot in order:
             h = sched.running.get(slot)
             if h is None or h.state is not RequestState.RUNNING:
                 continue   # preempted as a victim earlier in this loop
             remaining = h.request.max_new_tokens - len(h.output_tokens)
-            ahead = max(1, min(k, remaining,
-                               self.max_len - sched._context_len(h)))
-            if sched.ensure_token_capacity(slot, lookahead=ahead):
+            a = max(1, min(max_ahead, remaining,
+                           self.max_len - sched._context_len(h)))
+            if sched.ensure_token_capacity(slot, lookahead=a):
                 live.append(slot)
+                ahead[slot] = a
         # a slot approved early can still be sacrificed to a later
         # slot's reservation: keep only the survivors
         live = [s for s in live
                 if sched.running.get(s) is not None
                 and sched.running[s].state is RequestState.RUNNING]
+        return live, ahead
+
+    def _run_decode(self) -> bool:
+        if self.spec_step is not None:
+            return self._run_spec_decode()
+        sched = self.scheduler
+        # the burst length is uniform, the page lookahead per slot
+        k = self.decode_burst
+        live, _ = self._live_decode_slots(k)
         if not live:
             return False
         out, _logits, buffers, meta = self.decode_step(
@@ -491,6 +541,49 @@ class ServingEngine:
                     continue   # retired earlier in this burst
                 token = int(tok[slot])
                 self._tokens[slot] = token
+                self._emit(handle, token)
+        return True
+
+    def _run_spec_decode(self) -> bool:
+        """One speculative dispatch: each running slot takes 1 to spec_k
+        + 1 tokens. Its page lookahead is the worst case, ``min(spec_k +
+        1, remaining, window)``, and its cap (context + lookahead) keeps
+        acceptance inside the pages it holds. The pre-dispatch lengths
+        and the caps come from the scheduler's bookkeeping (a resident
+        slot's context length, 0 for a free slot; a slot that does not
+        take part caps at its length: no yield), so the one host read is
+        the tokens and counts together."""
+        sched = self.scheduler
+        live, ahead = self._live_decode_slots(self.spec_k + 1)
+        if not live:
+            return False
+        positions = np.zeros((self.max_slots,), np.int32)
+        for slot, h in sched.running.items():
+            positions[slot] = sched._context_len(h)
+        caps = positions.copy()
+        for slot in live:
+            caps[slot] += ahead[slot]
+        out, counts, _logits, buffers, meta = self.spec_step(
+            self._buffers, self._meta(), self._tokens, self._seeds, caps,
+            positions=positions)
+        self._commit(buffers, meta)
+        host = torch.cat([out, counts[:, None]], 1).cpu().numpy()
+        self.metrics.decode_steps += 1
+        # the proposals a slot could use (ahead - 1, not spec_k): a
+        # request's last dispatch may have room for fewer, which is not
+        # a rejection
+        for slot in live:
+            self.metrics.spec_dispatches += 1
+            self.metrics.spec_proposed += max(ahead[slot] - 1, 0)
+            self.metrics.spec_accepted += max(int(host[slot, -1]) - 1, 0)
+        for slot in live:
+            handle = sched.running.get(slot)
+            for t in range(int(host[slot, -1])):
+                if handle is None or handle.state is not RequestState.RUNNING:
+                    break   # retired earlier in this dispatch
+                token = int(host[slot, t])
+                self._tokens[slot] = token
+                self.metrics.spec_emitted += 1
                 self._emit(handle, token)
         return True
 
@@ -513,6 +606,8 @@ class ServingEngine:
         self.cache = self._make_cache()
         self.scheduler.cache = self.cache
         self._buffers = self._split_buffers()
+        if self.draft_model is not None:
+            self.draft_cache = self._make_draft_cache()
 
     # -- introspection ----------------------------------------------------
     def leak_check(self) -> dict:

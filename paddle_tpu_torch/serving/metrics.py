@@ -9,8 +9,8 @@ is ever added for metrics. The latency samples are ring ``Histogram``s
 on a per-engine ``MetricsRegistry``, and `expose` renders that registry
 as Prometheus text, with the reference's metric names and types
 (paddle_tpu/serving/metrics.py). The speculative-decoding counters
-(ROADMAP queue A6) and the host KV ring's (A8) are there and stay 0
-until those slices land.
+count the spec dispatches; the host KV ring's (ROADMAP queue A8) are
+there and stay 0 until that slice lands.
 """
 from __future__ import annotations
 

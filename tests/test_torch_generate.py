@@ -162,8 +162,16 @@ def test_eos_fills_the_rest_of_the_row(models):
 
 def test_later_slices_raise(models):
     _, tm = models
-    with pytest.raises(NotImplementedError, match="A6"):
-        GenerationEngine(tm, kind="paged", draft_model=tm)
+    # speculative decoding is ported: a draft model constructs and runs
+    # (greedy: the plain tokens), "self" without draft heads raises the
+    # reference's ValueError
+    spec = GenerationEngine(tm, kind="paged", draft_model=tm, spec_k=2,
+                            batch=2, max_len=32)
+    plain = GenerationEngine(tm, kind="paged", batch=2, max_len=32)
+    np.testing.assert_array_equal(spec.generate(_ids(2, 4), 5).numpy(),
+                                  plain.generate(_ids(2, 4), 5).numpy())
+    with pytest.raises(ValueError, match="num_draft_heads"):
+        GenerationEngine(tm, kind="paged", draft_model="self")
     with pytest.raises(ValueError, match="cache kind"):
         GenerationEngine(tm, kind="ring")
     eng = GenerationEngine(tm, kind="paged", kv_quant="int4", batch=2,

@@ -3,8 +3,9 @@ over fp, int8 and int4 pools (serving), splash attention, flash attention
 (both paths) and the fused cross entropy (training), forward and
 backward; the optimizer's multi-tensor norm and Adam update, and the
 fused-scan training step that calls the update once a layer chunk; the
-weight-only int8 / int4 linear at its edge shapes, and the dense
-generation graphs over fp32 and int8 weights.
+weight-only int8 / int4 linear at its edge shapes, the dense
+generation graphs over fp32 and int8 weights, and speculative decoding's
+graphs (generation and serving) against its eager steps.
 
 These run only on a CUDA card (marker ``gpu``; each test skips without
 one). The file imports torch, numpy and the port only, so it runs on a
@@ -1858,3 +1859,88 @@ def test_dense_generate_replays_its_graphs(cuda, int8):
     assert torch.equal(out[True][1], out[False][1])
     want = cpu.generate(ids, 12)
     assert torch.equal(out[True][0], want)
+
+
+# ---------------------------------------------------------------------------
+# speculative decoding as CUDA graphs
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cache,quant,draft,sample", [
+    ("dense", None, "weak", False), ("paged", None, "weak", False),
+    ("paged", "int8", "self", False), ("paged", "int4", "weak", False),
+    ("paged", None, "weak", True), ("dense", None, "self", True)])
+def test_spec_generate_graphs_match_eager(cuda, cache, quant, draft,
+                                          sample):
+    """Speculative ``generate()`` through its graphs (greedy: one a
+    dispatch; sampled: the draft's and the verify's) gives the tokens and
+    logits of ``compiled=False`` on the card; greedy, the plain decode's
+    tokens; each paged dispatch launches the draft's decode k + 1 times a
+    draft layer (a self-draft: once a target layer) and the verify's
+    chunk once a target layer."""
+    from paddle_tpu_torch.jit import GenerationEngine
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+
+    k = 3
+    cfg = GPTConfig(vocab_size=128, hidden_size=64, num_layers=2,
+                    num_attention_heads=4, max_position_embeddings=128,
+                    num_draft_heads=k if draft == "self" else 0)
+    tgt = GPTForCausalLM(cfg, device=cuda, seed=0)
+    d = "self" if draft == "self" else GPTForCausalLM(
+        GPTConfig(vocab_size=128, hidden_size=32, num_layers=1,
+                  num_attention_heads=2, max_position_embeddings=128),
+        device=cuda, seed=7)
+    ids = np.random.default_rng(3).integers(1, 128, (3, 20))
+    kw = dict(kind=cache, batch=3, max_len=64,
+              **({"kv_quant": quant} if quant else {}),
+              **(dict(do_sample=True, top_k=20) if sample else {}))
+    out = {}
+    for compiled in (True, False):
+        eng = GenerationEngine(tgt, draft_model=d, spec_k=k,
+                               compiled=compiled, **kw)
+        eng.generate(ids, 5, seed=1)
+        for w, c in pa._COUNTERS:
+            setattr(w, c, 0)
+        out[compiled] = eng.generate(ids, 17, return_logits=True, seed=2)
+        if compiled:
+            assert eng.spec_step.cache_size() == (1 if not sample else 2)
+            disp = eng.spec_stats["dispatches"]
+            if cache == "paged":
+                mode = "" if quant is None else f"_{quant}"
+                # the draft's decode over its own fp32 pools, or the
+                # self-draft's over the target's; the verify's chunk
+                dmode = mode if draft == "self" else ""
+                dec = sum(getattr(pa.paged_attention, c + dmode)
+                          for c in ("launches", "launches_split"))
+                chunk = sum(getattr(pa.paged_attention_chunk, c + mode)
+                            for c in ("launches", "launches_wgmma"))
+                assert dec == disp * (cfg.num_layers if draft == "self"
+                                      else k + 1)
+                assert chunk == disp * cfg.num_layers
+    assert torch.equal(out[True][0], out[False][0])
+    assert torch.equal(out[True][1], out[False][1])
+    if not sample:
+        plain = GenerationEngine(tgt, **kw).generate(ids, 17)
+        assert torch.equal(out[True][0], plain)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quant", [None, "int8"])
+def test_spec_serving_graphs_match_eager(cuda, quant):
+    """Speculative serving through one greedy graph and the eager loop:
+    identical tokens, one capture, no page leaked."""
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+
+    model = _tiny_gpt(cuda)
+    draft = GPTForCausalLM(GPTConfig(vocab_size=128, hidden_size=32,
+                                     num_layers=1, num_attention_heads=2,
+                                     max_position_embeddings=128),
+                           device=cuda, seed=7)
+    ge, gh = _serve_tiny(model, cuda, True, quant, draft_model=draft,
+                         spec_k=3)
+    ee, eh = _serve_tiny(model, cuda, False, quant, draft_model=draft,
+                         spec_k=3)
+    assert [h.output_tokens for h in gh] == [h.output_tokens for h in eh]
+    assert ge.compile_counts()["decode_traces"] == 1
+    lk = ge.leak_check()
+    assert lk["free_pages"] == lk["total_pages"]

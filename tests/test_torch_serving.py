@@ -272,6 +272,17 @@ def test_model_and_engine_device_must_agree(models):
 ])
 def test_options_of_later_slices_raise(models, option, value):
     _, tm = models
+    if option == "draft_model":
+        # speculative decoding is ported: "self" needs draft heads (the
+        # reference's ValueError), a draft model constructs and serves
+        with pytest.raises(ValueError, match="num_draft_heads"):
+            ServingEngine(tm, device="cpu", max_len=48, **{option: value})
+        e = ServingEngine(tm, device="cpu", max_len=48, draft_model=tm,
+                          spec_k=2)
+        h = e.submit(_prompts(1)[0], 4)
+        e.run()
+        assert h.done and len(h.output_tokens) == 4
+        return
     with pytest.raises(NotImplementedError, match="not ported yet"):
         ServingEngine(tm, device="cpu", **{option: value})
 

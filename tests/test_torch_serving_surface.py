@@ -241,8 +241,13 @@ def test_reference_keywords_are_accepted(models):
     assert not te.compiled
     jh, th = _churn(je), _churn(te)
     assert [h.output_tokens for h in th] == [h.output_tokens for h in jh]
-    with pytest.raises(NotImplementedError, match="A6"):
-        ServingEngine(models[1], device="cpu", draft_model="self")
+    # speculative decoding is ported: the reference's own ValueErrors
+    with pytest.raises(ValueError, match="num_draft_heads"):
+        ServingEngine(models[1], device="cpu", max_len=48,
+                      draft_model="self")
+    with pytest.raises(ValueError, match="unknown draft_model"):
+        ServingEngine(models[1], device="cpu", max_len=48,
+                      draft_model="slef")
     with pytest.raises(NotImplementedError, match="A8"):
         ServingEngine(models[1], device="cpu", recover_retries=1)
 

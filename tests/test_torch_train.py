@@ -539,6 +539,14 @@ def test_decorate_o2_and_auto_cast():
     ("num_experts", 4), ("use_ring_attention", True),
     ("num_draft_heads", 2)])
 def test_config_refuses_what_later_slices_own(field, value):
+    if field == "num_draft_heads":
+        # ported since (ROADMAP A6): the heads exist, zero-initialised
+        cfg = GPTConfig(**{**TINY, field: value})
+        assert cfg.num_draft_heads == 2 and cfg.draft_head_loss_weight == 0.1
+        heads = GPTForCausalLM(cfg, device="cpu").draft_heads
+        assert len(heads) == 2
+        assert all((p == 0).all() for p in heads.parameters())
+        return
     if field in ("scan_layers", "recompute_policy"):
         # ported since (ROADMAP A7): accepted, and a policy the reference
         # does not know is refused as there
