@@ -219,7 +219,40 @@ Phases, one line each (any failure exits non-zero, nothing is caught):
     numbers at LLaMA's two heads, ``llama_shapes``; the weight-only
     kernels' launches from phase 17's int8 runs, with every phase-3 row;
     the chunk rows' verify-shape numbers, and each paged kernel's launches
-    a serving spec dispatch from phase 18).
+    a serving spec dispatch from phase 18; the optimizer's update also
+    its phase-20 launches, ``launches_bert``), printed after phases 20
+    and 21, whose launches it carries;
+20. BERT (masked attention and attention dropout on the card, as aten
+    ops: the reference's XLA ``_sdpa_ref``): (a) a small fp32 BERT
+    (hidden 64, 2 layers, 4 heads) at 4 x 64 tokens under padding masks
+    of lengths 17-64, card against CPU: both heads' logits within 1e-4,
+    3 AdamW ``TrainStep``s of the fine-tune head each from the CPU's
+    state (losses 1e-4, parameters 1e-3 rel; ``mt_adam_kernel`` and no
+    other kernel of the port's); (b) on the card, a row's pooled output
+    within 1e-5 when its padded tokens change; (c) the dropout contract
+    of SDPA with ``dropout_p`` 0.1 on [8, 128, 12, 64] on the card: the
+    kept share within 4 sigma of 0.9, a generator's seed bit-identical
+    twice and another seed different, ``training=False`` equal to
+    ``dropout_p=0``; (d) BERT-base fine-tuning at full width (hidden 768,
+    12 layers, vocab 30522, 2 classes; dropout 0.1; bf16 through
+    ``amp.decorate(level="O2")``, AdamW(2e-5) with fp32 masters,
+    ``TrainStep``), 32 x 128 random tokens under padding masks of
+    lengths 32-128, 2 warm-up and 5 timed steps: step ms, samples/s,
+    tokens/s, ``mfu``, peak memory; two ``mt_adam_kernel`` a step (the
+    bf16 weights with fp32 masters, the fp32 LayerNorms) and no other
+    kernel of the port's, every loss finite, the first within 0.5 of
+    ln 2, the LayerNorms fp32;
+21. LeNet through ``paddle_tpu_torch.Model`` on the reference's
+    synthetic MNIST (4096 training and 4096 test images): (a)
+    ``train_batch`` at batch 64 in order, card against CPU, 3 Adam steps
+    each from the CPU's state (losses 1e-4, parameters 1e-3 rel); (b)
+    ``prepare(Adam(1e-3), CrossEntropyLoss(), Accuracy())``, then
+    ``fit`` one epoch at batch 64 without and with ``prefetch=True``,
+    ``evaluate`` and ``predict``: losses finite, ``evaluate``'s ``acc``
+    equal to a recount from ``predict``'s outputs, ``save`` -> ``load``
+    bit for bit; images/s of both fits, the seconds of evaluate and
+    predict, ``input_pipeline_stats``. Every phase-20 and -21 line holds
+    the ``nvidia-smi`` name and power limit.
 
 It then prints the ``nvidia-smi`` line again and, last, ``{"ok": true,
 "device": {...}}``. Imports torch, numpy and the port only.
@@ -243,7 +276,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
 BF16_FLOP_PER_S = 989e12        # dense bf16 tensor-core peak
 FP32_FLOP_PER_S = 67e12         # fp32 outside the tensor cores
-PHASES = 19
+PHASES = 21
 
 
 def nvidia_smi() -> str:
@@ -4326,6 +4359,404 @@ def spec_decode(dev):
     return per_dispatch
 
 
+# ---------------------------------------------------------------------------
+# phase 20: BERT (masked attention and dropout); phase 21: LeNet through
+# paddle.Model
+# ---------------------------------------------------------------------------
+
+# phase 20(a)'s small BERT: card against CPU in fp32
+BERT_SMALL = dict(vocab_size=512, hidden_size=64, num_layers=2,
+                  num_attention_heads=4, max_position_embeddings=128,
+                  hidden_dropout_prob=0.0, attention_dropout_prob=0.0)
+
+
+def _padded_tokens(rng, batch, seq, vocab, low):
+    """Random ids and a 1/0 padding mask of random lengths in [low,
+    seq], as CPU tensors."""
+    ids = rng.integers(0, vocab, (batch, seq))
+    lengths = rng.integers(low, seq + 1, (batch,))
+    mask = (np.arange(seq)[None] < lengths[:, None]).astype(np.int64)
+    return torch.from_numpy(ids), torch.from_numpy(mask)
+
+
+def _bert_step(model, lr, **kw):
+    """(optimizer, step): AdamW(lr) and ``TrainStep`` over
+    ``CrossEntropyLoss`` of the fine-tune head."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.nn import CrossEntropyLoss
+    from paddle_tpu_torch.optimizer import AdamW
+
+    crit = CrossEntropyLoss()
+    opt = AdamW(learning_rate=lr, parameters=model.parameters(), **kw)
+    return opt, TrainStep(model, lambda m, i, k, y: crit(
+        m(i, attention_mask=k), y), opt)
+
+
+def bert_parity(dev):
+    """Phase 20(a-b): the small fp32 BERT (``BERT_SMALL``: hidden 64, 2
+    layers, 4 heads) at batch 4 x seq 64 under padding masks of lengths
+    17-64, card against CPU: both heads' logits within 1e-4; 3 AdamW(1e-3)
+    ``TrainStep``s of the fine-tune head, each from the CPU's state after
+    one CPU step (Adam's first step turns summation noise into lr-sized
+    moves), losses 1e-4 and parameters 1e-3 rel, ``mt_adam_kernel`` and
+    no other kernel of the port's; then on the card a row's pooled output
+    within 1e-5 when its padded tokens change."""
+    from paddle_tpu_torch.models import (BertConfig, BertForPretraining,
+                                         BertForSequenceClassification)
+
+    cfg = BertConfig(**BERT_SMALL)
+    rng = np.random.default_rng(20)
+    ids, mask = _padded_tokens(rng, 4, 64, cfg.vocab_size, 17)
+    report = {"nvidia_smi": nvidia_smi()}
+    for cls in (BertForSequenceClassification, BertForPretraining):
+        cpu = cls(cfg, device="cpu", seed=1).eval()
+        card = cls(cfg, device=dev, seed=1).eval()
+        card.load_state_dict(cpu.state_dict())
+        with torch.no_grad():
+            want = cpu(ids, attention_mask=mask)
+            got = card(ids.to(dev), attention_mask=mask.to(dev))
+        want = want if isinstance(want, tuple) else (want,)
+        got = got if isinstance(got, tuple) else (got,)
+        report[f"{cls.__name__}_logits_max_abs_err"] = max(
+            _max_err(g.cpu(), w) for g, w in zip(got, want))
+    batches = [(*_padded_tokens(rng, 4, 64, cfg.vocab_size, 17),
+                torch.from_numpy(rng.integers(0, 2, (4,))))
+               for _ in range(4)]
+    runs = {}
+    for where, d in (("cpu", torch.device("cpu")), ("card", dev)):
+        model = BertForSequenceClassification(cfg, device=d, seed=1)
+        runs[where] = (model, *_bert_step(model, 1e-3), d)
+    cpu_model, cpu_opt, cpu_step, _ = runs["cpu"]
+    cpu_step(*batches[0])                               # the moments
+    zero, read = _port_counters()
+    losses, loss_err, rel, worst = {"card": [], "cpu": []}, 0.0, 0.0, ""
+    for batch in batches[1:]:
+        card_model, card_opt = runs["card"][:2]
+        card_model.load_state_dict(cpu_model.state_dict())
+        card_opt.set_state_dict(cpu_opt.state_dict())
+        zero()
+        for where, (_, _, step, d) in runs.items():
+            losses[where].append(float(step(*(t.to(d) for t in batch))))
+        _check_launches(read(), ("mt_adam_kernel",), "bert parity")
+        loss_err = max(loss_err, abs(losses["card"][-1]
+                                     - losses["cpu"][-1]))
+        want = cpu_model.state_dict()
+        rel, worst = max((rel, worst), max(
+            (_rel_err(t.cpu(), want[k]), k)
+            for k, t in card_model.state_dict().items()))
+    report.update({"losses_card": losses["card"], "losses_cpu": losses["cpu"],
+                   "max_loss_diff": loss_err, "params_max_rel_diff": rel,
+                   "worst": worst})
+    card_model.eval()
+    moved = ids.clone()
+    row, length = int(mask.sum(1).argmin()), int(mask.sum(1).min())
+    moved[row, length:] = (moved[row, length:] + 7) % cfg.vocab_size
+    with torch.no_grad():
+        a = card_model.bert(ids.to(dev), attention_mask=mask.to(dev))[1]
+        b = card_model.bert(moved.to(dev), attention_mask=mask.to(dev))[1]
+    report["padding_pooled_max_abs_diff"] = _max_err(a[row], b[row])
+    report["padding_row_length"] = length
+    print(f"[20/{PHASES}] bert parity: fp32 {BERT_SMALL}, batch 4 x 64, "
+          f"padding lengths 17-64: {json.dumps(report)}", flush=True)
+    for cls in ("BertForSequenceClassification", "BertForPretraining"):
+        if not report[f"{cls}_logits_max_abs_err"] <= 1e-4:
+            raise AssertionError(f"bert {cls}: card/CPU logits differ by "
+                                 f"{report[f'{cls}_logits_max_abs_err']}")
+    if not (loss_err <= 1e-4 and rel <= 1e-3):
+        raise AssertionError(f"bert: card/CPU losses differ by {loss_err}, "
+                             f"params by {rel} rel ({worst})")
+    if not report["padding_pooled_max_abs_diff"] <= 1e-5:
+        raise AssertionError("bert: padded tokens reach the pooled output: "
+                             f"{report['padding_pooled_max_abs_diff']}")
+
+
+def dropout_contract(dev, shape=(8, 128, 12, 64), p=0.1):
+    """Phase 20(c): SDPA with ``dropout_p`` on ``shape`` on the card, each
+    draw from a ``torch.Generator`` on the card: the kept share of the
+    ``b * h * s * s`` probabilities within 4 sigma of ``1 - p``; the same
+    seed bit-identical twice, another seed different; ``training=False``
+    equal to ``dropout_p=0`` bit for bit (on random q, k, v)."""
+    from paddle_tpu_torch.nn import functional as PF
+
+    b, s, h, d = shape
+    zeros = torch.zeros(shape, device=dev)
+    # V[k, j] = 1 where j == k mod d: column j sums keys j and j + d
+    v = torch.eye(d, device=dev).repeat(s // d, 1)[None, :, None, :] \
+        .expand(b, s, h, d).contiguous()
+
+    def run(seed, q=zeros, k=zeros, vv=v, **kw):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return PF.scaled_dot_product_attention(q, k, vv, dropout_p=p,
+                                               generator=g, **kw)
+
+    # a kept probability is 1 / (s (1 - p)): each output element counts
+    # the kept ones of its column's keys
+    kept = int(torch.round(run(0).double() * (s * (1.0 - p))).sum())
+    total = b * h * s * s
+    share = kept / total
+    sigma = (p * (1 - p) / total) ** 0.5
+    gen = torch.Generator(device=dev).manual_seed(1)
+    q, k, vr = (torch.randn(shape, device=dev, generator=gen)
+                for _ in range(3))
+    same = torch.equal(run(5, q, k, vr), run(5, q, k, vr))
+    differs = not torch.equal(run(5, q, k, vr), run(6, q, k, vr))
+    off = torch.equal(run(5, q, k, vr, training=False),
+                      PF.scaled_dot_product_attention(q, k, vr))
+    report = {"shape": list(shape), "dropout_p": p, "kept_share": share,
+              "sigma": sigma, "deviation_sigmas": abs(share - (1 - p))
+              / sigma, "same_seed_bit_identical": same,
+              "other_seed_differs": differs,
+              "training_false_equals_p0": off, "nvidia_smi": nvidia_smi()}
+    print(f"[20/{PHASES}] dropout contract on the card: "
+          f"{json.dumps(report)}", flush=True)
+    if not abs(share - (1 - p)) < 4 * sigma:
+        raise AssertionError(f"dropout kept share {share}, want {1 - p} "
+                             f"within 4 sigma ({sigma})")
+    if not (same and differs and off):
+        raise AssertionError(f"dropout determinism: {report}")
+
+
+def bert_full_width(dev, warmup=2, timed=5, batch=32, seq=128):
+    """Phase 20(d): BERT-base fine-tune at full width (``bert_config(
+    "bert-base")``: hidden 768, 12 layers, 12 heads, vocab 30522; 2
+    classes), hidden and attention dropout 0.1, ``amp.decorate(level=
+    "O2")`` in bf16, AdamW(2e-5) with fp32 masters, through ``TrainStep``,
+    ``batch`` x ``seq`` random tokens under padding masks of random
+    lengths 32-``seq`` from seed 0: ``warmup`` + ``timed`` steps. The port's
+    kernel counters are zeroed just before the timed steps and read just
+    after: two ``mt_adam_kernel`` a step (one a dtype group: the bf16
+    weights with their fp32 masters, the LayerNorms' fp32 parameters)
+    and no other kernel of the port's (the attention is the dense path:
+    aten ops, as the reference's XLA). Every loss finite, the first
+    within 0.5 of ln 2 (the head's XavierUniform init gives logits of
+    about unit spread, so the first loss sits above ln 2: ln 2 + var / 8
+    on average), the LayerNorms fp32 after ``decorate``. Returns the
+    launches and the step count."""
+    from paddle_tpu_torch.amp import decorate
+    from paddle_tpu_torch.models import (BertForSequenceClassification,
+                                         bert_config)
+    from paddle_tpu_torch.nn import LayerNorm
+
+    cfg = bert_config("bert-base")
+    before = torch.cuda.memory_allocated()
+    model = BertForSequenceClassification(cfg, num_classes=2, device=dev,
+                                          seed=0)
+    opt, step = _bert_step(model, 2e-5, multi_precision=True)
+    decorate(models=model, optimizers=opt, level="O2")
+    norms = {str(m.weight.dtype) for m in model.modules()
+             if isinstance(m, LayerNorm)}
+    rng = np.random.default_rng(0)
+    ids, mask = _padded_tokens(rng, batch, seq, cfg.vocab_size, 32)
+    labels = torch.from_numpy(rng.integers(0, 2, (batch,)))
+    ids, mask, labels = ids.to(dev), mask.to(dev), labels.to(dev)
+    losses = [float(step(ids, mask, labels)) for _ in range(warmup)]
+    zero, read = _port_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero()
+    times = []
+    for _ in range(timed):
+        t0 = time.perf_counter()
+        loss = step(ids, mask, labels)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    launches = read()
+    peak = torch.cuda.max_memory_allocated()
+    h, layers = cfg.hidden_size, cfg.num_layers
+    encoder = sum(p.numel() for p in model.bert.encoder.parameters())
+    tokens = batch * seq
+    # 6 x the encoder's parameters x every position (the embeddings are
+    # lookups; the pooler and the head see one position a row), plus the
+    # dense attention's two products over the whole [seq, seq] square,
+    # forward and backward: 3 x 2 x 2 x batch x seq^2 x hidden a layer
+    flops = 6.0 * encoder * tokens + 12.0 * layers * batch * seq * seq * h
+    step_s = statistics.median(times)
+    per_step = {k: n / timed for k, n in launches.items() if n}
+    stats = {
+        "model": "bert-base", "hidden": h, "layers": layers,
+        "heads": cfg.num_attention_heads, "vocab": cfg.vocab_size,
+        "classes": 2, "batch": batch, "seq": seq,
+        "padding_lengths": [int(mask.sum(1).min()), int(mask.sum(1).max())],
+        "dropout": [cfg.hidden_dropout_prob, cfg.attention_dropout_prob],
+        "dtype": "bfloat16 via amp.decorate O2 (fp32 masters)",
+        "layer_norm_dtypes": sorted(norms),
+        "optimizer": "AdamW(2e-5, multi_precision)",
+        "attention": "dense (attn_mask, dropout 0.1), as the reference",
+        "params": sum(p.numel() for p in model.parameters()),
+        "encoder_params": encoder, "losses": losses,
+        "step_ms": [t * 1e3 for t in times], "step_ms_median": step_s * 1e3,
+        "samples_per_s": batch / step_s, "tokens_per_s": tokens / step_s,
+        "train_flops_per_step": flops,
+        "mfu": flops / step_s / BF16_FLOP_PER_S,
+        "max_memory_allocated": peak, "memory_allocated_before": before,
+        "launches": {k: n for k, n in launches.items() if n},
+        "launches_per_step": per_step, "nvidia_smi": nvidia_smi(),
+    }
+    print(f"[20/{PHASES}] train bert-base (fine-tune): {json.dumps(stats)}",
+          flush=True)
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite bert loss: {losses}")
+    if not abs(losses[0] - float(np.log(2.0))) < 0.5:
+        raise AssertionError(f"first bert loss {losses[0]} is not near ln 2")
+    if norms != {"torch.float32"}:
+        raise AssertionError(f"decorate cast a LayerNorm: {norms}")
+    if per_step != {"mt_adam_kernel": 2.0}:
+        raise AssertionError(f"bert launches a step {per_step}, want two "
+                             f"mt_adam_kernel (bf16 with masters, fp32) "
+                             f"and nothing else")
+    del model, opt, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"mt_adam_kernel": launches["mt_adam_kernel"]}, timed
+
+
+def _lenet_model(dev, seed):
+    """A LeNet on ``dev`` under ``paddle_tpu_torch.Model``, prepared with
+    Adam(1e-3), CrossEntropyLoss and Accuracy."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.metric import Accuracy
+    from paddle_tpu_torch.nn import CrossEntropyLoss
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.vision.models import LeNet
+
+    net = LeNet(device=dev, seed=seed)
+    model = pt.Model(net)
+    model.prepare(Adam(learning_rate=1e-3, parameters=net.parameters()),
+                  CrossEntropyLoss(), Accuracy())
+    return model
+
+
+def lenet_parity(dev):
+    """Phase 21(a): LeNet through ``Model.train_batch`` on the card and on
+    the CPU, the card loading the CPU's weights and Adam state before each
+    step, the reference's synthetic MNIST
+    in order (``shuffle=False``), batch 64: 3 steps, each from the CPU's
+    state after one CPU step, losses 1e-4 and parameters 1e-3 rel (cuDNN
+    sums in another order); ``mt_adam_kernel`` and no other kernel of the
+    port's."""
+    from paddle_tpu_torch.io import DataLoader
+    from paddle_tpu_torch.vision.datasets import MNIST
+
+    models = {"cpu": _lenet_model(torch.device("cpu"), 0),
+              "card": _lenet_model(dev, 0)}
+    batches = list(DataLoader(MNIST(mode="train"), batch_size=64))[:4]
+    cpu = models["cpu"]
+    cpu.train_batch(*batches[0])                        # the moments
+    zero, read = _port_counters()
+    losses, loss_err, rel = {"card": [], "cpu": []}, 0.0, 0.0
+    for x, y in batches[1:]:
+        card = models["card"]
+        card.network.load_state_dict(cpu.network.state_dict())
+        card._optimizer.set_state_dict(cpu._optimizer.state_dict())
+        zero()
+        for where, m in models.items():
+            (loss,), _ = m.train_batch([x], [y])
+            losses[where].append(loss)
+        _check_launches(read(), ("mt_adam_kernel",), "lenet parity")
+        loss_err = max(loss_err, abs(losses["card"][-1]
+                                     - losses["cpu"][-1]))
+        want = cpu.network.state_dict()
+        rel = max(rel, max(_rel_err(t.cpu(), want[k]) for k, t in
+                           models["card"].network.state_dict().items()))
+    report = {"losses_card": losses["card"], "losses_cpu": losses["cpu"],
+              "max_loss_diff": loss_err, "params_max_rel_diff": rel,
+              "nvidia_smi": nvidia_smi()}
+    print(f"[21/{PHASES}] lenet parity (Model.train_batch, batch 64, "
+          f"synthetic MNIST in order): {json.dumps(report)}", flush=True)
+    if not (loss_err <= 1e-4 and rel <= 1e-3):
+        raise AssertionError(f"lenet: card/CPU losses differ by {loss_err}, "
+                             f"params by {rel} rel")
+
+
+def lenet_full_loop(dev, batch=64):
+    """Phase 21(b): LeNet through ``Model.fit`` (one epoch of the
+    reference's 4096 synthetic MNIST training images, batch 64, verbose
+    0) on the card, without and then with ``prefetch=True``, then
+    ``evaluate`` and ``predict`` over the 4096 test images: every batch's
+    loss finite, ``evaluate``'s ``acc`` equal to a recount from
+    ``predict``'s outputs, and ``save`` -> ``load`` into a fresh model
+    bit for bit. Prints images/s for both fits, the seconds of evaluate
+    and predict, and ``input_pipeline_stats``."""
+    import shutil
+    import tempfile
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.hapi.callbacks import Callback
+    from paddle_tpu_torch.vision.datasets import MNIST
+
+    class Losses(Callback):
+        def __init__(self):
+            super().__init__()
+            self.values = []
+
+        def on_train_batch_end(self, step, logs=None):
+            self.values.append(logs["loss"][0])
+
+    train, test = MNIST(mode="train"), MNIST(mode="test")
+    model = _lenet_model(dev, 0)
+    report = {"train_images": len(train), "test_images": len(test),
+              "batch": batch}
+    for prefetch in (False, True):
+        rec = Losses()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.fit(train, batch_size=batch, epochs=1, verbose=0,
+                  prefetch=prefetch, callbacks=[rec])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        key = "fit_prefetch" if prefetch else "fit"
+        report[key] = {"wall_s": wall, "images_per_s": len(train) / wall,
+                       "steps": len(rec.values),
+                       "first_loss": rec.values[0],
+                       "last_loss": rec.values[-1],
+                       "all_finite": bool(np.isfinite(rec.values).all())}
+    stats = model.input_pipeline_stats
+    report["input_pipeline_stats"] = {k: stats[k] for k in (
+        "depth", "batches", "input_stall_ms", "h2d_ms")}
+    t0 = time.perf_counter()
+    logs = model.evaluate(test, batch_size=batch, verbose=0)
+    report["evaluate_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = model.predict(test, batch_size=batch, stack_outputs=True)[0]
+    report["predict_s"] = time.perf_counter() - t0
+    recount = float((out.argmax(1) == test.labels).mean())
+    report.update({"evaluate": {"loss": logs["loss"][0], "acc": logs["acc"]},
+                   "predict_shape": list(out.shape),
+                   "acc_recount_from_predict": recount})
+    tmp = tempfile.mkdtemp(prefix="lenet_")
+    try:
+        model.save(os.path.join(tmp, "lenet"))
+        again = _lenet_model(dev, 9)
+        again.load(os.path.join(tmp, "lenet"))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    same = all(torch.equal(a, b) for a, b in zip(
+        again.network.state_dict().values(),
+        model.network.state_dict().values()))
+    sa, sb = again._optimizer.state_dict(), model._optimizer.state_dict()
+    same = same and sa["step"] == sb["step"] and all(
+        torch.equal(sa["accumulators"][acc][k], v)
+        for acc, store in sb["accumulators"].items()
+        for k, v in store.items())
+    report["save_load_bit_identical"] = same
+    report["nvidia_smi"] = nvidia_smi()
+    print(f"[21/{PHASES}] lenet through paddle.Model: {json.dumps(report)}",
+          flush=True)
+    if not (report["fit"]["all_finite"]
+            and report["fit_prefetch"]["all_finite"]
+            and np.isfinite(logs["loss"][0])):
+        raise AssertionError(f"lenet: non-finite loss: {report}")
+    if logs["acc"] != recount:
+        raise AssertionError(f"lenet: evaluate's acc {logs['acc']} is not "
+                             f"the recount {recount} from predict")
+    if stats["batches"] != len(train) // batch:
+        raise AssertionError(f"lenet: the prefetcher staged "
+                             f"{stats['batches']} batches")
+    if not same:
+        raise AssertionError("lenet: Model.save/load is not bit-identical")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -4408,6 +4839,11 @@ def main() -> int:
     llama, llama_steps = llama_full_width(dev)
     lane = decode_lane(dev)
     spec = spec_decode(dev)
+    bert_parity(dev)
+    dropout_contract(dev)
+    bert, bert_steps = bert_full_width(dev)
+    lenet_parity(dev)
+    lenet_full_loop(dev)
 
     where = {name: (PAGED_SOURCE, f"{PAGED_TPU}:{line}")
              for name, (_, _, _, line) in PAGED_KERNELS.items()}
@@ -4443,6 +4879,9 @@ def main() -> int:
              **({"launches_llama": llama[name],
                  "launches_llama_per_step": llama[name] / llama_steps}
                 if name in llama else {}),
+             **({"launches_bert": bert[name],
+                 "launches_bert_per_step": bert[name] / bert_steps}
+                if name in bert else {}),
              **({"llama_shapes": llama_ce[name]} if name in llama_ce
                 else {}),
              **({"launches_per_spec_dispatch": spec[name]} if name in spec

@@ -41,12 +41,24 @@ stream. `save` / `load` (``framework.io``) read and write the
 reference's ``paddle.save`` files; ``convert`` maps a model's and an
 optimizer's state between the two packages.
 
+BERT fine-tuning: ``models.bert`` (the reference's post-LN encoder;
+its attention is the dense path of
+``nn.functional.scaled_dot_product_attention`` with the padding mask and
+attention dropout) under ``amp.decorate(level="O2")`` and
+``jit.TrainStep``. The high-level API: ``Model`` (``hapi``: ``fit``,
+``evaluate``, ``predict``, ``save``, ``load``) over ``io.DataLoader``,
+``metric`` and ``vision`` (``LeNet``, synthetic ``MNIST``); `summary`
+and `flops`.
+
 Entry points take ``device=``: the default is the CUDA card, and a
 machine without one raises. ``device="cpu"`` runs the kernels' plain
 PyTorch versions, which is how the tests run.
 """
 
+from . import metric
 from .framework.io import load, save
+from .hapi import Model, flops, summary
 from .utils.flags import get_flags, set_flags
 
-__all__ = ["get_flags", "load", "save", "set_flags"]
+__all__ = ["Model", "flops", "get_flags", "load", "metric", "save",
+           "set_flags", "summary"]

@@ -7,6 +7,8 @@
         [--batch B]
     python -m paddle_tpu_torch.profile_training --llama [--seq S] \
         [--batch B]
+    python -m paddle_tpu_torch.profile_training --bert [--seq S] \
+        [--batch B]
 
 Builds the configuration of ``chip_smoke.py`` phases 9-10 (GPT-3 1.3B
 width, bf16 weights from seed 0, fp32 masters, bf16 AdamW moments,
@@ -76,7 +78,8 @@ import torch
 
 from .jit import FusedScanTrainStep, TrainStep
 from .amp import decorate
-from .models import (GPTForCausalLM, GPTPretrainingCriterion, LlamaForCausalLM,
+from .models import (BertForSequenceClassification, GPTForCausalLM,
+                     GPTPretrainingCriterion, LlamaForCausalLM, bert_config,
                      gpt_config, llama_config)
 from .nn import ClipGradByGlobalNorm, CrossEntropyLoss
 from .optimizer import AdamW, Momentum
@@ -223,9 +226,11 @@ def build_llama(batch=4, seq=2048, seed=0):
 
 def _is_attention(ev, scores):
     """Whether ``ev`` or an operator around it is the dense attention's:
-    a batched product, or an input of ``scores`` elements."""
+    a batched product or an einsum (LLaMA's and BERT's Linear layers
+    multiply with ``aten::mm`` / ``aten::addmm``), or an input of
+    ``scores`` elements."""
     while ev is not None:
-        if "bmm" in ev.name:
+        if "bmm" in ev.name or "einsum" in ev.name:
             return True
         for shape in ev.input_shapes or ():
             if shape and int(np.prod(shape)) == scores:
@@ -285,6 +290,75 @@ def profile_llama(batch, seq, steps):
         "device": torch.cuda.get_device_name(0), "step": "TrainStep",
         "model": "tinyllama-1.1b", "seq": seq, "batch": batch,
         "steps": steps, **on, "numerics_off": off}))
+
+
+def build_bert(batch=32, seq=128, seed=0):
+    """(step, ids, mask, labels) of ``chip_smoke.py`` phase 20's
+    fine-tune step."""
+    model = BertForSequenceClassification(bert_config("bert-base"),
+                                          num_classes=2, seed=seed)
+    opt = AdamW(learning_rate=2e-5, parameters=model.parameters(),
+                multi_precision=True)
+    decorate(models=model, optimizers=opt, level="O2")
+    _annotate(opt)
+    crit = CrossEntropyLoss()
+    step = TrainStep(model, lambda m, i, k, y: crit(m(i, attention_mask=k),
+                                                    y), opt)
+    rng = np.random.default_rng(seed)
+    dev = next(model.parameters()).device
+    ids = rng.integers(0, model.bert.config.vocab_size, (batch, seq))
+    lengths = rng.integers(seq // 4, seq + 1, (batch,))
+    mask = (np.arange(seq)[None] < lengths[:, None]).astype(np.int64)
+    labels = rng.integers(0, 2, (batch,))
+    return step, *(torch.from_numpy(a).to(dev) for a in (ids, mask, labels))
+
+
+def profile_bert(batch, seq, steps):
+    """One JSON line: BERT-base's fine-tune step (phase 20) by column."""
+    step, ids, mask, labels = build_bert(batch, seq)
+    cfg = step.model.bert.config
+    scores = batch * cfg.num_attention_heads * seq * seq
+    kernels, prof, wall = _profile(step, (ids, mask, labels), steps,
+                                   record_shapes=True)
+    busy = sum(us for us, _ in kernels.values()) / 1e6 / steps
+    # the profiler's host cost stretches a short step's wall: the idle
+    # share is taken against the same steps timed without it
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        step(ids, mask, labels)
+    torch.cuda.synchronize()
+    plain_wall = (time.perf_counter() - t0) / steps
+    attention = gemm = 0.0
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CPU:
+            continue
+        for k in ev.kernels:
+            if _is_attention(ev, scores):
+                attention += k.duration
+            elif any(g in k.name.lower() for g in _GEMM):
+                gemm += k.duration
+    fused = sum(us for key, (us, _) in kernels.items()
+                if any(n in key for n in _OPTIMIZER)) / 1e6 / steps
+    optimizer, span = _optimizer_time(prof, steps, fused)
+    cols = {"attention_s_per_step": attention / 1e6 / steps,
+            "gemm_s_per_step": gemm / 1e6 / steps,
+            "optimizer_s_per_step": optimizer}
+    print(json.dumps({
+        "device": torch.cuda.get_device_name(0), "step": "TrainStep",
+        "model": "bert-base", "seq": seq, "batch": batch, "steps": steps,
+        "dtype": "bfloat16 via amp.decorate O2 (fp32 masters)",
+        "dropout": cfg.hidden_dropout_prob,
+        "wall_s_per_step": plain_wall,
+        "wall_s_per_step_profiled": wall / steps,
+        "device_busy_s_per_step": busy,
+        "device_idle_share": 1.0 - busy / plain_wall,
+        "device_idle_share_profiled": 1.0 - busy * steps / wall,
+        "kernels_per_step": sum(n for _, n in kernels.values()) / steps,
+        **cols, "optimizer_span_s_per_step": span,
+        "other_s_per_step": busy - sum(cols.values()),
+        "attention_share_of_busy": cols["attention_s_per_step"] / busy,
+        "top_kernels": _top(kernels)}))
 
 
 def build_resnet(batch=32, seed=0):
@@ -447,6 +521,10 @@ def main(argv=None):
                     help="TinyLlama-1.1B's bf16 O2 step (chip_smoke.py "
                          "phase 16), the numerics monitor on and off; "
                          "--seq defaults to 2048, --batch to 4")
+    ap.add_argument("--bert", action="store_true",
+                    help="BERT-base's bf16 O2 fine-tune step "
+                         "(chip_smoke.py phase 20); --seq defaults to "
+                         "128, --batch to 32")
     ap.add_argument("--fused-scan", action="store_true",
                     help="GPT-3 1.3B through FusedScanTrainStep "
                          "(chip_smoke.py phase 14), the numerics monitor "
@@ -462,6 +540,9 @@ def main(argv=None):
         return
     if args.llama:
         profile_llama(args.batch or 4, args.seq or 2048, args.steps)
+        return
+    if args.bert:
+        profile_bert(args.batch or 32, args.seq or 128, args.steps)
         return
     args.batch, args.seq = args.batch or 8, args.seq or 1024
     step, ids, labels = build(args.batch, args.seq,

@@ -470,18 +470,19 @@ def test_sdpa_routes_by_the_flag(monkeypatch, routing_flags):
 
 
 def test_sdpa_refusals_off_the_cpu(splash_off):
-    """Off the CPU, a mask, active dropout or the dense segment mask raise
-    (ROADMAP A10) rather than run plain attention; the dense attention
-    without them runs there, as the reference runs it on its accelerator
-    (``meta`` tensors stand in for a device); a shape flash takes goes to
-    its wrapper, which has no kernel for ``meta`` tensors."""
+    """Off the CPU, a mask, active dropout and the dense segment mask run
+    the dense attention, as the reference runs its XLA ``_sdpa_ref`` on
+    its accelerator (``meta`` tensors stand in for a device: the output
+    has the query's shape and device); so does the dense attention
+    without them; a shape flash takes goes to its wrapper, which has no
+    kernel for ``meta`` tensors and refuses them."""
     q = torch.zeros(1, 64, 2, 16, device="meta")
     seg = torch.zeros(1, 64, dtype=torch.int32, device="meta")
     for kw in ({"segment_ids": seg}, {"dropout_p": 0.1},
                {"attn_mask": torch.ones(1, 1, 64, 64, dtype=torch.bool,
                                         device="meta")}):
-        with pytest.raises(NotImplementedError, match="A10"):
-            PF.scaled_dot_product_attention(q, q, q, **kw)
+        out = PF.scaled_dot_product_attention(q, q, q, **kw)
+        assert out.device.type == "meta" and out.shape == q.shape, kw
     for s in (40, 64, 1040):
         x = torch.zeros(1, s, 2, 16, device="meta")
         out = PF.scaled_dot_product_attention(x, x, x, is_causal=True)

@@ -186,16 +186,17 @@ def test_attn_mask_with_segment_ids_raises():
 
 
 def test_mask_or_dropout_on_the_card_raises():
-    """Off the CPU, attention with an attn_mask or active dropout raises
-    rather than run plain attention on the main path (``meta`` tensors
-    stand in for a device without a kernel for it)."""
+    """Off the CPU, attention with an attn_mask or active dropout takes
+    the dense path, as the reference's XLA ``_sdpa_ref`` on its
+    accelerator, not splash (``meta`` tensors stand in for a device: the
+    output has the query's shape and device, and no kernel wrapper is
+    reached, which would refuse them)."""
     q = torch.zeros(1, 8, 2, 16, device="meta")
-    with pytest.raises(NotImplementedError, match="no kernel"):
-        PF.scaled_dot_product_attention(q, q, q, dropout_p=0.1)
-    with pytest.raises(NotImplementedError, match="no kernel"):
-        PF.scaled_dot_product_attention(
-            q, q, q, attn_mask=torch.ones(1, 1, 8, 8, dtype=torch.bool,
-                                          device="meta"))
+    for kw in ({"dropout_p": 0.1},
+               {"attn_mask": torch.ones(1, 1, 8, 8, dtype=torch.bool,
+                                        device="meta")}):
+        out = PF.scaled_dot_product_attention(q, q, q, **kw)
+        assert out.device.type == "meta" and out.shape == q.shape, kw
     # dropout outside training is no dropout: at 1024 tokens the splash
     # wrapper takes it, and refuses a device it has no kernel for
     q1k = torch.zeros(1, 1024, 2, 16, device="meta")
