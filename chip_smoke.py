@@ -220,8 +220,9 @@ Phases, one line each (any failure exits non-zero, nothing is caught):
     kernels' launches from phase 17's int8 runs, with every phase-3 row;
     the chunk rows' verify-shape numbers, and each paged kernel's launches
     a serving spec dispatch from phase 18; the optimizer's update also
-    its phase-20 launches, ``launches_bert``), printed after phases 20
-    and 21, whose launches it carries;
+    its phase-20 launches, ``launches_bert``; splash's, the CE's and the
+    optimizer's phase-23(b) launches, ``launches_sharded_scan``),
+    printed after phases 20-23, whose launches it carries;
 20. BERT (masked attention and attention dropout on the card, as aten
     ops: the reference's XLA ``_sdpa_ref``): (a) a small fp32 BERT
     (hidden 64, 2 layers, 4 heads) at 4 x 64 tokens under padding masks
@@ -252,7 +253,34 @@ Phases, one line each (any failure exits non-zero, nothing is caught):
     equal to a recount from ``predict``'s outputs, ``save`` -> ``load``
     bit for bit; images/s of both fits, the seconds of evaluate and
     predict, ``input_pipeline_stats``. Every phase-20 and -21 line holds
-    the ``nvidia-smi`` name and power limit.
+    the ``nvidia-smi`` name and power limit;
+22. the collectives at a world of one over NCCL, through
+    ``init_parallel_env()`` with no environment set (it fails if one
+    is): every collective of ``distributed.collective`` on fp32 and bf16
+    card tensors held to its one-rank meaning bit for bit (p2p as a
+    batched send to oneself and its receive), the compressed all-reduce
+    (int8, bf16) bit for bit its plain twin on the CPU, a store round
+    trip (`sharding_selftest.check_world1`); the NCCL version, the
+    backend, the time of a 256 MiB all-reduce and all-gather;
+23. the sharded training paths: (a) a tiny fp32 scan GPT through
+    ``ShardedFusedScanTrainStep`` on the card and on a gloo group of the
+    same rank, both storages, 3 steps each card step from the CPU's
+    state (losses 1e-4, shards 1e-3 rel); (b) GPT-3 1.3B through it at
+    phase 14's configuration, both storages, 2 + 5 steps: step ms,
+    tokens/s, ``mfu``, peak memory beside phase 14's (monitor off), the
+    storages' losses and parameters bit-identical, every loss finite and
+    the first within 0.5 of ln 50304, launches a step exactly phase
+    14's, the collectives a step and each bucket's bytes; (c) eager
+    stage 2 (``fleet.init`` + ``group_sharded_parallel(level="os_g")``
+    + ``TrainStep``) at 4 layers of GPT-3 1.3B width, phase 9's
+    configuration, losses within 1e-4 of plain ``TrainStep``, a guarded
+    inf step bit-identical; (d) BERT-base with sharding stage 1 through
+    ``fleet.distributed_optimizer`` at phase 20(d)'s configuration: step
+    ms and samples/s beside phase 20(d), two ``mt_adam_kernel`` a step;
+    (e) with two cards or more, ``sharding_selftest`` under
+    ``torch.distributed.run --nproc_per_node 2``; with one, a line that
+    says it did not run. Every phase-22 and -23 line holds the
+    ``nvidia-smi`` name and power limit.
 
 It then prints the ``nvidia-smi`` line again and, last, ``{"ok": true,
 "device": {...}}``. Imports torch, numpy and the port only.
@@ -276,7 +304,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
 BF16_FLOP_PER_S = 989e12        # dense bf16 tensor-core peak
 FP32_FLOP_PER_S = 67e12         # fp32 outside the tensor cores
-PHASES = 21
+PHASES = 23
 
 
 def nvidia_smi() -> str:
@@ -2988,6 +3016,7 @@ def fused_scan_full_width(dev, warmup=2, timed=5, batch=8, seq=1024):
     }
     print(f"[14/{PHASES}] train gpt3-1.3b FusedScanTrainStep: "
           f"{json.dumps(stats)}", flush=True)
+    _PHASE_STATS["fused_scan"] = stats
     for name, r in runs.items():
         if not all(np.isfinite(r["losses"])):
             raise AssertionError(f"non-finite fused-scan loss ({name}): "
@@ -4595,6 +4624,7 @@ def bert_full_width(dev, warmup=2, timed=5, batch=32, seq=128):
     }
     print(f"[20/{PHASES}] train bert-base (fine-tune): {json.dumps(stats)}",
           flush=True)
+    _PHASE_STATS["bert"] = stats
     if not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite bert loss: {losses}")
     if not abs(losses[0] - float(np.log(2.0))) < 0.5:
@@ -4757,6 +4787,451 @@ def lenet_full_loop(dev, batch=64):
         raise AssertionError("lenet: Model.save/load is not bit-identical")
 
 
+# ---------------------------------------------------------------------------
+# phases 22-23: the dp and sharding axes over torch.distributed
+# ---------------------------------------------------------------------------
+
+# the reference's GPT-3 1.3B vocab: a random model's first loss sits at
+# ln(vocab)
+GPT_VOCAB = 50304
+# phase 20(d)'s and phase 14's stats, for phase 23's side-by-side lines
+_PHASE_STATS = {}
+
+
+def _nccl_version():
+    v = torch.cuda.nccl.version()
+    if isinstance(v, int):
+        v = (v // 10000, v // 100 % 100, v % 100) if v >= 10000 else \
+            (v // 1000, v // 100 % 10, v % 100)
+    return ".".join(str(x) for x in v)
+
+
+def collectives_world1(dev):
+    """Phase 22: a world of one rank over NCCL through
+    ``init_parallel_env()`` with no environment set; every collective on
+    fp32 and bf16 card tensors held to its one-rank meaning, the
+    compressed all-reduce (int8, bf16) bit for bit its plain twin on the
+    CPU, a store round trip (`sharding_selftest.check_world1`); then the
+    time of a 256 MiB all-reduce and all-gather (a world of one: NCCL's
+    copy, the floor of a collective here)."""
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.distributed import env
+    from paddle_tpu_torch.distributed.sharding_selftest import check_world1
+
+    for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT",
+              "PADDLE_TRAINER_ID", "PADDLE_TRAINERS_NUM", "PADDLE_MASTER"):
+        if os.environ.get(k):
+            raise AssertionError(f"phase 22 needs no world in the "
+                                 f"environment; {k} is set")
+    t0 = time.perf_counter()
+    got = env.init_parallel_env(timeout=120)
+    init_s = time.perf_counter() - t0
+    if env.get_backend() != "nccl" or got != dev:
+        raise AssertionError(f"init_parallel_env: {env.get_backend()} on "
+                             f"{got}, want nccl on {dev}")
+    res = check_world1(dev)
+    x = torch.randn(64 << 20, device=dev)
+    out = torch.empty_like(x)
+    times = {}
+    for name, fn in (("all_reduce", lambda: C.all_reduce(x)),
+                     ("all_gather_into", lambda: C.all_gather_into(out, x))):
+        fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(10):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times[name] = start.elapsed_time(end) / 10
+    del x, out
+    print(f"[22/{PHASES}] collectives at world 1: backend "
+          f"{env.get_backend()}, NCCL {_nccl_version()}, init "
+          f"{init_s:.2f} s; {len(res)} checks ok "
+          f"({', '.join(sorted(res))}); 256 MiB fp32 ms: "
+          f"{json.dumps(times)}; {nvidia_smi()}", flush=True)
+
+
+def _copy_sharded_state(dst, src):
+    """``src``'s shards, moments, masters and step count into ``dst`` (two
+    `ShardedFusedScanTrainStep` of one layout; their devices may
+    differ)."""
+    with torch.no_grad():
+        for a, b in zip(dst._s_p + dst._o_p, src._s_p + src._o_p):
+            a.copy_(b)
+        for sa, sb in zip(dst._s_state + dst._o_state,
+                          src._s_state + src._o_state):
+            for a, b in zip(sa, sb):
+                if a is not None:
+                    a.copy_(b)
+    dst._opt._step_count = src._opt._step_count
+
+
+def sharded_scan_parity(dev):
+    """Phase 23(a): a tiny fp32 scan GPT (2 layers, hidden 64) through
+    ``ShardedFusedScanTrainStep`` on the card (the NCCL world of one) and
+    on the CPU (a gloo group of the same rank), both storages, AdamW with
+    the global-norm clip and the guard, the fused head: 3 steps, each
+    card step from the CPU step's state before it (the shards, moments
+    and step count copied). Bars, PERF.md §2's card-against-CPU: losses
+    1e-4, the updated shards 1e-3 relative."""
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.jit import ShardedFusedScanTrainStep
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+
+    seq = 64
+    cfg = GPTConfig(vocab_size=128, hidden_size=64, num_layers=2,
+                    num_attention_heads=4, max_position_embeddings=seq,
+                    scan_layers=True)
+    rng = np.random.default_rng(3)
+    cpu = GPTForCausalLM(cfg, device="cpu")
+    sd = {name: torch.from_numpy(
+              (rng.standard_normal(tuple(t.shape)) * 0.3).astype(np.float32))
+          for name, t in cpu.state_dict().items()}
+    ids = rng.integers(0, 128, (4, seq))
+    labels = rng.integers(0, 128, (4, seq))
+    cpu_group = C.new_group(ranks=[0], backend="gloo")
+    out = {}
+    for storage in ("replicated", "sharded"):
+        steps = {}
+        for where, d, group in (("card", dev, None),
+                                ("cpu", torch.device("cpu"), cpu_group)):
+            model = GPTForCausalLM(cfg, device=d)
+            model.load_state_dict(sd)
+            opt = AdamW(learning_rate=1e-3, parameters=model.parameters(),
+                        grad_clip=ClipGradByGlobalNorm(1.0))
+            steps[where] = (ShardedFusedScanTrainStep(
+                model, opt, fused_head=True, param_storage=storage,
+                guard_nonfinite=True, numerics=False, group=group),
+                [torch.from_numpy(a).to(d) for a in (ids, labels)])
+        losses, errs = [], []
+        for k in range(3):
+            (card, cb), (cpu_, pb) = steps["card"], steps["cpu"]
+            if k:
+                _copy_sharded_state(card, cpu_)
+            lc, lp = float(card(*cb)), float(cpu_(*pb))
+            losses.append((lc, lp))
+            errs.append((abs(lc - lp), max(
+                _rel_err(a.cpu(), b) for a, b in
+                zip(card._s_p + card._o_p, cpu_._s_p + cpu_._o_p))))
+        out[storage] = {"losses_card_cpu": losses,
+                        "max_loss_diff": max(e[0] for e in errs),
+                        "max_shard_rel": max(e[1] for e in errs),
+                        "collectives_per_step":
+                            steps["card"][0].collectives_per_step}
+    print(f"[23/{PHASES}] (a) sharded scan card against CPU (tiny fp32 scan "
+          f"GPT, 3 steps each from the CPU's state): {json.dumps(out)}; "
+          f"{nvidia_smi()}", flush=True)
+    for storage, r in out.items():
+        if not (r["max_loss_diff"] <= 1e-4 and r["max_shard_rel"] <= 1e-3):
+            raise AssertionError(f"sharded scan ({storage}) card/CPU: {r}")
+
+
+def sharded_full_width(dev, warmup=2, timed=5, batch=8, seq=1024):
+    """Phase 23(b): GPT-3 1.3B (``gpt_config("gpt3-1.3b",
+    scan_layers=True)``, not cut) through ``ShardedFusedScanTrainStep``
+    at phase 14's configuration and batch (fp32 parameters, bf16 compute
+    and moments, AdamW(1e-4), no clip, the fused head, one layer a chunk,
+    the numerics monitor off) over the NCCL world of one, with each
+    storage: ``warmup`` + ``timed`` steps. Step ms, tokens/s, ``mfu``,
+    peak memory beside phase 14's ``FusedScanTrainStep`` (monitor off);
+    the two storages' losses and parameters bit-identical; every loss
+    finite, the first within 0.5 of ln 50304; the training kernels'
+    launches a step (counters zeroed just before the timed steps, read
+    just after) exactly phase 14's; the collectives a step with each
+    bucket's bytes. Returns the replicated run's launches and steps."""
+    from paddle_tpu_torch.jit import ShardedFusedScanTrainStep
+    from paddle_tpu_torch.models import (GPTForCausalLM,
+                                         GPTPretrainingCriterion, gpt_config)
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = gpt_config("gpt3-1.3b", max_position_embeddings=seq,
+                     hidden_dropout_prob=0.0, attention_dropout_prob=0.0,
+                     scan_layers=True)
+    rng = np.random.default_rng(0)
+    ids = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                        (batch, seq))).to(dev)
+    labels = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                           (batch, seq))).to(dev)
+    tokens = batch * seq
+    attn = 6 * 2.0 * batch * seq * (seq + 1) / 2 * cfg.hidden_size \
+        * cfg.num_layers
+    counters = _TrainCounters()
+    runs, kept = {}, None
+    for storage in ("replicated", "sharded"):
+        before = torch.cuda.memory_allocated()
+        model = GPTForCausalLM(cfg, device=dev, dtype=torch.float32, seed=0)
+        params = sum(p.numel() for p in model.parameters())
+        opt = AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                    moment_dtype="bfloat16")
+        step = ShardedFusedScanTrainStep(
+            model, opt, criterion=GPTPretrainingCriterion(),
+            fused_head=True, compute_dtype="bfloat16", layer_chunk=1,
+            param_storage=storage, numerics=False)
+        losses = [float(step(ids, labels)) for _ in range(warmup)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        counters.zero()
+        times = []
+        for _ in range(timed):
+            t0 = time.perf_counter()
+            loss = step(ids, labels)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(float(loss))
+        launches = counters.read()
+        step_s = statistics.median(times)
+        coll = dict(step.collectives_per_step)
+        runs[storage] = {
+            "losses": losses, "step_ms": [t * 1e3 for t in times],
+            "step_ms_median": step_s * 1e3,
+            "tokens_per_s": tokens / step_s,
+            "mfu": (6.0 * params * tokens + attn) / step_s
+            / BF16_FLOP_PER_S,
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "memory_allocated_before": before,
+            "launches_per_step": {k: n / timed for k, n in launches.items()
+                                  if n},
+            "collectives_per_step": coll,
+            "buckets": len(step._s_assign.buckets) + len(
+                step._o_assign.buckets)}
+        if storage == "replicated":
+            runs[storage]["bucket_bytes"] = {
+                "stack_per_layer": [b.nbytes for b in step._s_assign.buckets],
+                "outer": [b.nbytes for b in step._o_assign.buckets]}
+            kept_launches = launches
+            del step, opt
+            kept = model                # its parameters, for the parity
+        else:
+            named = dict(kept.named_parameters())
+            same = all(torch.equal(p.detach(), named[n].detach())
+                       for n, p in model.named_parameters())
+            runs["bit_identical_parameters"] = bool(same)
+            del step, opt, model, kept, named
+        gc.collect()
+        torch.cuda.empty_cache()
+    rep, shd = runs["replicated"], runs["sharded"]
+    fused = _PHASE_STATS.get("fused_scan", {}).get("numerics_off", {})
+    stats = {
+        "model": "gpt3-1.3b", "step": "ShardedFusedScanTrainStep",
+        "world": 1, "backend": "nccl", "layers": cfg.num_layers,
+        "hidden": cfg.hidden_size, "seq": seq, "batch": batch,
+        "dtype": "float32 parameters, bf16 compute and moments",
+        "params": params, "replicated": rep, "sharded": shd,
+        "bit_identical_losses": rep["losses"] == shd["losses"],
+        "bit_identical_parameters": runs["bit_identical_parameters"],
+        "phase14_fused_scan_step_ms_median": fused.get("step_ms_median"),
+        "phase14_fused_scan_tokens_per_s": fused.get("tokens_per_s"),
+        "phase14_fused_scan_max_memory_allocated":
+            fused.get("max_memory_allocated"),
+        "nvidia_smi": nvidia_smi()}
+    print(f"[23/{PHASES}] (b) train gpt3-1.3b ShardedFusedScanTrainStep: "
+          f"{json.dumps(stats)}", flush=True)
+    for name in ("replicated", "sharded"):
+        r = runs[name]
+        if not all(np.isfinite(r["losses"])):
+            raise AssertionError(f"non-finite sharded loss ({name})")
+        if not abs(r["losses"][0] - float(np.log(GPT_VOCAB))) < 0.5:
+            raise AssertionError(f"first sharded loss {r['losses'][0]} is "
+                                 f"not near ln {GPT_VOCAB}")
+        if r["launches_per_step"] != FUSED_SCAN_LAUNCHES:
+            raise AssertionError(f"sharded launches a step ({name}): "
+                                 f"{r['launches_per_step']}, expected "
+                                 f"{FUSED_SCAN_LAUNCHES}")
+    if not (stats["bit_identical_losses"]
+            and stats["bit_identical_parameters"]):
+        raise AssertionError("the two storages differ")
+    return ({k: n for k, n in kept_launches.items() if n}, timed)
+
+
+def stage2_eager(dev, steps=3, layers=4, batch=8, seq=1024):
+    """Phase 23(c): sharding stage 2 through ``fleet.init`` +
+    ``group_sharded_parallel(level="os_g")`` + ``TrainStep`` at phase 9's
+    configuration (bf16 weights, fp32 masters, bf16 moments, AdamW(1e-4),
+    global-norm clip 1.0, recompute, splash) at ``layers`` layers of
+    GPT-3 1.3B width, beside the plain ``TrainStep`` at the same depth
+    on the same batch: losses within 1e-4; then a step with an inf in the
+    embedding row of a batch token under the guard: parameters, master
+    and moment shards and the step count bit-identical."""
+    from paddle_tpu_torch.distributed.fleet import DistributedStrategy, fleet
+    from paddle_tpu_torch.distributed.sharding import group_sharded_parallel
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import GPTForCausalLM, gpt_config
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = gpt_config("gpt3-1.3b", use_recompute=True, num_layers=layers,
+                     max_position_embeddings=seq)
+    rng = np.random.default_rng(0)
+    ids = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                        (batch, seq))).to(dev)
+    labels = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                           (batch, seq))).to(dev)
+    fleet.init(is_collective=True, strategy=DistributedStrategy())
+    out = {}
+    for kind in ("plain", "stage2"):
+        model = GPTForCausalLM(cfg, device=dev, dtype=torch.bfloat16, seed=0)
+        opt = AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                    multi_precision=True, moment_dtype="bfloat16",
+                    grad_clip=ClipGradByGlobalNorm(1.0))
+        wrapped = model
+        if kind == "stage2":
+            wrapped, opt, _ = group_sharded_parallel(model, opt, "os_g")
+        step = TrainStep(wrapped, lambda m, x, y: m.loss(x, y), opt,
+                         guard_nonfinite=True, numerics=False)
+        torch.manual_seed(1234)         # the same dropout masks in both
+        times, losses = [], []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            losses.append(float(step(ids, labels)))
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[kind] = {"losses": losses, "step_ms": times}
+        if kind == "stage2":
+            def state():
+                ts = [p.detach().clone() for p in model.parameters()]
+                for st in opt._state:
+                    ts += [t.clone() for t in st if t is not None]
+                return ts, opt._step_count
+            before, count = state()
+            wte = model.gpt.wte.weight
+            row = int(ids[0, 0])
+            held = wte.detach()[row].clone()
+            with torch.no_grad():
+                wte[row] = float("inf")
+            bad = float(step(ids, labels))
+            with torch.no_grad():
+                wte[row] = held
+            after, count_after = state()
+            out[kind]["inf_loss"] = bad
+            out[kind]["skip_bit_identical"] = bool(
+                count_after == count and all(
+                    torch.equal(a, b) for a, b in zip(after, before)))
+            out[kind]["shard_numels"] = [
+                [t.numel() for t in st if t is not None]
+                for st in opt._state]
+        del step, opt, wrapped, model
+        gc.collect()
+        torch.cuda.empty_cache()
+    diff = max(abs(a - b) for a, b in zip(out["plain"]["losses"],
+                                          out["stage2"]["losses"]))
+    print(f"[23/{PHASES}] (c) eager stage 2 (fleet.init + "
+          f"group_sharded_parallel os_g + TrainStep, {layers} layers of "
+          f"gpt3-1.3b width, {batch} x {seq}): {json.dumps(out)}; max "
+          f"loss diff {diff:.3g}; {nvidia_smi()}", flush=True)
+    if not diff <= 1e-4:
+        raise AssertionError(f"stage 2 losses differ from plain by {diff}")
+    if not (not np.isfinite(out["stage2"]["inf_loss"])
+            and out["stage2"]["skip_bit_identical"]):
+        raise AssertionError(f"stage 2 guard: {out['stage2']}")
+
+
+def bert_stage1(dev, warmup=2, timed=5, batch=32, seq=128):
+    """Phase 23(d): BERT-base at phase 20(d)'s configuration with sharding
+    stage 1 through ``fleet.distributed_optimizer`` (``strategy.sharding``
+    at a world of one): step ms and samples/s beside phase 20(d); two
+    ``mt_adam_kernel`` a step and no other kernel of the port's; losses
+    finite, the first within 0.5 of ln 2."""
+    from paddle_tpu_torch.amp import decorate
+    from paddle_tpu_torch.distributed.fleet import DistributedStrategy, fleet
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import (BertForSequenceClassification,
+                                         bert_config)
+    from paddle_tpu_torch.nn import CrossEntropyLoss
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = bert_config("bert-base")
+    model = BertForSequenceClassification(cfg, num_classes=2, device=dev,
+                                          seed=0)
+    opt = AdamW(learning_rate=2e-5, parameters=model.parameters(),
+                multi_precision=True)
+    decorate(models=model, optimizers=opt, level="O2")
+    strategy = DistributedStrategy()
+    strategy.sharding = True
+    fleet.init(is_collective=True, strategy=strategy)
+    dopt = fleet.distributed_optimizer(opt)
+    crit = CrossEntropyLoss()
+    step = TrainStep(fleet.distributed_model(model), lambda m, i, k, y: crit(
+        m(i, attention_mask=k), y), dopt)
+    rng = np.random.default_rng(0)
+    ids, mask = _padded_tokens(rng, batch, seq, cfg.vocab_size, 32)
+    labels = torch.from_numpy(rng.integers(0, 2, (batch,)))
+    ids, mask, labels = ids.to(dev), mask.to(dev), labels.to(dev)
+    losses = [float(step(ids, mask, labels)) for _ in range(warmup)]
+    zero, read = _port_counters()
+    torch.cuda.synchronize()
+    zero()
+    times = []
+    for _ in range(timed):
+        t0 = time.perf_counter()
+        loss = step(ids, mask, labels)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    launches = read()
+    step_s = statistics.median(times)
+    per_step = {k: n / timed for k, n in launches.items() if n}
+    ref = _PHASE_STATS.get("bert", {})
+    stats = {"model": "bert-base", "sharding": "stage 1 (world 1, NCCL)",
+             "optimizer": type(dopt._inner_opt).__name__,
+             "losses": losses, "step_ms": [t * 1e3 for t in times],
+             "step_ms_median": step_s * 1e3,
+             "samples_per_s": batch / step_s,
+             "phase20d_step_ms_median": ref.get("step_ms_median"),
+             "phase20d_samples_per_s": ref.get("samples_per_s"),
+             "launches_per_step": per_step,
+             "buckets": len(dopt._inner_opt._bucketer.assignment.buckets),
+             "nvidia_smi": nvidia_smi()}
+    print(f"[23/{PHASES}] (d) train bert-base with sharding stage 1: "
+          f"{json.dumps(stats)}", flush=True)
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite bert loss: {losses}")
+    if not abs(losses[0] - float(np.log(2.0))) < 0.5:
+        raise AssertionError(f"first bert loss {losses[0]} is not near ln 2")
+    if per_step != {"mt_adam_kernel": 2.0}:
+        raise AssertionError(f"bert stage 1 launches a step {per_step}")
+    del model, opt, dopt, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def multi_rank(dev):
+    """Phase 23(e): with two cards or more, `sharding_selftest` under
+    ``torch.distributed.run --nproc_per_node 2`` (stage 2 and the sharded
+    scan over the world against world 1); with one, says so."""
+    if torch.cuda.device_count() < 2:
+        print(f"[23/{PHASES}] (e) multi-rank on the card: not run (1 card)",
+              flush=True)
+        return
+    got = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node",
+         "2", "-m", "paddle_tpu_torch.distributed.sharding_selftest"],
+        capture_output=True, text=True, timeout=600,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    if got.returncode:
+        raise AssertionError(f"multi-rank selftest failed:\n"
+                             f"{got.stdout[-3000:]}\n{got.stderr[-3000:]}")
+    print(f"[23/{PHASES}] (e) multi-rank on the card (2 ranks, NCCL): "
+          f"{got.stdout.strip().splitlines()[-1]}; {nvidia_smi()}",
+          flush=True)
+
+
+def sharded_training(dev):
+    """Phase 23 (a)-(e), then the world is left (the process group
+    destroyed); returns phase 23(b)'s launches and steps."""
+    from paddle_tpu_torch.distributed import env
+
+    sharded_scan_parity(dev)
+    launches = sharded_full_width(dev)
+    stage2_eager(dev)
+    bert_stage1(dev)
+    multi_rank(dev)
+    env.reset()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -4844,6 +5319,8 @@ def main() -> int:
     bert, bert_steps = bert_full_width(dev)
     lenet_parity(dev)
     lenet_full_loop(dev)
+    collectives_world1(dev)
+    sharded, sharded_steps = sharded_training(dev)
 
     where = {name: (PAGED_SOURCE, f"{PAGED_TPU}:{line}")
              for name, (_, _, _, line) in PAGED_KERNELS.items()}
@@ -4882,6 +5359,10 @@ def main() -> int:
              **({"launches_bert": bert[name],
                  "launches_bert_per_step": bert[name] / bert_steps}
                 if name in bert else {}),
+             **({"launches_sharded_scan": sharded[name],
+                 "launches_sharded_scan_per_step":
+                     sharded[name] / sharded_steps}
+                if name in sharded else {}),
              **({"llama_shapes": llama_ce[name]} if name in llama_ce
                 else {}),
              **({"launches_per_spec_dispatch": spec[name]} if name in spec

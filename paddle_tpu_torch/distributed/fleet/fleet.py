@@ -1,0 +1,152 @@
+"""Fleet: the port of paddle_tpu/distributed/fleet/fleet.py.
+
+`init` joins the world (`env.init_parallel_env`) if it has not been
+joined, builds the rank grid from ``strategy.hybrid_configs`` (a -1
+degree takes the rest of the world) and its groups (`topology.
+HybridCommunicateGroup`). `distributed_model` wraps by the active axes as
+the reference does (model.py:134-162): a sharding degree above 1 gives
+`meta_parallel.ShardingParallel`, a dp degree above 1 `DataParallel`.
+`distributed_optimizer` gives `HybridParallelOptimizer`, which shards
+the optimizer state over the data axes when the sharding degree is
+above 1. An mp, pp or sep degree above 1 raises, naming ROADMAP A9b.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from .. import collective
+from .. import env
+from .topology import (CommunicateTopology, HybridCommunicateGroup,
+                       set_hybrid_communicate_group)
+
+__all__ = ["DistributedStrategy", "Fleet", "distributed_model",
+           "distributed_optimizer", "fleet", "init"]
+
+
+class DistributedStrategy:
+    """Reference distributed_strategy.py:175: the knobs, with the
+    reference's defaults."""
+
+    def __init__(self):
+        self.hybrid_configs = {
+            "dp_degree": 1, "mp_degree": 1, "pp_degree": 1,
+            "sharding_degree": 1, "sep_degree": 1, "mp_configs": {},
+            "pp_configs": {}, "sharding_configs": {},
+        }
+        self.amp = False
+        self.amp_configs = {}
+        self.recompute = False
+        self.recompute_configs = {}
+        self.sharding = False
+        self.sharding_configs = {}
+        self.pipeline = False
+        self.pipeline_configs = {"accumulate_steps": 1}
+        self.gradient_merge = False
+        self.gradient_merge_configs = {}
+        self.find_unused_parameters = False
+        self.tensor_parallel = False
+        self.tensor_parallel_configs = {}
+
+    def __repr__(self):
+        return f"DistributedStrategy(hybrid={self.hybrid_configs})"
+
+
+class Fleet:
+    def __init__(self):
+        self._strategy = None
+        self._hcg = None
+
+    def init(self, role_maker=None, is_collective=True, strategy=None,
+             log_level=None, backend=None, device=None):
+        """Reference fleet.py:166; ``backend`` / ``device`` go to
+        `env.init_parallel_env` (gloo on the CPU on request)."""
+        env.init_parallel_env(backend=backend, device=device)
+        self._strategy = strategy or DistributedStrategy()
+        hc = self._strategy.hybrid_configs
+        dims = [int(hc.get(k, 1)) for k in ("pp_degree", "dp_degree",
+                                            "sharding_degree", "sep_degree",
+                                            "mp_degree")]
+        known = int(np.prod([d for d in dims if d > 0]))
+        dims = [env.get_world_size() // known if d == -1 else d
+                for d in dims]
+        if int(np.prod(dims)) == 1 and env.get_world_size() > 1:
+            dims[1] = env.get_world_size()      # all degrees 1: pure dp
+        self._hcg = HybridCommunicateGroup(CommunicateTopology(dims=dims))
+        set_hybrid_communicate_group(self._hcg)
+        return self
+
+    @property
+    def worker_num(self):
+        return env.get_world_size()
+
+    def worker_index(self):
+        return env.get_rank()
+
+    def is_first_worker(self):
+        return env.get_rank() == 0
+
+    def get_hybrid_communicate_group(self):
+        return self._hcg
+
+    def distributed_model(self, model):
+        """Reference model.py:32: wrap by the active axes."""
+        if self._hcg is None:
+            self.init()
+        hcg = self._hcg
+        from ..parallel import DataParallel
+        from .meta_parallel import ShardingParallel
+
+        if hcg.get_sharding_parallel_world_size() > 1:
+            return ShardingParallel(model, hcg, strategy=self._strategy)
+        if hcg.get_data_parallel_world_size() > 1:
+            return DataParallel(model, group=hcg.get_data_parallel_group())
+        return model
+
+    def distributed_optimizer(self, optimizer, strategy=None):
+        """Reference fleet.py:1325: a `HybridParallelOptimizer`."""
+        if self._hcg is None:
+            self.init()
+        from .meta_optimizers import HybridParallelOptimizer
+
+        return HybridParallelOptimizer(optimizer, self._hcg,
+                                       strategy or self._strategy)
+
+    def barrier_worker(self):
+        collective.barrier()
+
+    def stop_worker(self):
+        pass
+
+
+fleet = Fleet()
+
+
+def init(role_maker=None, is_collective=True, strategy=None, log_level=None,
+         backend=None, device=None):
+    return fleet.init(role_maker, is_collective, strategy, log_level,
+                      backend=backend, device=device)
+
+
+def distributed_model(model):
+    return fleet.distributed_model(model)
+
+
+def distributed_optimizer(optimizer, strategy=None):
+    return fleet.distributed_optimizer(optimizer, strategy)
+
+
+def worker_num():
+    return fleet.worker_num
+
+
+def worker_index():
+    return fleet.worker_index()
+
+
+def is_first_worker():
+    return fleet.is_first_worker()
+
+
+def barrier_worker():
+    fleet.barrier_worker()
+

@@ -1,0 +1,63 @@
+"""Gradient and parameter sync helpers: the port of paddle_tpu/
+distributed/fleet/utils/hybrid_parallel_util.py (:1-59).
+
+`fused_allreduce_gradients` averages the parameters' grads over the
+data-parallel group with one bucketed all-reduce a bucket (a rank's
+grads are partial in the port, as in the reference's per-rank
+processes). The broadcasts send group rank 0's parameters (and buffers)
+to the group, so ranks start equal; the mp and sep ones have degree 1
+here (ROADMAP A9b) and do nothing.
+"""
+from __future__ import annotations
+
+import torch
+
+from ...collective import ReduceOp, all_reduce, broadcast  # noqa: F401
+from ...comm_bucketer import bucketed_all_reduce
+
+__all__ = ["broadcast_dp_parameters", "broadcast_input_data",
+           "broadcast_mp_parameters", "broadcast_sep_parameters",
+           "broadcast_sharding_parameters", "fused_allreduce_gradients"]
+
+
+@torch.no_grad()
+def fused_allreduce_gradients(parameter_list, hcg=None, group=None):
+    """The grads' mean over ``group`` (default: hcg's data-parallel
+    group), in place."""
+    from ...parallel import data_group
+
+    group = group or (hcg.get_data_parallel_group() if hcg is not None
+                      else data_group())
+    grads = [p.grad for p in parameter_list
+             if getattr(p, "grad", None) is not None]
+    if not grads or group.nranks == 1:
+        return
+    bucketed_all_reduce(grads, group=group)
+    for g in grads:
+        g.mul_(1.0 / group.nranks)
+
+
+def _broadcast(model, group):
+    from ...parallel import broadcast_module
+
+    broadcast_module(model, group)
+
+
+def broadcast_dp_parameters(model, hcg):
+    _broadcast(model, hcg.get_data_parallel_group())
+
+
+def broadcast_sharding_parameters(model, hcg):
+    _broadcast(model, hcg.get_sharding_parallel_group())
+
+
+def broadcast_mp_parameters(model, hcg):
+    return None
+
+
+def broadcast_sep_parameters(model, hcg):
+    return None
+
+
+def broadcast_input_data(hcg, *inputs, **kwargs):
+    return inputs if not kwargs else (inputs, kwargs)

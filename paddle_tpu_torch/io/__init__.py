@@ -9,9 +9,12 @@ The collate functions stack samples into CPU torch tensors
 batch to the card is the consumer's (`hapi.Model`) or a
 `DevicePrefetcher`'s.
 
-Not ported yet: the loader's worker processes and their shared-memory
-ring (``num_workers > 0``: ROADMAP queue A10b) and
-``DistributedBatchSampler`` (A9); both raise.
+`DistributedBatchSampler` gives a data-parallel rank its share of the
+index space, split as the reference splits it (padded to a multiple of
+the ranks by repeating the head, rank r taking every ranks-th index from
+r; shuffled by ``np.random.RandomState(epoch)``). Not ported yet: the
+loader's worker processes and their shared-memory ring (``num_workers >
+0``: ROADMAP queue A10b), which raise.
 """
 from __future__ import annotations
 
@@ -241,11 +244,51 @@ class BatchSampler(Sampler):
 
 
 class DistributedBatchSampler(BatchSampler):
+    """Reference io/__init__.py:219: the dataset's indices sharded over
+    ``num_replicas`` ranks (default: the world's size and this process's
+    rank, `distributed.env`)."""
+
     def __init__(self, dataset, batch_size, num_replicas=None, rank=None,
                  shuffle=False, drop_last=False):
-        raise NotImplementedError(
-            "DistributedBatchSampler (the index space sharded over data-"
-            "parallel ranks) is not ported yet: ROADMAP queue A9")
+        from ..distributed import env
+
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.drop_last = drop_last
+        self.nranks = (env.get_world_size() if num_replicas is None
+                       else int(num_replicas))
+        self.local_rank = env.get_rank() if rank is None else int(rank)
+        self.epoch = 0
+        n = len(dataset)
+        self.num_samples = int(np.ceil(n / self.nranks))
+        self.total_size = self.num_samples * self.nranks
+
+    def __iter__(self):
+        n = len(self.dataset)
+        if self.shuffle:
+            indices = np.random.RandomState(self.epoch).permutation(n) \
+                .tolist()
+        else:
+            indices = list(range(n))
+        indices += indices[:(self.total_size - n)]
+        indices = indices[self.local_rank:self.total_size:self.nranks]
+        batch = []
+        for idx in indices:
+            batch.append(idx)
+            if len(batch) == self.batch_size:
+                yield batch
+                batch = []
+        if batch and not self.drop_last:
+            yield batch
+
+    def __len__(self):
+        if self.drop_last:
+            return self.num_samples // self.batch_size
+        return (self.num_samples + self.batch_size - 1) // self.batch_size
+
+    def set_epoch(self, epoch):
+        self.epoch = epoch
 
 
 def numpy_collate_fn(batch):

@@ -22,8 +22,12 @@ them on the device ahead of the consumer:
 On the CPU the same class runs without streams: the stage is a copy.
 `get_stats` returns the reference's keys (``input_stall_ms``: how long
 ``next()`` waited for data, about 0 when the pipeline keeps up;
-``h2d_ms``). Sharded staging (``sharding``, ``mesh``, ``axis``,
-``process_local``) raises until ROADMAP queue A9 ports it.
+``h2d_ms``). ``process_local=True`` is the data-parallel form: the
+loader yields only this rank's rows (a `DistributedBatchSampler`
+loader) and each rank stages its own batches on its own device (default
+the rank's, `distributed.env.get_device`, once the world is joined).
+Staging one global batch across a mesh (``sharding``, ``mesh``,
+``axis``) raises until ROADMAP A9b ports it.
 
     for x, y in DevicePrefetcher(batches(), depth=2):
         loss = step(x, y)
@@ -130,11 +134,16 @@ class DevicePrefetcher:
                  stats_window=4096):
         if depth < 1:
             raise ValueError(f"depth must be >= 1, got {depth}")
-        if sharding is not None or mesh is not None or axis is not None \
-                or process_local:
+        if sharding is not None or mesh is not None or axis is not None:
             raise NotImplementedError(
-                "DevicePrefetcher(sharding=/mesh=/axis=/process_local=) is "
-                "not ported yet: ROADMAP queue A9 (multi-device)")
+                "DevicePrefetcher(sharding=/mesh=/axis=) is not ported "
+                "yet: ROADMAP A9b; with process_local=True each rank "
+                "stages its own rows")
+        if process_local and device is None:
+            from ..distributed import env
+
+            if env.is_initialized():
+                device = env.get_device()
         self._loader = loader
         self.depth = int(depth)
         self.device = resolve_device(device)

@@ -61,7 +61,8 @@ unrolled model, an optimizer other than Adam/AdamW, amsgrad,
 not divide ``num_layers``, and with ``compute_dtype`` parameters not
 stored in fp32. The head adds the draft heads' weighted loss
 (`models.gpt.draft_head_loss`) as the reference's does; the
-reference's MoE aux loss rides models the port refuses (A9/A10); its
+reference's MoE aux loss rides models the port refuses (ROADMAP A9b:
+MoE expert parallelism); its
 retrace sentinel, compile
 cache, cost and memory analyses are XLA tools with no counterpart here.
 """

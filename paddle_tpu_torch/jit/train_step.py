@@ -27,6 +27,18 @@ One call runs, in the reference's order (train_step.py ``step_fn``):
    takes one step, as the reference's step advances its host-side
    schedulers.
 
+Distributed (the collective seam): after the last micro-batch's
+backward the step calls the model's ``apply_collective_grads`` where it
+has one, as the reference does (train_step.py:349-350): `DataParallel`
+averages the grads over its group there (the micro-batches before the
+last run under its ``no_sync``), `GroupShardedStage2` reduce-scatters
+them into the optimizer's shards. Under a sharded optimizer
+(`DygraphShardingOptimizer`) the guard's flag and the clip's sum of
+squares are all-reduced on the device before they are used (a rank that
+sees an inf makes every rank skip), and so are the numerics monitor's
+grad rows. The returned loss is the group's mean (an all-reduce on the
+device), as the reference's global loss is.
+
 With ``numerics`` (default: ``FLAGS_numerics_monitor``, on, as in the
 reference) the step also fills the reference's per-parameter stats block
 on the device (one row a trainable parameter: the unscaled grad's, the
@@ -43,15 +55,18 @@ The constructor takes the reference's arguments in its order:
 ``donate`` is accepted and does nothing (the step updates the state in
 place), and ``accum_steps`` overrides ``accumulate_steps`` as in the
 reference. The step runs eagerly: the reference's jit,
-retrace sentinel, compile cache and sharding are not ported. The returned loss
+retrace sentinel and compile cache have no counterpart here. The returned loss
 stays on the device, and nothing is read back to the host, guarded or
 not: the gate is a device flag the optimizer's kernels read (see
 `nonfinite_guard`).
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
+from ..distributed.collective import ReduceOp, all_reduce
 from ..io.device_prefetcher import DevicePrefetcher
 from ..observability.numerics import NumericsMonitor, monitor_enabled
 from ..optimizer.optimizer import _select_back
@@ -132,21 +147,32 @@ class TrainStep:
                 .backward()
 
         acc = self.accumulate_steps
+        model = self.model
         if acc > 1:
             losses = []
-            for micro in self._split(batch):
-                ml = self.loss_fn(self.model, *micro) * (1.0 / acc)
-                backward(ml)
+            no_sync = getattr(model, "no_sync", contextlib.nullcontext)
+            for m, micro in enumerate(self._split(batch)):
+                with (no_sync() if m < acc - 1
+                      else contextlib.nullcontext()):
+                    ml = self.loss_fn(model, *micro) * (1.0 / acc)
+                    backward(ml)
                 losses.append(ml.detach())
             loss = torch.stack(losses).sum()
         else:
-            loss = self.loss_fn(self.model, *batch)
+            loss = self.loss_fn(model, *batch)
             backward(loss)
             loss = loss.detach()
+        sync = getattr(model, "apply_collective_grads", None)
+        if sync is not None:
+            sync()
+        group = (getattr(model, "_comm_group", None)
+                 or getattr(self.optimizer, "_comm_group", None))
+        if group is not None:
+            all_reduce(loss, ReduceOp.AVG, group)
 
         inv = None if scale is None else torch.reciprocal(scale)
         if self.numerics is not None:
-            rows = _numerics_before(params, inv)
+            rows = _numerics_before(params, inv, self.optimizer)
         if guard is None:
             self.optimizer.step()
         else:
@@ -164,11 +190,18 @@ class TrainStep:
         return loss
 
 
-def _numerics_before(params, inv):
+def _numerics_before(params, inv, optimizer=None):
     """The rows' fields known before the update: each grad's squared norm
-    (unscaled by ``inv``), the parameter's, and a copy of the parameters
-    for the update's norm."""
+    (unscaled by ``inv``; under a sharded optimizer from the rank's
+    shards and one all-reduce), the parameter's, and a copy of the
+    parameters for the update's norm."""
     f32 = torch.float32
+    sharded = getattr(optimizer, "_sharded_grad_sq", None)
+    if sharded is not None:
+        p_sq = torch.stack(torch._foreach_norm(
+            [p.detach() for p in params], 2, dtype=f32)).square()
+        return (sharded(params, inv), p_sq,
+                [p.detach().clone() for p in params])
     zero = torch.zeros((), dtype=f32, device=params[0].device)
     have = [i for i, p in enumerate(params)
             if p.grad is not None and p.grad.is_floating_point()]

@@ -40,7 +40,7 @@ chunk at a time; such a model trains and evaluates, and refuses the
 cached serving paths, as the reference does.
 
 Not ported yet, and refused by `GPTConfig`: MoE and ring attention
-(A9/A10).
+(A9b/A10).
 """
 from __future__ import annotations
 
@@ -102,9 +102,9 @@ class GPTConfig:
                 f"unknown recompute policy {self.recompute_policy!r}; use "
                 f"'dots' or 'nothing'/'full'")
         refused = {
-            "num_experts>0": (self.num_experts > 0, "A9/A10 (MoE)"),
+            "num_experts>0": (self.num_experts > 0, "A9b/A10 (MoE)"),
             "use_ring_attention=True": (self.use_ring_attention,
-                                        "A9 (ring attention)"),
+                                        "A9b (ring attention)"),
         }
         for what, (on, owner) in refused.items():
             if on:

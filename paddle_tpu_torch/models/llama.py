@@ -47,7 +47,7 @@ hidden]`` here and goes in with ``transpose_y=True`` (the reference's
 ``[hidden, vocab]`` with ``transpose_y=False``): no copy a step.
 
 Not ported yet: ``use_ring_attention`` and ``llama_sharding_rules``
-(ROADMAP queue A9).
+(ROADMAP A9b).
 """
 from __future__ import annotations
 
@@ -103,7 +103,7 @@ class LlamaConfig:
         if self.use_ring_attention:
             raise NotImplementedError(
                 "LlamaConfig(use_ring_attention=True) is not ported yet: "
-                "ROADMAP queue A9 (ring attention)")
+                "ROADMAP A9b (ring attention)")
 
 
 LLAMA_CONFIGS = {
@@ -310,4 +310,4 @@ LlamaPretrainingCriterion = GPTPretrainingCriterion
 def llama_sharding_rules(tp_axis="mp", fsdp_axis=None):
     raise NotImplementedError(
         "llama_sharding_rules (tensor and ZeRO placement) is not ported "
-        "yet: ROADMAP queue A9")
+        "yet: ROADMAP A9b")

@@ -13,6 +13,11 @@ with ``need_clip = False`` are neither counted nor changed.
   `optimizer.Optimizer.step` does not call it: it takes the same norm and
   scales each grad as its update reads it (`scaled`), and `optimizer.Adam`'s
   fused step folds the scale into its update kernel with the same rounding.
+* `norm_stats` is that norm with the guard's flag over grads a rank
+  holds only a shard of (sharding's reduce-scattered grads): the local
+  sum of squares and flag are all-reduced over the group in one
+  collective on the device before the scale is taken, so every rank
+  clips by the global norm and skips together.
 * `ClipGradByValue`, `ClipGradByNorm` (each grad by its own norm) and
   `clip_grad_norm_` (the torch-style utility over parameters), plain
   tensor code as the reference runs them; the first two return new grads.
@@ -24,7 +29,7 @@ import torch
 from ..ops.kernels.multi_tensor import multi_tensor_norm
 
 __all__ = ["ClipGradBase", "ClipGradByGlobalNorm", "ClipGradByNorm",
-           "ClipGradByValue", "clip_grad_norm_"]
+           "ClipGradByValue", "clip_grad_norm_", "norm_stats"]
 
 
 def _clipped(p, g):
@@ -78,6 +83,25 @@ class ClipGradByGlobalNorm(ClipGradBase):
         stats, _ = multi_tensor_norm(grads, clip_norm=self.clip_norm)
         return [(p, scaled(g, stats[1]) if _clipped(p, g) else g)
                 for p, g in params_grads]
+
+
+def norm_stats(grads, need_clip, inv_scale, clip_norm, group, device=None):
+    """``(sum of squares, clip scale, found_inf)`` as device scalars, like
+    `multi_tensor_norm`'s, with the sum and the flag all-reduced over
+    ``group`` (a `distributed.collective.Group`) first, in one
+    collective: the clip's global norm and the guard's flag over the
+    ranks' shards. No host read."""
+    from ..distributed.collective import ReduceOp, all_reduce
+
+    stats, found = multi_tensor_norm(grads, need_clip, inv_scale,
+                                     device=device)
+    tot = torch.stack([stats[0], found.float()])
+    all_reduce(tot, ReduceOp.SUM, group)
+    scale = torch.ones_like(tot[0])
+    if clip_norm is not None:
+        norm = tot[0].sqrt().clamp(min=1e-12)
+        scale = (torch.full_like(norm, clip_norm) / norm).clamp(max=1.0)
+    return tot[0], scale, tot[1] > 0
 
 
 def scaled(g, scale):

@@ -16,7 +16,7 @@
   upcast the weights.
 
 ``weight_attr`` / ``bias_attr`` take what the reference's take
-(`layers.ParamAttr`). ``SyncBatchNorm`` waits for ROADMAP queue A9.
+(`layers.ParamAttr`). ``SyncBatchNorm`` waits for ROADMAP A9b.
 """
 from __future__ import annotations
 

@@ -5,6 +5,8 @@
     python -m paddle_tpu_torch.profile_training --resnet [--batch B]
     python -m paddle_tpu_torch.profile_training --fused-scan [--seq S] \
         [--batch B]
+    python -m paddle_tpu_torch.profile_training --sharded \
+        [--storage sharded|replicated] [--seq S] [--batch B]
     python -m paddle_tpu_torch.profile_training --llama [--seq S] \
         [--batch B]
     python -m paddle_tpu_torch.profile_training --bert [--seq S] \
@@ -52,6 +54,17 @@ the fused head, one layer a chunk) twice, with the numerics monitor on
 (splash), the fused CE, the matrix products, the optimizer
 (``mt_adam_kernel``), the numerics monitor (the device time the monitor
 adds: busy time on minus busy time off) and the rest.
+
+``--sharded`` profiles ``chip_smoke.py`` phase 23(b)'s step: phase
+14's model and optimizer through `jit.ShardedFusedScanTrainStep` over a
+world of one rank on NCCL (`distributed.init_parallel_env`), with the
+``--storage`` given (default "sharded"), the numerics monitor off, and
+splits it into attention (splash), the fused CE, the matrix products,
+the optimizer on the shards (``mt_adam_kernel`` and ``mt_norm_kernel``),
+the copies that pack grads into buckets and move shards (kernels named
+``copy`` or ``cat``, and device-to-device memcpys: a world of one's
+collectives and same-dtype ``copy_``), the NCCL kernels and the rest,
+with the device's idle share of the wall.
 
 ``--llama`` profiles ``chip_smoke.py`` phase 16's step (TinyLlama-1.1B
 from seed 0 through ``amp.decorate(level="O2")``, AdamW with fp32
@@ -205,6 +218,46 @@ def profile_fused_scan(batch, seq, steps):
         "step": "FusedScanTrainStep", "model": "gpt3-1.3b",
         "seq": seq, "batch": batch, "steps": steps,
         **on, "numerics_off": off}))
+
+
+def profile_sharded(batch, seq, steps, storage):
+    """One JSON line: the sharded fused-scan step's device time by
+    column (see the module docstring)."""
+    from .distributed import env
+    from .jit import ShardedFusedScanTrainStep
+
+    env.init_parallel_env()
+    model, opt, ids, labels = build_fused_scan(batch, seq)
+    step = ShardedFusedScanTrainStep(
+        model, opt, criterion=GPTPretrainingCriterion(), fused_head=True,
+        compute_dtype="bfloat16", layer_chunk=1, param_storage=storage,
+        numerics=False)
+    kernels, _, wall = _profile(step, (ids, labels), steps)
+
+    def share(names):
+        return sum(us for k, (us, _) in kernels.items()
+                   if any(n in k.lower() for n in names)) / 1e6 / steps
+
+    cols = {"attention_s_per_step": share(("splash",)),
+            "fused_ce_s_per_step": share(("fused_ce",)),
+            "gemm_s_per_step": share(_GEMM),
+            "optimizer_s_per_step": share(_OPTIMIZER),
+            "pack_gather_copies_s_per_step": share(("copy", "cat",
+                                                    "memcpy")),
+            "nccl_s_per_step": share(("nccl",))}
+    busy = share(("",))
+    print(json.dumps({
+        "device": torch.cuda.get_device_name(0),
+        "step": "ShardedFusedScanTrainStep", "param_storage": storage,
+        "world": env.get_world_size(), "model": "gpt3-1.3b", "seq": seq,
+        "batch": batch, "steps": steps,
+        "wall_s_per_step": wall / steps, "device_busy_s_per_step": busy,
+        "device_idle_share": 1.0 - busy * steps / wall,
+        "kernels_per_step": sum(n for _, n in kernels.values()) / steps,
+        **cols, "other_s_per_step": busy - sum(cols.values()),
+        "collectives_per_step": step.collectives_per_step,
+        "top_kernels": _top(kernels)}))
+    env.reset()
 
 
 def build_llama(batch=4, seq=2048, seed=0):
@@ -529,6 +582,13 @@ def main(argv=None):
                     help="GPT-3 1.3B through FusedScanTrainStep "
                          "(chip_smoke.py phase 14), the numerics monitor "
                          "on and off")
+    ap.add_argument("--sharded", action="store_true",
+                    help="GPT-3 1.3B through ShardedFusedScanTrainStep "
+                         "over a world of one rank (chip_smoke.py phase "
+                         "23(b))")
+    ap.add_argument("--storage", default="sharded",
+                    choices=("sharded", "replicated"),
+                    help="param_storage of --sharded")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_training needs a CUDA card")
@@ -537,6 +597,10 @@ def main(argv=None):
         return
     if args.fused_scan:
         profile_fused_scan(args.batch or 8, args.seq or 1024, args.steps)
+        return
+    if args.sharded:
+        profile_sharded(args.batch or 8, args.seq or 1024, args.steps,
+                        args.storage)
         return
     if args.llama:
         profile_llama(args.batch or 4, args.seq or 2048, args.steps)

@@ -113,3 +113,21 @@ define_flag("FLAGS_fused_ce", True,
             "[tokens, vocab] logits never exist in forward or backward. "
             "Off restores the token-chunked logsumexp path "
             "(FLAGS_fused_ce_chunks).")
+define_flag("FLAGS_comm_bucket_mb", 25,
+            "gradient-communication bucket size in MB: per-parameter "
+            "grads coalesce into size-capped flat buckets and sync as one "
+            "reduce_scatter / all_reduce a bucket (0: one collective a "
+            "parameter). DataParallel sizes its buckets from its "
+            "comm_buffer_size argument and honours only the 0 here")
+define_flag("FLAGS_comm_quant", "",
+            "opt-in compressed gradient collectives on the bucketed "
+            "paths: 'int8' (symmetric scales a 32-element block on both "
+            "the scatter and the gather leg) or 'bf16'; '' (default) "
+            "keeps full-precision payloads. Accumulation is fp32 in "
+            "every mode")
+define_flag("FLAGS_param_storage", "",
+            "parameter storage of ShardedFusedScanTrainStep: 'sharded' "
+            "(the default when empty: parameters live as 1/N flat bucket "
+            "shards between steps, gathered on use) or 'replicated' "
+            "(full parameters, views into the flat buckets). Per-step "
+            "override: param_storage=")

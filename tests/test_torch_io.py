@@ -5,9 +5,9 @@ The samplers draw from numpy's global RNG in both packages, so after the
 same ``np.random.seed`` they give the same indices; every check here is
 exact: index lists equal, batches equal element for element (the port's
 as CPU torch tensors, the reference's as its Tensors), the synthetic
-MNIST bytes equal. The loader's worker processes and
-``DistributedBatchSampler`` are not ported and must raise, naming their
-ROADMAP items.
+MNIST bytes equal. The loader's worker processes are not ported and
+must raise, naming their ROADMAP item; ``DistributedBatchSampler`` gives
+every rank the reference's indices.
 """
 import gzip
 import struct
@@ -173,8 +173,19 @@ def test_the_workers_and_the_distributed_sampler_raise():
     _, pds = _datasets()
     with pytest.raises(NotImplementedError, match="A10b"):
         pio.DataLoader(pds, num_workers=2)
-    with pytest.raises(NotImplementedError, match="A9"):
-        pio.DistributedBatchSampler(pds, batch_size=4)
+    jds, _ = _datasets()
+    for shuffle in (False, True):
+        for rank in range(3):
+            got = pio.DistributedBatchSampler(pds, batch_size=4,
+                                              num_replicas=3, rank=rank,
+                                              shuffle=shuffle)
+            want = jio.DistributedBatchSampler(jds, batch_size=4,
+                                               num_replicas=3, rank=rank,
+                                               shuffle=shuffle)
+            got.set_epoch(1)
+            want.set_epoch(1)
+            assert [list(b) for b in got] == [list(b) for b in want]
+            assert len(got) == len(want)
     assert pio.DevicePrefetcher is not None
 
 

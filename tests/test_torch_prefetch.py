@@ -128,10 +128,12 @@ def test_stats_have_the_reference_keys():
 def test_refusals_and_arguments():
     with pytest.raises(ValueError):
         DevicePrefetcher([], depth=0, device="cpu")
-    for kw in (dict(sharding=object()), dict(mesh=object()),
-               dict(process_local=True)):
-        with pytest.raises(NotImplementedError, match="A9"):
+    for kw in (dict(sharding=object()), dict(mesh=object())):
+        with pytest.raises(NotImplementedError, match="A9b"):
             DevicePrefetcher([], device="cpu", **kw)
+    with DevicePrefetcher(_batches(2), device="cpu",
+                          process_local=True) as pf:
+        assert len(list(pf)) == 2
     assert len(DevicePrefetcher(_batches(3), device="cpu")) == 3
     with DevicePrefetcher(_batches(3), device="cpu") as pf:
         next(iter(pf))
