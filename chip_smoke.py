@@ -12,14 +12,17 @@ Phases, one line each (any failure exits non-zero, nothing is caught):
    backward and forward on one mainloop, the single-block flash forward,
    the tiled flash and splash forwards of ``csrc/attention_wgmma.cuh``,
    the dQ and dK/dV kernels of both flash backwards and of the splash
-   backward, ``csrc/attention_wgmma_bwd.cuh``, and the chunk attention of
-   ``csrc/paged_wgmma.cuh``), its registers, spills and shared memory
+   backward, ``csrc/attention_wgmma_bwd.cuh``, the chunk attention of
+   ``csrc/paged_wgmma.cuh`` and the weight-only linear's prompt route,
+   ``wo_wgmma_kernel``), its registers, spills and shared memory
    from the ``-Xptxas=-v`` log and the ``HGMMA`` instructions in its
-   SASS (``cuobjdump``; the run fails on none, and on a backward or
-   chunk kernel that spills at head dim 64); the same for the split-K
-   decode of ``csrc/paged_split.cuh`` (CUDA cores; it fails on any
-   spill) and the optimizer's kernels of ``csrc/multi_tensor.cu`` (no
-   spill);
+   SASS (``cuobjdump``; the run fails on none, on a backward or
+   chunk kernel that spills at head dim 64, and on any spill of the
+   weight-only kernel); the same with ``HMMA`` for the weight-only decode
+   route ``wo_mma_kernel`` (mma.sync; it fails on none and on any
+   spill), and for the split-K decode of ``csrc/paged_split.cuh`` (CUDA
+   cores; it fails on any spill) and the optimizer's kernels of
+   ``csrc/multi_tensor.cu`` (no spill);
 3. each kernel against its plain PyTorch version on the card, in fp32
    and bf16 (tolerances at `check_kernels` and
    `check_training_kernels`), at the shapes the serving and training
@@ -56,12 +59,18 @@ Phases, one line each (any failure exits non-zero, nothing is caught):
    2048]) and LLaMA-7B's head (h [2048, 4096]), fp32 and bf16, forward
    and backward, timed as at GPT's; the weight-only linear
    (``csrc/weight_only.cu``) on each of GPT-3 1.3B's four projections at
-   M = 1, 8 (its decode route) and 1024 (its tiled route), int8 per
-   channel, int4 and int8 grouped 128, fp32 and bf16 x (and fp16 on
-   qkv), each within its bar of the plain version and bit-identical on a
-   second call, timed as CUDA-graph replays beside the plain version,
-   its byte bound, ``F.linear`` over the bf16 weight and
-   ``weight_dequantize`` + the product; the chunk kernel over bf16, int8
+   M = 1, 8 (the decode routes), 128 and 1024 (the prompt routes: the
+   decode lane's prompt passes at batch 1 and 8), int8 per
+   channel, int4 and int8 grouped 128, fp32 x (the first design,
+   ``wo_gemv_kernel`` / ``wo_tiled_kernel``) and bf16 x (``wo_mma_kernel``
+   / ``wo_wgmma_kernel``), and fp16 on qkv at M 8, 40 (the speculative
+   verify), 64 (a chunk) and 1024, each within its bar of the plain
+   version, bit-identical on a second call and counted on its route,
+   timed as CUDA-graph replays beside the plain version, its byte bound,
+   ``F.linear`` over the bf16 weight and ``weight_dequantize`` + the
+   product, each bf16 / fp16 row and ``F.linear`` also back to back over
+   8 weights (``stream_ms``); the
+   chunk kernel over bf16, int8
    and int4 pools again at the speculative verify's shape (q [8, 5, 32,
    64]: k = 4, over phase 5's pools), bit-identical twice, timed as
    CUDA-graph replays beside the plain version, SDPA over the dense K/V
@@ -186,8 +195,12 @@ Phases, one line each (any failure exits non-zero, nothing is caught):
     ms, peak memory, the weight-only launches per route and the graph
     counts; each run captures one prompt graph and one decode graph in
     its warm-up call and none after, the int8 runs launch the weight-only
-    kernel on both routes and the fp runs never; the fp32 int8 model's
-    logits within 2e-4 of its ``weight_dequantize`` twin's; first a tiny
+    kernel on a decode and a prompt route (fp32: the first design's
+    ``gemv`` / ``tiled``; bf16: ``mma`` / ``wgmma``; no other route) and
+    the fp runs never; at batch 1 and 8, the fp32 int8 model's logits
+    within 2e-4 of its ``weight_dequantize`` twin's, the bf16 one's
+    greedy tokens equal to its twin's up to each row's first divergence,
+    where the twin's top-2 gap must be under ``BF16_GAP_BAR``; first a tiny
     int8 GPT's dense greedy tokens equal on the card and the CPU;
 18. speculative decoding: (a) ``inference.spec_decode_selftest.run_probe``
     on the CPU and on the card (a tiny fp32 GPT: greedy spec tokens equal
@@ -216,8 +229,10 @@ Phases, one line each (any failure exits non-zero, nothing is caught):
     phase 9, a flash pair's from its phase-10 run; splash's, the CE's
     and the optimizer's phase-14 launches beside them, and the CE's and
     the optimizer's phase-16 launches; the CE rows also carry phase 3's
-    numbers at LLaMA's two heads, ``llama_shapes``; the weight-only
-    kernels' launches from phase 17's int8 runs, with every phase-3 row;
+    numbers at LLaMA's two heads, ``llama_shapes``; the four weight-only
+    kernels' launches from phase 17's int8 runs (the first design's from
+    the fp32 runs, the Hopper routes' from the bf16 runs), with every
+    phase-3 row of their route;
     the chunk rows' verify-shape numbers, and each paged kernel's launches
     a serving spec dispatch from phase 18; the optimizer's update also
     its phase-20 launches, ``launches_bert``; splash's, the CE's and the
@@ -335,20 +350,32 @@ def time_ms(fn, flush, iters=20, warmup=3) -> float:
     return sum(s.elapsed_time(e) for s, e in events) / iters
 
 
-def graph_ms(fn, flush, iters=20) -> float:
-    """`time_ms` of replays of ``fn`` captured in a CUDA graph: the
-    device time without the host's time to launch it. A paged call's
-    Python wrapper takes longer on the host (about 60 us) than its kernel
-    on the card, so eager launches would time the host."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()                                  # warm-up, off the graph
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        fn()
-    return time_ms(graph.replay, flush, iters)
+def graph_ms(fns, flush=None, iters=20) -> float:
+    """Device ms a call of ``fns`` (one call, or a list run back to back)
+    captured in one CUDA graph (`jit.graphs.graph_of`): the device time
+    without the host's time to launch it. A paged call's Python wrapper
+    takes longer on the host (about 60 us) than its kernel on the card,
+    so eager launches would time the host. With ``flush``, `time_ms` of
+    the replays, the L2 flushed before each; without, ``iters`` replays
+    back to back, as a decode step's products run (a written flush
+    leaves dirty lines that a byte-bound launch writes back as it
+    reads)."""
+    from paddle_tpu_torch.jit.graphs import graph_of
+
+    fns = list(fns) if isinstance(fns, (list, tuple)) else [fns]
+    graph = graph_of(fns)
+    if flush is not None:
+        return time_ms(graph.replay, flush, iters) / len(fns)
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters / len(fns)
 
 
 def bound_ms(nbytes: float, flops: float, itemsize: int):
@@ -395,6 +422,9 @@ WGMMA_KERNELS = {
     # (csrc/paged_wgmma.cuh)
     "paged_chunk_wgmma_kernel": ("paged_attention",
                                  "paged_chunk_wgmma_kernel"),
+    # the weight-only prompt route over bf16 and fp16 x
+    # (csrc/weight_only.cu)
+    "wo_wgmma_kernel": ("weight_only", "wo_wgmma_kernel"),
 }
 # the redesigned kernels on CUDA cores (no HGMMA): the split-K decode over
 # each pool kind (csrc/paged_split.cuh), which must not spill at all (its
@@ -403,6 +433,13 @@ CUDA_CORE_KERNELS = {
     "paged_decode_split_kernel": ("paged_attention",
                                   "paged_decode_split_kernel"),
 }
+# the redesigned kernels on mma.sync (HMMA, no HGMMA): the weight-only
+# decode route (csrc/weight_only.cu)
+HMMA_KERNELS = {
+    "wo_mma_kernel": ("weight_only", "wo_mma_kernel"),
+}
+# kernels that must not spill in any instantiation
+NO_SPILL = ("paged_decode_split_kernel", "wo_wgmma_kernel", "wo_mma_kernel")
 # the split decode's shared memory is reported at the serving path's
 # geometry: head dim 64, pages of 16 rows, MHA, a full ring
 DECODE_PATH_GEOMETRY = (64, 16, 1, 4)
@@ -452,9 +489,9 @@ def _ptxas_functions(log):
     return out
 
 
-def _hgmma_counts(lib):
-    """{mangled name: HGMMA instructions} of a library's SASS, or None
-    without ``cuobjdump``."""
+def _hgmma_counts(lib, opcode="HGMMA"):
+    """{mangled name: ``opcode`` (HGMMA, HMMA) instructions} of a
+    library's SASS, or None without ``cuobjdump``."""
     from torch.utils.cpp_extension import CUDA_HOME
 
     tool = shutil.which("cuobjdump")
@@ -470,22 +507,24 @@ def _hgmma_counts(lib):
         if m:
             fn = m.group(1)
             counts[fn] = 0
-        elif fn is not None and "HGMMA" in line:
+        elif fn is not None and opcode in line:
             counts[fn] += 1
     return counts
 
 
 def check_wgmma_kernels(built):
     """Registers, spills and shared memory (static from ptxas, dynamic
-    from the launcher) of each redesigned kernel, and the HGMMA
-    instructions of its SASS; fails if a warpgroup kernel has none, if a
-    backward or the chunk spills at head dim 64, or if the split decode
-    spills at all."""
+    from the launcher) of each redesigned kernel, and the HGMMA (HMMA for
+    the mma.sync kernels) instructions of its SASS; fails if a warpgroup
+    kernel has no HGMMA or an mma.sync kernel no HMMA, if a backward or
+    the chunk spills at head dim 64, or if the split decode or a
+    weight-only kernel spills at all."""
     from paddle_tpu_torch.ops.kernels import _build
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
     from paddle_tpu_torch.ops.kernels import fused_cross_entropy as fce
     from paddle_tpu_torch.ops.kernels import paged_attention as pa
     from paddle_tpu_torch.ops.kernels import splash_attention as sa
+    from paddle_tpu_torch.ops.kernels import weight_only as wo
 
     ce = _build.load("fused_cross_entropy", fce._SIGNATURES)
     fl = _build.load("flash_attention", fa._SIGNATURES)
@@ -514,14 +553,23 @@ def check_wgmma_kernels(built):
             int(args[0]), int(args[1]), w)
     dynamic["paged_chunk_wgmma_kernel"] = lambda args: (
         pg.paged_chunk_wgmma_smem(int(args[0]), int(args[1])))
+    wol = wo._lib()
+    # the prompt route at its token tile; the decode route at phase 17's
+    # fc1 split (8 or 16 rows of x staged)
+    dynamic["wo_wgmma_kernel"] = lambda args: wol.wo_wgmma_smem(int(args[0]))
+    dynamic["wo_mma_kernel"] = lambda args: wol.wo_mma_smem(
+        8 * int(args[0]), wo.mma_plan(8192, 2048, 132)[0])
     report = {}
-    for name, (src, fn) in {**WGMMA_KERNELS, **CUDA_CORE_KERNELS}.items():
+    for name, (src, fn) in {**WGMMA_KERNELS, **CUDA_CORE_KERNELS,
+                            **HMMA_KERNELS}.items():
         cores = name in CUDA_CORE_KERNELS
+        hmma = name in HMMA_KERNELS
         saved = _build.library_path(src).with_suffix(".log")
         log = built.get(src, {}).get("log") or (
             saved.read_text() if saved.exists() else "")
         props = {k: v for k, v in _ptxas_functions(log).items() if fn in k}
-        counts = _hgmma_counts(_build.library_path(src))
+        counts = _hgmma_counts(_build.library_path(src),
+                               "HMMA" if hmma else "HGMMA")
         hg = None if counts is None else \
             {k: v for k, v in counts.items() if fn in k}
         entries = []
@@ -535,8 +583,8 @@ def check_wgmma_kernels(built):
                 "spill_loads": p.get("spill_loads", "not measured"),
                 "static_smem": p.get("static_smem", "not measured"),
                 "dynamic_smem": dynamic[fn](args),
-                "hgmma": "not measured" if hg is None else hg.get(mangled,
-                                                                  0)})
+                "hmma" if hmma else "hgmma":
+                    "not measured" if hg is None else hg.get(mangled, 0)})
         report[name] = entries
         print(f"[2/{PHASES}] {name} ({src}.cu): {json.dumps(entries)}",
               flush=True)
@@ -544,12 +592,14 @@ def check_wgmma_kernels(built):
             raise AssertionError(f"{name}: no {fn} in the build")
         if not cores and hg is not None and (not hg or
                                              min(hg.values()) <= 0):
-            raise AssertionError(f"{name}: a {fn} has no HGMMA: {hg}")
-        spills = [e for e in entries if e["spill_stores"] != 0 and (
-            cores or fn in NO_SPILL_AT_64
+            raise AssertionError(f"{name}: a {fn} has no "
+                                 f"{'HMMA' if hmma else 'HGMMA'}: {hg}")
+        spills = [e for e in entries if (e["spill_stores"] != 0 or (
+            fn in NO_SPILL and e["spill_loads"] != 0)) and (
+            fn in NO_SPILL or fn in NO_SPILL_AT_64
             and e["kernel"].startswith(f"{fn}<64"))]
         if spills:
-            raise AssertionError(f"{name}: spills at head dim 64: {spills}")
+            raise AssertionError(f"{name}: spills: {spills}")
     return report
 
 
@@ -2489,27 +2539,41 @@ def train_guarded_parity(dev):
 OPT_LAUNCHES = 2
 
 
-def _optimizer_step_alone(model, opt, ids, labels):
+def _optimizer_step_alone(model, opt, ids, labels, tries=3):
     """One more step's grads, then ``opt.step()`` alone under
     ``torch.profiler``: the device kernels it launched, in order, and
-    their device time (the step's grads are dropped after)."""
-    model.loss(ids, labels).backward()
-    torch.cuda.synchronize()
+    their device time (the step's grads are dropped after). The port's
+    counters say how many launches the step made; a trace that holds
+    fewer of the port's kernels lost records (CUPTI's: in 8 runs phase 9
+    once recorded no kernel and phase 10 once only ``mt_adam_kernel``,
+    both counters stepped), and the step is taken again, at most
+    ``tries`` times."""
+    from paddle_tpu_torch.ops.kernels import multi_tensor as mt
+
+    wrappers = (mt.multi_tensor_norm, mt.multi_tensor_adam)
     acts = [torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        opt.step()
+    for attempt in range(1, tries + 1):
+        model.loss(ids, labels).backward()
         torch.cuda.synchronize()
-    opt.clear_grad()
-    kernels = sorted((ev for ev in prof.events()
-                      if ev.device_type == torch.autograd.DeviceType.CUDA
-                      and "memcpy" not in ev.name.lower()
-                      and "memset" not in ev.name.lower()),
-                     key=lambda ev: ev.time_range.start)
-    names = [("mt_norm_kernel" if "mt_norm_kernel" in ev.name else
-              "mt_adam_kernel" if "mt_adam_kernel" in ev.name else ev.name)
-             for ev in kernels]
+        before = [w.launches for w in wrappers]
+        with torch.profiler.profile(activities=acts) as prof:
+            opt.step()
+            torch.cuda.synchronize()
+        opt.clear_grad()
+        launched = sum(w.launches - b for w, b in zip(wrappers, before))
+        kernels = sorted((ev for ev in prof.events()
+                          if ev.device_type == torch.autograd.DeviceType.CUDA
+                          and "memcpy" not in ev.name.lower()
+                          and "memset" not in ev.name.lower()),
+                         key=lambda ev: ev.time_range.start)
+        names = [("mt_norm_kernel" if "mt_norm_kernel" in ev.name else
+                  "mt_adam_kernel" if "mt_adam_kernel" in ev.name
+                  else ev.name) for ev in kernels]
+        if sum(n in OPT_KERNELS for n in names) >= launched:
+            break
     us = sum(ev.time_range.elapsed_us() for ev in kernels)
-    return {"kernels": names, "device_ms": us / 1e3}
+    return {"kernels": names, "device_ms": us / 1e3, "launched": launched,
+            "attempts": attempt}
 
 
 def train_full_width(dev, warmup=2, timed=5, batch=8, seq=1024,
@@ -2615,8 +2679,10 @@ def train_full_width(dev, warmup=2, timed=5, batch=8, seq=1024,
     if stats["optimizer_launches_per_step"] != OPT_LAUNCHES:
         raise AssertionError(f"optimizer launches a step: "
                              f"{stats['optimizer_launches_per_step']}")
-    if opt_step["kernels"] != list(OPT_KERNELS):
-        raise AssertionError(f"opt.step() launched {opt_step['kernels']}")
+    if (opt_step["kernels"] != list(OPT_KERNELS)
+            or opt_step["launched"] != OPT_LAUNCHES):
+        raise AssertionError(f"opt.step() launched {opt_step['kernels']} "
+                             f"({opt_step['launched']} counted)")
     del model, opt, step, step_off
     gc.collect()
     torch.cuda.empty_cache()
@@ -3762,22 +3828,36 @@ WO_REPLACES = "paddle_tpu/nn/quant/__init__.py:154"
 # GPT-3 1.3B's four projections, [out, in]
 WO_PROJECTIONS = {"qkv": (6144, 2048), "out_proj": (2048, 2048),
                   "fc1": (8192, 2048), "fc2": (2048, 8192)}
-WO_ROWS = (1, 8, 1024)             # decode at batch 1 and 8; a prompt pass
+# decode at batch 1 and 8; the prompt passes of phase 17's batch 1 and 8
+# (prompt 128), which take the prompt route's 128- and 256-token tiles
+WO_ROWS = (1, 8, 128, 1024)
 WO_QUANTS = {"int8": ("weight_only_int8", -1),
              "int4": ("weight_only_int4", -1),
              "int8_g128": ("weight_only_int8", 128)}
 # the error over the plain output's largest magnitude: fp32 sums in
 # another order; bf16 / fp16 one rounding of the output
 WO_TOL = {torch.float32: 1e-5, torch.bfloat16: 8e-3, torch.float16: 8e-3}
-WO_KERNELS = {"gemv": "wo_gemv_kernel", "tiled": "wo_tiled_kernel"}
+# route -> kernel: the Hopper design (bf16 / fp16 x) and the first design
+# (fp32 x, and the shapes the Hopper routes refuse)
+WO_KERNELS = {"mma": "wo_mma_kernel", "wgmma": "wo_wgmma_kernel",
+              "gemv": "wo_gemv_kernel", "tiled": "wo_tiled_kernel"}
 # a route's rows in the kernels line, one list each, in this order
 WO_ROW_KEYS = ("proj", "m", "quant", "dtype", "max_rel_err", "ms",
                "plain_ms", "bound_ms", "bytes_bound_ms", "library_ms",
-               "dequant_linear_ms")
+               "dequant_linear_ms", "stream_ms", "library_stream_ms")
 # the headline shape of each route in the kernels line: fc1, int8 per
-# channel, bf16 x, at the lane's batch 8 (decode) and its prompt pass
-WO_HEADLINE = {"gemv": ("fc1", 8, "int8", "bfloat16"),
-               "tiled": ("fc1", 1024, "int8", "bfloat16")}
+# channel, at the lane's batch 8 (decode) and its prompt pass; bf16 x on
+# the Hopper routes, fp32 x on the first design
+WO_HEADLINE = {"mma": ("fc1", 8, "int8", "bfloat16"),
+               "wgmma": ("fc1", 1024, "int8", "bfloat16"),
+               "gemv": ("fc1", 8, "int8", "float32"),
+               "tiled": ("fc1", 1024, "int8", "float32")}
+
+# the Hopper routes' rows are also timed as `STREAM_COPIES` calls back to
+# back in one graph, each over its own weight, so that the copies (8 x
+# 16.8 MB of int8 at fc1, 8 x 33.5 MB in bf16) outgrow the 50 MB L2 and
+# no launch finds its weight there
+STREAM_COPIES = 8
 
 
 def _wo_row(dev, flush, proj, m, quant, dtype, seed):
@@ -3795,7 +3875,7 @@ def _wo_row(dev, flush, proj, m, quant, dtype, seed):
                            0.02, algo=algo, group_size=group)
     x = torch.randn(m, k, device=dev, generator=gen).to(dtype)
     b = (torch.randn(n, device=dev, generator=gen) * 0.02).to(dtype)
-    route = "gemv" if m <= wo.GEMV_MAX_ROWS else "tiled"
+    route = wo.route(dtype, m, k, 0 if group == -1 else group, True)
     counter = f"launches_{route}"
     before = getattr(wo.weight_only_linear, counter)
     got = wo.weight_only_linear(x, q, b, s)
@@ -3834,23 +3914,46 @@ def _wo_row(dev, flush, proj, m, quant, dtype, seed):
         "dequant_linear_ms": graph_ms(
             lambda: torch.addmm(b, x, weight_dequantize(
                 q, s, algo=algo, out_dtype=dtype)), flush),
+        "stream_ms": None, "library_stream_ms": None,
     }
+    if route in ("mma", "wgmma"):
+        # the Hopper route and F.linear back to back over
+        # `STREAM_COPIES` weights
+        ws = [(q, s)] + [weight_quantize(
+            torch.randn(k, n, device=dev, generator=gen) * 0.02, algo=algo,
+            group_size=group) for _ in range(STREAM_COPIES - 1)]
+        row["stream_ms"] = graph_ms(
+            [lambda q=q, s=s: wo.weight_only_linear(x, q, b, s)
+             for q, s in ws])
+        wbs = [weight_dequantize(q, s, algo=algo, out_dtype=torch.bfloat16)
+               .t().contiguous() for q, s in ws]
+        row["library_stream_ms"] = graph_ms(
+            [lambda w=w: torch.nn.functional.linear(xb, w, bb)
+             for w in wbs])
+        del ws, wbs
+    stream = "" if row["stream_ms"] is None else (
+        f"; back to back {row['stream_ms']:.4f}, F.linear "
+        f"{row['library_stream_ms']:.4f}")
     print(f"[3/{PHASES}] {name}: {route}, error/max {err:.3g}, "
           f"bit-identical twice; {row['ms']:.4f} ms (plain "
           f"{row['plain_ms']:.4f}, bf16 F.linear {row['library_ms']:.4f}, "
           f"dequantize + product {row['dequant_linear_ms']:.4f}, bound "
-          f"{b_ms:.4f} {b_by})", flush=True)
+          f"{b_ms:.4f} {b_by}{stream})", flush=True)
     return row
 
 
 def check_weight_only(dev, flush):
     """Phase 3's weight-only rows (``csrc/weight_only.cu``): each of GPT-3
-    1.3B's four projections at M = 1, 8 and 1024, in int8 per channel,
-    int4 and int8 grouped 128, with fp32 and bf16 x, and one fp16 case;
-    each held to `weight_only_linear_ref` (`WO_TOL`) and bit-identical on
-    a second call, and timed as graph replays (L2 flushed) beside the
-    plain version, the byte bound and two library yardsticks. Returns
-    the kernels line's two entries, the headline numbers of each route
+    1.3B's four projections at M = 1, 8, 128 and 1024 (`WO_ROWS`), in
+    int8 per channel, int4 and int8 grouped 128, with fp32 x (the first
+    design) and bf16 x (the Hopper routes), and fp16 cases at the
+    speculative verify's M 40 and a chunk's M 64 too; each held to
+    `weight_only_linear_ref` (`WO_TOL`) and bit-identical on a second
+    call, and timed as graph replays (L2 flushed) beside the plain
+    version, the byte bound and two library yardsticks (the Hopper
+    routes' rows and ``F.linear`` also back to back over
+    `STREAM_COPIES` weights, ``stream_ms``). Returns the kernels line's
+    four entries, the headline numbers of each route
     (`WO_HEADLINE`) and all its rows."""
     rows = []
     seed = 0
@@ -3861,10 +3964,10 @@ def check_weight_only(dev, flush):
                     seed += 1
                     rows.append(_wo_row(dev, flush, proj, m, quant, dtype,
                                         seed))
-    rows.append(_wo_row(dev, flush, "qkv", 8, "int8", torch.float16,
-                        seed + 1))
-    rows.append(_wo_row(dev, flush, "qkv", 1024, "int8", torch.float16,
-                        seed + 2))
+    for m in (8, 40, 64, 1024):
+        seed += 1
+        rows.append(_wo_row(dev, flush, "qkv", m, "int8", torch.float16,
+                            seed))
     out = {}
     for route, kernel in WO_KERNELS.items():
         proj, m, quant, dtype = WO_HEADLINE[route]
@@ -3874,7 +3977,8 @@ def check_weight_only(dev, flush):
         out[kernel] = {
             **{k: head[k] for k in ("max_abs_err", "ms", "plain_ms",
                                     "bound_ms", "bound_by", "library_ms",
-                                    "dequant_linear_ms", "shape")},
+                                    "dequant_linear_ms", "shape",
+                                    "stream_ms", "library_stream_ms")},
             "max_rel_err": max(r["max_rel_err"] for r in mine),
             "library": "torch.nn.functional.linear over the bf16 weight",
             "config": f"{proj} {quant} {dtype} x",
@@ -3919,8 +4023,8 @@ def _decode_run(model, kind, bs, ids, cache_dtype, draft=None):
     eng.generate(ids, 1)
     torch.cuda.synchronize()
     ttft = time.perf_counter() - t0
-    wo.weight_only_linear.launches_gemv = 0
-    wo.weight_only_linear.launches_tiled = 0
+    for route in WO_KERNELS:
+        setattr(wo.weight_only_linear, f"launches_{route}", 0)
     _paged_reset()
     t0 = time.perf_counter()
     toks = eng.generate(ids, new)
@@ -3944,8 +4048,9 @@ def _decode_run(model, kind, bs, ids, cache_dtype, draft=None):
     r = {"decode_tok_s": bs * (new - 1) / max(total - ttft, 1e-9),
          "prefill_ttft_ms": ttft * 1e3, "cold_start_ms": cold * 1e3,
          "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
-         "launches_gemv": wo.weight_only_linear.launches_gemv,
-         "launches_tiled": wo.weight_only_linear.launches_tiled,
+         **{f"launches_{route}": getattr(wo.weight_only_linear,
+                                         f"launches_{route}")
+            for route in WO_KERNELS},
          "launches_paged": paged,
          "prefill_graphs": eng.prefill_step.cache_size(),
          "decode_graphs": step.cache_size(), "captures": captures[-1]}
@@ -4021,11 +4126,15 @@ def decode_lane(dev):
     weights over a bf16 cache. Each run captures one prompt graph and
     one decode graph in its warm-up call and none after; the int8 runs
     launch the weight-only kernel on both routes (once a projection a
-    prompt pass and a decode step), the fp runs never. The fp32 int8
-    model's logits are held within 2e-4 of its twin that holds
-    ``weight_dequantize`` of its weights. Returns {route: launches} over
-    the int8 runs' timed calls, and the decode steps and prompt passes
-    those took."""
+    prompt pass and a decode step), the fp runs never. At batch 1 and 8
+    the int8 model is held to its twin that holds ``weight_dequantize``
+    of its weights: in fp32 its logits within 2e-4, in bf16 its greedy
+    tokens up to each row's first divergence (`_divergence_gaps`). The
+    fp32 int8 runs take the
+    first design (``gemv`` / ``tiled``), the bf16 ones the Hopper routes
+    (``mma`` / ``wgmma``), and no other route launches. Returns {route:
+    launches} over the int8 runs' timed calls, and {route: decode steps
+    or prompt passes} those took."""
     from paddle_tpu_torch.models import GPTForCausalLM, gpt_config
     from paddle_tpu_torch.nn.quant import quantize_for_decode
 
@@ -4033,7 +4142,8 @@ def decode_lane(dev):
     prompt, new = DECODE_LANE["prompt"], DECODE_LANE["new"]
     cfg = gpt_config("gpt3-1.3b", max_position_embeddings=prompt + new)
     per_pass = 4 * cfg.num_layers          # the quantized projections
-    launches = {"gemv": 0, "tiled": 0, "decode_steps": 0, "prompt_passes": 0}
+    launches = dict.fromkeys(WO_KERNELS, 0)
+    passes = dict.fromkeys(WO_KERNELS, 0)
     rng = np.random.default_rng(0)
     ids = {bs: rng.integers(1, cfg.vocab_size, (bs, prompt))
            for bs in DECODE_LANE["batches"]}
@@ -4048,46 +4158,55 @@ def decode_lane(dev):
             for kind, tag in (("dense", "fp"), ("paged", "fp"),
                               ("dense", "int8")):
                 r, _, _ = _decode_run(models[tag], kind, bs, ids[bs], dtype)
-                want = (per_pass * (new - 1), per_pass) if tag == "int8" \
-                    else (0, 0)
-                if (r["launches_gemv"], r["launches_tiled"]) != want:
+                step, prompt = ("gemv", "tiled") if dtype == torch.float32 \
+                    else ("mma", "wgmma")
+                want = dict.fromkeys(WO_KERNELS, 0)
+                if tag == "int8":
+                    want.update({step: per_pass * (new - 1),
+                                 prompt: per_pass})
+                got = {k: r[f"launches_{k}"] for k in WO_KERNELS}
+                if got != want:
                     raise AssertionError(
                         f"decode lane {name} {kind} {tag} bs{bs}: weight-only "
-                        f"launches gemv {r['launches_gemv']}, tiled "
-                        f"{r['launches_tiled']}, want {want}")
+                        f"launches {got}, want {want}")
                 if tag == "int8":
-                    launches["gemv"] += r["launches_gemv"]
-                    launches["tiled"] += r["launches_tiled"]
-                    launches["decode_steps"] += new - 1
-                    launches["prompt_passes"] += 1
+                    for k in WO_KERNELS:
+                        launches[k] += got[k]
+                    passes[step] += new - 1
+                    passes[prompt] += 1
                 print(f"[17/{PHASES}] decode lane gpt3-1.3b {name} "
                       f"{kind}{'_int8' if tag == 'int8' else ''} bs{bs}: "
                       f"{json.dumps(r)}", flush=True)
-        if dtype == torch.float32:
-            twin = _dequantized_twin(models["int8"], cfg, dev, dtype)
-            bs, steps = DECODE_LANE["batches"][-1], min(16, new)
+        twin = _dequantized_twin(models["int8"], cfg, dev, dtype)
+        steps = min(16, new)
+        for bs in DECODE_LANE["batches"]:
             got_t, got_l = models["int8"].generate(ids[bs], steps,
                                                    return_logits=True)
             want_t, want_l = twin.generate(ids[bs], steps,
                                            return_logits=True)
             # steps up to the first token that differs share a context
-            same = (got_t == want_t).all(0).numpy()
-            upto = int(np.argmin(same)) + 1 if not same.all() else steps
+            same = (got_t == want_t).numpy()
+            first = same.all(0)
+            upto = int(np.argmin(first)) + 1 if not first.all() else steps
             err = float((got_l[:, :upto] - want_l[:, :upto]).abs().max())
-            print(f"[17/{PHASES}] decode lane fp32 int8 vs its "
-                  f"weight_dequantize twin (F.linear), bs{bs} {steps} tokens: "
-                  f"logits max abs diff {err:.3g} over {upto} steps, tokens "
-                  f"equal {bool(same.all())}", flush=True)
-            if not err <= 2e-4:
-                raise AssertionError(f"int8 logits differ from the "
+            label = f"decode lane {name} int8 bs{bs}"
+            gaps = (_divergence_gaps(label, same, want_l)
+                    if dtype == torch.bfloat16 else [])
+            print(f"[17/{PHASES}] {label} vs its weight_dequantize twin "
+                  f"(F.linear), {steps} tokens: logits max abs diff "
+                  f"{err:.3g} over {upto} steps, tokens equal "
+                  f"{bool(same.all())}, top-2 gaps at divergences {gaps}",
+                  flush=True)
+            if dtype == torch.float32 and not err <= 2e-4:
+                raise AssertionError(f"{label}: logits differ from the "
                                      f"dequantized model's by {err} > 2e-4")
-            del twin
+        del twin
         for m in models.values():
             m.__dict__.pop("_generation_engines", None)
         del models
         gc.collect()
         torch.cuda.empty_cache()
-    return launches
+    return launches, passes
 
 
 # ---------------------------------------------------------------------------
@@ -4102,8 +4221,26 @@ def decode_lane(dev):
 # prints that difference over the rows both runs share
 # (``logits_max_abs_diff``: 0.03125-0.0625 at GPT-3 1.3B width, one bf16
 # ulp of logits of 4-16, over phase 18's four bf16 runs, none of which
-# diverged), so the bar is twice the largest
+# diverged), so the bar is twice the largest. Phase 17 holds the bf16
+# int8 lane to its weight_dequantize twin by the same bar
 BF16_GAP_BAR = 0.125
+
+
+def _divergence_gaps(label, same, logits):
+    """The reference ``logits``' top-2 gap at each row's first divergence
+    (``same``: [rows, steps], tokens equal to the reference's); raises if
+    one is at or over `BF16_GAP_BAR`."""
+    top2 = logits.topk(2, dim=-1).values
+    gaps = []
+    for row in range(same.shape[0]):
+        if same[row].all():
+            continue
+        t = int(np.argmin(same[row]))
+        gaps.append(float(top2[row, t, 0] - top2[row, t, 1]))
+    if gaps and max(gaps) >= BF16_GAP_BAR:
+        raise AssertionError(f"{label}: a divergence where the reference "
+                             f"top-2 gap is {max(gaps)} >= {BF16_GAP_BAR}")
+    return gaps
 
 
 def _spec_tiny(dev):
@@ -4154,18 +4291,8 @@ def _spec_lane_case(label, tgt, drf, kind, bs, ids, dtype):
     spec["logits_max_abs_diff"] = float(
         (lg[:, :upto] - slg[:, :upto]).abs().max()) if upto else None
     if not same.all():
-        top2 = lg.topk(2, dim=-1).values
-        gaps = []
-        for row in range(bs):
-            if same[row].all():
-                continue
-            t = int(np.argmin(same[row]))
-            gaps.append(float(top2[row, t, 0] - top2[row, t, 1]))
-        spec["divergence_top2_gaps"] = gaps
-        if max(gaps) >= BF16_GAP_BAR:
-            raise AssertionError(
-                f"spec lane {label} bf16 {kind} bs{bs}: a divergence where "
-                f"the plain top-2 gap is {max(gaps)} >= {BF16_GAP_BAR}")
+        spec["divergence_top2_gaps"] = _divergence_gaps(
+            f"spec lane {label} bf16 {kind} bs{bs}", same, lg)
     spec["speedup"] = spec["decode_tok_s"] / plain["decode_tok_s"]
     print(f"[18/{PHASES}] spec lane gpt3-1.3b {label} {name} {kind} bs{bs}: "
           f"plain {json.dumps(plain)}; spec {json.dumps(spec)}", flush=True)
@@ -5312,7 +5439,7 @@ def main() -> int:
     llama_parity(dev)
     llama_o2_parity(dev)
     llama, llama_steps = llama_full_width(dev)
-    lane = decode_lane(dev)
+    lane, lane_passes = decode_lane(dev)
     spec = spec_decode(dev)
     bert_parity(dev)
     dropout_contract(dev)
@@ -5373,15 +5500,14 @@ def main() -> int:
         r = weight_only[name]
         line.append({"name": name, "route": "cuda", "source": WO_SOURCE,
                      "replaces": WO_REPLACES, "launches": lane[route],
-                     # the gemv's a decode step, the tiled kernel's a
-                     # prompt pass
-                     "launches_per_step": lane[route] / lane[
-                         "decode_steps" if route == "gemv"
-                         else "prompt_passes"],
+                     # the decode routes' a decode step, the prompt
+                     # routes' a prompt pass, in the runs that took them
+                     "launches_per_step": lane[route] / lane_passes[route],
                      **{k: r[k] for k in ("max_abs_err", "max_rel_err", "ms",
                                           "plain_ms", "bound_ms", "bound_by",
                                           "library_ms", "library",
                                           "dequant_linear_ms", "shape",
+                                          "stream_ms", "library_stream_ms",
                                           "config", "row_keys", "rows")}})
     print(f"[19/{PHASES}] kernels:", flush=True)
     print(json.dumps({"kernels": line}), flush=True)

@@ -6,7 +6,9 @@
 // and splash kernels (attention_wgmma.cuh, #7 and #9), the flash and
 // splash backwards (attention_wgmma_bwd.cuh, #6, #8 and #10) and the chunk
 // attention over paged pools (paged_wgmma.cuh, #3 and #4, whose rows are
-// copied by threads with cp.async, not by TMA). The split-K decode
+// copied by threads with cp.async, not by TMA) and the weight-only linear's
+// prompt route (weight_only.cu, bf16 and fp16 x: an int8 tile by TMA,
+// dequantized by threads into a swizzled panel). The split-K decode
 // (paged_split.cuh, #1 and #2) takes only its mbarriers and 1-D bulk
 // copies (`load_1d`) and does its math on CUDA cores. The fp32 routes stay
 // on tile_mma.cuh or paged_attention.cu's CUDA-core body (wgmma has no
@@ -18,7 +20,8 @@
 //     row r stored at chunk c ^ (r % 8) (the 128-byte swizzle). A panel
 //     starts on a 1024-byte boundary. TMA writes exactly this image for a
 //     box whose inner extent is 64 elements (`make_map`, `load_2d`,
-//     `load_4d`); `sw128` gives the byte offset of an element in it.
+//     `load_4d`; `make_map_of` for another element type or swizzle);
+//     `sw128` gives the byte offset of an element in it.
 //     `load_1d` copies contiguous bytes with no map and no swizzle.
 //   * Descriptors (`desc`). A K-major operand (K contiguous, the rows are
 //     M or N) is one panel per 64 columns of K: a k16 step starts 32 bytes
@@ -29,9 +32,10 @@
 //     64 columns of M or N). 16-bit types take both majors, so no operand
 //     is transposed in memory.
 //   * Warpgroup products. `mma_ss<N, tA, tB>`: D[64 x N] (+)= A . B, A and
-//     B from descriptors; `mma_rs<N, tB>`: A from registers. bf16 x bf16
-//     -> fp32, m64nNk16, N in {64, 128, 256} (the widths these kernels
-//     use; another width is one more instantiation of the same pattern).
+//     B from descriptors (`mma_ss<N, tA, tB, true>`: fp16 operands, the
+//     .f16 form); `mma_rs<N, tB>`: A from registers. bf16 x bf16 -> fp32,
+//     m64nNk16, N in {64, 128, 256} (the widths these kernels use;
+//     another width is one more instantiation of the same pattern).
 //     `fence()` before a batch (the accumulators or A registers were
 //     written by other instructions), `commit()` after it, `wait<n>()`
 //     until at most n batches are in flight; `fence_regs` keeps the
@@ -202,12 +206,14 @@ __device__ __forceinline__ void load_1d(void* dst, const void* src,
       : "memory");
 }
 
-// A bf16 tensor map with the 128-byte swizzle: dims[0] is the contiguous
-// dimension; strides[i] is dimension i + 1's stride in elements; box[0] is
-// 64 (one swizzled row). Elements past dims read as zeros.
-inline cudaError_t make_map(CUtensorMap* map, const void* base, int rank,
-                            const long long* dims, const long long* strides,
-                            const int* box) {
+// A tensor map of `elem_bytes`-byte elements of `type`: dims[0] is the
+// contiguous dimension; strides[i] is dimension i + 1's stride in
+// elements; box[i] the tile's extent. Elements past dims read as zeros.
+inline cudaError_t make_map_of(CUtensorMap* map, const void* base, int rank,
+                               const long long* dims,
+                               const long long* strides, const int* box,
+                               CUtensorMapDataType type, int elem_bytes,
+                               CUtensorMapSwizzle swizzle) {
   using Encode = decltype(&cuTensorMapEncodeTiled);
   static Encode encode = [] {
     void* fn = nullptr;
@@ -228,14 +234,23 @@ inline cudaError_t make_map(CUtensorMap* map, const void* base, int rank,
     d[i] = (cuuint64_t)dims[i];
     b[i] = (cuuint32_t)box[i];
     e[i] = 1;
-    if (i) s[i - 1] = (cuuint64_t)strides[i - 1] * sizeof(__nv_bfloat16);
+    if (i) s[i - 1] = (cuuint64_t)strides[i - 1] * elem_bytes;
   }
   const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
-      const_cast<void*>(base), d, s, b, e, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+      map, type, (cuuint32_t)rank, const_cast<void*>(base), d, s, b, e,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A bf16 tensor map with the 128-byte swizzle: box[0] is 64 (one
+// swizzled row).
+inline cudaError_t make_map(CUtensorMap* map, const void* base, int rank,
+                            const long long* dims, const long long* strides,
+                            const int* box) {
+  return make_map_of(map, base, rank, dims, strides, box,
+                     CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                     CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 // ---------------------------------------------------------------------------
@@ -297,34 +312,45 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
   "%124, %125, %126, %127}"
 
 // D[64 x N] = (scale_d ? D : 0) + A . B over one k16 step; kTA / kTB: A /
-// B MN-major.
-template <int N, int kTA, int kTB>
+// B MN-major; kF16: fp16 operands (the .f16 form), else bf16.
+#define HOP_SS(W, AB, REGS, DA, DB, SC, TA, TB)                       \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " SC ", 0;\n"          \
+               "wgmma.mma_async.sync.aligned.m64n" #W "k16.f32." AB "." AB \
+               " " REGS ", " DA ", " DB ", p, 1, 1, " TA ", " TB ";\n}\n"
+template <int N, int kTA, int kTB, bool kF16 = false>
 __device__ __forceinline__ void mma_ss(float (&d)[N / 2], uint64_t da,
                                        uint64_t db, int scale_d) {
   static_assert(N == 64 || N == 128 || N == 256, "wgmma width");
   if constexpr (N == 64) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " HOP_REGS32
-        ", %32, %33, p, 1, 1, %35, %36;\n}\n"
-        : HOP_D32(0)
-        : "l"(da), "l"(db), "r"(scale_d), "n"(kTA), "n"(kTB));
+    if constexpr (kF16)
+      HOP_SS(64, "f16", HOP_REGS32, "%32", "%33", "%34", "%35", "%36")
+          : HOP_D32(0)
+          : "l"(da), "l"(db), "r"(scale_d), "n"(kTA), "n"(kTB));
+    else
+      HOP_SS(64, "bf16", HOP_REGS32, "%32", "%33", "%34", "%35", "%36")
+          : HOP_D32(0)
+          : "l"(da), "l"(db), "r"(scale_d), "n"(kTA), "n"(kTB));
   } else if constexpr (N == 128) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " HOP_REGS64
-        ", %64, %65, p, 1, 1, %67, %68;\n}\n"
-        : HOP_D32(0), HOP_D32(32)
-        : "l"(da), "l"(db), "r"(scale_d), "n"(kTA), "n"(kTB));
+    if constexpr (kF16)
+      HOP_SS(128, "f16", HOP_REGS64, "%64", "%65", "%66", "%67", "%68")
+          : HOP_D32(0), HOP_D32(32)
+          : "l"(da), "l"(db), "r"(scale_d), "n"(kTA), "n"(kTB));
+    else
+      HOP_SS(128, "bf16", HOP_REGS64, "%64", "%65", "%66", "%67", "%68")
+          : HOP_D32(0), HOP_D32(32)
+          : "l"(da), "l"(db), "r"(scale_d), "n"(kTA), "n"(kTB));
   } else {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " HOP_REGS128
-        ", %128, %129, p, 1, 1, %131, %132;\n}\n"
-        : HOP_D32(0), HOP_D32(32), HOP_D32(64), HOP_D32(96)
-        : "l"(da), "l"(db), "r"(scale_d), "n"(kTA), "n"(kTB));
+    if constexpr (kF16)
+      HOP_SS(256, "f16", HOP_REGS128, "%128", "%129", "%130", "%131", "%132")
+          : HOP_D32(0), HOP_D32(32), HOP_D32(64), HOP_D32(96)
+          : "l"(da), "l"(db), "r"(scale_d), "n"(kTA), "n"(kTB));
+    else
+      HOP_SS(256, "bf16", HOP_REGS128, "%128", "%129", "%130", "%131", "%132")
+          : HOP_D32(0), HOP_D32(32), HOP_D32(64), HOP_D32(96)
+          : "l"(da), "l"(db), "r"(scale_d), "n"(kTA), "n"(kTB));
   }
 }
+#undef HOP_SS
 
 // The same with A[64 x 16] from registers (`pack_a`).
 template <int N, int kTB>

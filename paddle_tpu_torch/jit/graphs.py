@@ -14,7 +14,10 @@ than the kernels take on the card at serving batch sizes; a captured
   `StepGraphs.capture` first runs the step body once eagerly on a side
   stream (the warm-up: cuBLAS handles and workspaces, the split decode's
   counters, the allocator's blocks come into being outside the capture),
-  then captures it on the same stream. The caller fills the static
+  then captures it on the same stream, with Python's cyclic collector
+  held off during the capture (a graph of a dropped engine that the
+  collector frees inside another capture invalidates that capture). The
+  caller fills the static
   inputs for that warm-up with values that change nothing it keeps (all
   slots inactive, all chunk rows padding: their writes land on the trash
   page), or with the call's own inputs where the step can run twice (a
@@ -33,6 +36,8 @@ overwritten by its next replay.
 """
 from __future__ import annotations
 
+import contextlib
+import gc
 import weakref
 
 import numpy as np
@@ -44,11 +49,13 @@ from ..ops.kernels.flash_attention import (flash_attention_fwd,
 from ..ops.kernels.splash_attention import splash_attention_fwd
 from ..ops.kernels.weight_only import weight_only_linear
 
-__all__ = ["StaticInputs", "StepGraphs"]
+__all__ = ["StaticInputs", "StepGraphs", "collector_held", "graph_of"]
 
 # the launch counters, besides the paged kernels', that a step's graph
 # can move: (wrapper, attribute)
 _OTHER_COUNTERS = (
+    (weight_only_linear, "launches_mma"),
+    (weight_only_linear, "launches_wgmma"),
     (weight_only_linear, "launches_gemv"),
     (weight_only_linear, "launches_tiled"),
     (splash_attention_fwd, "launches"),
@@ -56,6 +63,41 @@ _OTHER_COUNTERS = (
     (flash_attention_fwd_single, "launches"),
     (flash_attention_fwd, "launches"),
     (flash_attention_fwd, "launches_wgmma"))
+
+
+@contextlib.contextmanager
+def collector_held():
+    """No automatic collection of Python's cyclic garbage until the block
+    ends (what it would have freed waits for the next collection):
+    freeing a ``CUDAGraph`` (one of an engine that was dropped but sits
+    in a reference cycle) inside a capture is an operation a capturing
+    stream does not permit, and it invalidates the capture."""
+    held = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if held:
+            gc.enable()
+
+
+def graph_of(fns):
+    """One CUDA graph of the calls ``fns`` back to back, not yet
+    replayed: each runs once eagerly on a side stream (the warm-up), then
+    all are captured there with the cyclic collector held. A timing's
+    graph: the launch counters move by the warm-up and the capture and
+    not by a replay."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for fn in fns:
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with collector_held(), torch.cuda.graph(graph):
+        for fn in fns:
+            fn()
+    return graph
 
 
 def _counters():
@@ -155,8 +197,9 @@ class StepGraphs:
         cur.wait_stream(side)
         before = _counters()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=side):
-            out = fn()
+        with collector_held():
+            with torch.cuda.graph(graph, stream=side):
+                out = fn()
         after = _counters()
         launches = {k: after[k] - before[k] for k in after
                     if after[k] != before[k]}

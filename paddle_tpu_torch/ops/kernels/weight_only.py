@@ -20,13 +20,29 @@ cast to x's dtype and the bias added in that dtype. ``weight_dtype``,
 reference (the scale's shape decides the grouping).
 
 Routing is by x's device, nothing else: CPU tensors take the plain
-version `weight_only_linear_ref`; CUDA tensors launch the kernel or raise.
-On the card the wrapper picks the route by the rows of x, ``M``:
-``wo_gemv`` for M <= 16 (the decode step: CUDA cores, K split so that
-every SM has blocks; counted in ``weight_only_linear.launches_gemv``) and
-``wo_tiled`` for larger M (the prompt pass: 64 x 64 tiles on
-``tile_mma.cuh``; ``.launches_tiled``). Launches on the current stream,
-so CUDA graphs capture them (`jit.graphs` counts a graph's replays).
+version `weight_only_linear_ref`; CUDA tensors launch a kernel or raise.
+On the card the wrapper picks one of four routes before the launch
+(`route`, a pure function of x's dtype, the rows M, K, the group size
+and the alignment; each counted on its own attribute of
+``weight_only_linear``):
+
+* ``mma`` (bf16 / fp16 x, M <= 16, K and the group multiples of 16, x
+  and the weight 16-byte aligned): ``wo_mma_kernel``, the decode step on
+  tensor cores (``mma.sync``), the weight dequantized in registers, K
+  split by `mma_plan`; ``.launches_mma``.
+* ``wgmma`` (the same rules, M > 16): ``wo_wgmma_kernel``, the prompt
+  pass on warpgroup products fed by a TMA ring, 128 weight rows by 64,
+  128 or 256 tokens, K split by `wgmma_plan` when the tiles do not fill
+  the card; ``.launches_wgmma``.
+* ``gemv`` / ``tiled``: the first design, for fp32 x (true fp32: TF32
+  is off) and the shapes the two above refuse: ``wo_gemv_kernel`` (M <=
+  16, CUDA cores, K split by `gemv_plan`; ``.launches_gemv``) and
+  ``wo_tiled_kernel`` (64 x 64 tiles on ``tile_mma.cuh``;
+  ``.launches_tiled``).
+
+A failed launch raises; no route gives way to another. Launches on the
+current stream, so CUDA graphs capture them (`jit.graphs` counts a
+graph's replays).
 """
 from __future__ import annotations
 
@@ -37,8 +53,8 @@ import torch
 
 from . import _build
 
-__all__ = ["GEMV_MAX_ROWS", "gemv_plan", "weight_only_linear",
-           "weight_only_linear_ref"]
+__all__ = ["GEMV_MAX_ROWS", "ROUTES", "gemv_plan", "mma_plan", "route",
+           "weight_only_linear", "weight_only_linear_ref", "wgmma_plan"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -47,11 +63,23 @@ _SIGNATURES = {
     "wo_gemv": (_P,) * 6 + (_I,) * 7 + (_P,),
     # x, w, scale, bias, y, M, N, K, gs, dtype, vec, stream
     "wo_tiled": (_P,) * 5 + (_I,) * 6 + (_P,),
+    "wo_mma_rows": (), "wo_mma_step": (), "wo_mma_max_split": (),
+    "wo_wgmma_rows": (), "wo_mma_smem": (_I, _I), "wo_wgmma_smem": (_I,),
+    # x, w, scale, bias, y, part, M, N, K, gs, ksplit, dtype, stream
+    "wo_mma": (_P,) * 6 + (_I,) * 6 + (_P,),
+    # x, w, scale, bias, y, part, M, N, K, gs, bn, kper, dtype, stream
+    "wo_wgmma": (_P,) * 6 + (_I,) * 7 + (_P,),
 }
 GEMV_MAX_ROWS = 16         # csrc/weight_only.cu kMaxM
 ROWS_PER_BLOCK = 32        # kRowsPerBlock
 CHUNK = 512                # kChunk: columns of one warp pass
 MAX_SPLIT = 1024           # kMaxSplit: columns of K a block at most
+MMA_ROWS = 64              # kMmaRows: weight rows a decode block (4 warps)
+MMA_STEP = 256             # kMmaStep: columns of one pass; a split's unit
+MMA_MAX_SPLIT = 2048       # kMmaMaxSplit
+WGMMA_ROWS = 128           # wg::kBM: weight rows a prompt block
+WGMMA_BK = 64              # wg::kBK: columns of K a stage
+ROUTES = ("mma", "wgmma", "gemv", "tiled")
 _CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
@@ -128,8 +156,11 @@ _sms = {}
 
 def _lib():
     lib = _build.load("weight_only", _SIGNATURES)
-    got = (lib.wo_max_gemv_rows(), lib.wo_chunk(), lib.wo_max_split())
-    if got != (GEMV_MAX_ROWS, CHUNK, MAX_SPLIT):
+    got = (lib.wo_max_gemv_rows(), lib.wo_chunk(), lib.wo_max_split(),
+           lib.wo_mma_rows(), lib.wo_mma_step(), lib.wo_mma_max_split(),
+           lib.wo_wgmma_rows())
+    if got != (GEMV_MAX_ROWS, CHUNK, MAX_SPLIT, MMA_ROWS, MMA_STEP,
+               MMA_MAX_SPLIT, WGMMA_ROWS):
         raise RuntimeError(f"csrc/weight_only.cu's sizes {got} differ from "
                            f"the wrapper's")
     return lib
@@ -151,6 +182,60 @@ def _aligned(*ts):
     return all(t is None or t.data_ptr() % 16 == 0 for t in ts)
 
 
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _partials(splits, m, n, dev):
+    """The fp32 ``[splits, M, N]`` partials of a launch whose K is split,
+    else None."""
+    return (torch.empty(splits * m * n, dtype=torch.float32, device=dev)
+            if splits > 1 else None)
+
+
+def route(dtype, m, k, group, aligned):
+    """The route of a launch over x ``[m, k]`` of ``dtype``, a weight
+    grouped by ``group`` columns (0 per channel) and ``aligned`` (x and
+    the weight on 16-byte boundaries): one of `ROUTES`."""
+    hopper = (dtype in (torch.bfloat16, torch.float16) and k % 16 == 0
+              and group % 16 == 0 and aligned)
+    if m <= GEMV_MAX_ROWS:
+        return "mma" if hopper else "gemv"
+    return "wgmma" if hopper else "tiled"
+
+
+def mma_plan(n, k, sms):
+    """(ksplit, splits) of a ``mma`` launch over an ``[n, k]`` weight on
+    a card of ``sms`` SMs: a power of two of splits, the fewest that give
+    at least two blocks of `MMA_ROWS` rows an SM (so that a K of a power
+    of two splits evenly), each a multiple of `MMA_STEP` columns and at
+    most `MMA_MAX_SPLIT`."""
+    blocks = -(-n // MMA_ROWS)
+    want = 1 << (max(1, -(-2 * sms // blocks)) - 1).bit_length()
+    ksplit = -(-math.ceil(k / want) // MMA_STEP) * MMA_STEP
+    ksplit = min(MMA_MAX_SPLIT, max(MMA_STEP, ksplit))
+    return ksplit, -(-k // ksplit)
+
+
+def wgmma_plan(m, n, k, sms):
+    """(bn, kper, splits) of a ``wgmma`` launch: token tiles of ``bn``
+    (64 up to 64 rows, 128 up to 128, else 256), and K cut into
+    ``splits`` pieces of ``kper`` steps of `WGMMA_BK` columns when the
+    tiles alone leave SMs idle (each piece at least 4 steps)."""
+    bn = 64 if m <= 64 else 128 if m <= 128 else 256
+    tiles = -(-n // WGMMA_ROWS) * -(-m // bn)
+    steps = -(-k // WGMMA_BK)
+    want = max(1, min(sms // tiles, steps // 4))
+    kper = -(-steps // want)
+    return bn, kper, -(-steps // kper)
+
+
+def _sm_count(dev):
+    if dev not in _sms:
+        _sms[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    return _sms[dev]
+
+
 def _launch(x2, weight, bias, weight_scale):
     """One launch over x2 ``[M, K]`` (contiguous); returns y ``[M, N]``
     and the route."""
@@ -164,31 +249,36 @@ def _launch(x2, weight, bias, weight_scale):
     s = None if weight_scale is None else weight_scale.float().contiguous()
     b = None if bias is None else bias.to(x2.dtype).contiguous()
     gs = 0 if s is None or s.dim() == 1 else k // s.shape[0]
-    vec = int(k % 16 == 0 and gs % 16 == 0 and _aligned(w))
-    ptr = [t.data_ptr() if t is not None else None
-           for t in (x2, w, s, b, y)]
+    which = route(x2.dtype, m, k, gs, _aligned(x2, w))
+    ptr = [_ptr(t) for t in (x2, w, s, b, y)]
     dev = x2.device
+    code = _CODES[x2.dtype]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if m <= GEMV_MAX_ROWS:
-            if dev not in _sms:
-                _sms[dev] = torch.cuda.get_device_properties(
-                    dev).multi_processor_count
-            ksplit, splits = gemv_plan(n, k, _sms[dev])
-            part = (torch.empty(splits * m * n, dtype=torch.float32,
-                                device=dev) if splits > 1 else None)
-            rc = lib.wo_gemv(*ptr, None if part is None else part.data_ptr(),
-                             m, n, k, gs, ksplit, _CODES[x2.dtype], vec,
-                             stream)
-            route = "gemv"
-        else:
-            vec = int(vec and _aligned(x2))
-            rc = lib.wo_tiled(*ptr, m, n, k, gs, _CODES[x2.dtype], vec,
+        if which == "mma":
+            ksplit, splits = mma_plan(n, k, _sm_count(dev))
+            part = _partials(splits, m, n, dev)
+            rc = lib.wo_mma(*ptr, _ptr(part), m, n, k, gs, ksplit, code,
+                            stream)
+        elif which == "wgmma":
+            bn, kper, splits = wgmma_plan(m, n, k, _sm_count(dev))
+            part = _partials(splits, m, n, dev)
+            rc = lib.wo_wgmma(*ptr, _ptr(part), m, n, k, gs, bn, kper, code,
                               stream)
-            route = "tiled"
+        elif which == "gemv":
+            vec = int(k % 16 == 0 and gs % 16 == 0 and _aligned(w))
+            ksplit, splits = gemv_plan(n, k, _sm_count(dev))
+            part = _partials(splits, m, n, dev)
+            rc = lib.wo_gemv(*ptr, _ptr(part), m, n, k, gs, ksplit, code,
+                             vec, stream)
+        else:
+            # 16-bit x comes here only with a shape `route` refuses: vec 0
+            vec = int(k % 16 == 0 and gs % 16 == 0 and _aligned(w, x2))
+            rc = lib.wo_tiled(*ptr, m, n, k, gs, code, vec, stream)
     if rc:
-        raise RuntimeError(f"wo_{route} launch failed: CUDA error {rc}")
-    return y, route
+        raise RuntimeError(f"weight_only_linear's {which} route: launch "
+                           f"failed, CUDA error {rc}")
+    return y, which
 
 
 def weight_only_linear(x, weight, bias=None, weight_scale=None,
@@ -210,5 +300,7 @@ def weight_only_linear(x, weight, bias=None, weight_scale=None,
     return y.reshape(*lead, weight.shape[0])
 
 
+weight_only_linear.launches_mma = 0
+weight_only_linear.launches_wgmma = 0
 weight_only_linear.launches_gemv = 0
 weight_only_linear.launches_tiled = 0

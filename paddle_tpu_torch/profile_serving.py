@@ -1,7 +1,7 @@
 """Where the serving path's time goes on the card.
 
     python -m paddle_tpu_torch.profile_serving [--timed N]
-        [--kv-quant {int8,int4}] [--eager] [--spec]
+        [--kv-quant {int8,int4}] [--eager] [--spec] [--weight-only]
 
 Serves the workload of ``chip_smoke.py`` phase 5 (GPT-3 1.3B width,
 bf16 weights, bf16 pools or with ``--kv-quant`` int8 / int4 ones, 8
@@ -25,20 +25,30 @@ draft computes its logits), through a plain engine and a speculative one
 the draft's decode (``paged_decode_split_kernel``: only the draft
 decodes in the spec run), the chunk kernel (the prompt chunks, and in the
 spec run the verify too: ``verify_chunk_s`` is the spec run's chunk time
-less the plain run's), GEMM and the rest, with the idle share. Needs a
+less the plain run's), GEMM and the rest, with the idle share.
+``--weight-only`` profiles the decode products alone: GPT-3 1.3B's four
+projections at M 1, 8 and 1024 over bf16 x, int8 per channel, each as 8
+calls over 8 weights back to back in one CUDA graph (none of the weights
+in L2 when its call comes, as in a decode step), and prints the device
+ms a call by kernel (``weight_only_linear``'s route and, when its K is
+split, the combine) beside ``F.linear``'s over the bf16 weights. Needs a
 CUDA card.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import re
 import time
 
 import numpy as np
 import torch
 
 from .inference.spec_decode_selftest import strong_pair
+from .jit.graphs import graph_of
 from .models import GPTForCausalLM, gpt_config
+from .nn.quant import weight_dequantize, weight_quantize
+from .ops.kernels.weight_only import weight_only_linear
 from .serving import ServingEngine
 
 _ATTENTION = ("paged_decode_split_kernel", "paged_decode_kernel",
@@ -140,6 +150,57 @@ def _spec(args, cfg):
     return out
 
 
+# GPT-3 1.3B's four projections, [out, in]
+_PROJECTIONS = {"qkv": (6144, 2048), "out_proj": (2048, 2048),
+                "fc1": (8192, 2048), "fc2": (2048, 8192)}
+
+
+def _by_kernel(fns, replays=5):
+    """{kernel: device ms a call} of ``fns`` captured back to back in
+    one CUDA graph and replayed under the profiler."""
+    graph = graph_of(fns)
+    graph.replay()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(replays):
+            graph.replay()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        name = re.sub(r"^void |<.*$|\(.*$", "", e.key)
+        if e.device_time_total and name:
+            out[name] = out.get(name, 0.0) + (
+                e.device_time_total / 1e3 / replays / len(fns))
+    return out
+
+
+def _weight_only(copies=8):
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = []
+    for proj, (n, k) in _PROJECTIONS.items():
+        ws = [weight_quantize(torch.randn(k, n, device="cuda",
+                                          generator=gen) * 0.02)
+              for _ in range(copies)]
+        wbs = [weight_dequantize(q, s, out_dtype=torch.bfloat16)
+               .t().contiguous() for q, s in ws]
+        for m in (1, 8, 1024):
+            x = torch.randn(m, k, device="cuda", generator=gen).to(
+                torch.bfloat16)
+            b = (torch.randn(n, device="cuda", generator=gen) * 0.02).to(
+                torch.bfloat16)
+            rows.append({
+                "proj": proj, "m": m,
+                "weight_only_ms": _by_kernel(
+                    [lambda q=q, s=s: weight_only_linear(x, q, b, s)
+                     for q, s in ws]),
+                "f_linear_ms": _by_kernel(
+                    [lambda w=w: torch.nn.functional.linear(x, w, b)
+                     for w in wbs])})
+        del ws, wbs
+    return rows
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--timed", type=int, default=0, metavar="N",
@@ -150,9 +211,15 @@ def main(argv=None):
                     help="the eager loop (compiled=False), not the graphs")
     ap.add_argument("--spec", action="store_true",
                     help="the strong pair, plain and speculative")
+    ap.add_argument("--weight-only", action="store_true",
+                    help="the decode products alone, by kernel")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_serving needs a CUDA card")
+    if args.weight_only:
+        print(json.dumps({"device": torch.cuda.get_device_name(0),
+                          "weight_only": _weight_only()}))
+        return
     cfg = gpt_config("gpt3-1.3b")
     if args.spec:
         print(json.dumps(_spec(args, cfg)))

@@ -19,6 +19,7 @@ and ``training=False`` equal to ``dropout_p=0`` bit for bit.
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one intra-op thread a process)
 
 import paddle_tpu as paddle
 import paddle_tpu.nn.functional as JF

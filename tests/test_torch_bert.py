@@ -34,6 +34,7 @@ arrays handed to both, with padding masks of four lengths. Bars:
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one intra-op thread a process)
 
 import jax.numpy as jnp
 

@@ -27,6 +27,7 @@ import paddle_tpu as paddle
 import paddle_tpu.distributed as jdist
 from paddle_tpu.distributed import env as jenv
 import torch
+import torch_threads  # noqa: F401  (one intra-op thread a process)
 
 from paddle_tpu_torch.distributed.collective import quantized_sum_plain
 from paddle_tpu_torch.distributed.sharding_selftest import (global_arrays,

@@ -20,6 +20,7 @@ launcher's deadline), against the JAX package's.
 """
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401  (one intra-op thread a process)
 
 import jax
 import jax.numpy as jnp

@@ -18,6 +18,7 @@ reference's own bars, tests/test_training_kernels.py).
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one intra-op thread a process)
 
 import jax.numpy as jnp
 

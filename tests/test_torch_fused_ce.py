@@ -23,6 +23,7 @@ out in fp32 chunk by chunk, gives the reference's gradients.
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one intra-op thread a process)
 
 import jax
 import jax.numpy as jnp

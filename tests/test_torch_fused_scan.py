@@ -29,6 +29,7 @@ step fails its own test (tests/test_training_kernels.py
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one intra-op thread a process)
 
 import jax.numpy as jnp
 

@@ -10,6 +10,7 @@ own bar for a cached step against the full forward pass).
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one intra-op thread a process)
 
 import jax.numpy as jnp
 

@@ -10,6 +10,7 @@ trip must be bit-exact.
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one intra-op thread a process)
 
 import jax.numpy as jnp
 

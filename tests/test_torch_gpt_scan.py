@@ -11,6 +11,7 @@ same products in the same order).
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one intra-op thread a process)
 from torch.utils._python_dispatch import TorchDispatchMode
 
 import jax.numpy as jnp

@@ -15,6 +15,7 @@ import struct
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one intra-op thread a process)
 
 import paddle_tpu.io as jio
 from paddle_tpu.vision.datasets import MNIST as JMNIST

@@ -1782,7 +1782,8 @@ def test_weight_only_linear_against_plain(cuda, dtype, m, shape):
     q, s = weight_quantize(w, group_size=group)
     x = torch.randn(m, k, device=cuda, generator=gen).to(dtype)
     b = torch.randn(n, device=cuda, generator=gen).to(dtype)
-    route = "launches_gemv" if m <= wo.GEMV_MAX_ROWS else "launches_tiled"
+    gs = 0 if group == -1 else group
+    route = "launches_" + wo.route(dtype, m, k, gs, True)
     before = getattr(wo.weight_only_linear, route)
     got = wo.weight_only_linear(x, q, b, s)
     again = wo.weight_only_linear(x, q, b, s)
@@ -1794,6 +1795,78 @@ def test_weight_only_linear_against_plain(cuda, dtype, m, shape):
                 want.float().abs().max())
     assert err <= WO_TOL[dtype], err
     assert torch.equal(got, again)
+
+
+def _wo_case(dev, m, k, n, algo, group, dtype, bias, seed):
+    """The kernel against `weight_only_linear_ref` (`WO_TOL`),
+    bit-identical on a second call, counted once a call on its route's
+    counter; returns the route."""
+    from paddle_tpu_torch.nn.quant import weight_quantize
+    from paddle_tpu_torch.ops.kernels import weight_only as wo
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, s = weight_quantize(torch.randn(k, n, device=dev, generator=gen) * 0.02,
+                           algo=algo, group_size=group)
+    x = torch.randn(m, k, device=dev, generator=gen).to(dtype)
+    b = (torch.randn(n, device=dev, generator=gen) * 0.02).to(dtype) \
+        if bias else None
+    which = wo.route(dtype, m, k, 0 if group == -1 else group, True)
+    counter = f"launches_{which}"
+    before = getattr(wo.weight_only_linear, counter)
+    got = wo.weight_only_linear(x, q, b, s)
+    again = wo.weight_only_linear(x, q, b, s)
+    torch.cuda.synchronize()
+    assert getattr(wo.weight_only_linear, counter) == before + 2
+    want = wo.weight_only_linear_ref(x, q, b, s)
+    assert got.dtype == dtype and got.shape == (m, n)
+    assert torch.isfinite(got).all()
+    err = float((got.float() - want.float()).abs().max() /
+                want.float().abs().max())
+    assert err <= WO_TOL[dtype], err
+    assert torch.equal(got, again)
+    return which
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                         ids=["bf16", "fp16"])
+@pytest.mark.parametrize("m", list(range(1, 17)))
+def test_weight_only_mma_route_every_m(cuda, dtype, m):
+    """The decode route on tensor cores at every M of its two
+    instantiations (one n8 tile of x's rows up to 8, two up to 16), at
+    fc1's shape of GPT-3 1.3B ([8192, 2048]: K split in three)."""
+    assert _wo_case(cuda, m, 2048, 8192, "weight_only_int8", -1, dtype,
+                    True, m) == "mma"
+
+
+# (m, k, n, algo, group): M at the decode route's edges, the speculative
+# verify (40), a chunk (64) and a prompt pass (1024); int8 and int4 per
+# channel and int8 grouped 64 / 128; K a multiple of 16 but not of 64
+# (208) and N not a multiple of either route's tile (100, 200)
+WO_HOPPER_CASES = [
+    (m, k, n, algo, group)
+    for m in (1, 8, 9, 16, 17, 40, 64, 1024)
+    for k, n, algo, group in ((208, 100, "weight_only_int8", -1),
+                              (2048, 2048, "weight_only_int8", -1),
+                              (2048, 2048, "weight_only_int4", -1),
+                              (2560, 200, "weight_only_int8", 64),
+                              (2048, 6144, "weight_only_int8", 128))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bias", [False, True], ids=["nobias", "bias"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                         ids=["bf16", "fp16"])
+@pytest.mark.parametrize("case", WO_HOPPER_CASES,
+                         ids=[f"m{m}_k{k}_n{n}_{a[-4:]}_g{g}"
+                              for m, k, n, a, g in WO_HOPPER_CASES])
+def test_weight_only_hopper_routes(cuda, case, dtype, bias):
+    """The two Hopper routes (``mma`` at M <= 16, ``wgmma`` above) against
+    the plain version, with and without a bias."""
+    m, k, n, algo, group = case
+    want = "mma" if m <= 16 else "wgmma"
+    assert _wo_case(cuda, m, k, n, algo, group, dtype, bias,
+                    m + k + n) == want
 
 
 @pytest.mark.gpu
@@ -1808,6 +1881,30 @@ def test_weight_only_linear_refuses_on_the_card(cuda):
         wo.weight_only_linear(torch.zeros(2, 32, device=cuda), q.cpu())
     y = wo.weight_only_linear(torch.zeros(0, 32, device=cuda), q)
     assert y.shape == (0, 8)
+    # the Hopper routes' own shape checks: K and the group multiples of
+    # 16, a split a multiple of the pass, a token tile of 64 / 128 / 256,
+    # bf16 / fp16 only; a refused launch returns an error and runs nothing
+    lib = wo._lib()
+    x = torch.zeros(20, 48, dtype=torch.bfloat16, device=cuda)
+    w = torch.zeros(8, 48, dtype=torch.int8, device=cuda)
+    y = torch.empty(20, 8, dtype=torch.bfloat16, device=cuda)
+    stream = torch.cuda.current_stream().cuda_stream
+    ptr = (x.data_ptr(), w.data_ptr(), None, None, y.data_ptr(), None)
+    for m, k, gs, ksplit, code in ((4, 40, 0, 256, 1), (4, 48, 24, 256, 1),
+                                   (4, 48, 0, 128, 1), (4, 48, 0, 4096, 1),
+                                   (4, 48, 0, 256, 0), (17, 48, 0, 256, 1)):
+        assert lib.wo_mma(*ptr, m, 8, k, gs, ksplit, code, stream) != 0
+    for m, k, gs, bn, code in ((20, 40, 0, 64, 1), (20, 48, 8, 64, 2),
+                               (20, 48, 0, 96, 1), (20, 48, 0, 64, 0)):
+        assert lib.wo_wgmma(*ptr, m, 8, k, gs, bn, 1, code, stream) != 0
+    torch.cuda.synchronize()
+    # fp32 x, a K off 16 and a misaligned x take the first design
+    assert wo.route(torch.float32, 4, 48, 0, True) == "gemv"
+    assert wo.route(torch.bfloat16, 20, 40, 0, True) == "tiled"
+    before = wo.weight_only_linear.launches_tiled
+    xm = torch.zeros(20 * 48 + 1, dtype=torch.bfloat16, device=cuda)[1:]
+    wo.weight_only_linear(xm.view(20, 48), w)
+    assert wo.weight_only_linear.launches_tiled == before + 1
 
 
 @pytest.mark.gpu

@@ -11,6 +11,7 @@ out-of-range page lookup lands on page 0 by int32 overflow).
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one intra-op thread a process)
 
 import jax.numpy as jnp
 

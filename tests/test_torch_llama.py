@@ -22,6 +22,7 @@ arrays handed to both. Bars:
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one intra-op thread a process)
 
 import jax.numpy as jnp
 

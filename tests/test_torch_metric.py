@@ -7,6 +7,7 @@ arithmetic is numpy on the host in both, so every value must be equal
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one intra-op thread a process)
 
 import paddle_tpu as paddle
 import paddle_tpu.metric as jmetric

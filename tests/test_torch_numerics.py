@@ -19,6 +19,7 @@ import math
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one intra-op thread a process)
 
 import jax.numpy as jnp
 

@@ -21,6 +21,7 @@ packages; on CPU tensors the port runs its kernels' plain versions
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one intra-op thread a process)
 
 import jax.numpy as jnp
 

@@ -11,6 +11,7 @@ tests/test_torch_kernels_gpu.py.
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one intra-op thread a process)
 
 import jax.numpy as jnp
 

@@ -19,6 +19,7 @@ import time
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one intra-op thread a process)
 
 from paddle_tpu.io import DevicePrefetcher as JPrefetcher
 from paddle_tpu_torch.io import DevicePrefetcher

@@ -21,6 +21,7 @@ The kernel itself runs on the card only
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one intra-op thread a process)
 
 import jax.numpy as jnp
 
@@ -151,6 +152,107 @@ def test_gemv_plan_fills_the_card_and_covers_k():
         assert (splits - 1) * ksplit < k <= splits * ksplit
     assert wo.gemv_plan(2048, 2048, 132) == (512, 4)       # 256 blocks
     assert wo.gemv_plan(2048, 8192, 132) == (1024, 8)
+
+
+@pytest.mark.parametrize("dtype,m,k,group,aligned,want", [
+    (torch.bfloat16, 1, 2048, 0, True, "mma"),
+    (torch.float16, 16, 2048, 128, True, "mma"),
+    (torch.bfloat16, 17, 2048, 0, True, "wgmma"),
+    (torch.float16, 1024, 208, 64, True, "wgmma"),
+    (torch.float32, 8, 2048, 0, True, "gemv"),
+    (torch.float32, 1024, 2048, 0, True, "tiled"),
+    (torch.bfloat16, 8, 200, 0, True, "gemv"),       # K off 16
+    (torch.bfloat16, 40, 200, 0, True, "tiled"),
+    (torch.bfloat16, 8, 2048, 8, True, "gemv"),      # a group off 16
+    (torch.float16, 64, 2048, 0, False, "tiled"),    # misaligned
+    (torch.bfloat16, 16, 2048, 0, False, "gemv"),
+], ids=lambda v: str(v).replace("torch.", ""))
+def test_route_is_a_function_of_dtype_rows_k_group_and_alignment(
+        dtype, m, k, group, aligned, want):
+    assert wo.route(dtype, m, k, group, aligned) == want
+    assert want in wo.ROUTES
+
+
+def test_mma_plan_fills_the_card_and_covers_k():
+    for n, k in ((2048, 2048), (6144, 2048), (8192, 2048), (2048, 8192),
+                 (48, 208), (50304, 2048), (100, 16)):
+        ksplit, splits = wo.mma_plan(n, k, 132)
+        assert ksplit % wo.MMA_STEP == 0
+        assert wo.MMA_STEP <= ksplit <= wo.MMA_MAX_SPLIT
+        assert (splits - 1) * ksplit < k <= splits * ksplit
+        blocks = -(-n // wo.MMA_ROWS)
+        # two blocks an SM, unless K has no more passes to split
+        assert blocks * splits >= 2 * 132 or ksplit == wo.MMA_STEP
+    # GPT-3 1.3B's projections, each K split evenly: fc1 / qkv in 4,
+    # out_proj in 8 passes of 256, fc2 in 16 of 512
+    assert wo.mma_plan(8192, 2048, 132) == (512, 4)
+    assert wo.mma_plan(6144, 2048, 132) == (512, 4)
+    assert wo.mma_plan(2048, 2048, 132) == (256, 8)
+    assert wo.mma_plan(2048, 8192, 132) == (512, 16)
+
+
+def test_wgmma_plan_tiles_and_splits():
+    for m, n, k in ((17, 2048, 2048), (40, 8192, 2048), (64, 2048, 8192),
+                    (128, 6144, 2048), (1024, 8192, 2048), (300, 100, 208),
+                    (2000, 50304, 2048)):
+        bn, kper, splits = wo.wgmma_plan(m, n, k, 132)
+        assert bn == (64 if m <= 64 else 128 if m <= 128 else 256)
+        steps = -(-k // wo.WGMMA_BK)
+        assert (splits - 1) * kper < steps <= splits * kper
+        tiles = -(-n // wo.WGMMA_ROWS) * -(-m // bn)
+        assert splits == 1 or (tiles * splits <= 132 + tiles and kper >= 4)
+    # the prompt pass at batch 8 fills the card with tiles alone; the
+    # speculative verify and batch 1's prompt split K
+    assert wo.wgmma_plan(1024, 8192, 2048, 132) == (256, 32, 1)
+    assert wo.wgmma_plan(40, 8192, 2048, 132) == (64, 16, 2)
+    assert wo.wgmma_plan(128, 2048, 2048, 132) == (128, 4, 8)
+
+
+def _magic_bf16(q):
+    """The decode and prompt routes' int8 -> bf16 bits (csrc/weight_only.cu
+    `dequant4`): the byte (q + 128) under fp32's 2^23, less 2^23 + 128,
+    and the high half of that float."""
+    u = (q.astype(np.int32) + 128).astype(np.uint32)
+    f = (np.uint32(0x4B000000) | u).view(np.float32) - np.float32(8388736.0)
+    return f, (f.view(np.uint32) >> 16).astype(np.uint16)
+
+
+def _magic_fp16(q):
+    """The fp16 form: the byte under 1024 in a half, less 1152."""
+    u = (q.astype(np.int32) + 128).astype(np.uint16)
+    return (np.uint16(0x6400) | u).view(np.float16) - np.float16(1152.0)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                         ids=["bf16", "fp16"])
+def test_the_dequantizer_identity(dtype):
+    """For every int8 value and scales drawn from a seed: the byte
+    permutes give q exactly in T, and q * s_T, exact in fp32, rounded once
+    to T is what `_dequantize` (the plain version) gives. The kernels'
+    bf16x2 / half2 fma with -0 is that single rounding."""
+    q = np.arange(-128, 128, dtype=np.int8)
+    if dtype == torch.bfloat16:
+        f, bits = _magic_bf16(q)
+        np.testing.assert_array_equal(f, q.astype(np.float32))
+        got_q = torch.from_numpy(bits.view(np.int16)).view(torch.bfloat16)
+    else:
+        h = _magic_fp16(q)
+        np.testing.assert_array_equal(h.astype(np.float32),
+                                      q.astype(np.float32))
+        got_q = torch.from_numpy(h)
+    assert torch.equal(got_q, torch.from_numpy(q).to(dtype))
+    rng = np.random.default_rng(0)
+    scales = np.concatenate([
+        rng.standard_normal(64) * 0.02, rng.uniform(1e-5, 1e-3, 64),
+        np.exp(rng.uniform(-12, 4, 128))]).astype(np.float32)
+    qq = torch.from_numpy(np.repeat(q[None, :], scales.size, 0))
+    s_t = torch.from_numpy(scales).to(dtype).float()
+    exact = got_q.float()[None, :] * s_t[:, None]
+    # q has at most 8 significant bits and s_T at most 11: exact in fp32
+    assert torch.equal(exact.double(),
+                       got_q.double()[None, :] * s_t.double()[:, None])
+    want = wo._dequantize(qq, torch.from_numpy(scales), dtype)
+    assert torch.equal(exact.to(dtype), want)
 
 
 @pytest.mark.parametrize("algo", ALGOS)

@@ -10,11 +10,17 @@ count calls as traces, as the reference's eager steps do
 with a stand-in graph that re-runs the captured body and checks that
 every replay reads the tensors the capture bound, so the path's control
 flow (static inputs, the idle warm-up, the seq_lens hand-back) is held
-to the eager loop here too; the real graphs run in the card tests.
+to the eager loop here too; the real graphs run in the card tests. One
+test drives `StepGraphs.capture` itself over stand-in CUDA calls: the
+cyclic collector is held off while the body is captured.
 """
+import contextlib
+import gc
+
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one intra-op thread a process)
 
 import jax.numpy as jnp
 
@@ -342,6 +348,69 @@ def _copy_into(dst, src):
             _copy_into(d, s)
     elif dst is not None:
         dst.copy_(src)
+
+
+def test_capture_holds_the_cyclic_collector(monkeypatch):
+    """`StepGraphs.capture` runs the warm-up with the collector as it
+    was and the capture with it off (a graph freed by it inside a
+    capture invalidates the capture), and gives it back after, also when
+    the capture raises."""
+    class _Stream:
+        def wait_stream(self, other):
+            pass
+
+    @contextlib.contextmanager
+    def _ctx(*args, **kwargs):
+        yield
+
+    monkeypatch.setattr(torch.cuda, "Stream", lambda device=None: _Stream())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: _Stream())
+    monkeypatch.setattr(torch.cuda, "stream", _ctx)
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", object)
+    monkeypatch.setattr(torch.cuda, "graph", _ctx)
+    seen = []
+
+    def body(fail=False):
+        seen.append(gc.isenabled())
+        if fail and len(seen) == 4:
+            raise RuntimeError("the capture failed")
+
+    assert gc.isenabled()
+    graphs.StepGraphs().capture("k", body, "cpu")
+    assert seen == [True, False] and gc.isenabled()
+    with pytest.raises(RuntimeError, match="capture failed"):
+        graphs.StepGraphs().capture("k", lambda: body(True), "cpu")
+    assert seen == [True, False, True, False] and gc.isenabled()
+
+
+def test_graph_of_warms_up_then_captures_with_the_collector_held(
+        monkeypatch):
+    """`graph_of` runs each call once eagerly, then captures them all
+    back to back with the collector off, and gives it back after."""
+    class _Stream:
+        def wait_stream(self, other):
+            pass
+
+    class _Graph:
+        pass
+
+    @contextlib.contextmanager
+    def _ctx(*args, **kwargs):
+        yield
+
+    monkeypatch.setattr(torch.cuda, "Stream", lambda device=None: _Stream())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: _Stream())
+    monkeypatch.setattr(torch.cuda, "stream", _ctx)
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", _Graph)
+    monkeypatch.setattr(torch.cuda, "graph", _ctx)
+    seen = []
+    fns = [lambda i=i: seen.append((i, gc.isenabled())) for i in range(2)]
+    assert gc.isenabled()
+    assert isinstance(graphs.graph_of(fns), _Graph)
+    assert seen == [(0, True), (1, True), (0, False), (1, False)]
+    assert gc.isenabled()
 
 
 @pytest.fixture

@@ -21,6 +21,7 @@ against the port's eager global-norm clip on the whole batch 5e-4 /
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one intra-op thread a process)
 
 import jax.numpy as jnp
 

@@ -25,6 +25,7 @@ Tiny models (vocab 97, hidden 32, 2 layers), as the reference's tests.
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one intra-op thread a process)
 
 import jax.numpy as jnp
 

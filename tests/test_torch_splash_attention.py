@@ -13,6 +13,7 @@ sums on both sides, in another order).
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one intra-op thread a process)
 
 import jax
 import jax.numpy as jnp
