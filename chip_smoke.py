@@ -295,7 +295,39 @@ Phases, one line each (any failure exits non-zero, nothing is caught):
     (e) with two cards or more, ``sharding_selftest`` under
     ``torch.distributed.run --nproc_per_node 2``; with one, a line that
     says it did not run. Every phase-22 and -23 line holds the
-    ``nvidia-smi`` name and power limit.
+    ``nvidia-smi`` name and power limit;
+24. the mp axis, after phase 23 has left the world: (a) the
+    vocab-parallel head's kernels in one process, GPT-3 1.3B's head (h
+    [8192, 2048] over W [50304, 2048] in bf16; h [1024, 2048] over
+    [4096, 2048] in fp32) cut in mp 2 and 4: every shard's forward
+    (`sharded_fused_ce_fwd`: #11 with the labels as the shard's columns,
+    the combine writing the picked logit) and backward (#12 against the
+    global lse) against the plain version within phase 3's bars and
+    bit-identical twice, the counters stepped once a shard, the shards
+    combined as the collective combines them against the unsharded
+    kernels, shard 0's ms (L2 flushed) beside its bound, the plain
+    version and ``F.linear`` + ``logsumexp``; (b) GPT-3 1.3B at dp 1 x
+    mp 2 with both ranks on the card over gloo
+    (``mp_selftest.launch_card``: ``torch.distributed.run
+    --nproc_per_node 2 -m paddle_tpu_torch.distributed.mp_selftest``,
+    ``fleet.init(mp_degree=2)`` -> ``fleet.distributed_model(gpt_scan)
+    .train_step(AdamW + ClipGradByGlobalNorm(1.0))``, bf16 compute over
+    fp32 parameters, 4 x 1024 tokens, 3 steps) against a world-of-one
+    ``FusedScanTrainStep`` on the same weights and batch computed first
+    in this process (each of the 3 steps' losses within 1e-2, the gaps
+    printed), the ranks'
+    losses identical, a rank's launches a step exact (48 splash
+    forwards, 24 backwards, 1 + 1 CE at V/2 rows, 25 ``mt_adam_kernel``,
+    1 ``mt_norm_kernel``) and its collectives a step exact (6 mp
+    all-reduces a layer and 3 in the head; the grads reduce-scattered
+    once over the flattened group; no mp-only gradient collective); the
+    step times, which gloo's trips through the host dominate, are no
+    speed of mp; (c) a tiny fp32 scan GPT at mp 2, the two ranks on the
+    card against the same ranks on the CPU (loss 5e-4, parameters 5e-3
+    relative); (d) with two cards or more, (b) over NCCL, one card a
+    rank; with one, a line that says it did not run. The kernels line
+    carries a rank's launches a step at mp 2 (``launches_mp``) and the
+    CE rows their shards' records (``mp_shards``).
 
 It then prints the ``nvidia-smi`` line again and, last, ``{"ok": true,
 "device": {...}}``. Imports torch, numpy and the port only.
@@ -319,7 +351,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
 BF16_FLOP_PER_S = 989e12        # dense bf16 tensor-core peak
 FP32_FLOP_PER_S = 67e12         # fp32 outside the tensor cores
-PHASES = 23
+PHASES = 24
 
 
 def nvidia_smi() -> str:
@@ -5359,6 +5391,224 @@ def sharded_training(dev):
     return launches
 
 
+# phase 24(a): the vocab-parallel head's shapes, (tokens, vocab, hidden)
+MP_CE_SHAPES = {torch.bfloat16: (8192, GPT_VOCAB, 2048),
+                torch.float32: (1024, 4096, 2048)}
+MP_DEGREES = (2, 4)
+
+
+def _mp_ce_case(dev, flush, dtype, mp):
+    """Phase 24(a) at one dtype and degree: every shard's forward and
+    backward against its plain version and bit-identical twice, the
+    counters stepped once a shard, the shards combined as the collective
+    combines them against the unsharded kernels; shard 0 timed."""
+    from paddle_tpu_torch.ops.kernels import fused_cross_entropy as fce
+    F = torch.nn.functional
+
+    n, vocab, hidden = MP_CE_SHAPES[dtype]
+    gen = torch.Generator(device=dev).manual_seed(24)
+    h = torch.randn(n, hidden, device=dev, generator=gen).to(dtype)
+    w = (torch.randn(vocab, hidden, device=dev, generator=gen) * 0.02) \
+        .to(dtype)
+    labels = torch.randint(0, vocab, (n,), device=dev, generator=gen)
+    labels[torch.rand(n, device=dev, generator=gen) < 0.05] = -100
+    g = torch.where(labels != -100, torch.full((n,), 1.0 / n, device=dev),
+                    0.0)
+    full_loss, full_lse = fce.fused_ce_fwd(h, w, labels)
+    full_dh, full_dw = fce.fused_ce_bwd(h, w, labels, full_lse, g)
+    counter = "launches_wgmma" if dtype == torch.bfloat16 else "launches"
+    vloc = vocab // mp
+    shard = lambda r: w[r * vloc:(r + 1) * vloc]  # noqa: E731
+    err = dict.fromkeys(("lse", "picked", "dh", "dw"), 0.0)
+    same, steps, lse_r, pk_r = True, [], [], []
+    for r in range(mp):
+        before = getattr(fce.fused_ce_fwd, counter)
+        lse, pk = fce.sharded_fused_ce_fwd(h, shard(r), labels, r * vloc)
+        steps.append(getattr(fce.fused_ce_fwd, counter) - before)
+        again = fce.sharded_fused_ce_fwd(h, shard(r), labels, r * vloc)
+        same &= torch.equal(again[0], lse) and torch.equal(again[1], pk)
+        p_lse, p_pk = fce.sharded_fused_ce_fwd_ref(h, shard(r), labels,
+                                                   r * vloc)
+        err["lse"] = max(err["lse"], _max_err(lse, p_lse))
+        err["picked"] = max(err["picked"], _max_err(pk, p_pk))
+        lse_r.append(lse)
+        pk_r.append(pk)
+    stacked = torch.stack(lse_r)
+    mx = stacked.max(0).values
+    glob = mx + torch.log(torch.exp(stacked - mx).sum(0))
+    losses = torch.where(labels != -100, glob - torch.stack(pk_r).sum(0),
+                         0.0)
+    dh_sum, dws = torch.zeros(n, hidden, device=dev), []
+    for r in range(mp):
+        before = fce.fused_ce_bwd.launches
+        dh, dw = fce.sharded_fused_ce_bwd(h, shard(r), labels, r * vloc,
+                                          glob, g)
+        steps.append(fce.fused_ce_bwd.launches - before)
+        again = fce.sharded_fused_ce_bwd(h, shard(r), labels, r * vloc, glob,
+                                         g)
+        same &= torch.equal(again[0], dh) and torch.equal(again[1], dw)
+        p_dh, p_dw = fce.sharded_fused_ce_bwd_ref(h, shard(r), labels,
+                                                  r * vloc, glob, g)
+        err["dh"] = max(err["dh"], _rel_err(dh, p_dh))
+        err["dw"] = max(err["dw"], _rel_err(dw, p_dw))
+        dh_sum += dh.float()
+        dws.append(dw)
+    torch.cuda.synchronize()
+    whole = {"loss": _max_err(losses, full_loss),
+             "lse": _max_err(glob, full_lse),
+             "dh_rel": _rel_err(dh_sum, full_dh),
+             "dw_rel": _rel_err(torch.cat(dws), full_dw)}
+    finite = all(bool(torch.isfinite(t).all())
+                 for t in (losses, glob, dh_sum, *dws))
+    name = f"vocab-parallel CE mp {mp}"
+    _check(name, dtype, max(err["picked"], whole["loss"]),
+           max(err["dh"], err["dw"], whole["dh_rel"], whole["dw_rel"]),
+           finite, lse_err=max(err["lse"], whole["lse"]), same=same)
+    if steps != [1] * (2 * mp):
+        raise AssertionError(f"{name} {dtype}: launches a shard {steps}")
+    # shard 0 timed (the shards are the same work)
+    wl, it = shard(0), h.element_size()
+    flops = 2.0 * n * vloc * hidden
+    hw = (n + vloc) * hidden * it
+    lib = lambda: torch.logsumexp(F.linear(h, wl).float(), -1)  # noqa
+    rec = {"shape": [n, hidden, vloc], "errors": err, "whole": whole}
+    for kind, kernel, plain, nbytes, fl in (
+            ("fwd", lambda: fce.sharded_fused_ce_fwd(h, wl, labels, 0),
+             lambda: fce.sharded_fused_ce_fwd_ref(h, wl, labels, 0),
+             hw + n * 4 + 2 * n * 4, flops),
+            ("bwd", lambda: fce.sharded_fused_ce_bwd(h, wl, labels, 0, glob,
+                                                     g),
+             lambda: fce.sharded_fused_ce_bwd_ref(h, wl, labels, 0, glob, g),
+             2 * hw + 3 * n * 4, 3 * flops)):
+        b_ms, b_by = bound_ms(nbytes, fl, it)
+        rec[kind] = {"ms": time_ms(kernel, flush, iters=10),
+                     "plain_ms": time_ms(plain, flush, iters=2, warmup=1),
+                     "bound_ms": b_ms, "bound_by": b_by,
+                     # the shard's lse alone, one product and a reduction
+                     "library_ms": time_ms(lib, flush, iters=10)
+                     if kind == "fwd" else None}
+    return rec
+
+
+def vocab_parallel_kernels(dev):
+    """Phase 24(a): #11 / #12 on the vocab-parallel head's shards, GPT-3
+    1.3B's head in bf16 (h [8192, 2048], W [50304, 2048]) and fp32 (h
+    [1024, 2048], W [4096, 2048]), cut in mp 2 and 4 (`_mp_ce_case`);
+    phase 3's bars. Returns {dtype: {mp: record}}."""
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    out = {}
+    for dtype in MP_CE_SHAPES:
+        for mp in MP_DEGREES:
+            rec = _mp_ce_case(dev, flush, dtype, mp)
+            out.setdefault(str(dtype)[6:], {})[mp] = rec
+            print(f"[24/{PHASES}] (a) vocab-parallel CE {str(dtype)[6:]} "
+                  f"mp {mp}, shard {rec['shape']}: errors "
+                  f"{json.dumps(rec['errors'])}, combined against the "
+                  f"unsharded kernels {json.dumps(rec['whole'])}; shard ms "
+                  f"fwd {rec['fwd']['ms']:.4f} (bound {rec['fwd']['bound_ms']:.4f}"
+                  f" {rec['fwd']['bound_by']}, plain "
+                  f"{rec['fwd']['plain_ms']:.2f}, F.linear + logsumexp "
+                  f"{rec['fwd']['library_ms']:.4f}), bwd "
+                  f"{rec['bwd']['ms']:.4f} (bound "
+                  f"{rec['bwd']['bound_ms']:.4f} {rec['bwd']['bound_by']}, "
+                  f"plain {rec['bwd']['plain_ms']:.2f}); {nvidia_smi()}",
+                  flush=True)
+    del flush
+    torch.cuda.empty_cache()
+    return out
+
+
+# phase 24(b): a rank's launches a step at GPT-3 1.3B, dp 1 x mp 2, and
+# the bar on each step's loss against the world-of-one step (bf16
+# compute: the two sum in other orders)
+MP_LOSS_BAR = 1e-2
+MP_LAUNCHES = {"splash_fwd_wgmma_kernel": 48, "splash_bwd_wgmma_kernels": 24,
+               "fused_ce_fwd_wgmma_kernel": 1, "fused_ce_bwd_kernels": 1,
+               "mt_adam_kernel": 25, "mt_norm_kernel": 1}
+
+
+def _mp_collectives(b):
+    """What a rank's step must call at GPT-3 1.3B, dp 1 x mp 2 (`b`: the
+    rank's record): the activations' all-reduces over mp (6 a layer, 3
+    in the head), one reduce-scatter a bucket a layer and one an outer
+    bucket over the flattened group, the clip's and the loss's
+    all-reduces there, and the sharded storage's gathers."""
+    L, (s, o) = b["layers"], b["buckets"]
+    flat = "+".join(b["axes"][0])
+    return {"all_reduce@mp": 6 * L + 3,
+            f"reduce_scatter@{flat}": s * L + o,
+            f"all_reduce@{flat}": 2,
+            f"all_gather@{flat}": 2 * s * L + o}
+
+
+def tensor_parallel_two_ranks(dev):
+    """Phase 24(b)-(d): GPT-3 1.3B at dp 1 x mp 2 with both ranks on the
+    card over gloo (`mp_selftest.launch_card`), held to a world-of-one
+    `FusedScanTrainStep` on the same weights and batch (every step's
+    loss within `MP_LOSS_BAR`: step 1 holds the forward, steps 2-3 the
+    backward through the shards, the grads' scatter, the clip and Adam)
+    with exact launches and collectives a step; the tiny fp32 GPT
+    at mp 2 card against CPU (loss 5e-4, parameters 5e-3 rel); with two
+    cards, the same over NCCL. Returns a rank's launches a step."""
+    from paddle_tpu_torch.distributed import mp_selftest
+
+    t0 = time.perf_counter()
+    want = mp_selftest.world_one(dev, steps=3)
+    world1_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = mp_selftest.launch_card(2, steps=3, deadline=700)
+    wall = time.perf_counter() - t0
+    b = res["gpt3_1.3b"]
+    gaps = [abs(x - y) for x, y in zip(b["losses"], want)]
+    per_step = b["launches_per_step"]
+    coll = {k: v for k, v in b["collectives_per_step"]["by_group"].items()}
+    report = {"model": "gpt3-1.3b", "dp": 1, "mp": 2,
+              "backend": res["backend"], "device": res["device"],
+              "losses": b["losses"], "world1_losses": want,
+              "loss_gaps": gaps, "rank_losses": b["rank_losses"],
+              "step_s": b["step_s"], "launches_per_step": per_step,
+              "collectives_per_step": b["collectives_per_step"],
+              "max_memory_allocated_rank0": b["max_memory_allocated"],
+              "world1_s": world1_s, "launch_wall_s": wall,
+              "nvidia_smi": nvidia_smi()}
+    print(f"[24/{PHASES}] (b) gpt3-1.3b dp 1 x mp 2, two ranks sharing "
+          f"the card over gloo (activations through the host: no speed of "
+          f"mp): {json.dumps(report)}", flush=True)
+    if not (len(gaps) == len(want) and max(gaps) < MP_LOSS_BAR
+            and all(np.isfinite(b["losses"]))):
+        raise AssertionError(f"mp 2 losses {b['losses']} against world 1 "
+                             f"{want}")
+    if any(r != b["rank_losses"][0] for r in b["rank_losses"]):
+        raise AssertionError(f"ranks' losses differ: {b['rank_losses']}")
+    if per_step != MP_LAUNCHES:
+        raise AssertionError(f"mp 2 launches a step {per_step}, want "
+                             f"{MP_LAUNCHES}")
+    if coll != _mp_collectives(b):
+        raise AssertionError(f"mp 2 collectives a step {coll}, want "
+                             f"{_mp_collectives(b)}")
+    tiny = res["tiny_card_cpu"]
+    print(f"[24/{PHASES}] (c) tiny fp32 scan GPT at mp 2, card against "
+          f"CPU over the same gloo ranks: {json.dumps(tiny)}; "
+          f"{nvidia_smi()}", flush=True)
+    if not (tiny["max_loss_diff"] < 5e-4 and tiny["max_param_rel"] < 5e-3):
+        raise AssertionError(f"mp 2 card against CPU: {tiny}")
+    if torch.cuda.device_count() < 2:
+        print(f"[24/{PHASES}] (d) dp 1 x mp 2 over NCCL: not run (1 card)",
+              flush=True)
+    else:
+        nccl = mp_selftest.launch_card(2, nccl=True, steps=3, deadline=600)
+        nb = nccl["gpt3_1.3b"]
+        print(f"[24/{PHASES}] (d) dp 1 x mp 2 over NCCL, one card a rank: "
+              f"losses {nb['losses']}, step s {nb['step_s']}; "
+              f"{nvidia_smi()}", flush=True)
+        if max(abs(x - y) for x, y in zip(nb["losses"], want)) >= \
+                MP_LOSS_BAR or nb["launches_per_step"] != MP_LAUNCHES:
+            raise AssertionError(f"mp 2 over NCCL: {nb}")
+    return per_step
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -5448,6 +5698,8 @@ def main() -> int:
     lenet_full_loop(dev)
     collectives_world1(dev)
     sharded, sharded_steps = sharded_training(dev)
+    mp_shards = vocab_parallel_kernels(dev)
+    mp_launches = tensor_parallel_two_ranks(dev)
 
     where = {name: (PAGED_SOURCE, f"{PAGED_TPU}:{line}")
              for name, (_, _, _, line) in PAGED_KERNELS.items()}
@@ -5492,6 +5744,16 @@ def main() -> int:
                 if name in sharded else {}),
              **({"llama_shapes": llama_ce[name]} if name in llama_ce
                 else {}),
+             # phase 24(b): a rank's launches a step at dp 1 x mp 2
+             **({"launches_mp": mp_launches[name]}
+                if name in mp_launches else {}),
+             **({"mp_shards": {
+                 dt: {mp: {k: rec[k] for k in ("shape", "errors")}
+                      | rec["fwd" if "fwd" in name else "bwd"]
+                      for mp, rec in recs.items()}
+                 for dt, recs in mp_shards.items()}}
+                if name in ("fused_ce_fwd_wgmma_kernel",
+                            "fused_ce_bwd_kernels") else {}),
              **({"launches_per_spec_dispatch": spec[name]} if name in spec
                 else {}),
              **{k: r[k] for k in keys if k in r}}

@@ -20,6 +20,17 @@ GPT's ``draft_heads.{j}``) decide. Everything else crosses as it is, among it a 
 `nn.quant.quantize_for_decode`), ``weight_scale`` and ``bias``.
 The round trip is bit-exact.
 
+Tensor parallelism: a rank of a model-parallel group holds blocks of
+some parameters (the `distributed.fleet.layers.mpu` layers, the sliced
+leaves of the dp x mp sharded scan). `mp_block` cuts rank r's block
+from a global tensor by its kind (``("split", dim)``: a contiguous
+block; ``("heads", dim, heads, head_dim)``: the rank's heads of a fused
+q|k|v dim) and `mp_join` puts the ranks' blocks back, bit for bit;
+`mp_state_dict_from_jax` / `mp_state_dict_to_jax` carry the reference's
+global arrays into rank r's blocks and the ranks' state dicts back into
+the reference's arrays (`mp_plan` reads a model's kinds from its
+parameters' ``split_axis``).
+
 bf16 crosses as its raw 16-bit pattern: into the port as a torch
 bfloat16 view, and out as numpy ``ml_dtypes.bfloat16`` where the caller's
 process has loaded ``ml_dtypes`` (the JAX package does), else as a
@@ -51,9 +62,10 @@ import torch
 
 from .framework.io import Bfloat16Bits
 
-__all__ = ["linear_weights", "optimizer_state_from_jax",
-           "optimizer_state_to_jax", "state_dict_from_jax",
-           "state_dict_to_jax"]
+__all__ = ["linear_weights", "mp_block", "mp_join", "mp_plan",
+           "mp_state_dict_from_jax", "mp_state_dict_to_jax",
+           "optimizer_state_from_jax", "optimizer_state_to_jax",
+           "state_dict_from_jax", "state_dict_to_jax"]
 
 _LINEAR_WEIGHT = re.compile(
     r"(\.(qkv|out_proj|fc1|fc2|q_proj|k_proj|v_proj|o_proj|gate_proj"
@@ -257,3 +269,79 @@ def optimizer_state_to_jax(state, model, optimizer, names=None) -> dict:
     if "LR_Scheduler" in state:
         out["LR_Scheduler"] = dict(state["LR_Scheduler"])
     return out
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel blocks
+# ---------------------------------------------------------------------------
+
+def mp_block(t, kind, rank, degree):
+    """Rank ``rank``'s block of the port-layout tensor ``t`` split over
+    ``degree`` ranks by ``kind`` (module docstring; None: the whole
+    tensor, replicated). A view where the block is one."""
+    if kind is None or degree == 1:
+        return t
+    if kind[0] == "split":
+        dim = kind[1]
+        w = t.shape[dim] // degree
+        return t.narrow(dim, rank * w, w)
+    _, dim, heads, hd = kind
+    loc = heads // degree
+    lead, rest = tuple(t.shape[:dim]), tuple(t.shape[dim + 1:])
+    k = t.shape[dim] // (heads * hd)
+    v = t.reshape(lead + (k, heads, hd) + rest)
+    v = v.narrow(dim + 1, rank * loc, loc)
+    return v.reshape(lead + (k * loc * hd,) + rest)
+
+
+def mp_join(blocks, kind):
+    """The inverse of `mp_block`: the global tensor from the ranks'
+    blocks, in rank order."""
+    degree = len(blocks)
+    if kind is None or degree == 1:
+        return blocks[0]
+    if kind[0] == "split":
+        return torch.cat(list(blocks), dim=kind[1])
+    _, dim, heads, hd = kind
+    loc = heads // degree
+    b0 = blocks[0]
+    lead, rest = tuple(b0.shape[:dim]), tuple(b0.shape[dim + 1:])
+    k = b0.shape[dim] // (loc * hd)
+    parts = [b.reshape(lead + (k, loc, hd) + rest) for b in blocks]
+    return torch.cat(parts, dim=dim + 1).reshape(
+        lead + (k * heads * hd,) + rest)
+
+
+def mp_plan(model):
+    """{state-dict name: kind} of ``model``'s parameters that are blocks
+    (those with a ``split_axis``: the mpu layers')."""
+    return {n: ("split", p.split_axis) for n, p in model.named_parameters()
+            if getattr(p, "split_axis", None) is not None}
+
+
+def mp_state_dict_from_jax(named, model, rank, degree, plan=None) -> dict:
+    """The reference's global arrays -> a state dict of rank ``rank``'s
+    blocks for ``model`` (built on that rank: its blocks' shapes are
+    checked), the Linear weights transposed first."""
+    plan = mp_plan(model) if plan is None else plan
+    transpose = linear_weights(model, named)
+    out = {}
+    for name, arr in named.items():
+        t = _to_torch(arr)
+        if name in transpose:
+            t = _swap(t)
+        out[name] = mp_block(t, plan.get(name), rank, degree) \
+            .contiguous().clone()
+    _check_shapes(model, out)
+    return out
+
+
+def mp_state_dict_to_jax(state_dicts, model, plan=None) -> dict:
+    """The inverse of `mp_state_dict_from_jax`: every rank's state dict
+    (in rank order) -> {reference name: numpy array} of the global
+    parameters, in the reference's layouts."""
+    plan = mp_plan(model) if plan is None else plan
+    joined = {name: mp_join([sd[name].detach().cpu() for sd in state_dicts],
+                            plan.get(name))
+              for name in state_dicts[0]}
+    return state_dict_to_jax(joined, model)

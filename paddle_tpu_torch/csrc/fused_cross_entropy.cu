@@ -257,11 +257,14 @@ __global__ void __launch_bounds__(kNT) fused_ce_fwd_kernel(
   }
 }
 
-// One thread per token: merge the S partials in split order.
+// One thread per token: merge the S partials in split order. `picked`
+// (may be null) gets the label's logit beside lse: the vocab-parallel
+// head combines (lse, picked) across ranks, and lse - loss would cancel.
 __global__ void fused_ce_combine_kernel(const float* __restrict__ part,
                                         const int* __restrict__ labels,
                                         float* __restrict__ loss,
-                                        float* __restrict__ lse, int n,
+                                        float* __restrict__ lse,
+                                        float* __restrict__ picked, int n,
                                         int splits, int ignore_index) {
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= n) return;
@@ -277,6 +280,7 @@ __global__ void fused_ce_combine_kernel(const float* __restrict__ part,
   const float z = m + logf(l);
   lse[t] = z;
   loss[t] = labels[t] != ignore_index ? z - pk : 0.f;
+  if (picked != nullptr) picked[t] = pk;
 }
 
 // ---------------------------------------------------------------------------
@@ -638,8 +642,9 @@ bool geometry_ok(int n, int vocab, int hidden, int tiles_per_split) {
 
 template <typename T>
 cudaError_t fwd(const void* h, const void* w, const int* labels, float* loss,
-                float* lse, float* part, int n, int vocab, int hidden,
-                int ignore_index, int tiles_per_split, cudaStream_t stream) {
+                float* lse, float* picked, float* part, int n, int vocab,
+                int hidden, int ignore_index, int tiles_per_split,
+                cudaStream_t stream) {
   const size_t smem = Smem<T>::bytes();
   cudaError_t err = tile::prepare(fused_ce_fwd_kernel<T>, smem);
   if (err != cudaSuccess) return err;
@@ -651,15 +656,16 @@ cudaError_t fwd(const void* h, const void* w, const int* labels, float* loss,
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   fused_ce_combine_kernel<<<(n + 255) / 256, 256, 0, stream>>>(
-      part, labels, loss, lse, n, splits, ignore_index);
+      part, labels, loss, lse, picked, n, splits, ignore_index);
   return cudaGetLastError();
 }
 
 // The bf16 forward: two tensor maps (h and W, K-major), the logits tiles,
 // then the combine over ceil(vocab / 256) tiles.
 cudaError_t fwd_bf16(const void* h, const void* w, const int* labels,
-                     float* loss, float* lse, float* part, int n, int vocab,
-                     int hidden, int ignore_index, cudaStream_t stream) {
+                     float* loss, float* lse, float* picked, float* part,
+                     int n, int vocab, int hidden, int ignore_index,
+                     cudaStream_t stream) {
   using namespace bw;
   const long long h_dims[2] = {hidden, n}, w_dims[2] = {hidden, vocab};
   const long long stride[1] = {hidden};
@@ -676,7 +682,7 @@ cudaError_t fwd_bf16(const void* h, const void* w, const int* labels,
                                                vocab, cdiv(hidden, kBK));
   if ((err = cudaGetLastError())) return err;
   fused_ce_combine_kernel<<<cdiv(n, 256), 256, 0, stream>>>(
-      part, labels, loss, lse, n, tiles, ignore_index);
+      part, labels, loss, lse, picked, n, tiles, ignore_index);
   return cudaGetLastError();
 }
 
@@ -766,34 +772,36 @@ cudaError_t bwd_bf16(const void* h, const void* w, const int* labels,
 // nothing is allocated and nothing synchronises. `tiles_per_split`: vocab
 // tiles of 128 a forward or dh block walks; the wrapper sizes the scratch
 // for ceil(ceil(V / 128) / tiles_per_split) splits.
+// `picked` (may be null): the label's logit a token, beside lse.
 extern "C" int fused_ce_fwd(const void* h, const void* w, const void* labels,
-                            void* loss, void* lse, void* part, int n,
-                            int vocab, int hidden, int ignore_index,
+                            void* loss, void* lse, void* picked, void* part,
+                            int n, int vocab, int hidden, int ignore_index,
                             int tiles_per_split, int bf16, void* stream) {
   if (!geometry_ok(n, vocab, hidden, tiles_per_split))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (bf16)
     return (int)fwd<__nv_bfloat16>(h, w, (const int*)labels, (float*)loss,
-                                   (float*)lse, (float*)part, n, vocab,
-                                   hidden, ignore_index, tiles_per_split, s);
+                                   (float*)lse, (float*)picked, (float*)part,
+                                   n, vocab, hidden, ignore_index,
+                                   tiles_per_split, s);
   return (int)fwd<float>(h, w, (const int*)labels, (float*)loss, (float*)lse,
-                         (float*)part, n, vocab, hidden, ignore_index,
-                         tiles_per_split, s);
+                         (float*)picked, (float*)part, n, vocab, hidden,
+                         ignore_index, tiles_per_split, s);
 }
 
 // bf16 on warpgroup products: `part` holds [3, ceil(vocab / 256), n]
 // fp32, the per-tile (m, l, picked) the combine merges.
 extern "C" int fused_ce_fwd_bf16(const void* h, const void* w,
                                  const void* labels, void* loss, void* lse,
-                                 void* part, int n, int vocab, int hidden,
-                                 int ignore_index, void* stream) {
+                                 void* picked, void* part, int n, int vocab,
+                                 int hidden, int ignore_index, void* stream) {
   if (n <= 0 || vocab <= 0 || hidden <= 0 || hidden % 16 ||
       bw::cdiv(vocab, bw::kBN) > 65535)
     return (int)cudaErrorInvalidValue;
   return (int)fwd_bf16(h, w, (const int*)labels, (float*)loss, (float*)lse,
-                       (float*)part, n, vocab, hidden, ignore_index,
-                       (cudaStream_t)stream);
+                       (float*)picked, (float*)part, n, vocab, hidden,
+                       ignore_index, (cudaStream_t)stream);
 }
 
 // fp32 only (bf16 takes fused_ce_bwd_bf16).

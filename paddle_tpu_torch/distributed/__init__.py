@@ -1,5 +1,6 @@
-"""Distributed: the port of paddle_tpu/distributed for the data and
-sharding axes, over ``torch.distributed`` (ROADMAP A9a).
+"""Distributed: the port of paddle_tpu/distributed for the data,
+sharding and model-parallel axes, over ``torch.distributed`` (ROADMAP
+A9a, A9b.1).
 
 A rank is a process: `init_parallel_env` joins the world (NCCL on
 ``cuda:LOCAL_RANK``, gloo on the CPU on request), `env.RankMesh` lays the
@@ -8,9 +9,10 @@ local tensors, `comm_bucketer` coalesces grads into the reference's
 buckets, `DataParallel` averages them, `fleet` builds the topology and
 the sharded optimizer (stage 1), `sharding` stage 2, and `store` is the
 ranks' key-value store. The comm stack's int8 quantizer is also what the
-int8 paged KV pools store in. The mp, pp, sep and ep axes, eager stage 3,
-the auto-tuner and the launcher wait for ROADMAP A9b (torchrun launches
-ranks until then).
+int8 paged KV pools store in. `fleet.layers.mpu` and
+`fleet.TensorParallel` run tensor parallelism over the mp axis. The pp,
+sep and ep axes, eager stage 3, the auto-tuner and the launcher wait for
+ROADMAP A9b (torchrun launches ranks until then).
 """
 from . import env, fleet, sharding  # noqa: F401
 from .collective import (Group, P2POp, ReduceOp,  # noqa: F401

@@ -29,7 +29,18 @@ reduced chunk requantized and ``all_gather``-ed. It is opt-in under
 
 Every collective call counts itself in ``calls`` (by kind) and its
 payload bytes in ``payload_bytes``, as a kernel wrapper counts its
-launches.
+launches; ``calls_by_group`` counts them by kind and group (``kind@axes``,
+``@world`` for the default group without axes).
+
+gloo on the card (``init_parallel_env(backend="gloo", device="cuda")``:
+ranks sharing one card, a harness for correctness, not a speed path):
+gloo moves CUDA tensors through the host, and takes on CUDA tensors
+only part of what it takes on the CPU (all-reduce and broadcast; no
+reduce-scatter, no all-to-all, no bf16 everywhere). So a collective over
+a gloo group copies its CUDA tensors to the host, runs there and copies
+the result back, the same operation on the same bytes, for every kind
+and dtype alike; each such call also counts in ``host_staged`` (by kind).
+Nothing falls back silently: NCCL groups never take this path.
 """
 from __future__ import annotations
 
@@ -57,15 +68,28 @@ QUANT_BLOCK = 32           # int8 scaling block, both legs (reference :342)
 
 calls = Counter()          # collective kind -> calls
 payload_bytes = Counter()  # collective kind -> bytes this rank sent in
+calls_by_group = Counter()  # "kind@axes" -> calls
+host_staged = Counter()    # collective kind -> calls over the host (gloo)
 
 
 def reset_counts():
     calls.clear()
     payload_bytes.clear()
+    calls_by_group.clear()
+    host_staged.clear()
 
 
-def _count(kind, *tensors):
+def _label(g):
+    if g is None:
+        return "world"
+    if g.axes:
+        return "+".join(g.axes)
+    return "world" if g.pg is None else "ranks"
+
+
+def _count(kind, *tensors, group=None):
     calls[kind] += 1
+    calls_by_group[f"{kind}@{_label(group)}"] += 1
     payload_bytes[kind] += sum(t.numel() * t.element_size()
                                for t in tensors)
 
@@ -228,40 +252,64 @@ def _avg_native(g):
     return _backend(g) == "nccl"
 
 
+def _staged(g, kind, *tensors):
+    """True when ``g`` is a gloo group and a tensor is on the card: the
+    call then runs on host copies (module docstring)."""
+    if any(t is not None and t.is_cuda for t in tensors) \
+            and _backend(g) == "gloo":
+        host_staged[kind] += 1
+        return True
+    return False
+
+
+def _host(t):
+    return None if t is None else t.detach().cpu()
+
+
+def _back(dst, src):
+    """``src`` (a host copy) written into ``dst``, which it stands for."""
+    if src is not dst:
+        dst.copy_(src)
+    return dst
+
+
 def all_reduce(tensor, op=ReduceOp.SUM, group=None, sync_op=True):
     """In place on ``tensor`` (reference communication/all_reduce.py):
     SUM, MAX, MIN, PROD or AVG over the group."""
     g = _g(group)
-    _count("all_reduce", tensor)
+    _count("all_reduce", tensor, group=g)
+    x = _host(tensor) if _staged(g, "all_reduce", tensor) else tensor
     if op == ReduceOp.AVG:
         if _avg_native(g):
-            dist.all_reduce(tensor, dist.ReduceOp.AVG, group=g.pg)
+            dist.all_reduce(x, dist.ReduceOp.AVG, group=g.pg)
         else:
-            dist.all_reduce(tensor, dist.ReduceOp.SUM, group=g.pg)
-            tensor.div_(g.nranks)
-        return tensor
+            dist.all_reduce(x, dist.ReduceOp.SUM, group=g.pg)
+            x.div_(g.nranks)
+        return _back(tensor, x)
     if op not in _TORCH_OPS:
         raise ValueError(f"unsupported reduce op {op}")
-    dist.all_reduce(tensor, _TORCH_OPS[op], group=g.pg)
-    return tensor
+    dist.all_reduce(x, _TORCH_OPS[op], group=g.pg)
+    return _back(tensor, x)
 
 
 def reduce(tensor, dst=0, op=ReduceOp.SUM, group=None, sync_op=True):
     """The reduction lands on group rank ``dst`` (in place there)."""
     g = _g(group)
-    _count("reduce", tensor)
+    _count("reduce", tensor, group=g)
+    x = _host(tensor) if _staged(g, "reduce", tensor) else tensor
     if op == ReduceOp.AVG:
-        dist.reduce(tensor, g.global_rank(dst), dist.ReduceOp.SUM,
-                    group=g.pg)
+        dist.reduce(x, g.global_rank(dst), dist.ReduceOp.SUM, group=g.pg)
         if g.rank == dst:
-            tensor.div_(g.nranks)
-        return tensor
-    dist.reduce(tensor, g.global_rank(dst), _TORCH_OPS[op], group=g.pg)
-    return tensor
+            x.div_(g.nranks)
+        return _back(tensor, x)
+    dist.reduce(x, g.global_rank(dst), _TORCH_OPS[op], group=g.pg)
+    return _back(tensor, x)
 
 
 def _gather_flat(out, x, g):
     """``all_gather_into_tensor`` (``out`` [n * numel] of ``x``)."""
+    if _staged(g, "all_gather", out, x):
+        return _back(out, _gather_flat(_host(out), _host(x), g))
     with warnings.catch_warnings():
         # torch 2.13 marks it deprecated; torch 2.11 has no successor
         warnings.simplefilter("ignore", FutureWarning)
@@ -271,6 +319,8 @@ def _gather_flat(out, x, g):
 
 
 def _scatter_flat(out, x, op, g):
+    if _staged(g, "reduce_scatter", out, x):
+        return _back(out, _scatter_flat(_host(out), _host(x), op, g))
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", FutureWarning)
         warnings.simplefilter("ignore", DeprecationWarning)
@@ -290,7 +340,7 @@ def all_gather(tensor_list, tensor, group=None, sync_op=True, axis=0):
     x = tensor.contiguous()
     out = torch.empty((g.nranks,) + tuple(x.shape), dtype=x.dtype,
                       device=x.device)
-    _count("all_gather", x)
+    _count("all_gather", x, group=g)
     _gather_flat(out.view(-1), x.view(-1), g)
     if tensor_list is not None:
         del tensor_list[:]
@@ -304,7 +354,7 @@ def all_gather_into(out, shard, group=None):
     order), in place: ``shard`` may be ``out``'s own slice of this rank,
     as NCCL and gloo both allow."""
     g = _g(group)
-    _count("all_gather", shard)
+    _count("all_gather", shard, group=g)
     return _gather_flat(out.view(-1), shard.reshape(-1), g)
 
 
@@ -335,7 +385,7 @@ def reduce_scatter(tensor, tensor_or_tensor_list=None, op=ReduceOp.SUM,
     moved = src.movedim(axis, 0).contiguous()
     block = torch.empty((moved.shape[0] // n,) + tuple(moved.shape[1:]),
                         dtype=src.dtype, device=src.device)
-    _count("reduce_scatter", moved)
+    _count("reduce_scatter", moved, group=g)
     if op == ReduceOp.AVG and not _avg_native(g):
         _scatter_flat(block.view(-1), moved.view(-1), dist.ReduceOp.SUM, g)
         block.div_(n)
@@ -353,7 +403,7 @@ def reduce_scatter_into(out, flat, group=None):
     """The sum over the group of the flat ``flat`` [n * c], this rank's
     block written into ``out`` [c] (no other allocation)."""
     g = _g(group)
-    _count("reduce_scatter", flat)
+    _count("reduce_scatter", flat, group=g)
     return _scatter_flat(out.view(-1), flat.reshape(-1), dist.ReduceOp.SUM,
                          g)
 
@@ -361,9 +411,10 @@ def reduce_scatter_into(out, flat, group=None):
 def broadcast(tensor, src=0, group=None, sync_op=True):
     """Every rank gets group rank ``src``'s value, in place."""
     g = _g(group)
-    _count("broadcast", tensor)
-    dist.broadcast(tensor, g.global_rank(src), group=g.pg)
-    return tensor
+    _count("broadcast", tensor, group=g)
+    x = _host(tensor) if _staged(g, "broadcast", tensor) else tensor
+    dist.broadcast(x, g.global_rank(src), group=g.pg)
+    return _back(tensor, x)
 
 
 def scatter(tensor, tensor_list=None, src=0, group=None, sync_op=True):
@@ -373,11 +424,15 @@ def scatter(tensor, tensor_list=None, src=0, group=None, sync_op=True):
     parts = None
     if g.rank == src:
         parts = [t.to(tensor.dtype).contiguous() for t in tensor_list]
-        _count("scatter", *parts)
+        _count("scatter", *parts, group=g)
     else:
-        _count("scatter")
-    dist.scatter(tensor, parts, g.global_rank(src), group=g.pg)
-    return tensor
+        _count("scatter", group=g)
+    x = tensor
+    if _staged(g, "scatter", tensor):
+        x = _host(tensor)
+        parts = None if parts is None else [_host(t) for t in parts]
+    dist.scatter(x, parts, g.global_rank(src), group=g.pg)
+    return _back(tensor, x)
 
 
 def alltoall_single(out_tensor, in_tensor, in_split_sizes=None,
@@ -392,12 +447,15 @@ def alltoall_single(out_tensor, in_tensor, in_split_sizes=None,
         else:
             shape = tuple(x.shape)
         out_tensor = torch.empty(shape, dtype=x.dtype, device=x.device)
-    _count("alltoall", x)
-    dist.all_to_all_single(out_tensor, x,
+    _count("alltoall", x, group=g)
+    out = out_tensor
+    if _staged(g, "alltoall", x):
+        out, x = _host(out_tensor), _host(x)
+    dist.all_to_all_single(out, x,
                            output_split_sizes=out_split_sizes or None,
                            input_split_sizes=in_split_sizes or None,
                            group=g.pg)
-    return out_tensor
+    return _back(out_tensor, out)
 
 
 def alltoall(out_tensor_list, in_tensor_list=None, group=None, sync_op=True):
@@ -659,13 +717,23 @@ def quantized_all_gather(shard, group=None, qformat="int8"):
 @contextlib.contextmanager
 def counting():
     """Counts of the collectives run inside the block: yields a dict
-    filled on exit ({kind: calls}, plus "bytes")."""
+    filled on exit ({kind: calls}, plus "bytes", "by_group" ({"kind@axes":
+    calls}) and, where calls went over the host, "host_staged")."""
     before_c, before_b = Counter(calls), Counter(payload_bytes)
+    before_g, before_h = Counter(calls_by_group), Counter(host_staged)
     got = {}
+
+    def grown(now, before):
+        return {k: n - before.get(k, 0) for k, n in now.items()
+                if n - before.get(k, 0)}
+
     try:
         yield got
     finally:
-        got.update({k: n - before_c.get(k, 0) for k, n in calls.items()
-                    if n - before_c.get(k, 0)})
+        got.update(grown(calls, before_c))
         got["bytes"] = sum(payload_bytes.values()) - sum(before_b.values())
+        got["by_group"] = grown(calls_by_group, before_g)
+        staged = grown(host_staged, before_h)
+        if staged:
+            got["host_staged"] = staged
 

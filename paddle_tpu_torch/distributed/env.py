@@ -3,8 +3,12 @@
 A rank is a process. `init_parallel_env` joins this process to the world
 over ``torch.distributed``: NCCL on ``cuda:LOCAL_RANK`` by default, gloo
 on the CPU only when the caller asks for it (``backend="gloo"`` or
-``device="cpu"``). An NCCL failure raises; nothing falls back to gloo or
-the CPU.
+``device="cpu"``). ``backend="gloo", device="cuda"`` is an explicit
+request that ranks share a card (rank's device ``cuda:LOCAL_RANK`` modulo
+the cards there are: every rank on ``cuda:0`` on a one-card machine,
+where NCCL refuses two ranks): its collectives run over the host
+(`collective`), a harness for correctness, not a speed path. An NCCL
+failure raises; nothing falls back to gloo or the CPU.
 
 The world comes from the reference's environment contract
 (``PADDLE_TRAINER_ID``, ``PADDLE_TRAINERS_NUM``, ``MASTER_ADDR`` /
@@ -65,8 +69,9 @@ def _init_method():
 def init_parallel_env(backend=None, device=None, timeout=None,
                       init_method=None, rank=None, world_size=None):
     """Join the world (reference parallel.py:978). ``backend``: "nccl"
-    (the default on the card) or "gloo" (the CPU); ``device="cpu"``
-    asks for gloo too. ``timeout`` in seconds (or a ``timedelta``) bounds
+    (the default on the card) or "gloo" (the CPU; with ``device="cuda"``
+    or ``"cuda:i"``, ranks sharing the card); ``device="cpu"`` asks for
+    gloo too. ``timeout`` in seconds (or a ``timedelta``) bounds
     every collective. ``init_method`` / ``rank`` / ``world_size``
     override the environment (a ``file://`` store for spawned tests).
     Idempotent: a second call returns the device of the first."""
@@ -79,9 +84,15 @@ def init_parallel_env(backend=None, device=None, timeout=None,
             if world_size is None else int(world_size)
         local_rank = _env_int("LOCAL_RANK", "PADDLE_LOCAL_RANK",
                               default=rank % max(1, torch.cuda.device_count()))
-        cpu = (backend == "gloo" or
-               (device is not None and torch.device(device).type == "cpu"))
-        if cpu:
+        want = None if device is None else torch.device(device)
+        if backend == "gloo" and want is not None and want.type == "cuda":
+            if not torch.cuda.is_available():
+                raise RuntimeError("init_parallel_env: gloo on the card "
+                                   "asked for, but no CUDA device")
+            dev = want if want.index is not None else torch.device(
+                "cuda", local_rank % torch.cuda.device_count())
+            torch.cuda.set_device(dev)
+        elif backend == "gloo" or (want is not None and want.type == "cpu"):
             backend, dev = "gloo", torch.device("cpu")
         else:
             if backend not in (None, "nccl"):

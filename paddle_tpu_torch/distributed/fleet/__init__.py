@@ -1,11 +1,14 @@
-"""Fleet: the port of paddle_tpu/distributed/fleet for the dp and
-sharding axes: `DistributedStrategy`, `init`, the topology and its
+"""Fleet: the port of paddle_tpu/distributed/fleet for the dp, sharding
+and mp axes: `DistributedStrategy`, `init`, the topology and its
 groups, `distributed_model` / `distributed_optimizer`, sharding stage 1
-(`DygraphShardingOptimizer`), the sync helpers (`utils`) and activation
-recomputation. The mp, pp and sep axes (`TensorParallel`,
-`PipelineParallel`, `SegmentParallel`, a degree above 1 in
-``hybrid_configs``) raise, naming ROADMAP A9b."""
-from . import meta_optimizers, meta_parallel, utils  # noqa: F401
+(`DygraphShardingOptimizer`), tensor parallelism (`layers.mpu`,
+`TensorParallel`, the clip over the model-parallel group), the sync
+helpers and sequence parallelism (`utils`) and activation
+recomputation. The pp and sep axes (`PipelineParallel`,
+`SegmentParallel`, a degree above 1 in ``hybrid_configs``) raise,
+naming ROADMAP A9b."""
+from . import layers, meta_optimizers, meta_parallel, utils  # noqa: F401
+from .layers.mpu import get_rng_state_tracker  # noqa: F401
 from .fleet import (DistributedStrategy, Fleet, barrier_worker,  # noqa: F401
                     distributed_model, distributed_optimizer, fleet, init,
                     is_first_worker, worker_index, worker_num)
@@ -24,6 +27,7 @@ __all__ = ["CommunicateTopology", "DistributedStrategy",
            "HybridParallel", "HybridParallelOptimizer", "PipelineParallel",
            "SegmentParallel", "ShardingParallel", "TensorParallel",
            "barrier_worker", "distributed_model", "distributed_optimizer",
-           "fleet", "get_hybrid_communicate_group", "init",
+           "fleet", "get_hybrid_communicate_group",
+           "get_rng_state_tracker", "init",
            "is_first_worker", "recompute", "set_hybrid_communicate_group",
            "worker_index", "worker_num"]

@@ -4,11 +4,19 @@
 joined, builds the rank grid from ``strategy.hybrid_configs`` (a -1
 degree takes the rest of the world) and its groups (`topology.
 HybridCommunicateGroup`). `distributed_model` wraps by the active axes as
-the reference does (model.py:134-162): a sharding degree above 1 gives
+the reference does (fleet.py:102-133): an mp degree above 1 gives
+`meta_parallel.TensorParallel`, a sharding degree above 1
 `meta_parallel.ShardingParallel`, a dp degree above 1 `DataParallel`.
 `distributed_optimizer` gives `HybridParallelOptimizer`, which shards
 the optimizer state over the data axes when the sharding degree is
-above 1. An mp, pp or sep degree above 1 raises, naming ROADMAP A9b.
+above 1 and clips by the global norm over the model-parallel group when
+the mp degree is. A pp or sep degree above 1 raises, naming ROADMAP A9b.
+
+    strategy = fleet.DistributedStrategy()
+    strategy.hybrid_configs.update({"dp_degree": d, "mp_degree": m})
+    fleet.init(is_collective=True, strategy=strategy)
+    step = fleet.distributed_model(gpt_scan).train_step(opt)
+    loss = step(*env.data_shard((ids, labels)))
 """
 from __future__ import annotations
 
@@ -94,8 +102,10 @@ class Fleet:
             self.init()
         hcg = self._hcg
         from ..parallel import DataParallel
-        from .meta_parallel import ShardingParallel
+        from .meta_parallel import ShardingParallel, TensorParallel
 
+        if hcg.get_model_parallel_world_size() > 1:
+            return TensorParallel(model, hcg, strategy=self._strategy)
         if hcg.get_sharding_parallel_world_size() > 1:
             return ShardingParallel(model, hcg, strategy=self._strategy)
         if hcg.get_data_parallel_world_size() > 1:

@@ -14,7 +14,11 @@ A step runs:
 2. the guard's non-finite flag and the global clip's sum of squares over
    the rank's shard by one `multi_tensor_norm`, both all-reduced in one
    collective on the device (a rank that sees an inf makes every rank
-   skip), the clip scale from the global sum;
+   skip), the clip scale from the global sum; under model parallelism
+   (an ``hcg`` with an mp degree above 1) the blocks' sum and the flag
+   are all-reduced over the mp group as well and the replicated
+   parameters' sum counted once (`nn.clip.norm_stats`), so every mp
+   rank clips by the norm of the global parameters;
 3. `multi_tensor_adam` over the shard, handed one view per parameter
    segment, so each keeps its own parameter's lr scale, decay, L2 and
    ``need_clip`` (AdamW's excluded LayerNorms and biases stay
@@ -64,6 +68,9 @@ class DygraphShardingOptimizer:
                      else data_group())
         self._inner_opt = inner
         self._group = group
+        self._mp_group = (hcg.get_model_parallel_group() if hcg is not None
+                          and hcg.get_model_parallel_world_size() > 1
+                          else None)
         self._params = [p for p in inner._parameter_list if p.requires_grad]
         self._keyed = [(inner._key(p), p) for p in self._params]
         self._bucketer = GradBucketer(self._keyed, group)
@@ -195,7 +202,7 @@ class DygraphShardingOptimizer:
 
     def _run(self, inv_scale, guard):
         from ....nn.clip import (ClipGradByGlobalNorm, ClipGradByValue,
-                                 norm_stats)
+                                 is_block, norm_stats)
         from ....ops.kernels.multi_tensor import (multi_tensor_adam,
                                                   multi_tensor_norm)
 
@@ -212,7 +219,8 @@ class DygraphShardingOptimizer:
         if guard or global_clip:
             _, scale, found = norm_stats(
                 grads, [global_clip and c for c in need], inv_scale,
-                clip.clip_norm if global_clip else None, self._group, dev)
+                clip.clip_norm if global_clip else None, self._group, dev,
+                [is_block(p) for p in params], self._mp_group)
             if not guard:
                 found = None
             if not global_clip:

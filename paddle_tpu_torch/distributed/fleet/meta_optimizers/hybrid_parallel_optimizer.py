@@ -4,15 +4,40 @@ distributed/fleet/meta_optimizers/hybrid_parallel_optimizer.py.
 With a sharding degree above 1, or ``strategy.sharding`` set, it wraps
 the optimizer in `DygraphShardingOptimizer` over the data axes (stage 1:
 the clip's norm and the guard's flag all-reduced over the shards
-there). With data
+there, and over the mp group under model parallelism). With data
 parallelism alone the model's `DataParallel` averages the grads, so
 every rank holds the same grads and the plain step is already global.
+With an mp degree above 1 and no sharding, a `ClipGradByGlobalNorm` of
+the optimizer clips, for the step, by the norm of the global parameters
+(`HybridParallelClipGrad`, reference :41: the blocks' squares summed
+over the model-parallel group, the replicated parameters counted once).
 """
 from __future__ import annotations
 
+import contextlib
+
+from ....nn.clip import ClipGradBase, ClipGradByGlobalNorm, mp_norm_stats
+from ....nn.clip import scaled as _scaled
 from .dygraph_sharding_optimizer import DygraphShardingOptimizer
 
-__all__ = ["HybridParallelOptimizer"]
+__all__ = ["HybridParallelClipGrad", "HybridParallelOptimizer"]
+
+
+class HybridParallelClipGrad(ClipGradBase):
+    """``clip`` (a `ClipGradByGlobalNorm`) by the norm over the
+    model-parallel group (`nn.clip.mp_norm_stats`); new grads, as the
+    global clip returns them."""
+
+    def __init__(self, clip, hcg):
+        self._clip = clip
+        self.clip_norm = clip.clip_norm
+        self._group = hcg.get_model_parallel_group()
+
+    def __call__(self, params_grads):
+        _, scale = mp_norm_stats(params_grads, self.clip_norm, self._group)
+        return [(p, _scaled(g, scale) if g is not None
+                 and getattr(p, "need_clip", True) else g)
+                for p, g in params_grads]
 
 
 class HybridParallelOptimizer:
@@ -25,6 +50,24 @@ class HybridParallelOptimizer:
         if shard and not isinstance(optimizer, DygraphShardingOptimizer):
             optimizer = DygraphShardingOptimizer(optimizer, hcg)
         self._inner_opt = optimizer
+        clip = getattr(optimizer, "_grad_clip", None)
+        self._mp_clip = (HybridParallelClipGrad(clip, hcg)
+                         if not shard and hcg is not None
+                         and hcg.get_model_parallel_world_size() > 1
+                         and type(clip) is ClipGradByGlobalNorm else None)
+
+    @contextlib.contextmanager
+    def _clipping(self):
+        """The step's clip: over the model-parallel group under mp."""
+        if self._mp_clip is None:
+            yield
+            return
+        inner = self._inner_opt
+        inner._grad_clip = self._mp_clip
+        try:
+            yield
+        finally:
+            inner._grad_clip = self._mp_clip._clip
 
     def __getattr__(self, item):
         return getattr(self._inner_opt, item)
@@ -34,15 +77,17 @@ class HybridParallelOptimizer:
         return getattr(self._inner_opt, "_comm_group", None)
 
     def step(self):
-        self._inner_opt.step()
+        with self._clipping():
+            self._inner_opt.step()
 
     def _guarded_step(self, inv_scale=None):
-        return self._inner_opt._guarded_step(inv_scale)
+        with self._clipping():
+            return self._inner_opt._guarded_step(inv_scale)
 
     def minimize(self, loss, startup_program=None, parameters=None,
                  no_grad_set=None):
         loss.backward()
-        self._inner_opt.step()
+        self.step()
         return None, None
 
     def clear_grad(self, set_to_zero=True):

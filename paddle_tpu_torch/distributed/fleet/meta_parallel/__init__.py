@@ -1,11 +1,13 @@
 """Model wrappers by parallel axis: the port of paddle_tpu/distributed/
-fleet/meta_parallel/__init__.py, for the dp and sharding axes.
+fleet/meta_parallel/__init__.py, for the dp, sharding and mp axes.
 
 `ShardingParallel` and `HybridParallel` run the wrapped model on the
 rank's rows; their `train_step` builds the step for the model
-(`jit.sharded_scan.select_train_step`: the sharded fused scan for a
-``scan_layers`` GPT over a data degree above 1). `TensorParallel`,
-`SegmentParallel` and `PipelineParallel` (the mp, sep and pp axes) raise,
+(`jit.sharded_scan.select_train_step`, reference :32-53: the sharded
+fused scan for a ``scan_layers`` GPT over a data or model degree above
+1, dp x mp when the mesh has an mp axis). `TensorParallel` runs a model
+built of the `layers.mpu` layers over the model-parallel group.
+`SegmentParallel` and `PipelineParallel` (the sep and pp axes) raise,
 naming ROADMAP A9b.
 """
 from __future__ import annotations
@@ -15,8 +17,8 @@ from torch import nn
 __all__ = ["HybridParallel", "MetaParallelBase", "PipelineParallel",
            "SegmentParallel", "ShardingParallel", "TensorParallel"]
 
-A9B = ("{} (the {} axis) is not ported yet: ROADMAP A9b; this slice runs "
-       "the dp and sharding axes")
+A9B = ("{} (the {} axis) is not ported yet: ROADMAP A9b; the port runs "
+       "the dp, sharding and mp axes")
 
 
 class MetaParallelBase(nn.Module):
@@ -33,11 +35,21 @@ class MetaParallelBase(nn.Module):
     def forward(self, *inputs, **kwargs):
         return self._layers(*inputs, **kwargs)
 
-    def train_step(self, optimizer, criterion=None, **kw):
-        """The whole-step entry (reference meta_parallel :31-57)."""
-        from ....jit.sharded_scan import select_train_step
+    def _step_model(self):
+        """What a `jit.TrainStep` of `train_step` runs."""
+        return self._layers
 
-        return select_train_step(self._layers, optimizer,
+    def train_step(self, optimizer, criterion=None, **kw):
+        """The whole-step entry (reference meta_parallel :31-57). A fused
+        scan step takes a `HybridParallelOptimizer`'s inner optimizer: it
+        takes the clip's norm over its own group."""
+        from ....jit.sharded_scan import is_scan_gpt, select_train_step
+        from ..meta_optimizers import HybridParallelOptimizer
+
+        if isinstance(optimizer, HybridParallelOptimizer) and \
+                is_scan_gpt(self._layers):
+            optimizer = optimizer._inner_opt
+        return select_train_step(self._step_model(), optimizer,
                                  criterion=criterion,
                                  mesh=self._hcg.mesh if self._hcg else None,
                                  **kw)
@@ -77,8 +89,39 @@ class HybridParallel(MetaParallelBase):
 
 
 class TensorParallel(MetaParallelBase):
-    def __init__(self, *a, **k):
-        raise NotImplementedError(A9B.format("TensorParallel", "mp"))
+    """Reference tensor_parallel.py: the mpu layers hold their blocks and
+    run the model-parallel collectives. At construction the parameters
+    that are not blocks are broadcast over the model-parallel group and
+    every parameter over the data-parallel group, group rank 0's winning
+    (Paddle's ``_prepare_for_model``); each forward broadcasts its inputs
+    over the model-parallel group, so its ranks compute on the same rows
+    (`broadcast_input_data`); `apply_collective_grads` (which
+    `jit.TrainStep` calls after the backward) averages the grads over the
+    data-parallel group. `train_step` builds the dp x mp sharded scan
+    for a ``scan_layers`` GPT, else a `jit.TrainStep` over this wrapper."""
+
+    def __init__(self, layers, hcg, strategy=None):
+        from ..utils.hybrid_parallel_util import (broadcast_dp_parameters,
+                                                  broadcast_mp_parameters)
+
+        super().__init__(layers, hcg, strategy)
+        broadcast_mp_parameters(layers, hcg)
+        broadcast_dp_parameters(layers, hcg)
+
+    def forward(self, *inputs, **kwargs):
+        from ..utils.hybrid_parallel_util import broadcast_input_data
+
+        inputs = broadcast_input_data(self._hcg, *inputs)
+        return self._layers(*inputs, **kwargs)
+
+    def apply_collective_grads(self):
+        from ..utils.hybrid_parallel_util import fused_allreduce_gradients
+
+        fused_allreduce_gradients(list(self._layers.parameters()),
+                                  self._hcg)
+
+    def _step_model(self):
+        return self
 
 
 class SegmentParallel(MetaParallelBase):

@@ -7,8 +7,9 @@ installs that grid as the world's `env.RankMesh` and builds a group for
 every axis (and the fused data group) on every rank, in the same order:
 ``torch.distributed.new_group`` is collective, so a rank that skipped
 one would hang the others. This rank's coordinates come from its global
-rank. The pipe, model and sep axes are ported to degree 1 only (their
-getters give 1 and rank 0); a degree above 1 raises, naming ROADMAP A9b.
+rank. The model axis (mp) takes any degree; the pipe and sep axes are
+ported to degree 1 only (their getters give 1 and rank 0), and a degree
+above 1 raises, naming ROADMAP A9b.
 """
 from __future__ import annotations
 
@@ -24,8 +25,8 @@ __all__ = ["CommunicateTopology", "HybridCommunicateGroup",
 
 _AXIS_NAME = {"pipe": "pp", "data": "dp", "sharding": "sharding",
               "sep": "sep", "model": "mp"}
-A9B = ("the {} axis (degree {}) is not ported yet: ROADMAP A9b (mp, pp, "
-       "sep); this slice runs the dp and sharding axes")
+A9B = ("the {} axis (degree {}) is not ported yet: ROADMAP A9b (pp, sep); "
+       "the port runs the dp, sharding and mp axes")
 
 
 class CommunicateTopology:
@@ -98,7 +99,7 @@ class HybridCommunicateGroup:
             mesh = env.build_mesh({_AXIS_NAME[n]: topology.get_dim(n)
                                    for n in
                                    topology.get_hybrid_group_names()})
-        for name in ("pp", "mp", "sep"):
+        for name in ("pp", "sep"):
             if mesh.shape.get(name, 1) > 1:
                 raise NotImplementedError(A9B.format(name,
                                                      mesh.shape[name]))
@@ -156,7 +157,7 @@ class HybridCommunicateGroup:
         return self._mp_degree
 
     def get_model_parallel_rank(self):
-        return 0
+        return self._index("mp")
 
     def get_pipe_parallel_world_size(self):
         return self._pp_degree

@@ -4,14 +4,20 @@ distributed/fleet/utils/hybrid_parallel_util.py (:1-59).
 `fused_allreduce_gradients` averages the parameters' grads over the
 data-parallel group with one bucketed all-reduce a bucket (a rank's
 grads are partial in the port, as in the reference's per-rank
-processes). The broadcasts send group rank 0's parameters (and buffers)
-to the group, so ranks start equal; the mp and sep ones have degree 1
-here (ROADMAP A9b) and do nothing.
+processes); a model-parallel group beside it is left alone: a block's
+grad is its own, and a replicated parameter's is whole on every
+model-parallel rank already. The broadcasts send group rank 0's
+parameters (and buffers) to the group, so ranks start equal;
+`broadcast_mp_parameters` skips the mpu layers' blocks
+(``is_distributed``), which differ by rank, and `broadcast_input_data`
+sends group rank 0's inputs over the model-parallel group. The sep one
+has degree 1 here (ROADMAP A9b) and does nothing.
 """
 from __future__ import annotations
 
 import torch
 
+from ....nn.clip import is_block
 from ...collective import ReduceOp, all_reduce, broadcast  # noqa: F401
 from ...comm_bucketer import bucketed_all_reduce
 
@@ -51,13 +57,27 @@ def broadcast_sharding_parameters(model, hcg):
     _broadcast(model, hcg.get_sharding_parallel_group())
 
 
+@torch.no_grad()
 def broadcast_mp_parameters(model, hcg):
-    return None
+    group = hcg.get_model_parallel_group()
+    if group.nranks == 1:
+        return
+    for t in list(model.parameters()) + list(model.buffers()):
+        if not is_block(t):
+            broadcast(t.data, 0, group)
 
 
 def broadcast_sep_parameters(model, hcg):
     return None
 
 
+@torch.no_grad()
 def broadcast_input_data(hcg, *inputs, **kwargs):
+    """Group rank 0's tensors (in ``inputs`` and ``kwargs``) to the
+    model-parallel group, in place; the rest as they are."""
+    group = hcg.get_model_parallel_group()
+    if group.nranks > 1:
+        for t in list(inputs) + list(kwargs.values()):
+            if isinstance(t, torch.Tensor):
+                broadcast(t, 0, group)
     return inputs if not kwargs else (inputs, kwargs)

@@ -35,9 +35,10 @@ __all__ = ["DataParallel", "broadcast_module", "get_rank", "get_world_size",
 
 def data_group(mesh=None):
     """The group over the mesh's data axes (dp and sharding of degree >
-    1), or the world's when it has none."""
+    1): the world's when they span it; with none, the dp line (each rank
+    alone beside its model-parallel peers)."""
     mesh = mesh or env.get_mesh()
-    axes = env.data_axes(mesh)
+    axes = env.data_axes(mesh) or (("dp",) if "dp" in mesh.shape else ())
     if not axes or mesh.degree(axes) == mesh.size:
         return coll.get_group()
     return coll.new_group(axes=axes, mesh=mesh)

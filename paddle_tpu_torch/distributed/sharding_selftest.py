@@ -49,7 +49,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-__all__ = ["CASES", "Ctx", "launch", "main", "start"]
+__all__ = ["CASES", "Ctx", "launch", "main", "start", "worker"]
 
 
 @dataclass
@@ -295,7 +295,17 @@ def case_data_parallel(ctx):
                                hcg.get_data_parallel_world_size()])
     out["fleet_model"] = type(fleet.distributed_model(
         torch.nn.Linear(2, 2).to(dev))).__name__
-    for name, kw in (("mp", {"mp_degree": n}), ("pp", {"pp_degree": n})):
+    # an mp degree of the world: the model axis, wrapped by TensorParallel
+    s = DistributedStrategy()
+    s.hybrid_configs = {"dp_degree": 1, "mp_degree": n}
+    fleet.init(is_collective=True, strategy=s)
+    hcg = fleet.get_hybrid_communicate_group()
+    out["mp_fleet"] = [hcg.get_model_parallel_world_size(),
+                       hcg.get_model_parallel_rank(),
+                       hcg.get_data_parallel_world_size(),
+                       type(fleet.distributed_model(
+                           torch.nn.Linear(2, 2).to(dev))).__name__]
+    for name, kw in (("pp", {"pp_degree": n}), ("sep", {"sep_degree": n})):
         s = DistributedStrategy()
         s.hybrid_configs = {"dp_degree": 1, **kw}
         try:
@@ -549,6 +559,16 @@ def case_sharded_scan(ctx):
     model = _gpt(ctx, a["named"], scan=True)
     out["select"] = type(select_train_step(
         model, _adamw(model), criterion=GPTPretrainingCriterion())).__name__
+    # a dp x mp mesh over the world: the dp x mp step, whose groups span
+    # (dp, mp) and mp
+    from . import env
+
+    mesh = env.build_mesh({"dp": n // 2, "mp": 2})
+    model = _gpt(ctx, a["named"], scan=True)
+    step = select_train_step(model, _adamw(model),
+                             criterion=GPTPretrainingCriterion(), mesh=mesh)
+    out["select_mp"] = [type(step).__name__, step.group.nranks,
+                        step.mp_group.nranks]
     return out
 
 
@@ -656,11 +676,14 @@ def _repo_root():
         os.path.abspath(__file__))))
 
 
-def launch(case, nprocs, args=None, timeout=60, deadline=120):
+def launch(case, nprocs, args=None, timeout=60, deadline=120,
+           module=__name__):
     """Run ``case`` in ``nprocs`` gloo ranks on the CPU; returns each
     rank's result, in rank order. Raises when a rank fails or the whole
-    run passes ``deadline`` seconds (every rank is killed then)."""
-    return start(case, nprocs, args, timeout).wait(deadline)
+    run passes ``deadline`` seconds (every rank is killed then).
+    ``module`` is the rank module whose ``CASES`` hold the case (its
+    ``main`` runs `worker` for ``--worker``)."""
+    return start(case, nprocs, args, timeout, module).wait(deadline)
 
 
 class _Launch:
@@ -701,7 +724,7 @@ class _Launch:
         return out
 
 
-def start(case, nprocs, args=None, timeout=60):
+def start(case, nprocs, args=None, timeout=60, module=__name__):
     """`launch`'s first half: the ranks start and run while the caller
     works (computes the reference); ``.wait(deadline)`` collects."""
     tmp = tempfile.mkdtemp(prefix="sharding_selftest_")
@@ -721,7 +744,7 @@ def start(case, nprocs, args=None, timeout=60):
         log = open(os.path.join(tmp, f"rank{r}.log"), "w")
         logs.append(log)
         procs.append(subprocess.Popen(
-            [sys.executable, "-m", __name__, "--worker", case, "--rank",
+            [sys.executable, "-m", module, "--worker", case, "--rank",
              str(r), "--nprocs", str(nprocs), "--dir", tmp, "--timeout",
              str(timeout)], env=env, stdout=log, stderr=subprocess.STDOUT))
     return _Launch(case, tmp, procs, logs)
@@ -735,7 +758,10 @@ def _tails(tmp, n):
     return "\n".join(parts)
 
 
-def _worker(case, rank, nprocs, tmp, timeout):
+def worker(case, rank, nprocs, tmp, timeout, cases=None):
+    """One rank of a launch: joins the gloo world on the CPU through the
+    launch's ``file://`` store, runs ``cases[case]`` and pickles what it
+    returns."""
     from . import env
 
     torch.set_num_threads(1)
@@ -745,7 +771,8 @@ def _worker(case, rank, nprocs, tmp, timeout):
                           init_method="file://" + os.path.join(tmp, "store"),
                           rank=rank, world_size=nprocs, timeout=timeout)
     try:
-        out = CASES[case](Ctx(rank, nprocs, torch.device("cpu"), args))
+        out = (cases or CASES)[case](Ctx(rank, nprocs, torch.device("cpu"),
+                                         args))
     finally:
         env.reset()
     with open(os.path.join(tmp, f"out{rank}.pkl"), "wb") as f:
@@ -879,7 +906,7 @@ def main(argv=None):
                    help="cpu for gloo; the card (NCCL) by default")
     a = p.parse_args(argv)
     if a.worker:
-        _worker(a.worker, a.rank, a.nprocs, a.dir, a.timeout)
+        worker(a.worker, a.rank, a.nprocs, a.dir, a.timeout)
         return 0
     result = run_world(a.device)
     if int(os.environ.get("RANK", "0")) == 0:

@@ -64,28 +64,63 @@ sums its stacked rank blocks.
 ``comm_quant`` (default ``FLAGS_comm_quant``) takes the compressed wire
 format on the scatter leg and the sharded storage's gather-on-use.
 Degree 1 is allowed (the same collectives over a one-rank group: the
-card's world-1 check). Refused, naming ROADMAP A9b: ``mp_axis``,
-``ep_axis`` and a mesh with an mp, pp or ep degree above 1;
-`select_train_step` also refuses ``auto=True`` (the auto-tuner).
+card's world-1 check).
+
+dp x mp (``mp_axis``, by default the mesh's ``mp`` axis when its degree
+is above 1; reference :530-787): Megatron tensor parallelism inside each
+layer. The buckets hold the global parameters and scatter over the
+flattened (data axes, mp) group, mp fastest, so the optimizer state is
+1/(dp x mp)-sharded. Each rank binds its block of every sliced leaf into
+a copy of the template block (`convert.mp_block` by the roles of
+`distributed.fleet.layers.mpu.roles`: qkv by heads, fc1 by output
+column, out_proj and fc2 by input column), whose Linears become the
+mpu layers `ColumnParallelLinear` (no gather) and `RowParallelLinear`
+(input parallel): Megatron's f and g over the mp group, with the
+attention's heads narrowed to nh/mp. The LM head is vocab-parallel: ln_f on the replicated hiddens,
+then `ops.kernels.fused_cross_entropy.sharded_fused_cross_entropy` over
+the rank's rows ``[r * V/mp, (r+1) * V/mp)`` of the ``[V, H]`` head
+(tied or not: the port's untied head is ``[V, H]`` too). A sliced
+leaf's grad is exact and zero outside its block; a replicated leaf's
+(the LayerNorms, the row-parallel biases, ``wpe``, ``ln_f``, the
+embedding's part of ``wte``) is whole on every mp rank, so it is scaled
+by 1/mp before the scatter, and the scattered sums are divided by the
+data degree: every gradient is the global batch's mean. Hidden dropout
+folds in the data index alone, so an mp group draws one mask. Refused,
+as the reference refuses them: heads or vocab not divisible by mp,
+attention dropout, a criterion other than `GPTPretrainingCriterion`, and
+draft heads (whose loss the vocab-parallel head does not carry).
+
+Refused, naming ROADMAP A9b: ``ep_axis`` and a mesh with a pp, ep or sep
+degree above 1; `select_train_step` also refuses ``auto=True`` (the
+auto-tuner, A9b.6).
 """
 from __future__ import annotations
 
-import torch
+import copy
 
+import torch
+from torch.func import functional_call
+
+from ..convert import mp_block
 from ..distributed import collective as coll
 from ..distributed import env as denv
 from ..distributed.comm_bucketer import (MB, build_buckets, pack,
                                          shard_segments, unpack)
+from ..distributed.fleet.layers.mpu.mp_layers import (ColumnParallelLinear,
+                                                       RowParallelLinear)
+from ..distributed.fleet.layers.mpu.mp_ops import c_identity
+from ..distributed.fleet.layers.mpu.roles import assign_roles, is_fused_proj
 from ..nn.clip import norm_stats
 from ..observability.numerics import assemble_stats, outer_row
+from ..ops.kernels.fused_cross_entropy import sharded_fused_cross_entropy
 from ..ops.kernels.multi_tensor import multi_tensor_adam, multi_tensor_norm
 from ..utils import flags as _flags
 from .fused_scan_step import FusedScanTrainStep, _rng_state, _set_rng_state
 
-__all__ = ["ShardedFusedScanTrainStep", "select_train_step"]
+__all__ = ["ShardedFusedScanTrainStep", "is_scan_gpt", "select_train_step"]
 
-A9B = ("{} is not ported yet: ROADMAP A9b; this slice runs the dp and "
-       "sharding axes")
+A9B = ("{} is not ported yet: ROADMAP A9b; the port runs the dp, sharding "
+       "and mp axes")
 
 
 def _unwrap_layers(model):
@@ -98,20 +133,40 @@ def _unwrap_layers(model):
     return model
 
 
-def _resolve_group(mesh=None, axis=None, group=None):
-    if group is not None:
-        return group
-    mesh = mesh or denv.get_mesh()
-    for a in ("mp", "pp", "ep", "sep"):
+def _mesh_axes(mesh, axis=None, mp_axis=None):
+    """(the batch axes, the mp axis or None) of ``mesh``; an ``mp_axis``
+    of degree 1 is dropped, as the reference drops it (:316-318)."""
+    for a in ("pp", "ep", "sep"):
         if mesh.shape.get(a, 1) > 1:
             raise NotImplementedError(A9B.format(f"the {a} axis"))
+    if mp_axis is None:
+        mp_axis = "mp" if mesh.shape.get("mp", 1) > 1 else None
+    elif mesh.shape.get(mp_axis, 1) <= 1:
+        mp_axis = None
     axes = denv.data_axes(mesh, axis)
     if not axes:
         axes = tuple(a for a in ("dp", "sharding") if a in mesh.shape) \
             or (mesh.axis_names[0],)
-    if mesh.degree(axes) == mesh.size:
-        return coll.get_group()
-    return coll.new_group(axes=axes, mesh=mesh)
+    if mp_axis is not None and mp_axis in axes:
+        raise ValueError(f"mp_axis {mp_axis!r} is also the batch axis; "
+                         "build the mesh with a data axis (degree 1 is "
+                         "fine), e.g. build_mesh({'dp': 1, 'mp': N})")
+    return axes, mp_axis
+
+
+def _resolve_group(mesh=None, axis=None, group=None, mp_axis=None):
+    """(the group the grads scatter over, the mp group or None): the
+    flattened (batch axes, mp) group, mp fastest."""
+    if group is not None:
+        return group, None
+    mesh = mesh or denv.get_mesh()
+    axes, mp_axis = _mesh_axes(mesh, axis, mp_axis)
+    if mp_axis is None:
+        if mesh.degree(axes) == mesh.size:
+            return coll.get_group(), None
+        return coll.new_group(axes=axes, mesh=mesh), None
+    return (coll.new_group(axes=axes + (mp_axis,), mesh=mesh),
+            coll.new_group(axes=(mp_axis,), mesh=mesh))
 
 
 class ShardedFusedScanTrainStep(FusedScanTrainStep):
@@ -121,8 +176,6 @@ class ShardedFusedScanTrainStep(FusedScanTrainStep):
                  group=None, comm_bucket_mb=None, comm_quant=None,
                  scaler=None, guard_nonfinite=None, param_storage=None,
                  numerics=None):
-        if mp_axis is not None:
-            raise NotImplementedError(A9B.format("mp_axis (dp x mp)"))
         if ep_axis is not None:
             raise NotImplementedError(A9B.format("ep_axis (MoE experts)"))
         model = _unwrap_layers(model)
@@ -131,9 +184,16 @@ class ShardedFusedScanTrainStep(FusedScanTrainStep):
                          layer_chunk=layer_chunk, scan_unroll=scan_unroll,
                          scaler=scaler, guard_nonfinite=guard_nonfinite,
                          numerics=numerics)
-        self.group = _resolve_group(mesh, axis, group)
+        self.group, self.mp_group = _resolve_group(mesh, axis, group,
+                                                   mp_axis)
         self._n = self.group.nranks
         self._rank = self.group.rank
+        self._mp_n = 1 if self.mp_group is None else self.mp_group.nranks
+        # the index over the batch axes: the group is mp fastest
+        self._batch_rank = self._rank // self._mp_n
+        self._mp_kinds = None
+        if self.mp_group is not None:
+            self._setup_mp()
         if comm_quant is None:
             comm_quant = _flags.get_flag("FLAGS_comm_quant") or ""
         if comm_quant not in ("", "int8", "bf16"):
@@ -171,6 +231,123 @@ class ShardedFusedScanTrainStep(FusedScanTrainStep):
         self._rng = None
         self.collectives_per_step = None
         self.local_loss = None
+
+    # -- Megatron tensor parallelism over the mp group -------------------
+    def _setup_mp(self):
+        """The refusals (reference :538-557), each stacked leaf's kind
+        (`convert.mp_block`; None: replicated) and the step's own copy
+        of the template block with its Linears bound to the mp group."""
+        from ..models.gpt import GPTPretrainingCriterion
+
+        mp, cfg = self._mp_n, self.model.config
+        if cfg.num_attention_heads % mp:
+            raise ValueError(f"num_attention_heads {cfg.num_attention_heads}"
+                             f" not divisible by the mp degree {mp}")
+        if cfg.vocab_size % mp:
+            raise ValueError(f"vocab_size {cfg.vocab_size} not divisible by "
+                             f"the mp degree {mp} (vocab-parallel LM head)")
+        if cfg.attention_dropout_prob:
+            raise ValueError(
+                "attention dropout under mp > 1 would draw one mask stream "
+                "for every rank's heads; train with attention_dropout_prob"
+                "=0 (hidden dropout is fine)")
+        if type(self._crit) is not GPTPretrainingCriterion:
+            raise ValueError(
+                "mp > 1 routes the LM head through the vocab-parallel fused "
+                "CE; custom criteria are not representable there: use the "
+                "default GPTPretrainingCriterion")
+        if self.model.draft_heads is not None:
+            raise ValueError("draft heads under mp > 1: the vocab-parallel "
+                             "head carries the LM loss alone")
+        tmpl = copy.deepcopy(self._template)
+        roles = assign_roles(tmpl)
+        subs = dict(tmpl.named_modules())
+        kinds = []
+        for _, pname in self._blocks._stacked_names:
+            path, leaf = pname.rsplit(".", 1)
+            sub = subs[path]
+            role = roles.get(id(sub))
+            kind = None
+            if role == "column":
+                parent = subs[path.rsplit(".", 1)[0] if "." in path else ""]
+                if is_fused_proj(sub, attr_name=path.rsplit(".", 1)[-1]):
+                    nh = getattr(parent, "num_heads", None)
+                    hd = getattr(parent, "head_dim", None)
+                    if not (nh and hd):
+                        raise ValueError(
+                            f"{pname}: a fused q|k|v Linear needs a parent "
+                            "with num_heads / head_dim for its heads' block")
+                    kind = ("heads", 0, nh, hd)
+                else:
+                    kind = ("split", 0)
+            elif role == "row" and leaf == "weight":
+                kind = ("split", 1)
+            kinds.append(kind)
+        for m in subs.values():
+            role = roles.get(id(m))
+            if role == "column":
+                m.__class__, m.gather_output = ColumnParallelLinear, False
+            elif role == "row":
+                m.__class__, m.input_is_parallel = RowParallelLinear, True
+            if role is not None:
+                m._group = self.mp_group
+            nh = getattr(m, "num_heads", None)
+            if isinstance(nh, int) and hasattr(m, "head_dim"):
+                m.num_heads = nh // mp
+        self._mp_template = tmpl
+        self._mp_kinds = kinds
+        self._mp_replicated = {j for j, k in enumerate(kinds) if k is None}
+
+    def mp_plan(self):
+        """{state-dict name: kind} of the leaves this rank holds a block
+        of (the stacked ones' dims past the layer dim), for
+        `convert.mp_block`."""
+        if self._mp_kinds is None:
+            return {}
+        prefix = next(n for n, p in self.model.named_parameters()
+                      if p is self._s_params[0]).rsplit(".", 1)[0]
+        plan = {}
+        for (flat, _), kind in zip(self._blocks._stacked_names,
+                                   self._mp_kinds):
+            if kind is not None:
+                plan[f"{prefix}.{flat}"] = (kind[0], kind[1] + 1) + kind[2:]
+        head = "gpt.wte.weight" if self.model.lm_head is None \
+            else "lm_head.weight"
+        plan[head] = ("split", 0)
+        return plan
+
+    def _chunk(self, layers, h, seg):
+        if self.mp_group is None:
+            return super()._chunk(layers, h, seg)
+        r, n = self.mp_group.rank, self._mp_n
+        names = [pname for _, pname in self._blocks._stacked_names]
+        for leaves in layers:
+            h = functional_call(
+                self._mp_template,
+                {name: self._cc(mp_block(t, kind, r, n))
+                 for name, t, kind in zip(names, leaves, self._mp_kinds)},
+                (h, seg))
+        return h
+
+    def _head(self, o, x, labels):
+        """Under mp: ln_f, then the vocab-parallel fused CE over this
+        rank's rows of the head, the hiddens' grad summed over the mp
+        group; the criterion's mean over the labels that are not -100."""
+        if self.mp_group is None:
+            return super()._head(o, x, labels)
+        m, g = self.model, self.mp_group
+        h = functional_call(m.gpt.ln_f,
+                            {"weight": self._cc(o["gpt.ln_f.weight"]),
+                             "bias": self._cc(o["gpt.ln_f.bias"])}, (x,))
+        w = o["gpt.wte.weight"] if m.lm_head is None else o["lm_head.weight"]
+        vloc = w.shape[0] // self._mp_n
+        hid = c_identity(h.reshape(-1, h.shape[-1]), g)
+        lbl = labels.reshape(-1)
+        losses = sharded_fused_cross_entropy(
+            hid, self._cc(w[g.rank * vloc:(g.rank + 1) * vloc]).contiguous(),
+            lbl, g.rank * vloc, g)
+        mask = (lbl != -100).to(losses.dtype)
+        return (losses * mask).sum() / mask.sum().clamp(min=1.0)
 
     # -- layout ----------------------------------------------------------
     def _slen(self, b):
@@ -379,7 +556,8 @@ class ShardedFusedScanTrainStep(FusedScanTrainStep):
             seed = (torch.cuda.initial_seed() if dev.type == "cuda"
                     else torch.initial_seed())
             g = torch.Generator(device=dev)
-            g.manual_seed((seed + 1000003 * (self._rank + 1)) % (1 << 63))
+            g.manual_seed((seed + 1000003 * (self._batch_rank + 1))
+                          % (1 << 63))
             self._rng = g.get_state()
         forked = [dev.index] if dev.type == "cuda" else []
         with torch.random.fork_rng(devices=forked,
@@ -397,7 +575,12 @@ class ShardedFusedScanTrainStep(FusedScanTrainStep):
         opt, K, C = self._opt, self._layer_chunk, self._chunks
         L = self.model.config.num_layers
         n, group = self._n, self.group
-        inv_n = 1.0 / n
+        # the scattered sums over the data ranks (under mp a replicated
+        # leaf's grad is scaled by 1/mp before the scatter: every mp rank
+        # holds it whole)
+        inv_n = 1.0 / (n // self._mp_n)
+        inv_mp = 1.0 / self._mp_n
+        mp = self.mp_group is not None
         s_assign, o_assign = self._s_assign, self._o_assign
         guard, nm = self._guard, self._numerics is not None
         scale = inv = None
@@ -412,6 +595,8 @@ class ShardedFusedScanTrainStep(FusedScanTrainStep):
         rng = bool(self._dropout)
         forked = [dev.index] if dev.type == "cuda" else []
         self._template.train()
+        if mp:
+            self._mp_template.train()
         o_names = [nm_ for nm_, _ in self._o_params]
         train_idx = self._s_train
 
@@ -476,6 +661,9 @@ class ShardedFusedScanTrainStep(FusedScanTrainStep):
             nt = len(train_idx)
             for k, i in enumerate(range(c * K, (c + 1) * K)):
                 g_of = dict(zip(train_idx, got[1 + k * nt:1 + (k + 1) * nt]))
+                if mp:
+                    for j in self._mp_replicated.intersection(g_of):
+                        g_of[j].mul_(inv_mp)
                 for bi, b in enumerate(s_assign.buckets):
                     flat = pack(b, g_of.get, out=self._buffer(
                         ("pack", bi), b.numel, b.dtype, dev))
@@ -500,8 +688,14 @@ class ShardedFusedScanTrainStep(FusedScanTrainStep):
             x0, [leaves[k] for k in used], dy)))
         del leaves, x0, o_vals
         og = {}
+        head_w = "gpt.wte.weight" if self.model.lm_head is None \
+            else "lm_head.weight"
         for j, (k, p) in enumerate(self._o_params):
             gh, ge = head_g[j], emb.get(k)
+            if mp:      # all but the head's vocab rows are replicated
+                ge = None if ge is None else ge.mul_(inv_mp)
+                if gh is not None and k != head_w:
+                    gh = gh.mul_(inv_mp)
             if gh is None and ge is None:
                 og[j] = None
             elif gh is None or ge is None:
@@ -623,10 +817,12 @@ class ShardedFusedScanTrainStep(FusedScanTrainStep):
                 o_u_sq = torch.where(found, zero, o_u_sq)
             g_col = torch.stack(g_rows[::-1])
             bad = (~torch.isfinite(g_col)).float()
+            # an mp group holds one copy of its rows' activations
             stats = assemble_stats(
                 g_col, torch.stack(p_rows[::-1]), torch.stack(u_rows[::-1]),
-                torch.stack(act_sq), torch.full((C,), act_n, device=dev),
-                bad, torch.stack(act_origin).float(), None,
+                torch.stack(act_sq) * inv_mp,
+                torch.full((C,), act_n * inv_mp, device=dev),
+                bad, torch.stack(act_origin).float() * inv_mp, None,
                 outer=outer_row(o_g_sq, o_p_sq, o_u_sq,
                                 (~torch.isfinite(o_g_sq)).float()))
             coll.all_reduce(stats, coll.ReduceOp.SUM, group)
@@ -652,28 +848,45 @@ class ShardedFusedScanTrainStep(FusedScanTrainStep):
                 "o": [t.numel() for t in self._o_p]}
 
 
+def is_scan_gpt(model):
+    """Whether ``model`` (or the module its wrappers hold) is a
+    ``scan_layers`` GPT, which `select_train_step` gives a fused scan
+    step."""
+    from ..models.gpt import GPTStackedBlocks
+
+    blocks = getattr(getattr(_unwrap_layers(model), "gpt", None), "blocks",
+                     None)
+    return isinstance(blocks, GPTStackedBlocks)
+
+
 def select_train_step(model, optimizer, criterion=None, mesh=None,
                       axis=None, group=None, auto=False, mp_axis=None,
                       ep_axis=None, **kw):
-    """The step for ``model`` (reference :2121): a ``scan_layers`` GPT over
-    a data degree above 1 gets `ShardedFusedScanTrainStep`, at degree 1
-    `FusedScanTrainStep`; another model `TrainStep` (over
-    ``criterion(model(ids), labels)``, else ``model.loss``)."""
-    from ..models.gpt import GPTStackedBlocks
+    """The step for ``model`` (reference :2121, :2212-2264): a
+    ``scan_layers`` GPT over a data or mp degree above 1 gets
+    `ShardedFusedScanTrainStep` (dp x mp when the mesh's mp degree is
+    above 1), at degree 1 `FusedScanTrainStep`; another model `TrainStep`
+    (over ``criterion(model(ids), labels)``, else ``model.loss``)."""
     from .train_step import TrainStep
 
     if auto:
-        raise NotImplementedError(A9B.format("the auto-tuner (auto=True)"))
-    if mp_axis is not None or ep_axis is not None:
-        raise NotImplementedError(A9B.format("mp_axis / ep_axis"))
+        raise NotImplementedError(
+            A9B.format("the auto-tuner (auto=True, A9b.6)"))
+    if ep_axis is not None:
+        raise NotImplementedError(A9B.format("ep_axis (MoE experts)"))
     layers = _unwrap_layers(model)
-    blocks = getattr(getattr(layers, "gpt", None), "blocks", None)
-    if isinstance(blocks, GPTStackedBlocks):
-        g = _resolve_group(mesh, axis, group)
-        if g.nranks > 1:
+    if is_scan_gpt(layers):
+        if group is None:
+            mesh = mesh or denv.get_mesh()
+            axes, mp = _mesh_axes(mesh, axis, mp_axis)
+            if mesh.degree(axes + ((mp,) if mp else ())) > 1:
+                return ShardedFusedScanTrainStep(
+                    layers, optimizer, criterion=criterion, mesh=mesh,
+                    axis=axis, mp_axis=mp, **kw)
+        elif group.nranks > 1:
             return ShardedFusedScanTrainStep(layers, optimizer,
-                                             criterion=criterion, group=g,
-                                             **kw)
+                                             criterion=criterion,
+                                             group=group, **kw)
         return FusedScanTrainStep(
             layers, optimizer, criterion=criterion,
             **{k: v for k, v in kw.items()

@@ -162,7 +162,8 @@ class GPTAttention(nn.Module):
             qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], is_causal=True,
             dropout_p=self.dropout_p, training=self.training,
             segment_ids=segment_ids)
-        return self.out_proj(out.reshape(b, s, h))
+        # the heads' width (under tensor parallelism a rank's nh/mp heads)
+        return self.out_proj(out.reshape(b, s, -1))
 
     def forward_prefill(self, x, cache, layer_idx, plan):
         """Prompt pass: causal self-attention over the whole (right-padded)

@@ -18,6 +18,13 @@ with ``need_clip = False`` are neither counted nor changed.
   sum of squares and flag are all-reduced over the group in one
   collective on the device before the scale is taken, so every rank
   clips by the global norm and skips together.
+* `mp_norm_stats` is the global norm over a model-parallel group, where
+  a distributed parameter (``is_distributed``: an mpu layer's block) is
+  a block a rank and a replicated one (LayerNorms, a row-parallel bias)
+  whole on every rank: the blocks' sums of squares are all-reduced over
+  the group, the replicated ones counted once, so the norm is the
+  reference's norm of the global parameters
+  (`distributed.fleet.HybridParallelOptimizer` clips by it).
 * `ClipGradByValue`, `ClipGradByNorm` (each grad by its own norm) and
   `clip_grad_norm_` (the torch-style utility over parameters), plain
   tensor code as the reference runs them; the first two return new grads.
@@ -29,7 +36,8 @@ import torch
 from ..ops.kernels.multi_tensor import multi_tensor_norm
 
 __all__ = ["ClipGradBase", "ClipGradByGlobalNorm", "ClipGradByNorm",
-           "ClipGradByValue", "clip_grad_norm_", "norm_stats"]
+           "ClipGradByValue", "clip_grad_norm_", "mp_norm_stats",
+           "norm_stats"]
 
 
 def _clipped(p, g):
@@ -85,23 +93,68 @@ class ClipGradByGlobalNorm(ClipGradBase):
                 for p, g in params_grads]
 
 
-def norm_stats(grads, need_clip, inv_scale, clip_norm, group, device=None):
+def norm_stats(grads, need_clip, inv_scale, clip_norm, group, device=None,
+               blocks=None, mp_group=None):
     """``(sum of squares, clip scale, found_inf)`` as device scalars, like
     `multi_tensor_norm`'s, with the sum and the flag all-reduced over
     ``group`` (a `distributed.collective.Group`) first, in one
     collective: the clip's global norm and the guard's flag over the
-    ranks' shards. No host read."""
+    ranks' shards. With a model-parallel ``mp_group`` of more than one
+    rank, the grads flagged in ``blocks`` are shards of blocks
+    (`is_block`): their sum and the flag are all-reduced over it too,
+    and the replicated grads' sum is added once, as `mp_norm_stats`
+    counts them. No host read."""
     from ..distributed.collective import ReduceOp, all_reduce
 
-    stats, found = multi_tensor_norm(grads, need_clip, inv_scale,
-                                     device=device)
-    tot = torch.stack([stats[0], found.float()])
-    all_reduce(tot, ReduceOp.SUM, group)
+    if mp_group is None or mp_group.nranks == 1:
+        stats, found = multi_tensor_norm(grads, need_clip, inv_scale,
+                                         device=device)
+        tot = torch.stack([stats[0], found.float()])
+        all_reduce(tot, ReduceOp.SUM, group)
+    else:
+        stats, found = multi_tensor_norm(
+            grads, [c and b for c, b in zip(need_clip, blocks)], inv_scale,
+            device=device)
+        rep = multi_tensor_norm(
+            grads, [c and not b for c, b in zip(need_clip, blocks)],
+            inv_scale, device=device)[0]
+        both = torch.stack([stats[0], found.float(), rep[0]])
+        all_reduce(both, ReduceOp.SUM, group)
+        tot = both[:2].clone()
+        all_reduce(tot, ReduceOp.SUM, mp_group)
+        tot[0] += both[2]
     scale = torch.ones_like(tot[0])
     if clip_norm is not None:
         norm = tot[0].sqrt().clamp(min=1e-12)
         scale = (torch.full_like(norm, clip_norm) / norm).clamp(max=1.0)
     return tot[0], scale, tot[1] > 0
+
+
+def is_block(p):
+    """Whether ``p`` is a rank's block of a model-parallel parameter
+    (Paddle's ``is_distributed`` flag; torch tensors also have an
+    ``is_distributed`` method, which is no flag)."""
+    return getattr(p, "is_distributed", False) is True
+
+
+def mp_norm_stats(params_grads, clip_norm, group):
+    """``(sum of squares, clip scale)`` as device scalars of the clipped
+    (``need_clip``) grads of ``params_grads`` over a model-parallel
+    ``group``: the distributed parameters' squares summed over the group
+    (one all-reduce), the replicated ones' added once."""
+    from ..distributed.collective import ReduceOp, all_reduce
+
+    kept = [(p, g) for p, g in params_grads if _clipped(p, g)]
+    dev = kept[0][1].device if kept else None
+    dist = [g for p, g in kept if is_block(p)]
+    rep = [g for p, g in kept if not is_block(p)]
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    sq_d = multi_tensor_norm(dist, device=dev)[0][0] if dist else zero
+    sq_d = sq_d.clone()
+    all_reduce(sq_d, ReduceOp.SUM, group)
+    sq = sq_d + (multi_tensor_norm(rep, device=dev)[0][0] if rep else zero)
+    norm = sq.sqrt().clamp(min=1e-12)
+    return sq, (torch.full_like(norm, clip_norm) / norm).clamp(max=1.0)
 
 
 def scaled(g, scale):

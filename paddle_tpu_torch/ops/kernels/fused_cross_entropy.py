@@ -17,6 +17,22 @@ tied-embedding layout), ``labels [N]`` int; losses ``[N]`` fp32, 0 where
   ``g_eff`` (0 on ignored rows); kernel #12: in bf16 three warpgroup
   GEMMs a vocab chunk (`plan_chunks` sizes the chunks), in fp32 the dh
   and dW kernels.
+* The vocab-parallel head (the reference's ``sharded_fused_cross_entropy``,
+  :455-588): each rank of a model-parallel group holds the row block
+  ``[vocab_start, vocab_start + V/mp)`` of the head. `sharded_fused_ce_fwd`
+  runs #11 on the shard and gives the rank's ``(lse_r, picked_r)``, the
+  combine kernel writing ``picked`` beside ``lse`` (``lse - loss``
+  would cancel); `sharded_fused_cross_entropy` combines them over the
+  group as the reference does (the max of ``lse_r``, then one all-reduce
+  of ``[exp(lse_r - max), picked_r]``), and its backward runs #12 on the
+  shard against the global lse (`sharded_fused_ce_bwd`): dW is exactly
+  the shard's rows, dh this rank's part of the sum over the group.
+  Labels become the shard's columns first (`local_labels`): a label
+  outside the shard (another rank's, or ``ignore_index``) matches no
+  column, the shard's padded columns included, which would otherwise
+  alias the next rank's first ids. The plain versions
+  `sharded_fused_ce_fwd_ref` / `sharded_fused_ce_bwd_ref` transcribe
+  ``_fwd_xla_sharded`` / ``_bwd_xla_sharded``.
 
 Routing is by the tensors' device, nothing else: CPU tensors take the
 plain versions `fused_ce_fwd_ref` / `fused_ce_bwd_ref` (transcriptions of
@@ -40,16 +56,19 @@ import torch
 from . import _build
 
 __all__ = ["fused_cross_entropy", "fused_ce_fwd", "fused_ce_bwd",
-           "fused_ce_fwd_ref", "fused_ce_bwd_ref", "plan_chunks"]
+           "fused_ce_fwd_ref", "fused_ce_bwd_ref", "local_labels",
+           "plan_chunks", "sharded_fused_ce_bwd", "sharded_fused_ce_bwd_ref",
+           "sharded_fused_ce_fwd", "sharded_fused_ce_fwd_ref",
+           "sharded_fused_cross_entropy"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    # h, w, labels, loss, lse, part, n, vocab, hidden, ignore_index,
-    # tiles_per_split, bf16, stream
-    "fused_ce_fwd": (_P,) * 6 + (_I,) * 6 + (_P,),
-    # bf16 on warpgroup products: h, w, labels, loss, lse, part, n, vocab,
-    # hidden, ignore_index, stream
-    "fused_ce_fwd_bf16": (_P,) * 6 + (_I,) * 4 + (_P,),
+    # h, w, labels, loss, lse, picked (or null), part, n, vocab, hidden,
+    # ignore_index, tiles_per_split, bf16, stream
+    "fused_ce_fwd": (_P,) * 7 + (_I,) * 6 + (_P,),
+    # bf16 on warpgroup products: h, w, labels, loss, lse, picked, part,
+    # n, vocab, hidden, ignore_index, stream
+    "fused_ce_fwd_bf16": (_P,) * 7 + (_I,) * 4 + (_P,),
     # fp32: h, w, labels, lse, g_eff, dh, dw, dh32, dw32, n, vocab, hidden,
     # tiles_per_split, stream
     "fused_ce_bwd": (_P,) * 9 + (_I,) * 4 + (_P,),
@@ -81,10 +100,9 @@ def _tiles(weight, bv):
     return weight.reshape(nv, bv, hidden), nv, pad
 
 
-def fused_ce_fwd_ref(hidden, weight, labels, ignore_index=-100,
-                     block_v=BLOCK_V):
-    """Online logsumexp over vocab tiles (_fwd_xla): ``(losses, lse)``,
-    both fp32 ``[N]``."""
+def _online_ref(hidden, weight, labels, block_v):
+    """The online pass of `fused_ce_fwd_ref`: each row's running max,
+    sum of exponentials and picked label logit, fp32 ``[N]`` each."""
     n = hidden.shape[0]
     vocab = weight.shape[0]
     wt, nv, pad = _tiles(weight, block_v)
@@ -105,10 +123,46 @@ def fused_ce_fwd_ref(hidden, weight, labels, ignore_index=-100,
         pk = pk + torch.where(col == lbl, logits,
                               torch.zeros((), device=hidden.device)).sum(1)
         m = m_new
+    return m, l, pk
+
+
+def fused_ce_fwd_ref(hidden, weight, labels, ignore_index=-100,
+                     block_v=BLOCK_V):
+    """Online logsumexp over vocab tiles (_fwd_xla): ``(losses, lse)``,
+    both fp32 ``[N]``."""
+    m, l, pk = _online_ref(hidden, weight, labels, block_v)
     lse = m + torch.log(l)
     losses = torch.where(labels != ignore_index, lse - pk,
                          torch.zeros((), device=hidden.device))
     return losses, lse
+
+
+def local_labels(labels, vocab_start, vocab_local):
+    """``labels`` (global ids) as columns of the shard ``[vocab_start,
+    vocab_start + vocab_local)``: ids outside it (another shard's, and
+    ``ignore_index``) become -1, which matches no column."""
+    rel = labels.long() - int(vocab_start)
+    return torch.where((rel >= 0) & (rel < vocab_local), rel,
+                       torch.full_like(rel, -1))
+
+
+def sharded_fused_ce_fwd_ref(hidden, weight_local, labels, vocab_start,
+                             block_v=BLOCK_V):
+    """The shard's online pass (_fwd_xla_sharded): ``(lse_r, picked_r)``,
+    fp32 ``[N]``: the logsumexp over the shard's vocab rows and the
+    label's logit where the label lies in the shard (else 0)."""
+    lbl = local_labels(labels, vocab_start, weight_local.shape[0])
+    m, l, pk = _online_ref(hidden, weight_local, lbl, block_v)
+    return m + torch.log(l), pk
+
+
+def sharded_fused_ce_bwd_ref(hidden, weight_local, labels, vocab_start, lse,
+                             g_eff, block_v=BLOCK_V):
+    """The shard's tiled backward (_bwd_xla_sharded) against the global
+    ``lse``: ``(dh, dw)``, dh this rank's part of the sum over the group,
+    dw the shard's rows."""
+    lbl = local_labels(labels, vocab_start, weight_local.shape[0])
+    return fused_ce_bwd_ref(hidden, weight_local, lbl, lse, g_eff, block_v)
 
 
 def fused_ce_bwd_ref(hidden, weight, labels, lse, g_eff, block_v=BLOCK_V):
@@ -211,7 +265,7 @@ def plan_chunks(n, vocab, hidden):
                    for v0 in range(0, vocab, width)]
 
 
-def _fwd_tiles(hidden, weight, lbl, ignore_index, loss, lse):
+def _fwd_tiles(hidden, weight, lbl, ignore_index, loss, lse, picked=None):
     """``fused_ce_fwd_kernel`` + combine (the fp32 route; in bf16 the
     first design, which `chip_smoke.py` times beside the warpgroup
     route)."""
@@ -222,6 +276,7 @@ def _fwd_tiles(hidden, weight, lbl, ignore_index, loss, lse):
     with torch.cuda.device(dev):
         _run("fused_ce_fwd", hidden.data_ptr(), weight.data_ptr(),
              lbl.data_ptr(), loss.data_ptr(), lse.data_ptr(),
+             None if picked is None else picked.data_ptr(),
              part.data_ptr(), n, vocab, hsz, int(ignore_index), per,
              int(hidden.dtype == torch.bfloat16),
              torch.cuda.current_stream(dev).cuda_stream)
@@ -235,27 +290,35 @@ def fused_ce_fwd(hidden, weight, labels, ignore_index=-100):
     _check(hidden, weight, labels)
     if hidden.device.type == "cpu":
         return fused_ce_fwd_ref(hidden, weight, labels, ignore_index)
+    return _fwd_launch(hidden, weight, labels, ignore_index)[:2]
+
+
+def _fwd_launch(hidden, weight, labels, ignore_index, picked=False):
+    """The forward's launches on CUDA tensors: ``(loss, lse, picked)``
+    (``picked`` None unless asked for)."""
     n, hsz = hidden.shape
     vocab, dev = weight.shape[0], hidden.device
     loss = torch.empty(n, dtype=torch.float32, device=dev)
     lse = torch.empty(n, dtype=torch.float32, device=dev)
+    pk = torch.empty(n, dtype=torch.float32, device=dev) if picked else None
     if n == 0:
-        return loss, lse
+        return loss, lse, pk
     lbl = labels.to(torch.int32).contiguous()
     if hidden.dtype != torch.bfloat16:
-        _fwd_tiles(hidden, weight, lbl, ignore_index, loss, lse)
+        _fwd_tiles(hidden, weight, lbl, ignore_index, loss, lse, pk)
         fused_ce_fwd.launches += 1
-        return loss, lse
+        return loss, lse, pk
     # the per-tile (m, l, picked) of every 256-row vocab tile
     part = torch.empty(3, -(-vocab // CHUNK_TILE), n, dtype=torch.float32,
                        device=dev)
     with torch.cuda.device(dev):
         _run("fused_ce_fwd_bf16", hidden.data_ptr(), weight.data_ptr(),
              lbl.data_ptr(), loss.data_ptr(), lse.data_ptr(),
-             part.data_ptr(), n, vocab, hsz, int(ignore_index),
+             None if pk is None else pk.data_ptr(), part.data_ptr(), n,
+             vocab, hsz, int(ignore_index),
              torch.cuda.current_stream(dev).cuda_stream)
     fused_ce_fwd.launches_wgmma += 1
-    return loss, lse
+    return loss, lse, pk
 
 
 def fused_ce_bwd(hidden, weight, labels, lse, g_eff):
@@ -324,6 +387,79 @@ def fused_cross_entropy(hidden, weight, labels, ignore_index=-100):
     (see the module docstring); fp32 losses ``[N]``."""
     _check(hidden, weight, labels)
     return _FusedCE.apply(hidden, weight, labels, int(ignore_index))
+
+
+# ---------------------------------------------------------------------------
+# the vocab-parallel head
+# ---------------------------------------------------------------------------
+
+def sharded_fused_ce_fwd(hidden, weight_local, labels, vocab_start):
+    """``(lse_r, picked_r)`` of the shard (`sharded_fused_ce_fwd_ref`'s
+    contract). CUDA tensors launch #11 on the shard (counted as
+    `fused_ce_fwd` counts) with the labels as the shard's columns, the
+    combine writing ``picked``."""
+    _check(hidden, weight_local, labels)
+    if hidden.device.type == "cpu":
+        return sharded_fused_ce_fwd_ref(hidden, weight_local, labels,
+                                        vocab_start)
+    lbl = local_labels(labels, vocab_start, weight_local.shape[0])
+    _, lse, pk = _fwd_launch(hidden, weight_local, lbl, -1, picked=True)
+    return lse, pk
+
+
+def sharded_fused_ce_bwd(hidden, weight_local, labels, vocab_start, lse,
+                         g_eff):
+    """``(dh, dw)`` of the shard against the global ``lse``
+    (`sharded_fused_ce_bwd_ref`'s contract); CUDA tensors launch #12 on
+    the shard (counted in ``fused_ce_bwd.launches``)."""
+    _check(hidden, weight_local, labels)
+    lbl = local_labels(labels, vocab_start, weight_local.shape[0])
+    if hidden.device.type == "cpu":
+        return fused_ce_bwd_ref(hidden, weight_local, lbl, lse, g_eff)
+    return fused_ce_bwd(hidden, weight_local, lbl, lse, g_eff)
+
+
+class _ShardedFusedCE(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, hidden, weight_local, labels, vocab_start, group,
+                ignore_index):
+        from ...distributed.fleet.layers.mpu.mp_ops import combine_lse
+
+        lse_r, pk_r = sharded_fused_ce_fwd(hidden, weight_local, labels,
+                                           vocab_start)
+        lse, pk = combine_lse(lse_r, pk_r, group)
+        losses = torch.where(labels != ignore_index, lse - pk,
+                             torch.zeros((), device=lse.device))
+        ctx.save_for_backward(hidden, weight_local, labels, lse)
+        ctx.vocab_start, ctx.ignore_index = vocab_start, ignore_index
+        return losses
+
+    @staticmethod
+    def backward(ctx, g):
+        hidden, weight_local, labels, lse = ctx.saved_tensors
+        g_eff = torch.where(labels != ctx.ignore_index, g.float(),
+                            torch.zeros((), device=g.device))
+        dh, dw = sharded_fused_ce_bwd(hidden, weight_local, labels,
+                                      ctx.vocab_start, lse, g_eff)
+        return dh, dw, None, None, None, None
+
+
+def sharded_fused_cross_entropy(hidden, weight_local, labels, vocab_start,
+                                group=None, ignore_index=-100):
+    """The vocab-parallel fused CE (reference :568): ``hidden [N, H]``
+    (the same on every rank of ``group``), ``weight_local [V/mp, H]``
+    (this rank's row block of the ``[V, H]`` head, starting at global id
+    ``vocab_start``), ``labels [N]`` global ids. fp32 losses ``[N]``,
+    the same on every rank, 0 at ``ignore_index``. Differentiable in
+    ``hidden`` (this rank's part: the caller sums it over the group, as
+    Megatron's identity-forward / all-reduce-backward operator does) and
+    ``weight_local`` (exactly the shard's rows). Each rank's loss
+    cotangent is the whole one: no sum over the group, whose ranks all
+    hold it (the reference's psum of the seeds and its 1/mp
+    normalization cancel)."""
+    _check(hidden, weight_local, labels)
+    return _ShardedFusedCE.apply(hidden, weight_local, labels,
+                                 int(vocab_start), group, int(ignore_index))
 
 
 fused_ce_fwd.launches = fused_ce_fwd.launches_wgmma = 0

@@ -13,8 +13,9 @@ launcher's deadline), against the JAX package's.
   averages them all.
 * The topology: `CommunicateTopology`'s arithmetic equal to the
   reference's (``TestTopology``, :198-225), and `HybridCommunicateGroup`
-  and ``fleet.init`` over the world: degrees, ranks, groups; an mp or pp
-  degree above 1 raises, naming ROADMAP A9b.
+  and ``fleet.init`` over the world: degrees, ranks, groups; an mp
+  degree of the world gives the model axis and `TensorParallel`; a pp
+  or sep degree above 1 raises, naming ROADMAP A9b.
 * `DistributedBatchSampler`: every rank's batches equal the reference's
   for that rank, with and without shuffling and ``drop_last``.
 """
@@ -136,7 +137,10 @@ def test_hybrid_group_and_fleet_init_over_the_world(world):
                            for k in range(n // 2)]
         assert list(out["fleet"]) == [n, r, int(r == 0), n]
         assert out["fleet_model"] == "DataParallel"
-        assert "A9b" in out["refuse_mp"] and "A9b" in out["refuse_pp"]
+        # mp at the world's degree runs (the model axis, TensorParallel);
+        # pp and sep still raise, naming A9b
+        assert out["mp_fleet"] == [n, r, 1, "TensorParallel"]
+        assert "A9b" in out["refuse_pp"] and "A9b" in out["refuse_sep"]
 
 
 @pytest.mark.parametrize("shuffle", [False, True])

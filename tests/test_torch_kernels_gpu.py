@@ -837,7 +837,7 @@ def test_training_kernel_errors(cuda):
     lbl32 = lbl.to(torch.int32)
     with pytest.raises(RuntimeError, match="launch failed"):
         fce._run("fused_ce_fwd", h.data_ptr(), h.data_ptr(),
-                 lbl32.data_ptr(), loss.data_ptr(), lse.data_ptr(),
+                 lbl32.data_ptr(), loss.data_ptr(), lse.data_ptr(), None,
                  part.data_ptr(), 8, 8, 64, -100, 0, 0,
                  torch.cuda.current_stream().cuda_stream)
 

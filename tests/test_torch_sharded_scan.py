@@ -252,6 +252,9 @@ def test_select_train_step_picks_by_degree(world, named):
     n, ranks, _ = world
     assert all(out["select"] == "ShardedFusedScanTrainStep"
                for out in ranks)
+    # a dp x mp mesh over the world: the dp x mp step (mp 2)
+    assert all(out["select_mp"] == ["ShardedFusedScanTrainStep", n, 2]
+               for out in ranks)
     tenv.init_parallel_env(backend="gloo")
     try:
         crit = GPTPretrainingCriterion()
@@ -259,15 +262,20 @@ def test_select_train_step_picks_by_degree(world, named):
         opt = AdamW(learning_rate=LR, parameters=tm.parameters())
         assert type(select_train_step(tm, opt, criterion=crit)) is \
             FusedScanTrainStep
+        # mp_axis at degree 1 is dropped, as the reference drops it
+        assert type(select_train_step(tm, opt, criterion=crit,
+                                      mp_axis="mp")) is FusedScanTrainStep
+        assert ShardedFusedScanTrainStep(
+            tm, opt, criterion=crit, mp_axis="mp").mp_group is None
         flat = GPTForCausalLM(GPTConfig(**TINY), device="cpu")
         assert type(select_train_step(
             flat, AdamW(parameters=flat.parameters()),
             criterion=crit)) is TrainStep
-        for kw in (dict(auto=True), dict(mp_axis="mp"),
-                   dict(ep_axis="ep")):
+        pp = tenv.RankMesh({"pp": 2, "dp": 1})
+        for kw in (dict(auto=True), dict(mesh=pp), dict(ep_axis="ep")):
             with pytest.raises(NotImplementedError, match="A9b"):
                 select_train_step(tm, opt, criterion=crit, **kw)
-        for kw in (dict(mp_axis="mp"), dict(ep_axis="ep")):
+        for kw in (dict(mesh=pp), dict(ep_axis="ep")):
             with pytest.raises(NotImplementedError, match="A9b"):
                 ShardedFusedScanTrainStep(tm, opt, criterion=crit, **kw)
     finally:
