@@ -327,7 +327,35 @@ Phases, one line each (any failure exits non-zero, nothing is caught):
     relative); (d) with two cards or more, (b) over NCCL, one card a
     rank; with one, a line that says it did not run. The kernels line
     carries a rank's launches a step at mp 2 (``launches_mp``) and the
-    CE rows their shards' records (``mp_shards``).
+    CE rows their shards' records (``mp_shards``);
+25. the pp axis: (a) GPT-3 1.3B at dp 1 x pp 2 with both ranks on the
+    card over gloo (``pipeline_selftest.launch_card``:
+    ``torch.distributed.run --nproc_per_node 2 -m
+    paddle_tpu_torch.distributed.pipeline_selftest``, ``fleet.init``
+    with a strategy of ``pp_degree`` 2 and ``pipeline_configs={
+    "accumulate_steps": 4}`` ->
+    ``fleet.distributed_model(gpt_scan).train_step(AdamW +
+    ClipGradByGlobalNorm(1.0), fused_head=True)``, bf16 compute over fp32
+    parameters, 4 x 1024 tokens in 4 micro-batches, 3 steps) against
+    phase 24's world-of-one ``FusedScanTrainStep`` losses (every step
+    within 1e-2, the gaps printed), the ranks' losses identical, a rank's
+    launches a step exact, counted from the design (`_pp_launches`: its
+    12 layers' splash forwards on each micro-batch in the ring and again
+    in the backward's recompute, their backwards, the CE's 1 + 1 on stage
+    0 alone, 25 ``mt_adam_kernel``, 1 ``mt_norm_kernel``), its p2p sends
+    and receives a step exact (4 a pass each way) and its collectives
+    over the flattened group exact; the peak memory of a rank and the
+    step times, which gloo's trips through the host set, are no speed
+    of pp; (b) a tiny fp32 scan GPT at pp 2 and at pp 2 x mp 2 (four
+    ranks), the ranks on the card against the same ranks on the CPU
+    (loss 5e-4, parameters 5e-3 relative); (c) `PipelineParallel.
+    train_batch` over a tiny model with a tied `SharedLayerDesc`
+    embedding and `GPTForCausalLMPipe` (chunks 1 and 2) at pp 2 on the
+    card, against one rank running the whole model (loss 1e-4,
+    parameters or grads 1e-3 relative); (d) with two cards or more, (a)
+    over NCCL, one card a rank; with one, a line that says it did not
+    run. The kernels line carries a rank's launches a step at pp 2
+    (``launches_pp``, by stage).
 
 It then prints the ``nvidia-smi`` line again and, last, ``{"ok": true,
 "device": {...}}``. Imports torch, numpy and the port only.
@@ -351,7 +379,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
 BF16_FLOP_PER_S = 989e12        # dense bf16 tensor-core peak
 FP32_FLOP_PER_S = 67e12         # fp32 outside the tensor cores
-PHASES = 24
+PHASES = 25
 
 
 def nvidia_smi() -> str:
@@ -5549,7 +5577,8 @@ def tensor_parallel_two_ranks(dev):
     backward through the shards, the grads' scatter, the clip and Adam)
     with exact launches and collectives a step; the tiny fp32 GPT
     at mp 2 card against CPU (loss 5e-4, parameters 5e-3 rel); with two
-    cards, the same over NCCL. Returns a rank's launches a step."""
+    cards, the same over NCCL. Returns a rank's launches a step and the
+    world-of-one losses (phase 25 holds pp 2 to them too)."""
     from paddle_tpu_torch.distributed import mp_selftest
 
     t0 = time.perf_counter()
@@ -5606,7 +5635,126 @@ def tensor_parallel_two_ranks(dev):
         if max(abs(x - y) for x, y in zip(nb["losses"], want)) >= \
                 MP_LOSS_BAR or nb["launches_per_step"] != MP_LAUNCHES:
             raise AssertionError(f"mp 2 over NCCL: {nb}")
-    return per_step
+    return per_step, want
+
+
+PP_LOSS_BAR = 1e-2
+PP_MICRO = 4
+
+
+def _pp_launches(stage, layers=24, pp=2, micro=PP_MICRO):
+    """A rank's launches a step at GPT-3 1.3B, dp 1 x pp 2 (counted from
+    the design): its layers' splash forwards on each micro-batch in the
+    ring and again in the backward's recompute, their backwards once; the
+    head's CE on stage 0 alone; one fused update a chunk (every rank
+    updates its shards of every layer) and the outer one; the clip's
+    norm."""
+    own = layers // pp
+    return {"splash_fwd_wgmma_kernel": 2 * own * micro,
+            "splash_bwd_wgmma_kernels": own * micro,
+            "fused_ce_fwd_wgmma_kernel": int(stage == 0),
+            "fused_ce_bwd_kernels": int(stage == 0),
+            "mt_adam_kernel": layers + 1, "mt_norm_kernel": 1}
+
+
+def _pp_collectives(b, pp=2, micro=PP_MICRO):
+    """What a rank's step must call at dp 1 x pp 2 (`b`: the record): one
+    reduce-scatter a bucket a layer (every stage takes part, the owner
+    contributing) and one an outer bucket over the flattened group (the
+    world's here), the sharded storage's gathers (each layer in the
+    ring's forward and in the backward, the outer buckets once), the
+    clip's and the loss's all-reduces there, the loss's over pp; M sends
+    and M receives a pass each way."""
+    L, (s, o) = b["layers"], b["buckets"]
+    flat = "world" if b["axes"][0] is None else "+".join(b["axes"][0])
+    v = L // pp
+    return {f"reduce_scatter@{flat}": s * L + o,
+            f"all_gather@{flat}": 2 * s * L + o,
+            f"all_reduce@{flat}": 2, "all_reduce@pp": 1,
+            "send@pp": 2 * v * micro, "recv@pp": 2 * v * micro}
+
+
+def pipeline_two_ranks(dev, want):
+    """Phase 25: GPT-3 1.3B at dp 1 x pp 2 with both ranks on the card
+    over gloo (`pipeline_selftest.launch_card`), held to phase 24's
+    world-of-one losses ``want`` with exact launches, transfers and
+    collectives a step; the tiny scan GPT at pp 2 and pp 2 x mp 2 card
+    against CPU; the eager pipeline and `GPTForCausalLMPipe` card against
+    one rank; with two cards, (a) over NCCL. Returns the launches a step
+    by stage."""
+    from paddle_tpu_torch.distributed import pipeline_selftest
+
+    t0 = time.perf_counter()
+    res = pipeline_selftest.launch_card(2, steps=len(want), deadline=700)
+    wall = time.perf_counter() - t0
+    b = res["gpt3_1.3b"]
+    gaps = [abs(x - y) for x, y in zip(b["losses"], want)]
+    ranks = b["ranks"]
+    report = {"model": "gpt3-1.3b", "dp": 1, "pp": 2, "micro": b["micro"],
+              "backend": res["backend"], "device": res["device"],
+              "losses": b["losses"], "world1_losses": want,
+              "loss_gaps": gaps, "schedule": b["schedule"],
+              "ranks": ranks, "launch_wall_s": wall,
+              "nvidia_smi": nvidia_smi()}
+    print(f"[25/{PHASES}] (a) gpt3-1.3b dp 1 x pp 2, two ranks sharing "
+          f"the card over gloo (activations, grads and parameters through "
+          f"the host: the step times and the peak memory are gloo's, no "
+          f"speed of pp): {json.dumps(report)}", flush=True)
+    if not (len(gaps) == len(want) and max(gaps) < PP_LOSS_BAR
+            and all(np.isfinite(b["losses"]))):
+        raise AssertionError(f"pp 2 losses {b['losses']} against world 1 "
+                             f"{want}")
+    if any(r["losses"] != ranks[0]["losses"] for r in ranks):
+        raise AssertionError(f"ranks' losses differ: {ranks}")
+    by_stage = {}
+    for r in ranks:
+        st = r["stage"]
+        by_stage[st] = r["launches_per_step"]
+        if r["launches_per_step"] != _pp_launches(st):
+            raise AssertionError(f"pp 2 stage {st} launches a step "
+                                 f"{r['launches_per_step']}, want "
+                                 f"{_pp_launches(st)}")
+        coll = dict(r["collectives_per_step"]["by_group"])
+        if coll != _pp_collectives(b):
+            raise AssertionError(f"pp 2 stage {st} collectives a step "
+                                 f"{coll}, want {_pp_collectives(b)}")
+    tiny = res["tiny_card_cpu"]
+    quad = pipeline_selftest.launch_card(4, tiny=True, tiny_mp=2,
+                                         deadline=300)["tiny_card_cpu"]
+    print(f"[25/{PHASES}] (b) tiny fp32 scan GPT card against CPU over "
+          f"the same gloo ranks: pp 2 {json.dumps(tiny)}; pp 2 x mp 2 "
+          f"{json.dumps(quad)}; {nvidia_smi()}", flush=True)
+    for t in (tiny, quad):
+        if not (t["max_loss_diff"] < 5e-4 and t["max_param_rel"] < 5e-3):
+            raise AssertionError(f"pp card against CPU: {t}")
+    pipe = res["pipe_layers"]
+    print(f"[25/{PHASES}] (c) PipelineParallel.train_batch and "
+          f"GPTForCausalLMPipe at pp 2 on the card against one rank: "
+          f"{json.dumps(pipe)}; {nvidia_smi()}", flush=True)
+    pl = pipe["pipeline_parallel"]
+    if not (pl["max_loss_diff"] < 1e-4 and pl["max_param_rel"] < 1e-3):
+        raise AssertionError(f"PipelineParallel against one rank: {pl}")
+    for nc in (1, 2):
+        g = pipe[f"gpt_pipe_c{nc}"]
+        if not (abs(g["loss"] - g["plain"]) < 1e-4
+                and g["max_grad_rel"] < 1e-3):
+            raise AssertionError(f"GPTForCausalLMPipe chunks {nc}: {g}")
+    if torch.cuda.device_count() < 2:
+        print(f"[25/{PHASES}] (d) dp 1 x pp 2 over NCCL: not run (1 card); "
+              f"{nvidia_smi()}", flush=True)
+    else:
+        nccl = pipeline_selftest.launch_card(2, nccl=True, steps=len(want),
+                                             deadline=600)
+        nb = nccl["gpt3_1.3b"]
+        print(f"[25/{PHASES}] (d) dp 1 x pp 2 over NCCL, one card a rank: "
+              f"losses {nb['losses']}, step s {nb['step_s']}; "
+              f"{nvidia_smi()}", flush=True)
+        if max(abs(x - y) for x, y in zip(nb["losses"], want)) >= \
+                PP_LOSS_BAR or any(
+                    r["launches_per_step"] != _pp_launches(r["stage"])
+                    for r in nb["ranks"]):
+            raise AssertionError(f"pp 2 over NCCL: {nb}")
+    return by_stage
 
 
 def main() -> int:
@@ -5699,7 +5847,8 @@ def main() -> int:
     collectives_world1(dev)
     sharded, sharded_steps = sharded_training(dev)
     mp_shards = vocab_parallel_kernels(dev)
-    mp_launches = tensor_parallel_two_ranks(dev)
+    mp_launches, world1 = tensor_parallel_two_ranks(dev)
+    pp_launches = pipeline_two_ranks(dev, world1)
 
     where = {name: (PAGED_SOURCE, f"{PAGED_TPU}:{line}")
              for name, (_, _, _, line) in PAGED_KERNELS.items()}
@@ -5747,6 +5896,10 @@ def main() -> int:
              # phase 24(b): a rank's launches a step at dp 1 x mp 2
              **({"launches_mp": mp_launches[name]}
                 if name in mp_launches else {}),
+             # phase 25(a): a rank's launches a step at dp 1 x pp 2
+             **({"launches_pp": {f"stage{st}": ran[name]
+                                 for st, ran in sorted(pp_launches.items())}}
+                if name in pp_launches[0] else {}),
              **({"mp_shards": {
                  dt: {mp: {k: rec[k] for k in ("shape", "errors")}
                       | rec["fwd" if "fwd" in name else "bwd"]

@@ -15,9 +15,10 @@ Two ways to use it, as in the reference:
   ``scaler.minimize(opt, loss)`` or ``scaler.step(opt)`` +
   ``scaler.update()``. `unscale_` unscales every grad in one pass
   (`ops.kernels.multi_tensor.multi_tensor_norm`: the unscale written in
-  place with the reference's rounding and ``found_inf`` as a device flag),
-  and the step decision reads the flag back once (`_found`, the
-  reference's single host read).
+  place with the reference's rounding and ``found_inf`` as a device flag,
+  one flag over the optimizer's ``_found_group`` where it has one), and
+  the step decision reads the flag back once (`_found`, the reference's
+  single host read).
 """
 from __future__ import annotations
 
@@ -73,10 +74,15 @@ class AmpScaler:
         grads = [p.grad for p in optimizer._parameter_list
                  if p.grad is not None]
         if grads:
+            from ..nn.clip import any_over
+
             inv = torch.full((), 1.0 / float(self._scale),
                              dtype=torch.float32, device=grads[0].device)
-            _, self._found_inf = multi_tensor_norm(grads, inv_scale=inv,
-                                                   write=True)
+            _, found = multi_tensor_norm(grads, inv_scale=inv, write=True)
+            # one flag over the ranks whose grads differ (a hybrid-
+            # parallel optimizer's pp x mp group)
+            self._found_inf = any_over(
+                found, getattr(optimizer, "_found_group", None))
         else:
             self._found_inf = False
         self._opt_states[id(optimizer)] = OptimizerState.UNSCALED

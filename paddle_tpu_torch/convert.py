@@ -31,6 +31,15 @@ global arrays into rank r's blocks and the ranks' state dicts back into
 the reference's arrays (`mp_plan` reads a model's kinds from its
 parameters' ``split_axis``).
 
+Pipeline parallelism: a rank of a pipeline group holds its stage.
+`pipe_stage_from_jax` cuts a `models.GPTForCausalLMPipe` rank's slice
+``[stage:stage + 1]`` of the reference's stacked ``[n_stages, ...]``
+blocks (the embeddings and ln_f whole) and `pipe_stage_to_jax` joins the
+ranks' state dicts back along that dim; `pipeline_state_dict_from_jax`
+gives a `PipelineLayer` rank the entries it holds of the reference's
+named arrays and `pipeline_state_dict_to_jax` joins the ranks' (whose
+keys are global) into them, bit for bit.
+
 bf16 crosses as its raw 16-bit pattern: into the port as a torch
 bfloat16 view, and out as numpy ``ml_dtypes.bfloat16`` where the caller's
 process has loaded ``ml_dtypes`` (the JAX package does), else as a
@@ -64,6 +73,8 @@ from .framework.io import Bfloat16Bits
 
 __all__ = ["linear_weights", "mp_block", "mp_join", "mp_plan",
            "mp_state_dict_from_jax", "mp_state_dict_to_jax",
+           "pipe_stage_from_jax", "pipe_stage_to_jax",
+           "pipeline_state_dict_from_jax", "pipeline_state_dict_to_jax",
            "optimizer_state_from_jax", "optimizer_state_to_jax",
            "state_dict_from_jax", "state_dict_to_jax"]
 
@@ -345,3 +356,44 @@ def mp_state_dict_to_jax(state_dicts, model, plan=None) -> dict:
                             plan.get(name))
               for name in state_dicts[0]}
     return state_dict_to_jax(joined, model)
+
+
+def pipe_stage_from_jax(named, model, stage=None) -> dict:
+    """The reference's `GPTForCausalLMPipe` arrays -> a state dict of the
+    port's ``model`` (a `models.GPTForCausalLMPipe` rank): its stage's
+    slice ``[stage:stage + 1]`` of every stacked ``blocks__`` array
+    (default ``model.stage``), the rest whole; Linear weights
+    transposed."""
+    stage = model.stage if stage is None else int(stage)
+    cut = {k: (np.asarray(v)[stage:stage + 1] if k.startswith("blocks__")
+               else v) for k, v in named.items()}
+    return state_dict_from_jax(cut, model=model)
+
+
+def pipe_stage_to_jax(state_dicts, model) -> dict:
+    """The ranks' state dicts (stage order) of a `GPTForCausalLMPipe`
+    -> the reference's named arrays: the stacked blocks joined along the
+    stage dim, the rest from the first."""
+    parts = [state_dict_to_jax(sd, model=model) for sd in state_dicts]
+    return {k: (np.concatenate([p[k] for p in parts])
+                if k.startswith("blocks__") else v)
+            for k, v in parts[0].items()}
+
+
+def pipeline_state_dict_from_jax(named, model) -> dict:
+    """The entries of the reference's `PipelineLayer` named arrays that
+    the rank's ``model`` holds (its keys are the reference's)."""
+    keys = set(model.state_dict())
+    return state_dict_from_jax({k: v for k, v in named.items()
+                                if k in keys}, model=model)
+
+
+def pipeline_state_dict_to_jax(state_dicts, models) -> dict:
+    """The ranks' `PipelineLayer` state dicts (each with its model) ->
+    the reference's named arrays: their union (a shared layer's copies
+    are alike; the first stage's is taken)."""
+    out = {}
+    for sd, m in zip(state_dicts, models):
+        for k, v in state_dict_to_jax(sd, model=m).items():
+            out.setdefault(k, v)
+    return out

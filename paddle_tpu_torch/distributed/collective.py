@@ -17,8 +17,12 @@ reference's gives for block r (``all_reduce`` in place; ``reduce_scatter``
 returns the rank's block of the sum; ``all_gather`` stacks the ranks'
 tensors on a new dim 0, ``all_gather_concat`` concatenates them; peers
 and roots are group ranks). ``ReduceOp.AVG`` is a sum then a divide on
-backends without AVG (gloo). ``p2p_permute`` (the pipeline ring) waits
-for ROADMAP A9b and raises.
+backends without AVG (gloo). ``p2p_permute`` is the pipeline ring's
+permutation (the reference's ``ppermute``): group rank ``dst`` of each
+``(src, dst)`` pair gets ``src``'s tensor, a rank that no pair feeds
+gets zeros; `p2p_exchange` posts one rank's sends and receives of a
+tick together (``batch_isend_irecv``), so a ring of them cannot
+deadlock.
 
 `all_reduce_quantized` carries the reference's compressed wire format
 (`_quantized_sum`, reference :323-392): the fp32 flat tensor padded to
@@ -60,7 +64,8 @@ __all__ = ["Group", "P2POp", "ReduceOp", "all_gather", "all_gather_concat",
            "broadcast", "broadcast_object_list", "dequantize_q8",
            "destroy_process_group", "get_group", "get_rank",
            "get_world_size", "irecv", "is_initialized", "isend",
-           "new_group", "p2p_permute", "quantize_symmetric_q8", "recv",
+           "new_group", "p2p_exchange", "p2p_permute",
+           "quantize_symmetric_q8", "recv",
            "reduce", "reduce_scatter", "scatter", "send", "calls",
            "payload_bytes", "reset_counts"]
 
@@ -529,10 +534,82 @@ def batch_isend_irecv(p2p_op_list):
     return dist.batch_isend_irecv(ops)
 
 
+def p2p_exchange(sends=(), recvs=(), group=None):
+    """One rank's part of a round of point-to-point transfers: ``sends``
+    ``[(tensor, dst)]`` and ``recvs`` ``[(buffer, src)]`` (group ranks),
+    posted together and waited for; each buffer is written in place and
+    the list of them returned. Every rank's sends must meet the receives
+    their peers post in the same round, in the same order between a
+    pair. A transfer to oneself is a copy. Over a gloo group, CUDA
+    tensors travel through host copies (the module docstring)."""
+    g = _g(group)
+    me = g.rank
+    sends = [(t.contiguous(), d) for t, d in sends]
+    recvs = list(recvs)
+    selfs = [t for t, d in sends if d == me]
+    ops, back = [], []
+    for t, d in sends:
+        if d == me:
+            continue
+        _count("send", t, group=g)
+        if _staged(g, "send", t):
+            t = _host(t)
+        ops.append(dist.P2POp(dist.isend, t, g.global_rank(d), group=g.pg))
+    for buf, s in recvs:
+        if s == me:
+            buf.copy_(selfs.pop(0))
+            continue
+        _count("recv", group=g)
+        dst = buf
+        if _staged(g, "recv", buf):
+            dst = torch.empty(buf.shape, dtype=buf.dtype)
+            back.append((buf, dst))
+        ops.append(dist.P2POp(dist.irecv, dst, g.global_rank(s),
+                              group=g.pg))
+    if ops:
+        for task in dist.batch_isend_irecv(ops):
+            task.wait()
+    for buf, host in back:
+        buf.copy_(host)
+    return [b for b, _ in recvs]
+
+
+def _permute(x, perm, g):
+    me = g.rank
+    sends = [(x, d) for s, d in perm if s == me]
+    srcs = [s for s, d in perm if d == me]
+    if len(srcs) > 1:
+        raise ValueError(f"rank {me} is the destination of {len(srcs)} "
+                         "pairs; a permutation feeds each rank once")
+    if not srcs:
+        p2p_exchange(sends, (), g)
+        return torch.zeros_like(x)
+    return p2p_exchange(sends, [(torch.empty_like(x), srcs[0])], g)[0]
+
+
+class _Permute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, perm, g):
+        ctx.perm, ctx.g = perm, g
+        return _permute(x.detach(), perm, g)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return _permute(dy.contiguous(), [(d, s) for s, d in ctx.perm],
+                        ctx.g), None, None
+
+
 def p2p_permute(tensor, perm, group=None):
-    raise NotImplementedError(
-        "p2p_permute (the pipeline ring's permutation) belongs to the "
-        "pipeline axis: ROADMAP A9b")
+    """Reference collective.py:877 (``jax.lax.ppermute``): ``perm`` a
+    list of ``(src, dst)`` group ranks; this rank gets the tensor of the
+    ``src`` that names it (zeros if none). Every rank of the group calls
+    it with the same ``perm``. Differentiable: the backward is the
+    reverse permutation, as JAX differentiates ``ppermute``."""
+    g = _g(group)
+    perm = [(int(s), int(d)) for s, d in perm]
+    if torch.is_grad_enabled() and tensor.requires_grad:
+        return _Permute.apply(tensor, perm, g)
+    return _permute(tensor, perm, g)
 
 
 def barrier(group=None):

@@ -1,11 +1,12 @@
-"""Fleet: the port of paddle_tpu/distributed/fleet for the dp, sharding
-and mp axes: `DistributedStrategy`, `init`, the topology and its
+"""Fleet: the port of paddle_tpu/distributed/fleet for the dp, sharding,
+mp and pp axes: `DistributedStrategy`, `init`, the topology and its
 groups, `distributed_model` / `distributed_optimizer`, sharding stage 1
 (`DygraphShardingOptimizer`), tensor parallelism (`layers.mpu`,
-`TensorParallel`, the clip over the model-parallel group), the sync
-helpers and sequence parallelism (`utils`) and activation
-recomputation. The pp and sep axes (`PipelineParallel`,
-`SegmentParallel`, a degree above 1 in ``hybrid_configs``) raise,
+`TensorParallel`, the clip over the model-parallel group), pipeline
+parallelism (`meta_parallel.PipelineLayer`, `PipelineParallel`, the
+ring of `meta_parallel.spmd_pipeline`), the sync helpers and sequence
+parallelism (`utils`) and activation recomputation. The sep axis
+(`SegmentParallel`, a sep degree above 1 in ``hybrid_configs``) raises,
 naming ROADMAP A9b."""
 from . import layers, meta_optimizers, meta_parallel, utils  # noqa: F401
 from .layers.mpu import get_rng_state_tracker  # noqa: F401
@@ -14,9 +15,10 @@ from .fleet import (DistributedStrategy, Fleet, barrier_worker,  # noqa: F401
                     is_first_worker, worker_index, worker_num)
 from .meta_optimizers import (DygraphShardingOptimizer,  # noqa: F401
                               HybridParallelOptimizer)
-from .meta_parallel import (HybridParallel, PipelineParallel,  # noqa: F401
-                            SegmentParallel, ShardingParallel,
-                            TensorParallel)
+from .meta_parallel import (HybridParallel, LayerDesc,  # noqa: F401
+                            PipelineLayer, PipelineParallel,
+                            SegmentParallel, SharedLayerDesc,
+                            ShardingParallel, TensorParallel)
 from .recompute import recompute
 from .topology import (CommunicateTopology,  # noqa: F401
                        HybridCommunicateGroup, get_hybrid_communicate_group,
@@ -24,7 +26,8 @@ from .topology import (CommunicateTopology,  # noqa: F401
 
 __all__ = ["CommunicateTopology", "DistributedStrategy",
            "DygraphShardingOptimizer", "Fleet", "HybridCommunicateGroup",
-           "HybridParallel", "HybridParallelOptimizer", "PipelineParallel",
+           "HybridParallel", "HybridParallelOptimizer", "LayerDesc",
+           "PipelineLayer", "PipelineParallel", "SharedLayerDesc",
            "SegmentParallel", "ShardingParallel", "TensorParallel",
            "barrier_worker", "distributed_model", "distributed_optimizer",
            "fleet", "get_hybrid_communicate_group",

@@ -4,16 +4,22 @@
 joined, builds the rank grid from ``strategy.hybrid_configs`` (a -1
 degree takes the rest of the world) and its groups (`topology.
 HybridCommunicateGroup`). `distributed_model` wraps by the active axes as
-the reference does (fleet.py:102-133): an mp degree above 1 gives
-`meta_parallel.TensorParallel`, a sharding degree above 1
+the reference does (fleet.py:114-133), pp first: on a pp degree above 1
+a `meta_parallel.PipelineLayer` gives `meta_parallel.PipelineParallel`
+(``strategy.pipeline_configs["accumulate_steps"]`` micro-batches) and
+any other model `meta_parallel.HybridParallel` (whose `train_step`
+builds the pipelined scan for a ``scan_layers`` GPT); then an mp degree
+above 1 gives `meta_parallel.TensorParallel`, a sharding degree above 1
 `meta_parallel.ShardingParallel`, a dp degree above 1 `DataParallel`.
 `distributed_optimizer` gives `HybridParallelOptimizer`, which shards
 the optimizer state over the data axes when the sharding degree is
-above 1 and clips by the global norm over the model-parallel group when
-the mp degree is. A pp or sep degree above 1 raises, naming ROADMAP A9b.
+above 1 and clips by the global norm over the pp x mp group when the
+mp or pp degree is. A sep degree above 1 raises, naming ROADMAP A9b.5.
 
     strategy = fleet.DistributedStrategy()
-    strategy.hybrid_configs.update({"dp_degree": d, "mp_degree": m})
+    strategy.hybrid_configs.update({"dp_degree": d, "mp_degree": m,
+                                    "pp_degree": p})
+    strategy.pipeline_configs = {"accumulate_steps": 4}
     fleet.init(is_collective=True, strategy=strategy)
     step = fleet.distributed_model(gpt_scan).train_step(opt)
     loss = step(*env.data_shard((ids, labels)))
@@ -102,8 +108,14 @@ class Fleet:
             self.init()
         hcg = self._hcg
         from ..parallel import DataParallel
-        from .meta_parallel import ShardingParallel, TensorParallel
+        from .meta_parallel import (HybridParallel, PipelineLayer,
+                                    PipelineParallel, ShardingParallel,
+                                    TensorParallel)
 
+        if hcg.get_pipe_parallel_world_size() > 1:
+            if isinstance(model, PipelineLayer):
+                return PipelineParallel(model, hcg, strategy=self._strategy)
+            return HybridParallel(model, hcg, strategy=self._strategy)
         if hcg.get_model_parallel_world_size() > 1:
             return TensorParallel(model, hcg, strategy=self._strategy)
         if hcg.get_sharding_parallel_world_size() > 1:

@@ -18,7 +18,10 @@ A step runs:
    (an ``hcg`` with an mp degree above 1) the blocks' sum and the flag
    are all-reduced over the mp group as well and the replicated
    parameters' sum counted once (`nn.clip.norm_stats`), so every mp
-   rank clips by the norm of the global parameters;
+   rank clips by the norm of the global parameters; with a pp degree
+   above 1 the sum and the flag are summed over the stages, a stage's
+   copy of a shared weight (`nn.clip.is_stage_copy`) left out of the
+   sum;
 3. `multi_tensor_adam` over the shard, handed one view per parameter
    segment, so each keeps its own parameter's lr scale, decay, L2 and
    ``need_clip`` (AdamW's excluded LayerNorms and biases stay
@@ -70,6 +73,9 @@ class DygraphShardingOptimizer:
         self._group = group
         self._mp_group = (hcg.get_model_parallel_group() if hcg is not None
                           and hcg.get_model_parallel_world_size() > 1
+                          else None)
+        self._pp_group = (hcg.get_pipe_parallel_group() if hcg is not None
+                          and hcg.get_pipe_parallel_world_size() > 1
                           else None)
         self._params = [p for p in inner._parameter_list if p.requires_grad]
         self._keyed = [(inner._key(p), p) for p in self._params]
@@ -202,7 +208,7 @@ class DygraphShardingOptimizer:
 
     def _run(self, inv_scale, guard):
         from ....nn.clip import (ClipGradByGlobalNorm, ClipGradByValue,
-                                 is_block, norm_stats)
+                                 is_block, is_stage_copy, norm_stats)
         from ....ops.kernels.multi_tensor import (multi_tensor_adam,
                                                   multi_tensor_norm)
 
@@ -217,10 +223,14 @@ class DygraphShardingOptimizer:
         found = scale = None
         dev = self._flat[0].device
         if guard or global_clip:
+            # a stage's copy of a shared weight counts once, on the first
+            counted = [global_clip and c and not is_stage_copy(p)
+                       for p, c in zip(params, need)]
             _, scale, found = norm_stats(
-                grads, [global_clip and c for c in need], inv_scale,
+                grads, counted, inv_scale,
                 clip.clip_norm if global_clip else None, self._group, dev,
-                [is_block(p) for p in params], self._mp_group)
+                [is_block(p) for p in params], self._mp_group,
+                self._pp_group)
             if not guard:
                 found = None
             if not global_clip:

@@ -4,18 +4,26 @@ distributed/fleet/meta_optimizers/hybrid_parallel_optimizer.py.
 With a sharding degree above 1, or ``strategy.sharding`` set, it wraps
 the optimizer in `DygraphShardingOptimizer` over the data axes (stage 1:
 the clip's norm and the guard's flag all-reduced over the shards
-there, and over the mp group under model parallelism). With data
+there, and over the mp and pp groups under model and pipeline
+parallelism; a `GradScaler`'s flag, judged on a rank's grads before
+their reduce-scatter, is one flag over every rank). With data
 parallelism alone the model's `DataParallel` averages the grads, so
 every rank holds the same grads and the plain step is already global.
-With an mp degree above 1 and no sharding, a `ClipGradByGlobalNorm` of
-the optimizer clips, for the step, by the norm of the global parameters
-(`HybridParallelClipGrad`, reference :41: the blocks' squares summed
-over the model-parallel group, the replicated parameters counted once).
+With an mp or pp degree above 1 and no sharding, a
+`ClipGradByGlobalNorm` of the optimizer clips, for the step, by the norm
+of the global parameters (`HybridParallelClipGrad`, reference :41: the
+blocks' squares summed over the model-parallel group, the replicated
+parameters counted once, then the stages' sums summed over the pipeline
+group, a stage's copy of a shared weight left out), and the guarded
+step's non-finite flag is one flag over the pp x mp group (the
+optimizer's ``_found_group``; `amp.GradScaler` reads it there too): every
+rank skips or steps together.
 """
 from __future__ import annotations
 
 import contextlib
 
+from ...collective import get_group
 from ....nn.clip import ClipGradBase, ClipGradByGlobalNorm, mp_norm_stats
 from ....nn.clip import scaled as _scaled
 from .dygraph_sharding_optimizer import DygraphShardingOptimizer
@@ -25,16 +33,18 @@ __all__ = ["HybridParallelClipGrad", "HybridParallelOptimizer"]
 
 class HybridParallelClipGrad(ClipGradBase):
     """``clip`` (a `ClipGradByGlobalNorm`) by the norm over the
-    model-parallel group (`nn.clip.mp_norm_stats`); new grads, as the
-    global clip returns them."""
+    model-parallel and pipeline groups (`nn.clip.mp_norm_stats`); new
+    grads, as the global clip returns them."""
 
     def __init__(self, clip, hcg):
         self._clip = clip
         self.clip_norm = clip.clip_norm
         self._group = hcg.get_model_parallel_group()
+        self._pp_group = hcg.get_pipe_parallel_group()
 
     def __call__(self, params_grads):
-        _, scale = mp_norm_stats(params_grads, self.clip_norm, self._group)
+        _, scale = mp_norm_stats(params_grads, self.clip_norm, self._group,
+                                 self._pp_group)
         return [(p, _scaled(g, scale) if g is not None
                  and getattr(p, "need_clip", True) else g)
                 for p, g in params_grads]
@@ -51,10 +61,22 @@ class HybridParallelOptimizer:
             optimizer = DygraphShardingOptimizer(optimizer, hcg)
         self._inner_opt = optimizer
         clip = getattr(optimizer, "_grad_clip", None)
+        split = hcg is not None and (
+            hcg.get_model_parallel_world_size() > 1
+            or hcg.get_pipe_parallel_world_size() > 1)
         self._mp_clip = (HybridParallelClipGrad(clip, hcg)
-                         if not shard and hcg is not None
-                         and hcg.get_model_parallel_world_size() > 1
+                         if not shard and split
                          and type(clip) is ClipGradByGlobalNorm else None)
+        if shard:
+            # a scaler's eager unscale judges the rank's own grads, before
+            # the shards' reduce-scatter: one flag over every rank
+            optimizer._found_group = get_group()
+        elif split:
+            optimizer._found_group = hcg.get_check_parallel_group()
+
+    @property
+    def _found_group(self):
+        return getattr(self._inner_opt, "_found_group", None)
 
     @contextlib.contextmanager
     def _clipping(self):

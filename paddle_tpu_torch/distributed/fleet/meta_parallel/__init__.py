@@ -1,24 +1,29 @@
 """Model wrappers by parallel axis: the port of paddle_tpu/distributed/
-fleet/meta_parallel/__init__.py, for the dp, sharding and mp axes.
+fleet/meta_parallel/__init__.py, for the dp, sharding, mp and pp axes.
 
 `ShardingParallel` and `HybridParallel` run the wrapped model on the
 rank's rows; their `train_step` builds the step for the model
-(`jit.sharded_scan.select_train_step`, reference :32-53: the sharded
-fused scan for a ``scan_layers`` GPT over a data or model degree above
-1, dp x mp when the mesh has an mp axis). `TensorParallel` runs a model
-built of the `layers.mpu` layers over the model-parallel group.
-`SegmentParallel` and `PipelineParallel` (the sep and pp axes) raise,
-naming ROADMAP A9b.
+(`jit.sharded_scan.select_train_step`, reference :32-53: on a pp degree
+above 1 the pipelined scan for a ``scan_layers`` GPT, its micro-batch
+count the strategy's ``pipeline_configs["accumulate_steps"]``; the
+sharded fused scan over a data or model degree above 1, dp x mp when the
+mesh has an mp axis). `TensorParallel` runs a model built of the
+`layers.mpu` layers over the model-parallel group. `PipelineParallel`
+runs a `PipelineLayer`'s stages, one rank a stage (`pipeline_parallel`).
+`SegmentParallel` (the sep axis) raises, naming ROADMAP A9b.5.
 """
 from __future__ import annotations
 
 from torch import nn
 
-__all__ = ["HybridParallel", "MetaParallelBase", "PipelineParallel",
-           "SegmentParallel", "ShardingParallel", "TensorParallel"]
+__all__ = ["HybridParallel", "LayerDesc", "MetaParallelBase",
+           "PipelineLayer", "PipelineParallel",
+           "PipelineParallelWithInterleave", "SegmentParallel",
+           "SharedLayerDesc", "ShardingParallel", "TensorParallel",
+           "pipelined_blocks"]
 
-A9B = ("{} (the {} axis) is not ported yet: ROADMAP A9b; the port runs "
-       "the dp, sharding and mp axes")
+A9B = ("{} (the {} axis) is not ported yet: ROADMAP A9b.5; the port runs "
+       "the dp, sharding, mp and pp axes")
 
 
 class MetaParallelBase(nn.Module):
@@ -49,6 +54,11 @@ class MetaParallelBase(nn.Module):
         if isinstance(optimizer, HybridParallelOptimizer) and \
                 is_scan_gpt(self._layers):
             optimizer = optimizer._inner_opt
+        hcg = self._hcg
+        if "num_micro" not in kw and hcg is not None and \
+                hcg.get_pipe_parallel_world_size() > 1:
+            cfg = getattr(self._strategy, "pipeline_configs", None) or {}
+            kw["num_micro"] = int(cfg.get("accumulate_steps", 1) or 1)
         return select_train_step(self._step_model(), optimizer,
                                  criterion=criterion,
                                  mesh=self._hcg.mesh if self._hcg else None,
@@ -85,7 +95,8 @@ class ShardingParallel(MetaParallelBase):
 
 
 class HybridParallel(MetaParallelBase):
-    """The generic wrapper for a model that is not a PipelineLayer."""
+    """The generic wrapper for a model that is not a PipelineLayer (on a
+    pp mesh: `train_step` builds the pipelined scan)."""
 
 
 class TensorParallel(MetaParallelBase):
@@ -129,6 +140,7 @@ class SegmentParallel(MetaParallelBase):
         raise NotImplementedError(A9B.format("SegmentParallel", "sep"))
 
 
-class PipelineParallel(MetaParallelBase):
-    def __init__(self, *a, **k):
-        raise NotImplementedError(A9B.format("PipelineParallel", "pp"))
+from .pp_layers import LayerDesc, PipelineLayer, SharedLayerDesc  # noqa: E402
+from .pipeline_parallel import (PipelineParallel,  # noqa: E402
+                                PipelineParallelWithInterleave,
+                                pipelined_blocks)

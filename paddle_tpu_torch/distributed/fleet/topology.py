@@ -7,9 +7,11 @@ installs that grid as the world's `env.RankMesh` and builds a group for
 every axis (and the fused data group) on every rank, in the same order:
 ``torch.distributed.new_group`` is collective, so a rank that skipped
 one would hang the others. This rank's coordinates come from its global
-rank. The model axis (mp) takes any degree; the pipe and sep axes are
-ported to degree 1 only (their getters give 1 and rank 0), and a degree
-above 1 raises, naming ROADMAP A9b.
+rank. The model (mp) and pipe (pp) axes take any degree: a rank's
+stage is its pipe coordinate, its ring neighbours the ranks one stage
+before and after it with the other coordinates fixed. The sep axis is
+ported to degree 1 only (its getters give 1 and rank 0), and a degree
+above 1 raises, naming ROADMAP A9b.5.
 """
 from __future__ import annotations
 
@@ -25,8 +27,8 @@ __all__ = ["CommunicateTopology", "HybridCommunicateGroup",
 
 _AXIS_NAME = {"pipe": "pp", "data": "dp", "sharding": "sharding",
               "sep": "sep", "model": "mp"}
-A9B = ("the {} axis (degree {}) is not ported yet: ROADMAP A9b (pp, sep); "
-       "the port runs the dp, sharding and mp axes")
+A9B = ("the {} axis (degree {}) is not ported yet: ROADMAP A9b.5 (sep); "
+       "the port runs the dp, sharding, mp and pp axes")
 
 
 class CommunicateTopology:
@@ -99,10 +101,8 @@ class HybridCommunicateGroup:
             mesh = env.build_mesh({_AXIS_NAME[n]: topology.get_dim(n)
                                    for n in
                                    topology.get_hybrid_group_names()})
-        for name in ("pp", "sep"):
-            if mesh.shape.get(name, 1) > 1:
-                raise NotImplementedError(A9B.format(name,
-                                                     mesh.shape[name]))
+        if mesh.shape.get("sep", 1) > 1:
+            raise NotImplementedError(A9B.format("sep", mesh.shape["sep"]))
         env.set_mesh(mesh)
         self._mesh = mesh
         if topology is None:
@@ -126,6 +126,7 @@ class HybridCommunicateGroup:
         self._data_group = (self._make_group(data) if len(data) > 1
                             else self._dp_group if data == ("dp",)
                             else self._sharding_group)
+        self._check_group = self._make_group(("pp", "mp"))
 
     def _make_group(self, axes):
         axes = tuple(a for a in axes if a in self._mesh.axis_names) \
@@ -163,7 +164,18 @@ class HybridCommunicateGroup:
         return self._pp_degree
 
     def get_stage_id(self):
-        return 0
+        return self._index("pp")
+
+    def _stage_rank(self, stage):
+        """The global rank at pipe coordinate ``stage`` (mod the degree),
+        the other coordinates this rank's."""
+        return self._pp_group.ranks[stage % self._pp_degree]
+
+    def get_p2p_next_rank(self):
+        return self._stage_rank(self.get_stage_id() + 1)
+
+    def get_p2p_prev_rank(self):
+        return self._stage_rank(self.get_stage_id() - 1)
 
     def get_sharding_parallel_world_size(self):
         return self._sharding_degree
@@ -202,7 +214,10 @@ class HybridCommunicateGroup:
         return self._data_group
 
     def get_check_parallel_group(self, sharding=False):
-        return self._mp_group
+        """The group over which the parameters differ (pp and mp): a
+        global-norm clip sums over it and a non-finite flag is one flag
+        over it (reference :197)."""
+        return self._check_group
 
     def get_data_parallel_group_src_rank(self):
         return self._dp_group.ranks[0]
@@ -211,10 +226,10 @@ class HybridCommunicateGroup:
         return self._mp_group.ranks[0]
 
     def is_first_stage(self):
-        return True
+        return self.get_stage_id() == 0
 
     def is_last_stage(self):
-        return True
+        return self.get_stage_id() == self._pp_degree - 1
 
 
 _hcg = None

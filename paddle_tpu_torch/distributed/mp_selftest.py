@@ -468,7 +468,51 @@ def case_mp_scan(ctx):
     return out
 
 
+def case_mp_nonfinite(ctx):
+    """The small model of ``mp_layers`` through `TensorParallel`, a
+    `HybridParallelOptimizer` (AdamW, the clip) and a `jit.TrainStep`
+    with a `GradScaler`: a first step with an inf in rank 1's block's
+    grad (every rank must skip it: the parameters unchanged and alike,
+    the scale halved on every rank), then a clean step."""
+    from ..amp import GradScaler
+    from ..jit import TrainStep
+    from ..nn import ClipGradByGlobalNorm
+    from ..optimizer import AdamW
+    from . import env
+    from .fleet import fleet
+
+    r, n, dev = ctx.rank, ctx.nprocs, ctx.device
+    a = ctx.args["tp"]
+    hcg = _init_mp(1, n)
+    net = _tp_net(n, a["named"], hcg.get_model_parallel_rank(), dev,
+                  **a["dims"])
+    model = fleet.distributed_model(net)
+    opt = fleet.distributed_optimizer(AdamW(
+        learning_rate=a["lr"], parameters=net.parameters(),
+        grad_clip=ClipGradByGlobalNorm(a["clip"])))
+    scaler = GradScaler(init_loss_scaling=1024.0)
+    step = TrainStep(model, lambda m, i, y: m.loss(i, y), opt,
+                     scaler=scaler)
+    ids, labels = env.data_shard([_t(a["ids"], dev), _t(a["labels"], dev)])
+    state = lambda: {k: _np(v).copy()  # noqa: E731  (not views)
+                     for k, v in net.state_dict().items()}
+    before = state()
+    hook = None
+    if r == 1:
+        hook = net.fc1.weight.register_hook(
+            lambda g: g.index_fill(0, torch.tensor([0], device=g.device),
+                                   float("inf")))
+    step(ids, labels)
+    skipped, scale = state(), scaler.get_loss_scaling()
+    if hook is not None:
+        hook.remove()
+    step(ids, labels)
+    return {"before": before, "skipped": skipped, "scale": scale,
+            "stepped": state(), "scale_after": scaler.get_loss_scaling()}
+
+
 CASES = {"mp_layers": case_mp_layers, "mp_dp": case_mp_dp,
+         "mp_nonfinite": case_mp_nonfinite,
          "mp_sharding": case_mp_sharding,
          "sharded_ce": case_sharded_ce,
          "sequence_parallel": case_sequence_parallel,
@@ -658,10 +702,12 @@ def run_card(nccl=False, steps=3):
     return result
 
 
-def launch_card(nprocs=2, nccl=False, steps=3, deadline=900):
-    """`run_card` in ``nprocs`` ranks under ``torch.distributed.run`` (a
-    free port on 127.0.0.1): rank 0's result. Every rank is killed and
-    this raises when the run passes ``deadline`` seconds or fails."""
+def launch_card(nprocs=2, nccl=False, steps=3, deadline=900,
+                module=__name__, extra=()):
+    """`run_card` (of ``module``, with the arguments ``extra``) in
+    ``nprocs`` ranks under ``torch.distributed.run`` (a free port on
+    127.0.0.1): rank 0's result. Every rank is killed and this raises
+    when the run passes ``deadline`` seconds or fails."""
     import signal
     import socket
     import subprocess
@@ -678,8 +724,8 @@ def launch_card(nprocs=2, nccl=False, steps=3, deadline=900):
                   if p])
     cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node",
            str(nprocs), "--master_addr", "127.0.0.1", "--master_port",
-           str(port), "-m", __name__, "--steps", str(steps)] + \
-        (["--nccl"] if nccl else [])
+           str(port), "-m", module, "--steps", str(steps)] + \
+        (["--nccl"] if nccl else []) + list(extra)
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True, env=env,
                             cwd=root, start_new_session=True)
@@ -688,10 +734,10 @@ def launch_card(nprocs=2, nccl=False, steps=3, deadline=900):
     except subprocess.TimeoutExpired:
         os.killpg(proc.pid, signal.SIGKILL)
         out, err = proc.communicate()
-        raise TimeoutError(f"mp_selftest x{nprocs}: past the {deadline} s "
+        raise TimeoutError(f"{module} x{nprocs}: past the {deadline} s "
                            f"deadline, every rank killed\n{err[-3000:]}")
     if proc.returncode:
-        raise RuntimeError(f"mp_selftest x{nprocs}: exit {proc.returncode}"
+        raise RuntimeError(f"{module} x{nprocs}: exit {proc.returncode}"
                            f"\n{out[-2000:]}\n{err[-4000:]}")
     return json.loads(out.strip().splitlines()[-1])
 

@@ -305,14 +305,23 @@ def case_data_parallel(ctx):
                        hcg.get_data_parallel_world_size(),
                        type(fleet.distributed_model(
                            torch.nn.Linear(2, 2).to(dev))).__name__]
-    for name, kw in (("pp", {"pp_degree": n}), ("sep", {"sep_degree": n})):
-        s = DistributedStrategy()
-        s.hybrid_configs = {"dp_degree": 1, **kw}
-        try:
-            fleet.init(is_collective=True, strategy=s)
-            out[f"refuse_{name}"] = ""
-        except NotImplementedError as e:
-            out[f"refuse_{name}"] = str(e)
+    s = DistributedStrategy()
+    s.hybrid_configs = {"dp_degree": 1, "pp_degree": n}
+    fleet.init(is_collective=True, strategy=s)
+    hcg = fleet.get_hybrid_communicate_group()
+    out["pp_fleet"] = [hcg.get_pipe_parallel_world_size(),
+                       hcg.get_stage_id(), hcg.is_first_stage(),
+                       hcg.is_last_stage(), hcg.get_p2p_next_rank(),
+                       hcg.get_p2p_prev_rank(),
+                       type(fleet.distributed_model(
+                           torch.nn.Linear(2, 2).to(dev))).__name__]
+    s = DistributedStrategy()
+    s.hybrid_configs = {"dp_degree": 1, "sep_degree": n}
+    try:
+        fleet.init(is_collective=True, strategy=s)
+        out["refuse_sep"] = ""
+    except NotImplementedError as e:
+        out["refuse_sep"] = str(e)
     env.set_mesh(env.build_mesh({"dp": n}))
     ds = list(range(a["dataset"]))
     for shuffle in (False, True):

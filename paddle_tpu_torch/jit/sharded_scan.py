@@ -87,12 +87,21 @@ by 1/mp before the scatter, and the scattered sums are divided by the
 data degree: every gradient is the global batch's mean. Hidden dropout
 folds in the data index alone, so an mp group draws one mask. Refused,
 as the reference refuses them: heads or vocab not divisible by mp,
-attention dropout, a criterion other than `GPTPretrainingCriterion`, and
-draft heads (whose loss the vocab-parallel head does not carry).
+attention dropout, a criterion other than `GPTPretrainingCriterion`;
+and draft heads, which the port refuses where the reference drops their
+loss without a word (its vocab-parallel head carries the LM loss alone,
+reference :756-786).
 
-Refused, naming ROADMAP A9b: ``ep_axis`` and a mesh with a pp, ep or sep
-degree above 1; `select_train_step` also refuses ``auto=True`` (the
-auto-tuner, A9b.6).
+dp x pp: `jit.pipeline_step.PipelineScanTrainStep` (this step's
+subclass) adds the ``pp`` axis to the group the grads scatter over
+(`_extra_reduction_axes`) and replaces the grads' phases 1-3 with the
+pipeline ring; `select_train_step` routes a scan GPT on a mesh whose pp
+degree is above 1 there.
+
+Refused, naming ROADMAP A9b: ``ep_axis`` and a mesh with an ep or sep
+degree above 1 (and a pp degree above 1 here: the pipelined step takes
+it); `select_train_step` also refuses ``auto=True`` (the auto-tuner,
+A9b.6).
 """
 from __future__ import annotations
 
@@ -119,8 +128,8 @@ from .fused_scan_step import FusedScanTrainStep, _rng_state, _set_rng_state
 
 __all__ = ["ShardedFusedScanTrainStep", "is_scan_gpt", "select_train_step"]
 
-A9B = ("{} is not ported yet: ROADMAP A9b; the port runs the dp, sharding "
-       "and mp axes")
+A9B = ("{} is not ported yet: ROADMAP A9b; the port runs the dp, sharding, "
+       "mp and pp axes")
 
 
 def _unwrap_layers(model):
@@ -133,12 +142,18 @@ def _unwrap_layers(model):
     return model
 
 
-def _mesh_axes(mesh, axis=None, mp_axis=None):
+def _mesh_axes(mesh, axis=None, mp_axis=None, extra=()):
     """(the batch axes, the mp axis or None) of ``mesh``; an ``mp_axis``
-    of degree 1 is dropped, as the reference drops it (:316-318)."""
-    for a in ("pp", "ep", "sep"):
+    of degree 1 is dropped, as the reference drops it (:316-318). A pp
+    degree above 1 needs the pipelined step (``extra`` names the axes it
+    adds)."""
+    for a in ("ep", "sep"):
         if mesh.shape.get(a, 1) > 1:
             raise NotImplementedError(A9B.format(f"the {a} axis"))
+    if mesh.shape.get("pp", 1) > 1 and "pp" not in extra:
+        raise ValueError(
+            "a mesh with a pp degree above 1 runs the pipeline ring: use "
+            "jit.PipelineScanTrainStep (select_train_step routes there)")
     if mp_axis is None:
         mp_axis = "mp" if mesh.shape.get("mp", 1) > 1 else None
     elif mesh.shape.get(mp_axis, 1) <= 1:
@@ -154,13 +169,20 @@ def _mesh_axes(mesh, axis=None, mp_axis=None):
     return axes, mp_axis
 
 
-def _resolve_group(mesh=None, axis=None, group=None, mp_axis=None):
+def _resolve_group(mesh=None, axis=None, group=None, mp_axis=None,
+                   extra=()):
     """(the group the grads scatter over, the mp group or None): the
-    flattened (batch axes, mp) group, mp fastest."""
+    flattened (batch axes and ``extra`` axes in the mesh's order, mp)
+    group, mp fastest. (A group's ranks run in the order of global rank,
+    as ``torch.distributed`` orders them: the mesh's order.)"""
     if group is not None:
         return group, None
     mesh = mesh or denv.get_mesh()
-    axes, mp_axis = _mesh_axes(mesh, axis, mp_axis)
+    axes, mp_axis = _mesh_axes(mesh, axis, mp_axis, extra)
+    if extra:
+        axes = tuple(a for a in mesh.axis_names
+                     if a in axes or a in extra) + tuple(
+            a for a in axes if a not in mesh.axis_names)
     if mp_axis is None:
         if mesh.degree(axes) == mesh.size:
             return coll.get_group(), None
@@ -184,13 +206,23 @@ class ShardedFusedScanTrainStep(FusedScanTrainStep):
                          layer_chunk=layer_chunk, scan_unroll=scan_unroll,
                          scaler=scaler, guard_nonfinite=guard_nonfinite,
                          numerics=numerics)
+        extra = ()
+        if group is None:
+            mesh = mesh or denv.get_mesh()
+            extra = self._extra_reduction_axes(mesh)
         self.group, self.mp_group = _resolve_group(mesh, axis, group,
-                                                   mp_axis)
+                                                   mp_axis, extra)
         self._n = self.group.nranks
         self._rank = self.group.rank
         self._mp_n = 1 if self.mp_group is None else self.mp_group.nranks
-        # the index over the batch axes: the group is mp fastest
-        self._batch_rank = self._rank // self._mp_n
+        # the index over the batch axes and their count (the group is
+        # mp fastest)
+        inner = self._mp_n * self._pp_degree
+        self._data_n = self._n // inner
+        self._batch_rank = self._rank // inner
+        if group is None:
+            axes = _mesh_axes(mesh, axis, mp_axis, extra)[0]
+            self._batch_rank = mesh.axis_index(axes)
         self._mp_kinds = None
         if self.mp_group is not None:
             self._setup_mp()
@@ -231,6 +263,13 @@ class ShardedFusedScanTrainStep(FusedScanTrainStep):
         self._rng = None
         self.collectives_per_step = None
         self.local_loss = None
+
+    _pp_degree = 1
+
+    def _extra_reduction_axes(self, mesh):
+        """Axes past the batch axes the grads scatter over (before mp):
+        none here; the pipelined step adds ``pp``."""
+        return ()
 
     # -- Megatron tensor parallelism over the mp group -------------------
     def _setup_mp(self):
@@ -571,32 +610,50 @@ class ShardedFusedScanTrainStep(FusedScanTrainStep):
         self.collectives_per_step = got
         return loss
 
-    def _step(self, ids, labels, seg, dev):
-        opt, K, C = self._opt, self._layer_chunk, self._chunks
-        L = self.model.config.num_layers
-        n, group = self._n, self.group
-        # the scattered sums over the data ranks (under mp a replicated
-        # leaf's grad is scaled by 1/mp before the scatter: every mp rank
-        # holds it whole)
-        inv_n = 1.0 / (n // self._mp_n)
-        inv_mp = 1.0 / self._mp_n
+    def _scatter(self, flat, out):
+        """The group's sum of ``flat``, this rank's block into ``out``."""
+        if self._quant:
+            return out.copy_(coll.quantized_reduce_scatter(
+                flat, self.group, self._quant))
+        return coll.reduce_scatter_into(out, flat, self.group)
+
+    def _combine_outer(self, head_g, emb):
+        """{outer index: grad or None}: the head's grads ``head_g`` plus
+        the embedding's ``emb`` (by name); under mp all but the head's
+        vocab rows are replicated, so scaled by 1/mp."""
+        mp, inv_mp = self.mp_group is not None, 1.0 / self._mp_n
+        og = {}
+        head_w = "gpt.wte.weight" if self.model.lm_head is None \
+            else "lm_head.weight"
+        for j, (k, p) in enumerate(self._o_params):
+            gh, ge = head_g[j], emb.get(k)
+            if mp:
+                ge = None if ge is None else ge.mul_(inv_mp)
+                if gh is not None and k != head_w:
+                    gh = gh.mul_(inv_mp)
+            if gh is None and ge is None:
+                og[j] = None
+            elif gh is None or ge is None:
+                og[j] = gh if ge is None else ge
+            else:
+                og[j] = gh + ge if p.dtype == torch.float32 else \
+                    (gh.float() + ge.float()).to(p.dtype)
+        return og
+
+    def _grads(self, ids, labels, seg, dev, scale):
+        """Phases 1-3 over the rank's rows: ``(loss, G, OG, acts)``, the
+        rank's loss, the scattered grads' shards and, with ``numerics``,
+        the activation rows ``(sum of squares, count, origin)`` of each
+        chunk, this rank's part of the group's sums."""
+        K, C = self._layer_chunk, self._chunks
+        n = self._n
+        inv_n, inv_mp = 1.0 / self._data_n, 1.0 / self._mp_n
         mp = self.mp_group is not None
         s_assign, o_assign = self._s_assign, self._o_assign
-        guard, nm = self._guard, self._numerics is not None
-        scale = inv = None
-        if guard is not None:
-            if self._guard_state is None:
-                self._guard_state = guard.init_state(dev)
-            if guard.scaling:
-                scale = self._guard_state["scale"]
-                inv = torch.reciprocal(scale)
-        ids, labels = ids.long(), labels.long()
+        nm = self._numerics is not None
         pos = torch.arange(ids.shape[1], device=ids.device)[None]
         rng = bool(self._dropout)
         forked = [dev.index] if dev.type == "cuda" else []
-        self._template.train()
-        if mp:
-            self._mp_template.train()
         o_names = [nm_ for nm_, _ in self._o_params]
         train_idx = self._s_train
 
@@ -637,11 +694,7 @@ class ShardedFusedScanTrainStep(FusedScanTrainStep):
         dy, head_g = head[0], list(head[1:])
         del xL, o_leaves, head
 
-        def scatter(flat, out):
-            if self._quant:
-                return out.copy_(coll.quantized_reduce_scatter(
-                    flat, group, self._quant))
-            return coll.reduce_scatter_into(out, flat, group)
+        scatter = self._scatter
 
         # 3. one backward: each chunk's grads reduce-scattered a layer at a
         #    time; only the shards survive
@@ -687,27 +740,40 @@ class ShardedFusedScanTrainStep(FusedScanTrainStep):
         emb = dict(zip(used, torch.autograd.grad(
             x0, [leaves[k] for k in used], dy)))
         del leaves, x0, o_vals
-        og = {}
-        head_w = "gpt.wte.weight" if self.model.lm_head is None \
-            else "lm_head.weight"
-        for j, (k, p) in enumerate(self._o_params):
-            gh, ge = head_g[j], emb.get(k)
-            if mp:      # all but the head's vocab rows are replicated
-                ge = None if ge is None else ge.mul_(inv_mp)
-                if gh is not None and k != head_w:
-                    gh = gh.mul_(inv_mp)
-            if gh is None and ge is None:
-                og[j] = None
-            elif gh is None or ge is None:
-                og[j] = gh if ge is None else ge
-            else:
-                og[j] = gh + ge if p.dtype == torch.float32 else \
-                    (gh.float() + ge.float()).to(p.dtype)
+        og = self._combine_outer(head_g, emb)
         del head_g, emb
         OG = [scatter(pack(b, og.get), torch.empty(
                   b.numel // n, dtype=b.dtype, device=dev)).mul_(inv_n)
               for b in o_assign.buckets]
         del og
+        acts = None
+        if nm:
+            acts = (torch.stack(act_sq) * inv_mp,
+                    torch.full((C,), act_n * inv_mp, device=dev),
+                    torch.stack(act_origin).float() * inv_mp)
+        return loss, G, OG, acts
+
+    def _step(self, ids, labels, seg, dev):
+        opt, K, C = self._opt, self._layer_chunk, self._chunks
+        L = self.model.config.num_layers
+        group = self.group
+        s_assign, o_assign = self._s_assign, self._o_assign
+        guard, nm = self._guard, self._numerics is not None
+        scale = inv = None
+        if guard is not None:
+            if self._guard_state is None:
+                self._guard_state = guard.init_state(dev)
+            if guard.scaling:
+                scale = self._guard_state["scale"]
+                inv = torch.reciprocal(scale)
+        ids, labels = ids.long(), labels.long()
+        self._template.train()
+        if self.mp_group is not None:
+            self._mp_template.train()
+
+        # 1-3. the loss, the grads' shards ([L, F/N] a stacked bucket,
+        #      [F/N] an outer one) and the activation rows
+        loss, G, OG, acts = self._grads(ids, labels, seg, dev, scale)
 
         # 4. the clip and the guard: one all-reduce of (sum, flag)
         s_params = [p for segs in self._s_segs
@@ -820,9 +886,7 @@ class ShardedFusedScanTrainStep(FusedScanTrainStep):
             # an mp group holds one copy of its rows' activations
             stats = assemble_stats(
                 g_col, torch.stack(p_rows[::-1]), torch.stack(u_rows[::-1]),
-                torch.stack(act_sq) * inv_mp,
-                torch.full((C,), act_n * inv_mp, device=dev),
-                bad, torch.stack(act_origin).float() * inv_mp, None,
+                acts[0], acts[1], bad, acts[2], None,
                 outer=outer_row(o_g_sq, o_p_sq, o_u_sq,
                                 (~torch.isfinite(o_g_sq)).float()))
             coll.all_reduce(stats, coll.ReduceOp.SUM, group)
@@ -859,11 +923,21 @@ def is_scan_gpt(model):
     return isinstance(blocks, GPTStackedBlocks)
 
 
+def _no_micro(kw, axes):
+    """A micro-batch count is the pipeline's: refused off a pp mesh."""
+    if "num_micro" in kw:
+        raise ValueError(
+            f"num_micro={kw['num_micro']} splits the batch over a pp ring; "
+            f"the mesh {tuple(axes or ())} has no pp axis above degree 1")
+
+
 def select_train_step(model, optimizer, criterion=None, mesh=None,
                       axis=None, group=None, auto=False, mp_axis=None,
                       ep_axis=None, **kw):
     """The step for ``model`` (reference :2121, :2212-2264): a
-    ``scan_layers`` GPT over a data or mp degree above 1 gets
+    ``scan_layers`` GPT on a mesh whose pp degree is above 1 gets
+    `jit.pipeline_step.PipelineScanTrainStep` (the mesh needs a data
+    axis, degree 1 is fine); over a data or mp degree above 1
     `ShardedFusedScanTrainStep` (dp x mp when the mesh's mp degree is
     above 1), at degree 1 `FusedScanTrainStep`; another model `TrainStep`
     (over ``criterion(model(ids), labels)``, else ``model.loss``)."""
@@ -878,15 +952,31 @@ def select_train_step(model, optimizer, criterion=None, mesh=None,
     if is_scan_gpt(layers):
         if group is None:
             mesh = mesh or denv.get_mesh()
+            if mesh.shape.get("pp", 1) > 1 and axis != "pp":
+                from .pipeline_step import PipelineScanTrainStep
+
+                if axis is None and not any(
+                        a in mesh.axis_names for a in ("sharding", "dp")):
+                    raise ValueError(
+                        f"pp mesh {mesh.axis_names} has no dp/sharding "
+                        "axis to place the batch on; build it with one "
+                        "(degree 1 is fine): build_mesh({'dp': 1, "
+                        "'pp': N})")
+                return PipelineScanTrainStep(
+                    layers, optimizer, criterion=criterion, mesh=mesh,
+                    axis=axis, pp_axis="pp", mp_axis=mp_axis, **kw)
+            _no_micro(kw, mesh.axis_names)
             axes, mp = _mesh_axes(mesh, axis, mp_axis)
             if mesh.degree(axes + ((mp,) if mp else ())) > 1:
                 return ShardedFusedScanTrainStep(
                     layers, optimizer, criterion=criterion, mesh=mesh,
                     axis=axis, mp_axis=mp, **kw)
-        elif group.nranks > 1:
-            return ShardedFusedScanTrainStep(layers, optimizer,
-                                             criterion=criterion,
-                                             group=group, **kw)
+        else:
+            _no_micro(kw, group.axes)
+            if group.nranks > 1:
+                return ShardedFusedScanTrainStep(layers, optimizer,
+                                                 criterion=criterion,
+                                                 group=group, **kw)
         return FusedScanTrainStep(
             layers, optimizer, criterion=criterion,
             **{k: v for k, v in kw.items()

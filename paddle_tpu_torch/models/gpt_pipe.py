@@ -1,0 +1,168 @@
+"""GPT with pipelined decoder blocks: the port of paddle_tpu/models/
+gpt_pipe.py (:32-198).
+
+The reference stacks the blocks' parameters on a leading
+``[n_stages, (num_chunks,) layers_per_stage, ...]`` dim sharded over the
+pp axis and runs them through `pipeline_spmd`'s ring; the embedding and
+ln_f / the tied head live outside the ring. Here a rank of the pipeline
+group holds its stage's slice alone, ``[1, (num_chunks,)
+layers_per_stage, ...]`` under the reference's names
+(``blocks__attn__qkv__weight``, ...; a Linear weight ``[..., out, in]``,
+the torch layout), and runs it through the port's `pipeline_spmd`
+(`distributed.fleet.meta_parallel.spmd_pipeline`); the blocks are the
+port's `GPTBlock` (a template on the ``meta`` device over the slices, as
+`GPTStackedBlocks` runs it), so on the card causal attention reaches the
+splash kernels. Every rank embeds and runs the head (the ring's output
+is replicated), as the reference's outer parameters are replicated; the
+grads carry no factor of the stage count (`pipeline_spmd`'s backward).
+`convert.pipe_stage_from_jax` / `pipe_stage_to_jax` carry the
+reference's stacked arrays to a rank's slice and back.
+
+``use_zero_bubble=True`` (the reference's dW-deferred ring) raises,
+naming ROADMAP A9b.2b.
+"""
+from __future__ import annotations
+
+import math
+import re
+
+import torch
+from torch import nn
+from torch.func import functional_call
+
+from ..distributed.fleet.meta_parallel.spmd_pipeline import (
+    _pipe_group, microbatch, pipeline_spmd, unmicrobatch)
+from ..framework.device import resolve_device
+from .gpt import GPTBlock, GPTConfig, LayerNorm
+
+__all__ = ["GPTForCausalLMPipe", "gpt_pipe_sharding_rules"]
+
+
+class GPTForCausalLMPipe(nn.Module):
+    """GPT with pipelined decoder blocks.
+
+    Args:
+      config: `GPTConfig`; ``num_layers`` divides by ``num_stages *
+        num_chunks``.
+      num_stages: the pp degree (the pipeline group's size).
+      num_micro: micro-batches a forward (the batch divides by it).
+      num_chunks: virtual stages a rank (interleave; default 1).
+      group: the pipeline group (default: the fleet's pipe group, else
+        the world); this rank's stage is its rank there.
+    """
+
+    def __init__(self, config: GPTConfig, num_stages, num_micro,
+                 num_chunks=1, group=None, use_zero_bubble=False,
+                 device=None, dtype=torch.float32, seed=0):
+        super().__init__()
+        if use_zero_bubble:
+            raise NotImplementedError(
+                "GPTForCausalLMPipe(use_zero_bubble=True) (the zero-bubble "
+                "ring) is not ported yet: ROADMAP A9b.2b")
+        self.config = config
+        self.num_stages = int(num_stages)
+        self.num_micro = int(num_micro)
+        self.num_chunks = int(num_chunks)
+        total = self.num_stages * self.num_chunks
+        if config.num_layers % total:
+            raise ValueError(
+                f"num_layers {config.num_layers} must divide by "
+                f"num_stages*num_chunks {total}")
+        self.layers_per_stage = config.num_layers // total
+        self._group = _pipe_group(group)
+        if self._group.nranks != self.num_stages:
+            raise ValueError(f"num_stages {self.num_stages}, the pipeline "
+                             f"group has {self._group.nranks} ranks")
+        self.stage = max(self._group.rank, 0)
+        dev = resolve_device(device)
+        factory = dict(device=dev, dtype=dtype)
+        self.wte = nn.Embedding(config.vocab_size, config.hidden_size,
+                                **factory)
+        self.wpe = nn.Embedding(config.max_position_embeddings,
+                                config.hidden_size, **factory)
+        self.drop = nn.Dropout(config.hidden_dropout_prob)
+        self.ln_f = LayerNorm(config.hidden_size,
+                              eps=config.layer_norm_epsilon, **factory)
+        template = GPTBlock(config, device="meta", dtype=dtype)
+        template.use_recompute = False      # the ring recomputes
+        object.__setattr__(self, "_template", template)
+        self._stacked_names = []
+        lead = ((1, self.layers_per_stage) if self.num_chunks == 1 else
+                (1, self.num_chunks, self.layers_per_stage))
+        for pname, p in template.named_parameters():
+            flat = "blocks__" + pname.replace(".", "__")
+            self.register_parameter(flat, nn.Parameter(torch.empty(
+                lead + tuple(p.shape), **factory)))
+            self._stacked_names.append((flat, pname))
+        self._init_weights(torch.Generator(device=dev).manual_seed(
+            seed + self.stage))
+
+    @torch.no_grad()
+    def _init_weights(self, gen):
+        std = self.config.initializer_range
+        resid = 1.0 / math.sqrt(2.0 * self.config.num_layers)
+        lead = 2 if self.num_chunks == 1 else 3
+        for name, p in self.named_parameters():
+            inner = p.ndim - (lead if name.startswith("blocks__") else 0)
+            if inner >= 2:
+                p.normal_(0.0, std, generator=gen)
+                if re.search(r"(out_proj|fc2)__weight$", name):
+                    p.mul_(resid)
+            elif name.endswith("bias"):
+                p.zero_()
+            else:
+                p.fill_(1.0)
+
+    def stacked(self):
+        """The rank's stage slices, one a block parameter (template
+        order)."""
+        return [getattr(self, flat) for flat, _ in self._stacked_names]
+
+    def _block_fn(self):
+        template, names = self._template, self._stacked_names
+        template.train(self.training)
+
+        def block_fn(leaves, x):
+            for i in range(self.layers_per_stage):
+                x = functional_call(
+                    template, {pname: t[i] for (_, pname), t in
+                               zip(names, leaves)}, (x, None))
+            return x
+
+        return block_fn
+
+    def forward(self, input_ids, position_ids=None):
+        """Logits ``[b, s, vocab]`` (the head tied to ``wte``)."""
+        b, s = input_ids.shape
+        if position_ids is None:
+            position_ids = torch.arange(s, device=input_ids.device)[None]
+        x = self.drop(self.wte(input_ids.long())
+                      + self.wpe(position_ids.long()))
+        out = pipeline_spmd(self._block_fn(), [t[0] for t in self.stacked()],
+                            microbatch(x, self.num_micro), group=self._group,
+                            num_chunks=self.num_chunks)
+        hidden = self.ln_f(unmicrobatch(out))
+        return hidden @ self.wte.weight.t()
+
+
+def gpt_pipe_sharding_rules(tp_axis="mp", fsdp_axis=None, num_chunks=1):
+    """Reference :178: the Megatron TP / ZeRO-3 specs of the stacked
+    block parameters (their leading dims (pp, (chunks,) layers): pp-
+    sharded, the rest replicated) and of the embeddings outside the
+    ring, as ``(name regex, spec)`` pairs."""
+    lead = ("pp", None) if num_chunks == 1 else ("pp", None, None)
+
+    def spec(*axes):
+        return lead + tuple(axes)
+
+    return [
+        (r"blocks__attn__qkv__weight$", spec(fsdp_axis, tp_axis)),
+        (r"blocks__attn__qkv__bias$", spec(tp_axis)),
+        (r"blocks__attn__out_proj__weight$", spec(tp_axis, fsdp_axis)),
+        (r"blocks__mlp__fc1__weight$", spec(fsdp_axis, tp_axis)),
+        (r"blocks__mlp__fc1__bias$", spec(tp_axis)),
+        (r"blocks__mlp__fc2__weight$", spec(tp_axis, fsdp_axis)),
+        (r"blocks__", lead),
+        (r"\bwte\.weight$", (tp_axis, fsdp_axis)),
+        (r"\bwpe\.weight$", (None, fsdp_axis)),
+    ]

@@ -94,7 +94,7 @@ class ClipGradByGlobalNorm(ClipGradBase):
 
 
 def norm_stats(grads, need_clip, inv_scale, clip_norm, group, device=None,
-               blocks=None, mp_group=None):
+               blocks=None, mp_group=None, pp_group=None):
     """``(sum of squares, clip scale, found_inf)`` as device scalars, like
     `multi_tensor_norm`'s, with the sum and the flag all-reduced over
     ``group`` (a `distributed.collective.Group`) first, in one
@@ -103,7 +103,9 @@ def norm_stats(grads, need_clip, inv_scale, clip_norm, group, device=None,
     rank, the grads flagged in ``blocks`` are shards of blocks
     (`is_block`): their sum and the flag are all-reduced over it too,
     and the replicated grads' sum is added once, as `mp_norm_stats`
-    counts them. No host read."""
+    counts them. With a ``pp_group`` of more than one rank (each stage
+    holds its own layers) the sum and the flag are summed over it last.
+    No host read."""
     from ..distributed.collective import ReduceOp, all_reduce
 
     if mp_group is None or mp_group.nranks == 1:
@@ -123,6 +125,8 @@ def norm_stats(grads, need_clip, inv_scale, clip_norm, group, device=None,
         tot = both[:2].clone()
         all_reduce(tot, ReduceOp.SUM, mp_group)
         tot[0] += both[2]
+    if pp_group is not None and pp_group.nranks > 1:
+        all_reduce(tot, ReduceOp.SUM, pp_group)
     scale = torch.ones_like(tot[0])
     if clip_norm is not None:
         norm = tot[0].sqrt().clamp(min=1e-12)
@@ -137,24 +141,50 @@ def is_block(p):
     return getattr(p, "is_distributed", False) is True
 
 
-def mp_norm_stats(params_grads, clip_norm, group):
+def is_stage_copy(p):
+    """Whether ``p`` is a pipeline stage's copy of a weight that an
+    earlier stage also holds (a `SharedLayerDesc` layer's): a global norm
+    counts it on the first stage alone."""
+    return getattr(p, "is_stage_copy", False) is True
+
+
+def mp_norm_stats(params_grads, clip_norm, group, pp_group=None):
     """``(sum of squares, clip scale)`` as device scalars of the clipped
     (``need_clip``) grads of ``params_grads`` over a model-parallel
     ``group``: the distributed parameters' squares summed over the group
-    (one all-reduce), the replicated ones' added once."""
+    (one all-reduce), the replicated ones' added once; with a
+    ``pp_group`` of more than one rank, that sum summed over the stages
+    (a stage's copy of a shared weight left out: `is_stage_copy`)."""
     from ..distributed.collective import ReduceOp, all_reduce
 
-    kept = [(p, g) for p, g in params_grads if _clipped(p, g)]
+    kept = [(p, g) for p, g in params_grads
+            if _clipped(p, g) and not is_stage_copy(p)]
     dev = kept[0][1].device if kept else None
     dist = [g for p, g in kept if is_block(p)]
     rep = [g for p, g in kept if not is_block(p)]
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     sq_d = multi_tensor_norm(dist, device=dev)[0][0] if dist else zero
     sq_d = sq_d.clone()
-    all_reduce(sq_d, ReduceOp.SUM, group)
+    if group is not None and group.nranks > 1:
+        all_reduce(sq_d, ReduceOp.SUM, group)
     sq = sq_d + (multi_tensor_norm(rep, device=dev)[0][0] if rep else zero)
+    if pp_group is not None and pp_group.nranks > 1:
+        all_reduce(sq, ReduceOp.SUM, pp_group)
     norm = sq.sqrt().clamp(min=1e-12)
     return sq, (torch.full_like(norm, clip_norm) / norm).clamp(max=1.0)
+
+
+def any_over(found, group):
+    """``found`` (a device bool) made one flag over ``group``: set on
+    every rank where it is set on one (an all-reduce MAX, no host
+    read)."""
+    from ..distributed.collective import ReduceOp, all_reduce
+
+    if group is None or group.nranks == 1:
+        return found
+    t = found.float().reshape(1)
+    all_reduce(t, ReduceOp.MAX, group)
+    return t[0] > 0
 
 
 def scaled(g, scale):

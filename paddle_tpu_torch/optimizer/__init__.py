@@ -36,7 +36,7 @@ from __future__ import annotations
 
 import torch
 
-from ..nn.clip import ClipGradByGlobalNorm
+from ..nn.clip import ClipGradByGlobalNorm, any_over
 from ..ops.kernels.multi_tensor import (adam_consts, adam_math,
                                         multi_tensor_adam, multi_tensor_norm,
                                         tensor_lr)
@@ -169,6 +169,8 @@ class Adam(Optimizer):
                 clip_norm=clip.clip_norm if global_clip else None,
                 # another clip reads the unscaled grads
                 write=clip is not None and not global_clip)
+            if guard:
+                found = any_over(found, getattr(self, "_found_group", None))
         if clip is not None and not global_clip:
             params_grads = clip(params_grads)
             inv_scale = None

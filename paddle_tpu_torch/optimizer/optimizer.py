@@ -40,7 +40,7 @@ from __future__ import annotations
 
 import torch
 
-from ..nn.clip import ClipGradByGlobalNorm, scaled
+from ..nn.clip import ClipGradByGlobalNorm, any_over, scaled
 from ..ops.kernels.multi_tensor import multi_tensor_norm
 from .lr import LRScheduler
 
@@ -85,6 +85,9 @@ class Optimizer:
         # the gate's (live, old) pairs of one parameter's update, and of
         # the whole step
         self._snapshot = self._step_snapshot = None
+        # the group over which the grads differ (a hybrid-parallel
+        # optimizer's pp x mp group): the guard's flag is one flag there
+        self._found_group = None
 
     def _add_params(self, entries):
         added = []
@@ -247,8 +250,7 @@ class Optimizer:
                 inv_scale=inv_scale,
                 clip_norm=clip.clip_norm if global_clip else None,
                 write=inv_scale is not None, device=self._device())
-            if not guard:
-                found = None
+            found = any_over(found, getattr(self, "_found_group", None)) if guard else None
         if clip is not None and not global_clip:
             params_grads = clip(params_grads)
         self._step_snapshot = snap = (

@@ -14,8 +14,9 @@ launcher's deadline), against the JAX package's.
 * The topology: `CommunicateTopology`'s arithmetic equal to the
   reference's (``TestTopology``, :198-225), and `HybridCommunicateGroup`
   and ``fleet.init`` over the world: degrees, ranks, groups; an mp
-  degree of the world gives the model axis and `TensorParallel`; a pp
-  or sep degree above 1 raises, naming ROADMAP A9b.
+  degree of the world gives the model axis and `TensorParallel`, a pp
+  degree the pipe axis (stages, ring neighbours, `HybridParallel`); a
+  sep degree above 1 raises, naming ROADMAP A9b.
 * `DistributedBatchSampler`: every rank's batches equal the reference's
   for that rank, with and without shuffling and ``drop_last``.
 """
@@ -138,9 +139,13 @@ def test_hybrid_group_and_fleet_init_over_the_world(world):
         assert list(out["fleet"]) == [n, r, int(r == 0), n]
         assert out["fleet_model"] == "DataParallel"
         # mp at the world's degree runs (the model axis, TensorParallel);
-        # pp and sep still raise, naming A9b
+        # so does pp (the pipe axis: rank r is stage r, its ring
+        # neighbours r + 1 and r - 1, a model that is not a PipelineLayer
+        # HybridParallel); sep still raises, naming A9b
         assert out["mp_fleet"] == [n, r, 1, "TensorParallel"]
-        assert "A9b" in out["refuse_pp"] and "A9b" in out["refuse_sep"]
+        assert out["pp_fleet"] == [n, r, r == 0, r == n - 1, (r + 1) % n,
+                                   (r - 1) % n, "HybridParallel"]
+        assert "A9b" in out["refuse_sep"]
 
 
 @pytest.mark.parametrize("shuffle", [False, True])

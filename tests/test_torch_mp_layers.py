@@ -455,3 +455,62 @@ def test_sequence_parallel_linears(sp_world):
         np.testing.assert_allclose(b2, rb, atol=ATOL)
         np.testing.assert_allclose(x, _block(gx, r, 2, 0), atol=ATOL)
         assert out["sp_hooks"] == 1
+
+
+@pytest.fixture(scope="module")
+def nonfinite_world():
+    """The small model at mp 2 through `TensorParallel`, a
+    `HybridParallelOptimizer` and a `jit.TrainStep` with a `GradScaler`,
+    an inf in rank 1's block's grad at the first step; and the
+    reference's eager scaler over the same inf."""
+    t = _arrays()["tp"]
+    job = start("mp_nonfinite", 2, {"tp": t}, timeout=60)
+    try:
+        jenv.reset()
+        jenv.set_mesh(jenv.build_mesh({"mp": 2}))
+        net = _JNet()
+        for name, p in net.named_parameters():
+            p._data = jnp.asarray(t["named"][name])
+        opt = popt.AdamW(learning_rate=t["lr"], parameters=net.parameters(),
+                         grad_clip=jnn.ClipGradByGlobalNorm(t["clip"]))
+        scaler = paddle.amp.GradScaler(init_loss_scaling=1024.0)
+        loss = net.loss(paddle.to_tensor(t["ids"], dtype="int64"),
+                        paddle.to_tensor(t["labels"], dtype="int64"))
+        scaler.scale(loss).backward()
+        w = net.fc1.weight
+        w.grad._data = w.grad._data.at[0, 0].set(jnp.inf)
+        scaler.step(opt)
+        scaler.update()
+        ref = ({k: _np(p) for k, p in net.named_parameters()},
+               float(scaler.get_loss_scaling()))
+    finally:
+        jenv.reset()
+        ranks = job.wait(deadline=150)
+    return ranks, ref, t
+
+
+def test_nonfinite_flag_is_one_flag_over_the_mp_group(nonfinite_world):
+    """An inf in one mp rank's grads: every rank skips the step (its
+    blocks and replicated parameters unchanged and alike over the ranks)
+    and halves its scale, as the reference's global flag does; the next,
+    clean step moves every rank."""
+    ranks, (want_params, want_scale), t = nonfinite_world
+    for k, v in want_params.items():              # the reference skips
+        np.testing.assert_array_equal(v, t["named"][k])
+    assert want_scale == 512.0
+    net = _tp_net(1, t["named"], 0, "cpu", **TP)
+    joined = convert.mp_state_dict_to_jax(
+        [{k: torch.from_numpy(v) for k, v in out["skipped"].items()}
+         for out in ranks], net)
+    for k, want in want_params.items():
+        np.testing.assert_array_equal(joined[k], want)
+    for out in ranks:
+        assert out["scale"] == want_scale
+        for k, v in out["skipped"].items():
+            np.testing.assert_array_equal(v, out["before"][k])
+        assert any(np.abs(out["stepped"][k] - out["before"][k]).max() > 0
+                   for k in out["before"])
+        assert out["scale_after"] == want_scale
+    for name in ("ln.weight", "ln.bias", "fc2.bias"):       # replicated
+        np.testing.assert_array_equal(ranks[0]["stepped"][name],
+                                      ranks[1]["stepped"][name])

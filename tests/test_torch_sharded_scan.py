@@ -271,12 +271,15 @@ def test_select_train_step_picks_by_degree(world, named):
         assert type(select_train_step(
             flat, AdamW(parameters=flat.parameters()),
             criterion=crit)) is TrainStep
-        pp = tenv.RankMesh({"pp": 2, "dp": 1})
-        for kw in (dict(auto=True), dict(mesh=pp), dict(ep_axis="ep")):
+        for kw in (dict(auto=True), dict(ep_axis="ep")):
             with pytest.raises(NotImplementedError, match="A9b"):
                 select_train_step(tm, opt, criterion=crit, **kw)
-        for kw in (dict(mesh=pp), dict(ep_axis="ep")):
-            with pytest.raises(NotImplementedError, match="A9b"):
-                ShardedFusedScanTrainStep(tm, opt, criterion=crit, **kw)
+        with pytest.raises(NotImplementedError, match="A9b"):
+            ShardedFusedScanTrainStep(tm, opt, criterion=crit,
+                                      ep_axis="ep")
+        # a pp mesh is the pipelined step's (jit.PipelineScanTrainStep)
+        pp = tenv.RankMesh({"pp": 2, "dp": 1})
+        with pytest.raises(ValueError, match="PipelineScanTrainStep"):
+            ShardedFusedScanTrainStep(tm, opt, criterion=crit, mesh=pp)
     finally:
         tenv.reset()
