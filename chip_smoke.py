@@ -355,7 +355,40 @@ Phases, one line each (any failure exits non-zero, nothing is caught):
     parameters or grads 1e-3 relative); (d) with two cards or more, (a)
     over NCCL, one card a rank; with one, a line that says it did not
     run. The kernels line carries a rank's launches a step at pp 2
-    (``launches_pp``, by stage).
+    (``launches_pp``, by stage);
+26. LLaMA under mp and pp (BASELINE config 5's layout): (a) #11 / #12 on
+    LLaMA-7B's vocab-parallel head (h [8192, 4096] bf16 over W [32000,
+    4096]) cut in mp 2 and 4 (16000 and 8000 rows, each shard ending in
+    a ragged tile), phase 3's bars, bit-identical twice, the counters
+    stepped once a shard, shard 0 timed beside its bound, the plain
+    version and ``F.linear`` + ``logsumexp``; (b) LLaMA-7B's widths
+    (hidden 4096, 32 heads, intermediate 11008, vocab 32000; depth cut
+    to 8 layers) at dp 1 x mp 4, four gloo ranks sharing the card
+    (``llama_selftest.launch_card(4)``: ``fleet.init`` at mp 4 ->
+    ``fleet.distributed_model(llama).train_step(AdamW +
+    ClipGradByGlobalNorm(1.0))``, bf16 O2 with recompute, 4 x 2048
+    tokens, 3 steps) against a world-of-one ``TrainStep`` on the same
+    weights and batch computed first in this process (every step within
+    1e-2, the gaps printed), the ranks' losses identical, a rank's
+    launches a step (`_llama_mp_launches`: #11 and #12 once each at V/4
+    rows, one ``mt_adam_kernel``, two ``mt_norm_kernel``) and its
+    collectives (`_llama_mp_collectives`) exact; (c) the same model at
+    tp 4 x pp 2, eight gloo ranks sharing the card, through
+    ``LlamaForCausalLMPipe`` and ``PipelineParallel``
+    (``accumulate_steps`` 4, 2 steps) against the world of one's first
+    two losses (1e-2), every rank's launches (`_llama_pp_launches`),
+    collectives, sends and receives a step exact
+    (`_llama_pp_collectives`), its peak memory and
+    step times printed, which gloo's trips
+    through the host set: no speed of mp or pp; (d) a tiny fp32 GQA
+    LLaMA (KV heads 2) at dp 2 x mp 2 and dp 2 x pp 2 x mp 2, the ranks
+    on the card against the same ranks on the CPU (loss 5e-4,
+    parameters 5e-3 relative); (e) with two cards or more, (b) over
+    NCCL, one card a rank; with one, a line that says it did not run.
+    The kernels line carries a rank's launches a step at mp 4
+    (``launches_llama_mp``) and at tp 4 x pp 2 by stage
+    (``launches_llama_pp``), and the CE rows the head's shards
+    (``llama_mp_shards``).
 
 It then prints the ``nvidia-smi`` line again and, last, ``{"ok": true,
 "device": {...}}``. Imports torch, numpy and the port only.
@@ -379,7 +412,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
 BF16_FLOP_PER_S = 989e12        # dense bf16 tensor-core peak
 FP32_FLOP_PER_S = 67e12         # fp32 outside the tensor cores
-PHASES = 25
+PHASES = 26
 
 
 def nvidia_smi() -> str:
@@ -5425,15 +5458,16 @@ MP_CE_SHAPES = {torch.bfloat16: (8192, GPT_VOCAB, 2048),
 MP_DEGREES = (2, 4)
 
 
-def _mp_ce_case(dev, flush, dtype, mp):
-    """Phase 24(a) at one dtype and degree: every shard's forward and
+def _mp_ce_case(dev, flush, dtype, mp, shape=None):
+    """Phase 24(a) at one dtype and degree (``shape``: ``(tokens, vocab,
+    hidden)``, else `MP_CE_SHAPES`'): every shard's forward and
     backward against its plain version and bit-identical twice, the
     counters stepped once a shard, the shards combined as the collective
     combines them against the unsharded kernels; shard 0 timed."""
     from paddle_tpu_torch.ops.kernels import fused_cross_entropy as fce
     F = torch.nn.functional
 
-    n, vocab, hidden = MP_CE_SHAPES[dtype]
+    n, vocab, hidden = shape or MP_CE_SHAPES[dtype]
     gen = torch.Generator(device=dev).manual_seed(24)
     h = torch.randn(n, hidden, device=dev, generator=gen).to(dtype)
     w = (torch.randn(vocab, hidden, device=dev, generator=gen) * 0.02) \
@@ -5757,6 +5791,211 @@ def pipeline_two_ranks(dev, want):
     return by_stage
 
 
+# phase 26: LLaMA under mp and pp (BASELINE config 5's tp 4 x pp 2)
+LLAMA_HEAD = (8192, 32000, 4096)    # 4 x 2048 tokens, LLaMA-7B's head
+LLAMA_MP = 4
+LLAMA_PP = 2
+LLAMA_LOSS_BAR = 1e-2
+LLAMA_STEPS, LLAMA_PP_STEPS = 3, 2
+
+
+def llama_head_shards(dev):
+    """Phase 26(a): #11 / #12 on LLaMA-7B's vocab-parallel head (h [8192,
+    4096] bf16 over W [32000, 4096]) cut in mp 2 and 4: 16000 and 8000
+    rows, neither a multiple of 256, so each shard ends in a ragged
+    tile (`_mp_ce_case`: phase 3's bars, bit-identical twice, the
+    counters stepped once a shard, shard 0 timed)."""
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    out = {}
+    for mp in MP_DEGREES:
+        rec = _mp_ce_case(dev, flush, torch.bfloat16, mp, shape=LLAMA_HEAD)
+        out[mp] = rec
+        print(f"[26/{PHASES}] (a) LLaMA-7B head, vocab-parallel CE bf16 mp "
+              f"{mp}, shard {rec['shape']}: errors "
+              f"{json.dumps(rec['errors'])}, combined against the "
+              f"unsharded kernels {json.dumps(rec['whole'])}; shard ms fwd "
+              f"{rec['fwd']['ms']:.4f} (bound {rec['fwd']['bound_ms']:.4f} "
+              f"{rec['fwd']['bound_by']}, plain {rec['fwd']['plain_ms']:.2f},"
+              f" F.linear + logsumexp {rec['fwd']['library_ms']:.4f}), bwd "
+              f"{rec['bwd']['ms']:.4f} (bound {rec['bwd']['bound_ms']:.4f} "
+              f"{rec['bwd']['bound_by']}, plain "
+              f"{rec['bwd']['plain_ms']:.2f}); {nvidia_smi()}", flush=True)
+    del flush
+    torch.cuda.empty_cache()
+    return out
+
+
+def _llama_mp_launches():
+    """A rank's launches a step at LLaMA-7B's widths, dp 1 x mp 4, bf16
+    O2 (counted from the design): the vocab-parallel CE forward and
+    backward once each over the rank's V/4 rows, one fused AdamW (one
+    dtype group: bf16 parameters with fp32 masters), and the global
+    norm's two sums of squares (the blocks', all-reduced over mp, then
+    the replicated norms': `nn.clip.mp_norm_stats`)."""
+    return {"fused_ce_fwd_wgmma_kernel": 1, "fused_ce_bwd_kernels": 1,
+            "mt_adam_kernel": 1, "mt_norm_kernel": 2}
+
+
+def _llama_mp_collectives(layers):
+    """A rank's collectives a step at dp 1 x mp: over mp the embedding's
+    sum, a layer's two forward sums (o, down), the recompute's one (the
+    checkpoint stops its replay once the attention's output is back) and
+    two backward sums (the f before q|k|v and before gate|up), the head's
+    f and its CE's two combines (max, then sum), the clip's sum of the
+    blocks' squares; the loss's mean over the data axes (one rank)."""
+    return {"all_reduce@mp": 5 * layers + 5, "all_reduce@sharding": 1}
+
+
+def _llama_pp_launches():
+    """A rank's launches a step at LLaMA-7B's widths, tp 4 x pp 2, bf16
+    O2 (counted from the design), alike on both stages: no fused CE (the
+    last stage's loss is the vocab-parallel criterion over its logits'
+    columns, `ParallelCrossEntropy`'s, in PyTorch: ROADMAP A9b.7b), one
+    fused AdamW over the stage's parameters, and the global norm's two
+    sums of squares (the blocks', then the replicated norms')."""
+    return {"fused_ce_fwd_wgmma_kernel": 0, "fused_ce_bwd_kernels": 0,
+            "mt_adam_kernel": 1, "mt_norm_kernel": 2}
+
+
+def _llama_pp_collectives(stage, layers, micro, pp=LLAMA_PP):
+    """A rank's collectives a step at tp x pp (``layers`` decoder layers
+    a stage, ``micro`` micro-batches): over mp the batch's two
+    broadcasts, on each micro-batch stage 0's embedding sum, each layer's
+    five sums (`_llama_mp_collectives`), the last stage's head f and its
+    CE's two combines, and the clip's one; over pp the clip's sum, the
+    loss's broadcast, and M activations one way and M cotangents the
+    other (stage 0 sends one shape header more)."""
+    last = stage == pp - 1
+    per_micro = 5 * layers + (1 if stage == 0 else 0) + (3 if last else 0)
+    return {"broadcast@mp": 2, "all_reduce@mp": micro * per_micro + 1,
+            "all_reduce@pp": 1, "broadcast@pp": 1,
+            "send@pp": micro + (stage == 0),
+            "recv@pp": micro + (stage > 0)}
+
+
+def llama_hybrid(dev):
+    """Phase 26(b)-(e): LLaMA-7B's widths (8 layers) at dp 1 x mp 4
+    (four gloo ranks sharing the card: `llama_selftest.launch_card(4)`)
+    and at tp 4 x pp 2 (eight: ``launch_card(8, pp=2)``), each step's
+    loss held to a world-of-one `TrainStep` on the same weights and
+    batch (`LLAMA_LOSS_BAR`), each rank's launches and collectives a
+    step exact; the tiny fp32 GQA LLaMA card against CPU at dp 2 x mp 2
+    and dp 2 x pp 2 x mp 2; with two cards, (b) over NCCL. Returns a
+    rank's launches a step at mp 4, and at tp 4 x pp 2 by stage (mp
+    rank 0's)."""
+    from paddle_tpu_torch.distributed import llama_selftest
+
+    cfg = llama_selftest.full_width_config()
+    t0 = time.perf_counter()
+    want = llama_selftest.world_one(dev, steps=LLAMA_STEPS)
+    world1_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = llama_selftest.launch_card(LLAMA_MP, steps=LLAMA_STEPS,
+                                     deadline=600)
+    wall = time.perf_counter() - t0
+    b = res["llama_7b"]
+    gaps = [abs(x - y) for x, y in zip(b["losses"], want)]
+    per_step = b["launches_per_step"]
+    coll = dict(b["collectives_per_step"]["by_group"])
+    report = {"model": "llama-7b widths", "layers": cfg.num_layers,
+              "cut": f"depth {cfg.num_layers} of 32 layers",
+              "dp": 1, "mp": LLAMA_MP, "backend": res["backend"],
+              "tokens": [4, 2048], "losses": b["losses"],
+              "world1_losses": want, "loss_gaps": gaps,
+              "rank_losses": b["rank_losses"], "step_s": b["step_s"],
+              "launches_per_step": per_step,
+              "collectives_per_step": b["collectives_per_step"],
+              "head_rows": b["head_rows"],
+              "max_memory_allocated_rank0": b["max_memory_allocated"],
+              "types": b["types"], "world1_s": world1_s,
+              "launch_wall_s": wall, "nvidia_smi": nvidia_smi()}
+    print(f"[26/{PHASES}] (b) LLaMA-7B widths at dp 1 x mp {LLAMA_MP}, "
+          f"four ranks sharing the card over gloo (activations through "
+          f"the host: no speed of mp): {json.dumps(report)}", flush=True)
+    if not (len(gaps) == len(want) and max(gaps) < LLAMA_LOSS_BAR
+            and all(np.isfinite(b["losses"]))):
+        raise AssertionError(f"mp {LLAMA_MP} losses {b['losses']} against "
+                             f"world 1 {want}")
+    if any(r != b["rank_losses"][0] for r in b["rank_losses"]):
+        raise AssertionError(f"ranks' losses differ: {b['rank_losses']}")
+    if b["head_rows"] != LLAMA_HEAD[1] // LLAMA_MP:
+        raise AssertionError(f"head rows a rank {b['head_rows']}")
+    if per_step != _llama_mp_launches():
+        raise AssertionError(f"mp {LLAMA_MP} launches a step {per_step}, "
+                             f"want {_llama_mp_launches()}")
+    if coll != _llama_mp_collectives(cfg.num_layers):
+        raise AssertionError(f"mp {LLAMA_MP} collectives a step {coll}, "
+                             f"want {_llama_mp_collectives(cfg.num_layers)}")
+    n = LLAMA_MP * LLAMA_PP
+    t0 = time.perf_counter()
+    pres = llama_selftest.launch_card(n, steps=LLAMA_PP_STEPS, pp=LLAMA_PP,
+                                      deadline=600)
+    pwall = time.perf_counter() - t0
+    ranks = pres["llama_7b"]["ranks"]
+    pgaps = [abs(x - y) for x, y in zip(pres["llama_7b"]["losses"], want)]
+    report = {"model": "llama-7b widths", "layers": cfg.num_layers,
+              "tp": LLAMA_MP, "pp": LLAMA_PP,
+              "micro": ranks[0]["micro"],
+              "losses": pres["llama_7b"]["losses"],
+              "world1_losses": want[:LLAMA_PP_STEPS], "loss_gaps": pgaps,
+              "ranks": [{k: r[k] for k in (
+                  "rank", "stage", "mp_rank", "layers", "losses", "step_s",
+                  "p2p_per_step", "max_memory_allocated",
+                  "launches_per_step")} for r in ranks],
+              "collectives_per_step_rank0": ranks[0]["collectives_per_step"],
+              "launch_wall_s": pwall, "nvidia_smi": nvidia_smi()}
+    print(f"[26/{PHASES}] (c) BASELINE config 5's layout, tp {LLAMA_MP} x "
+          f"pp {LLAMA_PP}: eight ranks sharing the card over gloo "
+          f"(activations and sends through the host: the step times and "
+          f"peak memory are gloo's, no speed of mp or pp): "
+          f"{json.dumps(report)}", flush=True)
+    if not (len(pgaps) == LLAMA_PP_STEPS and max(pgaps) < LLAMA_LOSS_BAR
+            and all(np.isfinite(pres["llama_7b"]["losses"]))):
+        raise AssertionError(f"tp x pp losses {pres['llama_7b']['losses']} "
+                             f"against world 1 {want}")
+    if any(r["losses"] != ranks[0]["losses"] for r in ranks):
+        raise AssertionError(f"tp x pp ranks' losses differ: {ranks}")
+    lps = cfg.num_layers // LLAMA_PP
+    if sorted(r["layers"] for r in ranks) != [lps] * n:
+        raise AssertionError(f"decoder layers a stage: {ranks}")
+    for r in ranks:
+        if r["launches_per_step"] != _llama_pp_launches():
+            raise AssertionError(
+                f"tp x pp rank {r['rank']} launches a step "
+                f"{r['launches_per_step']}, want {_llama_pp_launches()}")
+        want_c = _llama_pp_collectives(r["stage"], lps, r["micro"])
+        if dict(r["collectives_per_step"]["by_group"]) != want_c:
+            raise AssertionError(
+                f"tp x pp rank {r['rank']} collectives a step "
+                f"{r['collectives_per_step']['by_group']}, want {want_c}")
+    tiny = [res["tiny_card_cpu"], pres["tiny_card_cpu"]]
+    print(f"[26/{PHASES}] (d) tiny fp32 GQA LLaMA (KV heads 2) card against "
+          f"CPU over the same gloo ranks: dp 2 x mp 2 {json.dumps(tiny[0])};"
+          f" dp 2 x pp 2 x mp 2 {json.dumps(tiny[1])}; {nvidia_smi()}",
+          flush=True)
+    for t in tiny:
+        if not (t["max_loss_diff"] < 5e-4 and t["max_param_rel"] < 5e-3):
+            raise AssertionError(f"LLaMA card against CPU: {t}")
+    if torch.cuda.device_count() < 2:
+        print(f"[26/{PHASES}] (e) dp 1 x mp over NCCL: not run (1 card); "
+              f"{nvidia_smi()}", flush=True)
+    else:
+        k = min(torch.cuda.device_count(), LLAMA_MP)
+        nb = llama_selftest.launch_card(k, nccl=True, steps=LLAMA_STEPS,
+                                        deadline=600)["llama_7b"]
+        print(f"[26/{PHASES}] (e) dp 1 x mp {k} over NCCL, one card a "
+              f"rank: losses {nb['losses']}, step s {nb['step_s']}; "
+              f"{nvidia_smi()}", flush=True)
+        if max(abs(x - y) for x, y in zip(nb["losses"], want)) >= \
+                LLAMA_LOSS_BAR or nb["launches_per_step"] != \
+                _llama_mp_launches():
+            raise AssertionError(f"mp {k} over NCCL: {nb}")
+    return per_step, {r["stage"]: r["launches_per_step"] for r in ranks
+                      if r["mp_rank"] == 0}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -5849,6 +6088,8 @@ def main() -> int:
     mp_shards = vocab_parallel_kernels(dev)
     mp_launches, world1 = tensor_parallel_two_ranks(dev)
     pp_launches = pipeline_two_ranks(dev, world1)
+    llama_shards = llama_head_shards(dev)
+    llama_mp_launches, llama_pp_launches = llama_hybrid(dev)
 
     where = {name: (PAGED_SOURCE, f"{PAGED_TPU}:{line}")
              for name, (_, _, _, line) in PAGED_KERNELS.items()}
@@ -5900,6 +6141,22 @@ def main() -> int:
              **({"launches_pp": {f"stage{st}": ran[name]
                                  for st, ran in sorted(pp_launches.items())}}
                 if name in pp_launches[0] else {}),
+             # phase 26(b): a rank's launches a step at LLaMA-7B's
+             # widths, dp 1 x mp 4
+             **({"launches_llama_mp": llama_mp_launches[name]}
+                if name in llama_mp_launches else {}),
+             # phase 26(c): a rank's launches a step at tp 4 x pp 2
+             **({"launches_llama_pp": {
+                 f"stage{st}": ran[name]
+                 for st, ran in sorted(llama_pp_launches.items())}}
+                if name in llama_pp_launches[0] else {}),
+             # phase 26(a): the shards of LLaMA-7B's head at mp 2 and 4
+             **({"llama_mp_shards": {
+                 mp: {k: rec[k] for k in ("shape", "errors")}
+                 | rec["fwd" if "fwd" in name else "bwd"]
+                 for mp, rec in llama_shards.items()}}
+                if name in ("fused_ce_fwd_wgmma_kernel",
+                            "fused_ce_bwd_kernels") else {}),
              **({"mp_shards": {
                  dt: {mp: {k: rec[k] for k in ("shape", "errors")}
                       | rec["fwd" if "fwd" in name else "bwd"]

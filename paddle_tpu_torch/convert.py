@@ -29,7 +29,10 @@ q|k|v dim) and `mp_join` puts the ranks' blocks back, bit for bit;
 `mp_state_dict_from_jax` / `mp_state_dict_to_jax` carry the reference's
 global arrays into rank r's blocks and the ranks' state dicts back into
 the reference's arrays (`mp_plan` reads a model's kinds from its
-parameters' ``split_axis``).
+parameters' ``split_axis``);
+`optimizer_state_from_jax` with ``rank`` / ``degree`` cuts the moments
+and masters as their parameters, and `mp_optimizer_state_to_jax` joins
+the ranks' optimizer states back.
 
 Pipeline parallelism: a rank of a pipeline group holds its stage.
 `pipe_stage_from_jax` cuts a `models.GPTForCausalLMPipe` rank's slice
@@ -37,7 +40,8 @@ Pipeline parallelism: a rank of a pipeline group holds its stage.
 blocks (the embeddings and ln_f whole) and `pipe_stage_to_jax` joins the
 ranks' state dicts back along that dim; `pipeline_state_dict_from_jax`
 gives a `PipelineLayer` rank the entries it holds of the reference's
-named arrays and `pipeline_state_dict_to_jax` joins the ranks' (whose
+named arrays (under mp, with ``rank`` / ``degree``, its blocks of them)
+and `pipeline_state_dict_to_jax` joins the ranks' (whose
 keys are global) into them, bit for bit.
 
 bf16 crosses as its raw 16-bit pattern: into the port as a torch
@@ -71,8 +75,8 @@ import torch
 
 from .framework.io import Bfloat16Bits
 
-__all__ = ["linear_weights", "mp_block", "mp_join", "mp_plan",
-           "mp_state_dict_from_jax", "mp_state_dict_to_jax",
+__all__ = ["linear_weights", "mp_block", "mp_join",
+           "mp_optimizer_state_to_jax", "mp_plan", "mp_state_dict_from_jax", "mp_state_dict_to_jax",
            "pipe_stage_from_jax", "pipe_stage_to_jax",
            "pipeline_state_dict_from_jax", "pipeline_state_dict_to_jax",
            "optimizer_state_from_jax", "optimizer_state_to_jax",
@@ -202,12 +206,16 @@ def _state_keys(state):
     return keys
 
 
-def optimizer_state_from_jax(state, model, optimizer) -> dict:
+def optimizer_state_from_jax(state, model, optimizer, rank=0,
+                             degree=1) -> dict:
     """A reference ``Optimizer.state_dict()`` (as `framework.io.load`
     gives it) -> a state dict for the port's ``optimizer.set_state_dict``
     over ``model``. Keys that name no parameter (NAdam's ``_global``)
     cross as they are; the parameter keys must number the model's
-    parameters exactly."""
+    parameters exactly. Under tensor parallelism (``degree`` above 1)
+    ``model`` is rank ``rank``'s and each parameter's state is cut to
+    its block as the parameter is (`mp_plan`)."""
+    plan = mp_plan(model)
     order = list(model.named_parameters())
     transpose = linear_weights(model)
     counted = sorted((int(m.group(1)), k) for k in _state_keys(state)
@@ -225,6 +233,7 @@ def optimizer_state_from_jax(state, model, optimizer) -> dict:
         t = _to_torch(value)
         if name in transpose:
             t = _swap(t)
+        t = mp_block(t, plan.get(name), rank, degree)
         if tuple(t.shape) != tuple(p.shape):
             raise ValueError(f"{name} ({key}): state of shape "
                              f"{tuple(t.shape)}, the parameter's is "
@@ -358,6 +367,43 @@ def mp_state_dict_to_jax(state_dicts, model, plan=None) -> dict:
     return state_dict_to_jax(joined, model)
 
 
+def mp_optimizer_state_to_jax(states, models, optimizers,
+                              names=None) -> dict:
+    """The inverse of `optimizer_state_from_jax` under tensor
+    parallelism: every rank's optimizer state (rank order, each with its
+    model and optimizer) -> the reference's, each parameter's state
+    joined from the ranks' blocks as the parameter is (`mp_plan`)."""
+    model = models[0]
+    plan = mp_plan(model)
+    parts = [optimizer_state_to_jax(st, m, o, names)
+             for st, m, o in zip(states, models, optimizers)]
+    ref = _reference_names(model, names)
+    named = {ref[p]: n for n, p in model.named_parameters()}
+    transpose = linear_weights(model)
+
+    def join(key, arrays):
+        kind = plan.get(named.get(key))
+        if kind is None or len(arrays) == 1:
+            return arrays[0]
+        dim = kind[1]
+        if named[key] in transpose:
+            dim = 1 - dim
+        out = np.concatenate([np.asarray(a) for a in arrays], axis=dim)
+        return out.view(type(arrays[0])) if isinstance(
+            arrays[0], Bfloat16Bits) else out
+
+    def joined(stores):
+        return {k: join(k, [st[k] for st in stores]) for k in stores[0]}
+
+    out = dict(parts[0])
+    out["accumulators"] = {
+        acc: joined([p["accumulators"][acc] for p in parts])
+        for acc in parts[0].get("accumulators", {})}
+    out["master_weights"] = joined([p.get("master_weights", {})
+                                    for p in parts])
+    return out
+
+
 def pipe_stage_from_jax(named, model, stage=None) -> dict:
     """The reference's `GPTForCausalLMPipe` arrays -> a state dict of the
     port's ``model`` (a `models.GPTForCausalLMPipe` rank): its stage's
@@ -380,12 +426,16 @@ def pipe_stage_to_jax(state_dicts, model) -> dict:
             for k, v in parts[0].items()}
 
 
-def pipeline_state_dict_from_jax(named, model) -> dict:
+def pipeline_state_dict_from_jax(named, model, rank=0, degree=1) -> dict:
     """The entries of the reference's `PipelineLayer` named arrays that
-    the rank's ``model`` holds (its keys are the reference's)."""
+    the rank's ``model`` holds (its keys are the reference's); under
+    tensor parallelism (``degree`` above 1) model-parallel rank
+    ``rank``'s blocks of them (`mp_state_dict_from_jax`)."""
     keys = set(model.state_dict())
-    return state_dict_from_jax({k: v for k, v in named.items()
-                                if k in keys}, model=model)
+    held = {k: v for k, v in named.items() if k in keys}
+    if degree > 1:
+        return mp_state_dict_from_jax(held, model, rank, degree)
+    return state_dict_from_jax(held, model=model)
 
 
 def pipeline_state_dict_to_jax(state_dicts, models) -> dict:

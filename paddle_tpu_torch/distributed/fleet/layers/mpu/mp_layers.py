@@ -63,7 +63,8 @@ class VocabParallelEmbedding(Layer):
     rank the whole lookup."""
 
     def __init__(self, num_embeddings, embedding_dim, weight_attr=None,
-                 mp_group=None, name=None, *, device=None, dtype=None):
+                 mp_group=None, name=None, *, device=None, dtype=None,
+                 generator=None):
         super().__init__()
         self._group = _resolve(mp_group)
         n, r = _degree_rank(self._group)
@@ -71,7 +72,7 @@ class VocabParallelEmbedding(Layer):
         self._embedding_dim = embedding_dim
         full = create_parameter([num_embeddings, embedding_dim], weight_attr,
                                 dtype, default_initializer=XavierUniform(),
-                                device=device)
+                                device=device, generator=generator)
         self.weight = _block_param(full, 0, self._group)
         self.vocab_start = r * (num_embeddings // n)
 
@@ -92,7 +93,8 @@ class ColumnParallelLinear(torch.nn.Linear):
 
     def __init__(self, in_features, out_features, weight_attr=None,
                  has_bias=True, gather_output=True, fuse_matmul_bias=False,
-                 mp_group=None, name=None, *, device=None, dtype=None):
+                 mp_group=None, name=None, *, device=None, dtype=None,
+                 generator=None):
         torch.nn.Module.__init__(self)
         self._group = _resolve(mp_group)
         self.in_features, self.out_features = in_features, out_features
@@ -100,7 +102,8 @@ class ColumnParallelLinear(torch.nn.Linear):
         self.is_mp = _degree_rank(self._group)[0] > 1
         w = create_parameter([in_features, out_features], weight_attr, dtype,
                              default_initializer=XavierUniform(),
-                             device=device, transpose=True)
+                             device=device, generator=generator,
+                             transpose=True)
         self.weight = _block_param(w, 0, self._group)
         b = create_parameter([out_features], None, dtype, is_bias=True,
                              default_initializer=Constant(0.0),
@@ -121,14 +124,15 @@ class RowParallelLinear(torch.nn.Linear):
     def __init__(self, in_features, out_features, weight_attr=None,
                  has_bias=True, input_is_parallel=False,
                  fuse_matmul_bias=False, mp_group=None, name=None, *,
-                 device=None, dtype=None):
+                 device=None, dtype=None, generator=None):
         torch.nn.Module.__init__(self)
         self._group = _resolve(mp_group)
         self.in_features, self.out_features = in_features, out_features
         self.input_is_parallel = input_is_parallel
         w = create_parameter([in_features, out_features], weight_attr, dtype,
                              default_initializer=XavierUniform(),
-                             device=device, transpose=True)
+                             device=device, generator=generator,
+                             transpose=True)
         self.weight = _block_param(w, 1, self._group)
         self.bias = create_parameter([out_features], None, dtype,
                                      is_bias=True,

@@ -17,7 +17,9 @@ parameters counted once, then the stages' sums summed over the pipeline
 group, a stage's copy of a shared weight left out), and the guarded
 step's non-finite flag is one flag over the pp x mp group (the
 optimizer's ``_found_group``; `amp.GradScaler` reads it there too): every
-rank skips or steps together.
+rank skips or steps together. With ``pipelined=False`` the model is
+whole on every pp rank (a model that is not a `PipelineLayer`): the pp
+group is left out of the norm and the flag.
 """
 from __future__ import annotations
 
@@ -33,14 +35,15 @@ __all__ = ["HybridParallelClipGrad", "HybridParallelOptimizer"]
 
 class HybridParallelClipGrad(ClipGradBase):
     """``clip`` (a `ClipGradByGlobalNorm`) by the norm over the
-    model-parallel and pipeline groups (`nn.clip.mp_norm_stats`); new
-    grads, as the global clip returns them."""
+    model-parallel group and, when ``pipelined``, the pipeline group
+    (`nn.clip.mp_norm_stats`); new grads, as the global clip returns
+    them."""
 
-    def __init__(self, clip, hcg):
+    def __init__(self, clip, hcg, pipelined=True):
         self._clip = clip
         self.clip_norm = clip.clip_norm
         self._group = hcg.get_model_parallel_group()
-        self._pp_group = hcg.get_pipe_parallel_group()
+        self._pp_group = hcg.get_pipe_parallel_group() if pipelined else None
 
     def __call__(self, params_grads):
         _, scale = mp_norm_stats(params_grads, self.clip_norm, self._group,
@@ -51,7 +54,7 @@ class HybridParallelClipGrad(ClipGradBase):
 
 
 class HybridParallelOptimizer:
-    def __init__(self, optimizer, hcg, strategy=None):
+    def __init__(self, optimizer, hcg, strategy=None, pipelined=True):
         self._hcg = hcg
         self._strategy = strategy
         shard = hcg is not None and (
@@ -63,8 +66,8 @@ class HybridParallelOptimizer:
         clip = getattr(optimizer, "_grad_clip", None)
         split = hcg is not None and (
             hcg.get_model_parallel_world_size() > 1
-            or hcg.get_pipe_parallel_world_size() > 1)
-        self._mp_clip = (HybridParallelClipGrad(clip, hcg)
+            or pipelined and hcg.get_pipe_parallel_world_size() > 1)
+        self._mp_clip = (HybridParallelClipGrad(clip, hcg, pipelined)
                          if not shard and split
                          and type(clip) is ClipGradByGlobalNorm else None)
         if shard:
@@ -72,7 +75,9 @@ class HybridParallelOptimizer:
             # the shards' reduce-scatter: one flag over every rank
             optimizer._found_group = get_group()
         elif split:
-            optimizer._found_group = hcg.get_check_parallel_group()
+            optimizer._found_group = (hcg.get_check_parallel_group()
+                                      if pipelined else
+                                      hcg.get_model_parallel_group())
 
     @property
     def _found_group(self):

@@ -47,14 +47,26 @@ class MetaParallelBase(nn.Module):
     def train_step(self, optimizer, criterion=None, **kw):
         """The whole-step entry (reference meta_parallel :31-57). A fused
         scan step takes a `HybridParallelOptimizer`'s inner optimizer: it
-        takes the clip's norm over its own group."""
+        takes the clip's norm over its own group. Any other model's
+        `jit.TrainStep` takes a plain optimizer wrapped in one when the mp
+        degree is above 1, so the global-norm clip and the non-finite
+        flag span the mp group (a block's grad is the rank's alone). Such
+        a model is whole on every pp rank (a `PipelineLayer` trains
+        through `PipelineParallel.train_batch`), so that clip leaves the
+        pp group out of its norm."""
         from ....jit.sharded_scan import is_scan_gpt, select_train_step
         from ..meta_optimizers import HybridParallelOptimizer
 
-        if isinstance(optimizer, HybridParallelOptimizer) and \
-                is_scan_gpt(self._layers):
-            optimizer = optimizer._inner_opt
         hcg = self._hcg
+        if is_scan_gpt(self._layers):
+            if isinstance(optimizer, HybridParallelOptimizer):
+                optimizer = optimizer._inner_opt
+        elif hcg is not None and not isinstance(
+                optimizer, HybridParallelOptimizer) and \
+                hcg.get_model_parallel_world_size() > 1:
+            optimizer = HybridParallelOptimizer(optimizer, hcg,
+                                                self._strategy,
+                                                pipelined=False)
         if "num_micro" not in kw and hcg is not None and \
                 hcg.get_pipe_parallel_world_size() > 1:
             cfg = getattr(self._strategy, "pipeline_configs", None) or {}
@@ -109,7 +121,9 @@ class TensorParallel(MetaParallelBase):
     (`broadcast_input_data`); `apply_collective_grads` (which
     `jit.TrainStep` calls after the backward) averages the grads over the
     data-parallel group. `train_step` builds the dp x mp sharded scan
-    for a ``scan_layers`` GPT, else a `jit.TrainStep` over this wrapper."""
+    for a ``scan_layers`` GPT, else a `jit.TrainStep` over this wrapper
+    (``model.loss``: a LLaMA built under the fleet runs its Megatron
+    blocks and the vocab-parallel head there)."""
 
     def __init__(self, layers, hcg, strategy=None):
         from ..utils.hybrid_parallel_util import (broadcast_dp_parameters,

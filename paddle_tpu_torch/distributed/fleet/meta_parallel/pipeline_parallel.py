@@ -18,7 +18,12 @@ optimizer's), with the global-norm clip and the non-finite flag over
 the pp x mp group (a plain optimizer is wrapped in
 `HybridParallelOptimizer`), then the scheduler. Each data rank feeds its
 own rows (``env.data_shard``); at construction the parameters are
-broadcast over the data axes, group rank 0's winning. The loss returned
+broadcast over the data axes, group rank 0's winning. Under mp a stage
+holds the mpu layers' blocks (a `models.LlamaForCausalLMPipe` stage its
+Megatron decoder layers): its replicated parameters are broadcast over
+the model-parallel group at construction and each batch over it before
+the forwards, the ring runs per mp coordinate (each rank's own
+pp group) and the clip and the flag span the pp x mp group. The loss returned
 on every rank is the micro-batches' mean averaged over the data axes:
 the reference's sequential micro-accumulation over the global batch
 (:55-105). `eval_batch` runs the forwards alone.
@@ -32,7 +37,9 @@ import torch
 
 from ... import collective as coll
 from ...parallel import broadcast_module
-from ..utils.hybrid_parallel_util import fused_allreduce_gradients
+from ..utils.hybrid_parallel_util import (broadcast_input_data,
+                                          broadcast_mp_parameters,
+                                          fused_allreduce_gradients)
 from . import MetaParallelBase
 from ..meta_optimizers import (DygraphShardingOptimizer,
                                HybridParallelOptimizer)
@@ -74,12 +81,24 @@ class PipelineParallel(MetaParallelBase):
             else None
         if self._data is not None:
             broadcast_module(layers, self._data)
+        self._mp = hcg.get_model_parallel_group() if hcg is not None \
+            else None
+        if self._mp is not None and self._mp.nranks > 1:
+            broadcast_mp_parameters(layers, hcg)
         self.total_loss = None
         self._opts = {}
 
     def _device(self):
         p = next(self._layers.parameters(), None)
         return p.device if p is not None else torch.device("cpu")
+
+    def _split(self, data):
+        """``data``'s micro-batches, after group rank 0's data is sent over
+        the model-parallel group (its ranks compute on the same rows)."""
+        if self._mp is not None and self._mp.nranks > 1:
+            broadcast_input_data(self._hcg, *(
+                data if isinstance(data, (tuple, list)) else (data,)))
+        return _split_micro(data, self.accumulate_steps)
 
     def _run_forward(self, micro, grad, compute_loss=True):
         """The forwards of every micro-batch: [(input, output or loss)]
@@ -143,8 +162,7 @@ class PipelineParallel(MetaParallelBase):
         micro-batches' mean, on every stage."""
         s, n = self.stage_id, self.num_stages
         dev = self._device()
-        micro = _split_micro(data, self.accumulate_steps)
-        kept = self._run_forward(micro, True)
+        kept = self._run_forward(self._split(data), True)
         ring = Ring(self._group, dev)       # the shapes are known now
         total = None
         for x, out in reversed(kept):
@@ -188,8 +206,7 @@ class PipelineParallel(MetaParallelBase):
         the outputs without ``compute_loss``), on every stage."""
         s, n = self.stage_id, self.num_stages
         dev = self._device()
-        kept = self._run_forward(_split_micro(data, self.accumulate_steps),
-                                 False, compute_loss)
+        kept = self._run_forward(self._split(data), False, compute_loss)
         total = None
         if s == n - 1:
             for _, out in kept:

@@ -940,7 +940,9 @@ def select_train_step(model, optimizer, criterion=None, mesh=None,
     axis, degree 1 is fine); over a data or mp degree above 1
     `ShardedFusedScanTrainStep` (dp x mp when the mesh's mp degree is
     above 1), at degree 1 `FusedScanTrainStep`; another model `TrainStep`
-    (over ``criterion(model(ids), labels)``, else ``model.loss``)."""
+    (over ``criterion(model(ids), labels)``, else ``model.loss``; of
+    ``kw`` its ``accumulate_steps``, ``scaler``, ``guard_nonfinite`` and
+    ``numerics``)."""
     from .train_step import TrainStep
 
     if auto:
@@ -983,7 +985,11 @@ def select_train_step(model, optimizer, criterion=None, mesh=None,
                if k in ("fused_head", "compute_dtype", "layer_chunk",
                         "scan_unroll", "numerics", "scaler",
                         "guard_nonfinite")})
+    step_kw = {k: v for k, v in kw.items()
+               if k in ("accumulate_steps", "scaler", "guard_nonfinite",
+                        "numerics")}
     if criterion is not None:
         return TrainStep(model, lambda m, a, b: criterion(m(a), b),
-                         optimizer)
-    return TrainStep(model, lambda m, a, b: m.loss(a, b), optimizer)
+                         optimizer, **step_kw)
+    return TrainStep(model, lambda m, a, b: m.loss(a, b), optimizer,
+                     **step_kw)

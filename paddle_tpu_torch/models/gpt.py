@@ -45,6 +45,7 @@ Not ported yet, and refused by `GPTConfig`: MoE and ring attention
 from __future__ import annotations
 
 import math
+import re
 from dataclasses import dataclass
 
 import numpy as np
@@ -67,7 +68,7 @@ from ..ops.kernels.paged_attention import (paged_attention,
 
 __all__ = ["GPTConfig", "GPT_CONFIGS", "gpt_config", "GPTForCausalLM",
            "GPTModel", "GPTPretrainingCriterion", "GPTStackedBlocks",
-           "draft_head_loss", "fused_lm_loss"]
+           "draft_head_loss", "fused_lm_loss", "match_sharding"]
 
 
 @dataclass
@@ -659,3 +660,14 @@ class GPTPretrainingCriterion(nn.Module):
         else:
             m = loss_mask.reshape(-1).to(loss.dtype)
         return (loss * m).sum() / m.sum().clamp(min=1.0)
+
+
+def match_sharding(name, rules):
+    """The spec of the first of ``rules`` (``(pattern, spec)`` pairs, as
+    `models.llama_sharding_rules` gives them) whose pattern is found in
+    the parameter name ``name``; ``()`` when none is (the port's copy of
+    paddle_tpu/models/gpt.py:980)."""
+    for pat, spec in rules:
+        if re.search(pat, name):
+            return spec
+    return ()

@@ -46,8 +46,44 @@ vocab]`` logits never exist. The untied head's weight is ``[vocab,
 hidden]`` here and goes in with ``transpose_y=True`` (the reference's
 ``[hidden, vocab]`` with ``transpose_y=False``): no copy a step.
 
-Not ported yet: ``use_ring_attention`` and ``llama_sharding_rules``
-(ROADMAP A9b).
+Tensor parallelism. `llama_sharding_rules` is the reference's Megatron
+placement (:297-310). Under a model-parallel group of more than one
+rank (``mp_group=``, else the fleet's, resolved at construction) the
+model places its blocks by those rules: a rule whose tp axis is on the
+reference's out dim (``[in, out]``) makes the Linear a
+`ColumnParallelLinear` (no gather: q, k, v, gate, up, the untied
+head), one on the in dim a `RowParallelLinear` (input parallel: o,
+down), ``embed_tokens`` a `VocabParallelEmbedding`; the norms stay
+whole. Attention runs ``num_heads / mp`` query heads over
+``num_key_value_heads / mp`` KV heads (rank r's local query head j reads
+its local KV head ``j // groups``: the global rule ``h // groups``, as
+a rank's heads are a contiguous block of whole heads), and one
+Megatron f (`c_identity`) feeds each column group (q, k, v; gate, up),
+so a layer all-reduces twice forward and twice backward. `loss` runs
+the vocab-parallel fused CE (`sharded_fused_cross_entropy`, #11/#12)
+over the rank's rows ``[r * V/mp, (r+1) * V/mp)`` of the ``[V, H]``
+head, tied or untied; `forward` gives the whole logits (the column
+product, then `c_concat`), as the reference's GSPMD gives them. The
+port is stricter than the reference: where the heads, the KV heads,
+``intermediate_size`` or the vocab do not divide by the degree, the
+reference leaves that dim whole (GSPMD replicates it) and the port
+raises a ``ValueError`` naming the dim.
+
+Weights are drawn a piece at a time from a generator of its own, seeded
+from ``(seed, piece)`` (the embedding is piece 0, layer i piece i + 1,
+the untied head piece L + 1): each rank of a model-parallel group
+draws a piece's global tensors and keeps its block, and a pipeline
+stage builds only its own pieces (`LlamaForCausalLMPipe`), so no rank
+ever holds the whole model and every layout draws the world of one's
+tensors for a seed.
+
+`LlamaForCausalLMPipe` is the model as `LayerDesc` s for `PipelineLayer`
+(the embedding, the decoder layers, the final norm, the head, and
+`LlamaPretrainingCriterion` as the loss), split by decoder layers;
+under mp its head gives the rank's vocab columns and its loss is the
+vocab-parallel CE over them (`ParallelCrossEntropy`'s).
+
+Not ported yet: ``use_ring_attention`` (ROADMAP A9b.5).
 """
 from __future__ import annotations
 
@@ -58,17 +94,28 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 
+from ..distributed.fleet.layers.mpu import (ColumnParallelLinear,
+                                            RowParallelLinear,
+                                            VocabParallelEmbedding,
+                                            vocab_parallel_cross_entropy)
+from ..distributed.fleet.layers.mpu.mp_ops import (c_concat, c_identity,
+                                                   mp_group)
+from ..distributed.fleet.meta_parallel import LayerDesc, PipelineLayer
 from ..distributed.fleet.recompute import POLICIES, recompute
 from ..framework.device import resolve_device
 from ..nn import functional as PF
-from ..nn.initializer import Constant
+from ..nn.initializer import Constant, Normal
 from ..nn.layer import Embedding, Layer, LayerList, Linear
+from ..nn.layer.layers import ParamAttr
+from ..ops.kernels.fused_cross_entropy import sharded_fused_cross_entropy
 from ..utils import flags as _flags
-from .gpt import GPTPretrainingCriterion, fused_lm_loss
+from .gpt import GPTPretrainingCriterion, fused_lm_loss, match_sharding
 
-__all__ = ["LLAMA_CONFIGS", "LlamaConfig", "LlamaForCausalLM", "LlamaModel",
-           "LlamaPretrainingCriterion", "apply_rotary_pos_emb",
-           "llama_config", "llama_sharding_rules"]
+__all__ = ["LLAMA_CONFIGS", "LlamaConfig", "LlamaDecoderLayer",
+           "LlamaEmbeddingPipe", "LlamaForCausalLM", "LlamaForCausalLMPipe",
+           "LlamaLMHeadPipe", "LlamaModel", "LlamaPretrainingCriterion",
+           "LlamaRMSNorm", "apply_rotary_pos_emb", "llama_config",
+           "llama_sharding_rules"]
 
 
 @dataclass
@@ -103,7 +150,7 @@ class LlamaConfig:
         if self.use_ring_attention:
             raise NotImplementedError(
                 "LlamaConfig(use_ring_attention=True) is not ported yet: "
-                "ROADMAP A9b (ring attention)")
+                "ROADMAP A9b.5 (ring attention)")
 
 
 LLAMA_CONFIGS = {
@@ -124,6 +171,79 @@ def llama_config(name: str, **overrides) -> LlamaConfig:
     kw = dict(LLAMA_CONFIGS[name])
     kw.update(overrides)
     return LlamaConfig(**kw)
+
+
+def llama_sharding_rules(tp_axis="mp", fsdp_axis=None):
+    """Megatron placement of LLaMA's weights (reference :297-310), as
+    ``(pattern, spec)`` pairs over the reference's layouts (a Linear
+    weight ``[in, out]``): q / k / v / gate / up column-parallel (out on
+    ``tp_axis``), o / down row-parallel (in on it), the embedding split
+    by vocab, the head column-parallel, the norms whole; ``fsdp_axis``
+    shards the other dim. `match_sharding` reads a name's spec."""
+    return [
+        (r"(q_proj|k_proj|v_proj|gate_proj|up_proj)\.weight$",
+         (fsdp_axis, tp_axis)),
+        (r"(o_proj|down_proj)\.weight$", (tp_axis, fsdp_axis)),
+        (r"embed_tokens\.weight$", (tp_axis, fsdp_axis)),
+        (r"lm_head\.weight$", (fsdp_axis, tp_axis)),
+        (r"(layernorm|norm)\.weight$", (None,)),
+    ]
+
+
+def _tp_dim(name):
+    """The dim of the reference's layout that `llama_sharding_rules`
+    splits over the model-parallel axis for parameter ``name`` (None:
+    whole)."""
+    spec = match_sharding(name, llama_sharding_rules())
+    return spec.index("mp") if "mp" in spec else None
+
+
+def _mp(group=None):
+    """The model-parallel group the pieces are placed over: ``group``,
+    else the fleet's; None below two ranks."""
+    group = mp_group(group)
+    return group if group is not None and group.nranks > 1 else None
+
+
+def _divides(what, size, group):
+    if group is not None and size % group.nranks:
+        raise ValueError(
+            f"{what} {size} does not split over the {group.nranks} "
+            f"model-parallel ranks (the reference would leave it whole)")
+
+
+def _piece_generator(device, seed, piece):
+    """The generator of a model piece (0 the embedding, i + 1 decoder
+    layer i, L + 1 the untied head) for ``seed``, on ``device``."""
+    return torch.Generator(device=device).manual_seed(
+        int(seed) * 1_000_003 + int(piece))
+
+
+def _linear(name, n_in, n_out, std, group, **factory):
+    """The Linear ``name`` (``q_proj``, ...), bias-free, its weight drawn
+    normal(0, ``std``) in the reference's ``[in, out]``: plain, or under
+    ``group`` column / row parallel as `llama_sharding_rules` places
+    it."""
+    attr = ParamAttr(initializer=Normal(0.0, std))
+    if group is None:
+        return Linear(n_in, n_out, weight_attr=attr, bias_attr=False,
+                      **factory)
+    if _tp_dim(f"{name}.weight") == 1:
+        return ColumnParallelLinear(n_in, n_out, weight_attr=attr,
+                                    has_bias=False, gather_output=False,
+                                    mp_group=group, **factory)
+    return RowParallelLinear(n_in, n_out, weight_attr=attr, has_bias=False,
+                             input_is_parallel=True, mp_group=group,
+                             **factory)
+
+
+def _columns(x, group, *lins):
+    """``x`` through each column Linear of ``lins``; under mp one
+    Megatron f for all of them, then the rank's output features."""
+    if group is None:
+        return [lin(x) for lin in lins]
+    x = c_identity(x, group)
+    return [F.linear(x, lin.weight) for lin in lins]
 
 
 class LlamaRMSNorm(Layer):
@@ -155,30 +275,38 @@ def apply_rotary_pos_emb(x, cos, sin):
 
 
 class LlamaAttention(Layer):
-    """GQA attention with RoPE, dense as in the reference."""
+    """GQA attention with RoPE, dense as in the reference; under mp the
+    rank's heads (module docstring)."""
 
-    def __init__(self, config: LlamaConfig, **factory):
+    def __init__(self, config: LlamaConfig, mp_group=None, **factory):
         super().__init__()
         h = config.hidden_size
-        self.num_heads = config.num_attention_heads
-        self.num_kv_heads = config.num_key_value_heads
-        self.head_dim = h // self.num_heads
-        kv = self.num_kv_heads * self.head_dim
-        self.q_proj = Linear(h, self.num_heads * self.head_dim,
-                             bias_attr=False, **factory)
-        self.k_proj = Linear(h, kv, bias_attr=False, **factory)
-        self.v_proj = Linear(h, kv, bias_attr=False, **factory)
-        self.o_proj = Linear(self.num_heads * self.head_dim, h,
-                             bias_attr=False, **factory)
+        group = self._mp = _mp(mp_group)
+        n = 1 if group is None else group.nranks
+        _divides("num_attention_heads", config.num_attention_heads, group)
+        _divides("num_key_value_heads", config.num_key_value_heads, group)
+        self.head_dim = h // config.num_attention_heads
+        self.num_heads = config.num_attention_heads // n
+        self.num_kv_heads = config.num_key_value_heads // n
+        q = config.num_attention_heads * self.head_dim
+        kv = config.num_key_value_heads * self.head_dim
+        std = config.initializer_range
+        resid = std / math.sqrt(2.0 * config.num_layers)
+        self.q_proj = _linear("q_proj", h, q, std, group, **factory)
+        self.k_proj = _linear("k_proj", h, kv, std, group, **factory)
+        self.v_proj = _linear("v_proj", h, kv, std, group, **factory)
+        self.o_proj = _linear("o_proj", q, h, resid, group, **factory)
         self.rope_theta = config.rope_theta
 
     def forward(self, x):
         b, s, _ = x.shape
         nh, kvh, hd = self.num_heads, self.num_kv_heads, self.head_dim
         g = nh // kvh
-        q = self.q_proj(x).reshape(b, s, nh, hd)
-        k = self.k_proj(x).reshape(b, s, kvh, hd)
-        v = self.v_proj(x).reshape(b, s, kvh, hd)
+        q, k, v = _columns(x, self._mp, self.q_proj, self.k_proj,
+                           self.v_proj)
+        q = q.reshape(b, s, nh, hd)
+        k = k.reshape(b, s, kvh, hd)
+        v = v.reshape(b, s, kvh, hd)
         cos, sin = _rope_tables(s, hd, self.rope_theta, x.device)
         q = apply_rotary_pos_emb(q.float(), cos, sin).to(x.dtype)
         k = apply_rotary_pos_emb(k.float(), cos, sin).to(x.dtype)
@@ -204,29 +332,35 @@ class LlamaAttention(Layer):
 
 
 class LlamaMLP(Layer):
-    """SwiGLU: down(silu(gate(x)) * up(x))."""
+    """SwiGLU: down(silu(gate(x)) * up(x)); under mp the rank's block of
+    the intermediate features."""
 
-    def __init__(self, config: LlamaConfig, **factory):
+    def __init__(self, config: LlamaConfig, mp_group=None, **factory):
         super().__init__()
         h, m = config.hidden_size, config.intermediate_size
-        self.gate_proj = Linear(h, m, bias_attr=False, **factory)
-        self.up_proj = Linear(h, m, bias_attr=False, **factory)
-        self.down_proj = Linear(m, h, bias_attr=False, **factory)
+        group = self._mp = _mp(mp_group)
+        _divides("intermediate_size", m, group)
+        std = config.initializer_range
+        resid = std / math.sqrt(2.0 * config.num_layers)
+        self.gate_proj = _linear("gate_proj", h, m, std, group, **factory)
+        self.up_proj = _linear("up_proj", h, m, std, group, **factory)
+        self.down_proj = _linear("down_proj", m, h, resid, group, **factory)
 
     def forward(self, x):
-        return self.down_proj(PF.silu(self.gate_proj(x)) * self.up_proj(x))
+        gate, up = _columns(x, self._mp, self.gate_proj, self.up_proj)
+        return self.down_proj(PF.silu(gate) * up)
 
 
 class LlamaDecoderLayer(Layer):
-    def __init__(self, config: LlamaConfig, **factory):
+    def __init__(self, config: LlamaConfig, mp_group=None, **factory):
         super().__init__()
         eps = config.rms_norm_eps
         self.input_layernorm = LlamaRMSNorm(config.hidden_size, eps,
                                             **factory)
-        self.self_attn = LlamaAttention(config, **factory)
+        self.self_attn = LlamaAttention(config, mp_group, **factory)
         self.post_attention_layernorm = LlamaRMSNorm(
             config.hidden_size, eps, **factory)
-        self.mlp = LlamaMLP(config, **factory)
+        self.mlp = LlamaMLP(config, mp_group, **factory)
         self._use_recompute = config.use_recompute
         self._recompute_policy = config.recompute_policy
 
@@ -240,27 +374,55 @@ class LlamaDecoderLayer(Layer):
         return self._inner(x)
 
 
+def _embedding(config, group, **factory):
+    """``embed_tokens``: normal(0, initializer_range), vocab-parallel
+    under ``group``."""
+    attr = ParamAttr(initializer=Normal(0.0, config.initializer_range))
+    if group is None:
+        return Embedding(config.vocab_size, config.hidden_size,
+                         weight_attr=attr, **factory)
+    _divides("vocab_size", config.vocab_size, group)
+    return VocabParallelEmbedding(config.vocab_size, config.hidden_size,
+                                  weight_attr=attr, mp_group=group,
+                                  **factory)
+
+
+def _lm_head(config, group, **factory):
+    """The untied head (XavierUniform, as `nn.Linear`'s default), column
+    parallel under ``group``: the rank's vocab rows of ``[V, H]``."""
+    if group is None:
+        return Linear(config.hidden_size, config.vocab_size,
+                      bias_attr=False, **factory)
+    _divides("vocab_size", config.vocab_size, group)
+    return ColumnParallelLinear(config.hidden_size, config.vocab_size,
+                                has_bias=False, gather_output=False,
+                                mp_group=group, **factory)
+
+
+def _pieces(factory, seed):
+    """``piece -> factory``: with ``seed``, each piece's own generator
+    (`_piece_generator`); else ``factory`` as given (one generator, if
+    any, drawn in order)."""
+    if seed is None:
+        return lambda piece: factory
+    dev = factory.get("device")
+    return lambda piece: {**factory,
+                          "generator": _piece_generator(dev, seed, piece)}
+
+
 class LlamaModel(Layer):
-    def __init__(self, config: LlamaConfig, **factory):
+    def __init__(self, config: LlamaConfig, mp_group=None, seed=None,
+                 **factory):
         super().__init__()
         self.config = config
-        self.embed_tokens = Embedding(config.vocab_size, config.hidden_size,
-                                      **factory)
-        self.layers = LayerList([LlamaDecoderLayer(config, **factory)
-                                 for _ in range(config.num_layers)])
+        group = self._mp = _mp(mp_group)
+        piece = _pieces(factory, seed)
+        self.embed_tokens = _embedding(config, group, **piece(0))
+        self.layers = LayerList([
+            LlamaDecoderLayer(config, group, **piece(i + 1))
+            for i in range(config.num_layers)])
         self.norm = LlamaRMSNorm(config.hidden_size, config.rms_norm_eps,
                                  **factory)
-        self._init_weights(config, factory.get("generator"))
-
-    @torch.no_grad()
-    def _init_weights(self, config, generator):
-        std = config.initializer_range
-        resid = 1.0 / math.sqrt(2.0 * config.num_layers)
-        for name, p in self.named_parameters():
-            if p.ndim >= 2:
-                p.normal_(0.0, std, generator=generator)
-                if re.search(r"(o_proj|down_proj)\.weight$", name):
-                    p.mul_(resid)
 
     def forward(self, input_ids):
         x = self.embed_tokens(input_ids)
@@ -273,41 +435,131 @@ class LlamaForCausalLM(Layer):
     """LLaMA + LM head (tied to ``embed_tokens`` with
     ``tie_word_embeddings``); ``forward`` returns logits, `loss` the
     training loss. Built on ``device`` (default: the CUDA card) in
-    ``dtype``, its weights drawn from a generator seeded with ``seed``."""
+    ``dtype``, its pieces drawn from generators seeded from ``seed``;
+    under a model-parallel group above one rank (``mp_group``, else the
+    fleet's) the rank's Megatron blocks (module docstring)."""
 
     def __init__(self, config: LlamaConfig, device=None, dtype=torch.float32,
-                 seed=0):
+                 seed=0, mp_group=None):
         super().__init__()
         self.config = config
         dev = resolve_device(device)
-        factory = dict(device=dev, dtype=dtype,
-                       generator=torch.Generator(device=dev).manual_seed(seed))
-        self.llama = LlamaModel(config, **factory)
-        self.lm_head = (None if config.tie_word_embeddings else Linear(
-            config.hidden_size, config.vocab_size, bias_attr=False,
-            **factory))
+        factory = dict(device=dev, dtype=dtype)
+        group = self.mp_group = _mp(mp_group)
+        self.llama = LlamaModel(config, group, seed, **factory)
+        self.lm_head = (None if config.tie_word_embeddings else _lm_head(
+            config, group, **_pieces(factory, seed)(config.num_layers + 1)))
 
     def head_weight(self):
-        """The LM head's ``[vocab, hidden]`` weight: the embedding when
-        tied."""
+        """The LM head's ``[vocab, hidden]`` weight (under mp the rank's
+        rows of it): the embedding when tied."""
         return (self.llama.embed_tokens.weight if self.lm_head is None
                 else self.lm_head.weight)
 
     def forward(self, input_ids):
-        return F.linear(self.llama(input_ids), self.head_weight())
+        h = self.llama(input_ids)
+        g = self.mp_group
+        if g is None:
+            return F.linear(h, self.head_weight())
+        return c_concat(F.linear(c_identity(h, g), self.head_weight()), g)
 
     def loss(self, input_ids, labels, loss_mask=None):
         """Training loss through the fused LM head; numerically
-        ``LlamaPretrainingCriterion()(self(ids), labels, loss_mask)``."""
-        return fused_lm_loss(self.llama(input_ids), self.head_weight(), True,
-                             labels, loss_mask)
+        ``LlamaPretrainingCriterion()(self(ids), labels, loss_mask)``.
+        Under mp the vocab-parallel fused CE over the rank's rows, the
+        hiddens' grad summed over the group."""
+        h = self.llama(input_ids)
+        g = self.mp_group
+        if g is None:
+            return fused_lm_loss(h, self.head_weight(), True, labels,
+                                 loss_mask)
+        w = self.head_weight()
+        lbl = labels.reshape(-1)
+        losses = sharded_fused_cross_entropy(
+            c_identity(h.reshape(-1, h.shape[-1]), g), w, lbl,
+            g.rank * w.shape[0], g)
+        m = (lbl != -100) if loss_mask is None else loss_mask.reshape(-1)
+        m = m.to(losses.dtype)
+        return (losses * m).sum() / m.sum().clamp(min=1.0)
 
 
-# the GPT criterion is architecture-agnostic CE over shifted tokens
 LlamaPretrainingCriterion = GPTPretrainingCriterion
 
 
-def llama_sharding_rules(tp_axis="mp", fsdp_axis=None):
-    raise NotImplementedError(
-        "llama_sharding_rules (tensor and ZeRO placement) is not ported "
-        "yet: ROADMAP A9b")
+class _VocabParallelCriterion(GPTPretrainingCriterion):
+    """`LlamaPretrainingCriterion` over the rank's vocab columns of the
+    logits: the vocab-parallel CE over ``group`` (`ParallelCrossEntropy`'s),
+    averaged as GPT's."""
+
+    def __init__(self, group):
+        super().__init__()
+        self._group = group
+
+    def forward(self, logits, labels, loss_mask=None):
+        loss = vocab_parallel_cross_entropy(logits, labels,
+                                            self._group).reshape(-1)
+        flat = labels.reshape(-1)
+        m = (flat != -100) if loss_mask is None else loss_mask.reshape(-1)
+        m = m.to(loss.dtype)
+        return (loss * m).sum() / m.sum().clamp(min=1.0)
+
+
+class LlamaEmbeddingPipe(Layer):
+    """The pipeline's first piece: ``embed_tokens`` (vocab-parallel under
+    mp)."""
+
+    def __init__(self, config: LlamaConfig, mp_group=None, **factory):
+        super().__init__()
+        self.embed_tokens = _embedding(config, _mp(mp_group), **factory)
+
+    def forward(self, input_ids):
+        return self.embed_tokens(input_ids)
+
+
+class LlamaLMHeadPipe(Layer):
+    """The pipeline's last piece: the untied ``lm_head``; under mp the
+    rank's vocab columns of the logits."""
+
+    def __init__(self, config: LlamaConfig, mp_group=None, **factory):
+        super().__init__()
+        self.lm_head = _lm_head(config, _mp(mp_group), **factory)
+
+    def forward(self, h):
+        return self.lm_head(h)
+
+
+class LlamaForCausalLMPipe(PipelineLayer):
+    """`LlamaForCausalLM` (untied) as a `PipelineLayer` of `LayerDesc` s:
+    `LlamaEmbeddingPipe`, ``num_layers`` `LlamaDecoderLayer`,
+    `LlamaRMSNorm`, `LlamaLMHeadPipe`, and `LlamaPretrainingCriterion`
+    (under mp its vocab-parallel form over the head's columns); split
+    evenly by decoder layers (``seg_method="layer:LlamaDecoderLayer"``,
+    the reference's rule). A rank builds only its stage, each
+    piece drawn as `LlamaForCausalLM` draws it for ``seed``, under a
+    model-parallel group above one rank (``mp_group``, else the
+    fleet's) its Megatron blocks."""
+
+    def __init__(self, config: LlamaConfig, device=None,
+                 dtype=torch.float32, seed=0, num_stages=None,
+                 stage_id=None, mp_group=None):
+        if config.tie_word_embeddings:
+            raise ValueError(
+                "LlamaForCausalLMPipe builds the untied head; a tied one "
+                "needs a SharedLayerDesc of the embedding")
+        dev = resolve_device(device)
+        piece = _pieces(dict(device=dev, dtype=dtype), seed)
+        group = _mp(mp_group)
+        L = config.num_layers
+        descs = ([LayerDesc(LlamaEmbeddingPipe, config, group, **piece(0))]
+                 + [LayerDesc(LlamaDecoderLayer, config, group,
+                              **piece(i + 1)) for i in range(L)]
+                 + [LayerDesc(LlamaRMSNorm, config.hidden_size,
+                              config.rms_norm_eps, device=dev, dtype=dtype),
+                    LayerDesc(LlamaLMHeadPipe, config, group,
+                              **piece(L + 1))])
+        super().__init__(descs, num_stages=num_stages, stage_id=stage_id,
+                         loss_fn=(LlamaPretrainingCriterion()
+                                  if group is None
+                                  else _VocabParallelCriterion(group)),
+                         seg_method="layer:LlamaDecoderLayer")
+        self.config = config

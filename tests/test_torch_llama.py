@@ -34,6 +34,8 @@ from paddle_tpu.models import LlamaConfig as JConfig
 from paddle_tpu.models import LlamaForCausalLM as JModel
 from paddle_tpu.models.llama import _rope_tables as jrope_tables
 from paddle_tpu.models.llama import apply_rotary_pos_emb as japply_rope
+from paddle_tpu.models.llama import (
+    llama_sharding_rules as jllama_sharding_rules)
 from paddle_tpu.nn import ClipGradByGlobalNorm as JClip
 import paddle_tpu_torch as pt
 from paddle_tpu_torch import convert, set_flags
@@ -216,8 +218,10 @@ def test_configs_and_refusals():
     assert LlamaConfig(num_attention_heads=8).num_key_value_heads == 8
     with pytest.raises(NotImplementedError, match="A9"):
         LlamaConfig(**{**TINY, "use_ring_attention": True})
-    with pytest.raises(NotImplementedError, match="A9"):
-        llama_sharding_rules()
+    # the placement is ported: the reference's rules, spec for spec
+    assert llama_sharding_rules() == jllama_sharding_rules()
+    assert llama_sharding_rules("tp", "fsdp") == jllama_sharding_rules(
+        "tp", "fsdp")
     with pytest.raises(ValueError, match="recompute policy"):
         LlamaConfig(**{**TINY, "recompute_policy": "everything"})
 
