@@ -388,7 +388,43 @@ Phases, one line each (any failure exits non-zero, nothing is caught):
     The kernels line carries a rank's launches a step at mp 4
     (``launches_llama_mp``) and at tp 4 x pp 2 by stage
     (``launches_llama_pp``), and the CE rows the head's shards
-    (``llama_mp_shards``).
+    (``llama_mp_shards``);
+27. the zero-bubble ring: (a) ``GPTForCausalLMPipe`` at GPT-3 1.3B's
+    widths (bf16, weights from seed 0, 24 layers, 12 a stage) at pp 2,
+    two gloo ranks sharing the card (``pipeline_selftest.launch_card(2,
+    zb=True)``), 4 x 1024 tokens in 4 micro-batches: the AD ring, then
+    ``use_zero_bubble=True`` on the same weights and batch; the losses
+    bit for bit (one forward), every grad within 2e-2 of its tensor's
+    largest element of the AD ring's (bf16: the fold sums the
+    micro-batches in fp32, the AD ring in bf16), each rank's launches of
+    a forward and backward exact (`_zb_launches`: the AD ring's splash
+    forwards twice a layer and micro-batch, its backwards once; the
+    zero-bubble ring's forwards three times, in the ring, the dX tick's
+    recompute and the fold's, its backwards twice; no CE kernel: the
+    pipe's head is a product and the criterion, as the reference's);
+    (b) a tiny fp32 zero-bubble pipe and (c) ``zb_linear_pipeline`` on
+    the card against the same ranks on the CPU (loss 1e-4, grads 1e-3
+    relative; outputs 1e-5, grads 1e-4). The kernels line carries a
+    rank's launches at pp 2 by stage (``launches_zb``);
+28. sharding stage 3: (a) GPT-3 1.3B's widths (bf16 weights with fp32
+    masters and bf16 moments, AdamW(1e-4) with the clip, recompute, the
+    fused head; depth `STAGE3_LAYERS`) through
+    ``group_sharded_parallel(level="p_g_os")`` + ``TrainStep`` at
+    sharding 2, two gloo ranks sharing the card
+    (``sharding_selftest.launch_stage3_card(2)``), each rank on 2 of the
+    4 x 1024 rows, 3 steps, against a world-of-one ``TrainStep`` on the
+    same weights and batch computed first in this process (every step
+    within 1e-2), the ranks' losses identical, each rank's launches a
+    step exact (`_stage3_launches`: its layers' splash forwards twice,
+    backwards once, the CE 1 + 1, the update and the clip's norm one
+    launch per 448 segments of its shards), its resident parameter bytes
+    between steps (about half the world of one's) and peak memory
+    printed beside the world of one's; (b) ``offload=True``: the losses
+    (a)'s bit for bit, the shards in pinned host memory; (c) a tiny fp32
+    GPT under stage 3 card against CPU over the same ranks (loss 1e-4,
+    parameters 1e-3 relative); (d) with two cards or more, (a) over
+    NCCL; with one, a line that says it did not run. The kernels line
+    carries a rank's launches a step (``launches_stage3``).
 
 It then prints the ``nvidia-smi`` line again and, last, ``{"ok": true,
 "device": {...}}``. Imports torch, numpy and the port only.
@@ -412,7 +448,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
 BF16_FLOP_PER_S = 989e12        # dense bf16 tensor-core peak
 FP32_FLOP_PER_S = 67e12         # fp32 outside the tensor cores
-PHASES = 26
+PHASES = 28
 
 
 def nvidia_smi() -> str:
@@ -5996,6 +6032,177 @@ def llama_hybrid(dev):
                       if r["mp_rank"] == 0}
 
 
+# phase 27: the zero-bubble ring
+ZB_GRAD_BAR = 2e-2
+
+
+def _zb_launches(layers, zb, micro=PP_MICRO):
+    """A rank's launches of one forward and backward of
+    ``GPTForCausalLMPipe`` at GPT-3 1.3B's widths, bf16, ``layers`` a
+    stage (counted from the design): the AD ring runs each layer's
+    splash forward on every micro-batch in the ring and again in the
+    backward's recompute, its backward once; the zero-bubble ring its
+    forward in the ring, in the dX tick's recompute and in the fold's,
+    its backward in the tick and in the fold; no CE kernel (the head is a
+    product, then the criterion), no optimizer."""
+    m = layers * micro
+    return {"splash_fwd_wgmma_kernel": (3 if zb else 2) * m,
+            "splash_bwd_wgmma_kernels": (2 if zb else 1) * m,
+            "fused_ce_fwd_wgmma_kernel": 0, "fused_ce_bwd_kernels": 0,
+            "mt_adam_kernel": 0, "mt_norm_kernel": 0}
+
+
+def zero_bubble_two_ranks(dev):
+    """Phase 27: the zero-bubble ring beside the AD ring at GPT-3 1.3B's
+    widths, two gloo ranks sharing the card; the tiny pipe and the
+    tanh-linear ring card against CPU. Returns a rank's zero-bubble
+    launches by stage."""
+    from paddle_tpu_torch.distributed import pipeline_selftest
+
+    t0 = time.perf_counter()
+    res = pipeline_selftest.launch_card(2, zb=True, deadline=600)
+    wall = time.perf_counter() - t0
+    b = res["zb_1.3b"]
+    ranks = b["ranks"]
+    report = {"model": "gpt3-1.3b widths", "pp": b["pp"],
+              "micro": b["micro"], "tokens": b["tokens"],
+              "layers": b["num_layers"], "backend": res["backend"],
+              "ranks": ranks, "launch_wall_s": wall,
+              "nvidia_smi": nvidia_smi()}
+    print(f"[27/{PHASES}] (a) GPTForCausalLMPipe at gpt3-1.3b widths, pp 2, "
+          f"the AD ring then use_zero_bubble=True on the same weights, two "
+          f"ranks sharing the card over gloo (activations through the "
+          f"host: no speed of the ring): {json.dumps(report)}", flush=True)
+    for r in ranks:
+        ad, zb = r["ad"], r["zb"]
+        if not (np.isfinite(ad["loss"]) and zb["loss"] == ad["loss"]
+                and ad["loss"] == ranks[0]["ad"]["loss"]):
+            raise AssertionError(f"zero-bubble losses: {ranks}")
+        if not r["max_grad_rel"] < ZB_GRAD_BAR:
+            raise AssertionError(f"zero-bubble grads against the AD ring "
+                                 f"on stage {r['stage']}: {r['worst']} "
+                                 f"{r['max_grad_rel']}")
+        for tag, want in (("ad", _zb_launches(r["layers"], False)),
+                          ("zb", _zb_launches(r["layers"], True))):
+            if r[tag]["launches"] != want:
+                raise AssertionError(
+                    f"{tag} ring stage {r['stage']} launches "
+                    f"{r[tag]['launches']}, want {want}")
+    tiny = res["zb_card_cpu"]
+    print(f"[27/{PHASES}] (b)-(c) a tiny fp32 zero-bubble GPTForCausalLMPipe "
+          f"and zb_linear_pipeline at pp 2, card against CPU over the same "
+          f"gloo ranks: {json.dumps(tiny)}; {nvidia_smi()}", flush=True)
+    for r in tiny["ranks"]:
+        if not (r["gpt_loss_diff"] < 1e-4 and r["gpt_max_grad_rel"] < 1e-3
+                and r["lin_max_out_diff"] < 1e-5
+                and r["lin_max_grad_rel"] < 1e-4):
+            raise AssertionError(f"zero-bubble card against CPU: {r}")
+    return {f"stage{r['stage']}": r["zb"]["launches"] for r in ranks}
+
+
+# phase 28: sharding stage 3
+STAGE3_LAYERS = None        # None: GPT-3 1.3B's 24
+STAGE3_STEPS = 3
+
+
+def _stage3_launches(layers, segments=None):
+    """A rank's launches a step of GPT-3 1.3B's widths under stage 3 (or
+    the world of one), bf16 with recompute (counted from the design):
+    each layer's splash forward twice (the forward and the recompute),
+    its backward once, the fused CE 1 + 1, and the update and the clip's
+    norm one launch per `MAX_TENSORS` (448) tensors: the segments of the
+    rank's shards (every parameter at a world of one)."""
+    from paddle_tpu_torch.ops.kernels.multi_tensor import MAX_TENSORS
+
+    k = -(-(segments or 1) // MAX_TENSORS)
+    return {"splash_fwd_wgmma_kernel": 2 * layers,
+            "splash_bwd_wgmma_kernels": layers,
+            "fused_ce_fwd_wgmma_kernel": 1, "fused_ce_bwd_kernels": 1,
+            "mt_adam_kernel": k, "mt_norm_kernel": k}
+
+
+def stage3_two_ranks(dev):
+    """Phase 28: GPT-3 1.3B's widths under stage 3 at sharding 2 (two gloo
+    ranks sharing the card), plain and offloaded, against a world-of-one
+    ``TrainStep``; the tiny GPT card against CPU. Returns rank 0's
+    launches a step."""
+    from paddle_tpu_torch.distributed import sharding_selftest
+
+    t0 = time.perf_counter()
+    want = sharding_selftest.stage3_world_one(dev, steps=STAGE3_STEPS,
+                                              layers=STAGE3_LAYERS)
+    world1_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = sharding_selftest.launch_stage3_card(
+        2, steps=STAGE3_STEPS, layers=STAGE3_LAYERS, deadline=800)
+    wall = time.perf_counter() - t0
+    a, off = res["stage3"], res["offload"]
+    L = want["layers"]
+    report = {"model": "gpt3-1.3b widths", "layers": L,
+              "cut": None if L == 24 else f"depth {L} of 24 layers",
+              "sharding": a["sharding"], "tokens": a["tokens"],
+              "backend": res["backend"], "world1": want,
+              "ranks": a["ranks"], "launch_wall_s": wall,
+              "world1_s": world1_s, "nvidia_smi": nvidia_smi()}
+    print(f"[28/{PHASES}] (a) gpt3-1.3b widths under group_sharded_parallel"
+          f"(level='p_g_os') + TrainStep at sharding 2, two ranks sharing "
+          f"the card over gloo (parameters and grads through the host: the "
+          f"step times are gloo's, no speed of stage 3): "
+          f"{json.dumps(report)}", flush=True)
+    if want["launches_per_step"] != _stage3_launches(L):
+        raise AssertionError(f"world-of-one launches a step "
+                             f"{want['launches_per_step']}, want "
+                             f"{_stage3_launches(L)}")
+    for r in a["ranks"]:
+        gaps = [abs(x - y) for x, y in zip(r["losses"], want["losses"])]
+        if not (len(gaps) == STAGE3_STEPS and max(gaps) < MP_LOSS_BAR
+                and all(np.isfinite(r["losses"]))):
+            raise AssertionError(f"stage 3 rank {r['rank']} losses "
+                                 f"{r['losses']} against world 1 "
+                                 f"{want['losses']}")
+        if r["losses"] != a["ranks"][0]["losses"]:
+            raise AssertionError(f"ranks' losses differ: {a['ranks']}")
+        expect = _stage3_launches(L, r["segments"])
+        if r["launches_per_step"] != expect:
+            raise AssertionError(f"stage 3 rank {r['rank']} launches a step "
+                                 f"{r['launches_per_step']}, want {expect}")
+        if not max(r["resident_param_bytes"]) < 0.55 * want["param_bytes"]:
+            raise AssertionError(
+                f"stage 3 rank {r['rank']} holds "
+                f"{r['resident_param_bytes']} parameter bytes between "
+                f"steps, the world of one {want['param_bytes']}")
+    keys = ("losses", "shards_pinned_host", "resident_param_bytes",
+            "max_memory_allocated", "step_s")
+    rows = [{k: r[k] for k in keys} for r in off["ranks"]]
+    print(f"[28/{PHASES}] (b) offload=True (the shards in pinned host "
+          f"memory): {json.dumps(rows)}; {nvidia_smi()}", flush=True)
+    for r, q in zip(off["ranks"], a["ranks"]):
+        if not (r["losses"] == q["losses"] and r["shards_pinned_host"]):
+            raise AssertionError(f"offload rank {r['rank']}: {r}")
+    tiny = res["tiny_card_cpu"]
+    print(f"[28/{PHASES}] (c) tiny fp32 GPT under stage 3 at sharding 2, "
+          f"card against CPU over the same gloo ranks: {json.dumps(tiny)}; "
+          f"{nvidia_smi()}", flush=True)
+    if not (tiny["max_loss_diff"] < 1e-4 and tiny["max_param_rel"] < 1e-3):
+        raise AssertionError(f"stage 3 card against CPU: {tiny}")
+    if torch.cuda.device_count() < 2:
+        print(f"[28/{PHASES}] (d) sharding 2 over NCCL: not run (1 card); "
+              f"{nvidia_smi()}", flush=True)
+    else:
+        nb = sharding_selftest.launch_stage3_card(
+            2, nccl=True, steps=STAGE3_STEPS, layers=STAGE3_LAYERS,
+            deadline=600)["stage3"]["ranks"][0]
+        print(f"[28/{PHASES}] (d) sharding 2 over NCCL, one card a rank: "
+              f"losses {nb['losses']}, step s {nb['step_s']}; "
+              f"{nvidia_smi()}", flush=True)
+        if max(abs(x - y) for x, y in zip(nb["losses"], want["losses"])) \
+                >= MP_LOSS_BAR:
+            raise AssertionError(f"stage 3 over NCCL: {nb}")
+    return a["ranks"][0]["launches_per_step"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -6090,6 +6297,12 @@ def main() -> int:
     pp_launches = pipeline_two_ranks(dev, world1)
     llama_shards = llama_head_shards(dev)
     llama_mp_launches, llama_pp_launches = llama_hybrid(dev)
+    t0 = time.perf_counter()
+    zb_launches = zero_bubble_two_ranks(dev)
+    print(f"[27/{PHASES}] wall {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    stage3_launches = stage3_two_ranks(dev)
+    print(f"[28/{PHASES}] wall {time.perf_counter() - t0:.1f} s", flush=True)
 
     where = {name: (PAGED_SOURCE, f"{PAGED_TPU}:{line}")
              for name, (_, _, _, line) in PAGED_KERNELS.items()}
@@ -6150,6 +6363,14 @@ def main() -> int:
                  f"stage{st}": ran[name]
                  for st, ran in sorted(llama_pp_launches.items())}}
                 if name in llama_pp_launches[0] else {}),
+             # phase 27(a): a rank's launches of a forward and backward
+             # through the zero-bubble ring at pp 2, by stage
+             **({"launches_zb": {st: ran[name]
+                                 for st, ran in sorted(zb_launches.items())}}
+                if name in zb_launches["stage0"] else {}),
+             # phase 28(a): a rank's launches a step under stage 3
+             **({"launches_stage3": stage3_launches[name]}
+                if name in stage3_launches else {}),
              # phase 26(a): the shards of LLaMA-7B's head at mp 2 and 4
              **({"llama_mp_shards": {
                  mp: {k: rec[k] for k in ("shape", "errors")}

@@ -19,7 +19,14 @@ back once, as the reference sums its bf16 grads in fp32.
 
 `bucketed_all_reduce` sums a list of tensors in place, one all-reduce a
 bucket (compressed per ``FLAGS_comm_quant``); `bucketed_reduce_scatter`
-gives this rank's shard of each bucket's sum. The reference's
+gives this rank's shard of each bucket's sum.
+
+Stage 3 (`sharding.GroupShardedStage3`) holds a bucket's flat parameter
+buffer as the rank's shard alone (`FlatShard`): `release` frees the
+whole buffer's storage (the parameters, views into it, keep their
+shapes and hold no memory), `gather` all-gathers the shards back into
+the same storage, so the views, and whatever autograd saved of them,
+read the whole values again. The reference's
 ``count_hlo_collectives`` counts collectives in compiled HLO; here
 `collective.calls` counts the calls themselves.
 """
@@ -33,7 +40,7 @@ import torch
 from ..utils import flags as _flags
 from . import collective as coll
 
-__all__ = ["MB", "Bucket", "BucketAssignment", "BucketEntry",
+__all__ = ["MB", "Bucket", "BucketAssignment", "BucketEntry", "FlatShard",
            "GradBucketer", "bucketed_all_reduce", "bucketed_reduce_scatter",
            "build_buckets", "default_bucket_bytes", "pack", "unpack"]
 
@@ -97,18 +104,20 @@ def default_bucket_bytes():
     return int(_flags.get_flag("FLAGS_comm_bucket_mb") or 0) * MB
 
 
-def build_buckets(named_shapes, bucket_bytes=None, pad_multiple=1):
+def build_buckets(named_shapes, bucket_bytes=None, pad_multiple=1,
+                  tags=None):
     """Greedy packing of ``(key, shape, dtype)`` in the given order: a
     new bucket when the dtype changes or the cap would be passed (a
     single oversized tensor still gets its own; a cap of 0 gives one
     tensor a bucket), each bucket padded up to ``pad_multiple``. The
-    reference's assignment, entry for entry."""
+    reference's assignment, entry for entry. ``tags`` (one a tensor): a
+    new bucket also where the tag changes."""
     if bucket_bytes is None:
         bucket_bytes = default_bucket_bytes()
     bucket_bytes = max(int(bucket_bytes), 1)
     pad_multiple = max(int(pad_multiple), 1)
     buckets = []
-    cur, cur_dtype, cur_numel = [], None, 0
+    cur, cur_dtype, cur_numel, cur_tag = [], None, 0, None
 
     def close():
         nonlocal cur, cur_dtype, cur_numel
@@ -118,15 +127,16 @@ def build_buckets(named_shapes, bucket_bytes=None, pad_multiple=1):
         buckets.append(Bucket(len(buckets), cur_dtype, tuple(cur), padded))
         cur, cur_dtype, cur_numel = [], None, 0
 
-    for key, shape, dtype in named_shapes:
+    for i, (key, shape, dtype) in enumerate(named_shapes):
         dtype = _dtype(dtype)
         numel = int(np.prod(shape)) if len(shape) else 1
         nbytes = numel * _itemsize(dtype)
-        if cur and (dtype != cur_dtype or
+        tag = None if tags is None else tags[i]
+        if cur and (dtype != cur_dtype or tag != cur_tag or
                     cur_numel * _itemsize(cur_dtype) + nbytes
                     > bucket_bytes):
             close()
-        cur_dtype = dtype
+        cur_dtype, cur_tag = dtype, tag
         cur.append(BucketEntry(key, cur_numel, numel, tuple(shape)))
         cur_numel += numel
     close()
@@ -187,9 +197,9 @@ def shard_segments(bucket, rank, nranks):
 class GradBucketer:
     """The stage-2 / data-parallel grad planner over ``named_params``
     (trainable ``(key, Parameter)`` pairs in order): buckets padded to
-    the group's degree."""
+    the group's degree (``tags``: `build_buckets`')."""
 
-    def __init__(self, named_params, group=None, bucket_mb=None):
+    def __init__(self, named_params, group=None, bucket_mb=None, tags=None):
         self._params = dict(named_params)
         self.group = group or coll.get_group()
         bucket_bytes = None if bucket_mb is None else int(bucket_mb) * MB
@@ -198,7 +208,8 @@ class GradBucketer:
         self.assignment = build_buckets(
             [(k, tuple(p.shape), p.dtype) for k, p in self._params.items()],
             bucket_bytes=bucket_bytes,
-            pad_multiple=n * (coll.QUANT_BLOCK if self.quant else 1))
+            pad_multiple=n * (coll.QUANT_BLOCK if self.quant else 1),
+            tags=tags)
         self.shards = None          # this rank's grad shard a bucket
         self._bufs = {}             # reused step after step (`_buffer`)
 
@@ -223,23 +234,28 @@ class GradBucketer:
         return pack(bucket, lambda k: params[k].grad, dtype=dt,
                     out=self._buffer(("pack", dt), bucket.numel, dt))
 
-    def reduce_scatter(self, average=True, release=False):
+    def reduce_scatter(self, average=True, release=False, buckets=None,
+                       accumulate=False):
         """One reduce-scatter a bucket of the parameters' grads: this
         rank's shard of each bucket (its sum, divided by the degree with
         ``average``), in the bucket's dtype, kept in ``.shards`` (a
         tensor a bucket, the same ones every step) and returned. With
         ``release`` every grad is dropped after its bucket is packed: no
-        full grad survives."""
+        full grad survives. ``buckets``: those alone (default all);
+        ``accumulate``: added to a bucket's shard already in ``.shards``
+        (stage 3 scatters each micro-batch's grads as they complete)."""
         g, n = self.group, self.group.nranks
-        shards = []
-        for b in self.assignment.buckets:
+        shards = (list(self.shards) if self.shards is not None
+                  else [None] * self.num_buckets)
+        for b in (self.assignment.buckets if buckets is None else buckets):
             flat = self._flat(b)
             if release:
                 for k in b.keys:
                     self._params[k].grad = None
             rd, s = flat.dtype, b.numel // n
             shard = self._buffer(("shard", b.index), s, b.dtype)
-            red = shard if rd == b.dtype else \
+            add = accumulate and shards[b.index] is not None
+            red = shard if rd == b.dtype and not add else \
                 self._buffer(("reduce", rd), s, rd)
             if self.quant:
                 red.copy_(coll.quantized_reduce_scatter(flat, g, self.quant))
@@ -247,9 +263,11 @@ class GradBucketer:
                 coll.reduce_scatter_into(red, flat, g)
             if average and n > 1:
                 red.mul_(1.0 / n)
-            if red is not shard:
+            if add:
+                shard.add_(red)
+            elif red is not shard:
                 shard.copy_(red)
-            shards.append(shard)
+            shards[b.index] = shard
         self.shards = shards
         return shards
 
@@ -268,6 +286,89 @@ class GradBucketer:
                 p = self._params[k]
                 if p.grad is not None:        # an unused parameter stays
                     p.grad.copy_(v)           # without a grad
+
+
+class FlatShard:
+    """One bucket's flat parameter buffer ``flat`` held as this rank's
+    contiguous shard between uses (stage 3). ``shard`` keeps the rank's
+    values (with ``offload`` on a card: in pinned host memory, copied
+    to the card for the gather and the update); `release` frees the
+    flat buffer's storage, `gather` all-gathers the shards back into it
+    (the same storage object, so every view of it reads the whole
+    values again). On the CPU ``offload`` changes nothing."""
+
+    def __init__(self, flat, rank, group, offload=False):
+        n = group.nranks
+        s = flat.numel() // n
+        self.flat, self.group, self.rank = flat, group, rank
+        self.nbytes = flat.untyped_storage().nbytes()
+        self.offload = bool(offload) and flat.device.type == "cuda"
+        shard = flat[rank * s:(rank + 1) * s].clone()
+        self.shard = shard.cpu().pin_memory() if self.offload else shard
+        # what the update reads and writes on the card: the shard, or its
+        # staging copy (`stage_in` / `stage_out`)
+        self.device_values = shard if self.offload else self.shard
+        self.gathered = True
+
+    @property
+    def device(self):
+        return self.flat.device
+
+    def values(self):
+        """The rank's values on the flat's device (a copy when they are
+        offloaded)."""
+        return self.shard.to(self.device) if self.offload else self.shard
+
+    @torch.no_grad()
+    def gather(self):
+        if self.gathered:
+            return
+        self.flat.untyped_storage().resize_(self.nbytes)
+        coll.all_gather_into(self.flat, self.values(), self.group)
+        self.gathered = True
+
+    @torch.no_grad()
+    def refresh(self):
+        """After an update of the shard: the whole values again, where
+        they are gathered."""
+        if self.gathered:
+            coll.all_gather_into(self.flat, self.values(), self.group)
+
+    @torch.no_grad()
+    def stage_in(self):
+        """Offloaded: the shard copied to the card for the update."""
+        if self.offload:
+            v = self.device_values
+            v.untyped_storage().resize_(v.numel() * v.element_size())
+            v.copy_(self.shard)
+
+    @torch.no_grad()
+    def stage_out(self):
+        """Offloaded: the updated shard back to host memory, the card's
+        copy freed."""
+        if self.offload:
+            self.shard.copy_(self.device_values)
+            self.device_values.untyped_storage().resize_(0)
+
+    @torch.no_grad()
+    def keep(self):
+        """The rank's slice of the gathered buffer (new values written
+        into it) back into the shard."""
+        s = self.flat.numel() // self.group.nranks
+        self.shard.copy_(self.flat[self.rank * s:(self.rank + 1) * s])
+
+    def release(self):
+        if self.gathered:
+            self.flat.untyped_storage().resize_(0)
+            self.gathered = False
+
+    def resident_bytes(self):
+        """This bucket's parameter bytes on this rank now: its shard and,
+        where gathered, the whole buffer (the shard in host memory under
+        ``offload`` counts 0 on the card)."""
+        own = 0 if self.offload else self.shard.numel() \
+            * self.shard.element_size()
+        return own + self.flat.untyped_storage().nbytes()
 
 
 def bucketed_all_reduce(tensors, group=None, bucket_mb=None, quant=None):

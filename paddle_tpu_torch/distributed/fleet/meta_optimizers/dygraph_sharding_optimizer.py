@@ -29,6 +29,17 @@ A step runs:
 4. the ``all_gather`` of each updated shard into its bucket's flat
    parameters, one a bucket.
 
+Under stage 3 (`sharding.GroupShardedStage3`, `_stage3`) the buckets
+are laid out again: the parameters of ``segment_size`` bytes or more
+first, a bucket never spanning two owning modules, each held as the
+rank's `comm_bucketer.FlatShard` between uses; then the small ones as
+above, whole on every rank. The model reduce-scatters a stage-3
+bucket's grads as they complete (each micro-batch, added into the
+shard), so a step is steps 1-3 over shards already there (the small
+buckets still scattered at step 1), and step 4 skips the stage-3
+buckets: the next forward gathers them. Their values update in the
+shard (with offload: copied to the card for the update and back).
+
 Adam and AdamW only (their fused update is what runs on the shards);
 ``amsgrad`` and ``ClipGradByNorm`` (a per-tensor norm across ranks) are
 refused. `state_dict` gathers the full state in the inner optimizer's
@@ -41,7 +52,8 @@ import torch
 
 from ...collective import (ReduceOp, all_gather, all_gather_into,
                            all_reduce, broadcast)
-from ...comm_bucketer import GradBucketer, pack, shard_segments, unpack
+from ...comm_bucketer import (FlatShard, GradBucketer, pack, shard_segments,
+                              unpack)
 
 __all__ = ["DygraphShardingOptimizer"]
 
@@ -79,25 +91,59 @@ class DygraphShardingOptimizer:
                           else None)
         self._params = [p for p in inner._parameter_list if p.requires_grad]
         self._keyed = [(inner._key(p), p) for p in self._params]
-        self._bucketer = GradBucketer(self._keyed, group)
         self._by_key = dict(self._keyed)
-        rank, n = group.rank, group.nranks
-        self._rank = rank
-        with torch.no_grad():
-            # one flat buffer a bucket; each parameter a view into it
-            self._flat = []
-            for b in self._bucketer.assignment.buckets:
-                flat = pack(b, lambda k: self._by_key[k].detach())
-                for k, v in unpack(flat, b).items():
-                    self._by_key[k].data = v
-                self._flat.append(flat)
-            if n > 1:               # every rank starts from rank 0's
-                for flat in self._flat:
-                    broadcast(flat, 0, group)
-        self._segs = [shard_segments(b, rank, n)
-                      for b in self._bucketer.assignment.buckets]
+        self._rank = group.rank
+        self._s3 = []           # stage 3: a FlatShard a sharded bucket
+        self._lay_out(self._keyed)
         self._state = None      # per bucket: (master or None, m, v)
         self._lists = None      # the update's views (`_update_lists`)
+
+    @torch.no_grad()
+    def _lay_out(self, keyed, tags=None):
+        """Buckets over ``keyed`` (in that order; ``tags``:
+        `build_buckets`'), one flat buffer each, every parameter a view
+        into its bucket's, every rank from rank 0's values."""
+        group, n = self._group, self._group.nranks
+        self._bucketer = GradBucketer(keyed, group, tags=tags)
+        self._flat = []
+        for b in self._bucketer.assignment.buckets:
+            flat = pack(b, lambda k: self._by_key[k].detach())
+            for k, v in unpack(flat, b).items():
+                self._by_key[k].data = v
+            self._flat.append(flat)
+        if n > 1:
+            for flat in self._flat:
+                broadcast(flat, 0, group)
+        self._segs = [shard_segments(b, self._rank, n)
+                      for b in self._bucketer.assignment.buckets]
+
+    def _stage3(self, owner, segment_size, offload=False):
+        """Lay the buckets out for stage 3 (before the first step): the
+        parameters of ``segment_size`` bytes or more first, grouped by
+        ``owner(parameter)`` (a bucket never spans two owners), then the
+        rest. Returns the sharded buckets' `FlatShard` s, released."""
+        if self._state is not None:
+            raise RuntimeError("stage 3 lays the buckets out before the "
+                               "optimizer's first step")
+        big = [(k, p) for k, p in self._keyed
+               if p.numel() * p.element_size() >= segment_size]
+        small = [(k, p) for k, p in self._keyed
+                 if p.numel() * p.element_size() < segment_size]
+        order = {}
+        for _, p in big:
+            order.setdefault(owner(p), len(order))
+        big.sort(key=lambda kp: order[owner(kp[1])])
+        tags = [order[owner(p)] for _, p in big] + [-1] * len(small)
+        self._lay_out(big + small, tags)
+        sharded = {k for k, _ in big}
+        n3 = sum(1 for b in self._bucketer.assignment.buckets
+                 if b.entries[0].key in sharded)
+        self._s3 = [FlatShard(self._flat[bi], self._rank, self._group,
+                              offload) for bi in range(n3)]
+        self._lists = None
+        for st in self._s3:
+            st.release()
+        return self._s3
 
     # -- the wrapped optimizer's surface --------------------------------
     def __getattr__(self, item):
@@ -125,6 +171,22 @@ class DygraphShardingOptimizer:
         s = self._bucketer.assignment.buckets[b].numel // self._group.nranks
         return t[self._rank * s:(self._rank + 1) * s]
 
+    def _values(self, bi):
+        """Bucket ``bi``'s values on this rank, on the card: its slice of
+        the flat buffer, or a stage-3 bucket's `FlatShard.device_values`
+        (filled by `_stage_in` when offloaded)."""
+        if bi < len(self._s3):
+            return self._s3[bi].device_values
+        return self._shard(self._flat[bi], bi)
+
+    def _stage_in(self):
+        for st in self._s3:
+            st.stage_in()
+
+    def _stage_out(self):
+        for st in self._s3:
+            st.stage_out()
+
     def _materialize(self):
         if self._state is not None:
             return
@@ -132,11 +194,12 @@ class DygraphShardingOptimizer:
         self._state = []
         for bi, b in enumerate(self._bucketer.assignment.buckets):
             p0 = self._by_key[b.entries[0].key]
-            master = (self._shard(self._flat[bi], bi).float().clone()
-                      if opt._use_master(p0) else None)
+            shard = (self._s3[bi].values() if bi < len(self._s3)
+                     else self._shard(self._flat[bi], bi))
+            master = (shard.float().clone() if opt._use_master(p0)
+                      else None)
             md = opt._moment_dtype or (torch.float32 if opt._use_master(p0)
                                        else p0.dtype)
-            shard = self._shard(self._flat[bi], bi)
             self._state.append((master,
                                 torch.zeros_like(shard, dtype=md),
                                 torch.zeros_like(shard, dtype=md)))
@@ -149,8 +212,14 @@ class DygraphShardingOptimizer:
                 for e, lo, hi in self._segs[bi]]
 
     def _grad_shards(self):
-        if self._bucketer.shards is None:
-            self._bucketer.reduce_scatter(average=True)
+        """Every bucket's grad shard: those the model already scattered
+        (stage 2's all, stage 3's sharded buckets), the rest scattered
+        now."""
+        have = self._bucketer.shards
+        missing = [b for b in self._bucketer.assignment.buckets
+                   if have is None or have[b.index] is None]
+        if missing:
+            self._bucketer.reduce_scatter(average=True, buckets=missing)
         return self._bucketer.shards
 
     def _segment_params(self):
@@ -163,7 +232,14 @@ class DygraphShardingOptimizer:
         ``inv_scale``), from the rank's shards and one all-reduce: the
         numerics monitor's grad rows."""
         self._materialize()
-        seg_params, grads = self._update_lists(self._grad_shards())[:2]
+        return self._sum_sq(params, self._update_lists(
+            self._grad_shards())[1], inv_scale)
+
+    def _sum_sq(self, params, segs, inv_scale=None):
+        """Each of ``params``' squared norm over ``segs`` (one view a
+        segment of the rank's shards, in the update's order) summed over
+        the group."""
+        seg_params = self._update_lists(self._bucketer.shards)[0]
         index = {id(p): i for i, p in enumerate(params)}
         dev = self._flat[0].device
         out = torch.zeros(len(params), dtype=torch.float32, device=dev)
@@ -171,13 +247,36 @@ class DygraphShardingOptimizer:
         keep = [j for j, i in enumerate(rows) if i >= 0]
         if keep:
             sq = torch.stack(torch._foreach_norm(
-                [grads[j] for j in keep], 2, dtype=torch.float32)).square()
+                [segs[j] for j in keep], 2, dtype=torch.float32)).square()
             if inv_scale is not None:
                 sq = sq * inv_scale * inv_scale
             out.index_add_(0, torch.tensor([rows[j] for j in keep],
                                            device=dev), sq)
         all_reduce(out, ReduceOp.SUM, self._group)
         return out
+
+    @torch.no_grad()
+    def _stage3_rows(self, params, inv_scale=None):
+        """Stage 3's numerics rows before the update, every norm from the
+        shards (the parameters are not whole): the grads' and the
+        values' squared norms, and a copy of the values' shards."""
+        g_sq = self._sharded_grad_sq(params, inv_scale)
+        self._stage_in()
+        values = self._update_lists(self._bucketer.shards)[2]
+        rows = (g_sq, self._sum_sq(params, values),
+                [v.clone() for v in values])
+        self._stage_out()
+        return rows
+
+    @torch.no_grad()
+    def _stage3_update_sq(self, params, old):
+        """Each of ``params``' update's squared norm from the copy
+        `_stage3_rows` kept."""
+        self._stage_in()
+        values = self._update_lists(self._bucketer.shards)[2]
+        torch._foreach_sub_(old, values)
+        self._stage_out()
+        return self._sum_sq(params, old)
 
     # -- the step ----------------------------------------------------------
     @torch.no_grad()
@@ -198,7 +297,7 @@ class DygraphShardingOptimizer:
             for bi in range(len(self._segs)):
                 master, m, v = self._state[bi]
                 lists[1] += self._views(bi, shards[bi])
-                lists[2] += self._views(bi, self._shard(self._flat[bi], bi))
+                lists[2] += self._views(bi, self._values(bi))
                 lists[3] += (self._views(bi, master) if master is not None
                              else [None] * len(self._segs[bi]))
                 lists[4] += self._views(bi, m)
@@ -243,6 +342,7 @@ class DygraphShardingOptimizer:
             for g, c in zip(grads, need):
                 if c:
                     g.clamp_(clip.min, clip.max)
+        self._stage_in()
         multi_tensor_adam(
             values, grads, masters, ms, vs, lr=opt.get_lr(),
             beta1=opt._beta1, beta2=opt._beta2, eps=opt._epsilon,
@@ -251,7 +351,11 @@ class DygraphShardingOptimizer:
             wds=[opt._decoupled_wd(p) for p in params],
             l2s=[opt._l2_coeff(p) for p in params], need_clip=need,
             found_inf=found, inv_scale=inv_scale, clip_scale=scale)
-        for bi, flat in enumerate(self._flat):
+        self._stage_out()
+        for st in self._s3:     # the next forward gathers the rest
+            st.refresh()
+        for bi in range(len(self._s3), len(self._flat)):
+            flat = self._flat[bi]
             all_gather_into(flat, self._shard(flat, bi), self._group)
         return found
 

@@ -39,8 +39,19 @@ input's grad back, so the grads carry no factor of the stage count.
 Every rank of the group must call them, and call backward on what
 depends on the output.
 
-The zero-bubble ring (`pipeline_spmd_zb`, `zb_linear_pipeline`,
-reference :358-633) is not ported: ROADMAP A9b.2b.
+The zero-bubble ring (reference :358-633): `zb_linear_pipeline` (the
+tanh-linear ring with its backward written by hand) and
+`pipeline_spmd_zb` (any shape-keeping stage body) run the same forward,
+and a backward whose ticks compute the input's cotangent alone: a tick
+recomputes its stage from the kept input with the stage's leaves
+detached (no weight-gradient node exists in it, as the reference's
+leaves are a closure capture) and keeps its ``(x, dy)`` pair; after the
+ring the weight grads fold over the rank's ``n_micro`` real
+micro-batches, outside the ring's critical path: one contraction for the
+tanh-linear ring, a recompute and a grad a micro-batch in chunks of
+``dw_chunk`` for a general body, accumulated in fp32 and cast to the
+parameter's dtype at the end. The sends and receives pair as
+`Ring.backward` pairs them; only what a tick computes changes.
 """
 from __future__ import annotations
 
@@ -50,8 +61,6 @@ from ... import collective as coll
 
 __all__ = ["Ring", "microbatch", "pipeline_spmd", "pipeline_spmd_hetero",
            "pipeline_spmd_zb", "unmicrobatch", "zb_linear_pipeline"]
-
-A9B2B = ("{} (the zero-bubble pipeline) is not ported yet: ROADMAP A9b.2b")
 
 _DTYPES = [torch.float32, torch.bfloat16, torch.float16, torch.float64,
            torch.int64, torch.int32, torch.int16, torch.int8, torch.uint8,
@@ -320,12 +329,7 @@ class _Runner:
                 x = x.detach().requires_grad_(fx)
                 ls = [t.detach().requires_grad_(t.requires_grad)
                       for t in leaves]
-                dev = ring.device
-                forked = [dev.index] if dev.type == "cuda" else []
-                with torch.random.fork_rng(devices=forked), \
-                        torch.enable_grad():
-                    _set_rng_state(dev, self.rng[p, m])
-                    y = fn(ls, x)
+                y = self.replay(p, m, fn, ls, x)
                 want = ([x] if fx else []) + [t for t in ls
                                                if t.requires_grad]
                 if d is None or not want or not y.requires_grad:
@@ -347,18 +351,33 @@ class _Runner:
                 vjp, dys, M, like,
                 send_dx=not self.hetero or _floating(self.in_dtype),
                 recv_dy=not self.hetero or _floating(self.out_dtype))
-        dx = None
-        if _floating(self.x_spec[1]):
-            dx = torch.stack([torch.zeros(self.x_spec[0],
-                                          dtype=self.x_spec[1],
-                                          device=ring.device)
-                              if d is None else d for d in dys]) \
-                if ring.stage == 0 else None
-            dx = _broadcast0(dx, ring, ((M,) + self.x_spec[0],
-                                        self.x_spec[1]))
         self.ins = []
-        return dx, [torch.zeros_like(t) if g is None and t.requires_grad
-                    else g for t, g in zip(leaves, grads)]
+        return self.input_grad(dys), [
+            torch.zeros_like(t) if g is None and t.requires_grad else g
+            for t, g in zip(leaves, grads)]
+
+    def replay(self, p, m, fn, ls, x):
+        """``fn(ls, x)`` under grad mode, the generator in the state the
+        forward of pass ``p`` on micro-batch ``m`` found it in."""
+        dev = self.ring.device
+        forked = [dev.index] if dev.type == "cuda" else []
+        with torch.random.fork_rng(devices=forked), torch.enable_grad():
+            _set_rng_state(dev, self.rng[p, m])
+            return fn(ls, x)
+
+    def input_grad(self, dys):
+        """The injected inputs' cotangents ``dys`` (stage 0's) as the
+        ``[n_micro, ...]`` grad of the input on every rank (None for an
+        integer input)."""
+        if not _floating(self.x_spec[1]):
+            return None
+        ring, M = self.ring, self.M
+        dx = torch.stack([torch.zeros(self.x_spec[0], dtype=self.x_spec[1],
+                                      device=ring.device)
+                          if d is None else d for d in dys]) \
+            if ring.stage == 0 else None
+        return _broadcast0(dx, ring, ((M,) + self.x_spec[0],
+                                      self.x_spec[1]))
 
 
 def pipeline_spmd(block_fn, stage_params, x_micro, *, group=None,
@@ -440,9 +459,146 @@ def _pipe_group(group):
     return coll.get_group()
 
 
-def pipeline_spmd_zb(*a, **k):
-    raise NotImplementedError(A9B2B.format("pipeline_spmd_zb"))
+# ---------------------------------------------------------------------------
+# the zero-bubble ring (reference :358-633)
+# ---------------------------------------------------------------------------
+
+class _ZeroBubble(_Runner):
+    """`pipeline_spmd_zb`'s state: `_Runner`'s forward (the inputs kept,
+    each application's generator state recorded); a backward whose ring
+    ticks compute dX alone, then the dW fold. ``fold(kept, leaves)``
+    returns the leaves' grads from the ``{m: (x, dy)}`` pairs the ticks
+    kept; ``tick(m, x, dy)`` is a tick's dX (default: autograd through a
+    recompute over detached leaves)."""
+
+    def __init__(self, ring, fn, n_micro, fold, tick=None):
+        like = (lambda m: torch.empty(self.x_spec[0], dtype=self.x_spec[1],
+                                      device=ring.device))
+        super().__init__(ring, [(fn, like)], n_micro)
+        self.fold, self.tick = fold, tick or self._tick
+
+    def _tick(self, m, x, dy):
+        """dX of micro-batch ``m``: the leaves detached and needing no
+        grad, so the recompute's graph holds no weight-gradient node."""
+        fn = self.passes[0][0]
+        x = x.detach().requires_grad_(True)
+        y = self.replay(0, m, fn, [t.detach() for t in self.leaves], x)
+        if not y.requires_grad:
+            return torch.zeros_like(x)
+        return torch.autograd.grad(y, [x], dy)[0]
+
+    def backward(self, dy):
+        ring, M = self.ring, self.M
+        ins = self.ins[0]
+        kept = {}
+
+        def vjp(m, d):
+            if d is None:
+                return torch.zeros_like(ins[m])
+            kept[m] = (ins[m], d)
+            return self.tick(m, ins[m], d)
+
+        dys = ring.backward(vjp, list(dy.unbind(0)) if ring.stage == 0
+                            else None, M, self.passes[0][1])
+        grads = self.fold(kept, self.leaves)
+        self.ins = []
+        return self.input_grad(dys), grads
 
 
-def zb_linear_pipeline(*a, **k):
-    raise NotImplementedError(A9B2B.format("zb_linear_pipeline"))
+def _fp32_fold(leaves, parts):
+    """Sum the grads ``parts`` (each a list, None where a leaf has none)
+    in fp32; each leaf's grad in its own dtype (None for a leaf that
+    needs none, zeros for one no part reached)."""
+    acc = [torch.zeros(t.shape, dtype=torch.float32, device=t.device)
+           if t.requires_grad else None for t in leaves]
+    for part in parts:
+        for a, g in zip(acc, part):
+            if a is not None and g is not None:
+                a.add_(g.float())
+    return [None if a is None else a.to(t.dtype)
+            for a, t in zip(acc, leaves)]
+
+
+def zb_linear_pipeline(w, x_micro, *, group=None):
+    """The tanh-linear ring with its dW-deferred backward written by hand
+    (reference :358-472): `pipeline_spmd`'s contract with ``block_fn =
+    lambda w, x: tanh(x @ w)``. ``w`` is this rank's stage ``[d, d]``,
+    ``x_micro`` ``[n_micro, mb, d]`` (stage 0's is read); returns
+    ``[n_micro, mb, d]``, the same on every rank. A reverse tick
+    computes ``dpre = dy * (1 - tanh(pre)^2)`` and ``dinp = dpre @ w.T``
+    alone; ``dW`` is one contraction over the kept ``(x, dpre)`` pairs
+    after the ring."""
+    group = _pipe_group(group)
+    ring = Ring(group, x_micro.device)
+    pres, dpres = [], {}
+
+    def apply(ls, x):
+        pres.append(x @ ls[0])      # the stage runs micro-batches in order
+        return torch.tanh(pres[-1])
+
+    def tick(m, x, dy):
+        dpre = dy * (1.0 - torch.tanh(pres[m]) ** 2)
+        dpres[m] = dpre
+        return dpre @ w.detach().t()
+
+    def fold(kept, leaves):
+        if not leaves[0].requires_grad:
+            return [None]
+        if not kept:
+            return [torch.zeros_like(leaves[0])]
+        ms = sorted(kept)
+        xs = torch.stack([kept[m][0] for m in ms]).float()
+        ds = torch.stack([dpres[m] for m in ms]).float()
+        dw = torch.einsum("tbi,tbo->io", xs.reshape(len(ms), -1,
+                                                     xs.shape[-1]),
+                          ds.reshape(len(ms), -1, ds.shape[-1]))
+        return [dw.to(leaves[0].dtype)]
+
+    run = _ZeroBubble(ring, apply, int(x_micro.shape[0]), fold, tick)
+    return _apply(run, x_micro, [w])
+
+
+def pipeline_spmd_zb(block_fn, stage_params, x_micro, *, group=None,
+                     dw_chunk=4):
+    """`pipeline_spmd` (``num_chunks`` 1) with the dW-deferred backward
+    (reference :475-633): a reverse tick recomputes the stage from its
+    kept input over detached leaves and computes dX alone; after the
+    ring, the weight grads fold over the rank's ``n_micro`` real
+    micro-batches in chunks of ``dw_chunk`` (the chunk's recomputes
+    held together, then one grad a micro-batch), summed in fp32 and cast
+    to each parameter's dtype. Bubble ticks carry no cotangent, so they
+    fold nothing. Each recompute replays its application's generator
+    state (the forward's dropout masks; `GPTForCausalLMPipe` refuses
+    dropout with the zero-bubble ring all the same, as the reference
+    does)."""
+    group = _pipe_group(group)
+    leaves, unflat = _flatten(stage_params)
+    n_micro = int(x_micro.shape[0])
+    ring = Ring(group, x_micro.device)
+    chunk = max(1, int(dw_chunk))
+
+    def fn(ls, x):
+        return block_fn(unflat(list(ls)), x)
+
+    def fold(kept, leaves):
+        ms = sorted(kept)
+        parts = []
+        for c0 in range(0, len(ms), chunk):
+            ls = [t.detach().requires_grad_(t.requires_grad)
+                  for t in leaves]
+            want = [t for t in ls if t.requires_grad]
+            if not want:
+                break
+            ys = [(m, run.replay(0, m, fn, ls, kept[m][0].detach()))
+                  for m in ms[c0:c0 + chunk]]
+            for m, y in ys:
+                if not y.requires_grad:
+                    continue
+                got = iter(torch.autograd.grad(y, want, kept[m][1],
+                                               allow_unused=True))
+                parts.append([next(got) if t.requires_grad else None
+                              for t in ls])
+        return _fp32_fold(leaves, parts)
+
+    run = _ZeroBubble(ring, fn, n_micro, fold)
+    return _apply(run, x_micro, leaves)

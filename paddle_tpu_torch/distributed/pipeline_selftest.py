@@ -7,16 +7,21 @@ numpy arrays; the caller computes the reference. Cases:
 
 * ``ring``: `collective.p2p_permute` and its reverse-ring backward;
   `pipeline_spmd` over a tanh-linear block at several micro-batch
-  counts and ``num_chunks`` 2; `pipeline_spmd_hetero` whose stages pass
-  integer token ids and embed them;
+  counts and ``num_chunks`` 2 (`pipeline_spmd_zb` too at one chunk);
+  `pipeline_spmd_hetero` whose stages pass integer token ids and embed
+  them;
 * ``pp_layers``: ``fleet.init`` at pp n, a `PipelineLayer` with a
   tied `SharedLayerDesc` embedding through ``fleet.distributed_model``
   (`PipelineParallel`) and ``fleet.distributed_optimizer``: 3
   ``train_batch`` steps (AdamW, the global-norm clip, a `GradScaler`) at
   two ``accumulate_steps``, ``eval_batch``, and a step with an inf in
   the last stage's grads (every stage skips);
-* ``gpt_pipe``: `models.GPTForCausalLMPipe` (chunks 1 and 2) loss and
-  grads;
+* ``gpt_pipe``: `models.GPTForCausalLMPipe` (chunks 1 and 2, and the
+  zero-bubble ring) loss and grads;
+* ``zero_bubble``: `zb_linear_pipeline`, `pipeline_spmd_zb` over the
+  GPT block at several ``dw_chunk``, which grads a tick asks for,
+  `GPTForCausalLMPipe(use_zero_bubble=True)` beside its AD ring, the
+  refusals;
 * ``pp_scan``: ``fleet.init(dp, mp, pp)`` -> ``fleet.distributed_model(
   gpt).train_step(opt)``: `jit.PipelineScanTrainStep`, both storages,
   tied and untied heads; the numerics rows, dropout, the refusals, the
@@ -39,6 +44,11 @@ ranks on the CPU, and `PipelineParallel` / `GPTForCausalLMPipe` on the
 card against one rank running the whole model. Rank 0 prints one JSON
 line (`launch_card`; ``--tiny`` runs the tiny models alone, and with
 ``--tiny-mp 2`` in four ranks the tiny scan GPT at pp 2 x mp 2).
+``--zb`` runs the zero-bubble ring alone (`zb_full_width`: GPT-3 1.3B's
+widths through `GPTForCausalLMPipe`, the AD ring then the zero-bubble
+ring on the same weights; `zb_card_cpu`: a tiny zero-bubble pipe and
+`zb_linear_pipeline`, card against CPU; with ``--tiny`` the latter
+alone).
 """
 from __future__ import annotations
 
@@ -55,7 +65,7 @@ from . import sharding_selftest as _ss
 from .sharding_selftest import _block, _np
 
 __all__ = ["CASES", "launch", "launch_card", "main", "run_card", "start",
-           "tiny_pipe_model"]
+           "tiny_pipe_model", "zb_card_cpu", "zb_full_width"]
 
 
 def _t(a, dev, grad=False):
@@ -88,12 +98,14 @@ def case_ring(ctx):
     """Over the pp group of ``n / (dp * sharding)`` stages (``dp``,
     ``sharding``: 1 unless given; each data rank runs its own ring):
     p2p_permute and its backward; pipeline_spmd on the rank's stage of
-    ``W`` [n, nc, lps, h, h] for each ``(M, nc)``; pipeline_spmd_hetero:
+    ``W`` [n, nc, lps, h, h] for each ``(M, nc)`` (and at ``nc`` 1
+    pipeline_spmd_zb); pipeline_spmd_hetero:
     stage 0 shifts int ids, stage 1 embeds them, the rest tanh-linear."""
     from . import collective as C
     from .fleet.meta_parallel.spmd_pipeline import (microbatch,
                                                     pipeline_spmd,
                                                     pipeline_spmd_hetero,
+                                                    pipeline_spmd_zb,
                                                     unmicrobatch)
 
     dev, a = ctx.device, ctx.args
@@ -116,6 +128,13 @@ def case_ring(ctx):
                                          group=group, num_chunks=nc))
         torch.sin(got).sum().backward()
         out[f"spmd_{key}"] = [_np(got), _np(w.grad), _np(xs.grad)]
+        if nc == 1:         # the zero-bubble ring on the same stage
+            w = _t(W[r][0], dev, True)
+            xs = _t(a["x"][key], dev, True)
+            got = unmicrobatch(pipeline_spmd_zb(
+                _tanh_block, w, microbatch(xs, M), group=group))
+            torch.sin(got).sum().backward()
+            out[f"zb_{key}"] = [_np(got), _np(w.grad), _np(xs.grad)]
     h = a["het"]
     params = ({} if r == 0 else {"e": _t(h["E"], dev, True)} if r == 1
               else {"w": _t(h["Ws"][r], dev, True)})
@@ -263,12 +282,119 @@ def case_gpt_pipe(ctx):
                    "grads": {k: _np(p.grad) for k, p in
                              model.named_parameters()},
                    "stage": model.stage}
-    try:
-        GPTForCausalLMPipe(GPTConfig(**a["config"]), num_stages=n,
-                           num_micro=2, use_zero_bubble=True, device=dev)
-        out["zb"] = ""
-    except NotImplementedError as e:
-        out["zb"] = str(e)
+    # the zero-bubble ring on the chunks-1 weights
+    model = GPTForCausalLMPipe(GPTConfig(**a["config"]), num_stages=n,
+                               num_micro=a["micro"], use_zero_bubble=True,
+                               device=dev)
+    model.load_state_dict(convert.pipe_stage_from_jax(a["named"][1], model))
+    model.train()
+    loss = GPTPretrainingCriterion()(model(_t(a["ids"], dev)),
+                                     _t(a["labels"], dev))
+    loss.backward()
+    out["zb"] = {"loss": float(loss), "grads": {
+        k: _np(p.grad) for k, p in model.named_parameters()}}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the zero-bubble ring
+# ---------------------------------------------------------------------------
+
+class _CountMM(torch.autograd.Function):
+    """``x @ w`` whose backward records whether it was asked for ``w``'s
+    grad, and whether ``w``'s leaf had a ``.grad`` by then."""
+
+    seen = []
+
+    @staticmethod
+    def forward(ctx, x, w, leaf):
+        ctx.save_for_backward(x, w)
+        ctx.leaf = leaf
+        return x @ w
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        _CountMM.seen.append((bool(ctx.needs_input_grad[1]),
+                              ctx.leaf.grad is not None))
+        return (g @ w.t(), x.transpose(-1, -2) @ g
+                if ctx.needs_input_grad[1] else None, None)
+
+
+def case_zero_bubble(ctx):
+    """At pp = the world: `zb_linear_pipeline` on the rank's stage of
+    ``W`` [n, d, d]; `pipeline_spmd_zb` over `GPTForCausalLMPipe`'s block
+    body at each ``dw_chunk``; the grads a ring tick and the fold ask
+    for (`_CountMM`), beside the AD ring's; `GPTForCausalLMPipe(
+    use_zero_bubble=True)` and its AD ring on the same weights; the two
+    refusals."""
+    from .. import convert
+    from ..models import GPTConfig, GPTForCausalLMPipe, GPTPretrainingCriterion
+    from .fleet.meta_parallel.spmd_pipeline import (microbatch,
+                                                    pipeline_spmd,
+                                                    pipeline_spmd_zb,
+                                                    unmicrobatch,
+                                                    zb_linear_pipeline)
+
+    r, n, dev = ctx.rank, ctx.nprocs, ctx.device
+    a = ctx.args
+    hcg = _init(pp=n)
+    group = hcg.get_pipe_parallel_group()
+    out = {"stage": hcg.get_stage_id()}
+    w = _t(a["lin_w"][r], dev, True)
+    xs = _t(a["lin_x"], dev, True)
+    y = zb_linear_pipeline(w, xs, group=group)
+    torch.sin(y).sum().backward()
+    out["lin"] = [_np(y), _np(w.grad), _np(xs.grad)]
+    # which grads a tick computes: the AD ring's ask for dW, the
+    # zero-bubble ring's alone in the fold after the ring
+    for tag, pipe in (("ad", pipeline_spmd), ("zb", pipeline_spmd_zb)):
+        w = _t(a["lin_w"][r], dev, True)
+        _CountMM.seen = []
+        y = pipe(lambda p, x: torch.tanh(_CountMM.apply(x, p, w)), w,
+                 _t(a["lin_x"], dev), group=group)
+        y.sum().backward()
+        out[f"seen_{tag}"] = list(_CountMM.seen)
+        out[f"count_{tag}"] = _np(w.grad)
+    cfg = GPTConfig(**a["config"])
+    named = a["named"]
+    model = GPTForCausalLMPipe(cfg, num_stages=n, num_micro=a["micro"],
+                               device=dev)
+    model.load_state_dict(convert.pipe_stage_from_jax(named, model))
+    model.train()
+    flats = [f for f, _ in model._stacked_names]
+    for c in a["dw_chunks"]:
+        leaves = [getattr(model, f)[0].detach().requires_grad_()
+                  for f in flats]
+        x = _t(a["block_x"], dev, True)
+        y = pipeline_spmd_zb(model._block_fn(), leaves, x, group=group,
+                             dw_chunk=c)
+        torch.sin(y).sum().backward()
+        out[f"block_{c}"] = {"out": _np(y), "dx": _np(x.grad), "grads": {
+            f: _np(t.grad)[None] for f, t in zip(flats, leaves)}}
+    crit = GPTPretrainingCriterion()
+    ids, labels = _t(a["ids"], dev), _t(a["labels"], dev)
+    for zb in (False, True):
+        model = GPTForCausalLMPipe(cfg, num_stages=n, num_micro=a["micro"],
+                                   use_zero_bubble=zb, device=dev)
+        model.load_state_dict(convert.pipe_stage_from_jax(named, model))
+        model.train()
+        loss = crit(model(ids), labels)
+        loss.backward()
+        out["gpt_zb" if zb else "gpt_ad"] = {
+            "loss": float(loss),
+            "grads": {k: _np(p.grad) for k, p in model.named_parameters()}}
+    refused = {}
+    for what, kw, c in (("chunks", dict(num_chunks=2), cfg),
+                        ("dropout", {}, GPTConfig(**dict(
+                            a["config"], hidden_dropout_prob=0.1)))):
+        try:
+            GPTForCausalLMPipe(c, num_stages=n, num_micro=a["micro"],
+                               use_zero_bubble=True, device=dev, **kw)
+            refused[what] = ""
+        except ValueError as e:
+            refused[what] = str(e)
+    out["refused"] = refused
     return out
 
 
@@ -361,7 +487,8 @@ def case_pp_scan(ctx):
 
 
 CASES = {"ring": case_ring, "pp_layers": case_pp_layers,
-         "gpt_pipe": case_gpt_pipe, "pp_scan": case_pp_scan}
+         "gpt_pipe": case_gpt_pipe, "pp_scan": case_pp_scan,
+         "zero_bubble": case_zero_bubble}
 
 
 def start(case, nprocs, args=None, timeout=60):
@@ -581,7 +708,142 @@ def pipe_layers_card(dev, steps=2):
     return out
 
 
-def run_card(nccl=False, steps=3, tiny=False, tiny_mp=1):
+def _sync(dev):
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def zb_full_width(dev, batch=4, seq=1024, micro=4, cfg=None):
+    """Phase 27(a): GPT-3 1.3B's widths (bf16, dropout 0, weights from
+    seed 0) through `GPTForCausalLMPipe` at pp = the world, ``micro``
+    micro-batches of the ``batch x seq`` tokens: the AD ring, then the
+    zero-bubble ring (``use_zero_bubble=True``) on the same weights and
+    batch, after a warm-up pass; each ring's loss, seconds and launches
+    of one forward and
+    backward, and the largest gap of a grad to the AD ring's relative to
+    that tensor's largest element (every rank's, gathered). ``cfg``: a
+    `GPTConfig` in place of GPT-3 1.3B's (a rehearsal on the CPU)."""
+    from ..models import (GPTForCausalLMPipe, GPTPretrainingCriterion,
+                          gpt_config)
+    from . import collective as C
+    from . import env
+    from .mp_selftest import _counters, _read, full_width_batch
+
+    n = env.get_world_size()
+    hcg = _init(pp=n)
+    cfg = cfg or gpt_config("gpt3-1.3b")
+    cuda = torch.device(dev).type == "cuda"
+    model = GPTForCausalLMPipe(cfg, num_stages=n, num_micro=micro,
+                               device=dev, dtype=torch.bfloat16, seed=0)
+    model.train()
+    ids, labels = full_width_batch(cfg, dev, batch, seq)
+    crit = GPTPretrainingCriterion()
+    counters = _counters()
+    out, grads = {}, {}
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    for tag in ("warm-up", "ad", "zb"):       # the first pass warms up
+        model.use_zero_bubble = tag == "zb"
+        before = _read(counters)
+        _sync(dev)
+        t0 = time.perf_counter()
+        loss = crit(model(ids), labels)
+        loss.backward()
+        _sync(dev)
+        secs = time.perf_counter() - t0
+        after = _read(counters)
+        if tag != "warm-up":
+            out[tag] = {"loss": float(loss), "s": secs,
+                        "launches": {k: after[k] - before[k] for k in after}}
+            grads[tag] = {k: p.grad.float()
+                          for k, p in model.named_parameters()}
+        model.zero_grad(set_to_none=True)
+    gap = {k: float((grads["zb"][k] - g).abs().max()
+                    / g.abs().max().clamp(min=1e-30))
+           for k, g in grads["ad"].items()}
+    worst = max(gap, key=gap.get)
+    mine = {"stage": hcg.get_stage_id(), "layers": model.layers_per_stage,
+            "max_grad_rel": gap[worst], "worst": worst,
+            "max_memory_allocated": (torch.cuda.max_memory_allocated(dev)
+                                     if cuda else None),
+            **out}
+    ranks = []
+    C.all_gather_object(ranks, mine)
+    del model, grads
+    return {"pp": n, "micro": micro, "tokens": [batch, seq],
+            "num_layers": cfg.num_layers, "ranks": ranks}
+
+
+def _zb_tiny_cfg(n):
+    from ..models import GPTConfig
+
+    return GPTConfig(vocab_size=64, hidden_size=64, num_layers=2 * n,
+                     num_attention_heads=4, max_position_embeddings=128,
+                     hidden_dropout_prob=0.0, attention_dropout_prob=0.0)
+
+
+def zb_card_cpu(dev):
+    """Phase 27(b)-(c): a tiny fp32 `GPTForCausalLMPipe(use_zero_bubble=
+    True)` (2 layers a stage, 4 x 128 tokens, 2 micro-batches) and
+    `zb_linear_pipeline` ([8, 4, 64] over a [64, 64] stage) at pp = the
+    world, on the card and on the CPU over the same gloo ranks from the
+    same numpy weights: the largest loss / output and relative grad
+    differences (every rank's)."""
+    from ..models import GPTForCausalLMPipe, GPTPretrainingCriterion
+    from . import collective as C
+    from . import env
+    from .fleet.meta_parallel.spmd_pipeline import zb_linear_pipeline
+
+    n = env.get_world_size()
+    hcg = _init(pp=n)
+    stage = hcg.get_stage_id()
+    group = hcg.get_pipe_parallel_group()
+    cfg = _zb_tiny_cfg(n)
+    rng = np.random.default_rng(20 + stage)
+    shapes = GPTForCausalLMPipe(cfg, num_stages=n, num_micro=2,
+                                device="cpu").state_dict()
+    sd = {k: torch.from_numpy((rng.standard_normal(tuple(v.shape)) * 0.2)
+                              .astype(np.float32)) for k, v in shapes.items()}
+    data = np.random.default_rng(21)
+    ids = torch.from_numpy(data.integers(0, 64, (4, 128)))
+    labels = torch.from_numpy(data.integers(0, 64, (4, 128)))
+    w = (data.standard_normal((n, 64, 64)) * 0.3).astype(np.float32)
+    x = data.standard_normal((8, 4, 64)).astype(np.float32)
+    got = {}
+    for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        model = GPTForCausalLMPipe(cfg, num_stages=n, num_micro=2,
+                                   use_zero_bubble=True, device=d)
+        model.load_state_dict(sd)
+        model.train()
+        loss = GPTPretrainingCriterion()(model(ids.to(d)), labels.to(d))
+        loss.backward()
+        ws, xs = _t(w[stage], d, True), _t(x, d, True)
+        y = zb_linear_pipeline(ws, xs, group=group)
+        torch.sin(y).sum().backward()
+        got[where] = {"loss": float(loss),
+                      "grads": {k: p.grad.cpu() for k, p in
+                                model.named_parameters()},
+                      "lin": [y.detach().cpu(), ws.grad.cpu(),
+                              xs.grad.cpu()]}
+    card, cpu = got["card"], got["cpu"]
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+
+    mine = {"stage": stage,
+            "gpt_loss_diff": abs(card["loss"] - cpu["loss"]),
+            "gpt_max_grad_rel": max(rel(g, cpu["grads"][k])
+                                    for k, g in card["grads"].items()),
+            "lin_max_out_diff": float((card["lin"][0] - cpu["lin"][0])
+                                      .abs().max()),
+            "lin_max_grad_rel": max(rel(a, b) for a, b in
+                                    zip(card["lin"][1:], cpu["lin"][1:]))}
+    ranks = []
+    C.all_gather_object(ranks, mine)
+    return {"pp": n, "ranks": ranks}
+
+
+def run_card(nccl=False, steps=3, tiny=False, tiny_mp=1, zb=False):
     """Phase 25's ranks: join the world (gloo sharing the card, or NCCL
     one card a rank), then GPT-3 1.3B at pp = the world, the tiny scan GPT
     card against CPU, `PipelineParallel` and `GPTForCausalLMPipe` card
@@ -595,6 +857,15 @@ def run_card(nccl=False, steps=3, tiny=False, tiny_mp=1):
                                 timeout=600)
     result = {"backend": env.get_backend(), "device": str(dev),
               "world": env.get_world_size()}
+    if zb:
+        if not tiny:
+            t0 = time.perf_counter()
+            result["zb_1.3b"] = zb_full_width(dev)
+            result["zb_1.3b"]["wall_s"] = time.perf_counter() - t0
+            torch.cuda.empty_cache()
+        result["zb_card_cpu"] = zb_card_cpu(dev)
+        env.reset()
+        return result
     if not tiny:
         t0 = time.perf_counter()
         result["gpt3_1.3b"] = full_width(dev, steps=steps)
@@ -608,7 +879,7 @@ def run_card(nccl=False, steps=3, tiny=False, tiny_mp=1):
 
 
 def launch_card(nprocs=2, nccl=False, steps=3, deadline=900, tiny=False,
-                tiny_mp=1):
+                tiny_mp=1, zb=False):
     """`run_card` in ``nprocs`` ranks under ``torch.distributed.run`` (a
     free port on 127.0.0.1): rank 0's result. Every rank is killed and
     this raises when the run passes ``deadline`` seconds or fails."""
@@ -616,6 +887,7 @@ def launch_card(nprocs=2, nccl=False, steps=3, deadline=900, tiny=False,
 
     return _launch(nprocs, nccl, steps, deadline, module=__name__,
                    extra=(["--tiny"] if tiny else [])
+                   + (["--zb"] if zb else [])
                    + ["--tiny-mp", str(tiny_mp)])
 
 
@@ -634,11 +906,13 @@ def main(argv=None):
                    help="the tiny runs alone (no GPT-3 1.3B)")
     p.add_argument("--tiny-mp", type=int, default=1,
                    help="the tiny scan GPT's mp degree (pp: the rest)")
+    p.add_argument("--zb", action="store_true",
+                   help="the zero-bubble ring alone (phase 27)")
     a = p.parse_args(argv)
     if a.worker:
         _ss.worker(a.worker, a.rank, a.nprocs, a.dir, a.timeout, CASES)
         return 0
-    result = run_card(a.nccl, a.steps, a.tiny, a.tiny_mp)
+    result = run_card(a.nccl, a.steps, a.tiny, a.tiny_mp, a.zb)
     if int(os.environ.get("RANK", "0")) == 0:
         print(json.dumps(result), flush=True)
     return 0

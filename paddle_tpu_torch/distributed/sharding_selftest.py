@@ -15,7 +15,11 @@ ranks stay light (no jax: the caller computes the reference). Cases:
   the global clip, the guard), with the shard sizes, an inf on one rank
   only, the state dict through ``framework/io.py``;
 * ``sharded_scan``: `ShardedFusedScanTrainStep` on a scan GPT, both
-  storages, dropout masks across ranks.
+  storages, dropout masks across ranks;
+* ``stage3``: stage 3 (`GroupShardedStage3`) on the reference's Linear
+  case and a tiny GPT (fp32, O2, ``accumulate_steps`` 2, offload), what
+  a rank holds, `get_all_parameters` / `reshard`, the saved file;
+  ``stage3_mp``: a tiny LLaMA at sharding x mp.
 
 `launch(case, nprocs, args)` runs a case in ``nprocs`` processes of this
 module over gloo on the CPU (a ``file://`` store in a temporary
@@ -32,11 +36,16 @@ On cards, under ``torch.distributed.run`` (NCCL, one card a rank)::
 
 runs stage 2 and the sharded scan on a small GPT over the world and
 holds them against the same global batch on one rank alone (world 1);
-``--device cpu`` runs it on gloo instead.
+``--device cpu`` runs it on gloo instead. ``--stage3`` (phase 28, ranks
+sharing one card over gloo unless ``--nccl``) trains GPT-3 1.3B under
+stage 3, plain and with ``offload=True`` (`stage3_full_width`), then a
+tiny GPT card against CPU; `stage3_world_one` is the world of one it is
+held to.
 """
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import pickle
@@ -49,7 +58,9 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-__all__ = ["CASES", "Ctx", "launch", "main", "start", "worker"]
+__all__ = ["CASES", "Ctx", "launch", "launch_stage3_card", "main",
+           "run_stage3_card", "stage3_full_width", "stage3_world_one",
+           "start", "worker"]
 
 
 @dataclass
@@ -581,6 +592,168 @@ def case_sharded_scan(ctx):
     return out
 
 
+def _stage3_run(ctx, a, mine, *, o2=False, accumulate=1, offload=False,
+                probe=False):
+    """A tiny GPT (non-scan, tied head, recompute) through
+    ``group_sharded_parallel(level="p_g_os")`` and the wrapper's
+    ``train_step`` (a `jit.TrainStep` of ``model.loss``; AdamW with the
+    clip, the guard; under O2 at ``o2_lr``): losses, whole parameters,
+    resident parameter bytes between steps; with ``probe`` also what
+    each parameter holds, `get_all_parameters` / `reshard` round trips,
+    the saved file, an eval forward and a state dict loaded back."""
+    from ..amp import decorate
+    from . import collective as C
+    from .sharding import group_sharded_parallel, save_group_sharded_model
+
+    r, dev = ctx.rank, ctx.device
+    model = _gpt(Ctx(r, ctx.nprocs, dev, {"config": dict(
+        a["config"], use_recompute=True)}), a["named"], scan=False)
+    opt = _adamw(model, lr=a["o2_lr"] if o2 else a["lr"])
+    if o2:
+        decorate(models=model, optimizers=opt, level="O2")
+    wrapped, opt, _ = group_sharded_parallel(
+        model, opt, "p_g_os", segment_size=a["segment"], offload=offload)
+    step = wrapped.train_step(accumulate_steps=accumulate,
+                              guard_nonfinite=True, numerics=probe)
+    out = {"full_bytes": sum(p.numel() * p.element_size()
+                             for p in model.parameters()),
+           "step": [type(step).__name__, type(step.optimizer).__name__]}
+    start = wrapped.state_dict() if probe else None
+    C.reset_counts()
+    losses, resident = [], []
+    for _ in range(a["steps"]):
+        losses.append(float(step(*mine)))
+        resident.append(wrapped.resident_param_bytes())
+    out["calls"] = dict(C.calls)
+    out["losses"] = np.asarray(losses)
+    out["resident"] = resident
+    out["params"] = {k: _np(v) for k, v in wrapped.state_dict().items()}
+    out["resident_after_state_dict"] = wrapped.resident_param_bytes()
+    if not probe:
+        return out
+    out["numerics"] = step.numerics.summary()
+    out["storage"] = {k: p.untyped_storage().nbytes()
+                      for k, p in model.named_parameters()}
+    out["shard_numel"] = [st.shard.numel() for st in wrapped._shards]
+    host = wrapped.get_all_parameters(convert2cpu=True)
+    out["cpu_copies"] = dict(zip([k for k, _ in model.named_parameters()],
+                                 host))
+    out["resident_after_cpu"] = wrapped.resident_param_bytes()
+    params = wrapped.get_all_parameters()
+    # copies: numpy over a tensor pins its storage's size
+    out["gathered"] = {k: _np(p.detach().clone()) for k, p in zip(
+        [k for k, _ in model.named_parameters()], params)}
+    out["resident_gathered"] = wrapped.resident_param_bytes()
+    wrapped.reshard()
+    out["resident_resharded"] = wrapped.resident_param_bytes()
+    save_group_sharded_model(wrapped, os.path.join(a["dir"], "stage3"), opt)
+    with torch.no_grad():           # an eval forward: nothing stays whole
+        out["eval_logits"] = _np(wrapped(torch.from_numpy(
+            a["ids"][:1]).to(dev)))
+    out["resident_after_eval"] = wrapped.resident_param_bytes()
+    wrapped.load_state_dict(start)  # whole values in, the rank's shards kept
+    out["reloaded"] = all(torch.equal(v, start[k])
+                          for k, v in wrapped.state_dict().items())
+    out["resident_after_load"] = wrapped.resident_param_bytes()
+    C.barrier()
+    return out
+
+
+def case_stage3(ctx):
+    """Sharding stage 3 at sharding = the world: the reference's Linear
+    case (tests/test_distributed.py:429-470: ``segment_size=0``, AdamW,
+    3 `TrainStep`s, the Linear's layout between them), then a tiny GPT
+    (`_stage3_run`): fp32 with the probes, O2, ``accumulate_steps`` 2,
+    ``offload=True``; ``offload`` at "os" / "os_g" accepted."""
+    from ..jit import TrainStep
+    from ..optimizer import AdamW
+    from .sharding import group_sharded_parallel
+
+    r, n, dev = ctx.rank, ctx.nprocs, ctx.device
+    a = ctx.args
+    out = {}
+    lin = torch.nn.Linear(16, 8).to(dev)
+    with torch.no_grad():
+        lin.weight.copy_(torch.from_numpy(a["lin_w"].T.copy()))
+        lin.bias.copy_(torch.from_numpy(a["lin_b"]))
+    wrapped, opt, _ = group_sharded_parallel(
+        lin, AdamW(learning_rate=0.01, parameters=lin.parameters()),
+        level="p_g_os", segment_size=0)
+    step = TrainStep(wrapped, lambda m, x, y: ((m(x) - y) ** 2).mean(), opt)
+    xy = [_block(torch.from_numpy(a[k]).to(dev), r, n)
+          for k in ("lin_x", "lin_y")]
+    out["linear"] = {
+        "losses": np.asarray([float(step(*xy)) for _ in range(3)]),
+        "storage": [p.untyped_storage().nbytes() for p in lin.parameters()],
+        "type": type(wrapped).__name__}
+    sd = wrapped.state_dict()
+    out["linear"]["weight"] = _np(sd["weight"]).T
+    out["linear"]["bias"] = _np(sd["bias"])
+    mine = [_block(torch.from_numpy(a[k]).to(dev), r, n)
+            for k in ("ids", "labels")]
+    out["fp32"] = _stage3_run(ctx, a, mine, probe=True)
+    out["o2"] = _stage3_run(ctx, a, mine, o2=True)
+    out["accumulate"] = _stage3_run(ctx, a, mine, accumulate=2)
+    out["offload"] = _stage3_run(ctx, a, mine, offload=True)
+    accepted = {}
+    for level in ("os", "os_g"):
+        model = _gpt(ctx, a["named"], scan=False)
+        w, o, _ = group_sharded_parallel(model, _adamw(model, lr=a["lr"]),
+                                         level, offload=True)
+        accepted[level] = float(TrainStep(w, lambda m, i, l: m.loss(i, l),
+                                          o)(*mine))
+    out["offload_accepted"] = accepted
+    out["dir"] = a["dir"]
+    return out
+
+
+def case_stage3_mp(ctx):
+    """Stage 3 over sharding ``n / mp`` x mp ``mp``: a tiny LLaMA (the
+    port's eager Megatron model: its column / row blocks and the
+    vocab-parallel head are mp blocks, each sharded further over the
+    sharding group), tied head, recompute, AdamW with the clip, through
+    ``fleet.init`` + ``group_sharded_parallel(level="p_g_os")`` +
+    `jit.TrainStep` on the rank's rows of the sharding axis."""
+    from .. import convert
+    from ..jit import TrainStep
+    from ..models import LlamaConfig, LlamaForCausalLM
+    from ..nn import ClipGradByGlobalNorm
+    from ..optimizer import AdamW
+    from . import env
+    from .fleet import DistributedStrategy, fleet
+    from .sharding import group_sharded_parallel
+
+    dev, a = ctx.device, ctx.args
+    mp = a["mp"]
+    s = DistributedStrategy()
+    s.hybrid_configs = {"sharding_degree": ctx.nprocs // mp,
+                        "mp_degree": mp}
+    fleet.init(is_collective=True, strategy=s)
+    hcg = fleet.get_hybrid_communicate_group()
+    r = hcg.get_model_parallel_rank()
+    model = LlamaForCausalLM(LlamaConfig(**a["config"]), device=dev)
+    model.load_state_dict(convert.mp_state_dict_from_jax(a["named"], model,
+                                                         r, mp))
+    model.train()
+    opt = AdamW(learning_rate=a["lr"], parameters=model.parameters(),
+                epsilon=a["eps"], weight_decay=0.01,
+                grad_clip=ClipGradByGlobalNorm(a["clip"]))
+    wrapped, opt, _ = group_sharded_parallel(model, opt, "p_g_os",
+                                             segment_size=a["segment"])
+    step = TrainStep(wrapped, lambda m, i, l: m.loss(i, l), opt,
+                     numerics=False)
+    mine = env.data_shard([torch.from_numpy(a[k]).to(dev)
+                           for k in ("ids", "labels")])
+    losses = [float(step(*mine)) for _ in range(a["steps"])]
+    return {"coords": [hcg.get_sharding_parallel_rank(), r],
+            "losses": np.asarray(losses),
+            "state": {k: _np(v) for k, v in wrapped.state_dict().items()},
+            "groups": [opt._group.nranks, opt._mp_group.nranks],
+            "resident": wrapped.resident_param_bytes(),
+            "full_bytes": sum(p.numel() * p.element_size()
+                              for p in model.parameters())}
+
+
 def check_world1(dev, seed=0):
     """Every collective at a world of one rank on ``dev`` (the world must
     be joined), fp32 and bf16, held to its one-rank meaning (a sum of
@@ -673,7 +846,8 @@ def check_world1(dev, seed=0):
 
 CASES = {"collectives": case_collectives, "buckets": case_buckets,
          "data_parallel": case_data_parallel, "sharding": case_sharding,
-         "sharded_scan": case_sharded_scan}
+         "sharded_scan": case_sharded_scan, "stage3": case_stage3,
+         "stage3_mp": case_stage3_mp}
 
 
 # ---------------------------------------------------------------------------
@@ -896,6 +1070,219 @@ def run_world(device=None, steps=3, batch=8, seq=32):
     return result
 
 
+# ---------------------------------------------------------------------------
+# stage 3 on the card: ranks sharing it over gloo (phase 28)
+# ---------------------------------------------------------------------------
+
+def _stage3_model(dev, cfg=None, layers=None, seq=1024):
+    """GPT-3 1.3B (or ``cfg``) in bf16 with recompute, weights from seed
+    0, and AdamW(1e-4) with fp32 masters, bf16 moments and the global
+    clip: phase 23(c)'s dtypes."""
+    from ..models import GPTForCausalLM, gpt_config
+    from ..nn import ClipGradByGlobalNorm
+    from ..optimizer import AdamW
+
+    cfg = cfg or gpt_config("gpt3-1.3b", use_recompute=True,
+                            max_position_embeddings=seq,
+                            **({} if layers is None
+                               else {"num_layers": layers}))
+    model = GPTForCausalLM(cfg, device=dev, dtype=torch.bfloat16, seed=0)
+    model.train()
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                multi_precision=True, moment_dtype="bfloat16",
+                grad_clip=ClipGradByGlobalNorm(1.0))
+    return cfg, model, opt
+
+
+def _cuda(dev):
+    return torch.device(dev).type == "cuda"
+
+
+def _timed(step, batch, steps, dev, after=None):
+    """``steps`` calls of ``step(*batch)``: losses, seconds, the last
+    call's launches of the port's kernels, ``after()`` after each."""
+    from .mp_selftest import _counters, _read
+
+    counters = _counters()
+    losses, secs, launches, seen = [], [], None, []
+    for _ in range(steps):
+        before = _read(counters)
+        if _cuda(dev):
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        losses.append(float(step(*batch)))
+        secs.append(time.perf_counter() - t0)
+        now = _read(counters)
+        launches = {k: now[k] - before[k] for k in now}
+        if after is not None:
+            seen.append(after())
+    return losses, secs, launches, seen
+
+
+def stage3_world_one(dev, steps=3, batch=4, seq=1024, cfg=None,
+                     layers=None):
+    """`stage3_full_width`'s model, optimizer and global batch through a
+    world-of-one `jit.TrainStep` (``model.loss``): the losses, its
+    parameter bytes and peak memory, what the ranks are held to."""
+    from ..jit import TrainStep
+    from .mp_selftest import full_width_batch
+
+    cfg, model, opt = _stage3_model(dev, cfg, layers, seq)
+    step = TrainStep(model, lambda m, x, y: m.loss(x, y), opt,
+                     numerics=False)
+    if _cuda(dev):
+        torch.cuda.reset_peak_memory_stats(dev)
+    losses, secs, launches, _ = _timed(
+        step, full_width_batch(cfg, dev, batch, seq), steps, dev)
+    out = {"losses": losses, "step_s": secs, "launches_per_step": launches,
+           "param_bytes": sum(p.numel() * p.element_size()
+                              for p in model.parameters()),
+           "max_memory_allocated": (torch.cuda.max_memory_allocated(dev)
+                                    if _cuda(dev) else None),
+           "layers": cfg.num_layers}
+    del step, opt, model
+    return out
+
+
+def stage3_full_width(dev, steps=3, batch=4, seq=1024, cfg=None,
+                      layers=None, offload=False):
+    """GPT-3 1.3B (bf16 with recompute, fp32 masters, bf16 moments, AdamW
+    with the clip) through ``group_sharded_parallel(level="p_g_os")`` +
+    `jit.TrainStep` (``model.loss``) at sharding = the world, the rank's
+    rows of the ``batch x seq`` tokens: losses, step seconds, the last
+    step's launches and collectives, the rank's resident parameter bytes
+    after each step, its peak memory, where the shards live (every
+    rank's, gathered)."""
+    from ..jit import TrainStep
+    from . import collective as C
+    from . import env
+    from .mp_selftest import full_width_batch
+    from .sharding import group_sharded_parallel
+
+    n, r = env.get_world_size(), env.get_rank()
+    cfg, model, opt = _stage3_model(dev, cfg, layers, seq)
+    wrapped, opt, _ = group_sharded_parallel(model, opt, "p_g_os",
+                                             offload=offload)
+    step = TrainStep(wrapped, lambda m, x, y: m.loss(x, y), opt,
+                     numerics=False)
+    mine = [_block(t, r, n) for t in full_width_batch(cfg, dev, batch, seq)]
+    if _cuda(dev):
+        torch.cuda.reset_peak_memory_stats(dev)
+    calls = []
+
+    def after():
+        calls.append(dict(C.calls_by_group))
+        return wrapped.resident_param_bytes()
+
+    C.reset_counts()
+    losses, secs, launches, resident = _timed(step, mine, steps, dev, after)
+    per_step = {k: v - calls[-2].get(k, 0) for k, v in calls[-1].items()} \
+        if len(calls) > 1 else calls[-1]
+    shards = wrapped._shards
+    rec = {"rank": r, "losses": losses, "step_s": secs,
+           "launches_per_step": launches, "collectives_per_step": per_step,
+           "resident_param_bytes": resident,
+           "param_bytes": sum(p.numel() * p.element_size()
+                              for p in model.parameters()),
+           "sharded_buckets": len(shards),
+           "segments": len(opt._segment_params()),
+           "shards_pinned_host": all(st.shard.device.type == "cpu"
+                                     and st.shard.is_pinned()
+                                     for st in shards) if offload else None,
+           "max_memory_allocated": (torch.cuda.max_memory_allocated(dev)
+                                    if _cuda(dev) else None)}
+    ranks = []
+    C.all_gather_object(ranks, rec)
+    del step, opt, wrapped, model
+    return {"sharding": n, "offload": offload, "layers": cfg.num_layers,
+            "tokens": [batch, seq], "ranks": ranks}
+
+
+def stage3_tiny_card_cpu(dev, steps=3):
+    """A tiny fp32 GPT (tied head, recompute) through stage 3 on the card
+    and on the CPU over the same gloo ranks from the same weights, AdamW
+    with the clip, 3 steps: the losses and the largest relative
+    parameter difference (the keys' bias aside: `key_bias_out`)."""
+    from ..jit import TrainStep
+    from ..models import GPTConfig, GPTForCausalLM
+    from ..nn import ClipGradByGlobalNorm
+    from ..optimizer import AdamW
+    from . import env
+    from .sharding import group_sharded_parallel
+
+    n, r = env.get_world_size(), env.get_rank()
+    cfg = GPTConfig(**SMALL, use_recompute=True)
+    rng = np.random.default_rng(4)
+    sd = {k: torch.from_numpy((rng.standard_normal(tuple(v.shape)) * 0.1)
+                              .astype(np.float32))
+          for k, v in GPTForCausalLM(cfg, device="cpu").state_dict().items()}
+    ids = rng.integers(0, SMALL["vocab_size"], (8, 64))
+    labels = rng.integers(0, SMALL["vocab_size"], (8, 64))
+    out = {}
+    for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        model = GPTForCausalLM(cfg, device=d)
+        model.load_state_dict(sd)
+        model.train()
+        opt = AdamW(learning_rate=1e-3, parameters=model.parameters(),
+                    grad_clip=ClipGradByGlobalNorm(1.0))
+        wrapped, opt, _ = group_sharded_parallel(model, opt, "p_g_os",
+                                                 segment_size=4096)
+        step = TrainStep(wrapped, lambda m, x, y: m.loss(x, y), opt,
+                         numerics=False)
+        batch = [_block(torch.from_numpy(x).to(d), r, n)
+                 for x in (ids, labels)]
+        out[where] = {"losses": [float(step(*batch)) for _ in range(steps)],
+                      "params": {k: v.cpu() for k, v in
+                                 wrapped.state_dict().items()}}
+        del step, opt, wrapped, model
+    dl = max(abs(x - y) for x, y in zip(out["card"]["losses"],
+                                        out["cpu"]["losses"]))
+    dp = max(float(np.abs(key_bias_out(k, _np(v)) - key_bias_out(
+                 k, _np(out["cpu"]["params"][k]))).max()
+                   / max(np.abs(_np(out["cpu"]["params"][k])).max(), 1e-12))
+             for k, v in out["card"]["params"].items())
+    return {"losses_card": out["card"]["losses"],
+            "losses_cpu": out["cpu"]["losses"], "max_loss_diff": dl,
+            "max_param_rel": dp, "sharding": n}
+
+
+def run_stage3_card(nccl=False, steps=3, layers=None, tiny=False):
+    """Phase 28's ranks: join the world (gloo sharing the card, or NCCL
+    one card a rank), then `stage3_full_width` plain and with
+    ``offload=True`` (not with ``tiny``), then `stage3_tiny_card_cpu`;
+    rank 0's result."""
+    from . import env
+
+    dev = env.init_parallel_env(backend=None if nccl else "gloo",
+                                device=None if nccl else "cuda",
+                                timeout=600)
+    result = {"backend": env.get_backend(), "device": str(dev),
+              "world": env.get_world_size()}
+    for tag, off in () if tiny else (("stage3", False), ("offload", True)):
+        t0 = time.perf_counter()
+        result[tag] = stage3_full_width(dev, steps=steps, layers=layers,
+                                        offload=off)
+        result[tag]["wall_s"] = time.perf_counter() - t0
+        gc.collect()        # the wrapper's hooks hold it in a cycle
+        torch.cuda.empty_cache()
+    result["tiny_card_cpu"] = stage3_tiny_card_cpu(dev)
+    env.reset()
+    return result
+
+
+def launch_stage3_card(nprocs=2, nccl=False, steps=3, layers=None,
+                       deadline=900, tiny=False):
+    """`run_stage3_card` in ``nprocs`` ranks under
+    ``torch.distributed.run``: rank 0's result (`mp_selftest.launch_card`:
+    every rank killed past ``deadline``)."""
+    from .mp_selftest import launch_card
+
+    return launch_card(nprocs, nccl, steps, deadline, module=__name__,
+                       extra=["--stage3"] + (["--tiny"] if tiny else [])
+                       + ([] if layers is None else ["--layers",
+                                                     str(layers)]))
+
+
 def _stage2_step(model, loss_fn):
     from ..jit import TrainStep
     from .sharding import group_sharded_parallel
@@ -913,11 +1300,20 @@ def main(argv=None):
     p.add_argument("--timeout", type=float, default=60)
     p.add_argument("--device", default=None,
                    help="cpu for gloo; the card (NCCL) by default")
+    p.add_argument("--stage3", action="store_true",
+                   help="phase 28: GPT-3 1.3B under stage 3, ranks sharing "
+                        "the card over gloo (--nccl: one card a rank)")
+    p.add_argument("--nccl", action="store_true")
+    p.add_argument("--steps", type=int, default=3)
+    p.add_argument("--layers", type=int, default=None)
+    p.add_argument("--tiny", action="store_true",
+                   help="with --stage3: the tiny GPT alone")
     a = p.parse_args(argv)
     if a.worker:
         worker(a.worker, a.rank, a.nprocs, a.dir, a.timeout)
         return 0
-    result = run_world(a.device)
+    result = (run_stage3_card(a.nccl, a.steps, a.layers, a.tiny)
+              if a.stage3 else run_world(a.device))
     if int(os.environ.get("RANK", "0")) == 0:
         print(json.dumps(result), flush=True)
     return 0

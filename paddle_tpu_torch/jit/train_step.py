@@ -32,7 +32,9 @@ backward the step calls the model's ``apply_collective_grads`` where it
 has one, as the reference does (train_step.py:349-350): `DataParallel`
 averages the grads over its group there (the micro-batches before the
 last run under its ``no_sync``), `GroupShardedStage2` reduce-scatters
-them into the optimizer's shards. Under a sharded optimizer
+them into the optimizer's shards, and `GroupShardedStage3` scatters
+what its hooks have not yet (its sharded buckets' grads are scattered
+as each micro-batch's backward completes them). Under a sharded optimizer
 (`DygraphShardingOptimizer`) the guard's flag and the clip's sum of
 squares are all-reduced on the device before they are used (a rank that
 sees an inf makes every rank skip), and so are the numerics monitor's
@@ -179,7 +181,8 @@ class TrainStep:
             found = self.optimizer._guarded_step(inv)
             _select_back(found, buffers)
         if self.numerics is not None:
-            self.numerics.on_step(_numerics_after(params, rows))
+            self.numerics.on_step(_numerics_after(params, rows,
+                                                  self.optimizer))
         self.optimizer.clear_grad()
         if guard is not None:
             self._guard_state = guard.update(self._guard_state, found)
@@ -196,6 +199,9 @@ def _numerics_before(params, inv, optimizer=None):
     shards and one all-reduce), the parameter's, and a copy of the
     parameters for the update's norm."""
     f32 = torch.float32
+    if getattr(optimizer, "_s3", None):
+        # stage 3: the parameters are shards between uses
+        return optimizer._stage3_rows(params, inv)
     sharded = getattr(optimizer, "_sharded_grad_sq", None)
     if sharded is not None:
         p_sq = torch.stack(torch._foreach_norm(
@@ -215,15 +221,18 @@ def _numerics_before(params, inv, optimizer=None):
     return torch.stack(g_sq), p_sq, [p.detach().clone() for p in params]
 
 
-def _numerics_after(params, rows):
+def _numerics_after(params, rows, optimizer=None):
     """The ``[parameters, NFIELDS]`` block: the update's squared norm
     from the copy (0 where the guard skipped the step: the parameters did
-    not move); finiteness from the grad's square-sum, as the reference
-    derives it."""
+    not move; under stage 3 from the shards' copy); finiteness from the
+    grad's square-sum, as the reference derives it."""
     g_sq, p_sq, old = rows
-    torch._foreach_sub_(old, [p.detach() for p in params])
-    u_sq = torch.stack(torch._foreach_norm(old, 2,
-                                           dtype=torch.float32)).square()
+    if getattr(optimizer, "_s3", None):
+        u_sq = optimizer._stage3_update_sq(params, old)
+    else:
+        torch._foreach_sub_(old, [p.detach() for p in params])
+        u_sq = torch.stack(torch._foreach_norm(
+            old, 2, dtype=torch.float32)).square()
     z = torch.zeros_like(g_sq)
     return torch.stack([g_sq, p_sq, u_sq, z, z,
                         (~torch.isfinite(g_sq)).float(), z, z], dim=1)

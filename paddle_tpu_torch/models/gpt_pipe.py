@@ -18,8 +18,13 @@ grads carry no factor of the stage count (`pipeline_spmd`'s backward).
 `convert.pipe_stage_from_jax` / `pipe_stage_to_jax` carry the
 reference's stacked arrays to a rank's slice and back.
 
-``use_zero_bubble=True`` (the reference's dW-deferred ring) raises,
-naming ROADMAP A9b.2b.
+``use_zero_bubble=True`` runs the ring through `pipeline_spmd_zb`
+(the reference's dW-deferred backward: the reverse ticks compute dX
+alone, the blocks' weight grads fold after the ring). As in the
+reference it takes ``num_chunks=1`` only and refuses dropout: the
+reference's backward re-traces the block and would draw other masks;
+the port's recompute replays the generator and could keep them, but
+holds the reference's contract.
 """
 from __future__ import annotations
 
@@ -31,7 +36,7 @@ from torch import nn
 from torch.func import functional_call
 
 from ..distributed.fleet.meta_parallel.spmd_pipeline import (
-    _pipe_group, microbatch, pipeline_spmd, unmicrobatch)
+    _pipe_group, microbatch, pipeline_spmd, pipeline_spmd_zb, unmicrobatch)
 from ..framework.device import resolve_device
 from .gpt import GPTBlock, GPTConfig, LayerNorm
 
@@ -49,16 +54,21 @@ class GPTForCausalLMPipe(nn.Module):
       num_chunks: virtual stages a rank (interleave; default 1).
       group: the pipeline group (default: the fleet's pipe group, else
         the world); this rank's stage is its rank there.
+      use_zero_bubble: the dW-deferred ring (`pipeline_spmd_zb`).
     """
 
     def __init__(self, config: GPTConfig, num_stages, num_micro,
                  num_chunks=1, group=None, use_zero_bubble=False,
                  device=None, dtype=torch.float32, seed=0):
         super().__init__()
-        if use_zero_bubble:
-            raise NotImplementedError(
-                "GPTForCausalLMPipe(use_zero_bubble=True) (the zero-bubble "
-                "ring) is not ported yet: ROADMAP A9b.2b")
+        self.use_zero_bubble = bool(use_zero_bubble)
+        if use_zero_bubble and num_chunks != 1:
+            raise ValueError("zero-bubble supports num_chunks=1 only")
+        if use_zero_bubble and (config.hidden_dropout_prob
+                                or config.attention_dropout_prob):
+            raise ValueError(
+                "use_zero_bubble requires zero dropout (the hand-written "
+                "backward re-traces the block; see pipeline_spmd_zb)")
         self.config = config
         self.num_stages = int(num_stages)
         self.num_micro = int(num_micro)
@@ -94,18 +104,25 @@ class GPTForCausalLMPipe(nn.Module):
             self.register_parameter(flat, nn.Parameter(torch.empty(
                 lead + tuple(p.shape), **factory)))
             self._stacked_names.append((flat, pname))
-        self._init_weights(torch.Generator(device=dev).manual_seed(
-            seed + self.stage))
+        self._init_weights(dev, seed)
 
     @torch.no_grad()
-    def _init_weights(self, gen):
+    def _init_weights(self, dev, seed):
+        """The parameters outside the ring (replicated, as the
+        reference's are) from ``seed`` alike on every stage, the stage's
+        block slices from ``seed + 1 + stage``."""
+        outer = torch.Generator(device=dev).manual_seed(seed)
+        inner_gen = torch.Generator(device=dev).manual_seed(
+            seed + 1 + self.stage)
         std = self.config.initializer_range
         resid = 1.0 / math.sqrt(2.0 * self.config.num_layers)
         lead = 2 if self.num_chunks == 1 else 3
         for name, p in self.named_parameters():
-            inner = p.ndim - (lead if name.startswith("blocks__") else 0)
+            stacked = name.startswith("blocks__")
+            inner = p.ndim - (lead if stacked else 0)
             if inner >= 2:
-                p.normal_(0.0, std, generator=gen)
+                p.normal_(0.0, std, generator=inner_gen if stacked
+                          else outer)
                 if re.search(r"(out_proj|fc2)__weight$", name):
                     p.mul_(resid)
             elif name.endswith("bias"):
@@ -138,9 +155,15 @@ class GPTForCausalLMPipe(nn.Module):
             position_ids = torch.arange(s, device=input_ids.device)[None]
         x = self.drop(self.wte(input_ids.long())
                       + self.wpe(position_ids.long()))
-        out = pipeline_spmd(self._block_fn(), [t[0] for t in self.stacked()],
-                            microbatch(x, self.num_micro), group=self._group,
-                            num_chunks=self.num_chunks)
+        stage = [t[0] for t in self.stacked()]
+        xs = microbatch(x, self.num_micro)
+        if self.use_zero_bubble:
+            out = pipeline_spmd_zb(self._block_fn(), stage, xs,
+                                   group=self._group)
+        else:
+            out = pipeline_spmd(self._block_fn(), stage, xs,
+                                group=self._group,
+                                num_chunks=self.num_chunks)
         hidden = self.ln_f(unmicrobatch(out))
         return hidden @ self.wte.weight.t()
 
