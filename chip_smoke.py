@@ -424,7 +424,38 @@ Phases, one line each (any failure exits non-zero, nothing is caught):
     GPT under stage 3 card against CPU over the same ranks (loss 1e-4,
     parameters 1e-3 relative); (d) with two cards or more, (a) over
     NCCL; with one, a line that says it did not run. The kernels line
-    carries a rank's launches a step (``launches_stage3``).
+    carries a rank's launches a step (``launches_stage3``);
+29. the sep axis (sequence blocks), two gloo ranks sharing the card at
+    sep 2 (``sep_selftest.launch_card(2)``): (a) ``ring_flash_attention``
+    at GPT-3 1.3B's attention widths ``[4, 4096, 32, 64]``, fp32 and
+    bf16, causal and not, against the plain full attention of the same
+    inputs (the plain versions of the tiled pair over the whole
+    sequence) computed first in each rank: the forward within 3e-5 in
+    fp32 (phase 3's 2e-2 in bf16), the grads within phase 3's flash bars
+    (1e-4 / 2e-2 of the largest grad), bit for bit twice, and each
+    rank's launches of #7 / #8 a ring call exact (`_sep_ring_launches`:
+    ``r + 1`` on rank r causal, 2 not); (b) GPT-3 1.3B's widths with
+    ``use_ring_attention=True`` (bf16 weights, fp32 masters, bf16
+    moments, AdamW(1e-4) with the clip, recompute; depth
+    `STAGE3_LAYERS`) through ``fleet.init(sep_degree=2)`` ->
+    ``fleet.distributed_model(model).train_step(opt)``, 4 x 2048 tokens,
+    each rank on its 4 x 1024 block, 3 steps, against a world-of-one
+    ``TrainStep`` on the same weights and batch computed first in this
+    process (every step within 1e-2), the ranks' losses identical, each
+    rank's launches a step exact (`_sep_launches`: no splash (the ring
+    is aten ops), the CE 1 + 1, the update and the clip's norm 1), peak
+    memory printed beside the world of one's; (c) LLaMA-7B's widths at 2
+    layers with the ring, fp32, 2 x 2048 tokens: one step's loss and
+    grads against the world of one computed first in rank 0 (1e-2; the
+    grads over each tensor's largest element); (d) a tiny fp32 GPT and
+    GQA LLaMA with the ring card against CPU over the same ranks (loss
+    1e-4, grads 1e-3 relative, 3 steps' losses 1e-4); (e) with two
+    cards or more, (b) over NCCL; with one, a line that says it did not
+    run. The kernels line carries a rank's launches of #7 / #8 a ring
+    call (``launches_sep_ring``) and of the CE a step
+    (``launches_sep``). Phase 28 runs at the depth `STAGE3_LAYERS` (8
+    of GPT-3 1.3B's 24 layers) so that the script stays within half its
+    time limit with this phase.
 
 It then prints the ``nvidia-smi`` line again and, last, ``{"ok": true,
 "device": {...}}``. Imports torch, numpy and the port only.
@@ -448,7 +479,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
 BF16_FLOP_PER_S = 989e12        # dense bf16 tensor-core peak
 FP32_FLOP_PER_S = 67e12         # fp32 outside the tensor cores
-PHASES = 28
+PHASES = 29
 
 
 def nvidia_smi() -> str:
@@ -6101,7 +6132,9 @@ def zero_bubble_two_ranks(dev):
 
 
 # phase 28: sharding stage 3
-STAGE3_LAYERS = None        # None: GPT-3 1.3B's 24
+# GPT-3 1.3B's depth cut to 8 of its 24 layers (phases 28 and 29(b)): the
+# gloo ranks' grads go through the host, 17-30 s a step at 24 layers
+STAGE3_LAYERS = 8
 STAGE3_STEPS = 3
 
 
@@ -6201,6 +6234,131 @@ def stage3_two_ranks(dev):
                 >= MP_LOSS_BAR:
             raise AssertionError(f"stage 3 over NCCL: {nb}")
     return a["ranks"][0]["launches_per_step"]
+
+
+# phase 29: the sep axis
+SEP = 2
+SEP_LOSS_BAR = 1e-2
+SEP_RING_FWD = {"float32": 3e-5, "bfloat16": TOL_FWD[torch.bfloat16]}
+SEP_RING_BWD = {"float32": TOL_BWD[torch.float32],
+                "bfloat16": TOL_BWD[torch.bfloat16]}
+
+
+def _sep_ring_launches(rank, causal, n=SEP):
+    """A rank's launches of #7 and #8 a ring call (counted from the
+    design): a causal ring's diagonal tick and the ``rank`` ticks below
+    it, every tick of a full one; the skipped ticks launch nothing."""
+    k = rank + 1 if causal else n
+    return {"flash_fwd": k, "flash_bwd": k}
+
+
+def _sep_launches():
+    """A rank's launches a step of phase 29(b) (counted from the design):
+    the ring is aten ops, so no attention kernel; the CE 1 + 1 on the
+    rank's rows; the update and the clip's norm once (fewer than 448
+    tensors)."""
+    return {"splash_fwd_wgmma_kernel": 0, "splash_bwd_wgmma_kernels": 0,
+            "fused_ce_fwd_wgmma_kernel": 1, "fused_ce_bwd_kernels": 1,
+            "mt_adam_kernel": 1, "mt_norm_kernel": 1}
+
+
+def sep_two_ranks(dev):
+    """Phase 29: the sep axis at sep 2, two gloo ranks sharing the card.
+    Returns rank 0's launches (the ring's a call by its mode, the CE's a
+    step)."""
+    from paddle_tpu_torch.distributed import sep_selftest
+
+    t0 = time.perf_counter()
+    want = sep_selftest.gpt_world_one(dev, layers=STAGE3_LAYERS)
+    world1_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = sep_selftest.launch_card(SEP, layers=STAGE3_LAYERS, deadline=700)
+    wall = time.perf_counter() - t0
+    ring = res["ring"]
+    print(f"[29/{PHASES}] (a) ring_flash_attention at gpt3-1.3b attention "
+          f"widths, sep {SEP}, two ranks sharing the card over gloo (K/V "
+          f"through the host: no speed of the ring), against the plain "
+          f"full attention: {json.dumps(ring)}; {nvidia_smi()}", flush=True)
+    for r in ring:
+        for row in r["rows"]:
+            dt = row["dtype"]
+            want_n = _sep_ring_launches(r["sep_rank"], row["causal"])
+            if not (row["max_abs_err"] < SEP_RING_FWD[dt]
+                    and row["max_grad_rel"] < SEP_RING_BWD[dt]
+                    and row["same_twice"] and row["finite"]
+                    and row["launches"] == want_n
+                    and row["launches_again"] == want_n):
+                raise AssertionError(f"flash ring on sep rank "
+                                     f"{r['sep_rank']}: {row}, launches "
+                                     f"want {want_n}")
+    b = res["gpt"]
+    L = b["layers"]
+    report = {"model": "gpt3-1.3b widths", "layers": L,
+              "cut": None if L == 24 else f"depth {L} of 24 layers",
+              "sep": res["world"], "tokens": b["tokens"],
+              "backend": res["backend"], "world1": want,
+              "world1_s": world1_s, "ranks": b["ranks"],
+              "launch_wall_s": wall, "nvidia_smi": nvidia_smi()}
+    print(f"[29/{PHASES}] (b) gpt3-1.3b widths, use_ring_attention=True, "
+          f"fleet.init(sep_degree={SEP}) -> distributed_model -> "
+          f"train_step, two ranks sharing the card over gloo (K/V and "
+          f"grads through the host: the step times are gloo's, no speed of "
+          f"sep): {json.dumps(report)}", flush=True)
+    if want["launches_per_step"] != _stage3_launches(L):
+        raise AssertionError(f"world-of-one launches a step "
+                             f"{want['launches_per_step']}, want "
+                             f"{_stage3_launches(L)}")
+    for r in b["ranks"]:
+        gaps = [abs(x - y) for x, y in zip(r["losses"], want["losses"])]
+        if not (len(gaps) == 3 and max(gaps) < SEP_LOSS_BAR
+                and all(np.isfinite(r["losses"]))):
+            raise AssertionError(f"sep rank {r['rank']} losses "
+                                 f"{r['losses']} against world 1 "
+                                 f"{want['losses']}")
+        if r["losses"] != b["ranks"][0]["losses"]:
+            raise AssertionError(f"ranks' losses differ: {b['ranks']}")
+        if r["launches_per_step"] != _sep_launches():
+            raise AssertionError(f"sep rank {r['rank']} launches a step "
+                                 f"{r['launches_per_step']}, want "
+                                 f"{_sep_launches()}")
+        if r["wrapper"] != "SegmentParallel":
+            raise AssertionError(f"distributed_model gave {r['wrapper']}")
+    c = res["llama"]
+    print(f"[29/{PHASES}] (c) llama-7b widths at {c['layers']} layers, "
+          f"use_ring_attention=True, fp32, sep {SEP}, one step against the "
+          f"world of one: {json.dumps(c)}; {nvidia_smi()}", flush=True)
+    r0 = c["ranks"][0]
+    if not (r0["loss_diff"] < SEP_LOSS_BAR
+            and r0["max_grad_rel"] < SEP_LOSS_BAR
+            and len({r["loss"] for r in c["ranks"]}) == 1):
+        raise AssertionError(f"llama under sep: {c}")
+    tiny = res["tiny"]
+    print(f"[29/{PHASES}] (d) a tiny fp32 GPT and GQA LLaMA with the ring "
+          f"at sep {SEP}, card against CPU over the same gloo ranks: "
+          f"{json.dumps(tiny)}; {nvidia_smi()}", flush=True)
+    for fam, t in tiny.items():
+        if not (t["loss_diff"] < 1e-4 and t["max_grad_rel"] < 1e-3
+                and t["max_step_loss_diff"] < 1e-4):
+            raise AssertionError(f"sep {fam} card against CPU: {t}")
+    if torch.cuda.device_count() < 2:
+        print(f"[29/{PHASES}] (e) sep {SEP} over NCCL: not run (1 card); "
+              f"{nvidia_smi()}", flush=True)
+    else:
+        nb = sep_selftest.launch_card(SEP, nccl=True, layers=STAGE3_LAYERS,
+                                      deadline=600)["gpt"]["ranks"][0]
+        print(f"[29/{PHASES}] (e) sep {SEP} over NCCL, one card a rank: "
+              f"losses {nb['losses']}, step s {nb['step_s']}; "
+              f"{nvidia_smi()}", flush=True)
+        if max(abs(x - y) for x, y in zip(nb["losses"], want["losses"])) \
+                >= SEP_LOSS_BAR:
+            raise AssertionError(f"sep over NCCL: {nb}")
+    rows = {(row["dtype"], row["causal"]): row["launches"]
+            for row in ring[0]["rows"]}
+    return ({"causal": rows[("bfloat16", True)],
+             "full": rows[("bfloat16", False)]},
+            b["ranks"][0]["launches_per_step"])
 
 
 def main() -> int:
@@ -6303,6 +6461,9 @@ def main() -> int:
     t0 = time.perf_counter()
     stage3_launches = stage3_two_ranks(dev)
     print(f"[28/{PHASES}] wall {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    sep_ring, sep_launches = sep_two_ranks(dev)
+    print(f"[29/{PHASES}] wall {time.perf_counter() - t0:.1f} s", flush=True)
 
     where = {name: (PAGED_SOURCE, f"{PAGED_TPU}:{line}")
              for name, (_, _, _, line) in PAGED_KERNELS.items()}
@@ -6371,6 +6532,16 @@ def main() -> int:
              # phase 28(a): a rank's launches a step under stage 3
              **({"launches_stage3": stage3_launches[name]}
                 if name in stage3_launches else {}),
+             # phase 29(a): sep rank 0's launches a ring call (bf16), by
+             # mode
+             **({"launches_sep_ring": {
+                 mode: ran["flash_fwd" if "fwd" in name else "flash_bwd"]
+                 for mode, ran in sep_ring.items()}}
+                if name in ("flash_fwd_wgmma_kernel",
+                            "flash_bwd_wgmma_kernels") else {}),
+             # phase 29(b): a rank's launches a step at sep 2
+             **({"launches_sep": sep_launches[name]}
+                if name in sep_launches else {}),
              # phase 26(a): the shards of LLaMA-7B's head at mp 2 and 4
              **({"llama_mp_shards": {
                  mp: {k: rec[k] for k in ("shape", "errors")}

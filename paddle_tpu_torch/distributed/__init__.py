@@ -10,8 +10,10 @@ buckets, `DataParallel` averages them, `fleet` builds the topology and
 the sharded optimizer (stage 1), `sharding` stage 2, and `store` is the
 ranks' key-value store. The comm stack's int8 quantizer is also what the
 int8 paged KV pools store in. `fleet.layers.mpu` and
-`fleet.TensorParallel` run tensor parallelism over the mp axis. The pp,
-sep and ep axes, eager stage 3, the auto-tuner and the launcher wait for
+`fleet.TensorParallel` run tensor parallelism over the mp axis,
+`fleet.PipelineParallel` the pp axis, `fleet.SegmentParallel` the sep
+axis (a rank holds its block of the sequence; ring attention over the
+sep group). The ep axis, the auto-tuner and the launcher wait for
 ROADMAP A9b (torchrun launches ranks until then).
 """
 from . import env, fleet, sharding  # noqa: F401

@@ -1,13 +1,14 @@
 """Fleet: the port of paddle_tpu/distributed/fleet for the dp, sharding,
-mp and pp axes: `DistributedStrategy`, `init`, the topology and its
+mp, pp and sep axes: `DistributedStrategy`, `init`, the topology and its
 groups, `distributed_model` / `distributed_optimizer`, sharding stage 1
 (`DygraphShardingOptimizer`), tensor parallelism (`layers.mpu`,
 `TensorParallel`, the clip over the model-parallel group), pipeline
 parallelism (`meta_parallel.PipelineLayer`, `PipelineParallel`, the
-ring of `meta_parallel.spmd_pipeline`), the sync helpers and sequence
-parallelism (`utils`) and activation recomputation. The sep axis
-(`SegmentParallel`, a sep degree above 1 in ``hybrid_configs``) raises,
-naming ROADMAP A9b."""
+ring of `meta_parallel.spmd_pipeline`), sequence blocks over the sep
+axis (`SegmentParallel`, `meta_parallel.ring_attention`), the sync
+helpers and Megatron's sequence parallelism (`utils`) and activation
+recomputation. The sep axis composes with dp alone (the rest raises,
+naming ROADMAP A9b.5b)."""
 from . import layers, meta_optimizers, meta_parallel, utils  # noqa: F401
 from .layers.mpu import get_rng_state_tracker  # noqa: F401
 from .fleet import (DistributedStrategy, Fleet, barrier_worker,  # noqa: F401

@@ -14,7 +14,11 @@ above 1 gives `meta_parallel.TensorParallel`, a sharding degree above 1
 `distributed_optimizer` gives `HybridParallelOptimizer`, which shards
 the optimizer state over the data axes when the sharding degree is
 above 1 and clips by the global norm over the pp x mp group when the
-mp or pp degree is. A sep degree above 1 raises, naming ROADMAP A9b.5.
+mp or pp degree is. A sep degree above 1 gives
+`meta_parallel.SegmentParallel` (each rank its block of the sequence;
+with an mp, pp or sharding degree above 1 it raises, naming ROADMAP
+A9b.5b), whose grads are summed over sep and averaged over dp before the
+optimizer (and its clip) sees them.
 
     strategy = fleet.DistributedStrategy()
     strategy.hybrid_configs.update({"dp_degree": d, "mp_degree": m,
@@ -109,9 +113,12 @@ class Fleet:
         hcg = self._hcg
         from ..parallel import DataParallel
         from .meta_parallel import (HybridParallel, PipelineLayer,
-                                    PipelineParallel, ShardingParallel,
-                                    TensorParallel)
+                                    PipelineParallel, SegmentParallel,
+                                    ShardingParallel, TensorParallel)
 
+        if hcg.get_sep_parallel_world_size() > 1:
+            # first: it refuses the axes it does not compose with yet
+            return SegmentParallel(model, hcg, strategy=self._strategy)
         if hcg.get_pipe_parallel_world_size() > 1:
             if isinstance(model, PipelineLayer):
                 return PipelineParallel(model, hcg, strategy=self._strategy)

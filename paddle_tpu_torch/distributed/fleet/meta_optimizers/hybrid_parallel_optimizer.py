@@ -19,7 +19,9 @@ step's non-finite flag is one flag over the pp x mp group (the
 optimizer's ``_found_group``; `amp.GradScaler` reads it there too): every
 rank skips or steps together. With ``pipelined=False`` the model is
 whole on every pp rank (a model that is not a `PipelineLayer`): the pp
-group is left out of the norm and the flag.
+group is left out of the norm and the flag. Under a sep degree above 1
+`SegmentParallel` hands the optimizer grads already reduced over dp+sep,
+so the plain step is global; sharding there raises (ROADMAP A9b.5b).
 """
 from __future__ import annotations
 
@@ -60,6 +62,11 @@ class HybridParallelOptimizer:
         shard = hcg is not None and (
             hcg.get_sharding_parallel_world_size() > 1
             or bool(getattr(strategy, "sharding", False)))
+        if shard and hcg.get_sep_parallel_world_size() > 1:
+            raise NotImplementedError(
+                "a sharded optimizer under a sep degree above 1 is not "
+                "ported yet: ROADMAP A9b.5b (the sep axis composes with dp "
+                "alone)")
         if shard and not isinstance(optimizer, DygraphShardingOptimizer):
             optimizer = DygraphShardingOptimizer(optimizer, hcg)
         self._inner_opt = optimizer

@@ -10,20 +10,27 @@ sharded fused scan over a data or model degree above 1, dp x mp when the
 mesh has an mp axis). `TensorParallel` runs a model built of the
 `layers.mpu` layers over the model-parallel group. `PipelineParallel`
 runs a `PipelineLayer`'s stages, one rank a stage (`pipeline_parallel`).
-`SegmentParallel` (the sep axis) raises, naming ROADMAP A9b.5.
+`SegmentParallel` runs the sep axis: each rank its block of the
+sequence (`ring_attention`).
 """
 from __future__ import annotations
 
+import torch
 from torch import nn
+
+from ...collective import all_gather_concat
+from .ring_attention import (ring_attention, ring_flash_attention,
+                             sep_gathered_attention, sep_group, sep_shard)
 
 __all__ = ["HybridParallel", "LayerDesc", "MetaParallelBase",
            "PipelineLayer", "PipelineParallel",
            "PipelineParallelWithInterleave", "SegmentParallel",
            "SharedLayerDesc", "ShardingParallel", "TensorParallel",
-           "pipelined_blocks"]
+           "pipelined_blocks", "ring_attention", "ring_flash_attention",
+           "sep_gathered_attention", "sep_group", "sep_shard"]
 
-A9B = ("{} (the {} axis) is not ported yet: ROADMAP A9b.5; the port runs "
-       "the dp, sharding, mp and pp axes")
+A9B5B = ("{} under a sep degree above 1 is not ported yet: ROADMAP A9b.5b "
+         "(the sep axis composes with dp alone)")
 
 
 class MetaParallelBase(nn.Module):
@@ -149,9 +156,107 @@ class TensorParallel(MetaParallelBase):
         return self
 
 
+class _SeqConcat(torch.autograd.Function):
+    """The sep group's blocks of an output concatenated on dim 1 forward;
+    this rank's block of the grad backward (every rank computes the same
+    loss from the whole output: `mp_ops.c_concat` on the sequence dim)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_gather_concat(x.contiguous(), group, axis=1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return sep_shard(g, ctx.group), None
+
+
 class SegmentParallel(MetaParallelBase):
-    def __init__(self, *a, **k):
-        raise NotImplementedError(A9B.format("SegmentParallel", "sep"))
+    """Reference segment_parallel.py:26 (the reference's
+    meta_parallel/__init__.py:81-97): the sequence dim sharded over sep.
+    A rank holds its block of the sequence: ``forward`` cuts dim 1 of
+    every tensor input of two dims or more to it (`sep_shard`; a length
+    that does not divide by the degree raises, A9b.5b, where the
+    reference leaves such a tensor whole) and runs the model there, whose
+    attention runs over the sep group (`ring_attention` under the
+    config's ``use_ring_attention``, else `sep_gathered_attention`) at
+    the block's global positions; the output's blocks are gathered back
+    on dim 1 (the rank's block of the grad backward), so the reference's
+    ``crit(SegmentParallel(model, hcg)(ids), labels)`` gives the world
+    of one's loss on every rank. ``loss`` cuts its inputs the same way
+    and runs the model's ``loss``, whose token sums and counts are summed
+    over the sep group (the global mean over the rank's rows). At
+    construction the parameters are broadcast over the sep and dp groups
+    (group rank 0's win); `apply_collective_grads` (which `jit.TrainStep`
+    calls after the backward) sums the grads over sep and averages them
+    over dp (`fused_allreduce_gradients` over the dp+sep group), so the
+    non-finite guard and the clip see reduced grads. `train_step` is a
+    `jit.TrainStep` over this wrapper's ``loss``.
+
+    Stricter than the reference: an mp, pp or sharding degree above 1, a
+    ``scan_layers`` GPT and a GPT with draft heads raise
+    ``NotImplementedError`` naming ROADMAP A9b.5b (the reference composes
+    them under GSPMD)."""
+
+    def __init__(self, layers, hcg, strategy=None):
+        from ...sharding import group_sharded as _gs
+        from ....jit.sharded_scan import is_scan_gpt
+        from ..utils.hybrid_parallel_util import (broadcast_dp_parameters,
+                                                  broadcast_sep_parameters)
+
+        for what, deg in (("the mp axis",
+                           hcg.get_model_parallel_world_size()),
+                          ("the pp axis", hcg.get_pipe_parallel_world_size()),
+                          ("the sharding axis",
+                           hcg.get_sharding_parallel_world_size())):
+            if deg > 1:
+                raise NotImplementedError(A9B5B.format(f"{what} ({deg})"))
+        if isinstance(layers, (_gs.GroupShardedStage2,
+                               _gs.GroupShardedStage3)):
+            raise NotImplementedError(A9B5B.format(
+                "group_sharded_parallel (stages 2/3)"))
+        if is_scan_gpt(layers):
+            raise NotImplementedError(A9B5B.format(
+                "a scan_layers GPT (the fused scan steps)"))
+        if getattr(layers, "draft_heads", None) is not None:
+            raise NotImplementedError(A9B5B.format(
+                "draft heads (their labels cross the blocks)"))
+        super().__init__(layers, hcg, strategy)
+        broadcast_sep_parameters(layers, hcg)
+        broadcast_dp_parameters(layers, hcg)
+
+    @property
+    def _sep(self):
+        return self._hcg.get_sep_parallel_group()
+
+    def _cut(self, inputs, kwargs):
+        def cut(t):
+            if isinstance(t, torch.Tensor) and t.dim() >= 2:
+                return sep_shard(t, self._sep)
+            return t
+
+        return (tuple(cut(t) for t in inputs),
+                {k: cut(t) for k, t in kwargs.items()})
+
+    def forward(self, *inputs, **kwargs):
+        inputs, kwargs = self._cut(inputs, kwargs)
+        out = self._layers(*inputs, **kwargs)
+        if isinstance(out, torch.Tensor) and out.dim() >= 2:
+            return _SeqConcat.apply(out, self._sep)
+        return out
+
+    def loss(self, *inputs, **kwargs):
+        inputs, kwargs = self._cut(inputs, kwargs)
+        return self._layers.loss(*inputs, **kwargs)
+
+    def apply_collective_grads(self):
+        from ..utils.hybrid_parallel_util import fused_allreduce_gradients
+
+        fused_allreduce_gradients(list(self._layers.parameters()),
+                                  self._hcg)
+
+    def _step_model(self):
+        return self
 
 
 from .pp_layers import LayerDesc, PipelineLayer, SharedLayerDesc  # noqa: E402

@@ -9,9 +9,12 @@ every axis (and the fused data group) on every rank, in the same order:
 one would hang the others. This rank's coordinates come from its global
 rank. The model (mp) and pipe (pp) axes take any degree: a rank's
 stage is its pipe coordinate, its ring neighbours the ranks one stage
-before and after it with the other coordinates fixed. The sep axis is
-ported to degree 1 only (its getters give 1 and rank 0), and a degree
-above 1 raises, naming ROADMAP A9b.5.
+before and after it with the other coordinates fixed. The sep axis
+(sequence blocks, `meta_parallel.SegmentParallel`) takes any degree: at
+a degree above 1 it has its group and the fused dp+sep group
+(`get_dp_sep_parallel_group`, over which the grads are reduced), as in
+the reference (:117, :126-131); at degree 1 its group is None and the
+dp+sep group is the dp group.
 """
 from __future__ import annotations
 
@@ -27,9 +30,6 @@ __all__ = ["CommunicateTopology", "HybridCommunicateGroup",
 
 _AXIS_NAME = {"pipe": "pp", "data": "dp", "sharding": "sharding",
               "sep": "sep", "model": "mp"}
-A9B = ("the {} axis (degree {}) is not ported yet: ROADMAP A9b.5 (sep); "
-       "the port runs the dp, sharding, mp and pp axes")
-
 
 class CommunicateTopology:
     """Reference topology.py:66: coordinate math over the hybrid grid."""
@@ -101,8 +101,6 @@ class HybridCommunicateGroup:
             mesh = env.build_mesh({_AXIS_NAME[n]: topology.get_dim(n)
                                    for n in
                                    topology.get_hybrid_group_names()})
-        if mesh.shape.get("sep", 1) > 1:
-            raise NotImplementedError(A9B.format("sep", mesh.shape["sep"]))
         env.set_mesh(mesh)
         self._mesh = mesh
         if topology is None:
@@ -120,8 +118,12 @@ class HybridCommunicateGroup:
         self._mp_group = self._make_group(("mp",))
         self._pp_group = self._make_group(("pp",))
         self._sharding_group = self._make_group(("sharding",))
-        self._sep_group = None
-        self._dp_sep_group = self._dp_group
+        # the sep group and the fused dp+sep group (reference :117,
+        # :126-131), only at a sep degree above 1, as there
+        sep = self._sep_degree > 1
+        self._sep_group = self._make_group(("sep",)) if sep else None
+        self._dp_sep_group = (self._make_group(("dp", "sep")) if sep
+                              else self._dp_group)
         data = env.data_axes(mesh)
         self._data_group = (self._make_group(data) if len(data) > 1
                             else self._dp_group if data == ("dp",)
@@ -187,7 +189,7 @@ class HybridCommunicateGroup:
         return self._sep_degree
 
     def get_sep_parallel_rank(self):
-        return 0
+        return self._index("sep")
 
     # -- groups ----------------------------------------------------------------
     def get_data_parallel_group(self):

@@ -6,12 +6,15 @@ data-parallel group with one bucketed all-reduce a bucket (a rank's
 grads are partial in the port, as in the reference's per-rank
 processes); a model-parallel group beside it is left alone: a block's
 grad is its own, and a replicated parameter's is whole on every
-model-parallel rank already. The broadcasts send group rank 0's
+model-parallel rank already. Under a sep degree above 1 (reference
+:254-269) the all-reduce runs over the fused dp+sep group and the sum is
+divided by the dp degree alone: a sep rank's grad is its block of the
+sequence's part of one loss (summed), a dp rank's the grad of its rows'
+loss (averaged). The broadcasts send group rank 0's
 parameters (and buffers) to the group, so ranks start equal;
 `broadcast_mp_parameters` skips the mpu layers' blocks
 (``is_distributed``), which differ by rank, and `broadcast_input_data`
-sends group rank 0's inputs over the model-parallel group. The sep one
-has degree 1 here (ROADMAP A9b) and does nothing.
+sends group rank 0's inputs over the model-parallel group.
 """
 from __future__ import annotations
 
@@ -29,18 +32,26 @@ __all__ = ["broadcast_dp_parameters", "broadcast_input_data",
 @torch.no_grad()
 def fused_allreduce_gradients(parameter_list, hcg=None, group=None):
     """The grads' mean over ``group`` (default: hcg's data-parallel
-    group), in place."""
+    group; under a sep degree above 1 the sum over hcg's dp+sep group
+    divided by the dp degree), in place."""
     from ...parallel import data_group
 
+    div = None
+    if group is None and hcg is not None and \
+            hcg.get_sep_parallel_world_size() > 1:
+        group = hcg.get_dp_sep_parallel_group()
+        div = hcg.get_data_parallel_world_size()
     group = group or (hcg.get_data_parallel_group() if hcg is not None
                       else data_group())
+    div = div or group.nranks
     grads = [p.grad for p in parameter_list
              if getattr(p, "grad", None) is not None]
     if not grads or group.nranks == 1:
         return
     bucketed_all_reduce(grads, group=group)
-    for g in grads:
-        g.mul_(1.0 / group.nranks)
+    if div > 1:
+        for g in grads:
+            g.mul_(1.0 / div)
 
 
 def _broadcast(model, group):
@@ -68,7 +79,9 @@ def broadcast_mp_parameters(model, hcg):
 
 
 def broadcast_sep_parameters(model, hcg):
-    return None
+    group = hcg.get_sep_parallel_group()
+    if group is not None:
+        _broadcast(model, group)
 
 
 @torch.no_grad()

@@ -457,6 +457,11 @@ def group_sharded_parallel(model, optimizer, level, scaler=None, group=None,
     from ..fleet.topology import get_hybrid_communicate_group
 
     hcg = get_hybrid_communicate_group() if group is None else None
+    if hcg is not None and hcg.get_sep_parallel_world_size() > 1:
+        raise NotImplementedError(
+            "group_sharded_parallel under a sep degree above 1 is not "
+            "ported yet: ROADMAP A9b.5b (the sep axis composes with dp "
+            "alone)")
     opt = (optimizer if isinstance(optimizer, DygraphShardingOptimizer)
            else DygraphShardingOptimizer(optimizer, hcg=hcg, group=group))
     if level == "p_g_os":

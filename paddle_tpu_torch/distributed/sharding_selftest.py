@@ -328,11 +328,23 @@ def case_data_parallel(ctx):
                            torch.nn.Linear(2, 2).to(dev))).__name__]
     s = DistributedStrategy()
     s.hybrid_configs = {"dp_degree": 1, "sep_degree": n}
+    fleet.init(is_collective=True, strategy=s)
+    hcg = fleet.get_hybrid_communicate_group()
+    out["sep_fleet"] = [hcg.get_sep_parallel_world_size(),
+                        hcg.get_sep_parallel_rank(),
+                        hcg.get_sep_parallel_group().ranks,
+                        hcg.get_dp_sep_parallel_group().ranks,
+                        type(fleet.distributed_model(
+                            torch.nn.Linear(2, 2).to(dev))).__name__]
+    s.sharding = True           # a sharded optimizer beside sep
     try:
-        fleet.init(is_collective=True, strategy=s)
-        out["refuse_sep"] = ""
+        from ..optimizer import SGD
+
+        fleet.distributed_optimizer(SGD(parameters=torch.nn.Linear(2, 2)
+                                        .to(dev).parameters()))
+        out["refuse_sep_sharding"] = ""
     except NotImplementedError as e:
-        out["refuse_sep"] = str(e)
+        out["refuse_sep_sharding"] = str(e)
     env.set_mesh(env.build_mesh({"dp": n}))
     ds = list(range(a["dataset"]))
     for shuffle in (False, True):

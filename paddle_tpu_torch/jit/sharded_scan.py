@@ -98,10 +98,10 @@ subclass) adds the ``pp`` axis to the group the grads scatter over
 pipeline ring; `select_train_step` routes a scan GPT on a mesh whose pp
 degree is above 1 there.
 
-Refused, naming ROADMAP A9b: ``ep_axis`` and a mesh with an ep or sep
-degree above 1 (and a pp degree above 1 here: the pipelined step takes
-it); `select_train_step` also refuses ``auto=True`` (the auto-tuner,
-A9b.6).
+Refused, naming ROADMAP A9b: ``ep_axis`` and a mesh with an ep degree
+above 1, a sep degree above 1 (A9b.5b), and a pp degree above 1 here
+(the pipelined step takes it); `select_train_step` also refuses
+``auto=True`` (the auto-tuner, A9b.6).
 """
 from __future__ import annotations
 
@@ -147,9 +147,13 @@ def _mesh_axes(mesh, axis=None, mp_axis=None, extra=()):
     of degree 1 is dropped, as the reference drops it (:316-318). A pp
     degree above 1 needs the pipelined step (``extra`` names the axes it
     adds)."""
-    for a in ("ep", "sep"):
-        if mesh.shape.get(a, 1) > 1:
-            raise NotImplementedError(A9B.format(f"the {a} axis"))
+    if mesh.shape.get("ep", 1) > 1:
+        raise NotImplementedError(A9B.format("the ep axis"))
+    if mesh.shape.get("sep", 1) > 1:
+        raise NotImplementedError(
+            "the sep axis under the fused scan steps is not ported yet: "
+            "ROADMAP A9b.5b (SegmentParallel trains a model that is not a "
+            "scan_layers GPT)")
     if mesh.shape.get("pp", 1) > 1 and "pp" not in extra:
         raise ValueError(
             "a mesh with a pp degree above 1 runs the pipeline ring: use "
@@ -940,7 +944,8 @@ def select_train_step(model, optimizer, criterion=None, mesh=None,
     axis, degree 1 is fine); over a data or mp degree above 1
     `ShardedFusedScanTrainStep` (dp x mp when the mesh's mp degree is
     above 1), at degree 1 `FusedScanTrainStep`; another model `TrainStep`
-    (over ``criterion(model(ids), labels)``, else ``model.loss``; of
+    (over ``criterion(model(ids), labels)``, else ``model.loss`` of the
+    whole batch: ids, labels and, where given, a loss mask; of
     ``kw`` its ``accumulate_steps``, ``scaler``, ``guard_nonfinite`` and
     ``numerics``)."""
     from .train_step import TrainStep
@@ -991,5 +996,5 @@ def select_train_step(model, optimizer, criterion=None, mesh=None,
     if criterion is not None:
         return TrainStep(model, lambda m, a, b: criterion(m(a), b),
                          optimizer, **step_kw)
-    return TrainStep(model, lambda m, a, b: m.loss(a, b), optimizer,
+    return TrainStep(model, lambda m, *batch: m.loss(*batch), optimizer,
                      **step_kw)

@@ -39,8 +39,20 @@ reference's names), which `jit.FusedScanTrainStep` trains one layer
 chunk at a time; such a model trains and evaluates, and refuses the
 cached serving paths, as the reference does.
 
-Not ported yet, and refused by `GPTConfig`: MoE and ring attention
-(A9b/A10).
+Sequence parallelism (the sep axis). Under a fleet whose sep degree is
+above 1 (`distributed.fleet.meta_parallel.SegmentParallel`) a rank's
+input is its block of the sequence: the default position ids are the
+block's global positions, attention runs over the sep group
+(`ring_attention` with ``use_ring_attention``, else the rank's queries
+over the gathered K/V, `sep_gathered_attention`), and ``loss`` sums the
+tokens' losses and counts over the group, so every rank holds the
+global mean. ``use_ring_attention`` at a world of one (or a sep degree
+of 1) runs the dense path, as the reference's does. Stricter than the
+reference, which falls back to dense attention there: attention
+dropout, segment ids, a ``scan_layers`` stack and draft heads under a
+sep degree above 1 raise, naming ROADMAP A9b.5b.
+
+Not ported yet, and refused by `GPTConfig`: MoE (A9b.3).
 """
 from __future__ import annotations
 
@@ -54,6 +66,9 @@ import torch.nn.functional as F
 from torch import nn
 from torch.func import functional_call
 
+from ..distributed.fleet.layers.mpu.mp_ops import mp_allreduce
+from ..distributed.fleet.meta_parallel.ring_attention import (
+    ring_attention, sep_gathered_attention, sep_group)
 from ..distributed.fleet.recompute import POLICIES, recompute
 from ..framework.device import resolve_device
 from ..incubate.nn import functional as IF
@@ -91,8 +106,9 @@ class GPTConfig:
     # positions ahead; their auxiliary CE is weighted into `loss`
     num_draft_heads: int = 0
     draft_head_loss_weight: float = 0.1
-    # accepted for the reference's signature, refused until their slices
+    # attention over the sep group's ring (module docstring)
     use_ring_attention: bool = False
+    # accepted for the reference's signature, refused until its slice
     num_experts: int = 0
 
     def __post_init__(self):
@@ -102,16 +118,10 @@ class GPTConfig:
             raise ValueError(
                 f"unknown recompute policy {self.recompute_policy!r}; use "
                 f"'dots' or 'nothing'/'full'")
-        refused = {
-            "num_experts>0": (self.num_experts > 0, "A9b/A10 (MoE)"),
-            "use_ring_attention=True": (self.use_ring_attention,
-                                        "A9b (ring attention)"),
-        }
-        for what, (on, owner) in refused.items():
-            if on:
-                raise NotImplementedError(
-                    f"GPTConfig({what}) is not ported yet: ROADMAP queue "
-                    f"{owner}")
+        if self.num_experts > 0:
+            raise NotImplementedError(
+                "GPTConfig(num_experts>0) is not ported yet: ROADMAP queue "
+                "A9b.3 (MoE)")
 
 
 # sizes follow the GPT-3 paper table
@@ -152,17 +162,28 @@ class GPTAttention(nn.Module):
         self.qkv = nn.Linear(h, 3 * h, **factory)
         self.out_proj = nn.Linear(h, h, **factory)
         self.dropout_p = config.attention_dropout_prob
+        self.use_ring = config.use_ring_attention
 
     def forward(self, x, segment_ids=None):
         """Causal self-attention over [b, s, h]; ``segment_ids`` [b, s]
         keeps packed documents apart. q/k/v go to the kernel as strided
-        views of the qkv product, without a copy."""
+        views of the qkv product, without a copy. Under a sep degree
+        above 1, ``x`` is the rank's block of the sequence (module
+        docstring)."""
         b, s, h = x.shape
         qkv = self.qkv(x).reshape(b, s, 3, self.num_heads, self.head_dim)
-        out = PF.scaled_dot_product_attention(
-            qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], is_causal=True,
-            dropout_p=self.dropout_p, training=self.training,
-            segment_ids=segment_ids)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        sep = sep_group()
+        if sep is None:
+            out = PF.scaled_dot_product_attention(
+                q, k, v, is_causal=True, dropout_p=self.dropout_p,
+                training=self.training, segment_ids=segment_ids)
+        else:
+            _refuse_under_sep(self.dropout_p > 0 and self.training,
+                              segment_ids is not None)
+            attend = ring_attention if self.use_ring \
+                else sep_gathered_attention
+            out = attend(q, k, v, sep, causal=True)
         # the heads' width (under tensor parallelism a rank's nh/mp heads)
         return self.out_proj(out.reshape(b, s, -1))
 
@@ -247,6 +268,18 @@ class GPTAttention(nn.Module):
             cache.v_layers[layer_idx], rows, start, k_scales=ks,
             v_scales=vs)
         return self.out_proj(out.reshape(b, c, h))
+
+
+def _refuse_under_sep(dropout, segments):
+    """Attention dropout and segment ids under a sep degree above 1: the
+    reference falls back to dense attention over the whole sequence,
+    which no rank holds here."""
+    for what, on in (("attention dropout", dropout),
+                     ("segment ids", segments)):
+        if on:
+            raise NotImplementedError(
+                f"{what} under a sep degree above 1 is not ported yet: "
+                f"ROADMAP A9b.5b")
 
 
 class GPTMLP(nn.Module):
@@ -385,10 +418,18 @@ class GPTModel(nn.Module):
         """Final hiddens [b, s, h]. ``segment_ids`` ([b, s] int) marks
         packed-sequence documents: tokens attend only within their own.
         Positions default to ``arange(s)`` whatever the segments, as in
-        the reference."""
+        the reference; under a sep degree above 1 to the rank's block's
+        global positions ``r * s + arange(s)``."""
         b, s = input_ids.shape
+        sep = sep_group()
+        if sep is not None and self.config.scan_layers:
+            raise NotImplementedError(
+                "a scan_layers GPT under a sep degree above 1 is not ported "
+                "yet: ROADMAP A9b.5b")
         if position_ids is None:
-            position_ids = torch.arange(s, device=input_ids.device)[None]
+            start = 0 if sep is None else sep.rank * s
+            position_ids = torch.arange(start, start + s,
+                                        device=input_ids.device)[None]
         x = self.drop(self._embed(input_ids, position_ids))
         if self.config.scan_layers:
             x = self.blocks(x, segment_ids)
@@ -601,6 +642,10 @@ class GPTForCausalLM(nn.Module):
         straight into the vocab-tiled cross entropy, so the [tokens,
         vocab] logits never exist. Numerically
         ``GPTPretrainingCriterion()(self(ids), labels, loss_mask)``."""
+        if self.draft_heads is not None and sep_group() is not None:
+            raise NotImplementedError(
+                "draft heads under a sep degree above 1 are not ported "
+                "yet: ROADMAP A9b.5b")
         hidden = self.gpt(input_ids, position_ids, segment_ids=segment_ids)
         # both heads are [vocab, hidden] here (the reference's untied head
         # is an [hidden, vocab] Paddle Linear with transpose_y=False)
@@ -634,7 +679,20 @@ def draft_head_loss(model, hidden, weight, transpose_y, labels,
 def fused_lm_loss(hidden, weight, transpose_y, labels, loss_mask=None):
     """Fused LM-head loss: fused cross entropy, then the criterion's
     masked-mean reduction (mean over non-ignored labels without a mask;
-    ``sum(loss * mask) / max(sum(mask), 1)`` with one)."""
+    ``sum(loss * mask) / max(sum(mask), 1)`` with one). Under a sep
+    degree above 1 the rank's rows are its block of the sequence: the
+    sum and the count are summed over the sep group (forward; the
+    backward of the sum is the identity, each rank's grad its block's
+    part), so every rank's loss is the mean over the whole sequence."""
+    sep = sep_group()
+    if sep is not None:
+        losses = PF.fused_linear_cross_entropy(hidden, weight, labels,
+                                               transpose_y=transpose_y,
+                                               reduction="none")
+        m = (labels != -100) if loss_mask is None else loss_mask
+        m = m.to(losses.dtype)
+        tot = mp_allreduce(torch.stack([(losses * m).sum(), m.sum()]), sep)
+        return tot[0] / tot[1].clamp(min=1.0)
     if loss_mask is None:
         return PF.fused_linear_cross_entropy(hidden, weight, labels,
                                              transpose_y=transpose_y)

@@ -83,7 +83,17 @@ tensors for a seed.
 under mp its head gives the rank's vocab columns and its loss is the
 vocab-parallel CE over them (`ParallelCrossEntropy`'s).
 
-Not ported yet: ``use_ring_attention`` (ROADMAP A9b.5).
+Sequence parallelism (the sep axis, reference :128-168). Under a fleet
+whose sep degree is above 1 (`distributed.fleet.meta_parallel.
+SegmentParallel`) a rank's input is its block of the sequence: the RoPE
+tables are the block's global positions' rows, K and V are repeated to
+every query head (GQA, reference :164-166) and attention runs over the
+sep group, `ring_attention` with ``use_ring_attention``, else the rank's
+queries over the gathered K/V (`sep_gathered_attention`); ``loss`` sums
+the tokens' losses and counts over the group (`gpt.fused_lm_loss`).
+``use_ring_attention`` at a world of one runs the dense path, as the
+reference's does. Under mp and sep together the model raises, naming
+ROADMAP A9b.5b.
 """
 from __future__ import annotations
 
@@ -101,6 +111,8 @@ from ..distributed.fleet.layers.mpu import (ColumnParallelLinear,
 from ..distributed.fleet.layers.mpu.mp_ops import (c_concat, c_identity,
                                                    mp_group)
 from ..distributed.fleet.meta_parallel import LayerDesc, PipelineLayer
+from ..distributed.fleet.meta_parallel.ring_attention import (
+    ring_attention, sep_gathered_attention, sep_group)
 from ..distributed.fleet.recompute import POLICIES, recompute
 from ..framework.device import resolve_device
 from ..nn import functional as PF
@@ -147,10 +159,6 @@ class LlamaConfig:
             raise ValueError(
                 f"unknown recompute policy {self.recompute_policy!r}; use "
                 f"'dots' or 'nothing'/'full'")
-        if self.use_ring_attention:
-            raise NotImplementedError(
-                "LlamaConfig(use_ring_attention=True) is not ported yet: "
-                "ROADMAP A9b.5 (ring attention)")
 
 
 LLAMA_CONFIGS = {
@@ -257,11 +265,12 @@ class LlamaRMSNorm(Layer):
         return PF.rms_norm(x, weight=self.weight, epsilon=self.epsilon)
 
 
-def _rope_tables(seq, dim, theta, device=None):
-    """fp32 ``cos``, ``sin`` of ``[seq, dim / 2]``."""
+def _rope_tables(seq, dim, theta, device=None, start=0):
+    """fp32 ``cos``, ``sin`` of ``[seq, dim / 2]``: the rows of positions
+    ``[start, start + seq)``."""
     inv = 1.0 / (theta ** (torch.arange(0, dim, 2, dtype=torch.float32,
                                         device=device) / dim))
-    t = torch.arange(seq, dtype=torch.float32, device=device)
+    t = torch.arange(start, start + seq, dtype=torch.float32, device=device)
     freqs = torch.outer(t, inv)
     return torch.cos(freqs), torch.sin(freqs)
 
@@ -297,19 +306,33 @@ class LlamaAttention(Layer):
         self.v_proj = _linear("v_proj", h, kv, std, group, **factory)
         self.o_proj = _linear("o_proj", q, h, resid, group, **factory)
         self.rope_theta = config.rope_theta
+        self.use_ring = config.use_ring_attention
 
     def forward(self, x):
         b, s, _ = x.shape
         nh, kvh, hd = self.num_heads, self.num_kv_heads, self.head_dim
         g = nh // kvh
+        sep = sep_group()
+        if sep is not None and self._mp is not None:
+            raise NotImplementedError(
+                "LLaMA under mp and sep together is not ported yet: "
+                "ROADMAP A9b.5b")
         q, k, v = _columns(x, self._mp, self.q_proj, self.k_proj,
                            self.v_proj)
         q = q.reshape(b, s, nh, hd)
         k = k.reshape(b, s, kvh, hd)
         v = v.reshape(b, s, kvh, hd)
-        cos, sin = _rope_tables(s, hd, self.rope_theta, x.device)
+        cos, sin = _rope_tables(s, hd, self.rope_theta, x.device,
+                                start=0 if sep is None else sep.rank * s)
         q = apply_rotary_pos_emb(q.float(), cos, sin).to(x.dtype)
         k = apply_rotary_pos_emb(k.float(), cos, sin).to(x.dtype)
+        if sep is not None:
+            # every query head its K/V head's copy (reference :164-166)
+            attend = ring_attention if self.use_ring \
+                else sep_gathered_attention
+            out = attend(q, k.repeat_interleave(g, dim=2),
+                         v.repeat_interleave(g, dim=2), sep, causal=True)
+            return self.o_proj(out.reshape(b, s, nh * hd))
         # grouped scores [b, kvh, g * s, s]: query head kvh * g + j reads
         # kv head kvh; no repeat of K/V
         qg = q.reshape(b, s, kvh, g, hd).permute(0, 2, 3, 1, 4).reshape(

@@ -15,8 +15,10 @@ launcher's deadline), against the JAX package's.
   reference's (``TestTopology``, :198-225), and `HybridCommunicateGroup`
   and ``fleet.init`` over the world: degrees, ranks, groups; an mp
   degree of the world gives the model axis and `TensorParallel`, a pp
-  degree the pipe axis (stages, ring neighbours, `HybridParallel`); a
-  sep degree above 1 raises, naming ROADMAP A9b.
+  degree the pipe axis (stages, ring neighbours, `HybridParallel`), a
+  sep degree the sequence axis (its group, the dp+sep group,
+  `SegmentParallel`); a sharded optimizer beside it raises, naming
+  ROADMAP A9b.5b.
 * `DistributedBatchSampler`: every rank's batches equal the reference's
   for that rank, with and without shuffling and ``drop_last``.
 """
@@ -141,11 +143,15 @@ def test_hybrid_group_and_fleet_init_over_the_world(world):
         # mp at the world's degree runs (the model axis, TensorParallel);
         # so does pp (the pipe axis: rank r is stage r, its ring
         # neighbours r + 1 and r - 1, a model that is not a PipelineLayer
-        # HybridParallel); sep still raises, naming A9b
+        # HybridParallel), and sep (the sequence axis: rank r its block r,
+        # SegmentParallel); a sharded optimizer beside sep raises, naming
+        # A9b.5b
         assert out["mp_fleet"] == [n, r, 1, "TensorParallel"]
         assert out["pp_fleet"] == [n, r, r == 0, r == n - 1, (r + 1) % n,
                                    (r - 1) % n, "HybridParallel"]
-        assert "A9b" in out["refuse_sep"]
+        assert out["sep_fleet"] == [n, r, list(range(n)), list(range(n)),
+                                    "SegmentParallel"]
+        assert "A9b.5b" in out["refuse_sep_sharding"]
 
 
 @pytest.mark.parametrize("shuffle", [False, True])

@@ -216,8 +216,10 @@ def test_configs_and_refusals():
                                   "tinyllama-1.1b"}
     assert LlamaConfig(hidden_size=96).intermediate_size == 256
     assert LlamaConfig(num_attention_heads=8).num_key_value_heads == 8
-    with pytest.raises(NotImplementedError, match="A9"):
-        LlamaConfig(**{**TINY, "use_ring_attention": True})
+    # ring attention is ported (ROADMAP A9b.5): accepted; the ring runs
+    # under a sep group (tests/test_torch_sep.py)
+    assert LlamaConfig(**{**TINY, "use_ring_attention": True}) \
+        .use_ring_attention
     # the placement is ported: the reference's rules, spec for spec
     assert llama_sharding_rules() == jllama_sharding_rules()
     assert llama_sharding_rules("tp", "fsdp") == jllama_sharding_rules(

@@ -29,7 +29,8 @@ reference's training bars), logits 1e-5. Also:
   relative in norm, `test_torch_llama`'s bf16 bars);
 * parameters and AdamW moments through the mp maps and back, bit for
   bit;
-* the refusals: dims that do not divide by the degree, ring attention.
+* the refusals: dims that do not divide by the degree, ring attention
+  beside mp (A9b.5b).
 """
 from types import SimpleNamespace
 
@@ -373,5 +374,18 @@ def test_dims_that_do_not_split_are_refused(dim, over):
 
 
 def test_ring_attention_still_names_its_queue_entry():
-    with pytest.raises(NotImplementedError, match="A9b.5"):
-        LlamaConfig(**TINY, use_ring_attention=True)
+    """Ring attention is ported (A9b.5); beside the mp axis it raises,
+    naming its queue entry, A9b.5b."""
+    from paddle_tpu_torch.distributed.fleet import topology
+
+    model = _port({**TINY, "use_ring_attention": True},
+                  mp_group=_stand_in(2, 0))
+    sep = SimpleNamespace(
+        get_sep_parallel_group=lambda: _stand_in(2, 0),
+        get_model_parallel_group=lambda: _stand_in(2, 0))
+    topology.set_hybrid_communicate_group(sep)
+    try:
+        with pytest.raises(NotImplementedError, match=r"A9b\.5b"):
+            model.llama.layers[0].self_attn(torch.zeros(2, 8, 32))
+    finally:
+        topology.set_hybrid_communicate_group(None)

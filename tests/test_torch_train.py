@@ -548,6 +548,15 @@ def test_config_refuses_what_later_slices_own(field, value):
         assert len(heads) == 2
         assert all((p == 0).all() for p in heads.parameters())
         return
+    if field == "use_ring_attention":
+        # ported since (ROADMAP A9b.5): accepted; at a world of one (no
+        # sep group) the model is the dense one, as the reference's
+        cfg = GPTConfig(**{**TINY, field: value})
+        ring, plain = (GPTForCausalLM(c, device="cpu", seed=3)
+                       for c in (cfg, GPTConfig(**TINY)))
+        ids = torch.randint(0, TINY["vocab_size"], (2, 8))
+        torch.testing.assert_close(ring(ids), plain(ids), rtol=0, atol=0)
+        return
     if field in ("scan_layers", "recompute_policy"):
         # ported since (ROADMAP A7): accepted, and a policy the reference
         # does not know is refused as there
