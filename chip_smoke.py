@@ -3,7 +3,13 @@
 
     python3 chip_smoke.py
 
-Phases, one line each (any failure exits non-zero, nothing is caught):
+Phases (any failure exits non-zero, nothing is caught). Each phase's
+lines go whole to ``chiprun_out/chip_smoke.log`` (git-ignored); stdout
+holds one short line a phase (`_Lines`: the script's seconds at the
+phase's last line, its lines in the log, the start of the last one),
+then the kernels line with the contract's keys and every launch count
+(whole in the log), the ``nvidia-smi`` line and the result, so that a
+whole run's stdout fits a 24 KB tail:
 
 1. the card: name, device count, ``nvidia-smi`` name and power limit;
 2. build every kernel from ``paddle_tpu_torch/csrc`` with ``nvcc``, one
@@ -455,7 +461,29 @@ Phases, one line each (any failure exits non-zero, nothing is caught):
     call (``launches_sep_ring``) and of the CE a step
     (``launches_sep``). Phase 28 runs at the depth `STAGE3_LAYERS` (8
     of GPT-3 1.3B's 24 layers) so that the script stays within half its
-    time limit with this phase.
+    time limit with this phase;
+30. sep beside mp and pp (BASELINE config 5, "LLaMA-7B HybridParallel
+    tp=4 pp=2 + sequence-parallel", in one run at tp 2; tp 4 is phase
+    26's): LLaMA-7B's widths cut to `SEP_HYBRID_LAYERS` (4) layers,
+    phase 16's dtypes, ``use_ring_attention=True``, 2 x 2048 tokens,
+    weights from seed 0; (a) #11 / #12 on the rank's head shard at mp 2
+    (h [2048, 4096] bf16 over W [16000, 4096], `_mp_ce_case`: phase 3's
+    bars, shard 0 timed beside its bound), then mp 2 x sep 2, four gloo
+    ranks sharing the card (``llama_selftest.launch_card(4, sep=2)``:
+    ``fleet.init`` -> ``distributed_model`` (`SegmentParallel` over the
+    Megatron blocks) -> ``train_step``), 3 steps; (b) tp 2 x pp 2 x sep
+    2, eight ranks (`LlamaForCausalLMPipe` -> `PipelineParallel.
+    train_batch`, 2 micro-batches, each cut to the rank's block), 2
+    steps; each step's loss within 1e-2 of a world-of-one ``TrainStep``
+    computed first in this process, the ranks' losses identical, a
+    rank's launches a step (#11 and #12 once each at mp x sep, none in
+    the pipe: A9b.7b; one ``mt_adam_kernel``, two ``mt_norm_kernel``)
+    and collectives (`_sep_mp_collectives`, `_sep_pipe_collectives`)
+    exact; (c) the tiny fp32 GQA LLaMA with the ring card against CPU
+    over the same ranks (loss 1e-4, parameters 1e-3 relative). The
+    kernels line carries a rank's launches a step at mp 2 x sep 2
+    (``launches_sep_mp``) and at tp 2 x pp 2 x sep 2 by stage
+    (``launches_sep_hybrid``).
 
 It then prints the ``nvidia-smi`` line again and, last, ``{"ok": true,
 "device": {...}}``. Imports torch, numpy and the port only.
@@ -479,7 +507,60 @@ import torch
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
 BF16_FLOP_PER_S = 989e12        # dense bf16 tensor-core peak
 FP32_FLOP_PER_S = 67e12         # fp32 outside the tensor cores
-PHASES = 29
+PHASES = 30
+ROOT = os.path.dirname(os.path.abspath(__file__))
+LOG = os.path.join(ROOT, "chiprun_out", "chip_smoke.log")
+SHORT = 240                     # characters of a phase's line on stdout
+
+
+class _Lines:
+    """Where the phases' lines go: each line whole to `LOG` (under the
+    git-ignored ``chiprun_out/``), and stdout one line a phase, printed
+    when the next phase speaks or the run ends: the phase, the script's
+    seconds at its last line, its lines in the log and the start of the
+    last one (`SHORT` characters), so that a whole run's stdout stays
+    within a 24 KB tail."""
+
+    def __init__(self):
+        self.log = None
+        self.phase, self.lines, self.last, self.at = None, 0, "", 0.0
+        self.t0 = time.perf_counter()
+
+    def say(self, text):
+        if self.log is None:
+            os.makedirs(os.path.dirname(LOG), exist_ok=True)
+            self.log = open(LOG, "w")
+        self.log.write(text + "\n")
+        self.log.flush()
+        m = re.match(r"\[(\d+)/\d+\]", text)
+        k = int(m.group(1)) if m else self.phase
+        if k != self.phase:
+            self.close()
+            self.phase = k
+        self.lines += 1
+        self.last, self.at = text, time.perf_counter() - self.t0
+
+    def close(self, status="ok"):
+        """The open phase's stdout line (``status`` "failed" when the run
+        stops in it)."""
+        if self.phase is None:
+            return
+        body = self.last.split("] ", 1)[-1]
+        line = (f"[{self.phase}/{PHASES}] {status} at {self.at:.1f} s, "
+                f"{self.lines} line(s) in chiprun_out/chip_smoke.log: "
+                f"{body}")
+        print(line if len(line) <= SHORT else line[:SHORT - 3] + "...",
+              flush=True)
+        self.phase, self.lines = None, 0
+
+
+_LINES = _Lines()
+
+
+def say(text, **_):
+    """A phase's line (``[k/PHASES] ...``): whole to the log, one short
+    line a phase on stdout (`_Lines`)."""
+    _LINES.say(text)
 
 
 def nvidia_smi() -> str:
@@ -746,7 +827,7 @@ def check_wgmma_kernels(built):
                 "hmma" if hmma else "hgmma":
                     "not measured" if hg is None else hg.get(mangled, 0)})
         report[name] = entries
-        print(f"[2/{PHASES}] {name} ({src}.cu): {json.dumps(entries)}",
+        say(f"[2/{PHASES}] {name} ({src}.cu): {json.dumps(entries)}",
               flush=True)
         if not entries:
             raise AssertionError(f"{name}: no {fn} in the build")
@@ -796,7 +877,7 @@ def check_multi_tensor_build(built):
                 "static_smem": p.get("static_smem", "not measured")}
                for k, p in sorted(_ptxas_functions(log).items())
                if "mt_norm_kernel" in k or "mt_adam_kernel" in k]
-    print(f"[2/{PHASES}] multi_tensor (multi_tensor.cu): "
+    say(f"[2/{PHASES}] multi_tensor (multi_tensor.cu): "
           f"{json.dumps(entries)}", flush=True)
     if not entries or any(e["spill_stores"] != 0 for e in entries):
         raise AssertionError(f"multi_tensor: missing or spilling: {entries}")
@@ -936,7 +1017,7 @@ def check_chunk_cases(dev):
                     f"chunk {case} {quant or 'bf16'} pools: err {err}, "
                     f"{getattr(chunk, counter) - n} launches of 2, or a "
                     f"second call differs")
-        print(f"[3/{PHASES}] paged_chunk_wgmma_kernel {case} q "
+        say(f"[3/{PHASES}] paged_chunk_wgmma_kernel {case} q "
               f"{[b, c, nh, d]} kvh {kvh} page {ps}: max abs err "
               f"{json.dumps(errs)}, bit-identical on a second call",
               flush=True)
@@ -995,7 +1076,7 @@ def check_decode_cases(dev):
                     f"decode {case} {what}: err {err}, "
                     f"{getattr(dec, counter) - n} launches of 2, or a "
                     f"second call differs")
-        print(f"[3/{PHASES}] paged_decode_split_kernel {case} lens "
+        say(f"[3/{PHASES}] paged_decode_split_kernel {case} lens "
               f"{list(DECODE_LENS)}: max abs err {json.dumps(errs)}, "
               f"bit-identical on a second call", flush=True)
 
@@ -1121,7 +1202,7 @@ def check_kernels(dev, flush):
         line += (f" ({old} fp32 {old_errs[torch.float32]:.3g} bf16 "
                  f"{old_errs[torch.bfloat16]:.3g}, {r['pages_route_ms']:.4f}"
                  f" ms), bit-identical on a second call")
-        print(f"{line}; bf16 kernel {r['ms']:.4f} ms, plain "
+        say(f"{line}; bf16 kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, sdpa {r['library_ms']:.4f} ms, "
               f"bound {b_ms:.4f} ms ({b_by})", flush=True)
         if wrapper == "paged_attention_chunk":
@@ -1181,7 +1262,7 @@ def _verify_row(dev, flush, name, kernel, plain, counter, kp, vp, sc, pt,
                lambda: torch.nn.functional.scaled_dot_product_attention(
                    qs, kd, vd, attn_mask=mask), flush),
            "bound_ms": b_ms, "bound_by": b_by}
-    print(f"[3/{PHASES}] {name} at the verify shape q {row['shape']}: max "
+    say(f"[3/{PHASES}] {name} at the verify shape q {row['shape']}: max "
           f"abs err {err:.3g}, bit-identical on a second call; kernel "
           f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, sdpa "
           f"{row['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by})",
@@ -1246,7 +1327,7 @@ def parity(dev):
                     f"greedy tokens differ ({quant} pools, burst "
                     f"{burst}): {json.dumps(tokens)}")
             n = sum(len(t) for t in tokens["cpu"])
-            print(f"[4/{PHASES}] parity: tiny fp32 GPT, {quant or 'fp32'} "
+            say(f"[4/{PHASES}] parity: tiny fp32 GPT, {quant or 'fp32'} "
                   f"pools, burst {burst}, {len(prompts)} greedy requests, "
                   f"{n} tokens identical through the card's graphs, its "
                   f"eager loop and the CPU; no leaks", flush=True)
@@ -1255,7 +1336,7 @@ def parity(dev):
     if graph != eager:
         raise AssertionError(f"sampled tokens differ, graphs {graph}, "
                              f"eager {eager}")
-    print(f"[4/{PHASES}] parity: sampled requests (top-k 20, top-p 0.9, "
+    say(f"[4/{PHASES}] parity: sampled requests (top-k 20, top-p 0.9, "
           f"burst 4, fixed seeds), {sum(len(t) for t in graph)} tokens "
           f"identical through the card's graphs and its eager loop",
           flush=True)
@@ -1376,7 +1457,7 @@ def serve_full_width(dev, model, kv_quant=None, phase=5):
     paged kernels' launches a call must be identical; no capture may
     happen after `warmup()`. Returns the graph run's (launches, stats)."""
     eager, eager_tokens, _ = _serve_run(dev, model, kv_quant, False)
-    print(f"[{phase}/{PHASES}] serve gpt3-1.3b {kv_quant or 'bf16'} pools, "
+    say(f"[{phase}/{PHASES}] serve gpt3-1.3b {kv_quant or 'bf16'} pools, "
           f"eager loop: {json.dumps(eager)}", flush=True)
     stats, tokens, ran = _serve_run(dev, model, kv_quant, True)
     if tokens != eager_tokens:
@@ -1391,7 +1472,7 @@ def serve_full_width(dev, model, kv_quant=None, phase=5):
         "output_tok_s", "wall_s", "ttft_p50_s", "ttft_p99_s", "itl_p50_s",
         "itl_p99_s", "warmup_ms", "max_memory_allocated",
         "max_memory_reserved")}
-    print(f"[{phase}/{PHASES}] serve gpt3-1.3b {kv_quant or 'bf16'} pools: "
+    say(f"[{phase}/{PHASES}] serve gpt3-1.3b {kv_quant or 'bf16'} pools: "
           f"{json.dumps(stats)}", flush=True)
     return ran, stats
 
@@ -1453,7 +1534,7 @@ def generate_full_width(dev, model):
         if quant is not None:
             stats["tokens_equal_to_bf16_share"] = float(
                 (t == out[None]).mean())
-        print(f"[7/{PHASES}] generate gpt3-1.3b paged "
+        say(f"[7/{PHASES}] generate gpt3-1.3b paged "
               f"{quant or 'bf16'}: {json.dumps(stats)}", flush=True)
         if launches[decode] <= 0 or launches[PAGES_ROUTE[decode][0]] or \
                 any(splash.values()):
@@ -1689,7 +1770,7 @@ def check_training_kernels(dev, flush):
             _check(case, dtype, e["out"], e["bwd_rel"], fin, e["lse"], same)
             errs[(case, dtype)] = (max(e["out"], e["lse"]), e["bwd_abs"],
                                    e["bwd_rel"])
-            print(f"[3/{PHASES}] {case} {str(dtype)[6:]}: out max abs err "
+            say(f"[3/{PHASES}] {case} {str(dtype)[6:]}: out max abs err "
                   f"{e['out']:.3g}, lse {e['lse']:.3g} ({e['empty_rows']} "
                   f"rows with no visible key: out 0, lse +inf); backward "
                   f"max abs err {e['bwd_abs']:.3g}, relative "
@@ -1705,7 +1786,7 @@ def check_training_kernels(dev, flush):
                                                     *args[3:])
             _check(case, dtype, fe, br, fin, le, same=same)
             errs[(case, dtype)] = (max(fe, le), ba, br)
-            print(f"[3/{PHASES}] {case} {str(dtype)[6:]}: forward max abs "
+            say(f"[3/{PHASES}] {case} {str(dtype)[6:]}: forward max abs "
                   f"err {fe:.3g}, lse {le:.3g}; backward max abs err "
                   f"{ba:.3g}, relative {br:.3g}; forward and backward "
                   f"bit-identical on a second run", flush=True)
@@ -1796,7 +1877,7 @@ def check_training_kernels(dev, flush):
         old = "" if "old_route" not in r else (
             f", {r['old_route']} {r['old_route_ms']:.4f} ms (max abs err "
             f"{r['old_route_max_abs_err']:.3g})")
-        print(f"[3/{PHASES}] {name}: bf16 kernel {r['ms']:.4f} ms, plain "
+        say(f"[3/{PHASES}] {name}: bf16 kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}){old}",
               flush=True)
@@ -1958,7 +2039,7 @@ def check_flash_kernels(dev, flush):
                    e["lse"], same)
             errs[(fwd_name, dtype)] = (max(e["out"], e["lse"]),)
             errs[(bwd_name, dtype)] = (e["bwd_abs"], e["bwd_rel"])
-            print(f"[3/{PHASES}] flash {path} {list(FLASH_SHAPES[path])} "
+            say(f"[3/{PHASES}] flash {path} {list(FLASH_SHAPES[path])} "
                   f"causal {str(dtype)[6:]}: out max abs err {e['out']:.3g}"
                   f", lse {e['lse']:.3g}; backward max abs err "
                   f"{e['bwd_abs']:.3g}, relative {e['bwd_rel']:.3g}, "
@@ -1974,7 +2055,7 @@ def check_flash_kernels(dev, flush):
             max(e["out"], e["lse"]),)
         errs[("flash_bwd_wgmma_kernels[outside lse]", dtype)] = (
             e["bwd_abs"], e["bwd_rel"])
-        print(f"[3/{PHASES}] flash ring tick (rows 1024-2047 over two key "
+        say(f"[3/{PHASES}] flash ring tick (rows 1024-2047 over two key "
               f"halves, outside lse) {str(dtype)[6:]}: out max abs err "
               f"{e['out']:.3g}, lse {e['lse']:.3g}; backward max abs err "
               f"{e['bwd_abs']:.3g}, relative {e['bwd_rel']:.3g}, "
@@ -1987,7 +2068,7 @@ def check_flash_kernels(dev, flush):
                                       causal)
         _check(f"flash tiled {shape} causal {causal}", torch.bfloat16,
                e["out"], e["bwd_rel"], fin, e["lse"], same)
-        print(f"[3/{PHASES}] flash tiled {list(shape)} "
+        say(f"[3/{PHASES}] flash tiled {list(shape)} "
               f"{'causal' if causal else 'full'} bfloat16: out max abs err "
               f"{e['out']:.3g}, lse {e['lse']:.3g}; backward relative "
               f"{e['bwd_rel']:.3g}, bit-identical on a second run",
@@ -2013,7 +2094,7 @@ def check_flash_kernels(dev, flush):
                    e["out"], e["bwd_rel"], fin, 0.0, same)
             said.append(f"{str(dtype)[6:]} out {e['out']:.3g}, backward "
                         f"relative {e['bwd_rel']:.3g} (bit-identical twice)")
-        print(f"[3/{PHASES}] flash single {list(shape)} "
+        say(f"[3/{PHASES}] flash single {list(shape)} "
               f"{'causal' if causal else 'full'}: max abs err "
               f"{'; '.join(said)}", flush=True)
 
@@ -2083,7 +2164,7 @@ def check_flash_kernels(dev, flush):
             r["max_rel_err"], r["max_rel_err_fp32"] = e16[1], e32[1]
         lib = "null" if r["library_ms"] is None else \
             f"{r['library_ms']:.4f} ms"
-        print(f"[3/{PHASES}] {name}: bf16 kernel {r['ms']:.4f} ms, plain "
+        say(f"[3/{PHASES}] {name}: bf16 kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, library {lib}, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
     return results
@@ -2427,7 +2508,7 @@ def check_optimizer_kernels(dev, flush):
                                        groups=groups)
         report[name] = errs
         per_call = (mt.multi_tensor_adam.launches - before) / 3
-        print(f"[3/{PHASES}] multi-tensor, gpt3-1.3b list ({len(shapes)} "
+        say(f"[3/{PHASES}] multi-tensor, gpt3-1.3b list ({len(shapes)} "
               f"tensors, {numel} params), {name}: {json.dumps(errs)}; "
               f"{per_call:g} update launches a step; bit-identical twice; "
               f"found_inf leaves every byte; the step counter raised once "
@@ -2497,7 +2578,7 @@ def check_optimizer_kernels(dev, flush):
         results["mt_norm_kernel"]["max_abs_err"] = errs["norm_abs_err"]
         results["mt_adam_kernel"]["max_abs_err"] = errs["max_abs_err"]
         for kernel, r in results.items():
-            print(f"[3/{PHASES}] {kernel}: {r['ms']:.4f} ms, plain "
+            say(f"[3/{PHASES}] {kernel}: {r['ms']:.4f} ms, plain "
                   f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} "
                   f"ms ({r['library']}), bound {r['bound_ms']:.4f} ms "
                   f"({r['bound_by']})", flush=True)
@@ -2514,7 +2595,7 @@ def check_optimizer_kernels(dev, flush):
                                       "moments"], False, seed=5)
     report[name] = errs
     per_call = (mt.multi_tensor_adam.launches - before) / 3
-    print(f"[3/{PHASES}] multi-tensor, {name} ({len(llama_shapes)} "
+    say(f"[3/{PHASES}] multi-tensor, {name} ({len(llama_shapes)} "
           f"tensors, {sum(int(np.prod(s)) for s in llama_shapes)} params): "
           f"{json.dumps(errs)}; {per_call:g} update launches a step; "
           f"bit-identical twice; found_inf leaves every byte", flush=True)
@@ -2531,7 +2612,7 @@ def check_optimizer_kernels(dev, flush):
                                        True, seed=10 + i)
         report[f"odd sizes, {name}"] = errs
         per_call = (mt.multi_tensor_adam.launches - before) / 3
-        print(f"[3/{PHASES}] multi-tensor, {len(sizes)} tensors of "
+        say(f"[3/{PHASES}] multi-tensor, {len(sizes)} tensors of "
               f"{list(MT_ODD)} and 1-4999 elements, {name}, unscaled by "
               f"1/1024: {json.dumps(errs)}; {per_call:g} update launches "
               f"a call", flush=True)
@@ -2595,7 +2676,7 @@ def train_parity(dev, splash=True, seq=128):
     param_rel = max(_rel_err(params["card"][k], params["cpu"][k])
                     for k in params["cpu"])
     what = "splash, with segments" if splash else f"flash, seq {seq}"
-    print(f"[8/{PHASES}] train parity ({what}): tiny fp32 GPT, 3 "
+    say(f"[8/{PHASES}] train parity ({what}): tiny fp32 GPT, 3 "
           f"TrainSteps; losses card {losses['card']} cpu {losses['cpu']} "
           f"(max |diff| {loss_err:.3g}); params max rel diff "
           f"{param_rel:.3g}; kernel launches "
@@ -2675,7 +2756,7 @@ def train_guarded_parity(dev):
                    if np.isfinite(b))
     param_rel = max(_rel_err(card["params"][k], cpu_["params"][k])
                     for k in cpu_["params"])
-    print(f"[8/{PHASES}] train guarded (GradScaler + guard_nonfinite, an "
+    say(f"[8/{PHASES}] train guarded (GradScaler + guard_nonfinite, an "
           f"inf loss at step 2; steps 2-4 under sync debug mode 'error'): "
           f"losses card {card['losses']} cpu {cpu_['losses']}; skip "
           f"bit-identical card {card['skip_bit_identical']} cpu "
@@ -2829,7 +2910,7 @@ def train_full_width(dev, warmup=2, timed=5, batch=8, seq=1024,
             launches[k] for k in OPT_KERNELS) / timed,
         "optimizer_step_alone": opt_step,
     }
-    print(f"[{phase}/{PHASES}] train gpt3-1.3b {stats['attention']} seq "
+    say(f"[{phase}/{PHASES}] train gpt3-1.3b {stats['attention']} seq "
           f"{seq}: {json.dumps(stats)}", flush=True)
     if not all(np.isfinite(losses + off_losses)):
         raise AssertionError(f"non-finite loss: {losses} {off_losses}")
@@ -2918,7 +2999,7 @@ def fused_scan_parity(dev):
             max(abs(a - b) for a, b in zip(card["losses"], cpu_["losses"])),
             max(_rel_err(card["params"][k], cpu_["params"][k])
                 for k in cpu_["params"]))
-    print(f"[13/{PHASES}] fused-scan parity: tiny fp32 scan GPT, 3 "
+    say(f"[13/{PHASES}] fused-scan parity: tiny fp32 scan GPT, 3 "
           f"FusedScanTrainSteps (clip, fused head, segments); losses "
           + "; ".join(f"layer_chunk {c}: card {out[c, 'card']['losses']} "
                       f"cpu {out[c, 'cpu']['losses']} (max |diff| "
@@ -2980,7 +3061,7 @@ def fused_scan_parity(dev):
                    if np.isfinite(b))
     param_rel = max(_rel_err(card["params"][k], cpu_["params"][k])
                     for k in cpu_["params"])
-    print(f"[13/{PHASES}] fused-scan guarded (GradScaler + "
+    say(f"[13/{PHASES}] fused-scan guarded (GradScaler + "
           f"guard_nonfinite, an inf embedding row at step 2; steps 2-4 "
           f"under sync debug mode 'error'): losses card {card['losses']} "
           f"cpu {cpu_['losses']}; skip bit-identical card "
@@ -3065,7 +3146,7 @@ def fused_scan_bf16_parity(dev, sd, cfg, ids, labels, seg):
     fp32_gaps = (max(abs(a - b) for a, b in zip(fp32["losses"],
                                                 ref["losses"])),
                  update_gap(fp32))
-    print(f"[13/{PHASES}] fused-scan bf16 compute (fp32 params, bf16 "
+    say(f"[13/{PHASES}] fused-scan bf16 compute (fp32 params, bf16 "
           f"moments, fused head, no clip): losses card {card['losses']} "
           f"cpu {ref['losses']}; max |diff| {loss_gap:.3g} (bar "
           f"{BF16_SCAN_LOSS_BAR}), update rel diff {upd:.3g} (bar "
@@ -3134,7 +3215,7 @@ def monitor_past_its_ring(dev, cfg, steps=70):
         seen[name] = (mon._steps_seen, mon.summary()["steps_seen"])
         if seen[name] != (steps - mon._depth, steps):
             raise AssertionError(f"{name}: the monitor folded {seen[name]}")
-    print(f"[13/{PHASES}] numerics monitor past its queue: {steps} steps "
+    say(f"[13/{PHASES}] numerics monitor past its queue: {steps} steps "
           f"of each step under sync debug mode 'error'; (folded in the "
           f"steps, seen at the boundary) {seen}", flush=True)
 
@@ -3240,7 +3321,7 @@ def fused_scan_full_width(dev, warmup=2, timed=5, batch=8, seq=1024):
                           / runs["off"]["step_ms_median"] - 1.0),
         "nvidia_smi": nvidia_smi(),
     }
-    print(f"[14/{PHASES}] train gpt3-1.3b FusedScanTrainStep: "
+    say(f"[14/{PHASES}] train gpt3-1.3b FusedScanTrainStep: "
           f"{json.dumps(stats)}", flush=True)
     _PHASE_STATS["fused_scan"] = stats
     for name, r in runs.items():
@@ -3382,7 +3463,7 @@ def resnet_parity(dev):
             "rollback_bit_identical": before.keys() == after.keys() and all(
                 torch.equal(before[k], after[k]) for k in before),
             "skipped": int(step.guard.skipped)}
-    print(f"[11/{PHASES}] resnet parity: resnet18 32x32 batch 4, "
+    say(f"[11/{PHASES}] resnet parity: resnet18 32x32 batch 4, "
           f"Momentum(0.1, 0.9), 3 TrainSteps, each from the CPU's state; "
           f"losses card {losses['card']} cpu {losses['cpu']} (max |diff| "
           f"{loss_err:.3g}); params, buffers and velocities max rel diff "
@@ -3573,7 +3654,7 @@ def resnet_full_width(dev, warmup=2, timed=5, batch=32):
                   "allow_tf32": torch.backends.cudnn.allow_tf32},
         "nvidia_smi": nvidia_smi(),
     }
-    print(f"[12/{PHASES}] train resnet50 (bench lane): {json.dumps(stats)}",
+    say(f"[12/{PHASES}] train resnet50 (bench lane): {json.dumps(stats)}",
           flush=True)
     if not all(np.isfinite(losses + off_losses)):
         raise AssertionError(f"non-finite resnet50 loss: {losses} "
@@ -3615,7 +3696,7 @@ def check_llama_ce(dev, flush):
                                                        dtype, seed=3)
             _check(f"fused_ce {shape}", dtype, fe, br, fin, le, same=same)
             errs[dtype] = (max(fe, le), ba, br)
-            print(f"[3/{PHASES}] fused_ce {shape} [{n},{hidden}]x[{vocab},"
+            say(f"[3/{PHASES}] fused_ce {shape} [{n},{hidden}]x[{vocab},"
                   f"{hidden}] {str(dtype)[6:]}: forward max abs err "
                   f"{fe:.3g}, lse {le:.3g}; backward max abs err {ba:.3g}, "
                   f"relative {br:.3g}; forward and backward bit-identical "
@@ -3632,7 +3713,7 @@ def check_llama_ce(dev, flush):
                 r["max_rel_err"] = errs[torch.bfloat16][2]
                 r["max_rel_err_fp32"] = errs[torch.float32][2]
             out[name][shape] = r
-            print(f"[3/{PHASES}] {name} {shape}: bf16 kernel {r['ms']:.4f} "
+            say(f"[3/{PHASES}] {name} {shape}: bf16 kernel {r['ms']:.4f} "
                   f"ms, plain {r['plain_ms']:.4f} ms, library "
                   f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
                   f"({r['bound_by']})", flush=True)
@@ -3706,7 +3787,7 @@ def llama_parity(dev):
             "losses_card": losses["card"], "losses_cpu": losses["cpu"],
             "max_loss_diff": loss_err, "params_max_rel_diff": rel,
             "worst": worst, "step_count": card_opt._step_count}
-    print(f"[15/{PHASES}] llama parity: fp32 GQA LLaMA {LLAMA_SMALL}, 3 "
+    say(f"[15/{PHASES}] llama parity: fp32 GQA LLaMA {LLAMA_SMALL}, 3 "
           f"TrainSteps (AdamW, clip 1.0, recompute) each from the CPU's "
           f"state after one CPU step: {json.dumps(report)}; kernel "
           f"launches a step { {k: n for k, n in launches.items() if n} }",
@@ -3841,7 +3922,7 @@ def llama_o2_parity(dev):
               "bars": {"loss": LLAMA_O2_LOSS_BAR,
                        "update": LLAMA_O2_UPDATE_BAR},
               "step_count": card[1]._step_count}
-    print(f"[15/{PHASES}] llama parity, bf16 O2 (bf16 weights and scores, "
+    say(f"[15/{PHASES}] llama parity, bf16 O2 (bf16 weights and scores, "
           f"fp32 masters, bf16 moments, untied head), 3 TrainSteps each "
           f"from the CPU's state after one CPU step: {json.dumps(report)}",
           flush=True)
@@ -3961,7 +4042,7 @@ def llama_full_width(dev, warmup=2, timed=5, batch=4, seq=2048):
         "launches": {k: n for k, n in launches.items() if n},
         "launches_per_step": per_step,
     }
-    print(f"[16/{PHASES}] train tinyllama-1.1b: {json.dumps(stats)}",
+    say(f"[16/{PHASES}] train tinyllama-1.1b: {json.dumps(stats)}",
           flush=True)
     if not all(np.isfinite(losses + off_losses)):
         raise AssertionError(f"non-finite loss: {losses} {off_losses}")
@@ -4094,7 +4175,7 @@ def _wo_row(dev, flush, proj, m, quant, dtype, seed):
     stream = "" if row["stream_ms"] is None else (
         f"; back to back {row['stream_ms']:.4f}, F.linear "
         f"{row['library_stream_ms']:.4f}")
-    print(f"[3/{PHASES}] {name}: {route}, error/max {err:.3g}, "
+    say(f"[3/{PHASES}] {name}: {route}, error/max {err:.3g}, "
           f"bit-identical twice; {row['ms']:.4f} ms (plain "
           f"{row['plain_ms']:.4f}, bf16 F.linear {row['library_ms']:.4f}, "
           f"dequantize + product {row['dequant_linear_ms']:.4f}, bound "
@@ -4272,7 +4353,7 @@ def _tiny_int8_dense_parity(dev):
     if not np.array_equal(got, want):
         raise AssertionError(f"tiny int8 dense decode: card {got.tolist()} "
                              f"vs cpu {want.tolist()}")
-    print(f"[17/{PHASES}] decode lane: tiny int8 GPT (untied head), dense "
+    say(f"[17/{PHASES}] decode lane: tiny int8 GPT (untied head), dense "
           f"greedy tokens {got.size} identical on the card (graphs) and the "
           f"CPU", flush=True)
 
@@ -4334,7 +4415,7 @@ def decode_lane(dev):
                         launches[k] += got[k]
                     passes[step] += new - 1
                     passes[prompt] += 1
-                print(f"[17/{PHASES}] decode lane gpt3-1.3b {name} "
+                say(f"[17/{PHASES}] decode lane gpt3-1.3b {name} "
                       f"{kind}{'_int8' if tag == 'int8' else ''} bs{bs}: "
                       f"{json.dumps(r)}", flush=True)
         twin = _dequantized_twin(models["int8"], cfg, dev, dtype)
@@ -4352,7 +4433,7 @@ def decode_lane(dev):
             label = f"decode lane {name} int8 bs{bs}"
             gaps = (_divergence_gaps(label, same, want_l)
                     if dtype == torch.bfloat16 else [])
-            print(f"[17/{PHASES}] {label} vs its weight_dequantize twin "
+            say(f"[17/{PHASES}] {label} vs its weight_dequantize twin "
                   f"(F.linear), {steps} tokens: logits max abs diff "
                   f"{err:.3g} over {upto} steps, tokens equal "
                   f"{bool(same.all())}, top-2 gaps at divergences {gaps}",
@@ -4419,7 +4500,7 @@ def _spec_tiny(dev):
     if differ:
         raise AssertionError(f"spec probe: card tokens differ from the CPU's "
                              f"in {differ}")
-    print(f"[18/{PHASES}] spec decoding, tiny fp32 GPT: greedy spec tokens of "
+    say(f"[18/{PHASES}] spec decoding, tiny fp32 GPT: greedy spec tokens of "
           f"{len(cpu['tokens'])} cases (weak draft, self-draft, strong pair "
           f"over dense, paged, int8, int4; serving over fp, int8, int4 with "
           f"the strong pair) equal on the card (graphs) and the CPU and to "
@@ -4454,7 +4535,7 @@ def _spec_lane_case(label, tgt, drf, kind, bs, ids, dtype):
         spec["divergence_top2_gaps"] = _divergence_gaps(
             f"spec lane {label} bf16 {kind} bs{bs}", same, lg)
     spec["speedup"] = spec["decode_tok_s"] / plain["decode_tok_s"]
-    print(f"[18/{PHASES}] spec lane gpt3-1.3b {label} {name} {kind} bs{bs}: "
+    say(f"[18/{PHASES}] spec lane gpt3-1.3b {label} {name} {kind} bs{bs}: "
           f"plain {json.dumps(plain)}; spec {json.dumps(spec)}", flush=True)
     return spec
 
@@ -4634,7 +4715,7 @@ def _spec_serving(dev):
                 f"strong pair {quant or 'bf16'}", tgt, quant, prompts,
                 plain_tokens, tokens)
         spec["speedup"] = spec["output_tok_s"] / plain["output_tok_s"]
-        print(f"[18/{PHASES}] spec serve gpt3-1.3b strong pair "
+        say(f"[18/{PHASES}] spec serve gpt3-1.3b strong pair "
               f"{quant or 'bf16'} pools: plain output tok/s "
               f"{plain['output_tok_s']}; spec {json.dumps(spec)}", flush=True)
         per_dispatch.update(spec["launches_per_dispatch"])
@@ -4646,7 +4727,7 @@ def _spec_serving(dev):
     pd = {split: n_l, wg: n_l}
     spec, tokens, _ = _spec_serve(dev, ztgt, None, "self", pd, {wg: n_l})
     spec["speedup"] = spec["output_tok_s"] / plain["output_tok_s"]
-    print(f"[18/{PHASES}] spec serve gpt3-1.3b zero target, draft_model="
+    say(f"[18/{PHASES}] spec serve gpt3-1.3b zero target, draft_model="
           f"'self', bf16 pools: plain output tok/s {plain['output_tok_s']}; "
           f"spec {json.dumps(spec)}", flush=True)
     if spec["accept_rate"] != 1.0:
@@ -4670,7 +4751,7 @@ def spec_decode(dev):
     _spec_tiny(dev)
     _spec_generate(dev)
     per_dispatch = _spec_serving(dev)
-    print(f"[18/{PHASES}] spec decoding done in {time.perf_counter() - t0:.1f}"
+    say(f"[18/{PHASES}] spec decoding done in {time.perf_counter() - t0:.1f}"
           f" s", flush=True)
     return per_dispatch
 
@@ -4772,7 +4853,7 @@ def bert_parity(dev):
         b = card_model.bert(moved.to(dev), attention_mask=mask.to(dev))[1]
     report["padding_pooled_max_abs_diff"] = _max_err(a[row], b[row])
     report["padding_row_length"] = length
-    print(f"[20/{PHASES}] bert parity: fp32 {BERT_SMALL}, batch 4 x 64, "
+    say(f"[20/{PHASES}] bert parity: fp32 {BERT_SMALL}, batch 4 x 64, "
           f"padding lengths 17-64: {json.dumps(report)}", flush=True)
     for cls in ("BertForSequenceClassification", "BertForPretraining"):
         if not report[f"{cls}_logits_max_abs_err"] <= 1e-4:
@@ -4823,7 +4904,7 @@ def dropout_contract(dev, shape=(8, 128, 12, 64), p=0.1):
               / sigma, "same_seed_bit_identical": same,
               "other_seed_differs": differs,
               "training_false_equals_p0": off, "nvidia_smi": nvidia_smi()}
-    print(f"[20/{PHASES}] dropout contract on the card: "
+    say(f"[20/{PHASES}] dropout contract on the card: "
           f"{json.dumps(report)}", flush=True)
     if not abs(share - (1 - p)) < 4 * sigma:
         raise AssertionError(f"dropout kept share {share}, want {1 - p} "
@@ -4909,7 +4990,7 @@ def bert_full_width(dev, warmup=2, timed=5, batch=32, seq=128):
         "launches": {k: n for k, n in launches.items() if n},
         "launches_per_step": per_step, "nvidia_smi": nvidia_smi(),
     }
-    print(f"[20/{PHASES}] train bert-base (fine-tune): {json.dumps(stats)}",
+    say(f"[20/{PHASES}] train bert-base (fine-tune): {json.dumps(stats)}",
           flush=True)
     _PHASE_STATS["bert"] = stats
     if not all(np.isfinite(losses)):
@@ -4979,7 +5060,7 @@ def lenet_parity(dev):
     report = {"losses_card": losses["card"], "losses_cpu": losses["cpu"],
               "max_loss_diff": loss_err, "params_max_rel_diff": rel,
               "nvidia_smi": nvidia_smi()}
-    print(f"[21/{PHASES}] lenet parity (Model.train_batch, batch 64, "
+    say(f"[21/{PHASES}] lenet parity (Model.train_batch, batch 64, "
           f"synthetic MNIST in order): {json.dumps(report)}", flush=True)
     if not (loss_err <= 1e-4 and rel <= 1e-3):
         raise AssertionError(f"lenet: card/CPU losses differ by {loss_err}, "
@@ -5058,7 +5139,7 @@ def lenet_full_loop(dev, batch=64):
         for k, v in store.items())
     report["save_load_bit_identical"] = same
     report["nvidia_smi"] = nvidia_smi()
-    print(f"[21/{PHASES}] lenet through paddle.Model: {json.dumps(report)}",
+    say(f"[21/{PHASES}] lenet through paddle.Model: {json.dumps(report)}",
           flush=True)
     if not (report["fit"]["all_finite"]
             and report["fit_prefetch"]["all_finite"]
@@ -5133,7 +5214,7 @@ def collectives_world1(dev):
         torch.cuda.synchronize()
         times[name] = start.elapsed_time(end) / 10
     del x, out
-    print(f"[22/{PHASES}] collectives at world 1: backend "
+    say(f"[22/{PHASES}] collectives at world 1: backend "
           f"{env.get_backend()}, NCCL {_nccl_version()}, init "
           f"{init_s:.2f} s; {len(res)} checks ok "
           f"({', '.join(sorted(res))}); 256 MiB fp32 ms: "
@@ -5209,7 +5290,7 @@ def sharded_scan_parity(dev):
                         "max_shard_rel": max(e[1] for e in errs),
                         "collectives_per_step":
                             steps["card"][0].collectives_per_step}
-    print(f"[23/{PHASES}] (a) sharded scan card against CPU (tiny fp32 scan "
+    say(f"[23/{PHASES}] (a) sharded scan card against CPU (tiny fp32 scan "
           f"GPT, 3 steps each from the CPU's state): {json.dumps(out)}; "
           f"{nvidia_smi()}", flush=True)
     for storage, r in out.items():
@@ -5315,7 +5396,7 @@ def sharded_full_width(dev, warmup=2, timed=5, batch=8, seq=1024):
         "phase14_fused_scan_max_memory_allocated":
             fused.get("max_memory_allocated"),
         "nvidia_smi": nvidia_smi()}
-    print(f"[23/{PHASES}] (b) train gpt3-1.3b ShardedFusedScanTrainStep: "
+    say(f"[23/{PHASES}] (b) train gpt3-1.3b ShardedFusedScanTrainStep: "
           f"{json.dumps(stats)}", flush=True)
     for name in ("replicated", "sharded"):
         r = runs[name]
@@ -5404,7 +5485,7 @@ def stage2_eager(dev, steps=3, layers=4, batch=8, seq=1024):
         torch.cuda.empty_cache()
     diff = max(abs(a - b) for a, b in zip(out["plain"]["losses"],
                                           out["stage2"]["losses"]))
-    print(f"[23/{PHASES}] (c) eager stage 2 (fleet.init + "
+    say(f"[23/{PHASES}] (c) eager stage 2 (fleet.init + "
           f"group_sharded_parallel os_g + TrainStep, {layers} layers of "
           f"gpt3-1.3b width, {batch} x {seq}): {json.dumps(out)}; max "
           f"loss diff {diff:.3g}; {nvidia_smi()}", flush=True)
@@ -5471,7 +5552,7 @@ def bert_stage1(dev, warmup=2, timed=5, batch=32, seq=128):
              "launches_per_step": per_step,
              "buckets": len(dopt._inner_opt._bucketer.assignment.buckets),
              "nvidia_smi": nvidia_smi()}
-    print(f"[23/{PHASES}] (d) train bert-base with sharding stage 1: "
+    say(f"[23/{PHASES}] (d) train bert-base with sharding stage 1: "
           f"{json.dumps(stats)}", flush=True)
     if not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite bert loss: {losses}")
@@ -5489,7 +5570,7 @@ def multi_rank(dev):
     ``torch.distributed.run --nproc_per_node 2`` (stage 2 and the sharded
     scan over the world against world 1); with one, says so."""
     if torch.cuda.device_count() < 2:
-        print(f"[23/{PHASES}] (e) multi-rank on the card: not run (1 card)",
+        say(f"[23/{PHASES}] (e) multi-rank on the card: not run (1 card)",
               flush=True)
         return
     got = subprocess.run(
@@ -5500,7 +5581,7 @@ def multi_rank(dev):
     if got.returncode:
         raise AssertionError(f"multi-rank selftest failed:\n"
                              f"{got.stdout[-3000:]}\n{got.stderr[-3000:]}")
-    print(f"[23/{PHASES}] (e) multi-rank on the card (2 ranks, NCCL): "
+    say(f"[23/{PHASES}] (e) multi-rank on the card (2 ranks, NCCL): "
           f"{got.stdout.strip().splitlines()[-1]}; {nvidia_smi()}",
           flush=True)
 
@@ -5630,7 +5711,7 @@ def vocab_parallel_kernels(dev):
         for mp in MP_DEGREES:
             rec = _mp_ce_case(dev, flush, dtype, mp)
             out.setdefault(str(dtype)[6:], {})[mp] = rec
-            print(f"[24/{PHASES}] (a) vocab-parallel CE {str(dtype)[6:]} "
+            say(f"[24/{PHASES}] (a) vocab-parallel CE {str(dtype)[6:]} "
                   f"mp {mp}, shard {rec['shape']}: errors "
                   f"{json.dumps(rec['errors'])}, combined against the "
                   f"unsharded kernels {json.dumps(rec['whole'])}; shard ms "
@@ -5703,7 +5784,7 @@ def tensor_parallel_two_ranks(dev):
               "max_memory_allocated_rank0": b["max_memory_allocated"],
               "world1_s": world1_s, "launch_wall_s": wall,
               "nvidia_smi": nvidia_smi()}
-    print(f"[24/{PHASES}] (b) gpt3-1.3b dp 1 x mp 2, two ranks sharing "
+    say(f"[24/{PHASES}] (b) gpt3-1.3b dp 1 x mp 2, two ranks sharing "
           f"the card over gloo (activations through the host: no speed of "
           f"mp): {json.dumps(report)}", flush=True)
     if not (len(gaps) == len(want) and max(gaps) < MP_LOSS_BAR
@@ -5719,18 +5800,18 @@ def tensor_parallel_two_ranks(dev):
         raise AssertionError(f"mp 2 collectives a step {coll}, want "
                              f"{_mp_collectives(b)}")
     tiny = res["tiny_card_cpu"]
-    print(f"[24/{PHASES}] (c) tiny fp32 scan GPT at mp 2, card against "
+    say(f"[24/{PHASES}] (c) tiny fp32 scan GPT at mp 2, card against "
           f"CPU over the same gloo ranks: {json.dumps(tiny)}; "
           f"{nvidia_smi()}", flush=True)
     if not (tiny["max_loss_diff"] < 5e-4 and tiny["max_param_rel"] < 5e-3):
         raise AssertionError(f"mp 2 card against CPU: {tiny}")
     if torch.cuda.device_count() < 2:
-        print(f"[24/{PHASES}] (d) dp 1 x mp 2 over NCCL: not run (1 card)",
+        say(f"[24/{PHASES}] (d) dp 1 x mp 2 over NCCL: not run (1 card)",
               flush=True)
     else:
         nccl = mp_selftest.launch_card(2, nccl=True, steps=3, deadline=600)
         nb = nccl["gpt3_1.3b"]
-        print(f"[24/{PHASES}] (d) dp 1 x mp 2 over NCCL, one card a rank: "
+        say(f"[24/{PHASES}] (d) dp 1 x mp 2 over NCCL, one card a rank: "
               f"losses {nb['losses']}, step s {nb['step_s']}; "
               f"{nvidia_smi()}", flush=True)
         if max(abs(x - y) for x, y in zip(nb["losses"], want)) >= \
@@ -5797,7 +5878,7 @@ def pipeline_two_ranks(dev, want):
               "loss_gaps": gaps, "schedule": b["schedule"],
               "ranks": ranks, "launch_wall_s": wall,
               "nvidia_smi": nvidia_smi()}
-    print(f"[25/{PHASES}] (a) gpt3-1.3b dp 1 x pp 2, two ranks sharing "
+    say(f"[25/{PHASES}] (a) gpt3-1.3b dp 1 x pp 2, two ranks sharing "
           f"the card over gloo (activations, grads and parameters through "
           f"the host: the step times and the peak memory are gloo's, no "
           f"speed of pp): {json.dumps(report)}", flush=True)
@@ -5822,14 +5903,14 @@ def pipeline_two_ranks(dev, want):
     tiny = res["tiny_card_cpu"]
     quad = pipeline_selftest.launch_card(4, tiny=True, tiny_mp=2,
                                          deadline=300)["tiny_card_cpu"]
-    print(f"[25/{PHASES}] (b) tiny fp32 scan GPT card against CPU over "
+    say(f"[25/{PHASES}] (b) tiny fp32 scan GPT card against CPU over "
           f"the same gloo ranks: pp 2 {json.dumps(tiny)}; pp 2 x mp 2 "
           f"{json.dumps(quad)}; {nvidia_smi()}", flush=True)
     for t in (tiny, quad):
         if not (t["max_loss_diff"] < 5e-4 and t["max_param_rel"] < 5e-3):
             raise AssertionError(f"pp card against CPU: {t}")
     pipe = res["pipe_layers"]
-    print(f"[25/{PHASES}] (c) PipelineParallel.train_batch and "
+    say(f"[25/{PHASES}] (c) PipelineParallel.train_batch and "
           f"GPTForCausalLMPipe at pp 2 on the card against one rank: "
           f"{json.dumps(pipe)}; {nvidia_smi()}", flush=True)
     pl = pipe["pipeline_parallel"]
@@ -5841,13 +5922,13 @@ def pipeline_two_ranks(dev, want):
                 and g["max_grad_rel"] < 1e-3):
             raise AssertionError(f"GPTForCausalLMPipe chunks {nc}: {g}")
     if torch.cuda.device_count() < 2:
-        print(f"[25/{PHASES}] (d) dp 1 x pp 2 over NCCL: not run (1 card); "
+        say(f"[25/{PHASES}] (d) dp 1 x pp 2 over NCCL: not run (1 card); "
               f"{nvidia_smi()}", flush=True)
     else:
         nccl = pipeline_selftest.launch_card(2, nccl=True, steps=len(want),
                                              deadline=600)
         nb = nccl["gpt3_1.3b"]
-        print(f"[25/{PHASES}] (d) dp 1 x pp 2 over NCCL, one card a rank: "
+        say(f"[25/{PHASES}] (d) dp 1 x pp 2 over NCCL, one card a rank: "
               f"losses {nb['losses']}, step s {nb['step_s']}; "
               f"{nvidia_smi()}", flush=True)
         if max(abs(x - y) for x, y in zip(nb["losses"], want)) >= \
@@ -5877,7 +5958,7 @@ def llama_head_shards(dev):
     for mp in MP_DEGREES:
         rec = _mp_ce_case(dev, flush, torch.bfloat16, mp, shape=LLAMA_HEAD)
         out[mp] = rec
-        print(f"[26/{PHASES}] (a) LLaMA-7B head, vocab-parallel CE bf16 mp "
+        say(f"[26/{PHASES}] (a) LLaMA-7B head, vocab-parallel CE bf16 mp "
               f"{mp}, shard {rec['shape']}: errors "
               f"{json.dumps(rec['errors'])}, combined against the "
               f"unsharded kernels {json.dumps(rec['whole'])}; shard ms fwd "
@@ -5978,7 +6059,7 @@ def llama_hybrid(dev):
               "max_memory_allocated_rank0": b["max_memory_allocated"],
               "types": b["types"], "world1_s": world1_s,
               "launch_wall_s": wall, "nvidia_smi": nvidia_smi()}
-    print(f"[26/{PHASES}] (b) LLaMA-7B widths at dp 1 x mp {LLAMA_MP}, "
+    say(f"[26/{PHASES}] (b) LLaMA-7B widths at dp 1 x mp {LLAMA_MP}, "
           f"four ranks sharing the card over gloo (activations through "
           f"the host: no speed of mp): {json.dumps(report)}", flush=True)
     if not (len(gaps) == len(want) and max(gaps) < LLAMA_LOSS_BAR
@@ -6013,7 +6094,7 @@ def llama_hybrid(dev):
                   "launches_per_step")} for r in ranks],
               "collectives_per_step_rank0": ranks[0]["collectives_per_step"],
               "launch_wall_s": pwall, "nvidia_smi": nvidia_smi()}
-    print(f"[26/{PHASES}] (c) BASELINE config 5's layout, tp {LLAMA_MP} x "
+    say(f"[26/{PHASES}] (c) BASELINE config 5's layout, tp {LLAMA_MP} x "
           f"pp {LLAMA_PP}: eight ranks sharing the card over gloo "
           f"(activations and sends through the host: the step times and "
           f"peak memory are gloo's, no speed of mp or pp): "
@@ -6038,7 +6119,7 @@ def llama_hybrid(dev):
                 f"tp x pp rank {r['rank']} collectives a step "
                 f"{r['collectives_per_step']['by_group']}, want {want_c}")
     tiny = [res["tiny_card_cpu"], pres["tiny_card_cpu"]]
-    print(f"[26/{PHASES}] (d) tiny fp32 GQA LLaMA (KV heads 2) card against "
+    say(f"[26/{PHASES}] (d) tiny fp32 GQA LLaMA (KV heads 2) card against "
           f"CPU over the same gloo ranks: dp 2 x mp 2 {json.dumps(tiny[0])};"
           f" dp 2 x pp 2 x mp 2 {json.dumps(tiny[1])}; {nvidia_smi()}",
           flush=True)
@@ -6046,13 +6127,13 @@ def llama_hybrid(dev):
         if not (t["max_loss_diff"] < 5e-4 and t["max_param_rel"] < 5e-3):
             raise AssertionError(f"LLaMA card against CPU: {t}")
     if torch.cuda.device_count() < 2:
-        print(f"[26/{PHASES}] (e) dp 1 x mp over NCCL: not run (1 card); "
+        say(f"[26/{PHASES}] (e) dp 1 x mp over NCCL: not run (1 card); "
               f"{nvidia_smi()}", flush=True)
     else:
         k = min(torch.cuda.device_count(), LLAMA_MP)
         nb = llama_selftest.launch_card(k, nccl=True, steps=LLAMA_STEPS,
                                         deadline=600)["llama_7b"]
-        print(f"[26/{PHASES}] (e) dp 1 x mp {k} over NCCL, one card a "
+        say(f"[26/{PHASES}] (e) dp 1 x mp {k} over NCCL, one card a "
               f"rank: losses {nb['losses']}, step s {nb['step_s']}; "
               f"{nvidia_smi()}", flush=True)
         if max(abs(x - y) for x, y in zip(nb["losses"], want)) >= \
@@ -6100,7 +6181,7 @@ def zero_bubble_two_ranks(dev):
               "layers": b["num_layers"], "backend": res["backend"],
               "ranks": ranks, "launch_wall_s": wall,
               "nvidia_smi": nvidia_smi()}
-    print(f"[27/{PHASES}] (a) GPTForCausalLMPipe at gpt3-1.3b widths, pp 2, "
+    say(f"[27/{PHASES}] (a) GPTForCausalLMPipe at gpt3-1.3b widths, pp 2, "
           f"the AD ring then use_zero_bubble=True on the same weights, two "
           f"ranks sharing the card over gloo (activations through the "
           f"host: no speed of the ring): {json.dumps(report)}", flush=True)
@@ -6120,7 +6201,7 @@ def zero_bubble_two_ranks(dev):
                     f"{tag} ring stage {r['stage']} launches "
                     f"{r[tag]['launches']}, want {want}")
     tiny = res["zb_card_cpu"]
-    print(f"[27/{PHASES}] (b)-(c) a tiny fp32 zero-bubble GPTForCausalLMPipe "
+    say(f"[27/{PHASES}] (b)-(c) a tiny fp32 zero-bubble GPTForCausalLMPipe "
           f"and zb_linear_pipeline at pp 2, card against CPU over the same "
           f"gloo ranks: {json.dumps(tiny)}; {nvidia_smi()}", flush=True)
     for r in tiny["ranks"]:
@@ -6179,7 +6260,7 @@ def stage3_two_ranks(dev):
               "backend": res["backend"], "world1": want,
               "ranks": a["ranks"], "launch_wall_s": wall,
               "world1_s": world1_s, "nvidia_smi": nvidia_smi()}
-    print(f"[28/{PHASES}] (a) gpt3-1.3b widths under group_sharded_parallel"
+    say(f"[28/{PHASES}] (a) gpt3-1.3b widths under group_sharded_parallel"
           f"(level='p_g_os') + TrainStep at sharding 2, two ranks sharing "
           f"the card over gloo (parameters and grads through the host: the "
           f"step times are gloo's, no speed of stage 3): "
@@ -6209,25 +6290,25 @@ def stage3_two_ranks(dev):
     keys = ("losses", "shards_pinned_host", "resident_param_bytes",
             "max_memory_allocated", "step_s")
     rows = [{k: r[k] for k in keys} for r in off["ranks"]]
-    print(f"[28/{PHASES}] (b) offload=True (the shards in pinned host "
+    say(f"[28/{PHASES}] (b) offload=True (the shards in pinned host "
           f"memory): {json.dumps(rows)}; {nvidia_smi()}", flush=True)
     for r, q in zip(off["ranks"], a["ranks"]):
         if not (r["losses"] == q["losses"] and r["shards_pinned_host"]):
             raise AssertionError(f"offload rank {r['rank']}: {r}")
     tiny = res["tiny_card_cpu"]
-    print(f"[28/{PHASES}] (c) tiny fp32 GPT under stage 3 at sharding 2, "
+    say(f"[28/{PHASES}] (c) tiny fp32 GPT under stage 3 at sharding 2, "
           f"card against CPU over the same gloo ranks: {json.dumps(tiny)}; "
           f"{nvidia_smi()}", flush=True)
     if not (tiny["max_loss_diff"] < 1e-4 and tiny["max_param_rel"] < 1e-3):
         raise AssertionError(f"stage 3 card against CPU: {tiny}")
     if torch.cuda.device_count() < 2:
-        print(f"[28/{PHASES}] (d) sharding 2 over NCCL: not run (1 card); "
+        say(f"[28/{PHASES}] (d) sharding 2 over NCCL: not run (1 card); "
               f"{nvidia_smi()}", flush=True)
     else:
         nb = sharding_selftest.launch_stage3_card(
             2, nccl=True, steps=STAGE3_STEPS, layers=STAGE3_LAYERS,
             deadline=600)["stage3"]["ranks"][0]
-        print(f"[28/{PHASES}] (d) sharding 2 over NCCL, one card a rank: "
+        say(f"[28/{PHASES}] (d) sharding 2 over NCCL, one card a rank: "
               f"losses {nb['losses']}, step s {nb['step_s']}; "
               f"{nvidia_smi()}", flush=True)
         if max(abs(x - y) for x, y in zip(nb["losses"], want["losses"])) \
@@ -6277,7 +6358,7 @@ def sep_two_ranks(dev):
     res = sep_selftest.launch_card(SEP, layers=STAGE3_LAYERS, deadline=700)
     wall = time.perf_counter() - t0
     ring = res["ring"]
-    print(f"[29/{PHASES}] (a) ring_flash_attention at gpt3-1.3b attention "
+    say(f"[29/{PHASES}] (a) ring_flash_attention at gpt3-1.3b attention "
           f"widths, sep {SEP}, two ranks sharing the card over gloo (K/V "
           f"through the host: no speed of the ring), against the plain "
           f"full attention: {json.dumps(ring)}; {nvidia_smi()}", flush=True)
@@ -6301,7 +6382,7 @@ def sep_two_ranks(dev):
               "backend": res["backend"], "world1": want,
               "world1_s": world1_s, "ranks": b["ranks"],
               "launch_wall_s": wall, "nvidia_smi": nvidia_smi()}
-    print(f"[29/{PHASES}] (b) gpt3-1.3b widths, use_ring_attention=True, "
+    say(f"[29/{PHASES}] (b) gpt3-1.3b widths, use_ring_attention=True, "
           f"fleet.init(sep_degree={SEP}) -> distributed_model -> "
           f"train_step, two ranks sharing the card over gloo (K/V and "
           f"grads through the host: the step times are gloo's, no speed of "
@@ -6326,7 +6407,7 @@ def sep_two_ranks(dev):
         if r["wrapper"] != "SegmentParallel":
             raise AssertionError(f"distributed_model gave {r['wrapper']}")
     c = res["llama"]
-    print(f"[29/{PHASES}] (c) llama-7b widths at {c['layers']} layers, "
+    say(f"[29/{PHASES}] (c) llama-7b widths at {c['layers']} layers, "
           f"use_ring_attention=True, fp32, sep {SEP}, one step against the "
           f"world of one: {json.dumps(c)}; {nvidia_smi()}", flush=True)
     r0 = c["ranks"][0]
@@ -6335,7 +6416,7 @@ def sep_two_ranks(dev):
             and len({r["loss"] for r in c["ranks"]}) == 1):
         raise AssertionError(f"llama under sep: {c}")
     tiny = res["tiny"]
-    print(f"[29/{PHASES}] (d) a tiny fp32 GPT and GQA LLaMA with the ring "
+    say(f"[29/{PHASES}] (d) a tiny fp32 GPT and GQA LLaMA with the ring "
           f"at sep {SEP}, card against CPU over the same gloo ranks: "
           f"{json.dumps(tiny)}; {nvidia_smi()}", flush=True)
     for fam, t in tiny.items():
@@ -6343,12 +6424,12 @@ def sep_two_ranks(dev):
                 and t["max_step_loss_diff"] < 1e-4):
             raise AssertionError(f"sep {fam} card against CPU: {t}")
     if torch.cuda.device_count() < 2:
-        print(f"[29/{PHASES}] (e) sep {SEP} over NCCL: not run (1 card); "
+        say(f"[29/{PHASES}] (e) sep {SEP} over NCCL: not run (1 card); "
               f"{nvidia_smi()}", flush=True)
     else:
         nb = sep_selftest.launch_card(SEP, nccl=True, layers=STAGE3_LAYERS,
                                       deadline=600)["gpt"]["ranks"][0]
-        print(f"[29/{PHASES}] (e) sep {SEP} over NCCL, one card a rank: "
+        say(f"[29/{PHASES}] (e) sep {SEP} over NCCL, one card a rank: "
               f"losses {nb['losses']}, step s {nb['step_s']}; "
               f"{nvidia_smi()}", flush=True)
         if max(abs(x - y) for x, y in zip(nb["losses"], want["losses"])) \
@@ -6361,7 +6442,192 @@ def sep_two_ranks(dev):
             b["ranks"][0]["launches_per_step"])
 
 
+# phase 30: sep beside mp and pp (BASELINE config 5 in one run)
+SEP_HYBRID_LAYERS = 4              # of LLaMA-7B's 32
+SEP_HYBRID_BATCH = 2               # rows of 2048 tokens
+SEP_HYBRID_STEPS, SEP_HYBRID_PP_STEPS, SEP_HYBRID_MICRO = 3, 2, 2
+SEP_HYBRID_SHARD = (2048, 32000, 4096)   # phase 30(a)'s CE shard (mp 2)
+
+
+def _sep_mp_collectives(layers, buckets):
+    """A rank's collectives a step at mp 2 x sep 2 (counted from the
+    design): over mp the batch's two broadcasts (`SegmentParallel` sends
+    mp rank 0's ids and labels before the cut) and the sums of
+    `_llama_mp_collectives`; over sep each layer's K/V rotation three
+    times a step each way (the forward, the recompute's replay, the
+    backward's reverse ring) and the loss's one sum of the token losses
+    and counts; the grads' ``buckets`` over dp+sep; the loss's mean over
+    the data axes."""
+    c = {"broadcast@mp": 2, "send@sep": 3 * layers, "recv@sep": 3 * layers,
+         "all_reduce@sep": 1, "all_reduce@dp+sep": buckets}
+    c.update(_llama_mp_collectives(layers))
+    return c
+
+
+def _sep_pipe_collectives(stage, layers, micro, buckets):
+    """A rank's collectives a step at tp 2 x pp 2 x sep 2 (``layers`` a
+    stage): `_llama_pp_collectives`', and over sep each layer's K/V
+    rotation three times a micro-batch each way and, on the last stage,
+    the criterion's sum a micro-batch; the grads' ``buckets`` over
+    dp+sep."""
+    c = _llama_pp_collectives(stage, layers, micro)
+    c.update({"send@sep": 3 * layers * micro, "recv@sep": 3 * layers * micro,
+              "all_reduce@dp+sep": buckets})
+    if stage == LLAMA_PP - 1:
+        c["all_reduce@sep"] = micro
+    return c
+
+
+def sep_beside_mp_pp(dev):
+    """Phase 30: LLaMA-7B's widths at 4 of 32 layers, bf16 O2 (phase 16's
+    dtypes), ``use_ring_attention=True``, 2 x 2048 tokens, weights from
+    seed 0: (a) #11 / #12 on the rank's vocab-parallel head shard at mp
+    2 over a rank's block of rows (`_mp_ce_case`); mp 2 x sep 2, four
+    gloo ranks sharing the card (`llama_selftest.launch_card(4, sep=2)`:
+    ``fleet.init`` -> ``distributed_model`` (`SegmentParallel`) ->
+    ``train_step``), 3 steps; (b) tp 2 x pp 2 x sep 2, eight ranks
+    (`LlamaForCausalLMPipe` -> `PipelineParallel.train_batch`, 2
+    micro-batches), 2 steps; each step's loss within `LLAMA_LOSS_BAR` of
+    a world-of-one `TrainStep` on the same weights and batch, computed
+    first here; the ranks' losses identical; launches and collectives a
+    step exact; (c) the tiny fp32 GQA LLaMA with the ring card against
+    CPU over the same ranks (mp 2 x sep 2, mp 2 x pp 2 x sep 2). Returns a
+    rank's launches a step at mp 2 x sep 2, and at tp 2 x pp 2 x sep 2 by
+    stage (mp and sep rank 0's), and the shard's record."""
+    from paddle_tpu_torch.distributed import llama_selftest
+
+    L = SEP_HYBRID_LAYERS
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    shard = _mp_ce_case(dev, flush, torch.bfloat16, 2,
+                        shape=SEP_HYBRID_SHARD)
+    del flush
+    say(f"[30/{PHASES}] (a) #11 / #12 on phase 30(a)'s head shard (h "
+        f"[{SEP_HYBRID_SHARD[0]}, {SEP_HYBRID_SHARD[2]}] bf16 over W shard "
+        f"[{SEP_HYBRID_SHARD[1] // 2}, {SEP_HYBRID_SHARD[2]}]): "
+        f"{json.dumps(shard)}; {nvidia_smi()}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = llama_selftest.full_width_config(num_layers=L,
+                                           use_ring_attention=True)
+    t0 = time.perf_counter()
+    want = llama_selftest.world_one(dev, steps=SEP_HYBRID_STEPS,
+                                    batch=SEP_HYBRID_BATCH, cfg=cfg)
+    world1_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = llama_selftest.launch_card(4, steps=SEP_HYBRID_STEPS, sep=SEP,
+                                     layers=L, batch=SEP_HYBRID_BATCH,
+                                     deadline=300)
+    wall = time.perf_counter() - t0
+    b = res["llama_7b"]
+    gaps = [abs(x - y) for x, y in zip(b["losses"], want)]
+    per_step = b["launches_per_step"]
+    coll = dict(b["collectives_per_step"]["by_group"])
+    want_c = _sep_mp_collectives(L, b["grad_buckets"])
+    report = {"model": "llama-7b widths", "layers": L,
+              "cut": f"depth {L} of 32 layers", "mp": 2, "sep": SEP,
+              "backend": res["backend"], "tokens": [SEP_HYBRID_BATCH, 2048],
+              "losses": b["losses"], "world1_losses": want,
+              "loss_gaps": gaps, "rank_losses": b["rank_losses"],
+              "step_s": b["step_s"], "launches_per_step": per_step,
+              "collectives_per_step": b["collectives_per_step"],
+              "grad_buckets": b["grad_buckets"], "head_rows": b["head_rows"],
+              "max_memory_allocated_rank0": b["max_memory_allocated"],
+              "types": b["types"], "world1_s": world1_s,
+              "launch_wall_s": wall, "nvidia_smi": nvidia_smi()}
+    say(f"[30/{PHASES}] (a) LLaMA-7B widths at mp 2 x sep 2, ring on, four "
+        f"ranks sharing the card over gloo (activations, K/V and grads "
+        f"through the host: no speed): {json.dumps(report)}")
+    if not (len(gaps) == SEP_HYBRID_STEPS and max(gaps) < LLAMA_LOSS_BAR
+            and all(np.isfinite(b["losses"]))):
+        raise AssertionError(f"mp x sep losses {b['losses']} against world "
+                             f"1 {want}")
+    if any(r != b["rank_losses"][0] for r in b["rank_losses"]):
+        raise AssertionError(f"ranks' losses differ: {b['rank_losses']}")
+    if b["types"][0] != "SegmentParallel" or \
+            b["head_rows"] != SEP_HYBRID_SHARD[1] // 2:
+        raise AssertionError(f"mp x sep wrapper / head rows: {b['types']}, "
+                             f"{b['head_rows']}")
+    if per_step != _llama_mp_launches():
+        raise AssertionError(f"mp x sep launches a step {per_step}, want "
+                             f"{_llama_mp_launches()}")
+    if coll != want_c:
+        raise AssertionError(f"mp x sep collectives a step {coll}, want "
+                             f"{want_c}")
+    t0 = time.perf_counter()
+    pres = llama_selftest.launch_card(8, steps=SEP_HYBRID_PP_STEPS,
+                                      pp=LLAMA_PP, sep=SEP, layers=L,
+                                      batch=SEP_HYBRID_BATCH,
+                                      micro=SEP_HYBRID_MICRO, deadline=360)
+    pwall = time.perf_counter() - t0
+    ranks = pres["llama_7b"]["ranks"]
+    pgaps = [abs(x - y) for x, y in zip(pres["llama_7b"]["losses"], want)]
+    report = {"model": "llama-7b widths", "layers": L, "tp": 2,
+              "pp": LLAMA_PP, "sep": SEP, "micro": SEP_HYBRID_MICRO,
+              "losses": pres["llama_7b"]["losses"],
+              "world1_losses": want[:SEP_HYBRID_PP_STEPS],
+              "loss_gaps": pgaps,
+              "ranks": [{k: r[k] for k in (
+                  "rank", "stage", "mp_rank", "sep_rank", "layers",
+                  "losses", "step_s", "p2p_per_step", "grad_buckets",
+                  "max_memory_allocated", "launches_per_step")}
+                  for r in ranks],
+              "collectives_per_step_rank0": ranks[0]["collectives_per_step"],
+              "launch_wall_s": pwall, "nvidia_smi": nvidia_smi()}
+    say(f"[30/{PHASES}] (b) BASELINE config 5's layout at tp 2 x pp 2 x sep "
+        f"2, ring on: eight ranks sharing the card over gloo (no speed; tp "
+        f"4 is phase 26's): {json.dumps(report)}")
+    if not (len(pgaps) == SEP_HYBRID_PP_STEPS
+            and max(pgaps) < LLAMA_LOSS_BAR
+            and all(np.isfinite(pres["llama_7b"]["losses"]))):
+        raise AssertionError(f"tp x pp x sep losses "
+                             f"{pres['llama_7b']['losses']} against world 1 "
+                             f"{want}")
+    if any(r["losses"] != ranks[0]["losses"] for r in ranks):
+        raise AssertionError(f"tp x pp x sep ranks' losses differ: {ranks}")
+    lps = L // LLAMA_PP
+    for r in ranks:
+        if r["layers"] != lps or r["wrapper"] != "PipelineParallel":
+            raise AssertionError(f"tp x pp x sep rank {r['rank']}: "
+                                 f"{r['layers']} layers, {r['wrapper']}")
+        if r["launches_per_step"] != _llama_pp_launches():
+            raise AssertionError(
+                f"tp x pp x sep rank {r['rank']} launches a step "
+                f"{r['launches_per_step']}, want {_llama_pp_launches()}")
+        want_c = _sep_pipe_collectives(r["stage"], lps, r["micro"],
+                                       r["grad_buckets"])
+        if dict(r["collectives_per_step"]["by_group"]) != want_c:
+            raise AssertionError(
+                f"tp x pp x sep rank {r['rank']} collectives a step "
+                f"{r['collectives_per_step']['by_group']}, want {want_c}")
+    tiny = [res["tiny_card_cpu"], pres["tiny_card_cpu"]]
+    say(f"[30/{PHASES}] (c) tiny fp32 GQA LLaMA (KV heads 2) with the ring, "
+        f"card against CPU over the same gloo ranks: mp 2 x sep 2 "
+        f"{json.dumps(tiny[0])}; mp 2 x pp 2 x sep 2 {json.dumps(tiny[1])}; "
+        f"{nvidia_smi()}")
+    for t in tiny:
+        if not (t["max_loss_diff"] < 1e-4 and t["max_param_rel"] < 1e-3):
+            raise AssertionError(f"LLaMA under sep card against CPU: {t}")
+    return (per_step, {r["stage"]: r["launches_per_step"] for r in ranks
+                       if r["mp_rank"] == 0 and r["sep_rank"] == 0}, shard)
+
+
+# the contract's keys of a kernel's record (every launch count stays too)
+KERNEL_KEYS = ("name", "route", "source", "replaces", "launches",
+               "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+               "library_ms")
+
+
 def main() -> int:
+    try:
+        return _main()
+    except BaseException:
+        _LINES.close("failed")
+        raise
+
+
+def _main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
               file=sys.stderr)
@@ -6373,14 +6639,14 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
     smi = nvidia_smi()
-    print(f"[1/{PHASES}] device: {kind}, count {count}; nvidia-smi: {smi}",
+    say(f"[1/{PHASES}] device: {kind}, count {count}; nvidia-smi: {smi}",
           flush=True)
 
     t0 = time.perf_counter()
     built = _build.build()
     regs = [line.strip() for info in built.values()
             for line in info["log"].splitlines() if "registers" in line]
-    print(f"[2/{PHASES}] build: {sorted(built) or 'up to date'} in "
+    say(f"[2/{PHASES}] build: {sorted(built) or 'up to date'} in "
           f"{time.perf_counter() - t0:.1f} s; ptxas: {regs}", flush=True)
     check_wgmma_kernels(built)
     check_multi_tensor_build(built)
@@ -6405,7 +6671,7 @@ def main() -> int:
         ran, stats = serve_full_width(dev, model, quant, phase=6)
         launches.update(ran)
         ratio = stats["pool_bytes"] / bf16["pool_bytes"]
-        print(f"[6/{PHASES}] {quant} pools: pool_bytes {ratio:.4f}x the "
+        say(f"[6/{PHASES}] {quant} pools: pool_bytes {ratio:.4f}x the "
               f"bf16 run's, effective_slots_vs_bf16 "
               f"{stats['effective_slots_vs_bf16']}, output tok/s "
               f"{stats['output_tok_s']} vs {bf16['output_tok_s']} (graphs; "
@@ -6457,13 +6723,16 @@ def main() -> int:
     llama_mp_launches, llama_pp_launches = llama_hybrid(dev)
     t0 = time.perf_counter()
     zb_launches = zero_bubble_two_ranks(dev)
-    print(f"[27/{PHASES}] wall {time.perf_counter() - t0:.1f} s", flush=True)
+    say(f"[27/{PHASES}] wall {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     stage3_launches = stage3_two_ranks(dev)
-    print(f"[28/{PHASES}] wall {time.perf_counter() - t0:.1f} s", flush=True)
+    say(f"[28/{PHASES}] wall {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     sep_ring, sep_launches = sep_two_ranks(dev)
-    print(f"[29/{PHASES}] wall {time.perf_counter() - t0:.1f} s", flush=True)
+    say(f"[29/{PHASES}] wall {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    sep_mp_launches, sep_hybrid_launches, sep_shard = sep_beside_mp_pp(dev)
+    say(f"[30/{PHASES}] wall {time.perf_counter() - t0:.1f} s")
 
     where = {name: (PAGED_SOURCE, f"{PAGED_TPU}:{line}")
              for name, (_, _, _, line) in PAGED_KERNELS.items()}
@@ -6542,6 +6811,20 @@ def main() -> int:
              # phase 29(b): a rank's launches a step at sep 2
              **({"launches_sep": sep_launches[name]}
                 if name in sep_launches else {}),
+             # phase 30(a): a rank's launches a step at mp 2 x sep 2;
+             # (b): at tp 2 x pp 2 x sep 2, by stage
+             **({"launches_sep_mp": sep_mp_launches[name]}
+                if name in sep_mp_launches else {}),
+             **({"launches_sep_hybrid": {
+                 f"stage{st}": ran[name]
+                 for st, ran in sorted(sep_hybrid_launches.items())}}
+                if name in sep_hybrid_launches[0] else {}),
+             # phase 30(a): the rank's head shard at mp 2 x sep 2
+             **({"sep_mp_shard": {k: sep_shard[k]
+                                  for k in ("shape", "errors")}
+                 | sep_shard["fwd" if "fwd" in name else "bwd"]}
+                if name in ("fused_ce_fwd_wgmma_kernel",
+                            "fused_ce_bwd_kernels") else {}),
              # phase 26(a): the shards of LLaMA-7B's head at mp 2 and 4
              **({"llama_mp_shards": {
                  mp: {k: rec[k] for k in ("shape", "errors")}
@@ -6573,8 +6856,13 @@ def main() -> int:
                                           "dequant_linear_ms", "shape",
                                           "stream_ms", "library_stream_ms",
                                           "config", "row_keys", "rows")}})
-    print(f"[19/{PHASES}] kernels:", flush=True)
-    print(json.dumps({"kernels": line}), flush=True)
+    say(f"[19/{PHASES}] kernels (whole in the log; on stdout the "
+        f"contract's keys and the launches):")
+    _LINES.log.write(json.dumps({"kernels": line}) + "\n")
+    _LINES.close()
+    print(json.dumps({"kernels": [
+        {k: v for k, v in r.items() if k in KERNEL_KEYS
+         or k.startswith("launches")} for r in line]}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)

@@ -7,8 +7,9 @@ parallelism (`meta_parallel.PipelineLayer`, `PipelineParallel`, the
 ring of `meta_parallel.spmd_pipeline`), sequence blocks over the sep
 axis (`SegmentParallel`, `meta_parallel.ring_attention`), the sync
 helpers and Megatron's sequence parallelism (`utils`) and activation
-recomputation. The sep axis composes with dp alone (the rest raises,
-naming ROADMAP A9b.5b)."""
+recomputation. The sep axis composes with dp, mp and a
+`PipelineLayer`'s pp (sharding, and another model at pp, raise, naming
+ROADMAP A9b.5b)."""
 from . import layers, meta_optimizers, meta_parallel, utils  # noqa: F401
 from .layers.mpu import get_rng_state_tracker  # noqa: F401
 from .fleet import (DistributedStrategy, Fleet, barrier_worker,  # noqa: F401

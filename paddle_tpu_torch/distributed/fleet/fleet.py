@@ -14,11 +14,14 @@ above 1 gives `meta_parallel.TensorParallel`, a sharding degree above 1
 `distributed_optimizer` gives `HybridParallelOptimizer`, which shards
 the optimizer state over the data axes when the sharding degree is
 above 1 and clips by the global norm over the pp x mp group when the
-mp or pp degree is. A sep degree above 1 gives
-`meta_parallel.SegmentParallel` (each rank its block of the sequence;
-with an mp, pp or sharding degree above 1 it raises, naming ROADMAP
-A9b.5b), whose grads are summed over sep and averaged over dp before the
-optimizer (and its clip) sees them.
+mp or pp degree is. Under a sep degree above 1 (each rank its block of
+the sequence) a `PipelineLayer` at a pp degree above 1 gives the
+sep-aware `meta_parallel.PipelineParallel` (each micro-batch cut to the
+rank's block), any other model there raises, naming ROADMAP A9b.5b, and
+every model otherwise gives `meta_parallel.SegmentParallel`, beside mp
+or not (a sharding degree raises, naming A9b.5b); either sums the grads
+over sep and averages them over dp before the optimizer (and its clip,
+over pp x mp) sees them.
 
     strategy = fleet.DistributedStrategy()
     strategy.hybrid_configs.update({"dp_degree": d, "mp_degree": m,
@@ -112,17 +115,22 @@ class Fleet:
             self.init()
         hcg = self._hcg
         from ..parallel import DataParallel
-        from .meta_parallel import (HybridParallel, PipelineLayer,
+        from .meta_parallel import (A9B5B, HybridParallel, PipelineLayer,
                                     PipelineParallel, SegmentParallel,
                                     ShardingParallel, TensorParallel)
 
-        if hcg.get_sep_parallel_world_size() > 1:
-            # first: it refuses the axes it does not compose with yet
-            return SegmentParallel(model, hcg, strategy=self._strategy)
+        sep = hcg.get_sep_parallel_world_size() > 1
         if hcg.get_pipe_parallel_world_size() > 1:
             if isinstance(model, PipelineLayer):
                 return PipelineParallel(model, hcg, strategy=self._strategy)
+            if sep:
+                raise NotImplementedError(A9B5B.format(
+                    f"{type(model).__name__} (not a PipelineLayer) at a pp "
+                    f"degree above 1"))
             return HybridParallel(model, hcg, strategy=self._strategy)
+        if sep:
+            # before mp: it cuts the blocks, then runs as TensorParallel
+            return SegmentParallel(model, hcg, strategy=self._strategy)
         if hcg.get_model_parallel_world_size() > 1:
             return TensorParallel(model, hcg, strategy=self._strategy)
         if hcg.get_sharding_parallel_world_size() > 1:

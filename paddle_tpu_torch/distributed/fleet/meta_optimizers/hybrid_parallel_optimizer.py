@@ -20,8 +20,11 @@ optimizer's ``_found_group``; `amp.GradScaler` reads it there too): every
 rank skips or steps together. With ``pipelined=False`` the model is
 whole on every pp rank (a model that is not a `PipelineLayer`): the pp
 group is left out of the norm and the flag. Under a sep degree above 1
-`SegmentParallel` hands the optimizer grads already reduced over dp+sep,
-so the plain step is global; sharding there raises (ROADMAP A9b.5b).
+`SegmentParallel` and `PipelineParallel` hand the optimizer grads
+already summed over sep and averaged over dp, so the sep ranks hold
+equal grads: the norm stays summed over mp (and pp) alone and the flag
+stays one over pp x mp (C17); with neither axis the plain step is
+global. A sharded optimizer there raises (ROADMAP A9b.5b).
 """
 from __future__ import annotations
 
@@ -65,8 +68,8 @@ class HybridParallelOptimizer:
         if shard and hcg.get_sep_parallel_world_size() > 1:
             raise NotImplementedError(
                 "a sharded optimizer under a sep degree above 1 is not "
-                "ported yet: ROADMAP A9b.5b (the sep axis composes with dp "
-                "alone)")
+                "ported yet: ROADMAP A9b.5b (the sep axis composes with dp, "
+                "mp and a PipelineLayer's pp)")
         if shard and not isinstance(optimizer, DygraphShardingOptimizer):
             optimizer = DygraphShardingOptimizer(optimizer, hcg)
         self._inner_opt = optimizer

@@ -11,7 +11,9 @@ mesh has an mp axis). `TensorParallel` runs a model built of the
 `layers.mpu` layers over the model-parallel group. `PipelineParallel`
 runs a `PipelineLayer`'s stages, one rank a stage (`pipeline_parallel`).
 `SegmentParallel` runs the sep axis: each rank its block of the
-sequence (`ring_attention`).
+sequence (`ring_attention`), beside mp (a rank's heads of its block) or
+dp; a `PipelineLayer` at pp x sep runs through `PipelineParallel`, which
+cuts each micro-batch to the rank's block.
 """
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ import torch
 from torch import nn
 
 from ...collective import all_gather_concat
-from .ring_attention import (ring_attention, ring_flash_attention,
+from .ring_attention import (ring_attention, ring_flash_attention, sep_cut,
                              sep_gathered_attention, sep_group, sep_shard)
 
 __all__ = ["HybridParallel", "LayerDesc", "MetaParallelBase",
@@ -30,7 +32,7 @@ __all__ = ["HybridParallel", "LayerDesc", "MetaParallelBase",
            "sep_gathered_attention", "sep_group", "sep_shard"]
 
 A9B5B = ("{} under a sep degree above 1 is not ported yet: ROADMAP A9b.5b "
-         "(the sep axis composes with dp alone)")
+         "(the sep axis composes with dp, mp and a PipelineLayer's pp)")
 
 
 class MetaParallelBase(nn.Module):
@@ -193,24 +195,35 @@ class SegmentParallel(MetaParallelBase):
     non-finite guard and the clip see reduced grads. `train_step` is a
     `jit.TrainStep` over this wrapper's ``loss``.
 
-    Stricter than the reference: an mp, pp or sharding degree above 1, a
-    ``scan_layers`` GPT and a GPT with draft heads raise
-    ``NotImplementedError`` naming ROADMAP A9b.5b (the reference composes
-    them under GSPMD)."""
+    Under mp (a model of `layers.mpu` blocks, a LLaMA built under the
+    fleet) it is `TensorParallel` on the block as well: the replicated
+    parameters are broadcast over the model-parallel group at
+    construction (an mp rank's blocks differ and stay its own), each
+    ``forward`` / ``loss`` first sends group rank 0's inputs over it,
+    then cuts them; the sep ranks of one mp coordinate hold the same
+    blocks, so the dp+sep reduction keeps them equal, and `train_step`'s
+    `HybridParallelOptimizer` clips by the norm over the mp group alone.
+    At a pp degree above 1 the model is whole on every pp rank, as
+    under `HybridParallel` (`fleet.distributed_model` sends a
+    `PipelineLayer` to `PipelineParallel` and refuses other models
+    there).
+
+    Stricter than the reference: a sharding degree above 1,
+    ``group_sharded_parallel``, a ``scan_layers`` GPT and a GPT with
+    draft heads raise ``NotImplementedError`` naming ROADMAP A9b.5b (the
+    reference composes the first three under GSPMD)."""
 
     def __init__(self, layers, hcg, strategy=None):
         from ...sharding import group_sharded as _gs
         from ....jit.sharded_scan import is_scan_gpt
         from ..utils.hybrid_parallel_util import (broadcast_dp_parameters,
+                                                  broadcast_mp_parameters,
                                                   broadcast_sep_parameters)
 
-        for what, deg in (("the mp axis",
-                           hcg.get_model_parallel_world_size()),
-                          ("the pp axis", hcg.get_pipe_parallel_world_size()),
-                          ("the sharding axis",
-                           hcg.get_sharding_parallel_world_size())):
-            if deg > 1:
-                raise NotImplementedError(A9B5B.format(f"{what} ({deg})"))
+        deg = hcg.get_sharding_parallel_world_size()
+        if deg > 1:
+            raise NotImplementedError(A9B5B.format(
+                f"the sharding axis ({deg})"))
         if isinstance(layers, (_gs.GroupShardedStage2,
                                _gs.GroupShardedStage3)):
             raise NotImplementedError(A9B5B.format(
@@ -222,6 +235,7 @@ class SegmentParallel(MetaParallelBase):
             raise NotImplementedError(A9B5B.format(
                 "draft heads (their labels cross the blocks)"))
         super().__init__(layers, hcg, strategy)
+        broadcast_mp_parameters(layers, hcg)
         broadcast_sep_parameters(layers, hcg)
         broadcast_dp_parameters(layers, hcg)
 
@@ -230,13 +244,13 @@ class SegmentParallel(MetaParallelBase):
         return self._hcg.get_sep_parallel_group()
 
     def _cut(self, inputs, kwargs):
-        def cut(t):
-            if isinstance(t, torch.Tensor) and t.dim() >= 2:
-                return sep_shard(t, self._sep)
-            return t
+        """Group rank 0's inputs over mp (as `TensorParallel`), then each
+        tensor of two dims or more cut to the rank's block."""
+        from ..utils.hybrid_parallel_util import broadcast_input_data
 
-        return (tuple(cut(t) for t in inputs),
-                {k: cut(t) for k, t in kwargs.items()})
+        if self._hcg.get_model_parallel_world_size() > 1:
+            broadcast_input_data(self._hcg, *inputs, **kwargs)
+        return sep_cut(inputs, self._sep), sep_cut(kwargs, self._sep)
 
     def forward(self, *inputs, **kwargs):
         inputs, kwargs = self._cut(inputs, kwargs)

@@ -23,10 +23,20 @@ holds the mpu layers' blocks (a `models.LlamaForCausalLMPipe` stage its
 Megatron decoder layers): its replicated parameters are broadcast over
 the model-parallel group at construction and each batch over it before
 the forwards, the ring runs per mp coordinate (each rank's own
-pp group) and the clip and the flag span the pp x mp group. The loss returned
-on every rank is the micro-batches' mean averaged over the data axes:
-the reference's sequential micro-accumulation over the global batch
-(:55-105). `eval_batch` runs the forwards alone.
+pp group) and the clip and the flag span the pp x mp group. Under a sep
+degree above 1 each micro-batch's inputs and labels are cut to the
+rank's block of the sequence on dim 1 (`sep_shard`, after the mp
+broadcast and the split), so a stage runs its entries on the block (a
+LLaMA's attention over the sep group, its criterion summed over it);
+the parameters are broadcast over the sep group at construction and the
+grads summed over the fused dp+sep group and divided by the dp degree
+(`fused_allreduce_gradients`), after which the sep ranks hold equal
+grads and the clip and the flag stay over pp x mp. The ring's transfers
+stay inside the pp group, whose ranks share a sep coordinate. A
+sharding degree beside sep raises, naming ROADMAP A9b.5b. The loss
+returned on every rank is the micro-batches' mean averaged over the data
+axes: the reference's sequential micro-accumulation over the global
+batch (:55-105). `eval_batch` runs the forwards alone.
 
 `pipelined_blocks` is the reference's shim over `spmd_pipeline.
 pipeline_spmd`.
@@ -39,11 +49,13 @@ from ... import collective as coll
 from ...parallel import broadcast_module
 from ..utils.hybrid_parallel_util import (broadcast_input_data,
                                           broadcast_mp_parameters,
+                                          broadcast_sep_parameters,
                                           fused_allreduce_gradients)
-from . import MetaParallelBase
+from . import A9B5B, MetaParallelBase
 from ..meta_optimizers import (DygraphShardingOptimizer,
                                HybridParallelOptimizer)
 from .pp_layers import PipelineLayer
+from .ring_attention import sep_cut
 from .spmd_pipeline import (Ring, _floating, microbatch, pipeline_spmd,
                             unmicrobatch)
 
@@ -85,6 +97,14 @@ class PipelineParallel(MetaParallelBase):
             else None
         if self._mp is not None and self._mp.nranks > 1:
             broadcast_mp_parameters(layers, hcg)
+        self._sep = (hcg.get_sep_parallel_group() if hcg is not None
+                     and hcg.get_sep_parallel_world_size() > 1 else None)
+        if self._sep is not None:
+            deg = hcg.get_sharding_parallel_world_size()
+            if deg > 1:
+                raise NotImplementedError(A9B5B.format(
+                    f"the sharding axis ({deg}) beside a PipelineLayer"))
+            broadcast_sep_parameters(layers, hcg)
         self.total_loss = None
         self._opts = {}
 
@@ -94,11 +114,15 @@ class PipelineParallel(MetaParallelBase):
 
     def _split(self, data):
         """``data``'s micro-batches, after group rank 0's data is sent over
-        the model-parallel group (its ranks compute on the same rows)."""
+        the model-parallel group (its ranks compute on the same rows);
+        under sep each cut to the rank's block of the sequence."""
         if self._mp is not None and self._mp.nranks > 1:
             broadcast_input_data(self._hcg, *(
                 data if isinstance(data, (tuple, list)) else (data,)))
-        return _split_micro(data, self.accumulate_steps)
+        micro = _split_micro(data, self.accumulate_steps)
+        if self._sep is None:
+            return micro
+        return [sep_cut(mb, self._sep) for mb in micro]
 
     def _run_forward(self, micro, grad, compute_loss=True):
         """The forwards of every micro-batch: [(input, output or loss)]
@@ -182,7 +206,11 @@ class PipelineParallel(MetaParallelBase):
         del kept
         self._layers.allreduce_shared_weight_gradients()
         opt = self._hybrid_opt(optimizer)
-        if self._data is not None and not isinstance(
+        if self._sep is not None:
+            # summed over sep, averaged over dp
+            fused_allreduce_gradients(list(self._layers.parameters()),
+                                      self._hcg)
+        elif self._data is not None and not isinstance(
                 getattr(opt, "_inner_opt", opt), DygraphShardingOptimizer):
             fused_allreduce_gradients(list(self._layers.parameters()),
                                       group=self._data)

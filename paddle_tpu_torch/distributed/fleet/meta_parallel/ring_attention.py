@@ -57,8 +57,8 @@ from torch.utils.checkpoint import checkpoint
 from ...collective import (ReduceOp, all_gather_concat, all_reduce,
                            p2p_exchange, p2p_permute)
 
-__all__ = ["ring_attention", "ring_flash_attention", "sep_gathered_attention",
-           "sep_group", "sep_shard"]
+__all__ = ["ring_attention", "ring_flash_attention", "sep_cut",
+           "sep_gathered_attention", "sep_group", "sep_shard"]
 
 _NEG_INF = -1e30  # finite mask value, as the reference's
 
@@ -98,6 +98,19 @@ def sep_shard(x, group=None, axis=1):
             f"ROADMAP A9b.5b (the reference leaves such a tensor whole)")
     blk = s // n
     return x.narrow(axis, r * blk, blk)
+
+
+def sep_cut(data, group=None):
+    """`sep_shard` of dim 1 of every tensor of two dims or more in
+    ``data`` (a tensor, or a tuple, list or dict of them, nested); the
+    rest as it is."""
+    if isinstance(data, (tuple, list)):
+        return type(data)(sep_cut(d, group) for d in data)
+    if isinstance(data, dict):
+        return {k: sep_cut(v, group) for k, v in data.items()}
+    if isinstance(data, torch.Tensor) and data.dim() >= 2:
+        return sep_shard(data, group)
+    return data
 
 
 def _scale(q, scale):

@@ -1,7 +1,9 @@
 """Rank workers of LLaMA under the mp and pp axes, and its runs on the
-card: the counterpart of the reference's ``test_config5_tp_pp_sp_slice``
-(tests/test_llama_bert.py) minus its sep axis, and of its
-`PipelineParallel` over a `PipelineLayer` of LLaMA's pieces.
+card (with the sep axis beside them too): the counterpart of the
+reference's ``test_config5_tp_pp_sp_slice`` (tests/test_llama_bert.py),
+and of its `PipelineParallel` over a `PipelineLayer` of LLaMA's pieces
+(the CPU cases beside sep: `sep_selftest`'s ``sep_mp``, ``sep_pp`` and
+``sep_hybrid``).
 
 Each case is a function of one rank (`sharding_selftest.Ctx`) returning
 numpy arrays; the caller computes the reference. Cases:
@@ -38,9 +40,13 @@ launches and collectives a step; then a tiny fp32 GQA LLaMA at mp 2 on
 the card against the same ranks on the CPU. With ``--pp 2`` (8 ranks)
 the same model at tp (the world / 2) x pp 2 through `PipelineParallel`
 (``accumulate_steps`` 4): losses, sends and receives, peak memory; then
-the tiny model at pp 2 x mp 2. Rank 0 prints one JSON line. The weights
-are drawn on the card from seed 0, as `world_one` draws them
-(`chip_smoke.py` phase 26 compares).
+the tiny model at pp 2 x mp 2. With ``--sep 2`` the sep axis beside
+them (``--layers``, ``--batch``, ``--micro`` set the depth, the rows of
+2048 tokens and the micro-batches; the model runs the ring): mp (the
+world / 2) x sep 2 through `SegmentParallel`, or with ``--pp 2`` tp x
+pp 2 x sep 2. Rank 0 prints one JSON line. The weights are drawn on the
+card from seed 0, as `world_one` draws them (`chip_smoke.py` phases 26
+and 30 compare).
 """
 from __future__ import annotations
 
@@ -66,11 +72,12 @@ def _t(a, dev, grad=False):
     return t.requires_grad_(grad)
 
 
-def _init(dp=1, mp=1, pp=1, accumulate_steps=1):
+def _init(dp=1, mp=1, pp=1, accumulate_steps=1, sep=1):
     from .fleet import DistributedStrategy, fleet
 
     s = DistributedStrategy()
-    s.hybrid_configs = {"dp_degree": dp, "mp_degree": mp, "pp_degree": pp}
+    s.hybrid_configs = {"dp_degree": dp, "mp_degree": mp, "pp_degree": pp,
+                        "sep_degree": sep}
     s.pipeline_configs = {"accumulate_steps": accumulate_steps}
     fleet.init(is_collective=True, strategy=s)
     return fleet.get_hybrid_communicate_group()
@@ -303,6 +310,16 @@ def world_one(dev, steps=3, batch=4, seq=2048, cfg=None):
     return losses
 
 
+def _grad_buckets(model):
+    """The grads' buckets of one `fused_allreduce_gradients` over the
+    model's parameters (`comm_bucketer.build_buckets`'s count)."""
+    from .comm_bucketer import build_buckets
+
+    return len(build_buckets([(i, tuple(p.shape), p.dtype) for i, p in
+                              enumerate(model.parameters())
+                              if p.requires_grad]).buckets)
+
+
 def _timed_steps(run, steps, dev):
     """``run()`` ``steps`` times: losses, seconds, launches and
     collectives of each step (the last step's returned)."""
@@ -324,19 +341,21 @@ def _timed_steps(run, steps, dev):
     return losses, times, launches[-1], calls
 
 
-def full_width(dev, steps=3, batch=4, seq=2048, cfg=None):
-    """LLaMA-7B's widths at dp 1 x mp (the world) through ``fleet.init``
-    -> ``fleet.distributed_model(llama).train_step(AdamW +
-    ClipGradByGlobalNorm(1.0))``, `_o2`'s dtypes, weights from seed 0:
-    the losses, step seconds, launches and collectives a step (the last
-    step's), the peak memory; every rank's losses."""
+def full_width(dev, steps=3, batch=4, seq=2048, cfg=None, sep=1):
+    """LLaMA-7B's widths at dp 1 x mp (the world / ``sep``) x ``sep``
+    through ``fleet.init`` -> ``fleet.distributed_model(llama).
+    train_step(AdamW + ClipGradByGlobalNorm(1.0))`` (`TensorParallel`,
+    or at ``sep`` above 1 `SegmentParallel`: each rank its block of the
+    sequence), `_o2`'s dtypes, weights from seed 0: the losses, step
+    seconds, launches and collectives a step (the last step's), the
+    peak memory; every rank's losses."""
     from ..models import LlamaForCausalLM
     from . import collective as C
     from . import env
     from .fleet import fleet
 
     n = env.get_world_size()
-    hcg = _init(mp=n)
+    hcg = _init(mp=n // sep, sep=sep)
     cfg = cfg or full_width_config()
     if _cuda(dev):
         torch.cuda.reset_peak_memory_stats(dev)
@@ -350,8 +369,10 @@ def full_width(dev, steps=3, batch=4, seq=2048, cfg=None):
     result = {"losses": losses, "step_s": times,
               "launches_per_step": launches, "collectives_per_step": calls,
               "max_memory_allocated": _peak(dev),
-              "mp": n, "rank": env.get_rank(),
+              "mp": n // sep, "sep": sep, "rank": env.get_rank(),
               "mp_rank": hcg.get_model_parallel_rank(),
+              "sep_rank": hcg.get_sep_parallel_rank(),
+              "grad_buckets": _grad_buckets(model),
               "head_rows": int(model.head_weight().shape[0]),
               "layers": cfg.num_layers,
               "types": [type(step.model).__name__, type(step).__name__,
@@ -364,19 +385,21 @@ def full_width(dev, steps=3, batch=4, seq=2048, cfg=None):
 
 
 def pipe_full_width(dev, steps=2, batch=4, seq=2048, pp=2, micro=4,
-                    cfg=None):
-    """`full_width`'s model at tp (the world / ``pp``) x pp through
-    `models.LlamaForCausalLMPipe` -> ``fleet.distributed_model``
-    (`PipelineParallel`, ``micro`` micro-batches) and ``train_batch``:
-    losses, step seconds, launches, sends / receives and collectives a
-    step, the peak memory, of every rank."""
+                    cfg=None, sep=1):
+    """`full_width`'s model at tp (the world / (``pp`` x ``sep``)) x pp
+    x ``sep`` through `models.LlamaForCausalLMPipe` ->
+    ``fleet.distributed_model`` (`PipelineParallel`, ``micro``
+    micro-batches, each cut to the rank's block of the sequence at
+    ``sep`` above 1) and ``train_batch``: losses, step seconds,
+    launches, sends / receives and collectives a step, the peak memory,
+    of every rank."""
     from ..models.llama import LlamaForCausalLMPipe
     from . import collective as C
     from . import env
     from .fleet import fleet
 
     n = env.get_world_size()
-    hcg = _init(mp=n // pp, pp=pp, accumulate_steps=micro)
+    hcg = _init(mp=n // (pp * sep), pp=pp, accumulate_steps=micro, sep=sep)
     cfg = cfg or full_width_config()
     if _cuda(dev):
         torch.cuda.reset_peak_memory_stats(dev)
@@ -395,10 +418,12 @@ def pipe_full_width(dev, steps=2, batch=4, seq=2048, pp=2, micro=4,
               "max_memory_allocated": _peak(dev),
               "stage": hcg.get_stage_id(),
               "mp_rank": hcg.get_model_parallel_rank(),
+              "sep_rank": hcg.get_sep_parallel_rank(),
+              "grad_buckets": _grad_buckets(pl),
               "layers": sum(type(m).__name__ == "LlamaDecoderLayer"
                             for m, _ in pl.run_function),
-              "rank": env.get_rank(), "pp": pp, "mp": n // pp,
-              "micro": micro, "wrapper": type(model).__name__}
+              "rank": env.get_rank(), "pp": pp, "mp": n // (pp * sep),
+              "sep": sep, "micro": micro, "wrapper": type(model).__name__}
     ranks = []
     C.all_gather_object(ranks, result)
     del model, opt, pl
@@ -410,13 +435,14 @@ TINY = dict(vocab_size=128, hidden_size=64, num_layers=4,
             intermediate_size=96, max_position_embeddings=64)
 
 
-def tiny_card_cpu(dev, mp=2, pp=1, steps=3):
-    """A tiny fp32 GQA LLaMA (KV heads 2) at dp x pp x mp (the world) on
-    the card and on the CPU over the same gloo ranks, from the same
-    weights (the CPU generator's draw: the card's draws other numbers),
-    AdamW with the clip, 3 steps (`LlamaForCausalLMPipe` through
-    ``train_batch`` at ``pp`` above 1, else ``train_step``): the losses
-    and the largest relative difference of the rank's parameters."""
+def tiny_card_cpu(dev, mp=2, pp=1, steps=3, sep=1):
+    """A tiny fp32 GQA LLaMA (KV heads 2) at dp x pp x sep x mp (the
+    world) on the card and on the CPU over the same gloo ranks, from the
+    same weights (the CPU generator's draw: the card's draws other
+    numbers), AdamW with the clip, 3 steps (`LlamaForCausalLMPipe`
+    through ``train_batch`` at ``pp`` above 1, else ``train_step``; the
+    ring at ``sep`` above 1): the losses and the largest relative
+    difference of the rank's parameters."""
     from ..models import LlamaConfig, LlamaForCausalLM
     from ..models.llama import LlamaForCausalLMPipe
     from ..nn import ClipGradByGlobalNorm
@@ -425,8 +451,9 @@ def tiny_card_cpu(dev, mp=2, pp=1, steps=3):
     from .fleet import fleet
 
     n = env.get_world_size()
-    _init(dp=n // (mp * pp), mp=mp, pp=pp, accumulate_steps=2)
-    cfg = LlamaConfig(**TINY)
+    _init(dp=n // (mp * pp * sep), mp=mp, pp=pp, accumulate_steps=2,
+          sep=sep)
+    cfg = LlamaConfig(**TINY, use_ring_attention=sep > 1)
     rng = np.random.default_rng(3)
     ids = rng.integers(0, TINY["vocab_size"], (4, 32))
     labels = rng.integers(0, TINY["vocab_size"], (4, 32))
@@ -461,14 +488,18 @@ def tiny_card_cpu(dev, mp=2, pp=1, steps=3):
              for k, a in out["card"]["params"].items())
     return {"losses_card": out["card"]["losses"],
             "losses_cpu": out["cpu"]["losses"], "max_loss_diff": dl,
-            "max_param_rel": dp, "mp": mp, "pp": pp}
+            "max_param_rel": dp, "mp": mp, "pp": pp, "sep": sep}
 
 
-def run_card(nccl=False, steps=3, pp=1):
-    """Phase 26's ranks: join the world (gloo sharing the card, or NCCL
-    one card a rank), train LLaMA-7B's widths at mp = the world (``pp``
-    1) or at tp (the world / ``pp``) x pp, then the tiny model card
-    against CPU (mp 2; at ``pp`` 2 pp 2 x mp 2); rank 0's result."""
+def run_card(nccl=False, steps=3, pp=1, sep=1, layers=None, batch=4,
+             micro=4):
+    """Phase 26's and phase 30's ranks: join the world (gloo sharing the
+    card, or NCCL one card a rank), train LLaMA-7B's widths (``layers``
+    deep, default 8; ``batch`` x 2048 tokens) at mp = the world / ``sep``
+    x ``sep`` (``pp`` 1) or at tp (the world / (``pp`` x ``sep``)) x pp x
+    ``sep`` (``micro`` micro-batches), then the tiny model card against
+    CPU (mp 2, at ``pp`` 2 pp 2 x mp 2, x ``sep``); rank 0's result.
+    Under sep the model runs the ring (``use_ring_attention``)."""
     from . import env
 
     dev = env.init_parallel_env(backend=None if nccl else "gloo",
@@ -476,27 +507,39 @@ def run_card(nccl=False, steps=3, pp=1):
                                 timeout=900)
     result = {"backend": env.get_backend(), "device": str(dev),
               "world": env.get_world_size()}
+    over = {} if layers is None else {"num_layers": layers}
+    cfg = full_width_config(**over, use_ring_attention=sep > 1)
     t0 = time.perf_counter()
     if pp == 1:
-        result["llama_7b"] = full_width(dev, steps=steps)
+        result["llama_7b"] = full_width(dev, steps=steps, batch=batch,
+                                        cfg=cfg, sep=sep)
     else:
-        result["llama_7b"] = pipe_full_width(dev, steps=steps, pp=pp)
+        result["llama_7b"] = pipe_full_width(dev, steps=steps, batch=batch,
+                                             pp=pp, micro=micro, cfg=cfg,
+                                             sep=sep)
     result["llama_7b"]["wall_s"] = time.perf_counter() - t0
     torch.cuda.empty_cache()
     if not nccl:
-        result["tiny_card_cpu"] = tiny_card_cpu(dev, mp=2, pp=pp)
+        t0 = time.perf_counter()
+        result["tiny_card_cpu"] = tiny_card_cpu(dev, mp=2, pp=pp, sep=sep)
+        result["tiny_card_cpu"]["wall_s"] = time.perf_counter() - t0
     env.reset()
     return result
 
 
-def launch_card(nprocs=4, nccl=False, steps=3, pp=1, deadline=900):
+def launch_card(nprocs=4, nccl=False, steps=3, pp=1, deadline=900, sep=1,
+                layers=None, batch=4, micro=4):
     """`run_card` in ``nprocs`` ranks under ``torch.distributed.run`` (a
     free port on 127.0.0.1): rank 0's result. Every rank is killed and
     this raises when the run passes ``deadline`` seconds or fails."""
     from .mp_selftest import launch_card as _launch
 
+    extra = ["--pp", str(pp), "--sep", str(sep), "--batch", str(batch),
+             "--micro", str(micro)]
+    if layers is not None:
+        extra += ["--layers", str(layers)]
     return _launch(nprocs, nccl, steps, deadline, module=__name__,
-                   extra=["--pp", str(pp)])
+                   extra=extra)
 
 
 def main(argv=None):
@@ -512,11 +555,20 @@ def main(argv=None):
     p.add_argument("--steps", type=int, default=3)
     p.add_argument("--pp", type=int, default=1,
                    help="the pipeline degree (mp: the rest of the world)")
+    p.add_argument("--sep", type=int, default=1,
+                   help="the sep degree (mp: the rest of the world)")
+    p.add_argument("--layers", type=int, default=None,
+                   help="decoder layers (default 8)")
+    p.add_argument("--batch", type=int, default=4,
+                   help="rows of 2048 tokens")
+    p.add_argument("--micro", type=int, default=4,
+                   help="micro-batches at --pp above 1")
     a = p.parse_args(argv)
     if a.worker:
         _ss.worker(a.worker, a.rank, a.nprocs, a.dir, a.timeout, CASES)
         return 0
-    result = run_card(a.nccl, a.steps, a.pp)
+    result = run_card(a.nccl, a.steps, a.pp, a.sep, a.layers, a.batch,
+                      a.micro)
     if int(os.environ.get("RANK", "0")) == 0:
         print(json.dumps(result), flush=True)
     return 0

@@ -18,10 +18,24 @@ numpy arrays; the caller computes the reference. Cases:
   ``crit(model(ids), labels)`` on the rank's rows, the grad of
   ``wte`` after ``apply_collective_grads``, then 3 steps of
   ``train_step(AdamW + ClipGradByGlobalNorm)`` over ``model.loss(ids,
-  labels, loss_mask)``: losses and the final parameters.
+  labels, loss_mask)``: losses and the final parameters;
+* ``sep_mp``: ``fleet.init(mp_degree=m, sep_degree=n / m)``: a GQA
+  LLaMA built under the fleet (the rank's Megatron blocks of the
+  reference's weights), ring and gathered K/V, through
+  ``fleet.distributed_model`` (`SegmentParallel`): the criterion's loss
+  over the whole logits, then 3 ``train_step`` s over ``model.loss(ids,
+  labels)``: losses, the rank's blocks, coordinates and groups;
+* ``sep_pp`` / ``sep_hybrid``: ``fleet.init(pp_degree=p, sep_degree,
+  mp_degree=1 / 2)``: `LlamaForCausalLMPipe` from the reference's weights
+  (`pipe_name`) through `PipelineParallel` (each micro-batch cut to the
+  rank's block) and ``fleet.distributed_optimizer``: ``eval_batch``'s
+  loss, then ``train_batch`` losses and the rank's state; ``sep_pp``
+  also what `GPTForCausalLMPipe` says under the sep group (it refuses).
 
 `launch(case, nprocs, args)` / `start` run a case in gloo ranks on the
-CPU (`sharding_selftest.launch` with this module).
+CPU (`sharding_selftest.launch` with this module). LLaMA-7B's widths at
+mp x sep and tp x pp x sep on the card are `llama_selftest.launch_card`
+with ``sep`` (``chip_smoke.py`` phase 30).
 
 On the card (``chip_smoke.py`` phase 29; the ranks share one card over
 gloo, NCCL one card a rank with ``--nccl``)::
@@ -60,21 +74,51 @@ from .llama_selftest import _adamw
 from .sharding_selftest import _np
 
 __all__ = ["CASES", "gpt_full_width", "gpt_world_one", "launch",
-           "launch_card", "llama_full_width", "main", "ring_flash_card",
-           "run_card", "start", "tiny_card_cpu"]
+           "launch_card", "llama_full_width", "main", "pipe_name",
+           "ring_flash_card", "run_card", "start", "tiny_card_cpu"]
 
 FULL_WIDTH = dict(batch=4, seq=2048, steps=3)      # phase 29(b)
 RING_SHAPE = (4, 4096, 32, 64)                     # phase 29(a)
 LLAMA_LAYERS, LLAMA_TOKENS = 2, (2, 2048)          # phase 29(c)
 
 
-def _init(dp=1, sep=1):
+def _init(dp=1, sep=1, mp=1, pp=1, accumulate_steps=1):
     from .fleet import DistributedStrategy, fleet
 
     s = DistributedStrategy()
-    s.hybrid_configs = {"dp_degree": dp, "sep_degree": sep}
+    s.hybrid_configs = {"dp_degree": dp, "sep_degree": sep,
+                        "mp_degree": mp, "pp_degree": pp}
+    s.pipeline_configs = {"accumulate_steps": accumulate_steps}
     fleet.init(is_collective=True, strategy=s)
     return fleet.get_hybrid_communicate_group()
+
+
+def pipe_name(name, num_layers):
+    """The `LlamaForCausalLMPipe` (the reference's `PipelineLayer`) name
+    of `LlamaForCausalLM`'s parameter ``name``: the embedding entry 0,
+    decoder layer i entry i + 1, the final norm L + 1, the head L + 2."""
+    L = num_layers
+    if name == "llama.embed_tokens.weight":
+        return "_layers_list.0.embed_tokens.weight"
+    if name == "llama.norm.weight":
+        return f"_layers_list.{L + 1}.weight"
+    if name == "lm_head.weight":
+        return f"_layers_list.{L + 2}.lm_head.weight"
+    head, i, rest = name.split(".", 3)[1:]
+    if head != "layers":
+        raise KeyError(name)
+    return f"_layers_list.{int(i) + 1}.{rest}"
+
+
+def _groups(hcg):
+    """This rank's groups' ranks, by axis."""
+    return {k: list(g.ranks) for k, g in (
+        ("dp", hcg.get_data_parallel_group()),
+        ("mp", hcg.get_model_parallel_group()),
+        ("pp", hcg.get_pipe_parallel_group()),
+        ("sep", hcg.get_sep_parallel_group()),
+        ("dp_sep", hcg.get_dp_sep_parallel_group()),
+        ("check", hcg.get_check_parallel_group()))}
 
 
 def _t(a, dev, dtype=None):
@@ -176,7 +220,122 @@ def case_sep(ctx):
     return out
 
 
-CASES = {"ring": case_ring, "sep": case_sep}
+def _coords(hcg):
+    return [hcg.get_data_parallel_rank(), hcg.get_stage_id(),
+            hcg.get_sep_parallel_rank(), hcg.get_model_parallel_rank()]
+
+
+def case_sep_mp(ctx):
+    """At mp ``a["mp"]`` x sep (the rest): a GQA LLaMA built under the
+    fleet (the rank's Megatron blocks of the reference's weights, with
+    the ring and with the gathered K/V) through
+    ``fleet.distributed_model`` (`SegmentParallel`): the reference's
+    ``crit(model(ids), labels)`` on the whole logits (gathered over mp
+    and sep), then ``train_step(AdamW + ClipGradByGlobalNorm)`` over
+    ``model.loss(ids, labels)``: losses and the rank's blocks."""
+    from .. import convert
+    from ..models import (GPTPretrainingCriterion, LlamaConfig,
+                          LlamaForCausalLM)
+    from .fleet import fleet
+    from .llama_selftest import _adamw, _state
+
+    a, dev = ctx.args, ctx.device
+    mp = a["mp"]
+    hcg = _init(mp=mp, sep=ctx.nprocs // mp)
+    r = hcg.get_model_parallel_rank()
+    ids, labels = _t(a["ids"], dev), _t(a["labels"], dev)
+    out = {"coords": _coords(hcg), "groups": _groups(hcg)}
+    for ring in (True, False):
+        model = LlamaForCausalLM(LlamaConfig(**a["llama"],
+                                             use_ring_attention=ring),
+                                 device=dev)
+        model.load_state_dict(convert.mp_state_dict_from_jax(
+            a["named"], model, r, mp))
+        model.train()
+        wrapped = fleet.distributed_model(model)
+        with torch.no_grad():
+            fwd = float(GPTPretrainingCriterion()(wrapped(ids), labels))
+        step = wrapped.train_step(_adamw(model, a), numerics=False)
+        losses = [float(step(ids, labels)) for _ in range(a["steps"])]
+        out["ring" if ring else "gathered"] = {
+            "fwd_loss": fwd, "losses": np.asarray(losses),
+            "state": _state(model),
+            "found_group": list(step.optimizer._found_group.ranks),
+            "types": [type(wrapped).__name__,
+                      type(step.optimizer).__name__]}
+    return out
+
+
+def _pipe_case(ctx, mp):
+    """At pp ``a["pp"]`` x sep x ``mp``: `LlamaForCausalLMPipe` from the
+    reference's weights (`pipe_name`; the rank's stage, under mp its
+    blocks) through ``fleet.distributed_model`` (`PipelineParallel`,
+    ``a["accumulate"]`` micro-batches) and ``fleet.distributed_optimizer``,
+    with the ring and with the gathered K/V: ``eval_batch``'s loss, then
+    ``train_batch`` losses and the rank's state."""
+    from .. import convert
+    from ..models import LlamaConfig
+    from ..models.llama import LlamaForCausalLMPipe
+    from .fleet import fleet
+    from .llama_selftest import _adamw, _state
+
+    a, dev = ctx.args, ctx.device
+    pp = a["pp"]
+    hcg = _init(mp=mp, pp=pp, sep=ctx.nprocs // (pp * mp),
+                accumulate_steps=a["accumulate"])
+    r = hcg.get_model_parallel_rank()
+    L = a["llama"]["num_layers"]
+    named = {pipe_name(k, L): v for k, v in a["named"].items()}
+    data = (_t(a["ids"], dev), _t(a["labels"], dev))
+    out = {"coords": _coords(hcg), "groups": _groups(hcg)}
+    for ring in (True, False):
+        pl = LlamaForCausalLMPipe(LlamaConfig(**a["llama"],
+                                              use_ring_attention=ring),
+                                  device=dev)
+        pl.load_state_dict(convert.pipeline_state_dict_from_jax(
+            named, pl, r, mp))
+        pl.train()
+        model = fleet.distributed_model(pl)
+        fwd = float(model.eval_batch(data))
+        opt = fleet.distributed_optimizer(_adamw(pl, a))
+        losses = [float(model.train_batch(data, opt))
+                  for _ in range(a["steps"])]
+        out["ring" if ring else "gathered"] = {
+            "fwd_loss": fwd, "losses": np.asarray(losses),
+            "state": _state(pl), "wrapper": type(model).__name__,
+            "found_group": list(opt._found_group.ranks)}
+    if mp == 1:
+        out["gpt_pipe"] = _gpt_pipe_refusal(dev, pp)
+    return out
+
+
+def _gpt_pipe_refusal(dev, pp):
+    """What `GPTForCausalLMPipe` says under the fleet's sep group: its
+    error, or "" had it been built."""
+    from ..models import GPTConfig
+    from ..models.gpt_pipe import GPTForCausalLMPipe
+
+    cfg = GPTConfig(vocab_size=64, hidden_size=32, num_layers=2,
+                    num_attention_heads=4, max_position_embeddings=32)
+    try:
+        GPTForCausalLMPipe(cfg, num_stages=pp, num_micro=2, device=dev)
+    except NotImplementedError as e:
+        return str(e)
+    return ""
+
+
+def case_sep_pp(ctx):
+    """`_pipe_case` at pp x sep."""
+    return _pipe_case(ctx, mp=1)
+
+
+def case_sep_hybrid(ctx):
+    """`_pipe_case` at mp 2 x pp x sep."""
+    return _pipe_case(ctx, mp=2)
+
+
+CASES = {"ring": case_ring, "sep": case_sep, "sep_mp": case_sep_mp,
+         "sep_pp": case_sep_pp, "sep_hybrid": case_sep_hybrid}
 
 
 def launch(case, nprocs, args=None, timeout=60, deadline=150):

@@ -460,8 +460,8 @@ def group_sharded_parallel(model, optimizer, level, scaler=None, group=None,
     if hcg is not None and hcg.get_sep_parallel_world_size() > 1:
         raise NotImplementedError(
             "group_sharded_parallel under a sep degree above 1 is not "
-            "ported yet: ROADMAP A9b.5b (the sep axis composes with dp "
-            "alone)")
+            "ported yet: ROADMAP A9b.5b (the sep axis composes with dp, "
+            "mp and a PipelineLayer's pp)")
     opt = (optimizer if isinstance(optimizer, DygraphShardingOptimizer)
            else DygraphShardingOptimizer(optimizer, hcg=hcg, group=group))
     if level == "p_g_os":

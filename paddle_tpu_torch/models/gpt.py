@@ -83,7 +83,8 @@ from ..ops.kernels.paged_attention import (paged_attention,
 
 __all__ = ["GPTConfig", "GPT_CONFIGS", "gpt_config", "GPTForCausalLM",
            "GPTModel", "GPTPretrainingCriterion", "GPTStackedBlocks",
-           "draft_head_loss", "fused_lm_loss", "match_sharding"]
+           "draft_head_loss", "fused_lm_loss", "match_sharding",
+           "token_mean"]
 
 
 @dataclass
@@ -690,9 +691,7 @@ def fused_lm_loss(hidden, weight, transpose_y, labels, loss_mask=None):
                                                transpose_y=transpose_y,
                                                reduction="none")
         m = (labels != -100) if loss_mask is None else loss_mask
-        m = m.to(losses.dtype)
-        tot = mp_allreduce(torch.stack([(losses * m).sum(), m.sum()]), sep)
-        return tot[0] / tot[1].clamp(min=1.0)
+        return token_mean(losses, m.to(losses.dtype), sep)
     if loss_mask is None:
         return PF.fused_linear_cross_entropy(hidden, weight, labels,
                                              transpose_y=transpose_y)
@@ -701,6 +700,18 @@ def fused_lm_loss(hidden, weight, transpose_y, labels, loss_mask=None):
                                            reduction="none")
     m = loss_mask.to(losses.dtype)
     return (losses * m).sum() / m.sum().clamp(min=1.0)
+
+
+def token_mean(losses, m, sep=None):
+    """``sum(losses * m) / max(sum(m), 1)``; over a ``sep`` group (the
+    rank's tokens are its block of the sequence) the sum and the count
+    are summed over it first (forward; the backward of the sum is the
+    identity, each rank's grad its block's part), so every rank holds
+    the global mean."""
+    tot = torch.stack([(losses * m).sum(), m.sum()])
+    if sep is not None:
+        tot = mp_allreduce(tot, sep)
+    return tot[0] / tot[1].clamp(min=1.0)
 
 
 class GPTPretrainingCriterion(nn.Module):

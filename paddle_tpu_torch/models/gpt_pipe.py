@@ -25,6 +25,14 @@ reference it takes ``num_chunks=1`` only and refuses dropout: the
 reference's backward re-traces the block and would draw other masks;
 the port's recompute replays the generator and could keep them, but
 holds the reference's contract.
+
+Under a fleet whose sep degree is above 1 the model raises
+``NotImplementedError`` naming ROADMAP A9b.5b, at construction and at
+each forward: nothing cuts its input to the rank's block of the
+sequence, so its blocks' attention would take the sep branch over the
+whole sequence at local positions, and a sep rank above 0 would read
+its peers' copies as earlier positions (a 2 x 2 gloo run: sep rank 1's
+loss 4.164549 against 4.164278, silently).
 """
 from __future__ import annotations
 
@@ -35,12 +43,22 @@ import torch
 from torch import nn
 from torch.func import functional_call
 
+from ..distributed.fleet.meta_parallel.ring_attention import sep_group
 from ..distributed.fleet.meta_parallel.spmd_pipeline import (
     _pipe_group, microbatch, pipeline_spmd, pipeline_spmd_zb, unmicrobatch)
 from ..framework.device import resolve_device
 from .gpt import GPTBlock, GPTConfig, LayerNorm
 
 __all__ = ["GPTForCausalLMPipe", "gpt_pipe_sharding_rules"]
+
+
+def _refuse_sep():
+    if sep_group() is not None:
+        raise NotImplementedError(
+            "GPTForCausalLMPipe under a sep degree above 1 is not ported "
+            "yet: ROADMAP A9b.5b (nothing cuts its input to the rank's "
+            "block of the sequence; LlamaForCausalLMPipe through "
+            "PipelineParallel runs pp x sep)")
 
 
 class GPTForCausalLMPipe(nn.Module):
@@ -61,6 +79,7 @@ class GPTForCausalLMPipe(nn.Module):
                  num_chunks=1, group=None, use_zero_bubble=False,
                  device=None, dtype=torch.float32, seed=0):
         super().__init__()
+        _refuse_sep()
         self.use_zero_bubble = bool(use_zero_bubble)
         if use_zero_bubble and num_chunks != 1:
             raise ValueError("zero-bubble supports num_chunks=1 only")
@@ -150,6 +169,7 @@ class GPTForCausalLMPipe(nn.Module):
 
     def forward(self, input_ids, position_ids=None):
         """Logits ``[b, s, vocab]`` (the head tied to ``wte``)."""
+        _refuse_sep()
         b, s = input_ids.shape
         if position_ids is None:
             position_ids = torch.arange(s, device=input_ids.device)[None]

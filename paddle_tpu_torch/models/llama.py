@@ -85,15 +85,20 @@ vocab-parallel CE over them (`ParallelCrossEntropy`'s).
 
 Sequence parallelism (the sep axis, reference :128-168). Under a fleet
 whose sep degree is above 1 (`distributed.fleet.meta_parallel.
-SegmentParallel`) a rank's input is its block of the sequence: the RoPE
-tables are the block's global positions' rows, K and V are repeated to
-every query head (GQA, reference :164-166) and attention runs over the
-sep group, `ring_attention` with ``use_ring_attention``, else the rank's
-queries over the gathered K/V (`sep_gathered_attention`); ``loss`` sums
-the tokens' losses and counts over the group (`gpt.fused_lm_loss`).
+SegmentParallel`, or `PipelineParallel` for `LlamaForCausalLMPipe`) a
+rank's input is its block of the sequence: the RoPE tables are the
+block's global positions' rows, K and V are repeated to the rank's query
+heads (GQA, reference :164-166) and attention runs over the sep group,
+`ring_attention` with ``use_ring_attention``, else the rank's queries
+over the gathered K/V (`sep_gathered_attention`). Under mp as well a
+rank's heads are its ``num_heads / mp`` query and ``num_kv_heads / mp``
+KV heads, so the ring carries the rank's heads of its block, and
+``o_proj`` stays row-parallel. ``loss`` (and the pipe's criterion, which
+sees the last stage's block) sums the tokens' losses and counts over the
+sep group before the division (`gpt.fused_lm_loss`; under mp after the
+vocab-parallel CE), so every rank holds the global mean.
 ``use_ring_attention`` at a world of one runs the dense path, as the
-reference's does. Under mp and sep together the model raises, naming
-ROADMAP A9b.5b.
+reference's does.
 """
 from __future__ import annotations
 
@@ -121,7 +126,8 @@ from ..nn.layer import Embedding, Layer, LayerList, Linear
 from ..nn.layer.layers import ParamAttr
 from ..ops.kernels.fused_cross_entropy import sharded_fused_cross_entropy
 from ..utils import flags as _flags
-from .gpt import GPTPretrainingCriterion, fused_lm_loss, match_sharding
+from .gpt import (GPTPretrainingCriterion, fused_lm_loss, match_sharding,
+                  token_mean)
 
 __all__ = ["LLAMA_CONFIGS", "LlamaConfig", "LlamaDecoderLayer",
            "LlamaEmbeddingPipe", "LlamaForCausalLM", "LlamaForCausalLMPipe",
@@ -313,10 +319,6 @@ class LlamaAttention(Layer):
         nh, kvh, hd = self.num_heads, self.num_kv_heads, self.head_dim
         g = nh // kvh
         sep = sep_group()
-        if sep is not None and self._mp is not None:
-            raise NotImplementedError(
-                "LLaMA under mp and sep together is not ported yet: "
-                "ROADMAP A9b.5b")
         q, k, v = _columns(x, self._mp, self.q_proj, self.k_proj,
                            self.v_proj)
         q = q.reshape(b, s, nh, hd)
@@ -327,7 +329,8 @@ class LlamaAttention(Layer):
         q = apply_rotary_pos_emb(q.float(), cos, sin).to(x.dtype)
         k = apply_rotary_pos_emb(k.float(), cos, sin).to(x.dtype)
         if sep is not None:
-            # every query head its K/V head's copy (reference :164-166)
+            # every (rank's) query head its K/V head's copy (reference
+            # :164-166)
             attend = ring_attention if self.use_ring \
                 else sep_gathered_attention
             out = attend(q, k.repeat_interleave(g, dim=2),
@@ -490,7 +493,8 @@ class LlamaForCausalLM(Layer):
         """Training loss through the fused LM head; numerically
         ``LlamaPretrainingCriterion()(self(ids), labels, loss_mask)``.
         Under mp the vocab-parallel fused CE over the rank's rows, the
-        hiddens' grad summed over the group."""
+        hiddens' grad summed over the group; under sep as well the sum
+        and the count summed over the sep group (`gpt.token_mean`)."""
         h = self.llama(input_ids)
         g = self.mp_group
         if g is None:
@@ -502,29 +506,34 @@ class LlamaForCausalLM(Layer):
             c_identity(h.reshape(-1, h.shape[-1]), g), w, lbl,
             g.rank * w.shape[0], g)
         m = (lbl != -100) if loss_mask is None else loss_mask.reshape(-1)
-        m = m.to(losses.dtype)
-        return (losses * m).sum() / m.sum().clamp(min=1.0)
+        return token_mean(losses, m.to(losses.dtype), sep_group())
 
 
 LlamaPretrainingCriterion = GPTPretrainingCriterion
 
 
-class _VocabParallelCriterion(GPTPretrainingCriterion):
-    """`LlamaPretrainingCriterion` over the rank's vocab columns of the
-    logits: the vocab-parallel CE over ``group`` (`ParallelCrossEntropy`'s),
-    averaged as GPT's."""
+class _PipeCriterion(GPTPretrainingCriterion):
+    """`LlamaForCausalLMPipe`'s loss over the last stage's logits:
+    `LlamaPretrainingCriterion`'s masked mean; under mp (``group``) the
+    vocab-parallel CE over the rank's vocab columns
+    (`ParallelCrossEntropy`'s); under a sep degree above 1, where the
+    stage sees the rank's block of the sequence, the sum and the count
+    summed over the sep group before the division (`gpt.token_mean`)."""
 
-    def __init__(self, group):
+    def __init__(self, group=None):
         super().__init__()
         self._group = group
 
     def forward(self, logits, labels, loss_mask=None):
-        loss = vocab_parallel_cross_entropy(logits, labels,
-                                            self._group).reshape(-1)
         flat = labels.reshape(-1)
+        if self._group is None:
+            loss = PF.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                                    flat, reduction="none")
+        else:
+            loss = vocab_parallel_cross_entropy(logits, labels,
+                                                self._group).reshape(-1)
         m = (flat != -100) if loss_mask is None else loss_mask.reshape(-1)
-        m = m.to(loss.dtype)
-        return (loss * m).sum() / m.sum().clamp(min=1.0)
+        return token_mean(loss, m.to(loss.dtype), sep_group())
 
 
 class LlamaEmbeddingPipe(Layer):
@@ -555,7 +564,8 @@ class LlamaForCausalLMPipe(PipelineLayer):
     """`LlamaForCausalLM` (untied) as a `PipelineLayer` of `LayerDesc` s:
     `LlamaEmbeddingPipe`, ``num_layers`` `LlamaDecoderLayer`,
     `LlamaRMSNorm`, `LlamaLMHeadPipe`, and `LlamaPretrainingCriterion`
-    (under mp its vocab-parallel form over the head's columns); split
+    (under mp its vocab-parallel form over the head's columns, under sep
+    summed over the sep group: `_PipeCriterion`); split
     evenly by decoder layers (``seg_method="layer:LlamaDecoderLayer"``,
     the reference's rule). A rank builds only its stage, each
     piece drawn as `LlamaForCausalLM` draws it for ``seed``, under a
@@ -581,8 +591,6 @@ class LlamaForCausalLMPipe(PipelineLayer):
                     LayerDesc(LlamaLMHeadPipe, config, group,
                               **piece(L + 1))])
         super().__init__(descs, num_stages=num_stages, stage_id=stage_id,
-                         loss_fn=(LlamaPretrainingCriterion()
-                                  if group is None
-                                  else _VocabParallelCriterion(group)),
+                         loss_fn=_PipeCriterion(group),
                          seg_method="layer:LlamaDecoderLayer")
         self.config = config

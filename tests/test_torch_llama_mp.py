@@ -29,8 +29,10 @@ reference's training bars), logits 1e-5. Also:
   relative in norm, `test_torch_llama`'s bf16 bars);
 * parameters and AdamW moments through the mp maps and back, bit for
   bit;
-* the refusals: dims that do not divide by the degree, ring attention
-  beside mp (A9b.5b).
+* the refusals: dims that do not divide by the degree; ring attention
+  beside mp runs under sep (`test_torch_sep_hybrid.py`), and beside a
+  pp degree as a model that is no `PipelineLayer` still raises, naming
+  A9b.5b.
 """
 from types import SimpleNamespace
 
@@ -374,18 +376,25 @@ def test_dims_that_do_not_split_are_refused(dim, over):
 
 
 def test_ring_attention_still_names_its_queue_entry():
-    """Ring attention is ported (A9b.5); beside the mp axis it raises,
-    naming its queue entry, A9b.5b."""
-    from paddle_tpu_torch.distributed.fleet import topology
+    """Ring attention is ported (A9b.5) and runs beside mp (A9b.5b's
+    first part, `test_torch_sep_hybrid.py`); a LLaMA with it beside mp
+    that is no `PipelineLayer` at pp x sep raises, naming its queue
+    entry, A9b.5b (`LlamaForCausalLMPipe` runs there)."""
+    from paddle_tpu_torch.distributed.fleet import fleet, topology
 
     model = _port({**TINY, "use_ring_attention": True},
                   mp_group=_stand_in(2, 0))
-    sep = SimpleNamespace(
+    hcg = SimpleNamespace(
+        get_sep_parallel_world_size=lambda: 2,
+        get_pipe_parallel_world_size=lambda: 2,
         get_sep_parallel_group=lambda: _stand_in(2, 0),
         get_model_parallel_group=lambda: _stand_in(2, 0))
-    topology.set_hybrid_communicate_group(sep)
+    held = fleet._hcg
+    topology.set_hybrid_communicate_group(hcg)
+    fleet._hcg = hcg
     try:
         with pytest.raises(NotImplementedError, match=r"A9b\.5b"):
-            model.llama.layers[0].self_attn(torch.zeros(2, 8, 32))
+            fleet.distributed_model(model)
     finally:
         topology.set_hybrid_communicate_group(None)
+        fleet._hcg = held

@@ -30,8 +30,11 @@ from a seed in the reference's names, carried by `convert`; a batch of
   reference's `CommunicateTopology`;
 * the refusals that name ROADMAP A9b.5b, in this process with a
   stand-in topology: attention dropout, segment ids, a length that does
-  not split, a ``scan_layers`` GPT, draft heads, the mp, pp and sharding
-  axes, ``group_sharded_parallel``, a sharded optimizer.
+  not split, a ``scan_layers`` GPT, draft heads, the sharding axis (alone
+  and beside mp), ``group_sharded_parallel``, a sharded optimizer, a
+  model that is no `PipelineLayer` at pp x sep through
+  ``fleet.distributed_model``, and `GPTForCausalLMPipe` under sep (the
+  sep axis beside mp and pp: `test_torch_sep_hybrid.py`).
 """
 import functools
 from types import SimpleNamespace
@@ -53,6 +56,7 @@ from paddle_tpu.models import GPTPretrainingCriterion as JCrit
 from paddle_tpu.models import LlamaConfig as JLlamaConfig
 from paddle_tpu.models import LlamaForCausalLM as JLlama
 from paddle_tpu.nn import ClipGradByGlobalNorm as JClip
+from paddle_tpu_torch.distributed.fleet import fleet as _fleet
 from paddle_tpu_torch.distributed.fleet import topology
 from paddle_tpu_torch.distributed.fleet.meta_parallel import (
     SegmentParallel, sep_shard)
@@ -62,6 +66,7 @@ from paddle_tpu_torch.distributed.sep_selftest import start
 from paddle_tpu_torch.distributed.sharding import group_sharded_parallel
 from paddle_tpu_torch.models import (GPTConfig, GPTForCausalLM, LlamaConfig,
                                      LlamaForCausalLM)
+from paddle_tpu_torch.models.gpt_pipe import GPTForCausalLMPipe
 from paddle_tpu_torch.optimizer import AdamW
 
 GPT = dict(vocab_size=64, hidden_size=32, num_layers=2,
@@ -278,10 +283,13 @@ class _Hcg:
 def stand_in():
     hcg = _Hcg()
     topology.set_hybrid_communicate_group(hcg)
+    held = _fleet._hcg
+    _fleet._hcg = hcg
     try:
         yield hcg
     finally:
         topology.set_hybrid_communicate_group(None)
+        _fleet._hcg = held
 
 
 def _ids(s=16):
@@ -290,8 +298,8 @@ def _ids(s=16):
 
 @pytest.mark.parametrize("what", [
     "attention dropout", "segment ids", "length", "scan_layers model",
-    "scan_layers wrapper", "draft heads", "mp", "pp", "sharding",
-    "group_sharded_parallel", "sharded optimizer", "llama mp"])
+    "scan_layers wrapper", "draft heads", "sharding beside mp", "pp model",
+    "sharding", "group_sharded_parallel", "sharded optimizer", "gpt pipe"])
 def test_what_is_left_refuses_naming_a9b5b(stand_in, what):
     err = ValueError if what == "length" else NotImplementedError
     with pytest.raises(err, match=r"A9b\.5b"):
@@ -317,10 +325,17 @@ def test_what_is_left_refuses_naming_a9b5b(stand_in, what):
             m = GPTForCausalLM(GPTConfig(**GPT, num_draft_heads=1),
                                device="cpu")
             m.loss(_ids(8), _ids(8))
-        elif what in ("mp", "pp", "sharding"):
-            stand_in.d[what] = 2
+        elif what in ("sharding", "sharding beside mp"):
+            stand_in.d["sharding"] = 2
+            stand_in.d["mp"] = 2 if what != "sharding" else 1
             SegmentParallel(GPTForCausalLM(GPTConfig(**GPT), device="cpu"),
                             stand_in)
+        elif what == "pp model":
+            # a model that is no PipelineLayer at pp x sep: the fleet
+            # refuses it (a PipelineLayer goes to PipelineParallel)
+            stand_in.d["pp"] = 2
+            _fleet.distributed_model(
+                LlamaForCausalLM(LlamaConfig(**LLAMA), device="cpu"))
         elif what == "group_sharded_parallel":
             m = GPTForCausalLM(GPTConfig(**GPT), device="cpu")
             group_sharded_parallel(m, AdamW(parameters=m.parameters()),
@@ -331,9 +346,8 @@ def test_what_is_left_refuses_naming_a9b5b(stand_in, what):
                                     stand_in,
                                     SimpleNamespace(sharding=True))
         else:
-            m = LlamaForCausalLM(LlamaConfig(**LLAMA), device="cpu",
-                                 mp_group=SimpleNamespace(nranks=2, rank=0))
-            m.llama.layers[0].self_attn(torch.zeros(2, 8, 32))
+            GPTForCausalLMPipe(GPTConfig(**GPT), num_stages=2, num_micro=2,
+                               device="cpu")
 
 
 def test_ring_config_runs_dense_at_a_world_of_one():
