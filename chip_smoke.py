@@ -483,7 +483,29 @@ whole run's stdout fits a 24 KB tail:
     over the same ranks (loss 1e-4, parameters 1e-3 relative). The
     kernels line carries a rank's launches a step at mp 2 x sep 2
     (``launches_sep_mp``) and at tp 2 x pp 2 x sep 2 by stage
-    (``launches_sep_hybrid``).
+    (``launches_sep_hybrid``);
+31. mixture-of-experts on one card: (a) a tiny fp32 MoE GPT (hidden
+    64, 2 layers, 4 experts; gshard at capacity factor 1, switch at
+    0.75, so tokens drop) card against CPU: 3 ``TrainStep``s through
+    ``model.loss`` (AdamW, ``ClipGradForMOEByGlobalNorm``, recompute
+    "dots") and 3 ``FusedScanTrainStep``s of its ``scan_layers`` twin
+    at ``layer_chunk`` 1 and 2, over packed documents; every gate call
+    of the first step routes alike (experts, slots, drops), losses 1e-4,
+    parameters 1e-3 relative; the fp32 splash, CE and optimizer kernels
+    ran, no other; (b) GPT-3 1.3B's widths with `MOE_EXPERTS` (8)
+    experts a layer (gshard, capacity factor 2) at `MOE_LAYERS` (8) of
+    its 24 layers (24 layers' expert stacks are 6.4 B parameters)
+    through ``FusedScanTrainStep`` at phase 14's configuration, 8 x 1024
+    tokens, 2 + 5 steps, then one under sync debug mode "error": step
+    ms, tokens/s, ``mfu`` (each token counts its two experts' FFNs),
+    peak memory, each layer's dropped share of (token, choice) pairs; a
+    step's launches exactly `MOE_LAUNCHES` (16 / 8 / 1 / 1, nine
+    ``mt_adam_kernel``) and the monitor's ``mt_norm_kernel``; the first
+    loss within 0.5 of ln 50304 plus the weighted aux; (c) a tiny MoE
+    GPT's greedy dense generation, card tokens equal to the CPU's, one
+    prompt graph and one decode graph captured in the warm-up call and
+    none after. The kernels line carries (b)'s launches
+    (``launches_moe``).
 
 It then prints the ``nvidia-smi`` line again and, last, ``{"ok": true,
 "device": {...}}``. Imports torch, numpy and the port only.
@@ -491,8 +513,10 @@ It then prints the ``nvidia-smi`` line again and, last, ``{"ok": true,
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import json
+import math
 import os
 import re
 import shutil
@@ -507,7 +531,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
 BF16_FLOP_PER_S = 989e12        # dense bf16 tensor-core peak
 FP32_FLOP_PER_S = 67e12         # fp32 outside the tensor cores
-PHASES = 30
+PHASES = 31
 ROOT = os.path.dirname(os.path.abspath(__file__))
 LOG = os.path.join(ROOT, "chiprun_out", "chip_smoke.log")
 SHORT = 240                     # characters of a phase's line on stdout
@@ -6613,6 +6637,319 @@ def sep_beside_mp_pp(dev):
                        if r["mp_rank"] == 0 and r["sep_rank"] == 0}, shard)
 
 
+# ---------------------------------------------------------------------------
+# phase 31: mixture-of-experts on one card
+# ---------------------------------------------------------------------------
+
+MOE_LAYERS = 8       # of GPT-3 1.3B's 24: 24 layers' expert stacks are 6.4 B
+MOE_EXPERTS = 8
+# a step of phase 31(b): each layer's splash forward twice (the forward
+# pass and the update pass's recompute) and its backward once, the CE
+# once each way, one mt_adam_kernel a layer and one for the rest
+MOE_LAUNCHES = {"splash_fwd_wgmma_kernel": 2 * MOE_LAYERS,
+                "splash_bwd_wgmma_kernels": MOE_LAYERS,
+                "fused_ce_fwd_wgmma_kernel": 1, "fused_ce_bwd_kernels": 1,
+                "mt_adam_kernel": MOE_LAYERS + 1}
+
+
+class _RouteLog:
+    """While open, records each gate call of ``model`` (its eager
+    blocks' gates, or a scan stack's template gate): the ``(experts,
+    slots, keep)`` tensors `route` returned, left on their device."""
+
+    def __init__(self, model):
+        blocks = model.gpt.blocks
+        held = getattr(blocks, "_template", None)
+        self.gates = [b.mlp.moe.gate for b in
+                      ([held] if held is not None else blocks)]
+        self.calls = []
+
+    def __enter__(self):
+        for g in self.gates:
+            def record(logits, capacity, real=g.route):
+                out = real(logits, capacity)
+                self.calls.append(out[:3])
+                return out
+            g.route = record
+        return self
+
+    def __exit__(self, *exc):
+        for g in self.gates:
+            del g.route         # the class's method again
+
+
+def _moe_tiny(gate, cf, **over):
+    from paddle_tpu_torch.models import GPTConfig
+
+    return GPTConfig(vocab_size=128, hidden_size=64, num_layers=2,
+                     num_attention_heads=4, max_position_embeddings=128,
+                     num_experts=4, moe_gate=gate, moe_capacity_factor=cf,
+                     **over)
+
+
+def _moe_weights(cfg, rng):
+    """Random eager weights of ``cfg`` and the same as a scan model's
+    stacks."""
+    from paddle_tpu_torch.models import GPTForCausalLM
+
+    sd = {name: torch.from_numpy(
+              (rng.standard_normal(tuple(t.shape)) * 0.3).astype(np.float32))
+          for name, t in GPTForCausalLM(cfg, device="cpu")
+          .state_dict().items()}
+    scan = GPTForCausalLM(dataclasses.replace(cfg, scan_layers=True),
+                          device="cpu")
+    stacked = dict(scan.gpt.blocks._stacked_names)
+    scan_sd = {}
+    for name in scan.state_dict():
+        flat = name.rsplit(".", 1)[-1]
+        scan_sd[name] = (torch.stack([
+            sd[f"gpt.blocks.{i}.{stacked[flat]}"]
+            for i in range(cfg.num_layers)]) if flat in stacked
+            else sd[name])
+    return sd, scan_sd
+
+
+def moe_parity(dev):
+    """Phase 31(a): a tiny fp32 MoE GPT (hidden 64, 2 layers, 4 heads, 4
+    experts; gshard at capacity factor 1, then switch at 0.75, so tokens
+    drop), card against CPU: 3 `TrainStep`s through ``model.loss``
+    (AdamW, `ClipGradForMOEByGlobalNorm`, recompute "dots") and 3
+    `FusedScanTrainStep`s of its ``scan_layers`` twin at ``layer_chunk``
+    1 and 2, from the same weights, over packed documents (segment ids:
+    the splash kernel at 128 tokens). Every gate call of the first step
+    routes alike (experts, slots, drops); losses within 1e-4, parameters
+    1e-3 relative; the fp32 splash and CE kernels and the optimizer's two
+    ran, no other training kernel."""
+    from paddle_tpu_torch.incubate.distributed.models.moe import (
+        ClipGradForMOEByGlobalNorm)
+    from paddle_tpu_torch.jit import FusedScanTrainStep, TrainStep
+    from paddle_tpu_torch.optimizer import AdamW
+
+    seq = 128
+    rng = np.random.default_rng(31)
+    ids = rng.integers(0, 128, (2, seq))
+    labels = rng.integers(0, 128, (2, seq))
+    seg = _segments(2, seq, 3, rng)       # packed documents: splash
+    counters = _TrainCounters()
+    counters.zero()
+    rows = []
+    for gate, cf in (("gshard", 1.0), ("switch", 0.75)):
+        cfg = _moe_tiny(gate, cf, use_recompute=True,
+                        recompute_policy="dots")
+        sd, scan_sd = _moe_weights(cfg, rng)
+        for path in ("TrainStep", "fused layer_chunk 1",
+                     "fused layer_chunk 2"):
+            fused = path != "TrainStep"
+            out = {}
+            for where in ("card", "cpu"):
+                d = dev if where == "card" else torch.device("cpu")
+                model = _scan_gpt(d, scan_sd if fused else sd,
+                                  dataclasses.replace(cfg,
+                                                      scan_layers=fused))
+                opt = AdamW(learning_rate=1e-3,
+                            parameters=model.parameters(),
+                            grad_clip=ClipGradForMOEByGlobalNorm(1.0))
+                step = (FusedScanTrainStep(model, opt, fused_head=True,
+                                           layer_chunk=int(path[-1]))
+                        if fused else
+                        TrainStep(model, lambda m, x, y, s: m.loss(
+                            x, y, segment_ids=s), opt))
+                batch = [torch.from_numpy(a).to(d)
+                         for a in (ids, labels, seg)]
+                with _RouteLog(model) as log:
+                    losses = [float(step(*batch))]
+                routes = [[t.cpu() for t in call] for call in log.calls]
+                losses += [float(step(*batch)) for _ in range(2)]
+                out[where] = {"losses": losses, "routes": routes,
+                              "params": {k: t.detach().cpu() for k, t in
+                                         model.state_dict().items()}}
+            card, cpu_ = out["card"], out["cpu"]
+            same = len(card["routes"]) == len(cpu_["routes"]) and all(
+                torch.equal(a, b) for ca, cb in zip(card["routes"],
+                                                    cpu_["routes"])
+                for a, b in zip(ca, cb))
+            first = cpu_["routes"][:cfg.num_layers]
+            rows.append({
+                "gate": gate, "capacity_factor": cf, "path": path,
+                "routing_equal": same, "gate_calls": len(card["routes"]),
+                "dropped_share_by_layer": [
+                    float((~keep).float().mean()) for _, _, keep in first],
+                "losses_card": card["losses"], "losses_cpu": cpu_["losses"],
+                "max_loss_diff": max(abs(a - b) for a, b in
+                                     zip(card["losses"], cpu_["losses"])),
+                "max_param_rel": max(_rel_err(card["params"][k],
+                                              cpu_["params"][k])
+                                     for k in cpu_["params"])})
+    launches = counters.read()
+    say(f"[31/{PHASES}] (a) tiny fp32 MoE GPT card against CPU: "
+        f"{json.dumps(rows)}; kernel launches "
+        f"{ {k: n for k, n in launches.items() if n} }", flush=True)
+    for r in rows:
+        if not (r["routing_equal"] and r["max_loss_diff"] <= 1e-4
+                and r["max_param_rel"] <= 1e-3
+                and all(np.isfinite(r["losses_card"]))):
+            raise AssertionError(f"MoE card against CPU: {r}")
+        if not any(r["dropped_share_by_layer"]):
+            raise AssertionError(f"MoE parity dropped no token: {r}")
+    _check_launches(launches, _path_kernels(seq, True, bf16=False),
+                    "MoE parity")
+
+
+def moe_full_width(dev, warmup=2, timed=5, batch=8, seq=1024):
+    """Phase 31(b): GPT-3 1.3B's widths with `MOE_EXPERTS` experts a
+    layer (gshard, capacity factor 2.0) at `MOE_LAYERS` of its 24
+    layers, through ``FusedScanTrainStep`` at phase 14's configuration
+    (fp32 parameters, AdamW(1e-4) with bf16 moments, the fused head, bf16
+    compute, one layer a chunk, the numerics monitor on) over ``batch`` x
+    ``seq`` random tokens: ``warmup`` + ``timed`` steps, the counters
+    zeroed just before the timed ones and read just after; then one step
+    under sync debug mode "error" whose gate calls give each layer's
+    dropped share. ``mfu`` counts each token's two experts' FFNs, not
+    all eight. Returns the launches of the timed steps and their
+    count."""
+    from paddle_tpu_torch.jit import FusedScanTrainStep
+    from paddle_tpu_torch.models import (GPTForCausalLM,
+                                         GPTPretrainingCriterion, gpt_config)
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = gpt_config("gpt3-1.3b", num_layers=MOE_LAYERS,
+                     num_experts=MOE_EXPERTS, scan_layers=True,
+                     use_recompute=True, recompute_policy="dots",
+                     max_position_embeddings=seq, hidden_dropout_prob=0.0,
+                     attention_dropout_prob=0.0)
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    model = GPTForCausalLM(cfg, device=dev, dtype=torch.float32, seed=0)
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                moment_dtype="bfloat16")
+    rng = np.random.default_rng(0)
+    ids = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                        (batch, seq))).to(dev)
+    labels = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                           (batch, seq))).to(dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    params = sum(p.numel() for p in model.parameters())
+    experts = sum(p.numel() for n, p in model.named_parameters()
+                  if "experts__" in n)
+    top_k = model.gpt.blocks._template.mlp.moe.gate.top_k
+    active = params - experts + experts * top_k // cfg.num_experts
+    tokens = batch * seq
+    attn = 6 * 2.0 * batch * seq * (seq + 1) / 2 * cfg.hidden_size \
+        * cfg.num_layers
+    step = FusedScanTrainStep(model, opt, criterion=GPTPretrainingCriterion(),
+                              fused_head=True, compute_dtype="bfloat16",
+                              layer_chunk=1)
+    losses = [float(step(ids, labels)) for _ in range(warmup)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counters = _TrainCounters()
+    counters.zero()
+    times = []
+    for _ in range(timed):
+        t0 = time.perf_counter()
+        loss = step(ids, labels)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    launches = counters.read()
+    peak = torch.cuda.max_memory_allocated()
+    # the routing reads nothing back: a step under sync debug "error"
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with _RouteLog(model) as log:
+            loss = step(ids, labels)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    losses.append(float(loss))
+    dropped = [float((~keep).float().mean())
+               for _, _, keep in log.calls[:cfg.num_layers]]
+    step_s = statistics.median(times)
+    per_step = {k: n / timed for k, n in launches.items() if n}
+    stats = {
+        "model": "gpt3-1.3b widths", "layers": cfg.num_layers,
+        "experts": cfg.num_experts, "gate": cfg.moe_gate,
+        "capacity_factor": cfg.moe_capacity_factor, "top_k": top_k,
+        "capacity": model.gpt.blocks._template.mlp.moe.capacity(tokens),
+        "seq": seq, "batch": batch, "params": params,
+        "expert_params": experts, "active_params_per_token": active,
+        "setup_s": setup_s, "memory_allocated_before": before,
+        "losses": losses, "step_ms": [t * 1e3 for t in times],
+        "step_ms_median": step_s * 1e3, "tokens_per_s": tokens / step_s,
+        "mfu": (6.0 * active * tokens + attn) / step_s / BF16_FLOP_PER_S,
+        "max_memory_allocated": peak,
+        "dropped_share_by_layer": dropped,
+        "launches_per_step": per_step, "step_count": opt._step_count,
+        "nvidia_smi": nvidia_smi()}
+    say(f"[31/{PHASES}] (b) train gpt3-1.3b widths, {cfg.num_experts} "
+        f"experts, {cfg.num_layers} layers, FusedScanTrainStep: "
+        f"{json.dumps(stats)}", flush=True)
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite MoE loss: {losses}")
+    first = math.log(cfg.vocab_size) + cfg.moe_aux_weight
+    if abs(losses[0] - first) > 0.5:
+        raise AssertionError(f"MoE first loss {losses[0]}, expected near "
+                             f"ln(vocab) + the weighted aux {first}")
+    expect = dict(MOE_LAUNCHES, mt_norm_kernel=per_step.get(
+        "mt_norm_kernel", 0))
+    if not expect["mt_norm_kernel"] or per_step != expect:
+        raise AssertionError(f"MoE launches a step {per_step}, expected "
+                             f"{MOE_LAUNCHES} and the monitor's "
+                             f"mt_norm_kernel")
+    if opt._step_count != warmup + timed + 1:
+        raise AssertionError(f"step count {opt._step_count}")
+    if not (0.0 <= min(dropped) and max(dropped) < 1.0):
+        raise AssertionError(f"dropped shares {dropped}")
+    del step, model, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {k: n for k, n in launches.items() if n}, timed
+
+
+def moe_generate(dev, new=12):
+    """Phase 31(c): a tiny MoE GPT's greedy tokens through a dense
+    `GenerationEngine` (``generate(use_cache="dense")``'s engine), card
+    against CPU from the same weights; on the card one prompt graph and
+    one decode graph captured in the warm-up call and none after."""
+    from paddle_tpu_torch.jit import GenerationEngine
+
+    cfg = _moe_tiny("gshard", 1.0)
+    rng = np.random.default_rng(33)
+    sd, _ = _moe_weights(cfg, rng)
+    ids = rng.integers(0, cfg.vocab_size, (2, 16))
+    toks, caps = {}, {}
+    for where in ("card", "cpu"):
+        d = dev if where == "card" else torch.device("cpu")
+        model = _scan_gpt(d, sd, cfg).eval()
+        eng = GenerationEngine(model, kind="dense", batch=2, max_len=64)
+        eng.generate(ids, 2)
+        got = [(eng.prefill_step.trace_count, eng.decode_step.trace_count)]
+        toks[where] = eng.generate(ids, new).numpy()
+        got.append((eng.prefill_step.trace_count,
+                    eng.decode_step.trace_count,
+                    eng.prefill_step.cache_size(),
+                    eng.decode_step.cache_size()))
+        caps[where] = got
+    same = bool(np.array_equal(toks["card"], toks["cpu"]))
+    say(f"[31/{PHASES}] (c) tiny MoE GPT greedy dense generation: tokens "
+        f"card {toks['card'].tolist()} cpu {toks['cpu'].tolist()} equal "
+        f"{same}; card (prompt, decode) captures after the warm-up call "
+        f"and after the run, graphs {caps['card']}", flush=True)
+    if not same:
+        raise AssertionError("MoE generation: card and CPU tokens differ")
+    if caps["card"] != [(1, 1), (1, 1, 1, 1)]:
+        raise AssertionError(f"MoE generation captures {caps['card']}")
+
+
+def mixture_of_experts(dev):
+    """Phase 31: (a) `moe_parity`, (b) `moe_full_width`, (c)
+    `moe_generate`. Returns (b)'s launches and its timed steps."""
+    moe_parity(dev)
+    ran = moe_full_width(dev)
+    moe_generate(dev)
+    return ran
+
+
 # the contract's keys of a kernel's record (every launch count stays too)
 KERNEL_KEYS = ("name", "route", "source", "replaces", "launches",
                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -6733,6 +7070,9 @@ def _main() -> int:
     t0 = time.perf_counter()
     sep_mp_launches, sep_hybrid_launches, sep_shard = sep_beside_mp_pp(dev)
     say(f"[30/{PHASES}] wall {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    moe, moe_steps = mixture_of_experts(dev)
+    say(f"[31/{PHASES}] wall {time.perf_counter() - t0:.1f} s")
 
     where = {name: (PAGED_SOURCE, f"{PAGED_TPU}:{line}")
              for name, (_, _, _, line) in PAGED_KERNELS.items()}
@@ -6815,6 +7155,10 @@ def _main() -> int:
              # (b): at tp 2 x pp 2 x sep 2, by stage
              **({"launches_sep_mp": sep_mp_launches[name]}
                 if name in sep_mp_launches else {}),
+             # phase 31(b): the MoE fused-scan step's (8 layers)
+             **({"launches_moe": moe[name],
+                 "launches_moe_per_step": moe[name] / moe_steps}
+                if name in moe else {}),
              **({"launches_sep_hybrid": {
                  f"stage{st}": ran[name]
                  for st, ran in sorted(sep_hybrid_launches.items())}}

@@ -17,7 +17,11 @@ axes swap); without one, the names of GPT's and LLaMA's Linear layers
 ``gate_proj``, ``up_proj``, ``down_proj``, the untied ``lm_head`` and
 GPT's ``draft_heads.{j}``) decide. Everything else crosses as it is, among it a quantized model's
 ``quant_weight`` (int8 ``[out, in]`` on both sides, after
-`nn.quant.quantize_for_decode`), ``weight_scale`` and ``bias``.
+`nn.quant.quantize_for_decode`), ``weight_scale`` and ``bias``, and an
+MoE layer's expert stacks (``experts__fc1__weight`` /
+``experts__fc2__weight``: ``[E, in, out]``, ``[L, E, in, out]`` in a
+scan model, the reference's layout on both sides, which the batched
+products read as they are; they are no ``torch.nn.Linear``).
 The round trip is bit-exact.
 
 Tensor parallelism: a rank of a model-parallel group holds blocks of
@@ -85,7 +89,7 @@ __all__ = ["linear_weights", "mp_block", "mp_join",
 _LINEAR_WEIGHT = re.compile(
     r"(\.(qkv|out_proj|fc1|fc2|q_proj|k_proj|v_proj|o_proj|gate_proj"
     r"|up_proj|down_proj)|^lm_head|^draft_heads\.\d+)\.weight$"
-    r"|__(qkv|out_proj|fc1|fc2)__weight$")
+    r"|(?<!experts)__(qkv|out_proj|fc1|fc2)__weight$")
 _COUNTER_KEY = re.compile(r"^param_(\d+)$")
 
 

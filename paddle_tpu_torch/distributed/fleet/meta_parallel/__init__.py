@@ -20,6 +20,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ....incubate.distributed.models.moe.moe_layer import refuse_moe
 from ...collective import all_gather_concat
 from .ring_attention import (ring_attention, ring_flash_attention, sep_cut,
                              sep_gathered_attention, sep_group, sep_shard)
@@ -35,8 +36,22 @@ A9B5B = ("{} under a sep degree above 1 is not ported yet: ROADMAP A9b.5b "
          "(the sep axis composes with dp, mp and a PipelineLayer's pp)")
 
 
+def _refuse_moe_over(layers, hcg, what):
+    """An MoE model under a topology of more than one rank: each rank
+    would route its own tokens and the aux loss would miss its
+    reduction (ROADMAP A9b.3b)."""
+    if hcg is not None and max(
+            hcg.get_data_parallel_world_size(),
+            hcg.get_model_parallel_world_size(),
+            hcg.get_pipe_parallel_world_size(),
+            hcg.get_sharding_parallel_world_size(),
+            hcg.get_sep_parallel_world_size()) > 1:
+        refuse_moe(layers, what)
+
+
 class MetaParallelBase(nn.Module):
     def __init__(self, layers, hcg, strategy=None):
+        _refuse_moe_over(layers, hcg, type(self).__name__)
         super().__init__()
         self._layers = layers
         self._hcg = hcg
@@ -220,6 +235,7 @@ class SegmentParallel(MetaParallelBase):
                                                   broadcast_mp_parameters,
                                                   broadcast_sep_parameters)
 
+        _refuse_moe_over(layers, hcg, "SegmentParallel")
         deg = hcg.get_sharding_parallel_world_size()
         if deg > 1:
             raise NotImplementedError(A9B5B.format(

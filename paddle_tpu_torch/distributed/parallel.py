@@ -16,6 +16,11 @@ the autograd engine by the first parameter's grad, as the reference's
 reducer hooks run. It runs once a backward (a second call is a no-op).
 Inside `no_sync` grads accumulate locally and the next backward outside
 it syncs them all.
+
+An MoE model over more than one rank raises (ROADMAP A9b.3b): a rank
+would route its own rows at its own capacity and take the aux loss of
+its rows alone, which is not the world of one's step over the global
+batch.
 """
 from __future__ import annotations
 
@@ -26,6 +31,7 @@ from torch import nn
 
 from . import collective as coll
 from . import env
+from ..incubate.distributed.models.moe.moe_layer import refuse_moe
 from .comm_bucketer import GradBucketer
 from .env import init_parallel_env  # noqa: F401  (the reference exports it)
 
@@ -63,6 +69,10 @@ class DataParallel(nn.Module):
 
         self._layers = layers
         self._group = group or data_group()
+        if self._group.nranks > 1:
+            # each rank would route its own rows and take its own aux
+            # loss, which the world of one's global batch does not
+            refuse_moe(layers, "DataParallel over more than one rank")
         self.find_unused_parameters = find_unused_parameters
         self._grad_need_sync = True
         self._queued = self._synced = False

@@ -32,6 +32,7 @@ import torch
 from torch import nn
 from torch.utils._pytree import tree_flatten, tree_unflatten
 
+from ...incubate.distributed.models.moe.moe_layer import refuse_moe
 from ..fleet.meta_optimizers.dygraph_sharding_optimizer import \
     DygraphShardingOptimizer
 
@@ -45,6 +46,7 @@ class GroupShardedStage2(nn.Module):
                  sync_buffers=False, buffer_max_size=2 ** 23,
                  auto_refresh_trainable=True, device=None, dp_group=None,
                  comm_bucket_mb=None):
+        refuse_moe(layer, "GroupShardedStage2")
         super().__init__()
         if not isinstance(sharding_optimizer, DygraphShardingOptimizer):
             raise TypeError("GroupShardedStage2 needs the "
@@ -183,6 +185,7 @@ class GroupShardedStage3(nn.Module):
                  sync_buffers=False, device=None, segment_size=2 ** 20,
                  pertrain_sync_models=True, offload=False, sync_comm=False,
                  dp_group=None, exclude_layer=None):
+        refuse_moe(layer, "GroupShardedStage3")
         super().__init__()
         if not isinstance(optimizer, DygraphShardingOptimizer):
             raise TypeError("GroupShardedStage3 needs the "
@@ -454,6 +457,7 @@ def group_sharded_parallel(model, optimizer, level, scaler=None, group=None,
     the clip sums over. Returns ``(model, optimizer, scaler)``."""
     if level not in ("os", "os_g", "p_g_os"):
         raise ValueError(f"bad level {level!r} (os, os_g, p_g_os)")
+    refuse_moe(model, "group_sharded_parallel")
     from ..fleet.topology import get_hybrid_communicate_group
 
     hcg = get_hybrid_communicate_group() if group is None else None

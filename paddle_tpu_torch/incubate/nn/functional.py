@@ -1,15 +1,18 @@
-"""Fused decode-time functionals of ``paddle.incubate.nn.functional``.
+"""Fused functionals of ``paddle.incubate.nn.functional``.
 
-Counterpart of paddle_tpu/incubate/nn/functional.py, so far only
-`masked_multihead_attention`. It has no Pallas kernel in the reference
-(XLA fuses it there), so it is plain PyTorch here.
+Counterpart of paddle_tpu/incubate/nn/functional.py, so far
+`masked_multihead_attention` (the dense decode step), `fused_moe`
+(Mixtral-style top-k over all experts) and `fused_ec_moe` (expert
+choice). None has a Pallas kernel in the reference (XLA fuses them
+there), so they are plain PyTorch here, in the reference's formulation.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-__all__ = ["masked_multihead_attention"]
+__all__ = ["fused_ec_moe", "fused_moe", "masked_multihead_attention"]
 
 
 def _positions(sequence_lengths, b, device):
@@ -100,3 +103,70 @@ def masked_multihead_attention(x, cache_kv=None, bias=None, src_mask=None,
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhk,bhkd->bhd", p, vc)
     return out.reshape(b, nh * d).to(x.dtype), cache_kv
+
+
+def fused_moe(x, gate_weight, ffn1_weight, ffn1_bias, ffn2_weight,
+              ffn2_bias, ffn1_scale=None, ffn2_scale=None,
+              quant_method="None", moe_topk=2, norm_topk_prob=True,
+              name=None):
+    """Mixtral-style MoE FFN (reference functional.py:91): the fp32
+    softmax router over all experts, the top ``moe_topk`` probabilities
+    (renormalized to sum 1 with ``norm_topk_prob``), SwiGLU experts, the
+    outputs summed by those weights. As in the reference every expert
+    runs over every token (batched einsums over the expert dim), the
+    unselected ones weighted 0.
+
+    x [b, s, d]; gate_weight [d, E]; ffn1_weight [E, d, 2 * ff] (gate |
+    up); ffn1_bias [E, 1, 2 * ff]; ffn2_weight [E, ff, d]; ffn2_bias [E,
+    1, d]. Returns [b, s, d]. Quantized weights raise, as there."""
+    if quant_method != "None":
+        raise NotImplementedError(
+            "quantized fused_moe weights are not supported (use "
+            "nn.quant.weight_only_linear per expert)")
+    b, s, d = x.shape
+    t, n_e = b * s, gate_weight.shape[-1]
+    xt = x.reshape(t, d)
+    probs = torch.softmax(xt.float() @ gate_weight.float(), dim=-1)
+    topv, topi = torch.topk(probs, int(moe_topk), dim=-1)
+    if norm_topk_prob:
+        topv = topv / topv.sum(-1, keepdim=True)
+    comb = torch.zeros_like(probs).scatter_add(1, topi, topv)   # [t, E]
+    h1 = torch.einsum("td,edg->teg", xt, ffn1_weight) \
+        + ffn1_bias.reshape(1, n_e, -1)
+    g, u = h1.chunk(2, dim=-1)
+    h2 = torch.einsum("tef,efd->ted", F.silu(g) * u, ffn2_weight) \
+        + ffn2_bias.reshape(1, n_e, -1)
+    out = torch.einsum("te,ted->td", comb.to(h2.dtype), h2)
+    return out.reshape(b, s, d).to(x.dtype)
+
+
+def fused_ec_moe(x, gate, bmm0_weight, bmm0_bias, bmm1_weight, bmm1_bias,
+                 act_type="gelu", name=None):
+    """Expert-choice MoE (reference functional.py:142): each expert takes
+    its ``max(s // 16, 1)`` tokens of highest gate logit in each row,
+    runs its two-layer FFN (exact gelu or relu) on them, and adds the
+    outputs weighted by the tokens' softmax probabilities onto the
+    residual ``x``.
+
+    x [b, s, d]; gate [b, s, e] (logits); bmm0_weight [e, d, ff];
+    bmm0_bias [e, 1, ff]; bmm1_weight [e, ff, d]; bmm1_bias [e, 1, d].
+    Returns [b, s, d]."""
+    if act_type not in ("gelu", "relu"):
+        raise ValueError("act_type must be 'gelu' or 'relu'")
+    b, s, d = x.shape
+    e = gate.shape[-1]
+    cap = max(s // 16, 1)
+    gates = torch.softmax(gate.float(), dim=-1)
+    _, top = torch.topk(gate.transpose(1, 2), cap, dim=-1)  # [b, e, cap]
+    xg = torch.gather(x[:, None].expand(b, e, s, d), 2,
+                      top[..., None].expand(b, e, cap, d))
+    h = torch.einsum("becd,edf->becf", xg, bmm0_weight) \
+        + bmm0_bias[None, :, 0, None]
+    h = F.gelu(h) if act_type == "gelu" else F.relu(h)
+    o = torch.einsum("becf,efd->becd", h, bmm1_weight) \
+        + bmm1_bias[None, :, 0, None]
+    prob = torch.gather(gates.transpose(1, 2), 2, top)       # [b, e, cap]
+    rows = torch.arange(b, device=x.device)[:, None, None].expand_as(top)
+    out = torch.zeros_like(x).index_put(
+        (rows, top), prob[..., None].to(o.dtype) * o, accumulate=True)
+    return out + x

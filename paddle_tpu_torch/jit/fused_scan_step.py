@@ -60,11 +60,15 @@ unrolled model, an optimizer other than Adam/AdamW, amsgrad,
 ``ClipGradByNorm`` and clips of other types, a ``layer_chunk`` that does
 not divide ``num_layers``, and with ``compute_dtype`` parameters not
 stored in fp32. The head adds the draft heads' weighted loss
-(`models.gpt.draft_head_loss`) as the reference's does; the
-reference's MoE aux loss rides models the port refuses (ROADMAP A9b:
-MoE expert parallelism); its
-retrace sentinel, compile
-cache, cost and memory analyses are XLA tools with no counterpart here.
+(`models.gpt.draft_head_loss`) as the reference's does. An MoE model's
+layers return their load-balance aux losses beside their outputs: the
+returned loss adds ``moe_aux_weight / num_layers`` times their sum (the
+forward's values), and each chunk's recompute-and-grad takes that
+weight (times the loss scale) as every aux output's cotangent, so the
+routers' and the experts' grads hold the aux's part, as the reference's
+vjps do. ``ClipGradForMOEByGlobalNorm`` is the global-norm clip here
+(one rank). The reference's retrace sentinel, compile cache, cost and
+memory analyses are XLA tools with no counterpart here.
 """
 from __future__ import annotations
 
@@ -104,6 +108,8 @@ class FusedScanTrainStep:
     def __init__(self, model, optimizer, criterion=None, fused_head=False,
                  compute_dtype=None, layer_chunk=1, scan_unroll=1,
                  scaler=None, guard_nonfinite=None, numerics=None):
+        from ..incubate.distributed.models.moe import (
+            ClipGradForMOEByGlobalNorm)
         from ..models.gpt import GPTPretrainingCriterion, GPTStackedBlocks
         from ..optimizer import _DTYPES, Adam
 
@@ -120,7 +126,8 @@ class FusedScanTrainStep:
         self._clip_value = None      # ClipGradByValue's (min, max)
         clip = opt._grad_clip
         if clip is not None:
-            if type(clip) is ClipGradByGlobalNorm:
+            if type(clip) in (ClipGradByGlobalNorm,
+                              ClipGradForMOEByGlobalNorm):
                 self._clip_global = float(clip.clip_norm)
             elif type(clip) is ClipGradByValue:
                 self._clip_value = (float(clip.min), float(clip.max))
@@ -168,6 +175,9 @@ class FusedScanTrainStep:
                         "compute_dtype expects fp32-stored params (the "
                         f"param IS the master); got {p.dtype}")
         self._dropout = float(cfg.hidden_dropout_prob or 0.0)
+        # an MoE layer's aux loss weighs moe_aux_weight / L in the loss
+        self._aux_w = (cfg.moe_aux_weight / cfg.num_layers
+                       if cfg.num_experts else None)
         self._guard = (GuardSpec(scaler)
                        if (scaler is not None or guard_nonfinite) else None)
         self._guard_state = None
@@ -208,9 +218,17 @@ class FusedScanTrainStep:
     def _chunk(self, layers, h, seg):
         """The chunk's layers, each over its leaves (one slice per stacked
         parameter, in the template's order)."""
+        return self._chunk_aux(layers, h, seg)[0]
+
+    def _chunk_aux(self, layers, h, seg):
+        """`_chunk`'s (output, [each MoE layer's aux loss])."""
+        auxs = []
         for leaves in layers:
             h = self._blocks.layer(h, seg, *[self._cc(t) for t in leaves])
-        return h
+            if self._aux_w is not None:
+                h, aux = h
+                auxs.append(aux)
+        return h, auxs
 
     def _head(self, o, x, labels):
         from ..models.gpt import draft_head_loss, fused_lm_loss
@@ -299,7 +317,7 @@ class FusedScanTrainStep:
                     for i in range(c * K, (c + 1) * K) for t in ts]
 
         # 1. forward without autograd, keeping each chunk's input
-        states, xs = [], []
+        states, xs, auxs = [], [], []
         act_sq, act_origin = [], []
         with torch.no_grad():
             if rng:
@@ -310,7 +328,8 @@ class FusedScanTrainStep:
                 if rng:
                     states.append(_rng_state(dev))
                 xs.append(h)
-                h = self._chunk(chunk_layers(c, False), h, seg)
+                h, c_aux = self._chunk_aux(chunk_layers(c, False), h, seg)
+                auxs += c_aux
                 if nm:
                     sq = torch.linalg.vector_norm(
                         h, dtype=torch.float32).square()
@@ -330,6 +349,14 @@ class FusedScanTrainStep:
             allow_unused=True)
         dy, head_g = head[0], head[1:]
         del xL, o_leaves
+        aux_ct = None
+        if auxs:
+            # the reported loss holds the forward's aux losses; their
+            # cotangent goes into every chunk's grads
+            loss = loss.detach() + self._aux_w * torch.stack(auxs).sum()
+            aux_ct = torch.full((), self._aux_w, device=dev)
+            if scale is not None:
+                aux_ct = aux_ct * scale
 
         def chunk_grads(c, dy):
             """Chunk ``c`` recomputed with autograd from its input, under
@@ -339,10 +366,11 @@ class FusedScanTrainStep:
             with torch.random.fork_rng(devices=forked, enabled=rng):
                 if rng:
                     _set_rng_state(dev, states[c])
-                out = self._chunk(layers, x, seg)
+                out, c_aux = self._chunk_aux(layers, x, seg)
             got = torch.autograd.grad(
-                out, [x] + [leaves[i] for leaves in layers for i in train],
-                dy)
+                [out] + c_aux,
+                [x] + [leaves[i] for leaves in layers for i in train],
+                [dy] + [aux_ct.to(a.dtype) for a in c_aux])
             return list(got[1:]), got[0]
 
         def outer_grads(dx0):

@@ -75,7 +75,8 @@ import torch
 from ..distributed import collective as coll
 from ..distributed.comm_bucketer import pack, unpack
 from ..distributed.fleet.meta_parallel.spmd_pipeline import Ring
-from .sharded_scan import ShardedFusedScanTrainStep
+from ..incubate.distributed.models.moe.moe_layer import has_moe
+from .sharded_scan import ShardedFusedScanTrainStep, _unwrap_layers
 
 __all__ = ["PipelineScanTrainStep"]
 
@@ -96,6 +97,13 @@ class PipelineScanTrainStep(ShardedFusedScanTrainStep):
 
     def __init__(self, model, optimizer, criterion=None, pp_axis=None,
                  num_micro=2, mesh=None, axis=None, **kw):
+        if has_moe(_unwrap_layers(model)):
+            # the reference refuses it too (its pipeline_step.py:124-130)
+            raise ValueError(
+                "MoE blocks under pipeline parallelism are not supported, "
+                "as in the reference: the ring schedule does not thread "
+                "the per-chunk aux-loss output. Train an MoE model with "
+                "FusedScanTrainStep (its ep axis: ROADMAP A9b.3b)")
         self._pp_axis_arg = pp_axis
         self._num_micro = int(num_micro)
         super().__init__(model, optimizer, criterion=criterion, mesh=mesh,
@@ -114,13 +122,6 @@ class PipelineScanTrainStep(ShardedFusedScanTrainStep):
                 "round-robin virtual-stage placement needs C % pp == 0")
         if self._num_micro < 1:
             raise ValueError("num_micro must be >= 1")
-        if getattr(self.model.config, "num_experts", 0):
-            raise ValueError(
-                "MoE blocks under pipeline parallelism are not "
-                "supported: the ring schedule does not thread the "
-                "per-chunk aux-loss output (and expert all_to_alls "
-                "inside ring ticks are unvalidated) — train MoE models "
-                "on a dp or dp×ep mesh (ShardedFusedScanTrainStep)")
         mesh = self._mesh
         self.pp_group = coll.new_group(axes=(self._pp_axis,), mesh=mesh)
         self._ring = Ring(self.pp_group)

@@ -98,9 +98,11 @@ subclass) adds the ``pp`` axis to the group the grads scatter over
 pipeline ring; `select_train_step` routes a scan GPT on a mesh whose pp
 degree is above 1 there.
 
-Refused, naming ROADMAP A9b: ``ep_axis`` and a mesh with an ep degree
-above 1, a sep degree above 1 (A9b.5b), and a pp degree above 1 here
-(the pipelined step takes it); `select_train_step` also refuses
+Refused, naming ROADMAP A9b: ``ep_axis``, a mesh with an ep degree
+above 1 and an MoE model (A9b.3b: its aux loss is not threaded through
+this step; `select_train_step` gives a world of one `FusedScanTrainStep`,
+which trains it), a sep degree above 1 (A9b.5b), and a pp degree above
+1 here (the pipelined step takes it); `select_train_step` also refuses
 ``auto=True`` (the auto-tuner, A9b.6).
 """
 from __future__ import annotations
@@ -119,6 +121,7 @@ from ..distributed.fleet.layers.mpu.mp_layers import (ColumnParallelLinear,
                                                        RowParallelLinear)
 from ..distributed.fleet.layers.mpu.mp_ops import c_identity
 from ..distributed.fleet.layers.mpu.roles import assign_roles, is_fused_proj
+from ..incubate.distributed.models.moe.moe_layer import A9B3B, refuse_moe
 from ..nn.clip import norm_stats
 from ..observability.numerics import assemble_stats, outer_row
 from ..ops.kernels.fused_cross_entropy import sharded_fused_cross_entropy
@@ -148,7 +151,7 @@ def _mesh_axes(mesh, axis=None, mp_axis=None, extra=()):
     degree above 1 needs the pipelined step (``extra`` names the axes it
     adds)."""
     if mesh.shape.get("ep", 1) > 1:
-        raise NotImplementedError(A9B.format("the ep axis"))
+        raise NotImplementedError(A9B3B.format("the ep axis"))
     if mesh.shape.get("sep", 1) > 1:
         raise NotImplementedError(
             "the sep axis under the fused scan steps is not ported yet: "
@@ -203,8 +206,9 @@ class ShardedFusedScanTrainStep(FusedScanTrainStep):
                  scaler=None, guard_nonfinite=None, param_storage=None,
                  numerics=None):
         if ep_axis is not None:
-            raise NotImplementedError(A9B.format("ep_axis (MoE experts)"))
+            raise NotImplementedError(A9B3B.format("ep_axis (MoE experts)"))
         model = _unwrap_layers(model)
+        refuse_moe(model, "ShardedFusedScanTrainStep")
         super().__init__(model, optimizer, criterion=criterion,
                          fused_head=fused_head, compute_dtype=compute_dtype,
                          layer_chunk=layer_chunk, scan_unroll=scan_unroll,
@@ -954,7 +958,7 @@ def select_train_step(model, optimizer, criterion=None, mesh=None,
         raise NotImplementedError(
             A9B.format("the auto-tuner (auto=True, A9b.6)"))
     if ep_axis is not None:
-        raise NotImplementedError(A9B.format("ep_axis (MoE experts)"))
+        raise NotImplementedError(A9B3B.format("ep_axis (MoE experts)"))
     layers = _unwrap_layers(model)
     if is_scan_gpt(layers):
         if group is None:

@@ -52,7 +52,20 @@ reference, which falls back to dense attention there: attention
 dropout, segment ids, a ``scan_layers`` stack and draft heads under a
 sep degree above 1 raise, naming ROADMAP A9b.5b.
 
-Not ported yet, and refused by `GPTConfig`: MoE (A9b.3).
+``num_experts=E`` makes every block's MLP an `MoEBlock` (the
+reference's mixture of experts on one rank: `incubate.distributed.
+models.moe.MoELayer` over E `ExpertFFN`s of the MLP's geometry, the
+``moe_gate`` rule, ``moe_capacity_factor``), under the reference's names
+(``gpt.blocks.{i}.mlp.moe.gate_weight``, ``...experts__fc1__weight``
+``[E, in, out]``, ...; stacked ``[L, E, ...]`` under ``blocks__mlp__moe__``
+in a scan model). Such a block returns ``(x, aux)``, its load-balance
+aux loss beside its output, so the aux reaches the loss's graph through
+a recomputed block too; ``loss`` adds ``moe_aux_weight`` times the
+layers' mean (`GPTModel.moe_aux`), and `jit.FusedScanTrainStep` the
+same. Generation runs the blocks' MoE as the reference's does, the
+capacity from each call's own token count. The ep axis, and an MoE
+model under a sep degree above 1 or the distributed steps, are ROADMAP
+A9b.3b and raise.
 """
 from __future__ import annotations
 
@@ -71,6 +84,8 @@ from ..distributed.fleet.meta_parallel.ring_attention import (
     ring_attention, sep_gathered_attention, sep_group)
 from ..distributed.fleet.recompute import POLICIES, recompute
 from ..framework.device import resolve_device
+from ..incubate.distributed.models.moe.moe_layer import (A9B3B, ExpertFFN,
+                                                         MoELayer)
 from ..incubate.nn import functional as IF
 from ..inference.kv_cache import (decode_plan, dense_write_chunk,
                                   dense_write_prefill,
@@ -109,8 +124,12 @@ class GPTConfig:
     draft_head_loss_weight: float = 0.1
     # attention over the sep group's ring (module docstring)
     use_ring_attention: bool = False
-    # accepted for the reference's signature, refused until its slice
+    # mixture-of-experts FFN (module docstring): the aux loss weighs
+    # moe_aux_weight in `loss`
     num_experts: int = 0
+    moe_capacity_factor: float = 2.0
+    moe_gate: str = "gshard"            # "gshard" (top-2), "switch" (top-1)
+    moe_aux_weight: float = 1e-2
 
     def __post_init__(self):
         if not self.intermediate_size:
@@ -119,10 +138,6 @@ class GPTConfig:
             raise ValueError(
                 f"unknown recompute policy {self.recompute_policy!r}; use "
                 f"'dots' or 'nothing'/'full'")
-        if self.num_experts > 0:
-            raise NotImplementedError(
-                "GPTConfig(num_experts>0) is not ported yet: ROADMAP queue "
-                "A9b.3 (MoE)")
 
 
 # sizes follow the GPT-3 paper table
@@ -295,8 +310,31 @@ class GPTMLP(nn.Module):
         return self.fc2(F.gelu(self.fc1(x), approximate="tanh"))
 
 
+class MoEBlock(nn.Module):
+    """The MoE variant of `GPTMLP` (reference gpt.py:394): an `MoELayer`
+    over ``num_experts`` `ExpertFFN`s of the MLP's geometry. ``forward``
+    gives the output and leaves the layer's aux loss in ``l_aux``."""
+
+    def __init__(self, config: GPTConfig, device=None, dtype=None):
+        super().__init__()
+        h = config.hidden_size
+        self.moe = MoELayer(
+            h, [ExpertFFN(h, config.intermediate_size, device=device,
+                          dtype=dtype) for _ in range(config.num_experts)],
+            gate=config.moe_gate,
+            capacity_factor=config.moe_capacity_factor)
+
+    @property
+    def l_aux(self):
+        return self.moe.l_aux
+
+    def forward(self, x):
+        return self.moe(x)
+
+
 class GPTBlock(nn.Module):
-    """Pre-LN transformer decoder block."""
+    """Pre-LN transformer decoder block. With experts (an `MoEBlock` for
+    ``mlp``) ``forward`` returns ``(x, aux)``."""
 
     def __init__(self, config: GPTConfig, **factory):
         super().__init__()
@@ -304,14 +342,19 @@ class GPTBlock(nn.Module):
         self.ln_1 = LayerNorm(config.hidden_size, eps=eps, **factory)
         self.attn = GPTAttention(config, **factory)
         self.ln_2 = LayerNorm(config.hidden_size, eps=eps, **factory)
-        self.mlp = GPTMLP(config, **factory)
+        self.moe = config.num_experts > 0
+        self.mlp = (MoEBlock(config, **factory) if self.moe
+                    else GPTMLP(config, **factory))
         self.dropout = nn.Dropout(config.hidden_dropout_prob)
         self.use_recompute = config.use_recompute
         self.recompute_policy = config.recompute_policy
 
     def _inner(self, x, segment_ids):
         x = x + self.dropout(self.attn(self.ln_1(x), segment_ids))
-        return x + self.dropout(self.mlp(self.ln_2(x)))
+        if not self.moe:
+            return x + self.dropout(self.mlp(self.ln_2(x)))
+        y, aux = self.mlp.moe.forward_aux(self.ln_2(x))
+        return x + self.dropout(y), aux
 
     def forward(self, x, segment_ids=None):
         if self.use_recompute and self.training:
@@ -370,16 +413,20 @@ class GPTStackedBlocks(nn.Module):
 
     def layer(self, x, segment_ids, *leaves):
         """One layer over ``leaves`` (one tensor per stacked parameter,
-        in the template's order), in the template's current mode."""
+        in the template's order), in the template's current mode; with
+        experts ``(x, aux)``."""
         return functional_call(
             self._template,
             {pname: t for (_, pname), t in zip(self._stacked_names, leaves)},
             (x, segment_ids))
 
     def forward(self, x, segment_ids=None):
+        """The stack's output; with experts ``(x, [aux of each
+        layer])``."""
         cfg = self.config
         self._template.train(self.training)
         stacked = self.stacked()
+        auxs = []
         for i in range(cfg.num_layers):
             leaves = [s[i] for s in stacked]
             if cfg.use_recompute and self.training:
@@ -387,7 +434,10 @@ class GPTStackedBlocks(nn.Module):
                               policy=cfg.recompute_policy)
             else:
                 x = self.layer(x, segment_ids, *leaves)
-        return x
+            if self._template.moe:
+                x, aux = x
+                auxs.append(aux)
+        return (x, auxs) if self._template.moe else x
 
 
 class GPTModel(nn.Module):
@@ -406,6 +456,7 @@ class GPTModel(nn.Module):
                                          for _ in range(config.num_layers)])
         self.ln_f = LayerNorm(config.hidden_size,
                               eps=config.layer_norm_epsilon, **factory)
+        self.last_moe_aux = None
 
     def _embed(self, input_ids, position_ids):
         # a padded chunk tail or a decode slot saturated at the engine
@@ -427,17 +478,35 @@ class GPTModel(nn.Module):
             raise NotImplementedError(
                 "a scan_layers GPT under a sep degree above 1 is not ported "
                 "yet: ROADMAP A9b.5b")
+        if sep is not None and self.config.num_experts:
+            raise NotImplementedError(A9B3B.format(
+                "an MoE GPT under a sep degree above 1"))
         if position_ids is None:
             start = 0 if sep is None else sep.rank * s
             position_ids = torch.arange(start, start + s,
                                         device=input_ids.device)[None]
         x = self.drop(self._embed(input_ids, position_ids))
+        moe = self.config.num_experts > 0
+        auxs = []
         if self.config.scan_layers:
             x = self.blocks(x, segment_ids)
+            if moe:
+                x, auxs = x
         else:
             for block in self.blocks:
                 x = block(x, segment_ids)
+                if moe:
+                    x, aux = x
+                    auxs.append(aux)
+        self.last_moe_aux = sum(auxs[1:], auxs[0]) / len(auxs) if moe \
+            else None
         return self.ln_f(x)
+
+    def moe_aux(self):
+        """The layers' mean MoE load-balance aux loss of the last
+        ``forward`` (None for a dense model): what `GPTForCausalLM.loss`
+        weighs by ``moe_aux_weight``."""
+        return self.last_moe_aux
 
     def _check_decodable(self):
         if self.config.scan_layers:
@@ -510,7 +579,8 @@ class GPTForCausalLM(nn.Module):
     The weights are drawn on ``device`` from ``torch.Generator`` seeded
     with ``seed``, as the reference initialises them: normal(0,
     ``initializer_range``) for matrices, the residual projections
-    (out_proj, fc2) scaled by 1/sqrt(2 * num_layers), zero biases and
+    (out_proj, fc2, the experts' fc2 stacks) scaled by 1/sqrt(2 *
+    num_layers), zero biases (an expert stack's too) and
     unit LayerNorm scales (a stacked parameter of a scan model by the
     rank of its layer's slice)."""
 
@@ -537,15 +607,15 @@ class GPTForCausalLM(nn.Module):
         std = self.config.initializer_range
         resid = 1.0 / math.sqrt(2.0 * self.config.num_layers)
         for name, p in self.named_parameters():
-            if name.startswith("draft_heads."):
+            if name.startswith("draft_heads.") or name.endswith("bias"):
+                # an expert bias stack [E, out] stays zero too
                 p.zero_()
             elif p.ndim - ("blocks__" in name) >= 2:
                 p.normal_(0.0, std, generator=gen)
+                # the residual projections, the experts' fc2 stacks too
                 if name.endswith(("out_proj.weight", "fc2.weight",
                                   "out_proj__weight", "fc2__weight")):
                     p.mul_(resid)
-            elif name.endswith("bias"):
-                p.zero_()
             else:
                 p.fill_(1.0)
 
@@ -652,6 +722,9 @@ class GPTForCausalLM(nn.Module):
         # is an [hidden, vocab] Paddle Linear with transpose_y=False)
         w = self.head_weight()
         loss = fused_lm_loss(hidden, w, True, labels, loss_mask)
+        aux = self.gpt.moe_aux()
+        if aux is not None:
+            loss = loss + self.config.moe_aux_weight * aux
         if self.draft_heads is not None:
             loss = loss + self.config.draft_head_loss_weight \
                 * draft_head_loss(self, hidden, w, True, labels, loss_mask)

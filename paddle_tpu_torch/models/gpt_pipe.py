@@ -47,6 +47,7 @@ from ..distributed.fleet.meta_parallel.ring_attention import sep_group
 from ..distributed.fleet.meta_parallel.spmd_pipeline import (
     _pipe_group, microbatch, pipeline_spmd, pipeline_spmd_zb, unmicrobatch)
 from ..framework.device import resolve_device
+from ..incubate.distributed.models.moe.moe_layer import A9B3B
 from .gpt import GPTBlock, GPTConfig, LayerNorm
 
 __all__ = ["GPTForCausalLMPipe", "gpt_pipe_sharding_rules"]
@@ -73,6 +74,9 @@ class GPTForCausalLMPipe(nn.Module):
       group: the pipeline group (default: the fleet's pipe group, else
         the world); this rank's stage is its rank there.
       use_zero_bubble: the dW-deferred ring (`pipeline_spmd_zb`).
+
+    A config with experts raises, naming ROADMAP A9b.3b: the ring threads
+    no aux loss (the reference refuses MoE under pp too).
     """
 
     def __init__(self, config: GPTConfig, num_stages, num_micro,
@@ -80,6 +84,10 @@ class GPTForCausalLMPipe(nn.Module):
                  device=None, dtype=torch.float32, seed=0):
         super().__init__()
         _refuse_sep()
+        if config.num_experts:
+            # the ring threads no aux loss, as the reference's does not
+            raise NotImplementedError(A9B3B.format(
+                "GPTForCausalLMPipe with experts (MoE under pp)"))
         self.use_zero_bubble = bool(use_zero_bubble)
         if use_zero_bubble and num_chunks != 1:
             raise ValueError("zero-bubble supports num_chunks=1 only")

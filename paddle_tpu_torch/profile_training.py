@@ -11,6 +11,8 @@
         [--batch B]
     python -m paddle_tpu_torch.profile_training --bert [--seq S] \
         [--batch B]
+    python -m paddle_tpu_torch.profile_training --moe [--seq S] \
+        [--batch B]
 
 Builds the configuration of ``chip_smoke.py`` phases 9-10 (GPT-3 1.3B
 width, bf16 weights from seed 0, fp32 masters, bf16 AdamW moments,
@@ -79,6 +81,18 @@ elements, the score matrix), the fused CE, the other matrix products,
 the optimizer (the kernels inside ``opt.step()``), the numerics monitor
 (busy time on minus off) and the rest (RMSNorm, RoPE, SwiGLU, the
 residual adds, the embedding).
+
+``--moe`` profiles ``chip_smoke.py`` phase 31(b)'s step (GPT-3 1.3B's
+widths at 8 of 24 layers with 8 experts a layer, gshard, capacity factor
+2, weights from seed 0, through phase 14's `jit.FusedScanTrainStep`
+configuration, the numerics monitor on) and splits it into attention
+(splash), the fused CE, the experts' batched products (kernels launched
+under an ``aten::bmm`` / ``aten::baddbmm`` or under their backward:
+only the experts' products are batched there), the routing (the gate's
+softmax, argmax and slot counts, the dispatch's and the combine's row
+copies: kernels under those operators or their backward), the other
+matrix products (the Linear layers' and the router's), the optimizer
+(``mt_adam_kernel``) and the rest (the monitor, norms, gelu, adds).
 """
 from __future__ import annotations
 
@@ -218,6 +232,88 @@ def profile_fused_scan(batch, seq, steps):
         "step": "FusedScanTrainStep", "model": "gpt3-1.3b",
         "seq": seq, "batch": batch, "steps": steps,
         **on, "numerics_off": off}))
+
+
+MOE_LAYERS, MOE_EXPERTS = 8, 8
+# the operators (lower case) of the MoE routing, forward and backward
+_ROUTING = ("softmax", "cumsum", "argmax", "index_copy", "indexcopy",
+            "index_select", "indexselect", "index_add", "gather",
+            "aten::where", "aten::eq", "aten::lt")
+
+
+def build_moe(batch=8, seq=1024, seed=0):
+    """(step, ids, labels) of ``chip_smoke.py`` phase 31(b)."""
+    cfg = gpt_config("gpt3-1.3b", num_layers=MOE_LAYERS,
+                     num_experts=MOE_EXPERTS, scan_layers=True,
+                     use_recompute=True, recompute_policy="dots",
+                     max_position_embeddings=seq, hidden_dropout_prob=0.0,
+                     attention_dropout_prob=0.0)
+    model = GPTForCausalLM(cfg, seed=seed)
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                moment_dtype="bfloat16")
+    step = FusedScanTrainStep(model, opt,
+                              criterion=GPTPretrainingCriterion(),
+                              fused_head=True, compute_dtype="bfloat16",
+                              layer_chunk=1)
+    rng = np.random.default_rng(seed)
+    dev = next(model.parameters()).device
+    ids = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                        (batch, seq))).to(dev)
+    labels = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                           (batch, seq))).to(dev)
+    return step, ids, labels
+
+
+def _moe_group(ev):
+    """"experts" or "routing" for a kernel launched under ``ev`` (by
+    ``ev`` or an operator around it), else None."""
+    while ev is not None:
+        name = ev.name.lower()
+        if "bmm" in name:
+            return "experts"
+        if any(r in name for r in _ROUTING):
+            return "routing"
+        ev = ev.cpu_parent
+    return None
+
+
+def profile_moe(batch, seq, steps):
+    """One JSON line: phase 31(b)'s MoE step by column (module
+    docstring)."""
+    step, ids, labels = build_moe(batch, seq)
+    kernels, prof, wall = _profile(step, (ids, labels), steps)
+    busy = sum(us for us, _ in kernels.values()) / 1e6 / steps
+    groups = {"experts": 0.0, "routing": 0.0, "gemm": 0.0}
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CPU:
+            continue
+        for k in ev.kernels:
+            g = _moe_group(ev)
+            if g is None and any(m in k.name.lower() for m in _GEMM):
+                g = "gemm"
+            if g is not None:
+                groups[g] += k.duration / 1e6 / steps
+
+    def share(names):
+        return sum(us for key, (us, _) in kernels.items()
+                   if any(n in key.lower() for n in names)) / 1e6 / steps
+
+    cols = {"attention_s_per_step": share(("splash",)),
+            "fused_ce_s_per_step": share(("fused_ce",)),
+            "expert_products_s_per_step": groups["experts"],
+            "routing_s_per_step": groups["routing"],
+            "gemm_s_per_step": groups["gemm"],
+            "optimizer_s_per_step": share(("mt_adam_kernel",))}
+    print(json.dumps({
+        "device": torch.cuda.get_device_name(0),
+        "step": "FusedScanTrainStep", "model": "gpt3-1.3b widths, MoE",
+        "layers": MOE_LAYERS, "experts": MOE_EXPERTS, "seq": seq,
+        "batch": batch, "steps": steps,
+        "wall_s_per_step": wall / steps, "device_busy_s_per_step": busy,
+        "device_idle_share": 1.0 - busy * steps / wall,
+        "kernels_per_step": sum(n for _, n in kernels.values()) / steps,
+        **cols, "other_s_per_step": busy - sum(cols.values()),
+        "top_kernels": _top(kernels)}))
 
 
 def profile_sharded(batch, seq, steps, storage):
@@ -578,6 +674,9 @@ def main(argv=None):
                     help="BERT-base's bf16 O2 fine-tune step "
                          "(chip_smoke.py phase 20); --seq defaults to "
                          "128, --batch to 32")
+    ap.add_argument("--moe", action="store_true",
+                    help="phase 31(b)'s MoE fused-scan step (GPT-3 1.3B's "
+                         "widths, 8 layers, 8 experts)")
     ap.add_argument("--fused-scan", action="store_true",
                     help="GPT-3 1.3B through FusedScanTrainStep "
                          "(chip_smoke.py phase 14), the numerics monitor "
@@ -607,6 +706,9 @@ def main(argv=None):
         return
     if args.bert:
         profile_bert(args.batch or 32, args.seq or 128, args.steps)
+        return
+    if args.moe:
+        profile_moe(args.batch or 8, args.seq or 1024, args.steps)
         return
     args.batch, args.seq = args.batch or 8, args.seq or 1024
     step, ids, labels = build(args.batch, args.seq,

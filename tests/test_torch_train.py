@@ -548,6 +548,19 @@ def test_config_refuses_what_later_slices_own(field, value):
         assert len(heads) == 2
         assert all((p == 0).all() for p in heads.parameters())
         return
+    if field == "num_experts":
+        # ported since (ROADMAP A9b.3): every block's MLP is an MoEBlock
+        # under the reference's names, its defaults the reference's
+        cfg = GPTConfig(**{**TINY, field: value})
+        assert (cfg.moe_capacity_factor, cfg.moe_gate,
+                cfg.moe_aux_weight) == (2.0, "gshard", 1e-2)
+        tm = GPTForCausalLM(cfg, device="cpu")
+        assert tuple(tm.gpt.blocks[1].mlp.moe.experts__fc1__weight.shape) \
+            == (4, TINY["hidden_size"], 4 * TINY["hidden_size"])
+        ids = torch.randint(0, TINY["vocab_size"], (2, 8))
+        assert torch.isfinite(tm.loss(ids, ids)) and \
+            tm.gpt.moe_aux() is not None
+        return
     if field == "use_ring_attention":
         # ported since (ROADMAP A9b.5): accepted; at a world of one (no
         # sep group) the model is the dense one, as the reference's
